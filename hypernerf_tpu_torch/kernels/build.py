@@ -1,0 +1,116 @@
+"""Build and load the CUDA kernels: ``nvcc`` into one shared library with a
+plain C interface, bound with ``ctypes``.
+
+The library is built at first use from ``kernels/csrc/`` alone, into
+``build/kernels/`` at the repository root, under a name keyed on a hash of
+the sources and flags — so a fresh checkout builds once and an edited
+source never loads a stale binary. Nothing is built or imported when this
+module is imported.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent / 'csrc'
+BUILD_DIR = Path(__file__).resolve().parents[2] / 'build' / 'kernels'
+NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
+              '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v')
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_L = ctypes.c_longlong
+# C entry points: name -> (argtypes, restype).
+_SIGNATURES = {
+    'hn_fused_level_fwd': ([_P] * 8 + [_L, _I, _P], _I),
+    'hn_fused_level_layout': ([_P, _P, _I], _I),
+    'hn_fused_composite_fwd': ([_P] * 7 + [_L, _I, _I, _I, _I, _P], _I),
+    'hn_error_string': ([_I], ctypes.c_char_p),
+}
+
+
+def _sources():
+    return sorted(p for p in CSRC.iterdir() if p.suffix in ('.cu', '.cuh'))
+
+
+def library_path() -> Path:
+    """Where the library for the current sources lives (built or not)."""
+    h = hashlib.sha256(' '.join(NVCC_FLAGS).encode())
+    for src in _sources():
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return BUILD_DIR / f'libhypernerf_kernels_{h.hexdigest()[:16]}.so'
+
+
+def _nvcc() -> str:
+    nvcc = shutil.which('nvcc') or '/usr/local/cuda/bin/nvcc'
+    if not os.path.exists(nvcc):
+        raise RuntimeError('nvcc not found: the CUDA kernels are built with '
+                           'the CUDA toolkit on the machine with the card')
+    return nvcc
+
+
+def build() -> Path:
+    """Compile the sources if this hash has no library yet; returns its
+    path. The compiler's report (registers, shared memory, spills) is kept
+    beside it as ``<name>.log``."""
+    so = library_path()
+    if so.exists():
+        return so
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    cu = [str(p) for p in _sources() if p.suffix == '.cu']
+    fd, tmp = tempfile.mkstemp(suffix='.so', dir=BUILD_DIR)
+    os.close(fd)
+    try:
+        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, '-o', tmp, *cu],
+                              capture_output=True, text=True, check=False)
+        so.with_suffix('.log').write_text(proc.stdout + proc.stderr)
+        if proc.returncode != 0:
+            raise RuntimeError(f'nvcc failed ({proc.returncode}):\n'
+                               f'{proc.stderr[-4000:]}')
+        os.replace(tmp, so)
+    finally:
+        if os.path.exists(tmp):
+            os.remove(tmp)
+    return so
+
+
+def build_log() -> str:
+    """The compiler's report for the current library ('' if not built)."""
+    log = library_path().with_suffix('.log')
+    return log.read_text() if log.exists() else ''
+
+
+@functools.cache
+def library() -> ctypes.CDLL:
+    """The loaded kernel library, built first if needed."""
+    lib = ctypes.CDLL(str(build()))
+    for name, (argtypes, restype) in _SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = restype
+    return lib
+
+
+def check_tensor(name: str, t, shape, dtype, device) -> None:
+    """Raise unless ``t`` is a contiguous ``dtype`` tensor of ``shape`` on
+    ``device`` — what a kernel's pointer arithmetic assumes."""
+    if t.device != device or t.dtype != dtype or tuple(t.shape) != shape \
+            or not t.is_contiguous():
+        raise ValueError(f'{name}: want {dtype} {shape} contiguous on '
+                         f'{device}, got {t.dtype} {tuple(t.shape)} on '
+                         f'{t.device} (contiguous={t.is_contiguous()})')
+
+
+def check(code: int, name: str) -> None:
+    """Raise if a C entry point returned a CUDA error code."""
+    if code != 0:
+        msg = library().hn_error_string(code).decode()
+        raise RuntimeError(f'{name}: CUDA error {code}: {msg}')
