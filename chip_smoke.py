@@ -4,9 +4,14 @@
 Phases, one line each; any failure ends the run with a non-zero exit:
   1. a CUDA card (else exit 1); its name and power limit from nvidia-smi;
   2. build the kernels from kernels/csrc with nvcc (sm_90a), with the time;
-  3. the level kernel against its plain version at the flagship widths;
+  3. the level kernel at the flagship widths and at probe weights whose
+     warp and hyper heads are large enough that those 14 layers move the
+     output: against the JAX kernel's stored outputs (tests/data), and
+     against its plain version at 512 and 37 rays and at the render's
+     shapes (8192 rays at S = 64 and 128), which are also timed;
   4. the compositing kernel against its plain version (fine draw N = 64
-     and 128, and no draw);
+     and 128, and no draw), at 1024 and 37 rays and at the render's shapes
+     (8192 rays, S = 64 N = 64 and S = 128 N = 0), which are also timed;
   5. the render: full 504x378 frames of the flagship (64 + 64 samples,
      full widths, seeded init) through the renderer that
      ``python -m hypernerf_tpu_torch.eval`` uses, on LLFF spiral NDC rays;
@@ -29,7 +34,11 @@ import time
 # summation order inside each product, which now and then moves a hidden
 # activation across a bf16 rounding boundary (one bf16 ulp, 2^-8 relative);
 # over 30 layers such flips leave differences of a few 1e-3 on outputs of
-# order 1 (measured on an H100: max 2.0e-3, mean 1.2e-5). Allowed:
+# order 1; a flip in a warp layer moves the warped point, which the 2^9
+# posenc band amplifies (measured on an H100 with the warp and hyper heads
+# scaled up as the probe weights have them: max 7.1e-3, mean 6.0e-5; 2.0e-3
+# and 1.2e-5 at the init). The JAX kernel rounds at the same points.
+# Allowed:
 # |kernel - plain| <= 1e-2 + 1e-2 |plain| everywhere and a mean below 1e-4.
 LEVEL_ATOL, LEVEL_RTOL, LEVEL_MEAN = 1e-2, 1e-2, 1e-4
 # Composite: fp32 both ways, sequential sums against torch's reductions:
@@ -41,7 +50,6 @@ COMPOSITE_ATOL = 1e-4
 # Whole render, kernels vs plain versions, fine rgb in [0, 1].
 RENDER_ATOL, RENDER_MEAN = 5e-2, 2e-3
 
-W, H = 504, 378
 CHUNK = 8192
 N_FRAMES = 2
 
@@ -66,22 +74,12 @@ def cuda_ms(fn, iters: int = 10) -> float:
     return start.elapsed_time(end) / iters
 
 
-def level_inputs(model, n_rays: int, samples: int, seed: int):
+def level_inputs(n_rays: int, samples: int, seed: int):
+    """The level's inputs (flagship.probe_inputs) on the card."""
     import torch
-    from hypernerf_tpu_torch.ops.posenc import posenc_orig
-    g = torch.Generator().manual_seed(seed)
-    origins = torch.randn(n_rays, 3, generator=g) * 0.1
-    dirs = torch.randn(n_rays, 3, generator=g)
-    dirs = dirs / dirs.norm(dim=-1, keepdim=True)
-    z = torch.sort(torch.rand(n_rays, samples, generator=g), dim=-1)[0]
-    ids = torch.randint(0, model.config.num_embeddings, (n_rays, 1),
-                        generator=g)
-    dev = next(model.parameters()).device
-    origins, dirs, z, ids = (t.to(dev).contiguous()
-                             for t in (origins, dirs, z, ids))
-    embed = model.warp_embed(ids)
-    rgb_cond = posenc_orig(dirs, model.config.dir_freq)
-    return z, origins, dirs, embed, rgb_cond
+    from hypernerf_tpu_torch.flagship import probe_inputs
+    return [torch.from_numpy(v).cuda()
+            for v in probe_inputs(n_rays, samples, seed).values()]
 
 
 def composite_inputs(n_rays: int, samples: int, n_fine: int, seed: int,
@@ -101,24 +99,6 @@ def composite_inputs(n_rays: int, samples: int, n_fine: int, seed: int,
             for t in (packed, z, dirs, u)]
 
 
-def llff_rays(frames):
-    """Spiral test-path NDC rays of a forward-facing LLFF camera (numpy,
-    the JAX package's dataset code), (H*W, 9) per frame."""
-    import numpy as np
-    from hypernerf_tpu.datasets.llff import create_spiral_poses
-    from hypernerf_tpu.datasets.rays import (get_ndc_rays, get_ray_directions,
-                                             get_rays, make_ray_tensor)
-    focal = 407.5
-    poses = create_spiral_poses(np.array([0.3, 0.2, 0.1]), 3.5, 120)
-    directions = get_ray_directions(H, W, focal)
-    out = []
-    for i in frames:
-        o, d = get_rays(directions, poses[i].astype(np.float32))
-        o, d = get_ndc_rays(H, W, focal, 1.0, o, d)
-        out.append(make_ray_tensor(o, d, 0.0, 1.0, idx=i % 100))
-    return out
-
-
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -132,11 +112,13 @@ def main() -> int:
     phase(f'[1] card: {torch.cuda.get_device_name(0)}; torch '
           f'{torch.__version__} cuda {torch.version.cuda}')
 
-    from hypernerf_tpu.configs import NerfConfig
+    from hypernerf_tpu_torch.flagship import (H, W, flagship_model,
+                                              load_probe_weights,
+                                              read_level_reference,
+                                              spiral_rays)
     from hypernerf_tpu_torch.kernels import (build, fused_composite,
                                              fused_composite_plain,
                                              fused_level, fused_level_plain)
-    from hypernerf_tpu_torch.models.nerf import NerfModel
     from hypernerf_tpu_torch.ops.ray_dict import prepare_ray_dict
     from hypernerf_tpu_torch.training.renderer import ImageRenderer
 
@@ -149,40 +131,96 @@ def main() -> int:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    torch.manual_seed(0)
-    cfg = NerfConfig(num_coarse_samples=64, num_fine_samples=64,
-                     compute_dtype='bfloat16')
-    model = NerfModel(cfg).cuda().eval()
+    model = flagship_model('cuda', seed=0)
     kernels = []
 
-    with torch.no_grad():
-        # [3] level kernel vs plain: 512 rays at S = 64 and 128, and a
-        # ragged 37 x 13 (the last block of 64 rows holds 33).
-        level = model.level('coarse')
-        errs = []
-        for r, s in ((512, 64), (512, 128), (37, 13)):
-            args = level_inputs(model, r, s, seed=s)
-            got = fused_level(level, *args)
+    def check_level(level, args, want=None, against='plain'):
+        got = fused_level(level, *args)
+        if want is None:
             want = fused_level_plain(level, *args)
-            torch.cuda.synchronize()
-            diff = (got - want).abs()
-            bad = diff > LEVEL_ATOL + LEVEL_RTOL * want.abs()
-            if not torch.isfinite(got).all() or bad.any() \
-                    or diff.mean() > LEVEL_MEAN:
-                raise AssertionError(
-                    f'level kernel disagrees at R={r} S={s}: max '
-                    f'{diff.max().item():.3e} mean {diff.mean().item():.3e} '
-                    f'outside {int(bad.sum())} of {bad.numel()}')
-            errs.append(diff.max().item())
-            phase(f'[3] level R={r} S={s}: max|d| {diff.max().item():.3e} '
-                  f'mean {diff.mean().item():.3e} (tol {LEVEL_ATOL}+'
-                  f'{LEVEL_RTOL}'
-                  f'|plain|, mean {LEVEL_MEAN})')
-        times = {}
+        torch.cuda.synchronize()
+        r, s = args[0].shape
+        diff = (got - want).abs()
+        bad = diff > LEVEL_ATOL + LEVEL_RTOL * want.abs()
+        if not torch.isfinite(got).all() or bad.any() \
+                or diff.mean() > LEVEL_MEAN:
+            raise AssertionError(
+                f'level kernel disagrees with {against} at R={r} S={s}: max '
+                f'{diff.max().item():.3e} mean {diff.mean().item():.3e} '
+                f'outside {int(bad.sum())} of {bad.numel()}')
+        phase(f'[3] level vs {against} R={r} S={s}: max|d| '
+              f'{diff.max().item():.3e} mean {diff.mean().item():.3e} (tol '
+              f'{LEVEL_ATOL}+{LEVEL_RTOL}|want|, mean {LEVEL_MEAN})')
+        return diff.max().item()
+
+    def check_composite(packed, z, dirs, u, label):
+        got = fused_composite(packed, z, dirs, u)
+        want = fused_composite_plain(packed, z, dirs, u)
+        torch.cuda.synchronize()
+        diffs = {k: (got[k] - want[k]).abs().max().item() for k in want}
+        tols = {k: COMPOSITE_ATOL for k in want}
+        if u is not None:
+            w = want['weights'][:, 1:-1] + 1e-5
+            mass = (w / w.sum(-1, keepdim=True)).min().item()
+            widest = (z[:, 1:] - z[:, :-1]).max().item()
+            tols['z_union'] += 8 * 2.0 ** -24 / mass * widest
+        phase(f'[4] composite {label}: max|d| ' + ', '.join(
+            f'{k} {d:.3e} (tol {tols[k]:.1e})'
+            for k, d in sorted(diffs.items())))
+        for k, d in diffs.items():
+            if not d <= tols[k]:
+                raise AssertionError(f'composite {k} disagrees at {label}: '
+                                     f'max|d| {d:.3e}')
+        return max(diffs.values())
+
+    with torch.no_grad():
+        # [3] level kernel vs plain, at the probe weights: numpy draws
+        # (flagship.load_probe_weights) whose warp and hyper heads are large
+        # enough that the 14 warp and hyper layers move the output (the init
+        # leaves them near zero). The run shows it: a 1% change to layer 5
+        # of either MLP (the layer after the skip) must move the plain
+        # output by more than the tolerance. Each S takes its level's
+        # template, as the render does.
+        probe = load_probe_weights(flagship_model('cuda'))
+        level = {64: probe.level('coarse'), 128: probe.level('fine')}
+        args = level_inputs(512, 64, seed=0)
+        z, o, d, emb, _ = args
+        pts = o[:, None] + z[..., None] * d[:, None]
+        emb = emb[:, None].expand(-1, z.shape[1], -1)
+        base = fused_level_plain(level[64], *args)
+        for name, field, out in (
+                ('warp', probe.warp_field, probe.warp_field(pts, emb) - pts),
+                ('hyper', probe.hyper_sheet_mlp,
+                 probe.hyper_sheet_mlp(pts, emb))):
+            layer = field.mlp.hidden(5).weight
+            layer.mul_(1.01)
+            moved = (fused_level_plain(level[64], *args) - base).abs()
+            layer.div_(1.01)
+            out = out.reshape(-1, out.shape[-1])
+            phase(f'[3] probe {name} head: output mean|.| '
+                  f'{out.abs().mean():.3e}, std over samples '
+                  f'{out.std(0).mean():.3e}; 1% on its layer 5 moves the '
+                  f'level by max {moved.max():.3e} mean {moved.mean():.3e}')
+            if not moved.mean() > LEVEL_MEAN:
+                raise AssertionError(f'the level check cannot see the '
+                                     f'{name} layers')
+        # The JAX (TPU) kernel's outputs at the same weights and inputs,
+        # computed on the CPU in interpret mode
+        # (tools/make_level_reference.py).
+        for name, (inputs, want) in read_level_reference().items():
+            check_level(probe.level(name),
+                        [torch.from_numpy(v).cuda() for v in inputs.values()],
+                        torch.from_numpy(want).cuda(), f'JAX {name}')
+        for r, s in ((512, 64), (512, 128), (37, 13)):
+            check_level(level.get(s, level[64]),
+                        level_inputs(r, s, seed=s))
+        # The render's shapes: compared, then timed on the same inputs.
+        errs, times = [], {}
         for s in (64, 128):
-            args = level_inputs(model, CHUNK, s, seed=s)
-            times[s] = (cuda_ms(lambda: fused_level(level, *args)),
-                        cuda_ms(lambda: fused_level_plain(level, *args), 3))
+            args = level_inputs(CHUNK, s, seed=s)
+            errs.append(check_level(level[s], args))
+            times[s] = (cuda_ms(lambda: fused_level(level[s], *args)),
+                        cuda_ms(lambda: fused_level_plain(level[s], *args), 3))
             phase(f'[3] level R={CHUNK} S={s}: kernel {times[s][0]:.3f} ms, '
                   f'plain {times[s][1]:.3f} ms')
         kernels.append(dict(
@@ -191,37 +229,22 @@ def main() -> int:
             replaces='hypernerf_tpu/ops/pallas/fused_level.py:1322',
             max_abs_err=max(errs), ms=times[128][0],
             plain_ms=times[128][1]))
+        del probe, level, args
 
         # [4] compositing kernel vs plain.
-        errs = []
         for r, s, n, lin in ((1024, 64, 64, True), (1024, 64, 64, False),
                              (1024, 64, 128, True), (1024, 128, 0, True),
                              (37, 5, 7, False)):
-            packed, z, dirs, u = composite_inputs(r, s, n, seed=s + n,
-                                                  linspace_u=lin)
-            got = fused_composite(packed, z, dirs, u)
-            want = fused_composite_plain(packed, z, dirs, u)
-            torch.cuda.synchronize()
-            diffs = {k: (got[k] - want[k]).abs().max().item() for k in want}
-            tols = {k: COMPOSITE_ATOL for k in want}
-            if n:
-                w = want['weights'][:, 1:-1] + 1e-5
-                mass = (w / w.sum(-1, keepdim=True)).min().item()
-                widest = (z[:, 1:] - z[:, :-1]).max().item()
-                tols['z_union'] += 8 * 2.0 ** -24 / mass * widest
-            phase(f'[4] composite R={r} S={s} N={n} u='
-                  f'{"linspace" if lin else "sorted"}: max|d| ' + ', '.join(
-                      f'{k} {d:.3e} (tol {tols[k]:.1e})'
-                      for k, d in sorted(diffs.items())))
-            for k, d in diffs.items():
-                if not d <= tols[k]:
-                    raise AssertionError(f'composite {k} disagrees at S={s} '
-                                         f'N={n}: max|d| {d:.3e}')
-            errs.append(max(diffs.values()))
-        ctimes = {}
+            check_composite(*composite_inputs(r, s, n, seed=s + n,
+                                              linspace_u=lin),
+                            f'R={r} S={s} N={n} u='
+                            f'{"linspace" if lin else "sorted"}')
+        errs, ctimes = [], {}
         for s, n in ((64, 64), (128, 0)):
             packed, z, dirs, u = composite_inputs(CHUNK, s, n, seed=1,
                                                   linspace_u=True)
+            errs.append(check_composite(packed, z, dirs, u,
+                                        f'R={CHUNK} S={s} N={n} u=linspace'))
             ctimes[s] = (
                 cuda_ms(lambda: fused_composite(packed, z, dirs, u)),
                 cuda_ms(lambda: fused_composite_plain(packed, z, dirs, u)))
@@ -235,7 +258,7 @@ def main() -> int:
             plain_ms=ctimes[64][1]))
 
         # [5] the render path, end to end.
-        frames = llff_rays(range(0, 30 * (N_FRAMES + 1), 30))
+        frames = spiral_rays(range(0, 30 * (N_FRAMES + 1), 30))
         renderer = ImageRenderer(model, chunk=CHUNK,
                                  keep=('rgb', 'depth', 'acc'),
                                  levels=('fine',), quantize=True)

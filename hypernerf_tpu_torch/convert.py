@@ -27,6 +27,25 @@ def _leaves(tree, prefix=()):
             yield path, v
 
 
+def params_to_jax(state: Dict[str, torch.Tensor]) -> dict:
+    """State dict -> nested dict of numpy arrays, the inverse of
+    ``params_from_jax``. A ``weight`` under a module named ``embed`` is an
+    Embed ``embedding``; every other ``weight`` is a Dense ``kernel``."""
+    params = {}
+    for key, value in state.items():
+        path = key.split('.')
+        arr = value.detach().cpu().float().numpy()
+        if path[-1] == 'weight' and path[-2] == 'embed':
+            path[-1] = 'embedding'
+        elif path[-1] == 'weight':
+            path[-1], arr = 'kernel', arr.T
+        node = params
+        for name in path[:-1]:
+            node = node.setdefault(name, {})
+        node[path[-1]] = np.array(arr, copy=True)
+    return params
+
+
 def params_from_jax(params) -> Dict[str, torch.Tensor]:
     """Nested (or '/'-flattened) dict of numpy arrays -> state dict."""
     state = {}

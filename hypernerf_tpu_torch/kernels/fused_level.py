@@ -13,6 +13,7 @@ Bound and design: see the note at the top of ``csrc/fused_level.cu``.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import NamedTuple
 
 import torch
@@ -118,6 +119,7 @@ def _pack_layer(layer: torch.nn.Linear, segs, dtype):
     return w.to(dtype), b.to(dtype)
 
 
+@functools.cache
 def kernel_layout():
     """[(n_pad, k_pad)] of the compiled kernel, in layer order."""
     lib = build.library()
@@ -146,25 +148,30 @@ def _check_covered(level: Level) -> None:
 
 
 def pack_level(level: Level):
-    """The kernel's bf16 weight and bias blobs for ``level``, cached on the
-    template module until a parameter changes."""
+    """The kernel's bf16 weight and bias blobs for ``level`` and the
+    (n_pad, k_pad) of each layer, cached on the template module.
+
+    The cache is keyed on each parameter's storage and version counter, so
+    it is repacked after ``load_state_dict``, ``.to()``, an optimizer step or
+    any in-place op on the parameter itself (``with torch.no_grad():
+    p.add_(...)``). A write through ``p.data`` bumps no version counter and
+    leaves the cache stale: change parameters only through the parameter.
+    """
     params = [p for m in (level.warp, level.hyper, level.template)
               for p in m.parameters()]
     key = tuple((p.data_ptr(), p._version) for p in params)
     cached = getattr(level.template, '_packed_level', None)
     if cached is not None and cached[0] == key:
-        return cached[1], cached[2]
+        return cached[1:]
     _check_covered(level)
     layers = level_layers(level)
     packed = [_pack_layer(lin, segs, torch.bfloat16) for lin, segs in layers]
     shapes = [tuple(w.shape) for w, _ in packed]
-    if shapes != kernel_layout():
-        raise NotImplementedError(f'{_NOT_COVERED}; layer shapes {shapes}')
     w_blob = torch.cat([w.reshape(-1) for w, _ in packed]).contiguous()
     b_blob = torch.cat([b for _, b in packed]).contiguous()
     object.__setattr__(level.template, '_packed_level',
-                       (key, w_blob, b_blob))
-    return w_blob, b_blob
+                       (key, w_blob, b_blob, shapes))
+    return w_blob, b_blob, shapes
 
 
 def fused_level(level: Level, z_vals, origins, directions, embed,
@@ -179,7 +186,9 @@ def fused_level(level: Level, z_vals, origins, directions, embed,
                                  rgb_cond)
     if z_vals.device.type != 'cuda':
         raise ValueError(f'fused_level: no kernel for {z_vals.device}')
-    w_blob, b_blob = pack_level(level)
+    w_blob, b_blob, shapes = pack_level(level)
+    if shapes != kernel_layout():
+        raise NotImplementedError(f'{_NOT_COVERED}; layer shapes {shapes}')
     dev = z_vals.device
     r, s = z_vals.shape
     rgbc = rgb_cond.to(torch.bfloat16).contiguous()

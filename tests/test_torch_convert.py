@@ -59,3 +59,18 @@ def test_jax_checkpoint_converts_and_renders_the_same(tmp_path):
                                        atol=1e-5, err_msg=f'{level}/{k}')
     assert torch.load(out, weights_only=True).keys() == \
         port.state_dict().keys()
+
+
+def test_params_to_jax_inverts_params_from_jax():
+    """The flax tree of a JAX init, carried to a state dict and back, is the
+    same tree with the same arrays (Dense kernels transposed twice)."""
+    from hypernerf_tpu_torch.convert import params_from_jax, params_to_jax
+    rays = jax_ray_dict(jnp.zeros((2, 9), jnp.float32))
+    params = jax.device_get(JaxNerfModel(CFG).init(
+        {'params': jax.random.PRNGKey(2)}, rays)['params'])
+    back = params_to_jax(params_from_jax(params))
+    flat = dict(jax.tree_util.tree_flatten_with_path(params)[0])
+    flat_back = dict(jax.tree_util.tree_flatten_with_path(back)[0])
+    assert flat.keys() == flat_back.keys()
+    for k, v in flat.items():
+        np.testing.assert_array_equal(flat_back[k], v, err_msg=str(k))

@@ -9,6 +9,7 @@ allowed 1e-2 absolute on outputs of order 1 and a mean below 1e-4 (on the
 CPU the two agree bit for bit here).
 """
 
+import copy
 import functools
 
 import jax
@@ -58,7 +59,7 @@ def _setup(seed=0):
                    rgb_branch_width=16, skips=(1,))
     wp = warp.init(jax.random.PRNGKey(0), pts, emb_b)['params']
     # A visible warp: scale the U(0, 1e-4) logit up.
-    wp = jax.tree.map(lambda a: a * 300.0 if a.size == 3 else a, wp)
+    wp = jax.tree.map(lambda a: a * 300.0 if a.shape == (16, 3) else a, wp)
     hp = hyper.init(jax.random.PRNGKey(1), pts, emb_b)['params']
     hp = jax.tree.map(lambda a: a * 1e4 if a.shape == (16, H) else a, hp)
     feat = jnp.zeros((R, S, 3 * 9 + H * 5))
@@ -125,3 +126,56 @@ def test_plain_level_matches_flax_composition():
                           -1).reshape(R * S, 4)
     got = _port(_port_level(wp, hp, tp, 'float32'), data)
     np.testing.assert_allclose(got, want, rtol=0, atol=1e-5)
+
+
+def test_packed_weights_follow_parameter_updates():
+    """The level kernel's cached bf16 blobs are repacked after an in-place
+    update of a parameter and after load_state_dict."""
+    from hypernerf_tpu_torch.flagship import flagship_model
+    from hypernerf_tpu_torch.kernels.fused_level import pack_level
+
+    def fresh(model):  # a copy's parameters have new storage: no cache hit
+        return pack_level(copy.deepcopy(model).level('coarse'))
+
+    model = flagship_model('cpu', seed=0)
+    level = model.level('coarse')
+    w0, b0, shapes = pack_level(level)
+    assert sum(n * k for n, k in shapes) == w0.numel()
+    assert sum(n for n, _ in shapes) == b0.numel()
+    assert pack_level(level)[0] is w0  # unchanged parameters: the cache
+    with torch.no_grad():
+        level.warp.mlp.logit.weight.add_(0.5)
+        level.template.alpha_head.bias.sub_(0.25)
+    w1, b1, _ = pack_level(level)
+    assert not torch.equal(w1, w0) and not torch.equal(b1, b0)
+    assert all(torch.equal(a, b) for a, b in zip((w1, b1), fresh(model)))
+    model.load_state_dict(flagship_model('cpu', seed=1).state_dict())
+    w2, b2, _ = pack_level(level)
+    assert not torch.equal(w2, w1)
+    assert all(torch.equal(a, b) for a, b in zip((w2, b2), fresh(model)))
+
+
+def test_stored_jax_level_reference():
+    """tests/data/fused_level_jax_ref.npz, what chip_smoke.py holds the CUDA
+    level kernel to on the card, is the JAX kernel's output (interpret mode,
+    flagship widths, bf16) at the numpy probe weights and its stored inputs,
+    and the port's plain level matches it. The bf16 tolerance above holds
+    both: a JAX or torch of another version may sum in another order."""
+    from hypernerf_tpu_torch.flagship import (LEVEL_REFERENCE_CASES,
+                                              probe_inputs,
+                                              read_level_reference)
+    from tools.make_level_reference import jax_level, probe_model
+    model = probe_model()
+    reference = read_level_reference()
+    for name, n_rays, samples, seed in LEVEL_REFERENCE_CASES:
+        inputs, want = reference[name]
+        assert want.shape == (n_rays * samples, 4)
+        for k, v in probe_inputs(n_rays, samples, seed).items():
+            np.testing.assert_allclose(inputs[k], v, rtol=0, atol=1e-6)
+        args = [torch.from_numpy(v) for v in inputs.values()]
+        with torch.no_grad():
+            port = port_level(model.level(name), *args).numpy()
+        for got in (jax_level(model, name, inputs), port):
+            diff = np.abs(got - want)
+            assert diff.max() <= 1e-2, (name, diff.max())
+            assert diff.mean() <= 1e-4, (name, diff.mean())

@@ -134,10 +134,24 @@ def test_port_imports_no_jax():
             'hypernerf_tpu_torch.training.renderer',
             'hypernerf_tpu_torch.training.metrics',
             'hypernerf_tpu_torch.training.checkpoints',
-            'hypernerf_tpu_torch.eval', 'hypernerf_tpu_torch.convert']
+            'hypernerf_tpu_torch.eval', 'hypernerf_tpu_torch.convert',
+            'hypernerf_tpu_torch.flagship']
     code = ('import importlib, sys\n'
             f'for m in {mods!r}: importlib.import_module(m)\n'
             'bad = sorted(m for m in sys.modules\n'
             '             if m.split(".")[0] in ("jax", "flax", "optax"))\n'
             'assert not bad, bad\n')
     subprocess.run([sys.executable, '-c', code], check=True, timeout=120)
+
+
+def test_flagship_spiral_rays():
+    """The smoke run's rays: (H * W, 9) NDC rays, near 0, far 1, frame id."""
+    from hypernerf_tpu_torch.flagship import spiral_rays
+    frames = spiral_rays([0, 30], width=8, height=6)
+    assert [f.shape for f in frames] == [(48, 9), (48, 9)]
+    for i, rays in zip((0, 30), frames):
+        assert np.isfinite(rays).all()
+        assert (rays[:, 6] == 0).all() and (rays[:, 7] == 1).all()
+        assert (rays[:, 8] == i).all()
+        _close(rays[:, 2], -np.ones(48))  # NDC origins on the near plane
+    assert not np.array_equal(frames[0][:, :6], frames[1][:, :6])

@@ -36,20 +36,16 @@ def main() -> int:
         return 1
     from torch.profiler import ProfilerActivity, profile
 
-    from chip_smoke import llff_rays
-    from hypernerf_tpu.configs import NerfConfig
-    from hypernerf_tpu_torch.models.nerf import NerfModel
+    from hypernerf_tpu_torch.flagship import flagship_model, spiral_rays
     from hypernerf_tpu_torch.training.renderer import ImageRenderer
 
     print(subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
                           '--format=csv,noheader'], capture_output=True,
                          text=True, check=True).stdout.strip())
-    torch.manual_seed(0)
-    model = NerfModel(NerfConfig(num_coarse_samples=64,
-                                 num_fine_samples=64)).cuda().eval()
+    model = flagship_model('cuda')
     renderer = ImageRenderer(model, chunk=args.chunk, keep=('rgb',),
                              levels=('fine',), quantize=True)
-    frames = llff_rays(range(0, 30 * (args.frames + 1), 30))
+    frames = spiral_rays(range(0, 30 * (args.frames + 1), 30))
     renderer(frames[0])  # build, first launches
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
