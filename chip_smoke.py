@@ -12,19 +12,34 @@ Phases, one line each; any failure ends the run with a non-zero exit:
   4. the compositing kernel against its plain version (fine draw N = 64
      and 128, and no draw), at 1024 and 37 rays and at the render's shapes
      (8192 rays, S = 64 N = 64 and S = 128 N = 0), which are also timed;
-  5. the render: full 504x378 frames of the flagship (64 + 64 samples,
+  5. the render: a full 504x378 frame of the flagship (64 + 64 samples,
      full widths, seeded init) through the renderer that
      ``python -m hypernerf_tpu_torch.eval`` uses, on LLFF spiral NDC rays;
      the launch counters must show both kernels on every chunk and level;
      then the same frame with the plain versions, timed apart;
-  6. the kernels' JSON line, then the result line.
+  6. the three backward kernels (template, fields, compositing) at the probe
+     weights: against the JAX kernels' stored gradients (tests/data), with
+     the 1 % probe that shows the check sees the warp and sheet layers' dW;
+     against their plain versions at 37 and 512 rays and at the train step's
+     shapes (16384 rays at S = 64 and 128; there the plain versions run in
+     chunks of 2048 rays, which bounds their memory), which are also timed;
+  7. the train step: the flagship at full width (batch 16384, 64 + 64, bf16,
+     sigma noise, Adam with steplr) through ``make_train_step``; the launch
+     counters must show 2 launches of each of the five kernels per step and
+     no plain call; every parameter gets a finite non-zero gradient; the
+     loss on a fixed batch falls; then one step on a small explicit batch
+     with the kernels and one with the plain versions, compared;
+  8. the kernels' JSON line, then the result line.
 Times come from CUDA events (kernels) or the host clock around work that
-ends in a synchronize (frames).
+ends in a synchronize (frames, steps). A kernel's bound is the larger of
+its matrix-product operations over the card's dense bf16 peak and its bytes
+(each input read once, each output written once) over the memory rate.
 """
 
 from __future__ import annotations
 
 import json
+import math
 import subprocess
 import sys
 import time
@@ -50,8 +65,27 @@ COMPOSITE_ATOL = 1e-4
 # Whole render, kernels vs plain versions, fine rgb in [0, 1].
 RENDER_ATOL, RENDER_MEAN = 5e-2, 2e-3
 
+# Backward kernels vs plain versions (bf16, flagship widths): both round at
+# the same points; a last-bit fp32 difference moves single activations and
+# cotangent entries across a bf16 rounding boundary, and the 2^9 posenc band
+# amplifies it. Measured on an H100: relative L2 up to 1.4e-2 and single
+# entries up to 0.14 of the largest, while kernel and plain version both lie
+# 1e-1 (relative L2) from the float32 gradient. Allowed per output:
+# |kernel - plain|_2 <= 5e-2 |plain|_2 and max|d| <= 0.25 max|plain|. The
+# JAX kernels' stored gradients get the same bound.
+GRAD_L2, GRAD_MAX = 5e-2, 0.25
+# Compositing backward: fp32 both ways, 1e-5 of each output's largest entry.
+COMPOSITE_GRAD_TOL = 1e-5
+# One train step, kernels vs plain versions from the same state and draws.
+STEP_LOSS_TOL, STEP_GRAD_L2 = 2e-3, 0.1
+
+# Published peaks of an H100 SXM: dense bf16 and device memory.
+PEAK_FLOPS, PEAK_BYTES = 989e12, 3.35e12
+
 CHUNK = 8192
-N_FRAMES = 2
+N_FRAMES = 1
+TRAIN_RAYS, TRAIN_STEPS, WARMUP_STEPS = 16384, 5, 2
+PLAIN_CHUNK = 2048
 
 
 def phase(msg: str) -> None:
@@ -72,6 +106,21 @@ def cuda_ms(fn, iters: int = 10) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def bound(flops: float, nbytes: float):
+    """(bound_ms, bound_by) from an operation and a byte count."""
+    ops_ms, bytes_ms = flops / PEAK_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+    return (ops_ms, 'operations') if ops_ms >= bytes_ms else (bytes_ms,
+                                                               'bytes')
+
+
+def level_macs(level):
+    """(fields, template) multiply-adds per sample of one level forward:
+    one for every weight of its 14 field and 16 template layers."""
+    from hypernerf_tpu_torch.kernels.fused_level import level_layers
+    sizes = [lin.weight.numel() for lin, _ in level_layers(level)]
+    return sum(sizes[:14]), sum(sizes[14:])
 
 
 def level_inputs(n_rays: int, samples: int, seed: int):
@@ -97,6 +146,427 @@ def composite_inputs(n_rays: int, samples: int, n_fine: int, seed: int,
              if linspace_u else sorted_uniform(n_rays, n_fine, g))
     return [None if t is None else t.cuda().contiguous()
             for t in (packed, z, dirs, u)]
+
+
+def grad_errors(got, want):
+    """(relative L2, max|d| / max|want|, max|d|) of two tensors."""
+    diff = (got - want).float()
+    return ((diff.norm() / want.norm().clamp_min(1e-30)).item(),
+            (diff.abs().max() / want.abs().max().clamp_min(1e-30)).item(),
+            diff.abs().max().item())
+
+
+def check_grads(label, names, got, want, l2_tol=GRAD_L2, max_tol=GRAD_MAX):
+    """Hold every tensor of ``got`` to ``want``; returns the worst
+    (relative L2, max|d| over the largest entry, max|d|) over the tensors and
+    prints the first two."""
+    import torch
+    worst = [0.0, 0.0, 0.0]
+    for name, a, b in zip(names, got, want):
+        if a.shape != b.shape or not torch.isfinite(a).all():
+            raise AssertionError(f'{label}: {name} {tuple(a.shape)} vs '
+                                 f'{tuple(b.shape)} or not finite')
+        errs = grad_errors(a, b)
+        if errs[0] > l2_tol or errs[1] > max_tol:
+            raise AssertionError(f'{label}: {name} relative L2 {errs[0]:.3e} '
+                                 f'(tol {l2_tol}), max {errs[1]:.3e} of the '
+                                 f'largest entry (tol {max_tol})')
+        worst = [max(w, e) for w, e in zip(worst, errs)]
+    phase(f'[6] {label}: {len(names)} outputs, worst relative L2 '
+          f'{worst[0]:.3e} (tol {l2_tol}), worst max|d| {worst[1]:.3e} of '
+          f'the largest entry (tol {max_tol})')
+    return worst
+
+
+def error_keys(worsts, l2_tol=GRAD_L2, max_tol=GRAD_MAX):
+    """A backward kernel's error entries from its ``check_grads`` results.
+    Gradients are not of order 1 (dW sums over millions of samples), so the
+    absolute error is given beside the two relative figures the tolerance
+    is stated in."""
+    return dict(max_abs_err=max(w[2] for w in worsts),
+                rel_l2_err=max(w[0] for w in worsts),
+                max_err_over_largest_entry=max(w[1] for w in worsts),
+                tolerance=f'relative L2 <= {l2_tol}, max|d| <= {max_tol} x '
+                          f'the largest entry, per output')
+
+
+def chunks(n_rays: int):
+    return [(r0, min(n_rays, r0 + PLAIN_CHUNK))
+            for r0 in range(0, n_rays, PLAIN_CHUNK)]
+
+
+def plain_raw_t(level, args):
+    """raw_t of the plain level forward, over chunks of PLAIN_CHUNK rays."""
+    import torch
+    from hypernerf_tpu_torch.kernels import fused_level_plain
+    return torch.cat([
+        fused_level_plain(level, *[a[r0:r1].contiguous() for a in args],
+                          return_raw_t=True)[1]
+        for r0, r1 in chunks(args[0].shape[0])])
+
+
+def plain_template_bwd(level, raw_t, rgb_cond, g):
+    """The plain template backward over chunks of PLAIN_CHUNK rays (the
+    plain version keeps every activation of a chunk in device memory):
+    [dx_t, d rgb_cond, 32 x dW/db], per-sample and per-ray outputs
+    concatenated, dW / db summed."""
+    import torch
+    from hypernerf_tpu_torch.kernels import fused_template_bwd_plain
+    s = raw_t.shape[0] // rgb_cond.shape[0]
+    parts = []
+    for r0, r1 in chunks(rgb_cond.shape[0]):
+        dx_t, d_cond, grads = fused_template_bwd_plain(
+            level, raw_t[r0 * s:r1 * s], rgb_cond[r0:r1], g[r0 * s:r1 * s])
+        parts.append([dx_t, d_cond, *grads])
+    return ([torch.cat([p[i] for p in parts]) for i in range(2)]
+            + [sum(p[i] for p in parts) for i in range(2, len(parts[0]))])
+
+
+def plain_fields_bwd(level, args, dx_t):
+    """The plain fields backward over chunks of PLAIN_CHUNK rays:
+    [d z, d o, d d, d embed, 28 x dW/db]."""
+    import torch
+    from hypernerf_tpu_torch.kernels import fused_fields_bwd_plain
+    s = args[0].shape[1]
+    parts = []
+    for r0, r1 in chunks(args[0].shape[0]):
+        *rays, grads = fused_fields_bwd_plain(
+            level, *[a[r0:r1].contiguous() for a in args[:4]],
+            dx_t[r0 * s:r1 * s])
+        parts.append([*rays, *grads])
+    return ([torch.cat([p[i] for p in parts]) for i in range(4)]
+            + [sum(p[i] for p in parts) for i in range(4, len(parts[0]))])
+
+
+TEMPLATE_GRAD_NAMES = ['dx_t', 'd_rgb_cond'] + [
+    f'd{"Wb"[i % 2]}{14 + i // 2}' for i in range(32)]
+FIELDS_GRAD_NAMES = ['d_z', 'd_origins', 'd_directions', 'd_embed'] + [
+    f'd{"Wb"[i % 2]}{i // 2}' for i in range(28)]
+
+
+def backward_phase():
+    """Phase 6; returns the three backward kernels' entries."""
+    import torch
+    from hypernerf_tpu_torch.flagship import (GRAD_REFERENCE_CASE,
+                                              LEVEL_INPUTS, flagship_model,
+                                              load_probe_weights,
+                                              read_grad_reference)
+    from hypernerf_tpu_torch.kernels import (fused_composite,
+                                             fused_composite_bwd,
+                                             fused_composite_bwd_plain,
+                                             fused_composite_plain,
+                                             fused_fields_bwd, fused_level,
+                                             fused_template_bwd)
+    from hypernerf_tpu_torch.kernels.fused_level import _level_params
+    probe = load_probe_weights(flagship_model('cuda'))
+    level = {64: probe.level('coarse'), 128: probe.level('fine')}
+
+    # The JAX kernels' stored gradients (tools/make_level_reference.py):
+    # the CUDA kernels through the autograd Functions, as training runs them.
+    ref = read_grad_reference()
+    lev, comp = ref['level'], ref['composite']
+    name = GRAD_REFERENCE_CASE[0]
+    args = [torch.from_numpy(lev[k]).cuda().requires_grad_()
+            for k in LEVEL_INPUTS]
+    params = _level_params(probe.level(name))
+    got = torch.autograd.grad(fused_level(probe.level(name), *args),
+                              args + params,
+                              torch.from_numpy(lev['cotangent']).cuda())
+    names = [f'd_{k}' for k in LEVEL_INPUTS] + [
+        f'd{"wb"[i % 2]}{i // 2}' for i in range(60)]
+    check_grads('level backward (kernels A + B) vs stored JAX gradients',
+                names, got, [torch.from_numpy(lev[n]).cuda() for n in names])
+    cin = {k: torch.from_numpy(comp[k]).cuda().requires_grad_()
+           for k in ('packed', 'z_vals', 'directions', 'noise')}
+    out = fused_composite(cin['packed'], cin['z_vals'], cin['directions'],
+                          noise=cin['noise'])
+    outs = torch.cat([out['rgb'], out['depth'][:, None],
+                      out['med_depth'][:, None], out['acc'][:, None]], -1)
+    loss = ((outs * torch.from_numpy(comp['cot_outs']).cuda()).sum()
+            + (out['weights']
+               * torch.from_numpy(comp['cot_weights']).cuda()).sum())
+    check_grads('compositing backward (kernel C) vs stored JAX gradients',
+                list(cin), torch.autograd.grad(loss, list(cin.values())),
+                [torch.from_numpy(comp[f'd_{k}']).cuda() for k in cin],
+                COMPOSITE_GRAD_TOL, COMPOSITE_GRAD_TOL)
+
+    with torch.no_grad():
+        # The 1 % probe, applied to a gradient: a 1 % change of layer 5 of
+        # the warp (or the sheet) must move that field's dW, in the plain
+        # version, by more than the check allows.
+        args = level_inputs(512, 64, seed=0)
+        g = torch.randn(512 * 64, 4, generator=torch.Generator().manual_seed(
+            0)).cuda()
+
+        def plain_fields_dw():
+            tmpl = plain_template_bwd(level[64], plain_raw_t(level[64], args),
+                                      args[4], g)
+            return plain_fields_bwd(level[64], args, tmpl[0])[4:]
+
+        base = plain_fields_dw()
+        for fname, field, sl in (('warp', probe.warp_field, slice(0, 14)),
+                                 ('sheet', probe.hyper_sheet_mlp,
+                                  slice(14, 28))):
+            weight = field.mlp.hidden(5).weight
+            weight.mul_(1.01)
+            moved = plain_fields_dw()
+            weight.div_(1.01)
+            l2 = [grad_errors(a, b)[0]
+                  for a, b in zip(moved[sl][::2], base[sl][::2])]
+            phase(f'[6] probe: 1% on {fname} layer 5 moves its 7 dW by '
+                  f'relative L2 {min(l2):.3f}..{max(l2):.3f} (the check '
+                  f'allows {GRAD_L2})')
+            if not min(l2) > GRAD_L2:
+                raise AssertionError(f'the gradient check cannot see the '
+                                     f'{fname} layers')
+
+        # Kernel A on the plain forward's raw_t and kernel B on the plain
+        # A's dx_t, each against its plain version on the same inputs (A then
+        # B chained, as training runs them, is held to the JAX gradients
+        # above and to the plain versions in phase 7).
+        errs = {'A': [], 'B': []}
+        times = {}
+        for r, s in ((37, 13), (512, 64), (512, 128), (TRAIN_RAYS, 64),
+                     (TRAIN_RAYS, 128)):
+            lv = level.get(s, level[64])
+            args = level_inputs(r, s, seed=s + 1)
+            g = torch.randn(r * s, 4, generator=torch.Generator().manual_seed(
+                s)).cuda()
+            raw_t = plain_raw_t(lv, args)
+            want_a = plain_template_bwd(lv, raw_t, args[4], g)
+            got_dx_t, d_cond, t_grads = fused_template_bwd(lv, raw_t,
+                                                           args[4], g)
+            dx_t = want_a[0]
+            d_z, d_o, d_d, d_e, f_grads = fused_fields_bwd(lv, *args[:4],
+                                                           dx_t)
+            torch.cuda.synchronize()
+            errs['A'].append(check_grads(
+                f'template backward (A) vs plain R={r} S={s}',
+                TEMPLATE_GRAD_NAMES, [got_dx_t, d_cond, *t_grads], want_a))
+            errs['B'].append(check_grads(
+                f'fields backward (B) vs plain R={r} S={s}',
+                FIELDS_GRAD_NAMES, [d_z, d_o, d_d, d_e, *f_grads],
+                plain_fields_bwd(lv, args, dx_t)))
+            if r != TRAIN_RAYS:
+                continue
+            times[s] = dict(
+                A=cuda_ms(lambda: fused_template_bwd(lv, raw_t, args[4], g),
+                          3),
+                B=cuda_ms(lambda: fused_fields_bwd(lv, *args[:4], dx_t), 3),
+                plain_A=cuda_ms(lambda: plain_template_bwd(lv, raw_t, args[4],
+                                                           g), 1),
+                plain_B=cuda_ms(lambda: plain_fields_bwd(lv, args, dx_t), 1))
+            phase(f'[6] level backward R={r} S={s}: kernel A '
+                  f'{times[s]["A"]:.2f} ms (plain {times[s]["plain_A"]:.1f} '
+                  f'ms), kernel B {times[s]["B"]:.2f} ms (plain '
+                  f'{times[s]["plain_B"]:.1f} ms); plain versions in chunks '
+                  f'of {PLAIN_CHUNK} rays')
+            del raw_t, want_a, dx_t
+            torch.cuda.empty_cache()
+
+        # Kernel C vs plain, noise on, white background and infinity both
+        # ways.
+        c_errs, c_times = [], {}
+        gen = torch.Generator().manual_seed(5)
+        for r, s in ((37, 5), (512, 64), (TRAIN_RAYS, 64), (TRAIN_RAYS, 128)):
+            for white, infinity in ((False, True), (True, False),
+                                    (True, True), (False, False)):
+                packed, z, dirs, _ = composite_inputs(r, s, 0, seed=r + s,
+                                                      linspace_u=True)
+                noise = torch.randn(r, s, generator=gen).cuda()
+                d_outs = torch.randn(r, 6, generator=gen).cuda()
+                d_w = (torch.randn(r, s, generator=gen) * 0.1).cuda()
+                got = fused_composite_bwd(packed, z, dirs, noise, d_outs,
+                                          d_w, white, infinity)
+                dnorm = torch.linalg.norm(dirs, dim=-1, keepdim=True)
+                want = fused_composite_bwd_plain(packed, z, dnorm, noise,
+                                                 d_outs, d_w, white,
+                                                 infinity)
+                torch.cuda.synchronize()
+                # d z carries d med_depth at the first sample whose
+                # cumulative weight reaches 0.5: a ray whose sum passes
+                # within 1e-5 of 0.5 may pick the neighbour in the kernel's
+                # sequential sum. Such rays are left out of d z's comparison.
+                cum = torch.cumsum(fused_composite_plain(
+                    packed, z, dirs, None, white, infinity,
+                    noise)['weights'], dim=-1)
+                edge = ((cum - 0.5).abs() < 1e-5).any(-1)
+                got, want = list(got), list(want)
+                got[1] = got[1].masked_fill(edge[:, None], 0.0)
+                want[1] = want[1].masked_fill(edge[:, None], 0.0)
+                c_errs.append(check_grads(
+                    f'compositing backward (C) vs plain R={r} S={s} '
+                    f'white={int(white)} infinity={int(infinity)} '
+                    f'({int(edge.sum())} rays on the median\'s edge)',
+                    ['d_packed', 'd_z', 'd_dnorm', 'd_noise'], got, want,
+                    COMPOSITE_GRAD_TOL, COMPOSITE_GRAD_TOL))
+            if r == TRAIN_RAYS:
+                c_times[s] = (
+                    cuda_ms(lambda: fused_composite_bwd(
+                        packed, z, dirs, noise, d_outs, d_w)),
+                    cuda_ms(lambda: fused_composite_bwd_plain(
+                        packed, z, dnorm, noise, d_outs, d_w)))
+                phase(f'[6] compositing backward R={r} S={s}: kernel '
+                      f'{c_times[s][0]:.3f} ms, plain {c_times[s][1]:.3f} ms')
+
+    # Bounds at the train step's fine level (R = 16384, S = 128). A and B:
+    # the recompute, g W and g^T h each take one multiply-add per weight and
+    # sample. Bytes: inputs once, outputs once, the weights and dW once.
+    f_macs, t_macs = level_macs(level[128])
+    p, r = TRAIN_RAYS * 128, TRAIN_RAYS
+    a_ms, a_by = bound(6.0 * t_macs * p,
+                       p * (32 + 16 + 32) + r * (78 + 156) + 6 * t_macs)
+    b_ms, b_by = bound(6.0 * f_macs * p,
+                       p * (4 + 32 + 4) + r * (24 + 32 + 56) + 6 * f_macs)
+    c_ms, c_by = bound(0.0, p * (16 + 4 + 4 + 4 + 16 + 4) + r * (12 + 24 + 4))
+    src = 'hypernerf_tpu_torch/kernels/csrc/'
+    return [
+        dict(name='fused_template_bwd', route='cuda',
+             source=src + 'fused_template_bwd.cu',
+             replaces='hypernerf_tpu/ops/pallas/fused_mlp.py:736',
+             ms=times[128]['A'], **error_keys(errs['A']),
+             plain_ms=times[128]['plain_A'], bound_ms=a_ms, bound_by=a_by,
+             library_ms=None),
+        dict(name='fused_fields_bwd', route='cuda',
+             source=src + 'fused_fields_bwd.cu',
+             replaces='hypernerf_tpu/ops/pallas/fused_level.py:846',
+             ms=times[128]['B'], **error_keys(errs['B']),
+             plain_ms=times[128]['plain_B'], bound_ms=b_ms, bound_by=b_by,
+             library_ms=None),
+        dict(name='fused_composite_bwd', route='cuda',
+             source=src + 'fused_composite_bwd.cu',
+             replaces='hypernerf_tpu/ops/pallas/fused_composite.py:477',
+             ms=c_times[128][0],
+             **error_keys(c_errs, COMPOSITE_GRAD_TOL, COMPOSITE_GRAD_TOL),
+             plain_ms=c_times[128][1], bound_ms=c_ms, bound_by=c_by,
+             library_ms=None)]
+
+
+def train_phase(kernels) -> None:
+    """Phase 7: the flagship train step at full width; fills in the train
+    launches of every kernel's entry."""
+    import functools
+
+    import torch
+    from hypernerf_tpu_torch import kernels as K
+    from hypernerf_tpu_torch.flagship import flagship_train_setup
+    from hypernerf_tpu_torch.ops.ray_dict import prepare_ray_dict
+    from hypernerf_tpu_torch.ops.sampling import sorted_uniform
+    from hypernerf_tpu_torch.training.losses import mse_loss
+    from hypernerf_tpu_torch.training.train_state import (TrainState,
+                                                          step_generator)
+    wrappers = {'fused_level_fwd': K.fused_level,
+                'fused_composite_fwd': K.fused_composite,
+                'fused_template_bwd': K.fused_template_bwd,
+                'fused_fields_bwd': K.fused_fields_bwd,
+                'fused_composite_bwd': K.fused_composite_bwd}
+    plains = (K.fused_level_plain, K.fused_composite_plain,
+              K.fused_template_bwd_plain, K.fused_fields_bwd_plain,
+              K.fused_composite_bwd_plain)
+
+    state, step_fn, all_rays, all_rgbs = flagship_train_setup(
+        'cuda', seed=0, batch_size=TRAIN_RAYS)
+    model = state.model
+    cfg = model.config
+    fixed = slice(0, 4096)
+
+    def fixed_loss():  # a deterministic render of a fixed batch
+        with torch.no_grad():
+            out = model(prepare_ray_dict(all_rays[fixed]),
+                        return_weights=False)
+            return mse_loss(out, all_rgbs[fixed]).item()
+
+    before = fixed_loss()
+    for _ in range(WARMUP_STEPS):
+        step_fn(state, all_rays, all_rgbs)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for fn in wrappers.values():
+        fn.launches = 0
+    for fn in plains:
+        fn.calls = 0
+    t0 = time.perf_counter()
+    metrics = [step_fn(state, all_rays, all_rgbs) for _ in range(TRAIN_STEPS)]
+    torch.cuda.synchronize()
+    secs = (time.perf_counter() - t0) / TRAIN_STEPS
+    launches = {name: fn.launches for name, fn in wrappers.items()}
+    plain_calls = [fn.calls for fn in plains]
+    if any(n != 2 * TRAIN_STEPS for n in launches.values()) \
+            or any(plain_calls):
+        raise AssertionError(f'train launches {launches} (want '
+                             f'{2 * TRAIN_STEPS} each), plain calls '
+                             f'{plain_calls}')
+    losses = [m['loss'].item() for m in metrics]
+    psnrs = [m['psnr'].item() for m in metrics]
+    after = fixed_loss()
+    if not all(map(math.isfinite, losses + psnrs)) or not after < before:
+        raise AssertionError(f'train losses {losses}, fixed-batch loss '
+                             f'{before} -> {after}')
+    # Every parameter's gradient of the last step: finite and non-zero; the
+    # GLO table non-zero exactly on the rows of the batch's image ids.
+    last = TrainState(state.step - 1, model, state.optimizer, state.seed)
+    idx = torch.randint(0, all_rays.shape[0], (TRAIN_RAYS,),
+                        generator=step_generator(last, all_rays.device),
+                        device=all_rays.device)
+    used = torch.zeros(cfg.num_embeddings, dtype=torch.bool, device='cuda')
+    used[all_rays[idx, 8].long()] = True
+    for name, p in model.named_parameters():
+        g = p.grad
+        if g is None or not torch.isfinite(g).all() or not g.abs().sum() > 0:
+            raise AssertionError(f'gradient of {name} missing, not finite '
+                                 f'or zero')
+        if name == 'warp_embed.embed.weight' and not torch.equal(
+                g.abs().sum(-1) > 0, used):
+            raise AssertionError('GLO gradient rows do not match the '
+                                 'batch\'s image ids')
+    phase(f'[7] train step (batch {TRAIN_RAYS}, 64+64, full widths, bf16, '
+          f'noise_std {cfg.noise_std}, Adam lr '
+          f'{state.optimizer.param_groups[0]["lr"]}): {secs * 1e3:.1f} '
+          f'ms/step, {TRAIN_RAYS / secs:.0f} rays/s over {TRAIN_STEPS} steps '
+          f'after {WARMUP_STEPS}; launches per step '
+          + ', '.join(f'{k} {v // TRAIN_STEPS}' for k, v in launches.items())
+          + f'; plain calls {plain_calls}; loss {losses[0]:.5f} -> '
+          f'{losses[-1]:.5f}, psnr {psnrs[-1]:.2f}; fixed-batch loss '
+          f'{before:.5f} -> {after:.5f}; {len(list(model.parameters()))} '
+          f'parameters with finite non-zero gradients; peak memory '
+          f'{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB')
+    for k in kernels:
+        k['train_launches'] = launches[k['name']]
+        k.setdefault('launches', launches[k['name']])
+
+    # One step's loss and gradients on a small explicit batch from the same
+    # state and draws: the kernels, then the plain versions.
+    n = 1024
+    gen = torch.Generator(device='cuda').manual_seed(11)
+    s, nf = cfg.num_coarse_samples, cfg.num_fine_samples
+    draws = {'t_rand': torch.rand(n, s, generator=gen, device='cuda'),
+             'fine_u': sorted_uniform(n, nf, gen, device='cuda'),
+             'noise_coarse': torch.randn(n, s, generator=gen, device='cuda'),
+             'noise_fine': torch.randn(n, s + nf, generator=gen,
+                                       device='cuda')}
+    results = []
+    for plain in (False, True):
+        model.level_op = functools.partial(K.fused_level, plain=plain)
+        model.composite_op = functools.partial(K.fused_composite,
+                                               plain=plain)
+        model.zero_grad(set_to_none=True)
+        out = model(prepare_ray_dict(all_rays[:n]), deterministic=False,
+                    return_weights=False, draws=draws)
+        loss = mse_loss(out, all_rgbs[:n])
+        loss.backward()
+        results.append((loss.item(), {k: p.grad.clone() for k, p in
+                                      model.named_parameters()}))
+    model.level_op, model.composite_op = K.fused_level, K.fused_composite
+    (loss_k, grads_k), (loss_p, grads_p) = results
+    worst = max((grad_errors(grads_k[k], grads_p[k])[0], k) for k in grads_k)
+    phase(f'[7] one step on {n} rays, kernels vs plain versions: loss '
+          f'{loss_k:.6f} vs {loss_p:.6f} (tol {STEP_LOSS_TOL}); gradients: '
+          f'worst relative L2 {worst[0]:.3e} at {worst[1]} (tol '
+          f'{STEP_GRAD_L2})')
+    if not abs(loss_k - loss_p) <= STEP_LOSS_TOL or \
+            not worst[0] <= STEP_GRAD_L2:
+        raise AssertionError('train step: kernels and plain versions '
+                             'disagree')
 
 
 def main() -> int:
@@ -223,12 +693,20 @@ def main() -> int:
                         cuda_ms(lambda: fused_level_plain(level[s], *args), 3))
             phase(f'[3] level R={CHUNK} S={s}: kernel {times[s][0]:.3f} ms, '
                   f'plain {times[s][1]:.3f} ms')
+        # Bound at R = CHUNK, S = 128: every weight is one multiply-add per
+        # sample; bytes are the ray inputs, the weights once, the output.
+        macs = level_macs(level[128])
+        p128 = CHUNK * 128
+        b_ms, b_by = bound(2.0 * sum(macs) * p128,
+                           4 * p128 + CHUNK * (24 + 32 + 78) + 2 * sum(macs)
+                           + 16 * p128)
         kernels.append(dict(
             name='fused_level_fwd', route='cuda',
             source='hypernerf_tpu_torch/kernels/csrc/fused_level.cu',
             replaces='hypernerf_tpu/ops/pallas/fused_level.py:1322',
             max_abs_err=max(errs), ms=times[128][0],
-            plain_ms=times[128][1]))
+            plain_ms=times[128][1], bound_ms=b_ms, bound_by=b_by,
+            library_ms=None))
         del probe, level, args
 
         # [4] compositing kernel vs plain.
@@ -250,12 +728,17 @@ def main() -> int:
                 cuda_ms(lambda: fused_composite_plain(packed, z, dirs, u)))
             phase(f'[4] composite R={CHUNK} S={s} N={n}: kernel '
                   f'{ctimes[s][0]:.3f} ms, plain {ctimes[s][1]:.3f} ms')
+        # Bound at R = CHUNK, S = 64, N = 64: no matrix product; bytes are
+        # packed, z, directions, u in and outs, weights, z_union out.
+        b_ms, b_by = bound(0.0, CHUNK * (64 * (16 + 4) + 12 + 4 * 64
+                                         + 24 + 4 * 64 + 4 * 128))
         kernels.append(dict(
             name='fused_composite_fwd', route='cuda',
             source='hypernerf_tpu_torch/kernels/csrc/fused_composite.cu',
             replaces='hypernerf_tpu/ops/pallas/fused_composite.py:437',
             max_abs_err=max(errs), ms=ctimes[64][0],
-            plain_ms=ctimes[64][1]))
+            plain_ms=ctimes[64][1], bound_ms=b_ms, bound_by=b_by,
+            library_ms=None))
 
         # [5] the render path, end to end.
         frames = spiral_rays(range(0, 30 * (N_FRAMES + 1), 30))
@@ -295,6 +778,7 @@ def main() -> int:
               f'level {launches[0]} composite {launches[1]} '
               f'(= 2 levels x {chunks} chunks x {N_FRAMES} frames); plain '
               f'calls {plain_calls}')
+        # Render launches; the train step's are added in phase 7.
         for k in kernels:
             k['launches'] = (launches[0] if k['name'] == 'fused_level_fwd'
                              else launches[1])
@@ -320,6 +804,15 @@ def main() -> int:
         model.composite_op = fused_composite
         phase(f'[5] plain versions: {plain_secs:.4f} s/frame (1 frame)')
 
+    kernels += backward_phase()
+    train_phase(kernels)
+    for k in kernels:
+        missing = {'name', 'route', 'source', 'replaces', 'launches',
+                   'max_abs_err', 'ms', 'plain_ms', 'bound_ms', 'bound_by',
+                   'library_ms'} - set(k)
+        if missing or not k['launches'] > 0:
+            raise AssertionError(f'kernel line incomplete: {k["name"]} '
+                                 f'{missing} launches {k.get("launches")}')
     print(json.dumps({'kernels': kernels}))
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

@@ -20,9 +20,9 @@ def main(argv=None):
     import torch
     from PIL import Image
 
-    from hypernerf_tpu.datasets import dataset_dict
-    from hypernerf_tpu.datasets.depth_io import save_pfm
-    from hypernerf_tpu.opt import configs_from_args, get_opts
+    from hypernerf_tpu_torch.datasets import dataset_dict
+    from hypernerf_tpu_torch.datasets.depth_io import save_pfm
+    from hypernerf_tpu_torch.opt import configs_from_args, get_opts
     from hypernerf_tpu_torch.models.nerf import NerfModel
     from hypernerf_tpu_torch.training import checkpoints, metrics
     from hypernerf_tpu_torch.training.renderer import ImageRenderer

@@ -6,6 +6,9 @@ tensor.
 """
 
 from hypernerf_tpu_torch.kernels.fused_composite import (
-    fused_composite, fused_composite_plain)
-from hypernerf_tpu_torch.kernels.fused_level import (Level, fused_level,
-                                                     fused_level_plain)
+    FusedCompositeFn, fused_composite, fused_composite_bwd,
+    fused_composite_bwd_plain, fused_composite_plain)
+from hypernerf_tpu_torch.kernels.fused_level import (
+    FusedLevelFn, Level, fused_fields_bwd, fused_fields_bwd_plain,
+    fused_level, fused_level_plain, fused_template_bwd,
+    fused_template_bwd_plain)

@@ -4,8 +4,9 @@ plain C interface, bound with ``ctypes``.
 The library is built at first use from ``kernels/csrc/`` alone, into
 ``build/kernels/`` at the repository root, under a name keyed on a hash of
 the sources and flags — so a fresh checkout builds once and an edited
-source never loads a stale binary. Nothing is built or imported when this
-module is imported.
+source never loads a stale binary. Every ``.cu`` is compiled by its own
+``nvcc`` process, all started together, and the objects are then linked.
+Nothing is built or imported when this module is imported.
 """
 
 from __future__ import annotations
@@ -22,16 +23,21 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / 'csrc'
 BUILD_DIR = Path(__file__).resolve().parents[2] / 'build' / 'kernels'
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
-              '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v')
+              '-Xcompiler', '-fPIC', '-Xptxas', '-v')
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
 # C entry points: name -> (argtypes, restype).
 _SIGNATURES = {
-    'hn_fused_level_fwd': ([_P] * 8 + [_L, _I, _P], _I),
+    'hn_fused_level_fwd': ([_P] * 9 + [_L, _I, _P], _I),
     'hn_fused_level_layout': ([_P, _P, _I], _I),
-    'hn_fused_composite_fwd': ([_P] * 7 + [_L, _I, _I, _I, _I, _P], _I),
+    'hn_fused_template_bwd_blocks': ([_L], _I),
+    'hn_fused_template_bwd': ([_P] * 10 + [_L, _I, _I, _I, _P], _I),
+    'hn_fused_fields_bwd_blocks': ([_L], _I),
+    'hn_fused_fields_bwd': ([_P] * 12 + [_L, _I, _I, _I, _P], _I),
+    'hn_fused_composite_fwd': ([_P] * 8 + [_L, _I, _I, _I, _I, _P], _I),
+    'hn_fused_composite_bwd': ([_P] * 9 + [_L, _I, _I, _I, _P], _I),
     'hn_error_string': ([_I], ctypes.c_char_p),
 }
 
@@ -65,20 +71,35 @@ def build() -> Path:
     if so.exists():
         return so
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    cu = [str(p) for p in _sources() if p.suffix == '.cu']
-    fd, tmp = tempfile.mkstemp(suffix='.so', dir=BUILD_DIR)
-    os.close(fd)
-    try:
-        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, '-o', tmp, *cu],
-                              capture_output=True, text=True, check=False)
-        so.with_suffix('.log').write_text(proc.stdout + proc.stderr)
-        if proc.returncode != 0:
-            raise RuntimeError(f'nvcc failed ({proc.returncode}):\n'
-                               f'{proc.stderr[-4000:]}')
-        os.replace(tmp, so)
-    finally:
-        if os.path.exists(tmp):
-            os.remove(tmp)
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        jobs = []
+        for src in _sources():
+            if src.suffix != '.cu':
+                continue
+            obj = os.path.join(tmp, src.stem + '.o')
+            jobs.append((src.name, obj, subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, '-c', '-o', obj, str(src)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+        log, failed = [], []
+        for name, _, proc in jobs:
+            out = proc.communicate()[0]
+            log.append(f'== {name}\n{out}')
+            if proc.returncode != 0:
+                failed.append(name)
+        linked = os.path.join(tmp, so.name)
+        if not failed:
+            link = subprocess.run(
+                [nvcc, '-shared', '-o', linked, *[obj for _, obj, _ in jobs]],
+                capture_output=True, text=True, check=False)
+            log.append(f'== link\n{link.stdout}{link.stderr}')
+            if link.returncode != 0:
+                failed.append('link')
+        text = '\n'.join(log)
+        so.with_suffix('.log').write_text(text)
+        if failed:
+            raise RuntimeError(f'nvcc failed on {failed}:\n{text[-6000:]}')
+        os.replace(linked, so)
     return so
 
 

@@ -3,8 +3,10 @@
 // Replaces hypernerf_tpu/ops/pallas/fused_composite.py `_fused` (forward,
 // fused_composite.py:437) with its fine draw `_fine_z_tile` (:187-246).
 //
-// Per ray: sigmoid / softplus of the level kernel's packed (S, 4) row block,
-// deltas scaled by |d| with a last delta of 1e7 (or 1e-7), the exclusive
+// Per ray: sigmoid / softplus of the level kernel's packed (S, 4) row block
+// (with the optional (R, S) noise added to raw sigma before the softplus, the
+// TPU kernel's `has_noise`, fused_composite.py:249-258), deltas scaled by |d|
+// with a last delta of 1e7 (or 1e-7), the exclusive
 // transmittance product of (1 - alpha + 1e-5), the weights, and rgb, depth,
 // median depth (first sample whose cumulative weight reaches 0.5) and acc
 // (without the last sample when it sits at infinity). With N > 0 it also
@@ -43,6 +45,7 @@ __global__ void __launch_bounds__(kThreads)
 composite_fwd_kernel(const float4* __restrict__ packed,
                      const float* __restrict__ z,
                      const float* __restrict__ dirs,
+                     const float* __restrict__ noise,
                      const float* __restrict__ u,
                      float* __restrict__ out,
                      float* __restrict__ weights,
@@ -56,6 +59,7 @@ composite_fwd_kernel(const float4* __restrict__ packed,
 
   const float* zr = z + r * S;
   const float4* pk = packed + r * S;
+  const float* nr = noise != nullptr ? noise + r * S : nullptr;
   float* wr = weights + r * S;
   const float dx = dirs[3 * r], dy = dirs[3 * r + 1], dz = dirs[3 * r + 2];
   const float dnorm = sqrtf(dx * dx + dy * dy + dz * dz);
@@ -70,7 +74,8 @@ composite_fwd_kernel(const float4* __restrict__ packed,
     const bool has_next = s + 1 < S;
     const float z_next = has_next ? zr[s + 1] : 0.f;
     const float dist = __fmul_rn(has_next ? z_next - z_cur : last, dnorm);
-    const float alpha = 1.f - expf(-__fmul_rn(softplus(p.w), dist));
+    const float raw = nr != nullptr ? p.w + nr[s] : p.w;
+    const float alpha = 1.f - expf(-__fmul_rn(softplus(raw), dist));
     const float w = __fmul_rn(alpha, trans);
     wr[s] = w;
     cr += __fmul_rn(w, sigmoid(p.x));
@@ -132,8 +137,8 @@ composite_fwd_kernel(const float4* __restrict__ packed,
 }  // namespace
 
 extern "C" int hn_fused_composite_fwd(const void* packed, const void* z,
-                                      const void* dirs, const void* u,
-                                      void* out, void* weights, void* z_union,
+                                      const void* dirs, const void* noise,
+                                      const void* u, void* out, void* weights, void* z_union,
                                       long long n_rays, int samples, int fine,
                                       int white_bkgd, int sample_at_infinity,
                                       void* stream) {
@@ -142,7 +147,8 @@ extern "C" int hn_fused_composite_fwd(const void* packed, const void* z,
   if (blocks > 0) {
     composite_fwd_kernel<<<blocks, kThreads, smem, (cudaStream_t)stream>>>(
         static_cast<const float4*>(packed), static_cast<const float*>(z),
-        static_cast<const float*>(dirs), static_cast<const float*>(u),
+        static_cast<const float*>(dirs), static_cast<const float*>(noise),
+        static_cast<const float*>(u),
         static_cast<float*>(out), static_cast<float*>(weights),
         static_cast<float*>(z_union), n_rays, samples, fine, white_bkgd,
         sample_at_infinity);

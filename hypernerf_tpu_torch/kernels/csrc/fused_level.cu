@@ -3,6 +3,9 @@
 // Replaces hypernerf_tpu/ops/pallas/fused_level.py `_fused` (forward,
 // fused_level.py:1322) in its ray-native mode, for the flagship spec only:
 // translation warp, bendy sheet, posenc_orig encodings, no alpha condition.
+// When asked (training) it also writes the template's raw input
+// raw_t = [warped | hyper | 0] (P, 8) fp32, the residual the TPU kernel
+// saves for its backward (fused_level.py:1339-1344).
 // Per sample row p of ray p / S:
 //   pts    = o + z * d
 //   warped = pts + WarpMLP(posenc_orig(pts, 10) ++ embed)        6 x 128
@@ -31,37 +34,14 @@
 // Streaming weights through shared memory with TMA and wgmma is left for
 // a later change.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "level_common.cuh"
 
 namespace {
-
-using bf16 = __nv_bfloat16;
-
-// Flagship widths (NerfConfig defaults).
-constexpr int kEmbed = 8;
-constexpr int kWarpW = 128, kWarpF = 10;
-constexpr int kHypW = 64, kHypF = 7, kHypOut = 4;
-constexpr int kXyzF = 10, kHypEncF = 6;
-constexpr int kTrunkW = 256, kBneck = 128;
-constexpr int kRgbW = 128, kCond = 39;
 
 constexpr int kRows = 64;  // sample rows per block
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kMT = kRows / 16;  // m16 tiles per block
-
-__host__ __device__ constexpr int pad16(int x) { return (x + 15) / 16 * 16; }
-
-constexpr int kWarpPts = 3 * (1 + 2 * kWarpF);               // 63
-constexpr int kHypPts = 3 * (1 + 2 * kHypF);                 // 45
-constexpr int kTmplXyz = 3 * (1 + 2 * kXyzF);                // 63
-constexpr int kTmplEnc = kTmplXyz + kHypOut * (1 + 2 * kHypEncF);  // 115
-constexpr int kWarpEncP = pad16(kWarpPts + kEmbed);          // 80
-constexpr int kHypEncP = pad16(kHypPts + kEmbed);            // 64
-constexpr int kTmplEncP = pad16(kTmplEnc);                   // 128
-constexpr int kCondP = pad16(kCond);                         // 48
 
 // Activation tile: row stride in bf16. +8 staggers rows by 4 banks so the
 // mma A-fragment loads (8 rows x 4 words) hit 32 distinct banks.
@@ -73,72 +53,11 @@ constexpr int kLd = kTrunkW + kTmplEncP + 8;  // 392
 //   template  h [0, 256)   enc [256, 384)
 //   rgb       b/h [0, 128) rgb_cond [128, 176)
 
-struct Shape {
-  int n, k;
-};
-
-// The 30 layers in kernel order, (out padded to 8, in padded per segment
-// to 16). The Python wrapper packs weights to exactly these shapes and
-// checks them against hn_fused_level_layout.
-__host__ __device__ constexpr Shape layer_shape(int l) {
-  constexpr Shape t[] = {
-      // warp MLP: hidden 0..5 (skip input after 4), logit 3 -> 8
-      {kWarpW, kWarpEncP}, {kWarpW, kWarpW}, {kWarpW, kWarpW},
-      {kWarpW, kWarpW}, {kWarpW, kWarpW}, {kWarpW, kWarpW + kWarpEncP},
-      {8, kWarpW},
-      // hyper MLP: hidden 0..5, logit 4 -> 8
-      {kHypW, kHypEncP}, {kHypW, kHypW}, {kHypW, kHypW}, {kHypW, kHypW},
-      {kHypW, kHypW}, {kHypW, kHypW + kHypEncP}, {8, kHypW},
-      // template trunk: hidden 0..7, ReLU logit
-      {kTrunkW, kTmplEncP}, {kTrunkW, kTrunkW}, {kTrunkW, kTrunkW},
-      {kTrunkW, kTrunkW}, {kTrunkW, kTrunkW}, {kTrunkW, kTrunkW + kTmplEncP},
-      {kTrunkW, kTrunkW}, {kTrunkW, kTrunkW}, {kTrunkW, kTrunkW},
-      // bottleneck, alpha head 1 -> 8
-      {kBneck, kTrunkW}, {8, kBneck},
-      // rgb branch: hidden 0..3, logit 3 -> 8
-      {kRgbW, kBneck + kCondP}, {kRgbW, kRgbW}, {kRgbW, kRgbW},
-      {kRgbW, kRgbW}, {8, kRgbW},
-  };
-  return t[l];
-}
-constexpr int kNumLayers = 30;
-
-__host__ __device__ constexpr long long weight_offset(int l) {
-  long long o = 0;
-  for (int i = 0; i < l; ++i)
-    o += (long long)layer_shape(i).n * layer_shape(i).k;
-  return o;
-}
-
-__host__ __device__ constexpr int bias_offset(int l) {
-  int o = 0;
-  for (int i = 0; i < l; ++i) o += layer_shape(i).n;
-  return o;
-}
-
 // n8 tiles per warp for an N-wide layer.
 template <int N>
 struct Tiles {
   static constexpr int v = (N / 8 + kWarps - 1) / kWarps;
 };
-
-__device__ __forceinline__ uint32_t lds32(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-__device__ __forceinline__ uint32_t ldg32(const bf16* p) {
-  return __ldg(reinterpret_cast<const unsigned int*>(p));
-}
-
-__device__ __forceinline__ void mma_bf16(float (&c)[4], uint32_t a0,
-                                         uint32_t a1, uint32_t a2, uint32_t a3,
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
-}
 
 // acc[mt][i] = X[rows of m-tile mt, a_col : a_col + K] @ W^T for n8 tile
 // j = warp + kWarps * i; W is (N, K) row-major.
@@ -251,18 +170,6 @@ __device__ __forceinline__ void head_layer(const bf16* X, int a_col,
   __syncthreads();
 }
 
-// Feature f of posenc_orig over CH channels and F bands, block layout
-// [x | sin(x * 2^k) | cos(x * 2^k)] with band k of channel c at k * CH + c.
-template <int CH, int F>
-__device__ __forceinline__ float posenc_at(const float* x, int f) {
-  if (f < CH) return x[f];
-  f -= CH;
-  const bool is_cos = f >= CH * F;
-  if (is_cos) f -= CH * F;
-  const float arg = x[f % CH] * (float)(1 << (f / CH));  // exact scaling
-  return is_cos ? cosf(arg) : sinf(arg);
-}
-
 // Field encoding [posenc_orig(pts, F) | embed | 0 pad] into X[:, col:col+KP].
 template <int F, int KP>
 __device__ __forceinline__ void encode_field(bf16* X, int col,
@@ -287,8 +194,8 @@ fused_level_fwd_kernel(const float* __restrict__ zs,
                        const float* __restrict__ embed,
                        const bf16* __restrict__ rgb_cond,
                        const bf16* __restrict__ W, const bf16* __restrict__ B,
-                       float* __restrict__ out, long long n_points,
-                       int samples) {
+                       float* __restrict__ out, float* __restrict__ raw_t,
+                       long long n_points, int samples) {
   extern __shared__ __align__(16) unsigned char smem[];
   bf16* X = reinterpret_cast<bf16*>(smem);                    // [kRows][kLd]
   float* rowin = reinterpret_cast<float*>(X + kRows * kLd);    // [kRows][12]
@@ -347,6 +254,13 @@ fused_level_fwd_kernel(const float* __restrict__ zs,
     rawt[r * 8 + 3 + c] = head[r * 8 + c];
   }
   __syncthreads();
+  // Training keeps the template's raw input for the backward kernels.
+  if (raw_t != nullptr && tid < kRows && row0 + tid < n_points) {
+    const float* rt = rawt + tid * 8;
+    float4* dst = reinterpret_cast<float4*>(raw_t) + 2 * (row0 + tid);
+    dst[0] = make_float4(rt[0], rt[1], rt[2], rt[3]);
+    dst[1] = make_float4(rt[4], rt[5], rt[6], 0.f);
+  }
 
   // Template encoding [posenc_orig(warped, 10) | posenc_orig(hyper, 6)].
   for (int e = tid; e < kRows * kTmplEncP; e += kThreads) {
@@ -411,7 +325,7 @@ extern "C" int hn_fused_level_fwd(const void* z, const void* origins,
                                   const void* dirs, const void* embed,
                                   const void* rgb_cond, const void* weights,
                                   const void* biases, void* out,
-                                  long long n_rays, int samples,
+                                  void* raw_t, long long n_rays, int samples,
                                   void* stream) {
   const long long n_points = n_rays * samples;
   const long long blocks = (n_points + kRows - 1) / kRows;
@@ -425,8 +339,8 @@ extern "C" int hn_fused_level_fwd(const void* z, const void* origins,
         static_cast<const float*>(z), static_cast<const float*>(origins),
         static_cast<const float*>(dirs), static_cast<const float*>(embed),
         static_cast<const bf16*>(rgb_cond), static_cast<const bf16*>(weights),
-        static_cast<const bf16*>(biases), static_cast<float*>(out), n_points,
-        samples);
+        static_cast<const bf16*>(biases), static_cast<float*>(out),
+        static_cast<float*>(raw_t), n_points, samples);
   }
   return (int)cudaGetLastError();
 }

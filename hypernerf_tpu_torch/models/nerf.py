@@ -1,11 +1,18 @@
-"""NerfModel: the flagship HyperNeRF render path
-(port of ``hypernerf_tpu/models/nerf.py``, its fused coarse + fine render).
+"""NerfModel: the flagship HyperNeRF, rendering and training
+(port of ``hypernerf_tpu/models/nerf.py``, its fused coarse + fine path).
 
 One level is two kernels: the level forward (warp field, hyper sheet and
 template for every sample) and the compositing forward; the coarse
 compositing call also draws the fine depths and merges them with the
-coarse ones, as ``nerf.py:902-986`` does. The deterministic render draws
-nothing: coarse z is a linspace and the fine u is linspace(0, 1, N).
+coarse ones, as ``nerf.py:902-986`` does. Both have hand-written backward
+kernels (``kernels/``), so the same ``forward`` serves the train step.
+
+The deterministic render draws nothing: coarse z is a linspace and the fine
+u is linspace(0, 1, N). The stochastic forward (training) draws, in the JAX
+model's order, the stratified coarse jitter, the ascending fine u
+(``sorted_uniform``) and one N(0, noise_std) sigma noise per level — from an
+explicit ``torch.Generator``, or taken from ``draws`` so that a test can pass
+in the numbers another implementation drew.
 
 Configurations other than the flagship family raise NotImplementedError
 naming the ROADMAP item that will port them.
@@ -13,18 +20,19 @@ naming the ROADMAP item that will port them.
 
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 import torch
 from torch import nn
 
-from hypernerf_tpu.configs import NerfConfig
+from hypernerf_tpu_torch.configs import NerfConfig
 from hypernerf_tpu_torch.kernels import Level, fused_composite, fused_level
 from hypernerf_tpu_torch.models.modules import (GLOEmbed, HyperSheetMLP,
                                                 NerfMLP, torch_dtype)
 from hypernerf_tpu_torch.models.warping import TranslationField
 from hypernerf_tpu_torch.ops.posenc import posenc_orig, posenc_orig_channels
-from hypernerf_tpu_torch.ops.sampling import sample_along_rays
+from hypernerf_tpu_torch.ops.sampling import (sample_along_rays,
+                                              sorted_uniform)
 
 WARP_EMBED_KEY = 'time'
 
@@ -95,17 +103,33 @@ class NerfModel(nn.Module):
         return Level(self.warp_field, self.hyper_sheet_mlp, template,
                      cfg.xyz_freq, cfg.hyper_freq)
 
+    def invalidate_packed(self) -> None:
+        """Drop the level kernels' cached packed weights. The cache follows
+        the parameters' version counters, which every in-place update bumps
+        except an optimizer's ``fused`` implementation: the train step calls
+        this after each optimizer step so that no implementation can leave
+        the cache stale."""
+        for name in ('nerf_coarse', 'nerf_fine'):
+            template = getattr(self, name, None)
+            if template is not None:
+                template.__dict__.pop('_packed_level', None)
+
     def render_level(self, name, z_vals, origins, directions, embed,
-                     rgb_cond, fine_u=None) -> Dict[str, torch.Tensor]:
+                     rgb_cond, fine_u=None,
+                     noise=None) -> Dict[str, torch.Tensor]:
         packed = self.level_op(self.level(name), z_vals, origins, directions,
                                embed, rgb_cond)
+        extra = {} if noise is None else {'noise': noise}
         return self.composite_op(
             packed, z_vals, directions, fine_u,
             use_white_background=self.config.use_white_background,
-            sample_at_infinity=self.config.use_sample_at_infinity)
+            sample_at_infinity=self.config.use_sample_at_infinity, **extra)
 
     def forward(self, rays_dict: Dict[str, Any], deterministic: bool = True,
-                return_weights: bool = True) -> Dict[str, Dict]:
+                return_weights: bool = True,
+                generator: Optional[torch.Generator] = None,
+                draws: Optional[Dict[str, torch.Tensor]] = None
+                ) -> Dict[str, Dict]:
         """Render a batch of rays.
 
         Args:
@@ -113,17 +137,21 @@ class NerfModel(nn.Module):
             directions (B, 3), optional viewdirs, per-ray near / far (B,),
             metadata ids (B, 1).
           deterministic: the render path (no stratified jitter, no sigma
-            noise). Stochastic rendering belongs to the train step.
+            noise); False is the train step's forward.
+          generator: source of the stochastic forward's draws, on the rays'
+            device.
+          draws: explicit draws instead: 't_rand' (B, S) uniforms of the
+            coarse jitter, 'fine_u' (B, N) ascending uniforms, and
+            'noise_coarse' (B, S) / 'noise_fine' (B, S + N) sigma noise,
+            already scaled by ``noise_std``. A missing key is drawn.
 
         Returns:
           {'coarse': {...}, 'fine': {...}} with per-ray rgb / depth /
           med_depth / acc (and weights when ``return_weights``).
         """
         cfg = self.config
-        if cfg.use_stratified_sampling and not deterministic:
-            raise NotImplementedError('stochastic rendering (stratified '
-                                      'jitter, sigma noise) is the train '
-                                      'step, ROADMAP A.5')
+        stratified = cfg.use_stratified_sampling and not deterministic
+        draws = dict(draws or {})
         origins = rays_dict['origins'].contiguous()
         directions = rays_dict['directions'].contiguous()
         viewdirs = rays_dict.get('viewdirs')
@@ -135,23 +163,43 @@ class NerfModel(nn.Module):
 
         z_vals, _ = sample_along_rays(origins, directions,
                                       cfg.num_coarse_samples, near, far,
-                                      False, cfg.use_linear_disparity)
+                                      stratified, cfg.use_linear_disparity,
+                                      t_rand=draws.get('t_rand'),
+                                      generator=generator)
         z_vals = z_vals.contiguous()
         embed = self.warp_embed(rays_dict['metadata'][WARP_EMBED_KEY])
         rgb_cond = posenc_orig(viewdirs, cfg.dir_freq)
         n_fine = cfg.num_fine_samples
         fine_u = None
-        if n_fine:
+        if n_fine and stratified:
+            fine_u = draws.get('fine_u')
+            if fine_u is None:
+                fine_u = sorted_uniform(n_rays, n_fine, generator,
+                                        z_vals.dtype, z_vals.device)
+            fine_u = fine_u.contiguous()
+        elif n_fine:
             fine_u = torch.linspace(0.0, 1.0, n_fine, dtype=z_vals.dtype,
                                     device=z_vals.device)
             fine_u = fine_u.expand(n_rays, n_fine).contiguous()
-        out = {'coarse': self.render_level('coarse', z_vals, origins,
-                                           directions, embed, rgb_cond,
-                                           fine_u)}
+
+        def sigma_noise(level, samples):
+            if not stratified or not cfg.noise_std or cfg.noise_std <= 0.0:
+                return None
+            noise = draws.get(f'noise_{level}')
+            if noise is None:
+                noise = torch.randn((n_rays, samples), generator=generator,
+                                    dtype=z_vals.dtype,
+                                    device=z_vals.device) * cfg.noise_std
+            return noise.contiguous()
+
+        out = {'coarse': self.render_level(
+            'coarse', z_vals, origins, directions, embed, rgb_cond, fine_u,
+            sigma_noise('coarse', cfg.num_coarse_samples))}
         if n_fine:
             z_union = out['coarse'].pop('z_union')
-            out['fine'] = self.render_level('fine', z_union, origins,
-                                            directions, embed, rgb_cond)
+            out['fine'] = self.render_level(
+                'fine', z_union, origins, directions, embed, rgb_cond,
+                noise=sigma_noise('fine', cfg.num_coarse_samples + n_fine))
         if not return_weights:
             for res in out.values():
                 res.pop('weights', None)

@@ -59,3 +59,19 @@ def compute_depth_map(weights, z_vals, depth_threshold: float = 0.5):
     """Median-accumulation depth."""
     mask = compute_opaqueness_mask(weights, depth_threshold)
     return torch.sum(mask * z_vals, dim=-1)
+
+
+def noise_regularize(raw_alpha, noise_std, use_stratified_sampling: bool,
+                     noise=None, generator=None):
+    """Add N(0, noise_std) to the raw density before its activation, only
+    when stratified sampling is on and ``noise_std`` > 0.
+
+    ``noise`` gives the standard-normal draws explicitly (same shape as
+    ``raw_alpha``); otherwise they come from ``generator``.
+    """
+    if noise_std is None or noise_std <= 0.0 or not use_stratified_sampling:
+        return raw_alpha
+    if noise is None:
+        noise = torch.randn(raw_alpha.shape, generator=generator,
+                            dtype=raw_alpha.dtype, device=raw_alpha.device)
+    return raw_alpha + noise * noise_std

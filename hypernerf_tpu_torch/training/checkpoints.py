@@ -8,7 +8,7 @@ import os
 
 import torch
 
-from hypernerf_tpu.configs import NerfConfig
+from hypernerf_tpu_torch.configs import NerfConfig
 
 CONFIG_NAME = 'nerf_config.json'
 

@@ -1,4 +1,5 @@
-"""Image metrics (port of ``hypernerf_tpu/training/metrics.py``: psnr)."""
+"""Image metrics (port of ``hypernerf_tpu/training/metrics.py``: mse and
+psnr; ssim comes with the trainer, ROADMAP A.8)."""
 
 from __future__ import annotations
 
@@ -14,3 +15,4 @@ def mse(image_pred, image_gt) -> float:
 def psnr(image_pred, image_gt) -> float:
     """-10 log10(MSE) of two images in [0, 1]."""
     return float(-10.0 * np.log10(mse(image_pred, image_gt)))
+

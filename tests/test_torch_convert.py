@@ -2,6 +2,7 @@
 by tools/jax_ckpt_to_torch.py, rendered through both packages (1e-5 at
 float32)."""
 
+import dataclasses
 import os
 import sys
 import types
@@ -49,7 +50,10 @@ def test_jax_checkpoint_converts_and_renders_the_same(tmp_path):
             params, jax_ray_dict(jnp.asarray(rays))))
 
     out = jax_ckpt_to_torch.convert(ckpt, str(tmp_path / 'w' / 'model.pt'))
-    assert checkpoints.load_config(out) == CFG
+    # The port reads the JAX package's nerf_config.json into its own copy
+    # of NerfConfig: another class, the same fields.
+    assert dataclasses.asdict(checkpoints.load_config(out)) == \
+        dataclasses.asdict(CFG)
     port = NerfModel(checkpoints.load_config(out))
     checkpoints.load_weights(port, out)
     got = render_rays(port, rays, chunk=4)

@@ -155,3 +155,44 @@ def test_flagship_spiral_rays():
         assert (rays[:, 8] == i).all()
         _close(rays[:, 2], -np.ones(48))  # NDC origins on the near plane
     assert not np.array_equal(frames[0][:, :6], frames[1][:, :6])
+
+
+@pytest.mark.parametrize('noise_std,stratified', [(0.7, True), (0.7, False),
+                                                  (0.0, True), (None, True)])
+def test_noise_regularize(noise_std, stratified):
+    """Same noise in (JAX's own standard-normal draws), same raw density
+    out; no noise without stratified sampling or a positive deviation."""
+    key = jax.random.PRNGKey(4)
+    raw = np.random.RandomState(1).randn(5, 7).astype(np.float32)
+    want = jrendering.noise_regularize(key, jnp.asarray(raw), noise_std,
+                                       stratified)
+    draws = np.array(jax.random.normal(key, raw.shape, jnp.float32))
+    got = rendering.noise_regularize(torch.from_numpy(raw), noise_std,
+                                     stratified,
+                                     noise=torch.from_numpy(draws))
+    _close(got, want)
+    gen = torch.Generator().manual_seed(0)
+    drawn = rendering.noise_regularize(torch.from_numpy(raw), noise_std,
+                                       stratified, generator=gen)
+    on = bool(noise_std) and stratified
+    assert torch.equal(drawn, torch.from_numpy(raw)) != on
+
+
+def test_stochastic_sampling_gradients_follow_jax():
+    """The stratified coarse depths are differentiable in the rays' bounds
+    (as in JAX); the hierarchical draw is not (``stop_gradient`` there,
+    ``detach`` here), with explicit draws or a generator alike."""
+    o, d = _rays()
+    near = torch.full((6,), 0.5, requires_grad=True)
+    t_rand = torch.rand(6, 8, generator=torch.Generator().manual_seed(1))
+    z, _ = sampling.sample_along_rays(torch.from_numpy(o),
+                                      torch.from_numpy(d), 8, near, 3.0,
+                                      True, False, t_rand=t_rand)
+    assert z.requires_grad
+    bins = 0.5 * (z[:, 1:] + z[:, :-1])
+    weights = torch.rand(6, 6, requires_grad=True)
+    for kw in (dict(u=torch.sort(torch.rand(6, 5), -1)[0]),
+               dict(generator=torch.Generator().manual_seed(2))):
+        fine = sampling.piecewise_constant_pdf(bins, weights, 5, True, **kw)
+        assert not fine.requires_grad and fine.shape == (6, 5)
+        assert (fine[:, 1:] >= fine[:, :-1]).all()  # ascending u in, out

@@ -23,8 +23,8 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 
 def convert(ckpt_path: str, out_path: str, nerf_config: str = None) -> str:
-    from hypernerf_tpu.configs import NerfConfig
     from hypernerf_tpu.training.checkpoints import extract_model_params
+    from hypernerf_tpu_torch.configs import NerfConfig
     from hypernerf_tpu_torch.convert import params_from_jax
     from hypernerf_tpu_torch.models.nerf import NerfModel
     from hypernerf_tpu_torch.training.checkpoints import save_weights

@@ -1,17 +1,22 @@
 #!/usr/bin/env python
-"""Write the JAX level kernel's outputs for the flagship at the probe
-weights, the reference against which ``chip_smoke.py`` holds the CUDA level
-kernel on a card that has no JAX.
+"""Write the JAX kernels' outputs and gradients for the flagship at the probe
+weights, the references against which ``chip_smoke.py`` holds the CUDA
+kernels on a card that has no JAX.
 
   python tools/make_level_reference.py \
-      [--out tests/data/fused_level_jax_ref.npz]
+      [--out tests/data/fused_level_jax_ref.npz] \
+      [--grads_out tests/data/fused_jax_grads.npz]
 
 The weights are ``hypernerf_tpu_torch.flagship.load_probe_weights`` (numpy,
 seed 0), which the card redraws bit for bit; the inputs
-(``flagship.probe_inputs``) are stored in the file beside the outputs. The
-outputs come from ``hypernerf_tpu``'s ``fused_level`` (the TPU kernel) in
-Pallas interpret mode on the CPU, in bf16 as the flagship runs.
-``tests/test_torch_fused_level.py`` recomputes them and checks the file.
+(``flagship.probe_inputs``, ``flagship.composite_probe_inputs``) are stored
+in the files beside the outputs. The outputs come from ``hypernerf_tpu``'s
+``fused_level`` (the TPU kernel) in Pallas interpret mode on the CPU, in
+bf16 as the flagship runs. The gradients file holds, for a fixed numpy
+cotangent, the gradients of the level kernel (its default pipelined backward
+schedule: every ray input, and dW / db of all 30 layers) and of the
+compositing kernel (``_fused_bwd``, with noise), also in interpret mode.
+``tests/test_torch_fused_level.py`` recomputes both files and checks them.
 """
 
 from __future__ import annotations
@@ -28,18 +33,19 @@ def probe_model():
     return load_probe_weights(flagship_model('cpu'))
 
 
-def jax_level(model, level: str, inputs) -> 'np.ndarray':
-    """(R * S, 4) [rgb logits | raw sigma] of the JAX level kernel with the
-    weights of ``model``'s ``level`` ('coarse' or 'fine')."""
-    import jax
+def _jax_level_fn(model, level: str, inputs):
+    """(fn, args): ``fn(*args)`` is the JAX level kernel's packed output
+    with the weights of ``model``'s ``level``; args are the five ray inputs
+    in ``LEVEL_INPUTS`` order, then the warp, hyper and template (W, b)
+    pair lists."""
     import jax.numpy as jnp
-    import numpy as np
 
     from hypernerf_tpu.ops.pallas.fused_field import mlp_params_to_list
     from hypernerf_tpu.ops.pallas.fused_level import (FusedLevelSpec,
                                                       fused_level)
     from hypernerf_tpu.ops.pallas.fused_mlp import nerf_mlp_params_to_list
     from hypernerf_tpu_torch.convert import params_to_jax
+    from hypernerf_tpu_torch.flagship import LEVEL_INPUTS
 
     params = params_to_jax(model.state_dict())
     cfg = model.config
@@ -54,27 +60,117 @@ def jax_level(model, level: str, inputs) -> 'np.ndarray':
         trunk_width=cfg.trunk_width, rgb_depth=cfg.rgb_branch_depth,
         rgb_width=cfg.rgb_branch_width,
         rgb_cond_ch=inputs['rgb_cond'].shape[1], alpha_cond_ch=0,
-        skips=tuple(cfg.skips), tile=512, interpret=True,
-        compute_dtype=cfg.compute_dtype, cond_samples=s)
-    a = {k: jnp.asarray(v) for k, v in inputs.items()}
-    packed = fused_level(
-        spec, None, a['embed'], a['rgb_cond'], None,
-        mlp_params_to_list(params['warp_field']['mlp']),
-        mlp_params_to_list(params['hyper_sheet_mlp']['mlp']),
-        nerf_mlp_params_to_list(params[f'nerf_{level}']),
-        origins=a['origins'], directions=a['directions'],
-        z_vals=a['z_vals'], return_packed=True)
-    return np.asarray(jax.device_get(packed))[:, :4]
+        skips=tuple(cfg.skips), tile=512, bwd_tile=256, interpret=True,
+        compute_dtype=cfg.compute_dtype, cond_samples=s,
+        pipelined_bwd=cfg.pallas_pipelined_bwd)
+
+    def fn(z_vals, origins, directions, embed, rgb_cond, warp, hyper, tmpl):
+        return fused_level(spec, None, embed, rgb_cond, None, warp, hyper,
+                           tmpl, origins=origins, directions=directions,
+                           z_vals=z_vals, return_packed=True)[:, :4]
+
+    as_jnp = lambda pairs: [(jnp.asarray(w), jnp.asarray(b))
+                            for w, b in pairs]
+    args = [jnp.asarray(inputs[k]) for k in LEVEL_INPUTS] + [
+        as_jnp(mlp_params_to_list(params['warp_field']['mlp'])),
+        as_jnp(mlp_params_to_list(params['hyper_sheet_mlp']['mlp'])),
+        as_jnp(nerf_mlp_params_to_list(params[f'nerf_{level}']))]
+    return fn, args
+
+
+def jax_level(model, level: str, inputs) -> 'np.ndarray':
+    """(R * S, 4) [rgb logits | raw sigma] of the JAX level kernel with the
+    weights of ``model``'s ``level`` ('coarse' or 'fine')."""
+    import jax
+    import numpy as np
+    fn, args = _jax_level_fn(model, level, inputs)
+    return np.asarray(jax.device_get(fn(*args)))
+
+
+def jax_level_grads(model, level: str, inputs, cotangent) -> dict:
+    """Gradients of sum(level output * cotangent) through the JAX level
+    kernel's own backward: {'d_<input>'} for the five ray inputs and
+    {'dw<l>', 'db<l>'} for the 30 layers in kernel order, dW as (out, in)."""
+    import jax
+    import jax.numpy as jnp
+    import numpy as np
+    fn, args = _jax_level_fn(model, level, inputs)
+    from hypernerf_tpu_torch.flagship import LEVEL_INPUTS
+
+    def loss(*a):
+        return jnp.sum(fn(*a) * jnp.asarray(cotangent))
+
+    g = jax.device_get(jax.grad(loss, argnums=tuple(range(8)))(*args))
+    out = {f'd_{k}': np.asarray(v, np.float32)
+           for k, v in zip(LEVEL_INPUTS, g[:5])}
+    pairs = [p for group in g[5:] for p in group]
+    for layer, (dw, db) in enumerate(pairs):
+        out[f'dw{layer}'] = np.asarray(dw, np.float32).T.copy()
+        out[f'db{layer}'] = np.asarray(db, np.float32)
+    return out
+
+
+def jax_composite_grads(inputs, cot_outs, cot_weights) -> dict:
+    """Gradients of the JAX compositing kernel (``_fused_bwd``, interpret
+    mode, sample at infinity, no white background) for the cotangents of
+    [rgb | depth | med_depth | acc] (R, 6) and of the weights (R, S)."""
+    import jax
+    import jax.numpy as jnp
+    import numpy as np
+
+    from hypernerf_tpu.ops.pallas.fused_composite import (CompositeSpec,
+                                                          fused_composite)
+    r, s = inputs['z_vals'].shape
+    spec = CompositeSpec(samples=s, rays_per_tile=8, has_noise=True,
+                         interpret=True)
+
+    def loss(packed, z_vals, directions, noise):
+        pk8 = jnp.concatenate([packed, jnp.zeros_like(packed)], -1)
+        out = fused_composite(spec, pk8, z_vals, directions, noise)
+        outs = jnp.concatenate(
+            [out['rgb'], out['depth'][:, None], out['med_depth'][:, None],
+             out['acc'][:, None]], -1)
+        return (jnp.sum(outs * jnp.asarray(cot_outs))
+                + jnp.sum(out['weights'] * jnp.asarray(cot_weights)))
+
+    names = ('packed', 'z_vals', 'directions', 'noise')
+    g = jax.grad(loss, argnums=(0, 1, 2, 3))(
+        *[jnp.asarray(inputs[k]) for k in names])
+    return {f'd_{k}': np.asarray(v, np.float32) for k, v in zip(names, g)}
+
+
+def gradient_reference(model) -> dict:
+    """Every array of the gradients file."""
+    from hypernerf_tpu_torch.flagship import (GRAD_REFERENCE_CASE,
+                                              composite_probe_inputs,
+                                              probe_cotangents,
+                                              probe_inputs)
+    name, n_rays, samples, seed = GRAD_REFERENCE_CASE
+    inputs = probe_inputs(n_rays, samples, seed)
+    cots = probe_cotangents(n_rays, samples, seed)
+    arrays = {f'level/{k}': v for k, v in inputs.items()}
+    arrays['level/cotangent'] = cots['level']
+    arrays.update({f'level/{k}': v for k, v in jax_level_grads(
+        model, name, inputs, cots['level']).items()})
+    comp = composite_probe_inputs(n_rays, samples, seed)
+    arrays.update({f'composite/{k}': v for k, v in comp.items()})
+    arrays['composite/cot_outs'] = cots['outs']
+    arrays['composite/cot_weights'] = cots['weights']
+    arrays.update({f'composite/{k}': v for k, v in jax_composite_grads(
+        comp, cots['outs'], cots['weights']).items()})
+    return arrays
 
 
 def main():
     import numpy as np
 
-    from hypernerf_tpu_torch.flagship import (LEVEL_REFERENCE,
+    from hypernerf_tpu_torch.flagship import (GRAD_REFERENCE,
+                                              LEVEL_REFERENCE,
                                               LEVEL_REFERENCE_CASES,
                                               probe_inputs)
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument('--out', default=LEVEL_REFERENCE)
+    parser.add_argument('--grads_out', default=GRAD_REFERENCE)
     args = parser.parse_args()
     model = probe_model()
     arrays = {}
@@ -85,6 +181,8 @@ def main():
     os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
     np.savez_compressed(args.out, **arrays)
     print(args.out)
+    np.savez_compressed(args.grads_out, **gradient_reference(model))
+    print(args.grads_out)
 
 
 if __name__ == '__main__':
