@@ -23,12 +23,18 @@ Phases, one line each; any failure ends the run with a non-zero exit:
      against their plain versions at 37 and 512 rays and at the train step's
      shapes (16384 rays at S = 64 and 128; there the plain versions run in
      chunks of 2048 rays, which bounds their memory), which are also timed;
+     the two forward kernels as training launches them (the level with its
+     raw_t output on, which then feeds the template backward; compositing
+     with sigma noise and the sorted fine draw) against their plain versions
+     at the same shapes;
   7. the train step: the flagship at full width (batch 16384, 64 + 64, bf16,
      sigma noise, Adam with steplr) through ``make_train_step``; the launch
      counters must show 2 launches of each of the five kernels per step and
      no plain call; every parameter gets a finite non-zero gradient; the
-     loss on a fixed batch falls; then one step on a small explicit batch
-     with the kernels and one with the plain versions, compared;
+     loss on a fixed batch falls; before those steps, one step on a small
+     explicit batch with the kernels and one with the plain versions (through
+     autograd Functions of this script's own) from the initial state,
+     compared;
   8. the kernels' JSON line, then the result line.
 Times come from CUDA events (kernels) or the host clock around work that
 ends in a synchronize (frames, steps). A kernel's bound is the larger of
@@ -76,7 +82,8 @@ RENDER_ATOL, RENDER_MEAN = 5e-2, 2e-3
 GRAD_L2, GRAD_MAX = 5e-2, 0.25
 # Compositing backward: fp32 both ways, 1e-5 of each output's largest entry.
 COMPOSITE_GRAD_TOL = 1e-5
-# One train step, kernels vs plain versions from the same state and draws.
+# One train step, kernels vs plain versions from the same state and draws:
+# the loss, and the gradients as ``step_grad_errors`` measures them.
 STEP_LOSS_TOL, STEP_GRAD_L2 = 2e-3, 0.1
 
 # Published peaks of an H100 SXM: dense bf16 and device memory.
@@ -190,19 +197,72 @@ def error_keys(worsts, l2_tol=GRAD_L2, max_tol=GRAD_MAX):
                           f'the largest entry, per output')
 
 
+def hold_level(got, want, label, tag='[3]'):
+    """Hold a level forward output (or its raw_t) to ``want`` under the level
+    tolerance; returns max|d|."""
+    import torch
+    torch.cuda.synchronize()
+    diff = (got - want).abs()
+    bad = diff > LEVEL_ATOL + LEVEL_RTOL * want.abs()
+    if got.shape != want.shape or not torch.isfinite(got).all() \
+            or bad.any() or diff.mean() > LEVEL_MEAN:
+        raise AssertionError(
+            f'{label}: the level kernel disagrees: max '
+            f'{diff.max().item():.3e} mean {diff.mean().item():.3e} '
+            f'outside {int(bad.sum())} of {bad.numel()}')
+    phase(f'{tag} {label}: max|d| {diff.max().item():.3e} mean '
+          f'{diff.mean().item():.3e} (tol {LEVEL_ATOL}+{LEVEL_RTOL}|want|, '
+          f'mean {LEVEL_MEAN})')
+    return diff.max().item()
+
+
+def check_composite(packed, z, dirs, u, label, noise=None, tag='[4]'):
+    """The compositing forward kernel against its plain version; returns the
+    largest max|d| over the outputs."""
+    import torch
+    from hypernerf_tpu_torch.kernels import (fused_composite,
+                                             fused_composite_plain)
+    got = fused_composite(packed, z, dirs, u, noise=noise)
+    want = fused_composite_plain(packed, z, dirs, u, noise=noise)
+    torch.cuda.synchronize()
+    # med_depth is the depth of the first sample whose cumulative weight
+    # reaches 0.5: a ray whose sum passes within 1e-5 of 0.5 may pick the
+    # neighbour in the kernel's sequential sum. Such rays are left out of
+    # med_depth's comparison (and counted).
+    edge = ((torch.cumsum(want['weights'], dim=-1) - 0.5).abs() < 1e-5).any(-1)
+    diffs = {k: (got[k] - want[k]).abs() for k in want}
+    diffs['med_depth'] = diffs['med_depth'].masked_fill(edge, 0.0)
+    diffs = {k: d.max().item() for k, d in diffs.items()}
+    tols = {k: COMPOSITE_ATOL for k in want}
+    if u is not None:
+        w = want['weights'][:, 1:-1] + 1e-5
+        mass = (w / w.sum(-1, keepdim=True)).min().item()
+        widest = (z[:, 1:] - z[:, :-1]).max().item()
+        tols['z_union'] += 8 * 2.0 ** -24 / mass * widest
+    phase(f'{tag} composite {label}: max|d| ' + ', '.join(
+        f'{k} {d:.3e} (tol {tols[k]:.1e})' for k, d in sorted(diffs.items()))
+        + f'; {int(edge.sum())} rays on the median\'s edge')
+    for k, d in diffs.items():
+        if not d <= tols[k]:
+            raise AssertionError(f'composite {k} disagrees at {label}: '
+                                 f'max|d| {d:.3e}')
+    return max(diffs.values())
+
+
 def chunks(n_rays: int):
     return [(r0, min(n_rays, r0 + PLAIN_CHUNK))
             for r0 in range(0, n_rays, PLAIN_CHUNK)]
 
 
-def plain_raw_t(level, args):
-    """raw_t of the plain level forward, over chunks of PLAIN_CHUNK rays."""
+def plain_forward(level, args):
+    """(out, raw_t) of the plain level forward, over chunks of PLAIN_CHUNK
+    rays."""
     import torch
     from hypernerf_tpu_torch.kernels import fused_level_plain
-    return torch.cat([
-        fused_level_plain(level, *[a[r0:r1].contiguous() for a in args],
-                          return_raw_t=True)[1]
-        for r0, r1 in chunks(args[0].shape[0])])
+    parts = [fused_level_plain(level, *[a[r0:r1].contiguous() for a in args],
+                               return_raw_t=True)
+             for r0, r1 in chunks(args[0].shape[0])]
+    return tuple(torch.cat([p[i] for p in parts]) for i in range(2))
 
 
 def plain_template_bwd(level, raw_t, rgb_cond, g):
@@ -244,8 +304,10 @@ FIELDS_GRAD_NAMES = ['d_z', 'd_origins', 'd_directions', 'd_embed'] + [
     f'd{"Wb"[i % 2]}{i // 2}' for i in range(28)]
 
 
-def backward_phase():
-    """Phase 6; returns the three backward kernels' entries."""
+def backward_phase(kernels):
+    """Phase 6; returns the three backward kernels' entries and raises the
+    two forward kernels' ``max_abs_err`` in ``kernels`` to what they show at
+    the train step's shapes."""
     import torch
     from hypernerf_tpu_torch.flagship import (GRAD_REFERENCE_CASE,
                                               LEVEL_INPUTS, flagship_model,
@@ -257,7 +319,8 @@ def backward_phase():
                                              fused_composite_plain,
                                              fused_fields_bwd, fused_level,
                                              fused_template_bwd)
-    from hypernerf_tpu_torch.kernels.fused_level import _level_params
+    from hypernerf_tpu_torch.kernels.fused_level import (_launch_forward,
+                                                         _level_params)
     probe = load_probe_weights(flagship_model('cuda'))
     level = {64: probe.level('coarse'), 128: probe.level('fine')}
 
@@ -299,7 +362,8 @@ def backward_phase():
             0)).cuda()
 
         def plain_fields_dw():
-            tmpl = plain_template_bwd(level[64], plain_raw_t(level[64], args),
+            tmpl = plain_template_bwd(level[64],
+                                      plain_forward(level[64], args)[1],
                                       args[4], g)
             return plain_fields_bwd(level[64], args, tmpl[0])[4:]
 
@@ -320,11 +384,13 @@ def backward_phase():
                 raise AssertionError(f'the gradient check cannot see the '
                                      f'{fname} layers')
 
-        # Kernel A on the plain forward's raw_t and kernel B on the plain
-        # A's dx_t, each against its plain version on the same inputs (A then
-        # B chained, as training runs them, is held to the JAX gradients
-        # above and to the plain versions in phase 7).
-        errs = {'A': [], 'B': []}
+        # The forward kernel with its raw_t output on, as training launches
+        # it, against the plain forward; then kernel A on the kernel's own
+        # raw_t and kernel B on the plain A's dx_t, each against its plain
+        # version on the same inputs (A then B chained, as training runs
+        # them, is held to the JAX gradients above and to the plain versions
+        # in phase 7).
+        errs = {'A': [], 'B': [], 'fwd': []}
         times = {}
         for r, s in ((37, 13), (512, 64), (512, 128), (TRAIN_RAYS, 64),
                      (TRAIN_RAYS, 128)):
@@ -332,7 +398,14 @@ def backward_phase():
             args = level_inputs(r, s, seed=s + 1)
             g = torch.randn(r * s, 4, generator=torch.Generator().manual_seed(
                 s)).cuda()
-            raw_t = plain_raw_t(lv, args)
+            out, raw_t = _launch_forward(lv, *args, want_raw_t=True)
+            want_out, want_raw_t = plain_forward(lv, args)
+            errs['fwd'] += [
+                hold_level(out, want_out, f'level forward with raw_t vs '
+                           f'plain R={r} S={s}: out', '[6]'),
+                hold_level(raw_t, want_raw_t, f'level forward with raw_t vs '
+                           f'plain R={r} S={s}: raw_t', '[6]')]
+            del out, want_out, want_raw_t
             want_a = plain_template_bwd(lv, raw_t, args[4], g)
             got_dx_t, d_cond, t_grads = fused_template_bwd(lv, raw_t,
                                                            args[4], g)
@@ -363,6 +436,25 @@ def backward_phase():
                   f'of {PLAIN_CHUNK} rays')
             del raw_t, want_a, dx_t
             torch.cuda.empty_cache()
+
+        # The compositing forward as training launches it: sigma noise on,
+        # the coarse level with the ascending fine draw, the fine level
+        # without one.
+        fwd_c = []
+        for r, s, n in ((37, 5, 7), (TRAIN_RAYS, 64, 64),
+                        (TRAIN_RAYS, 128, 0)):
+            packed, z, dirs, u = composite_inputs(r, s, n, seed=r + s + n,
+                                                  linspace_u=False)
+            noise = torch.randn(r, s, generator=torch.Generator().manual_seed(
+                r + s)).cuda()
+            fwd_c.append(check_composite(
+                packed, z, dirs, u, f'forward with noise R={r} S={s} N={n} '
+                f'u=sorted', noise=noise, tag='[6]'))
+        for k in kernels:
+            if k['name'] == 'fused_level_fwd':
+                k['max_abs_err'] = max(k['max_abs_err'], *errs['fwd'])
+            if k['name'] == 'fused_composite_fwd':
+                k['max_abs_err'] = max(k['max_abs_err'], *fwd_c)
 
         # Kernel C vs plain, noise on, white background and infinity both
         # ways.
@@ -442,16 +534,146 @@ def backward_phase():
              library_ms=None)]
 
 
+def step_grad_errors(got, want):
+    """Two {name: gradient} dicts of one model: (relative L2 over all
+    parameters together, (worst parameter's |d|_2 over its scale, name)).
+    A parameter's scale is its gradient's own norm, or, where that is
+    smaller, the norm it would have with entries of the whole gradient's
+    root mean square: some gradients (the alpha heads' above all, sums of
+    d sigma of both signs) cancel to a small remainder, which the last bits
+    of bf16 activations move by more than its own size."""
+    import torch
+    sq = sum(want[k].float().pow(2).sum() for k in want)
+    count = sum(want[k].numel() for k in want)
+    d_sq = sum((got[k] - want[k]).float().pow(2).sum() for k in want)
+    worst = max(
+        (((got[k] - want[k]).float().norm() / torch.maximum(
+            want[k].float().norm(), (sq * want[k].numel() / count).sqrt())
+          ).item(), k) for k in want)
+    return (d_sq / sq).sqrt().item(), worst
+
+
+def plain_ops():
+    """(level_op, composite_op) for ``NerfModel`` that run the plain versions
+    on the card, forward and backward: autograd Functions around the
+    explicit plain backwards, laid out as the kernels' own Functions are.
+    For phase 7's comparison step; the port's wrappers never take a plain
+    version on a CUDA tensor."""
+    import torch
+    from hypernerf_tpu_torch import kernels as K
+    from hypernerf_tpu_torch.kernels.fused_level import _level_params
+
+    class PlainLevel(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, level, *tensors):  # 5 inputs, then the parameters
+            out, raw_t = K.fused_level_plain(level, *tensors[:5],
+                                             return_raw_t=True)
+            ctx.level = level
+            ctx.save_for_backward(*tensors[:5], raw_t)
+            return out
+
+        @staticmethod
+        def backward(ctx, g):
+            z, o, d, embed, rgb_cond, raw_t = ctx.saved_tensors
+            dx_t, d_cond, t_grads = K.fused_template_bwd_plain(
+                ctx.level, raw_t, rgb_cond, g.contiguous())
+            d_z, d_o, d_d, d_embed, f_grads = K.fused_fields_bwd_plain(
+                ctx.level, z, o, d, embed, dx_t)
+            return (None, d_z, d_o, d_d, d_embed,
+                    d_cond.to(rgb_cond.dtype), *f_grads, *t_grads)
+
+    class PlainComposite(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, packed, z, dirs, dnorm, noise, u, white, infinity):
+            res = K.fused_composite_plain(packed, z, dirs, u, white,
+                                          infinity, noise)
+            ctx.flags = (white, infinity)
+            ctx.save_for_backward(packed, z, dnorm, noise)
+            outs = torch.cat([res['rgb'], res['depth'][:, None],
+                              res['med_depth'][:, None],
+                              res['acc'][:, None]], dim=-1)
+            if u is None:
+                return outs, res['weights']
+            ctx.mark_non_differentiable(res['z_union'])
+            return outs, res['weights'], res['z_union']
+
+        @staticmethod
+        def backward(ctx, d_outs, d_weights, *_):
+            packed, z, dnorm, noise = ctx.saved_tensors
+            d_packed, d_z, d_dnorm, d_noise = K.fused_composite_bwd_plain(
+                packed, z, dnorm, noise, d_outs, d_weights, *ctx.flags)
+            return d_packed, d_z, None, d_dnorm, d_noise, None, None, None
+
+    def level_op(level, *inputs):
+        return PlainLevel.apply(level, *inputs, *_level_params(level))
+
+    def composite_op(packed, z, dirs, u=None, use_white_background=False,
+                     sample_at_infinity=True, noise=None):
+        dnorm = torch.linalg.norm(dirs, dim=-1, keepdim=True)
+        outs, weights, *z_union = PlainComposite.apply(
+            packed, z, dirs, dnorm, noise, u, use_white_background,
+            sample_at_infinity)
+        result = {'rgb': outs[:, :3], 'depth': outs[:, 3],
+                  'med_depth': outs[:, 4], 'acc': outs[:, 5],
+                  'weights': weights}
+        if z_union:
+            result['z_union'] = z_union[0]
+        return result
+
+    return level_op, composite_op
+
+
+def compare_step(model, all_rays, all_rgbs) -> None:
+    """One step's loss and gradients on a small explicit batch from the same
+    state and draws: the kernels, then the plain versions. Run on the seeded
+    initial state, so the reading is the same from run to run (after train
+    steps the state differs in its last bits, and the reading with it)."""
+    import torch
+    from hypernerf_tpu_torch import kernels as K
+    from hypernerf_tpu_torch.ops.ray_dict import prepare_ray_dict
+    from hypernerf_tpu_torch.ops.sampling import sorted_uniform
+    from hypernerf_tpu_torch.training.losses import mse_loss
+    cfg = model.config
+    n = 1024
+    gen = torch.Generator(device='cuda').manual_seed(11)
+    s, nf = cfg.num_coarse_samples, cfg.num_fine_samples
+    draws = {'t_rand': torch.rand(n, s, generator=gen, device='cuda'),
+             'fine_u': sorted_uniform(n, nf, gen, device='cuda'),
+             'noise_coarse': torch.randn(n, s, generator=gen, device='cuda'),
+             'noise_fine': torch.randn(n, s + nf, generator=gen,
+                                       device='cuda')}
+    results = []
+    for ops in ((K.fused_level, K.fused_composite), plain_ops()):
+        model.level_op, model.composite_op = ops
+        model.zero_grad(set_to_none=True)
+        out = model(prepare_ray_dict(all_rays[:n]), deterministic=False,
+                    return_weights=False, draws=draws)
+        loss = mse_loss(out, all_rgbs[:n])
+        loss.backward()
+        results.append((loss.item(), {k: p.grad.clone() for k, p in
+                                      model.named_parameters()}))
+    model.level_op, model.composite_op = K.fused_level, K.fused_composite
+    model.zero_grad(set_to_none=True)
+    (loss_k, grads_k), (loss_p, grads_p) = results
+    total, worst = step_grad_errors(grads_k, grads_p)
+    phase(f'[7] one step on {n} rays, kernels vs plain versions: loss '
+          f'{loss_k:.6f} vs {loss_p:.6f} (tol {STEP_LOSS_TOL}); gradients: '
+          f'relative L2 over all parameters {total:.3e}, worst parameter '
+          f'{worst[0]:.3e} of its scale at {worst[1]} (tol {STEP_GRAD_L2} '
+          f'both)')
+    if not abs(loss_k - loss_p) <= STEP_LOSS_TOL or \
+            not max(total, worst[0]) <= STEP_GRAD_L2:
+        raise AssertionError('train step: kernels and plain versions '
+                             'disagree')
+
+
 def train_phase(kernels) -> None:
     """Phase 7: the flagship train step at full width; fills in the train
     launches of every kernel's entry."""
-    import functools
-
     import torch
     from hypernerf_tpu_torch import kernels as K
     from hypernerf_tpu_torch.flagship import flagship_train_setup
     from hypernerf_tpu_torch.ops.ray_dict import prepare_ray_dict
-    from hypernerf_tpu_torch.ops.sampling import sorted_uniform
     from hypernerf_tpu_torch.training.losses import mse_loss
     from hypernerf_tpu_torch.training.train_state import (TrainState,
                                                           step_generator)
@@ -477,6 +699,7 @@ def train_phase(kernels) -> None:
             return mse_loss(out, all_rgbs[fixed]).item()
 
     before = fixed_loss()
+    compare_step(model, all_rays, all_rgbs)
     for _ in range(WARMUP_STEPS):
         step_fn(state, all_rays, all_rgbs)
     torch.cuda.synchronize()
@@ -534,40 +757,6 @@ def train_phase(kernels) -> None:
         k['train_launches'] = launches[k['name']]
         k.setdefault('launches', launches[k['name']])
 
-    # One step's loss and gradients on a small explicit batch from the same
-    # state and draws: the kernels, then the plain versions.
-    n = 1024
-    gen = torch.Generator(device='cuda').manual_seed(11)
-    s, nf = cfg.num_coarse_samples, cfg.num_fine_samples
-    draws = {'t_rand': torch.rand(n, s, generator=gen, device='cuda'),
-             'fine_u': sorted_uniform(n, nf, gen, device='cuda'),
-             'noise_coarse': torch.randn(n, s, generator=gen, device='cuda'),
-             'noise_fine': torch.randn(n, s + nf, generator=gen,
-                                       device='cuda')}
-    results = []
-    for plain in (False, True):
-        model.level_op = functools.partial(K.fused_level, plain=plain)
-        model.composite_op = functools.partial(K.fused_composite,
-                                               plain=plain)
-        model.zero_grad(set_to_none=True)
-        out = model(prepare_ray_dict(all_rays[:n]), deterministic=False,
-                    return_weights=False, draws=draws)
-        loss = mse_loss(out, all_rgbs[:n])
-        loss.backward()
-        results.append((loss.item(), {k: p.grad.clone() for k, p in
-                                      model.named_parameters()}))
-    model.level_op, model.composite_op = K.fused_level, K.fused_composite
-    (loss_k, grads_k), (loss_p, grads_p) = results
-    worst = max((grad_errors(grads_k[k], grads_p[k])[0], k) for k in grads_k)
-    phase(f'[7] one step on {n} rays, kernels vs plain versions: loss '
-          f'{loss_k:.6f} vs {loss_p:.6f} (tol {STEP_LOSS_TOL}); gradients: '
-          f'worst relative L2 {worst[0]:.3e} at {worst[1]} (tol '
-          f'{STEP_GRAD_L2})')
-    if not abs(loss_k - loss_p) <= STEP_LOSS_TOL or \
-            not worst[0] <= STEP_GRAD_L2:
-        raise AssertionError('train step: kernels and plain versions '
-                             'disagree')
-
 
 def main() -> int:
     import torch
@@ -608,40 +797,8 @@ def main() -> int:
         got = fused_level(level, *args)
         if want is None:
             want = fused_level_plain(level, *args)
-        torch.cuda.synchronize()
         r, s = args[0].shape
-        diff = (got - want).abs()
-        bad = diff > LEVEL_ATOL + LEVEL_RTOL * want.abs()
-        if not torch.isfinite(got).all() or bad.any() \
-                or diff.mean() > LEVEL_MEAN:
-            raise AssertionError(
-                f'level kernel disagrees with {against} at R={r} S={s}: max '
-                f'{diff.max().item():.3e} mean {diff.mean().item():.3e} '
-                f'outside {int(bad.sum())} of {bad.numel()}')
-        phase(f'[3] level vs {against} R={r} S={s}: max|d| '
-              f'{diff.max().item():.3e} mean {diff.mean().item():.3e} (tol '
-              f'{LEVEL_ATOL}+{LEVEL_RTOL}|want|, mean {LEVEL_MEAN})')
-        return diff.max().item()
-
-    def check_composite(packed, z, dirs, u, label):
-        got = fused_composite(packed, z, dirs, u)
-        want = fused_composite_plain(packed, z, dirs, u)
-        torch.cuda.synchronize()
-        diffs = {k: (got[k] - want[k]).abs().max().item() for k in want}
-        tols = {k: COMPOSITE_ATOL for k in want}
-        if u is not None:
-            w = want['weights'][:, 1:-1] + 1e-5
-            mass = (w / w.sum(-1, keepdim=True)).min().item()
-            widest = (z[:, 1:] - z[:, :-1]).max().item()
-            tols['z_union'] += 8 * 2.0 ** -24 / mass * widest
-        phase(f'[4] composite {label}: max|d| ' + ', '.join(
-            f'{k} {d:.3e} (tol {tols[k]:.1e})'
-            for k, d in sorted(diffs.items())))
-        for k, d in diffs.items():
-            if not d <= tols[k]:
-                raise AssertionError(f'composite {k} disagrees at {label}: '
-                                     f'max|d| {d:.3e}')
-        return max(diffs.values())
+        return hold_level(got, want, f'level vs {against} R={r} S={s}')
 
     with torch.no_grad():
         # [3] level kernel vs plain, at the probe weights: numpy draws
@@ -804,7 +961,7 @@ def main() -> int:
         model.composite_op = fused_composite
         phase(f'[5] plain versions: {plain_secs:.4f} s/frame (1 frame)')
 
-    kernels += backward_phase()
+    kernels += backward_phase(kernels)
     train_phase(kernels)
     for k in kernels:
         missing = {'name', 'route', 'source', 'replaces', 'launches',

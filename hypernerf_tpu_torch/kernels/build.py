@@ -33,9 +33,9 @@ _SIGNATURES = {
     'hn_fused_level_fwd': ([_P] * 9 + [_L, _I, _P], _I),
     'hn_fused_level_layout': ([_P, _P, _I], _I),
     'hn_fused_template_bwd_blocks': ([_L], _I),
-    'hn_fused_template_bwd': ([_P] * 10 + [_L, _I, _I, _I, _P], _I),
+    'hn_fused_template_bwd': ([_P] * 9 + [_L, _I, _I, _P], _I),
     'hn_fused_fields_bwd_blocks': ([_L], _I),
-    'hn_fused_fields_bwd': ([_P] * 12 + [_L, _I, _I, _I, _P], _I),
+    'hn_fused_fields_bwd': ([_P] * 11 + [_L, _I, _I, _P], _I),
     'hn_fused_composite_fwd': ([_P] * 8 + [_L, _I, _I, _I, _I, _P], _I),
     'hn_fused_composite_bwd': ([_P] * 9 + [_L, _I, _I, _I, _P], _I),
     'hn_error_string': ([_I], ctypes.c_char_p),

@@ -23,9 +23,9 @@
 // 1.7 TFLOP, 1.7 ms at the card's bf16 peak).
 // Design (see level_bwd.cuh): a persistent grid, two blocks of 256 threads
 // per SM, tiles of 32 rows, one shared-memory tile reused by the sheet and
-// then the warp (68 KB), dW added into a few fp32 slabs (0.53 MB each) that
-// stay in L2 and are summed at the end. As in the template backward the
-// tile's height, 32 rows per pass over the weights, is what limits it.
+// then the warp (68 KB), dW added straight into the one fp32 gradient buffer
+// (0.53 MB, which stays in L2). As in the template backward the tile's
+// height, 32 rows per pass over the weights, is what limits it.
 
 #include "level_bwd.cuh"
 
@@ -51,8 +51,8 @@ static_assert(HypPlan::end <= WarpPlan::end, "the sheet fits the warp's tile");
 
 using CF = Cfg<2, kLdF, 8>;
 
-constexpr long long kSlabW = weight_offset(kNumFieldLayers);
-constexpr int kSlabB = bias_offset(kNumFieldLayers);
+constexpr long long kGradW = weight_offset(kNumFieldLayers);
+constexpr int kGradB = bias_offset(kNumFieldLayers);
 
 // Field encoding [posenc_orig(pts, F) | embed | 0 pad] into X[:, col:col+KP].
 template <int F, int KP>
@@ -73,10 +73,10 @@ __device__ __forceinline__ void encode_field(bf16* X, int col,
 
 template <class P, int LB, int I>
 __device__ __forceinline__ void field_back(bf16* X, const bf16* Wt,
-                                           float* slab, float* slab_b) {
+                                           float* grad_w, float* grad_b) {
   constexpr int L = LB + I;
-  bwd_dw<CF, L, 0>(X, P::g, P::in(I), slab);
-  bwd_db<CF, L, 0>(X, P::g, slab_b);
+  bwd_dw<CF, L, 0>(X, P::g, P::in(I), grad_w);
+  bwd_db<CF, L, 0>(X, P::g, grad_b);
   bwd_dx<CF, L>(X, P::g, P::g, Wt, I > 0 ? P::h(I > 0 ? I - 1 : 0) : 0,
                 I > 0 ? layer_shape(LB).n : 0);
 }
@@ -88,8 +88,8 @@ template <class P, int LB, int F>
 __device__ __forceinline__ void field_bwd(bf16* X, const float* rowin,
                                           const float* hg, float* dacc,
                                           const bf16* W, const bf16* Wt,
-                                          const bf16* B, float* slab,
-                                          float* slab_b) {
+                                          const bf16* B, float* grad_w,
+                                          float* grad_b) {
   constexpr int Wd = layer_shape(LB).n;
   constexpr int kEncP = layer_shape(LB).k;
   constexpr int kPts = 3 * (1 + 2 * F);
@@ -103,7 +103,7 @@ __device__ __forceinline__ void field_bwd(bf16* X, const float* rowin,
   fwd_layer<CF, LB + 4, true>(X, P::in(4), P::h(4), W, B);
   fwd_layer<CF, LB + 5, true>(X, P::in(5), P::h(5), W, B);
 
-  head_dw_db<CF, LB + 6, 0>(X, P::h(5), hg, slab, slab_b);
+  head_dw_db<CF, LB + 6, 0>(X, P::h(5), hg, grad_w, grad_b);
   for (int e = tid; e < CF::ROWS * Wd; e += CF::THREADS) {
     const int r = e / Wd, k = e % Wd;
     const float v = head_dx<LB + 6>(hg + r * 8, W, k);
@@ -111,12 +111,12 @@ __device__ __forceinline__ void field_bwd(bf16* X, const float* rowin,
     X[r * CF::LD + P::g + k] = __float2bfloat16_rn(on ? v : 0.f);
   }
   __syncthreads();
-  field_back<P, LB, 5>(X, Wt, slab, slab_b);  // writes the skip part
-  field_back<P, LB, 4>(X, Wt, slab, slab_b);
-  field_back<P, LB, 3>(X, Wt, slab, slab_b);
-  field_back<P, LB, 2>(X, Wt, slab, slab_b);
-  field_back<P, LB, 1>(X, Wt, slab, slab_b);
-  field_back<P, LB, 0>(X, Wt, slab, slab_b);  // -> d enc in g[0:E]
+  field_back<P, LB, 5>(X, Wt, grad_w, grad_b);  // writes the skip part
+  field_back<P, LB, 4>(X, Wt, grad_w, grad_b);
+  field_back<P, LB, 3>(X, Wt, grad_w, grad_b);
+  field_back<P, LB, 2>(X, Wt, grad_w, grad_b);
+  field_back<P, LB, 1>(X, Wt, grad_w, grad_b);
+  field_back<P, LB, 0>(X, Wt, grad_w, grad_b);  // -> d enc in g[0:E]
 
   // d enc = layer 0's part + the skip part, in fp32; posenc VJP for the
   // points, the embedding passes through.
@@ -155,8 +155,8 @@ fields_bwd_kernel(const float* __restrict__ zs,
                   const float* __restrict__ dx_t, const bf16* __restrict__ W,
                   const bf16* __restrict__ Wt, const bf16* __restrict__ B,
                   float* __restrict__ d_z, float* __restrict__ d_ray,
-                  float* __restrict__ slabs, long long n_points, int samples,
-                  long long n_tiles, int n_slabs) {
+                  float* __restrict__ grad_w, long long n_points, int samples,
+                  long long n_tiles) {
   extern __shared__ __align__(16) unsigned char smem[];
   bf16* X = reinterpret_cast<bf16*>(smem);                       // [ROWS][LD]
   float* rowin = reinterpret_cast<float*>(X + CF::ROWS * CF::LD);  // [ROWS][12]
@@ -169,8 +169,7 @@ fields_bwd_kernel(const float* __restrict__ zs,
   int* ray_of = reinterpret_cast<int*>(rayv + CF::ROWS * 14);      // [ROWS]
 
   const int tid = threadIdx.x;
-  float* slab = slabs + (size_t)(blockIdx.x % n_slabs) * (kSlabW + kSlabB);
-  float* slab_b = slab + kSlabW;
+  float* grad_b = grad_w + kGradW;
 
   for (long long tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
     const long long row0 = tile * CF::ROWS;
@@ -205,15 +204,16 @@ fields_bwd_kernel(const float* __restrict__ zs,
     }
     __syncthreads();
 
-    field_bwd<HypPlan, 7, kHypF>(X, rowin, hg, dacc_h, W, Wt, B, slab, slab_b);
+    field_bwd<HypPlan, 7, kHypF>(X, rowin, hg, dacc_h, W, Wt, B, grad_w,
+                                 grad_b);
     if (tid < CF::ROWS) {  // the warp's head: d warped
       float* h = hg + tid * 8;
       const float* dw = dwarp + tid * 4;
       h[0] = dw[0], h[1] = dw[1], h[2] = dw[2], h[3] = 0.f;
     }
     __syncthreads();
-    field_bwd<WarpPlan, 0, kWarpF>(X, rowin, hg, dacc_w, W, Wt, B, slab,
-                                   slab_b);
+    field_bwd<WarpPlan, 0, kWarpF>(X, rowin, hg, dacc_w, W, Wt, B, grad_w,
+                                   grad_b);
 
     // d pts = (d warped [the residual] + the warp's part) + the sheet's part;
     // pts = o + z d, so d z = d pts . d, d o = sum_s d pts,
@@ -257,18 +257,15 @@ extern "C" int hn_fused_fields_bwd_blocks(long long n_points) {
   return (int)(tiles < most ? tiles : most);
 }
 
-// grads: kSlabW + kSlabB floats, [dW of layers 0..13 | db of layers 0..13];
-// slabs: n_slabs x the same (block b adds into slab b mod n_slabs). slabs and
-// d_ray (R, 14) must be zero on entry.
+// grads: kGradW + kGradB floats, [dW of layers 0..13 | db of layers 0..13],
+// which every block adds into. grads and d_ray (R, 14) must be zero on entry.
 extern "C" int hn_fused_fields_bwd(
     const void* z, const void* origins, const void* dirs, const void* embed,
     const void* dx_t, const void* weights, const void* weights_t,
-    const void* biases, void* d_z, void* d_ray, void* slabs, void* grads,
-    long long n_rays, int samples, int blocks, int n_slabs,
-    void* stream) {
+    const void* biases, void* d_z, void* d_ray, void* grads,
+    long long n_rays, int samples, int blocks, void* stream) {
   const long long n_points = n_rays * samples;
-  if (n_points <= 0 || blocks <= 0 || n_slabs <= 0)
-    return (int)cudaErrorInvalidValue;
+  if (n_points <= 0 || blocks <= 0) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
       fields_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)kSmemF);
@@ -280,13 +277,6 @@ extern "C" int hn_fused_fields_bwd(
       static_cast<const float*>(dx_t), static_cast<const bf16*>(weights),
       static_cast<const bf16*>(weights_t), static_cast<const bf16*>(biases),
       static_cast<float*>(d_z), static_cast<float*>(d_ray),
-      static_cast<float*>(slabs), n_points, samples, tiles, n_slabs);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  const long long n = kSlabW + kSlabB;
-  reduce_slabs_kernel<<<(unsigned)((n + 255) / 256), 256, 0,
-                        (cudaStream_t)stream>>>(
-      static_cast<const float*>(slabs), n_slabs, n,
-      static_cast<float*>(grads));
+      static_cast<float*>(grads), n_points, samples, tiles);
   return (int)cudaGetLastError();
 }

@@ -23,8 +23,8 @@
 // (2.1 M samples: 8.8 TFLOP, 8.9 ms at the card's bf16 peak).
 // Design (see level_bwd.cuh): a persistent grid, one block of 512 threads
 // per SM; a tile of 32 rows keeps all 3296 bf16 columns of stored activations
-// and cotangent (211 KB of the 227 KB a block may use); dW is added into a
-// few fp32 slabs (2.8 MB each) that stay in L2 and are summed at the end.
+// and cotangent (211 KB of the 227 KB a block may use); every block adds its
+// dW straight into the one fp32 gradient buffer (2.8 MB, which stays in L2).
 // What limits this version is the tile's height: every 32 rows read all
 // 2.8 MB of W and W^T from L2 and add 2.8 MB of dW into it, four times the
 // forward kernel's L2 traffic per sample. Taller tiles (activations in fewer
@@ -54,8 +54,8 @@ static_assert(kTrunkW + kTmplEncP <= 4 * kRgbW, "trunk cotangent fits");
 
 using CT = Cfg<2, kLdT, 16>;
 
-constexpr long long kSlabW = weight_offset(kNumLayers) - weight_offset(kL0);
-constexpr int kSlabB = bias_offset(kNumLayers) - bias_offset(kL0);
+constexpr long long kGradW = weight_offset(kNumLayers) - weight_offset(kL0);
+constexpr int kGradB = bias_offset(kNumLayers) - bias_offset(kL0);
 
 // Input column of trunk layer i (0..7) and of the trunk logit (8).
 __host__ __device__ constexpr int trunk_in_col(int i) {
@@ -64,21 +64,21 @@ __host__ __device__ constexpr int trunk_in_col(int i) {
 
 template <int I>
 __device__ __forceinline__ void trunk_back(bf16* X, const bf16* Wt,
-                                           float* slab, float* slab_b) {
+                                           float* grad_w, float* grad_b) {
   constexpr int L = kL0 + I;
-  bwd_dw<CT, L, kL0>(X, kColG, trunk_in_col(I), slab);
-  bwd_db<CT, L, kL0>(X, kColG, slab_b);
+  bwd_dw<CT, L, kL0>(X, kColG, trunk_in_col(I), grad_w);
+  bwd_db<CT, L, kL0>(X, kColG, grad_b);
   bwd_dx<CT, L>(X, kColG, kColG, Wt, I > 0 ? trunk_col(I > 0 ? I - 1 : 0) : 0,
                 I > 0 ? kTrunkW : 0);
 }
 
 template <int J>
-__device__ __forceinline__ void rgb_back(bf16* X, const bf16* Wt, float* slab,
-                                         float* slab_b) {
+__device__ __forceinline__ void rgb_back(bf16* X, const bf16* Wt, float* grad_w,
+                                         float* grad_b) {
   constexpr int L = kL0 + 11 + J;  // rgb hidden J
   bwd_dw<CT, L, kL0>(X, kColGr, J == 0 ? kColBn : kColRgb + (J - 1) * kRgbW,
-                     slab);
-  bwd_db<CT, L, kL0>(X, kColGr, slab_b);
+                     grad_w);
+  bwd_db<CT, L, kL0>(X, kColGr, grad_b);
   bwd_dx<CT, L>(X, kColGr, kColGr, Wt, J > 0 ? kColRgb + (J - 1) * kRgbW : 0,
                 J > 0 ? kRgbW : 0);
 }
@@ -89,9 +89,8 @@ template_bwd_kernel(const float* __restrict__ raw_t,
                     const float* __restrict__ g_out,
                     const bf16* __restrict__ W, const bf16* __restrict__ Wt,
                     const bf16* __restrict__ B, float* __restrict__ dx_t,
-                    float* __restrict__ d_cond, float* __restrict__ slabs,
-                    long long n_points, int samples, long long n_tiles,
-                    int n_slabs) {
+                    float* __restrict__ d_cond, float* __restrict__ grad_w,
+                    long long n_points, int samples, long long n_tiles) {
   extern __shared__ __align__(16) unsigned char smem[];
   bf16* X = reinterpret_cast<bf16*>(smem);                      // [ROWS][LD]
   float* rawt = reinterpret_cast<float*>(X + CT::ROWS * CT::LD);  // [ROWS][8]
@@ -100,8 +99,7 @@ template_bwd_kernel(const float* __restrict__ raw_t,
   int* ray_of = reinterpret_cast<int*>(hg + CT::ROWS * 8);      // [ROWS]
 
   const int tid = threadIdx.x;
-  float* slab = slabs + (size_t)(blockIdx.x % n_slabs) * (kSlabW + kSlabB);
-  float* slab_b = slab + kSlabW;
+  float* grad_b = grad_w + kGradW;
 
   for (long long tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
     const long long row0 = tile * CT::ROWS;
@@ -163,7 +161,7 @@ template_bwd_kernel(const float* __restrict__ raw_t,
     for (int e = tid; e < CT::ROWS * 8; e += CT::THREADS)
       hg[e] = (e % 8) < 3 ? gall[(e / 8) * 4 + e % 8] : 0.f;
     __syncthreads();
-    head_dw_db<CT, kL0 + 15, kL0>(X, kColRgb + 3 * kRgbW, hg, slab, slab_b);
+    head_dw_db<CT, kL0 + 15, kL0>(X, kColRgb + 3 * kRgbW, hg, grad_w, grad_b);
     for (int e = tid; e < CT::ROWS * kRgbW; e += CT::THREADS) {
       const int r = e / kRgbW, k = e % kRgbW;
       const float v = head_dx<kL0 + 15>(hg + r * 8, W, k);
@@ -172,10 +170,10 @@ template_bwd_kernel(const float* __restrict__ raw_t,
       X[r * CT::LD + kColGr + k] = __float2bfloat16_rn(on ? v : 0.f);
     }
     __syncthreads();
-    rgb_back<3>(X, Wt, slab, slab_b);
-    rgb_back<2>(X, Wt, slab, slab_b);
-    rgb_back<1>(X, Wt, slab, slab_b);
-    rgb_back<0>(X, Wt, slab, slab_b);  // -> d[bneck | cond], 176 wide
+    rgb_back<3>(X, Wt, grad_w, grad_b);
+    rgb_back<2>(X, Wt, grad_w, grad_b);
+    rgb_back<1>(X, Wt, grad_w, grad_b);
+    rgb_back<0>(X, Wt, grad_w, grad_b);  // -> d[bneck | cond], 176 wide
 
     // d rgb_cond, summed per ray.
     ray_sums<CT>(ray_of, kCond, d_cond, kCond, [&](int r, int c) {
@@ -187,11 +185,11 @@ template_bwd_kernel(const float* __restrict__ raw_t,
     for (int e = tid; e < CT::ROWS * 8; e += CT::THREADS)
       hg[e] = (e % 8) == 0 ? gall[(e / 8) * 4 + 3] : 0.f;
     __syncthreads();
-    head_dw_db<CT, kL0 + 10, kL0>(X, kColBn, hg, slab, slab_b);
+    head_dw_db<CT, kL0 + 10, kL0>(X, kColBn, hg, grad_w, grad_b);
     // Bottleneck cotangent g_b = d bneck (rgb branch) + d bneck (alpha), in
     // fp32; its fp32 sum is db of the bottleneck; rounded for the products.
     if (tid < kBneck) {
-      float* db = slab_b + (bias_offset(kL0 + 9) - bias_offset(kL0));
+      float* db = grad_b + (bias_offset(kL0 + 9) - bias_offset(kL0));
       float s = 0.f;
       for (int r = 0; r < CT::ROWS; ++r) {
         bf16* gp = X + r * CT::LD + kColGr + tid;
@@ -203,18 +201,18 @@ template_bwd_kernel(const float* __restrict__ raw_t,
       atomicAdd(db + tid, s);
     }
     __syncthreads();
-    bwd_dw<CT, kL0 + 9, kL0>(X, kColGr, trunk_col(8), slab);
+    bwd_dw<CT, kL0 + 9, kL0>(X, kColGr, trunk_col(8), grad_w);
     bwd_dx<CT, kL0 + 9>(X, kColGr, kColG, Wt, trunk_col(8), kTrunkW);
     // Trunk logit (ReLU) and the trunk.
-    trunk_back<8>(X, Wt, slab, slab_b);
-    trunk_back<7>(X, Wt, slab, slab_b);
-    trunk_back<6>(X, Wt, slab, slab_b);
-    trunk_back<5>(X, Wt, slab, slab_b);  // writes the skip part too
-    trunk_back<4>(X, Wt, slab, slab_b);
-    trunk_back<3>(X, Wt, slab, slab_b);
-    trunk_back<2>(X, Wt, slab, slab_b);
-    trunk_back<1>(X, Wt, slab, slab_b);
-    trunk_back<0>(X, Wt, slab, slab_b);  // -> d enc in G[:, 0:128]
+    trunk_back<8>(X, Wt, grad_w, grad_b);
+    trunk_back<7>(X, Wt, grad_w, grad_b);
+    trunk_back<6>(X, Wt, grad_w, grad_b);
+    trunk_back<5>(X, Wt, grad_w, grad_b);  // writes the skip part too
+    trunk_back<4>(X, Wt, grad_w, grad_b);
+    trunk_back<3>(X, Wt, grad_w, grad_b);
+    trunk_back<2>(X, Wt, grad_w, grad_b);
+    trunk_back<1>(X, Wt, grad_w, grad_b);
+    trunk_back<0>(X, Wt, grad_w, grad_b);  // -> d enc in G[:, 0:128]
 
     // posenc VJP: d enc = layer 0's part + the skip part, in fp32.
     for (int e = tid; e < CT::ROWS * 8; e += CT::THREADS) {
@@ -261,16 +259,13 @@ extern "C" int hn_fused_template_bwd_blocks(long long n_points) {
   return (int)(tiles < sms ? tiles : sms);
 }
 
-// grads: kSlabW + kSlabB floats, [dW of layers 14..29 | db of layers 14..29];
-// slabs: n_slabs x the same (block b adds into slab b mod n_slabs). slabs and
-// d_cond must be zero on entry.
+// grads: kGradW + kGradB floats, [dW of layers 14..29 | db of layers 14..29],
+// which every block adds into. grads and d_cond must be zero on entry.
 extern "C" int hn_fused_template_bwd(
     const void* raw_t, const void* rgb_cond, const void* g, const void* weights,
     const void* weights_t, const void* biases, void* dx_t, void* d_cond,
-    void* slabs, void* grads, long long n_points, int samples, int blocks,
-    int n_slabs, void* stream) {
-  if (n_points <= 0 || blocks <= 0 || n_slabs <= 0)
-    return (int)cudaErrorInvalidValue;
+    void* grads, long long n_points, int samples, int blocks, void* stream) {
+  if (n_points <= 0 || blocks <= 0) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
       template_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)kSmemT);
@@ -281,13 +276,6 @@ extern "C" int hn_fused_template_bwd(
       static_cast<const float*>(g), static_cast<const bf16*>(weights),
       static_cast<const bf16*>(weights_t), static_cast<const bf16*>(biases),
       static_cast<float*>(dx_t), static_cast<float*>(d_cond),
-      static_cast<float*>(slabs), n_points, samples, tiles, n_slabs);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  const long long n = kSlabW + kSlabB;
-  reduce_slabs_kernel<<<(unsigned)((n + 255) / 256), 256, 0,
-                        (cudaStream_t)stream>>>(
-      static_cast<const float*>(slabs), n_slabs, n,
-      static_cast<float*>(grads));
+      static_cast<float*>(grads), n_points, samples, tiles);
   return (int)cudaGetLastError();
 }

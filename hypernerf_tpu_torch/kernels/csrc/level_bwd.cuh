@@ -9,23 +9,23 @@
 // the cotangent held in bf16 in a region G of the same tile:
 //   dW_l += g^T h_in   tensor cores, both operands read transposed from
 //                      shared memory with ldmatrix.trans, fp32 accumulation,
-//                      added into one of a few fp32 slabs in device memory
-//                      (block b adds into slab b mod n) with reductions:
-//                      atomic adds whose result nobody waits for, so the
-//                      memory's latency stays off the warp's path;
+//                      added into the one fp32 gradient buffer in device
+//                      memory (`grad_w` below) with reductions: atomic adds
+//                      whose result nobody waits for, so the memory's latency
+//                      stays off the warp's path;
 //   db_l += sum_r g    fp32 sum of the bf16-rounded cotangent (hidden
 //                      layers) or of the fp32 one (heads);
 //   g    <- bf16(g W)  tensor cores with W^T from L2, masked by the stored
 //                      output of the layer below (ReLU), written in place.
-// After the last tile `reduce_slabs_kernel` sums the slabs. The slabs are few
-// so that they stay in the 50 MB L2: with one private slab per block (370 MB
-// for the template) every tile's adds went to device memory and the kernels
-// ran at its rate (measured on an H100: 249 ms against 136 ms for the
-// template backward at 2.1 M samples, 56 against 29 ms for the fields).
-// Blocks that share a slab add in an order that changes from run to run, so
-// the last bits of dW / db are not deterministic; with as many slabs as
-// blocks (the wrapper's choice) they are. The narrow heads (out <= 4, padded
-// to 8) run as scalar loops: they are under 1 % of the work.
+// The buffer (2.8 MB for the template, 0.53 MB for the fields) stays in the
+// 50 MB L2, so the adds never reach device memory. With one private buffer
+// per block and a sum at the end (370 MB for the template) every tile's adds
+// went to device memory and the kernels ran at its rate (measured on an H100:
+// 249 ms against 136 ms for the template backward at 2.1 M samples, 56
+// against 29 ms for the fields); 1, 2, 4 or 8 shared buffers took the same
+// time, so there is one. Blocks add in an order that changes from run to run,
+// so the last bits of dW / db are not deterministic. The narrow heads
+// (out <= 4, padded to 8) run as scalar loops: they are under 1 % of the work.
 
 #pragma once
 
@@ -187,18 +187,18 @@ __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
       : "r"(addr));
 }
 
-// dW_L[n][k] += sum_r X[r][g_col + n] * X[r][h_col + k] into the block's
-// slab (same (N, K) layout as the weights; `slab` points at this kernel's
+// dW_L[n][k] += sum_r X[r][g_col + n] * X[r][h_col + k] into the gradient
+// buffer (same (N, K) layout as the weights; `grad_w` points at this kernel's
 // first layer). A warp takes 16 x 16 pieces of dW: the m16n8k16 product with
 // M = out, N = in, K = rows, so both operands are the transposes of what the
 // tile stores, which ldmatrix.trans delivers. No barrier inside: it only
 // reads X.
 template <class C, int L, int L0>
 __device__ __forceinline__ void bwd_dw(const bf16* X, int g_col, int h_col,
-                                       float* __restrict__ slab) {
+                                       float* __restrict__ grad_w) {
   constexpr int N = layer_shape(L).n, K = layer_shape(L).k;
   static_assert(N % 16 == 0 && K % 16 == 0, "16 x 16 pieces");
-  float* dw = slab + (weight_offset(L) - weight_offset(L0));
+  float* dw = grad_w + (weight_offset(L) - weight_offset(L0));
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
   const int q = lane >> 3, i8 = lane & 7;
@@ -231,9 +231,9 @@ __device__ __forceinline__ void bwd_dw(const bf16* X, int g_col, int h_col,
 // sums the bf16-rounded cotangent.
 template <class C, int L, int L0>
 __device__ __forceinline__ void bwd_db(const bf16* X, int g_col,
-                                       float* __restrict__ slab_b) {
+                                       float* __restrict__ grad_b) {
   constexpr int N = layer_shape(L).n;
-  float* db = slab_b + (bias_offset(L) - bias_offset(L0));
+  float* db = grad_b + (bias_offset(L) - bias_offset(L0));
   for (int n = threadIdx.x; n < N; n += C::THREADS) {
     float s = 0.f;
     for (int r = 0; r < C::ROWS; ++r)
@@ -248,12 +248,12 @@ __device__ __forceinline__ void bwd_db(const bf16* X, int g_col,
 template <class C, int L, int L0>
 __device__ __forceinline__ void head_dw_db(const bf16* X, int h_col,
                                            const float* hg,
-                                           float* __restrict__ slab,
-                                           float* __restrict__ slab_b) {
+                                           float* __restrict__ grad_w,
+                                           float* __restrict__ grad_b) {
   constexpr int K = layer_shape(L).k;
   static_assert(layer_shape(L).n == 8, "heads are padded to 8");
-  float* dw = slab + (weight_offset(L) - weight_offset(L0));
-  float* db = slab_b + (bias_offset(L) - bias_offset(L0));
+  float* dw = grad_w + (weight_offset(L) - weight_offset(L0));
+  float* db = grad_b + (bias_offset(L) - bias_offset(L0));
   for (int e = threadIdx.x; e < 8 * K; e += C::THREADS) {
     const int n = e / K, k = e % K;
     float s = 0.f;
@@ -306,17 +306,6 @@ __device__ __forceinline__ void ray_sums(const int* ray_of, int n_ch,
     }
     if (cur >= 0) atomicAdd(out + (size_t)cur * out_stride + c, s);
   }
-}
-
-// out[i] = sum over the slabs of slabs[b][i], in slab order.
-static __global__ void reduce_slabs_kernel(const float* __restrict__ slabs,
-                                           int n_slabs, long long n,
-                                           float* __restrict__ out) {
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  float s = 0.f;
-  for (int b = 0; b < n_slabs; ++b) s += slabs[(size_t)b * n + i];
-  out[i] = s;
 }
 
 inline int sm_count() {

@@ -171,14 +171,13 @@ def _launch_forward(packed, z_vals, directions, u, noise, white, infinity):
     return out, weights, z_union
 
 
-def _forward(packed, z_vals, directions, u, noise, white, infinity,
-             plain: bool = False):
+def _forward(packed, z_vals, directions, u, noise, white, infinity):
     """(outs (R, 6), weights, z_union or None): the plain version on CPU
-    tensors (or when the caller asks for it), the kernel on CUDA tensors."""
-    if z_vals.device.type == 'cuda' and not plain:
+    tensors, the kernel on CUDA tensors."""
+    if z_vals.device.type == 'cuda':
         return _launch_forward(packed, z_vals, directions, u, noise, white,
                                infinity)
-    if z_vals.device.type != 'cpu' and not plain:
+    if z_vals.device.type != 'cpu':
         raise ValueError(f'fused_composite: no kernel for {z_vals.device}')
     res = fused_composite_plain(packed, z_vals, directions, u, white,
                                 infinity, noise)
@@ -189,13 +188,11 @@ def _forward(packed, z_vals, directions, u, noise, white, infinity,
 
 def fused_composite_bwd(packed, z_vals, directions, noise, d_outs, d_weights,
                         use_white_background: bool = False,
-                        sample_at_infinity: bool = True,
-                        plain: bool = False):
+                        sample_at_infinity: bool = True):
     """Compositing backward (see ``fused_composite_bwd_plain``, which takes
     the directions' norms where this takes the directions): CPU tensors
-    take the plain version (as does a caller that asks for it), CUDA
-    tensors launch the kernel or raise."""
-    if plain or z_vals.device.type == 'cpu':
+    take the plain version, CUDA tensors launch the kernel or raise."""
+    if z_vals.device.type == 'cpu':
         dnorm = torch.linalg.norm(directions, dim=-1, keepdim=True)
         return fused_composite_bwd_plain(
             packed, z_vals, dnorm, noise, d_outs, d_weights,
@@ -240,13 +237,13 @@ class FusedCompositeFn(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, packed, z_vals, directions, dnorm, noise, u, white,
-                infinity, plain):
+                infinity):
         args = [None if t is None else t.detach()
                 for t in (packed, z_vals, directions, noise, u)]
         with torch.no_grad():
             outs, weights, z_union = _forward(*args[:3], args[4], args[3],
-                                              white, infinity, plain)
-        ctx.flags = (white, infinity, plain)
+                                              white, infinity)
+        ctx.flags = (white, infinity)
         ctx.has_noise = noise is not None
         ctx.save_for_backward(*[t for t in args[:4] if t is not None])
         if z_union is None:
@@ -262,32 +259,29 @@ class FusedCompositeFn(torch.autograd.Function):
             d_packed, d_z, d_dnorm, d_noise = fused_composite_bwd(
                 packed, z_vals, directions, noise, d_outs.contiguous(),
                 d_weights.contiguous(), *ctx.flags)
-        return d_packed, d_z, None, d_dnorm, d_noise, None, None, None, None
+        return d_packed, d_z, None, d_dnorm, d_noise, None, None, None
 
 
 def fused_composite(packed, z_vals, directions,
                     u: Optional[torch.Tensor] = None,
                     use_white_background: bool = False,
                     sample_at_infinity: bool = True,
-                    noise: Optional[torch.Tensor] = None,
-                    plain: bool = False) -> dict:
+                    noise: Optional[torch.Tensor] = None) -> dict:
     """Compositing forward (see ``fused_composite_plain``); on CUDA ``u``
     must be ascending per ray, as linspace and ``sorted_uniform`` are.
     Differentiable in ``packed``, ``z_vals``, ``directions`` and ``noise``
-    (``FusedCompositeFn``). ``plain`` runs the plain versions, forward and
-    backward, whatever the device: for a caller that compares or times them
-    on the card."""
+    (``FusedCompositeFn``)."""
     diff = [t for t in (packed, z_vals, directions, noise) if t is not None]
     if torch.is_grad_enabled() and any(t.requires_grad for t in diff):
         dnorm = torch.linalg.norm(directions, dim=-1, keepdim=True)
         outs, weights, *z_union = FusedCompositeFn.apply(
             packed, z_vals, directions, dnorm, noise, u,
-            use_white_background, sample_at_infinity, plain)
+            use_white_background, sample_at_infinity)
         z_union = z_union[0] if z_union else None
     else:
         outs, weights, z_union = _forward(
             packed, z_vals, directions, u, noise, use_white_background,
-            sample_at_infinity, plain)
+            sample_at_infinity)
     result = {'rgb': outs[:, :3], 'depth': outs[:, 3],
               'med_depth': outs[:, 4], 'acc': outs[:, 5], 'weights': weights}
     if z_union is not None:

@@ -39,14 +39,6 @@ from hypernerf_tpu_torch.ops.posenc import posenc_orig
 # The widths the CUDA kernel is compiled for (NerfConfig's flagship).
 FLAGSHIP = dict(embed=8, warp_freq=10, hyper_sheet_freq=7, hyper_out=4,
                 xyz_freq=10, hyper_freq=6, rgb_cond=39)
-# fp32 dW / db slabs the backward kernels' blocks add into (block b adds to
-# slab b mod n; the slabs are summed at the end). Few enough to stay in the
-# card's 50 MB L2 (2.8 MB a slab for the template, 0.53 MB for the fields).
-# Blocks that share a slab add in no fixed order, so the last bits of dW / db
-# change from run to run; a number above the grid's size (264) gives every
-# block its own slab and a deterministic sum, at about twice the time.
-TEMPLATE_BWD_SLABS = 8
-FIELDS_BWD_SLABS = 16
 RAW_T_PAD = 8  # columns of raw_t and dx_t: [warped (3) | hyper (4) | 0]
 _NOT_COVERED = ('the CUDA level kernel covers the flagship widths in bf16 '
                 'only; other widths are ROADMAP item A.13 (level kernel '
@@ -185,8 +177,8 @@ def pack_level(level: Level, transposed: bool = False):
     any in-place op on the parameter itself (``with torch.no_grad():
     p.add_(...)``). A write through ``p.data`` bumps no version counter and
     leaves the cache stale: change parameters only through the parameter.
-    Neither does ``torch.optim.Adam(fused=True)``: after such a step call
-    ``NerfModel.invalidate_packed`` (the train step always does).
+    Neither does ``torch.optim.Adam(fused=True)``, which
+    ``training.train_state.make_train_step`` therefore refuses.
     """
     params = [p for m in (level.warp, level.hyper, level.template)
               for p in m.parameters()]
@@ -274,10 +266,10 @@ def _check_ray_inputs(z_vals, origins, directions, embed) -> None:
 
 
 def _forward(level: Level, z_vals, origins, directions, embed, rgb_cond,
-             want_raw_t: bool, plain: bool = False):
-    """(out, raw_t or None): the plain version on CPU tensors (or when the
-    caller asks for it), the kernel on CUDA tensors."""
-    if plain or z_vals.device.type == 'cpu':
+             want_raw_t: bool):
+    """(out, raw_t or None): the plain version on CPU tensors, the kernel on
+    CUDA tensors."""
+    if z_vals.device.type == 'cpu':
         res = fused_level_plain(level, z_vals, origins, directions, embed,
                                 rgb_cond, return_raw_t=want_raw_t)
         return res if want_raw_t else (res, None)
@@ -288,21 +280,19 @@ def _forward(level: Level, z_vals, origins, directions, embed, rgb_cond,
 
 
 def fused_level(level: Level, z_vals, origins, directions, embed,
-                rgb_cond, plain: bool = False) -> torch.Tensor:
+                rgb_cond) -> torch.Tensor:
     """Level forward; (R * S, 4) fp32 [rgb logits | raw sigma].
 
     CPU tensors take ``fused_level_plain``; CUDA tensors launch the kernel
     (flagship widths, bf16) or raise. Differentiable in every argument and
-    in the level's parameters (``FusedLevelFn``). ``plain`` runs the plain
-    versions, forward and backward, whatever the device: for a caller that
-    compares or times them on the card.
+    in the level's parameters (``FusedLevelFn``).
     """
     params = _level_params(level)
     inputs = (z_vals, origins, directions, embed, rgb_cond)
     if torch.is_grad_enabled() and any(t.requires_grad
                                        for t in (*inputs, *params)):
-        return FusedLevelFn.apply(level, plain, *inputs, *params)
-    return _forward(level, *inputs, want_raw_t=False, plain=plain)[0]
+        return FusedLevelFn.apply(level, *inputs, *params)
+    return _forward(level, *inputs, want_raw_t=False)[0]
 
 
 fused_level.launches = 0
@@ -315,14 +305,13 @@ class FusedLevelFn(torch.autograd.Function):
     parameters shared by two levels add up in autograd."""
 
     @staticmethod
-    def forward(ctx, level, plain, z_vals, origins, directions, embed,
-                rgb_cond, *params):
+    def forward(ctx, level, z_vals, origins, directions, embed, rgb_cond,
+                *params):
         inputs = [t.detach() for t in (z_vals, origins, directions, embed,
                                        rgb_cond)]
         with torch.no_grad():
-            out, raw_t = _forward(level, *inputs, want_raw_t=True,
-                                  plain=plain)
-        ctx.level, ctx.plain = level, plain
+            out, raw_t = _forward(level, *inputs, want_raw_t=True)
+        ctx.level = level
         ctx.save_for_backward(*inputs, raw_t)
         return out
 
@@ -332,15 +321,12 @@ class FusedLevelFn(torch.autograd.Function):
             ctx.saved_tensors
         level = ctx.level
         g = g.contiguous()
-        template_bwd, fields_bwd = (
-            (fused_template_bwd_plain, fused_fields_bwd_plain) if ctx.plain
-            else (fused_template_bwd, fused_fields_bwd))
         with torch.no_grad():
-            dx_t, d_rgb_cond, t_grads = template_bwd(level, raw_t, rgb_cond,
-                                                     g)
-            d_z, d_o, d_d, d_embed, f_grads = fields_bwd(
+            dx_t, d_rgb_cond, t_grads = fused_template_bwd(level, raw_t,
+                                                           rgb_cond, g)
+            d_z, d_o, d_d, d_embed, f_grads = fused_fields_bwd(
                 level, z_vals, origins, directions, embed, dx_t)
-        return (None, None, d_z, d_o, d_d, d_embed,
+        return (None, d_z, d_o, d_d, d_embed,
                 d_rgb_cond.to(rgb_cond.dtype), *f_grads, *t_grads)
 
 
@@ -554,19 +540,17 @@ def fused_template_bwd(level: Level, raw_t, rgb_cond, g):
     n_w = sum(n * k for n, k in shapes[nf:])
     n_b = sum(n for n, _ in shapes[nf:])
     blocks = lib.hn_fused_template_bwd_blocks(p)
-    slabs = torch.zeros((min(blocks, TEMPLATE_BWD_SLABS), n_w + n_b),
-                        dtype=f32, device=dev)
     dx_t = torch.empty((p, RAW_T_PAD), dtype=f32, device=dev)
     d_cond = torch.zeros((r, FLAGSHIP['rgb_cond']), dtype=f32, device=dev)
-    grads = torch.empty((n_w + n_b,), dtype=f32, device=dev)
+    # [dW | db] in the packed layout; every block adds its tiles' into it.
+    grads = torch.zeros((n_w + n_b,), dtype=f32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         build.check(lib.hn_fused_template_bwd(
             raw_t.data_ptr(), rgbc.data_ptr(), g.data_ptr(),
             w_blob.data_ptr(), wt_blob.data_ptr(), b_blob.data_ptr(),
-            dx_t.data_ptr(), d_cond.data_ptr(), slabs.data_ptr(),
-            grads.data_ptr(), p, p // r, blocks, slabs.shape[0], stream),
-            'hn_fused_template_bwd')
+            dx_t.data_ptr(), d_cond.data_ptr(), grads.data_ptr(), p, p // r,
+            blocks, stream), 'hn_fused_template_bwd')
     fused_template_bwd.launches += 1
     layers = level_layers(level)[nf:]
     return dx_t, d_cond, _unpack_grads(grads[:n_w], grads[n_w:], layers,
@@ -597,21 +581,19 @@ def fused_fields_bwd(level: Level, z_vals, origins, directions, embed, dx_t):
     n_w = sum(n * k for n, k in shapes[:nf])
     n_b = sum(n for n, _ in shapes[:nf])
     blocks = lib.hn_fused_fields_bwd_blocks(r * s)
-    slabs = torch.zeros((min(blocks, FIELDS_BWD_SLABS), n_w + n_b),
-                        dtype=f32, device=dev)
     d_z = torch.empty((r, s), dtype=f32, device=dev)
     # [d origins (3) | d directions (3) | d embed (8)] per ray, added to by
     # every tile that holds samples of the ray.
     d_ray = torch.zeros((r, 6 + FLAGSHIP['embed']), dtype=f32, device=dev)
-    grads = torch.empty((n_w + n_b,), dtype=f32, device=dev)
+    grads = torch.zeros((n_w + n_b,), dtype=f32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         build.check(lib.hn_fused_fields_bwd(
             z_vals.data_ptr(), origins.data_ptr(), directions.data_ptr(),
             embed.data_ptr(), dx_t.data_ptr(), w_blob.data_ptr(),
             wt_blob.data_ptr(), b_blob.data_ptr(), d_z.data_ptr(),
-            d_ray.data_ptr(), slabs.data_ptr(), grads.data_ptr(), r, s,
-            blocks, slabs.shape[0], stream), 'hn_fused_fields_bwd')
+            d_ray.data_ptr(), grads.data_ptr(), r, s, blocks, stream),
+            'hn_fused_fields_bwd')
     fused_fields_bwd.launches += 1
     layers = level_layers(level)[:nf]
     return (d_z, d_ray[:, :3].contiguous(), d_ray[:, 3:6].contiguous(),

@@ -31,6 +31,7 @@ from hypernerf_tpu_torch.models.modules import (GLOEmbed, HyperSheetMLP,
                                                 NerfMLP, torch_dtype)
 from hypernerf_tpu_torch.models.warping import TranslationField
 from hypernerf_tpu_torch.ops.posenc import posenc_orig, posenc_orig_channels
+from hypernerf_tpu_torch.ops.rendering import noise_regularize
 from hypernerf_tpu_torch.ops.sampling import (sample_along_rays,
                                               sorted_uniform)
 
@@ -103,17 +104,6 @@ class NerfModel(nn.Module):
         return Level(self.warp_field, self.hyper_sheet_mlp, template,
                      cfg.xyz_freq, cfg.hyper_freq)
 
-    def invalidate_packed(self) -> None:
-        """Drop the level kernels' cached packed weights. The cache follows
-        the parameters' version counters, which every in-place update bumps
-        except an optimizer's ``fused`` implementation: the train step calls
-        this after each optimizer step so that no implementation can leave
-        the cache stale."""
-        for name in ('nerf_coarse', 'nerf_fine'):
-            template = getattr(self, name, None)
-            if template is not None:
-                template.__dict__.pop('_packed_level', None)
-
     def render_level(self, name, z_vals, origins, directions, embed,
                      rgb_cond, fine_u=None,
                      noise=None) -> Dict[str, torch.Tensor]:
@@ -142,8 +132,9 @@ class NerfModel(nn.Module):
             device.
           draws: explicit draws instead: 't_rand' (B, S) uniforms of the
             coarse jitter, 'fine_u' (B, N) ascending uniforms, and
-            'noise_coarse' (B, S) / 'noise_fine' (B, S + N) sigma noise,
-            already scaled by ``noise_std``. A missing key is drawn.
+            'noise_coarse' (B, S) / 'noise_fine' (B, S + N) standard-normal
+            draws of the sigma noise (``noise_std`` scales them here). A
+            missing key is drawn.
 
         Returns:
           {'coarse': {...}, 'fine': {...}} with per-ray rgb / depth /
@@ -183,14 +174,13 @@ class NerfModel(nn.Module):
             fine_u = fine_u.expand(n_rays, n_fine).contiguous()
 
         def sigma_noise(level, samples):
-            if not stratified or not cfg.noise_std or cfg.noise_std <= 0.0:
-                return None
-            noise = draws.get(f'noise_{level}')
-            if noise is None:
-                noise = torch.randn((n_rays, samples), generator=generator,
-                                    dtype=z_vals.dtype,
-                                    device=z_vals.device) * cfg.noise_std
-            return noise.contiguous()
+            # The kernel adds its noise input to raw sigma, so the regularizer
+            # runs on zeros; it hands them back when it is off.
+            zeros = z_vals.new_zeros((n_rays, samples))
+            noise = noise_regularize(zeros, cfg.noise_std, stratified,
+                                     noise=draws.get(f'noise_{level}'),
+                                     generator=generator)
+            return None if noise is zeros else noise.contiguous()
 
         out = {'coarse': self.render_level(
             'coarse', z_vals, origins, directions, embed, rgb_cond, fine_u,

@@ -68,6 +68,12 @@ def make_train_step(model: NerfModel, optimizer: torch.optim.Optimizer,
     if max(train_cfg.elastic_loss_weight,
            train_cfg.background_loss_weight) > 0:
         raise NotImplementedError('elastic / background losses: ROADMAP A.11')
+    if optimizer.defaults.get('fused'):
+        # The level kernels' packed weights follow the parameters' version
+        # counters, which a fused optimizer step does not bump.
+        raise ValueError('the train step takes no fused optimizer: its '
+                         'in-place update bumps no version counter, so the '
+                         'level kernels would keep stale packed weights')
     loss_fn = loss_dict[train_cfg.loss_type]
     device = torch.device(device)
 
@@ -95,7 +101,6 @@ def make_train_step(model: NerfModel, optimizer: torch.optim.Optimizer,
             for group in optimizer.param_groups:
                 group['lr'] = schedule(state.step)
         optimizer.step()
-        model.invalidate_packed()
         state.step += 1
         return {'loss': loss.detach(),
                 'psnr': -10.0 * torch.log10(batch_mse)}

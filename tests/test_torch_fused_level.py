@@ -445,16 +445,22 @@ def test_optimizer_step_repacks_cached_weights(impl):
     """After ``torch.optim.Adam.step()`` the level kernel's cached bf16
     blobs (and their transposes for the backward) are repacked: the for-loop
     and foreach implementations bump the parameters' version counters, which
-    the cache follows; the fused one does not on every build, so the train
-    step drops the cache explicitly (``NerfModel.invalidate_packed``), as
-    this test does for it."""
+    the cache follows. The fused one does not on every build, so the train
+    step refuses an optimizer built with it."""
+    from hypernerf_tpu_torch.configs import TrainConfig
     from hypernerf_tpu_torch.flagship import flagship_model
     from hypernerf_tpu_torch.kernels.fused_level import pack_level
+    from hypernerf_tpu_torch.training.train_state import make_train_step
     model = flagship_model('cpu', seed=0)
     level = model.level('coarse')
     kwargs = {'for-loop': dict(foreach=False), 'foreach': dict(foreach=True),
               'fused': dict(fused=True)}[impl]
     opt = torch.optim.Adam(model.parameters(), lr=1e-2, **kwargs)
+    if impl == 'fused':
+        with pytest.raises(ValueError, match='fused'):
+            make_train_step(model, opt, model.config, TrainConfig(), 'cpu')
+        return
+    make_train_step(model, opt, model.config, TrainConfig(), 'cpu')
     w0, b0, _ = pack_level(level)
     wt0, _, _ = pack_level(level, transposed=True)
     assert pack_level(level)[0] is w0
@@ -462,8 +468,6 @@ def test_optimizer_step_repacks_cached_weights(impl):
     for p in model.parameters():
         p.grad = torch.ones_like(p)
     opt.step()
-    if impl == 'fused':
-        model.invalidate_packed()
     w1, b1, shapes = pack_level(level)
     wt1, _, _ = pack_level(level, transposed=True)
     assert w1 is not w0 and not torch.equal(w1, w0)

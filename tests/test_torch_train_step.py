@@ -40,7 +40,7 @@ from hypernerf_tpu_torch.training.train_state import (TrainState,
                                                       make_train_step)
 
 BATCH, S, N = 8, 8, 8
-NOISE_STD = 1.0
+NOISE_STD = 0.7
 ARCH = dict(num_embeddings=4, glo_dim=8, num_coarse_samples=S,
             num_fine_samples=N, warp_depth=2, warp_width=16, warp_freq=4,
             hyper_sheet_depth=2, hyper_sheet_width=16, hyper_sheet_freq=3,
@@ -104,10 +104,8 @@ def _jax_draws(model, params, k_sample, k_noise):
     draws = {
         't_rand': jax.random.uniform(k_coarse, (BATCH, S), jnp.float32),
         'fine_u': sorted_uniform(k_fine, BATCH, N),
-        'noise_coarse': jax.random.normal(k_n0, (BATCH, S),
-                                          jnp.float32) * NOISE_STD,
-        'noise_fine': jax.random.normal(k_n1, (BATCH, S + N),
-                                        jnp.float32) * NOISE_STD,
+        'noise_coarse': jax.random.normal(k_n0, (BATCH, S), jnp.float32),
+        'noise_fine': jax.random.normal(k_n1, (BATCH, S + N), jnp.float32),
     }
     return {k: torch.from_numpy(np.array(v)) for k, v in draws.items()}
 
