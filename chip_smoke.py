@@ -35,7 +35,29 @@ Phases, one line each; any failure ends the run with a non-zero exit:
      explicit batch with the kernels and one with the plain versions (through
      autograd Functions of this script's own) from the initial state,
      compared;
-  8. the kernels' JSON line, then the result line.
+  8. the kernels of the per-module path (a field alone, forward and
+     backward, as the warp field and as the hyper sheet, with and without a
+     window row; the template alone, forward, with 128, 64, 13 and 1 rows per
+     condition row, with and without hyper coordinates; the template backward
+     on a template without them and at 1 row per condition row): against the
+     JAX kernels' stored outputs and gradients at the probe weights
+     (tests/data), against their plain versions at small odd sizes and at
+     8192 x 128 and 16384 x 128 rows, which are also timed, and against the
+     level kernels (warp field, sheet and template kernels chained give the
+     level kernel's output; the field backward twice on the template
+     backward's dx_t gives the fields backward's gradients);
+  9. the per-module path at full width: ``static`` (a plain NeRF) renders a
+     504x378 frame and trains at batch 16384; ``split_glo`` (two GLO tables)
+     renders a frame with ``return_points``, trains at batch 16384 and
+     answers ``query_sigma`` on 1 << 20 points; the launch counters must show
+     the per-module kernels on every chunk, level and step (per step: static
+     2 template forwards and 2 template backwards; split_glo also 4 field
+     forwards and 4 field backwards) and no level kernel and no plain call;
+     every parameter gets a finite non-zero gradient; the fixed-batch loss
+     falls; one small step with the kernels against one with the plain
+     versions;
+ 10. the kernels' JSON line, then the result line.
+``python3 chip_smoke.py modular`` runs phases 1, 2, 8 and 9 alone.
 Times come from CUDA events (kernels) or the host clock around work that
 ends in a synchronize (frames, steps). A kernel's bound is the larger of
 its matrix-product operations over the card's dense bf16 peak and its bytes
@@ -44,6 +66,7 @@ its matrix-product operations over the card's dense bf16 peak and its bytes
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import subprocess
@@ -163,7 +186,8 @@ def grad_errors(got, want):
             diff.abs().max().item())
 
 
-def check_grads(label, names, got, want, l2_tol=GRAD_L2, max_tol=GRAD_MAX):
+def check_grads(label, names, got, want, l2_tol=GRAD_L2, max_tol=GRAD_MAX,
+                tag='[6]'):
     """Hold every tensor of ``got`` to ``want``; returns the worst
     (relative L2, max|d| over the largest entry, max|d|) over the tensors and
     prints the first two."""
@@ -179,7 +203,7 @@ def check_grads(label, names, got, want, l2_tol=GRAD_L2, max_tol=GRAD_MAX):
                                  f'(tol {l2_tol}), max {errs[1]:.3e} of the '
                                  f'largest entry (tol {max_tol})')
         worst = [max(w, e) for w, e in zip(worst, errs)]
-    phase(f'[6] {label}: {len(names)} outputs, worst relative L2 '
+    phase(f'{tag} {label}: {len(names)} outputs, worst relative L2 '
           f'{worst[0]:.3e} (tol {l2_tol}), worst max|d| {worst[1]:.3e} of '
           f'the largest entry (tol {max_tol})')
     return worst
@@ -553,15 +577,24 @@ def step_grad_errors(got, want):
     return (d_sq / sq).sqrt().item(), worst
 
 
-def plain_ops():
-    """(level_op, composite_op) for ``NerfModel`` that run the plain versions
-    on the card, forward and backward: autograd Functions around the
-    explicit plain backwards, laid out as the kernels' own Functions are.
-    For phase 7's comparison step; the port's wrappers never take a plain
-    version on a CUDA tensor."""
+@contextlib.contextmanager
+def plain_versions(model):
+    """Inside, ``model`` runs the plain versions on the card, forward and
+    backward: its level and compositing hooks become autograd Functions
+    around the explicit plain backwards, laid out as the kernels' own
+    Functions are, and the field and template Functions of the per-module
+    path call their plain forwards and backwards. For the comparison steps
+    of phases 7 and 9; the port's wrappers never take a plain version on a
+    CUDA tensor."""
+    import importlib
+
     import torch
+    import torch.nn.functional as F
     from hypernerf_tpu_torch import kernels as K
     from hypernerf_tpu_torch.kernels.fused_level import _level_params
+    # The package re-exports the functions under the modules' names.
+    ff = importlib.import_module('hypernerf_tpu_torch.kernels.fused_field')
+    fm = importlib.import_module('hypernerf_tpu_torch.kernels.fused_mlp')
 
     class PlainLevel(torch.autograd.Function):
         @staticmethod
@@ -620,16 +653,29 @@ def plain_ops():
             result['z_union'] = z_union[0]
         return result
 
-    return level_op, composite_op
+    def field_forward(mlp, n_freq, x_raw, scales):
+        out = ff.fused_field_plain(mlp, n_freq, x_raw, scales).float()
+        return F.pad(out, (0, ff.OUT_PAD - out.shape[1]))
+
+    saved = (model.level_op, model.composite_op, ff._forward,
+             ff.fused_field_bwd, fm._forward, fm.fused_template_bwd)
+    model.level_op, model.composite_op = level_op, composite_op
+    ff._forward, ff.fused_field_bwd = field_forward, ff.fused_field_bwd_plain
+    fm._forward = fm.fused_template_plain
+    fm.fused_template_bwd = fm.fused_template_bwd_plain
+    try:
+        yield
+    finally:
+        (model.level_op, model.composite_op, ff._forward, ff.fused_field_bwd,
+         fm._forward, fm.fused_template_bwd) = saved
 
 
-def compare_step(model, all_rays, all_rgbs) -> None:
+def compare_step(model, all_rays, all_rgbs, tag='[7]') -> None:
     """One step's loss and gradients on a small explicit batch from the same
     state and draws: the kernels, then the plain versions. Run on the seeded
     initial state, so the reading is the same from run to run (after train
     steps the state differs in its last bits, and the reading with it)."""
     import torch
-    from hypernerf_tpu_torch import kernels as K
     from hypernerf_tpu_torch.ops.ray_dict import prepare_ray_dict
     from hypernerf_tpu_torch.ops.sampling import sorted_uniform
     from hypernerf_tpu_torch.training.losses import mse_loss
@@ -642,21 +688,22 @@ def compare_step(model, all_rays, all_rgbs) -> None:
              'noise_coarse': torch.randn(n, s, generator=gen, device='cuda'),
              'noise_fine': torch.randn(n, s + nf, generator=gen,
                                        device='cuda')}
-    results = []
-    for ops in ((K.fused_level, K.fused_composite), plain_ops()):
-        model.level_op, model.composite_op = ops
+
+    def one_step():
         model.zero_grad(set_to_none=True)
         out = model(prepare_ray_dict(all_rays[:n]), deterministic=False,
                     return_weights=False, draws=draws)
         loss = mse_loss(out, all_rgbs[:n])
         loss.backward()
-        results.append((loss.item(), {k: p.grad.clone() for k, p in
-                                      model.named_parameters()}))
-    model.level_op, model.composite_op = K.fused_level, K.fused_composite
+        return loss.item(), {k: p.grad.clone()
+                             for k, p in model.named_parameters()}
+
+    loss_k, grads_k = one_step()
+    with plain_versions(model):
+        loss_p, grads_p = one_step()
     model.zero_grad(set_to_none=True)
-    (loss_k, grads_k), (loss_p, grads_p) = results
     total, worst = step_grad_errors(grads_k, grads_p)
-    phase(f'[7] one step on {n} rays, kernels vs plain versions: loss '
+    phase(f'{tag} one step on {n} rays, kernels vs plain versions: loss '
           f'{loss_k:.6f} vs {loss_p:.6f} (tol {STEP_LOSS_TOL}); gradients: '
           f'relative L2 over all parameters {total:.3e}, worst parameter '
           f'{worst[0]:.3e} of its scale at {worst[1]} (tol {STEP_GRAD_L2} '
@@ -667,27 +714,68 @@ def compare_step(model, all_rays, all_rgbs) -> None:
                              'disagree')
 
 
-def train_phase(kernels) -> None:
-    """Phase 7: the flagship train step at full width; fills in the train
-    launches of every kernel's entry."""
-    import torch
+def kernel_wrappers():
+    """({kernel name: wrapper with a ``launches`` count}, [plain versions
+    with a ``calls`` count]) of all eight kernels."""
     from hypernerf_tpu_torch import kernels as K
+    wrappers = {'fused_level_fwd': K.fused_level,
+                'fused_composite_fwd': K.fused_composite,
+                'fused_template_bwd': K.fused_template_bwd,
+                'fused_fields_bwd': K.fused_fields_bwd,
+                'fused_composite_bwd': K.fused_composite_bwd,
+                'fused_field_fwd': K.fused_field,
+                'fused_field_bwd': K.fused_field_bwd,
+                'fused_template_fwd': K.fused_template}
+    plains = [K.fused_level_plain, K.fused_composite_plain,
+              K.fused_template_bwd_plain, K.fused_fields_bwd_plain,
+              K.fused_composite_bwd_plain, K.fused_field_plain,
+              K.fused_field_bwd_plain, K.fused_template_plain]
+    return wrappers, plains
+
+
+def reset_counts():
+    wrappers, plains = kernel_wrappers()
+    for fn in wrappers.values():
+        fn.launches = 0
+    for fn in plains:
+        fn.calls = 0
+
+
+def read_counts(want: dict, label: str) -> dict:
+    """The launch counts since ``reset_counts``; raises unless they are
+    ``want`` (kernels not named: 0) and no plain version was called."""
+    wrappers, plains = kernel_wrappers()
+    launches = {name: fn.launches for name, fn in wrappers.items()}
+    plain_calls = [fn.calls for fn in plains]
+    if launches != {name: want.get(name, 0) for name in wrappers} \
+            or any(plain_calls):
+        raise AssertionError(f'{label}: launches {launches}, want {want} '
+                             f'and 0 elsewhere; plain calls {plain_calls}')
+    return {k: v for k, v in launches.items() if v}
+
+
+# Launches per train step on each configuration's path.
+STEP_LAUNCHES = {
+    'flagship': {'fused_level_fwd': 2, 'fused_composite_fwd': 2,
+                 'fused_template_bwd': 2, 'fused_fields_bwd': 2,
+                 'fused_composite_bwd': 2},
+    'static': {'fused_template_fwd': 2, 'fused_template_bwd': 2},
+    'split_glo': {'fused_field_fwd': 4, 'fused_field_bwd': 4,
+                  'fused_template_fwd': 2, 'fused_template_bwd': 2}}
+
+
+def train_path(config: str, tag: str) -> dict:
+    """The train step of ``config`` at full width (batch 16384, 64 + 64,
+    bf16, sigma noise, Adam with steplr) through ``make_train_step``;
+    returns its launches over the timed steps."""
+    import torch
     from hypernerf_tpu_torch.flagship import flagship_train_setup
     from hypernerf_tpu_torch.ops.ray_dict import prepare_ray_dict
     from hypernerf_tpu_torch.training.losses import mse_loss
     from hypernerf_tpu_torch.training.train_state import (TrainState,
                                                           step_generator)
-    wrappers = {'fused_level_fwd': K.fused_level,
-                'fused_composite_fwd': K.fused_composite,
-                'fused_template_bwd': K.fused_template_bwd,
-                'fused_fields_bwd': K.fused_fields_bwd,
-                'fused_composite_bwd': K.fused_composite_bwd}
-    plains = (K.fused_level_plain, K.fused_composite_plain,
-              K.fused_template_bwd_plain, K.fused_fields_bwd_plain,
-              K.fused_composite_bwd_plain)
-
     state, step_fn, all_rays, all_rgbs = flagship_train_setup(
-        'cuda', seed=0, batch_size=TRAIN_RAYS)
+        'cuda', seed=0, batch_size=TRAIN_RAYS, config=config)
     model = state.model
     cfg = model.config
     fixed = slice(0, 4096)
@@ -699,33 +787,26 @@ def train_phase(kernels) -> None:
             return mse_loss(out, all_rgbs[fixed]).item()
 
     before = fixed_loss()
-    compare_step(model, all_rays, all_rgbs)
+    compare_step(model, all_rays, all_rgbs, tag)
     for _ in range(WARMUP_STEPS):
         step_fn(state, all_rays, all_rgbs)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    for fn in wrappers.values():
-        fn.launches = 0
-    for fn in plains:
-        fn.calls = 0
+    reset_counts()
     t0 = time.perf_counter()
     metrics = [step_fn(state, all_rays, all_rgbs) for _ in range(TRAIN_STEPS)]
     torch.cuda.synchronize()
     secs = (time.perf_counter() - t0) / TRAIN_STEPS
-    launches = {name: fn.launches for name, fn in wrappers.items()}
-    plain_calls = [fn.calls for fn in plains]
-    if any(n != 2 * TRAIN_STEPS for n in launches.values()) \
-            or any(plain_calls):
-        raise AssertionError(f'train launches {launches} (want '
-                             f'{2 * TRAIN_STEPS} each), plain calls '
-                             f'{plain_calls}')
+    launches = read_counts({k: v * TRAIN_STEPS
+                            for k, v in STEP_LAUNCHES[config].items()},
+                           f'{config} train steps')
     losses = [m['loss'].item() for m in metrics]
     psnrs = [m['psnr'].item() for m in metrics]
     after = fixed_loss()
     if not all(map(math.isfinite, losses + psnrs)) or not after < before:
-        raise AssertionError(f'train losses {losses}, fixed-batch loss '
-                             f'{before} -> {after}')
-    # Every parameter's gradient of the last step: finite and non-zero; the
+        raise AssertionError(f'{config} train losses {losses}, fixed-batch '
+                             f'loss {before} -> {after}')
+    # Every parameter's gradient of the last step: finite and non-zero; a
     # GLO table non-zero exactly on the rows of the batch's image ids.
     last = TrainState(state.step - 1, model, state.optimizer, state.seed)
     idx = torch.randint(0, all_rays.shape[0], (TRAIN_RAYS,),
@@ -736,26 +817,421 @@ def train_phase(kernels) -> None:
     for name, p in model.named_parameters():
         g = p.grad
         if g is None or not torch.isfinite(g).all() or not g.abs().sum() > 0:
-            raise AssertionError(f'gradient of {name} missing, not finite '
-                                 f'or zero')
-        if name == 'warp_embed.embed.weight' and not torch.equal(
+            raise AssertionError(f'{config}: gradient of {name} missing, '
+                                 f'not finite or zero')
+        if name.endswith('_embed.embed.weight') and not torch.equal(
                 g.abs().sum(-1) > 0, used):
-            raise AssertionError('GLO gradient rows do not match the '
-                                 'batch\'s image ids')
-    phase(f'[7] train step (batch {TRAIN_RAYS}, 64+64, full widths, bf16, '
-          f'noise_std {cfg.noise_std}, Adam lr '
+            raise AssertionError(f'{config}: gradient rows of {name} do not '
+                                 f'match the batch\'s image ids')
+    phase(f'{tag} {config} train step (batch {TRAIN_RAYS}, 64+64, full '
+          f'widths, bf16, noise_std {cfg.noise_std}, Adam lr '
           f'{state.optimizer.param_groups[0]["lr"]}): {secs * 1e3:.1f} '
           f'ms/step, {TRAIN_RAYS / secs:.0f} rays/s over {TRAIN_STEPS} steps '
           f'after {WARMUP_STEPS}; launches per step '
           + ', '.join(f'{k} {v // TRAIN_STEPS}' for k, v in launches.items())
-          + f'; plain calls {plain_calls}; loss {losses[0]:.5f} -> '
+          + f'; no plain call; loss {losses[0]:.5f} -> '
           f'{losses[-1]:.5f}, psnr {psnrs[-1]:.2f}; fixed-batch loss '
           f'{before:.5f} -> {after:.5f}; {len(list(model.parameters()))} '
           f'parameters with finite non-zero gradients; peak memory '
           f'{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB')
+    return launches
+
+
+def train_phase(kernels) -> None:
+    """Phase 7: the flagship train step; fills in the train launches of its
+    kernels' entries."""
+    launches = train_path('flagship', '[7]')
     for k in kernels:
         k['train_launches'] = launches[k['name']]
         k.setdefault('launches', launches[k['name']])
+
+
+# -- the per-module path ------------------------------------------------------
+
+ROWS_128 = 128  # rows per ray of the inputs the module kernels are fed
+
+
+def row_chunks(n_rows: int):
+    step = PLAIN_CHUNK * ROWS_128
+    return [(a, min(n_rows, a + step)) for a in range(0, n_rows, step)]
+
+
+def field_rows(n_rows: int, seed: int):
+    """(P, 11) raw rows [points on probe rays | the rays' GLO codes]."""
+    from hypernerf_tpu_torch.kernels.fused_level import _raw_fields
+    z, o, d, emb, _ = level_inputs(-(-n_rows // ROWS_128), ROWS_128, seed)
+    return _raw_fields(z, o, d, emb)[:n_rows].contiguous()
+
+
+def template_rows(n_rays: int, samples: int, seed: int, static: bool):
+    """The template's raw rows (P, 8) [points | hyper coordinates of
+    deviation 0.3, or zeros | 0] and condition (R, 39)."""
+    import torch
+    from hypernerf_tpu_torch.ops.posenc import posenc_orig
+    p = n_rays * samples
+    pts = field_rows(p, seed)[:, :3]
+    gen = torch.Generator(device='cuda').manual_seed(seed)
+    hyper = torch.randn(p, 4, generator=gen, device='cuda') * (
+        0.0 if static else 0.3)
+    dirs = torch.randn(n_rays, 3, generator=gen, device='cuda')
+    dirs = dirs / torch.linalg.norm(dirs, dim=-1, keepdim=True)
+    x_raw = torch.cat([pts, hyper, torch.zeros_like(pts[:, :1])], dim=-1)
+    return x_raw.contiguous(), posenc_orig(dirs, 6)
+
+
+def plain_field(mlp, n_freq, x_raw, scales=None):
+    """The plain field forward over chunks of rows."""
+    import torch
+    from hypernerf_tpu_torch.kernels import fused_field_plain
+    return torch.cat([fused_field_plain(mlp, n_freq, x_raw[a:b], scales)
+                      for a, b in row_chunks(x_raw.shape[0])])
+
+
+def plain_field_bwd(mlp, n_freq, x_raw, g, scales=None):
+    """The plain field backward over chunks of rows: [dx_raw, 14 x dW/db]."""
+    import torch
+    from hypernerf_tpu_torch.kernels import fused_field_bwd_plain
+    parts = [fused_field_bwd_plain(mlp, n_freq, x_raw[a:b], g[a:b], scales)
+             for a, b in row_chunks(x_raw.shape[0])]
+    return [torch.cat([dx for dx, _ in parts])] + [
+        sum(grads[i] for _, grads in parts) for i in range(len(parts[0][1]))]
+
+
+def plain_template(tmpl, x_raw, rgb_cond):
+    """The plain template forward over chunks of condition rows."""
+    import torch
+    from hypernerf_tpu_torch.kernels import fused_template_plain
+    s = x_raw.shape[0] // rgb_cond.shape[0]
+    step = max(1, PLAIN_CHUNK * ROWS_128 // s)
+    return torch.cat([
+        fused_template_plain(tmpl, x_raw[r0 * s:(r0 + step) * s],
+                             rgb_cond[r0:r0 + step])
+        for r0 in range(0, rgb_cond.shape[0], step)])
+
+
+def modular_kernel_phase():
+    """Phase 8; returns the entries of the three kernels of the per-module
+    path (times and bounds: the warp field, the flagship template)."""
+    import torch
+    import torch.nn.functional as F
+    from hypernerf_tpu_torch import kernels as K
+    from hypernerf_tpu_torch.flagship import (MODULAR_REFERENCE_CASES,
+                                              flagship_model,
+                                              load_probe_weights,
+                                              read_modular_reference)
+    from hypernerf_tpu_torch.kernels import common
+    from hypernerf_tpu_torch.kernels.fused_field import (encoding_scales,
+                                                         field_layers)
+    from hypernerf_tpu_torch.kernels.fused_level import (_launch_forward,
+                                                         _raw_fields)
+    from hypernerf_tpu_torch.kernels.fused_mlp import template_layers
+    probes = {c: load_probe_weights(flagship_model('cuda', config=c))
+              for c in ('flagship', 'static')}
+    probe = probes['flagship']
+    fields = {'warp': probe.warp_field, 'sheet': probe.hyper_sheet_mlp}
+
+    def tmpl(config, level):
+        cfg = probes[config].config
+        return K.Template(probes[config]._template(level), cfg.xyz_freq,
+                          cfg.hyper_freq)
+
+    def names_of(layers, first):
+        return first + [f'd{"Wb"[i % 2]}{i // 2}'
+                        for i in range(2 * len(layers))]
+
+    # The JAX kernels' stored outputs and gradients
+    # (tools/make_level_reference.py): the CUDA kernels through their
+    # autograd Functions, as training runs them.
+    ref = read_modular_reference()
+    for case, (kind, config, module, _, per, _) in \
+            MODULAR_REFERENCE_CASES.items():
+        arrays = {k: torch.from_numpy(v).cuda() for k, v in ref[case].items()}
+        x = arrays['x_raw'].requires_grad_()
+        if kind == 'field':
+            field = getattr(probes[config], module)
+            scales = None if per is None else encoding_scales(
+                field.n_freq, 8, per, 'cuda')
+            layers = field_layers(field.mlp)
+            out = K.fused_field(field.mlp, field.n_freq, x, scales)
+            inputs, first = [x], ['dx']
+        else:
+            t = tmpl(config, module)
+            layers = template_layers(t.template)
+            cond = arrays['rgb_cond'].requires_grad_()
+            out = K.fused_template(t, x, cond)
+            inputs, first = [x, cond], ['dx', 'd_rgb_cond']
+        hold_level(out.detach(), arrays['out'],
+                   f'{case} vs the stored JAX output', '[8]')
+        got = torch.autograd.grad(out, inputs + common.layer_params(layers),
+                                  arrays['cotangent'][:, :out.shape[1]])
+        names = names_of(layers, first)
+        check_grads(f'{case} backward vs the stored JAX gradients', names,
+                    got, [arrays[n.lower()] for n in names], tag='[8]')
+
+    errs = {'field_fwd': [], 'field_bwd': [], 'template_fwd': [], 'A': []}
+    times = {}
+    gen = torch.Generator().manual_seed(8)
+    with torch.no_grad():
+        # A field alone vs its plain version, forward and backward.
+        for fname, field in fields.items():
+            mlp, n_freq = field.mlp, field.n_freq
+            out_ch = mlp.logit.out_features
+            window = encoding_scales(n_freq, 8, 0.45 * n_freq, 'cuda')
+            grad_names = names_of(field_layers(mlp), ['dx_raw'])
+            for p, scales in ((481, None), (481, window),
+                              (CHUNK * 128, None), (CHUNK * 128, window),
+                              (TRAIN_RAYS * 128, None)):
+                label = (f'{fname} field P={p} window='
+                         f'{"off" if scales is None else "on"}')
+                x = field_rows(p, seed=p % 89 + n_freq)
+                g = F.pad(torch.randn(p, out_ch, generator=gen),
+                          (0, 8 - out_ch)).cuda()
+                want = plain_field(mlp, n_freq, x, scales)
+                errs['field_fwd'].append(hold_level(
+                    K.fused_field(mlp, n_freq, x, scales), want,
+                    f'{label} forward vs plain', '[8]'))
+                dx, grads = K.fused_field_bwd(mlp, n_freq, x, g, scales)
+                torch.cuda.synchronize()
+                errs['field_bwd'].append(check_grads(
+                    f'{label} backward vs plain', grad_names, [dx, *grads],
+                    plain_field_bwd(mlp, n_freq, x, g, scales), tag='[8]'))
+                if scales is not None or p < CHUNK * 128:
+                    continue
+                times[fname, p] = dict(
+                    fwd=cuda_ms(lambda: K.fused_field(mlp, n_freq, x)),
+                    plain_fwd=cuda_ms(lambda: plain_field(mlp, n_freq, x), 2),
+                    bwd=cuda_ms(lambda: K.fused_field_bwd(mlp, n_freq, x, g),
+                                3),
+                    plain_bwd=cuda_ms(lambda: plain_field_bwd(mlp, n_freq, x,
+                                                              g), 1))
+                t = times[fname, p]
+                phase(f'[8] {fname} field P={p}: forward {t["fwd"]:.3f} ms '
+                      f'(plain {t["plain_fwd"]:.2f} ms), backward '
+                      f'{t["bwd"]:.3f} ms (plain {t["plain_bwd"]:.1f} ms); '
+                      f'plain versions in chunks of {PLAIN_CHUNK * 128} rows')
+            del x, g, want, dx, grads
+            torch.cuda.empty_cache()
+
+        # The template alone vs its plain version: with and without hyper
+        # coordinates, 128, 64, 13 and 1 rows per condition row.
+        for config, level, r, s in (
+                ('flagship', 'coarse', 37, 13), ('flagship', 'fine', 1001, 1),
+                ('flagship', 'fine', CHUNK, 128),
+                ('flagship', 'coarse', CHUNK, 64),
+                ('flagship', 'fine', 1 << 20, 1),
+                ('static', 'coarse', 37, 13), ('static', 'fine', 1001, 1),
+                ('static', 'fine', CHUNK, 128),
+                ('static', 'coarse', CHUNK, 64)):
+            t = tmpl(config, level)
+            x, cond = template_rows(r, s, seed=r % 83 + s,
+                                    static=config == 'static')
+            errs['template_fwd'].append(hold_level(
+                K.fused_template(t, x, cond), plain_template(t, x, cond),
+                f'{config} template forward R={r} S={s} vs plain', '[8]'))
+            if r < CHUNK:
+                continue
+            times[config, r, s] = (
+                cuda_ms(lambda: K.fused_template(t, x, cond)),
+                cuda_ms(lambda: plain_template(t, x, cond), 2))
+            phase(f'[8] {config} template forward R={r} S={s}: kernel '
+                  f'{times[config, r, s][0]:.3f} ms, plain '
+                  f'{times[config, r, s][1]:.2f} ms')
+
+        # The template backward (kernel A) without hyper coordinates and at
+        # one row per condition row.
+        for config, level, r, s in (
+                ('static', 'coarse', 37, 13), ('static', 'fine', 1001, 1),
+                ('flagship', 'fine', 1001, 1),
+                ('static', 'fine', TRAIN_RAYS, 128)):
+            t = tmpl(config, level)
+            x, cond = template_rows(r, s, seed=r % 79 + s,
+                                    static=config == 'static')
+            g = torch.randn(r * s, 4, generator=gen).cuda()
+            dx_t, d_cond, grads = K.fused_template_bwd(t, x, cond, g)
+            torch.cuda.synchronize()
+            errs['A'].append(check_grads(
+                f'{config} template backward (A) R={r} S={s} vs plain',
+                TEMPLATE_GRAD_NAMES, [dx_t, d_cond, *grads],
+                plain_template_bwd(t, x, cond, g), tag='[8]'))
+            if r == TRAIN_RAYS:
+                times['A', config] = cuda_ms(
+                    lambda: K.fused_template_bwd(t, x, cond, g), 3)
+                phase(f'[8] {config} template backward (A) R={r} S={s}: '
+                      f'{times["A", config]:.2f} ms')
+        del x, cond, g, dx_t, d_cond, grads
+        torch.cuda.empty_cache()
+
+        # Kernels against kernels, on the flagship: the warp field, the sheet
+        # and the template kernels chained give the level kernel's output,
+        # and the field backward twice on the template backward's dx_t gives
+        # the fields backward's gradients.
+        for s in (64, 128):
+            lv = probe.level('coarse' if s == 64 else 'fine')
+            args = level_inputs(512, s, seed=40 + s)
+            z, o, d = args[:3]
+            x_raw = _raw_fields(*args[:4]).contiguous()
+            warped = x_raw[:, :3] + K.fused_field(
+                lv.warp.mlp, lv.warp.n_freq, x_raw)
+            hyper = K.fused_field(lv.hyper.mlp, lv.hyper.n_freq, x_raw)
+            raw_t = F.pad(torch.cat([warped, hyper], dim=-1), (0, 1))
+            want, want_raw_t = _launch_forward(lv, *args, want_raw_t=True)
+            hold_level(raw_t, want_raw_t, f'field kernels vs the level '
+                       f'kernel R=512 S={s}: raw_t', '[8]')
+            hold_level(K.fused_template(lv, raw_t, args[4]), want,
+                       f'field + template kernels vs the level kernel R=512 '
+                       f'S={s}: out', '[8]')
+            g = torch.randn(512 * s, 4, generator=gen).cuda()
+            dx_t, _, _ = K.fused_template_bwd(lv, want_raw_t, args[4], g)
+            want_b = K.fused_fields_bwd(lv, *args[:4], dx_t)
+            dx_w, grads_w = K.fused_field_bwd(
+                lv.warp.mlp, lv.warp.n_freq, x_raw,
+                F.pad(dx_t[:, :3], (0, 5)).contiguous())
+            dx_h, grads_h = K.fused_field_bwd(
+                lv.hyper.mlp, lv.hyper.n_freq, x_raw,
+                F.pad(dx_t[:, 3:7], (0, 4)).contiguous())
+            d_pts = ((dx_t[:, :3] + dx_w[:, :3]) + dx_h[:, :3]).reshape(
+                512, s, 3)
+            d_emb = (dx_w[:, 3:] + dx_h[:, 3:]).reshape(512, s, -1).sum(1)
+            torch.cuda.synchronize()
+            check_grads(
+                f'field backward twice vs the fields backward (B) R=512 '
+                f'S={s}', FIELDS_GRAD_NAMES,
+                [(d_pts * d[:, None]).sum(-1), d_pts.sum(1),
+                 (d_pts * z[..., None]).sum(1), d_emb, *grads_w, *grads_h],
+                [*want_b[:4], *want_b[4]], tag='[8]')
+
+    # Bounds. A field at the render chunk (forward) and the train batch
+    # (backward), P = R x 128 rows: one multiply-add per weight and row
+    # forward, three backward; bytes are the rows in and out and the weights
+    # (and dW) once. The template forward at R = CHUNK, S = 128.
+    w_macs = sum(lin.weight.numel()
+                 for lin, _ in field_layers(fields['warp'].mlp))
+    t_macs = level_macs(probe.level('fine'))[1]
+    p_r, p_t = CHUNK * 128, TRAIN_RAYS * 128
+    f_ms, f_by = bound(2.0 * w_macs * p_r, p_r * (44 + 32) + 2 * w_macs)
+    b_ms, b_by = bound(6.0 * w_macs * p_t,
+                       p_t * (44 + 32 + 44) + 6 * w_macs)
+    t_ms, t_by = bound(2.0 * t_macs * p_r,
+                       p_r * (32 + 16) + CHUNK * 78 + 2 * t_macs)
+    src = 'hypernerf_tpu_torch/kernels/csrc/'
+    level_tol = (f'|d| <= {LEVEL_ATOL} + {LEVEL_RTOL} |plain|, mean |d| <= '
+                 f'{LEVEL_MEAN}')
+    warp_r, warp_t = times['warp', p_r], times['warp', p_t]
+    sheet_r, sheet_t = times['sheet', p_r], times['sheet', p_t]
+    return [
+        dict(name='fused_field_fwd', route='cuda',
+             source=src + 'fused_field.cu',
+             replaces='hypernerf_tpu/ops/pallas/fused_field.py:495',
+             max_abs_err=max(errs['field_fwd']), tolerance=level_tol,
+             ms=warp_r['fwd'], plain_ms=warp_r['plain_fwd'], bound_ms=f_ms,
+             bound_by=f_by, library_ms=None, shape=f'warp field, P={p_r}',
+             warp_ms_train_rows=warp_t['fwd'], sheet_ms=sheet_r['fwd'],
+             sheet_plain_ms=sheet_r['plain_fwd'],
+             sheet_ms_train_rows=sheet_t['fwd']),
+        dict(name='fused_field_bwd', route='cuda',
+             source=src + 'fused_field_bwd.cu',
+             replaces='hypernerf_tpu/ops/pallas/fused_field.py:532',
+             **error_keys(errs['field_bwd']), ms=warp_t['bwd'],
+             plain_ms=warp_t['plain_bwd'], bound_ms=b_ms, bound_by=b_by,
+             library_ms=None, shape=f'warp field, P={p_t}',
+             sheet_ms=sheet_t['bwd'], sheet_plain_ms=sheet_t['plain_bwd']),
+        dict(name='fused_template_fwd', route='cuda',
+             source=src + 'fused_template.cu',
+             replaces='hypernerf_tpu/ops/pallas/fused_mlp.py:656',
+             max_abs_err=max(errs['template_fwd']), tolerance=level_tol,
+             ms=times['flagship', CHUNK, 128][0],
+             plain_ms=times['flagship', CHUNK, 128][1], bound_ms=t_ms,
+             bound_by=t_by, library_ms=None, shape=f'R={CHUNK} S=128',
+             ms_s64=times['flagship', CHUNK, 64][0],
+             static_ms=times['static', CHUNK, 128][0],
+             ms_one_row_per_ray_2_20_rows=times['flagship', 1 << 20, 1][0],
+             static_template_bwd_ms=times['A', 'static'],
+             template_bwd_errors=error_keys(errs['A']))]
+
+
+def modular_paths_phase(kernels) -> None:
+    """Phase 9: the per-module path at full width on ``static`` and
+    ``split_glo``; fills in the launches of the three kernels' entries."""
+    import torch
+    from hypernerf_tpu_torch.flagship import H, W, flagship_model, spiral_rays
+    from hypernerf_tpu_torch.training.renderer import ImageRenderer
+    chunks_per_frame = -(-W * H // CHUNK)
+    frames = spiral_rays((0, 30))
+    counts = {}
+    for config in ('static', 'split_glo'):
+        fields = 2 if config == 'split_glo' else 0
+        model = flagship_model('cuda', seed=0, config=config)
+        keep = ('rgb', 'depth', 'acc') + (
+            ('med_points',) if fields else ())
+        renderer = ImageRenderer(model, chunk=CHUNK, keep=keep,
+                                 levels=('fine',), quantize=True)
+        renderer(frames[0])  # warm-up frame: the first launches
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        fine = renderer(frames[1])['fine']
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches = read_counts(
+            {'fused_template_fwd': 2 * chunks_per_frame,
+             'fused_field_fwd': 2 * fields * chunks_per_frame},
+            f'{config} frame')
+        shapes = {'rgb': (W * H, 3), 'depth': (W * H,), 'acc': (W * H,),
+                  'med_points': (W * H, 1, 7)}
+        for k in keep:
+            v = torch.as_tensor(fine[k])
+            if v.shape != shapes[k] or not torch.isfinite(v.float()).all():
+                raise AssertionError(f'{config} frame: {k} {v.shape} not '
+                                     f'finite / misshapen')
+        if fine['rgb'].dtype.name != 'uint8':
+            raise AssertionError(f'{config} frame: rgb {fine["rgb"].dtype}')
+        phase(f'[9] {config}: rendered a {W}x{H} frame (64+64, chunk {CHUNK}'
+              f'{", return_points" if fields else ""}): {secs:.4f} s/frame; '
+              f'launches {launches} (= 2 levels x {chunks_per_frame} chunks'
+              f'{" x 2 fields" if fields else ""}); no level kernel, no '
+              f'plain call')
+        counts[config, 'frame'] = launches
+        del renderer, model, fine
+        torch.cuda.empty_cache()
+        counts[config, 'train'] = train_path(config, '[9]')
+        torch.cuda.empty_cache()
+
+    # query_sigma: one sample per row, a million points of one frame id.
+    model = flagship_model('cuda', seed=0, config='split_glo')
+    n = 1 << 20
+    gen = torch.Generator(device='cuda').manual_seed(3)
+    pts = torch.randn(n, 3, generator=gen, device='cuda') * 0.5
+    ids = torch.full((n, 1), 3, dtype=torch.int64, device='cuda')
+    with torch.no_grad():
+        model.query_sigma(pts[:4096], ids[:4096])
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        sigma = model.query_sigma(pts, ids)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        counts['split_glo', 'query_sigma'] = read_counts(
+            {'fused_field_fwd': 2, 'fused_template_fwd': 1}, 'query_sigma')
+        with plain_versions(model):
+            want = model.query_sigma(pts[:4099], ids[:4099])
+    diff = (sigma[:4099] - want).abs()
+    if sigma.shape != (n,) or not torch.isfinite(sigma).all() \
+            or (sigma < 0).any() \
+            or (diff > LEVEL_ATOL + LEVEL_RTOL * want.abs()).any():
+        raise AssertionError(f'query_sigma: shape {tuple(sigma.shape)}, '
+                             f'max|d| {diff.max().item():.3e}')
+    phase(f'[9] split_glo query_sigma on {n} points: {secs * 1e3:.2f} ms; '
+          f'launches {counts["split_glo", "query_sigma"]}; vs the plain '
+          f'versions on 4099 points max|d| {diff.max().item():.3e} (tol '
+          f'{LEVEL_ATOL}+{LEVEL_RTOL}|want|)')
+    for k in kernels:
+        name = k['name']
+        for (config, path), launches in counts.items():
+            if launches.get(name):
+                k[f'{config}_{path}_launches'] = launches[name]
+        if name in ('fused_field_fwd', 'fused_field_bwd',
+                    'fused_template_fwd'):
+            k['launches'] = counts['split_glo', 'train'][name]
 
 
 def main() -> int:
@@ -790,6 +1266,10 @@ def main() -> int:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    if sys.argv[1:] == ['modular']:  # phases 8 and 9 alone
+        kernels = modular_kernel_phase()
+        modular_paths_phase(kernels)
+        return finish(kernels)
     model = flagship_model('cuda', seed=0)
     kernels = []
 
@@ -963,6 +1443,16 @@ def main() -> int:
 
     kernels += backward_phase(kernels)
     train_phase(kernels)
+    kernels += modular_kernel_phase()
+    modular_paths_phase(kernels)
+    if len(kernels) != 8:
+        raise AssertionError(f'{len(kernels)} kernels in the line, want 8')
+    return finish(kernels)
+
+
+def finish(kernels) -> int:
+    """Phase 10: the kernels' line and the result line."""
+    import torch
     for k in kernels:
         missing = {'name', 'route', 'source', 'replaces', 'launches',
                    'max_abs_err', 'ms', 'plain_ms', 'bound_ms', 'bound_by',

@@ -1,18 +1,37 @@
 """Render a trained model along the test path: ``python -m
 hypernerf_tpu_torch.eval`` (the port of the repository's ``eval.py``).
 
-Takes eval.py's flags (``hypernerf_tpu.opt.get_opts(eval_mode=True)``),
+Takes eval.py's flags (``hypernerf_tpu_torch.opt.get_opts(eval_mode=True)``),
 reads ``nerf_config.json`` beside the weight file (``--ckpt_path`` or
 ``--weight_path``, a file written by ``training.checkpoints.save_weights`` or
 ``tools/jax_ckpt_to_torch.py``) and writes results/{dataset}/{scene}/NNN.png,
 optional depth dumps and {scene}.gif, printing the PSNR of each frame and
-their mean where ground truth exists. Renders on the GPU when there is one,
-else on the CPU (through the kernels' plain versions).
+their mean where ground truth exists. Renders on the CUDA card, and exits
+with an error when there is none; with ``HYPERNERF_PLATFORM=cpu`` in the
+environment (the variable the repository's other CLIs honour) it renders on
+the CPU instead, through the kernels' plain versions.
 """
 
 from __future__ import annotations
 
 import os
+
+
+def render_device():
+    """The device an entry point runs on: the CUDA card, or the CPU when
+    ``HYPERNERF_PLATFORM=cpu`` asks for it. No card and no such request is an
+    error, never a silent CPU run."""
+    import torch
+    platform = os.environ.get('HYPERNERF_PLATFORM', 'cuda').lower()
+    if platform == 'cpu':
+        return torch.device('cpu')
+    if platform not in ('cuda', 'gpu'):
+        raise SystemExit(f'HYPERNERF_PLATFORM={platform!r}: this package '
+                         f'runs on cuda, or on cpu when asked')
+    if not torch.cuda.is_available():
+        raise SystemExit('no CUDA device: this entry point runs on the GPU; '
+                         'set HYPERNERF_PLATFORM=cpu to run it on the CPU')
+    return torch.device('cuda')
 
 
 def main(argv=None):
@@ -28,6 +47,7 @@ def main(argv=None):
     from hypernerf_tpu_torch.training.renderer import ImageRenderer
 
     args = get_opts(argv, eval_mode=True)
+    device = render_device()
     w, h = args.img_wh
     nerf_cfg, _ = configs_from_args(args)
     weight_path = args.ckpt_path or args.weight_path
@@ -41,7 +61,6 @@ def main(argv=None):
         kwargs['spheric_poses'] = args.spheric_poses
     dataset = dataset_dict[args.dataset_name](**kwargs)
 
-    device = torch.device('cuda' if torch.cuda.is_available() else 'cpu')
     torch.manual_seed(args.seed)
     model = NerfModel(nerf_cfg)  # without weights eval.py renders the init
     if weight_path:

@@ -1,10 +1,11 @@
 """The flagship setups: the configuration ``bench.py`` renders and trains
-(NerfConfig defaults with 64 + 64 samples, bf16 matmuls), a seeded model of
-it, LLFF spiral-path NDC rays of a 504x378 frame, the train step's model,
-optimizer and synthetic ray buffer (``flagship_train_setup``), and the probe
-weights and inputs at which the level kernels are held against the JAX
-kernels' stored outputs and gradients (``LEVEL_REFERENCE``, written by
-``tools/make_level_reference.py``).
+(NerfConfig defaults with 64 + 64 samples, bf16 matmuls) and its ``static``
+and ``split_glo`` variants (``CONFIGS``), a seeded model of each, LLFF
+spiral-path NDC rays of a 504x378 frame, the train step's model, optimizer
+and synthetic ray buffer (``flagship_train_setup``), and the probe weights
+and inputs at which the kernels are held against the JAX kernels' stored
+outputs and gradients (``LEVEL_REFERENCE``, ``GRAD_REFERENCE``,
+``MODULAR_REFERENCE``, written by ``tools/make_level_reference.py``).
 
 Shared by ``chip_smoke.py``, ``tools/profile_render.py``,
 ``tools/profile_train.py`` and ``tools/make_level_reference.py``.
@@ -41,12 +42,22 @@ GRAD_REFERENCE = os.path.join(os.path.dirname(LEVEL_REFERENCE),
 GRAD_REFERENCE_CASE = ('coarse', 8, 64, 3)
 
 
-def flagship_config() -> NerfConfig:
+# The variants of the flagship by name: ``static`` is ``bench.py --mode
+# static`` (a plain NeRF: no warp, no hyper coordinates), ``split_glo`` the
+# flagship with ``--share_GLO`` off (the sheet reads its own GLO table). Both
+# run the per-module path: a kernel per field and one for the template.
+CONFIGS = {'flagship': {},
+           'static': dict(use_warp=False, hyper_slice_method='none'),
+           'split_glo': dict(share_glo=False)}
+
+
+def flagship_config(config: str = 'flagship', **overrides) -> NerfConfig:
     """What ``bench.py`` renders and trains by default (its other settings —
     100 embeddings, translation warp, bendy sheet, sigma noise of deviation
-    1 — are NerfConfig's defaults)."""
-    return NerfConfig(num_coarse_samples=64, num_fine_samples=64,
-                      compute_dtype='bfloat16')
+    1 — are NerfConfig's defaults), or the variant ``config`` of it."""
+    return NerfConfig(**{**dict(num_coarse_samples=64, num_fine_samples=64,
+                                compute_dtype='bfloat16'),
+                         **CONFIGS[config], **overrides})
 
 
 TRAIN_BATCH = 16384
@@ -71,15 +82,15 @@ def synthetic_train_rays(n_rays: int = TRAIN_RAYS):
 
 
 def flagship_train_setup(device, seed: int = 0, batch_size: int = TRAIN_BATCH,
-                         n_rays: int = TRAIN_RAYS):
-    """The flagship train step's parts on ``device``: (state, step_fn,
+                         n_rays: int = TRAIN_RAYS, config: str = 'flagship'):
+    """The train step's parts of ``config`` on ``device``: (state, step_fn,
     all_rays, all_rgbs) — a seeded model in train mode, Adam at 5e-4 with
     the ``steplr`` schedule at 1000 steps per epoch, the step built by
     ``make_train_step``, and the synthetic ray buffer."""
     from hypernerf_tpu_torch.training.optimizers import get_optimizer
     from hypernerf_tpu_torch.training.train_state import (TrainState,
                                                           make_train_step)
-    cfg = flagship_config()
+    cfg = flagship_config(config)
     train_cfg = TrainConfig(batch_size=batch_size, lr=5e-4)
     torch.manual_seed(seed)
     model = NerfModel(cfg).to(device).train()
@@ -93,11 +104,12 @@ def flagship_train_setup(device, seed: int = 0, batch_size: int = TRAIN_BATCH,
             torch.from_numpy(rgbs).to(device))
 
 
-def flagship_model(device, seed: int = 0) -> NerfModel:
-    """The flagship NerfModel with this package's init drawn from ``seed``,
-    on ``device``, in eval mode."""
+def flagship_model(device, seed: int = 0,
+                   config: str = 'flagship') -> NerfModel:
+    """The NerfModel of ``config`` with this package's init drawn from
+    ``seed``, on ``device``, in eval mode."""
     torch.manual_seed(seed)
-    return NerfModel(flagship_config()).to(device).eval()
+    return NerfModel(flagship_config(config)).to(device).eval()
 
 
 def load_probe_weights(model: NerfModel, seed: int = 0) -> NerfModel:
@@ -106,7 +118,7 @@ def load_probe_weights(model: NerfModel, seed: int = 0) -> NerfModel:
     generators promise no such thing), so that the kernels can be checked
     on the card against outputs computed elsewhere.
 
-    Weights are Xavier-uniform, biases U(+-1/sqrt(fan_in)), the GLO table
+    Weights are Xavier-uniform, biases U(+-1/sqrt(fan_in)), a GLO table
     N(0, 0.1 / dim). The warp and hyper heads are drawn large, U(0, 0.01)
     and N(0, 0.05) where the init has U(0, 1e-4) and N(0, 1e-5), so that
     the 14 warp and hyper layers move the level's output.
@@ -119,7 +131,7 @@ def load_probe_weights(model: NerfModel, seed: int = 0) -> NerfModel:
             a = rs.uniform(0.0, 0.01, shape)
         elif name == 'hyper_sheet_mlp.mlp.logit.weight':
             a = rs.normal(0.0, 0.05, shape)
-        elif name == 'warp_embed.embed.weight':
+        elif name.endswith('_embed.embed.weight'):
             a = rs.normal(0.0, 0.1 / shape[1], shape)
         elif name.endswith('.weight'):
             bound = np.sqrt(6.0 / (shape[0] + shape[1]))
@@ -166,6 +178,59 @@ def composite_probe_inputs(n_rays: int, samples: int, seed: int):
     return {'packed': packed, 'z_vals': z.astype(np.float32),
             'directions': rs.randn(n_rays, 3).astype(np.float32),
             'noise': rs.randn(n_rays, samples).astype(np.float32)}
+
+
+# The JAX field and template kernels' outputs and gradients at the probe
+# weights. case -> (kind, config, module, rows, rows per condition row or
+# window alpha, input seed); a field's module is its attribute on the model,
+# a template's the level.
+MODULAR_REFERENCE = os.path.join(os.path.dirname(LEVEL_REFERENCE),
+                                 'fused_modular_jax_ref.npz')
+MODULAR_REFERENCE_CASES = {
+    'warp': ('field', 'flagship', 'warp_field', 500, None, 11),
+    'warp_window': ('field', 'flagship', 'warp_field', 500, 4.5, 12),
+    'sheet': ('field', 'flagship', 'hyper_sheet_mlp', 500, None, 13),
+    'sheet_window': ('field', 'flagship', 'hyper_sheet_mlp', 500, 3.25, 14),
+    'template': ('template', 'flagship', 'coarse', 512, 64, 15),
+    'template_static': ('template', 'static', 'coarse', 512, 64, 16),
+    'template_s1': ('template', 'flagship', 'fine', 100, 1, 17),
+}
+
+
+def modular_probe_inputs(case: str) -> dict:
+    """Numpy inputs and cotangent of a ``MODULAR_REFERENCE_CASES`` case. A
+    field: 'x_raw' (P, 11) [points on probe rays | GLO codes] and 'cotangent'
+    (P, 8), of which the field's outputs' columns count. A template: 'x_raw' (P, 8)
+    [points | hyper coordinates of deviation 0.3 (zero when static) | 0],
+    'rgb_cond' (P / S, 39) and 'cotangent' (P, 4)."""
+    kind, config, _, rows, per, seed = MODULAR_REFERENCE_CASES[case]
+    rs = np.random.RandomState(seed + 3000)
+    samples = 64
+    rays = probe_inputs(-(-rows // samples), samples, seed)
+    pts = (rays['origins'][:, None]
+           + rays['z_vals'][..., None] * rays['directions'][:, None])
+    pts = pts.reshape(-1, 3)[:rows]
+    if kind == 'field':
+        embed = np.repeat(rays['embed'], samples, axis=0)[:rows]
+        return {'x_raw': np.concatenate([pts, embed], 1).astype(np.float32),
+                'cotangent': rs.randn(rows, 8).astype(np.float32)}
+    hyper = rs.randn(rows, 4) * (0.0 if config == 'static' else 0.3)
+    x_raw = np.concatenate([pts, hyper, np.zeros((rows, 1))], 1)
+    dirs = rs.randn(rows // per, 3).astype(np.float32)
+    dirs /= np.linalg.norm(dirs, axis=-1, keepdims=True)
+    return {'x_raw': x_raw.astype(np.float32),
+            'rgb_cond': posenc_orig(torch.from_numpy(dirs), 6).numpy(),
+            'cotangent': rs.randn(rows, 4).astype(np.float32)}
+
+
+def read_modular_reference(path: str = MODULAR_REFERENCE):
+    """{case: {name: array}} of the field and template reference file."""
+    out = {case: {} for case in MODULAR_REFERENCE_CASES}
+    with np.load(path) as f:
+        for key in f.files:
+            case, name = key.split('/', 1)
+            out[case][name] = f[key]
+    return out
 
 
 def read_grad_reference(path: str = GRAD_REFERENCE):

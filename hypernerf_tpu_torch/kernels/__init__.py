@@ -8,7 +8,12 @@ tensor.
 from hypernerf_tpu_torch.kernels.fused_composite import (
     FusedCompositeFn, fused_composite, fused_composite_bwd,
     fused_composite_bwd_plain, fused_composite_plain)
+from hypernerf_tpu_torch.kernels.fused_field import (
+    FusedFieldFn, fused_field, fused_field_bwd, fused_field_bwd_plain,
+    fused_field_plain)
 from hypernerf_tpu_torch.kernels.fused_level import (
     FusedLevelFn, Level, fused_fields_bwd, fused_fields_bwd_plain,
-    fused_level, fused_level_plain, fused_template_bwd,
-    fused_template_bwd_plain)
+    fused_level, fused_level_plain)
+from hypernerf_tpu_torch.kernels.fused_mlp import (
+    FusedTemplateFn, Template, fused_template, fused_template_bwd,
+    fused_template_bwd_plain, fused_template_plain)

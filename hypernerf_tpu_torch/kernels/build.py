@@ -36,6 +36,10 @@ _SIGNATURES = {
     'hn_fused_template_bwd': ([_P] * 9 + [_L, _I, _I, _P], _I),
     'hn_fused_fields_bwd_blocks': ([_L], _I),
     'hn_fused_fields_bwd': ([_P] * 11 + [_L, _I, _I, _P], _I),
+    'hn_fused_field_fwd': ([_I] + [_P] * 5 + [_L, _P], _I),
+    'hn_fused_field_bwd_blocks': ([_L], _I),
+    'hn_fused_field_bwd': ([_I] + [_P] * 8 + [_L, _I, _P], _I),
+    'hn_fused_template_fwd': ([_P] * 5 + [_L, _I, _P], _I),
     'hn_fused_composite_fwd': ([_P] * 8 + [_L, _I, _I, _I, _I, _P], _I),
     'hn_fused_composite_bwd': ([_P] * 9 + [_L, _I, _I, _I, _P], _I),
     'hn_error_string': ([_I], ctypes.c_char_p),

@@ -21,131 +21,19 @@
 // Bound: per sample 133k MACs of recompute, as many for g W and for g^T h:
 // 0.8 MFLOP against 48 bytes moved, so operations bound it (2.1 M samples:
 // 1.7 TFLOP, 1.7 ms at the card's bf16 peak).
-// Design (see level_bwd.cuh): a persistent grid, two blocks of 256 threads
+// Design (see level_bwd.cuh; one field's pass is field_bwd.cuh, shared with
+// fused_field_bwd.cu): a persistent grid, two blocks of 256 threads
 // per SM, tiles of 32 rows, one shared-memory tile reused by the sheet and
 // then the warp (68 KB), dW added straight into the one fp32 gradient buffer
 // (0.53 MB, which stays in L2). As in the template backward the tile's
 // height, 32 rows per pass over the weights, is what limits it.
 
-#include "level_bwd.cuh"
+#include "field_bwd.cuh"
 
 namespace {
 
-// Column plan (bf16 columns) of a field of width W with padded encoding E:
-// h0..h4 | enc | h5 | cotangent [g (W) | skip part (E)].
-template <int W, int E>
-struct Plan {
-  static constexpr int enc = 5 * W, h5 = 5 * W + E, g = 6 * W + E;
-  static constexpr int end = 7 * W + 2 * E;
-  __host__ __device__ static constexpr int h(int i) {
-    return i < 5 ? i * W : h5;
-  }
-  __host__ __device__ static constexpr int in(int i) {  // 6 is the head
-    return i == 0 ? enc : h(i - 1);
-  }
-};
-using WarpPlan = Plan<kWarpW, kWarpEncP>;
-using HypPlan = Plan<kHypW, kHypEncP>;
-constexpr int kLdF = WarpPlan::end + 8;  // 1064
-static_assert(HypPlan::end <= WarpPlan::end, "the sheet fits the warp's tile");
-
-using CF = Cfg<2, kLdF, 8>;
-
 constexpr long long kGradW = weight_offset(kNumFieldLayers);
 constexpr int kGradB = bias_offset(kNumFieldLayers);
-
-// Field encoding [posenc_orig(pts, F) | embed | 0 pad] into X[:, col:col+KP].
-template <int F, int KP>
-__device__ __forceinline__ void encode_field(bf16* X, int col,
-                                             const float* rowin) {
-  constexpr int kPts = 3 * (1 + 2 * F);
-  for (int e = threadIdx.x; e < CF::ROWS * KP; e += CF::THREADS) {
-    const int r = e / KP, f = e % KP;
-    const float* in = rowin + r * 12;  // [pts(3) | embed(8) | pad]
-    float v = 0.f;
-    if (f < kPts)
-      v = posenc_at<3, F>(in, f);
-    else if (f < kPts + kEmbed)
-      v = in[3 + f - kPts];
-    X[r * CF::LD + col + f] = __float2bfloat16_rn(v);
-  }
-}
-
-template <class P, int LB, int I>
-__device__ __forceinline__ void field_back(bf16* X, const bf16* Wt,
-                                           float* grad_w, float* grad_b) {
-  constexpr int L = LB + I;
-  bwd_dw<CF, L, 0>(X, P::g, P::in(I), grad_w);
-  bwd_db<CF, L, 0>(X, P::g, grad_b);
-  bwd_dx<CF, L>(X, P::g, P::g, Wt, I > 0 ? P::h(I > 0 ? I - 1 : 0) : 0,
-                I > 0 ? layer_shape(LB).n : 0);
-}
-
-// One field (layers LB .. LB + 6, width W, F bands) on the tile: recompute,
-// walk back from the head cotangent hg, and write its d[pts | embed] into
-// dacc[ROWS][12].
-template <class P, int LB, int F>
-__device__ __forceinline__ void field_bwd(bf16* X, const float* rowin,
-                                          const float* hg, float* dacc,
-                                          const bf16* W, const bf16* Wt,
-                                          const bf16* B, float* grad_w,
-                                          float* grad_b) {
-  constexpr int Wd = layer_shape(LB).n;
-  constexpr int kEncP = layer_shape(LB).k;
-  constexpr int kPts = 3 * (1 + 2 * F);
-  const int tid = threadIdx.x;
-  encode_field<F, kEncP>(X, P::enc, rowin);
-  __syncthreads();
-  fwd_layer<CF, LB + 0, true>(X, P::in(0), P::h(0), W, B);
-  fwd_layer<CF, LB + 1, true>(X, P::in(1), P::h(1), W, B);
-  fwd_layer<CF, LB + 2, true>(X, P::in(2), P::h(2), W, B);
-  fwd_layer<CF, LB + 3, true>(X, P::in(3), P::h(3), W, B);
-  fwd_layer<CF, LB + 4, true>(X, P::in(4), P::h(4), W, B);
-  fwd_layer<CF, LB + 5, true>(X, P::in(5), P::h(5), W, B);
-
-  head_dw_db<CF, LB + 6, 0>(X, P::h(5), hg, grad_w, grad_b);
-  for (int e = tid; e < CF::ROWS * Wd; e += CF::THREADS) {
-    const int r = e / Wd, k = e % Wd;
-    const float v = head_dx<LB + 6>(hg + r * 8, W, k);
-    const bool on = __bfloat162float(X[r * CF::LD + P::h(5) + k]) > 0.f;
-    X[r * CF::LD + P::g + k] = __float2bfloat16_rn(on ? v : 0.f);
-  }
-  __syncthreads();
-  field_back<P, LB, 5>(X, Wt, grad_w, grad_b);  // writes the skip part
-  field_back<P, LB, 4>(X, Wt, grad_w, grad_b);
-  field_back<P, LB, 3>(X, Wt, grad_w, grad_b);
-  field_back<P, LB, 2>(X, Wt, grad_w, grad_b);
-  field_back<P, LB, 1>(X, Wt, grad_w, grad_b);
-  field_back<P, LB, 0>(X, Wt, grad_w, grad_b);  // -> d enc in g[0:E]
-
-  // d enc = layer 0's part + the skip part, in fp32; posenc VJP for the
-  // points, the embedding passes through.
-  for (int e = tid; e < CF::ROWS * 11; e += CF::THREADS) {
-    const int r = e / 11, c = e % 11;
-    const bf16* gr = X + r * CF::LD + P::g;
-    auto gx = [&](int f) {
-      return __bfloat162float(gr[f]) + __bfloat162float(gr[Wd + f]);
-    };
-    float out;
-    if (c < 3) {
-      const float x = rowin[r * 12 + c];
-      float dx = 0.f;
-      for (int k = 0; k < F; ++k) {
-        const float scale = (float)(1 << k);
-        float sn, cs;
-        sincosf(x * scale, &sn, &cs);
-        const float flat = cs * gx(3 + k * 3 + c) -
-                           sn * gx(3 + 3 * F + k * 3 + c);
-        dx += flat * scale;
-      }
-      out = gx(c) + dx;
-    } else {
-      out = gx(kPts + c - 3);
-    }
-    dacc[r * 12 + c] = out;
-  }
-  __syncthreads();
-}
 
 __global__ void __launch_bounds__(CF::THREADS, 2)
 fields_bwd_kernel(const float* __restrict__ zs,
@@ -205,7 +93,7 @@ fields_bwd_kernel(const float* __restrict__ zs,
     __syncthreads();
 
     field_bwd<HypPlan, 7, kHypF>(X, rowin, hg, dacc_h, W, Wt, B, grad_w,
-                                 grad_b);
+                                 grad_b, nullptr);
     if (tid < CF::ROWS) {  // the warp's head: d warped
       float* h = hg + tid * 8;
       const float* dw = dwarp + tid * 4;
@@ -213,7 +101,7 @@ fields_bwd_kernel(const float* __restrict__ zs,
     }
     __syncthreads();
     field_bwd<WarpPlan, 0, kWarpF>(X, rowin, hg, dacc_w, W, Wt, B, grad_w,
-                                   grad_b);
+                                   grad_b, nullptr);
 
     // d pts = (d warped [the residual] + the warp's part) + the sheet's part;
     // pts = o + z d, so d z = d pts . d, d o = sum_s d pts,

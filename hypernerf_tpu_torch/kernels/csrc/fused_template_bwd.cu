@@ -259,8 +259,10 @@ extern "C" int hn_fused_template_bwd_blocks(long long n_points) {
   return (int)(tiles < sms ? tiles : sms);
 }
 
-// grads: kGradW + kGradB floats, [dW of layers 14..29 | db of layers 14..29],
-// which every block adds into. grads and d_cond must be zero on entry.
+// weights, weights_t, biases: the template's 16 layers alone (layers 14..29
+// of the table, which the kernel indexes them by). grads: kGradW + kGradB
+// floats, [dW of layers 14..29 | db of layers 14..29], which every block adds
+// into. grads and d_cond must be zero on entry.
 extern "C" int hn_fused_template_bwd(
     const void* raw_t, const void* rgb_cond, const void* g, const void* weights,
     const void* weights_t, const void* biases, void* dx_t, void* d_cond,
@@ -273,8 +275,10 @@ extern "C" int hn_fused_template_bwd(
   const long long tiles = (n_points + CT::ROWS - 1) / CT::ROWS;
   template_bwd_kernel<<<blocks, CT::THREADS, kSmemT, (cudaStream_t)stream>>>(
       static_cast<const float*>(raw_t), static_cast<const bf16*>(rgb_cond),
-      static_cast<const float*>(g), static_cast<const bf16*>(weights),
-      static_cast<const bf16*>(weights_t), static_cast<const bf16*>(biases),
+      static_cast<const float*>(g),
+      static_cast<const bf16*>(weights) - weight_offset(kL0),
+      static_cast<const bf16*>(weights_t) - weight_offset(kL0),
+      static_cast<const bf16*>(biases) - bias_offset(kL0),
       static_cast<float*>(dx_t), static_cast<float*>(d_cond),
       static_cast<float*>(grads), n_points, samples, tiles);
   return (int)cudaGetLastError();

@@ -1,5 +1,7 @@
-// Building blocks of the two level backward kernels (fused_template_bwd.cu,
-// fused_fields_bwd.cu).
+// Building blocks of the level backward kernels (fused_template_bwd.cu,
+// fused_fields_bwd.cu, fused_field_bwd.cu); the forward kernels of a module
+// alone (fused_field.cu, fused_template.cu) take gemm, fwd_layer and head_fwd
+// from here too.
 //
 // Both kernels work the same way. A block takes tiles of C::ROWS sample rows,
 // one after the other (a persistent grid). For a tile it recomputes the
@@ -130,6 +132,34 @@ __device__ __forceinline__ void fwd_layer(bf16* X, int in_col, int out_col,
           __floats2bfloat162_rn(v0, v1);
       *reinterpret_cast<__nv_bfloat162*>(X + (r + 8) * C::LD + out_col + n) =
           __floats2bfloat162_rn(v2, v3);
+    }
+  }
+  __syncthreads();
+}
+
+// Forward of a head L (out <= 8 after padding): head[r][0:8] =
+// fp32(X[:, in_col : in_col + K] @ W_L^T + b_L), one n8 tile on warp 0.
+template <class C, int L>
+__device__ __forceinline__ void head_fwd(const bf16* X, int in_col,
+                                         const bf16* __restrict__ W,
+                                         const bf16* __restrict__ B,
+                                         float* head) {
+  constexpr int K = layer_shape(L).k;
+  static_assert(layer_shape(L).n == 8, "heads are padded to 8");
+  float acc[C::MT][1][4];
+  gemm<C, 8, K>(X, in_col, W + weight_offset(L), acc);
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  if (threadIdx.x < 32) {
+    const bf16* bias = B + bias_offset(L);
+    const float b0 = __bfloat162float(bias[2 * t]);
+    const float b1 = __bfloat162float(bias[2 * t + 1]);
+#pragma unroll
+    for (int mt = 0; mt < C::MT; ++mt) {
+      const int r = mt * 16 + g;
+      head[r * 8 + 2 * t] = acc[mt][0][0] + b0;
+      head[r * 8 + 2 * t + 1] = acc[mt][0][1] + b1;
+      head[(r + 8) * 8 + 2 * t] = acc[mt][0][2] + b0;
+      head[(r + 8) * 8 + 2 * t + 1] = acc[mt][0][3] + b1;
     }
   }
   __syncthreads();

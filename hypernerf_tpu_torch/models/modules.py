@@ -7,7 +7,7 @@ Module and parameter names follow the flax tree (``hidden_{i}``, ``logit``,
 distributions as the flax ones.
 
 Numerics are those of the fused level kernel at every compute dtype, so
-these modules are also the kernel's plain version: the input of each MLP
+these modules are also the kernels' plain versions: the input of each MLP
 is rounded to the compute dtype, every product takes compute-dtype operands
 with fp32 accumulation, biases are held in the compute dtype and added in
 fp32, a hidden layer applies ReLU before rounding its output to the compute
@@ -93,6 +93,19 @@ class MLP(nn.Module):
         return dense(h, self.logit, self.dtype, relu=self.output_relu)
 
 
+def field_kernel(mlp: MLP, n_freq: int, points: torch.Tensor,
+                 embed: torch.Tensor) -> torch.Tensor:
+    """A field MLP on CUDA tensors through its kernel: points (..., 3) and
+    per-sample embed (..., E) -> (..., out_ch) fp32. One ``cat`` makes the
+    kernel's raw rows, so a broadcast embedding is materialised once and its
+    gradient is summed per ray by autograd."""
+    # The kernels' wrappers import this module: import them at call time.
+    from hypernerf_tpu_torch.kernels.fused_field import fused_field
+    raw = torch.cat([points, embed.to(points.dtype)], dim=-1)
+    out = fused_field(mlp, n_freq, raw.reshape(-1, raw.shape[-1]).float())
+    return out.reshape(*points.shape[:-1], out.shape[-1])
+
+
 class GLOEmbed(nn.Module):
     """Per-frame latent codes, init normal(0.1 / features); ids are clipped
     into range as the JAX package does."""
@@ -165,7 +178,11 @@ class HyperSheetMLP(nn.Module):
                        dtype=dtype)
 
     def forward(self, points: torch.Tensor, embed: torch.Tensor):
-        inputs = torch.cat([posenc_orig(points, self.n_freq),
-                            embed.to(points.dtype)], dim=-1)
-        out = self.mlp(inputs)
+        """points (..., 3), embed (..., E) per sample -> (..., out_ch)."""
+        if points.is_cuda:
+            out = field_kernel(self.mlp, self.n_freq, points, embed)
+        else:
+            inputs = torch.cat([posenc_orig(points, self.n_freq),
+                                embed.to(points.dtype)], dim=-1)
+            out = self.mlp(inputs)
         return out + embed if self.use_residual else out

@@ -1,5 +1,9 @@
 """Warp fields (port of ``hypernerf_tpu/models/warping.py``): the
-translation field. SE(3) and quaternion fields are ROADMAP item A.9."""
+translation field. SE(3) and quaternion fields are ROADMAP item A.9.
+
+On CUDA tensors the field runs through its hand-written kernel
+(``kernels.fused_field``, forward and backward); on CPU tensors through the
+dense code below, with autograd."""
 
 from __future__ import annotations
 
@@ -8,7 +12,8 @@ from typing import Sequence
 import torch
 from torch import nn
 
-from hypernerf_tpu_torch.models.modules import MLP, xavier_normal_
+from hypernerf_tpu_torch.models.modules import (MLP, field_kernel,
+                                                xavier_normal_)
 from hypernerf_tpu_torch.ops.posenc import posenc_orig, posenc_orig_channels
 
 
@@ -29,6 +34,10 @@ class TranslationField(nn.Module):
                        dtype=dtype)
 
     def forward(self, points: torch.Tensor, embed: torch.Tensor):
+        """points (..., 3), embed (..., E) per sample -> warped (..., 3)."""
+        if points.is_cuda:
+            return points + field_kernel(self.mlp, self.n_freq, points,
+                                         embed).to(points.dtype)
         inputs = torch.cat([posenc_orig(points, self.n_freq),
                             embed.to(points.dtype)], dim=-1)
         return points + self.mlp(inputs).to(points.dtype)

@@ -75,3 +75,22 @@ def noise_regularize(raw_alpha, noise_std, use_stratified_sampling: bool,
         noise = torch.randn(raw_alpha.shape, generator=generator,
                             dtype=raw_alpha.dtype, device=raw_alpha.device)
     return raw_alpha + noise * noise_std
+
+
+def filter_sigma(points, sigma, render_opts):
+    """Zero densities by render options: 'dust_threshold' drops sigma below
+    the threshold, 'bounding_box' (xmin, xmax, ymin, ymax, zmin, zmax) drops
+    it outside the box of the unwarped ``points`` (..., 3)."""
+    if not render_opts:
+        return sigma
+    zero = torch.zeros_like(sigma)
+    if 'dust_threshold' in render_opts:
+        thresh = render_opts.get('dust_threshold', 0.0)
+        sigma = torch.where(sigma >= thresh, sigma, zero)
+    if 'bounding_box' in render_opts:
+        xmin, xmax, ymin, ymax, zmin, zmax = render_opts['bounding_box']
+        mask = ((points[..., 0] >= xmin) & (points[..., 0] <= xmax)
+                & (points[..., 1] >= ymin) & (points[..., 1] <= ymax)
+                & (points[..., 2] >= zmin) & (points[..., 2] <= zmax))
+        sigma = torch.where(mask, sigma, zero)
+    return sigma

@@ -16,6 +16,9 @@ from hypernerf_tpu_torch.ops.ray_dict import prepare_ray_dict
 
 # Per-ray outputs kept from each chunk (weights dropped).
 KEEP = ('rgb', 'depth', 'med_depth', 'acc')
+# Outputs the model returns only with ``return_points``: per-sample
+# 'points' and 'warped_points', per-ray 'med_points'.
+POINT_OUTPUTS = ('points', 'warped_points', 'med_points')
 
 
 def quantize_rgb_u8(rgb: torch.Tensor) -> torch.Tensor:
@@ -32,7 +35,8 @@ def render_rays(model, rays, chunk: int = 8192, keep: Sequence[str] = KEEP,
     model's device.
 
     Returns numpy {level: {output: (N, ...)}} for the ``levels`` asked for
-    (all when None); with ``quantize`` rgb comes back as uint8.
+    (all when None); with ``quantize`` rgb comes back as uint8. A point
+    output in ``keep`` (``POINT_OUTPUTS``) makes the model return points.
     """
     device = next(model.parameters()).device
     rays = torch.as_tensor(rays, dtype=torch.float32, device=device)
@@ -43,7 +47,8 @@ def render_rays(model, rays, chunk: int = 8192, keep: Sequence[str] = KEEP,
     parts: Dict[str, Dict[str, list]] = {}
     for start in range(0, rays.shape[0], chunk):
         out = model(prepare_ray_dict(rays[start:start + chunk]),
-                    deterministic=True, return_weights=False)
+                    deterministic=True, return_weights=False,
+                    return_points=any(k in POINT_OUTPUTS for k in keep))
         for level, res in out.items():
             if levels is not None and level not in levels:
                 continue

@@ -1,11 +1,13 @@
 """``python -m hypernerf_tpu_torch.eval`` end to end on a 16x12, 2-frame
-synthetic LLFF scene: frames, GIF and per-frame + mean PSNR."""
+synthetic LLFF scene: frames, GIF and per-frame + mean PSNR; and its device
+rule: the CUDA card, the CPU only when ``HYPERNERF_PLATFORM=cpu`` asks."""
 
 import os
 import subprocess
 import sys
 
 import numpy as np
+import pytest
 import torch
 from PIL import Image
 
@@ -18,7 +20,9 @@ sys.path.insert(0, os.path.join(REPO, 'tools'))
 import make_synthetic_scene  # noqa: E402
 
 
-def test_eval_writes_frames_gif_and_psnr(tmp_path):
+def _run_eval(tmp_path, platform):
+    """Run the entry point on a fresh scene and weight file; ``platform`` is
+    HYPERNERF_PLATFORM's value, None leaves it unset."""
     scene = make_synthetic_scene.make_scene(str(tmp_path / 'scene'),
                                             n_frames=2, width=16, height=12,
                                             focal=18.0)
@@ -35,12 +39,19 @@ def test_eval_writes_frames_gif_and_psnr(tmp_path):
     env = dict(os.environ,
                PYTHONPATH=os.pathsep.join([REPO,
                                            os.environ.get('PYTHONPATH', '')]))
-    proc = subprocess.run(
+    env.pop('HYPERNERF_PLATFORM', None)
+    if platform is not None:
+        env['HYPERNERF_PLATFORM'] = platform
+    return subprocess.run(
         [sys.executable, '-m', 'hypernerf_tpu_torch.eval', '--root_dir',
          scene, '--dataset_name', 'llff', '--img_wh', '16', '12', '--split',
          'test_train', '--weight_path', weights, '--scene_name', 'synth',
          '--chunk', '64', '--gif_fps', '5'],
         cwd=tmp_path, env=env, capture_output=True, text=True, timeout=300)
+
+
+def test_eval_writes_frames_gif_and_psnr(tmp_path):
+    proc = _run_eval(tmp_path, 'cpu')
     assert proc.returncode == 0, proc.stderr
     out_dir = tmp_path / 'results' / 'llff' / 'synth'
     for i in range(2):
@@ -55,3 +66,31 @@ def test_eval_writes_frames_gif_and_psnr(tmp_path):
     assert lines[2].startswith('Mean PSNR : ')
     assert abs(float(lines[2].split()[-1]) - np.mean(psnrs)) <= 0.01
     assert all(np.isfinite(psnrs))
+
+
+def test_eval_without_a_card_is_an_error_not_a_cpu_run(tmp_path):
+    """No HYPERNERF_PLATFORM=cpu: the entry point runs on the card, and
+    where there is none it exits with an error that names the missing device
+    and renders nothing."""
+    if torch.cuda.is_available():
+        pytest.skip('a CUDA device is present: the run would succeed')
+    proc = _run_eval(tmp_path, None)
+    assert proc.returncode != 0
+    assert 'no CUDA device' in proc.stderr
+    assert 'HYPERNERF_PLATFORM=cpu' in proc.stderr
+    assert not (tmp_path / 'results').exists()
+
+
+def test_render_device_rule(monkeypatch):
+    from hypernerf_tpu_torch.eval import render_device
+    monkeypatch.setenv('HYPERNERF_PLATFORM', 'cpu')
+    assert render_device() == torch.device('cpu')
+    monkeypatch.setenv('HYPERNERF_PLATFORM', 'tpu')
+    with pytest.raises(SystemExit, match='tpu'):
+        render_device()
+    monkeypatch.delenv('HYPERNERF_PLATFORM')
+    monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
+    with pytest.raises(SystemExit, match='no CUDA device'):
+        render_device()
+    monkeypatch.setattr(torch.cuda, 'is_available', lambda: True)
+    assert render_device() == torch.device('cuda')

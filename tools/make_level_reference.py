@@ -5,7 +5,8 @@ kernels on a card that has no JAX.
 
   python tools/make_level_reference.py \
       [--out tests/data/fused_level_jax_ref.npz] \
-      [--grads_out tests/data/fused_jax_grads.npz]
+      [--grads_out tests/data/fused_jax_grads.npz] \
+      [--modular_out tests/data/fused_modular_jax_ref.npz]
 
 The weights are ``hypernerf_tpu_torch.flagship.load_probe_weights`` (numpy,
 seed 0), which the card redraws bit for bit; the inputs
@@ -17,6 +18,14 @@ cotangent, the gradients of the level kernel (its default pipelined backward
 schedule: every ray input, and dW / db of all 30 layers) and of the
 compositing kernel (``_fused_bwd``, with noise), also in interpret mode.
 ``tests/test_torch_fused_level.py`` recomputes both files and checks them.
+The modular file holds the same for a module alone
+(``flagship.MODULAR_REFERENCE_CASES``): ``fused_field_mlp`` on the warp field
+and on the hyper sheet, with and without a window row, and ``fused_nerf_mlp``
+with its in-kernel encoding on [xyz | hyper], on xyz alone (the static
+template) and with one condition row per sample; outputs, and for the stored
+cotangent the input gradients and dW / db of every layer.
+``tests/test_torch_fused_field.py`` and ``tests/test_torch_fused_mlp.py``
+recompute and check it.
 """
 
 from __future__ import annotations
@@ -139,6 +148,108 @@ def jax_composite_grads(inputs, cot_outs, cot_weights) -> dict:
     return {f'd_{k}': np.asarray(v, np.float32) for k, v in zip(names, g)}
 
 
+def probe_models() -> dict:
+    """The probe model of each configuration the modular cases name."""
+    from hypernerf_tpu_torch.flagship import (MODULAR_REFERENCE_CASES,
+                                              flagship_model,
+                                              load_probe_weights)
+    return {config: load_probe_weights(flagship_model('cpu', config=config))
+            for config in {c[1] for c in MODULAR_REFERENCE_CASES.values()}}
+
+
+def jax_modular(model, case: str, inputs) -> dict:
+    """The JAX kernel's numbers for one modular case: 'out', and for
+    sum(out * cotangent) 'dx' (and 'd_rgb_cond' of a template), 'dw<l>' as
+    (out, in) and 'db<l>' of every layer of the module in kernel order."""
+    import jax
+    import jax.numpy as jnp
+    import numpy as np
+
+    from hypernerf_tpu.ops.pallas.fused_field import (FusedFieldSpec,
+                                                      encoding_scales,
+                                                      fused_field_mlp,
+                                                      mlp_params_to_list)
+    from hypernerf_tpu.ops.pallas.fused_mlp import (FusedMLPSpec,
+                                                    fused_nerf_mlp,
+                                                    nerf_mlp_params_to_list)
+    from hypernerf_tpu_torch.convert import params_to_jax
+    from hypernerf_tpu_torch.flagship import MODULAR_REFERENCE_CASES
+
+    kind, _, module, rows, per, _ = MODULAR_REFERENCE_CASES[case]
+    cfg = model.config
+    params = params_to_jax(model.state_dict())
+    as_jnp = lambda pairs: [(jnp.asarray(w), jnp.asarray(b))
+                            for w, b in pairs]
+    cot = jnp.asarray(inputs['cotangent'])
+    if kind == 'field':
+        warp = module == 'warp_field'
+        n_freq = cfg.warp_freq if warp else cfg.hyper_sheet_freq
+        out_ch = 3 if warp else cfg.hyper_slice_out_dim
+        spec = FusedFieldSpec(
+            segments=((3, n_freq), (cfg.glo_dim, 0)),
+            depth=cfg.warp_depth if warp else cfg.hyper_sheet_depth,
+            width=cfg.warp_width if warp else cfg.hyper_sheet_width,
+            out_ch=out_ch, skips=tuple(cfg.skips), tile=256, bwd_tile=128,
+            compute_dtype=cfg.compute_dtype, windowed=per is not None,
+            interpret=True)
+        scales = None if per is None else encoding_scales(
+            spec.segments, [jnp.float32(per), None])
+
+        def fn(x_raw, pairs):
+            return fused_field_mlp(spec, x_raw, pairs, enc_scales=scales)
+
+        args = [jnp.asarray(inputs['x_raw']),
+                as_jnp(mlp_params_to_list(params[module]['mlp']))]
+        cot = cot[:, :out_ch]
+    else:
+        hyper = cfg.hyper_slice_out_dim if cfg.has_hyper else 0
+        segments = ((3, cfg.xyz_freq),) + (
+            ((hyper, cfg.hyper_freq),) if hyper else ())
+        spec = FusedMLPSpec(
+            in_ch=sum(c * (1 + 2 * f) for c, f in segments),
+            trunk_depth=cfg.trunk_depth, trunk_width=cfg.trunk_width,
+            rgb_depth=cfg.rgb_branch_depth, rgb_width=cfg.rgb_branch_width,
+            skips=tuple(cfg.skips), rgb_cond_ch=inputs['rgb_cond'].shape[1],
+            tile=256, bwd_tile=128, compute_dtype=cfg.compute_dtype,
+            enc_segments=segments, cond_samples=per if per > 1 else 0,
+            interpret=True)
+
+        def fn(x_raw, rgb_cond, pairs):
+            out = fused_nerf_mlp(spec, x_raw[:, :3 + hyper], rgb_cond, None,
+                                 pairs)
+            return jnp.concatenate([out['rgb'], out['alpha']], -1)
+
+        args = [jnp.asarray(inputs['x_raw']), jnp.asarray(inputs['rgb_cond']),
+                as_jnp(nerf_mlp_params_to_list(params[f'nerf_{module}']))]
+
+    def loss(*a):
+        return jnp.sum(fn(*a) * cot)
+
+    g = jax.device_get(jax.grad(loss, argnums=tuple(range(len(args))))(*args))
+    res = {'out': np.asarray(jax.device_get(fn(*args)), np.float32),
+           'dx': np.asarray(g[0], np.float32)}
+    if kind == 'template':
+        res['d_rgb_cond'] = np.asarray(g[1], np.float32)
+    for layer, (dw, db) in enumerate(g[-1]):
+        res[f'dw{layer}'] = np.asarray(dw, np.float32).T.copy()
+        res[f'db{layer}'] = np.asarray(db, np.float32)
+    return res
+
+
+def modular_reference() -> dict:
+    """Every array of the modular file: each case's inputs and numbers."""
+    from hypernerf_tpu_torch.flagship import (MODULAR_REFERENCE_CASES,
+                                              modular_probe_inputs)
+    models = probe_models()
+    arrays = {}
+    for case, (_, config, *_) in MODULAR_REFERENCE_CASES.items():
+        inputs = modular_probe_inputs(case)
+        arrays.update({f'{case}/{k}': v for k, v in inputs.items()})
+        arrays.update({f'{case}/{k}': v for k, v in jax_modular(
+            models[config], case, inputs).items()})
+    return arrays
+
+
 def gradient_reference(model) -> dict:
     """Every array of the gradients file."""
     from hypernerf_tpu_torch.flagship import (GRAD_REFERENCE_CASE,
@@ -167,10 +278,12 @@ def main():
     from hypernerf_tpu_torch.flagship import (GRAD_REFERENCE,
                                               LEVEL_REFERENCE,
                                               LEVEL_REFERENCE_CASES,
+                                              MODULAR_REFERENCE,
                                               probe_inputs)
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument('--out', default=LEVEL_REFERENCE)
     parser.add_argument('--grads_out', default=GRAD_REFERENCE)
+    parser.add_argument('--modular_out', default=MODULAR_REFERENCE)
     args = parser.parse_args()
     model = probe_model()
     arrays = {}
@@ -183,6 +296,8 @@ def main():
     print(args.out)
     np.savez_compressed(args.grads_out, **gradient_reference(model))
     print(args.grads_out)
+    np.savez_compressed(args.modular_out, **modular_reference())
+    print(args.modular_out)
 
 
 if __name__ == '__main__':

@@ -1,9 +1,10 @@
 #!/usr/bin/env python
 """Where a frame's time goes: torch.profiler over full 504x378 renders of
-the flagship through the PyTorch port, on one CUDA card.
+the flagship, or one of its variants (``flagship.CONFIGS``), through the
+PyTorch port, on one CUDA card.
 
-  python tools/profile_render.py [--frames 2] [--chunk 8192] \
-      [--trace render_trace.json]
+  python tools/profile_render.py [--config flagship|static|split_glo] \
+      [--frames 2] [--chunk 8192] [--trace render_trace.json]
 
 Prints the card, the wall time per frame, the device time per frame by
 kernel (largest first) and the device's busy share of the wall time (the
@@ -24,6 +25,8 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument('--config', default='flagship',
+                        choices=('flagship', 'static', 'split_glo'))
     parser.add_argument('--frames', type=int, default=2)
     parser.add_argument('--chunk', type=int, default=8192)
     parser.add_argument('--trace', default=None,
@@ -42,7 +45,8 @@ def main() -> int:
     print(subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
                           '--format=csv,noheader'], capture_output=True,
                          text=True, check=True).stdout.strip())
-    model = flagship_model('cuda')
+    model = flagship_model('cuda', config=args.config)
+    print(f'config {args.config}')
     renderer = ImageRenderer(model, chunk=args.chunk, keep=('rgb',),
                              levels=('fine',), quantize=True)
     frames = spiral_rays(range(0, 30 * (args.frames + 1), 30))

@@ -1,16 +1,17 @@
 #!/usr/bin/env python
-"""Where a train step's time goes: torch.profiler over flagship train steps
-(batch 16384, 64 + 64 samples, full widths, bf16) of the PyTorch port, on one
-CUDA card.
+"""Where a train step's time goes: torch.profiler over train steps (batch
+16384, 64 + 64 samples, full widths, bf16) of the PyTorch port, on one CUDA
+card, for the flagship or one of its variants (``flagship.CONFIGS``).
 
-  python tools/profile_train.py [--steps 3] [--batch 16384] \
-      [--trace train_trace.json]
+  python tools/profile_train.py [--config flagship|static|split_glo] \
+      [--steps 3] [--batch 16384] [--trace train_trace.json]
 
 Prints the card, the wall time per step without and under the profiler, the
 device time per step by kernel (largest first), the device's busy share of
 the wall time (the sum of kernel times over the wall time; this path runs one
 stream), and the host's side of a step: the time the host spends in the
-weight repack (``pack_level``), in ``Adam.step`` and in the index draw, with
+weight repack (``pack_weights``, each module's blobs; ``pack_level``, the
+level kernel's joined ones), in ``Adam.step`` and in the index draw, with
 the number of kernels a step launches. Exits non-zero without a card.
 """
 
@@ -27,6 +28,8 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument('--config', default='flagship',
+                        choices=('flagship', 'static', 'split_glo'))
     parser.add_argument('--steps', type=int, default=3)
     parser.add_argument('--batch', type=int, default=16384)
     parser.add_argument('--trace', default=None,
@@ -46,12 +49,14 @@ def main() -> int:
     # The package re-exports the function under the module's name.
     level_module = importlib.import_module(
         'hypernerf_tpu_torch.kernels.fused_level')
+    from hypernerf_tpu_torch.kernels import common
 
     print(subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
                           '--format=csv,noheader'], capture_output=True,
                          text=True, check=True).stdout.strip())
     state, step_fn, all_rays, all_rgbs = flagship_train_setup(
-        'cuda', batch_size=args.batch)
+        'cuda', batch_size=args.batch, config=args.config)
+    print(f'config {args.config}')
 
     def run(n):
         torch.cuda.synchronize()
@@ -72,6 +77,7 @@ def main() -> int:
         return wrapped
 
     level_module.pack_level = named(level_module.pack_level, 'pack_level')
+    common.packed = named(common.packed, 'pack_weights')
     torch.randint = named(torch.randint, 'index_draw')
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -79,7 +85,7 @@ def main() -> int:
     averages = prof.key_averages()
     # Kernel events only: a CPU op's device time, and a named range's,
     # repeats its kernels'.
-    ranges = ('pack_level', 'index_draw', 'Optimizer.step')
+    ranges = ('pack_level', 'pack_weights', 'index_draw', 'Optimizer.step')
     events = [e for e in averages if e.device_type.name == 'CUDA'
               and not e.key.startswith(ranges)]
     events.sort(key=lambda e: e.self_device_time_total, reverse=True)
