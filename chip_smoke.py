@@ -33,13 +33,14 @@ Phases, one line each; any failure ends the run with a non-zero exit:
      no plain call; every parameter gets a finite non-zero gradient; the
      loss on a fixed batch falls; before those steps, one step on a small
      explicit batch with the kernels and one with the plain versions (through
-     autograd Functions of this script's own) from the initial state,
-     compared;
+     the same autograd Functions) from the initial state, compared;
   8. the kernels of the per-module path (a field alone, forward and
      backward, as the warp field and as the hyper sheet, with and without a
      window row; the template alone, forward, with 128, 64, 13 and 1 rows per
-     condition row, with and without hyper coordinates; the template backward
-     on a template without them and at 1 row per condition row): against the
+     condition row, with and without hyper coordinates, up to the train
+     step's 16384 rays at both levels; the template backward on a template
+     without them, at both levels of the train step, and at 1 row per
+     condition row): against the
      JAX kernels' stored outputs and gradients at the probe weights
      (tests/data), against their plain versions at small odd sizes and at
      8192 x 128 and 16384 x 128 rows, which are also timed, and against the
@@ -57,7 +58,6 @@ Phases, one line each; any failure ends the run with a non-zero exit:
      falls; one small step with the kernels against one with the plain
      versions;
  10. the kernels' JSON line, then the result line.
-``python3 chip_smoke.py modular`` runs phases 1, 2, 8 and 9 alone.
 Times come from CUDA events (kernels) or the host clock around work that
 ends in a synchronize (frames, steps). A kernel's bound is the larger of
 its matrix-product operations over the card's dense bf16 peak and its bytes
@@ -578,96 +578,19 @@ def step_grad_errors(got, want):
 
 
 @contextlib.contextmanager
-def plain_versions(model):
-    """Inside, ``model`` runs the plain versions on the card, forward and
-    backward: its level and compositing hooks become autograd Functions
-    around the explicit plain backwards, laid out as the kernels' own
-    Functions are, and the field and template Functions of the per-module
-    path call their plain forwards and backwards. For the comparison steps
-    of phases 7 and 9; the port's wrappers never take a plain version on a
-    CUDA tensor."""
-    import importlib
-
-    import torch
-    import torch.nn.functional as F
-    from hypernerf_tpu_torch import kernels as K
-    from hypernerf_tpu_torch.kernels.fused_level import _level_params
-    # The package re-exports the functions under the modules' names.
-    ff = importlib.import_module('hypernerf_tpu_torch.kernels.fused_field')
-    fm = importlib.import_module('hypernerf_tpu_torch.kernels.fused_mlp')
-
-    class PlainLevel(torch.autograd.Function):
-        @staticmethod
-        def forward(ctx, level, *tensors):  # 5 inputs, then the parameters
-            out, raw_t = K.fused_level_plain(level, *tensors[:5],
-                                             return_raw_t=True)
-            ctx.level = level
-            ctx.save_for_backward(*tensors[:5], raw_t)
-            return out
-
-        @staticmethod
-        def backward(ctx, g):
-            z, o, d, embed, rgb_cond, raw_t = ctx.saved_tensors
-            dx_t, d_cond, t_grads = K.fused_template_bwd_plain(
-                ctx.level, raw_t, rgb_cond, g.contiguous())
-            d_z, d_o, d_d, d_embed, f_grads = K.fused_fields_bwd_plain(
-                ctx.level, z, o, d, embed, dx_t)
-            return (None, d_z, d_o, d_d, d_embed,
-                    d_cond.to(rgb_cond.dtype), *f_grads, *t_grads)
-
-    class PlainComposite(torch.autograd.Function):
-        @staticmethod
-        def forward(ctx, packed, z, dirs, dnorm, noise, u, white, infinity):
-            res = K.fused_composite_plain(packed, z, dirs, u, white,
-                                          infinity, noise)
-            ctx.flags = (white, infinity)
-            ctx.save_for_backward(packed, z, dnorm, noise)
-            outs = torch.cat([res['rgb'], res['depth'][:, None],
-                              res['med_depth'][:, None],
-                              res['acc'][:, None]], dim=-1)
-            if u is None:
-                return outs, res['weights']
-            ctx.mark_non_differentiable(res['z_union'])
-            return outs, res['weights'], res['z_union']
-
-        @staticmethod
-        def backward(ctx, d_outs, d_weights, *_):
-            packed, z, dnorm, noise = ctx.saved_tensors
-            d_packed, d_z, d_dnorm, d_noise = K.fused_composite_bwd_plain(
-                packed, z, dnorm, noise, d_outs, d_weights, *ctx.flags)
-            return d_packed, d_z, None, d_dnorm, d_noise, None, None, None
-
-    def level_op(level, *inputs):
-        return PlainLevel.apply(level, *inputs, *_level_params(level))
-
-    def composite_op(packed, z, dirs, u=None, use_white_background=False,
-                     sample_at_infinity=True, noise=None):
-        dnorm = torch.linalg.norm(dirs, dim=-1, keepdim=True)
-        outs, weights, *z_union = PlainComposite.apply(
-            packed, z, dirs, dnorm, noise, u, use_white_background,
-            sample_at_infinity)
-        result = {'rgb': outs[:, :3], 'depth': outs[:, 3],
-                  'med_depth': outs[:, 4], 'acc': outs[:, 5],
-                  'weights': weights}
-        if z_union:
-            result['z_union'] = z_union[0]
-        return result
-
-    def field_forward(mlp, n_freq, x_raw, scales):
-        out = ff.fused_field_plain(mlp, n_freq, x_raw, scales).float()
-        return F.pad(out, (0, ff.OUT_PAD - out.shape[1]))
-
-    saved = (model.level_op, model.composite_op, ff._forward,
-             ff.fused_field_bwd, fm._forward, fm.fused_template_bwd)
-    model.level_op, model.composite_op = level_op, composite_op
-    ff._forward, ff.fused_field_bwd = field_forward, ff.fused_field_bwd_plain
-    fm._forward = fm.fused_template_plain
-    fm.fused_template_bwd = fm.fused_template_bwd_plain
+def plain_versions():
+    """Inside, every wrapper runs its plain version on the card, forward and
+    backward, through the same autograd Functions as its kernel: the one name
+    by which the wrappers choose, ``kernels.common.runs_plain``, is rebound.
+    For the comparison renders and steps of phases 5, 7 and 9; the port
+    itself never takes a plain version on a CUDA tensor."""
+    from hypernerf_tpu_torch.kernels import common
+    saved = common.runs_plain
+    common.runs_plain = lambda t, name: True
     try:
         yield
     finally:
-        (model.level_op, model.composite_op, ff._forward, ff.fused_field_bwd,
-         fm._forward, fm.fused_template_bwd) = saved
+        common.runs_plain = saved
 
 
 def compare_step(model, all_rays, all_rgbs, tag='[7]') -> None:
@@ -699,7 +622,7 @@ def compare_step(model, all_rays, all_rgbs, tag='[7]') -> None:
                              for k, p in model.named_parameters()}
 
     loss_k, grads_k = one_step()
-    with plain_versions(model):
+    with plain_versions():
         loss_p, grads_p = one_step()
     model.zero_grad(set_to_none=True)
     total, worst = step_grad_errors(grads_k, grads_p)
@@ -1018,10 +941,14 @@ def modular_kernel_phase():
                 ('flagship', 'coarse', 37, 13), ('flagship', 'fine', 1001, 1),
                 ('flagship', 'fine', CHUNK, 128),
                 ('flagship', 'coarse', CHUNK, 64),
+                ('flagship', 'fine', TRAIN_RAYS, 128),
+                ('flagship', 'coarse', TRAIN_RAYS, 64),
                 ('flagship', 'fine', 1 << 20, 1),
                 ('static', 'coarse', 37, 13), ('static', 'fine', 1001, 1),
                 ('static', 'fine', CHUNK, 128),
-                ('static', 'coarse', CHUNK, 64)):
+                ('static', 'coarse', CHUNK, 64),
+                ('static', 'fine', TRAIN_RAYS, 128),
+                ('static', 'coarse', TRAIN_RAYS, 64)):
             t = tmpl(config, level)
             x, cond = template_rows(r, s, seed=r % 83 + s,
                                     static=config == 'static')
@@ -1042,6 +969,7 @@ def modular_kernel_phase():
         for config, level, r, s in (
                 ('static', 'coarse', 37, 13), ('static', 'fine', 1001, 1),
                 ('flagship', 'fine', 1001, 1),
+                ('static', 'coarse', TRAIN_RAYS, 64),
                 ('static', 'fine', TRAIN_RAYS, 128)):
             t = tmpl(config, level)
             x, cond = template_rows(r, s, seed=r % 79 + s,
@@ -1053,7 +981,7 @@ def modular_kernel_phase():
                 f'{config} template backward (A) R={r} S={s} vs plain',
                 TEMPLATE_GRAD_NAMES, [dx_t, d_cond, *grads],
                 plain_template_bwd(t, x, cond, g), tag='[8]'))
-            if r == TRAIN_RAYS:
+            if (r, s) == (TRAIN_RAYS, 128):
                 times['A', config] = cuda_ms(
                     lambda: K.fused_template_bwd(t, x, cond, g), 3)
                 phase(f'[8] {config} template backward (A) R={r} S={s}: '
@@ -1212,7 +1140,7 @@ def modular_paths_phase(kernels) -> None:
         secs = time.perf_counter() - t0
         counts['split_glo', 'query_sigma'] = read_counts(
             {'fused_field_fwd': 2, 'fused_template_fwd': 1}, 'query_sigma')
-        with plain_versions(model):
+        with plain_versions():
             want = model.query_sigma(pts[:4099], ids[:4099])
     diff = (sigma[:4099] - want).abs()
     if sigma.shape != (n,) or not torch.isfinite(sigma).all() \
@@ -1266,10 +1194,6 @@ def main() -> int:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    if sys.argv[1:] == ['modular']:  # phases 8 and 9 alone
-        kernels = modular_kernel_phase()
-        modular_paths_phase(kernels)
-        return finish(kernels)
     model = flagship_model('cuda', seed=0)
     kernels = []
 
@@ -1420,9 +1344,8 @@ def main() -> int:
             k['launches'] = (launches[0] if k['name'] == 'fused_level_fwd'
                              else launches[1])
 
-        model.level_op = fused_level_plain
-        model.composite_op = fused_composite_plain
-        want = model(prepare_ray_dict(small))['fine']['rgb']
+        with plain_versions():
+            want = model(prepare_ray_dict(small))['fine']['rgb']
         diff = (got - want).abs()
         if not torch.isfinite(got).all() or diff.max() > RENDER_ATOL \
                 or diff.mean() > RENDER_MEAN:
@@ -1434,11 +1357,10 @@ def main() -> int:
               f'(tol {RENDER_ATOL}, mean {RENDER_MEAN})')
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        renderer(frames[1])
-        torch.cuda.synchronize()
+        with plain_versions():
+            renderer(frames[1])
+            torch.cuda.synchronize()
         plain_secs = time.perf_counter() - t0
-        model.level_op = fused_level
-        model.composite_op = fused_composite
         phase(f'[5] plain versions: {plain_secs:.4f} s/frame (1 frame)')
 
     kernels += backward_phase(kernels)

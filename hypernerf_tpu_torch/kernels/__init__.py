@@ -3,6 +3,12 @@
 Importing this package builds and loads nothing: the CUDA library is
 compiled (``build.py``) the first time a kernel is launched on a CUDA
 tensor.
+
+Every wrapper, forward and backward, runs its plain version on CPU tensors
+and launches its kernel (or raises) on CUDA tensors. ``common.runs_plain``
+makes that choice for all of them and is looked up at call time: rebinding
+that one name is how a caller runs the plain versions on the card, through
+the same autograd Functions, to time them or to hold a step against them.
 """
 
 from hypernerf_tpu_torch.kernels.fused_composite import (

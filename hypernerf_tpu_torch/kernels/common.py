@@ -1,5 +1,6 @@
-"""Shared by the MLP kernels' wrappers (``fused_level``, ``fused_mlp``,
-``fused_field``): how an ``nn.Linear`` chain is packed into the blobs the
+"""Shared by the kernels' wrappers: the choice between a kernel and its plain
+version (``runs_plain``) and, for the MLP kernels (``fused_level``,
+``fused_mlp``, ``fused_field``), how an ``nn.Linear`` chain is packed into the blobs the
 CUDA kernels read and its gradients unpacked, the packed-weight cache, and
 the building blocks of the plain backward versions (no autograd) with the
 kernels' rounding points — the cotangent is rounded to the compute dtype
@@ -236,6 +237,21 @@ def hidden_bwd(mlp: MLP, ins, outs, gh, in_w: int):
             g_in = g_in + gh[:, width:].to(acc)
             gh = gh[:, :width]
     return g_in + gh.to(acc), [t for pair in grads for t in pair]
+
+
+def runs_plain(t: torch.Tensor, name: str) -> bool:
+    """Whether wrapper ``name``, given ``t``, runs its plain version (a CPU
+    tensor) or launches its kernel (a CUDA tensor); raises on any other
+    device. Every wrapper, forward and backward, decides here and looks this
+    name up on the module at call time, so a caller that wants the plain
+    versions on the card, to time them or to hold a step against them,
+    rebinds this one name for the duration (``chip_smoke.plain_versions``).
+    Nothing in the package does."""
+    if t.device.type == 'cpu':
+        return True
+    if t.device.type != 'cuda':
+        raise ValueError(f'{name}: no kernel for {t.device}')
+    return False
 
 
 def launch(fn_name: str, device, *args) -> None:

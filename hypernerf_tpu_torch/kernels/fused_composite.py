@@ -24,7 +24,7 @@ from typing import Optional
 
 import torch
 
-from hypernerf_tpu_torch.kernels import build
+from hypernerf_tpu_torch.kernels import build, common
 from hypernerf_tpu_torch.ops.rendering import (compute_opaqueness_mask,
                                                volumetric_rendering)
 from hypernerf_tpu_torch.ops.sampling import piecewise_constant_pdf
@@ -174,11 +174,9 @@ def _launch_forward(packed, z_vals, directions, u, noise, white, infinity):
 def _forward(packed, z_vals, directions, u, noise, white, infinity):
     """(outs (R, 6), weights, z_union or None): the plain version on CPU
     tensors, the kernel on CUDA tensors."""
-    if z_vals.device.type == 'cuda':
+    if not common.runs_plain(z_vals, 'fused_composite'):
         return _launch_forward(packed, z_vals, directions, u, noise, white,
                                infinity)
-    if z_vals.device.type != 'cpu':
-        raise ValueError(f'fused_composite: no kernel for {z_vals.device}')
     res = fused_composite_plain(packed, z_vals, directions, u, white,
                                 infinity, noise)
     outs = torch.cat([res['rgb'], res['depth'][:, None],
@@ -192,14 +190,11 @@ def fused_composite_bwd(packed, z_vals, directions, noise, d_outs, d_weights,
     """Compositing backward (see ``fused_composite_bwd_plain``, which takes
     the directions' norms where this takes the directions): CPU tensors
     take the plain version, CUDA tensors launch the kernel or raise."""
-    if z_vals.device.type == 'cpu':
+    if common.runs_plain(z_vals, 'fused_composite_bwd'):
         dnorm = torch.linalg.norm(directions, dim=-1, keepdim=True)
         return fused_composite_bwd_plain(
             packed, z_vals, dnorm, noise, d_outs, d_weights,
             use_white_background, sample_at_infinity)
-    if z_vals.device.type != 'cuda':
-        raise ValueError(f'fused_composite_bwd: no kernel for '
-                         f'{z_vals.device}')
     dev, f32 = z_vals.device, torch.float32
     r, s = z_vals.shape
     for name, t, shape in (('packed', packed, (r * s, 4)),

@@ -153,11 +153,9 @@ def _launch_args(mlp: MLP, n_freq: int, x_raw, scales, transposed):
 def _forward(mlp: MLP, n_freq: int, x_raw, scales):
     """(P, 8) fp32 [out | 0]: the plain version on CPU tensors, the kernel on
     CUDA tensors."""
-    if x_raw.device.type == 'cpu':
+    if common.runs_plain(x_raw, 'fused_field'):
         out = fused_field_plain(mlp, n_freq, x_raw, scales)
         return F.pad(out.float(), (0, OUT_PAD - out.shape[1]))
-    if x_raw.device.type != 'cuda':
-        raise ValueError(f'fused_field: no kernel for {x_raw.device}')
     which, scales, ((w_blob, b_blob, _),) = _launch_args(mlp, n_freq, x_raw,
                                                          scales, False)
     p = x_raw.shape[0]
@@ -216,10 +214,8 @@ class FusedFieldFn(torch.autograd.Function):
 def fused_field_bwd(mlp: MLP, n_freq: int, x_raw, g, scales=None):
     """Field backward (see ``fused_field_bwd_plain``): CPU tensors take the
     plain version, CUDA tensors launch the kernel or raise."""
-    if x_raw.device.type == 'cpu':
+    if common.runs_plain(x_raw, 'fused_field_bwd'):
         return fused_field_bwd_plain(mlp, n_freq, x_raw, g, scales)
-    if x_raw.device.type != 'cuda':
-        raise ValueError(f'fused_field_bwd: no kernel for {x_raw.device}')
     which, scales, ((w_blob, b_blob, shapes), (wt_blob, _, _)) = \
         _launch_args(mlp, n_freq, x_raw, scales, True)
     dev, p = x_raw.device, x_raw.shape[0]

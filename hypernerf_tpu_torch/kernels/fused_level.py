@@ -189,12 +189,10 @@ def _forward(level: Level, z_vals, origins, directions, embed, rgb_cond,
              want_raw_t: bool):
     """(out, raw_t or None): the plain version on CPU tensors, the kernel on
     CUDA tensors."""
-    if z_vals.device.type == 'cpu':
+    if common.runs_plain(z_vals, 'fused_level'):
         res = fused_level_plain(level, z_vals, origins, directions, embed,
                                 rgb_cond, return_raw_t=want_raw_t)
         return res if want_raw_t else (res, None)
-    if z_vals.device.type != 'cuda':
-        raise ValueError(f'fused_level: no kernel for {z_vals.device}')
     return _launch_forward(level, z_vals, origins, directions, embed,
                            rgb_cond, want_raw_t)
 
@@ -292,11 +290,9 @@ fused_fields_bwd_plain.calls = 0
 def fused_fields_bwd(level: Level, z_vals, origins, directions, embed, dx_t):
     """Fields backward (see ``fused_fields_bwd_plain``): CPU tensors take
     the plain version, CUDA tensors launch the kernel or raise."""
-    if z_vals.device.type == 'cpu':
+    if common.runs_plain(z_vals, 'fused_fields_bwd'):
         return fused_fields_bwd_plain(level, z_vals, origins, directions,
                                       embed, dx_t)
-    if z_vals.device.type != 'cuda':
-        raise ValueError(f'fused_fields_bwd: no kernel for {z_vals.device}')
     w_blob, b_blob, shapes = pack_level(level)
     wt_blob, _, _ = pack_level(level, transposed=True)
     common.check_layout(shapes, slice(None))

@@ -209,10 +209,8 @@ def _launch_args(tmpl, x_raw, rgb_cond, transposed: bool):
 
 
 def _forward(tmpl, x_raw, rgb_cond):
-    if x_raw.device.type == 'cpu':
+    if common.runs_plain(x_raw, 'fused_template'):
         return fused_template_plain(tmpl, x_raw, rgb_cond)
-    if x_raw.device.type != 'cuda':
-        raise ValueError(f'fused_template: no kernel for {x_raw.device}')
     rgbc, s, _, ((w_blob, b_blob, _),) = _launch_args(tmpl, x_raw, rgb_cond,
                                                      False)
     p = x_raw.shape[0]
@@ -266,10 +264,8 @@ class FusedTemplateFn(torch.autograd.Function):
 def fused_template_bwd(tmpl, raw_t, rgb_cond, g):
     """Template backward (see ``fused_template_bwd_plain``): CPU tensors
     take the plain version, CUDA tensors launch the kernel or raise."""
-    if raw_t.device.type == 'cpu':
+    if common.runs_plain(raw_t, 'fused_template_bwd'):
         return fused_template_bwd_plain(tmpl, raw_t, rgb_cond, g)
-    if raw_t.device.type != 'cuda':
-        raise ValueError(f'fused_template_bwd: no kernel for {raw_t.device}')
     rgbc, s, layers, ((w_blob, b_blob, shapes), (wt_blob, _, _)) = \
         _launch_args(tmpl, raw_t, rgb_cond, True)
     dev, f32 = raw_t.device, torch.float32

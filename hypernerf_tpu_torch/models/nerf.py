@@ -42,7 +42,7 @@ from torch import nn
 from hypernerf_tpu_torch.configs import NerfConfig
 from hypernerf_tpu_torch.kernels import (Level, Template, fused_composite,
                                          fused_level, fused_template)
-from hypernerf_tpu_torch.kernels.fused_mlp import RAW_PAD
+from hypernerf_tpu_torch.kernels.fused_mlp import RAW_PAD, n_hyper
 from hypernerf_tpu_torch.models.modules import (GLOEmbed, HyperSheetMLP,
                                                 NerfMLP, torch_dtype)
 from hypernerf_tpu_torch.models.warping import TranslationField
@@ -121,14 +121,6 @@ class NerfModel(nn.Module):
         self.nerf_coarse = NerfMLP(**template)
         if cfg.num_fine_samples > 0:
             self.nerf_fine = NerfMLP(**template)
-        # The kernel wrappers of the fused branch. They launch the CUDA
-        # kernels on CUDA tensors and run their plain versions on CPU
-        # tensors; a caller that times the plain versions on the card swaps
-        # these. (On the per-module branch the warp field and the hyper sheet
-        # reach their kernel through the modules, the template through
-        # ``query_template``.)
-        self.level_op = fused_level
-        self.composite_op = fused_composite
 
     def _template(self, name: str) -> NerfMLP:
         return self.nerf_fine if name == 'fine' else self.nerf_coarse
@@ -207,11 +199,14 @@ class NerfModel(nn.Module):
         rgb_cond = self.get_condition_inputs(viewdirs)
         b, s, ch = points.shape
         mlp = self._template(name)
+        tmpl = Template(mlp, cfg.xyz_freq, cfg.hyper_freq)
+        if ch != 3 + n_hyper(tmpl):
+            raise ValueError(
+                f'the template takes points of {3 + n_hyper(tmpl)} channels '
+                f'([xyz | hyper]), got {ch}')
         if points.is_cuda:
             raw = F.pad(points.reshape(b * s, ch).float(), (0, RAW_PAD - ch))
-            packed = fused_template(
-                Template(mlp, cfg.xyz_freq, cfg.hyper_freq), raw,
-                rgb_cond).reshape(b, s, 4)
+            packed = fused_template(tmpl, raw, rgb_cond).reshape(b, s, 4)
             raw_rgb, raw_alpha = packed[..., :3], packed[..., 3:]
         else:
             feat = posenc_orig(points[..., :3], cfg.xyz_freq)
@@ -275,7 +270,7 @@ class NerfModel(nn.Module):
         flags = dict(use_white_background=cfg.use_white_background,
                      sample_at_infinity=cfg.use_sample_at_infinity)
         if self._fused_branch(use_warp, return_points, metadata):
-            packed = self.level_op(
+            packed = fused_level(
                 self.level(name), z_vals, origins, directions,
                 self.encode_warp_embed(metadata),
                 self.get_condition_inputs(viewdirs))
@@ -287,8 +282,8 @@ class NerfModel(nn.Module):
                                          noise=noise, generator=generator)
                 extra = {} if noise is zeros else {
                     'noise': noise.contiguous()}
-                return self.composite_op(packed, z_vals, directions, fine_u,
-                                         **flags, **extra)
+                return fused_composite(packed, z_vals, directions, fine_u,
+                                       **flags, **extra)
             # Filtering needs the per-sample sigma: composite in tensor code.
             packed = packed.reshape(*z_vals.shape, 4)
             raw_alpha = noise_regularize(packed[..., 3], cfg.noise_std,

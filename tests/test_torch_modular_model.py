@@ -347,3 +347,18 @@ def test_model_builds_what_the_configuration_names():
                            (dict(use_occupancy_grid=True), 'A.10')):
         with pytest.raises(NotImplementedError, match=item):
             NerfModel(port_configs.NerfConfig(**{**ARCH, **override}))
+
+
+@pytest.mark.parametrize('channels', [3, 9])
+def test_template_refuses_points_of_another_width(channels):
+    """A template with hyper weights takes [xyz | hyper] points of its own
+    width alone: ``use_warp=False`` at call time on the flagship (3 channels)
+    and a ``hyper_point`` wider than the sheet's output are refused, not
+    padded or cropped, on either device."""
+    model = _port_model('flagship')
+    rays = _batch()[0]
+    with torch.no_grad(), pytest.raises(ValueError, match='channels'):
+        if channels == 3:
+            model(_ray_dicts(rays)[1], use_warp=False)
+        else:
+            model(_ray_dicts(rays, _hyper_point(len(rays), 6))[1])
