@@ -57,7 +57,30 @@ Phases, one line each; any failure ends the run with a non-zero exit:
      every parameter gets a finite non-zero gradient; the fixed-batch loss
      falls; one small step with the kernels against one with the plain
      versions;
- 10. the kernels' JSON line, then the result line.
+ 10. the SE(3) trunk's kernels (forward and backward) at the probe weights of
+     the ``se3`` configuration, whose w and v heads are drawn large enough
+     that the rotation shows: against the JAX kernels' stored outputs and
+     gradients (tests/data), with the 1 % probe of one layer, against their
+     plain versions at a ragged size (a multiple of neither tile height) and
+     at 8192 x 128 and 16384 x 128 rows, with and without a window row
+     (alpha 3.5 of 8 bands), which are also timed;
+ 11. the level kernels' screw-warp variants (``se3`` and ``quaternion``): the
+     level forward and the level backward (A then B) against the stored JAX
+     numbers, the forward (with raw_t) and kernel B against their plain
+     versions at small ragged sizes, at the render's R = 8192 and at the train
+     step's R = 16384, with and without a window row; the trunk kernel, the
+     retraction, the sheet's field kernel and the template kernel chained
+     against the level kernel; and a model whose w head is zero, so that
+     every row has w = 0 exactly (d w = 0, d v = d pts = g);
+ 12. the SE(3) paths at full width: a 504x378 frame of ``se3`` and of
+     ``quaternion`` through the level kernels, a frame of ``se3`` with
+     ``return_points`` (per-module: trunk, sheet and template kernels), a
+     train step at batch 16384 of ``se3`` and ``quaternion`` (level kernels)
+     and of ``se3`` with two GLO tables (trunk, field and template kernels,
+     forward and backward), each with launch counters, no plain call and one
+     kernels-vs-plain step on 1024 rays; ``query_sigma`` of ``se3`` on
+     1 << 20 points;
+ 13. the kernels' JSON line, then the result line.
 Times come from CUDA events (kernels) or the host clock around work that
 ends in a synchronize (frames, steps). A kernel's bound is the larger of
 its matrix-product operations over the card's dense bf16 peak and its bytes
@@ -91,6 +114,27 @@ LEVEL_ATOL, LEVEL_RTOL, LEVEL_MEAN = 1e-2, 1e-2, 1e-4
 # eps floor) times the bin's width, so z_union gets 1e-4 plus
 # 8 * 2^-24 / (smallest bin mass) * (widest bin), from the inputs at hand.
 COMPOSITE_ATOL = 1e-4
+# The level with the SE(3) / quaternion warp against the JAX kernels' stored
+# gradients: the same rule as GRAD_L2 with a wider relative L2. A bf16 flip in
+# the trunk moves w, the retraction turns that into a moved point, and the
+# template's 2^9 band amplifies it; db of the trunk's heads and of the first
+# template layers are sums of such cotangents of both signs (measured on the
+# CPU, the plain versions against the JAX kernels in interpret mode: up to
+# 8.1e-2 on db of one layer, 3e-2 on the rest; float32 agrees to 1e-2 of the
+# largest entry at worst).
+SE3_LEVEL_GRAD_L2 = 0.12
+# The level forward with the SE(3) / quaternion warp vs its plain version:
+# the level's rule with a wider absolute term on the output (raw_t keeps
+# LEVEL_ATOL). One bf16 flip in the 128-wide trunk moves w by some 4e-4 rad
+# (the probe's w head has weights up to 0.1), the retraction moves the point
+# by as much, and the template's 2^9 band turns that into 0.2 rad of phase;
+# the translation warp's head is ten times smaller. Measured on an H100: 64
+# of 2.1 M outputs beyond LEVEL_ATOL, the largest 3.4e-2, the mean 4.4e-5.
+SE3_LEVEL_ATOL = 6e-2
+# The SE(3) trunk's backward alone vs its plain version and vs the stored JAX
+# gradients: the rule of GRAD_L2 with a tighter relative L2, which a 1 %
+# change of one hidden layer exceeds on every dW (phase 10's probe).
+SE3_TRUNK_GRAD_L2 = 1e-2
 # Whole render, kernels vs plain versions, fine rgb in [0, 1].
 RENDER_ATOL, RENDER_MEAN = 5e-2, 2e-3
 
@@ -118,8 +162,12 @@ TRAIN_RAYS, TRAIN_STEPS, WARMUP_STEPS = 16384, 5, 2
 PLAIN_CHUNK = 2048
 
 
+T_START = time.perf_counter()
+
+
 def phase(msg: str) -> None:
-    print(msg, flush=True)
+    """One line of the report, with the seconds since the start."""
+    print(f'{msg} [at {time.perf_counter() - T_START:.1f} s]', flush=True)
 
 
 def cuda_ms(fn, iters: int = 10) -> float:
@@ -147,10 +195,11 @@ def bound(flops: float, nbytes: float):
 
 def level_macs(level):
     """(fields, template) multiply-adds per sample of one level forward:
-    one for every weight of its 14 field and 16 template layers."""
+    one for every weight of its field layers (14, or 16 with the SE(3) /
+    quaternion warp) and of its 16 template layers."""
     from hypernerf_tpu_torch.kernels.fused_level import level_layers
     sizes = [lin.weight.numel() for lin, _ in level_layers(level)]
-    return sum(sizes[:14]), sum(sizes[14:])
+    return sum(sizes[:-16]), sum(sizes[-16:])
 
 
 def level_inputs(n_rays: int, samples: int, seed: int):
@@ -221,13 +270,13 @@ def error_keys(worsts, l2_tol=GRAD_L2, max_tol=GRAD_MAX):
                           f'the largest entry, per output')
 
 
-def hold_level(got, want, label, tag='[3]'):
+def hold_level(got, want, label, tag='[3]', atol=LEVEL_ATOL):
     """Hold a level forward output (or its raw_t) to ``want`` under the level
     tolerance; returns max|d|."""
     import torch
     torch.cuda.synchronize()
     diff = (got - want).abs()
-    bad = diff > LEVEL_ATOL + LEVEL_RTOL * want.abs()
+    bad = diff > atol + LEVEL_RTOL * want.abs()
     if got.shape != want.shape or not torch.isfinite(got).all() \
             or bad.any() or diff.mean() > LEVEL_MEAN:
         raise AssertionError(
@@ -235,7 +284,7 @@ def hold_level(got, want, label, tag='[3]'):
             f'{diff.max().item():.3e} mean {diff.mean().item():.3e} '
             f'outside {int(bad.sum())} of {bad.numel()}')
     phase(f'{tag} {label}: max|d| {diff.max().item():.3e} mean '
-          f'{diff.mean().item():.3e} (tol {LEVEL_ATOL}+{LEVEL_RTOL}|want|, '
+          f'{diff.mean().item():.3e} (tol {atol}+{LEVEL_RTOL}|want|, '
           f'mean {LEVEL_MEAN})')
     return diff.max().item()
 
@@ -278,13 +327,13 @@ def chunks(n_rays: int):
             for r0 in range(0, n_rays, PLAIN_CHUNK)]
 
 
-def plain_forward(level, args):
+def plain_forward(level, args, warp_scales=None):
     """(out, raw_t) of the plain level forward, over chunks of PLAIN_CHUNK
     rays."""
     import torch
     from hypernerf_tpu_torch.kernels import fused_level_plain
     parts = [fused_level_plain(level, *[a[r0:r1].contiguous() for a in args],
-                               return_raw_t=True)
+                               return_raw_t=True, warp_scales=warp_scales)
              for r0, r1 in chunks(args[0].shape[0])]
     return tuple(torch.cat([p[i] for p in parts]) for i in range(2))
 
@@ -306,9 +355,9 @@ def plain_template_bwd(level, raw_t, rgb_cond, g):
             + [sum(p[i] for p in parts) for i in range(2, len(parts[0]))])
 
 
-def plain_fields_bwd(level, args, dx_t):
+def plain_fields_bwd(level, args, dx_t, warp_scales=None):
     """The plain fields backward over chunks of PLAIN_CHUNK rays:
-    [d z, d o, d d, d embed, 28 x dW/db]."""
+    [d z, d o, d d, d embed, 28 (or 32) x dW/db]."""
     import torch
     from hypernerf_tpu_torch.kernels import fused_fields_bwd_plain
     s = args[0].shape[1]
@@ -316,7 +365,7 @@ def plain_fields_bwd(level, args, dx_t):
     for r0, r1 in chunks(args[0].shape[0]):
         *rays, grads = fused_fields_bwd_plain(
             level, *[a[r0:r1].contiguous() for a in args[:4]],
-            dx_t[r0 * s:r1 * s])
+            dx_t[r0 * s:r1 * s], warp_scales)
         parts.append([*rays, *grads])
     return ([torch.cat([p[i] for p in parts]) for i in range(4)]
             + [sum(p[i] for p in parts) for i in range(4, len(parts[0]))])
@@ -326,6 +375,8 @@ TEMPLATE_GRAD_NAMES = ['dx_t', 'd_rgb_cond'] + [
     f'd{"Wb"[i % 2]}{14 + i // 2}' for i in range(32)]
 FIELDS_GRAD_NAMES = ['d_z', 'd_origins', 'd_directions', 'd_embed'] + [
     f'd{"Wb"[i % 2]}{i // 2}' for i in range(28)]
+SE3_FIELDS_GRAD_NAMES = FIELDS_GRAD_NAMES[:4] + [
+    f'd{"Wb"[i % 2]}{i // 2}' for i in range(32)]
 
 
 def backward_phase(kernels):
@@ -639,7 +690,7 @@ def compare_step(model, all_rays, all_rgbs, tag='[7]') -> None:
 
 def kernel_wrappers():
     """({kernel name: wrapper with a ``launches`` count}, [plain versions
-    with a ``calls`` count]) of all eight kernels."""
+    with a ``calls`` count]) of all ten kernels."""
     from hypernerf_tpu_torch import kernels as K
     wrappers = {'fused_level_fwd': K.fused_level,
                 'fused_composite_fwd': K.fused_composite,
@@ -648,11 +699,14 @@ def kernel_wrappers():
                 'fused_composite_bwd': K.fused_composite_bwd,
                 'fused_field_fwd': K.fused_field,
                 'fused_field_bwd': K.fused_field_bwd,
-                'fused_template_fwd': K.fused_template}
+                'fused_template_fwd': K.fused_template,
+                'fused_se3_fwd': K.fused_se3_wv,
+                'fused_se3_bwd': K.fused_se3_bwd}
     plains = [K.fused_level_plain, K.fused_composite_plain,
               K.fused_template_bwd_plain, K.fused_fields_bwd_plain,
               K.fused_composite_bwd_plain, K.fused_field_plain,
-              K.fused_field_bwd_plain, K.fused_template_plain]
+              K.fused_field_bwd_plain, K.fused_template_plain,
+              K.fused_se3_plain, K.fused_se3_bwd_plain]
     return wrappers, plains
 
 
@@ -684,21 +738,29 @@ STEP_LAUNCHES = {
                  'fused_composite_bwd': 2},
     'static': {'fused_template_fwd': 2, 'fused_template_bwd': 2},
     'split_glo': {'fused_field_fwd': 4, 'fused_field_bwd': 4,
-                  'fused_template_fwd': 2, 'fused_template_bwd': 2}}
+                  'fused_template_fwd': 2, 'fused_template_bwd': 2},
+    # The trunk's kernels for the warp, the field kernels for the sheet.
+    'se3_split_glo': {'fused_se3_fwd': 2, 'fused_se3_bwd': 2,
+                      'fused_field_fwd': 2, 'fused_field_bwd': 2,
+                      'fused_template_fwd': 2, 'fused_template_bwd': 2}}
+STEP_LAUNCHES['se3'] = STEP_LAUNCHES['quaternion'] = STEP_LAUNCHES['flagship']
+# A path that is a configuration with overrides: (configuration, overrides).
+PATHS = {'se3_split_glo': ('se3', dict(share_glo=False))}
 
 
 def train_path(config: str, tag: str) -> dict:
-    """The train step of ``config`` at full width (batch 16384, 64 + 64,
-    bf16, sigma noise, Adam with steplr) through ``make_train_step``;
-    returns its launches over the timed steps."""
+    """The train step of ``config`` (a configuration, or a name of ``PATHS``)
+    at full width (batch 16384, 64 + 64, bf16, sigma noise, Adam with steplr)
+    through ``make_train_step``; returns its launches over the timed steps."""
     import torch
     from hypernerf_tpu_torch.flagship import flagship_train_setup
     from hypernerf_tpu_torch.ops.ray_dict import prepare_ray_dict
     from hypernerf_tpu_torch.training.losses import mse_loss
     from hypernerf_tpu_torch.training.train_state import (TrainState,
                                                           step_generator)
+    base, overrides = PATHS.get(config, (config, {}))
     state, step_fn, all_rays, all_rgbs = flagship_train_setup(
-        'cuda', seed=0, batch_size=TRAIN_RAYS, config=config)
+        'cuda', seed=0, batch_size=TRAIN_RAYS, config=base, **overrides)
     model = state.model
     cfg = model.config
     fixed = slice(0, 4096)
@@ -1162,6 +1224,409 @@ def modular_paths_phase(kernels) -> None:
             k['launches'] = counts['split_glo', 'train'][name]
 
 
+# -- the SE(3) / quaternion warps ---------------------------------------------
+
+WINDOW_ALPHA = 3.5  # of the trunk's 8 bands
+
+
+def plain_se3(field, x_raw, scales=None):
+    """The plain trunk forward over chunks of rows: (P, 6) [w | v]."""
+    import torch
+    from hypernerf_tpu_torch.kernels import fused_se3_plain
+    return torch.cat([fused_se3_plain(field, x_raw[a:b], scales)
+                      for a, b in row_chunks(x_raw.shape[0])])
+
+
+def plain_se3_bwd(field, x_raw, g, scales=None):
+    """The plain trunk backward over chunks of rows: [dx_raw, 18 x dW/db]."""
+    import torch
+    from hypernerf_tpu_torch.kernels import fused_se3_bwd_plain
+    parts = [fused_se3_bwd_plain(field, x_raw[a:b], g[a:b], scales)
+             for a, b in row_chunks(x_raw.shape[0])]
+    return [torch.cat([dx for dx, _ in parts])] + [
+        sum(grads[i] for _, grads in parts) for i in range(len(parts[0][1]))]
+
+
+def wv_of(field, x_raw, scales=None):
+    """(P, 6) [w | v] of the trunk kernel."""
+    import torch
+    from hypernerf_tpu_torch.kernels import fused_se3_wv
+    return torch.cat(fused_se3_wv(field, x_raw, scales), dim=-1)
+
+
+def se3_kernel_phase():
+    """Phase 10; returns the entries of the trunk's two kernels."""
+    import torch
+    import torch.nn.functional as F
+    from hypernerf_tpu_torch import kernels as K
+    from hypernerf_tpu_torch.flagship import (SE3_TRUNK_CASES, flagship_model,
+                                              load_probe_weights,
+                                              read_se3_reference)
+    from hypernerf_tpu_torch.kernels import common
+    from hypernerf_tpu_torch.kernels.fused_se3 import (se3_encoding_scales,
+                                                       se3_layers)
+    probe = load_probe_weights(flagship_model('cuda', config='se3'))
+    field = probe.warp_field
+    layers = se3_layers(field)
+    grad_names = ['dx'] + [f'd{"Wb"[i % 2]}{i // 2}'
+                           for i in range(2 * len(layers))]
+    window = se3_encoding_scales(field, WINDOW_ALPHA, 'cuda')
+
+    # The JAX kernels' stored outputs and gradients
+    # (tools/make_level_reference.py): the CUDA kernels through their
+    # autograd Function, as training runs them.
+    ref = read_se3_reference()
+    for case, (_, alpha, _) in SE3_TRUNK_CASES.items():
+        arrays = {k: torch.from_numpy(v).cuda() for k, v in ref[case].items()}
+        x = arrays['x_raw'].requires_grad_()
+        scales = None if alpha is None else se3_encoding_scales(field, alpha,
+                                                                'cuda')
+        out = wv_of(field, x, scales)
+        hold_level(out.detach(), arrays['out'],
+                   f'SE(3) {case} vs the stored JAX output', '[10]')
+        got = torch.autograd.grad(out, [x] + common.layer_params(layers),
+                                  arrays['cotangent'][:, :6])
+        check_grads(f'SE(3) {case} backward vs the stored JAX gradients',
+                    grad_names, got, [arrays[n.lower()] for n in grad_names],
+                    l2_tol=SE3_TRUNK_GRAD_L2, tag='[10]')
+
+    errs = {'fwd': [], 'bwd': []}
+    times = {}
+    gen = torch.Generator().manual_seed(10)
+    with torch.no_grad():
+        # The 1 % probe: a 1 % change of hidden layer 5 must move the plain
+        # [w | v] and the plain dW by more than the checks allow.
+        x = field_rows(CHUNK, seed=5)
+        g = F.pad(torch.randn(CHUNK, 6, generator=gen), (0, 2)).cuda()
+        base_out, base = plain_se3(field, x), plain_se3_bwd(field, x, g)
+        weight = field.trunk.hidden(5).weight
+        weight.mul_(1.01)
+        moved_out = (plain_se3(field, x) - base_out).abs()
+        moved = plain_se3_bwd(field, x, g)
+        weight.div_(1.01)
+        l2 = [grad_errors(a, b)[0] for a, b in zip(moved[1::2], base[1::2])]
+        phase(f'[10] probe: |w| mean {base_out[:, :3].norm(dim=-1).mean():.3f} '
+              f'rad, |v| mean {base_out[:, 3:].norm(dim=-1).mean():.3f}; 1% on '
+              f'trunk layer 5 moves [w | v] by mean {moved_out.mean():.3e} '
+              f'(the check allows {LEVEL_MEAN}) and the 9 dW by relative L2 '
+              f'{min(l2):.3f}..{max(l2):.3f} (the check allows '
+              f'{SE3_TRUNK_GRAD_L2})')
+        if not (moved_out.mean() > LEVEL_MEAN
+                and min(l2) > SE3_TRUNK_GRAD_L2):
+            raise AssertionError('the checks cannot see the trunk\'s layers')
+
+        # 481 rows: a multiple of neither the forward tile's 64 nor the
+        # backward tile's 32 rows.
+        for p, scales in ((481, None), (481, window), (CHUNK * 128, None),
+                          (CHUNK * 128, window), (TRAIN_RAYS * 128, None)):
+            label = (f'SE(3) trunk P={p} window='
+                     f'{"off" if scales is None else "on"}')
+            x = field_rows(p, seed=p % 89 + 8)
+            g = F.pad(torch.randn(p, 6, generator=gen), (0, 2)).cuda()
+            errs['fwd'].append(hold_level(
+                wv_of(field, x, scales), plain_se3(field, x, scales),
+                f'{label} forward vs plain', '[10]'))
+            dx, grads = K.fused_se3_bwd(field, x, g, scales)
+            torch.cuda.synchronize()
+            errs['bwd'].append(check_grads(
+                f'{label} backward vs plain', grad_names, [dx, *grads],
+                plain_se3_bwd(field, x, g, scales),
+                l2_tol=SE3_TRUNK_GRAD_L2, tag='[10]'))
+            if scales is not None or p < CHUNK * 128:
+                continue
+            times[p] = dict(
+                fwd=cuda_ms(lambda: K.fused_se3_wv(field, x)),
+                plain_fwd=cuda_ms(lambda: plain_se3(field, x), 2),
+                bwd=cuda_ms(lambda: K.fused_se3_bwd(field, x, g), 3),
+                plain_bwd=cuda_ms(lambda: plain_se3_bwd(field, x, g), 1))
+            t = times[p]
+            phase(f'[10] SE(3) trunk P={p}: forward {t["fwd"]:.3f} ms (plain '
+                  f'{t["plain_fwd"]:.2f} ms), backward {t["bwd"]:.3f} ms '
+                  f'(plain {t["plain_bwd"]:.1f} ms); plain versions in '
+                  f'chunks of {PLAIN_CHUNK * 128} rows')
+        # A row of ones is no window.
+        x = field_rows(481, seed=3)
+        same = torch.equal(wv_of(field, x, torch.ones_like(window)),
+                           wv_of(field, x))
+        phase(f'[10] a window row of ones gives the numbers of no row: {same}')
+        if not same:
+            raise AssertionError('a window row of ones changes the trunk')
+        del x, g, dx, grads
+        torch.cuda.empty_cache()
+
+    # Bounds: one multiply-add per weight and row forward, three backward;
+    # bytes are the rows in and out and the weights (and dW) once. Forward at
+    # the render chunk, backward at the train batch, P = R x 128 rows.
+    macs = sum(lin.weight.numel() for lin, _ in layers)
+    p_r, p_t = CHUNK * 128, TRAIN_RAYS * 128
+    f_ms, f_by = bound(2.0 * macs * p_r, p_r * (44 + 32) + 2 * macs)
+    b_ms, b_by = bound(6.0 * macs * p_t, p_t * (44 + 32 + 44) + 6 * macs)
+    src = 'hypernerf_tpu_torch/kernels/csrc/'
+    return [
+        dict(name='fused_se3_fwd', route='cuda', source=src + 'fused_se3.cu',
+             replaces='hypernerf_tpu/ops/pallas/fused_se3.py:374',
+             max_abs_err=max(errs['fwd']),
+             tolerance=f'|d| <= {LEVEL_ATOL} + {LEVEL_RTOL} |plain|, mean '
+                       f'|d| <= {LEVEL_MEAN}',
+             ms=times[p_r]['fwd'], plain_ms=times[p_r]['plain_fwd'],
+             bound_ms=f_ms, bound_by=f_by, library_ms=None,
+             shape=f'P={p_r}', macs_per_row=macs,
+             ms_train_rows=times[p_t]['fwd']),
+        dict(name='fused_se3_bwd', route='cuda',
+             source=src + 'fused_se3_bwd.cu',
+             replaces='hypernerf_tpu/ops/pallas/fused_se3.py:412',
+             **error_keys(errs['bwd'], SE3_TRUNK_GRAD_L2),
+             ms=times[p_t]['bwd'],
+             plain_ms=times[p_t]['plain_bwd'], bound_ms=b_ms, bound_by=b_by,
+             library_ms=None, shape=f'P={p_t}')]
+
+
+def se3_level_phase(kernels) -> None:
+    """Phase 11: the level kernels' ``se3`` and ``quaternion`` variants;
+    raises the level forward's and the fields backward's ``max_abs_err`` to
+    what the variants show and adds the variants' times to their entries."""
+    import torch
+    import torch.nn.functional as F
+    from hypernerf_tpu_torch import kernels as K
+    from hypernerf_tpu_torch.flagship import (LEVEL_INPUTS, SE3_LEVEL_CASES,
+                                              flagship_model,
+                                              load_probe_weights,
+                                              read_se3_reference)
+    from hypernerf_tpu_torch.kernels.fused_level import (_launch_forward,
+                                                         _level_params,
+                                                         _raw_fields)
+    from hypernerf_tpu_torch.kernels.fused_se3 import se3_encoding_scales
+    probes = {c: load_probe_weights(flagship_model('cuda', config=c))
+              for c in ('se3', 'quaternion')}
+    window = se3_encoding_scales(probes['se3'].warp_field, WINDOW_ALPHA,
+                                 'cuda')
+
+    # The JAX level kernel's stored outputs and gradients, through the
+    # autograd Function (forward with raw_t, then A, then B).
+    ref = read_se3_reference()
+    for case, (config, name, _, _, alpha, _) in SE3_LEVEL_CASES.items():
+        arrays = {k: torch.from_numpy(v).cuda() for k, v in ref[case].items()}
+        args = [arrays[k].requires_grad_() for k in LEVEL_INPUTS]
+        lv = probes[config].level(name)
+        scales = None if alpha is None else se3_encoding_scales(
+            lv.warp, alpha, 'cuda')
+        out = K.fused_level(lv, *args, scales)
+        hold_level(out.detach(), arrays['out'],
+                   f'{case} vs the stored JAX output', '[11]', SE3_LEVEL_ATOL)
+        got = torch.autograd.grad(out, args + _level_params(lv),
+                                  arrays['cotangent'])
+        names = [f'd_{k}' for k in LEVEL_INPUTS] + [
+            f'd{"wb"[i % 2]}{i // 2}' for i in range(64)]
+        check_grads(f'{case} backward (kernels A + B) vs the stored JAX '
+                    f'gradients', names, got, [arrays[n] for n in names],
+                    l2_tol=SE3_LEVEL_GRAD_L2, tag='[11]')
+
+    errs = {'fwd': [], 'B': []}
+    times = {}
+    with torch.no_grad():
+        for config, probe in probes.items():
+            level = {64: probe.level('coarse'), 128: probe.level('fine')}
+            for r, s, scales in ((37, 13, None), (37, 13, window),
+                                 (512, 64, window), (CHUNK, 64, None),
+                                 (CHUNK, 128, None), (TRAIN_RAYS, 64, None),
+                                 (TRAIN_RAYS, 128, window)):
+                lv = level.get(s, level[64])
+                args = level_inputs(r, s, seed=s + 3)
+                label = (f'{config} level R={r} S={s} window='
+                         f'{"off" if scales is None else "on"}')
+                out, raw_t = _launch_forward(lv, *args, want_raw_t=True,
+                                             warp_scales=scales)
+                want_out, want_raw_t = plain_forward(lv, args, scales)
+                errs['fwd'] += [
+                    hold_level(out, want_out, f'{label} forward vs plain: '
+                               f'out', '[11]', SE3_LEVEL_ATOL),
+                    hold_level(raw_t, want_raw_t, f'{label} forward vs '
+                               f'plain: raw_t', '[11]')]
+                if r == CHUNK:
+                    times[config, 'fwd', s] = (
+                        cuda_ms(lambda: K.fused_level(lv, *args)),
+                        cuda_ms(lambda: plain_forward(lv, args), 2))
+                    phase(f'[11] {config} level forward R={r} S={s}: kernel '
+                          f'{times[config, "fwd", s][0]:.3f} ms, plain '
+                          f'{times[config, "fwd", s][1]:.2f} ms')
+                    continue
+                # Kernel B on a cotangent of the template's raw input.
+                dx_t = F.pad(torch.randn(
+                    r * s, 7, generator=torch.Generator().manual_seed(s)),
+                    (0, 1)).cuda()
+                d_z, d_o, d_d, d_e, f_grads = K.fused_fields_bwd(
+                    lv, *args[:4], dx_t, scales)
+                torch.cuda.synchronize()
+                errs['B'].append(check_grads(
+                    f'{label} fields backward (B) vs plain',
+                    SE3_FIELDS_GRAD_NAMES, [d_z, d_o, d_d, d_e, *f_grads],
+                    plain_fields_bwd(lv, args, dx_t, scales), tag='[11]'))
+                if (r, s) == (TRAIN_RAYS, 128):
+                    times[config, 'B'] = (
+                        cuda_ms(lambda: K.fused_fields_bwd(lv, *args[:4],
+                                                           dx_t, scales), 3),
+                        cuda_ms(lambda: plain_fields_bwd(lv, args, dx_t,
+                                                         scales), 1))
+                    phase(f'[11] {config} fields backward R={r} S={s}: '
+                          f'kernel B {times[config, "B"][0]:.2f} ms, plain '
+                          f'{times[config, "B"][1]:.1f} ms')
+                del out, raw_t, want_out, want_raw_t
+                torch.cuda.empty_cache()
+
+            # Kernels against kernels: the trunk kernel, the retraction, the
+            # sheet's field kernel and the template kernel chained give the
+            # level kernel's output.
+            lv = level[64]
+            args = level_inputs(512, 64, seed=71)
+            x_raw = _raw_fields(*args[:4]).contiguous()
+            w, v = K.fused_se3_wv(lv.warp, x_raw, window)
+            warped = lv.warp.retract(w, v, x_raw[:, :3])
+            hyper = K.fused_field(lv.hyper.mlp, lv.hyper.n_freq, x_raw)
+            raw_t = F.pad(torch.cat([warped, hyper], dim=-1), (0, 1))
+            want, want_raw_t = _launch_forward(lv, *args, want_raw_t=True,
+                                               warp_scales=window)
+            hold_level(raw_t, want_raw_t, f'{config}: trunk kernel + '
+                       f'retraction + sheet kernel vs the level kernel '
+                       f'R=512 S=64: raw_t', '[11]')
+            hold_level(K.fused_template(lv, raw_t, args[4]), want,
+                       f'{config}: + template kernel vs the level kernel: '
+                       f'out', '[11]', SE3_LEVEL_ATOL)
+
+            # Every row at w = 0 exactly: a zero w head. The retraction is
+            # then points + v, and its backward d w = 0, d v = d pts = g.
+            head = lv.warp.w_net.logit
+            saved = (head.weight.clone(), head.bias.clone())
+            head.weight.zero_()
+            head.bias.zero_()
+            out, raw_t = _launch_forward(lv, *args, want_raw_t=True)
+            want_out, want_raw_t = plain_forward(lv, args)
+            hold_level(out, want_out, f'{config} level with w = 0 vs plain: '
+                       f'out', '[11]', SE3_LEVEL_ATOL)
+            hold_level(raw_t, want_raw_t, f'{config} level with w = 0 vs '
+                       f'plain: raw_t', '[11]')
+            dx_t = F.pad(torch.randn(
+                512 * 64, 7, generator=torch.Generator().manual_seed(9)),
+                (0, 1)).cuda()
+            d_z, d_o, d_d, d_e, f_grads = K.fused_fields_bwd(lv, *args[:4],
+                                                             dx_t)
+            torch.cuda.synchronize()
+            check_grads(f'{config} fields backward (B) with w = 0 vs plain',
+                        SE3_FIELDS_GRAD_NAMES, [d_z, d_o, d_d, d_e, *f_grads],
+                        plain_fields_bwd(lv, args, dx_t), tag='[11]')
+            dw_head = f_grads[14]
+            if not torch.isfinite(dw_head).all() or dw_head.abs().max() != 0:
+                raise AssertionError(f'{config}: d w must be 0 at w = 0, '
+                                     f'got max {dw_head.abs().max():.3e}')
+            phase(f'[11] {config} with w = 0: the w head\'s dW is exactly 0 '
+                  f'and every gradient is finite')
+            head.weight.copy_(saved[0])
+            head.bias.copy_(saved[1])
+
+    for k in kernels:
+        if k['name'] == 'fused_level_fwd':
+            k['max_abs_err'] = max(k['max_abs_err'], *errs['fwd'])
+            for config in probes:
+                k[f'{config}_ms'] = times[config, 'fwd', 128][0]
+                k[f'{config}_plain_ms'] = times[config, 'fwd', 128][1]
+        if k['name'] == 'fused_fields_bwd':
+            worst = error_keys(errs['B'])
+            for key in ('max_abs_err', 'rel_l2_err',
+                        'max_err_over_largest_entry'):
+                k[key] = max(k[key], worst[key])
+            for config in probes:
+                k[f'{config}_ms'] = times[config, 'B'][0]
+                k[f'{config}_plain_ms'] = times[config, 'B'][1]
+
+
+def se3_paths_phase(kernels) -> None:
+    """Phase 12: the SE(3) and quaternion models' paths at full width; fills
+    in the launches of the trunk kernels' entries."""
+    import torch
+    from hypernerf_tpu_torch.flagship import H, W, flagship_model, spiral_rays
+    from hypernerf_tpu_torch.training.renderer import ImageRenderer
+    chunks_per_frame = -(-W * H // CHUNK)
+    per_frame = 2 * chunks_per_frame
+    frames = spiral_rays((0, 30))
+    counts = {}
+    for label, config, return_points, want in (
+            ('se3', 'se3', False,
+             {'fused_level_fwd': per_frame, 'fused_composite_fwd': per_frame}),
+            ('quaternion', 'quaternion', False,
+             {'fused_level_fwd': per_frame, 'fused_composite_fwd': per_frame}),
+            ('se3 return_points', 'se3', True,
+             {'fused_se3_fwd': per_frame, 'fused_field_fwd': per_frame,
+              'fused_template_fwd': per_frame})):
+        model = flagship_model('cuda', seed=0, config=config)
+        keep = ('rgb', 'depth', 'acc') + (
+            ('med_points',) if return_points else ())
+        renderer = ImageRenderer(model, chunk=CHUNK, keep=keep,
+                                 levels=('fine',), quantize=True)
+        renderer(frames[0])  # warm-up frame: the first launches
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        fine = renderer(frames[1])['fine']
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches = read_counts(want, f'{label} frame')
+        shapes = {'rgb': (W * H, 3), 'depth': (W * H,), 'acc': (W * H,),
+                  'med_points': (W * H, 1, 7)}
+        for k in keep:
+            v = torch.as_tensor(fine[k])
+            if v.shape != shapes[k] or not torch.isfinite(v.float()).all():
+                raise AssertionError(f'{label} frame: {k} {v.shape} not '
+                                     f'finite / misshapen')
+        if fine['rgb'].dtype.name != 'uint8':
+            raise AssertionError(f'{label} frame: rgb {fine["rgb"].dtype}')
+        phase(f'[12] {label}: rendered a {W}x{H} frame (64+64, chunk '
+              f'{CHUNK}): {secs:.4f} s/frame; launches {launches} (= 2 '
+              f'levels x {chunks_per_frame} chunks); no plain call')
+        counts[label, 'frame'] = launches
+        del renderer, model, fine
+        torch.cuda.empty_cache()
+    for config in ('se3', 'quaternion', 'se3_split_glo'):
+        counts[config, 'train'] = train_path(config, '[12]')
+        torch.cuda.empty_cache()
+
+    # query_sigma: one sample per row, a million points of one frame id.
+    model = flagship_model('cuda', seed=0, config='se3')
+    n = 1 << 20
+    gen = torch.Generator(device='cuda').manual_seed(3)
+    pts = torch.randn(n, 3, generator=gen, device='cuda') * 0.5
+    ids = torch.full((n, 1), 3, dtype=torch.int64, device='cuda')
+    with torch.no_grad():
+        model.query_sigma(pts[:4096], ids[:4096])
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        sigma = model.query_sigma(pts, ids)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        counts['se3', 'query_sigma'] = read_counts(
+            {'fused_se3_fwd': 1, 'fused_field_fwd': 1,
+             'fused_template_fwd': 1}, 'se3 query_sigma')
+        with plain_versions():
+            want = model.query_sigma(pts[:4099], ids[:4099])
+    diff = (sigma[:4099] - want).abs()
+    if sigma.shape != (n,) or not torch.isfinite(sigma).all() \
+            or (sigma < 0).any() \
+            or (diff > LEVEL_ATOL + LEVEL_RTOL * want.abs()).any():
+        raise AssertionError(f'se3 query_sigma: shape {tuple(sigma.shape)}, '
+                             f'max|d| {diff.max().item():.3e}')
+    phase(f'[12] se3 query_sigma on {n} points: {secs * 1e3:.2f} ms; '
+          f'launches {counts["se3", "query_sigma"]}; vs the plain versions '
+          f'on 4099 points max|d| {diff.max().item():.3e} (tol '
+          f'{LEVEL_ATOL}+{LEVEL_RTOL}|want|)')
+    for k in kernels:
+        name = k['name']
+        for (label, path), launches in counts.items():
+            if launches.get(name):
+                k[f'{label.replace(" ", "_")}_{path}_launches'] = \
+                    launches[name]
+        if name in ('fused_se3_fwd', 'fused_se3_bwd'):
+            k['launches'] = counts['se3_split_glo', 'train'][name]
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1367,13 +1832,16 @@ def main() -> int:
     train_phase(kernels)
     kernels += modular_kernel_phase()
     modular_paths_phase(kernels)
-    if len(kernels) != 8:
-        raise AssertionError(f'{len(kernels)} kernels in the line, want 8')
+    kernels += se3_kernel_phase()
+    se3_level_phase(kernels)
+    se3_paths_phase(kernels)
+    if len(kernels) != 10:
+        raise AssertionError(f'{len(kernels)} kernels in the line, want 10')
     return finish(kernels)
 
 
 def finish(kernels) -> int:
-    """Phase 10: the kernels' line and the result line."""
+    """Phase 13: the kernels' line and the result line."""
     import torch
     for k in kernels:
         missing = {'name', 'route', 'source', 'replaces', 'launches',

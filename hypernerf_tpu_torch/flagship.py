@@ -1,11 +1,12 @@
 """The flagship setups: the configuration ``bench.py`` renders and trains
-(NerfConfig defaults with 64 + 64 samples, bf16 matmuls) and its ``static``
-and ``split_glo`` variants (``CONFIGS``), a seeded model of each, LLFF
+(NerfConfig defaults with 64 + 64 samples, bf16 matmuls) and its ``static``,
+``split_glo``, ``se3`` and ``quaternion`` variants (``CONFIGS``), a seeded model of each, LLFF
 spiral-path NDC rays of a 504x378 frame, the train step's model, optimizer
 and synthetic ray buffer (``flagship_train_setup``), and the probe weights
 and inputs at which the kernels are held against the JAX kernels' stored
 outputs and gradients (``LEVEL_REFERENCE``, ``GRAD_REFERENCE``,
-``MODULAR_REFERENCE``, written by ``tools/make_level_reference.py``).
+``MODULAR_REFERENCE``, ``SE3_REFERENCE``, written by
+``tools/make_level_reference.py``).
 
 Shared by ``chip_smoke.py``, ``tools/profile_render.py``,
 ``tools/profile_train.py`` and ``tools/make_level_reference.py``.
@@ -46,9 +47,13 @@ GRAD_REFERENCE_CASE = ('coarse', 8, 64, 3)
 # static`` (a plain NeRF: no warp, no hyper coordinates), ``split_glo`` the
 # flagship with ``--share_GLO`` off (the sheet reads its own GLO table). Both
 # run the per-module path: a kernel per field and one for the template.
+# ``se3`` and ``quaternion`` are ``bench.py --mode se3`` / ``--mode
+# quaternion``: the flagship with that warp field, on the level kernels.
 CONFIGS = {'flagship': {},
            'static': dict(use_warp=False, hyper_slice_method='none'),
-           'split_glo': dict(share_glo=False)}
+           'split_glo': dict(share_glo=False),
+           'se3': dict(warp_field_type='se3'),
+           'quaternion': dict(warp_field_type='quaternion')}
 
 
 def flagship_config(config: str = 'flagship', **overrides) -> NerfConfig:
@@ -82,15 +87,17 @@ def synthetic_train_rays(n_rays: int = TRAIN_RAYS):
 
 
 def flagship_train_setup(device, seed: int = 0, batch_size: int = TRAIN_BATCH,
-                         n_rays: int = TRAIN_RAYS, config: str = 'flagship'):
-    """The train step's parts of ``config`` on ``device``: (state, step_fn,
+                         n_rays: int = TRAIN_RAYS, config: str = 'flagship',
+                         **overrides):
+    """The train step's parts of ``config`` (with ``overrides`` of its
+    NerfConfig) on ``device``: (state, step_fn,
     all_rays, all_rgbs) — a seeded model in train mode, Adam at 5e-4 with
     the ``steplr`` schedule at 1000 steps per epoch, the step built by
     ``make_train_step``, and the synthetic ray buffer."""
     from hypernerf_tpu_torch.training.optimizers import get_optimizer
     from hypernerf_tpu_torch.training.train_state import (TrainState,
                                                           make_train_step)
-    cfg = flagship_config(config)
+    cfg = flagship_config(config, **overrides)
     train_cfg = TrainConfig(batch_size=batch_size, lr=5e-4)
     torch.manual_seed(seed)
     model = NerfModel(cfg).to(device).train()
@@ -104,12 +111,19 @@ def flagship_train_setup(device, seed: int = 0, batch_size: int = TRAIN_BATCH,
             torch.from_numpy(rgbs).to(device))
 
 
-def flagship_model(device, seed: int = 0,
-                   config: str = 'flagship') -> NerfModel:
-    """The NerfModel of ``config`` with this package's init drawn from
-    ``seed``, on ``device``, in eval mode."""
+def flagship_model(device, seed: int = 0, config: str = 'flagship',
+                   **overrides) -> NerfModel:
+    """The NerfModel of ``config`` (with ``overrides`` of its NerfConfig)
+    with this package's init drawn from ``seed``, on ``device``, in eval
+    mode."""
     torch.manual_seed(seed)
-    return NerfModel(flagship_config(config)).to(device).eval()
+    return NerfModel(flagship_config(config, **overrides)).to(device).eval()
+
+
+SE3_HEAD_BOUNDS = {'warp_field.w_net.logit.weight': 0.1,
+                   'warp_field.w_net.logit.bias': 0.3,
+                   'warp_field.v_net.logit.weight': 0.02,
+                   'warp_field.v_net.logit.bias': 0.05}
 
 
 def load_probe_weights(model: NerfModel, seed: int = 0) -> NerfModel:
@@ -121,7 +135,11 @@ def load_probe_weights(model: NerfModel, seed: int = 0) -> NerfModel:
     Weights are Xavier-uniform, biases U(+-1/sqrt(fan_in)), a GLO table
     N(0, 0.1 / dim). The warp and hyper heads are drawn large, U(0, 0.01)
     and N(0, 0.05) where the init has U(0, 1e-4) and N(0, 1e-5), so that
-    the 14 warp and hyper layers move the level's output.
+    the 14 warp and hyper layers move the level's output. The SE(3) /
+    quaternion heads are drawn U(+-0.1) (w) and U(+-0.02) (v) with biases
+    U(+-0.3) and U(+-0.05), where the init has U(0, 1e-4) and zero: rotation
+    vectors of 0.1 to 1 rad, so that the retraction and its gradient show
+    above any tolerance.
     """
     rs = np.random.RandomState(seed)
     shapes = {k: tuple(v.shape) for k, v in model.state_dict().items()}
@@ -129,6 +147,9 @@ def load_probe_weights(model: NerfModel, seed: int = 0) -> NerfModel:
     for name, shape in shapes.items():
         if name == 'warp_field.mlp.logit.weight':
             a = rs.uniform(0.0, 0.01, shape)
+        elif name in SE3_HEAD_BOUNDS:
+            bound = SE3_HEAD_BOUNDS[name]
+            a = rs.uniform(-bound, bound, shape)
         elif name == 'hyper_sheet_mlp.mlp.logit.weight':
             a = rs.normal(0.0, 0.05, shape)
         elif name.endswith('_embed.embed.weight'):
@@ -221,6 +242,50 @@ def modular_probe_inputs(case: str) -> dict:
     return {'x_raw': x_raw.astype(np.float32),
             'rgb_cond': posenc_orig(torch.from_numpy(dirs), 6).numpy(),
             'cotangent': rs.randn(rows, 4).astype(np.float32)}
+
+
+# The JAX SE(3) kernels' numbers at the probe weights. A trunk case:
+# (rows, warp_alpha or None, input seed) on the 'se3' model's warp field. A
+# level case: (config, level, rays, samples per ray, warp_alpha or None, seed).
+SE3_REFERENCE = os.path.join(os.path.dirname(LEVEL_REFERENCE),
+                             'fused_se3_jax_ref.npz')
+SE3_TRUNK_CASES = {'trunk': (500, None, 21), 'trunk_window': (500, 3.5, 22)}
+SE3_LEVEL_CASES = {'level_se3': ('se3', 'coarse', 8, 64, None, 23),
+                   'level_se3_window': ('se3', 'fine', 4, 128, 3.5, 24),
+                   'level_quaternion': ('quaternion', 'coarse', 8, 64, None,
+                                        25)}
+
+
+def se3_probe_inputs(case: str) -> dict:
+    """Numpy inputs and cotangent of an ``SE3_TRUNK_CASES`` case ('x_raw'
+    (P, 11) [points on probe rays | GLO codes], 'cotangent' (P, 8) whose
+    first six columns count) or of an ``SE3_LEVEL_CASES`` case (the
+    ``LEVEL_INPUTS`` and 'cotangent' (R * S, 4))."""
+    if case in SE3_TRUNK_CASES:
+        rows, _, seed = SE3_TRUNK_CASES[case]
+        rays = probe_inputs(-(-rows // 64), 64, seed)
+        pts = (rays['origins'][:, None]
+               + rays['z_vals'][..., None] * rays['directions'][:, None])
+        embed = np.repeat(rays['embed'], 64, axis=0)
+        x_raw = np.concatenate([pts.reshape(-1, 3), embed], 1)[:rows]
+        cot = np.random.RandomState(seed + 3000).randn(rows, 8)
+        cot[:, 6:] = 0.0
+        return {'x_raw': x_raw.astype(np.float32),
+                'cotangent': cot.astype(np.float32)}
+    _, _, n_rays, samples, _, seed = SE3_LEVEL_CASES[case]
+    inputs = probe_inputs(n_rays, samples, seed)
+    inputs['cotangent'] = probe_cotangents(n_rays, samples, seed)['level']
+    return inputs
+
+
+def read_se3_reference(path: str = SE3_REFERENCE):
+    """{case: {name: array}} of the SE(3) reference file."""
+    out = {case: {} for case in (*SE3_TRUNK_CASES, *SE3_LEVEL_CASES)}
+    with np.load(path) as f:
+        for key in f.files:
+            case, name = key.split('/', 1)
+            out[case][name] = f[key]
+    return out
 
 
 def read_modular_reference(path: str = MODULAR_REFERENCE):

@@ -23,3 +23,6 @@ from hypernerf_tpu_torch.kernels.fused_level import (
 from hypernerf_tpu_torch.kernels.fused_mlp import (
     FusedTemplateFn, Template, fused_template, fused_template_bwd,
     fused_template_bwd_plain, fused_template_plain)
+from hypernerf_tpu_torch.kernels.fused_se3 import (
+    FusedSE3Fn, fused_se3_bwd, fused_se3_bwd_plain, fused_se3_plain,
+    fused_se3_wv)

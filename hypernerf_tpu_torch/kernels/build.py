@@ -30,15 +30,18 @@ _I = ctypes.c_int
 _L = ctypes.c_longlong
 # C entry points: name -> (argtypes, restype).
 _SIGNATURES = {
-    'hn_fused_level_fwd': ([_P] * 9 + [_L, _I, _P], _I),
-    'hn_fused_level_layout': ([_P, _P, _I], _I),
+    'hn_fused_level_fwd': ([_I] + [_P] * 10 + [_L, _I, _P], _I),
+    'hn_fused_level_layout': ([_I, _P, _P, _I], _I),
     'hn_fused_template_bwd_blocks': ([_L], _I),
     'hn_fused_template_bwd': ([_P] * 9 + [_L, _I, _I, _P], _I),
     'hn_fused_fields_bwd_blocks': ([_L], _I),
-    'hn_fused_fields_bwd': ([_P] * 11 + [_L, _I, _I, _P], _I),
+    'hn_fused_fields_bwd': ([_I] + [_P] * 12 + [_L, _I, _I, _P], _I),
     'hn_fused_field_fwd': ([_I] + [_P] * 5 + [_L, _P], _I),
     'hn_fused_field_bwd_blocks': ([_L], _I),
     'hn_fused_field_bwd': ([_I] + [_P] * 8 + [_L, _I, _P], _I),
+    'hn_fused_se3_fwd': ([_P] * 5 + [_L, _P], _I),
+    'hn_fused_se3_bwd_blocks': ([_L], _I),
+    'hn_fused_se3_bwd': ([_P] * 8 + [_L, _I, _P], _I),
     'hn_fused_template_fwd': ([_P] * 5 + [_L, _I, _P], _I),
     'hn_fused_composite_fwd': ([_P] * 8 + [_L, _I, _I, _I, _I, _P], _I),
     'hn_fused_composite_bwd': ([_P] * 9 + [_L, _I, _I, _I, _P], _I),

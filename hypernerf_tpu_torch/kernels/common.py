@@ -18,6 +18,7 @@ import torch.nn.functional as F
 
 from hypernerf_tpu_torch.kernels import build
 from hypernerf_tpu_torch.models.modules import MLP, dense
+from hypernerf_tpu_torch.ops.posenc import posenc_window
 
 # The widths the CUDA kernels are compiled for (NerfConfig's flagship).
 FLAGSHIP = dict(embed=8, warp_freq=10, hyper_sheet_freq=7, hyper_out=4,
@@ -25,6 +26,12 @@ FLAGSHIP = dict(embed=8, warp_freq=10, hyper_sheet_freq=7, hyper_out=4,
 # Layers of the compiled table (csrc/level_common.cuh): warp, sheet, template.
 WARP_LAYERS, SHEET_LAYERS, TEMPLATE_LAYERS = slice(0, 7), slice(7, 14), \
     slice(14, 30)
+# The kernels' codes of the warp types. SE(3) and quaternion share a second
+# compiled table, whose first nine layers are the trunk (6 hidden layers, the
+# trunk logit, the w and the v head) on the Nerfies encoding below.
+WARP_CODES = {'translation': 0, 'se3': 1, 'quaternion': 2}
+SE3_LAYERS = slice(0, 9)
+SE3_FLAGSHIP = dict(embed=8, min_deg=0, max_deg=8)
 NOT_COVERED = ('the CUDA kernels cover the flagship widths in bf16 only; '
                'other widths are ROADMAP item A.13 (kernel generality)')
 
@@ -138,20 +145,21 @@ def unpack_grads(dw_blob, db_blob, layers, shapes):
 
 
 @functools.cache
-def kernel_layout():
-    """[(n_pad, k_pad)] of the compiled layer table, in layer order."""
+def kernel_layout(warp: str = 'translation'):
+    """[(n_pad, k_pad)] of the compiled layer table of the level with warp
+    type ``warp``, in layer order."""
     lib = build.library()
     n = (ctypes.c_int * 64)()
     k = (ctypes.c_int * 64)()
-    count = lib.hn_fused_level_layout(ctypes.addressof(n),
+    count = lib.hn_fused_level_layout(WARP_CODES[warp], ctypes.addressof(n),
                                       ctypes.addressof(k), 64)
     return [(n[i], k[i]) for i in range(count)]
 
 
-def check_layout(shapes, table: slice) -> None:
+def check_layout(shapes, table: slice, warp: str = 'translation') -> None:
     """Raise unless packed ``shapes`` are rows ``table`` of the compiled
-    layer table."""
-    if shapes != kernel_layout()[table]:
+    layer table of warp type ``warp``."""
+    if shapes != kernel_layout(warp)[table]:
         raise NotImplementedError(f'{NOT_COVERED}; layer shapes {shapes}')
 
 
@@ -176,6 +184,51 @@ def prod(a, b, dt):
     """a @ b with compute-dtype operands summed in at least fp32."""
     acc = acc_dtype(dt)
     return a.to(dt).to(acc) @ b.to(dt).to(acc)
+
+
+def encoding_scales(segments, alphas, device=None) -> torch.Tensor:
+    """The fp32 window row over the encoded features of ``segments``.
+
+    A segment is (channels, bands) — posenc_orig: identity first, bands from
+    degree 0 — or (channels, bands, min_deg, use_identity); 0 bands is a raw
+    pass-through. ``alphas`` holds one entry per segment: None (fully on) or
+    the ``posenc_window`` alpha, with bands counted from ``min_deg``.
+    Identity and pass-through features weigh 1, band k's sin and cos features
+    the window's weight of band k.
+    """
+    parts = []
+    for seg, alpha in zip(segments, alphas):
+        ch, n_freq, min_deg, ident = (*seg, 0, True) if len(seg) == 2 else seg
+        ones = torch.ones(ch, dtype=torch.float32, device=device)
+        if n_freq == 0:
+            parts.append(ones)
+            continue
+        if ident:
+            parts.append(ones)
+        band = (torch.ones(n_freq, dtype=torch.float32, device=device)
+                if alpha is None else
+                posenc_window(min_deg, min_deg + n_freq, alpha, device))
+        band = band.repeat_interleave(ch)
+        parts += [band, band]
+    return torch.cat(parts)
+
+
+def scaled(enc, scales, dt):
+    """The rounded encoding times the window row, rounded again."""
+    if scales is None:
+        return enc
+    return (enc.to(acc_dtype(dt)) * scales.reshape(1, -1)).to(dt)
+
+
+def padded_scales(scales, enc: int, enc_pad: int, device):
+    """The window row as a kernel takes it: fp32, contiguous, zero-padded
+    from ``enc`` to ``enc_pad`` features; None stays None."""
+    if scales is None:
+        return None
+    scales = F.pad(scales.detach().reshape(-1).float(),
+                   (0, enc_pad - enc)).contiguous()
+    build.check_tensor('scales', scales, (enc_pad,), torch.float32, device)
+    return scales
 
 
 def posenc_trig(x, n_freqs: int):

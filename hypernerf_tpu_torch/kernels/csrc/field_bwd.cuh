@@ -57,60 +57,63 @@ __device__ __forceinline__ void encode_field(bf16* X, int col,
   }
 }
 
-template <class P, int LB, int I>
+// Hidden layer I of a field back: dW, db, then the cotangent through it. C is
+// the tile's configuration and T the layer table (the level with the SE(3)
+// warp keeps the sheet in a wider tile and at other rows of another table).
+template <class P, int LB, int I, class C = CF, class T = TransTable>
 __device__ __forceinline__ void field_back(bf16* X, const bf16* Wt,
                                            float* grad_w, float* grad_b) {
   constexpr int L = LB + I;
-  bwd_dw<CF, L, 0>(X, P::g, P::in(I), grad_w);
-  bwd_db<CF, L, 0>(X, P::g, grad_b);
-  bwd_dx<CF, L>(X, P::g, P::g, Wt, I > 0 ? P::h(I > 0 ? I - 1 : 0) : 0,
-                I > 0 ? layer_shape(LB).n : 0);
+  bwd_dw<C, L, 0, T>(X, P::g, P::in(I), grad_w);
+  bwd_db<C, L, 0, T>(X, P::g, grad_b);
+  bwd_dx<C, L, T>(X, P::g, P::g, Wt, I > 0 ? P::h(I > 0 ? I - 1 : 0) : 0,
+                  I > 0 ? layer_shape<T>(LB).n : 0);
 }
 
 // One field (layers LB .. LB + 6, width W, F bands) on the tile: recompute,
 // walk back from the head cotangent hg, and write its d[pts | embed] into
 // dacc[ROWS][12]. W, Wt, B, grad_w and grad_b are indexed by the level's
 // layer table (layer 0 at offset 0).
-template <class P, int LB, int F>
+template <class P, int LB, int F, class C = CF, class T = TransTable>
 __device__ __forceinline__ void field_bwd(bf16* X, const float* rowin,
                                           const float* hg, float* dacc,
                                           const bf16* W, const bf16* Wt,
                                           const bf16* B, float* grad_w,
                                           float* grad_b,
                                           const float* __restrict__ scales) {
-  constexpr int Wd = layer_shape(LB).n;
-  constexpr int kEncP = layer_shape(LB).k;
+  constexpr int Wd = layer_shape<T>(LB).n;
+  constexpr int kEncP = layer_shape<T>(LB).k;
   constexpr int kPts = 3 * (1 + 2 * F);
   const int tid = threadIdx.x;
-  encode_field<CF, F, kEncP>(X, P::enc, rowin, scales);
+  encode_field<C, F, kEncP>(X, P::enc, rowin, scales);
   __syncthreads();
-  fwd_layer<CF, LB + 0, true>(X, P::in(0), P::h(0), W, B);
-  fwd_layer<CF, LB + 1, true>(X, P::in(1), P::h(1), W, B);
-  fwd_layer<CF, LB + 2, true>(X, P::in(2), P::h(2), W, B);
-  fwd_layer<CF, LB + 3, true>(X, P::in(3), P::h(3), W, B);
-  fwd_layer<CF, LB + 4, true>(X, P::in(4), P::h(4), W, B);
-  fwd_layer<CF, LB + 5, true>(X, P::in(5), P::h(5), W, B);
+  fwd_layer<C, LB + 0, true, T>(X, P::in(0), P::h(0), W, B);
+  fwd_layer<C, LB + 1, true, T>(X, P::in(1), P::h(1), W, B);
+  fwd_layer<C, LB + 2, true, T>(X, P::in(2), P::h(2), W, B);
+  fwd_layer<C, LB + 3, true, T>(X, P::in(3), P::h(3), W, B);
+  fwd_layer<C, LB + 4, true, T>(X, P::in(4), P::h(4), W, B);
+  fwd_layer<C, LB + 5, true, T>(X, P::in(5), P::h(5), W, B);
 
-  head_dw_db<CF, LB + 6, 0>(X, P::h(5), hg, grad_w, grad_b);
-  for (int e = tid; e < CF::ROWS * Wd; e += CF::THREADS) {
+  head_dw_db<C, LB + 6, 0, T>(X, P::h(5), hg, grad_w, grad_b);
+  for (int e = tid; e < C::ROWS * Wd; e += C::THREADS) {
     const int r = e / Wd, k = e % Wd;
-    const float v = head_dx<LB + 6>(hg + r * 8, W, k);
-    const bool on = __bfloat162float(X[r * CF::LD + P::h(5) + k]) > 0.f;
-    X[r * CF::LD + P::g + k] = __float2bfloat16_rn(on ? v : 0.f);
+    const float v = head_dx<LB + 6, T>(hg + r * 8, W, k);
+    const bool on = __bfloat162float(X[r * C::LD + P::h(5) + k]) > 0.f;
+    X[r * C::LD + P::g + k] = __float2bfloat16_rn(on ? v : 0.f);
   }
   __syncthreads();
-  field_back<P, LB, 5>(X, Wt, grad_w, grad_b);  // writes the skip part
-  field_back<P, LB, 4>(X, Wt, grad_w, grad_b);
-  field_back<P, LB, 3>(X, Wt, grad_w, grad_b);
-  field_back<P, LB, 2>(X, Wt, grad_w, grad_b);
-  field_back<P, LB, 1>(X, Wt, grad_w, grad_b);
-  field_back<P, LB, 0>(X, Wt, grad_w, grad_b);  // -> d enc in g[0:E]
+  field_back<P, LB, 5, C, T>(X, Wt, grad_w, grad_b);  // writes the skip part
+  field_back<P, LB, 4, C, T>(X, Wt, grad_w, grad_b);
+  field_back<P, LB, 3, C, T>(X, Wt, grad_w, grad_b);
+  field_back<P, LB, 2, C, T>(X, Wt, grad_w, grad_b);
+  field_back<P, LB, 1, C, T>(X, Wt, grad_w, grad_b);
+  field_back<P, LB, 0, C, T>(X, Wt, grad_w, grad_b);  // -> d enc in g[0:E]
 
   // d enc = layer 0's part + the skip part, in fp32, times the window row;
   // posenc VJP for the points, the embedding passes through.
-  for (int e = tid; e < CF::ROWS * 11; e += CF::THREADS) {
+  for (int e = tid; e < C::ROWS * 11; e += C::THREADS) {
     const int r = e / 11, c = e % 11;
-    const bf16* gr = X + r * CF::LD + P::g;
+    const bf16* gr = X + r * C::LD + P::g;
     auto gx = [&](int f) {
       const float v =
           __bfloat162float(gr[f]) + __bfloat162float(gr[Wd + f]);

@@ -1,14 +1,19 @@
 // One HyperNeRF level forward in one kernel, for Hopper (sm_90a).
 //
 // Replaces hypernerf_tpu/ops/pallas/fused_level.py `_fused` (forward,
-// fused_level.py:1322) in its ray-native mode, for the flagship spec only:
-// translation warp, bendy sheet, posenc_orig encodings, no alpha condition.
+// fused_level.py:1322) in its ray-native mode, for the flagship spec with
+// each of its three warp types (translation, SE(3), quaternion:
+// `_warp_fwd_tile_gen` :330-344): bendy sheet, posenc_orig encodings, no alpha
+// condition.
 // When asked (training) it also writes the template's raw input
 // raw_t = [warped | hyper | 0] (P, 8) fp32, the residual the TPU kernel
 // saves for its backward (fused_level.py:1339-1344).
 // Per sample row p of ray p / S:
 //   pts    = o + z * d
 //   warped = pts + WarpMLP(posenc_orig(pts, 10) ++ embed)        6 x 128
+//            or, SE(3) / quaternion (se3_trunk.cuh):
+//            (w, v) = heads(Trunk(posenc(pts, 0..8) ++ embed))    6 x 128 + 128
+//            warped = retraction(w, v, pts), fp32, one thread per row
 //   hyper  = HyperMLP(posenc_orig(pts, 7) ++ embed)               6 x 64 -> 4
 //   h      = Trunk(posenc_orig(warped, 10) ++ posenc_orig(hyper, 6))  8 x 256,
 //            skip at 4, ReLU logit 256
@@ -34,7 +39,9 @@
 // Streaming weights through shared memory with TMA and wgmma is left for
 // a later change.
 
-#include "level_common.cuh"
+#include <type_traits>
+
+#include "se3_trunk.cuh"
 
 namespace {
 
@@ -52,6 +59,9 @@ constexpr int kLd = kTrunkW + kTmplEncP + 8;  // 392
 //   hyper     h [0, 64)    enc [64, 128)
 //   template  h [0, 256)   enc [256, 384)
 //   rgb       b/h [0, 128) rgb_cond [128, 176)
+
+// The tile as the shared device code (se3_trunk.cuh) sees it.
+using CL = Cfg<kMT, kLd, kWarps>;
 
 // n8 tiles per warp for an N-wide layer.
 template <int N>
@@ -104,20 +114,20 @@ __device__ __forceinline__ void gemm(const bf16* X, int a_col,
 
 // Hidden layer L: reads X[:, a_col : a_col + K], writes bf16
 // [relu](acc + b) to X[:, 0 : N] in place.
-template <int L, bool kRelu>
+template <int L, bool kRelu, class T = TransTable>
 __device__ __forceinline__ void hidden_layer(bf16* X, int a_col,
                                              const bf16* __restrict__ W,
                                              const bf16* __restrict__ B) {
-  constexpr int N = layer_shape(L).n, K = layer_shape(L).k;
-  constexpr int T = Tiles<N>::v;
-  float acc[kMT][T][4];
-  gemm<N, K>(X, a_col, W + weight_offset(L), acc);
+  constexpr int N = layer_shape<T>(L).n, K = layer_shape<T>(L).k;
+  constexpr int NT = Tiles<N>::v;
+  float acc[kMT][NT][4];
+  gemm<N, K>(X, a_col, W + weight_offset<T>(L), acc);
   __syncthreads();  // every read of X done before the in-place write
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
-  const bf16* bias = B + bias_offset(L);
+  const bf16* bias = B + bias_offset<T>(L);
 #pragma unroll
-  for (int i = 0; i < T; ++i) {
+  for (int i = 0; i < NT; ++i) {
     const int j = warp + kWarps * i;
     if (j * 8 >= N) continue;
     const int n = j * 8 + 2 * t;
@@ -144,18 +154,18 @@ __device__ __forceinline__ void hidden_layer(bf16* X, int a_col,
 }
 
 // Head L (N = 8): head[r][0:8] = fp32 acc + b.
-template <int L>
+template <int L, class T = TransTable>
 __device__ __forceinline__ void head_layer(const bf16* X, int a_col,
                                            const bf16* __restrict__ W,
                                            const bf16* __restrict__ B,
                                            float* head) {
-  constexpr int N = layer_shape(L).n, K = layer_shape(L).k;
+  constexpr int N = layer_shape<T>(L).n, K = layer_shape<T>(L).k;
   static_assert(N == 8, "heads are one n8 tile");
   float acc[kMT][1][4];
-  gemm<N, K>(X, a_col, W + weight_offset(L), acc);
+  gemm<N, K>(X, a_col, W + weight_offset<T>(L), acc);
   const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
   if (threadIdx.x < 32) {
-    const bf16* bias = B + bias_offset(L);
+    const bf16* bias = B + bias_offset<T>(L);
     const float b0 = __bfloat162float(bias[2 * t]);
     const float b1 = __bfloat162float(bias[2 * t + 1]);
 #pragma unroll
@@ -187,15 +197,21 @@ __device__ __forceinline__ void encode_field(bf16* X, int col,
   }
 }
 
+// kWarp: 0 the translation warp, 1 SE(3), 2 quaternion (Se3Table's layers:
+// the trunk, its two heads, then the retraction in fp32, one thread per row).
+template <int kWarp>
 __global__ void __launch_bounds__(kThreads, 2)
 fused_level_fwd_kernel(const float* __restrict__ zs,
                        const float* __restrict__ origins,
                        const float* __restrict__ dirs,
                        const float* __restrict__ embed,
                        const bf16* __restrict__ rgb_cond,
+                       const float* __restrict__ warp_scales,
                        const bf16* __restrict__ W, const bf16* __restrict__ B,
                        float* __restrict__ out, float* __restrict__ raw_t,
                        long long n_points, int samples) {
+  using T = typename std::conditional<kWarp == 0, TransTable, Se3Table>::type;
+  constexpr int H0 = T::kWarp, T0 = T::kFields;  // first sheet / template layer
   extern __shared__ __align__(16) unsigned char smem[];
   bf16* X = reinterpret_cast<bf16*>(smem);                    // [kRows][kLd]
   float* rowin = reinterpret_cast<float*>(X + kRows * kLd);    // [kRows][12]
@@ -223,32 +239,49 @@ fused_level_fwd_kernel(const float* __restrict__ zs,
   }
   __syncthreads();
 
-  // Warp field -> warped = pts + delta.
-  encode_field<kWarpF, kWarpEncP>(X, kWarpW, rowin);
-  __syncthreads();
-  hidden_layer<0, true>(X, kWarpW, W, B);
-  hidden_layer<1, true>(X, 0, W, B);
-  hidden_layer<2, true>(X, 0, W, B);
-  hidden_layer<3, true>(X, 0, W, B);
-  hidden_layer<4, true>(X, 0, W, B);
-  hidden_layer<5, true>(X, 0, W, B);
-  head_layer<6>(X, 0, W, B, head);
-  for (int e = tid; e < kRows * 3; e += kThreads) {
-    const int r = e / 3, c = e % 3;
-    rawt[r * 8 + c] = rowin[r * 12 + c] + head[r * 8 + c];
+  if constexpr (kWarp == 0) {
+    // Warp field -> warped = pts + delta.
+    encode_field<kWarpF, kWarpEncP>(X, kWarpW, rowin);
+    __syncthreads();
+    hidden_layer<0, true>(X, kWarpW, W, B);
+    hidden_layer<1, true>(X, 0, W, B);
+    hidden_layer<2, true>(X, 0, W, B);
+    hidden_layer<3, true>(X, 0, W, B);
+    hidden_layer<4, true>(X, 0, W, B);
+    hidden_layer<5, true>(X, 0, W, B);
+    head_layer<6>(X, 0, W, B, head);
+    for (int e = tid; e < kRows * 3; e += kThreads) {
+      const int r = e / 3, c = e % 3;
+      rawt[r * 8 + c] = rowin[r * 12 + c] + head[r * 8 + c];
+    }
+  } else {
+    // SE(3) / quaternion trunk -> (w, v) -> warped = retraction(w, v, pts).
+    encode_se3<CL>(X, kSe3W, rowin, warp_scales);
+    __syncthreads();
+    hidden_layer<0, true, T>(X, kSe3W, W, B);
+    hidden_layer<1, true, T>(X, 0, W, B);
+    hidden_layer<2, true, T>(X, 0, W, B);
+    hidden_layer<3, true, T>(X, 0, W, B);
+    hidden_layer<4, true, T>(X, 0, W, B);
+    hidden_layer<5, true, T>(X, 0, W, B);
+    hidden_layer<kSe3Trunk, false, T>(X, 0, W, B);  // rounded, no ReLU
+    se3_heads_fwd<CL>(X, 0, W, B, head);
+    if (tid < kRows)
+      retract<kWarp == 2>(head + tid * 8, head + tid * 8 + 3,
+                          rowin + tid * 12, rawt + tid * 8);
   }
   __syncthreads();
 
   // Hyper sheet -> hyper coordinates.
   encode_field<kHypF, kHypEncP>(X, kHypW, rowin);
   __syncthreads();
-  hidden_layer<7, true>(X, kHypW, W, B);
-  hidden_layer<8, true>(X, 0, W, B);
-  hidden_layer<9, true>(X, 0, W, B);
-  hidden_layer<10, true>(X, 0, W, B);
-  hidden_layer<11, true>(X, 0, W, B);
-  hidden_layer<12, true>(X, 0, W, B);
-  head_layer<13>(X, 0, W, B, head);
+  hidden_layer<H0 + 0, true, T>(X, kHypW, W, B);
+  hidden_layer<H0 + 1, true, T>(X, 0, W, B);
+  hidden_layer<H0 + 2, true, T>(X, 0, W, B);
+  hidden_layer<H0 + 3, true, T>(X, 0, W, B);
+  hidden_layer<H0 + 4, true, T>(X, 0, W, B);
+  hidden_layer<H0 + 5, true, T>(X, 0, W, B);
+  head_layer<H0 + 6, T>(X, 0, W, B, head);
   for (int e = tid; e < kRows * kHypOut; e += kThreads) {
     const int r = e / kHypOut, c = e % kHypOut;
     rawt[r * 8 + 3 + c] = head[r * 8 + c];
@@ -274,17 +307,17 @@ fused_level_fwd_kernel(const float* __restrict__ zs,
     X[r * kLd + kTrunkW + f] = __float2bfloat16_rn(v);
   }
   __syncthreads();
-  hidden_layer<14, true>(X, kTrunkW, W, B);
-  hidden_layer<15, true>(X, 0, W, B);
-  hidden_layer<16, true>(X, 0, W, B);
-  hidden_layer<17, true>(X, 0, W, B);
-  hidden_layer<18, true>(X, 0, W, B);
-  hidden_layer<19, true>(X, 0, W, B);
-  hidden_layer<20, true>(X, 0, W, B);
-  hidden_layer<21, true>(X, 0, W, B);
-  hidden_layer<22, true>(X, 0, W, B);   // trunk logit (ReLU)
-  hidden_layer<23, false>(X, 0, W, B);  // bottleneck (rounded, no ReLU)
-  head_layer<24>(X, 0, W, B, head);     // alpha
+  hidden_layer<T0 + 0, true, T>(X, kTrunkW, W, B);
+  hidden_layer<T0 + 1, true, T>(X, 0, W, B);
+  hidden_layer<T0 + 2, true, T>(X, 0, W, B);
+  hidden_layer<T0 + 3, true, T>(X, 0, W, B);
+  hidden_layer<T0 + 4, true, T>(X, 0, W, B);
+  hidden_layer<T0 + 5, true, T>(X, 0, W, B);
+  hidden_layer<T0 + 6, true, T>(X, 0, W, B);
+  hidden_layer<T0 + 7, true, T>(X, 0, W, B);
+  hidden_layer<T0 + 8, true, T>(X, 0, W, B);   // trunk logit (ReLU)
+  hidden_layer<T0 + 9, false, T>(X, 0, W, B);  // bottleneck (rounded, no ReLU)
+  head_layer<T0 + 10, T>(X, 0, W, B, head);     // alpha
   if (tid < kRows) outv[tid * 4 + 3] = head[tid * 8];
   // rgb condition after the bottleneck: X[:, 128 : 176].
   for (int e = tid; e < kRows * kCondP; e += kThreads) {
@@ -294,11 +327,11 @@ fused_level_fwd_kernel(const float* __restrict__ zs,
                   : __float2bfloat16_rn(0.f);
   }
   __syncthreads();
-  hidden_layer<25, true>(X, 0, W, B);
-  hidden_layer<26, true>(X, 0, W, B);
-  hidden_layer<27, true>(X, 0, W, B);
-  hidden_layer<28, true>(X, 0, W, B);
-  head_layer<29>(X, 0, W, B, head);  // rgb logits
+  hidden_layer<T0 + 11, true, T>(X, 0, W, B);
+  hidden_layer<T0 + 12, true, T>(X, 0, W, B);
+  hidden_layer<T0 + 13, true, T>(X, 0, W, B);
+  hidden_layer<T0 + 14, true, T>(X, 0, W, B);
+  head_layer<T0 + 15, T>(X, 0, W, B, head);  // rgb logits
 
   if (tid < kRows && row0 + tid < n_points) {
     const float* h = head + tid * 8;
@@ -313,34 +346,72 @@ constexpr size_t kSmemBytes = sizeof(bf16) * kRows * kLd +
 
 }  // namespace
 
-extern "C" int hn_fused_level_layout(int* n, int* k, int max_layers) {
-  for (int l = 0; l < kNumLayers && l < max_layers; ++l) {
-    n[l] = layer_shape(l).n;
-    k[l] = layer_shape(l).k;
+// The compiled layer table of the level with warp `warp_type` (0 translation,
+// 1 SE(3), 2 quaternion: the last two share one table).
+extern "C" int hn_fused_level_layout(int warp_type, int* n, int* k,
+                                     int max_layers) {
+  const int count = warp_type == 0 ? TransTable::kNum : Se3Table::kNum;
+  for (int l = 0; l < count && l < max_layers; ++l) {
+    const Shape s = warp_type == 0 ? TransTable::shape(l) : Se3Table::shape(l);
+    n[l] = s.n;
+    k[l] = s.k;
   }
-  return kNumLayers;
+  return count;
 }
 
-extern "C" int hn_fused_level_fwd(const void* z, const void* origins,
-                                  const void* dirs, const void* embed,
-                                  const void* rgb_cond, const void* weights,
-                                  const void* biases, void* out,
-                                  void* raw_t, long long n_rays, int samples,
-                                  void* stream) {
-  const long long n_points = n_rays * samples;
+namespace {
+
+template <int kWarp>
+int launch_level_fwd(const void* z, const void* origins, const void* dirs,
+                     const void* embed, const void* rgb_cond,
+                     const void* warp_scales, const void* weights,
+                     const void* biases, void* out, void* raw_t,
+                     long long n_points, int samples, void* stream) {
   const long long blocks = (n_points + kRows - 1) / kRows;
   cudaError_t err = cudaFuncSetAttribute(
-      fused_level_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)kSmemBytes);
+      fused_level_fwd_kernel<kWarp>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kSmemBytes);
   if (err != cudaSuccess) return (int)err;
   if (blocks > 0) {
-    fused_level_fwd_kernel<<<(unsigned)blocks, kThreads, kSmemBytes,
-                             (cudaStream_t)stream>>>(
+    fused_level_fwd_kernel<kWarp><<<(unsigned)blocks, kThreads, kSmemBytes,
+                                    (cudaStream_t)stream>>>(
         static_cast<const float*>(z), static_cast<const float*>(origins),
         static_cast<const float*>(dirs), static_cast<const float*>(embed),
-        static_cast<const bf16*>(rgb_cond), static_cast<const bf16*>(weights),
-        static_cast<const bf16*>(biases), static_cast<float*>(out),
-        static_cast<float*>(raw_t), n_points, samples);
+        static_cast<const bf16*>(rgb_cond),
+        static_cast<const float*>(warp_scales),
+        static_cast<const bf16*>(weights), static_cast<const bf16*>(biases),
+        static_cast<float*>(out), static_cast<float*>(raw_t), n_points,
+        samples);
   }
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// warp_type: 0 translation, 1 SE(3), 2 quaternion; weights / biases in that
+// type's table. warp_scales: null, or the 64 fp32 window weights of the SE(3)
+// / quaternion trunk's encoding (unused by the translation warp).
+extern "C" int hn_fused_level_fwd(int warp_type, const void* z,
+                                  const void* origins, const void* dirs,
+                                  const void* embed, const void* rgb_cond,
+                                  const void* warp_scales, const void* weights,
+                                  const void* biases, void* out, void* raw_t,
+                                  long long n_rays, int samples,
+                                  void* stream) {
+  const long long n_points = n_rays * samples;
+  switch (warp_type) {
+    case 0:
+      return launch_level_fwd<0>(z, origins, dirs, embed, rgb_cond,
+                                 warp_scales, weights, biases, out, raw_t,
+                                 n_points, samples, stream);
+    case 1:
+      return launch_level_fwd<1>(z, origins, dirs, embed, rgb_cond,
+                                 warp_scales, weights, biases, out, raw_t,
+                                 n_points, samples, stream);
+    case 2:
+      return launch_level_fwd<2>(z, origins, dirs, embed, rgb_cond,
+                                 warp_scales, weights, biases, out, raw_t,
+                                 n_points, samples, stream);
+  }
+  return (int)cudaErrorInvalidValue;
 }

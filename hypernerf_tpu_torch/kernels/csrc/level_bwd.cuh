@@ -99,19 +99,19 @@ __device__ __forceinline__ void gemm(
 // Recompute of hidden layer L: X[:, out_col : out_col + N] =
 // bf16([relu](X[:, in_col : in_col + K] @ W_L^T + b_L)). The output columns
 // are not the input's, so one barrier after the write is enough.
-template <class C, int L, bool kRelu>
+template <class C, int L, bool kRelu, class T = TransTable>
 __device__ __forceinline__ void fwd_layer(bf16* X, int in_col, int out_col,
                                           const bf16* __restrict__ W,
                                           const bf16* __restrict__ B) {
-  constexpr int N = layer_shape(L).n, K = layer_shape(L).k;
-  constexpr int T = tiles_per_warp<C, N>();
-  float acc[C::MT][T][4];
-  gemm<C, N, K>(X, in_col, W + weight_offset(L), acc);
+  constexpr int N = layer_shape<T>(L).n, K = layer_shape<T>(L).k;
+  constexpr int NT = tiles_per_warp<C, N>();
+  float acc[C::MT][NT][4];
+  gemm<C, N, K>(X, in_col, W + weight_offset<T>(L), acc);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
-  const bf16* bias = B + bias_offset(L);
+  const bf16* bias = B + bias_offset<T>(L);
 #pragma unroll
-  for (int i = 0; i < T; ++i) {
+  for (int i = 0; i < NT; ++i) {
     const int j = warp + C::NW * i;
     if (j * 8 >= N) continue;
     const int n = j * 8 + 2 * t;
@@ -139,18 +139,18 @@ __device__ __forceinline__ void fwd_layer(bf16* X, int in_col, int out_col,
 
 // Forward of a head L (out <= 8 after padding): head[r][0:8] =
 // fp32(X[:, in_col : in_col + K] @ W_L^T + b_L), one n8 tile on warp 0.
-template <class C, int L>
+template <class C, int L, class T = TransTable>
 __device__ __forceinline__ void head_fwd(const bf16* X, int in_col,
                                          const bf16* __restrict__ W,
                                          const bf16* __restrict__ B,
                                          float* head) {
-  constexpr int K = layer_shape(L).k;
-  static_assert(layer_shape(L).n == 8, "heads are padded to 8");
+  constexpr int K = layer_shape<T>(L).k;
+  static_assert(layer_shape<T>(L).n == 8, "heads are padded to 8");
   float acc[C::MT][1][4];
-  gemm<C, 8, K>(X, in_col, W + weight_offset(L), acc);
+  gemm<C, 8, K>(X, in_col, W + weight_offset<T>(L), acc);
   const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
   if (threadIdx.x < 32) {
-    const bf16* bias = B + bias_offset(L);
+    const bf16* bias = B + bias_offset<T>(L);
     const float b0 = __bfloat162float(bias[2 * t]);
     const float b1 = __bfloat162float(bias[2 * t + 1]);
 #pragma unroll
@@ -171,19 +171,19 @@ __device__ __forceinline__ void head_fwd(const bf16* X, int in_col,
 // skip input, k >= mask_w, has none). Wt holds W_L^T, (K, N) row-major. The
 // output may overlap the input: everything is read before the barrier and
 // written after it.
-template <class C, int L>
+template <class C, int L, class T = TransTable>
 __device__ __forceinline__ void bwd_dx(bf16* X, int g_col, int out_col,
                                        const bf16* __restrict__ Wt,
                                        int mask_col, int mask_w) {
-  constexpr int N = layer_shape(L).n, K = layer_shape(L).k;
-  constexpr int T = tiles_per_warp<C, K>();
-  float acc[C::MT][T][4];
-  gemm<C, K, N>(X, g_col, Wt + weight_offset(L), acc);
+  constexpr int N = layer_shape<T>(L).n, K = layer_shape<T>(L).k;
+  constexpr int NT = tiles_per_warp<C, K>();
+  float acc[C::MT][NT][4];
+  gemm<C, K, N>(X, g_col, Wt + weight_offset<T>(L), acc);
   __syncthreads();
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
 #pragma unroll
-  for (int i = 0; i < T; ++i) {
+  for (int i = 0; i < NT; ++i) {
     const int j = warp + C::NW * i;
     if (j * 8 >= K) continue;
     const int k = j * 8 + 2 * t;
@@ -223,12 +223,12 @@ __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
 // M = out, N = in, K = rows, so both operands are the transposes of what the
 // tile stores, which ldmatrix.trans delivers. No barrier inside: it only
 // reads X.
-template <class C, int L, int L0>
+template <class C, int L, int L0, class T = TransTable>
 __device__ __forceinline__ void bwd_dw(const bf16* X, int g_col, int h_col,
                                        float* __restrict__ grad_w) {
-  constexpr int N = layer_shape(L).n, K = layer_shape(L).k;
+  constexpr int N = layer_shape<T>(L).n, K = layer_shape<T>(L).k;
   static_assert(N % 16 == 0 && K % 16 == 0, "16 x 16 pieces");
-  float* dw = grad_w + (weight_offset(L) - weight_offset(L0));
+  float* dw = grad_w + (weight_offset<T>(L) - weight_offset<T>(L0));
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
   const int q = lane >> 3, i8 = lane & 7;
@@ -259,11 +259,11 @@ __device__ __forceinline__ void bwd_dw(const bf16* X, int g_col, int h_col,
 
 // db_L[n] += sum_r float(X[r][g_col + n]): a hidden layer's bias gradient
 // sums the bf16-rounded cotangent.
-template <class C, int L, int L0>
+template <class C, int L, int L0, class T = TransTable>
 __device__ __forceinline__ void bwd_db(const bf16* X, int g_col,
                                        float* __restrict__ grad_b) {
-  constexpr int N = layer_shape(L).n;
-  float* db = grad_b + (bias_offset(L) - bias_offset(L0));
+  constexpr int N = layer_shape<T>(L).n;
+  float* db = grad_b + (bias_offset<T>(L) - bias_offset<T>(L0));
   for (int n = threadIdx.x; n < N; n += C::THREADS) {
     float s = 0.f;
     for (int r = 0; r < C::ROWS; ++r)
@@ -275,15 +275,15 @@ __device__ __forceinline__ void bwd_db(const bf16* X, int g_col,
 // A head L (out <= 8 after padding) with its fp32 cotangent hg[ROWS][8]
 // (pad columns zero): dW_L[n][k] += sum_r bf16(hg[r][n]) * X[r][h_col + k]
 // and db_L[n] += sum_r hg[r][n] (fp32, unrounded).
-template <class C, int L, int L0>
+template <class C, int L, int L0, class T = TransTable>
 __device__ __forceinline__ void head_dw_db(const bf16* X, int h_col,
                                            const float* hg,
                                            float* __restrict__ grad_w,
                                            float* __restrict__ grad_b) {
-  constexpr int K = layer_shape(L).k;
-  static_assert(layer_shape(L).n == 8, "heads are padded to 8");
-  float* dw = grad_w + (weight_offset(L) - weight_offset(L0));
-  float* db = grad_b + (bias_offset(L) - bias_offset(L0));
+  constexpr int K = layer_shape<T>(L).k;
+  static_assert(layer_shape<T>(L).n == 8, "heads are padded to 8");
+  float* dw = grad_w + (weight_offset<T>(L) - weight_offset<T>(L0));
+  float* db = grad_b + (bias_offset<T>(L) - bias_offset<T>(L0));
   for (int e = threadIdx.x; e < 8 * K; e += C::THREADS) {
     const int n = e / K, k = e % K;
     float s = 0.f;
@@ -300,11 +300,11 @@ __device__ __forceinline__ void head_dw_db(const bf16* X, int h_col,
 }
 
 // fp32 (bf16(hg[r][:]) @ W_L)[k] for a head L; W is the (8, K) weight.
-template <int L>
+template <int L, class T = TransTable>
 __device__ __forceinline__ float head_dx(const float* hg_row,
                                          const bf16* __restrict__ W, int k) {
-  constexpr int K = layer_shape(L).k;
-  const bf16* w = W + weight_offset(L);
+  constexpr int K = layer_shape<T>(L).k;
+  const bf16* w = W + weight_offset<T>(L);
   float s = 0.f;
 #pragma unroll
   for (int n = 0; n < 8; ++n)

@@ -1,7 +1,9 @@
 // Shared by the level kernels (fused_level.cu, fused_template_bwd.cu,
-// fused_fields_bwd.cu): the flagship widths, the table of the 30 layers with
-// their offsets into the packed weight and bias blobs, the bf16 tensor-core
-// product and the posenc_orig feature map.
+// fused_fields_bwd.cu): the flagship widths, the two tables of the level's
+// layers (30 with the translation warp, 32 with the SE(3) / quaternion warp)
+// with their offsets into the packed weight and bias blobs, the bf16
+// tensor-core product and the posenc_orig feature map. A function that reads
+// a table takes it as a template parameter, TransTable by default.
 
 #pragma once
 
@@ -31,48 +33,85 @@ constexpr int kWarpEncP = pad16(kWarpPts + kEmbed);          // 80
 constexpr int kHypEncP = pad16(kHypPts + kEmbed);            // 64
 constexpr int kTmplEncP = pad16(kTmplEnc);                   // 128
 constexpr int kCondP = pad16(kCond);                         // 48
+// The SE(3) / quaternion warp's trunk: Nerfies encoding of the points over
+// the degrees [kSe3MinDeg, kSe3MinDeg + kSe3F), [sin | cos | embed].
+constexpr int kSe3W = 128, kSe3F = 8, kSe3MinDeg = 0;
+constexpr int kSe3Trig = 3 * kSe3F;                          // 24
+constexpr int kSe3EncP = pad16(2 * kSe3Trig + kEmbed);       // 64
 
 struct Shape {
   int n, k;
 };
 
-// The 30 layers in kernel order, (out padded to 8, in padded per segment
-// to 16). The Python wrapper packs weights to exactly these shapes and
-// checks them against hn_fused_level_layout.
-__host__ __device__ constexpr Shape layer_shape(int l) {
-  constexpr Shape t[] = {
-      // warp MLP: hidden 0..5 (skip input after 4), logit 3 -> 8
-      {kWarpW, kWarpEncP}, {kWarpW, kWarpW}, {kWarpW, kWarpW},
-      {kWarpW, kWarpW}, {kWarpW, kWarpW}, {kWarpW, kWarpW + kWarpEncP},
-      {8, kWarpW},
-      // hyper MLP: hidden 0..5, logit 4 -> 8
-      {kHypW, kHypEncP}, {kHypW, kHypW}, {kHypW, kHypW}, {kHypW, kHypW},
-      {kHypW, kHypW}, {kHypW, kHypW + kHypEncP}, {8, kHypW},
-      // template trunk: hidden 0..7, ReLU logit
-      {kTrunkW, kTmplEncP}, {kTrunkW, kTrunkW}, {kTrunkW, kTrunkW},
-      {kTrunkW, kTrunkW}, {kTrunkW, kTrunkW}, {kTrunkW, kTrunkW + kTmplEncP},
-      {kTrunkW, kTrunkW}, {kTrunkW, kTrunkW}, {kTrunkW, kTrunkW},
-      // bottleneck, alpha head 1 -> 8
-      {kBneck, kTrunkW}, {8, kBneck},
-      // rgb branch: hidden 0..3, logit 3 -> 8
-      {kRgbW, kBneck + kCondP}, {kRgbW, kRgbW}, {kRgbW, kRgbW},
-      {kRgbW, kRgbW}, {8, kRgbW},
-  };
-  return t[l];
-}
-constexpr int kNumLayers = 30;
-constexpr int kNumFieldLayers = 14;  // warp 7 + hyper 7, then the template
+// The 30 layers of the level with the translation warp, in kernel order,
+// (out padded to 8, in padded per segment to 16). The Python wrapper packs
+// weights to exactly these shapes and checks them against
+// hn_fused_level_layout.
+struct TransTable {
+  static constexpr int kNum = 30;
+  static constexpr int kWarp = 7;     // warp layers, then the sheet
+  static constexpr int kFields = 14;  // warp 7 + hyper 7, then the template
+  __host__ __device__ static constexpr Shape shape(int l) {
+    constexpr Shape t[] = {
+        // warp MLP: hidden 0..5 (skip input after 4), logit 3 -> 8
+        {kWarpW, kWarpEncP}, {kWarpW, kWarpW}, {kWarpW, kWarpW},
+        {kWarpW, kWarpW}, {kWarpW, kWarpW}, {kWarpW, kWarpW + kWarpEncP},
+        {8, kWarpW},
+        // hyper MLP: hidden 0..5, logit 4 -> 8
+        {kHypW, kHypEncP}, {kHypW, kHypW}, {kHypW, kHypW}, {kHypW, kHypW},
+        {kHypW, kHypW}, {kHypW, kHypW + kHypEncP}, {8, kHypW},
+        // template trunk: hidden 0..7, ReLU logit
+        {kTrunkW, kTmplEncP}, {kTrunkW, kTrunkW}, {kTrunkW, kTrunkW},
+        {kTrunkW, kTrunkW}, {kTrunkW, kTrunkW},
+        {kTrunkW, kTrunkW + kTmplEncP}, {kTrunkW, kTrunkW},
+        {kTrunkW, kTrunkW}, {kTrunkW, kTrunkW},
+        // bottleneck, alpha head 1 -> 8
+        {kBneck, kTrunkW}, {8, kBneck},
+        // rgb branch: hidden 0..3, logit 3 -> 8
+        {kRgbW, kBneck + kCondP}, {kRgbW, kRgbW}, {kRgbW, kRgbW},
+        {kRgbW, kRgbW}, {8, kRgbW},
+    };
+    return t[l];
+  }
+};
 
+// The 32 layers of the level with the SE(3) or the quaternion warp: the
+// warp is a trunk of 6 hidden layers on the Nerfies encoding (no identity
+// block), a linear 128 -> 128 trunk logit and the w and v heads (3 -> 8
+// each); the sheet and the template are TransTable's.
+struct Se3Table {
+  static constexpr int kNum = 32;
+  static constexpr int kWarp = 9;
+  static constexpr int kFields = 16;
+  __host__ __device__ static constexpr Shape shape(int l) {
+    constexpr Shape t[] = {
+        {kSe3W, kSe3EncP}, {kSe3W, kSe3W}, {kSe3W, kSe3W}, {kSe3W, kSe3W},
+        {kSe3W, kSe3W}, {kSe3W, kSe3W + kSe3EncP},
+        {kSe3W, kSe3W}, {8, kSe3W}, {8, kSe3W},
+    };
+    return l < kWarp ? t[l]
+                     : TransTable::shape(l - kWarp + TransTable::kWarp);
+  }
+};
+
+template <class T = TransTable>
+__host__ __device__ constexpr Shape layer_shape(int l) {
+  return T::shape(l);
+}
+constexpr int kNumLayers = TransTable::kNum;
+constexpr int kNumFieldLayers = TransTable::kFields;
+
+template <class T = TransTable>
 __host__ __device__ constexpr long long weight_offset(int l) {
   long long o = 0;
-  for (int i = 0; i < l; ++i)
-    o += (long long)layer_shape(i).n * layer_shape(i).k;
+  for (int i = 0; i < l; ++i) o += (long long)T::shape(i).n * T::shape(i).k;
   return o;
 }
 
+template <class T = TransTable>
 __host__ __device__ constexpr int bias_offset(int l) {
   int o = 0;
-  for (int i = 0; i < l; ++i) o += layer_shape(i).n;
+  for (int i = 0; i < l; ++i) o += T::shape(i).n;
   return o;
 }
 

@@ -51,18 +51,8 @@ def encoding_scales(n_freq: int, embed_ch: int, alpha: float,
     ``alpha``: band k of the points' sin and cos features weighs
     0.5 (1 - cos(pi clip(alpha - k, 0, 1))), fully on once alpha >= k + 1;
     the identity and embedding features weigh 1."""
-    bands = torch.arange(n_freq, dtype=torch.float32, device=device)
-    window = 0.5 * (1.0 - torch.cos(
-        torch.pi * torch.clamp(alpha - bands, 0.0, 1.0)))
-    band = window.repeat_interleave(3)
-    return torch.cat([band.new_ones(3), band, band, band.new_ones(embed_ch)])
-
-
-def _scaled(enc, scales, dt):
-    """The rounded encoding times the window row, rounded again."""
-    if scales is None:
-        return enc
-    return (enc.to(common.acc_dtype(dt)) * scales.reshape(1, -1)).to(dt)
+    return common.encoding_scales(((3, n_freq), (embed_ch, 0)), (alpha, None),
+                                  device)
 
 
 def _encode(mlp: MLP, n_freq: int, x_raw, scales):
@@ -70,7 +60,7 @@ def _encode(mlp: MLP, n_freq: int, x_raw, scales):
     pts = x_raw[:, :3]
     trig = common.posenc_trig(pts, n_freq)
     enc = torch.cat([pts, *trig, x_raw[:, 3:]], dim=-1).to(mlp.dtype)
-    return trig, _scaled(enc, scales, mlp.dtype)
+    return trig, common.scaled(enc, scales, mlp.dtype)
 
 
 def fused_field_plain(mlp: MLP, n_freq: int, x_raw, scales=None):
@@ -141,12 +131,8 @@ def _launch_args(mlp: MLP, n_freq: int, x_raw, scales, transposed):
     build.check_tensor('x_raw', x_raw,
                        (x_raw.shape[0], 3 + common.FLAGSHIP['embed']),
                        torch.float32, dev)
-    if scales is not None:
-        enc = mlp.hidden(0).in_features
-        scales = F.pad(scales.detach().reshape(-1).float(),
-                       (0, shapes[0][1] - enc)).contiguous()
-        build.check_tensor('scales', scales, (shapes[0][1],), torch.float32,
-                           dev)
+    scales = common.padded_scales(scales, mlp.hidden(0).in_features,
+                                  shapes[0][1], dev)
     return which, scales, packs
 
 

@@ -1,5 +1,9 @@
 """One level: warp field + hyper sheet + template for every sample, forward
-and backward.
+and backward. The warp field is the translation field, or the SE(3) or the
+quaternion field (the trunk of ``fused_se3``, then the retraction inside the
+kernels); ``warp_scales`` is the latter two's optional ``warp_alpha`` window
+row (``fused_se3.se3_encoding_scales``; a row of ones and None give the same
+numbers).
 
 ``fused_level`` is the wrapper. On CUDA tensors it launches the hand-written
 Hopper kernel ``csrc/fused_level.cu`` (which replaces the TPU kernel
@@ -23,7 +27,7 @@ Bound and design: see the notes at the top of the ``csrc/*.cu`` sources.
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -36,8 +40,13 @@ from hypernerf_tpu_torch.kernels.fused_mlp import (fused_template_bwd,
                                                    fused_template_bwd_plain,
                                                    fused_template_plain,
                                                    template_layers)
+from hypernerf_tpu_torch.kernels.fused_se3 import (check_covered as
+                                                   _check_se3_covered,
+                                                   fused_se3_bwd_plain,
+                                                   fused_se3_plain,
+                                                   se3_layers)
 from hypernerf_tpu_torch.models.modules import HyperSheetMLP, NerfMLP
-from hypernerf_tpu_torch.models.warping import TranslationField
+from hypernerf_tpu_torch.models.warping import SE3Field, TranslationField
 
 FLAGSHIP = common.FLAGSHIP
 RAW_T_PAD = 8  # columns of raw_t and dx_t: [warped (3) | hyper (4) | 0]
@@ -45,7 +54,7 @@ RAW_T_PAD = 8  # columns of raw_t and dx_t: [warped (3) | hyper (4) | 0]
 
 class Level(NamedTuple):
     """The modules of one level and the template's encoding bands."""
-    warp: TranslationField
+    warp: Union[TranslationField, SE3Field]  # or its QuaternionField
     hyper: HyperSheetMLP
     template: NerfMLP
     xyz_freq: int
@@ -60,10 +69,24 @@ def _raw_fields(z_vals, origins, directions, embed):
     return torch.cat([pts, emb.to(pts.dtype)], dim=-1).reshape(r * s, -1)
 
 
+def _screw(level: Level) -> bool:
+    """Whether the level's warp is the SE(3) or the quaternion field."""
+    return level.warp.kind != 'translation'
+
+
+def _warp_owner_layers(level: Level):
+    """(the module that owns the warp's packed blobs, its layers)."""
+    if _screw(level):
+        return level.warp, se3_layers(level.warp)
+    return level.warp.mlp, field_layers(level.warp.mlp)
+
+
 def fused_level_plain(level: Level, z_vals, origins, directions, embed,
-                      rgb_cond, return_raw_t: bool = False):
-    """Plain PyTorch level forward: the plain warp field, hyper sheet and
-    template (``fused_field_plain``, ``fused_template_plain``) chained.
+                      rgb_cond, return_raw_t: bool = False, warp_scales=None):
+    """Plain PyTorch level forward: the plain warp field (or the plain SE(3)
+    trunk and the retraction's values), hyper sheet and template
+    (``fused_field_plain``, ``fused_se3_plain``, ``fused_template_plain``)
+    chained.
 
     Args:
       z_vals: (R, S) depths; origins / directions: (R, 3); embed: (R, E)
@@ -78,8 +101,12 @@ def fused_level_plain(level: Level, z_vals, origins, directions, embed,
         raise NotImplementedError(common.NOT_COVERED + '; the sheet\'s '
                                   'residual runs on the per-module path')
     x_raw = _raw_fields(z_vals, origins, directions, embed)
-    warped = x_raw[:, :3] + fused_field_plain(
-        level.warp.mlp, level.warp.n_freq, x_raw).to(x_raw.dtype)
+    if _screw(level):
+        wv = fused_se3_plain(level.warp, x_raw, warp_scales).to(x_raw.dtype)
+        warped = level.warp.retract(wv[:, :3], wv[:, 3:], x_raw[:, :3])
+    else:
+        warped = x_raw[:, :3] + fused_field_plain(
+            level.warp.mlp, level.warp.n_freq, x_raw).to(x_raw.dtype)
     hyper = fused_field_plain(level.hyper.mlp, level.hyper.n_freq, x_raw)
     raw_t = torch.cat([warped, hyper], dim=-1).float()
     raw_t = F.pad(raw_t, (0, RAW_T_PAD - raw_t.shape[-1]))
@@ -92,23 +119,31 @@ fused_level_plain.calls = 0
 
 def level_layers(level: Level):
     """Every Linear of the level in kernel order with its input segments."""
-    return (field_layers(level.warp.mlp) + field_layers(level.hyper.mlp)
+    return (_warp_owner_layers(level)[1] + field_layers(level.hyper.mlp)
             + template_layers(level.template))
 
 
 def _check_covered(level: Level) -> None:
     t = level.template
-    have = dict(embed=level.warp.mlp.hidden(0).in_features
-                - 3 * (1 + 2 * level.warp.n_freq),
-                warp_freq=level.warp.n_freq,
-                hyper_sheet_freq=level.hyper.n_freq,
+    flagship = dict(FLAGSHIP)
+    if _screw(level):
+        _check_se3_covered(level.warp)
+        warp_mlp = level.warp.trunk
+        del flagship['warp_freq']
+        have = dict(embed=level.warp.embed_ch)
+    else:
+        warp_mlp = level.warp.mlp
+        have = dict(embed=warp_mlp.hidden(0).in_features
+                    - 3 * (1 + 2 * level.warp.n_freq),
+                    warp_freq=level.warp.n_freq)
+    have.update(hyper_sheet_freq=level.hyper.n_freq,
                 hyper_out=level.hyper.mlp.logit.out_features,
                 xyz_freq=level.xyz_freq, hyper_freq=level.hyper_freq,
                 rgb_cond=t.rgb_branch.hidden(0).in_features
                 - t.bottleneck.out_features)
-    dtypes = {m.dtype for m in (level.warp.mlp, level.hyper.mlp, t.trunk,
+    dtypes = {m.dtype for m in (warp_mlp, level.hyper.mlp, t.trunk,
                                 t.rgb_branch)} | {t.dtype}
-    if (have != FLAGSHIP or dtypes != {torch.bfloat16}
+    if (have != flagship or dtypes != {torch.bfloat16}
             or level.hyper.use_residual):
         raise NotImplementedError(f'{common.NOT_COVERED}; got {have}, '
                                   f'{dtypes}')
@@ -124,7 +159,7 @@ def pack_level(level: Level, transposed: bool = False):
     """
     check = lambda: _check_covered(level)
     subs = [common.packed(owner, layers, check) for owner, layers in (
-        (level.warp.mlp, field_layers(level.warp.mlp)),
+        _warp_owner_layers(level),
         (level.hyper.mlp, field_layers(level.hyper.mlp)),
         (level.template, template_layers(level.template)))]
     key = tuple(sub['key'] for sub in subs)
@@ -150,15 +185,34 @@ def _level_params(level: Level):
 
 
 def _n_field_layers(level: Level) -> int:
-    return level.warp.mlp.depth + 1 + level.hyper.mlp.depth + 1
+    return len(_warp_owner_layers(level)[1]) + level.hyper.mlp.depth + 1
+
+
+def _warp_launch_args(level: Level, shapes, warp_scales, dev):
+    """(the warp type's code, the padded window row or None) for a level
+    kernel, after the packed ``shapes`` were checked against that type's
+    compiled table."""
+    kind = level.warp.kind
+    common.check_layout(shapes, slice(None), kind)
+    if not _screw(level):
+        if warp_scales is not None:
+            raise ValueError('the translation warp takes no window row')
+        return common.WARP_CODES[kind], None
+    return common.WARP_CODES[kind], common.padded_scales(
+        warp_scales, level.warp.trunk.hidden(0).in_features, shapes[0][1],
+        dev)
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
 
 
 def _launch_forward(level: Level, z_vals, origins, directions, embed,
-                    rgb_cond, want_raw_t: bool):
+                    rgb_cond, want_raw_t: bool, warp_scales=None):
     """Launch the forward kernel; (out, raw_t or None)."""
     w_blob, b_blob, shapes = pack_level(level)
-    common.check_layout(shapes, slice(None))
     dev = z_vals.device
+    code, scales = _warp_launch_args(level, shapes, warp_scales, dev)
     r, s = z_vals.shape
     rgbc = rgb_cond.detach().to(torch.bfloat16).contiguous()
     _check_ray_inputs(z_vals, origins, directions, embed)
@@ -167,10 +221,11 @@ def _launch_forward(level: Level, z_vals, origins, directions, embed,
     out = torch.empty((r * s, 4), dtype=torch.float32, device=dev)
     raw_t = torch.empty((r * s, RAW_T_PAD), dtype=torch.float32,
                         device=dev) if want_raw_t else None
-    common.launch('hn_fused_level_fwd', dev, z_vals.data_ptr(),
+    common.launch('hn_fused_level_fwd', dev, code, z_vals.data_ptr(),
                   origins.data_ptr(), directions.data_ptr(), embed.data_ptr(),
-                  rgbc.data_ptr(), w_blob.data_ptr(), b_blob.data_ptr(),
-                  out.data_ptr(), raw_t.data_ptr() if want_raw_t else None,
+                  rgbc.data_ptr(), _ptr(scales), w_blob.data_ptr(),
+                  b_blob.data_ptr(),
+                  out.data_ptr(), _ptr(raw_t),
                   r, s)
     fused_level.launches += 1
     return out, raw_t
@@ -186,19 +241,20 @@ def _check_ray_inputs(z_vals, origins, directions, embed) -> None:
 
 
 def _forward(level: Level, z_vals, origins, directions, embed, rgb_cond,
-             want_raw_t: bool):
+             want_raw_t: bool, warp_scales=None):
     """(out, raw_t or None): the plain version on CPU tensors, the kernel on
     CUDA tensors."""
     if common.runs_plain(z_vals, 'fused_level'):
         res = fused_level_plain(level, z_vals, origins, directions, embed,
-                                rgb_cond, return_raw_t=want_raw_t)
+                                rgb_cond, return_raw_t=want_raw_t,
+                                warp_scales=warp_scales)
         return res if want_raw_t else (res, None)
     return _launch_forward(level, z_vals, origins, directions, embed,
-                           rgb_cond, want_raw_t)
+                           rgb_cond, want_raw_t, warp_scales)
 
 
 def fused_level(level: Level, z_vals, origins, directions, embed,
-                rgb_cond) -> torch.Tensor:
+                rgb_cond, warp_scales=None) -> torch.Tensor:
     """Level forward; (R * S, 4) fp32 [rgb logits | raw sigma].
 
     CPU tensors take ``fused_level_plain``; CUDA tensors launch the kernel
@@ -209,8 +265,9 @@ def fused_level(level: Level, z_vals, origins, directions, embed,
     inputs = (z_vals, origins, directions, embed, rgb_cond)
     if torch.is_grad_enabled() and any(t.requires_grad
                                        for t in (*inputs, *params)):
-        return FusedLevelFn.apply(level, *inputs, *params)
-    return _forward(level, *inputs, want_raw_t=False)[0]
+        return FusedLevelFn.apply(level, warp_scales, *inputs, *params)
+    return _forward(level, *inputs, want_raw_t=False,
+                    warp_scales=warp_scales)[0]
 
 
 fused_level.launches = 0
@@ -223,13 +280,14 @@ class FusedLevelFn(torch.autograd.Function):
     parameters shared by two levels add up in autograd."""
 
     @staticmethod
-    def forward(ctx, level, z_vals, origins, directions, embed, rgb_cond,
-                *params):
+    def forward(ctx, level, warp_scales, z_vals, origins, directions, embed,
+                rgb_cond, *params):
         inputs = [t.detach() for t in (z_vals, origins, directions, embed,
                                        rgb_cond)]
         with torch.no_grad():
-            out, raw_t = _forward(level, *inputs, want_raw_t=True)
-        ctx.level = level
+            out, raw_t = _forward(level, *inputs, want_raw_t=True,
+                                  warp_scales=warp_scales)
+        ctx.level, ctx.warp_scales = level, warp_scales
         ctx.save_for_backward(*inputs, raw_t)
         return out
 
@@ -243,8 +301,9 @@ class FusedLevelFn(torch.autograd.Function):
             dx_t, d_rgb_cond, t_grads = fused_template_bwd(level, raw_t,
                                                            rgb_cond, g)
             d_z, d_o, d_d, d_embed, f_grads = fused_fields_bwd(
-                level, z_vals, origins, directions, embed, dx_t)
-        return (None, d_z, d_o, d_d, d_embed,
+                level, z_vals, origins, directions, embed, dx_t,
+                ctx.warp_scales)
+        return (None, None, d_z, d_o, d_d, d_embed,
                 d_rgb_cond.to(rgb_cond.dtype), *f_grads, *t_grads)
 
 
@@ -254,9 +313,13 @@ class FusedLevelFn(torch.autograd.Function):
 
 
 def fused_fields_bwd_plain(level: Level, z_vals, origins, directions, embed,
-                           dx_t):
+                           dx_t, warp_scales=None):
     """Plain fields backward: the plain backward of the warp field and of the
     hyper sheet (``fused_field_bwd_plain``) from ``dx_t``, then the rays'.
+    With the SE(3) or the quaternion warp: the retraction's hand-derived VJP
+    from d warped to (d w, d v, d points), then the plain trunk backward
+    (``fused_se3_bwd_plain``) from [d w | d v]; the points get no residual
+    part.
 
     Args:
       dx_t: (P, 8) fp32 cotangent of [warped | hyper | 0].
@@ -272,11 +335,20 @@ def fused_fields_bwd_plain(level: Level, z_vals, origins, directions, embed,
     r, s = z_vals.shape
     x_raw = _raw_fields(z_vals, origins, directions, embed)
     n_hyper = level.hyper.mlp.logit.out_features
-    dx_w, grads_w = fused_field_bwd_plain(
-        level.warp.mlp, level.warp.n_freq, x_raw, dx_t[:, :3])
+    if _screw(level):
+        wv = fused_se3_plain(level.warp, x_raw, warp_scales)
+        d_w, d_v, d_direct = level.warp.retract_bwd(
+            wv[:, :3], wv[:, 3:], x_raw[:, :3].float(), dx_t[:, :3])
+        dx_w, grads_w = fused_se3_bwd_plain(
+            level.warp, x_raw, F.pad(torch.cat([d_w, d_v], dim=-1), (0, 2)),
+            warp_scales)
+    else:
+        d_direct = dx_t[:, :3]
+        dx_w, grads_w = fused_field_bwd_plain(
+            level.warp.mlp, level.warp.n_freq, x_raw, dx_t[:, :3])
     dx_h, grads_h = fused_field_bwd_plain(
         level.hyper.mlp, level.hyper.n_freq, x_raw, dx_t[:, 3:3 + n_hyper])
-    d_pts = ((dx_t[:, :3] + dx_w[:, :3]) + dx_h[:, :3]).reshape(r, s, 3)
+    d_pts = ((d_direct + dx_w[:, :3]) + dx_h[:, :3]).reshape(r, s, 3)
     d_emb = (dx_w[:, 3:] + dx_h[:, 3:]).reshape(r, s, -1)
     d_z = (d_pts * directions[:, None, :]).sum(-1)
     d_o = d_pts.sum(1)
@@ -287,16 +359,17 @@ def fused_fields_bwd_plain(level: Level, z_vals, origins, directions, embed,
 fused_fields_bwd_plain.calls = 0
 
 
-def fused_fields_bwd(level: Level, z_vals, origins, directions, embed, dx_t):
+def fused_fields_bwd(level: Level, z_vals, origins, directions, embed, dx_t,
+                     warp_scales=None):
     """Fields backward (see ``fused_fields_bwd_plain``): CPU tensors take
     the plain version, CUDA tensors launch the kernel or raise."""
     if common.runs_plain(z_vals, 'fused_fields_bwd'):
         return fused_fields_bwd_plain(level, z_vals, origins, directions,
-                                      embed, dx_t)
+                                      embed, dx_t, warp_scales)
     w_blob, b_blob, shapes = pack_level(level)
     wt_blob, _, _ = pack_level(level, transposed=True)
-    common.check_layout(shapes, slice(None))
     dev, f32 = z_vals.device, torch.float32
+    code, scales = _warp_launch_args(level, shapes, warp_scales, dev)
     r, s = z_vals.shape
     _check_ray_inputs(z_vals, origins, directions, embed)
     build.check_tensor('dx_t', dx_t, (r * s, RAW_T_PAD), f32, dev)
@@ -308,9 +381,10 @@ def fused_fields_bwd(level: Level, z_vals, origins, directions, embed, dx_t):
     d_ray = torch.zeros((r, 6 + FLAGSHIP['embed']), dtype=f32, device=dev)
     # [dW | db] in the packed layout; every block adds its tiles' into it.
     grads, n_w = common.grad_buffer(shapes[:nf], dev)
-    common.launch('hn_fused_fields_bwd', dev, z_vals.data_ptr(),
+    common.launch('hn_fused_fields_bwd', dev, code, z_vals.data_ptr(),
                   origins.data_ptr(), directions.data_ptr(), embed.data_ptr(),
-                  dx_t.data_ptr(), w_blob.data_ptr(), wt_blob.data_ptr(),
+                  dx_t.data_ptr(), _ptr(scales), w_blob.data_ptr(),
+                  wt_blob.data_ptr(),
                   b_blob.data_ptr(), d_z.data_ptr(), d_ray.data_ptr(),
                   grads.data_ptr(), r, s, blocks)
     fused_fields_bwd.launches += 1

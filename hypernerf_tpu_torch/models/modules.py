@@ -58,14 +58,18 @@ class MLP(nn.Module):
 
     ``output_relu`` gives the logit layer a ReLU (the template trunk);
     otherwise the logit is linear and returned in fp32. Biases keep torch's
-    default U(+-1/sqrt(fan_in)), the flax package's ``torch_linear_bias``.
+    default U(+-1/sqrt(fan_in)), the flax package's ``torch_linear_bias``,
+    unless ``torch_default_bias`` is off: then they start at zero (the SE(3)
+    field's w and v heads, whose warp must start at the identity). With
+    ``depth=0`` the MLP is its logit layer alone.
     """
 
     def __init__(self, in_ch: int, out_ch: int, depth: int = 8,
                  width: int = 256, skips: Sequence[int] = (4,),
                  hidden_init: Callable = nn.init.xavier_uniform_,
                  output_init: Optional[Callable] = None,
-                 output_relu: bool = False, dtype=torch.float32):
+                 output_relu: bool = False, dtype=torch.float32,
+                 torch_default_bias: bool = True):
         super().__init__()
         self.depth = depth
         self.skips = tuple(skips)
@@ -79,6 +83,9 @@ class MLP(nn.Module):
             ch = width + (in_ch if i in self.skips else 0)
         self.logit = nn.Linear(ch, out_ch)
         (output_init or hidden_init)(self.logit.weight)
+        if not torch_default_bias:
+            for m in self.children():
+                nn.init.zeros_(m.bias)
 
     def hidden(self, i: int) -> nn.Linear:
         return getattr(self, f'hidden_{i}')

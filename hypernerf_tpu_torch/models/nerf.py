@@ -1,5 +1,5 @@
-"""NerfModel: HyperNeRF with a translation warp, rendering and training
-(port of ``hypernerf_tpu/models/nerf.py``).
+"""NerfModel: HyperNeRF with a translation, an SE(3) or a quaternion warp,
+rendering and training (port of ``hypernerf_tpu/models/nerf.py``).
 
 A level runs on one of two branches, chosen as the JAX model chooses
 (``nerf.py:755-764``):
@@ -19,6 +19,10 @@ A level runs on one of two branches, chosen as the JAX model chooses
 
 Every kernel has a hand-written backward kernel (``kernels/``), so the same
 ``forward`` serves the train step.
+
+``extra_params`` carries the annealing alphas. With the original template
+encoding only ``warp_alpha`` has an effect: it windows the bands of the SE(3)
+/ quaternion trunk's encoding, on both branches (None: no window).
 
 The deterministic render draws nothing: coarse z is a linspace and the fine
 u is linspace(0, 1, N). The stochastic forward (training) draws, in the JAX
@@ -43,9 +47,10 @@ from hypernerf_tpu_torch.configs import NerfConfig
 from hypernerf_tpu_torch.kernels import (Level, Template, fused_composite,
                                          fused_level, fused_template)
 from hypernerf_tpu_torch.kernels.fused_mlp import RAW_PAD, n_hyper
+from hypernerf_tpu_torch.kernels.fused_se3 import se3_encoding_scales
 from hypernerf_tpu_torch.models.modules import (GLOEmbed, HyperSheetMLP,
                                                 NerfMLP, torch_dtype)
-from hypernerf_tpu_torch.models.warping import TranslationField
+from hypernerf_tpu_torch.models.warping import WARP_FIELDS, TranslationField
 from hypernerf_tpu_torch.ops.posenc import posenc_orig, posenc_orig_channels
 from hypernerf_tpu_torch.ops.rendering import (compute_depth_index,
                                                filter_sigma, noise_regularize,
@@ -63,9 +68,6 @@ def unsupported(cfg: NerfConfig) -> list:
     """What ``cfg`` asks for that the port does not have yet, with the
     ROADMAP item that ports it."""
     out = []
-    if cfg.use_warp and cfg.warp_field_type != 'translation':
-        out.append(f'warp {cfg.warp_field_type!r} (ROADMAP A.9: the SE(3) '
-                   f'family, kernel rows 12 and 13)')
     if cfg.hyper_slice_method == 'axis_aligned_plane':
         out.append("slicing 'axis_aligned_plane' (ROADMAP A.9)")
     if not cfg.use_original_embed:
@@ -80,9 +82,9 @@ def unsupported(cfg: NerfConfig) -> list:
 
 
 class NerfModel(nn.Module):
-    """HyperNeRF with a translation warp (or none), a bendy sheet (or no
-    hyper coordinates), posenc_orig encodings, one GLO table or two, and a
-    viewdir-conditioned rgb branch."""
+    """HyperNeRF with a translation, SE(3) or quaternion warp (or none), a
+    bendy sheet (or no hyper coordinates), posenc_orig encodings, one GLO
+    table or two, and a viewdir-conditioned rgb branch."""
 
     def __init__(self, config: NerfConfig):
         super().__init__()
@@ -98,9 +100,14 @@ class NerfModel(nn.Module):
                     if cfg.use_warp and cfg.has_hyper else 0)
         if cfg.use_warp:
             self.warp_embed = GLOEmbed(cfg.num_embeddings, cfg.glo_dim)
-            self.warp_field = TranslationField(
-                cfg.glo_dim, cfg.warp_depth, cfg.warp_width, cfg.warp_freq,
-                cfg.skips, dtype=dt)
+            if cfg.warp_field_type == 'translation':
+                self.warp_field = TranslationField(
+                    cfg.glo_dim, cfg.warp_depth, cfg.warp_width,
+                    cfg.warp_freq, cfg.skips, dtype=dt)
+            else:
+                self.warp_field = WARP_FIELDS[cfg.warp_field_type](
+                    cfg.glo_dim, cfg.warp_depth, cfg.warp_width,
+                    cfg.warp_min_deg, cfg.warp_max_deg, cfg.skips, dtype=dt)
         if hyper_ch and not cfg.hyper_use_warp_embed:
             self.hyper_embed = GLOEmbed(cfg.num_embeddings, cfg.glo_dim)
         if hyper_ch:
@@ -158,9 +165,10 @@ class NerfModel(nn.Module):
 
     # ------------------------------------------------------------------- warps
 
-    def map_spatial_points(self, points, warp_embed, use_warp: bool = True):
+    def map_spatial_points(self, points, warp_embed, use_warp: bool = True,
+                           extra_params=None):
         if self.config.use_warp and use_warp:
-            return self.warp_field(points, warp_embed)
+            return self.warp_field(points, warp_embed, extra_params)
         return points
 
     def map_hyper_points(self, points, hyper_embed,
@@ -176,11 +184,13 @@ class NerfModel(nn.Module):
         return None
 
     def map_points(self, points, warp_embed, hyper_embed,
-                   use_warp: bool = True, hyper_point_override=None):
+                   use_warp: bool = True, hyper_point_override=None,
+                   extra_params=None):
         """Warp the points and append their hyper coordinates."""
         if not use_warp:
             return points
-        spatial = self.map_spatial_points(points, warp_embed, use_warp)
+        spatial = self.map_spatial_points(points, warp_embed, use_warp,
+                                          extra_params)
         hyper = self.map_hyper_points(points, hyper_embed,
                                       hyper_point_override)
         if hyper is None:
@@ -221,12 +231,13 @@ class NerfModel(nn.Module):
             generator=generator)
         return torch.sigmoid(raw_rgb), F.softplus(raw_alpha.squeeze(-1))
 
-    def query_sigma(self, points, metadata_id):
+    def query_sigma(self, points, metadata_id, extra_params=None):
         """Template density at raw world points, without sigma noise: the
         warp, the sheet and the template's density, one sample per row.
 
         Args:
-          points: (N, 3) world positions; metadata_id: (N, 1) integer ids.
+          points: (N, 3) world positions; metadata_id: (N, 1) integer ids;
+          extra_params: the annealing alphas ('warp_alpha').
 
         Returns:
           (N,) densities.
@@ -239,13 +250,24 @@ class NerfModel(nn.Module):
             if cfg.has_hyper_embed:
                 hyper_embed = self.encode_hyper_embed(metadata)[:, None, :]
         warped = self.map_points(points[:, None, :], warp_embed, hyper_embed,
-                                 use_warp=cfg.use_warp)
+                                 use_warp=cfg.use_warp,
+                                 extra_params=extra_params)
         _, sigma = self.query_template(
             'fine' if cfg.num_fine_samples > 0 else 'coarse', warped,
             torch.zeros_like(points), stratified=False)
         return sigma[:, 0]
 
     # --------------------------------------------------------------- rendering
+
+    def _warp_scales(self, extra_params, device):
+        """The level kernel's window row of the SE(3) / quaternion trunk at
+        ``extra_params['warp_alpha']``; None without an alpha (the kernels
+        then skip the multiplication: the same numbers as a row of ones) and
+        for the translation warp, which has no window."""
+        alpha = (extra_params or {}).get('warp_alpha')
+        if alpha is None or self.config.warp_field_type == 'translation':
+            return None
+        return se3_encoding_scales(self.warp_field, alpha, device)
 
     def _fused_branch(self, use_warp: bool, return_points: bool,
                       metadata) -> bool:
@@ -260,7 +282,8 @@ class NerfModel(nn.Module):
                        viewdirs, metadata, use_warp: bool = True,
                        stratified: bool = True, render_opts=None,
                        return_points: bool = False, fine_u=None, noise=None,
-                       generator=None) -> Dict[str, torch.Tensor]:
+                       generator=None, extra_params=None
+                       ) -> Dict[str, torch.Tensor]:
         """Warp, template and compositing of one level at depths ``z_vals``
         (B, S). ``noise``: (B, S) standard-normal draws of the sigma noise,
         drawn from ``generator`` when absent."""
@@ -273,7 +296,8 @@ class NerfModel(nn.Module):
             packed = fused_level(
                 self.level(name), z_vals, origins, directions,
                 self.encode_warp_embed(metadata),
-                self.get_condition_inputs(viewdirs))
+                self.get_condition_inputs(viewdirs),
+                self._warp_scales(extra_params, z_vals.device))
             if not render_opts:
                 # The kernel adds its noise input to raw sigma, so the
                 # regularizer runs on zeros; it hands them back when off.
@@ -307,7 +331,8 @@ class NerfModel(nn.Module):
         warped = self.map_points(
             points, per_sample(warp_embed), per_sample(hyper_embed),
             use_warp=use_warp,
-            hyper_point_override=metadata.get('hyper_point'))
+            hyper_point_override=metadata.get('hyper_point'),
+            extra_params=extra_params)
         rgb, sigma = self.query_template(name, warped, viewdirs, stratified,
                                          noise, generator)
         sigma = filter_sigma(points, sigma, render_opts)
@@ -330,7 +355,8 @@ class NerfModel(nn.Module):
                 generator: Optional[torch.Generator] = None,
                 draws: Optional[Dict[str, torch.Tensor]] = None,
                 use_warp: bool = True, return_points: bool = False,
-                render_opts: Optional[Dict[str, Any]] = None
+                render_opts: Optional[Dict[str, Any]] = None,
+                extra_params: Optional[Dict[str, Any]] = None
                 ) -> Dict[str, Dict]:
         """Render a batch of rays.
 
@@ -355,6 +381,8 @@ class NerfModel(nn.Module):
             and per-ray 'med_points'.
           render_opts: ``filter_sigma`` options for the fine level
             ('dust_threshold', 'bounding_box').
+          extra_params: the annealing alphas; 'warp_alpha' windows the SE(3)
+            / quaternion trunk's encoding (absent or None: no window).
 
         Returns:
           {'coarse': {...}, 'fine': {...}} with per-ray rgb / depth /
@@ -394,7 +422,8 @@ class NerfModel(nn.Module):
             fine_u = fine_u.expand(n_rays, n_fine).contiguous()
 
         common = dict(use_warp=use_warp, stratified=stratified,
-                      return_points=return_points, generator=generator)
+                      return_points=return_points, generator=generator,
+                      extra_params=extra_params)
         # The compositing kernel draws the fine depths itself, except where
         # the fine level filters sigma: then ``sample_pdf`` does below.
         coarse = self.render_samples(

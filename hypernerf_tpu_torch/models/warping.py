@@ -1,9 +1,11 @@
-"""Warp fields (port of ``hypernerf_tpu/models/warping.py``): the
-translation field. SE(3) and quaternion fields are ROADMAP item A.9.
+"""Warp fields (port of ``hypernerf_tpu/models/warping.py``): the translation
+field, the SE(3) field and the quaternion field.
 
-On CUDA tensors the field runs through its hand-written kernel
-(``kernels.fused_field``, forward and backward); on CPU tensors through the
-dense code below, with autograd."""
+On CUDA tensors a field runs through its hand-written kernels
+(``kernels.fused_field`` / ``kernels.fused_se3``, forward and backward); on
+CPU tensors through the dense code below, with autograd. The SE(3) and
+quaternion retractions carry their hand-derived backward on both paths
+(``ops.rigid_body``, ``ops.quaternion``)."""
 
 from __future__ import annotations
 
@@ -14,7 +16,9 @@ from torch import nn
 
 from hypernerf_tpu_torch.models.modules import (MLP, field_kernel,
                                                 xavier_normal_)
-from hypernerf_tpu_torch.ops.posenc import posenc_orig, posenc_orig_channels
+from hypernerf_tpu_torch.ops import quaternion, rigid_body
+from hypernerf_tpu_torch.ops.posenc import (posenc, posenc_channels,
+                                            posenc_orig, posenc_orig_channels)
 
 
 class TranslationField(nn.Module):
@@ -22,6 +26,8 @@ class TranslationField(nn.Module):
 
     Xavier-normal hidden init, U(0, 1e-4) output init.
     """
+
+    kind = 'translation'
 
     def __init__(self, embed_ch: int, depth: int = 6, width: int = 128,
                  n_freq: int = 10, skips: Sequence[int] = (4,),
@@ -33,7 +39,8 @@ class TranslationField(nn.Module):
                        output_init=lambda w: nn.init.uniform_(w, 0.0, 1e-4),
                        dtype=dtype)
 
-    def forward(self, points: torch.Tensor, embed: torch.Tensor):
+    def forward(self, points: torch.Tensor, embed: torch.Tensor,
+                extra_params=None):
         """points (..., 3), embed (..., E) per sample -> warped (..., 3)."""
         if points.is_cuda:
             return points + field_kernel(self.mlp, self.n_freq, points,
@@ -41,3 +48,81 @@ class TranslationField(nn.Module):
         inputs = torch.cat([posenc_orig(points, self.n_freq),
                             embed.to(points.dtype)], dim=-1)
         return points + self.mlp(inputs).to(points.dtype)
+
+
+class SE3Field(nn.Module):
+    """A per-point rigid transform through the se(3) exponential map:
+    posenc(points, min_deg..max_deg, no identity) ++ embed -> ``trunk``
+    (Xavier-normal, linear logit of the trunk's width) -> the heads ``w_net``
+    and ``v_net`` (one linear layer each, U(0, 1e-4) weights and zero biases,
+    so that the warp starts at the identity) -> the screw retraction
+    ``rigid_body.se3_warp_vec(w, v, points)`` in fp32.
+
+    ``extra_params['warp_alpha']`` windows the encoding's bands (None or
+    absent: no window).
+    """
+
+    def __init__(self, embed_ch: int, trunk_depth: int = 6,
+                 trunk_width: int = 128, min_deg: int = 0, max_deg: int = 8,
+                 skips: Sequence[int] = (4,), use_metadata: bool = True,
+                 use_posenc_identity: bool = False, dtype=torch.float32):
+        super().__init__()
+        if use_posenc_identity:
+            raise NotImplementedError(
+                'an SE(3) field with the identity in its encoding: no model '
+                'configuration sets it (ROADMAP A.9)')
+        self.embed_ch, self.use_metadata = embed_ch, use_metadata
+        self.min_deg, self.max_deg = min_deg, max_deg
+        in_ch = posenc_channels(3, min_deg, max_deg) + (
+            embed_ch if use_metadata else 0)
+        self.trunk = MLP(in_ch, trunk_width, trunk_depth, trunk_width, skips,
+                         hidden_init=xavier_normal_, dtype=dtype)
+        head = dict(depth=0, width=trunk_width,
+                    output_init=lambda w: nn.init.uniform_(w, 0.0, 1e-4),
+                    torch_default_bias=False, dtype=dtype)
+        self.w_net = MLP(trunk_width, 3, **head)
+        self.v_net = MLP(trunk_width, 3, **head)
+
+    kind = 'se3'
+    retract = staticmethod(rigid_body.se3_warp_vec)
+    retract_bwd = staticmethod(rigid_body.se3_warp_vec_bwd)
+
+    def forward(self, points: torch.Tensor, embed: torch.Tensor,
+                extra_params=None):
+        """points (..., 3), embed (..., E) per sample -> warped (..., 3)."""
+        alpha = (extra_params or {}).get('warp_alpha')
+        pts = points.to(torch.promote_types(points.dtype, torch.float32))
+        if points.is_cuda:
+            # The kernels' wrappers import this module: import at call time.
+            from hypernerf_tpu_torch.kernels.fused_se3 import (
+                fused_se3_wv, se3_encoding_scales)
+            if not self.use_metadata:
+                raise NotImplementedError(
+                    'the SE(3) trunk kernel takes [points | embedding] rows '
+                    '(ROADMAP A.13)')
+            raw = torch.cat([pts, embed.to(pts.dtype)], dim=-1)
+            scales = None if alpha is None else se3_encoding_scales(
+                self, alpha, points.device)
+            w, v = fused_se3_wv(self, raw.reshape(-1, raw.shape[-1]).float(),
+                                scales)
+            return self.retract(w.reshape(pts.shape), v.reshape(pts.shape),
+                                pts)
+        inputs = posenc(points, self.min_deg, self.max_deg, alpha=alpha)
+        if self.use_metadata:
+            inputs = torch.cat([inputs, embed.to(inputs.dtype)], dim=-1)
+        trunk = self.trunk(inputs)
+        return self.retract(self.w_net(trunk).to(pts.dtype),
+                            self.v_net(trunk).to(pts.dtype), pts)
+
+
+class QuaternionField(SE3Field):
+    """The SE(3) field's trunk and heads with another retraction: the
+    rotation by the quaternion exponential of ``w``, then the translation
+    ``v``, with no screw coupling (``quaternion.quat_warp_vec``)."""
+
+    kind = 'quaternion'
+    retract = staticmethod(quaternion.quat_warp_vec)
+    retract_bwd = staticmethod(quaternion.quat_warp_vec_bwd)
+
+
+WARP_FIELDS = {'se3': SE3Field, 'quaternion': QuaternionField}

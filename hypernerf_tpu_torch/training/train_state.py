@@ -88,9 +88,10 @@ def make_train_step(model: NerfModel, optimizer: torch.optim.Optimizer,
                                 device=device)
             rays = all_rays.index_select(0, idx)
             rgbs = all_rgbs.index_select(0, idx)
-        compute_extra_params(nerf_cfg, train_cfg, state.step)
+        extra_params = compute_extra_params(nerf_cfg, train_cfg, state.step)
         results = model(prepare_ray_dict(rays), deterministic=False,
-                        return_weights=False, generator=gen, draws=draws)
+                        return_weights=False, generator=gen, draws=draws,
+                        extra_params=extra_params)
         loss = loss_fn(results, rgbs)
         typ = 'fine' if 'fine' in results else 'coarse'
         with torch.no_grad():

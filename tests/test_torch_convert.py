@@ -10,6 +10,7 @@ import types
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from hypernerf_tpu.configs import NerfConfig
@@ -65,13 +66,22 @@ def test_jax_checkpoint_converts_and_renders_the_same(tmp_path):
         port.state_dict().keys()
 
 
-def test_params_to_jax_inverts_params_from_jax():
+@pytest.mark.parametrize('warp', ['translation', 'se3', 'quaternion'])
+def test_params_to_jax_inverts_params_from_jax(warp):
     """The flax tree of a JAX init, carried to a state dict and back, is the
-    same tree with the same arrays (Dense kernels transposed twice)."""
+    same tree with the same arrays (Dense kernels transposed twice); the
+    state dict's keys are the port model's own (for the SE(3) family the
+    ``trunk`` / ``w_net`` / ``v_net`` paths)."""
     from hypernerf_tpu_torch.convert import params_from_jax, params_to_jax
+    cfg = dataclasses.replace(CFG, warp_field_type=warp, warp_max_deg=4)
     rays = jax_ray_dict(jnp.zeros((2, 9), jnp.float32))
-    params = jax.device_get(JaxNerfModel(CFG).init(
+    params = jax.device_get(JaxNerfModel(cfg).init(
         {'params': jax.random.PRNGKey(2)}, rays)['params'])
+    port_cfg = checkpoints.NerfConfig(**dataclasses.asdict(cfg))
+    assert params_from_jax(params).keys() == \
+        NerfModel(port_cfg).state_dict().keys()
+    if warp != 'translation':
+        assert 'warp_field.w_net.logit.weight' in params_from_jax(params)
     back = params_to_jax(params_from_jax(params))
     flat = dict(jax.tree_util.tree_flatten_with_path(params)[0])
     flat_back = dict(jax.tree_util.tree_flatten_with_path(back)[0])

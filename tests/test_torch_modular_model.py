@@ -342,7 +342,8 @@ def test_model_builds_what_the_configuration_names():
         static.state_dict())
     with pytest.raises(ValueError, match='no hyper embedding'):
         static.encode_hyper_embed({})
-    for override, item in ((dict(warp_field_type='se3'), 'A.9'),
+    for override, item in ((dict(hyper_slice_method='axis_aligned_plane'),
+                            'A.9'),
                            (dict(use_viewdirs=False), 'A.9'),
                            (dict(use_occupancy_grid=True), 'A.10')):
         with pytest.raises(NotImplementedError, match=item):

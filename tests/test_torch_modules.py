@@ -12,10 +12,13 @@ import pytest
 import torch
 
 from hypernerf_tpu.models import modules as jmodules
+from hypernerf_tpu.models.warping import QuaternionField as JQuaternion
+from hypernerf_tpu.models.warping import SE3Field as JSE3
 from hypernerf_tpu.models.warping import TranslationField as JTranslation
 from hypernerf_tpu_torch.convert import params_from_jax
 from hypernerf_tpu_torch.models import modules
-from hypernerf_tpu_torch.models.warping import TranslationField
+from hypernerf_tpu_torch.models.warping import (QuaternionField, SE3Field,
+                                                TranslationField)
 
 TOL = 1e-5
 B, S, E = 3, 5, 8
@@ -101,6 +104,45 @@ def test_translation_field():
     _close(got, want)
 
 
+@pytest.mark.parametrize('kind', ['se3', 'quaternion'])
+@pytest.mark.parametrize('alpha', [None, 2.5])
+def test_se3_field(kind, alpha):
+    """The dense SE(3) / quaternion field against the flax module at float32
+    with converted weights (heads scaled up so that the rotation shows), with
+    and without the warp_alpha window; and its gradient with respect to the
+    points, which runs through the hand-derived retraction VJP."""
+    jcls, pcls = {'se3': (JSE3, SE3Field),
+                  'quaternion': (JQuaternion, QuaternionField)}[kind]
+    rs = np.random.RandomState(6)
+    pts = rs.randn(2, 5, 3).astype(np.float32)
+    emb = (rs.randn(2, 5, E) * 0.3).astype(np.float32)
+    flax_mod = jcls(trunk_depth=2, trunk_width=16, min_deg=0, max_deg=4,
+                    skips=(0,))
+    params = flax_mod.init(jax.random.PRNGKey(3), jnp.asarray(pts),
+                           jnp.asarray(emb))['params']
+    params = jax.tree.map(lambda a: a * 3e3 if a.shape == (16, 3) else a,
+                          params)
+    extra = {'warp_alpha': None if alpha is None else jnp.float32(alpha)}
+    want = flax_mod.apply({'params': params}, jnp.asarray(pts),
+                          jnp.asarray(emb), extra)['warped_points']
+    port = _load(pcls(E, 2, 16, 0, 4, (0,)), params)
+    xt = torch.from_numpy(pts).requires_grad_()
+    got = port(xt, torch.from_numpy(emb), {'warp_alpha': alpha})
+    assert np.abs(np.asarray(want) - pts).max() > 1e-2
+    _close(got, want)
+    want_g = jax.grad(lambda p: jnp.sum(flax_mod.apply(
+        {'params': params}, p, jnp.asarray(emb), extra)['warped_points']
+        ** 2))(jnp.asarray(pts))
+    got_g, = torch.autograd.grad((got ** 2).sum(), xt)
+    np.testing.assert_allclose(got_g.numpy(), np.asarray(want_g), rtol=1e-4,
+                               atol=1e-4)
+
+
+def test_se3_field_refuses_the_posenc_identity():
+    with pytest.raises(NotImplementedError, match='ROADMAP'):
+        SE3Field(E, use_posenc_identity=True)
+
+
 def test_glo_embed_clips_ids():
     ids = np.array([[0], [3], [-2], [9]], np.int32)
     flax_mod = jmodules.GLOEmbed(num_embeddings=5, features=E)
@@ -132,6 +174,8 @@ def _pairs():
                          skips=(0,))),
         (jmodules.GLOEmbed(num_embeddings=400, features=E),
          (jnp.zeros((2, 1), jnp.int32),), modules.GLOEmbed(400, E)),
+        (JSE3(trunk_depth=2, trunk_width=128, skips=(0,)), (pts, emb),
+         SE3Field(E, trunk_depth=2, trunk_width=128, skips=(0,))),
     ]
 
 
@@ -147,6 +191,11 @@ def test_init_matches_flax_distributions():
         for k, want in flax_params.items():
             got = port_params[k]
             assert got.shape == want.shape, k
+            if k.endswith('bias') and not want.any():
+                # The SE(3) heads' biases start at zero in both packages.
+                assert k.split('.')[0] in ('w_net', 'v_net'), k
+                assert not got.any(), k
+                continue
             if k.endswith('bias'):
                 # torch's default bias: U(+-1/sqrt(fan_in)).
                 fan_in = port_params[k[:-4] + 'weight'].shape[1]

@@ -48,6 +48,75 @@ def test_posenc_orig(n_freqs, log_scale):
     _close(got, want)
 
 
+@pytest.mark.parametrize('min_deg,max_deg,identity,alpha', [
+    (0, 8, False, None), (0, 8, False, 3.5), (2, 6, True, 1.25),
+    (0, 4, True, None), (1, 5, False, 0.0), (0, 8, False, 8.0)])
+def test_posenc_nerfies(min_deg, max_deg, identity, alpha):
+    """Layout [x? | sin bands | cos bands], band k of channel c at k * C + c,
+    scales 2^[min_deg, max_deg), the Hann window on alpha - band with bands
+    counted from min_deg; values 1e-6, and the same gradient (the JAX
+    function carries an analytic VJP, the port autograd)."""
+    jax_posenc = importlib.import_module('hypernerf_tpu.ops.posenc')
+    x = np.random.RandomState(4).randn(5, 7, 3).astype(np.float32)
+    jalpha = None if alpha is None else jnp.float32(alpha)
+    want = jax_posenc.posenc(jnp.asarray(x), min_deg, max_deg, identity,
+                             jalpha)
+    xt = torch.from_numpy(x).requires_grad_()
+    got = posenc.posenc(xt, min_deg, max_deg, identity, alpha)
+    assert got.shape[-1] == posenc.posenc_channels(3, min_deg, max_deg,
+                                                   identity)
+    assert posenc.posenc_channels(3, min_deg, max_deg, identity) == \
+        jax_posenc.posenc_channels(3, min_deg, max_deg, identity)
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(want),
+                               rtol=0, atol=1e-6)
+    cot = np.random.RandomState(5).randn(*got.shape).astype(np.float32)
+    want_g = jax.grad(lambda a: jnp.sum(jax_posenc.posenc(
+        a, min_deg, max_deg, identity, jalpha) * cot))(jnp.asarray(x))
+    got_g, = torch.autograd.grad(got, xt, torch.from_numpy(cot))
+    np.testing.assert_allclose(got_g.numpy(), np.asarray(want_g), rtol=1e-5,
+                               atol=1e-4)
+    if max_deg - min_deg == 8 and not identity and alpha is None:
+        # Band 2 of channel 1 sits at column 2 * 3 + 1, its cosine 24 on.
+        np.testing.assert_allclose(got.detach().numpy()[..., 7],
+                                   np.sin(x[..., 1] * 4.0), atol=1e-6)
+        np.testing.assert_allclose(got.detach().numpy()[..., 24 + 7],
+                                   np.cos(x[..., 1] * 4.0), atol=1e-6)
+
+
+@pytest.mark.parametrize('min_deg,max_deg,alpha', [(0, 8, 3.5), (0, 8, 0.0),
+                                                   (0, 8, 9.0), (2, 6, 3.25),
+                                                   (0, 10, 4.5)])
+def test_posenc_window(min_deg, max_deg, alpha):
+    jax_posenc = importlib.import_module('hypernerf_tpu.ops.posenc')
+    want = np.asarray(jax_posenc.posenc_window(min_deg, max_deg,
+                                               jnp.float32(alpha)))
+    got = posenc.posenc_window(min_deg, max_deg, alpha).numpy()
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-6)
+    # Fully on once alpha >= band + 1, off while alpha <= band.
+    bands = np.arange(min_deg, max_deg)
+    assert np.all(got[alpha >= bands + 1] == 1.0)
+    assert np.all(got[alpha <= bands] == 0.0)
+
+
+@pytest.mark.parametrize('segments,alphas', [
+    (((3, 8, 0, False), (8, 0)), (3.5, None)),
+    (((3, 8, 0, False), (8, 0)), (None, None)),
+    (((3, 10), (8, 0)), (4.5, None)),
+    (((3, 6, 2, True), (4, 3, 1, False)), (2.25, 1.5))])
+def test_encoding_scales_match_jax(segments, alphas):
+    """The window row over a segmented encoding against
+    ``fused_field.encoding_scales`` (whose row is padded to the TPU's lane
+    width; the port pads per kernel)."""
+    from hypernerf_tpu.ops.pallas.fused_field import encoding_scales
+    from hypernerf_tpu_torch.kernels.common import \
+        encoding_scales as port_scales
+    want = np.asarray(encoding_scales(
+        segments, [None if a is None else jnp.float32(a) for a in alphas]))[0]
+    got = port_scales(segments, alphas).numpy()
+    np.testing.assert_allclose(got, want[:got.shape[0]], rtol=0, atol=1e-6)
+    assert not want[got.shape[0]:].any()
+
+
 @pytest.mark.parametrize('stratified,disparity', [(False, False),
                                                   (False, True),
                                                   (True, False)])

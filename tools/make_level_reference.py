@@ -6,7 +6,8 @@ kernels on a card that has no JAX.
   python tools/make_level_reference.py \
       [--out tests/data/fused_level_jax_ref.npz] \
       [--grads_out tests/data/fused_jax_grads.npz] \
-      [--modular_out tests/data/fused_modular_jax_ref.npz]
+      [--modular_out tests/data/fused_modular_jax_ref.npz] \
+      [--se3_out tests/data/fused_se3_jax_ref.npz] [--only se3]
 
 The weights are ``hypernerf_tpu_torch.flagship.load_probe_weights`` (numpy,
 seed 0), which the card redraws bit for bit; the inputs
@@ -26,6 +27,15 @@ template) and with one condition row per sample; outputs, and for the stored
 cotangent the input gradients and dW / db of every layer.
 ``tests/test_torch_fused_field.py`` and ``tests/test_torch_fused_mlp.py``
 recompute and check it.
+The SE(3) file holds the SE(3) kernels' numbers at the probe weights of the
+``se3`` and ``quaternion`` configurations (``flagship.SE3_TRUNK_CASES``,
+``flagship.SE3_LEVEL_CASES``): ``fused_se3_wv`` (the trunk alone: [w | v],
+and for the stored cotangent dx and dW / db of its nine layers), with and
+without the ``warp_alpha`` window, and the level kernel with the SE(3) and the
+quaternion warp (outputs, and the gradients of every ray input and of all 32
+layers). ``tests/test_torch_fused_se3.py`` and
+``tests/test_torch_fused_level.py`` recompute and check it. ``--only se3``
+writes that file alone.
 """
 
 from __future__ import annotations
@@ -42,14 +52,19 @@ def probe_model():
     return load_probe_weights(flagship_model('cpu'))
 
 
-def _jax_level_fn(model, level: str, inputs):
+def _jax_level_fn(model, level: str, inputs, warp_alpha=None, **spec_kw):
     """(fn, args): ``fn(*args)`` is the JAX level kernel's packed output
     with the weights of ``model``'s ``level``; args are the five ray inputs
     in ``LEVEL_INPUTS`` order, then the warp, hyper and template (W, b)
-    pair lists."""
+    pair lists. The warp type is the model's; ``warp_alpha`` windows the
+    SE(3) / quaternion trunk's encoding (None: a row of ones, as the JAX
+    model threads it). ``spec_kw`` overrides fields of the spec (the backward
+    schedule)."""
     import jax.numpy as jnp
 
-    from hypernerf_tpu.ops.pallas.fused_field import mlp_params_to_list
+    from hypernerf_tpu.ops.pallas.fused_field import (encoding_scales,
+                                                      mlp_params_to_list)
+    from hypernerf_tpu.ops.pallas.fused_se3 import se3_params_to_list
     from hypernerf_tpu.ops.pallas.fused_level import (FusedLevelSpec,
                                                       fused_level)
     from hypernerf_tpu.ops.pallas.fused_mlp import nerf_mlp_params_to_list
@@ -59,8 +74,11 @@ def _jax_level_fn(model, level: str, inputs):
     params = params_to_jax(model.state_dict())
     cfg = model.config
     r, s = inputs['z_vals'].shape
+    screw = cfg.warp_field_type != 'translation'
     spec = FusedLevelSpec(
-        embed_ch=cfg.glo_dim, warp_depth=cfg.warp_depth,
+        embed_ch=cfg.glo_dim, warp_type=cfg.warp_field_type,
+        se3_min_deg=cfg.warp_min_deg, se3_max_deg=cfg.warp_max_deg,
+        warp_windowed=screw, warp_depth=cfg.warp_depth,
         warp_width=cfg.warp_width, warp_freq=cfg.warp_freq,
         hyper_depth=cfg.hyper_sheet_depth, hyper_width=cfg.hyper_sheet_width,
         hyper_sheet_freq=cfg.hyper_sheet_freq,
@@ -71,39 +89,48 @@ def _jax_level_fn(model, level: str, inputs):
         rgb_cond_ch=inputs['rgb_cond'].shape[1], alpha_cond_ch=0,
         skips=tuple(cfg.skips), tile=512, bwd_tile=256, interpret=True,
         compute_dtype=cfg.compute_dtype, cond_samples=s,
-        pipelined_bwd=cfg.pallas_pipelined_bwd)
+        pipelined_bwd=cfg.pallas_pipelined_bwd)._replace(**spec_kw)
+    warp_scales = None
+    if screw:
+        warp_scales = encoding_scales(
+            spec.warp_fs.enc_segments,
+            [None if warp_alpha is None else jnp.float32(warp_alpha), None])
 
     def fn(z_vals, origins, directions, embed, rgb_cond, warp, hyper, tmpl):
         return fused_level(spec, None, embed, rgb_cond, None, warp, hyper,
-                           tmpl, origins=origins, directions=directions,
+                           tmpl, warp_enc_scales=warp_scales,
+                           origins=origins, directions=directions,
                            z_vals=z_vals, return_packed=True)[:, :4]
 
     as_jnp = lambda pairs: [(jnp.asarray(w), jnp.asarray(b))
                             for w, b in pairs]
     args = [jnp.asarray(inputs[k]) for k in LEVEL_INPUTS] + [
-        as_jnp(mlp_params_to_list(params['warp_field']['mlp'])),
+        as_jnp(se3_params_to_list(params['warp_field']) if screw else
+               mlp_params_to_list(params['warp_field']['mlp'])),
         as_jnp(mlp_params_to_list(params['hyper_sheet_mlp']['mlp'])),
         as_jnp(nerf_mlp_params_to_list(params[f'nerf_{level}']))]
     return fn, args
 
 
-def jax_level(model, level: str, inputs) -> 'np.ndarray':
+def jax_level(model, level: str, inputs, warp_alpha=None) -> 'np.ndarray':
     """(R * S, 4) [rgb logits | raw sigma] of the JAX level kernel with the
     weights of ``model``'s ``level`` ('coarse' or 'fine')."""
     import jax
     import numpy as np
-    fn, args = _jax_level_fn(model, level, inputs)
+    fn, args = _jax_level_fn(model, level, inputs, warp_alpha)
     return np.asarray(jax.device_get(fn(*args)))
 
 
-def jax_level_grads(model, level: str, inputs, cotangent) -> dict:
+def jax_level_grads(model, level: str, inputs, cotangent, warp_alpha=None,
+                    **spec_kw) -> dict:
     """Gradients of sum(level output * cotangent) through the JAX level
     kernel's own backward: {'d_<input>'} for the five ray inputs and
-    {'dw<l>', 'db<l>'} for the 30 layers in kernel order, dW as (out, in)."""
+    {'dw<l>', 'db<l>'} for the level's layers (30, or 32 with the SE(3) /
+    quaternion warp) in kernel order, dW as (out, in)."""
     import jax
     import jax.numpy as jnp
     import numpy as np
-    fn, args = _jax_level_fn(model, level, inputs)
+    fn, args = _jax_level_fn(model, level, inputs, warp_alpha, **spec_kw)
     from hypernerf_tpu_torch.flagship import LEVEL_INPUTS
 
     def loss(*a):
@@ -236,6 +263,79 @@ def jax_modular(model, case: str, inputs) -> dict:
     return res
 
 
+def jax_se3_trunk(model, inputs, warp_alpha=None, **spec_kw) -> dict:
+    """The JAX SE(3) trunk kernel's numbers (``fused_se3_wv``, interpret
+    mode) on ``model``'s warp field: 'out' (P, 6) [w | v], and for
+    sum(out * cotangent[:, :6]) 'dx', 'dw<l>' as (out, in) and 'db<l>' of the
+    nine layers in kernel order."""
+    import jax
+    import jax.numpy as jnp
+    import numpy as np
+
+    from hypernerf_tpu.ops.pallas.fused_field import encoding_scales
+    from hypernerf_tpu.ops.pallas.fused_se3 import (FusedSE3Spec,
+                                                    fused_se3_wv,
+                                                    se3_params_to_list)
+    from hypernerf_tpu_torch.convert import params_to_jax
+
+    cfg = model.config
+    field = model.warp_field
+    params = params_to_jax(field.state_dict())
+    spec = FusedSE3Spec(
+        embed_ch=field.embed_ch, use_metadata=field.use_metadata,
+        min_deg=field.min_deg, max_deg=field.max_deg,
+        depth=field.trunk.depth,
+        width=field.trunk.logit.out_features, skips=tuple(field.trunk.skips),
+        tile=256, bwd_tile=128, compute_dtype=cfg.compute_dtype,
+        windowed=warp_alpha is not None, interpret=True)._replace(**spec_kw)
+    scales = None if warp_alpha is None else encoding_scales(
+        spec.enc_segments,
+        [jnp.float32(warp_alpha)] + [None] * (len(spec.enc_segments) - 1))
+    cot = jnp.asarray(inputs['cotangent'])[:, :6]
+
+    def fn(x_raw, pairs):
+        w, v = fused_se3_wv(spec, x_raw[:, :3], x_raw[:, 3:], pairs,
+                            enc_scales=scales)
+        return jnp.concatenate([w, v], -1)
+
+    args = [jnp.asarray(inputs['x_raw']),
+            [(jnp.asarray(w), jnp.asarray(b))
+             for w, b in se3_params_to_list(params)]]
+    g = jax.device_get(jax.grad(
+        lambda *a: jnp.sum(fn(*a) * cot), argnums=(0, 1))(*args))
+    res = {'out': np.asarray(jax.device_get(fn(*args)), np.float32),
+           'dx': np.asarray(g[0], np.float32)}
+    for layer, (dw, db) in enumerate(g[1]):
+        res[f'dw{layer}'] = np.asarray(dw, np.float32).T.copy()
+        res[f'db{layer}'] = np.asarray(db, np.float32)
+    return res
+
+
+def se3_reference() -> dict:
+    """Every array of the SE(3) file: each case's inputs and numbers."""
+    from hypernerf_tpu_torch.flagship import (SE3_LEVEL_CASES,
+                                              SE3_TRUNK_CASES, flagship_model,
+                                              load_probe_weights,
+                                              se3_probe_inputs)
+    models = {c: load_probe_weights(flagship_model('cpu', config=c))
+              for c in ('se3', 'quaternion')}
+    arrays = {}
+    for case, (_, alpha, _) in SE3_TRUNK_CASES.items():
+        inputs = se3_probe_inputs(case)
+        arrays.update({f'{case}/{k}': v for k, v in inputs.items()})
+        arrays.update({f'{case}/{k}': v for k, v in jax_se3_trunk(
+            models['se3'], inputs, alpha).items()})
+    for case, (config, level, _, _, alpha, _) in SE3_LEVEL_CASES.items():
+        inputs = se3_probe_inputs(case)
+        arrays.update({f'{case}/{k}': v for k, v in inputs.items()})
+        rays = {k: v for k, v in inputs.items() if k != 'cotangent'}
+        arrays[f'{case}/out'] = jax_level(models[config], level, rays, alpha)
+        arrays.update({f'{case}/{k}': v for k, v in jax_level_grads(
+            models[config], level, rays, inputs['cotangent'],
+            alpha).items()})
+    return arrays
+
+
 def modular_reference() -> dict:
     """Every array of the modular file: each case's inputs and numbers."""
     from hypernerf_tpu_torch.flagship import (MODULAR_REFERENCE_CASES,
@@ -279,12 +379,20 @@ def main():
                                               LEVEL_REFERENCE,
                                               LEVEL_REFERENCE_CASES,
                                               MODULAR_REFERENCE,
-                                              probe_inputs)
+                                              SE3_REFERENCE, probe_inputs)
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument('--out', default=LEVEL_REFERENCE)
     parser.add_argument('--grads_out', default=GRAD_REFERENCE)
     parser.add_argument('--modular_out', default=MODULAR_REFERENCE)
+    parser.add_argument('--se3_out', default=SE3_REFERENCE)
+    parser.add_argument('--only', choices=('se3',), default=None,
+                        help='write the SE(3) file alone')
     args = parser.parse_args()
+    os.makedirs(os.path.dirname(os.path.abspath(args.se3_out)), exist_ok=True)
+    np.savez_compressed(args.se3_out, **se3_reference())
+    print(args.se3_out)
+    if args.only:
+        return
     model = probe_model()
     arrays = {}
     for name, n_rays, samples, seed in LEVEL_REFERENCE_CASES:

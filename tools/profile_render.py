@@ -3,7 +3,8 @@
 the flagship, or one of its variants (``flagship.CONFIGS``), through the
 PyTorch port, on one CUDA card.
 
-  python tools/profile_render.py [--config flagship|static|split_glo] \
+  python tools/profile_render.py \
+      [--config flagship|static|split_glo|se3|quaternion] \
       [--frames 2] [--chunk 8192] [--trace render_trace.json]
 
 Prints the card, the wall time per frame, the device time per frame by
@@ -26,7 +27,8 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument('--config', default='flagship',
-                        choices=('flagship', 'static', 'split_glo'))
+                        choices=('flagship', 'static', 'split_glo', 'se3',
+                                 'quaternion'))
     parser.add_argument('--frames', type=int, default=2)
     parser.add_argument('--chunk', type=int, default=8192)
     parser.add_argument('--trace', default=None,

@@ -3,7 +3,8 @@
 16384, 64 + 64 samples, full widths, bf16) of the PyTorch port, on one CUDA
 card, for the flagship or one of its variants (``flagship.CONFIGS``).
 
-  python tools/profile_train.py [--config flagship|static|split_glo] \
+  python tools/profile_train.py \
+      [--config flagship|static|split_glo|se3|quaternion] \
       [--steps 3] [--batch 16384] [--trace train_trace.json]
 
 Prints the card, the wall time per step without and under the profiler, the
@@ -29,7 +30,8 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument('--config', default='flagship',
-                        choices=('flagship', 'static', 'split_glo'))
+                        choices=('flagship', 'static', 'split_glo', 'se3',
+                                 'quaternion'))
     parser.add_argument('--steps', type=int, default=3)
     parser.add_argument('--batch', type=int, default=16384)
     parser.add_argument('--trace', default=None,
