@@ -80,7 +80,30 @@ Phases, one line each; any failure ends the run with a non-zero exit:
      forward and backward), each with launch counters, no plain call and one
      kernels-vs-plain step on 1024 rays; ``query_sigma`` of ``se3`` on
      1 << 20 points;
- 13. the kernels' JSON line, then the result line.
+ 13. the translation warp's Jacobian kernels (forward and backward) at probe
+     weights whose warp head moves J well away from I: against the JAX
+     kernels' stored outputs and gradients (tests/data), with the 1 % probe
+     of warp layer 5, against their plain versions at 1001 points and at the
+     train step's 262,144 (16384 rays x 16 samples), which are also timed;
+ 14. the SE(3) trunk's tangent kernels (forward and backward), the same way,
+     with and without a window row (alpha 3.5 of 8 bands);
+ 15. the SE(3) and quaternion retractions' point-Jacobian (tensor code)
+     chained with the tangent kernel, against the plain chain and the JAX
+     side channel's stored J; models whose w head is zero (J = I + dv
+     exactly, finite gradients);
+ 16. the train steps of ``elastic``, ``elastic_se3`` and
+     ``elastic_quaternion`` (16 Jacobian samples per ray, elastic weight
+     0.01) at batch 16384 as phase 7 runs them: 2 launches per step of each
+     Jacobian kernel beside the level and compositing kernels, no plain call,
+     finite non-zero gradients, a falling fixed-batch loss, and a 1024-ray
+     step with the kernels against one with the plain versions, with the
+     elastic term's value;
+ 17. one ``split_glo`` step with the elastic loss (the per-module branch: J
+     at every sample) on 1024 rays, kernels vs plain versions, with its
+     launches;
+ 18. one ``elastic`` step with the background loss on a seeded set of
+     1 << 16 static points, 1024 per step (the field kernels counted);
+ 19. the kernels' JSON line, then the result line.
 Times come from CUDA events (kernels) or the host clock around work that
 ends in a synchronize (frames, steps). A kernel's bound is the larger of
 its matrix-product operations over the card's dense bf16 peak and its bytes
@@ -644,15 +667,20 @@ def plain_versions():
         common.runs_plain = saved
 
 
-def compare_step(model, all_rays, all_rgbs, tag='[7]') -> None:
+def compare_step(model, all_rays, all_rgbs, tag='[7]',
+                 elastic_weight: float = 0.0):
     """One step's loss and gradients on a small explicit batch from the same
     state and draws: the kernels, then the plain versions. Run on the seeded
     initial state, so the reading is the same from run to run (after train
-    steps the state differs in its last bits, and the reading with it)."""
+    steps the state differs in its last bits, and the reading with it).
+    With ``elastic_weight`` the loss adds the elastic term (the warp
+    Jacobian, subsampled by the same draws); its value is printed and must
+    be non-zero. Returns the launches of the kernels' step."""
     import torch
     from hypernerf_tpu_torch.ops.ray_dict import prepare_ray_dict
     from hypernerf_tpu_torch.ops.sampling import sorted_uniform
-    from hypernerf_tpu_torch.training.losses import mse_loss
+    from hypernerf_tpu_torch.training.losses import (mse_loss,
+                                                     weighted_elastic_loss)
     cfg = model.config
     n = 1024
     gen = torch.Generator(device='cuda').manual_seed(11)
@@ -662,35 +690,54 @@ def compare_step(model, all_rays, all_rgbs, tag='[7]') -> None:
              'noise_coarse': torch.randn(n, s, generator=gen, device='cuda'),
              'noise_fine': torch.randn(n, s + nf, generator=gen,
                                        device='cuda')}
+    k = cfg.elastic_jacobian_samples
+    if elastic_weight and k:
+        draws.update({f'jacobian_u_{level}': torch.rand(
+            n, k, generator=gen, device='cuda') for level in ('coarse',
+                                                              'fine')})
+    terms = []
 
     def one_step():
         model.zero_grad(set_to_none=True)
         out = model(prepare_ray_dict(all_rays[:n]), deterministic=False,
-                    return_weights=False, draws=draws)
+                    return_weights=bool(elastic_weight), draws=draws,
+                    return_warp_jacobian=bool(elastic_weight))
         loss = mse_loss(out, all_rgbs[:n])
+        if elastic_weight:
+            terms.append(weighted_elastic_loss(out))
+            loss = loss + elastic_weight * terms[-1]
         loss.backward()
         return loss.item(), {k: p.grad.clone()
                              for k, p in model.named_parameters()}
 
+    reset_counts()
     loss_k, grads_k = one_step()
+    launches = {k: fn.launches for k, fn in kernel_wrappers()[0].items()
+                if fn.launches}
     with plain_versions():
         loss_p, grads_p = one_step()
     model.zero_grad(set_to_none=True)
     total, worst = step_grad_errors(grads_k, grads_p)
+    elastic = (f'; elastic term {terms[0].item():.6e} vs '
+               f'{terms[1].item():.6e} (weight {elastic_weight})'
+               if terms else '')
     phase(f'{tag} one step on {n} rays, kernels vs plain versions: loss '
           f'{loss_k:.6f} vs {loss_p:.6f} (tol {STEP_LOSS_TOL}); gradients: '
           f'relative L2 over all parameters {total:.3e}, worst parameter '
           f'{worst[0]:.3e} of its scale at {worst[1]} (tol {STEP_GRAD_L2} '
-          f'both)')
+          f'both){elastic}')
     if not abs(loss_k - loss_p) <= STEP_LOSS_TOL or \
             not max(total, worst[0]) <= STEP_GRAD_L2:
         raise AssertionError('train step: kernels and plain versions '
                              'disagree')
+    if terms and not (math.isfinite(terms[0].item()) and terms[0].item() > 0):
+        raise AssertionError(f'the elastic term is {terms[0].item()}')
+    return launches
 
 
 def kernel_wrappers():
     """({kernel name: wrapper with a ``launches`` count}, [plain versions
-    with a ``calls`` count]) of all ten kernels."""
+    with a ``calls`` count]) of all fourteen kernels."""
     from hypernerf_tpu_torch import kernels as K
     wrappers = {'fused_level_fwd': K.fused_level,
                 'fused_composite_fwd': K.fused_composite,
@@ -701,12 +748,18 @@ def kernel_wrappers():
                 'fused_field_bwd': K.fused_field_bwd,
                 'fused_template_fwd': K.fused_template,
                 'fused_se3_fwd': K.fused_se3_wv,
-                'fused_se3_bwd': K.fused_se3_bwd}
+                'fused_se3_bwd': K.fused_se3_bwd,
+                'fused_jacobian_fwd': K.fused_warp_jacobian,
+                'fused_jacobian_bwd': K.fused_jacobian_bwd,
+                'fused_se3_jacobian_fwd': K.fused_se3_wv_tangents,
+                'fused_se3_jacobian_bwd': K.fused_se3_jacobian_bwd}
     plains = [K.fused_level_plain, K.fused_composite_plain,
               K.fused_template_bwd_plain, K.fused_fields_bwd_plain,
               K.fused_composite_bwd_plain, K.fused_field_plain,
               K.fused_field_bwd_plain, K.fused_template_plain,
-              K.fused_se3_plain, K.fused_se3_bwd_plain]
+              K.fused_se3_plain, K.fused_se3_bwd_plain,
+              K.fused_jacobian_plain, K.fused_jacobian_bwd_plain,
+              K.fused_se3_jacobian_plain, K.fused_se3_jacobian_bwd_plain]
     return wrappers, plains
 
 
@@ -744,6 +797,12 @@ STEP_LAUNCHES = {
                       'fused_field_fwd': 2, 'fused_field_bwd': 2,
                       'fused_template_fwd': 2, 'fused_template_bwd': 2}}
 STEP_LAUNCHES['se3'] = STEP_LAUNCHES['quaternion'] = STEP_LAUNCHES['flagship']
+# The elastic loss adds the Jacobian kernels, once per level and step.
+STEP_LAUNCHES['elastic'] = {**STEP_LAUNCHES['flagship'],
+                            'fused_jacobian_fwd': 2, 'fused_jacobian_bwd': 2}
+STEP_LAUNCHES['elastic_se3'] = STEP_LAUNCHES['elastic_quaternion'] = {
+    **STEP_LAUNCHES['flagship'], 'fused_se3_jacobian_fwd': 2,
+    'fused_se3_jacobian_bwd': 2}
 # A path that is a configuration with overrides: (configuration, overrides).
 PATHS = {'se3_split_glo': ('se3', dict(share_glo=False))}
 
@@ -758,9 +817,11 @@ def train_path(config: str, tag: str) -> dict:
     from hypernerf_tpu_torch.training.losses import mse_loss
     from hypernerf_tpu_torch.training.train_state import (TrainState,
                                                           step_generator)
+    from hypernerf_tpu_torch.flagship import TRAIN_CONFIGS
     base, overrides = PATHS.get(config, (config, {}))
     state, step_fn, all_rays, all_rgbs = flagship_train_setup(
         'cuda', seed=0, batch_size=TRAIN_RAYS, config=base, **overrides)
+    elastic = TRAIN_CONFIGS.get(base, {}).get('elastic_loss_weight', 0.0)
     model = state.model
     cfg = model.config
     fixed = slice(0, 4096)
@@ -772,7 +833,7 @@ def train_path(config: str, tag: str) -> dict:
             return mse_loss(out, all_rgbs[fixed]).item()
 
     before = fixed_loss()
-    compare_step(model, all_rays, all_rgbs, tag)
+    compare_step(model, all_rays, all_rgbs, tag, elastic)
     for _ in range(WARMUP_STEPS):
         step_fn(state, all_rays, all_rgbs)
     torch.cuda.synchronize()
@@ -1626,6 +1687,358 @@ def se3_paths_phase(kernels) -> None:
         if name in ('fused_se3_fwd', 'fused_se3_bwd'):
             k['launches'] = counts['se3_split_glo', 'train'][name]
 
+# -- the warp Jacobians (the elastic loss) -----------------------------------
+
+# The Jacobian kernels vs their plain versions and vs the stored JAX numbers:
+# both round at the same points (bf16 activations and tangents; the
+# translation backward's cotangent fp32, held as two bf16 halves by the
+# kernel and rounded alike in the plain version); a last-bit fp32 difference
+# moves a bf16 rounding, and the 2^9 band amplifies it (measured on an H100
+# at 262,144 points: relative L2 up to 2.7e-3). A 1 % change of layer 5 moves
+# J, the tangents and every dW by 3 to 5 % (the probe below). Allowed per
+# output: relative L2 1e-2, max|d| 0.25 of the largest entry (GRAD_MAX).
+JAC_L2 = 1e-2
+# Points per call on the train step's path: 16 Jacobian samples per ray.
+JAC_POINTS = TRAIN_RAYS * 16
+JAC_CHUNK = 65536  # points per call of a plain version
+
+
+def plain_jacobian(mlp, x_raw):
+    """(P, 9) J of the plain version over chunks of points."""
+    import torch
+    from hypernerf_tpu_torch.kernels import fused_jacobian_plain
+    return torch.cat([fused_jacobian_plain(mlp, 10, x_raw[a:a + JAC_CHUNK])
+                      for a in range(0, x_raw.shape[0], JAC_CHUNK)])
+
+
+def plain_jacobian_bwd(mlp, x_raw, g):
+    """[dx_raw, 14 x dW/db] of the plain backward over chunks of points."""
+    import torch
+    from hypernerf_tpu_torch.kernels import fused_jacobian_bwd_plain
+    parts = [fused_jacobian_bwd_plain(mlp, 10, x_raw[a:a + JAC_CHUNK],
+                                      g[a:a + JAC_CHUNK])
+             for a in range(0, x_raw.shape[0], JAC_CHUNK)]
+    return [torch.cat([dx for dx, _ in parts])] + [
+        sum(grads[i] for _, grads in parts) for i in range(len(parts[0][1]))]
+
+
+def plain_tangents(field, x_raw, scales=None):
+    """(P, 24) [w | v | dw | dv] of the plain version over chunks."""
+    import torch
+    from hypernerf_tpu_torch.kernels import fused_se3_jacobian_plain
+    return torch.cat([fused_se3_jacobian_plain(field, x_raw[a:a + JAC_CHUNK],
+                                               scales)
+                      for a in range(0, x_raw.shape[0], JAC_CHUNK)])
+
+
+def plain_tangents_bwd(field, x_raw, g, scales=None):
+    """[dx_raw, 18 x dW/db] of the plain backward over chunks of points."""
+    import torch
+    from hypernerf_tpu_torch.kernels import fused_se3_jacobian_bwd_plain
+    parts = [fused_se3_jacobian_bwd_plain(field, x_raw[a:a + JAC_CHUNK],
+                                          g[a:a + JAC_CHUNK], scales)
+             for a in range(0, x_raw.shape[0], JAC_CHUNK)]
+    return [torch.cat([dx for dx, _ in parts])] + [
+        sum(grads[i] for _, grads in parts) for i in range(len(parts[0][1]))]
+
+
+def tangents_of(field, x_raw, scales=None):
+    """(P, 24) [w | v | dw | dv] of the kernel."""
+    import torch
+    from hypernerf_tpu_torch.kernels import fused_se3_wv_tangents
+    return torch.cat([t.reshape(x_raw.shape[0], -1)
+                      for t in fused_se3_wv_tangents(field, x_raw, scales)],
+                     dim=-1)
+
+
+def jacobian_phase(kind: str):
+    """Phase 13 (``kind`` 'translation': kernels 14 and 15) or 14 ('se3':
+    kernels 16 and 17, with and without a window row): against the JAX
+    kernels' stored numbers, the 1 % probe of layer 5, the plain versions at
+    a ragged size and at the train step's 262,144 points (timed). Returns
+    the two kernels' entries."""
+    import torch
+    from hypernerf_tpu_torch import kernels as K
+    from hypernerf_tpu_torch.flagship import (JACOBIAN_CASES, flagship_model,
+                                              load_probe_weights,
+                                              read_jacobian_reference)
+    from hypernerf_tpu_torch.kernels import common
+    from hypernerf_tpu_torch.kernels.fused_field import field_layers
+    from hypernerf_tpu_torch.kernels.fused_se3 import (se3_encoding_scales,
+                                                       se3_layers)
+    tag = '[13]' if kind == 'translation' else '[14]'
+    trans = kind == 'translation'
+    probe = load_probe_weights(flagship_model(
+        'cuda', config='elastic' if trans else 'elastic_se3'))
+    field = probe.warp_field
+    if trans:
+        mlp = field.mlp
+        layers, width, hidden5 = field_layers(mlp), 9, mlp.hidden(5)
+        fwd = lambda x, sc=None: K.fused_warp_jacobian(
+            mlp, 10, x[:, :3], x[:, 3:]).reshape(-1, 9)
+        bwd = lambda x, g, sc=None: K.fused_jacobian_bwd(mlp, 10, x, g)
+        plain = lambda x, sc=None: plain_jacobian(mlp, x)
+        plain_bwd = lambda x, g, sc=None: plain_jacobian_bwd(mlp, x, g)
+        windows = (None,)
+    else:
+        layers, width, hidden5 = se3_layers(field), 24, field.trunk.hidden(5)
+        fwd = lambda x, sc=None: tangents_of(field, x, sc)
+        bwd = lambda x, g, sc=None: K.fused_se3_jacobian_bwd(field, x, g, sc)
+        plain = lambda x, sc=None: plain_tangents(field, x, sc)
+        plain_bwd = lambda x, g, sc=None: plain_tangents_bwd(field, x, g, sc)
+        windows = (None, se3_encoding_scales(field, WINDOW_ALPHA, 'cuda'))
+    out_name = 'J' if trans else 'w | v | dw | dv'
+    grad_names = ['dx'] + [f'd{"Wb"[i % 2]}{i // 2}'
+                           for i in range(2 * len(layers))]
+    params = common.layer_params(layers)
+
+    # The JAX kernels' stored outputs and gradients, through the autograd
+    # Function as training runs them.
+    ref = read_jacobian_reference()
+    for case, (_, _, alpha, _) in JACOBIAN_CASES.items():
+        if (case == 'translation') != trans:
+            continue
+        arrays = {k: torch.from_numpy(v).cuda() for k, v in ref[case].items()}
+        x = arrays['x_raw'].requires_grad_()
+        scales = None if alpha is None else se3_encoding_scales(field, alpha,
+                                                                'cuda')
+        out = fwd(x, scales)
+        check_grads(f'{case} forward vs the stored JAX output', [out_name],
+                    [out.detach()], [arrays['out']], JAC_L2, tag=tag)
+        got = torch.autograd.grad(out, [x] + params, arrays['cotangent'])
+        check_grads(f'{case} backward vs the stored JAX gradients',
+                    grad_names, got, [arrays[n.lower()] for n in grad_names],
+                    JAC_L2, tag=tag)
+
+    errs = {'fwd': [], 'bwd': []}
+    gen = torch.Generator().manual_seed(13)
+    with torch.no_grad():
+        # The 1 % probe: a 1 % change of layer 5 must move the plain outputs
+        # and every plain dW by more than the checks allow.
+        x = field_rows(8192, seed=13)
+        g = torch.randn(8192, width, generator=gen).cuda()
+        base_out, base = plain(x), plain_bwd(x, g)
+        hidden5.weight.mul_(1.01)
+        moved_out, moved = plain(x), plain_bwd(x, g)
+        hidden5.weight.div_(1.01)
+        l2_out = grad_errors(moved_out, base_out)[0]
+        l2 = [grad_errors(a, b)[0] for a, b in zip(moved[1::2], base[1::2])]
+        size = ((base_out.reshape(-1, 3, 3) - torch.eye(3, device='cuda'))
+                .abs().mean().item() if trans else
+                base_out[:, :3].norm(dim=-1).mean().item())
+        phase(f'{tag} probe: {"mean |J - I|" if trans else "mean |w|"} '
+              f'{size:.3f}; 1% on layer 5 moves {out_name} by relative L2 '
+              f'{l2_out:.3e} and the {len(l2)} dW by {min(l2):.3e}..'
+              f'{max(l2):.3e} (the checks allow {JAC_L2})')
+        if not (l2_out > JAC_L2 and min(l2) > JAC_L2):
+            raise AssertionError(f'the {kind} Jacobian checks cannot see '
+                                 f'layer 5')
+
+        times = {}
+        # 1001 points: a multiple of neither tile (16 and 8 points).
+        for p in (1001, JAC_POINTS):
+            for scales in windows if p == 1001 else (None,):
+                label = (f'{kind} P={p} window='
+                         f'{"off" if scales is None else "on"}')
+                x = field_rows(p, seed=p % 97)
+                g = torch.randn(p, width, generator=gen).cuda()
+                errs['fwd'].append(check_grads(
+                    f'{label} forward vs plain', [out_name], [fwd(x, scales)],
+                    [plain(x, scales)], JAC_L2, tag=tag))
+                dx, grads = bwd(x, g, scales)
+                torch.cuda.synchronize()
+                errs['bwd'].append(check_grads(
+                    f'{label} backward vs plain', grad_names, [dx, *grads],
+                    plain_bwd(x, g, scales), JAC_L2, tag=tag))
+            if p == JAC_POINTS:
+                times = dict(fwd=cuda_ms(lambda: fwd(x)),
+                             plain_fwd=cuda_ms(lambda: plain(x), 2),
+                             bwd=cuda_ms(lambda: bwd(x, g), 3),
+                             plain_bwd=cuda_ms(lambda: plain_bwd(x, g), 1))
+                phase(f'{tag} {kind} Jacobian P={p}: forward '
+                      f'{times["fwd"]:.3f} ms (plain {times["plain_fwd"]:.2f}'
+                      f' ms), backward {times["bwd"]:.3f} ms (plain '
+                      f'{times["plain_bwd"]:.1f} ms); plain versions in '
+                      f'chunks of {JAC_CHUNK} points')
+        del x, g, dx, grads
+        torch.cuda.empty_cache()
+
+    # Bounds at the train step's points: one multiply-add per weight, point
+    # and row block (four) forward; the backward recomputes the four blocks
+    # and runs g W and t^T g on the tangent blocks (translation: three) or on
+    # all four (SE(3)). Bytes: the raw rows, the outputs, the cotangent and
+    # dx once, the weights (and dW) once.
+    macs = sum(lin.weight.numel() for lin, _ in layers)
+    p = JAC_POINTS
+    back_blocks = 4 + 2 * (3 if trans else 4)
+    f_ms, f_by = bound(2.0 * 4 * macs * p, p * (44 + 4 * width) + 2 * macs)
+    b_ms, b_by = bound(2.0 * back_blocks * macs * p,
+                       p * (44 + 4 * width + 44) + 6 * macs)
+    src = 'hypernerf_tpu_torch/kernels/csrc/'
+    stem = 'fused_jacobian' if trans else 'fused_se3_jacobian'
+    fwd_line, bwd_line = (269, 302) if trans else (286, 331)
+    pallas = f'hypernerf_tpu/ops/pallas/{stem}.py'
+    return [
+        dict(name=f'{stem}_fwd', route='cuda', source=f'{src}{stem}.cu',
+             replaces=f'{pallas}:{fwd_line}',
+             **error_keys(errs['fwd'], JAC_L2), ms=times['fwd'],
+             plain_ms=times['plain_fwd'], bound_ms=f_ms, bound_by=f_by,
+             library_ms=None, shape=f'P={p}', macs_per_row=macs),
+        dict(name=f'{stem}_bwd', route='cuda', source=f'{src}{stem}_bwd.cu',
+             replaces=f'{pallas}:{bwd_line}',
+             **error_keys(errs['bwd'], JAC_L2),
+             ms=times['bwd'], plain_ms=times['plain_bwd'], bound_ms=b_ms,
+             bound_by=b_by, library_ms=None, shape=f'P={p}')]
+
+
+def retraction_phase() -> None:
+    """Phase 15: kernel 16 chained with the retraction's point-Jacobian
+    (tensor code, float64 inside) for the SE(3) and the quaternion warp,
+    against the plain chain and against the JAX side channel's stored J;
+    then models whose w head is zero, so that every row has w = 0 exactly:
+    J = I + dv, every gradient finite, the w head's exactly 0."""
+    import torch
+    from hypernerf_tpu_torch import kernels as K
+    from hypernerf_tpu_torch.flagship import (JACOBIAN_CASES, flagship_model,
+                                              load_probe_weights,
+                                              read_jacobian_reference)
+    from hypernerf_tpu_torch.kernels import common
+    from hypernerf_tpu_torch.kernels.fused_se3 import (se3_encoding_scales,
+                                                       se3_layers)
+    from hypernerf_tpu_torch.ops import quaternion, rigid_body
+
+    def split(out):
+        p = out.shape[0]
+        return (out[:, :3], out[:, 3:6], out[:, 6:15].reshape(p, 3, 3),
+                out[:, 15:].reshape(p, 3, 3))
+
+    field = load_probe_weights(flagship_model(
+        'cuda', config='elastic_se3')).warp_field
+    ref = read_jacobian_reference()
+    with torch.no_grad():
+        for case in ('se3', 'se3_window'):
+            arrays = {k: torch.from_numpy(v).cuda()
+                      for k, v in ref[case].items()}
+            alpha = JACOBIAN_CASES[case][2]
+            scales = None if alpha is None else se3_encoding_scales(
+                field, alpha, 'cuda')
+            x = arrays['x_raw']
+            got = split(tangents_of(field, x, scales))
+            want = split(plain_tangents(field, x, scales))
+            for kind, bwd in (('se3', rigid_body.se3_warp_vec_bwd),
+                              ('quaternion', quaternion.quat_warp_vec_bwd)):
+                jac = rigid_body.retraction_jacobian(
+                    bwd, got[0], got[1], x[:, :3], got[2], got[3])
+                plain = rigid_body.retraction_jacobian(
+                    bwd, want[0], want[1], x[:, :3], want[2], want[3])
+                check_grads(f'{case}: kernel 16 + the {kind} retraction\'s '
+                            f'Jacobian vs the plain chain and vs the stored '
+                            f'JAX J', ['J', 'J (JAX)'],
+                            [jac.reshape(-1, 9)] * 2,
+                            [plain.reshape(-1, 9), arrays[f'jac_{kind}']],
+                            JAC_L2, tag='[15]')
+
+    for config in ('elastic_se3', 'elastic_quaternion'):
+        field = load_probe_weights(flagship_model('cuda',
+                                                  config=config)).warp_field
+        head = field.w_net.logit
+        with torch.no_grad():
+            head.weight.zero_()
+            head.bias.zero_()
+        x = field_rows(4099, seed=15)
+        layers = se3_layers(field)
+        jac = field.jacobian(x[:, :3], x[:, 3:])
+        grads = torch.autograd.grad(jac.square().sum(),
+                                    common.layer_params(layers))
+        with torch.no_grad():
+            dv = K.fused_se3_wv_tangents(field, x)[3]
+        exact = torch.equal(jac, torch.eye(3, device='cuda') + dv)
+        finite = all(torch.isfinite(g).all() for g in grads)
+        zero = not grads[-4].any() and not grads[-3].any()
+        phase(f'[15] {config} with w = 0: J = I + dv exactly: {exact}; '
+              f'{len(grads)} gradients finite: {finite}; the w head\'s dW '
+              f'and db exactly 0: {zero}')
+        if not (exact and finite and zero):
+            raise AssertionError(f'{config}: the retraction Jacobian at '
+                                 f'w = 0')
+
+
+def elastic_paths_phase(kernels) -> None:
+    """Phases 16 to 18: the three elastic configurations' train steps at
+    full width; one step of ``split_glo`` with the elastic loss (the
+    per-module branch, J at every sample) on 1024 rays, kernels vs plain
+    versions; one ``elastic`` step with the background loss. Fills in the
+    launches of the Jacobian kernels' entries."""
+    import torch
+    from hypernerf_tpu_torch.flagship import (flagship_train_setup,
+                                              synthetic_background_points)
+    from hypernerf_tpu_torch.training.losses import background_loss
+    counts = {}
+    for config in ('elastic', 'elastic_se3', 'elastic_quaternion'):
+        counts[config] = train_path(config, '[16]')
+        torch.cuda.empty_cache()
+
+    state, _, all_rays, all_rgbs = flagship_train_setup(
+        'cuda', config='split_glo', train_overrides=dict(
+            elastic_loss_weight=0.01))
+    want = {'fused_field_fwd': 4, 'fused_field_bwd': 4,
+            'fused_template_fwd': 2, 'fused_template_bwd': 2,
+            'fused_jacobian_fwd': 2, 'fused_jacobian_bwd': 2}
+    launches = compare_step(state.model, all_rays, all_rgbs, '[17] split_glo '
+                            '+ elastic:', 0.01)
+    phase(f'[17] split_glo + elastic: launches of the kernels\' step '
+          f'{launches}')
+    if launches != want:
+        raise AssertionError(f'split_glo + elastic launches {launches}, '
+                             f'want {want}')
+    del state
+    torch.cuda.empty_cache()
+
+    n_bg = 1024
+    state, step_fn, all_rays, all_rgbs = flagship_train_setup(
+        'cuda', config='elastic', train_overrides=dict(
+            background_loss_weight=1.0, background_points_per_step=n_bg))
+    model = state.model
+    step_fn(state, all_rays, all_rgbs)  # the first launches
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    metrics = step_fn(state, all_rays, all_rgbs)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    want = {**STEP_LAUNCHES['elastic'], 'fused_field_fwd': 1,
+            'fused_field_bwd': 1}
+    counts['background'] = read_counts(want, 'elastic + background step')
+    pts = torch.from_numpy(synthetic_background_points()[:n_bg]).cuda()
+    ids = torch.arange(n_bg, device='cuda')[:, None] % 100
+    with torch.no_grad():
+        term = background_loss(model.apply_warp(pts, ids), pts).mean()
+    warp_grads = [p.grad for p in model.warp_field.parameters()]
+    if not (math.isfinite(metrics['loss'].item()) and term.item() > 0
+            and all(g is not None and torch.isfinite(g).all()
+                    and g.abs().sum() > 0 for g in warp_grads)):
+        raise AssertionError(f'elastic + background step: loss '
+                             f'{metrics["loss"].item()}, term {term.item()}')
+    phase(f'[18] elastic + background (weight 1.0, {n_bg} of '
+          f'{1 << 16} static points per step): {secs * 1e3:.1f} ms/step; '
+          f'loss {metrics["loss"].item():.5f}; background term on {n_bg} '
+          f'points {term.item():.4e}; launches '
+          + ', '.join(f'{k} {v}' for k, v in counts['background'].items())
+          + '; no plain call; the warp field\'s gradients finite and '
+          'non-zero')
+    del state, model
+    torch.cuda.empty_cache()
+
+    for k in kernels:
+        name = k['name']
+        for path, launches in counts.items():
+            if launches.get(name):
+                k[f'{path}_train_launches'] = launches[name]
+        if name.startswith('fused_jacobian'):
+            k['launches'] = counts['elastic'][name]
+        elif name.startswith('fused_se3_jacobian'):
+            k['launches'] = counts['elastic_se3'][name]
+
 
 def main() -> int:
     import torch
@@ -1835,13 +2248,17 @@ def main() -> int:
     kernels += se3_kernel_phase()
     se3_level_phase(kernels)
     se3_paths_phase(kernels)
-    if len(kernels) != 10:
-        raise AssertionError(f'{len(kernels)} kernels in the line, want 10')
+    kernels += jacobian_phase('translation')
+    kernels += jacobian_phase('se3')
+    retraction_phase()
+    elastic_paths_phase(kernels)
+    if len(kernels) != 14:
+        raise AssertionError(f'{len(kernels)} kernels in the line, want 14')
     return finish(kernels)
 
 
 def finish(kernels) -> int:
-    """Phase 13: the kernels' line and the result line."""
+    """Phase 19: the kernels' line and the result line."""
     import torch
     for k in kernels:
         missing = {'name', 'route', 'source', 'replaces', 'launches',

@@ -1,11 +1,12 @@
 """The flagship setups: the configuration ``bench.py`` renders and trains
 (NerfConfig defaults with 64 + 64 samples, bf16 matmuls) and its ``static``,
-``split_glo``, ``se3`` and ``quaternion`` variants (``CONFIGS``), a seeded model of each, LLFF
+``split_glo``, ``se3``, ``quaternion`` and ``elastic*`` variants
+(``CONFIGS``), a seeded model of each, LLFF
 spiral-path NDC rays of a 504x378 frame, the train step's model, optimizer
 and synthetic ray buffer (``flagship_train_setup``), and the probe weights
 and inputs at which the kernels are held against the JAX kernels' stored
 outputs and gradients (``LEVEL_REFERENCE``, ``GRAD_REFERENCE``,
-``MODULAR_REFERENCE``, ``SE3_REFERENCE``, written by
+``MODULAR_REFERENCE``, ``SE3_REFERENCE``, ``JACOBIAN_REFERENCE``, written by
 ``tools/make_level_reference.py``).
 
 Shared by ``chip_smoke.py``, ``tools/profile_render.py``,
@@ -49,11 +50,22 @@ GRAD_REFERENCE_CASE = ('coarse', 8, 64, 3)
 # run the per-module path: a kernel per field and one for the template.
 # ``se3`` and ``quaternion`` are ``bench.py --mode se3`` / ``--mode
 # quaternion``: the flagship with that warp field, on the level kernels.
+# ``elastic``, ``elastic_se3`` and ``elastic_quaternion`` are ``bench.py
+# --mode elastic*``: those three with the Jacobian side channel at 16 samples
+# per ray, trained with the elastic loss at weight 0.01 (``TRAIN_CONFIGS``).
 CONFIGS = {'flagship': {},
            'static': dict(use_warp=False, hyper_slice_method='none'),
            'split_glo': dict(share_glo=False),
            'se3': dict(warp_field_type='se3'),
-           'quaternion': dict(warp_field_type='quaternion')}
+           'quaternion': dict(warp_field_type='quaternion'),
+           'elastic': dict(elastic_jacobian_samples=16),
+           'elastic_se3': dict(warp_field_type='se3',
+                               elastic_jacobian_samples=16),
+           'elastic_quaternion': dict(warp_field_type='quaternion',
+                                      elastic_jacobian_samples=16)}
+# TrainConfig overrides of a configuration (``bench.py``'s elastic weight).
+TRAIN_CONFIGS = {c: dict(elastic_loss_weight=0.01)
+                 for c in ('elastic', 'elastic_se3', 'elastic_quaternion')}
 
 
 def flagship_config(config: str = 'flagship', **overrides) -> NerfConfig:
@@ -86,25 +98,41 @@ def synthetic_train_rays(n_rays: int = TRAIN_RAYS):
     return rays, rgbs
 
 
+def synthetic_background_points(n_points: int = 1 << 16):
+    """(N, 3) float32 known-static points for the background loss:
+    RandomState(1) normals of deviation 0.3 around the synthetic rays'
+    origins."""
+    rs = np.random.RandomState(1)
+    return (rs.randn(n_points, 3) * 0.3).astype(np.float32)
+
+
 def flagship_train_setup(device, seed: int = 0, batch_size: int = TRAIN_BATCH,
                          n_rays: int = TRAIN_RAYS, config: str = 'flagship',
-                         **overrides):
+                         train_overrides=None, **overrides):
     """The train step's parts of ``config`` (with ``overrides`` of its
-    NerfConfig) on ``device``: (state, step_fn,
-    all_rays, all_rgbs) — a seeded model in train mode, Adam at 5e-4 with
-    the ``steplr`` schedule at 1000 steps per epoch, the step built by
-    ``make_train_step``, and the synthetic ray buffer."""
+    NerfConfig and ``train_overrides`` of its TrainConfig, after
+    ``TRAIN_CONFIGS``) on ``device``: (state, step_fn, all_rays, all_rgbs) —
+    a seeded model in train mode, Adam at 5e-4 with the ``steplr`` schedule
+    at 1000 steps per epoch, the step built by ``make_train_step``, and the
+    synthetic ray buffer. A positive ``background_loss_weight`` gives the
+    step ``synthetic_background_points`` on the device."""
     from hypernerf_tpu_torch.training.optimizers import get_optimizer
     from hypernerf_tpu_torch.training.train_state import (TrainState,
                                                           make_train_step)
     cfg = flagship_config(config, **overrides)
-    train_cfg = TrainConfig(batch_size=batch_size, lr=5e-4)
+    train_cfg = TrainConfig(**{**dict(batch_size=batch_size, lr=5e-4),
+                               **TRAIN_CONFIGS.get(config, {}),
+                               **(train_overrides or {})})
     torch.manual_seed(seed)
     model = NerfModel(cfg).to(device).train()
     optimizer, schedule = get_optimizer(train_cfg, model.parameters(),
                                         steps_per_epoch=1000)
+    background = None
+    if train_cfg.background_loss_weight > 0:
+        background = torch.from_numpy(synthetic_background_points()).to(
+            device)
     step_fn = make_train_step(model, optimizer, cfg, train_cfg, device,
-                              schedule=schedule)
+                              schedule=schedule, background_points=background)
     rays, rgbs = synthetic_train_rays(n_rays)
     state = TrainState(step=0, model=model, optimizer=optimizer, seed=seed)
     return (state, step_fn, torch.from_numpy(rays).to(device),
@@ -276,6 +304,42 @@ def se3_probe_inputs(case: str) -> dict:
     inputs = probe_inputs(n_rays, samples, seed)
     inputs['cotangent'] = probe_cotangents(n_rays, samples, seed)['level']
     return inputs
+
+
+# The JAX warp-Jacobian kernels' numbers at the probe weights. A case: (the
+# configuration whose warp field it takes, rows, warp_alpha or None, input
+# seed); the translation warp's is the flagship's.
+JACOBIAN_REFERENCE = os.path.join(os.path.dirname(LEVEL_REFERENCE),
+                                  'fused_jacobian_jax_ref.npz')
+JACOBIAN_CASES = {'translation': ('flagship', 300, None, 41),
+                  'se3': ('se3', 300, None, 42),
+                  'se3_window': ('se3', 300, 3.5, 43)}
+
+
+def jacobian_probe_inputs(case: str) -> dict:
+    """Numpy inputs of a ``JACOBIAN_CASES`` case: 'x_raw' (P, 11) [points on
+    probe rays | GLO codes] and 'cotangent' of the kernel's output, (P, 9)
+    for J (translation) or (P, 24) for [w | v | dw | dv] (SE(3))."""
+    config, rows, _, seed = JACOBIAN_CASES[case]
+    rays = probe_inputs(-(-rows // 64), 64, seed)
+    pts = (rays['origins'][:, None]
+           + rays['z_vals'][..., None] * rays['directions'][:, None])
+    embed = np.repeat(rays['embed'], 64, axis=0)
+    x_raw = np.concatenate([pts.reshape(-1, 3), embed], 1)[:rows]
+    width = 9 if config == 'flagship' else 24
+    cot = np.random.RandomState(seed + 3000).randn(rows, width)
+    return {'x_raw': x_raw.astype(np.float32),
+            'cotangent': cot.astype(np.float32)}
+
+
+def read_jacobian_reference(path: str = JACOBIAN_REFERENCE):
+    """{case: {name: array}} of the warp-Jacobian reference file."""
+    out = {case: {} for case in JACOBIAN_CASES}
+    with np.load(path) as f:
+        for key in f.files:
+            case, name = key.split('/', 1)
+            out[case][name] = f[key]
+    return out
 
 
 def read_se3_reference(path: str = SE3_REFERENCE):

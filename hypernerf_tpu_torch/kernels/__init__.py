@@ -17,6 +17,9 @@ from hypernerf_tpu_torch.kernels.fused_composite import (
 from hypernerf_tpu_torch.kernels.fused_field import (
     FusedFieldFn, fused_field, fused_field_bwd, fused_field_bwd_plain,
     fused_field_plain)
+from hypernerf_tpu_torch.kernels.fused_jacobian import (
+    FusedJacobianFn, fused_jacobian_bwd, fused_jacobian_bwd_plain,
+    fused_jacobian_plain, fused_warp_jacobian)
 from hypernerf_tpu_torch.kernels.fused_level import (
     FusedLevelFn, Level, fused_fields_bwd, fused_fields_bwd_plain,
     fused_level, fused_level_plain)
@@ -26,3 +29,6 @@ from hypernerf_tpu_torch.kernels.fused_mlp import (
 from hypernerf_tpu_torch.kernels.fused_se3 import (
     FusedSE3Fn, fused_se3_bwd, fused_se3_bwd_plain, fused_se3_plain,
     fused_se3_wv)
+from hypernerf_tpu_torch.kernels.fused_se3_jacobian import (
+    FusedSE3JacobianFn, fused_se3_jacobian_bwd, fused_se3_jacobian_bwd_plain,
+    fused_se3_jacobian_plain, fused_se3_wv_tangents)

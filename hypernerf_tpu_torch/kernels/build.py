@@ -43,6 +43,12 @@ _SIGNATURES = {
     'hn_fused_se3_bwd_blocks': ([_L], _I),
     'hn_fused_se3_bwd': ([_P] * 8 + [_L, _I, _P], _I),
     'hn_fused_template_fwd': ([_P] * 5 + [_L, _I, _P], _I),
+    'hn_fused_jacobian_fwd': ([_P] * 4 + [_L, _P], _I),
+    'hn_fused_jacobian_bwd_blocks': ([_L], _I),
+    'hn_fused_jacobian_bwd': ([_P] * 7 + [_L, _I, _P], _I),
+    'hn_fused_se3_jacobian_fwd': ([_P] * 5 + [_L, _P], _I),
+    'hn_fused_se3_jacobian_bwd_blocks': ([_L], _I),
+    'hn_fused_se3_jacobian_bwd': ([_P] * 8 + [_L, _I, _P], _I),
     'hn_fused_composite_fwd': ([_P] * 8 + [_L, _I, _I, _I, _I, _P], _I),
     'hn_fused_composite_bwd': ([_P] * 9 + [_L, _I, _I, _I, _P], _I),
     'hn_error_string': ([_I], ctypes.c_char_p),

@@ -20,6 +20,18 @@ A level runs on one of two branches, chosen as the JAX model chooses
 Every kernel has a hand-written backward kernel (``kernels/``), so the same
 ``forward`` serves the train step.
 
+With ``return_warp_jacobian`` (the elastic loss) each level also returns
+'warp_jacobian', d warped / d points from the warp field's ``jacobian`` (the
+warp-Jacobian kernels). On the fused branch it is a side channel beside the
+level kernel (the JAX model's ``_warp_jacobian_side_channel``): with
+``elastic_jacobian_samples`` K > 0 and a stochastic forward it is taken at K
+samples per ray drawn in proportion to the detached rendering weights, and
+'warp_jacobian_weights' = sum(weights) / K, which stays differentiable, makes
+the loss's weighted sum an unbiased estimate of the full one; otherwise at
+every sample. The translation warp's embedding is detached there (its
+gradient through J is exactly zero); the SE(3) / quaternion one is not. On the
+per-module branch the Jacobian is taken at every sample.
+
 ``extra_params`` carries the annealing alphas. With the original template
 encoding only ``warp_alpha`` has an effect: it windows the bands of the SE(3)
 / quaternion trunk's encoding, on both branches (None: no window).
@@ -29,7 +41,8 @@ u is linspace(0, 1, N). The stochastic forward (training) draws, in the JAX
 model's order, the stratified coarse jitter, the ascending fine u
 (``sorted_uniform``) and one N(0, noise_std) sigma noise per level — from an
 explicit ``torch.Generator``, or taken from ``draws`` so that a test can pass
-in the numbers another implementation drew.
+in the numbers another implementation drew; the Jacobian subsample's
+uniforms follow each level's noise.
 
 What is still missing raises NotImplementedError naming the ROADMAP item
 that will port it.
@@ -56,7 +69,8 @@ from hypernerf_tpu_torch.ops.rendering import (compute_depth_index,
                                                filter_sigma, noise_regularize,
                                                volumetric_rendering)
 from hypernerf_tpu_torch.ops.sampling import (sample_along_rays, sample_pdf,
-                                              sorted_uniform)
+                                              sorted_uniform,
+                                              weighted_sample_indices)
 
 # The metadata keys carried per ray, and which of them each table reads.
 METADATA_KEYS = ('warp', 'camera', 'appearance', 'time')
@@ -183,6 +197,12 @@ class NerfModel(nn.Module):
                 torch.promote_types(points.dtype, torch.float32))
         return None
 
+    def apply_warp(self, points, warp_metadata, extra_params=None):
+        """The warp field alone on (N, 3) points with (N, 1) metadata ids:
+        the warped points (N, 3) (the background loss)."""
+        return self.warp_field(points, self.warp_embed(warp_metadata),
+                               extra_params)
+
     def map_points(self, points, warp_embed, hyper_embed,
                    use_warp: bool = True, hyper_point_override=None,
                    extra_params=None):
@@ -278,24 +298,50 @@ class NerfModel(nn.Module):
                 and not cfg.hyper_sheet_use_residual and not return_points
                 and metadata.get('hyper_point') is None)
 
+    def _warp_jacobian_side_channel(self, out, points, warp_embed,
+                                    extra_params, subsample: bool, u=None,
+                                    generator=None) -> None:
+        """Attach the elastic loss's warp Jacobian to a fused-branch result
+        ``out`` (see the module docstring). ``u``: (B, K) uniforms of the
+        subsample, drawn from ``generator`` when absent."""
+        k = self.config.elastic_jacobian_samples
+        if k > 0 and subsample:
+            idx = weighted_sample_indices(out['weights'].detach(), k, u=u,
+                                          generator=generator)
+            points = torch.gather(points, 1, idx[..., None].expand(-1, -1, 3))
+            w_sum = out['weights'].sum(-1, keepdim=True)
+            out['warp_jacobian_weights'] = (w_sum / k).expand(idx.shape)
+        # The embed is the same for a ray's samples: broadcast it after the
+        # subsample.
+        embed = warp_embed[:, None, :].expand(*points.shape[:-1],
+                                              warp_embed.shape[-1])
+        if self.config.warp_field_type == 'translation':
+            embed = embed.detach()
+        out['warp_jacobian'] = self.warp_field.jacobian(points, embed,
+                                                        extra_params)
+
     def render_samples(self, name: str, z_vals, origins, directions,
                        viewdirs, metadata, use_warp: bool = True,
                        stratified: bool = True, render_opts=None,
                        return_points: bool = False, fine_u=None, noise=None,
-                       generator=None, extra_params=None
+                       generator=None, extra_params=None,
+                       return_warp_jacobian: bool = False,
+                       subsample: bool = False, jacobian_u=None
                        ) -> Dict[str, torch.Tensor]:
         """Warp, template and compositing of one level at depths ``z_vals``
         (B, S). ``noise``: (B, S) standard-normal draws of the sigma noise,
-        drawn from ``generator`` when absent."""
+        drawn from ``generator`` when absent. ``return_warp_jacobian`` adds
+        the warp Jacobian, on the fused branch subsampled when ``subsample``
+        (with the uniforms ``jacobian_u``)."""
         cfg = self.config
         points = origins[:, None, :] + z_vals[..., None] * directions[:, None,
                                                                       :]
         flags = dict(use_white_background=cfg.use_white_background,
                      sample_at_infinity=cfg.use_sample_at_infinity)
         if self._fused_branch(use_warp, return_points, metadata):
+            warp_embed = self.encode_warp_embed(metadata)
             packed = fused_level(
-                self.level(name), z_vals, origins, directions,
-                self.encode_warp_embed(metadata),
+                self.level(name), z_vals, origins, directions, warp_embed,
                 self.get_condition_inputs(viewdirs),
                 self._warp_scales(extra_params, z_vals.device))
             if not render_opts:
@@ -306,16 +352,24 @@ class NerfModel(nn.Module):
                                          noise=noise, generator=generator)
                 extra = {} if noise is zeros else {
                     'noise': noise.contiguous()}
-                return fused_composite(packed, z_vals, directions, fine_u,
-                                       **flags, **extra)
-            # Filtering needs the per-sample sigma: composite in tensor code.
-            packed = packed.reshape(*z_vals.shape, 4)
-            raw_alpha = noise_regularize(packed[..., 3], cfg.noise_std,
-                                         stratified, noise=noise,
-                                         generator=generator)
-            sigma = filter_sigma(points, F.softplus(raw_alpha), render_opts)
-            return volumetric_rendering(torch.sigmoid(packed[..., :3]), sigma,
-                                        z_vals, directions, **flags)
+                out = fused_composite(packed, z_vals, directions, fine_u,
+                                      **flags, **extra)
+            else:
+                # Filtering needs the per-sample sigma: composite in tensor
+                # code.
+                packed = packed.reshape(*z_vals.shape, 4)
+                raw_alpha = noise_regularize(packed[..., 3], cfg.noise_std,
+                                             stratified, noise=noise,
+                                             generator=generator)
+                sigma = filter_sigma(points, F.softplus(raw_alpha),
+                                     render_opts)
+                out = volumetric_rendering(torch.sigmoid(packed[..., :3]),
+                                           sigma, z_vals, directions, **flags)
+            if return_warp_jacobian:
+                self._warp_jacobian_side_channel(
+                    out, points, warp_embed, extra_params, subsample,
+                    jacobian_u, generator)
+            return out
 
         # The per-module branch: embeddings broadcast over the samples.
         warp_embed = hyper_embed = None
@@ -337,6 +391,9 @@ class NerfModel(nn.Module):
                                          noise, generator)
         sigma = filter_sigma(points, sigma, render_opts)
         out = {}
+        if return_warp_jacobian and use_warp:
+            out['warp_jacobian'] = self.warp_field.jacobian(
+                points, per_sample(warp_embed), extra_params)
         if return_points:
             out['points'] = points
             out['warped_points'] = warped
@@ -356,7 +413,8 @@ class NerfModel(nn.Module):
                 draws: Optional[Dict[str, torch.Tensor]] = None,
                 use_warp: bool = True, return_points: bool = False,
                 render_opts: Optional[Dict[str, Any]] = None,
-                extra_params: Optional[Dict[str, Any]] = None
+                extra_params: Optional[Dict[str, Any]] = None,
+                return_warp_jacobian: bool = False
                 ) -> Dict[str, Dict]:
         """Render a batch of rays.
 
@@ -383,6 +441,9 @@ class NerfModel(nn.Module):
             ('dust_threshold', 'bounding_box').
           extra_params: the annealing alphas; 'warp_alpha' windows the SE(3)
             / quaternion trunk's encoding (absent or None: no window).
+          return_warp_jacobian: each level also returns 'warp_jacobian'
+            (B, S or K, 3, 3) and, when subsampled, 'warp_jacobian_weights'
+            (B, K) (see the module docstring).
 
         Returns:
           {'coarse': {...}, 'fine': {...}} with per-ray rgb / depth /
@@ -423,13 +484,16 @@ class NerfModel(nn.Module):
 
         common = dict(use_warp=use_warp, stratified=stratified,
                       return_points=return_points, generator=generator,
-                      extra_params=extra_params)
+                      extra_params=extra_params,
+                      return_warp_jacobian=return_warp_jacobian,
+                      subsample=not deterministic)
         # The compositing kernel draws the fine depths itself, except where
         # the fine level filters sigma: then ``sample_pdf`` does below.
         coarse = self.render_samples(
             'coarse', z_vals, origins, directions, viewdirs, metadata,
             fine_u=None if render_opts else fine_u,
-            noise=draws.get('noise_coarse'), **common)
+            noise=draws.get('noise_coarse'),
+            jacobian_u=draws.get('jacobian_u_coarse'), **common)
         out = {'coarse': coarse}
         if n_fine:
             z_union = coarse.pop('z_union', None)
@@ -442,7 +506,7 @@ class NerfModel(nn.Module):
             out['fine'] = self.render_samples(
                 'fine', z_union, origins, directions, viewdirs, metadata,
                 render_opts=render_opts, noise=draws.get('noise_fine'),
-                **common)
+                jacobian_u=draws.get('jacobian_u_fine'), **common)
         if not return_weights:
             for res in out.values():
                 res.pop('weights', None)

@@ -5,7 +5,13 @@ On CUDA tensors a field runs through its hand-written kernels
 (``kernels.fused_field`` / ``kernels.fused_se3``, forward and backward); on
 CPU tensors through the dense code below, with autograd. The SE(3) and
 quaternion retractions carry their hand-derived backward on both paths
-(``ops.rigid_body``, ``ops.quaternion``)."""
+(``ops.rigid_body``, ``ops.quaternion``).
+
+``jacobian`` gives d warped / d points for the elastic loss, through the
+warp-Jacobian kernels (``kernels.fused_jacobian``,
+``kernels.fused_se3_jacobian`` and the retraction's point-Jacobian
+``rigid_body.retraction_jacobian``) on CUDA tensors and their plain versions
+on CPU tensors, which equal the JAX package's dense ``_warp_jacobian``."""
 
 from __future__ import annotations
 
@@ -48,6 +54,15 @@ class TranslationField(nn.Module):
         inputs = torch.cat([posenc_orig(points, self.n_freq),
                             embed.to(points.dtype)], dim=-1)
         return points + self.mlp(inputs).to(points.dtype)
+
+    def jacobian(self, points: torch.Tensor, embed: torch.Tensor,
+                 extra_params=None) -> torch.Tensor:
+        """(..., 3, 3) d warped_i / d points_k (jacrev layout); the
+        embedding's gradient through it is exactly zero."""
+        # The kernels' wrappers import this module: import at call time.
+        from hypernerf_tpu_torch.kernels.fused_jacobian import \
+            fused_warp_jacobian
+        return fused_warp_jacobian(self.mlp, self.n_freq, points, embed)
 
 
 class SE3Field(nn.Module):
@@ -113,6 +128,26 @@ class SE3Field(nn.Module):
         trunk = self.trunk(inputs)
         return self.retract(self.w_net(trunk).to(pts.dtype),
                             self.v_net(trunk).to(pts.dtype), pts)
+
+    def jacobian(self, points: torch.Tensor, embed: torch.Tensor,
+                 extra_params=None) -> torch.Tensor:
+        """(..., 3, 3) d warped_i / d points_k (jacrev layout): the
+        trunk's (w, v) and point-tangents (``fused_se3_wv_tangents``), then
+        the retraction's point-Jacobian in tensor code."""
+        from hypernerf_tpu_torch.kernels.fused_se3 import se3_encoding_scales
+        from hypernerf_tpu_torch.kernels.fused_se3_jacobian import \
+            fused_se3_wv_tangents
+        alpha = (extra_params or {}).get('warp_alpha')
+        pts = points.reshape(-1, 3)
+        pts = pts.to(torch.promote_types(pts.dtype, torch.float32))
+        raw = pts if not self.use_metadata else torch.cat(
+            [pts, embed.reshape(-1, embed.shape[-1]).to(pts.dtype)], dim=-1)
+        scales = None if alpha is None else se3_encoding_scales(
+            self, alpha, points.device)
+        w, v, dw, dv = fused_se3_wv_tangents(self, raw.contiguous(), scales)
+        jac = rigid_body.retraction_jacobian(self.retract_bwd, w, v, pts, dw,
+                                             dv)
+        return jac.reshape(*points.shape[:-1], 3, 3)
 
 
 class QuaternionField(SE3Field):

@@ -130,3 +130,25 @@ def sample_pdf(bins, weights, origins, directions, z_vals, num_samples: int,
     z_vals = torch.sort(torch.cat([z_vals, z_samples], dim=-1), dim=-1)[0]
     points = origins[:, None, :] + z_vals[..., None] * directions[:, None, :]
     return z_vals, points
+
+
+def weighted_sample_indices(weights, num: int,
+                            u: Optional[torch.Tensor] = None,
+                            generator: Optional[torch.Generator] = None):
+    """(B, K) sample indices drawn iid proportional to ``weights`` (B, S).
+
+    The inverse-CDF draw: index = #{k : cdf_k <= u} of the normalised
+    cumulative weights (negative weights clipped to 0, the total floored at
+    1e-12), then min(index, S - 1), so a ray whose weights sum to ~0 resolves
+    to its last sample. ``u``: (B, K) uniforms, drawn from ``generator`` when
+    absent. Used by the elastic loss's Jacobian subsample.
+    """
+    w = torch.clamp(weights.float(), min=0.0)
+    cdf = torch.cumsum(w, dim=-1)
+    cdf = cdf / torch.clamp(cdf[..., -1:], min=1e-12)
+    if u is None:
+        u = torch.rand((*weights.shape[:-1], num), generator=generator,
+                       dtype=cdf.dtype, device=cdf.device)
+    idx = torch.searchsorted(cdf.contiguous(), u.to(cdf.dtype).contiguous(),
+                             right=True)
+    return torch.clamp(idx, max=weights.shape[-1] - 1)

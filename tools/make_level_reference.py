@@ -7,7 +7,9 @@ kernels on a card that has no JAX.
       [--out tests/data/fused_level_jax_ref.npz] \
       [--grads_out tests/data/fused_jax_grads.npz] \
       [--modular_out tests/data/fused_modular_jax_ref.npz] \
-      [--se3_out tests/data/fused_se3_jax_ref.npz] [--only se3]
+      [--se3_out tests/data/fused_se3_jax_ref.npz] \
+      [--jacobian_out tests/data/fused_jacobian_jax_ref.npz] \
+      [--only se3|jacobian]
 
 The weights are ``hypernerf_tpu_torch.flagship.load_probe_weights`` (numpy,
 seed 0), which the card redraws bit for bit; the inputs
@@ -36,6 +38,14 @@ quaternion warp (outputs, and the gradients of every ray input and of all 32
 layers). ``tests/test_torch_fused_se3.py`` and
 ``tests/test_torch_fused_level.py`` recompute and check it. ``--only se3``
 writes that file alone.
+The Jacobian file holds the warp-Jacobian kernels' numbers at the probe
+weights (``flagship.JACOBIAN_CASES``): ``fused_warp_jacobian`` on the
+flagship's warp field (J, and for the stored cotangent dx and dW / db of its
+seven layers) and ``fused_se3_wv_tangents`` on the ``se3`` configuration's
+trunk, with and without the ``warp_alpha`` window ([w | v | dw | dv], dx and
+dW / db of its nine layers, and J of the SE(3) and of the quaternion warp
+through the side channel's retraction JVP, ``fused_se3_warp_jacobian``). ``tests/test_torch_fused_jacobian.py``
+recomputes and checks it. ``--only jacobian`` writes that file alone.
 """
 
 from __future__ import annotations
@@ -311,6 +321,98 @@ def jax_se3_trunk(model, inputs, warp_alpha=None, **spec_kw) -> dict:
     return res
 
 
+def jax_jacobian(model, case: str, inputs) -> dict:
+    """The JAX warp-Jacobian kernel's numbers (interpret mode) on
+    ``model``'s warp field: 'out' (P, 9) J or (P, 24) [w | v | dw | dv], and
+    for sum(out * cotangent) 'dx', 'dw<l>' as (out, in) and 'db<l>' of the
+    field's layers in kernel order."""
+    import jax
+    import jax.numpy as jnp
+    import numpy as np
+
+    from hypernerf_tpu.ops.pallas.fused_field import (FusedFieldSpec,
+                                                      encoding_scales,
+                                                      mlp_params_to_list)
+    from hypernerf_tpu.ops.pallas.fused_jacobian import fused_warp_jacobian
+    from hypernerf_tpu.ops.pallas.fused_se3 import (FusedSE3Spec,
+                                                    se3_params_to_list)
+    from hypernerf_tpu.ops import quaternion, rigid_body
+    from hypernerf_tpu.ops.pallas.fused_se3_jacobian import (
+        fused_se3_warp_jacobian, fused_se3_wv_tangents)
+    from hypernerf_tpu_torch.convert import params_to_jax
+    from hypernerf_tpu_torch.flagship import JACOBIAN_CASES
+
+    cfg = model.config
+    field = model.warp_field
+    params = params_to_jax(field.state_dict())
+    alpha = JACOBIAN_CASES[case][2]
+    if cfg.warp_field_type == 'translation':
+        spec = FusedFieldSpec(
+            segments=((3, field.n_freq), (cfg.glo_dim, 0)),
+            depth=field.mlp.depth, width=field.mlp.hidden(0).out_features,
+            out_ch=3, skips=tuple(field.mlp.skips), tile=128,
+            compute_dtype=cfg.compute_dtype, interpret=True)
+        pairs = mlp_params_to_list(params['mlp'])
+
+        def fn(x_raw, wbs):
+            return fused_warp_jacobian(spec, x_raw[:, :3], x_raw[:, 3:],
+                                       wbs).reshape(-1, 9)
+    else:
+        spec = FusedSE3Spec(
+            embed_ch=field.embed_ch, use_metadata=field.use_metadata,
+            min_deg=field.min_deg, max_deg=field.max_deg,
+            depth=field.trunk.depth, width=field.trunk.logit.out_features,
+            skips=tuple(field.trunk.skips), tile=128, bwd_tile=64,
+            compute_dtype=cfg.compute_dtype, windowed=alpha is not None,
+            interpret=True)
+        scales = None if alpha is None else encoding_scales(
+            spec.enc_segments, [jnp.float32(alpha), None])
+        pairs = se3_params_to_list(params)
+
+        def fn(x_raw, wbs):
+            w, v, dw, dv = fused_se3_wv_tangents(
+                spec, x_raw[:, :3], x_raw[:, 3:], wbs, enc_scales=scales)
+            n = x_raw.shape[0]
+            return jnp.concatenate([w, v, dw.reshape(n, 9),
+                                    dv.reshape(n, 9)], -1)
+
+    cot = jnp.asarray(inputs['cotangent'])
+    args = [jnp.asarray(inputs['x_raw']),
+            [(jnp.asarray(w), jnp.asarray(b)) for w, b in pairs]]
+    g = jax.device_get(jax.grad(
+        lambda *a: jnp.sum(fn(*a) * cot), argnums=(0, 1))(*args))
+    res = {'out': np.asarray(jax.device_get(fn(*args)), np.float32),
+           'dx': np.asarray(g[0], np.float32)}
+    for layer, (dw, db) in enumerate(g[1]):
+        res[f'dw{layer}'] = np.asarray(dw, np.float32).T.copy()
+        res[f'db{layer}'] = np.asarray(db, np.float32)
+    if cfg.warp_field_type != 'translation':
+        # J of the SE(3) and of the quaternion warp on the same trunk: the
+        # JAX side channel's retraction JVP on the kernel's tangents.
+        for kind, retract in (('se3', rigid_body.se3_warp_vec),
+                              ('quaternion', quaternion.quat_warp_vec)):
+            res[f'jac_{kind}'] = np.asarray(jax.device_get(
+                fused_se3_warp_jacobian(
+                    spec, args[0][:, :3], args[0][:, 3:], args[1], retract,
+                    enc_scales=scales)), np.float32).reshape(-1, 9)
+    return res
+
+
+def jacobian_reference() -> dict:
+    """Every array of the Jacobian file: each case's inputs and numbers."""
+    from hypernerf_tpu_torch.flagship import (JACOBIAN_CASES, flagship_model,
+                                              jacobian_probe_inputs,
+                                              load_probe_weights)
+    arrays = {}
+    for case, (config, *_) in JACOBIAN_CASES.items():
+        model = load_probe_weights(flagship_model('cpu', config=config))
+        inputs = jacobian_probe_inputs(case)
+        arrays.update({f'{case}/{k}': v for k, v in inputs.items()})
+        arrays.update({f'{case}/{k}': v for k, v in jax_jacobian(
+            model, case, inputs).items()})
+    return arrays
+
+
 def se3_reference() -> dict:
     """Every array of the SE(3) file: each case's inputs and numbers."""
     from hypernerf_tpu_torch.flagship import (SE3_LEVEL_CASES,
@@ -379,18 +481,24 @@ def main():
                                               LEVEL_REFERENCE,
                                               LEVEL_REFERENCE_CASES,
                                               MODULAR_REFERENCE,
+                                              JACOBIAN_REFERENCE,
                                               SE3_REFERENCE, probe_inputs)
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument('--out', default=LEVEL_REFERENCE)
     parser.add_argument('--grads_out', default=GRAD_REFERENCE)
     parser.add_argument('--modular_out', default=MODULAR_REFERENCE)
     parser.add_argument('--se3_out', default=SE3_REFERENCE)
-    parser.add_argument('--only', choices=('se3',), default=None,
-                        help='write the SE(3) file alone')
+    parser.add_argument('--jacobian_out', default=JACOBIAN_REFERENCE)
+    parser.add_argument('--only', choices=('se3', 'jacobian'), default=None,
+                        help='write the SE(3) or the Jacobian file alone')
     args = parser.parse_args()
     os.makedirs(os.path.dirname(os.path.abspath(args.se3_out)), exist_ok=True)
-    np.savez_compressed(args.se3_out, **se3_reference())
-    print(args.se3_out)
+    if args.only in (None, 'jacobian'):
+        np.savez_compressed(args.jacobian_out, **jacobian_reference())
+        print(args.jacobian_out)
+    if args.only in (None, 'se3'):
+        np.savez_compressed(args.se3_out, **se3_reference())
+        print(args.se3_out)
     if args.only:
         return
     model = probe_model()

@@ -4,7 +4,8 @@
 card, for the flagship or one of its variants (``flagship.CONFIGS``).
 
   python tools/profile_train.py \
-      [--config flagship|static|split_glo|se3|quaternion] \
+      [--config flagship|static|split_glo|se3|quaternion|elastic|elastic_se3|
+                elastic_quaternion] \
       [--steps 3] [--batch 16384] [--trace train_trace.json]
 
 Prints the card, the wall time per step without and under the profiler, the
@@ -13,7 +14,9 @@ the wall time (the sum of kernel times over the wall time; this path runs one
 stream), and the host's side of a step: the time the host spends in the
 weight repack (``pack_weights``, each module's blobs; ``pack_level``, the
 level kernel's joined ones), in ``Adam.step`` and in the index draw, with
-the number of kernels a step launches. Exits non-zero without a card.
+the number of kernels a step launches; with the elastic loss also in the
+retraction's point-Jacobian (tensor code) and the elastic loss itself, each
+with the device time of its kernels. Exits non-zero without a card.
 """
 
 from __future__ import annotations
@@ -29,9 +32,9 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    from hypernerf_tpu_torch.flagship import CONFIGS
     parser.add_argument('--config', default='flagship',
-                        choices=('flagship', 'static', 'split_glo', 'se3',
-                                 'quaternion'))
+                        choices=tuple(CONFIGS))
     parser.add_argument('--steps', type=int, default=3)
     parser.add_argument('--batch', type=int, default=16384)
     parser.add_argument('--trace', default=None,
@@ -52,6 +55,8 @@ def main() -> int:
     level_module = importlib.import_module(
         'hypernerf_tpu_torch.kernels.fused_level')
     from hypernerf_tpu_torch.kernels import common
+    from hypernerf_tpu_torch.ops import rigid_body
+    from hypernerf_tpu_torch.training import train_state
 
     print(subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
                           '--format=csv,noheader'], capture_output=True,
@@ -81,13 +86,18 @@ def main() -> int:
     level_module.pack_level = named(level_module.pack_level, 'pack_level')
     common.packed = named(common.packed, 'pack_weights')
     torch.randint = named(torch.randint, 'index_draw')
+    rigid_body.retraction_jacobian = named(rigid_body.retraction_jacobian,
+                                           'retraction_jacobian')
+    train_state.weighted_elastic_loss = named(
+        train_state.weighted_elastic_loss, 'elastic_loss')
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         wall = run(args.steps)
     averages = prof.key_averages()
     # Kernel events only: a CPU op's device time, and a named range's,
     # repeats its kernels'.
-    ranges = ('pack_level', 'pack_weights', 'index_draw', 'Optimizer.step')
+    ranges = ('pack_level', 'pack_weights', 'index_draw', 'Optimizer.step',
+              'retraction_jacobian', 'elastic_loss')
     events = [e for e in averages if e.device_type.name == 'CUDA'
               and not e.key.startswith(ranges)]
     events.sort(key=lambda e: e.self_device_time_total, reverse=True)
