@@ -19,10 +19,13 @@ Phases, one line each; any failure ends the run with a non-zero exit:
      then the same frame with the plain versions, timed apart;
   6. the three backward kernels (template, fields, compositing) at the probe
      weights: against the JAX kernels' stored gradients (tests/data), with
-     the 1 % probe that shows the check sees the warp and sheet layers' dW;
-     against their plain versions at 37 and 512 rays and at the train step's
-     shapes (16384 rays at S = 64 and 128; there the plain versions run in
-     chunks of 2048 rays, which bounds their memory), which are also timed;
+     the 1 % probes that show the check sees the warp, sheet and template
+     layers' dW; against their plain versions at 37 and 512 rays and at the
+     train step's shapes (16384 rays at S = 64 and 128; there the plain
+     versions run in chunks of 2048 rays, which bounds their memory), which
+     are also timed, the template backward (kernel A, a sequence of kernels
+     over chunks of whole rays) with its share of the bound, the bytes of
+     the stash it allocated, its peak allocation and its host time;
      the two forward kernels as training launches them (the level with its
      raw_t output on, which then feeds the template backward; compositing
      with sigma noise and the sorted fine draw) against their plain versions
@@ -402,6 +405,24 @@ SE3_FIELDS_GRAD_NAMES = FIELDS_GRAD_NAMES[:4] + [
     f'd{"Wb"[i % 2]}{i // 2}' for i in range(32)]
 
 
+# Kernel A's sources: the row product and the weight gradient (`wgmma`,
+# TMA), the narrow steps.
+TEMPLATE_BWD_SOURCES = ('template_rowprod.cu', 'template_dw.cu',
+                        'template_bwd.cu')
+
+
+def template_bwd_bound(level, n_rays: int, samples: int):
+    """(bound_ms, bound_by) of the template backward on n_rays x samples
+    rows: the recompute, g W and g^T h each take one multiply-add per weight
+    and row; bytes are the inputs and outputs once (raw_t, g, dx_t per row;
+    the condition and its cotangent per ray) and the weights and dW once. The
+    function's work, not the stash's bytes."""
+    t_macs = level_macs(level)[1]
+    p = n_rays * samples
+    return bound(6.0 * t_macs * p,
+                 p * (32 + 16 + 32) + n_rays * (78 + 156) + 6 * t_macs)
+
+
 def backward_phase(kernels):
     """Phase 6; returns the three backward kernels' entries and raises the
     two forward kernels' ``max_abs_err`` in ``kernels`` to what they show at
@@ -419,6 +440,7 @@ def backward_phase(kernels):
                                              fused_template_bwd)
     from hypernerf_tpu_torch.kernels.fused_level import (_launch_forward,
                                                          _level_params)
+    from hypernerf_tpu_torch.kernels.fused_mlp import chunk_plan
     probe = load_probe_weights(flagship_model('cuda'))
     level = {64: probe.level('coarse'), 128: probe.level('fine')}
 
@@ -481,6 +503,28 @@ def backward_phase(kernels):
             if not min(l2) > GRAD_L2:
                 raise AssertionError(f'the gradient check cannot see the '
                                      f'{fname} layers')
+        # The same for the template: a 1 % change of its hidden layer 5
+        # must move kernel A's dW, in the plain version, by more than the
+        # check allows: the 16 dW together (so at least one of them), and
+        # each layer's is printed.
+        raw_t = plain_forward(level[64], args)[1]
+        base = plain_template_bwd(level[64], raw_t, args[4], g)[2::2]
+        weight = level[64].template.trunk.hidden(5).weight
+        weight.mul_(1.01)
+        moved = plain_template_bwd(level[64], raw_t, args[4], g)[2::2]
+        weight.div_(1.01)
+        l2 = [grad_errors(a, b)[0] for a, b in zip(moved, base)]
+        whole = grad_errors(torch.cat([a.reshape(-1) for a in moved]),
+                            torch.cat([b.reshape(-1) for b in base]))[0]
+        phase(f'[6] probe: 1% on template layer 5 moves kernel A\'s 16 dW by '
+              f'relative L2 {whole:.3f} together, '
+              f'{sum(x > GRAD_L2 for x in l2)} of them past the check, each: '
+              + ' '.join(f'{x:.3f}' for x in l2)
+              + f' (the check allows {GRAD_L2})')
+        if not whole > GRAD_L2:
+            raise AssertionError('the gradient check cannot see the template '
+                                 'layers')
+        del raw_t
 
         # The forward kernel with its raw_t output on, as training launches
         # it, against the plain forward; then kernel A on the kernel's own
@@ -523,15 +567,34 @@ def backward_phase(kernels):
             times[s] = dict(
                 A=cuda_ms(lambda: fused_template_bwd(lv, raw_t, args[4], g),
                           3),
+                # The bytes of the stash that the timed calls allocated.
+                stash=fused_template_bwd.stash_bytes,
                 B=cuda_ms(lambda: fused_fields_bwd(lv, *args[:4], dx_t), 3),
                 plain_A=cuda_ms(lambda: plain_template_bwd(lv, raw_t, args[4],
                                                            g), 1),
                 plain_B=cuda_ms(lambda: plain_fields_bwd(lv, args, dx_t), 1))
+            # One more call of kernel A: its host time (the launches alone,
+            # from an idle device, so no launch waits for room in the queue)
+            # and the memory it allocates above what was there before it.
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            fused_template_bwd(lv, raw_t, args[4], g)
+            times[s]['host'] = (time.perf_counter() - t0) * 1e3
+            torch.cuda.synchronize()
+            times[s]['peak'] = torch.cuda.max_memory_allocated() - base
+            a_bound = template_bwd_bound(lv, r, s)[0]
             phase(f'[6] level backward R={r} S={s}: kernel A '
                   f'{times[s]["A"]:.2f} ms (plain {times[s]["plain_A"]:.1f} '
-                  f'ms), kernel B {times[s]["B"]:.2f} ms (plain '
-                  f'{times[s]["plain_B"]:.1f} ms); plain versions in chunks '
-                  f'of {PLAIN_CHUNK} rays')
+                  f'ms; {a_bound / times[s]["A"]:.1%} of its bound '
+                  f'{a_bound:.3f} ms; {len(chunk_plan(r * s, s))} chunks of '
+                  f'whole rays; the stash it allocated '
+                  f'{times[s]["stash"]} bytes; the call\'s peak allocation '
+                  f'{times[s]["peak"]} bytes; its host time '
+                  f'{times[s]["host"]:.3f} ms), kernel B '
+                  f'{times[s]["B"]:.2f} ms (plain {times[s]["plain_B"]:.1f} '
+                  f'ms); plain versions in chunks of {PLAIN_CHUNK} rays')
             del raw_t, want_a, dx_t
             torch.cuda.empty_cache()
 
@@ -602,21 +665,23 @@ def backward_phase(kernels):
     # Bounds at the train step's fine level (R = 16384, S = 128). A and B:
     # the recompute, g W and g^T h each take one multiply-add per weight and
     # sample. Bytes: inputs once, outputs once, the weights and dW once.
-    f_macs, t_macs = level_macs(level[128])
+    f_macs = level_macs(level[128])[0]
     p, r = TRAIN_RAYS * 128, TRAIN_RAYS
-    a_ms, a_by = bound(6.0 * t_macs * p,
-                       p * (32 + 16 + 32) + r * (78 + 156) + 6 * t_macs)
+    a_ms, a_by = template_bwd_bound(level[128], r, 128)
     b_ms, b_by = bound(6.0 * f_macs * p,
                        p * (4 + 32 + 4) + r * (24 + 32 + 56) + 6 * f_macs)
     c_ms, c_by = bound(0.0, p * (16 + 4 + 4 + 4 + 16 + 4) + r * (12 + 24 + 4))
     src = 'hypernerf_tpu_torch/kernels/csrc/'
     return [
         dict(name='fused_template_bwd', route='cuda',
-             source=src + 'fused_template_bwd.cu',
+             source=', '.join(src + f for f in TEMPLATE_BWD_SOURCES),
              replaces='hypernerf_tpu/ops/pallas/fused_mlp.py:736',
              ms=times[128]['A'], **error_keys(errs['A']),
              plain_ms=times[128]['plain_A'], bound_ms=a_ms, bound_by=a_by,
-             library_ms=None),
+             library_ms=None, ms_s64=times[64]['A'],
+             stash_bytes_per_chunk=times[128]['stash'],
+             call_peak_bytes=times[128]['peak'],
+             host_ms=times[128]['host']),
         dict(name='fused_fields_bwd', route='cuda',
              source=src + 'fused_fields_bwd.cu',
              replaces='hypernerf_tpu/ops/pallas/fused_level.py:846',
@@ -1999,15 +2064,18 @@ def elastic_paths_phase(kernels) -> None:
         'cuda', config='elastic', train_overrides=dict(
             background_loss_weight=1.0, background_points_per_step=n_bg))
     model = state.model
-    step_fn(state, all_rays, all_rgbs)  # the first launches
+    for _ in range(WARMUP_STEPS):
+        step_fn(state, all_rays, all_rgbs)
     torch.cuda.synchronize()
     reset_counts()
     t0 = time.perf_counter()
-    metrics = step_fn(state, all_rays, all_rgbs)
+    for _ in range(TRAIN_STEPS):
+        metrics = step_fn(state, all_rays, all_rgbs)
     torch.cuda.synchronize()
-    secs = time.perf_counter() - t0
-    want = {**STEP_LAUNCHES['elastic'], 'fused_field_fwd': 1,
-            'fused_field_bwd': 1}
+    secs = (time.perf_counter() - t0) / TRAIN_STEPS
+    want = {k: v * TRAIN_STEPS for k, v in {
+        **STEP_LAUNCHES['elastic'], 'fused_field_fwd': 1,
+        'fused_field_bwd': 1}.items()}
     counts['background'] = read_counts(want, 'elastic + background step')
     pts = torch.from_numpy(synthetic_background_points()[:n_bg]).cuda()
     ids = torch.arange(n_bg, device='cuda')[:, None] % 100
@@ -2020,11 +2088,13 @@ def elastic_paths_phase(kernels) -> None:
         raise AssertionError(f'elastic + background step: loss '
                              f'{metrics["loss"].item()}, term {term.item()}')
     phase(f'[18] elastic + background (weight 1.0, {n_bg} of '
-          f'{1 << 16} static points per step): {secs * 1e3:.1f} ms/step; '
+          f'{1 << 16} static points per step): {secs * 1e3:.1f} ms/step '
+          f'over {TRAIN_STEPS} steps after {WARMUP_STEPS}; '
           f'loss {metrics["loss"].item():.5f}; background term on {n_bg} '
           f'points {term.item():.4e}; launches '
-          + ', '.join(f'{k} {v}' for k, v in counts['background'].items())
-          + '; no plain call; the warp field\'s gradients finite and '
+          + ', '.join(f'{k} {v // TRAIN_STEPS}'
+                      for k, v in counts['background'].items())
+          + ' per step; no plain call; the warp field\'s gradients finite and '
           'non-zero')
     del state, model
     torch.cuda.empty_cache()

@@ -226,7 +226,8 @@ class TrainConfig:
     # Nerfies elastic regularization (Park et al. 2021 §3.4) on the warp
     # Jacobian's singular values; 0 = off (the reference default — its warp
     # field cannot produce Jacobians at all, warping.py:122). Enabling it
-    # routes rendering through the dense (non-fused) warp path.
+    # keeps the level kernels for the render and adds the warp Jacobian
+    # through its own kernels (models/nerf.py `return_warp_jacobian`).
     elastic_loss_weight: float = 0.0
     elastic_loss_scale: float = 0.03
     # Nerfies background regularization (§3.5): known-static 3-D points

@@ -16,7 +16,7 @@
 // is recomputed and walked back from dx_t[:, 3:7], then the warp field from
 // dx_t[:, 0:3] (whose residual also passes dx_t[:, 0:3] straight to d pts);
 // d pts and d embed are the sums of both. Rounding points as in
-// fused_template_bwd.cu. The TPU kernel shares the warp's sin / cos with the
+// kernel A (template_bwd.cu). The TPU kernel shares the warp's sin / cos with the
 // sheet; here each encoding computes its own (the same values).
 // With the SE(3) or the quaternion warp the warp stage is the trunk of
 // se3_trunk.cuh instead: recompute the trunk and (w, v), take the retraction's

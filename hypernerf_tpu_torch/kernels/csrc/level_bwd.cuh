@@ -1,9 +1,11 @@
-// Building blocks of the level backward kernels (fused_template_bwd.cu,
-// fused_fields_bwd.cu, fused_field_bwd.cu); the forward kernels of a module
-// alone (fused_field.cu, fused_template.cu) take gemm, fwd_layer and head_fwd
-// from here too.
+// Building blocks of the field backward kernels (fused_fields_bwd.cu,
+// fused_field_bwd.cu and the SE(3) / Jacobian backwards through
+// field_bwd.cuh, se3_trunk.cuh, jacobian.cuh); the forward kernels of a
+// module alone (fused_field.cu, fused_template.cu) take gemm, fwd_layer and
+// head_fwd from here too. (The template backward, kernel A, works a layer at
+// a time over a stash instead: template_rowprod.cu, template_dw.cu.)
 //
-// Both kernels work the same way. A block takes tiles of C::ROWS sample rows,
+// These kernels work the same way. A block takes tiles of C::ROWS sample rows,
 // one after the other (a persistent grid). For a tile it recomputes the
 // forward, keeping EVERY layer's bf16 output in one shared-memory tile
 // X[ROWS][LD] (each layer has its own columns; the input of a skip layer sits

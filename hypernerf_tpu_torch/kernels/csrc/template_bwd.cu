@@ -1,0 +1,361 @@
+// Kernel A's narrow steps for Hopper (sm_90a): the encoding written into
+// the stash, the condition's per-ray term, the two heads' backward, the
+// condition's cotangent summed per ray, the posenc VJP and the fixed-order
+// sum of the dW / db slabs.
+//
+// Part of the template backward (kernel A), which replaces
+// hypernerf_tpu/ops/pallas/fused_mlp.py `_bwd_call` (:736). The wide layers
+// run as `wgmma` products (template_rowprod.cu, template_dw.cu); what is
+// left here is under 1 % of the operations, a thread per element or, in the
+// per-split steps, per column and row group, and bound by its bytes. The host side that orders the steps and
+// owns the stash is kernels/fused_mlp.py `fused_template_bwd`.
+//
+// Rounding points are the TPU kernel's: a head's cotangent is rounded to
+// bf16 for its products and its db sums the fp32 one; the bottleneck's two
+// cotangents (rgb branch, alpha head) are summed in fp32, which is its db,
+// then rounded; the encoding's two cotangents (layer 0, the skip) are
+// summed in fp32 in the posenc VJP, which uses fp32 sin / cos of the same
+// arguments as the recompute. The per-ray sums of d rgb_cond are written
+// by one thread each (a chunk holds whole rays), so they are deterministic.
+
+#include "level_common.cuh"
+
+namespace {
+
+// The stash's and the cotangent buffers' leading dimensions and the
+// condition's first column in rgb layer 0 are compiled in: with them passed
+// at run time the condition's step took 3.2x as long on an H100 (its
+// sample loop is latency-bound). The host owns the layout and passes it to
+// every entry point, which refuses any other, so a change on the host side
+// fails with cudaErrorInvalidValue instead of misindexing.
+constexpr int kStashLd = 3072;  // bf16 columns of a stash row
+constexpr int kGLd = 256;       // bf16 columns of a cotangent buffer row
+constexpr int kCondCol = 128;   // first condition column of rgb layer 0
+constexpr int kRowGroups = 8;   // threadIdx.y of the per-split kernels
+constexpr int kRayGroups = 4;   // of the condition's (more registers)
+
+// Sum of v over the block's row groups (threadIdx.y), in their order, for
+// column threadIdx.x; valid on threadIdx.y == 0. red: [blockDim.y][128].
+__device__ __forceinline__ float sum_groups(float* red, float v) {
+  __syncthreads();
+  red[threadIdx.y * 128 + threadIdx.x] = v;
+  __syncthreads();
+  float s = 0.f;
+  if (threadIdx.y == 0)
+    for (int y = 0; y < blockDim.y; ++y) s += red[y * 128 + threadIdx.x];
+  return s;
+}
+
+__device__ __forceinline__ float round_bf(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+
+// Rows [r0, r1) of split z of n.
+__device__ __forceinline__ void split_range(long long n, long long& r0,
+                                            long long& r1) {
+  r0 = n * blockIdx.x / gridDim.x;
+  r1 = n * (blockIdx.x + 1) / gridDim.x;
+}
+
+__global__ void tmpl_encode_kernel(const float* __restrict__ raw_t,
+                                   bf16* __restrict__ stash, int enc_col,
+                                   long long n_rows) {
+  const long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (e >= n_rows * kTmplEncP) return;
+  const long long r = e / kTmplEncP;
+  const int f = (int)(e % kTmplEncP);
+  const float* rt = raw_t + r * 8;
+  float v = 0.f;
+  if (f < kTmplXyz)
+    v = posenc_at<3, kXyzF>(rt, f);
+  else if (f < kTmplEnc)
+    v = posenc_at<kHypOut, kHypEncF>(rt + 3, f - kTmplXyz);
+  stash[r * kStashLd + enc_col + f] = __float2bfloat16_rn(v);
+}
+
+// out[ray][n] = sum_c cond[ray][c] W[n][128 + c]: the condition's part of
+// rgb layer 0, added per ray in the recompute's epilogue.
+__global__ void tmpl_ray_bias_kernel(const bf16* __restrict__ cond,
+                                const bf16* __restrict__ w,
+                                float* __restrict__ out, long long n_rays,
+                                int w_ld) {
+  const long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (e >= n_rays * kRgbW) return;
+  const long long ray = e / kRgbW;
+  const int n = (int)(e % kRgbW);
+  float s = 0.f;
+  for (int c = 0; c < kCond; ++c)
+    s += __bfloat162float(cond[ray * kCond + c]) *
+         __bfloat162float(w[n * w_ld + kCondCol + c]);
+  out[e] = s;
+}
+
+// rgb logit (3 -> 8 padded, input r3): G[r][k] = bf16(mask(r3 > 0)
+// sum_n bf16(g[r][n]) W[n][k]); dW[n][k] = sum_r bf16(g[r][n]) r3[r][k];
+// db[n] = sum_r g[r][n]. One block per split, thread (k, y): column k of
+// every kRowGroups-th row from y.
+__global__ void __launch_bounds__(128 * kRowGroups)
+    tmpl_rgb_head_kernel(const float* __restrict__ g4,
+                                const bf16* __restrict__ stash, int r3_col,
+                                const bf16* __restrict__ w,
+                                bf16* __restrict__ gout,
+                                float* __restrict__ slab, long long slab_len,
+                                long long w_off, long long b_off,
+                                long long n_rows) {
+  __shared__ float red[kRowGroups * 128];
+  const int k = threadIdx.x;
+  float wk[3], dw[3] = {0.f, 0.f, 0.f}, db = 0.f;
+  for (int n = 0; n < 3; ++n) wk[n] = __bfloat162float(w[n * kRgbW + k]);
+  long long r0, r1;
+  split_range(n_rows, r0, r1);
+  for (long long r = r0 + threadIdx.y; r < r1; r += kRowGroups) {
+    const float4 g = reinterpret_cast<const float4*>(g4)[r];
+    const float gb[3] = {round_bf(g.x), round_bf(g.y), round_bf(g.z)};
+    const float h = __bfloat162float(stash[r * kStashLd + r3_col + k]);
+    float v = 0.f;
+    for (int n = 0; n < 3; ++n) {
+      v += gb[n] * wk[n];
+      dw[n] += gb[n] * h;
+    }
+    gout[r * kGLd + k] = __float2bfloat16_rn(h > 0.f ? v : 0.f);
+    if (k < 3) db += k == 0 ? g.x : (k == 1 ? g.y : g.z);
+  }
+  float* s = slab + blockIdx.x * slab_len;
+  for (int n = 0; n < 3; ++n) dw[n] = sum_groups(red, dw[n]);
+  db = sum_groups(red, db);
+  if (threadIdx.y != 0) return;
+  for (int n = 0; n < 8; ++n) s[w_off + n * kRgbW + k] = n < 3 ? dw[n] : 0.f;
+  if (k < 8) s[b_off + k] = k < 3 ? db : 0.f;
+}
+
+// rgb layer 0's condition columns, per ray: d_cond[ray][c] = sum over the
+// ray's rows of gin[r][128 + c] (bf16 values, fp32 sum); dW[n][128 + c] =
+// sum_ray (sum over the ray's rows of gout[r][n]) cond[ray][c]. One block per
+// split of the rays, thread (n, y): output feature n of every kRayGroups-th
+// ray from y.
+__global__ void __launch_bounds__(128 * kRayGroups)
+    tmpl_cond_bwd_kernel(const bf16* __restrict__ gout,
+                                const bf16* __restrict__ gin,
+                                const bf16* __restrict__ cond,
+                                float* __restrict__ d_cond,
+                                float* __restrict__ slab, long long slab_len,
+                                long long w_off, int k_pad, long long n_rays,
+                                int samples) {
+  __shared__ float red[kRowGroups * 128];
+  const int n = threadIdx.x;
+  float acc[kCondP];
+#pragma unroll
+  for (int c = 0; c < kCondP; ++c) acc[c] = 0.f;
+  long long q0, q1;
+  split_range(n_rays, q0, q1);
+  for (long long ray = q0 + threadIdx.y; ray < q1; ray += kRayGroups) {
+    float gs = 0.f, dc = 0.f;
+    for (int s = 0; s < samples; ++s) {
+      const long long r = ray * samples + s;
+      gs += __bfloat162float(gout[r * kGLd + n]);
+      if (n < kCond) dc += __bfloat162float(gin[r * kGLd + kCondCol + n]);
+    }
+    if (n < kCond) d_cond[ray * kCond + n] = dc;
+#pragma unroll
+    for (int c = 0; c < kCond; ++c)
+      acc[c] += gs * __bfloat162float(cond[ray * kCond + c]);
+  }
+  float* s = slab + blockIdx.x * slab_len + w_off + (long long)n * k_pad +
+             kCondCol;
+#pragma unroll
+  for (int c = 0; c < kCondP; ++c) {
+    const float v = sum_groups(red, acc[c]);
+    if (threadIdx.y == 0) s[c] = v;
+  }
+}
+
+// The alpha head (1 -> 8 padded, input bneck) and the bottleneck's
+// cotangent: g_b = gin[r][k] (the rgb branch's, bf16 values) + bf16(g_sigma)
+// W_alpha[0][k] in fp32; gb[r][k] = bf16(g_b); db_bneck = sum g_b;
+// dW_alpha[0][k] = sum bf16(g_sigma) bneck[r][k]; db_alpha = sum g_sigma.
+__global__ void __launch_bounds__(128 * kRowGroups)
+    tmpl_bneck_prep_kernel(const float* __restrict__ g4,
+                                  const bf16* __restrict__ gin,
+                                  const bf16* __restrict__ stash,
+                                  int bneck_col, const bf16* __restrict__ w,
+                                  bf16* __restrict__ gb,
+                                  float* __restrict__ slab,
+                                  long long slab_len, long long w_off,
+                                  long long b_off, long long b9_off,
+                                  long long n_rows) {
+  __shared__ float red[kRowGroups * 128];
+  const int k = threadIdx.x;
+  const float wk = __bfloat162float(w[k]);
+  float db9 = 0.f, dw = 0.f, db = 0.f;
+  long long r0, r1;
+  split_range(n_rows, r0, r1);
+  for (long long r = r0 + threadIdx.y; r < r1; r += kRowGroups) {
+    const float gs = g4[r * 4 + 3], gsb = round_bf(gs);
+    const float v = __bfloat162float(gin[r * kGLd + k]) + gsb * wk;
+    gb[r * kGLd + k] = __float2bfloat16_rn(v);
+    db9 += v;
+    dw += gsb * __bfloat162float(stash[r * kStashLd + bneck_col + k]);
+    db += gs;
+  }
+  db9 = sum_groups(red, db9);
+  dw = sum_groups(red, dw);
+  db = sum_groups(red, db);
+  if (threadIdx.y != 0) return;
+  float* s = slab + blockIdx.x * slab_len;
+  for (int n = 0; n < 8; ++n) s[w_off + n * kBneck + k] = n == 0 ? dw : 0.f;
+  if (k < 8) s[b_off + k] = k == 0 ? db : 0.f;
+  s[b9_off + k] = db9;
+}
+
+// dx_t[r][c] from the encoding's two cotangents e[r][0:128] (the skip's) and
+// e[r][128:256] (layer 0's), summed in fp32.
+__global__ void tmpl_posenc_bwd_kernel(const float* __restrict__ raw_t,
+                                  const bf16* __restrict__ e,
+                                  float* __restrict__ dx_t, long long n_rows) {
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n_rows * 8) return;
+  const long long r = i / 8;
+  const int c = (int)(i % 8);
+  const bf16* er = e + r * kGLd;
+  auto gx = [&](int f) {
+    return __bfloat162float(er[f]) + __bfloat162float(er[kTmplEncP + f]);
+  };
+  float out = 0.f;
+  if (c < 7) {
+    const bool xyz = c < 3;
+    const int ch = xyz ? 3 : kHypOut, nf = xyz ? kXyzF : kHypEncF;
+    const int base = xyz ? 0 : kTmplXyz, cc = xyz ? c : c - 3;
+    const float x = raw_t[r * 8 + c];
+    float dx = 0.f;
+    for (int k = 0; k < nf; ++k) {
+      const float scale = (float)(1 << k);
+      float sn, cs;
+      sincosf(x * scale, &sn, &cs);
+      const float flat = cs * gx(base + ch + k * ch + cc) -
+                         sn * gx(base + ch + nf * ch + k * ch + cc);
+      dx += flat * scale;
+    }
+    out = gx(base + cc) + dx;
+  }
+  dx_t[i] = out;
+}
+
+__global__ void tmpl_reduce_kernel(const float* __restrict__ slab, int splits,
+                              long long len, float* __restrict__ grads) {
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= len) return;
+  float s = 0.f;
+  for (int z = 0; z < splits; ++z) s += slab[z * len + i];
+  grads[i] += s;
+}
+
+unsigned blocks_for(long long n, int threads) {
+  return (unsigned)((n + threads - 1) / threads);
+}
+
+}  // namespace
+
+// stash[r][enc_col : enc_col + 128] = bf16 encoding of raw_t[r] (P, 8) fp32.
+extern "C" int hn_tmpl_encode(const void* raw_t, void* stash,
+                              long long stash_ld, int enc_col,
+                              long long n_rows, void* stream) {
+  if (n_rows <= 0 || stash_ld != kStashLd || enc_col < 0 ||
+      enc_col + kTmplEncP > stash_ld)
+    return (int)cudaErrorInvalidValue;
+  tmpl_encode_kernel<<<blocks_for(n_rows * kTmplEncP, 256), 256, 0,
+                       (cudaStream_t)stream>>>(
+      static_cast<const float*>(raw_t), static_cast<bf16*>(stash), enc_col,
+      n_rows);
+  return (int)cudaGetLastError();
+}
+
+// out (n_rays, 128) fp32 = cond (n_rays, 39) bf16 @ W[:, cond_col : cond_col
+// + 39]^T, W the (128, w_ld) bf16 weight of rgb layer 0.
+extern "C" int hn_tmpl_ray_bias(const void* cond, const void* w, void* out,
+                                long long n_rays, int w_ld, int cond_col,
+                                void* stream) {
+  if (n_rays <= 0 || cond_col != kCondCol || cond_col + kCond > w_ld)
+    return (int)cudaErrorInvalidValue;
+  tmpl_ray_bias_kernel<<<blocks_for(n_rays * kRgbW, 256), 256, 0,
+                         (cudaStream_t)stream>>>(
+      static_cast<const bf16*>(cond), static_cast<const bf16*>(w),
+      static_cast<float*>(out), n_rays, w_ld);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int hn_tmpl_rgb_head(const void* g4, const void* stash,
+                                long long stash_ld, int r3_col, const void* w,
+                                void* gout, long long g_ld, void* slab,
+                                long long slab_len, long long w_off,
+                                long long b_off, long long n_rows, int splits,
+                                void* stream) {
+  if (n_rows <= 0 || splits <= 0 || stash_ld != kStashLd || g_ld != kGLd ||
+      r3_col < 0 || r3_col + kRgbW > stash_ld)
+    return (int)cudaErrorInvalidValue;
+  tmpl_rgb_head_kernel<<<splits, dim3(128, kRowGroups), 0,
+                         (cudaStream_t)stream>>>(
+      static_cast<const float*>(g4), static_cast<const bf16*>(stash), r3_col,
+      static_cast<const bf16*>(w), static_cast<bf16*>(gout),
+      static_cast<float*>(slab), slab_len, w_off, b_off, n_rows);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int hn_tmpl_cond_bwd(const void* gout, long long gout_ld,
+                                const void* gin, long long gin_ld,
+                                int cond_col, const void* cond, void* d_cond,
+                                void* slab, long long slab_len,
+                                long long w_off, int k_pad, long long n_rays,
+                                int samples, int splits, void* stream) {
+  if (n_rays <= 0 || samples <= 0 || splits <= 0 || gout_ld != kGLd ||
+      gin_ld != kGLd || cond_col != kCondCol || cond_col + kCondP > k_pad)
+    return (int)cudaErrorInvalidValue;
+  tmpl_cond_bwd_kernel<<<splits, dim3(128, kRayGroups), 0,
+                         (cudaStream_t)stream>>>(
+      static_cast<const bf16*>(gout), static_cast<const bf16*>(gin),
+      static_cast<const bf16*>(cond), static_cast<float*>(d_cond),
+      static_cast<float*>(slab), slab_len, w_off, k_pad, n_rays, samples);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int hn_tmpl_bneck_prep(const void* g4, const void* gin,
+                                  long long gin_ld, const void* stash,
+                                  long long stash_ld, int bneck_col,
+                                  const void* w, void* gb, long long gb_ld,
+                                  void* slab, long long slab_len,
+                                  long long w_off, long long b_off,
+                                  long long b9_off, long long n_rows,
+                                  int splits, void* stream) {
+  if (n_rows <= 0 || splits <= 0 || gin_ld != kGLd || gb_ld != kGLd ||
+      stash_ld != kStashLd || bneck_col < 0 || bneck_col + kBneck > stash_ld)
+    return (int)cudaErrorInvalidValue;
+  tmpl_bneck_prep_kernel<<<splits, dim3(128, kRowGroups), 0,
+                           (cudaStream_t)stream>>>(
+      static_cast<const float*>(g4), static_cast<const bf16*>(gin),
+      static_cast<const bf16*>(stash), bneck_col, static_cast<const bf16*>(w),
+      static_cast<bf16*>(gb), static_cast<float*>(slab), slab_len, w_off,
+      b_off, b9_off, n_rows);
+  return (int)cudaGetLastError();
+}
+
+// e: (n_rows, kGLd) bf16, the encoding's two cotangents in columns [0, 128)
+// and [128, 256).
+extern "C" int hn_tmpl_posenc_bwd(const void* raw_t, const void* e,
+                                  long long e_ld, void* dx_t,
+                                  long long n_rows, void* stream) {
+  if (n_rows <= 0 || e_ld != kGLd) return (int)cudaErrorInvalidValue;
+  tmpl_posenc_bwd_kernel<<<blocks_for(n_rows * 8, 256), 256, 0,
+                           (cudaStream_t)stream>>>(
+      static_cast<const float*>(raw_t), static_cast<const bf16*>(e),
+      static_cast<float*>(dx_t), n_rows);
+  return (int)cudaGetLastError();
+}
+
+// grads[i] += sum over z < splits of slab[z][i], in the order of z.
+extern "C" int hn_tmpl_reduce(const void* slab, int splits, long long len,
+                              void* grads, void* stream) {
+  if (len <= 0 || splits <= 0) return (int)cudaErrorInvalidValue;
+  tmpl_reduce_kernel<<<blocks_for(len, 256), 256, 0, (cudaStream_t)stream>>>(
+      static_cast<const float*>(slab), splits, len,
+      static_cast<float*>(grads));
+  return (int)cudaGetLastError();
+}

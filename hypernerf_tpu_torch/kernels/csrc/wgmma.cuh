@@ -1,0 +1,249 @@
+// Hopper building blocks of the template backward's product kernels
+// (template_rowprod.cu, template_dw.cu): TMA tile loads completing on an
+// mbarrier, shared-memory matrix descriptors for the 128-byte swizzle, the
+// asynchronous warpgroup product `wgmma` (sm_90a) and the host-side tensor
+// maps.
+//
+// Every tile is a TMA box of 64 bf16 columns (128 bytes, one swizzle row)
+// by 64 or 128 rows, 1024-byte aligned in shared memory, so 8 rows make one
+// swizzle atom of 1024 bytes. Read as a K-major operand (the product's
+// reduction runs along the 64 columns) a k16 step moves the descriptor's
+// start by 32 bytes inside the atom; read as an MN-major operand (the
+// reduction runs along the rows) it moves by 16 rows, 2048 bytes, and
+// neighbouring 64-column boxes sit `lbo` bytes apart.
+
+#pragma once
+
+#include <cuda.h>
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include <atomic>
+#include <functional>
+#include <mutex>
+
+namespace {
+
+constexpr int kBoxCols = 64;            // bf16 columns of a box: 128 bytes
+constexpr int kAtomBytes = 1024;        // 8 rows of 128 bytes
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_addr(bar)),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void fence_barrier_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+// The calling thread arrives and announces `bytes` of TMA traffic.
+__device__ __forceinline__ void mbar_expect(uint64_t* bar, uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+          smem_addr(bar)),
+      "r"(bytes)
+      : "memory");
+}
+
+// Wait until the barrier's phase of parity `phase` has completed.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int phase) {
+  const uint32_t addr = smem_addr(bar);
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done)
+        : "r"(addr), "r"(phase)
+        : "memory");
+  }
+}
+
+// One box of `map` at (column c0, row c1) into shared memory at dst.
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
+                                         uint64_t* bar, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0),
+      "r"(c1)
+      : "memory");
+}
+
+// Shared-memory matrix descriptor, 128-byte swizzle; lbo / sbo in bytes.
+__device__ __forceinline__ uint64_t sw128_desc(const void* p, uint32_t lbo,
+                                               uint32_t sbo) {
+  uint64_t d = (uint64_t)((smem_addr(p) & 0x3FFFF) >> 4);
+  d |= (uint64_t)((lbo >> 4) & 0x3FFF) << 16;
+  d |= (uint64_t)((sbo >> 4) & 0x3FFF) << 32;
+  d |= (uint64_t)1 << 62;
+  return d;
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// Keeps the compiler from moving accumulator reads across the asynchronous
+// product.
+__device__ __forceinline__ void fence_fragment(float (&d)[64]) {
+#pragma unroll
+  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// d += A (64 x 16) B (16 x 128), fp32 accumulators in the warpgroup's
+// fragment layout (see `store_fragment`); kTransA / kTransB = 1: the operand
+// is MN-major in shared memory.
+template <int kTransA, int kTransB>
+__device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64],
+                                                 uint64_t desc_a,
+                                                 uint64_t desc_b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, %67, %68;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(desc_a), "l"(desc_b), "r"(1), "n"(kTransA), "n"(kTransB));
+}
+
+// Where accumulator d[4 j + e] of thread `tid` (0..127) of the warpgroup
+// sits in the 64 x 128 tile: row 16 warp + lane / 4 (+ 8 for e >= 2), column
+// 8 j + 2 (lane % 4) (+ 1 for odd e).
+__device__ __forceinline__ int fragment_row(int tid, int e) {
+  return 16 * (tid >> 5) + ((tid & 31) >> 2) + (e >= 2 ? 8 : 0);
+}
+__device__ __forceinline__ int fragment_col(int tid, int j) {
+  return 8 * j + 2 * (tid & 3);
+}
+
+// ---------------------------------------------------------------------------
+// Host side.
+
+// A 2-d bf16 tensor map over `rows` x `cols` (row stride `ld` elements) with
+// boxes of 64 columns x box_rows rows, 128-byte swizzle; out-of-range
+// elements read as zero. Returns 0 or a CUDA error code.
+inline int make_tensor_map(CUtensorMap* map, const void* base, long long rows,
+                           long long cols, long long ld, int box_rows) {
+  using Encode = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                              void*, const cuuint64_t*, const cuuint64_t*,
+                              const cuuint32_t*, const cuuint32_t*,
+                              CUtensorMapInterleave, CUtensorMapSwizzle,
+                              CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+  static Encode encode = nullptr;
+  if (encode == nullptr) {
+    void* fn = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &fn, cudaEnableDefault, &found);
+    if (err != cudaSuccess) return (int)err;
+    if (found != cudaDriverEntryPointSuccess || fn == nullptr)
+      return (int)cudaErrorNotSupported;
+    encode = reinterpret_cast<Encode>(fn);
+  }
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)ld * 2};
+  const cuuint32_t box[2] = {(cuuint32_t)kBoxCols, (cuuint32_t)box_rows};
+  const cuuint32_t elem[2] = {1, 1};
+  const CUresult r = encode(
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base), dims,
+      strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
+// `make_tensor_map` through a table of the maps made so far. A map is a
+// function of (base, rows, cols, ld, box_rows) alone, so an entry stays right
+// when the allocator hands the same address out again; a chunk's sequence
+// asks for a few dozen maps, again and again. Direct-mapped, kMapSlots
+// entries, one lock.
+inline int cached_tensor_map(CUtensorMap* map, const void* base,
+                             long long rows, long long cols, long long ld,
+                             int box_rows) {
+  constexpr int kMapSlots = 512;
+  struct Slot {
+    CUtensorMap map;
+    const void* base;
+    long long rows, cols, ld;
+    int box_rows;
+    bool used;
+  };
+  static Slot slots[kMapSlots];
+  static std::mutex mu;
+  size_t h = std::hash<const void*>()(base);
+  for (long long v : {rows, cols, ld, (long long)box_rows})
+    h = h * 1000003u ^ std::hash<long long>()(v);
+  std::lock_guard<std::mutex> lock(mu);
+  Slot& slot = slots[h % kMapSlots];
+  if (slot.used && slot.base == base && slot.rows == rows &&
+      slot.cols == cols && slot.ld == ld && slot.box_rows == box_rows) {
+    *map = slot.map;
+    return 0;
+  }
+  const int err = make_tensor_map(map, base, rows, cols, ld, box_rows);
+  if (err) return err;
+  slot.map = *map;
+  slot.base = base;
+  slot.rows = rows;
+  slot.cols = cols;
+  slot.ld = ld;
+  slot.box_rows = box_rows;
+  slot.used = true;
+  return 0;
+}
+
+constexpr int kMaxDevices = 64;
+
+// The current device's ordinal and SM count, the count queried once per
+// device.
+inline int current_device(int* dev, int* sms) {
+  static std::atomic<int> counts[kMaxDevices];
+  cudaError_t err = cudaGetDevice(dev);
+  if (err != cudaSuccess) return (int)err;
+  if (*dev < 0 || *dev >= kMaxDevices) return (int)cudaErrorInvalidDevice;
+  int n = counts[*dev].load(std::memory_order_relaxed);
+  if (n == 0) {
+    err = cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, *dev);
+    if (err != cudaSuccess) return (int)err;
+    counts[*dev].store(n, std::memory_order_relaxed);
+  }
+  *sms = n;
+  return 0;
+}
+
+}  // namespace

@@ -14,8 +14,8 @@ CUDA tensor it launches the kernel or raises.
 
 When a gradient is wanted the call goes through ``FusedLevelFn``: its
 forward also keeps ``raw_t``, the template's raw input [warped | hyper], and
-its backward runs the template backward (``fused_template_bwd``, kernel
-``csrc/fused_template_bwd.cu``) and then the fields backward
+its backward runs the template backward (``fused_template_bwd``, kernel A's
+sequence in ``csrc/template_*.cu``) and then the fields backward
 (``fused_fields_bwd``, ``csrc/fused_fields_bwd.cu``), stitched through
 ``dx_t`` = d[warped | hyper] as the JAX package's split backward is. Each has
 a plain version written out explicitly, with the kernels' rounding points

@@ -7,9 +7,11 @@ hand-written Hopper kernel ``csrc/fused_template.cu`` (which replaces the TPU
 kernel ``hypernerf_tpu/ops/pallas/fused_mlp.py`` ``_fwd_call``); on CPU
 tensors it runs ``fused_template_plain``, the same function composed from
 this package's modules. When a gradient is wanted the call goes through
-``FusedTemplateFn``, whose backward is ``fused_template_bwd``: the kernel
-``csrc/fused_template_bwd.cu`` (for the TPU kernel's ``_bwd_call``; it is also
-the template half of the level backward) on CUDA tensors, and
+``FusedTemplateFn``, whose backward is ``fused_template_bwd``: kernel A (for
+the TPU kernel's ``_bwd_call``; it is also the template half of the level
+backward), a sequence of hand-written kernels over chunks of whole rays
+(``template_bwd_chunks``: ``csrc/template_rowprod.cu``, ``template_dw.cu``,
+``template_bwd.cu``) on CUDA tensors, and
 ``fused_template_bwd_plain``, written out without autograd and with the
 kernel's rounding points, on CPU tensors. On a CUDA tensor a wrapper launches
 its kernel or raises.
@@ -24,6 +26,7 @@ exact, and those columns' dW is dropped on unpack.
 
 from __future__ import annotations
 
+import itertools
 from typing import NamedTuple
 
 import torch
@@ -261,28 +264,241 @@ class FusedTemplateFn(torch.autograd.Function):
         return (None, dx, d_cond.to(rgb_cond.dtype), *grads)
 
 
+# ---------------------------------------------------------------------------
+# Kernel A: the template backward as a short sequence of kernels over chunks
+# of whole rays (csrc/template_rowprod.cu, template_dw.cu, template_bwd.cu).
+# A chunk is recomputed layer by layer into a stash of every wide layer's
+# bf16 output, then walked back from the top one layer at a time: the
+# cotangent through the layer (``rowprod``) and the layer's dW / db
+# (``dw``), each a ``wgmma`` product over the whole chunk.
+
+# Stash columns, in order: the encoding, the trunk's hidden outputs, the trunk
+# logit, the bottleneck and the rgb branch's hidden outputs (bf16, one row
+# per sample). The condition is gathered per ray, not stashed.
+STASH_COLUMNS = ((('enc', 128),) + tuple((f'h{i}', 256) for i in range(8))
+                 + (('hl', 256), ('bneck', 128))
+                 + tuple((f'r{j}', 128) for j in range(4)))
+STASH_WIDTHS = dict(STASH_COLUMNS)
+STASH_COL = dict(zip(STASH_WIDTHS, itertools.accumulate(
+    STASH_WIDTHS.values(), initial=0)))
+STASH_WIDTH = sum(STASH_WIDTHS.values())
+# The wide layers in recompute order: (template layer, stash inputs, stash
+# output, ReLU). Layer 11's input is [bneck | condition]: the condition's
+# part is added per ray. Layers 10 and 15 are the alpha and rgb heads.
+WIDE_LAYERS = ([(0, ('enc',), 'h0', True)]
+               + [(i, (f'h{i - 1}',), f'h{i}', True) for i in range(1, 5)]
+               + [(5, ('h4', 'enc'), 'h5', True), (6, ('h5',), 'h6', True),
+                  (7, ('h6',), 'h7', True), (8, ('h7',), 'hl', True),
+                  (9, ('hl',), 'bneck', False), (11, ('bneck',), 'r0', True)]
+               + [(11 + j, (f'r{j - 1}',), f'r{j}', True)
+                  for j in range(1, 4)])
+CHUNK_ROWS = 1 << 19  # rows of a chunk: its stash is 3 GiB
+SPLITS = 64  # row ranges of a chunk, one dW / db slab each
+GBUF = 256  # bf16 columns of a cotangent buffer
+
+
+def chunk_plan(n_rows: int, samples: int, max_rows: int = CHUNK_ROWS):
+    """[(row0, row1)] cutting ``n_rows`` rows of rays of ``samples`` rows
+    into chunks of whole rays, each at most ``max_rows`` rows (or one ray)."""
+    if samples <= 0 or n_rows % samples:
+        raise ValueError(f'{n_rows} rows do not divide into rays of '
+                         f'{samples}')
+    step = max(1, max_rows // samples) * samples
+    return [(r0, min(n_rows, r0 + step)) for r0 in range(0, n_rows, step)]
+
+
+def _segs(names):
+    """(col0, w0, col1) of a layer input made of stash columns ``names``."""
+    return (STASH_COL[names[0]], STASH_WIDTHS[names[0]],
+            STASH_COL[names[-1]] if len(names) > 1 else 0)
+
+
+def template_bwd_chunks(ops, raw_t, rgbc, samples, g, w, wt, b, w_off,
+                        b_off, n_grads, max_rows: int = CHUNK_ROWS):
+    """Kernel A's sequence. ``ops`` launches the steps (``_KernelOps`` on
+    the card); ``w`` / ``wt`` / ``b``: each template layer's packed bf16
+    weight, its transpose and its bias; ``w_off`` / ``b_off``: each layer's
+    offsets in the fp32 [dW | db] buffer of ``n_grads`` floats.
+
+    Returns dx_t (P, 8), d rgb_cond (R, 39) and the [dW | db] buffer;
+    ``ops.stash_bytes`` is set to the bytes of the stash it allocated."""
+    dev, f32, bf = raw_t.device, torch.float32, torch.bfloat16
+    p, s = raw_t.shape[0], samples
+    plan = chunk_plan(p, s, max_rows)
+    rows = max(r1 - r0 for r0, r1 in plan)
+    stash = torch.empty((rows, STASH_WIDTH), dtype=bf, device=dev)
+    ops.stash_bytes = stash.nbytes
+    bufs = [torch.empty((rows, GBUF), dtype=bf, device=dev)
+            for _ in range(3)]
+    ray_bias = torch.empty((rows // s, w[11].shape[0]), dtype=f32,
+                           device=dev)
+    slab = torch.empty((ops.splits, n_grads), dtype=f32, device=dev)
+    grads = torch.zeros((n_grads,), dtype=f32, device=dev)
+    dx_t = torch.empty((p, RAW_PAD), dtype=f32, device=dev)
+    d_cond = torch.empty((rgbc.shape[0], rgbc.shape[1]), dtype=f32,
+                         device=dev)
+    col = STASH_COL
+    enc = STASH_WIDTHS['enc']
+    cond_col = STASH_WIDTHS['bneck']  # rgb layer 0's input: [bneck | cond]
+    for r0, r1 in plan:
+        n, q0, q1 = r1 - r0, r0 // s, r1 // s
+        raw_c, g_c, cond_c = raw_t[r0:r1], g[r0:r1], rgbc[q0:q1]
+        slab.zero_()
+        # Recompute into the stash.
+        ops.encode(raw_c, stash, col['enc'], n)
+        ops.ray_bias(cond_c, w[11], cond_col, ray_bias, q1 - q0)
+        for l, ins, out, relu in WIDE_LAYERS:
+            ops.rowprod(stash, n, _segs(ins), w[l],
+                        sum(STASH_WIDTHS[i] for i in ins), 0,
+                        STASH_WIDTHS[out] // 128, stash, col[out], bias=b[l],
+                        ray_bias=ray_bias if l == 11 else None, samples=s,
+                        relu=relu)
+        # Walk back: the rgb head, the rgb branch, the condition, the alpha
+        # head and the bottleneck, the trunk.
+        cur, nxt, enc_g = bufs
+        ops.rgb_head(g_c, stash, col['r3'], w[15], cur, slab, w_off[15],
+                     b_off[15], n)
+        for l, ins, _, _ in reversed(WIDE_LAYERS):
+            n_out, k_pad = w[l].shape
+            width = sum(STASH_WIDTHS[i] for i in ins)
+            ops.dw(cur, n, n_out, stash, _segs(ins), width // 128, slab,
+                   w_off[l], k_pad, -1 if l == 9 else b_off[l])
+            red = (0, n_out, 0)
+            if l == 11:  # [bneck | condition], no mask
+                ops.rowprod(cur, n, red, wt[l], n_out, 0, 2, nxt, 0)
+                ops.cond_bwd(cur, nxt, cond_col, cond_c, d_cond[q0:q1],
+                             slab, w_off[l], k_pad, q1 - q0, s)
+                ops.bneck_prep(g_c, nxt, stash, col['bneck'], w[10], cur,
+                               slab, w_off[10], b_off[10], b_off[9], n)
+                continue  # the bottleneck's cotangent is in cur
+            if l == 0:  # the encoding's cotangent, layer 0's part
+                ops.rowprod(cur, n, red, wt[l], n_out, 0, 1, enc_g, enc)
+                continue
+            ops.rowprod(cur, n, red, wt[l], n_out, 0,
+                        STASH_WIDTHS[ins[0]] // 128, nxt, 0, mask=stash,
+                        mask_col0=col[ins[0]])
+            if l == 5:  # the skip's part of the encoding's cotangent
+                ops.rowprod(cur, n, red, wt[l], n_out, 256, 1, enc_g, 0)
+            cur, nxt = nxt, cur
+        ops.posenc_bwd(raw_c, enc_g, dx_t[r0:r1], n)
+        ops.reduce(slab, grads)
+    return dx_t, d_cond, grads
+
+
+class _KernelOps:
+    """The steps of ``template_bwd_chunks`` as launches of the CUDA kernels
+    on ``device``'s current stream; made, and used, inside
+    ``torch.cuda.device(device)``. Every buffer's leading dimension is
+    passed from its tensor; the narrow steps are compiled for this module's
+    layout (``STASH_WIDTH``, ``GBUF``, the condition after the bottleneck)
+    and their entry points refuse another, which raises here."""
+
+    splits = SPLITS
+
+    def __init__(self, device):
+        self.lib = build.library()
+        self.stream = torch.cuda.current_stream(device).cuda_stream
+        self.stash_bytes = 0
+
+    def _go(self, name, *args):
+        build.check(getattr(self.lib, name)(*args, self.stream), name)
+
+    def encode(self, raw_t, stash, enc_col, n):
+        self._go('hn_tmpl_encode', raw_t.data_ptr(), stash.data_ptr(),
+                 stash.shape[1], enc_col, n)
+
+    def ray_bias(self, cond, w11, cond_col, out, rays):
+        self._go('hn_tmpl_ray_bias', cond.data_ptr(), w11.data_ptr(),
+                 out.data_ptr(), rays, w11.shape[1], cond_col)
+
+    def rowprod(self, a, n, segs, w, n_red, w_row0, n_tiles, out, out_col0,
+                bias=None, ray_bias=None, samples=1, relu=False, mask=None,
+                mask_col0=0):
+        ptr = lambda t: None if t is None else t.data_ptr()
+        self._go('hn_tmpl_rowprod', a.data_ptr(), n, a.shape[1], *segs,
+                 w.data_ptr(), w.shape[0], w.shape[1], n_red, w_row0,
+                 n_tiles, out.data_ptr(), out.shape[1], out_col0, ptr(bias),
+                 ptr(ray_bias), 0 if ray_bias is None else ray_bias.shape[1],
+                 samples, int(relu), ptr(mask),
+                 0 if mask is None else mask.shape[1], mask_col0)
+
+    def dw(self, g, n, n_out, h, segs, n_kin_tiles, slab, w_off, k_pad,
+           b_off):
+        self._go('hn_tmpl_dw', g.data_ptr(), g.shape[1], h.data_ptr(),
+                 h.shape[1], n, n_out, *segs, n_kin_tiles, slab.data_ptr(),
+                 slab.shape[1], w_off, k_pad, b_off, slab.shape[0])
+
+    def rgb_head(self, g4, stash, r3_col, w15, gout, slab, w_off, b_off, n):
+        self._go('hn_tmpl_rgb_head', g4.data_ptr(), stash.data_ptr(),
+                 stash.shape[1], r3_col, w15.data_ptr(), gout.data_ptr(),
+                 gout.shape[1], slab.data_ptr(), slab.shape[1], w_off, b_off,
+                 n, slab.shape[0])
+
+    def cond_bwd(self, gout, gin, cond_col, cond, d_cond, slab, w_off, k_pad,
+                 rays, samples):
+        self._go('hn_tmpl_cond_bwd', gout.data_ptr(), gout.shape[1],
+                 gin.data_ptr(), gin.shape[1], cond_col, cond.data_ptr(),
+                 d_cond.data_ptr(), slab.data_ptr(), slab.shape[1], w_off,
+                 k_pad, rays, samples, slab.shape[0])
+
+    def bneck_prep(self, g4, gin, stash, bneck_col, w10, gb, slab, w_off,
+                   b_off, b9_off, n):
+        self._go('hn_tmpl_bneck_prep', g4.data_ptr(), gin.data_ptr(),
+                 gin.shape[1], stash.data_ptr(), stash.shape[1], bneck_col,
+                 w10.data_ptr(), gb.data_ptr(), gb.shape[1], slab.data_ptr(),
+                 slab.shape[1], w_off, b_off, b9_off, n, slab.shape[0])
+
+    def posenc_bwd(self, raw_t, enc_g, dx_t, n):
+        self._go('hn_tmpl_posenc_bwd', raw_t.data_ptr(), enc_g.data_ptr(),
+                 enc_g.shape[1], dx_t.data_ptr(), n)
+
+    def reduce(self, slab, grads):
+        self._go('hn_tmpl_reduce', slab.data_ptr(), slab.shape[0],
+                 slab.shape[1], grads.data_ptr())
+
+
+def layer_views(w_blob, wt_blob, b_blob, shapes):
+    """Each layer's (n_pad, k_pad) weight, (k_pad, n_pad) transpose and
+    bias as views of the packed blobs, and its dW / db offsets in the
+    [dW | db] buffer of ``common.grad_buffer``."""
+    n_w = sum(n * k for n, k in shapes)
+    w, wt, b, w_off, b_off = [], [], [], [], []
+    at_w = at_b = 0
+    for n, k in shapes:
+        w.append(w_blob[at_w:at_w + n * k].view(n, k))
+        wt.append(wt_blob[at_w:at_w + n * k].view(k, n))
+        b.append(b_blob[at_b:at_b + n])
+        w_off.append(at_w)
+        b_off.append(n_w + at_b)
+        at_w += n * k
+        at_b += n
+    return w, wt, b, w_off, b_off, n_w + at_b
+
+
 def fused_template_bwd(tmpl, raw_t, rgb_cond, g):
     """Template backward (see ``fused_template_bwd_plain``): CPU tensors
-    take the plain version, CUDA tensors launch the kernel or raise."""
+    take the plain version, CUDA tensors launch kernel A's sequence
+    (``template_bwd_chunks``) or raise. dW / db are deterministic: each
+    chunk's slabs are summed in a fixed order. ``fused_template_bwd
+    .stash_bytes`` holds the bytes of the last launched call's stash."""
     if common.runs_plain(raw_t, 'fused_template_bwd'):
         return fused_template_bwd_plain(tmpl, raw_t, rgb_cond, g)
     rgbc, s, layers, ((w_blob, b_blob, shapes), (wt_blob, _, _)) = \
         _launch_args(tmpl, raw_t, rgb_cond, True)
-    dev, f32 = raw_t.device, torch.float32
-    p, r = raw_t.shape[0], rgb_cond.shape[0]
-    build.check_tensor('g', g, (p, 4), f32, dev)
-    blocks = build.library().hn_fused_template_bwd_blocks(p)
-    dx_t = torch.empty((p, RAW_PAD), dtype=f32, device=dev)
-    d_cond = torch.zeros((r, common.FLAGSHIP['rgb_cond']), dtype=f32,
-                         device=dev)
-    grads, n_w = common.grad_buffer(shapes, dev)
-    common.launch('hn_fused_template_bwd', dev, raw_t.data_ptr(),
-                  rgbc.data_ptr(), g.data_ptr(), w_blob.data_ptr(),
-                  wt_blob.data_ptr(), b_blob.data_ptr(), dx_t.data_ptr(),
-                  d_cond.data_ptr(), grads.data_ptr(), p, s, blocks)
+    dev = raw_t.device
+    build.check_tensor('g', g, (raw_t.shape[0], 4), torch.float32, dev)
+    w, wt, b, w_off, b_off, n_grads = layer_views(w_blob, wt_blob, b_blob,
+                                                  shapes)
+    with torch.cuda.device(dev):
+        ops = _KernelOps(dev)
+        dx_t, d_cond, grads = template_bwd_chunks(
+            ops, raw_t, rgbc, s, g, w, wt, b, w_off, b_off, n_grads)
     fused_template_bwd.launches += 1
+    fused_template_bwd.stash_bytes = ops.stash_bytes
+    n_w = b_off[0]
     return dx_t, d_cond, common.unpack_grads(grads[:n_w], grads[n_w:], layers,
                                              shapes)
 
 
 fused_template_bwd.launches = 0
+fused_template_bwd.stash_bytes = 0

@@ -62,8 +62,8 @@ def build_parser(eval_mode: bool = False) -> argparse.ArgumentParser:
                         help='Nerfies elastic regularization weight on the '
                              'warp Jacobian (0 = off, the reference '
                              'behavior; requires a warp field; the render '
-                             'stays on the fused kernels, only the warp '
-                             'Jacobian re-runs densely)')
+                             'stays on the level kernels and the warp '
+                             'Jacobian runs through its own kernels)')
     parser.add_argument('--elastic_loss_scale', type=float, default=0.03,
                         help='robust-loss scale for the elastic penalty '
                              '(Nerfies default 0.03)')
@@ -88,14 +88,16 @@ def build_parser(eval_mode: bool = False) -> argparse.ArgumentParser:
     parser.add_argument('--batch_size', type=int, default=2048,
                         help='batch size (global, across all chips)')
     parser.add_argument('--chunk', type=int, default=8192,
-                        help='render tile size (device-side lax.map tile)')
+                        help='render tile size (rays per level-kernel '
+                             'launch)')
     parser.add_argument('--num_epochs', type=int, default=20,
                         help='number of training epochs')
     parser.add_argument('--max_steps', type=int, default=None,
                         help='total training steps (overrides num_epochs)')
     parser.add_argument('--num_devices', type=int, default=None,
-                        help='number of TPU chips to use (default: all). '
-                             'The num_gpus equivalent.')
+                        help='kept so that the JAX package\'s command '
+                             'lines parse; the port runs on one CUDA '
+                             'device and does not read it')
     parser.add_argument('--num_gpus', type=int, default=None,
                         help='alias of --num_devices (reference compat)')
     parser.add_argument('--precision', type=str, default='bf16',
@@ -175,8 +177,9 @@ def build_parser(eval_mode: bool = False) -> argparse.ArgumentParser:
                              '(plus the latest); default keeps everything '
                              'like the reference save_top_k=-1')
     parser.add_argument('--no_pallas', action='store_true',
-                        help='disable the fused Pallas kernels (debug; runs '
-                             'the XLA reference paths)')
+                        help='kept so that the JAX package\'s command '
+                             'lines parse; sets the inert use_pallas field, '
+                             'the port\'s CUDA kernels still run')
     parser.add_argument('--use_occupancy_grid', type=_str2bool,
                         default=False,
                         help='occupancy-grid guided coarse sampling '

@@ -1,0 +1,336 @@
+"""Kernel A's plan (``kernels/fused_mlp.py``): the chunks of whole rays, the
+stash's column plan and the sequence of steps ``template_bwd_chunks``
+launches, on the CPU.
+
+The sequence is run here through ``TorchOps``, which computes each step's
+contract (the C entry points of ``csrc/template_rowprod.cu``,
+``template_dw.cu`` and ``template_bwd.cu``) in PyTorch at the kernels'
+rounding points, and is held to the plain backward
+``fused_template_bwd_plain``, the definition of the function. The CUDA
+kernels themselves are held to the plain version on the card by
+``chip_smoke.py``.
+
+Tolerances: the plain version chunk by chunk against itself whole in
+float32, dx_t exactly (per-row work) and the sums over chunks (d rgb_cond,
+dW, db) to 1e-6 relative; the step sequence against the plain version in
+bf16, relative L2 1e-2 per output (the same rounding points, fp32 sums in
+another order, so a bf16 rounding flips here and there).
+"""
+
+import ctypes
+
+import numpy as np
+import pytest
+import torch
+
+from hypernerf_tpu_torch.kernels import Template, build, common, fused_mlp
+from hypernerf_tpu_torch.kernels.fused_mlp import (
+    STASH_COL, STASH_COLUMNS, STASH_WIDTH, STASH_WIDTHS, WIDE_LAYERS,
+    chunk_plan, fused_template_bwd_plain, layer_views, template_bwd_chunks,
+    template_layers)
+from hypernerf_tpu_torch.ops.posenc import posenc_orig
+from tests.test_torch_fused_mlp import _port_template, _setup
+
+BF = torch.bfloat16
+
+
+@pytest.mark.parametrize('rows,samples,max_rows', [
+    (481, 13, 100), (481, 13, 1 << 19), (100, 1, 32), (64, 1, 64),
+    (1 << 21, 128, 1 << 19), (1 << 20, 64, 1 << 19), (512, 128, 100),
+    (13, 13, 1)])
+def test_chunk_plan_cuts_whole_rays(rows, samples, max_rows):
+    """Every row in exactly one chunk, in order; a chunk is whole rays and
+    at most max_rows rows unless one ray is longer."""
+    plan = chunk_plan(rows, samples, max_rows)
+    assert plan[0][0] == 0 and plan[-1][1] == rows
+    assert all(a[1] == b[0] for a, b in zip(plan, plan[1:]))
+    for r0, r1 in plan:
+        assert r0 % samples == 0 and r1 % samples == 0 and r1 > r0
+        assert r1 - r0 <= max(max_rows, samples)
+    if max_rows >= rows:
+        assert plan == [(0, rows)]
+
+
+def test_chunk_plan_of_the_train_step():
+    """16384 rays at S = 128: four chunks of 4096 rays (2^19 rows, a 3 GiB
+    stash each); at S = 64 two."""
+    assert chunk_plan(16384 * 128, 128) == [
+        (i << 19, (i + 1) << 19) for i in range(4)]
+    assert len(chunk_plan(16384 * 64, 64)) == 2
+    assert (1 << 19) * STASH_WIDTH * 2 == 3 << 30
+
+
+def test_chunk_plan_refuses_rows_that_are_not_whole_rays():
+    with pytest.raises(ValueError):
+        chunk_plan(100, 13)
+
+
+@torch.no_grad()
+@pytest.mark.parametrize('per,max_rows', [(8, 16), (8, 24), (1, 8),
+                                          (1, 1000)])
+def test_plain_backward_by_chunks_equals_the_whole(per, max_rows):
+    """The plain backward run chunk by chunk through the plan, d rgb_cond
+    concatenated and dW / db summed, equals it run on all rows (float32)."""
+    x, cond, cot, pairs = _setup('hyper', per)
+    tmpl = _port_template('hyper', pairs, 'float32')
+    x, cond, cot = map(torch.from_numpy, (x, cond, cot))
+    s = x.shape[0] // cond.shape[0]
+    dx, dc, grads = fused_template_bwd_plain(tmpl, x, cond, cot)
+    parts = [fused_template_bwd_plain(tmpl, x[r0:r1], cond[r0 // s:r1 // s],
+                                      cot[r0:r1])
+             for r0, r1 in chunk_plan(x.shape[0], s, max_rows)]
+    assert len(parts) > 1 or max_rows >= x.shape[0]
+    assert torch.equal(torch.cat([p[0] for p in parts]), dx)
+    for got, want in [(torch.cat([p[1] for p in parts]), dc)] + [
+            (sum(p[2][i] for p in parts), g) for i, g in enumerate(grads)]:
+        torch.testing.assert_close(got, want, rtol=1e-6,
+                                   atol=1e-6 * want.abs().max().item())
+
+
+def _flagship_template(config='flagship'):
+    from hypernerf_tpu_torch.flagship import (flagship_model,
+                                              load_probe_weights)
+    model = load_probe_weights(flagship_model('cpu', config=config))
+    cfg = model.config
+    return Template(model.nerf_fine, cfg.xyz_freq, cfg.hyper_freq)
+
+
+def test_stash_column_plan_matches_the_template():
+    """3,072 columns, one per output of every wide layer (and the
+    encoding), each as wide as the layer that writes it; every wide layer
+    reads its input from stash columns as wide as its padded input (layer
+    11 also reads the 39 condition features, padded to 48, per ray)."""
+    assert STASH_WIDTH == 3072 == sum(w for _, w in STASH_COLUMNS)
+    assert [STASH_COL[n] for n, _ in STASH_COLUMNS] == list(
+        np.cumsum([0] + [w for _, w in STASH_COLUMNS])[:-1])
+    layers = template_layers(_flagship_template().template, enc_pad=128)
+    assert len(layers) == 16
+    outs = [out for _, _, out, _ in WIDE_LAYERS]
+    assert sorted(outs) == sorted(n for n, _ in STASH_COLUMNS if n != 'enc')
+    for l, ins, out, relu in WIDE_LAYERS:
+        lin, segs = layers[l]
+        assert lin.out_features == STASH_WIDTHS[out]
+        cond = 48 if l == 11 else 0
+        assert sum(p for _, p in segs) == sum(
+            STASH_WIDTHS[i] for i in ins) + cond
+        assert relu == (l != 9)
+    assert sorted(l for l, *_ in WIDE_LAYERS) == [
+        l for l in range(16) if l not in (10, 15)]  # the two heads
+    assert STASH_WIDTHS['enc'] == common.pad16(3 * 21 + 4 * 13)
+
+
+class TorchOps:
+    """The steps of ``template_bwd_chunks`` in PyTorch, each the contract
+    of its C entry point: bf16 buffers, fp32 sums, bf16 rounding where the
+    kernels round, dW / db slabs per row range."""
+
+    def __init__(self, splits):
+        self.splits = splits
+        self.stash_bytes = 0
+
+    @staticmethod
+    def _cols(segs, width):
+        c0, w0, c1 = segs
+        return [c0 + j if j < w0 else c1 + j - w0 for j in range(width)]
+
+    def _ranges(self, n, tile=1):
+        t = -(-n // tile)
+        return [(t * z // self.splits * tile,
+                 min(n, t * (z + 1) // self.splits * tile))
+                for z in range(self.splits)]
+
+    def encode(self, raw_t, stash, enc_col, n):
+        enc = torch.cat([posenc_orig(raw_t[:, :3], 10),
+                         posenc_orig(raw_t[:, 3:7], 6)], -1)
+        stash[:n, enc_col:enc_col + 128] = torch.nn.functional.pad(
+            enc, (0, 13)).to(BF)
+
+    def ray_bias(self, cond, w11, cond_col, out, rays):
+        out[:rays] = cond.float() @ w11[:, cond_col:cond_col + 39].float().t()
+
+    def rowprod(self, a, n, segs, w, n_red, w_row0, n_tiles, out, out_col0,
+                bias=None, ray_bias=None, samples=1, relu=False, mask=None,
+                mask_col0=0):
+        width = 128 * n_tiles
+        wsub = torch.zeros(width, n_red)
+        have = w[w_row0:w_row0 + width, :n_red].float()
+        wsub[:have.shape[0]] = have
+        acc = a[:n, self._cols(segs, n_red)].float() @ wsub.t()
+        if bias is not None:
+            acc = acc + bias[w_row0:w_row0 + width].float()
+        if ray_bias is not None:
+            acc = acc + ray_bias[torch.arange(n) // samples, :width]
+        if relu:
+            acc = acc.clamp_min(0)
+        if mask is not None:
+            acc = torch.where(mask[:n, mask_col0:mask_col0 + width].float()
+                              > 0, acc, torch.zeros_like(acc))
+        out[:n, out_col0:out_col0 + width] = acc.to(BF)
+
+    def dw(self, g, n, n_out, h, segs, n_kin_tiles, slab, w_off, k_pad,
+           b_off):
+        width = 128 * n_kin_tiles
+        hh = h[:n, self._cols(segs, width)].float()
+        gg = g[:n, :n_out].float()
+        for z, (r0, r1) in enumerate(self._ranges(n, 64)):
+            slab[z, w_off:w_off + n_out * k_pad].view(n_out, k_pad)[
+                :, :width] = gg[r0:r1].t() @ hh[r0:r1]
+            if b_off >= 0:
+                slab[z, b_off:b_off + n_out] = gg[r0:r1].sum(0)
+
+    def rgb_head(self, g4, stash, r3_col, w15, gout, slab, w_off, b_off, n):
+        gr = g4[:n, :3]
+        gb = gr.to(BF).float()
+        h = stash[:n, r3_col:r3_col + 128].float()
+        v = gb @ w15[:3].float()
+        gout[:n, :128] = torch.where(h > 0, v, torch.zeros_like(v)).to(BF)
+        for z, (r0, r1) in enumerate(self._ranges(n)):
+            slab[z, w_off:w_off + 3 * 128].view(3, 128)[:] = \
+                gb[r0:r1].t() @ h[r0:r1]
+            slab[z, b_off:b_off + 3] = gr[r0:r1].sum(0)
+
+    def cond_bwd(self, gout, gin, cond_col, cond, d_cond, slab, w_off, k_pad,
+                 rays, samples):
+        n, c = rays * samples, slice(cond_col, cond_col + 39)
+        d_cond[:] = gin[:n, c].float().view(rays, samples, 39).sum(1)
+        gs = gout[:n, :128].float().view(rays, samples, 128).sum(1)
+        for z, (q0, q1) in enumerate(self._ranges(rays)):
+            slab[z, w_off:w_off + 128 * k_pad].view(128, k_pad)[:, c] = \
+                gs[q0:q1].t() @ cond[q0:q1].float()
+
+    def bneck_prep(self, g4, gin, stash, bneck_col, w10, gb, slab, w_off,
+                   b_off, b9_off, n):
+        gs = g4[:n, 3]
+        gsb = gs.to(BF).float()
+        v = gin[:n, :128].float() + gsb[:, None] * w10[0].float()
+        gb[:n, :128] = v.to(BF)
+        h = stash[:n, bneck_col:bneck_col + 128].float()
+        for z, (r0, r1) in enumerate(self._ranges(n)):
+            slab[z, b9_off:b9_off + 128] = v[r0:r1].sum(0)
+            slab[z, w_off:w_off + 128] = gsb[r0:r1] @ h[r0:r1]
+            slab[z, b_off] = gs[r0:r1].sum()
+
+    def posenc_bwd(self, raw_t, enc_g, dx_t, n):
+        gx = enc_g[:n, :128].float() + enc_g[:n, 128:].float()
+        dx_t[:, :3] = common.posenc_bwd(
+            gx[:, :63], common.posenc_trig(raw_t[:, :3], 10), 3, 10)
+        dx_t[:, 3:7] = common.posenc_bwd(
+            gx[:, 63:115], common.posenc_trig(raw_t[:, 3:7], 6), 4, 6)
+        dx_t[:, 7] = 0
+
+    def reduce(self, slab, grads):
+        grads += slab.sum(0)
+
+
+@torch.no_grad()
+@pytest.mark.parametrize('config,rays,samples,max_rows', [
+    ('flagship', 37, 13, 100), ('flagship', 96, 1, 40),
+    ('static', 20, 16, 1 << 19)])
+def test_kernel_sequence_matches_the_plain_backward(config, rays, samples,
+                                                    max_rows):
+    """``template_bwd_chunks`` (several chunks, ragged rows, 3 slabs)
+    through ``TorchOps`` reproduces ``fused_template_bwd_plain`` at the
+    flagship widths in bf16: the stash columns, the order of the steps, the
+    masks, the skip's two cotangents, the heads and the condition."""
+    tmpl = _flagship_template(config)
+    t = tmpl.template
+    rs = np.random.RandomState(rays + samples)
+    p = rays * samples
+    x = np.zeros((p, 8), np.float32)
+    x[:, :3] = rs.randn(p, 3) * 0.4
+    if config != 'static':
+        x[:, 3:7] = rs.randn(p, 4) * 0.3
+    raw = torch.from_numpy(x)
+    cond = torch.from_numpy(rs.randn(rays, 39).astype(np.float32)).to(BF)
+    g = torch.from_numpy(rs.randn(p, 4).astype(np.float32))
+    want = fused_template_bwd_plain(tmpl, raw, cond, g)
+
+    layers = template_layers(t, enc_pad=128)
+    w_blob, b_blob, shapes = common.pack_layers(t, layers)
+    wt_blob = common.pack_layers(t, layers, transposed=True)[0]
+    w, wt, b, w_off, b_off, n_grads = layer_views(w_blob, wt_blob, b_blob,
+                                                  shapes)
+    ops = TorchOps(3)
+    dx_t, d_cond, grads = template_bwd_chunks(
+        ops, raw, cond, samples, g, w, wt, b, w_off, b_off, n_grads,
+        max_rows)
+    rows = max(r1 - r0 for r0, r1 in chunk_plan(p, samples, max_rows))
+    assert ops.stash_bytes == rows * STASH_WIDTH * 2
+    n_w = b_off[0]
+    got = [dx_t, d_cond] + common.unpack_grads(grads[:n_w], grads[n_w:],
+                                               layers, shapes)
+    want = [want[0], want[1]] + want[2]
+    assert len(got) == len(want) == 34
+    for i, (a, e) in enumerate(zip(got, want)):
+        assert a.shape == e.shape, i
+        if config == 'static' and i == 0:
+            assert torch.equal(a[:, 3:], torch.zeros_like(a[:, 3:]))
+        l2 = ((a - e).norm() / e.norm().clamp_min(1e-30)).item()
+        assert l2 < 1e-2, (i, l2)
+
+
+class _RecordingLibrary:
+    """Stands in for the kernel library: records each entry point's
+    arguments and returns success."""
+
+    def __init__(self):
+        self.calls = []
+
+    def __getattr__(self, name):
+        def call(*args):
+            self.calls.append((name, args))
+            return 0
+        return call
+
+
+@torch.no_grad()
+def test_kernel_launches_match_the_c_signatures(monkeypatch):
+    """``_KernelOps`` passes each C entry point of kernel A as many
+    arguments as ``build``'s ctypes signature declares, of the declared
+    kinds, and the narrow steps get the stash's and the cotangent buffers'
+    leading dimensions from the tensors (their entry points check them
+    against the layout they were compiled for)."""
+    lib = _RecordingLibrary()
+    monkeypatch.setattr(build, 'library', lambda: lib)
+    monkeypatch.setattr(torch.cuda, 'current_stream',
+                        lambda device=None: type('S', (), {'cuda_stream': 7}))
+    t = _flagship_template().template
+    layers = template_layers(t, enc_pad=128)
+    w_blob, b_blob, shapes = common.pack_layers(t, layers)
+    wt_blob = common.pack_layers(t, layers, transposed=True)[0]
+    w, wt, b, w_off, b_off, n_grads = layer_views(w_blob, wt_blob, b_blob,
+                                                  shapes)
+    rays, samples = 6, 4
+    p = rays * samples
+    ops = fused_mlp._KernelOps('cpu')
+    template_bwd_chunks(ops, torch.zeros(p, 8), torch.zeros(rays, 39,
+                                                            dtype=BF),
+                        samples, torch.zeros(p, 4), w, wt, b, w_off, b_off,
+                        n_grads, max_rows=12)
+    assert ops.stash_bytes == 12 * STASH_WIDTH * 2
+    names = [n for n, _ in lib.calls]
+    assert names.count('hn_tmpl_reduce') == 2  # two chunks
+    assert len(names) == 2 * 50  # 50 launches a chunk
+    ints = (ctypes.c_int, ctypes.c_longlong)
+    for name, args in lib.calls:
+        argtypes = build._SIGNATURES[name][0]
+        assert len(args) == len(argtypes), name
+        for i, (a, kind) in enumerate(zip(args, argtypes)):
+            if kind in ints:
+                assert isinstance(a, int) and not isinstance(a, bool), \
+                    (name, i)
+            else:
+                assert a is None or isinstance(a, int), (name, i)
+        assert args[-1] == 7, name  # the stream
+    lds = {name: args for name, args in lib.calls}
+    assert lds['hn_tmpl_encode'][2:4] == (STASH_WIDTH, STASH_COL['enc'])
+    assert lds['hn_tmpl_rgb_head'][2] == STASH_WIDTH
+    assert lds['hn_tmpl_rgb_head'][6] == fused_mlp.GBUF
+    assert lds['hn_tmpl_cond_bwd'][1] == lds['hn_tmpl_cond_bwd'][3] == \
+        fused_mlp.GBUF
+    assert lds['hn_tmpl_cond_bwd'][4] == STASH_WIDTHS['bneck']
+    assert lds['hn_tmpl_ray_bias'][5] == STASH_WIDTHS['bneck']
+    assert lds['hn_tmpl_bneck_prep'][2] == lds['hn_tmpl_bneck_prep'][8] == \
+        fused_mlp.GBUF
+    assert lds['hn_tmpl_bneck_prep'][4] == STASH_WIDTH
+    assert lds['hn_tmpl_posenc_bwd'][2] == fused_mlp.GBUF

@@ -16,7 +16,9 @@ weight repack (``pack_weights``, each module's blobs; ``pack_level``, the
 level kernel's joined ones), in ``Adam.step`` and in the index draw, with
 the number of kernels a step launches; with the elastic loss also in the
 retraction's point-Jacobian (tensor code) and the elastic loss itself, each
-with the device time of its kernels. Exits non-zero without a card.
+with the device time of its kernels; and kernel A (``template_bwd``), a
+sequence of kernels (its host time; its device time is the sum of its
+``tmpl_*`` kernels). Exits non-zero without a card.
 """
 
 from __future__ import annotations
@@ -84,6 +86,12 @@ def main() -> int:
         return wrapped
 
     level_module.pack_level = named(level_module.pack_level, 'pack_level')
+    # Kernel A is a sequence of kernels: the range holds them all.
+    mlp_module = importlib.import_module(
+        'hypernerf_tpu_torch.kernels.fused_mlp')
+    level_module.fused_template_bwd = mlp_module.fused_template_bwd = named(
+        mlp_module.fused_template_bwd, 'template_bwd')
+    mlp_module.fused_template_bwd.launches = 0  # the wrapper counts here
     common.packed = named(common.packed, 'pack_weights')
     torch.randint = named(torch.randint, 'index_draw')
     rigid_body.retraction_jacobian = named(rigid_body.retraction_jacobian,
@@ -97,7 +105,7 @@ def main() -> int:
     # Kernel events only: a CPU op's device time, and a named range's,
     # repeats its kernels'.
     ranges = ('pack_level', 'pack_weights', 'index_draw', 'Optimizer.step',
-              'retraction_jacobian', 'elastic_loss')
+              'retraction_jacobian', 'elastic_loss', 'template_bwd')
     events = [e for e in averages if e.device_type.name == 'CUDA'
               and not e.key.startswith(ranges)]
     events.sort(key=lambda e: e.self_device_time_total, reverse=True)
@@ -116,6 +124,12 @@ def main() -> int:
     rest = sum(e.self_device_time_total for e in events[14:]) / 1e3 \
         / args.steps
     print(f'{rest:10.3f} ms/step in {len(events) - 14} other kernels')
+    # Kernel A launches its kernels through ctypes, which the profiler does
+    # not file under the range: its device time is the sum of its kernels'.
+    a_ms = sum(e.self_device_time_total for e in events
+               if 'tmpl_' in e.key) / 1e3 / args.steps
+    print(f'{a_ms:10.3f} ms/step  {100 * a_ms / device_ms:5.1f}%  kernel A '
+          f'(the template backward\'s kernels, tmpl_*)')
     print('host side, ms/step of host time (the device runs on meanwhile; '
           'a range that launches many kernels also holds the time the host '
           'waits for room in the launch queue):')
