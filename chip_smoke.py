@@ -3,17 +3,25 @@
 
 Phases, one line each; any failure ends the run with a non-zero exit:
   1. a CUDA card (else exit 1); its name and power limit from nvidia-smi;
-  2. build the kernels from kernels/csrc with nvcc (sm_90a), with the time;
+  2. build the kernels from kernels/csrc with nvcc (sm_90a), with the time
+     and ptxas's registers and spills (the level forward's on a line of its
+     own);
   3. the level kernel at the flagship widths and at probe weights whose
      warp and hyper heads are large enough that those 14 layers move the
      output: against the JAX kernel's stored outputs (tests/data), and
      against its plain version at 512 and 37 rays and at the render's
-     shapes (8192 rays at S = 64 and 128), which are also timed;
+     shapes (8192 rays at S = 64 and 128), which are also timed; its
+     compiled plan (tiles, ring, column plan, weight loads) against the
+     model in kernels/fused_level.py for each warp type; its time at 8192
+     and 16384 rays, S = 64 and 128, for each warp type, beside the time
+     before its redesign and its share of the bound, and the weight bytes
+     a call streams from L2 as the plan computes them;
   4. the compositing kernel against its plain version (fine draw N = 64
      and 128, and no draw), at 1024 and 37 rays and at the render's shapes
      (8192 rays, S = 64 N = 64 and S = 128 N = 0), which are also timed;
-  5. the render: a full 504x378 frame of the flagship (64 + 64 samples,
-     full widths, seeded init) through the renderer that
+  5. the render: full 504x378 frames of the flagship (64 + 64 samples,
+     full widths, seeded init; three timed after a warm-up) through the
+     renderer that
      ``python -m hypernerf_tpu_torch.eval`` uses, on LLFF spiral NDC rays;
      the launch counters must show both kernels on every chunk and level;
      then the same frame with the plain versions, timed apart;
@@ -183,7 +191,7 @@ STEP_LOSS_TOL, STEP_GRAD_L2 = 2e-3, 0.1
 PEAK_FLOPS, PEAK_BYTES = 989e12, 3.35e12
 
 CHUNK = 8192
-N_FRAMES = 1
+N_FRAMES = 3
 TRAIN_RAYS, TRAIN_STEPS, WARMUP_STEPS = 16384, 5, 2
 PLAIN_CHUNK = 2048
 
@@ -226,6 +234,89 @@ def level_macs(level):
     from hypernerf_tpu_torch.kernels.fused_level import level_layers
     sizes = [lin.weight.numel() for lin, _ in level_layers(level)]
     return sum(sizes[:-16]), sum(sizes[-16:])
+
+
+def level_bound(level, n_rays: int, samples: int):
+    """(bound_ms, bound_by) of one level forward: every weight is one
+    multiply-add per sample; bytes are the ray inputs, the weights once, the
+    output."""
+    macs = sum(level_macs(level))
+    p = n_rays * samples
+    return bound(2.0 * macs * p,
+                 4 * p + n_rays * (24 + 32 + 78) + 2 * macs + 16 * p)
+
+
+# The level forward's times on this card before its redesign around
+# wgmma and TMA (the mma.sync kernel; PERF.md, row 1), ms at R = 8192.
+EARLIER_LEVEL_MS = {('translation', 64): 5.969, ('translation', 128): 11.919,
+                    ('se3', 64): 6.136, ('se3', 128): 12.142,
+                    ('quaternion', 64): 6.189, ('quaternion', 128): 12.128}
+LEVEL_FWD_SOURCES = ('level_fwd.cuh', 'level_fwd_trans.cu',
+                     'level_fwd_se3.cu', 'level_fwd_quat.cu', 'fused_level.cu')
+
+
+def ptxas_lines(log: str, sources) -> str:
+    """ptxas's registers and spills for each of ``sources`` from the
+    build log (one section per source)."""
+    out = []
+    for section in log.split('== ')[1:]:
+        name, _, body = section.partition('\n')
+        if name.strip() not in sources:
+            continue
+        regs = [ln.strip() for ln in body.splitlines()
+                if 'registers' in ln or 'spill' in ln]
+        out.append(f'{name.strip()}: {"; ".join(regs) or "no kernel"}')
+    return ' | '.join(out)
+
+
+def level_forward_times(kernels) -> None:
+    """Phase 3, the level forward's redesign: the compiled plan against
+    its model for each warp type, then the kernel's time at R = 8192 and
+    16384, S = 64 and 128, for each warp type, beside PERF.md's earlier
+    figure and its share of the bound, and the weight bytes a call streams
+    from L2 (computed from the plan)."""
+    import importlib
+    fl = importlib.import_module('hypernerf_tpu_torch.kernels.fused_level')
+    from hypernerf_tpu_torch.flagship import (flagship_model,
+                                              load_probe_weights)
+    from hypernerf_tpu_torch.kernels import common, fused_level
+    for warp in common.WARP_CODES:
+        got = fl.compiled_forward_plan(warp)
+        want = fl.forward_plan(warp, common.kernel_layout(warp))
+        if got != want:
+            raise AssertionError(f'{warp}: the compiled forward plan is not '
+                                 f'its model: {got} vs {want}')
+    phase(f'[3] forward plan (compiled = model, all three warp types): '
+          f'{want["config"][1]} warpgroups of {want["config"][0]} rows, '
+          f'{want["config"][6]} bf16 columns each, a ring of '
+          f'{want["config"][2]} stages of {want["config"][3]} bytes, '
+          f'{want["config"][4]} bytes of shared memory, '
+          f'{want["config"][5]} threads')
+    entry = next(k for k in kernels if k['name'] == 'fused_level_fwd')
+    for warp, config in (('translation', 'flagship'), ('se3', 'se3'),
+                         ('quaternion', 'quaternion')):
+        probe = load_probe_weights(flagship_model('cuda', config=config))
+        level = {64: probe.level('coarse'), 128: probe.level('fine')}
+        for r in (CHUNK, TRAIN_RAYS):
+            for s in (64, 128):
+                args = level_inputs(r, s, seed=s + 7)
+                ms = cuda_ms(lambda: fused_level(level[s], *args))
+                b_ms, b_by = level_bound(level[s], r, s)
+                earlier = EARLIER_LEVEL_MS.get((warp, s)) if r == CHUNK \
+                    else None
+                was = (f'{earlier:.3f} ms before ({earlier / ms:.2f}x)'
+                       if earlier else 'no earlier figure')
+                phase(f'[3] level forward {warp} R={r} S={s}: {ms:.3f} ms, '
+                      f'{was}; bound {b_ms:.3f} ms ({b_by}), '
+                      f'{100 * b_ms / ms:.1f} % of it')
+                entry[f'ms_{warp}_r{r}_s{s}'] = ms
+        del probe, level, args
+    shapes = common.kernel_layout('translation')
+    for s in (64, 128):
+        phase(f'[3] computed from the plan, not measured: a level forward '
+              f'at R={CHUNK} S={s} streams '
+              f'{fl.forward_stream_bytes(shapes, CHUNK * s):,} bytes of '
+              f'weights from L2 (the blob once per pair of 64-row tiles)')
 
 
 def level_inputs(n_rays: int, samples: int, seed: int):
@@ -2139,6 +2230,9 @@ def main() -> int:
               if 'registers' in ln or 'spill' in ln]
     phase(f'[2] built {build.library_path().name} in '
           f'{time.perf_counter() - t0:.1f} s; ptxas: {" | ".join(report)}')
+    phase(f'[2] level forward (consumers raise their registers to 232 with '
+          f'setmaxnreg): '
+          f'{ptxas_lines(build.build_log(), LEVEL_FWD_SOURCES)}')
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -2202,21 +2296,17 @@ def main() -> int:
                         cuda_ms(lambda: fused_level_plain(level[s], *args), 3))
             phase(f'[3] level R={CHUNK} S={s}: kernel {times[s][0]:.3f} ms, '
                   f'plain {times[s][1]:.3f} ms')
-        # Bound at R = CHUNK, S = 128: every weight is one multiply-add per
-        # sample; bytes are the ray inputs, the weights once, the output.
-        macs = level_macs(level[128])
-        p128 = CHUNK * 128
-        b_ms, b_by = bound(2.0 * sum(macs) * p128,
-                           4 * p128 + CHUNK * (24 + 32 + 78) + 2 * sum(macs)
-                           + 16 * p128)
+        b_ms, b_by = level_bound(level[128], CHUNK, 128)
         kernels.append(dict(
             name='fused_level_fwd', route='cuda',
-            source='hypernerf_tpu_torch/kernels/csrc/fused_level.cu',
+            source=', '.join('hypernerf_tpu_torch/kernels/csrc/' + f
+                             for f in LEVEL_FWD_SOURCES),
             replaces='hypernerf_tpu/ops/pallas/fused_level.py:1322',
             max_abs_err=max(errs), ms=times[128][0],
             plain_ms=times[128][1], bound_ms=b_ms, bound_by=b_by,
-            library_ms=None))
+            library_ms=None, ms_s64=times[64][0]))
         del probe, level, args
+        level_forward_times(kernels)
 
         # [4] compositing kernel vs plain.
         for r, s, n, lin in ((1024, 64, 64, True), (1024, 64, 64, False),

@@ -32,6 +32,7 @@ _L = ctypes.c_longlong
 _SIGNATURES = {
     'hn_fused_level_fwd': ([_I] + [_P] * 10 + [_L, _I, _P], _I),
     'hn_fused_level_layout': ([_I, _P, _P, _I], _I),
+    'hn_fused_level_fwd_plan': ([_I, _P, _P, _P, _I], _I),
     'hn_tmpl_encode': ([_P, _P, _L, _I, _L, _P], _I),
     'hn_tmpl_ray_bias': ([_P, _P, _P, _L, _I, _I, _P], _I),
     'hn_tmpl_rowprod': ([_P, _L, _L, _I, _I, _I, _P] + [_I] * 5

@@ -12,7 +12,7 @@
 //      bf16 weights (out, in) and biases.
 // Out: (P, 8) fp32 [MLP output | 0]. The warp's residual (pts + output) is
 //      the caller's.
-// Rounding points are the level kernel's (fused_level.cu): the encoding is
+// Rounding points are the level kernel's (level_fwd.cuh): the encoding is
 // rounded to bf16 (then times the window row, rounded again), products take
 // bf16 operands with fp32 accumulation, bf16 biases added in fp32, ReLU then
 // a rounding on hidden layers, the head stays fp32.

@@ -15,7 +15,7 @@
 // through the same kernel: the wrapper packs zero weight columns for the hyper
 // bands, whose encoding of the zero input ([0 | sin 0 | cos 0]) then adds
 // exactly nothing.
-// Rounding points are the level kernel's (fused_level.cu).
+// Rounding points are the level kernel's (level_fwd.cuh).
 //
 // Bound: 686,976 multiply-adds per sample against 48 bytes moved, so
 // operations bound it (8192 x 128 samples: 1.46 ms at the card's bf16 peak).

@@ -1,4 +1,4 @@
-// Shared by the level kernels (fused_level.cu, fused_fields_bwd.cu, kernel
+// Shared by the level kernels (level_fwd.cuh, fused_fields_bwd.cu, kernel
 // A's template_*.cu): the flagship widths, the two tables of the level's
 // layers (30 with the translation warp, 32 with the SE(3) / quaternion warp)
 // with their offsets into the packed weight and bias blobs, the bf16

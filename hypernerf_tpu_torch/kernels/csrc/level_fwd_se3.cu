@@ -1,0 +1,11 @@
+// The level forward with the SE(3) warp: level_fwd.cuh's kernel for
+// warp type 1, compiled on its own so that the three instantiations build
+// in parallel.
+
+#include "level_fwd.cuh"
+
+extern "C" int hn_level_fwd_se3(HN_LEVEL_FWD_ARGS) {
+  return lf::launch_level_fwd<1>(z, origins, dirs, embed, rgb_cond,
+                                   warp_scales, weights, biases, out, raw_t,
+                                   n_points, samples, stream);
+}

@@ -1,6 +1,6 @@
 // The SE(3) / quaternion warp field's trunk on a tile, and its retraction.
 // Shared by the trunk alone (fused_se3.cu, fused_se3_bwd.cu) and by the level
-// kernels' screw-warp variants (fused_level.cu, fused_fields_bwd.cu).
+// kernels' screw-warp variants (level_fwd.cuh, fused_fields_bwd.cu).
 //
 // The trunk is Se3Table's layers 0..8: the Nerfies encoding of the points
 // (sin and cos of the degrees [kSe3MinDeg, kSe3MinDeg + 8), no identity
@@ -41,6 +41,22 @@ using CS = Cfg<2, kLdS, 8>;
 
 constexpr int kSe3Trunk = 6, kSe3HeadW = 7, kSe3HeadV = 8;  // layers
 
+// The argument of band b (0..23) of the trunk encoding of one row
+// in = [pts(3) | ...]: pts[b % 3] * 2^(kSe3MinDeg + b / 3) (exact).
+__device__ __forceinline__ float se3_band_arg(const float* in, int b) {
+  return ldexpf(in[b % 3], kSe3MinDeg + b / 3);
+}
+
+// Feature f of the trunk encoding from its fp32 value: rounded, then times
+// the window row and rounded again.
+__device__ __forceinline__ bf16 se3_feature(float v, int f,
+                                            const float* __restrict__ scales) {
+  bf16 b = __float2bfloat16_rn(v);
+  if (scales != nullptr)
+    b = __float2bfloat16_rn(__bfloat162float(b) * scales[f]);
+  return b;
+}
+
 // Trunk encoding [sin bands | cos bands | embed | 0 pad] into
 // X[:, col : col + 64] from rowin[r][12] = [pts(3) | embed(8) | pad]; band k
 // of channel c at k * 3 + c, argument pts[c] * 2^(kSe3MinDeg + k) (exact).
@@ -55,15 +71,12 @@ __device__ __forceinline__ void encode_se3(bf16* X, int col,
     float v = 0.f;
     if (f < 2 * kSe3Trig) {
       const int b = f < kSe3Trig ? f : f - kSe3Trig;
-      const float arg = ldexpf(in[b % 3], kSe3MinDeg + b / 3);
+      const float arg = se3_band_arg(in, b);
       v = f < kSe3Trig ? sinf(arg) : cosf(arg);
     } else if (f < 2 * kSe3Trig + kEmbed) {
       v = in[3 + f - 2 * kSe3Trig];
     }
-    bf16 b = __float2bfloat16_rn(v);
-    if (scales != nullptr)
-      b = __float2bfloat16_rn(__bfloat162float(b) * scales[f]);
-    X[r * C::LD + col + f] = b;
+    X[r * C::LD + col + f] = se3_feature(v, f, scales);
   }
 }
 

@@ -6,11 +6,14 @@ row (``fused_se3.se3_encoding_scales``; a row of ones and None give the same
 numbers).
 
 ``fused_level`` is the wrapper. On CUDA tensors it launches the hand-written
-Hopper kernel ``csrc/fused_level.cu`` (which replaces the TPU kernel
+Hopper kernel of ``csrc/level_fwd.cuh`` (one source per warp type,
+``level_fwd_{trans,se3,quat}.cu``, behind the entry point of
+``csrc/fused_level.cu``; it replaces the TPU kernel
 ``hypernerf_tpu/ops/pallas/fused_level.py`` ``_fused``); on CPU tensors it
 runs ``fused_level_plain``, the same function composed from this package's
 modules, whose rounding points are the kernel's (models/modules.py). On a
-CUDA tensor it launches the kernel or raises.
+CUDA tensor it launches the kernel or raises. ``forward_plan`` models the
+kernel's tiles, column plan and weight stream in Python.
 
 When a gradient is wanted the call goes through ``FusedLevelFn``: its
 forward also keeps ``raw_t``, the template's raw input [warped | hyper], and
@@ -27,6 +30,7 @@ Bound and design: see the notes at the top of the ``csrc/*.cu`` sources.
 
 from __future__ import annotations
 
+import ctypes
 from typing import NamedTuple, Union
 
 import torch
@@ -205,6 +209,103 @@ def _warp_launch_args(level: Level, shapes, warp_scales, dev):
 
 def _ptr(t):
     return None if t is None else t.data_ptr()
+
+
+# The forward kernel's plan (csrc/level_fwd.cuh), modelled here for the tests
+# and for chip_smoke.py, which holds it to the compiled one
+# (``hn_fused_level_fwd_plan``). A block is FWD_GROUPS consumer warpgroups,
+# each with its own tile of FWD_TILE_ROWS rows x FWD_TILE_COLS bf16 columns
+# (six 64-column boxes, 128-byte swizzle), and a producer warpgroup (one
+# thread issues the loads; setmaxnreg hands its registers to the consumers)
+# that streams each layer's (n_pad, k_pad) weight from the packed blob
+# through a ring of FWD_STAGES stages: one load per 64-column box of K and
+# 128-row half of N.
+FWD_TILE_ROWS, FWD_GROUPS, FWD_STAGES = 64, 2, 6
+FWD_BOX_COLS, FWD_STAGE_ROWS, FWD_TILE_COLS = 64, 128, 384
+FWD_STAGE_BYTES = FWD_STAGE_ROWS * 2 * FWD_BOX_COLS
+FWD_THREADS = 128 * (FWD_GROUPS + 1)
+# Per-row fp32 scratch of a warpgroup: in (12), raw (8), head (8), sigma,
+# ray.
+FWD_ROW_BYTES = 4 * (12 + 8 + 8 + 1 + 1)
+# Every layer's bf16 bias, kept in shared memory: the SE(3) table's 4264.
+FWD_BIAS_BYTES = 2 * 4264
+FWD_SMEM_BYTES = (1024 + FWD_GROUPS * FWD_TILE_ROWS * 2 * FWD_TILE_COLS
+                  + FWD_STAGES * FWD_STAGE_BYTES
+                  + FWD_GROUPS * FWD_TILE_ROWS * FWD_ROW_BYTES
+                  + FWD_BIAS_BYTES + 2 * FWD_STAGES * 8)
+# The tile's column plan: where each field's encoding (and the rgb
+# condition) sits; a hidden layer writes [0, n), its input starts at 0
+# unless it is a field's first layer, which reads the encoding.
+FWD_ENC_COL = dict(warp=128, hyper=64, template=256, cond=128)
+
+
+def forward_in_cols(warp: str = 'translation'):
+    """The first tile column of every layer's input, in layer order."""
+    h0 = 7 if warp == 'translation' else 9  # the sheet's first layer
+    cols = [0] * (h0 + 7 + 16)
+    cols[0], cols[h0], cols[h0 + 7] = (FWD_ENC_COL['warp'],
+                                       FWD_ENC_COL['hyper'],
+                                       FWD_ENC_COL['template'])
+    return cols
+
+
+def forward_loads(shapes):
+    """[(layer, box of K, half of N, box rows)]: the weight loads of one
+    pair of row tiles, in the producer's (and the consumers') order: each
+    layer's 64-column boxes of K, each as its 128-row halves of N."""
+    return [(l, kb, nb, min(n, FWD_STAGE_ROWS))
+            for l, (n, k) in enumerate(shapes)
+            for kb in range(-(-k // FWD_BOX_COLS))
+            for nb in range(-(-n // FWD_STAGE_ROWS))]
+
+
+def forward_maps(shapes):
+    """[(first layer, layers, n, k)]: one 2-d tensor map per run of
+    consecutive layers of one shape, a (layers x n, k) view of the blob at
+    the run's first layer."""
+    maps = []
+    for l, shape in enumerate(shapes):
+        if l and shapes[l - 1] == shape:
+            first, count, n, k = maps[-1]
+            maps[-1] = (first, count + 1, n, k)
+        else:
+            maps.append((l, 1, *shape))
+    return maps
+
+
+def forward_plan(warp: str, shapes):
+    """The compiled plan's fields (``hn_fused_level_fwd_plan``): config,
+    in_cols and loads."""
+    config = [FWD_TILE_ROWS, FWD_GROUPS, FWD_STAGES, FWD_STAGE_BYTES,
+              FWD_SMEM_BYTES, FWD_THREADS, FWD_TILE_COLS,
+              len(forward_maps(shapes))]
+    return dict(config=config, in_cols=forward_in_cols(warp),
+                loads=forward_loads(shapes))
+
+
+def compiled_forward_plan(warp: str = 'translation'):
+    """``forward_plan``'s fields as the compiled kernel reports them
+    (``hn_fused_level_fwd_plan``)."""
+    n_layers = len(common.kernel_layout(warp))
+    config = (ctypes.c_int * 8)()
+    in_cols = (ctypes.c_int * n_layers)()
+    max_loads = 1024
+    loads = (ctypes.c_int * (4 * max_loads))()
+    n = build.library().hn_fused_level_fwd_plan(
+        common.WARP_CODES[warp], ctypes.addressof(config),
+        ctypes.addressof(in_cols), ctypes.addressof(loads), max_loads)
+    if not 0 <= n <= max_loads:
+        raise RuntimeError(f'hn_fused_level_fwd_plan: {n} loads')
+    return dict(config=list(config), in_cols=list(in_cols),
+                loads=[tuple(loads[4 * i:4 * i + 4]) for i in range(n)])
+
+
+def forward_stream_bytes(shapes, n_points: int) -> int:
+    """Weight bytes one call reads from L2: each block reads the whole blob
+    (in-bounds bytes; a box's zero fill is not read) once per pair of row
+    tiles."""
+    tiles = -(-n_points // FWD_TILE_ROWS)
+    return -(-tiles // FWD_GROUPS) * sum(2 * n * k for n, k in shapes)
 
 
 def _launch_forward(level: Level, z_vals, origins, directions, embed,

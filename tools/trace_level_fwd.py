@@ -1,0 +1,130 @@
+#!/usr/bin/env python
+"""Where a level forward's time goes inside its kernel: the translation
+variant of ``csrc/level_fwd.cuh`` built with ``-DHN_LEVEL_FWD_TRACE`` into a
+library of its own, launched at the flagship widths (probe weights) on one
+CUDA card; block 0 records the SM clock of each consumer warpgroup at four
+points of every layer of its first four pairs of row tiles.
+
+  python tools/trace_level_fwd.py [--rays 8192] [--samples 128]
+
+Prints, per layer and summed over a pair of tiles (mean of pairs 1 to 3, in
+SM cycles, each warpgroup): the wait for the layer's first weight stage, the
+products until retired, the epilogue, and the per-row work before the
+layer (encodings, heads' row work); then a pair's period (layer 0 to
+layer 0) and how far warpgroup 1 runs behind warpgroup 0 at each layer's
+start. Exits non-zero without a card.
+"""
+
+from __future__ import annotations
+
+import argparse
+import ctypes
+import hashlib
+import importlib
+import os
+import subprocess
+import sys
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+GROUPS, PAIRS, LAYERS, EVENTS = 2, 4, 32, 4
+
+
+def _trace_library():
+    """The translation kernel built with the trace hooks (cached by the
+    sources' hash under build/kernels/)."""
+    from hypernerf_tpu_torch.kernels import build
+    src = build.CSRC / 'level_fwd_trans.cu'
+    flags = [*build.NVCC_FLAGS, '-DHN_LEVEL_FWD_TRACE']
+    h = hashlib.sha256(' '.join(flags).encode())
+    for p in build._sources():
+        h.update(p.read_bytes())
+    so = build.BUILD_DIR / f'level_fwd_trace_{h.hexdigest()[:16]}.so'
+    if not so.exists():
+        build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        subprocess.run([build._nvcc(), *flags, '-shared', '-o', str(so),
+                        str(src)], check=True)
+    lib = ctypes.CDLL(str(so))
+    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.hn_level_fwd_trans.argtypes = [p] * 10 + [ll, i, p]
+    lib.hn_level_fwd_trans.restype = i
+    lib.hn_level_fwd_trace.argtypes = [p]
+    lib.hn_level_fwd_trace.restype = i
+    return lib
+
+
+def main() -> int:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument('--rays', type=int, default=8192)
+    parser.add_argument('--samples', type=int, default=128)
+    args = parser.parse_args()
+
+    import numpy as np
+    import torch
+    if not torch.cuda.is_available():
+        print('trace_level_fwd: no CUDA device', file=sys.stderr)
+        return 1
+    from hypernerf_tpu_torch.flagship import (flagship_model,
+                                              load_probe_weights,
+                                              probe_inputs)
+    fl = importlib.import_module('hypernerf_tpu_torch.kernels.fused_level')
+
+    print(subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
+                          '--format=csv,noheader'], capture_output=True,
+                         text=True, check=True).stdout.strip())
+    lib = _trace_library()
+    level = load_probe_weights(flagship_model('cuda')).level('fine')
+    w, b, shapes = fl.pack_level(level)
+    z, o, d, emb, cond = [torch.from_numpy(v).cuda() for v in probe_inputs(
+        args.rays, args.samples, seed=0).values()]
+    cond = cond.to(torch.bfloat16).contiguous()
+    n = args.rays * args.samples
+    out = torch.empty((n, 4), device='cuda')
+    stream = torch.cuda.current_stream().cuda_stream
+    for _ in range(2):  # the second launch's clocks are kept
+        code = lib.hn_level_fwd_trans(
+            z.data_ptr(), o.data_ptr(), d.data_ptr(), emb.data_ptr(),
+            cond.data_ptr(), None, w.data_ptr(), b.data_ptr(),
+            out.data_ptr(), None, n, args.samples, stream)
+        if code:
+            raise RuntimeError(f'hn_level_fwd_trans: CUDA error {code}')
+    torch.cuda.synchronize()
+    t = np.zeros((GROUPS, PAIRS, LAYERS, EVENTS), dtype=np.int64)
+    if lib.hn_level_fwd_trace(t.ctypes.data):
+        raise RuntimeError('hn_level_fwd_trace failed')
+    t = t[:, :, :len(shapes)].astype(np.float64)
+    # The row work before a layer: since the previous layer ended (for
+    # layer 0, the previous pair's last layer).
+    gap = np.empty(t.shape[:3])
+    gap[..., 1:] = t[..., 1:, 0] - t[..., :-1, 3]
+    gap[:, 1:, 0] = t[:, 1:, 0, 0] - t[:, :-1, -1, 3]
+    pair = t[:, 1:, 0, 0] - t[:, :-1, 0, 0]  # layer 0 to layer 0
+    t, gap = t[:, 1:], gap[:, 1:]  # pairs 1..3
+    wait, mma, epi = (t[..., 1] - t[..., 0], t[..., 2] - t[..., 1],
+                      t[..., 3] - t[..., 2])
+    print(f'level forward R={args.rays} S={args.samples}, block 0, SM '
+          f'cycles, mean of pairs 1-3 (warpgroup 0 / 1)')
+    print('layer  (n, k)       stage wait        products        epilogue'
+          '   row work before')
+    for l, shape in enumerate(shapes):
+        cells = [f'{x[0, :, l].mean():7.0f} / {x[1, :, l].mean():<7.0f}'
+                 for x in (wait, mma, epi, gap)]
+        print(f'{l:5d}  {str(shape):11s} ' + '  '.join(cells))
+    for name, x in (('stage wait', wait), ('products', mma),
+                    ('epilogue', epi), ('row work', gap)):
+        s = x.sum(-1).mean(-1)
+        print(f'sum {name:10s}: {s[0]:.0f} / {s[1]:.0f} cycles a pair')
+    print(f'a pair of tiles: {pair[0].mean():.0f} / {pair[1].mean():.0f} '
+          f'cycles; warpgroup 1 behind 0 at layer starts: '
+          f'{(t[1, :, :, 0] - t[0, :, :, 0]).mean():.0f} cycles (mean), '
+          f'{(t[1, :, :, 0] - t[0, :, :, 0]).min():.0f} to '
+          f'{(t[1, :, :, 0] - t[0, :, :, 0]).max():.0f}')
+    clocks = subprocess.run(['nvidia-smi', '--query-gpu=clocks.sm',
+                             '--format=csv,noheader'], capture_output=True,
+                            text=True).stdout.strip()
+    print(f'SM clock now: {clocks}')
+    return 0
+
+
+if __name__ == '__main__':
+    sys.exit(main())
