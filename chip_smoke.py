@@ -4,8 +4,8 @@
 Phases, one line each; any failure ends the run with a non-zero exit:
   1. a CUDA card (else exit 1); its name and power limit from nvidia-smi;
   2. build the kernels from kernels/csrc with nvcc (sm_90a), with the time
-     and ptxas's registers and spills (the level forward's on a line of its
-     own);
+     and ptxas's registers and spills (the level forward's and kernel B's
+     on lines of their own);
   3. the level kernel at the flagship widths and at probe weights whose
      warp and hyper heads are large enough that those 14 layers move the
      output: against the JAX kernel's stored outputs (tests/data), and
@@ -25,15 +25,20 @@ Phases, one line each; any failure ends the run with a non-zero exit:
      ``python -m hypernerf_tpu_torch.eval`` uses, on LLFF spiral NDC rays;
      the launch counters must show both kernels on every chunk and level;
      then the same frame with the plain versions, timed apart;
-  6. the three backward kernels (template, fields, compositing) at the probe
-     weights: against the JAX kernels' stored gradients (tests/data), with
+  6. kernel B's compiled plan (block tile, ring, the slab pool's buffer
+     plan with its spills and reloads, a block tile's weight loads) against
+     its model in kernels/fused_level.py for each warp type, with the
+     weight bytes a call streams from L2; the three backward kernels
+     (template, fields, compositing) at the probe weights: against the JAX
+     kernels' stored gradients (tests/data), with
      the 1 % probes that show the check sees the warp, sheet and template
      layers' dW; against their plain versions at 37 and 512 rays and at the
      train step's shapes (16384 rays at S = 64 and 128; there the plain
      versions run in chunks of 2048 rays, which bounds their memory), which
      are also timed, the template backward (kernel A, a sequence of kernels
      over chunks of whole rays) with its share of the bound, the bytes of
-     the stash it allocated, its peak allocation and its host time;
+     the stash it allocated, its peak allocation and its host time, and
+     kernel B with its share of the bound;
      the two forward kernels as training launches them (the level with its
      raw_t output on, which then feeds the template backward; compositing
      with sigma noise and the sorted fine draw) against their plain versions
@@ -78,8 +83,10 @@ Phases, one line each; any failure ends the run with a non-zero exit:
  11. the level kernels' screw-warp variants (``se3`` and ``quaternion``): the
      level forward and the level backward (A then B) against the stored JAX
      numbers, the forward (with raw_t) and kernel B against their plain
-     versions at small ragged sizes, at the render's R = 8192 and at the train
-     step's R = 16384, with and without a window row; the trunk kernel, the
+     versions at small ragged sizes, at R = 512 (S = 64 and 128), at the
+     render's R = 8192 and at the train step's R = 16384 (kernel B timed
+     there at S = 64 and 128 with its share of the bound), with and without
+     a window row; the trunk kernel, the
      retraction, the sheet's field kernel and the template kernel chained
      against the level kernel; and a model whose w head is zero, so that
      every row has w = 0 exactly (d w = 0, d v = d pts = g);
@@ -253,6 +260,10 @@ EARLIER_LEVEL_MS = {('translation', 64): 5.969, ('translation', 128): 11.919,
                     ('quaternion', 64): 6.189, ('quaternion', 128): 12.128}
 LEVEL_FWD_SOURCES = ('level_fwd.cuh', 'level_fwd_trans.cu',
                      'level_fwd_se3.cu', 'level_fwd_quat.cu', 'fused_level.cu')
+# Kernel B, the fields backward (`wgmma`, TMA, a 128-row block tile; one
+# source per warp type).
+FIELDS_BWD_SOURCES = ('fields_bwd.cuh', 'fields_bwd_trans.cu',
+                      'fields_bwd_se3.cu', 'fields_bwd_quat.cu')
 
 
 def ptxas_lines(log: str, sources) -> str:
@@ -514,6 +525,48 @@ def template_bwd_bound(level, n_rays: int, samples: int):
                  p * (32 + 16 + 32) + n_rays * (78 + 156) + 6 * t_macs)
 
 
+def fields_bwd_bound(level, n_rays: int, samples: int):
+    """(bound_ms, bound_by) of kernel B on n_rays x samples rows: the
+    recompute, g W and g^T h each take one multiply-add per weight of the
+    field layers and row; bytes are the inputs and outputs once (z, dx_t, d z
+    per row; the ray inputs and their cotangents per ray) and the weights
+    and dW once."""
+    f_macs = level_macs(level)[0]
+    p = n_rays * samples
+    return bound(6.0 * f_macs * p,
+                 p * (4 + 32 + 4) + n_rays * (24 + 32 + 56) + 6 * f_macs)
+
+
+def fields_bwd_plan_phase() -> None:
+    """Phase 6, kernel B's plan: the compiled plan (block tile, ring, the
+    slab pool's buffer plan with its spills and reloads, the weight loads of
+    a block tile) against its model in kernels/fused_level.py for each warp
+    type, and the weight bytes a call streams from L2 as the plan computes
+    them."""
+    import importlib
+    fl = importlib.import_module('hypernerf_tpu_torch.kernels.fused_level')
+    from hypernerf_tpu_torch.kernels import common
+    for warp in common.WARP_CODES:
+        got = fl.compiled_fields_bwd_plan(warp)
+        want = fl.fields_bwd_plan(warp, common.kernel_layout(warp))
+        if got != want:
+            raise AssertionError(f'{warp}: the compiled fields backward plan '
+                                 f'is not its model: {got} vs {want}')
+    c = want['config']
+    phase(f'[6] fields backward plan (compiled = model, all three warp '
+          f'types): block tiles of {c[0]} rows on {c[1]} warpgroups, a ring '
+          f'of {c[2]} stages of {c[3]} bytes, {c[6]} slabs of outputs, '
+          f'{c[7]} spill slabs a block, {c[4]} bytes of shared memory, '
+          f'{c[5]} threads, {len(want["loads"])} weight loads a block tile')
+    shapes = common.kernel_layout('translation')
+    for s in (64, 128):
+        phase(f'[6] computed from the plan, not measured: kernel B at '
+              f'R={TRAIN_RAYS} S={s} streams '
+              f'{fl.fields_bwd_stream_bytes("translation", shapes, TRAIN_RAYS * s):,}'
+              f' bytes of weights from L2 (the blob once per 128-row block '
+              f'tile)')
+
+
 def backward_phase(kernels):
     """Phase 6; returns the three backward kernels' entries and raises the
     two forward kernels' ``max_abs_err`` in ``kernels`` to what they show at
@@ -534,6 +587,7 @@ def backward_phase(kernels):
     from hypernerf_tpu_torch.kernels.fused_mlp import chunk_plan
     probe = load_probe_weights(flagship_model('cuda'))
     level = {64: probe.level('coarse'), 128: probe.level('fine')}
+    fields_bwd_plan_phase()
 
     # The JAX kernels' stored gradients (tools/make_level_reference.py):
     # the CUDA kernels through the autograd Functions, as training runs them.
@@ -676,6 +730,7 @@ def backward_phase(kernels):
             torch.cuda.synchronize()
             times[s]['peak'] = torch.cuda.max_memory_allocated() - base
             a_bound = template_bwd_bound(lv, r, s)[0]
+            b_bound = fields_bwd_bound(lv, r, s)[0]
             phase(f'[6] level backward R={r} S={s}: kernel A '
                   f'{times[s]["A"]:.2f} ms (plain {times[s]["plain_A"]:.1f} '
                   f'ms; {a_bound / times[s]["A"]:.1%} of its bound '
@@ -685,7 +740,9 @@ def backward_phase(kernels):
                   f'{times[s]["peak"]} bytes; its host time '
                   f'{times[s]["host"]:.3f} ms), kernel B '
                   f'{times[s]["B"]:.2f} ms (plain {times[s]["plain_B"]:.1f} '
-                  f'ms); plain versions in chunks of {PLAIN_CHUNK} rays')
+                  f'ms; {b_bound / times[s]["B"]:.1%} of its bound '
+                  f'{b_bound:.3f} ms); plain versions in chunks of '
+                  f'{PLAIN_CHUNK} rays')
             del raw_t, want_a, dx_t
             torch.cuda.empty_cache()
 
@@ -756,11 +813,9 @@ def backward_phase(kernels):
     # Bounds at the train step's fine level (R = 16384, S = 128). A and B:
     # the recompute, g W and g^T h each take one multiply-add per weight and
     # sample. Bytes: inputs once, outputs once, the weights and dW once.
-    f_macs = level_macs(level[128])[0]
     p, r = TRAIN_RAYS * 128, TRAIN_RAYS
     a_ms, a_by = template_bwd_bound(level[128], r, 128)
-    b_ms, b_by = bound(6.0 * f_macs * p,
-                       p * (4 + 32 + 4) + r * (24 + 32 + 56) + 6 * f_macs)
+    b_ms, b_by = fields_bwd_bound(level[128], r, 128)
     c_ms, c_by = bound(0.0, p * (16 + 4 + 4 + 4 + 16 + 4) + r * (12 + 24 + 4))
     src = 'hypernerf_tpu_torch/kernels/csrc/'
     return [
@@ -774,11 +829,12 @@ def backward_phase(kernels):
              call_peak_bytes=times[128]['peak'],
              host_ms=times[128]['host']),
         dict(name='fused_fields_bwd', route='cuda',
-             source=src + 'fused_fields_bwd.cu',
+             source=', '.join(src + f for f in FIELDS_BWD_SOURCES),
              replaces='hypernerf_tpu/ops/pallas/fused_level.py:846',
              ms=times[128]['B'], **error_keys(errs['B']),
              plain_ms=times[128]['plain_B'], bound_ms=b_ms, bound_by=b_by,
-             library_ms=None),
+             library_ms=None, ms_s64=times[64]['B'],
+             bound_ms_s64=fields_bwd_bound(level[64], r, 64)[0]),
         dict(name='fused_composite_bwd', route='cuda',
              source=src + 'fused_composite_bwd.cu',
              replaces='hypernerf_tpu/ops/pallas/fused_composite.py:477',
@@ -1644,8 +1700,9 @@ def se3_level_phase(kernels) -> None:
         for config, probe in probes.items():
             level = {64: probe.level('coarse'), 128: probe.level('fine')}
             for r, s, scales in ((37, 13, None), (37, 13, window),
-                                 (512, 64, window), (CHUNK, 64, None),
-                                 (CHUNK, 128, None), (TRAIN_RAYS, 64, None),
+                                 (512, 64, window), (512, 128, None),
+                                 (CHUNK, 64, None), (CHUNK, 128, None),
+                                 (TRAIN_RAYS, 64, None),
                                  (TRAIN_RAYS, 128, window)):
                 lv = level.get(s, level[64])
                 args = level_inputs(r, s, seed=s + 3)
@@ -1678,15 +1735,18 @@ def se3_level_phase(kernels) -> None:
                     f'{label} fields backward (B) vs plain',
                     SE3_FIELDS_GRAD_NAMES, [d_z, d_o, d_d, d_e, *f_grads],
                     plain_fields_bwd(lv, args, dx_t, scales), tag='[11]'))
-                if (r, s) == (TRAIN_RAYS, 128):
-                    times[config, 'B'] = (
+                if r == TRAIN_RAYS:
+                    times[config, 'B', s] = (
                         cuda_ms(lambda: K.fused_fields_bwd(lv, *args[:4],
                                                            dx_t, scales), 3),
                         cuda_ms(lambda: plain_fields_bwd(lv, args, dx_t,
                                                          scales), 1))
+                    b_bound = fields_bwd_bound(lv, r, s)[0]
                     phase(f'[11] {config} fields backward R={r} S={s}: '
-                          f'kernel B {times[config, "B"][0]:.2f} ms, plain '
-                          f'{times[config, "B"][1]:.1f} ms')
+                          f'kernel B {times[config, "B", s][0]:.2f} ms '
+                          f'({b_bound / times[config, "B", s][0]:.1%} of its '
+                          f'bound {b_bound:.3f} ms), plain '
+                          f'{times[config, "B", s][1]:.1f} ms')
                 del out, raw_t, want_out, want_raw_t
                 torch.cuda.empty_cache()
 
@@ -1751,8 +1811,9 @@ def se3_level_phase(kernels) -> None:
                         'max_err_over_largest_entry'):
                 k[key] = max(k[key], worst[key])
             for config in probes:
-                k[f'{config}_ms'] = times[config, 'B'][0]
-                k[f'{config}_plain_ms'] = times[config, 'B'][1]
+                k[f'{config}_ms'] = times[config, 'B', 128][0]
+                k[f'{config}_plain_ms'] = times[config, 'B', 128][1]
+                k[f'{config}_ms_s64'] = times[config, 'B', 64][0]
 
 
 def se3_paths_phase(kernels) -> None:
@@ -2233,6 +2294,8 @@ def main() -> int:
     phase(f'[2] level forward (consumers raise their registers to 232 with '
           f'setmaxnreg): '
           f'{ptxas_lines(build.build_log(), LEVEL_FWD_SOURCES)}')
+    phase(f'[2] fields backward, kernel B (the same): '
+          f'{ptxas_lines(build.build_log(), FIELDS_BWD_SOURCES)}')
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False

@@ -1,8 +1,8 @@
 // One field MLP (the warp field or the hyper sheet) on a tile: the encoding
 // of raw rows [points | embedding] and the recompute-and-walk-back of its
-// backward. Shared by the fields backward of the level (fused_fields_bwd.cu),
-// the backward of a field alone (fused_field_bwd.cu) and, for the encoding,
-// the forward of a field alone (fused_field.cu).
+// backward. Shared by the backward of a field alone (fused_field_bwd.cu)
+// and, for the encoding, the forward of a field alone (fused_field.cu). (The
+// level's fields backward, kernel B, is fields_bwd.cuh.)
 //
 // The optional `scales` row (one fp32 weight per padded encoded feature, the
 // annealing window of the windowed encoding) multiplies the rounded encoding,

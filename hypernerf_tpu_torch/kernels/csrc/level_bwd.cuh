@@ -1,9 +1,11 @@
-// Building blocks of the field backward kernels (fused_fields_bwd.cu,
-// fused_field_bwd.cu and the SE(3) / Jacobian backwards through
+// Building blocks of the field backward kernels (fused_field_bwd.cu and the
+// SE(3) / Jacobian backwards through
 // field_bwd.cuh, se3_trunk.cuh, jacobian.cuh); the forward kernels of a
 // module alone (fused_field.cu, fused_template.cu) take gemm, fwd_layer and
 // head_fwd from here too. (The template backward, kernel A, works a layer at
-// a time over a stash instead: template_rowprod.cu, template_dw.cu.)
+// a time over a stash instead: template_rowprod.cu, template_dw.cu; the
+// level's fields backward, kernel B, keeps a 128-row block tile resident:
+// fields_bwd.cuh.)
 //
 // These kernels work the same way. A block takes tiles of C::ROWS sample rows,
 // one after the other (a persistent grid). For a tile it recomputes the
@@ -312,32 +314,6 @@ __device__ __forceinline__ float head_dx(const float* hg_row,
   for (int n = 0; n < 8; ++n)
     s += round_bf(hg_row[n]) * __bfloat162float(w[n * K + k]);
   return s;
-}
-
-// Sum per ray of val(r, c), c < n_ch, over the rows of the tile, added to
-// out[ray * out_stride + c]. Rows of one ray are consecutive, so a thread
-// walks the tile once per channel and makes one atomic add per run of equal
-// rays; rows past the end have ray -1. A ray that spans several tiles gets
-// one add from each, in an order that may change from run to run (the last
-// bits of these per-ray sums are not deterministic).
-template <class C, class F>
-__device__ __forceinline__ void ray_sums(const int* ray_of, int n_ch,
-                                         float* __restrict__ out,
-                                         int out_stride, F val) {
-  for (int c = threadIdx.x; c < n_ch; c += C::THREADS) {
-    float s = 0.f;
-    int cur = ray_of[0];
-    for (int r = 0; r < C::ROWS; ++r) {
-      const int ray = ray_of[r];
-      if (ray != cur) {
-        if (cur >= 0) atomicAdd(out + (size_t)cur * out_stride + c, s);
-        s = 0.f;
-        cur = ray;
-      }
-      s += val(r, c);
-    }
-    if (cur >= 0) atomicAdd(out + (size_t)cur * out_stride + c, s);
-  }
 }
 
 inline int sm_count() {

@@ -181,8 +181,10 @@ struct Maps {
 };
 
 // The ring's position, kept by the producer and by every consumer thread
-// alike: stage s of parity phase.
-struct Ring {
+// alike: stage s of parity phase, in a ring of kN stages of kStageBytes
+// (fields_bwd.cuh's ring has fewer).
+template <int kN>
+struct RingOf {
   uint8_t* base;
   uint64_t* full;
   uint64_t* empty;
@@ -191,17 +193,18 @@ struct Ring {
     return base + s * kStageBytes;
   }
   __device__ __forceinline__ void next() {
-    if (++s == kStages) {
+    if (++s == kN) {
       s = 0;
       phase ^= 1;
     }
   }
 };
+using Ring = RingOf<kStages>;
 
 // -- the producer --------------------------------------------------------------
 
-template <class T, int L>
-__device__ __forceinline__ void produce_layer(const Maps<T>& maps, Ring& ring) {
+template <class T, int L, class R>
+__device__ __forceinline__ void produce_layer(const Maps<T>& maps, R& ring) {
   constexpr Shape sh = T::shape(L);
   constexpr int kMap = map_index<T>(L);
   constexpr int kRow0 = (L - map_first<T>(L)) * sh.n;

@@ -1,6 +1,6 @@
 // The SE(3) / quaternion warp field's trunk on a tile, and its retraction.
 // Shared by the trunk alone (fused_se3.cu, fused_se3_bwd.cu) and by the level
-// kernels' screw-warp variants (level_fwd.cuh, fused_fields_bwd.cu).
+// kernels' screw-warp variants (level_fwd.cuh, fields_bwd.cuh).
 //
 // The trunk is Se3Table's layers 0..8: the Nerfies encoding of the points
 // (sin and cos of the degrees [kSe3MinDeg, kSe3MinDeg + 8), no identity
@@ -35,7 +35,6 @@ struct Se3Plan {
   }
 };
 constexpr int kLdS = Se3Plan::end + 8;  // 1160
-static_assert(HypPlan::end <= Se3Plan::end, "the sheet fits the trunk's tile");
 
 using CS = Cfg<2, kLdS, 8>;
 

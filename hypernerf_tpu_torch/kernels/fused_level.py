@@ -13,13 +13,15 @@ Hopper kernel of ``csrc/level_fwd.cuh`` (one source per warp type,
 runs ``fused_level_plain``, the same function composed from this package's
 modules, whose rounding points are the kernel's (models/modules.py). On a
 CUDA tensor it launches the kernel or raises. ``forward_plan`` models the
-kernel's tiles, column plan and weight stream in Python.
+kernel's tiles, column plan and weight stream in Python, ``fields_bwd_plan``
+kernel B's.
 
 When a gradient is wanted the call goes through ``FusedLevelFn``: its
 forward also keeps ``raw_t``, the template's raw input [warped | hyper], and
 its backward runs the template backward (``fused_template_bwd``, kernel A's
 sequence in ``csrc/template_*.cu``) and then the fields backward
-(``fused_fields_bwd``, ``csrc/fused_fields_bwd.cu``), stitched through
+(``fused_fields_bwd``, kernel B: ``csrc/fields_bwd.cuh``, one source per
+warp type, ``fields_bwd_{trans,se3,quat}.cu``), stitched through
 ``dx_t`` = d[warped | hyper] as the JAX package's split backward is. Each has
 a plain version written out explicitly, with the kernels' rounding points
 (the cotangent is rounded to the compute dtype before every product, a
@@ -153,13 +155,12 @@ def _check_covered(level: Level) -> None:
                                   f'{dtypes}')
 
 
-def pack_level(level: Level, transposed: bool = False):
-    """The level kernel's bf16 weight and bias blobs and the (n_pad, k_pad)
+def pack_level(level: Level):
+    """The level kernels' bf16 weight and bias blobs and the (n_pad, k_pad)
     of each layer: the three modules' own packed blobs
     (``common.pack_layers``, cached on each module and following its
     parameters' version counters, so the warp and the sheet that two levels
     share are packed once) joined, the joined blobs cached on the template.
-    With ``transposed`` the first blob holds every layer as (k_pad, n_pad).
     """
     check = lambda: _check_covered(level)
     subs = [common.packed(owner, layers, check) for owner, layers in (
@@ -177,10 +178,7 @@ def pack_level(level: Level, transposed: bool = False):
             w=torch.cat([sub['w'] for sub in subs]),
             b=torch.cat([sub['b'] for sub in subs]))
         object.__setattr__(level.template, '_packed_level', cached)
-    if transposed and 'wt' not in cached:
-        cached['wt'] = torch.cat([w.t().reshape(-1)
-                                  for w, _ in cached['packed']]).contiguous()
-    return cached['wt' if transposed else 'w'], cached['b'], cached['shapes']
+    return cached['w'], cached['b'], cached['shapes']
 
 
 def _level_params(level: Level):
@@ -306,6 +304,111 @@ def forward_stream_bytes(shapes, n_points: int) -> int:
     tiles."""
     tiles = -(-n_points // FWD_TILE_ROWS)
     return -(-tiles // FWD_GROUPS) * sum(2 * n * k for n, k in shapes)
+
+
+# Kernel B's plan (csrc/fields_bwd.cuh), modelled here for the tests and for
+# chip_smoke.py, which holds it to the compiled one
+# (``hn_fused_fields_bwd_plan``). A block tile is FB_TILE_ROWS rows, FB_GROUPS
+# consumer warpgroups of 64 rows each; a field's stored layer outputs live
+# in a pool of FB_SLOTS slabs (64 bf16 columns x 128 rows, FB_SLAB_BYTES), one
+# slab per 64-column box; the weights stream by TMA through a ring of
+# FB_STAGES stages, one 64-column box of K of a layer a stage.
+FB_TILE_ROWS, FB_GROUPS, FB_STAGES, FB_SLOTS = 128, 2, 4, 8
+FB_SLAB_BYTES = FB_STAGE_BYTES = 128 * 128
+FB_SPILL_SLABS = 8  # device-memory scratch slabs a block
+FB_GRAD_COPIES = 4  # gradient buffers: block b adds into copy b % 4
+FB_THREADS = 128 * (FB_GROUPS + 1)
+# Per-row fp32 scratch: in (12), z | direction (4), acc (20), a head's
+# cotangent (8), the SE(3) rows (16), and the ray (int).
+FB_ROWS_BYTES = FB_TILE_ROWS * 4 * (12 + 4 + 20 + 8 + 16 + 1)
+FB_BUFS = ('enc', 'h0', 'h1', 'h2', 'h3', 'h4', 'h5', 'T', 'skip')
+FB_SMEM_BYTES = (1024 + FB_SLOTS * FB_SLAB_BYTES + FB_STAGES * FB_STAGE_BYTES
+                 + FB_ROWS_BYTES + (2 * FB_STAGES + len(FB_BUFS)) * 8)
+# Where each buffer of a field lives (csrc/fields_bwd.cuh ``buf_plan``):
+# (forward slots per 64-column box, the scratch slab its first box is
+# spilled to as it is written or -1, the walk-back layer after which it is
+# reloaded or -1, the reload slots). A cotangent g_i overwrites h_i, d enc
+# the encoding where layer 0 reads it; 'skip' holds the skip layer's part of
+# d enc.
+_NONE = ((-1, -1), -1, -1, (-1, -1))
+FB_PLANS = {
+    'sheet': [((s, -1), -1, -1, (-1, -1)) for s in range(7)]
+    + [_NONE, ((7, -1), -1, -1, (-1, -1))],
+    'translation': [((0, 1), 0, 2, (6, 7)), ((2, 3), 2, 3, (2, 3)),
+                    ((4, 5), 4, 4, (4, 5)), ((6, 7), 6, 5, (6, 7)),
+                    ((2, 3), -1, -1, (-1, -1)), ((4, 5), -1, -1, (-1, -1)),
+                    ((6, 7), -1, -1, (-1, -1)), _NONE,
+                    ((0, 1), -1, -1, (-1, -1))],
+    'se3': [((0, -1), -1, -1, (-1, -1)), ((1, 2), 0, 3, (6, 7)),
+            ((3, 4), 2, 4, (2, 3)), ((5, 6), 4, 5, (4, 5)),
+            ((7, 1), 6, 6, (6, 7)), ((2, 3), -1, -1, (-1, -1)),
+            ((4, 5), -1, -1, (-1, -1)), ((6, 7), -1, -1, (-1, -1)),
+            ((1, -1), -1, -1, (-1, -1))],
+}
+
+
+def _warp_field(warp: str) -> str:
+    return 'translation' if warp == 'translation' else 'se3'
+
+
+def fields_bwd_loads(warp: str, shapes):
+    """[(layer, box of K, box rows)]: a block tile's weight loads in the
+    producer's (and the consumers') order: the sheet's six hidden layers
+    forward, then backward, then the warp's (the SE(3) trunk's seven)."""
+    h0 = 7 if warp == 'translation' else 9
+    nw = 6 if warp == 'translation' else 7
+    order = ([h0 + i for i in range(6)] + [h0 + i for i in range(5, -1, -1)]
+             + list(range(nw)) + list(range(nw - 1, -1, -1)))
+    return [(l, kb, min(shapes[l][0], FB_STAGE_BYTES // 128))
+            for l in order for kb in range(-(-shapes[l][1] // 64))]
+
+
+def fields_bwd_plan(warp: str, shapes):
+    """The compiled plan's fields (``hn_fused_fields_bwd_plan``): config,
+    table (the sheet's buffer plan, then the warp field's, six ints a
+    buffer) and loads."""
+    config = [FB_TILE_ROWS, FB_GROUPS, FB_STAGES, FB_STAGE_BYTES,
+              FB_SMEM_BYTES, FB_THREADS, FB_SLOTS, FB_SPILL_SLABS,
+              FB_GRAD_COPIES]
+    table = [v for field in ('sheet', _warp_field(warp))
+             for fwd, spill, after, reload in FB_PLANS[field]
+             for v in (*fwd, spill, after, *reload)]
+    return dict(config=config, table=table,
+                loads=fields_bwd_loads(warp, shapes))
+
+
+def compiled_fields_bwd_plan(warp: str = 'translation'):
+    """``fields_bwd_plan``'s fields as the compiled kernel reports them
+    (``hn_fused_fields_bwd_plan``)."""
+    config = (ctypes.c_int * 9)()
+    table = (ctypes.c_int * (2 * 6 * len(FB_BUFS)))()
+    max_loads = 256
+    loads = (ctypes.c_int * (3 * max_loads))()
+    n = build.library().hn_fused_fields_bwd_plan(
+        common.WARP_CODES[warp], ctypes.addressof(config),
+        ctypes.addressof(table), ctypes.addressof(loads), max_loads)
+    if not 0 <= n <= max_loads:
+        raise RuntimeError(f'hn_fused_fields_bwd_plan: {n} loads')
+    return dict(config=list(config), table=list(table),
+                loads=[tuple(loads[3 * i:3 * i + 3]) for i in range(n)])
+
+
+def fields_bwd_grad_copies(shapes, device):
+    """Kernel B's zeroed fp32 gradient buffers, (FB_GRAD_COPIES, [dW | db]
+    of ``shapes`` in the packed layout), and the length of the dW part;
+    their sum over the first dimension is the gradient."""
+    n_w = sum(n * k for n, k in shapes)
+    n_b = sum(n for n, _ in shapes)
+    return torch.zeros((FB_GRAD_COPIES, n_w + n_b), dtype=torch.float32,
+                       device=device), n_w
+
+
+def fields_bwd_stream_bytes(warp: str, shapes, n_points: int) -> int:
+    """Weight bytes one call of kernel B reads from L2: each block tile
+    reads its loads' in-bounds bytes once."""
+    tiles = -(-n_points // FB_TILE_ROWS)
+    return tiles * sum(2 * rows * min(64, shapes[l][1] - 64 * kb)
+                       for l, kb, rows in fields_bwd_loads(warp, shapes))
 
 
 def _launch_forward(level: Level, z_vals, origins, directions, embed,
@@ -463,32 +566,41 @@ fused_fields_bwd_plain.calls = 0
 def fused_fields_bwd(level: Level, z_vals, origins, directions, embed, dx_t,
                      warp_scales=None):
     """Fields backward (see ``fused_fields_bwd_plain``): CPU tensors take
-    the plain version, CUDA tensors launch the kernel or raise."""
+    the plain version, CUDA tensors launch kernel B (``csrc/fields_bwd.cuh``,
+    whose plan ``fields_bwd_plan`` models) or raise. The kernel reads the
+    level's one weight blob (``pack_level``) and spills the warp field's
+    first layer outputs to a per-block scratch it is given."""
     if common.runs_plain(z_vals, 'fused_fields_bwd'):
         return fused_fields_bwd_plain(level, z_vals, origins, directions,
                                       embed, dx_t, warp_scales)
     w_blob, b_blob, shapes = pack_level(level)
-    wt_blob, _, _ = pack_level(level, transposed=True)
     dev, f32 = z_vals.device, torch.float32
     code, scales = _warp_launch_args(level, shapes, warp_scales, dev)
     r, s = z_vals.shape
     _check_ray_inputs(z_vals, origins, directions, embed)
     build.check_tensor('dx_t', dx_t, (r * s, RAW_T_PAD), f32, dev)
     nf = _n_field_layers(level)
-    blocks = build.library().hn_fused_fields_bwd_blocks(r * s)
+    with torch.cuda.device(dev):
+        blocks = build.library().hn_fused_fields_bwd_blocks(r * s)
+    if blocks <= 0:
+        raise RuntimeError('hn_fused_fields_bwd_blocks: no device')
     d_z = torch.empty((r, s), dtype=f32, device=dev)
     # [d origins (3) | d directions (3) | d embed (8)] per ray, added to by
     # every tile that holds samples of the ray.
     d_ray = torch.zeros((r, 6 + FLAGSHIP['embed']), dtype=f32, device=dev)
-    # [dW | db] in the packed layout; every block adds its tiles' into it.
-    grads, n_w = common.grad_buffer(shapes[:nf], dev)
+    # [dW | db] in the packed layout; every block adds its tiles' into one
+    # of the copies.
+    grads, n_w = fields_bwd_grad_copies(shapes[:nf], dev)
+    # The per-block slabs the plan spills the warp's first layers to.
+    scratch = torch.empty((blocks * FB_SPILL_SLABS * FB_SLAB_BYTES,),
+                          dtype=torch.uint8, device=dev)
     common.launch('hn_fused_fields_bwd', dev, code, z_vals.data_ptr(),
                   origins.data_ptr(), directions.data_ptr(), embed.data_ptr(),
                   dx_t.data_ptr(), _ptr(scales), w_blob.data_ptr(),
-                  wt_blob.data_ptr(),
                   b_blob.data_ptr(), d_z.data_ptr(), d_ray.data_ptr(),
-                  grads.data_ptr(), r, s, blocks)
+                  grads.data_ptr(), scratch.data_ptr(), r, s, blocks)
     fused_fields_bwd.launches += 1
+    grads = grads.sum(0)
     layers = level_layers(level)[:nf]
     return (d_z, d_ray[:, :3].contiguous(), d_ray[:, 3:6].contiguous(),
             d_ray[:, 6:].contiguous(),

@@ -462,23 +462,21 @@ def test_optimizer_step_repacks_cached_weights(impl):
         return
     make_train_step(model, opt, model.config, TrainConfig(), 'cpu')
     w0, b0, _ = pack_level(level)
-    wt0, _, _ = pack_level(level, transposed=True)
     assert pack_level(level)[0] is w0
-    assert pack_level(level, transposed=True)[0] is wt0
     for p in model.parameters():
         p.grad = torch.ones_like(p)
     opt.step()
     w1, b1, shapes = pack_level(level)
-    wt1, _, _ = pack_level(level, transposed=True)
     assert w1 is not w0 and not torch.equal(w1, w0)
-    assert not torch.equal(b1, b0) and not torch.equal(wt1, wt0)
+    assert not torch.equal(b1, b0)
     fresh = pack_level(copy.deepcopy(model).level('coarse'))
     assert torch.equal(w1, fresh[0]) and torch.equal(b1, fresh[1])
     at = 0
-    for n, k in shapes:  # the transposed blob is each layer transposed
-        assert torch.equal(wt1[at:at + n * k].view(k, n),
-                           w1[at:at + n * k].view(n, k).t())
+    for (n, k), (w, _) in zip(shapes, level.template._packed_level['packed']):
+        # the blob is each layer's packed (n_pad, k_pad) weight in turn
+        assert torch.equal(w1[at:at + n * k].view(n, k), w)
         at += n * k
+    assert at == w1.numel()
 
 
 # -- the SE(3) and quaternion warps --------------------------------------------
