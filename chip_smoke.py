@@ -4,8 +4,8 @@
 Phases, one line each; any failure ends the run with a non-zero exit:
   1. a CUDA card (else exit 1); its name and power limit from nvidia-smi;
   2. build the kernels from kernels/csrc with nvcc (sm_90a), with the time
-     and ptxas's registers and spills (the level forward's and kernel B's
-     on lines of their own);
+     and ptxas's registers and spills (the level forward's, kernel B's and
+     the per-module forwards' on lines of their own);
   3. the level kernel at the flagship widths and at probe weights whose
      warp and hyper heads are large enough that those 14 layers move the
      output: against the JAX kernel's stored outputs (tests/data), and
@@ -50,7 +50,9 @@ Phases, one line each; any failure ends the run with a non-zero exit:
      loss on a fixed batch falls; before those steps, one step on a small
      explicit batch with the kernels and one with the plain versions (through
      the same autograd Functions) from the initial state, compared;
-  8. the kernels of the per-module path (a field alone, forward and
+  8. the kernels of the per-module path (the forwards are the level
+     forward's stages run alone on its block: each one's compiled plan
+     against its model in kernels/fused_level.py; a field alone, forward and
      backward, as the warp field and as the hyper sheet, with and without a
      window row; the template alone, forward, with 128, 64, 13 and 1 rows per
      condition row, with and without hyper coordinates, up to the train
@@ -59,10 +61,12 @@ Phases, one line each; any failure ends the run with a non-zero exit:
      condition row): against the
      JAX kernels' stored outputs and gradients at the probe weights
      (tests/data), against their plain versions at small odd sizes and at
-     8192 x 128 and 16384 x 128 rows, which are also timed, and against the
-     level kernels (warp field, sheet and template kernels chained give the
-     level kernel's output; the field backward twice on the template
-     backward's dx_t gives the fields backward's gradients);
+     8192 x 128 and 16384 x 128 rows, which are also timed (each forward
+     with its share of the bound and its time before the redesign), and
+     against the level kernels (warp field, sheet and template kernels
+     chained give the level kernel's output bit for bit; the field backward
+     twice on the template backward's dx_t gives the fields backward's
+     gradients);
   9. the per-module path at full width: ``static`` (a plain NeRF) renders a
      504x378 frame and trains at batch 16384; ``split_glo`` (two GLO tables)
      renders a frame with ``return_points``, trains at batch 16384 and
@@ -1167,6 +1171,43 @@ def plain_template(tmpl, x_raw, rgb_cond):
         for r0 in range(0, rgb_cond.shape[0], step)])
 
 
+# The per-module forward kernels (a field alone, the template alone): the
+# level forward's stages run alone on its block.
+MODULAR_FWD_SOURCES = ('modular_fwd.cu', 'level_fwd.cuh')
+# Their times before the redesign (the mma.sync kernels; PERF.md rows 8 and
+# 10), ms: the warp field and the sheet at 8192 x 128 rows, the template at
+# R = 8192, S = 128.
+EARLIER_MODULAR_MS = {'warp': 1.690, 'sheet': 0.877, 'template': 8.802}
+
+
+def modular_stage_plans(probe) -> None:
+    """Phase 8: each per-module kernel's compiled plan (the stage's layers,
+    tile, ring, column plan, weight loads) against its model
+    (``fused_level.stage_plan``) over the module's own packed blob."""
+    import importlib
+    from hypernerf_tpu_torch.kernels import common
+    from hypernerf_tpu_torch.kernels.fused_field import field_layers
+    from hypernerf_tpu_torch.kernels.fused_mlp import template_layers
+    fl = importlib.import_module('hypernerf_tpu_torch.kernels.fused_level')
+    template = probe.level('fine').template
+    owners = {'warp': (probe.warp_field.mlp,
+                       field_layers(probe.warp_field.mlp)),
+              'sheet': (probe.hyper_sheet_mlp.mlp,
+                        field_layers(probe.hyper_sheet_mlp.mlp)),
+              'template': (template, template_layers(template, enc_pad=128))}
+    loads = {}
+    for stage, (owner, layers) in owners.items():
+        shapes = common.pack_layers(owner, layers)[2]
+        got = fl.compiled_stage_plan(stage)
+        want = fl.stage_plan(stage, shapes)
+        if got != want:
+            raise AssertionError(f'{stage}: the compiled plan is not its '
+                                 f'model: {got} vs {want}')
+        loads[stage] = len(got['loads'])
+    phase(f'[8] per-module plans (compiled = model): weight loads a step of '
+          f'tiles {loads}')
+
+
 def modular_kernel_phase():
     """Phase 8; returns the entries of the three kernels of the per-module
     path (times and bounds: the warp field, the flagship template)."""
@@ -1187,6 +1228,7 @@ def modular_kernel_phase():
               for c in ('flagship', 'static')}
     probe = probes['flagship']
     fields = {'warp': probe.warp_field, 'sheet': probe.hyper_sheet_mlp}
+    modular_stage_plans(probe)
 
     def tmpl(config, level):
         cfg = probes[config].config
@@ -1340,9 +1382,16 @@ def modular_kernel_phase():
             want, want_raw_t = _launch_forward(lv, *args, want_raw_t=True)
             hold_level(raw_t, want_raw_t, f'field kernels vs the level '
                        f'kernel R=512 S={s}: raw_t', '[8]')
-            hold_level(K.fused_template(lv, raw_t, args[4]), want,
-                       f'field + template kernels vs the level kernel R=512 '
-                       f'S={s}: out', '[8]')
+            chained = K.fused_template(lv, raw_t, args[4])
+            hold_level(chained, want, f'field + template kernels vs the '
+                       f'level kernel R=512 S={s}: out', '[8]')
+            # They run the level kernel's own stage functions on its block.
+            same = (torch.equal(raw_t, want_raw_t), torch.equal(chained, want))
+            phase(f'[8] chained kernels vs the level kernel R=512 S={s}: bit '
+                  f'for bit (raw_t, out) {same}')
+            if not all(same):
+                raise AssertionError('the chained stage kernels differ from '
+                                     'the level kernel')
             g = torch.randn(512 * s, 4, generator=gen).cuda()
             dx_t, _, _ = K.fused_template_bwd(lv, want_raw_t, args[4], g)
             want_b = K.fused_fields_bwd(lv, *args[:4], dx_t)
@@ -1367,13 +1416,17 @@ def modular_kernel_phase():
     # (backward), P = R x 128 rows: one multiply-add per weight and row
     # forward, three backward; bytes are the rows in and out and the weights
     # (and dW) once. The template forward at R = CHUNK, S = 128.
-    w_macs = sum(lin.weight.numel()
-                 for lin, _ in field_layers(fields['warp'].mlp))
+    macs = {name: sum(lin.weight.numel() for lin, _ in
+                      field_layers(field.mlp))
+            for name, field in fields.items()}
     t_macs = level_macs(probe.level('fine'))[1]
     p_r, p_t = CHUNK * 128, TRAIN_RAYS * 128
-    f_ms, f_by = bound(2.0 * w_macs * p_r, p_r * (44 + 32) + 2 * w_macs)
-    b_ms, b_by = bound(6.0 * w_macs * p_t,
-                       p_t * (44 + 32 + 44) + 6 * w_macs)
+    f_bound = {name: bound(2.0 * m * p_r, p_r * (44 + 32) + 2 * m)
+               for name, m in macs.items()}
+    bwd_bound = {name: bound(6.0 * m * p_t, p_t * (44 + 32 + 44) + 6 * m)
+                 for name, m in macs.items()}
+    f_ms, f_by = f_bound['warp']
+    b_ms, b_by = bwd_bound['warp']
     t_ms, t_by = bound(2.0 * t_macs * p_r,
                        p_r * (32 + 16) + CHUNK * 78 + 2 * t_macs)
     src = 'hypernerf_tpu_torch/kernels/csrc/'
@@ -1381,15 +1434,24 @@ def modular_kernel_phase():
                  f'{LEVEL_MEAN}')
     warp_r, warp_t = times['warp', p_r], times['warp', p_t]
     sheet_r, sheet_t = times['sheet', p_r], times['sheet', p_t]
+    for name, ms, (bms, _) in (
+            ('warp field', warp_r['fwd'], f_bound['warp']),
+            ('sheet', sheet_r['fwd'], f_bound['sheet']),
+            ('template', times['flagship', CHUNK, 128][0], (t_ms, t_by))):
+        earlier = EARLIER_MODULAR_MS[name.split()[0]]
+        phase(f'[8] {name} forward at {p_r} rows: {ms:.3f} ms, '
+              f'{100 * bms / ms:.1f} % of its bound {bms:.4f} ms; '
+              f'{earlier:.3f} ms before the redesign (PERF.md)')
     return [
         dict(name='fused_field_fwd', route='cuda',
-             source=src + 'fused_field.cu',
+             source=', '.join(src + f for f in MODULAR_FWD_SOURCES),
              replaces='hypernerf_tpu/ops/pallas/fused_field.py:495',
              max_abs_err=max(errs['field_fwd']), tolerance=level_tol,
              ms=warp_r['fwd'], plain_ms=warp_r['plain_fwd'], bound_ms=f_ms,
              bound_by=f_by, library_ms=None, shape=f'warp field, P={p_r}',
              warp_ms_train_rows=warp_t['fwd'], sheet_ms=sheet_r['fwd'],
              sheet_plain_ms=sheet_r['plain_fwd'],
+             sheet_bound_ms=f_bound['sheet'][0],
              sheet_ms_train_rows=sheet_t['fwd']),
         dict(name='fused_field_bwd', route='cuda',
              source=src + 'fused_field_bwd.cu',
@@ -1397,15 +1459,18 @@ def modular_kernel_phase():
              **error_keys(errs['field_bwd']), ms=warp_t['bwd'],
              plain_ms=warp_t['plain_bwd'], bound_ms=b_ms, bound_by=b_by,
              library_ms=None, shape=f'warp field, P={p_t}',
-             sheet_ms=sheet_t['bwd'], sheet_plain_ms=sheet_t['plain_bwd']),
+             sheet_ms=sheet_t['bwd'], sheet_plain_ms=sheet_t['plain_bwd'],
+             sheet_bound_ms=bwd_bound['sheet'][0]),
         dict(name='fused_template_fwd', route='cuda',
-             source=src + 'fused_template.cu',
+             source=', '.join(src + f for f in MODULAR_FWD_SOURCES),
              replaces='hypernerf_tpu/ops/pallas/fused_mlp.py:656',
              max_abs_err=max(errs['template_fwd']), tolerance=level_tol,
              ms=times['flagship', CHUNK, 128][0],
              plain_ms=times['flagship', CHUNK, 128][1], bound_ms=t_ms,
              bound_by=t_by, library_ms=None, shape=f'R={CHUNK} S=128',
              ms_s64=times['flagship', CHUNK, 64][0],
+             ms_r16384=times['flagship', TRAIN_RAYS, 128][0],
+             ms_r16384_s64=times['flagship', TRAIN_RAYS, 64][0],
              static_ms=times['static', CHUNK, 128][0],
              ms_one_row_per_ray_2_20_rows=times['flagship', 1 << 20, 1][0],
              static_template_bwd_ms=times['A', 'static'],
@@ -2296,6 +2361,8 @@ def main() -> int:
           f'{ptxas_lines(build.build_log(), LEVEL_FWD_SOURCES)}')
     phase(f'[2] fields backward, kernel B (the same): '
           f'{ptxas_lines(build.build_log(), FIELDS_BWD_SOURCES)}')
+    phase(f'[2] per-module forwards (the same): '
+          f'{ptxas_lines(build.build_log(), MODULAR_FWD_SOURCES)}')
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False

@@ -524,15 +524,15 @@ __device__ __forceinline__ void encode_trunk(Ctx& c,
     const int r = e / kSe3Trig, b = e % kSe3Trig;
     float sn, cs;
     sincosf(se3_band_arg(in[r], b), &sn, &cs);
-    lf::sts16(lf::x_at(box, r, b), se3_feature(sn, b, scales));
+    lf::sts16(lf::x_at(box, r, b), window_feature(sn, b, scales));
     lf::sts16(lf::x_at(box, r, kSe3Trig + b),
-              se3_feature(cs, kSe3Trig + b, scales));
+              window_feature(cs, kSe3Trig + b, scales));
   }
   for (int e = c.tid; e < kRows * kRest; e += 128) {
     const int r = e / kRest, f = e % kRest;
     const float v = f < kEmbed ? in[r][3 + f] : 0.f;
     lf::sts16(lf::x_at(box, r, 2 * kSe3Trig + f),
-              se3_feature(v, 2 * kSe3Trig + f, scales));
+              window_feature(v, 2 * kSe3Trig + f, scales));
   }
 }
 
@@ -1197,17 +1197,9 @@ int launch_fields_bwd(const void* z, const void* origins, const void* dirs,
   }
   if (n_points <= 0 || blocks <= 0) return (int)cudaErrorInvalidValue;
   lf::Maps<T> maps;
-  const bf16* w = static_cast<const bf16*>(weights);
-  for (int l = 0; l < T::kNum; ++l) {
-    if (lf::map_first<T>(l) != l) continue;
-    int count = 1;
-    while (l + count < T::kNum && lf::same_shape<T>(l, l + count)) ++count;
-    const Shape s = T::shape(l);
-    status = cached_tensor_map(&maps.m[lf::map_index<T>(l)],
-                               w + weight_offset<T>(l), (long long)count * s.n,
-                               s.k, s.k, lf::box_rows(s));
-    if (status) return status;
-  }
+  status = lf::make_maps<T>(&maps, static_cast<const bf16*>(weights), 0,
+                            T::kNum);
+  if (status) return status;
   fields_bwd_kernel<kWarp><<<blocks, kThreads, kSmemBytes,
                              (cudaStream_t)stream>>>(
       maps, static_cast<const float*>(z), static_cast<const float*>(origins),

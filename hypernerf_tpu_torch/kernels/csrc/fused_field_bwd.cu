@@ -2,7 +2,7 @@
 //
 // Replaces hypernerf_tpu/ops/pallas/fused_field.py `_fused_bwd` (:532, the
 // tile body `_backward_tile_gen` :379-417 with the posenc VJP `_encode_bwd_gen`
-// :233-266) for the two fields fused_field.cu computes.
+// :233-266) for the two fields modular_fwd.cu computes.
 //
 // In:  x_raw (P, 11) fp32 [pts | embed] per sample, the optional window row,
 //      g (P, 8) fp32 = d[output | 0], the field's packed bf16 weights, their

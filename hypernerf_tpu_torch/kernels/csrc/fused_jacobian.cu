@@ -20,7 +20,8 @@
 // Bound: 100,480 multiply-adds per sample and row block, four row blocks,
 // against 44 + 36 bytes moved per sample, so operations bound it (262,144
 // samples: 0.21 ms at the card's bf16 peak).
-// Design: fused_field.cu's plan h_a | enc | h_b on 16 points (64 rows, the
+// Design: a tile h_a | enc | h_b (two hidden ranges taken in turns, the
+// encoding between them) on 16 points (64 rows, the
 // four blocks), mma.sync m16n8k16 with the weights from L2, one weight
 // fragment per k-step for all four blocks; the ReLU mask of a tangent element
 // comes from the same thread's primal accumulator. Two blocks fit an SM.

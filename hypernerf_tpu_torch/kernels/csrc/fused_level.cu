@@ -20,46 +20,18 @@ extern "C" int hn_fused_level_layout(int warp_type, int* n, int* k,
   return count;
 }
 
-namespace {
-
-template <class T>
-int level_fwd_plan(int* config, int* in_cols, int* loads, int max_loads) {
-  const int c[] = {lf::kRows,       lf::kGroups,     lf::kStages,
-                   lf::kStageBytes, lf::kSmemBytes,  lf::kThreads,
-                   lf::kCols,       lf::map_count<T>()};
-  for (int i = 0; i < 8; ++i) config[i] = c[i];
-  int n = 0;
-  for (int l = 0; l < T::kNum; ++l) {
-    in_cols[l] = lf::in_col<T>(l);
-    const Shape s = T::shape(l);
-    for (int kb = 0; kb < lf::k_boxes(s); ++kb)
-      for (int nb = 0; nb < lf::n_halves(s); ++nb, ++n)
-        if (n < max_loads) {
-          loads[4 * n] = l;
-          loads[4 * n + 1] = kb;
-          loads[4 * n + 2] = nb;
-          loads[4 * n + 3] = lf::box_rows(s);
-        }
-  }
-  return n;
-}
-
-}  // namespace
-
-// The forward's plan for warp type `warp_type`: config[0:8] = rows of a
-// warpgroup's tile, consumer warpgroups, ring stages, bytes of a stage,
-// dynamic shared memory, threads, tile columns, tensor maps; in_cols[l] =
-// the first tile column of layer l's input; loads[4 i : 4 i + 4] = (layer,
-// 64-column box of K, 128-row half of N, box rows) of the i-th weight load
-// of one pair of row tiles, in the order the producer issues and the
-// consumers take them. Returns the number of loads (written up to
-// max_loads).
+// The forward's plan for warp type `warp_type` (lf::forward_plan over all
+// the level's layers): config[0:8], in_cols[l] for every layer l, and the
+// weight loads of one pair of row tiles. Returns the number of loads
+// (written up to max_loads).
 extern "C" int hn_fused_level_fwd_plan(int warp_type, int* config,
                                        int* in_cols, int* loads,
                                        int max_loads) {
   return warp_type == 0
-             ? level_fwd_plan<TransTable>(config, in_cols, loads, max_loads)
-             : level_fwd_plan<Se3Table>(config, in_cols, loads, max_loads);
+             ? lf::forward_plan<lf::LevelBlock, TransTable>(
+                   0, TransTable::kNum, config, in_cols, loads, max_loads)
+             : lf::forward_plan<lf::LevelBlock, Se3Table>(
+                   0, Se3Table::kNum, config, in_cols, loads, max_loads);
 }
 
 // warp_type: 0 translation, 1 SE(3), 2 quaternion; weights / biases in that

@@ -19,7 +19,7 @@
 //
 // Bound: 113,408 multiply-adds per sample against 76 bytes moved, so
 // operations bound it (1 M samples: 0.24 ms at the card's bf16 peak).
-// Design (as fused_field.cu): a block of 256 threads takes 64 rows and keeps
+// Design: a block of 256 threads takes 64 rows and keeps
 // their activations in one shared-memory tile h_a | enc | h_b; a layer reads
 // one column range and writes the other, as mma.sync m16n8k16 products with
 // the weights from L2 (level_bwd.cuh); the two heads run side by side on two

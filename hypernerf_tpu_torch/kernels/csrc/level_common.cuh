@@ -98,8 +98,6 @@ template <class T = TransTable>
 __host__ __device__ constexpr Shape layer_shape(int l) {
   return T::shape(l);
 }
-constexpr int kNumLayers = TransTable::kNum;
-constexpr int kNumFieldLayers = TransTable::kFields;
 
 template <class T = TransTable>
 __host__ __device__ constexpr long long weight_offset(int l) {

@@ -2,7 +2,9 @@
 // template and its launcher, instantiated once per warp type by
 // level_fwd_trans.cu, level_fwd_se3.cu and level_fwd_quat.cu (one nvcc
 // process each); fused_level.cu holds the entry point that dispatches to
-// them.
+// them. Its three stages (the warp, the sheet, the template) are device
+// functions on one block (enter_block), which modular_fwd.cu runs
+// one at a time for the per-module path: a field alone, the template alone.
 //
 // Replaces hypernerf_tpu/ops/pallas/fused_level.py `_fused` (forward,
 // fused_level.py:1322; `_fwd_call_pipelined`, :1019, is a schedule of the
@@ -81,17 +83,11 @@
 namespace {
 namespace lf {
 
-constexpr int kGroups = 2;                     // consumer warpgroups
-constexpr int kThreads = 128 * (kGroups + 1);  // + the producer warpgroup
-constexpr int kProducerRegs = 40, kConsumerRegs = 232;
 constexpr int kRows = 64;                      // rows of a warpgroup's tile
-constexpr int kCols = kTrunkW + kTmplEncP;     // 384 columns of the tile
 constexpr int kBoxBytes = kRows * 128;         // 64 rows x 64 bf16 columns
-constexpr int kXBytes = kCols / kBoxCols * kBoxBytes;  // 48 KB
 constexpr int kStageRows = 128;                // weight rows of a stage
 constexpr int kStageBytes = kStageRows * 128;  // 16 KB
 constexpr int kStages = 6;
-constexpr int kArrivals = 4 * kGroups;         // consumer warps per stage
 
 // Column plan of the tile (every K segment starts on a 64-column box):
 //   warp      h [0, 128)   enc [128, 208)   (SE(3): enc [128, 192))
@@ -126,10 +122,36 @@ static_assert(kBiasBytes % 16 == 0 &&
                   2 * bias_offset<TransTable>(TransTable::kNum) % 16 == 0,
               "the biases copy in 16-byte pieces");
 
-constexpr int kSmemBytes = 1024 + kGroups * kXBytes + kStages * kStageBytes +
-                           kGroups * (int)sizeof(Rows) + kBiasBytes +
-                           2 * kStages * 8;
-static_assert(kSmemBytes <= 232448, "fits an SM's shared memory");
+// A block's shape: G consumer warpgroups, each with its own tile of kRows
+// rows x XC columns (XC / 64 boxes), and the producer warpgroup;
+// `setmaxnreg` moves registers from the producer to the consumers. The
+// level, and the template alone, run LevelBlock; a field alone reads and
+// writes fewer columns, so more tiles fit a block (modular_fwd.cu).
+// setmaxnreg only moves registers within the block's allocation at launch,
+// which is kThreads x kEntryRegs (ptxas gives a kernel that uses setmaxnreg
+// all that its launch bounds allow): a consumer count past that waits for
+// registers that never come (a G = 4 block at 112 consumer registers did,
+// until its bounded wait trapped).
+template <int G, int XC>
+struct Block {
+  static constexpr int kGroups = G, kCols = XC;
+  static constexpr int kThreads = 128 * (G + 1);
+  static constexpr int kEntryRegs = 65536 / kThreads / 8 * 8;
+  static constexpr int kXBytes = XC / kBoxCols * kBoxBytes;
+  static constexpr int kArrivals = 4 * G;  // consumer warps per stage
+  static constexpr int kProducerRegs = G == 3 ? 56 : 40;
+  static constexpr int kConsumerRegs = G == 2 ? 232 : G == 3 ? 152 : 104;
+  static constexpr int kSmemBytes = 1024 + G * kXBytes +
+                                    kStages * kStageBytes +
+                                    G * (int)sizeof(Rows) + kBiasBytes +
+                                    2 * kStages * 8;
+  static_assert(G >= 2 && G <= 4 && XC % kBoxCols == 0, "a block's shape");
+  static_assert(kSmemBytes <= 232448, "fits an SM's shared memory");
+  static_assert(G * kConsumerRegs + kProducerRegs <= (G + 1) * kEntryRegs,
+                "fits the block's registers");
+};
+using LevelBlock = Block<2, kTrunkW + kTmplEncP>;  // 384 columns
+constexpr int kMaxGroups = 4;
 
 // The layer table of warp type kWarp (0 translation, 1 SE(3), 2 quaternion).
 template <int kWarp>
@@ -220,10 +242,40 @@ __device__ __forceinline__ void produce_layer(const Maps<T>& maps, R& ring) {
     }
 }
 
-template <class T, int... L>
+// The loads of layers L0, L0 + 1, ... of one pair of row tiles: the stage's
+// (or the level's) layers in order.
+template <class T, int L0, int... I>
 __device__ __forceinline__ void produce_tile(const Maps<T>& maps, Ring& ring,
-                                             std::integer_sequence<int, L...>) {
-  (produce_layer<T, L>(maps, ring), ...);
+                                             std::integer_sequence<int, I...>) {
+  (produce_layer<T, L0 + I>(maps, ring), ...);
+}
+
+// Whether layers [first, last) are whole runs of the tensor maps, so that a
+// kernel that runs them alone finds each of its maps starting at a run.
+template <class T>
+__host__ __device__ constexpr bool whole_runs(int first, int last) {
+  return map_first<T>(first) == first &&
+         (last == T::kNum || map_first<T>(last) == last);
+}
+
+// The maps of layers [first, last) over a blob w that starts at layer
+// `first` (the level's blob: first = 0; a stage's own blob: its first
+// layer); whole_runs(first, last) must hold. A kernel that runs those
+// layers alone reads no other map.
+template <class T>
+int make_maps(Maps<T>* maps, const bf16* w, int first, int last) {
+  for (int l = first; l < last; ++l) {
+    if (map_first<T>(l) != l) continue;
+    int count = 1;
+    while (l + count < last && same_shape<T>(l, l + count)) ++count;
+    const Shape s = T::shape(l);
+    const int status = cached_tensor_map(
+        &maps->m[map_index<T>(l)],
+        w + weight_offset<T>(l) - weight_offset<T>(first),
+        (long long)count * s.n, s.k, s.k, box_rows(s));
+    if (status) return status;
+  }
+  return 0;
 }
 
 // -- the consumers -------------------------------------------------------------
@@ -273,7 +325,7 @@ __device__ __forceinline__ float pow2(int k) {
 // retired, the epilogue done (tools/trace_level_fwd.py reads them).
 #ifdef HN_LEVEL_FWD_TRACE
 constexpr int kTracePairs = 4;
-__device__ long long level_fwd_trace[kGroups][kTracePairs][32][4];
+__device__ long long level_fwd_trace[kMaxGroups][kTracePairs][32][4];
 #define LF_TRACE(g, L, ev)                                      \
   if (blockIdx.x == 0 && (g).it < kTracePairs && (g).tid == 0) \
   level_fwd_trace[(g).bar - 1][(g).it][L][ev] = clock64()
@@ -448,28 +500,56 @@ __device__ __forceinline__ void row_inputs(const Group& g, long long row0,
   }
 }
 
-// [posenc_orig(x, F) | extra | 0 pad] of CH channels x = src[r][0 : CH]
-// into X[:, col : col + KP]: identity, sin and cos of band k of channel c
-// at k * CH + c (argument x * 2^k, exact), then NX columns src[r][CH : CH +
-// NX] (the embedding), then zeros.
-template <int CH, int F, int NX, int KP, int LD>
-__device__ __forceinline__ void encode_posenc(const Group& g, int col,
-                                              const float (*src)[LD]) {
+// A field's encoding gives each row two threads: thread r and thread r +
+// 64 of the warpgroup, H = 0 and 1, take alternate columns of row r, so a
+// warp runs one H and its loops have compile-time bounds and strides. The
+// loops stay rolled: on an H100 80GB HBM3 at 700 W
+// (tools/time_modular_fwd.py), unrolled in full they made the fields 3 %
+// faster but the level forward 10 % slower (its code grew), and the same
+// layout for the template's encoding made the template 5 to 11 % slower,
+// so the template keeps its loop over the tile's elements.
+// Thread H of row r: pairs q = H, H + 2, ... of posenc_orig over CH
+// channels x[0 : CH] (the row of the warpgroup's Rows) and F bands (band q
+// / CH of channel q % CH, argument x * 2^band, exact), sin at tile column
+// COL + CH + q and cos at COL + CH + CH F + q; then its columns f = H, H +
+// 2, ... of the rest (identity f < CH, then the NX extras x[CH : CH + NX],
+// then zeros). Each feature goes through window_feature with the window
+// weight of its column in the encoding.
+template <int CH, int F, int NX, int KP, int COL, int H>
+__device__ __forceinline__ void posenc_row(const Group& g, int r,
+                                           const float* x,
+                                           const float* __restrict__ scales) {
   constexpr int kPairs = CH * F, kRest = KP - 2 * kPairs;
-#pragma unroll 4
-  for (int e = g.tid; e < kRows * kPairs; e += 128) {
-    const int r = e / kPairs, q = e % kPairs;
+#pragma unroll 1
+  for (int q = H; q < kPairs; q += 2) {
     float sn, cs;
-    sincosf(src[r][q % CH] * pow2(q / CH), &sn, &cs);
-    sts16(x_at(g.xs, r, col + CH + q), __float2bfloat16_rn(sn));
-    sts16(x_at(g.xs, r, col + CH + kPairs + q), __float2bfloat16_rn(cs));
+    sincosf(x[q % CH] * pow2(q / CH), &sn, &cs);
+    sts16(x_at(g.xs, r, COL + CH + q), window_feature(sn, CH + q, scales));
+    sts16(x_at(g.xs, r, COL + CH + kPairs + q),
+          window_feature(cs, CH + kPairs + q, scales));
   }
-  for (int e = g.tid; e < kRows * kRest; e += 128) {
-    const int r = e / kRest, f = e % kRest;
+#pragma unroll 1
+  for (int f = H; f < kRest; f += 2) {
     const int c = f < CH ? f : f + 2 * kPairs;
-    const float v = f < CH + NX ? src[r][f] : 0.f;
-    sts16(x_at(g.xs, r, col + c), __float2bfloat16_rn(v));
+    const float v = f < CH + NX ? x[f] : 0.f;
+    sts16(x_at(g.xs, r, COL + c), window_feature(v, c, scales));
   }
+}
+
+// [posenc_orig(x, F) | extra | 0 pad] of CH channels x = src[r][0 : CH]
+// into X[:, COL : COL + KP]: identity, sin and cos of band k of channel c
+// at k * CH + c (argument x * 2^k, exact), then NX columns src[r][CH : CH +
+// NX] (the embedding), then zeros. scales: null (the level), or a field's
+// window row over the KP columns (window_feature).
+template <int CH, int F, int NX, int KP, int COL, int LD>
+__device__ __forceinline__ void encode_posenc(
+    const Group& g, const float (*src)[LD],
+    const float* __restrict__ scales) {
+  const int r = g.tid & (kRows - 1);
+  if (g.tid < kRows)
+    posenc_row<CH, F, NX, KP, COL, 0>(g, r, src[r], scales);
+  else
+    posenc_row<CH, F, NX, KP, COL, 1>(g, r, src[r], scales);
 }
 
 // The template's encoding [posenc_orig(warped, 10) | posenc_orig(hyper, 6) |
@@ -524,15 +604,15 @@ __device__ __forceinline__ void encode_se3_tile(
     const int r = e / kSe3Trig, b = e % kSe3Trig;
     float sn, cs;
     sincosf(se3_band_arg(in[r], b), &sn, &cs);
-    sts16(x_at(g.xs, r, kWarpEnc + b), se3_feature(sn, b, scales));
+    sts16(x_at(g.xs, r, kWarpEnc + b), window_feature(sn, b, scales));
     sts16(x_at(g.xs, r, kWarpEnc + kSe3Trig + b),
-          se3_feature(cs, kSe3Trig + b, scales));
+          window_feature(cs, kSe3Trig + b, scales));
   }
   for (int e = g.tid; e < kRows * kRest; e += 128) {
     const int r = e / kRest, f = e % kRest;
     const float v = f < kEmbed ? in[r][3 + f] : 0.f;
     sts16(x_at(g.xs, r, kWarpEnc + 2 * kSe3Trig + f),
-          se3_feature(v, 2 * kSe3Trig + f, scales));
+          window_feature(v, 2 * kSe3Trig + f, scales));
   }
 }
 
@@ -549,8 +629,207 @@ __device__ __forceinline__ void load_condition(const Group& g,
   }
 }
 
+// Steps of B::kGroups 64-row tiles (pairs, in the level's block) that
+// cover n_points rows, and the first row of warpgroup g's tile of step
+// `pair`.
+template <class B>
+__host__ __device__ __forceinline__ long long tile_steps(
+    long long n_points) {
+  return ((n_points + kRows - 1) / kRows + B::kGroups - 1) / B::kGroups;
+}
+template <class B>
+__device__ __forceinline__ long long first_row(const Group& g,
+                                               long long pair) {
+  return (pair * B::kGroups + g.bar - 1) * kRows;
+}
+
+// -- the stages ---------------------------------------------------------------
+// The level's three stages are runs of its layer table: the warp (layers
+// [0, T::kWarp)), the sheet ([T::kWarp, T::kFields)) and the template
+// ([T::kFields, T::kNum)). The level kernel calls them in turn; the
+// per-module kernels (modular_fwd.cu) call one alone, with its own row
+// inputs and outputs. A stage reads its rows from the warpgroup's Rows and
+// leaves its outputs there.
+
+// A field (layers L0 .. L0 + 6 of T: posenc_orig of rows.in's points over F
+// bands and the embedding, at the tile column in_col(L0); six hidden
+// layers; an 8-wide head) on the tile: the head's first n_out fp32 outputs
+// of row r go to dst[8 r + c]. scales: null, or the window row.
+template <class T, int L0, int F>
+__device__ __forceinline__ void field_stage(const Group& g, Ring& ring,
+                                            const bf16* Bs,
+                                            const float* __restrict__ scales,
+                                            float* dst, int n_out) {
+  encode_posenc<3, F, kEmbed, T::shape(L0).k, in_col<T>(L0)>(g, g.rows->in,
+                                                             scales);
+  fence_async_smem();
+  g.sync();
+  hidden<T, L0 + 0, true>(g, ring, Bs);
+  hidden<T, L0 + 1, true>(g, ring, Bs);
+  hidden<T, L0 + 2, true>(g, ring, Bs);
+  hidden<T, L0 + 3, true>(g, ring, Bs);
+  hidden<T, L0 + 4, true>(g, ring, Bs);
+  hidden<T, L0 + 5, true>(g, ring, Bs);
+  head<T, L0 + 6>(g, ring, Bs, dst, 8, n_out);
+}
+
+// The translation warp: rows.raw[:, 0:3] = warped = pts + WarpMLP(...).
+template <class T>
+__device__ __forceinline__ void translation_stage(const Group& g, Ring& ring,
+                                                  const bf16* Bs) {
+  Rows& rw = *g.rows;
+  field_stage<T, 0, kWarpF>(g, ring, Bs, nullptr, &rw.head[0][0], 3);
+  for (int e = g.tid; e < kRows * 3; e += 128)
+    rw.raw[e / 3][e % 3] = rw.in[e / 3][e % 3] + rw.head[e / 3][e % 3];
+}
+
+// The SE(3) / quaternion warp: trunk -> (w, v) -> rows.raw[:, 0:3] =
+// retraction(w, v, pts).
+template <class T, int kWarp>
+__device__ __forceinline__ void screw_stage(const Group& g, Ring& ring,
+                                            const bf16* Bs,
+                                            const float* __restrict__ scales) {
+  Rows& rw = *g.rows;
+  encode_se3_tile(g, scales);
+  fence_async_smem();
+  g.sync();
+  hidden<T, 0, true>(g, ring, Bs);
+  hidden<T, 1, true>(g, ring, Bs);
+  hidden<T, 2, true>(g, ring, Bs);
+  hidden<T, 3, true>(g, ring, Bs);
+  hidden<T, 4, true>(g, ring, Bs);
+  hidden<T, 5, true>(g, ring, Bs);
+  hidden<T, kSe3Trunk, false>(g, ring, Bs);  // rounded, no ReLU
+  head<T, kSe3HeadW>(g, ring, Bs, &rw.head[0][0], 8, 3);
+  head<T, kSe3HeadV>(g, ring, Bs, &rw.head[0][3], 8, 3);
+  if (g.tid < kRows)
+    retract<kWarp == 2>(rw.head[g.tid], rw.head[g.tid] + 3, rw.in[g.tid],
+                        rw.raw[g.tid]);
+}
+
+// The hyper sheet: rows.raw[:, 3:7] = hyper coordinates, rows.raw[:, 7] = 0.
+template <class T>
+__device__ __forceinline__ void sheet_stage(const Group& g, Ring& ring,
+                                            const bf16* Bs) {
+  field_stage<T, T::kWarp, kHypF>(g, ring, Bs, nullptr, &g.rows->raw[0][3],
+                                  kHypOut);
+  if (g.tid < kRows) g.rows->raw[g.tid][7] = 0.f;
+}
+
+// The template on rows.raw = [warped | hyper | 0] and the condition rows
+// rows.ray: out[row0 + r] = [rgb logits | raw sigma] for rows below P.
+template <class T>
+__device__ __forceinline__ void template_stage(
+    const Group& g, Ring& ring, const bf16* Bs,
+    const bf16* __restrict__ rgb_cond, float* __restrict__ out,
+    long long row0, long long n_points) {
+  constexpr int T0 = T::kFields;
+  Rows& rw = *g.rows;
+  encode_template(g);
+  fence_async_smem();
+  g.sync();
+  hidden<T, T0 + 0, true>(g, ring, Bs);
+  hidden<T, T0 + 1, true>(g, ring, Bs);
+  hidden<T, T0 + 2, true>(g, ring, Bs);
+  hidden<T, T0 + 3, true>(g, ring, Bs);
+  hidden<T, T0 + 4, true>(g, ring, Bs);
+  hidden<T, T0 + 5, true>(g, ring, Bs);
+  hidden<T, T0 + 6, true>(g, ring, Bs);
+  hidden<T, T0 + 7, true>(g, ring, Bs);
+  hidden<T, T0 + 8, true>(g, ring, Bs);    // trunk logit (ReLU)
+  // The bottleneck (rounded, no ReLU), the condition beside it.
+  hidden<T, T0 + 9, false>(g, ring, Bs,
+                           [&] { load_condition(g, rgb_cond); });
+  head<T, T0 + 10>(g, ring, Bs, rw.sigma, 1, 1);  // alpha
+  hidden<T, T0 + 11, true>(g, ring, Bs);
+  hidden<T, T0 + 12, true>(g, ring, Bs);
+  hidden<T, T0 + 13, true>(g, ring, Bs);
+  hidden<T, T0 + 14, true>(g, ring, Bs);
+  head<T, T0 + 15>(g, ring, Bs, &rw.head[0][0], 8, 3);  // rgb logits
+  if (g.tid < kRows && row0 + g.tid < n_points) {
+    const float* h = rw.head[g.tid];
+    reinterpret_cast<float4*>(out)[row0 + g.tid] =
+        make_float4(h[0], h[1], h[2], rw.sigma[g.tid]);
+  }
+}
+
+// -- the block ----------------------------------------------------------------
+
+// Whether layers [first, last) of T read and write only the first `cols`
+// columns of a tile.
+template <class T>
+__host__ __device__ constexpr bool fits_columns(int first, int last,
+                                                int cols) {
+  for (int l = first; l < last; ++l)
+    if (in_col<T>(l) + k_boxes(T::shape(l)) * kBoxCols > cols ||
+        T::shape(l).n > cols)
+      return false;
+  return true;
+}
+
+// A persistent block of shape Blk that runs layers [L0, L1) of T on steps
+// of Blk::kGroups row tiles, step = blockIdx.x, + gridDim.x, ... <
+// tile_steps<Blk>(n_points): lays out the shared memory, copies the biases
+// of those layers (B holds them from layer L0 on) in once and sets up the
+// ring's barriers. The producer warpgroup then issues every step's loads
+// and the call returns false for it; for a consumer warpgroup it returns
+// true with its Group, the ring and the biases, and the caller runs the
+// steps (first_row gives a tile's row 0).
+template <class Blk, class T, int L0, int L1>
+__device__ __forceinline__ bool enter_block(const Maps<T>& maps,
+                                            const bf16* __restrict__ B,
+                                            long long n_points, Group& g,
+                                            Ring& ring, const bf16*& Bs) {
+  static_assert(whole_runs<T>(L0, L1), "the layers' maps are whole runs");
+  static_assert(fits_columns<T>(L0, L1, Blk::kCols), "the layers fit a tile");
+  constexpr int kB0 = bias_offset<T>(L0), kB1 = bias_offset<T>(L1);
+  static_assert(2 * kB0 % 16 == 0 && 2 * (kB1 - kB0) % 16 == 0,
+                "the biases copy in 16-byte pieces");
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* base =
+      smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
+  uint8_t* ring_base = base + Blk::kGroups * Blk::kXBytes;
+  Rows* rows = reinterpret_cast<Rows*>(ring_base + kStages * kStageBytes);
+  bf16* bias = reinterpret_cast<bf16*>(rows + Blk::kGroups);
+  uint64_t* full = reinterpret_cast<uint64_t*>(
+      reinterpret_cast<uint8_t*>(bias) + kBiasBytes);
+  uint64_t* empty = full + kStages;
+
+  for (int i = threadIdx.x; i < 2 * (kB1 - kB0) / 16; i += Blk::kThreads)
+    reinterpret_cast<uint4*>(bias + kB0)[i] =
+        reinterpret_cast<const uint4*>(B)[i];
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], Blk::kArrivals);
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  ring = Ring{ring_base, full, empty, 0, 0};
+  Bs = bias;
+  const int group = threadIdx.x >> 7;
+  if (group == Blk::kGroups) {  // the producer warpgroup
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(
+        Blk::kProducerRegs));
+    const long long n_pairs = tile_steps<Blk>(n_points);
+    if (threadIdx.x == 128 * Blk::kGroups)
+      for (long long pair = blockIdx.x; pair < n_pairs; pair += gridDim.x)
+        produce_tile<T, L0>(maps, ring,
+                            std::make_integer_sequence<int, L1 - L0>());
+    return false;
+  }
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(
+      Blk::kConsumerRegs));
+  g = Group{base + group * Blk::kXBytes,
+            smem_addr(base + group * Blk::kXBytes),
+            rows + group, 1 + group, (int)(threadIdx.x & 127), 0};
+  return true;
+}
+
 template <int kWarp>
-__global__ void __launch_bounds__(kThreads, 1)
+__global__ void __launch_bounds__(LevelBlock::kThreads, 1)
     level_fwd_kernel(const __grid_constant__ Maps<Table<kWarp>> maps,
                      const float* __restrict__ zs,
                      const float* __restrict__ origins,
@@ -562,133 +841,90 @@ __global__ void __launch_bounds__(kThreads, 1)
                      float* __restrict__ raw_t, long long n_points,
                      int samples) {
   using T = Table<kWarp>;
-  constexpr int H0 = T::kWarp, T0 = T::kFields;  // first sheet / template
-  extern __shared__ uint8_t smem_raw[];
-  uint8_t* base =
-      smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
-  uint8_t* ring_base = base + kGroups * kXBytes;
-  Rows* rows = reinterpret_cast<Rows*>(ring_base + kStages * kStageBytes);
-  bf16* Bs = reinterpret_cast<bf16*>(rows + kGroups);
-  uint64_t* full = reinterpret_cast<uint64_t*>(
-      reinterpret_cast<uint8_t*>(Bs) + kBiasBytes);
-  uint64_t* empty = full + kStages;
-
-  for (int i = threadIdx.x; i < 2 * bias_offset<T>(T::kNum) / 16;
-       i += kThreads)
-    reinterpret_cast<uint4*>(Bs)[i] = reinterpret_cast<const uint4*>(B)[i];
-  if (threadIdx.x == 0) {
-    for (int s = 0; s < kStages; ++s) {
-      mbar_init(&full[s], 1);
-      mbar_init(&empty[s], kArrivals);
-    }
-    fence_barrier_init();
-  }
-  __syncthreads();
-
-  const long long n_tiles = (n_points + kRows - 1) / kRows;
-  const long long n_pairs = (n_tiles + kGroups - 1) / kGroups;
-  Ring ring{ring_base, full, empty, 0, 0};
-  const int group = threadIdx.x >> 7;
-
-  if (group == kGroups) {  // the producer warpgroup
-    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
-    if (threadIdx.x == 128 * kGroups)
-      for (long long pair = blockIdx.x; pair < n_pairs; pair += gridDim.x)
-        produce_tile<T>(maps, ring, std::make_integer_sequence<int, T::kNum>());
+  Group g;
+  Ring ring;
+  const bf16* Bs;
+  if (!enter_block<LevelBlock, T, 0, T::kNum>(maps, B, n_points, g, ring,
+                                              Bs))
     return;
-  }
-
-  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs));
-  Group g{base + group * kXBytes, smem_addr(base + group * kXBytes),
-          rows + group, 1 + group, (int)(threadIdx.x & 127), 0};
-  Rows& rw = *g.rows;
+  const long long n_pairs = tile_steps<LevelBlock>(n_points);
   for (long long pair = blockIdx.x; pair < n_pairs;
        pair += gridDim.x, ++g.it) {
-    const long long row0 = (pair * kGroups + group) * kRows;
+    const long long row0 = first_row<LevelBlock>(g, pair);
     row_inputs(g, row0, n_points, samples, zs, origins, dirs, embed);
     g.sync();
-
-    if constexpr (kWarp == 0) {
-      // Warp field -> warped = pts + delta.
-      encode_posenc<3, kWarpF, kEmbed, kWarpEncP, 12>(g, kWarpEnc, rw.in);
-      fence_async_smem();
-      g.sync();
-      hidden<T, 0, true>(g, ring, Bs);
-      hidden<T, 1, true>(g, ring, Bs);
-      hidden<T, 2, true>(g, ring, Bs);
-      hidden<T, 3, true>(g, ring, Bs);
-      hidden<T, 4, true>(g, ring, Bs);
-      hidden<T, 5, true>(g, ring, Bs);
-      head<T, 6>(g, ring, Bs, &rw.head[0][0], 8, 3);
-      for (int e = g.tid; e < kRows * 3; e += 128)
-        rw.raw[e / 3][e % 3] = rw.in[e / 3][e % 3] + rw.head[e / 3][e % 3];
-    } else {
-      // SE(3) / quaternion trunk -> (w, v) -> warped = retraction(w, v, pts).
-      encode_se3_tile(g, warp_scales);
-      fence_async_smem();
-      g.sync();
-      hidden<T, 0, true>(g, ring, Bs);
-      hidden<T, 1, true>(g, ring, Bs);
-      hidden<T, 2, true>(g, ring, Bs);
-      hidden<T, 3, true>(g, ring, Bs);
-      hidden<T, 4, true>(g, ring, Bs);
-      hidden<T, 5, true>(g, ring, Bs);
-      hidden<T, kSe3Trunk, false>(g, ring, Bs);  // rounded, no ReLU
-      head<T, kSe3HeadW>(g, ring, Bs, &rw.head[0][0], 8, 3);
-      head<T, kSe3HeadV>(g, ring, Bs, &rw.head[0][3], 8, 3);
-      if (g.tid < kRows)
-        retract<kWarp == 2>(rw.head[g.tid], rw.head[g.tid] + 3, rw.in[g.tid],
-                            rw.raw[g.tid]);
-    }
-
-    // Hyper sheet -> hyper coordinates (its head writes raw[:, 3:7]).
-    encode_posenc<3, kHypF, kEmbed, kHypEncP, 12>(g, kHypEnc, rw.in);
-    fence_async_smem();
-    g.sync();
-    hidden<T, H0 + 0, true>(g, ring, Bs);
-    hidden<T, H0 + 1, true>(g, ring, Bs);
-    hidden<T, H0 + 2, true>(g, ring, Bs);
-    hidden<T, H0 + 3, true>(g, ring, Bs);
-    hidden<T, H0 + 4, true>(g, ring, Bs);
-    hidden<T, H0 + 5, true>(g, ring, Bs);
-    head<T, H0 + 6>(g, ring, Bs, &rw.raw[0][3], 8, kHypOut);
-    if (g.tid < kRows) rw.raw[g.tid][7] = 0.f;
+    if constexpr (kWarp == 0)
+      translation_stage<T>(g, ring, Bs);
+    else
+      screw_stage<T, kWarp>(g, ring, Bs, warp_scales);
+    sheet_stage<T>(g, ring, Bs);
     // Training keeps the template's raw input for the backward kernels.
     if (raw_t != nullptr && g.tid < kRows && row0 + g.tid < n_points) {
-      const float* rt = rw.raw[g.tid];
+      const float* rt = g.rows->raw[g.tid];
       float4* dst = reinterpret_cast<float4*>(raw_t) + 2 * (row0 + g.tid);
       dst[0] = make_float4(rt[0], rt[1], rt[2], rt[3]);
       dst[1] = make_float4(rt[4], rt[5], rt[6], 0.f);
     }
-
-    // Template.
-    encode_template(g);
-    fence_async_smem();
-    g.sync();
-    hidden<T, T0 + 0, true>(g, ring, Bs);
-    hidden<T, T0 + 1, true>(g, ring, Bs);
-    hidden<T, T0 + 2, true>(g, ring, Bs);
-    hidden<T, T0 + 3, true>(g, ring, Bs);
-    hidden<T, T0 + 4, true>(g, ring, Bs);
-    hidden<T, T0 + 5, true>(g, ring, Bs);
-    hidden<T, T0 + 6, true>(g, ring, Bs);
-    hidden<T, T0 + 7, true>(g, ring, Bs);
-    hidden<T, T0 + 8, true>(g, ring, Bs);    // trunk logit (ReLU)
-    // The bottleneck (rounded, no ReLU), the condition beside it.
-    hidden<T, T0 + 9, false>(g, ring, Bs,
-                             [&] { load_condition(g, rgb_cond); });
-    head<T, T0 + 10>(g, ring, Bs, rw.sigma, 1, 1);  // alpha
-    hidden<T, T0 + 11, true>(g, ring, Bs);
-    hidden<T, T0 + 12, true>(g, ring, Bs);
-    hidden<T, T0 + 13, true>(g, ring, Bs);
-    hidden<T, T0 + 14, true>(g, ring, Bs);
-    head<T, T0 + 15>(g, ring, Bs, &rw.head[0][0], 8, 3);  // rgb logits
-    if (g.tid < kRows && row0 + g.tid < n_points) {
-      const float* h = rw.head[g.tid];
-      reinterpret_cast<float4*>(out)[row0 + g.tid] =
-          make_float4(h[0], h[1], h[2], rw.sigma[g.tid]);
-    }
+    template_stage<T>(g, ring, Bs, rgb_cond, out, row0, n_points);
   }
+}
+
+// -- host side ----------------------------------------------------------------
+
+// The persistent grid of blocks of shape Blk for n_points rows (one block
+// per SM, never more than there are steps of tiles; 0 for no rows), once
+// `kernel`'s shared-memory size is set on the current device
+// (`configured`: that kernel's flags).
+template <class Blk, class K>
+int block_grid(K kernel, std::atomic<int>* configured, long long n_points,
+               unsigned* grid) {
+  int dev = 0, sms = 0;
+  const int status = current_device(&dev, &sms);
+  if (status) return status;
+  if (!configured[dev].load(std::memory_order_relaxed)) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        Blk::kSmemBytes);
+    if (err != cudaSuccess) return (int)err;
+    configured[dev].store(1, std::memory_order_relaxed);
+  }
+  const long long steps = n_points <= 0 ? 0 : tile_steps<Blk>(n_points);
+  *grid = (unsigned)(steps < sms ? steps : sms);
+  return 0;
+}
+
+// The plan of a kernel of block shape Blk for layers [first, last) of T:
+// config[0:8] = rows of a warpgroup's tile, consumer warpgroups, ring
+// stages, bytes of a stage, dynamic shared memory, threads, tile columns,
+// tensor maps of the layers; in_cols[i] = the first tile column of layer
+// first + i's input; loads[4 i : 4 i + 4] = (layer, 64-column box of K,
+// 128-row half of N, box rows) of the i-th weight load of one step of
+// Blk::kGroups row tiles, in the order the producer issues and the
+// consumers take them. Returns the number of loads (written up to
+// max_loads).
+template <class Blk, class T>
+int forward_plan(int first, int last, int* config, int* in_cols, int* loads,
+                 int max_loads) {
+  int maps = 0;
+  for (int l = first; l < last; ++l) maps += map_first<T>(l) == l ? 1 : 0;
+  const int c[] = {kRows,           Blk::kGroups,  kStages,
+                   kStageBytes,     Blk::kSmemBytes, Blk::kThreads,
+                   Blk::kCols,      maps};
+  for (int i = 0; i < 8; ++i) config[i] = c[i];
+  int n = 0;
+  for (int l = first; l < last; ++l) {
+    in_cols[l - first] = in_col<T>(l);
+    const Shape s = T::shape(l);
+    for (int kb = 0; kb < k_boxes(s); ++kb)
+      for (int nb = 0; nb < n_halves(s); ++nb, ++n)
+        if (n < max_loads) {
+          loads[4 * n] = l;
+          loads[4 * n + 1] = kb;
+          loads[4 * n + 2] = nb;
+          loads[4 * n + 3] = box_rows(s);
+        }
+  }
+  return n;
 }
 
 // Host side: the tensor maps of the blob W (cached by address and shape),
@@ -701,34 +937,15 @@ int launch_level_fwd(const void* z, const void* origins, const void* dirs,
                      long long n_points, int samples, void* stream) {
   using T = Table<kWarp>;
   static std::atomic<int> configured[kMaxDevices];
-  int dev = 0, sms = 0;
-  int status = current_device(&dev, &sms);
-  if (status) return status;
-  if (!configured[dev].load(std::memory_order_relaxed)) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        level_fwd_kernel<kWarp>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        kSmemBytes);
-    if (err != cudaSuccess) return (int)err;
-    configured[dev].store(1, std::memory_order_relaxed);
-  }
-  if (n_points <= 0) return 0;
+  unsigned grid = 0;
+  int status = block_grid<LevelBlock>(level_fwd_kernel<kWarp>, configured,
+                                      n_points, &grid);
+  if (status || grid == 0) return status;
   Maps<T> maps;
-  const bf16* w = static_cast<const bf16*>(weights);
-  for (int l = 0; l < T::kNum; ++l) {
-    if (map_first<T>(l) != l) continue;
-    int count = 1;
-    while (l + count < T::kNum && same_shape<T>(l, l + count)) ++count;
-    const Shape s = T::shape(l);
-    status = cached_tensor_map(&maps.m[map_index<T>(l)],
-                               w + weight_offset<T>(l), (long long)count * s.n,
-                               s.k, s.k, box_rows(s));
-    if (status) return status;
-  }
-  const long long pairs = ((n_points + kRows - 1) / kRows + kGroups - 1) /
-                          kGroups;
-  const unsigned grid = (unsigned)(pairs < sms ? pairs : sms);
-  level_fwd_kernel<kWarp><<<grid, kThreads, kSmemBytes,
-                            (cudaStream_t)stream>>>(
+  status = make_maps<T>(&maps, static_cast<const bf16*>(weights), 0, T::kNum);
+  if (status) return status;
+  level_fwd_kernel<kWarp><<<grid, LevelBlock::kThreads,
+                            LevelBlock::kSmemBytes, (cudaStream_t)stream>>>(
       maps, static_cast<const float*>(z), static_cast<const float*>(origins),
       static_cast<const float*>(dirs), static_cast<const float*>(embed),
       static_cast<const bf16*>(rgb_cond),

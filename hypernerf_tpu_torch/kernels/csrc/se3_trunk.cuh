@@ -46,9 +46,9 @@ __device__ __forceinline__ float se3_band_arg(const float* in, int b) {
   return ldexpf(in[b % 3], kSe3MinDeg + b / 3);
 }
 
-// Feature f of the trunk encoding from its fp32 value: rounded, then times
-// the window row and rounded again.
-__device__ __forceinline__ bf16 se3_feature(float v, int f,
+// Feature f of an encoding from its fp32 value: rounded, then times the
+// window row and rounded again (no row: rounded once).
+__device__ __forceinline__ bf16 window_feature(float v, int f,
                                             const float* __restrict__ scales) {
   bf16 b = __float2bfloat16_rn(v);
   if (scales != nullptr)
@@ -75,7 +75,7 @@ __device__ __forceinline__ void encode_se3(bf16* X, int col,
     } else if (f < 2 * kSe3Trig + kEmbed) {
       v = in[3 + f - 2 * kSe3Trig];
     }
-    X[r * C::LD + col + f] = se3_feature(v, f, scales);
+    X[r * C::LD + col + f] = window_feature(v, f, scales);
   }
 }
 

@@ -3,8 +3,10 @@
 translation or the hyper sheet's coordinates.
 
 ``fused_field`` is the wrapper. On CUDA tensors it launches the hand-written
-Hopper kernel ``csrc/fused_field.cu`` (which replaces the TPU kernel
-``hypernerf_tpu/ops/pallas/fused_field.py`` ``_fused``); on CPU tensors it
+Hopper kernel of ``csrc/modular_fwd.cu``, the field's stage of the level
+forward (``csrc/level_fwd.cuh``) run alone on that kernel's block, which
+replaces the TPU kernel ``hypernerf_tpu/ops/pallas/fused_field.py``
+``_fused``; its plan is ``fused_level.stage_plan``'s. On CPU tensors it
 runs ``fused_field_plain``, the same function composed from this package's
 modules. When a gradient is wanted the call goes through ``FusedFieldFn``,
 whose backward is ``fused_field_bwd``: the kernel ``csrc/fused_field_bwd.cu``

@@ -12,9 +12,11 @@ Hopper kernel of ``csrc/level_fwd.cuh`` (one source per warp type,
 ``hypernerf_tpu/ops/pallas/fused_level.py`` ``_fused``); on CPU tensors it
 runs ``fused_level_plain``, the same function composed from this package's
 modules, whose rounding points are the kernel's (models/modules.py). On a
-CUDA tensor it launches the kernel or raises. ``forward_plan`` models the
-kernel's tiles, column plan and weight stream in Python, ``fields_bwd_plan``
-kernel B's.
+CUDA tensor it launches the kernel or raises. The kernel's three stages
+also run alone on its block for the per-module path
+(``csrc/modular_fwd.cu``). ``forward_plan`` models the
+kernel's tiles, column plan and weight stream in Python, ``stage_plan`` a
+per-module kernel's, ``fields_bwd_plan`` kernel B's.
 
 When a gradient is wanted the call goes through ``FusedLevelFn``: its
 forward also keeps ``raw_t``, the template's raw input [warped | hyper], and
@@ -227,10 +229,19 @@ FWD_THREADS = 128 * (FWD_GROUPS + 1)
 FWD_ROW_BYTES = 4 * (12 + 8 + 8 + 1 + 1)
 # Every layer's bf16 bias, kept in shared memory: the SE(3) table's 4264.
 FWD_BIAS_BYTES = 2 * 4264
-FWD_SMEM_BYTES = (1024 + FWD_GROUPS * FWD_TILE_ROWS * 2 * FWD_TILE_COLS
-                  + FWD_STAGES * FWD_STAGE_BYTES
-                  + FWD_GROUPS * FWD_TILE_ROWS * FWD_ROW_BYTES
-                  + FWD_BIAS_BYTES + 2 * FWD_STAGES * 8)
+
+
+def fwd_smem_bytes(groups: int = FWD_GROUPS,
+                   cols: int = FWD_TILE_COLS) -> int:
+    """Dynamic shared memory of a block of ``groups`` consumer warpgroups
+    with tiles of ``cols`` columns (``Block::kSmemBytes``)."""
+    return (1024 + groups * FWD_TILE_ROWS * 2 * cols
+            + FWD_STAGES * FWD_STAGE_BYTES
+            + groups * FWD_TILE_ROWS * FWD_ROW_BYTES
+            + FWD_BIAS_BYTES + 2 * FWD_STAGES * 8)
+
+
+FWD_SMEM_BYTES = fwd_smem_bytes()
 # The tile's column plan: where each field's encoding (and the rgb
 # condition) sits; a hidden layer writes [0, n), its input starts at 0
 # unless it is a field's first layer, which reads the encoding.
@@ -247,11 +258,12 @@ def forward_in_cols(warp: str = 'translation'):
     return cols
 
 
-def forward_loads(shapes):
+def forward_loads(shapes, first: int = 0):
     """[(layer, box of K, half of N, box rows)]: the weight loads of one
     pair of row tiles, in the producer's (and the consumers') order: each
-    layer's 64-column boxes of K, each as its 128-row halves of N."""
-    return [(l, kb, nb, min(n, FWD_STAGE_ROWS))
+    layer's 64-column boxes of K, each as its 128-row halves of N.
+    ``shapes`` are those of layers ``first``, ``first + 1``, ... ."""
+    return [(first + l, kb, nb, min(n, FWD_STAGE_ROWS))
             for l, (n, k) in enumerate(shapes)
             for kb in range(-(-k // FWD_BOX_COLS))
             for nb in range(-(-n // FWD_STAGE_ROWS))]
@@ -271,39 +283,85 @@ def forward_maps(shapes):
     return maps
 
 
+def _plan(shapes, in_cols, first: int = 0, groups: int = FWD_GROUPS,
+          cols: int = FWD_TILE_COLS):
+    config = [FWD_TILE_ROWS, groups, FWD_STAGES, FWD_STAGE_BYTES,
+              fwd_smem_bytes(groups, cols), 128 * (groups + 1), cols,
+              len(forward_maps(shapes))]
+    return dict(config=config, in_cols=in_cols,
+                loads=forward_loads(shapes, first))
+
+
 def forward_plan(warp: str, shapes):
     """The compiled plan's fields (``hn_fused_level_fwd_plan``): config,
     in_cols and loads."""
-    config = [FWD_TILE_ROWS, FWD_GROUPS, FWD_STAGES, FWD_STAGE_BYTES,
-              FWD_SMEM_BYTES, FWD_THREADS, FWD_TILE_COLS,
-              len(forward_maps(shapes))]
-    return dict(config=config, in_cols=forward_in_cols(warp),
-                loads=forward_loads(shapes))
+    return _plan(shapes, forward_in_cols(warp))
+
+
+# The per-module forward kernels (csrc/modular_fwd.cu) each run one stage of
+# the level forward on its block: the stage's layers of the translation
+# table (a per-module sheet or template is those layers whatever the warp),
+# from the stage's own blob, with the level's ring and column plan. Stage
+# -> (first layer, end), the code ``hn_modular_fwd_plan`` takes, and the
+# block: (consumer warpgroups, tile columns). A field reads and writes the
+# first 256 (warp) or 128 (sheet) columns of a tile, so three or four
+# tiles fit a block.
+MODULE_STAGES = {'warp': (0, 7), 'sheet': (7, 14), 'template': (14, 30)}
+MODULE_STAGE_CODES = {'warp': 0, 'sheet': 1, 'template': 2}
+MODULE_BLOCKS = {'warp': (3, 256), 'sheet': (4, 128),
+                 'template': (FWD_GROUPS, FWD_TILE_COLS)}
+
+
+def stage_plan(stage: str, shapes):
+    """The compiled plan's fields of a per-module kernel
+    (``hn_modular_fwd_plan``): config, in_cols and loads of the stage's
+    layers; ``shapes`` are the stage's own blob's (n_pad, k_pad), in
+    order."""
+    first, end = MODULE_STAGES[stage]
+    if len(shapes) != end - first:
+        raise ValueError(f'{stage}: {len(shapes)} layers, want '
+                         f'{end - first}')
+    groups, cols = MODULE_BLOCKS[stage]
+    return _plan(shapes, forward_in_cols()[first:end], first, groups, cols)
+
+
+def _compiled_plan(fn_name: str, code: int, n_layers: int):
+    config = (ctypes.c_int * 8)()
+    in_cols = (ctypes.c_int * n_layers)()
+    max_loads = 1024
+    loads = (ctypes.c_int * (4 * max_loads))()
+    n = getattr(build.library(), fn_name)(
+        code, ctypes.addressof(config), ctypes.addressof(in_cols),
+        ctypes.addressof(loads), max_loads)
+    if not 0 <= n <= max_loads:
+        raise RuntimeError(f'{fn_name}: {n} loads')
+    return dict(config=list(config), in_cols=list(in_cols),
+                loads=[tuple(loads[4 * i:4 * i + 4]) for i in range(n)])
 
 
 def compiled_forward_plan(warp: str = 'translation'):
     """``forward_plan``'s fields as the compiled kernel reports them
     (``hn_fused_level_fwd_plan``)."""
-    n_layers = len(common.kernel_layout(warp))
-    config = (ctypes.c_int * 8)()
-    in_cols = (ctypes.c_int * n_layers)()
-    max_loads = 1024
-    loads = (ctypes.c_int * (4 * max_loads))()
-    n = build.library().hn_fused_level_fwd_plan(
-        common.WARP_CODES[warp], ctypes.addressof(config),
-        ctypes.addressof(in_cols), ctypes.addressof(loads), max_loads)
-    if not 0 <= n <= max_loads:
-        raise RuntimeError(f'hn_fused_level_fwd_plan: {n} loads')
-    return dict(config=list(config), in_cols=list(in_cols),
-                loads=[tuple(loads[4 * i:4 * i + 4]) for i in range(n)])
+    return _compiled_plan('hn_fused_level_fwd_plan', common.WARP_CODES[warp],
+                          len(common.kernel_layout(warp)))
 
 
-def forward_stream_bytes(shapes, n_points: int) -> int:
+def compiled_stage_plan(stage: str):
+    """``stage_plan``'s fields as the compiled kernel reports them
+    (``hn_modular_fwd_plan``)."""
+    first, end = MODULE_STAGES[stage]
+    return _compiled_plan('hn_modular_fwd_plan', MODULE_STAGE_CODES[stage],
+                          end - first)
+
+
+def forward_stream_bytes(shapes, n_points: int,
+                         groups: int = FWD_GROUPS) -> int:
     """Weight bytes one call reads from L2: each block reads the whole blob
-    (in-bounds bytes; a box's zero fill is not read) once per pair of row
-    tiles."""
+    (in-bounds bytes; a box's zero fill is not read) once per step of
+    ``groups`` row tiles (a pair in the level; a per-module kernel: its
+    stage's shapes and block)."""
     tiles = -(-n_points // FWD_TILE_ROWS)
-    return -(-tiles // FWD_GROUPS) * sum(2 * n * k for n, k in shapes)
+    return -(-tiles // groups) * sum(2 * n * k for n, k in shapes)
 
 
 # Kernel B's plan (csrc/fields_bwd.cuh), modelled here for the tests and for

@@ -3,9 +3,12 @@ raw [xyz | hyper] rows, the trunk, the bottleneck, the alpha head and the rgb
 branch on the per-ray condition.
 
 ``fused_template`` is the wrapper. On CUDA tensors it launches the
-hand-written Hopper kernel ``csrc/fused_template.cu`` (which replaces the TPU
-kernel ``hypernerf_tpu/ops/pallas/fused_mlp.py`` ``_fwd_call``); on CPU
-tensors it runs ``fused_template_plain``, the same function composed from
+hand-written Hopper kernel of ``csrc/modular_fwd.cu``, the template's stage
+of the level forward (``csrc/level_fwd.cuh``) run alone on that kernel's
+block, which replaces the TPU kernel
+``hypernerf_tpu/ops/pallas/fused_mlp.py`` ``_fwd_call``; its plan is
+``fused_level.stage_plan``'s. On CPU tensors it runs
+``fused_template_plain``, the same function composed from
 this package's modules. When a gradient is wanted the call goes through
 ``FusedTemplateFn``, whose backward is ``fused_template_bwd``: kernel A (for
 the TPU kernel's ``_bwd_call``; it is also the template half of the level

@@ -317,16 +317,16 @@ def _consumer_order(warp, shapes, pairs):
     return out
 
 
-def _run_ring(order, layer_ends, rng):
-    """Simulate the ring protocol with the producer and 2 x 4 consumer warps
-    taking turns at random. Returns the number of fills. Raises on a
+def _run_ring(order, layer_ends, rng, groups=FWD_GROUPS):
+    """Simulate the ring protocol with the producer and groups x 4 consumer
+    warps taking turns at random. Returns the number of fills. Raises on a
     deadlock, on a consumer that reads a stage holding another load, or on
     a fill that overtakes a consumer still using the stage."""
     stages, total = FWD_STAGES, len(order)
     holder = [None] * stages          # load index each stage holds
     fills = [0] * stages              # completed fills (full barrier phases)
     released = [set() for _ in range(total)]
-    warps = [(g, w) for g in range(FWD_GROUPS) for w in range(4)]
+    warps = [(g, w) for g in range(groups) for w in range(4)]
     # Each warp: next load to take, the load it still holds (released after
     # the next product is issued, as wgmma_wait<1> lets it, or at the end of
     # its layer).

@@ -1,0 +1,198 @@
+#!/usr/bin/env python
+"""The per-module forward kernels' times (the warp field and the sheet
+alone, ``hn_fused_field_fwd``; the template alone, ``hn_fused_template_fwd``)
+and the level forward's (``hn_fused_level_fwd``, translation) on one CUDA
+card, for this checkout's kernel library and, with ``--parent``, for
+another checkout's, in turns in one process: this, parent, parent, this.
+
+  python tools/time_modular_fwd.py [--parent DIR]
+
+``DIR`` is a checkout of an earlier commit (for example an unpacked ``git
+archive``) whose entry points take the same arguments and blobs; its
+library is built from its own ``kernels/csrc`` into its own ``build/``.
+Both libraries get this checkout's packed blobs of the probe weights
+(``flagship.load_probe_weights``) and the same inputs. Shapes: the fields at
+8192 x 128 and 16384 x 128 rows; the template at R = 8192 and 16384, S =
+128 and 64, at 1 << 20 rows with S = 1, and the static template at R =
+8192, S = 128; the level at R = 8192, S = 128 and 64. CUDA events, the mean
+of 10 launches after 2. Prints the card's name and power limit first, then
+one line per kernel and shape with each library's two times, the ratio of
+the means, the share of the bound (operations over 989 TFLOP/s) and the
+largest difference of the outputs from this checkout's; exits non-zero
+without a card.
+"""
+
+from __future__ import annotations
+
+import argparse
+import importlib
+import importlib.util
+import os
+import subprocess
+import sys
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, REPO)
+
+PEAK_FLOPS = 989e12
+
+
+def _library(repo: str, name: str):
+    """The kernel library of the checkout at ``repo``, built from its
+    sources by its own ``build.py``."""
+    path = os.path.join(repo, 'hypernerf_tpu_torch', 'kernels', 'build.py')
+    spec = importlib.util.spec_from_file_location(name, path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module.library()
+
+
+def _time(fn, iters: int = 10) -> float:
+    import torch
+    fn()
+    fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def main() -> int:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument('--parent', default=None)
+    args = parser.parse_args()
+
+    import torch
+    import torch.nn.functional as F
+    if not torch.cuda.is_available():
+        print('time_modular_fwd: no CUDA device', file=sys.stderr)
+        return 1
+    from hypernerf_tpu_torch import kernels as K
+    from hypernerf_tpu_torch.flagship import (flagship_model,
+                                              load_probe_weights,
+                                              probe_inputs)
+    from hypernerf_tpu_torch.kernels import build
+    ff = importlib.import_module('hypernerf_tpu_torch.kernels.fused_field')
+    fm = importlib.import_module('hypernerf_tpu_torch.kernels.fused_mlp')
+    fl = importlib.import_module('hypernerf_tpu_torch.kernels.fused_level')
+
+    print(subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
+                          '--format=csv,noheader'], capture_output=True,
+                         text=True, check=True).stdout.strip(), flush=True)
+    libs = {'this': build.library()}
+    if args.parent:
+        libs['parent'] = _library(os.path.abspath(args.parent),
+                                  'parent_kernel_build')
+    order = (['this', 'parent', 'parent', 'this'] if args.parent
+             else ['this', 'this'])
+    stream = torch.cuda.current_stream().cuda_stream
+    probes = {c: load_probe_weights(flagship_model('cuda', config=c))
+              for c in ('flagship', 'static')}
+
+    def inputs(rays, samples, seed):
+        return [torch.from_numpy(v).cuda()
+                for v in probe_inputs(rays, samples, seed).values()]
+
+    def report(label, macs, rows, launch):
+        """Times each library's launches in turns; launch(lib) fills and
+        returns that library's output."""
+        times = {k: [] for k in libs}
+        for k in order:
+            times[k].append(_time(lambda: launch(libs[k])))
+        bound = 2.0 * macs * rows / PEAK_FLOPS * 1e3
+        mean = {k: sum(v) / len(v) for k, v in times.items()}
+        got = {k: launch(libs[k]).clone() for k in libs}
+        torch.cuda.synchronize()
+        parts = [f'{k} ' + ', '.join(f'{t:.3f}' for t in v) + ' ms'
+                 f' ({100 * bound / mean[k]:.1f} % of {bound:.4f})'
+                 for k, v in times.items()]
+        if 'parent' in libs:
+            diff = (got['parent'] - got['this']).abs().max().item()
+            parts.append(f'parent / this {mean["parent"] / mean["this"]:.2f}x'
+                         f', max|d| {diff:.3e}')
+        print(f'{label}: ' + '; '.join(parts), flush=True)
+
+    with torch.no_grad():
+        probe = probes['flagship']
+        for name, field in (('warp field', probe.warp_field),
+                            ('sheet', probe.hyper_sheet_mlp)):
+            mlp, n_freq = field.mlp, field.n_freq
+            macs = sum(lin.weight.numel()
+                       for lin, _ in ff.field_layers(mlp))
+            for rays in (8192, 16384):
+                x_raw = fl._raw_fields(*inputs(rays, 128, seed=rays)[:4])
+                x_raw = x_raw.contiguous()
+                p = x_raw.shape[0]
+                which, _, ((w, b, _),) = ff._launch_args(mlp, n_freq, x_raw,
+                                                         None, False)
+                out = torch.empty((p, ff.OUT_PAD), device='cuda')
+
+                def launch(lib):
+                    build.check(lib.hn_fused_field_fwd(
+                        which, x_raw.data_ptr(), None, w.data_ptr(),
+                        b.data_ptr(), out.data_ptr(), p, stream),
+                        'hn_fused_field_fwd')
+                    return out
+                report(f'{name} P={p}', macs, p, launch)
+
+        for config, level, rays, s in (
+                ('flagship', 'fine', 8192, 128),
+                ('flagship', 'coarse', 8192, 64),
+                ('flagship', 'fine', 16384, 128),
+                ('flagship', 'coarse', 16384, 64),
+                ('flagship', 'fine', 1 << 20, 1),
+                ('static', 'fine', 8192, 128)):
+            cfg = probes[config].config
+            tmpl = K.Template(probes[config]._template(level), cfg.xyz_freq,
+                              cfg.hyper_freq)
+            z, o, d, emb, cond = inputs(rays, s, seed=s)
+            pts = fl._raw_fields(z, o, d, emb)[:, :3]
+            hyper = torch.randn(rays * s, 4, device='cuda',
+                                generator=torch.Generator(
+                                    device='cuda').manual_seed(s)) * 0.3
+            if config == 'static':
+                hyper.zero_()
+            x_raw = F.pad(torch.cat([pts, hyper], dim=-1), (0, 1))
+            x_raw = x_raw.contiguous()
+            rgbc, per, _, ((w, b, _),) = fm._launch_args(tmpl, x_raw, cond,
+                                                         False)
+            p = x_raw.shape[0]
+            out = torch.empty((p, 4), device='cuda')
+            macs = sum(lin.weight.numel() for lin, _ in
+                       fm.template_layers(tmpl.template))
+
+            def launch(lib):
+                build.check(lib.hn_fused_template_fwd(
+                    x_raw.data_ptr(), rgbc.data_ptr(), w.data_ptr(),
+                    b.data_ptr(), out.data_ptr(), p, per, stream),
+                    'hn_fused_template_fwd')
+                return out
+            report(f'{config} template R={rays} S={s}', macs, p, launch)
+
+        for s in (128, 64):
+            lv = probe.level('fine' if s == 128 else 'coarse')
+            w, b, _ = fl.pack_level(lv)
+            z, o, d, emb, cond = inputs(8192, s, seed=s)
+            rgbc = cond.to(torch.bfloat16).contiguous()
+            p = 8192 * s
+            out = torch.empty((p, 4), device='cuda')
+            macs = sum(lin.weight.numel() for lin, _ in fl.level_layers(lv))
+
+            def launch(lib):
+                build.check(lib.hn_fused_level_fwd(
+                    0, z.data_ptr(), o.data_ptr(), d.data_ptr(),
+                    emb.data_ptr(), rgbc.data_ptr(), None, w.data_ptr(),
+                    b.data_ptr(), out.data_ptr(), None, 8192, s, stream),
+                    'hn_fused_level_fwd')
+                return out
+            report(f'level forward R=8192 S={s}', macs, p, launch)
+    return 0
+
+
+if __name__ == '__main__':
+    sys.exit(main())

@@ -3,9 +3,14 @@
 variant of ``csrc/level_fwd.cuh`` built with ``-DHN_LEVEL_FWD_TRACE`` into a
 library of its own, launched at the flagship widths (probe weights) on one
 CUDA card; block 0 records the SM clock of each consumer warpgroup at four
-points of every layer of its first four pairs of row tiles.
+points of every layer of its first four pairs of row tiles. With
+``--kernel template``, ``warp`` or ``sheet`` the same for a per-module
+forward kernel (``csrc/modular_fwd.cu``: one stage of the level forward
+alone) on the same rows; the warp field's block takes three tiles a step
+and the sheet's four, of which warpgroups 0 and 1 are shown.
 
   python tools/trace_level_fwd.py [--rays 8192] [--samples 128]
+      [--kernel level|template|warp|sheet]
 
 Prints, per layer and summed over a pair of tiles (mean of pairs 1 to 3, in
 SM cycles, each warpgroup): the wait for the layer's first weight stage, the
@@ -27,36 +32,86 @@ import sys
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-GROUPS, PAIRS, LAYERS, EVENTS = 2, 4, 32, 4
+GROUPS, PAIRS, LAYERS, EVENTS = 4, 4, 32, 4  # level_fwd_trace's shape
 
 
-def _trace_library():
-    """The translation kernel built with the trace hooks (cached by the
-    sources' hash under build/kernels/)."""
+def _trace_library(kernel: str):
+    """The translation level kernel (or the per-module kernels) built with
+    the trace hooks (cached by the sources' hash under build/kernels/)."""
     from hypernerf_tpu_torch.kernels import build
-    src = build.CSRC / 'level_fwd_trans.cu'
+    stem = 'level_fwd_trans' if kernel == 'level' else 'modular_fwd'
     flags = [*build.NVCC_FLAGS, '-DHN_LEVEL_FWD_TRACE']
     h = hashlib.sha256(' '.join(flags).encode())
     for p in build._sources():
         h.update(p.read_bytes())
-    so = build.BUILD_DIR / f'level_fwd_trace_{h.hexdigest()[:16]}.so'
+    so = build.BUILD_DIR / f'{stem}_trace_{h.hexdigest()[:16]}.so'
     if not so.exists():
         build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
         subprocess.run([build._nvcc(), *flags, '-shared', '-o', str(so),
-                        str(src)], check=True)
+                        str(build.CSRC / f'{stem}.cu')], check=True)
     lib = ctypes.CDLL(str(so))
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.hn_level_fwd_trans.argtypes = [p] * 10 + [ll, i, p]
-    lib.hn_level_fwd_trans.restype = i
-    lib.hn_level_fwd_trace.argtypes = [p]
-    lib.hn_level_fwd_trace.restype = i
+    if kernel == 'level':
+        lib.hn_level_fwd_trans.argtypes = [p] * 10 + [ll, i, p]
+        lib.trace = lib.hn_level_fwd_trace
+    else:
+        lib.hn_fused_template_fwd.argtypes = [p] * 5 + [ll, i, p]
+        lib.hn_fused_field_fwd.argtypes = [i] + [p] * 5 + [ll, p]
+        lib.trace = lib.hn_modular_fwd_trace
+    lib.trace.argtypes = [p]
+    lib.trace.restype = i
     return lib
+
+
+def _launch(lib, kernel, level, args, stream):
+    """One launch of the traced kernel on the level's probe rows: the level
+    kernel on the ray inputs, or a per-module kernel on that stage's inputs
+    as the level computes them (a field: [pts | embed]; the template:
+    [warped | hyper | 0] from the plain version of the fields)."""
+    import torch
+    ff = importlib.import_module('hypernerf_tpu_torch.kernels.fused_field')
+    fm = importlib.import_module('hypernerf_tpu_torch.kernels.fused_mlp')
+    fl = importlib.import_module('hypernerf_tpu_torch.kernels.fused_level')
+    z, o, d, emb, cond = args
+    n, samples = z.numel(), z.shape[1]
+    if kernel == 'level':
+        w, b, _ = fl.pack_level(level)
+        out = torch.empty((n, 4), device='cuda')
+        rgbc = cond.to(torch.bfloat16).contiguous()
+        return lib.hn_level_fwd_trans(
+            z.data_ptr(), o.data_ptr(), d.data_ptr(), emb.data_ptr(),
+            rgbc.data_ptr(), None, w.data_ptr(), b.data_ptr(),
+            out.data_ptr(), None, n, samples, stream)
+    x_raw = fl._raw_fields(z, o, d, emb).contiguous()
+
+    def field(module):
+        which, _, ((w, b, _),) = ff._launch_args(module.mlp, module.n_freq,
+                                                 x_raw, None, False)
+        out = torch.empty((n, ff.OUT_PAD), device='cuda')
+        code = lib.hn_fused_field_fwd(which, x_raw.data_ptr(), None,
+                                      w.data_ptr(), b.data_ptr(),
+                                      out.data_ptr(), n, stream)
+        return code, out
+
+    if kernel != 'template':
+        return field(level.warp if kernel == 'warp' else level.hyper)[0]
+    (c0, warp), (c1, hyper) = field(level.warp), field(level.hyper)
+    if c0 or c1:
+        return c0 or c1
+    raw_t = torch.cat([x_raw[:, :3] + warp[:, :3], hyper[:, :5]], dim=-1)
+    rgbc, per, _, ((w, b, _),) = fm._launch_args(level, raw_t, cond, False)
+    out = torch.empty((n, 4), device='cuda')
+    return lib.hn_fused_template_fwd(
+        raw_t.data_ptr(), rgbc.data_ptr(), w.data_ptr(), b.data_ptr(),
+        out.data_ptr(), n, per, stream)
 
 
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument('--rays', type=int, default=8192)
     parser.add_argument('--samples', type=int, default=128)
+    parser.add_argument('--kernel', default='level',
+                        choices=('level', 'template', 'warp', 'sheet'))
     args = parser.parse_args()
 
     import numpy as np
@@ -72,27 +127,22 @@ def main() -> int:
     print(subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
                           '--format=csv,noheader'], capture_output=True,
                          text=True, check=True).stdout.strip())
-    lib = _trace_library()
+    lib = _trace_library(args.kernel)
     level = load_probe_weights(flagship_model('cuda')).level('fine')
-    w, b, shapes = fl.pack_level(level)
-    z, o, d, emb, cond = [torch.from_numpy(v).cuda() for v in probe_inputs(
+    shapes = fl.pack_level(level)[2]
+    first, end = fl.MODULE_STAGES.get(args.kernel, (0, len(shapes)))
+    inputs = [torch.from_numpy(v).cuda() for v in probe_inputs(
         args.rays, args.samples, seed=0).values()]
-    cond = cond.to(torch.bfloat16).contiguous()
-    n = args.rays * args.samples
-    out = torch.empty((n, 4), device='cuda')
     stream = torch.cuda.current_stream().cuda_stream
     for _ in range(2):  # the second launch's clocks are kept
-        code = lib.hn_level_fwd_trans(
-            z.data_ptr(), o.data_ptr(), d.data_ptr(), emb.data_ptr(),
-            cond.data_ptr(), None, w.data_ptr(), b.data_ptr(),
-            out.data_ptr(), None, n, args.samples, stream)
+        code = _launch(lib, args.kernel, level, inputs, stream)
         if code:
-            raise RuntimeError(f'hn_level_fwd_trans: CUDA error {code}')
+            raise RuntimeError(f'{args.kernel}: CUDA error {code}')
     torch.cuda.synchronize()
     t = np.zeros((GROUPS, PAIRS, LAYERS, EVENTS), dtype=np.int64)
-    if lib.hn_level_fwd_trace(t.ctypes.data):
-        raise RuntimeError('hn_level_fwd_trace failed')
-    t = t[:, :, :len(shapes)].astype(np.float64)
+    if lib.trace(t.ctypes.data):
+        raise RuntimeError('reading the trace failed')
+    t = t[:2, :, first:end].astype(np.float64)  # warpgroups 0 and 1
     # The row work before a layer: since the previous layer ended (for
     # layer 0, the previous pair's last layer).
     gap = np.empty(t.shape[:3])
@@ -102,14 +152,14 @@ def main() -> int:
     t, gap = t[:, 1:], gap[:, 1:]  # pairs 1..3
     wait, mma, epi = (t[..., 1] - t[..., 0], t[..., 2] - t[..., 1],
                       t[..., 3] - t[..., 2])
-    print(f'level forward R={args.rays} S={args.samples}, block 0, SM '
-          f'cycles, mean of pairs 1-3 (warpgroup 0 / 1)')
+    print(f'{args.kernel} forward R={args.rays} S={args.samples}, block 0, '
+          f'SM cycles, mean of pairs 1-3 (warpgroup 0 / 1)')
     print('layer  (n, k)       stage wait        products        epilogue'
           '   row work before')
-    for l, shape in enumerate(shapes):
+    for l, shape in enumerate(shapes[first:end]):
         cells = [f'{x[0, :, l].mean():7.0f} / {x[1, :, l].mean():<7.0f}'
                  for x in (wait, mma, epi, gap)]
-        print(f'{l:5d}  {str(shape):11s} ' + '  '.join(cells))
+        print(f'{first + l:5d}  {str(shape):11s} ' + '  '.join(cells))
     for name, x in (('stage wait', wait), ('products', mma),
                     ('epilogue', epi), ('row work', gap)):
         s = x.sum(-1).mean(-1)
