@@ -51,10 +51,11 @@ Phases, one line each; any failure ends the run with a non-zero exit:
      explicit batch with the kernels and one with the plain versions (through
      the same autograd Functions) from the initial state, compared;
   8. the kernels of the per-module path (the forwards are the level
-     forward's stages run alone on its block: each one's compiled plan
-     against its model in kernels/fused_level.py; a field alone, forward and
-     backward, as the warp field and as the hyper sheet, with and without a
-     window row; the template alone, forward, with 128, 64, 13 and 1 rows per
+     forward's stages run alone on its block, a field's backward kernel B's
+     block run on the field alone: each one's compiled plan against its
+     model in kernels/fused_level.py; a field alone, forward and backward,
+     as the warp field and as the hyper sheet, with and without a window
+     row; the template alone, forward, with 128, 64, 13 and 1 rows per
      condition row, with and without hyper coordinates, up to the train
      step's 16384 rays at both levels; the template backward on a template
      without them, at both levels of the train step, and at 1 row per
@@ -62,7 +63,8 @@ Phases, one line each; any failure ends the run with a non-zero exit:
      JAX kernels' stored outputs and gradients at the probe weights
      (tests/data), against their plain versions at small odd sizes and at
      8192 x 128 and 16384 x 128 rows, which are also timed (each forward
-     with its share of the bound and its time before the redesign), and
+     and each field backward with its share of the bound and its time
+     before the redesign), and
      against the level kernels (warp field, sheet and template kernels
      chained give the level kernel's output bit for bit; the field backward
      twice on the template backward's dx_t gives the fields backward's
@@ -79,11 +81,14 @@ Phases, one line each; any failure ends the run with a non-zero exit:
      versions;
  10. the SE(3) trunk's kernels (forward and backward) at the probe weights of
      the ``se3`` configuration, whose w and v heads are drawn large enough
-     that the rotation shows: against the JAX kernels' stored outputs and
+     that the rotation shows (the forward is the level forward's trunk stage
+     run alone on its block: its compiled plan against its model in
+     kernels/fused_level.py): against the JAX kernels' stored outputs and
      gradients (tests/data), with the 1 % probe of one layer, against their
      plain versions at a ragged size (a multiple of neither tile height) and
      at 8192 x 128 and 16384 x 128 rows, with and without a window row
-     (alpha 3.5 of 8 bands), which are also timed;
+     (alpha 3.5 of 8 bands), which are also timed (the forward beside its
+     time before the redesign and its share of the bound);
  11. the level kernels' screw-warp variants (``se3`` and ``quaternion``): the
      level forward and the level backward (A then B) against the stored JAX
      numbers, the forward (with raw_t) and kernel B against their plain
@@ -96,7 +101,8 @@ Phases, one line each; any failure ends the run with a non-zero exit:
      every row has w = 0 exactly (d w = 0, d v = d pts = g);
  12. the SE(3) paths at full width: a 504x378 frame of ``se3`` and of
      ``quaternion`` through the level kernels, a frame of ``se3`` with
-     ``return_points`` (per-module: trunk, sheet and template kernels), a
+     ``return_points`` and one of ``se3`` with two GLO tables (per-module:
+     trunk, sheet and template kernels), a
      train step at batch 16384 of ``se3`` and ``quaternion`` (level kernels)
      and of ``se3`` with two GLO tables (trunk, field and template kernels,
      forward and backward), each with launch counters, no plain call and one
@@ -1171,19 +1177,29 @@ def plain_template(tmpl, x_raw, rgb_cond):
         for r0 in range(0, rgb_cond.shape[0], step)])
 
 
-# The per-module forward kernels (a field alone, the template alone): the
-# level forward's stages run alone on its block.
+# The per-module forward kernels (a field alone, the template alone, the
+# SE(3) trunk alone): the level forward's stages run alone on its block.
 MODULAR_FWD_SOURCES = ('modular_fwd.cu', 'level_fwd.cuh')
 # Their times before the redesign (the mma.sync kernels; PERF.md rows 8 and
 # 10), ms: the warp field and the sheet at 8192 x 128 rows, the template at
 # R = 8192, S = 128.
 EARLIER_MODULAR_MS = {'warp': 1.690, 'sheet': 0.877, 'template': 8.802}
+# A field alone backward: kernel B's block run on one field.
+FIELD_BWD_SOURCES = ('fields_bwd_alone.cu', 'fields_bwd.cuh')
+# Its times before the redesign (the mma.sync kernel with 32-row tiles;
+# PERF.md row 11), ms at 8192 x 128 and 16384 x 128 rows.
+EARLIER_FIELD_BWD_MS = {('warp', 8192 * 128): 10.545,
+                        ('warp', 16384 * 128): 20.645,
+                        ('sheet', 8192 * 128): 4.075,
+                        ('sheet', 16384 * 128): 8.000}
 
 
 def modular_stage_plans(probe) -> None:
-    """Phase 8: each per-module kernel's compiled plan (the stage's layers,
-    tile, ring, column plan, weight loads) against its model
-    (``fused_level.stage_plan``) over the module's own packed blob."""
+    """Phase 8: each per-module forward kernel's compiled plan (the stage's
+    layers, tile, ring, column plan, weight loads) against its model
+    (``fused_level.stage_plan``) over the module's own packed blob, and each
+    field alone backward's (kernel B's block, ring and buffer plan of the
+    field, its weight loads) against ``fused_level.field_bwd_plan``."""
     import importlib
     from hypernerf_tpu_torch.kernels import common
     from hypernerf_tpu_torch.kernels.fused_field import field_layers
@@ -1206,6 +1222,21 @@ def modular_stage_plans(probe) -> None:
         loads[stage] = len(got['loads'])
     phase(f'[8] per-module plans (compiled = model): weight loads a step of '
           f'tiles {loads}')
+    for stage in ('warp', 'sheet'):
+        owner, layers = owners[stage]
+        shapes = common.pack_layers(owner, layers)[2]
+        got = fl.compiled_field_bwd_plan(stage)
+        want = fl.field_bwd_plan(stage, shapes)
+        if got != want:
+            raise AssertionError(f'{stage}: the compiled field backward plan '
+                                 f'is not its model: {got} vs {want}')
+        phase(f'[8] {stage} field backward plan (compiled = model): kernel '
+              f'B\'s block, {len(got["loads"])} weight loads a block tile, '
+              f'spills {fl.field_bwd_spills(stage)}; computed from the plan, '
+              f'not measured: '
+              f'{fl.field_bwd_stream_bytes(stage, shapes, TRAIN_RAYS * 128):,}'
+              f' bytes of weights streamed from L2 at {TRAIN_RAYS * 128} '
+              f'rows')
 
 
 def modular_kernel_phase():
@@ -1442,6 +1473,15 @@ def modular_kernel_phase():
         phase(f'[8] {name} forward at {p_r} rows: {ms:.3f} ms, '
               f'{100 * bms / ms:.1f} % of its bound {bms:.4f} ms; '
               f'{earlier:.3f} ms before the redesign (PERF.md)')
+    for name in fields:
+        for p in (p_r, p_t):
+            ms = times[name, p]['bwd']
+            bms = bound(6.0 * macs[name] * p, p * (44 + 32 + 44)
+                        + 6 * macs[name])[0]
+            phase(f'[8] {name} field backward at {p} rows: {ms:.3f} ms, '
+                  f'{100 * bms / ms:.1f} % of its bound {bms:.4f} ms; '
+                  f'{EARLIER_FIELD_BWD_MS[name, p]:.3f} ms before the '
+                  f'redesign (PERF.md)')
     return [
         dict(name='fused_field_fwd', route='cuda',
              source=', '.join(src + f for f in MODULAR_FWD_SOURCES),
@@ -1454,13 +1494,15 @@ def modular_kernel_phase():
              sheet_bound_ms=f_bound['sheet'][0],
              sheet_ms_train_rows=sheet_t['fwd']),
         dict(name='fused_field_bwd', route='cuda',
-             source=src + 'fused_field_bwd.cu',
+             source=', '.join(src + f for f in FIELD_BWD_SOURCES),
              replaces='hypernerf_tpu/ops/pallas/fused_field.py:532',
              **error_keys(errs['field_bwd']), ms=warp_t['bwd'],
              plain_ms=warp_t['plain_bwd'], bound_ms=b_ms, bound_by=b_by,
              library_ms=None, shape=f'warp field, P={p_t}',
+             ms_8192x128_rows=warp_r['bwd'],
              sheet_ms=sheet_t['bwd'], sheet_plain_ms=sheet_t['plain_bwd'],
-             sheet_bound_ms=bwd_bound['sheet'][0]),
+             sheet_bound_ms=bwd_bound['sheet'][0],
+             sheet_ms_8192x128_rows=sheet_r['bwd']),
         dict(name='fused_template_fwd', route='cuda',
              source=', '.join(src + f for f in MODULAR_FWD_SOURCES),
              replaces='hypernerf_tpu/ops/pallas/fused_mlp.py:656',
@@ -1475,6 +1517,49 @@ def modular_kernel_phase():
              ms_one_row_per_ray_2_20_rows=times['flagship', 1 << 20, 1][0],
              static_template_bwd_ms=times['A', 'static'],
              template_bwd_errors=error_keys(errs['A']))]
+
+
+QUERY_CALLS = 3  # timed query_sigma calls, after one at full size
+
+
+def query_sigma_path(config: str, want: dict, tag: str) -> dict:
+    """``query_sigma`` of ``config`` on 1 << 20 points of one frame id, one
+    sample per row: the mean host time of QUERY_CALLS calls after one at
+    that size (which makes its allocations), the launches of one call
+    (``want``, checked), finite non-negative sigma that agrees with the
+    plain versions on 4099 points; returns the launches of one call."""
+    import torch
+    from hypernerf_tpu_torch.flagship import flagship_model
+    model = flagship_model('cuda', seed=0, config=config)
+    n = 1 << 20
+    gen = torch.Generator(device='cuda').manual_seed(3)
+    pts = torch.randn(n, 3, generator=gen, device='cuda') * 0.5
+    ids = torch.full((n, 1), 3, dtype=torch.int64, device='cuda')
+    with torch.no_grad():
+        model.query_sigma(pts, ids)
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        for _ in range(QUERY_CALLS):
+            sigma = model.query_sigma(pts, ids)
+        torch.cuda.synchronize()
+        secs = (time.perf_counter() - t0) / QUERY_CALLS
+        launches = read_counts({k: v * QUERY_CALLS for k, v in want.items()},
+                               f'{config} query_sigma')
+        with plain_versions():
+            plain = model.query_sigma(pts[:4099], ids[:4099])
+    diff = (sigma[:4099] - plain).abs()
+    if sigma.shape != (n,) or not torch.isfinite(sigma).all() \
+            or (sigma < 0).any() \
+            or (diff > LEVEL_ATOL + LEVEL_RTOL * plain.abs()).any():
+        raise AssertionError(f'{config} query_sigma: shape '
+                             f'{tuple(sigma.shape)}, max|d| '
+                             f'{diff.max().item():.3e}')
+    phase(f'{tag} {config} query_sigma on {n} points: {secs * 1e3:.2f} ms '
+          f'(mean of {QUERY_CALLS} calls after one); launches a call '
+          f'{want}; vs the plain versions on 4099 points max|d| '
+          f'{diff.max().item():.3e} (tol {LEVEL_ATOL}+{LEVEL_RTOL}|want|)')
+    return {k: v // QUERY_CALLS for k, v in launches.items()}
 
 
 def modular_paths_phase(kernels) -> None:
@@ -1524,34 +1609,8 @@ def modular_paths_phase(kernels) -> None:
         counts[config, 'train'] = train_path(config, '[9]')
         torch.cuda.empty_cache()
 
-    # query_sigma: one sample per row, a million points of one frame id.
-    model = flagship_model('cuda', seed=0, config='split_glo')
-    n = 1 << 20
-    gen = torch.Generator(device='cuda').manual_seed(3)
-    pts = torch.randn(n, 3, generator=gen, device='cuda') * 0.5
-    ids = torch.full((n, 1), 3, dtype=torch.int64, device='cuda')
-    with torch.no_grad():
-        model.query_sigma(pts[:4096], ids[:4096])
-        torch.cuda.synchronize()
-        reset_counts()
-        t0 = time.perf_counter()
-        sigma = model.query_sigma(pts, ids)
-        torch.cuda.synchronize()
-        secs = time.perf_counter() - t0
-        counts['split_glo', 'query_sigma'] = read_counts(
-            {'fused_field_fwd': 2, 'fused_template_fwd': 1}, 'query_sigma')
-        with plain_versions():
-            want = model.query_sigma(pts[:4099], ids[:4099])
-    diff = (sigma[:4099] - want).abs()
-    if sigma.shape != (n,) or not torch.isfinite(sigma).all() \
-            or (sigma < 0).any() \
-            or (diff > LEVEL_ATOL + LEVEL_RTOL * want.abs()).any():
-        raise AssertionError(f'query_sigma: shape {tuple(sigma.shape)}, '
-                             f'max|d| {diff.max().item():.3e}')
-    phase(f'[9] split_glo query_sigma on {n} points: {secs * 1e3:.2f} ms; '
-          f'launches {counts["split_glo", "query_sigma"]}; vs the plain '
-          f'versions on 4099 points max|d| {diff.max().item():.3e} (tol '
-          f'{LEVEL_ATOL}+{LEVEL_RTOL}|want|)')
+    counts['split_glo', 'query_sigma'] = query_sigma_path(
+        'split_glo', {'fused_field_fwd': 2, 'fused_template_fwd': 1}, '[9]')
     for k in kernels:
         name = k['name']
         for (config, path), launches in counts.items():
@@ -1585,6 +1644,11 @@ def plain_se3_bwd(field, x_raw, g, scales=None):
         sum(grads[i] for _, grads in parts) for i in range(len(parts[0][1]))]
 
 
+# The trunk forward's times before the redesign (the mma.sync kernel;
+# PERF.md row 12), ms at 8192 x 128 and 16384 x 128 rows.
+EARLIER_SE3_FWD_MS = {8192 * 128: 2.014, 16384 * 128: 4.033}
+
+
 def wv_of(field, x_raw, scales=None):
     """(P, 6) [w | v] of the trunk kernel."""
     import torch
@@ -1593,7 +1657,10 @@ def wv_of(field, x_raw, scales=None):
 
 
 def se3_kernel_phase():
-    """Phase 10; returns the entries of the trunk's two kernels."""
+    """Phase 10; returns the entries of the trunk's two kernels. The
+    forward is the level forward's trunk stage run alone on its block: its
+    compiled plan is held to ``fused_level.stage_plan('se3', ...)``."""
+    import importlib
     import torch
     import torch.nn.functional as F
     from hypernerf_tpu_torch import kernels as K
@@ -1609,6 +1676,18 @@ def se3_kernel_phase():
     grad_names = ['dx'] + [f'd{"Wb"[i % 2]}{i // 2}'
                            for i in range(2 * len(layers))]
     window = se3_encoding_scales(field, WINDOW_ALPHA, 'cuda')
+    fl = importlib.import_module('hypernerf_tpu_torch.kernels.fused_level')
+    shapes = common.pack_layers(field, layers)[2]
+    got, want = fl.compiled_stage_plan('se3'), fl.stage_plan('se3', shapes)
+    if got != want:
+        raise AssertionError(f'se3: the compiled trunk stage plan is not its '
+                             f'model: {got} vs {want}')
+    phase(f'[10] trunk stage plan (compiled = model): {want["config"][1]} '
+          f'tiles of {want["config"][6]} columns a step, '
+          f'{len(want["loads"])} weight loads a step; computed from the '
+          f'plan, not measured: '
+          f'{fl.forward_stream_bytes(shapes, CHUNK * 128, 3):,} bytes of '
+          f'weights streamed from L2 at {CHUNK * 128} rows')
 
     # The JAX kernels' stored outputs and gradients
     # (tools/make_level_reference.py): the CUDA kernels through their
@@ -1699,9 +1778,16 @@ def se3_kernel_phase():
     p_r, p_t = CHUNK * 128, TRAIN_RAYS * 128
     f_ms, f_by = bound(2.0 * macs * p_r, p_r * (44 + 32) + 2 * macs)
     b_ms, b_by = bound(6.0 * macs * p_t, p_t * (44 + 32 + 44) + 6 * macs)
+    for p in (p_r, p_t):
+        ms = times[p]['fwd']
+        bms = bound(2.0 * macs * p, p * (44 + 32) + 2 * macs)[0]
+        phase(f'[10] trunk forward at {p} rows: {ms:.3f} ms, '
+              f'{100 * bms / ms:.1f} % of its bound {bms:.4f} ms; '
+              f'{EARLIER_SE3_FWD_MS[p]:.3f} ms before the redesign (PERF.md)')
     src = 'hypernerf_tpu_torch/kernels/csrc/'
     return [
-        dict(name='fused_se3_fwd', route='cuda', source=src + 'fused_se3.cu',
+        dict(name='fused_se3_fwd', route='cuda',
+             source=', '.join(src + f for f in MODULAR_FWD_SOURCES),
              replaces='hypernerf_tpu/ops/pallas/fused_se3.py:374',
              max_abs_err=max(errs['fwd']),
              tolerance=f'|d| <= {LEVEL_ATOL} + {LEVEL_RTOL} |plain|, mean '
@@ -1891,15 +1977,17 @@ def se3_paths_phase(kernels) -> None:
     per_frame = 2 * chunks_per_frame
     frames = spiral_rays((0, 30))
     counts = {}
+    per_module = {'fused_se3_fwd': per_frame, 'fused_field_fwd': per_frame,
+                  'fused_template_fwd': per_frame}
     for label, config, return_points, want in (
             ('se3', 'se3', False,
              {'fused_level_fwd': per_frame, 'fused_composite_fwd': per_frame}),
             ('quaternion', 'quaternion', False,
              {'fused_level_fwd': per_frame, 'fused_composite_fwd': per_frame}),
-            ('se3 return_points', 'se3', True,
-             {'fused_se3_fwd': per_frame, 'fused_field_fwd': per_frame,
-              'fused_template_fwd': per_frame})):
-        model = flagship_model('cuda', seed=0, config=config)
+            ('se3 return_points', 'se3', True, per_module),
+            ('se3_split_glo', 'se3_split_glo', False, per_module)):
+        base, overrides = PATHS.get(config, (config, {}))
+        model = flagship_model('cuda', seed=0, config=base, **overrides)
         keep = ('rgb', 'depth', 'acc') + (
             ('med_points',) if return_points else ())
         renderer = ImageRenderer(model, chunk=CHUNK, keep=keep,
@@ -1931,35 +2019,9 @@ def se3_paths_phase(kernels) -> None:
         counts[config, 'train'] = train_path(config, '[12]')
         torch.cuda.empty_cache()
 
-    # query_sigma: one sample per row, a million points of one frame id.
-    model = flagship_model('cuda', seed=0, config='se3')
-    n = 1 << 20
-    gen = torch.Generator(device='cuda').manual_seed(3)
-    pts = torch.randn(n, 3, generator=gen, device='cuda') * 0.5
-    ids = torch.full((n, 1), 3, dtype=torch.int64, device='cuda')
-    with torch.no_grad():
-        model.query_sigma(pts[:4096], ids[:4096])
-        torch.cuda.synchronize()
-        reset_counts()
-        t0 = time.perf_counter()
-        sigma = model.query_sigma(pts, ids)
-        torch.cuda.synchronize()
-        secs = time.perf_counter() - t0
-        counts['se3', 'query_sigma'] = read_counts(
-            {'fused_se3_fwd': 1, 'fused_field_fwd': 1,
-             'fused_template_fwd': 1}, 'se3 query_sigma')
-        with plain_versions():
-            want = model.query_sigma(pts[:4099], ids[:4099])
-    diff = (sigma[:4099] - want).abs()
-    if sigma.shape != (n,) or not torch.isfinite(sigma).all() \
-            or (sigma < 0).any() \
-            or (diff > LEVEL_ATOL + LEVEL_RTOL * want.abs()).any():
-        raise AssertionError(f'se3 query_sigma: shape {tuple(sigma.shape)}, '
-                             f'max|d| {diff.max().item():.3e}')
-    phase(f'[12] se3 query_sigma on {n} points: {secs * 1e3:.2f} ms; '
-          f'launches {counts["se3", "query_sigma"]}; vs the plain versions '
-          f'on 4099 points max|d| {diff.max().item():.3e} (tol '
-          f'{LEVEL_ATOL}+{LEVEL_RTOL}|want|)')
+    counts['se3', 'query_sigma'] = query_sigma_path(
+        'se3', {'fused_se3_fwd': 1, 'fused_field_fwd': 1,
+                'fused_template_fwd': 1}, '[12]')
     for k in kernels:
         name = k['name']
         for (label, path), launches in counts.items():
@@ -2363,6 +2425,8 @@ def main() -> int:
           f'{ptxas_lines(build.build_log(), FIELDS_BWD_SOURCES)}')
     phase(f'[2] per-module forwards (the same): '
           f'{ptxas_lines(build.build_log(), MODULAR_FWD_SOURCES)}')
+    phase(f'[2] a field alone backward, on kernel B\'s block (the same): '
+          f'{ptxas_lines(build.build_log(), FIELD_BWD_SOURCES)}')
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False

@@ -52,8 +52,8 @@ _SIGNATURES = {
     'hn_fused_fields_bwd': ([_I] + [_P] * 12 + [_L, _I, _I, _P], _I),
     'hn_fused_fields_bwd_plan': ([_I, _P, _P, _P, _I], _I),
     'hn_fused_field_fwd': ([_I] + [_P] * 5 + [_L, _P], _I),
-    'hn_fused_field_bwd_blocks': ([_L], _I),
     'hn_fused_field_bwd': ([_I] + [_P] * 8 + [_L, _I, _P], _I),
+    'hn_fused_field_bwd_plan': ([_I, _P, _P, _P, _I], _I),
     'hn_fused_se3_fwd': ([_P] * 5 + [_L, _P], _I),
     'hn_fused_se3_bwd_blocks': ([_L], _I),
     'hn_fused_se3_bwd': ([_P] * 8 + [_L, _I, _P], _I),

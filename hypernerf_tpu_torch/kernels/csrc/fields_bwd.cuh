@@ -1,7 +1,9 @@
 // The fields backward (kernel B) for Hopper (sm_90a): the kernel template
 // and its launcher, instantiated once per warp type by fields_bwd_trans.cu,
 // fields_bwd_se3.cu and fields_bwd_quat.cu (one nvcc process each);
-// fused_level.cu holds the entry points that dispatch to them.
+// fused_level.cu holds the entry points that dispatch to them. Its block,
+// slab pool, buffer plan and walk-back also run one field alone, from the
+// field's own blobs (fields_bwd_alone.cu).
 //
 // Replaces hypernerf_tpu/ops/pallas/fused_level.py `_fields_bwd_call` (:846,
 // the tile body `_fields_bwd_core_gen` :409-450 over fused_field.py
@@ -487,15 +489,17 @@ __device__ __forceinline__ void spill_enc(Ctx& c) {
 }
 
 // [posenc_orig(pts, NF) | embed | 0 pad] of the warpgroup's rows into the
-// field's encoding slots (as level_fwd.cuh's encode_posenc).
+// field's encoding slots (as level_fwd.cuh's encode_posenc). scales: null
+// (the level), or a field alone's window row over the KP columns
+// (window_feature).
 template <int F, int NF>
-__device__ __forceinline__ void encode_field(Ctx& c) {
+__device__ __forceinline__ void encode_field(
+    Ctx& c, const float* __restrict__ scales) {
   constexpr int kPairs = 3 * NF, KP = enc_cols(F), kRest = KP - 2 * kPairs;
   const float(*in)[12] = c.rows->in + c.group * kRows;
-  auto put = [&](int r, int col, float v) {
+  auto put = [&c, scales](int r, int col, float v) {
     const uint32_t box = c.half(slot_of<F, kEnc, kFwd>(col >> 6));
-    const bf16 h = __float2bfloat16_rn(v);
-    lf::sts16(lf::x_at(box, r, col & 63), h);
+    lf::sts16(lf::x_at(box, r, col & 63), window_feature(v, col, scales));
   };
 #pragma unroll 4
   for (int e = c.tid; e < kRows * kPairs; e += 128) {
@@ -947,6 +951,30 @@ __device__ __forceinline__ void encoding_vjp(Ctx& c, float* dst, int stride,
 
 // -- the kernel ----------------------------------------------------------------
 
+// The block's shared memory: the slab pool at `base` (1024-byte aligned),
+// the ring, the row scratch and one reload mbarrier per buffer; the ring's
+// and the reloads' mbarriers are initialised, then the block synchronises.
+__device__ __forceinline__ void lay_out(uint8_t*& base, Ring& ring,
+                                        Rows*& rows, uint64_t*& reload) {
+  extern __shared__ uint8_t smem_raw[];
+  base = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
+  uint8_t* ring_base = base + kSlots * kSlabBytes;
+  rows = reinterpret_cast<Rows*>(ring_base + kStages * kStageBytes);
+  uint64_t* full = reinterpret_cast<uint64_t*>(rows + 1);
+  uint64_t* empty = full + kStages;
+  reload = empty + kStages;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], kArrivals);
+    }
+    for (int b = 0; b < kBufs; ++b) mbar_init(&reload[b], 1);
+    fence_barrier_init();
+  }
+  __syncthreads();
+  ring = Ring{ring_base, full, empty, 0, 0};
+}
+
 template <int kWarp>
 __global__ void __launch_bounds__(kThreads, 1)
     fields_bwd_kernel(const __grid_constant__ lf::Maps<Table<kWarp>> maps,
@@ -963,27 +991,12 @@ __global__ void __launch_bounds__(kThreads, 1)
   using T = Table<kWarp>;
   constexpr int FW = warp_field<kWarp>();
   constexpr long long kGradW = weight_offset<T>(T::kFields);
-  extern __shared__ uint8_t smem_raw[];
-  uint8_t* base =
-      smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
-  uint8_t* ring_base = base + kSlots * kSlabBytes;
-  Rows* rows = reinterpret_cast<Rows*>(ring_base + kStages * kStageBytes);
-  uint64_t* full = reinterpret_cast<uint64_t*>(rows + 1);
-  uint64_t* empty = full + kStages;
-  uint64_t* reload = empty + kStages;
-
-  if (threadIdx.x == 0) {
-    for (int s = 0; s < kStages; ++s) {
-      mbar_init(&full[s], 1);
-      mbar_init(&empty[s], kArrivals);
-    }
-    for (int b = 0; b < kBufs; ++b) mbar_init(&reload[b], 1);
-    fence_barrier_init();
-  }
-  __syncthreads();
-
+  uint8_t* base;
+  Ring ring;
+  Rows* rows;
+  uint64_t* reload;
+  lay_out(base, ring, rows, reload);
   const long long n_tiles = (n_points + kTileRows - 1) / kTileRows;
-  Ring ring{ring_base, full, empty, 0, 0};
   const int group = threadIdx.x >> 7;
 
   if (group == kGroups) {  // the producer warpgroup
@@ -1048,7 +1061,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     c.mark(kCyRow);
 
     // The hyper sheet: recompute, walk back, its d[pts | embed] -> acc[8:19].
-    encode_field<kSheet, kHypF>(c);
+    encode_field<kSheet, kHypF>(c, nullptr);
     fence_async_smem();
     c.sync();
     c.mark(kCyEnc);
@@ -1078,7 +1091,7 @@ __global__ void __launch_bounds__(kThreads, 1)
         h[0] = rw.acc[R][0], h[1] = rw.acc[R][1], h[2] = rw.acc[R][2];
         h[3] = 0.f;
       }
-      encode_field<kTransWarp, kWarpF>(c);
+      encode_field<kTransWarp, kWarpF>(c, nullptr);
       fence_async_smem();
       c.sync();
       spill_enc<kTransWarp>(c);
@@ -1172,6 +1185,50 @@ __global__ void __launch_bounds__(kThreads, 1)
     c.sync();
     c.mark(kCyRay);
   }
+}
+
+// -- host side ---------------------------------------------------------------
+
+// The plan as the entry points report it: config[0:9] = rows of a block
+// tile, consumer warpgroups, ring stages, bytes of a stage, dynamic shared
+// memory, threads, slabs of the pool, spill slabs a block, copies of the
+// gradient buffer.
+inline void plan_config(int* config) {
+  const int c[] = {kTileRows,   kGroups,   kStages,     kStageBytes,
+                   kSmemBytes,  kThreads,  kSlots,      kSpillSlabs,
+                   kGradCopies};
+  for (int i = 0; i < 9; ++i) config[i] = c[i];
+}
+
+// Field f's buffer plan, six ints per buffer (enc, h0..h5, T, skip):
+// forward slots (2), spill slab, the walk-back layer after which it is
+// reloaded, reload slots (2).
+inline void plan_table(int f, int* table) {
+  for (int b = 0; b < kBufs; ++b) {
+    const BufPlan p = buf_plan(f, b);
+    const int row[6] = {p.fwd[0], p.fwd[1],    p.spill,
+                        p.after,  p.reload[0], p.reload[1]};
+    for (int i = 0; i < 6; ++i) table[6 * b + i] = row[i];
+  }
+}
+
+// The weight loads of layers first .. first + count - 1 of T, forward, then
+// backward, as (layer, 64-column box of K, box rows) at loads[3 n ...];
+// returns the count of loads so far (written up to max_loads).
+template <class T>
+int plan_loads(int first, int count, int* loads, int n, int max_loads) {
+  auto layer = [&](int l) {
+    const Shape s = T::shape(l);
+    for (int kb = 0; kb < lf::k_boxes(s); ++kb, ++n)
+      if (n < max_loads) {
+        loads[3 * n] = l;
+        loads[3 * n + 1] = kb;
+        loads[3 * n + 2] = lf::box_rows(s);
+      }
+  };
+  for (int i = 0; i < count; ++i) layer(first + i);
+  for (int i = count - 1; i >= 0; --i) layer(first + i);
+  return n;
 }
 
 // Host side: the tensor maps of the blob W (level_fwd.cuh's, cached), the

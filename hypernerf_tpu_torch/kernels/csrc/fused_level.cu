@@ -63,39 +63,6 @@ extern "C" int hn_fused_level_fwd(int warp_type, const void* z,
   return (int)cudaErrorInvalidValue;
 }
 
-namespace {
-
-void fields_bwd_plan_of(int field, int* table) {
-  for (int b = 0; b < fb::kBufs; ++b) {
-    const fb::BufPlan p = fb::buf_plan(field, b);
-    const int row[6] = {p.fwd[0], p.fwd[1],    p.spill,
-                        p.after,  p.reload[0], p.reload[1]};
-    for (int i = 0; i < 6; ++i) table[6 * b + i] = row[i];
-  }
-}
-
-template <class T>
-int fields_bwd_loads(int warp_field, int* loads, int max_loads) {
-  int n = 0;
-  auto layer = [&](int l) {
-    const Shape s = T::shape(l);
-    for (int kb = 0; kb < lf::k_boxes(s); ++kb, ++n)
-      if (n < max_loads) {
-        loads[3 * n] = l;
-        loads[3 * n + 1] = kb;
-        loads[3 * n + 2] = lf::box_rows(s);
-      }
-  };
-  const int nw = fb::top(warp_field) + 1;
-  for (int i = 0; i < 6; ++i) layer(T::kWarp + i);
-  for (int i = 5; i >= 0; --i) layer(T::kWarp + i);
-  for (int i = 0; i < nw; ++i) layer(i);
-  for (int i = nw - 1; i >= 0; --i) layer(i);
-  return n;
-}
-
-}  // namespace
-
 // The fields backward's plan for warp type `warp_type`: config[0:9] = rows
 // of a block tile, consumer warpgroups, ring stages, bytes of a stage,
 // dynamic shared memory, threads, slabs of the pool, spill slabs a block,
@@ -109,20 +76,25 @@ int fields_bwd_loads(int warp_field, int* loads, int max_loads) {
 extern "C" int hn_fused_fields_bwd_plan(int warp_type, int* config,
                                         int* table, int* loads,
                                         int max_loads) {
-  const int c[] = {fb::kTileRows,  fb::kGroups,      fb::kStages,
-                   fb::kStageBytes, fb::kSmemBytes,    fb::kThreads,
-                   fb::kSlots,      fb::kSpillSlabs, fb::kGradCopies};
-  for (int i = 0; i < 9; ++i) config[i] = c[i];
+  fb::plan_config(config);
   const int wf = warp_type == 0 ? fb::kTransWarp : fb::kSe3Warp;
-  fields_bwd_plan_of(fb::kSheet, table);
-  fields_bwd_plan_of(wf, table + 6 * fb::kBufs);
-  return warp_type == 0
-             ? fields_bwd_loads<TransTable>(wf, loads, max_loads)
-             : fields_bwd_loads<Se3Table>(wf, loads, max_loads);
+  fb::plan_table(fb::kSheet, table);
+  fb::plan_table(wf, table + 6 * fb::kBufs);
+  const int nw = fb::top(wf) + 1;
+  // The sheet's six hidden layers, then the warp's (the SE(3) trunk's seven).
+  if (warp_type == 0) {
+    const int n =
+        fb::plan_loads<TransTable>(TransTable::kWarp, 6, loads, 0, max_loads);
+    return fb::plan_loads<TransTable>(0, nw, loads, n, max_loads);
+  }
+  const int n =
+      fb::plan_loads<Se3Table>(Se3Table::kWarp, 6, loads, 0, max_loads);
+  return fb::plan_loads<Se3Table>(0, nw, loads, n, max_loads);
 }
 
-// Blocks of the fields backward's persistent grid for n_points samples:
-// one per SM, never more than there are block tiles.
+// Blocks of the fields backward's persistent grid for n_points samples (a
+// field alone's too, fields_bwd_alone.cu): one per SM, never more than
+// there are block tiles.
 extern "C" int hn_fused_fields_bwd_blocks(long long n_points) {
   int dev = 0, sms = 0;
   if (current_device(&dev, &sms)) return 0;

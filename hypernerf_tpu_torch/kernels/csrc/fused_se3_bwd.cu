@@ -3,7 +3,7 @@
 //
 // Replaces hypernerf_tpu/ops/pallas/fused_se3.py `_fused_bwd` (:412, the tile
 // body `_backward_tile_gen` :234-282 with the encoding's VJP `_encode_bwd_gen`
-// :126-151) for the trunk fused_se3.cu computes.
+// :126-151) for the trunk that modular_fwd.cu's trunk stage computes.
 //
 // In:  x_raw (P, 11) fp32 [pts | embed] per sample, the optional window row,
 //      g (P, 8) fp32 = d[w | v | 0 0], the trunk's packed bf16 weights, their

@@ -3,7 +3,7 @@
 //
 // Replaces hypernerf_tpu/ops/pallas/fused_se3_jacobian.py `_fused_fwd`
 // (:286, the tile body `_jac_fwd_tile` :112-151 with the tangent encoding
-// `_tangent_encode` :59-80) for the flagship's trunk (fused_se3.cu's):
+// `_tangent_encode` :59-80) for the flagship's trunk (modular_fwd.cu's):
 // Nerfies posenc(pts, degrees 0..8, no identity) ++ embed (56 -> 64) -> 6 x 128
 // (skip after layer 4) -> linear 128 -> 128 -> the w and v heads, bf16.
 //
@@ -24,7 +24,7 @@
 // Bound: 113,408 multiply-adds per sample and row block, four blocks, against
 // 44 + 96 bytes moved per sample, so operations bound it (262,144 samples:
 // 0.24 ms at the card's bf16 peak).
-// Design (as fused_jacobian.cu): fused_se3.cu's plan h_a | enc | h_b on 16
+// Design (as fused_jacobian.cu): a column plan h_a | enc | h_b on 16
 // points (64 rows), one weight fragment per k-step for all four blocks; the
 // two heads run one after the other on warp 0. Two blocks fit an SM.
 

@@ -1,8 +1,7 @@
-// Building blocks of the field backward kernels (fused_field_bwd.cu and the
-// SE(3) / Jacobian backwards through field_bwd.cuh, se3_trunk.cuh,
-// jacobian.cuh); the SE(3) trunk's and the Jacobians' forward kernels
-// (fused_se3.cu, jacobian.cuh) take gemm, fwd_layer and head_fwd from here
-// too. (The template backward, kernel A, works a layer at a time over a
+// Building blocks of the field backward kernels (the SE(3) and Jacobian
+// backwards through field_bwd.cuh, se3_trunk.cuh, jacobian.cuh); the
+// Jacobians' forward kernels (jacobian.cuh) take gemm and fwd_layer from
+// here too. (The template backward, kernel A, works a layer at a time over a
 // stash instead: template_rowprod.cu, template_dw.cu; the level's fields
 // backward, kernel B, keeps a 128-row block tile resident: fields_bwd.cuh.)
 //

@@ -4,7 +4,9 @@
 // process each); fused_level.cu holds the entry point that dispatches to
 // them. Its three stages (the warp, the sheet, the template) are device
 // functions on one block (enter_block), which modular_fwd.cu runs
-// one at a time for the per-module path: a field alone, the template alone.
+// one at a time for the per-module path: a field alone, the template alone,
+// the SE(3) / quaternion trunk alone (the screw warp's stage without its
+// retraction).
 //
 // Replaces hypernerf_tpu/ops/pallas/fused_level.py `_fused` (forward,
 // fused_level.py:1322; `_fwd_call_pipelined`, :1019, is a schedule of the
@@ -647,8 +649,8 @@ __device__ __forceinline__ long long first_row(const Group& g,
 // The level's three stages are runs of its layer table: the warp (layers
 // [0, T::kWarp)), the sheet ([T::kWarp, T::kFields)) and the template
 // ([T::kFields, T::kNum)). The level kernel calls them in turn; the
-// per-module kernels (modular_fwd.cu) call one alone, with its own row
-// inputs and outputs. A stage reads its rows from the warpgroup's Rows and
+// per-module kernels (modular_fwd.cu) call one alone (or the screw warp's
+// trunk_stage), with its own row inputs and outputs. A stage reads its rows from the warpgroup's Rows and
 // leaves its outputs there.
 
 // A field (layers L0 .. L0 + 6 of T: posenc_orig of rows.in's points over F
@@ -683,10 +685,11 @@ __device__ __forceinline__ void translation_stage(const Group& g, Ring& ring,
     rw.raw[e / 3][e % 3] = rw.in[e / 3][e % 3] + rw.head[e / 3][e % 3];
 }
 
-// The SE(3) / quaternion warp: trunk -> (w, v) -> rows.raw[:, 0:3] =
-// retraction(w, v, pts).
-template <class T, int kWarp>
-__device__ __forceinline__ void screw_stage(const Group& g, Ring& ring,
+// The SE(3) / quaternion trunk (layers 0 .. kSe3HeadV of T) on rows.in:
+// rows.head[:, 0:3] = w, rows.head[:, 3:6] = v. scales: null, or the
+// window row.
+template <class T>
+__device__ __forceinline__ void trunk_stage(const Group& g, Ring& ring,
                                             const bf16* Bs,
                                             const float* __restrict__ scales) {
   Rows& rw = *g.rows;
@@ -702,6 +705,16 @@ __device__ __forceinline__ void screw_stage(const Group& g, Ring& ring,
   hidden<T, kSe3Trunk, false>(g, ring, Bs);  // rounded, no ReLU
   head<T, kSe3HeadW>(g, ring, Bs, &rw.head[0][0], 8, 3);
   head<T, kSe3HeadV>(g, ring, Bs, &rw.head[0][3], 8, 3);
+}
+
+// The SE(3) / quaternion warp: trunk -> (w, v) -> rows.raw[:, 0:3] =
+// retraction(w, v, pts).
+template <class T, int kWarp>
+__device__ __forceinline__ void screw_stage(const Group& g, Ring& ring,
+                                            const bf16* Bs,
+                                            const float* __restrict__ scales) {
+  Rows& rw = *g.rows;
+  trunk_stage<T>(g, ring, Bs, scales);
   if (g.tid < kRows)
     retract<kWarp == 2>(rw.head[g.tid], rw.head[g.tid] + 3, rw.in[g.tid],
                         rw.raw[g.tid]);

@@ -1,12 +1,15 @@
-// The per-module forward kernels for Hopper (sm_90a): a field alone and the
-// template alone, each one stage of the level forward (level_fwd.cuh) run
-// on the level forward's block, from the stage's own weight blob.
+// The per-module forward kernels for Hopper (sm_90a): a field alone, the
+// template alone and the SE(3) / quaternion trunk alone, each one stage of
+// the level forward (level_fwd.cuh) run on the level forward's block, from
+// the stage's own weight blob.
 //
 // Replaces hypernerf_tpu/ops/pallas/fused_field.py `_fused` (:495, the tile
-// body `_forward_tile_gen` :331-354 over `_encode_gen` :181-213) and
+// body `_forward_tile_gen` :331-354 over `_encode_gen` :181-213),
 // hypernerf_tpu/ops/pallas/fused_mlp.py `_fwd_call` (:656, the tile body
 // `_forward_tile_gen` :319-379 with the in-kernel encoding of
-// `enc_segments`), for the flagship widths.
+// `enc_segments`) and hypernerf_tpu/ops/pallas/fused_se3.py `_fused` (:374,
+// the tile body `_forward_tile_gen` :200-226 over `_encode_gen` :91-112),
+// for the flagship widths.
 //
 // A field alone (hn_fused_field_fwd): the warp field (layers 0..6 of
 // TransTable: posenc_orig(pts, 10) ++ embed -> 6 x 128 -> 3) or the hyper
@@ -26,13 +29,20 @@
 // encoded inputs) runs through the same kernel: the wrapper packs zero
 // weight columns for the hyper bands, whose encoding of the zero input ([0 |
 // sin 0 | cos 0]) then adds exactly nothing.
-// Rounding points are the level kernel's (level_fwd.cuh); a field's window
-// row multiplies the rounded feature, which is rounded again.
+// The trunk alone (hn_fused_se3_fwd): the Nerfies posenc(pts, degrees 0..8,
+// no identity) ++ embed (56 -> 64) -> 6 x 128 (skip after layer 4) ->
+// linear 128 -> 128, rounded -> the w and the v head, 128 -> 3 each
+// (layers 0..8 of Se3Table, the level's screw_stage without its
+// retraction). In: x_raw (P, 11) fp32 rows [pts | embed]; an optional
+// window row `scales` (64 fp32, `warp_alpha`); the trunk's own blobs. Out:
+// (P, 8) fp32 [w | v | 0 0]; the retraction is the caller's.
+// Rounding points are the level kernel's (level_fwd.cuh); a window row
+// multiplies the rounded feature, which is rounded again.
 //
 // Bound: the template does 686,976 multiply-adds a row against 48 bytes
-// moved, the warp field 100,480 and the sheet 27,520 against 76 bytes, so
-// operations bound all three (8192 x 128 rows: 1.457, 0.213 and 0.058 ms
-// at the card's dense bf16 rate).
+// moved, the warp field 100,480, the sheet 27,520 and the trunk 113,408
+// against 76 bytes, so operations bound all four (8192 x 128 rows: 1.457,
+// 0.213, 0.058 and 0.240 ms at the card's dense bf16 rate).
 // Design: the level forward's block (a persistent grid; consumer
 // warpgroups, each with its 64-row activation tile resident in swizzled
 // shared memory; `wgmma` products; the stage's weights streamed by TMA
@@ -47,7 +57,9 @@
 // reads and writes only the first 256 (warp) or 128 (sheet) columns: so
 // the warp field's block takes three tiles and the sheet's four, whose row
 // work hides one another's latency and drifts apart from other tiles'
-// products.
+// products. The trunk reads and writes 128 hidden and 64 encoded columns
+// and has the warp field's row work (27 sincos pairs a row against 30), so
+// it takes the warp field's block of three 256-column tiles.
 
 #include "level_fwd.cuh"
 
@@ -69,6 +81,15 @@ struct FieldStage {
 using WarpStage = FieldStage<0, kWarpF, 3, Block<3, 256>>;
 using SheetStage = FieldStage<MT::kWarp, kHypF, kHypOut, Block<4, 128>>;
 static_assert(SheetStage::kLast == MT::kFields, "the sheet ends the fields");
+
+// The SE(3) / quaternion trunk alone: layers [0, kWarp) of Se3Table on the
+// warp field's block.
+struct TrunkStage {
+  using T = Se3Table;
+  using Blk = Block<3, 256>;
+  static constexpr int kFirst = 0, kLast = T::kWarp;
+  static_assert(kSe3HeadV + 1 == kLast, "the heads end the trunk");
+};
 
 // A field's row inputs: x_raw rows [pts | embed] into rows.in, zeros past
 // P. The tile's rows are one run of 64 x 11 floats: every thread's loads go
@@ -166,6 +187,38 @@ __global__ void __launch_bounds__(LevelBlock::kThreads, 1)
   }
 }
 
+__global__ void __launch_bounds__(TrunkStage::Blk::kThreads, 1)
+    trunk_fwd_kernel(const __grid_constant__ Maps<Se3Table> maps,
+                     const float* __restrict__ x_raw,
+                     const float* __restrict__ scales,
+                     const bf16* __restrict__ B, float* __restrict__ out,
+                     long long n_points) {
+  using S = TrunkStage;
+  Group g;
+  Ring ring;
+  const bf16* Bs;
+  if (!enter_block<S::Blk, S::T, S::kFirst, S::kLast>(maps, B, n_points, g,
+                                                      ring, Bs))
+    return;
+  Rows& rw = *g.rows;
+  const long long n_steps = tile_steps<S::Blk>(n_points);
+  for (long long step = blockIdx.x; step < n_steps;
+       step += gridDim.x, ++g.it) {
+    const long long row0 = first_row<S::Blk>(g, step);
+    field_rows(g, row0, n_points, x_raw);
+    g.sync();
+    trunk_stage<S::T>(g, ring, Bs, scales);
+    // [w | v | 0 0], a row as two float4 (the heads ended in a barrier).
+    const int r = g.tid >> 1, h = g.tid & 1;
+    if (row0 + r < n_points) {
+      const float* v = rw.head[r] + 4 * h;
+      reinterpret_cast<float4*>(out)[2 * (row0 + r) + h] =
+          h ? make_float4(v[0], v[1], 0.f, 0.f)
+            : make_float4(v[0], v[1], v[2], v[3]);
+    }
+  }
+}
+
 template <class S>
 int launch_field(const void* x_raw, const void* scales, const void* weights,
                  const void* biases, void* out, long long n_points,
@@ -208,6 +261,31 @@ extern "C" int hn_fused_field_fwd(int which, const void* x_raw,
   return (int)cudaErrorInvalidValue;
 }
 
+// weights / biases: the trunk's nine layers alone (layers 0..8 of Se3Table).
+// scales: null, or the 64 fp32 window weights of its encoding.
+extern "C" int hn_fused_se3_fwd(const void* x_raw, const void* scales,
+                                const void* weights, const void* biases,
+                                void* out, long long n_points, void* stream) {
+  using namespace lf;
+  using S = TrunkStage;
+  if (n_points <= 0) return (int)cudaErrorInvalidValue;
+  static std::atomic<int> configured[kMaxDevices];
+  unsigned grid = 0;
+  int status = block_grid<S::Blk>(trunk_fwd_kernel, configured, n_points,
+                                  &grid);
+  if (status) return status;
+  Maps<S::T> maps;
+  status = make_maps<S::T>(&maps, static_cast<const bf16*>(weights),
+                           S::kFirst, S::kLast);
+  if (status) return status;
+  trunk_fwd_kernel<<<grid, S::Blk::kThreads, S::Blk::kSmemBytes,
+                     (cudaStream_t)stream>>>(
+      maps, static_cast<const float*>(x_raw),
+      static_cast<const float*>(scales), static_cast<const bf16*>(biases),
+      static_cast<float*>(out), n_points);
+  return (int)cudaGetLastError();
+}
+
 // weights / biases: the template's 16 layers alone (layers 14..29 of the
 // table). samples: consecutive rows that share one row of rgb_cond.
 extern "C" int hn_fused_template_fwd(const void* x_raw, const void* rgb_cond,
@@ -234,7 +312,8 @@ extern "C" int hn_fused_template_fwd(const void* x_raw, const void* rgb_cond,
 }
 
 // The plan of per-module stage `stage` (0 the warp field, 1 the sheet, 2 the
-// template; lf::forward_plan of its block over its layers of the table):
+// template, 3 the SE(3) trunk; lf::forward_plan of its block over its
+// layers of the table, TransTable's or, for the trunk, Se3Table's):
 // config[0:8], in_cols[i] for its i-th layer, and the weight loads of one
 // step of tiles. Returns the number of loads (written up to max_loads), or
 // -1 for an unknown stage.
@@ -253,6 +332,10 @@ extern "C" int hn_modular_fwd_plan(int stage, int* config, int* in_cols,
     case 2:
       return forward_plan<LevelBlock, MT>(MT::kFields, MT::kNum, config,
                                           in_cols, loads, max_loads);
+    case 3:
+      return forward_plan<TrunkStage::Blk, TrunkStage::T>(
+          TrunkStage::kFirst, TrunkStage::kLast, config, in_cols, loads,
+          max_loads);
   }
   return -1;
 }

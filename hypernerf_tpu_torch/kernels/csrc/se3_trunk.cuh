@@ -1,6 +1,8 @@
 // The SE(3) / quaternion warp field's trunk on a tile, and its retraction.
-// Shared by the trunk alone (fused_se3.cu, fused_se3_bwd.cu) and by the level
-// kernels' screw-warp variants (level_fwd.cuh, fields_bwd.cuh).
+// Shared by the trunk's backward alone (fused_se3_bwd.cu), the tangent
+// kernels (jacobian.cuh) and the level kernels' screw-warp variants
+// (level_fwd.cuh, whose trunk stage modular_fwd.cu also runs alone, and
+// fields_bwd.cuh).
 //
 // The trunk is Se3Table's layers 0..8: the Nerfies encoding of the points
 // (sin and cos of the degrees [kSe3MinDeg, kSe3MinDeg + 8), no identity
@@ -77,54 +79,6 @@ __device__ __forceinline__ void encode_se3(bf16* X, int col,
     }
     X[r * C::LD + col + f] = window_feature(v, f, scales);
   }
-}
-
-// The w and the v head on the rounded trunk at X[:, in_col : in_col + 128]:
-// wv[r][0:8] = [w (3) | v (3) | 0 0] fp32. Warp 0 takes w, warp 1 takes v.
-template <class C>
-__device__ __forceinline__ void se3_heads_fwd(const bf16* X, int in_col,
-                                              const bf16* __restrict__ W,
-                                              const bf16* __restrict__ B,
-                                              float* wv) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  if (warp < 2) {
-    const bf16* w = W + (warp == 0 ? weight_offset<Se3Table>(kSe3HeadW)
-                                   : weight_offset<Se3Table>(kSe3HeadV));
-    const bf16* bias = B + (warp == 0 ? bias_offset<Se3Table>(kSe3HeadW)
-                                      : bias_offset<Se3Table>(kSe3HeadV));
-    float acc[C::MT][4];
-#pragma unroll
-    for (int mt = 0; mt < C::MT; ++mt)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) acc[mt][c] = 0.f;
-#pragma unroll 2
-    for (int k0 = 0; k0 < kSe3W; k0 += 16) {
-      const bf16* wp = w + (size_t)g * kSe3W + k0 + 2 * t;
-      const uint32_t b0 = ldg32(wp), b1 = ldg32(wp + 8);
-#pragma unroll
-      for (int mt = 0; mt < C::MT; ++mt) {
-        const bf16* x = X + (mt * 16 + g) * C::LD + in_col + k0 + 2 * t;
-        mma_bf16(acc[mt], lds32(x), lds32(x + 8 * C::LD), lds32(x + 8),
-                 lds32(x + 8 * C::LD + 8), b0, b1);
-      }
-    }
-    const float bias0 = __bfloat162float(bias[2 * t]);
-    const float bias1 = __bfloat162float(bias[2 * t + 1]);
-#pragma unroll
-    for (int mt = 0; mt < C::MT; ++mt) {
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        float* dst = wv + (mt * 16 + g + 8 * h) * 8 + 3 * warp;
-        // Columns 0..2 of the head; its pad rows are zero weights.
-        if (2 * t < 3) dst[2 * t] = acc[mt][2 * h] + bias0;
-        if (2 * t + 1 < 3) dst[2 * t + 1] = acc[mt][2 * h + 1] + bias1;
-      }
-    }
-  }
-  for (int r = threadIdx.x; r < C::ROWS; r += C::THREADS)
-    wv[r * 8 + 6] = wv[r * 8 + 7] = 0.f;
-  __syncthreads();
 }
 
 // Recompute of the trunk on Se3Plan's columns, every layer's output kept.

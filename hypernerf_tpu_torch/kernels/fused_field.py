@@ -9,11 +9,13 @@ replaces the TPU kernel ``hypernerf_tpu/ops/pallas/fused_field.py``
 ``_fused``; its plan is ``fused_level.stage_plan``'s. On CPU tensors it
 runs ``fused_field_plain``, the same function composed from this package's
 modules. When a gradient is wanted the call goes through ``FusedFieldFn``,
-whose backward is ``fused_field_bwd``: the kernel ``csrc/fused_field_bwd.cu``
-(for the TPU kernel's ``_fused_bwd``) on CUDA tensors, and
+whose backward is ``fused_field_bwd``: on CUDA tensors the kernel
+``csrc/fields_bwd_alone.cu`` (for the TPU kernel's ``_fused_bwd``), the
+fields backward's block (kernel B, ``csrc/fields_bwd.cuh``) run on the
+field alone, whose plan is ``fused_level.field_bwd_plan``'s; on CPU tensors
 ``fused_field_bwd_plain``, written out without autograd and with the
-kernel's rounding points, on CPU tensors. On a CUDA tensor a wrapper launches
-its kernel or raises.
+kernel's rounding points. On a CUDA tensor a wrapper launches its kernel or
+raises.
 
 The optional ``scales`` row is the annealing window of the windowed
 encoding: one fp32 weight per encoded feature, multiplied into the rounded
@@ -27,6 +29,8 @@ The CUDA kernels are compiled for two fields: the flagship warp (6 x 128,
 """
 
 from __future__ import annotations
+
+import importlib
 
 import torch
 import torch.nn.functional as F
@@ -111,21 +115,17 @@ def fused_field_bwd_plain(mlp: MLP, n_freq: int, x_raw, g, scales=None):
 fused_field_bwd_plain.calls = 0
 
 
-def _launch_args(mlp: MLP, n_freq: int, x_raw, scales, transposed):
+def _launch_args(mlp: MLP, n_freq: int, x_raw, scales):
     """Checked inputs of a kernel launch: (index of the compiled field, the
-    padded window row or None, the packed blobs)."""
+    padded window row or None, the packed blobs and shapes)."""
     def check():
         if mlp.dtype != torch.bfloat16 or n_freq not in _COMPILED:
             raise NotImplementedError(
                 f'{common.NOT_COVERED}; got a field with {n_freq} bands in '
                 f'{mlp.dtype}')
 
-    layers = field_layers(mlp)
-    packs = [common.pack_layers(mlp, layers, check)]
-    if transposed:
-        packs.append(common.pack_layers(mlp, layers, check,
-                                        transposed=True))
-    shapes = packs[0][2]
+    packed = common.pack_layers(mlp, field_layers(mlp), check)
+    shapes = packed[2]
     check()
     table, which = _COMPILED[n_freq]
     common.check_layout(shapes, table)
@@ -135,7 +135,7 @@ def _launch_args(mlp: MLP, n_freq: int, x_raw, scales, transposed):
                        torch.float32, dev)
     scales = common.padded_scales(scales, mlp.hidden(0).in_features,
                                   shapes[0][1], dev)
-    return which, scales, packs
+    return which, scales, packed
 
 
 def _forward(mlp: MLP, n_freq: int, x_raw, scales):
@@ -144,8 +144,8 @@ def _forward(mlp: MLP, n_freq: int, x_raw, scales):
     if common.runs_plain(x_raw, 'fused_field'):
         out = fused_field_plain(mlp, n_freq, x_raw, scales)
         return F.pad(out.float(), (0, OUT_PAD - out.shape[1]))
-    which, scales, ((w_blob, b_blob, _),) = _launch_args(mlp, n_freq, x_raw,
-                                                         scales, False)
+    which, scales, (w_blob, b_blob, _) = _launch_args(mlp, n_freq, x_raw,
+                                                       scales)
     p = x_raw.shape[0]
     out = torch.empty((p, OUT_PAD), dtype=torch.float32, device=x_raw.device)
     if p:
@@ -201,23 +201,40 @@ class FusedFieldFn(torch.autograd.Function):
 
 def fused_field_bwd(mlp: MLP, n_freq: int, x_raw, g, scales=None):
     """Field backward (see ``fused_field_bwd_plain``): CPU tensors take the
-    plain version, CUDA tensors launch the kernel or raise."""
+    plain version, CUDA tensors launch the kernel or raise. The kernel reads
+    the field's one weight blob (no transposed form), adds dW / db into
+    ``fused_level.FB_GRAD_COPIES`` buffers that are summed here, and, where
+    its plan spills (the warp field), gets a per-block scratch."""
     if common.runs_plain(x_raw, 'fused_field_bwd'):
         return fused_field_bwd_plain(mlp, n_freq, x_raw, g, scales)
-    which, scales, ((w_blob, b_blob, shapes), (wt_blob, _, _)) = \
-        _launch_args(mlp, n_freq, x_raw, scales, True)
+    # fused_level models kernel B's block, which this kernel runs; it
+    # imports this module, so it is imported here (by its module path: the
+    # package re-exports a function of the same name).
+    fl = importlib.import_module('hypernerf_tpu_torch.kernels.fused_level')
+    which, scales, (w_blob, b_blob, shapes) = _launch_args(mlp, n_freq, x_raw,
+                                                           scales)
     dev, p = x_raw.device, x_raw.shape[0]
     build.check_tensor('g', g, (p, OUT_PAD), torch.float32, dev)
     dx_raw = torch.empty_like(x_raw)
-    grads, n_w = common.grad_buffer(shapes, dev)
+    grads, n_w = fl.fields_bwd_grad_copies(shapes, dev)
     if p:
-        blocks = build.library().hn_fused_field_bwd_blocks(p)
+        with torch.cuda.device(dev):
+            blocks = build.library().hn_fused_fields_bwd_blocks(p)
+        if blocks <= 0:
+            raise RuntimeError('hn_fused_fields_bwd_blocks: no device')
+        scratch = (torch.empty((blocks * fl.FB_SPILL_SLABS
+                                * fl.FB_SLAB_BYTES,), dtype=torch.uint8,
+                               device=dev)
+                   if fl.field_bwd_spills(('warp', 'sheet')[which])
+                   else None)
         common.launch('hn_fused_field_bwd', dev, which, x_raw.data_ptr(),
                       None if scales is None else scales.data_ptr(),
-                      g.data_ptr(), w_blob.data_ptr(), wt_blob.data_ptr(),
-                      b_blob.data_ptr(), dx_raw.data_ptr(), grads.data_ptr(),
-                      p, blocks)
+                      g.data_ptr(), w_blob.data_ptr(), b_blob.data_ptr(),
+                      dx_raw.data_ptr(), grads.data_ptr(),
+                      None if scratch is None else scratch.data_ptr(), p,
+                      blocks)
         fused_field_bwd.launches += 1
+    grads = grads.sum(0)
     return dx_raw, common.unpack_grads(grads[:n_w], grads[n_w:],
                                        field_layers(mlp), shapes)
 

@@ -16,7 +16,8 @@ CUDA tensor it launches the kernel or raises. The kernel's three stages
 also run alone on its block for the per-module path
 (``csrc/modular_fwd.cu``). ``forward_plan`` models the
 kernel's tiles, column plan and weight stream in Python, ``stage_plan`` a
-per-module kernel's, ``fields_bwd_plan`` kernel B's.
+per-module kernel's, ``fields_bwd_plan`` kernel B's and ``field_bwd_plan``
+a field alone backward's on kernel B's block.
 
 When a gradient is wanted the call goes through ``FusedLevelFn``: its
 forward also keeps ``raw_t``, the template's raw input [warped | hyper], and
@@ -301,15 +302,18 @@ def forward_plan(warp: str, shapes):
 # The per-module forward kernels (csrc/modular_fwd.cu) each run one stage of
 # the level forward on its block: the stage's layers of the translation
 # table (a per-module sheet or template is those layers whatever the warp),
-# from the stage's own blob, with the level's ring and column plan. Stage
-# -> (first layer, end), the code ``hn_modular_fwd_plan`` takes, and the
-# block: (consumer warpgroups, tile columns). A field reads and writes the
-# first 256 (warp) or 128 (sheet) columns of a tile, so three or four
-# tiles fit a block.
-MODULE_STAGES = {'warp': (0, 7), 'sheet': (7, 14), 'template': (14, 30)}
-MODULE_STAGE_CODES = {'warp': 0, 'sheet': 1, 'template': 2}
+# or, for 'se3', the SE(3) / quaternion trunk's of the SE(3) table (the
+# screw warp's stage without its retraction), from the stage's own blob,
+# with the level's ring and column plan. Stage -> (first layer, end), the
+# code ``hn_modular_fwd_plan`` takes, and the block: (consumer warpgroups,
+# tile columns). A field reads and writes the first 256 (warp) or 128
+# (sheet) columns of a tile, so three or four tiles fit a block; the trunk
+# takes the warp field's block.
+MODULE_STAGES = {'warp': (0, 7), 'sheet': (7, 14), 'template': (14, 30),
+                 'se3': (0, 9)}
+MODULE_STAGE_CODES = {'warp': 0, 'sheet': 1, 'template': 2, 'se3': 3}
 MODULE_BLOCKS = {'warp': (3, 256), 'sheet': (4, 128),
-                 'template': (FWD_GROUPS, FWD_TILE_COLS)}
+                 'template': (FWD_GROUPS, FWD_TILE_COLS), 'se3': (3, 256)}
 
 
 def stage_plan(stage: str, shapes):
@@ -322,7 +326,8 @@ def stage_plan(stage: str, shapes):
         raise ValueError(f'{stage}: {len(shapes)} layers, want '
                          f'{end - first}')
     groups, cols = MODULE_BLOCKS[stage]
-    return _plan(shapes, forward_in_cols()[first:end], first, groups, cols)
+    in_cols = forward_in_cols('se3' if stage == 'se3' else 'translation')
+    return _plan(shapes, in_cols[first:end], first, groups, cols)
 
 
 def _compiled_plan(fn_name: str, code: int, n_layers: int):
@@ -405,6 +410,18 @@ FB_PLANS = {
 }
 
 
+# The plan's config as the entry points report it (``fb::plan_config``).
+FB_CONFIG = (FB_TILE_ROWS, FB_GROUPS, FB_STAGES, FB_STAGE_BYTES,
+             FB_SMEM_BYTES, FB_THREADS, FB_SLOTS, FB_SPILL_SLABS,
+             FB_GRAD_COPIES)
+
+
+def _fb_table(field: str):
+    """FB_PLANS[field] as the entry points report it: six ints a buffer."""
+    return [v for fwd, spill, after, reload in FB_PLANS[field]
+            for v in (*fwd, spill, after, *reload)]
+
+
 def _warp_field(warp: str) -> str:
     return 'translation' if warp == 'translation' else 'se3'
 
@@ -425,30 +442,31 @@ def fields_bwd_plan(warp: str, shapes):
     """The compiled plan's fields (``hn_fused_fields_bwd_plan``): config,
     table (the sheet's buffer plan, then the warp field's, six ints a
     buffer) and loads."""
-    config = [FB_TILE_ROWS, FB_GROUPS, FB_STAGES, FB_STAGE_BYTES,
-              FB_SMEM_BYTES, FB_THREADS, FB_SLOTS, FB_SPILL_SLABS,
-              FB_GRAD_COPIES]
     table = [v for field in ('sheet', _warp_field(warp))
-             for fwd, spill, after, reload in FB_PLANS[field]
-             for v in (*fwd, spill, after, *reload)]
-    return dict(config=config, table=table,
+             for v in _fb_table(field)]
+    return dict(config=list(FB_CONFIG), table=table,
                 loads=fields_bwd_loads(warp, shapes))
+
+
+def _compiled_fb_plan(fn_name: str, code: int, n_fields: int):
+    config = (ctypes.c_int * len(FB_CONFIG))()
+    table = (ctypes.c_int * (n_fields * 6 * len(FB_BUFS)))()
+    max_loads = 256
+    loads = (ctypes.c_int * (3 * max_loads))()
+    n = getattr(build.library(), fn_name)(
+        code, ctypes.addressof(config), ctypes.addressof(table),
+        ctypes.addressof(loads), max_loads)
+    if not 0 <= n <= max_loads:
+        raise RuntimeError(f'{fn_name}: {n} loads')
+    return dict(config=list(config), table=list(table),
+                loads=[tuple(loads[3 * i:3 * i + 3]) for i in range(n)])
 
 
 def compiled_fields_bwd_plan(warp: str = 'translation'):
     """``fields_bwd_plan``'s fields as the compiled kernel reports them
     (``hn_fused_fields_bwd_plan``)."""
-    config = (ctypes.c_int * 9)()
-    table = (ctypes.c_int * (2 * 6 * len(FB_BUFS)))()
-    max_loads = 256
-    loads = (ctypes.c_int * (3 * max_loads))()
-    n = build.library().hn_fused_fields_bwd_plan(
-        common.WARP_CODES[warp], ctypes.addressof(config),
-        ctypes.addressof(table), ctypes.addressof(loads), max_loads)
-    if not 0 <= n <= max_loads:
-        raise RuntimeError(f'hn_fused_fields_bwd_plan: {n} loads')
-    return dict(config=list(config), table=list(table),
-                loads=[tuple(loads[3 * i:3 * i + 3]) for i in range(n)])
+    return _compiled_fb_plan('hn_fused_fields_bwd_plan',
+                             common.WARP_CODES[warp], 2)
 
 
 def fields_bwd_grad_copies(shapes, device):
@@ -464,9 +482,68 @@ def fields_bwd_grad_copies(shapes, device):
 def fields_bwd_stream_bytes(warp: str, shapes, n_points: int) -> int:
     """Weight bytes one call of kernel B reads from L2: each block tile
     reads its loads' in-bounds bytes once."""
+    return _stream_bytes(fields_bwd_loads(warp, shapes), shapes, 0, n_points)
+
+
+def _stream_bytes(loads, shapes, first: int, n_points: int) -> int:
     tiles = -(-n_points // FB_TILE_ROWS)
-    return tiles * sum(2 * rows * min(64, shapes[l][1] - 64 * kb)
-                       for l, kb, rows in fields_bwd_loads(warp, shapes))
+    return tiles * sum(2 * rows * min(64, shapes[l - first][1] - 64 * kb)
+                       for l, kb, rows in loads)
+
+
+# A field alone backward (csrc/fields_bwd_alone.cu) runs kernel B's block,
+# ring and slab pool on one field of the translation table (layers
+# MODULE_STAGES['warp'] or ['sheet']) from the field's own blob, with kernel
+# B's buffer plan of that field: the pool is empty when a field starts
+# either way, the sheet fits it and the warp field spills. Field -> the
+# code ``hn_fused_field_bwd`` and ``hn_fused_field_bwd_plan`` take, and its
+# row of FB_PLANS.
+FIELD_BWD_CODES = {'warp': 0, 'sheet': 1}
+FIELD_BWD_PLANS = {'warp': 'translation', 'sheet': 'sheet'}
+
+
+def field_bwd_spills(field: str) -> bool:
+    """Whether the field alone's plan spills (and the kernel wants a
+    scratch of FB_SPILL_SLABS slabs a block)."""
+    return any(spill >= 0 for _, spill, _, _ in
+               FB_PLANS[FIELD_BWD_PLANS[field]])
+
+
+def field_bwd_loads(field: str, shapes):
+    """[(layer, box of K, box rows)]: a block tile's weight loads of the
+    field alone, the layer numbered in the translation table: its six hidden
+    layers forward, then backward. ``shapes`` are the field's own blob's."""
+    first = MODULE_STAGES[field][0]
+    order = list(range(6)) + list(range(5, -1, -1))
+    return [(first + l, kb, min(shapes[l][0], FB_STAGE_BYTES // 128))
+            for l in order for kb in range(-(-shapes[l][1] // 64))]
+
+
+def field_bwd_plan(field: str, shapes):
+    """The compiled plan's fields of a field alone backward
+    (``hn_fused_field_bwd_plan``): config, table (the field's buffer plan,
+    six ints a buffer) and loads."""
+    first, end = MODULE_STAGES[field]
+    if len(shapes) != end - first:
+        raise ValueError(f'{field}: {len(shapes)} layers, want '
+                         f'{end - first}')
+    return dict(config=list(FB_CONFIG),
+                table=_fb_table(FIELD_BWD_PLANS[field]),
+                loads=field_bwd_loads(field, shapes))
+
+
+def compiled_field_bwd_plan(field: str):
+    """``field_bwd_plan``'s fields as the compiled kernel reports them
+    (``hn_fused_field_bwd_plan``)."""
+    return _compiled_fb_plan('hn_fused_field_bwd_plan',
+                             FIELD_BWD_CODES[field], 1)
+
+
+def field_bwd_stream_bytes(field: str, shapes, n_points: int) -> int:
+    """Weight bytes one call of a field alone backward reads from L2: each
+    block tile reads its loads' in-bounds bytes once."""
+    return _stream_bytes(field_bwd_loads(field, shapes), shapes,
+                         MODULE_STAGES[field][0], n_points)
 
 
 def _launch_forward(level: Level, z_vals, origins, directions, embed,

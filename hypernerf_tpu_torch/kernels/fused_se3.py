@@ -4,8 +4,11 @@ Nerfies encoding of raw [points | embedding] rows (sin and cos of the degrees
 trunk's output, and the two linear heads w and v that read it.
 
 ``fused_se3_wv`` is the wrapper. On CUDA tensors it launches the hand-written
-Hopper kernel ``csrc/fused_se3.cu`` (which replaces the TPU kernel
-``hypernerf_tpu/ops/pallas/fused_se3.py`` ``_fused``); on CPU tensors it runs
+Hopper kernel of ``csrc/modular_fwd.cu``, the level forward's trunk stage
+(``csrc/level_fwd.cuh``, the screw warp without its retraction) run alone on
+that kernel's block, which replaces the TPU kernel
+``hypernerf_tpu/ops/pallas/fused_se3.py`` ``_fused``; its plan is
+``fused_level.stage_plan('se3', ...)``'s. On CPU tensors it runs
 ``fused_se3_plain``, the same function composed from this package's modules.
 When a gradient is wanted the call goes through ``FusedSE3Fn``, whose backward
 is ``fused_se3_bwd``: the kernel ``csrc/fused_se3_bwd.cu`` (for the TPU

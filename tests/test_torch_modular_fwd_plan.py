@@ -35,7 +35,9 @@ from test_torch_level_fwd_plan import _RecordingLibrary, _run_ring, _tma_box
 ff = importlib.import_module('hypernerf_tpu_torch.kernels.fused_field')
 fm = importlib.import_module('hypernerf_tpu_torch.kernels.fused_mlp')
 
-STAGES = list(MODULE_STAGES)
+# The stages of the translation table; the SE(3) trunk's stage is held in
+# test_torch_se3_stage_plan.py.
+STAGES = ['warp', 'sheet', 'template']
 SMS = 132  # an H100's SMs: the persistent grid's width
 
 
@@ -123,11 +125,12 @@ def test_stage_bounds_are_map_runs():
     stages cover the table in order."""
     shapes = pack_level(_probe().level('fine'))[2]
     starts = {m0 for m0, _, _, _ in forward_maps(shapes)}
-    bounds = sorted({b for pair in MODULE_STAGES.values() for b in pair})
+    bounds = sorted({b for stage in STAGES for b in MODULE_STAGES[stage]})
     assert bounds == [0, 7, 14, 30] and len(shapes) == 30
     assert all(b in starts for b in bounds[:-1])
     level_maps = forward_maps(shapes)
-    for stage, (first, end) in MODULE_STAGES.items():
+    for stage in STAGES:
+        first, end = MODULE_STAGES[stage]
         mine = [(m0 + first, c, n, k)
                 for m0, c, n, k in forward_maps(shapes[first:end])]
         assert mine == [m for m in level_maps if first <= m[0] < end]
@@ -324,7 +327,8 @@ def test_shared_memory_fits():
                      'template': FWD_SMEM_BYTES}
     assert max(sizes.values()) <= 232448
     shapes = pack_level(_probe().level('fine'))[2]
-    for stage, (first, end) in MODULE_STAGES.items():
+    for stage in STAGES:
+        first, end = MODULE_STAGES[stage]
         b0 = 2 * sum(n for n, _ in shapes[:first])
         b1 = 2 * sum(n for n, _ in shapes[:end])
         assert b0 % 16 == 0 and (b1 - b0) % 16 == 0

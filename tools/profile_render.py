@@ -1,12 +1,15 @@
 #!/usr/bin/env python
 """Where a frame's time goes: torch.profiler over full 504x378 renders of
-the flagship, or one of its variants (``flagship.CONFIGS``), through the
-PyTorch port, on one CUDA card.
+the flagship, or one of its variants (``flagship.CONFIGS``; ``se3_split_glo``
+is ``se3`` with two GLO tables), through the PyTorch port, on one CUDA card.
 
   python tools/profile_render.py \
-      [--config flagship|static|split_glo|se3|quaternion] \
-      [--frames 2] [--chunk 8192] [--trace render_trace.json]
+      [--config flagship|static|split_glo|se3|quaternion|se3_split_glo] \
+      [--return_points] [--frames 2] [--chunk 8192] \
+      [--trace render_trace.json]
 
+``--return_points`` keeps each ray's median point as well (the per-module
+path, as ``chip_smoke.py``'s frames with ``return_points`` render).
 Prints the card, the wall time per frame, the device time per frame by
 kernel (largest first) and the device's busy share of the wall time (the
 sum of kernel times over the wall time; overlapping kernels would count
@@ -28,7 +31,8 @@ def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument('--config', default='flagship',
                         choices=('flagship', 'static', 'split_glo', 'se3',
-                                 'quaternion'))
+                                 'quaternion', 'se3_split_glo'))
+    parser.add_argument('--return_points', action='store_true')
     parser.add_argument('--frames', type=int, default=2)
     parser.add_argument('--chunk', type=int, default=8192)
     parser.add_argument('--trace', default=None,
@@ -47,9 +51,14 @@ def main() -> int:
     print(subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
                           '--format=csv,noheader'], capture_output=True,
                          text=True, check=True).stdout.strip())
-    model = flagship_model('cuda', config=args.config)
-    print(f'config {args.config}')
-    renderer = ImageRenderer(model, chunk=args.chunk, keep=('rgb',),
+    if args.config == 'se3_split_glo':
+        model = flagship_model('cuda', config='se3', share_glo=False)
+    else:
+        model = flagship_model('cuda', config=args.config)
+    print(f'config {args.config}'
+          + (', return_points' if args.return_points else ''))
+    keep = ('rgb', 'med_points') if args.return_points else ('rgb',)
+    renderer = ImageRenderer(model, chunk=args.chunk, keep=keep,
                              levels=('fine',), quantize=True)
     frames = spiral_rays(range(0, 30 * (args.frames + 1), 30))
     renderer(frames[0])  # build, first launches

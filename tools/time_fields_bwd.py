@@ -1,31 +1,74 @@
 #!/usr/bin/env python
-"""Kernel B's time (the fields backward, ``fused_fields_bwd``) on one CUDA
-card for each warp type at the train step's R = 16384 rays, S = 64 and 128
-samples, probe weights, CUDA events (mean of 5 launches after 2).
+"""The fields backward's times on one CUDA card: kernel B
+(``hn_fused_fields_bwd``) for each warp type at the train step's R = 16384
+rays, S = 64 and 128 samples, or, with ``--field warp|sheet``, that field
+alone (``hn_fused_field_bwd``) at 8192 x 128 and 16384 x 128 rows; probe
+weights, CUDA events (the mean of 5 launches after 2).
 
-  python tools/time_fields_bwd.py [--repo DIR]
+  python tools/time_fields_bwd.py [--parent DIR] [--field warp|sheet]
 
-``--repo`` times the port of another checkout (for example an unpacked
-``git archive`` of an earlier commit, whose ``fused_fields_bwd`` takes the
-same arguments): its package is imported and its kernels built in its own
-``build/``. Prints one line per warp type and S with the card's name and
-power limit first; exits non-zero without a card.
+With ``--parent`` the kernel library of another checkout (for example an
+unpacked ``git archive`` of an earlier commit), built from its own
+``kernels/csrc`` into its own ``build/``, is timed too, in turns in one
+process: this, parent, parent, this. Both get this checkout's packed blobs
+and the same inputs; kernel B's entry point takes the same arguments in
+both, a field alone's is called as the parent's ``build.py`` declares it
+(the 32-row kernel before the redesign: a transposed weight blob, one
+gradient buffer, ``hn_fused_field_bwd_blocks``). Prints the card's name and
+power limit first, then one line per kernel and shape with each library's
+times, the share of the bound (three multiply-adds per weight and row over
+989 TFLOP/s) and, with a parent, the ratio of the means and the largest
+differences of the outputs: d z, the per-ray sums (their last bits vary
+from run to run) or dx_raw, each as max|d|, and dW / db as the relative L2
+of the whole gradient (its last bits vary too). Exits non-zero without a
+card.
 """
 
 from __future__ import annotations
 
 import argparse
+import importlib
+import importlib.util
 import os
 import subprocess
 import sys
 
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, REPO)
+
+PEAK_FLOPS = 989e12
+
+
+def _library(repo: str, name: str):
+    """(the kernel library of the checkout at ``repo``, built from its
+    sources by its own ``build.py``; that ``build`` module)."""
+    path = os.path.join(repo, 'hypernerf_tpu_torch', 'kernels', 'build.py')
+    spec = importlib.util.spec_from_file_location(name, path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module.library(), module
+
+
+def _time(fn, iters: int = 5) -> float:
+    import torch
+    fn()
+    fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
 
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument('--repo', default=os.path.dirname(os.path.dirname(
-        os.path.abspath(__file__))))
+    parser.add_argument('--parent', default=None)
+    parser.add_argument('--field', default=None, choices=('warp', 'sheet'))
     args = parser.parse_args()
-    sys.path.insert(0, os.path.abspath(args.repo))
 
     import torch
     import torch.nn.functional as F
@@ -35,36 +78,138 @@ def main() -> int:
     from hypernerf_tpu_torch.flagship import (flagship_model,
                                               load_probe_weights,
                                               probe_inputs)
-    from hypernerf_tpu_torch.kernels import fused_fields_bwd
+    from hypernerf_tpu_torch.kernels import build, common
+    ff = importlib.import_module('hypernerf_tpu_torch.kernels.fused_field')
+    fl = importlib.import_module('hypernerf_tpu_torch.kernels.fused_level')
 
     print(subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
                           '--format=csv,noheader'], capture_output=True,
                          text=True, check=True).stdout.strip(), flush=True)
-    rays = 16384
+    libs = {'this': (build.library(), build)}
+    if args.parent:
+        libs['parent'] = _library(os.path.abspath(args.parent),
+                                  'parent_kernel_build')
+    order = (['this', 'parent', 'parent', 'this'] if args.parent
+             else ['this', 'this'])
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def inputs(rays, samples, seed):
+        return [torch.from_numpy(v).cuda()
+                for v in probe_inputs(rays, samples, seed).values()]
+
+    def rel_l2(a, b):
+        return ((a - b).norm() / b.norm().clamp_min(1e-30)).item()
+
+    def report(label, macs, rows, launch, n_grads):
+        """Times each library's launches in turns; launch(lib, bld) zeroes
+        and fills that library's outputs and returns them, the gradients
+        last (``n_grads`` buffers, flat or as copies to be summed)."""
+        times = {k: [] for k in libs}
+        for k in order:
+            times[k].append(_time(lambda: launch(*libs[k])))
+        bound = 6.0 * macs * rows / PEAK_FLOPS * 1e3
+        mean = {k: sum(v) / len(v) for k, v in times.items()}
+        parts = [f'{k} ' + ', '.join(f'{t:.3f}' for t in v) + ' ms'
+                 f' ({100 * bound / mean[k]:.1f} % of {bound:.4f})'
+                 for k, v in times.items()]
+        if 'parent' in libs:
+            got = {k: [t.clone() for t in launch(*libs[k])] for k in libs}
+            torch.cuda.synchronize()
+            n = len(got['this']) - n_grads
+            rows_d = ', '.join(f'{(a - b).abs().max().item():.3e}' for a, b
+                               in zip(got['parent'][:n], got['this'][:n]))
+            # The gradient copies a block adds into, summed.
+            sums = {k: [t.sum(0) if t.dim() == 2 else t for t in v[n:]]
+                    for k, v in got.items()}
+            grads_d = max(rel_l2(a, b) for a, b in
+                          zip(sums['this'], sums['parent']))
+            parts.append(f'parent / this {mean["parent"] / mean["this"]:.2f}x'
+                         f', rows max|d| {rows_d}, dW / db relative L2 '
+                         f'{grads_d:.3e}')
+        print(f'{label}: ' + '; '.join(parts), flush=True)
+
     with torch.no_grad():
+        if args.field:
+            probe = load_probe_weights(flagship_model('cuda'))
+            field = (probe.warp_field if args.field == 'warp'
+                     else probe.hyper_sheet_mlp)
+            mlp, n_freq = field.mlp, field.n_freq
+            layers = ff.field_layers(mlp)
+            macs = sum(lin.weight.numel() for lin, _ in layers)
+            out_ch = mlp.logit.out_features
+            which, _, (w, b, shapes) = ff._launch_args(
+                mlp, n_freq, torch.zeros((1, 11), device='cuda'), None)
+            wt = common.pack_layers(mlp, layers, transposed=True)[0]
+            for rays in (8192, 16384):
+                x = fl._raw_fields(*inputs(rays, 128, seed=rays)[:4])
+                x = x.contiguous()
+                p = x.shape[0]
+                g = F.pad(torch.randn(p, out_ch, generator=torch.Generator(
+                    ).manual_seed(rays)), (0, 8 - out_ch)).cuda()
+                dx = torch.empty_like(x)
+                copies, _ = fl.fields_bwd_grad_copies(shapes, 'cuda')
+                one = torch.zeros(copies.shape[1], device='cuda')
+                blocks = build.library().hn_fused_fields_bwd_blocks(p)
+                scratch = torch.empty(blocks * fl.FB_SPILL_SLABS
+                                      * fl.FB_SLAB_BYTES, dtype=torch.uint8,
+                                      device='cuda')
+
+                def launch(lib, bld):
+                    if 'hn_fused_field_bwd_plan' in bld._SIGNATURES:
+                        copies.zero_()
+                        bld.check(lib.hn_fused_field_bwd(
+                            which, x.data_ptr(), None, g.data_ptr(),
+                            w.data_ptr(), b.data_ptr(), dx.data_ptr(),
+                            copies.data_ptr(), scratch.data_ptr(), p,
+                            blocks, stream), 'hn_fused_field_bwd')
+                        return [dx, copies]
+                    one.zero_()
+                    bld.check(lib.hn_fused_field_bwd(
+                        which, x.data_ptr(), None, g.data_ptr(),
+                        w.data_ptr(), wt.data_ptr(), b.data_ptr(),
+                        dx.data_ptr(), one.data_ptr(), p,
+                        lib.hn_fused_field_bwd_blocks(p), stream),
+                        'hn_fused_field_bwd')
+                    return [dx, one]
+                report(f'{args.field} field backward P={p}', macs, p, launch,
+                       1)
+            return 0
+
+        rays = 16384
         for warp, config in (('translation', 'flagship'), ('se3', 'se3'),
                              ('quaternion', 'quaternion')):
             probe = load_probe_weights(flagship_model('cuda', config=config))
             for s in (64, 128):
                 level = probe.level('fine' if s == 128 else 'coarse')
-                z, o, d, emb, _ = [torch.from_numpy(v).cuda() for v in
-                                   probe_inputs(rays, s, seed=s + 3).values()]
+                w, b, shapes = fl.pack_level(level)
+                nf = len(shapes) - 16  # the field layers
+                macs = sum(lin.weight.numel()
+                           for lin, _ in fl.level_layers(level)[:nf])
+                z, o, d, emb, _ = inputs(rays, s, seed=s + 3)
                 dx_t = F.pad(torch.randn(
                     rays * s, 7, generator=torch.Generator().manual_seed(s)),
                     (0, 1)).cuda()
-                call = lambda: fused_fields_bwd(level, z, o, d, emb, dx_t)
-                call()
-                call()
-                start = torch.cuda.Event(enable_timing=True)
-                end = torch.cuda.Event(enable_timing=True)
-                torch.cuda.synchronize()
-                start.record()
-                for _ in range(5):
-                    call()
-                end.record()
-                torch.cuda.synchronize()
-                print(f'kernel B {warp} R={rays} S={s}: '
-                      f'{start.elapsed_time(end) / 5:.3f} ms', flush=True)
+                d_z = torch.empty((rays, s), device='cuda')
+                d_ray = torch.zeros((rays, 14), device='cuda')
+                copies, _ = fl.fields_bwd_grad_copies(shapes[:nf], 'cuda')
+                blocks = build.library().hn_fused_fields_bwd_blocks(rays * s)
+                scratch = torch.empty(blocks * fl.FB_SPILL_SLABS
+                                      * fl.FB_SLAB_BYTES, dtype=torch.uint8,
+                                      device='cuda')
+
+                def launch(lib, bld):
+                    d_ray.zero_()
+                    copies.zero_()
+                    bld.check(lib.hn_fused_fields_bwd(
+                        common.WARP_CODES[warp], z.data_ptr(), o.data_ptr(),
+                        d.data_ptr(), emb.data_ptr(), dx_t.data_ptr(), None,
+                        w.data_ptr(), b.data_ptr(), d_z.data_ptr(),
+                        d_ray.data_ptr(), copies.data_ptr(),
+                        scratch.data_ptr(), rays, s, blocks, stream),
+                        'hn_fused_fields_bwd')
+                    return [d_z, d_ray, copies]
+                report(f'kernel B {warp} R={rays} S={s}', macs, rays * s,
+                       launch, 1)
     return 0
 
 

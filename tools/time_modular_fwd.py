@@ -1,9 +1,10 @@
 #!/usr/bin/env python
 """The per-module forward kernels' times (the warp field and the sheet
-alone, ``hn_fused_field_fwd``; the template alone, ``hn_fused_template_fwd``)
-and the level forward's (``hn_fused_level_fwd``, translation) on one CUDA
-card, for this checkout's kernel library and, with ``--parent``, for
-another checkout's, in turns in one process: this, parent, parent, this.
+alone, ``hn_fused_field_fwd``; the template alone, ``hn_fused_template_fwd``;
+the SE(3) trunk alone, ``hn_fused_se3_fwd``) and the level forward's
+(``hn_fused_level_fwd``, each warp type) on one CUDA card, for this
+checkout's kernel library and, with ``--parent``, for another checkout's,
+in turns in one process: this, parent, parent, this.
 
   python tools/time_modular_fwd.py [--parent DIR]
 
@@ -11,10 +12,11 @@ another checkout's, in turns in one process: this, parent, parent, this.
 archive``) whose entry points take the same arguments and blobs; its
 library is built from its own ``kernels/csrc`` into its own ``build/``.
 Both libraries get this checkout's packed blobs of the probe weights
-(``flagship.load_probe_weights``) and the same inputs. Shapes: the fields at
-8192 x 128 and 16384 x 128 rows; the template at R = 8192 and 16384, S =
-128 and 64, at 1 << 20 rows with S = 1, and the static template at R =
-8192, S = 128; the level at R = 8192, S = 128 and 64. CUDA events, the mean
+(``flagship.load_probe_weights``) and the same inputs. Shapes: the fields and
+the trunk at 8192 x 128 and 16384 x 128 rows; the template at R = 8192 and
+16384, S = 128 and 64, at 1 << 20 rows with S = 1, and the static template
+at R = 8192, S = 128; the level at R = 8192, S = 128 and 64, each warp
+type. CUDA events, the mean
 of 10 launches after 2. Prints the card's name and power limit first, then
 one line per kernel and shape with each library's two times, the ratio of
 the means, the share of the bound (operations over 989 TFLOP/s) and the
@@ -76,10 +78,11 @@ def main() -> int:
     from hypernerf_tpu_torch.flagship import (flagship_model,
                                               load_probe_weights,
                                               probe_inputs)
-    from hypernerf_tpu_torch.kernels import build
+    from hypernerf_tpu_torch.kernels import build, common
     ff = importlib.import_module('hypernerf_tpu_torch.kernels.fused_field')
     fm = importlib.import_module('hypernerf_tpu_torch.kernels.fused_mlp')
     fl = importlib.import_module('hypernerf_tpu_torch.kernels.fused_level')
+    fs = importlib.import_module('hypernerf_tpu_torch.kernels.fused_se3')
 
     print(subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
                           '--format=csv,noheader'], capture_output=True,
@@ -92,7 +95,7 @@ def main() -> int:
              else ['this', 'this'])
     stream = torch.cuda.current_stream().cuda_stream
     probes = {c: load_probe_weights(flagship_model('cuda', config=c))
-              for c in ('flagship', 'static')}
+              for c in ('flagship', 'static', 'se3', 'quaternion')}
 
     def inputs(rays, samples, seed):
         return [torch.from_numpy(v).cuda()
@@ -128,8 +131,8 @@ def main() -> int:
                 x_raw = fl._raw_fields(*inputs(rays, 128, seed=rays)[:4])
                 x_raw = x_raw.contiguous()
                 p = x_raw.shape[0]
-                which, _, ((w, b, _),) = ff._launch_args(mlp, n_freq, x_raw,
-                                                         None, False)
+                which, _, (w, b, _) = ff._launch_args(mlp, n_freq, x_raw,
+                                                      None)
                 out = torch.empty((p, ff.OUT_PAD), device='cuda')
 
                 def launch(lib):
@@ -139,6 +142,22 @@ def main() -> int:
                         'hn_fused_field_fwd')
                     return out
                 report(f'{name} P={p}', macs, p, launch)
+
+        field = probes['se3'].warp_field
+        macs = sum(lin.weight.numel() for lin, _ in fs.se3_layers(field))
+        for rays in (8192, 16384):
+            x_raw = fl._raw_fields(*inputs(rays, 128, seed=rays)[:4])
+            x_raw = x_raw.contiguous()
+            p = x_raw.shape[0]
+            _, ((w, b, _),) = fs._launch_args(field, x_raw, None, False)
+            out = torch.empty((p, fs.OUT_PAD), device='cuda')
+
+            def launch(lib):
+                build.check(lib.hn_fused_se3_fwd(
+                    x_raw.data_ptr(), None, w.data_ptr(), b.data_ptr(),
+                    out.data_ptr(), p, stream), 'hn_fused_se3_fwd')
+                return out
+            report(f'se3 trunk P={p}', macs, p, launch)
 
         for config, level, rays, s in (
                 ('flagship', 'fine', 8192, 128),
@@ -174,23 +193,26 @@ def main() -> int:
                 return out
             report(f'{config} template R={rays} S={s}', macs, p, launch)
 
-        for s in (128, 64):
-            lv = probe.level('fine' if s == 128 else 'coarse')
-            w, b, _ = fl.pack_level(lv)
-            z, o, d, emb, cond = inputs(8192, s, seed=s)
-            rgbc = cond.to(torch.bfloat16).contiguous()
-            p = 8192 * s
-            out = torch.empty((p, 4), device='cuda')
-            macs = sum(lin.weight.numel() for lin, _ in fl.level_layers(lv))
+        for warp, config in (('translation', 'flagship'), ('se3', 'se3'),
+                             ('quaternion', 'quaternion')):
+            for s in (128, 64):
+                lv = probes[config].level('fine' if s == 128 else 'coarse')
+                w, b, _ = fl.pack_level(lv)
+                z, o, d, emb, cond = inputs(8192, s, seed=s)
+                rgbc = cond.to(torch.bfloat16).contiguous()
+                p = 8192 * s
+                out = torch.empty((p, 4), device='cuda')
+                macs = sum(lin.weight.numel()
+                           for lin, _ in fl.level_layers(lv))
 
-            def launch(lib):
-                build.check(lib.hn_fused_level_fwd(
-                    0, z.data_ptr(), o.data_ptr(), d.data_ptr(),
-                    emb.data_ptr(), rgbc.data_ptr(), None, w.data_ptr(),
-                    b.data_ptr(), out.data_ptr(), None, 8192, s, stream),
-                    'hn_fused_level_fwd')
-                return out
-            report(f'level forward R=8192 S={s}', macs, p, launch)
+                def launch(lib):
+                    build.check(lib.hn_fused_level_fwd(
+                        common.WARP_CODES[warp], z.data_ptr(), o.data_ptr(),
+                        d.data_ptr(), emb.data_ptr(), rgbc.data_ptr(), None,
+                        w.data_ptr(), b.data_ptr(), out.data_ptr(), None,
+                        8192, s, stream), 'hn_fused_level_fwd')
+                    return out
+                report(f'{warp} level forward R=8192 S={s}', macs, p, launch)
     return 0
 
 

@@ -4,9 +4,12 @@
 ``-DHN_FIELDS_BWD_TRACE`` into a library of its own, launched at the
 flagship widths (probe weights) on one CUDA card; thread 0 of each consumer
 warpgroup of block 0 adds up the SM clock of its first four block tiles of
-128 rows by kind of work.
+128 rows by kind of work. With ``--field warp`` or ``sheet`` the same for
+that field alone (``csrc/fields_bwd_alone.cu``, kernel B's block) on the
+rays' rows [pts | embed] and a seeded cotangent of its output.
 
   python tools/trace_fields_bwd.py [--rays 16384] [--samples 128]
+      [--field warp|sheet]
 
 Prints, per kind and summed over a block tile (mean of tiles 1 to 3, in SM
 cycles, each warpgroup): waits for a weight stage, products until retired,
@@ -14,8 +17,8 @@ epilogues (bias, ReLU or mask, rounding, stores), the dW / db flush (the
 vector reductions into the gradient buffer), block barriers with waits for
 a reload, and the row work: row inputs (and a layer's bias loads), the
 encodings, the head steps (the SE(3) heads and retraction), the encodings'
-VJPs, d z and the per-ray sums; then a tile's cycles and the card's SM
-clock. Exits non-zero without a card.
+VJPs, d z and the per-ray sums (a field alone: the dx_raw stores); then a
+tile's cycles and the card's SM clock. Exits non-zero without a card.
 """
 
 from __future__ import annotations
@@ -36,24 +39,29 @@ KIND_NAMES = ('stage wait', 'products', 'epilogues', 'dW flush', 'barriers',
               'row inputs', 'encodings', 'head steps', 'VJPs', 'ray sums')
 
 
-def _trace_library():
-    """The translation kernel built with the trace hooks (cached by the
+def _trace_library(stem: str):
+    """Kernel B's translation variant (``fields_bwd_trans``) or a field
+    alone (``fields_bwd_alone``) built with the trace hooks (cached by the
     sources' hash under build/kernels/)."""
     from hypernerf_tpu_torch.kernels import build
-    src = build.CSRC / 'fields_bwd_trans.cu'
+    src = build.CSRC / f'{stem}.cu'
     flags = [*build.NVCC_FLAGS, '-DHN_FIELDS_BWD_TRACE']
     h = hashlib.sha256(' '.join(flags).encode())
     for p in build._sources():
         h.update(p.read_bytes())
-    so = build.BUILD_DIR / f'fields_bwd_trace_{h.hexdigest()[:16]}.so'
+    so = build.BUILD_DIR / f'{stem}_trace_{h.hexdigest()[:16]}.so'
     if not so.exists():
         build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
         subprocess.run([build._nvcc(), *flags, '-shared', '-o', str(so),
                         str(src)], check=True)
     lib = ctypes.CDLL(str(so))
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.hn_fields_bwd_trans.argtypes = [p] * 12 + [ll, i, i, p]
-    lib.hn_fields_bwd_trans.restype = i
+    if stem == 'fields_bwd_trans':
+        lib.hn_fields_bwd_trans.argtypes = [p] * 12 + [ll, i, i, p]
+        lib.hn_fields_bwd_trans.restype = i
+    else:
+        lib.hn_fused_field_bwd.argtypes = [i] + [p] * 8 + [ll, i, p]
+        lib.hn_fused_field_bwd.restype = i
     lib.hn_fields_bwd_trace.argtypes = [p]
     lib.hn_fields_bwd_trace.restype = i
     return lib
@@ -63,6 +71,7 @@ def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument('--rays', type=int, default=16384)
     parser.add_argument('--samples', type=int, default=128)
+    parser.add_argument('--field', default=None, choices=('warp', 'sheet'))
     args = parser.parse_args()
 
     import numpy as np
@@ -75,11 +84,13 @@ def main() -> int:
                                               probe_inputs)
     from hypernerf_tpu_torch.kernels import build
     fl = importlib.import_module('hypernerf_tpu_torch.kernels.fused_level')
+    ff = importlib.import_module('hypernerf_tpu_torch.kernels.fused_field')
 
     print(subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
                           '--format=csv,noheader'], capture_output=True,
                          text=True, check=True).stdout.strip())
-    lib = _trace_library()
+    lib = _trace_library('fields_bwd_alone' if args.field
+                         else 'fields_bwd_trans')
     level = load_probe_weights(flagship_model('cuda')).level('fine')
     w, b, shapes = fl.pack_level(level)
     z, o, d, emb, _ = [torch.from_numpy(v).cuda() for v in probe_inputs(
@@ -95,25 +106,42 @@ def main() -> int:
     scratch = torch.empty(blocks * fl.FB_SPILL_SLABS * fl.FB_SLAB_BYTES,
                           dtype=torch.uint8, device='cuda')
     stream = torch.cuda.current_stream().cuda_stream
+    if args.field:
+        module = level.warp if args.field == 'warp' else level.hyper
+        x_raw = fl._raw_fields(z, o, d, emb).contiguous()
+        which, _, (w, b, shapes) = ff._launch_args(module.mlp,
+                                                   module.n_freq, x_raw, None)
+        grads, _ = fl.fields_bwd_grad_copies(shapes, 'cuda')
+        dx_raw = torch.empty_like(x_raw)
+        g = torch.nn.functional.pad(dx_t[:, :module.mlp.logit.out_features],
+                                    (0, 8 - module.mlp.logit.out_features))
+        g = g.contiguous()
     t = np.zeros((GROUPS, TILES, KINDS), dtype=np.int64)
     for _ in range(2):  # the second launch's clocks are kept
         if lib.hn_fields_bwd_trace(t.ctypes.data):  # read and zero
             raise RuntimeError('hn_fields_bwd_trace failed')
-        code = lib.hn_fields_bwd_trans(
-            z.data_ptr(), o.data_ptr(), d.data_ptr(), emb.data_ptr(),
-            dx_t.data_ptr(), None, w.data_ptr(), b.data_ptr(),
-            d_z.data_ptr(), d_ray.data_ptr(), grads.data_ptr(),
-            scratch.data_ptr(), n, args.samples, blocks, stream)
+        if args.field:
+            code = lib.hn_fused_field_bwd(
+                which, x_raw.data_ptr(), None, g.data_ptr(), w.data_ptr(),
+                b.data_ptr(), dx_raw.data_ptr(), grads.data_ptr(),
+                scratch.data_ptr(), n, blocks, stream)
+        else:
+            code = lib.hn_fields_bwd_trans(
+                z.data_ptr(), o.data_ptr(), d.data_ptr(), emb.data_ptr(),
+                dx_t.data_ptr(), None, w.data_ptr(), b.data_ptr(),
+                d_z.data_ptr(), d_ray.data_ptr(), grads.data_ptr(),
+                scratch.data_ptr(), n, args.samples, blocks, stream)
         if code:
-            raise RuntimeError(f'hn_fields_bwd_trans: CUDA error {code}')
+            raise RuntimeError(f'launch: CUDA error {code}')
         torch.cuda.synchronize()
     if lib.hn_fields_bwd_trace(t.ctypes.data):
         raise RuntimeError('hn_fields_bwd_trace failed')
     tiles = t[:, 1:].astype(np.float64)  # tiles 1..3
     per_tile = tiles.sum(-1).mean(-1)
-    print(f'kernel B (translation) R={args.rays} S={args.samples}, block 0, '
-          f'SM cycles a block tile of 128 rows, mean of tiles 1-3 '
-          f'(warpgroup 0 / 1)')
+    what = (f'{args.field} field alone' if args.field
+            else 'kernel B (translation)')
+    print(f'{what} R={args.rays} S={args.samples}, block 0, SM cycles a '
+          f'block tile of 128 rows, mean of tiles 1-3 (warpgroup 0 / 1)')
     for k, name in enumerate(KIND_NAMES):
         x = tiles[..., k].mean(-1)
         print(f'{name:12s}: {x[0]:9.0f} / {x[1]:<9.0f} '

@@ -4,13 +4,14 @@ variant of ``csrc/level_fwd.cuh`` built with ``-DHN_LEVEL_FWD_TRACE`` into a
 library of its own, launched at the flagship widths (probe weights) on one
 CUDA card; block 0 records the SM clock of each consumer warpgroup at four
 points of every layer of its first four pairs of row tiles. With
-``--kernel template``, ``warp`` or ``sheet`` the same for a per-module
-forward kernel (``csrc/modular_fwd.cu``: one stage of the level forward
-alone) on the same rows; the warp field's block takes three tiles a step
+``--kernel template``, ``warp``, ``sheet`` or ``se3`` the same for a
+per-module forward kernel (``csrc/modular_fwd.cu``: one stage of the level
+forward alone; ``se3`` the SE(3) trunk at the ``se3`` probe weights) on the
+same rows; the warp field's and the trunk's blocks take three tiles a step
 and the sheet's four, of which warpgroups 0 and 1 are shown.
 
   python tools/trace_level_fwd.py [--rays 8192] [--samples 128]
-      [--kernel level|template|warp|sheet]
+      [--kernel level|template|warp|sheet|se3]
 
 Prints, per layer and summed over a pair of tiles (mean of pairs 1 to 3, in
 SM cycles, each warpgroup): the wait for the layer's first weight stage, the
@@ -57,6 +58,7 @@ def _trace_library(kernel: str):
     else:
         lib.hn_fused_template_fwd.argtypes = [p] * 5 + [ll, i, p]
         lib.hn_fused_field_fwd.argtypes = [i] + [p] * 5 + [ll, p]
+        lib.hn_fused_se3_fwd.argtypes = [p] * 5 + [ll, p]
         lib.trace = lib.hn_modular_fwd_trace
     lib.trace.argtypes = [p]
     lib.trace.restype = i
@@ -66,12 +68,13 @@ def _trace_library(kernel: str):
 def _launch(lib, kernel, level, args, stream):
     """One launch of the traced kernel on the level's probe rows: the level
     kernel on the ray inputs, or a per-module kernel on that stage's inputs
-    as the level computes them (a field: [pts | embed]; the template:
-    [warped | hyper | 0] from the plain version of the fields)."""
+    as the level computes them (a field or the trunk: [pts | embed]; the
+    template: [warped | hyper | 0] from the field kernels)."""
     import torch
     ff = importlib.import_module('hypernerf_tpu_torch.kernels.fused_field')
     fm = importlib.import_module('hypernerf_tpu_torch.kernels.fused_mlp')
     fl = importlib.import_module('hypernerf_tpu_torch.kernels.fused_level')
+    fs = importlib.import_module('hypernerf_tpu_torch.kernels.fused_se3')
     z, o, d, emb, cond = args
     n, samples = z.numel(), z.shape[1]
     if kernel == 'level':
@@ -83,10 +86,15 @@ def _launch(lib, kernel, level, args, stream):
             rgbc.data_ptr(), None, w.data_ptr(), b.data_ptr(),
             out.data_ptr(), None, n, samples, stream)
     x_raw = fl._raw_fields(z, o, d, emb).contiguous()
+    if kernel == 'se3':
+        _, ((w, b, _),) = fs._launch_args(level.warp, x_raw, None, False)
+        out = torch.empty((n, fs.OUT_PAD), device='cuda')
+        return lib.hn_fused_se3_fwd(x_raw.data_ptr(), None, w.data_ptr(),
+                                    b.data_ptr(), out.data_ptr(), n, stream)
 
     def field(module):
-        which, _, ((w, b, _),) = ff._launch_args(module.mlp, module.n_freq,
-                                                 x_raw, None, False)
+        which, _, (w, b, _) = ff._launch_args(module.mlp, module.n_freq,
+                                              x_raw, None)
         out = torch.empty((n, ff.OUT_PAD), device='cuda')
         code = lib.hn_fused_field_fwd(which, x_raw.data_ptr(), None,
                                       w.data_ptr(), b.data_ptr(),
@@ -111,7 +119,8 @@ def main() -> int:
     parser.add_argument('--rays', type=int, default=8192)
     parser.add_argument('--samples', type=int, default=128)
     parser.add_argument('--kernel', default='level',
-                        choices=('level', 'template', 'warp', 'sheet'))
+                        choices=('level', 'template', 'warp', 'sheet',
+                                 'se3'))
     args = parser.parse_args()
 
     import numpy as np
@@ -128,7 +137,9 @@ def main() -> int:
                           '--format=csv,noheader'], capture_output=True,
                          text=True, check=True).stdout.strip())
     lib = _trace_library(args.kernel)
-    level = load_probe_weights(flagship_model('cuda')).level('fine')
+    config = 'se3' if args.kernel == 'se3' else 'flagship'
+    level = load_probe_weights(flagship_model(
+        'cuda', config=config)).level('fine')
     shapes = fl.pack_level(level)[2]
     first, end = fl.MODULE_STAGES.get(args.kernel, (0, len(shapes)))
     inputs = [torch.from_numpy(v).cuda() for v in probe_inputs(
