@@ -4,8 +4,9 @@
 Phases, one line each; any failure ends the run with a non-zero exit:
   1. a CUDA card (else exit 1); its name and power limit from nvidia-smi;
   2. build the kernels from kernels/csrc with nvcc (sm_90a), with the time
-     and ptxas's registers and spills (the level forward's, kernel B's and
-     the per-module forwards' on lines of their own);
+     and ptxas's registers and spills (the level forward's, kernel B's, the
+     per-module forwards', a field alone backward's and the SE(3) trunk's
+     two backwards' on lines of their own);
   3. the level kernel at the flagship widths and at probe weights whose
      warp and hyper heads are large enough that those 14 layers move the
      output: against the JAX kernel's stored outputs (tests/data), and
@@ -73,7 +74,8 @@ Phases, one line each; any failure ends the run with a non-zero exit:
      504x378 frame and trains at batch 16384; ``split_glo`` (two GLO tables)
      renders a frame with ``return_points``, trains at batch 16384 and
      answers ``query_sigma`` on 1 << 20 points; the launch counters must show
-     the per-module kernels on every chunk, level and step (per step: static
+     the per-module kernels on every chunk, level and step (3 timed frames
+     after a warm-up, as phase 5; per step: static
      2 template forwards and 2 template backwards; split_glo also 4 field
      forwards and 4 field backwards) and no level kernel and no plain call;
      every parameter gets a finite non-zero gradient; the fixed-batch loss
@@ -82,13 +84,14 @@ Phases, one line each; any failure ends the run with a non-zero exit:
  10. the SE(3) trunk's kernels (forward and backward) at the probe weights of
      the ``se3`` configuration, whose w and v heads are drawn large enough
      that the rotation shows (the forward is the level forward's trunk stage
-     run alone on its block: its compiled plan against its model in
+     run alone on its block, the backward kernel B's block run on the trunk
+     alone: each one's compiled plan against its model in
      kernels/fused_level.py): against the JAX kernels' stored outputs and
      gradients (tests/data), with the 1 % probe of one layer, against their
      plain versions at a ragged size (a multiple of neither tile height) and
      at 8192 x 128 and 16384 x 128 rows, with and without a window row
-     (alpha 3.5 of 8 bands), which are also timed (the forward beside its
-     time before the redesign and its share of the bound);
+     (alpha 3.5 of 8 bands), which are also timed (each beside its time
+     before the redesign and its share of the bound);
  11. the level kernels' screw-warp variants (``se3`` and ``quaternion``): the
      level forward and the level backward (A then B) against the stored JAX
      numbers, the forward (with raw_t) and kernel B against their plain
@@ -102,9 +105,10 @@ Phases, one line each; any failure ends the run with a non-zero exit:
  12. the SE(3) paths at full width: a 504x378 frame of ``se3`` and of
      ``quaternion`` through the level kernels, a frame of ``se3`` with
      ``return_points`` and one of ``se3`` with two GLO tables (per-module:
-     trunk, sheet and template kernels), a
+     trunk, sheet and template kernels; 3 timed frames each after a
+     warm-up, as phase 5), a
      train step at batch 16384 of ``se3`` and ``quaternion`` (level kernels)
-     and of ``se3`` with two GLO tables (trunk, field and template kernels,
+     and of each with two GLO tables (trunk, field and template kernels,
      forward and backward), each with launch counters, no plain call and one
      kernels-vs-plain step on 1024 rays; ``query_sigma`` of ``se3`` on
      1 << 20 points;
@@ -114,7 +118,10 @@ Phases, one line each; any failure ends the run with a non-zero exit:
      of warp layer 5, against their plain versions at 1001 points and at the
      train step's 262,144 (16384 rays x 16 samples), which are also timed;
  14. the SE(3) trunk's tangent kernels (forward and backward), the same way,
-     with and without a window row (alpha 3.5 of 8 bands);
+     with and without a window row (alpha 3.5 of 8 bands); the backward is
+     kernel B's block run on the trunk with its tangent streams: its
+     compiled plan against its model, its time beside its time before the
+     redesign and its share of the bound;
  15. the SE(3) and quaternion retractions' point-Jacobian (tensor code)
      chained with the tangent kernel, against the plain chain and the JAX
      side channel's stored J; models whose w head is zero (J = I + dv
@@ -1018,6 +1025,7 @@ STEP_LAUNCHES = {
     'se3_split_glo': {'fused_se3_fwd': 2, 'fused_se3_bwd': 2,
                       'fused_field_fwd': 2, 'fused_field_bwd': 2,
                       'fused_template_fwd': 2, 'fused_template_bwd': 2}}
+STEP_LAUNCHES['quaternion_split_glo'] = STEP_LAUNCHES['se3_split_glo']
 STEP_LAUNCHES['se3'] = STEP_LAUNCHES['quaternion'] = STEP_LAUNCHES['flagship']
 # The elastic loss adds the Jacobian kernels, once per level and step.
 STEP_LAUNCHES['elastic'] = {**STEP_LAUNCHES['flagship'],
@@ -1026,7 +1034,8 @@ STEP_LAUNCHES['elastic_se3'] = STEP_LAUNCHES['elastic_quaternion'] = {
     **STEP_LAUNCHES['flagship'], 'fused_se3_jacobian_fwd': 2,
     'fused_se3_jacobian_bwd': 2}
 # A path that is a configuration with overrides: (configuration, overrides).
-PATHS = {'se3_split_glo': ('se3', dict(share_glo=False))}
+PATHS = {'se3_split_glo': ('se3', dict(share_glo=False)),
+         'quaternion_split_glo': ('quaternion', dict(share_glo=False))}
 
 
 def train_path(config: str, tag: str) -> dict:
@@ -1184,8 +1193,14 @@ MODULAR_FWD_SOURCES = ('modular_fwd.cu', 'level_fwd.cuh')
 # 10), ms: the warp field and the sheet at 8192 x 128 rows, the template at
 # R = 8192, S = 128.
 EARLIER_MODULAR_MS = {'warp': 1.690, 'sheet': 0.877, 'template': 8.802}
-# A field alone backward: kernel B's block run on one field.
-FIELD_BWD_SOURCES = ('fields_bwd_alone.cu', 'fields_bwd.cuh')
+# A field alone backward: kernel B's block run on one field; the SE(3)
+# trunk alone backward and the trunk's tangents backward run it too.
+FIELD_BWD_SOURCES = ('fields_bwd_alone.cu', 'fields_bwd_alone.cuh',
+                     'fields_bwd.cuh')
+SE3_BWD_SOURCES = ('se3_bwd_alone.cu', 'fields_bwd_alone.cuh',
+                   'fields_bwd.cuh')
+SE3_TANGENTS_BWD_SOURCES = ('se3_tangents_bwd.cu', 'fields_bwd_alone.cuh',
+                            'fields_bwd.cuh')
 # Its times before the redesign (the mma.sync kernel with 32-row tiles;
 # PERF.md row 11), ms at 8192 x 128 and 16384 x 128 rows.
 EARLIER_FIELD_BWD_MS = {('warp', 8192 * 128): 10.545,
@@ -1562,6 +1577,36 @@ def query_sigma_path(config: str, want: dict, tag: str) -> dict:
     return {k: v // QUERY_CALLS for k, v in launches.items()}
 
 
+def time_frames(renderer, frames, keep, want: dict, label: str):
+    """(s/frame, launches): ``frames[1:]`` (N_FRAMES frames) rendered after
+    the warm-up frame ``frames[0]`` (the first launches), timed together on
+    the host clock to a synchronize, as phase 5 times them; raises unless
+    the launches are ``want`` per frame and every frame's ``keep`` outputs
+    are finite and of the frame's shape, rgb as uint8."""
+    import torch
+    from hypernerf_tpu_torch.flagship import H, W
+    renderer(frames[0])
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    outs = [renderer(rays)['fine'] for rays in frames[1:]]
+    torch.cuda.synchronize()
+    secs = (time.perf_counter() - t0) / len(outs)
+    launches = read_counts({k: v * len(outs) for k, v in want.items()},
+                           label)
+    shapes = {'rgb': (W * H, 3), 'depth': (W * H,), 'acc': (W * H,),
+              'med_points': (W * H, 1, 7)}
+    for fine in outs:
+        for k in keep:
+            v = torch.as_tensor(fine[k])
+            if v.shape != shapes[k] or not torch.isfinite(v.float()).all():
+                raise AssertionError(f'{label}: {k} {v.shape} not finite / '
+                                     f'misshapen')
+        if fine['rgb'].dtype.name != 'uint8':
+            raise AssertionError(f'{label}: rgb {fine["rgb"].dtype}')
+    return secs, launches
+
+
 def modular_paths_phase(kernels) -> None:
     """Phase 9: the per-module path at full width on ``static`` and
     ``split_glo``; fills in the launches of the three kernels' entries."""
@@ -1569,7 +1614,7 @@ def modular_paths_phase(kernels) -> None:
     from hypernerf_tpu_torch.flagship import H, W, flagship_model, spiral_rays
     from hypernerf_tpu_torch.training.renderer import ImageRenderer
     chunks_per_frame = -(-W * H // CHUNK)
-    frames = spiral_rays((0, 30))
+    frames = spiral_rays(range(0, 30 * (N_FRAMES + 1), 30))
     counts = {}
     for config in ('static', 'split_glo'):
         fields = 2 if config == 'split_glo' else 0
@@ -1578,33 +1623,18 @@ def modular_paths_phase(kernels) -> None:
             ('med_points',) if fields else ())
         renderer = ImageRenderer(model, chunk=CHUNK, keep=keep,
                                  levels=('fine',), quantize=True)
-        renderer(frames[0])  # warm-up frame: the first launches
-        torch.cuda.synchronize()
-        reset_counts()
-        t0 = time.perf_counter()
-        fine = renderer(frames[1])['fine']
-        torch.cuda.synchronize()
-        secs = time.perf_counter() - t0
-        launches = read_counts(
+        secs, launches = time_frames(
+            renderer, frames, keep,
             {'fused_template_fwd': 2 * chunks_per_frame,
              'fused_field_fwd': 2 * fields * chunks_per_frame},
             f'{config} frame')
-        shapes = {'rgb': (W * H, 3), 'depth': (W * H,), 'acc': (W * H,),
-                  'med_points': (W * H, 1, 7)}
-        for k in keep:
-            v = torch.as_tensor(fine[k])
-            if v.shape != shapes[k] or not torch.isfinite(v.float()).all():
-                raise AssertionError(f'{config} frame: {k} {v.shape} not '
-                                     f'finite / misshapen')
-        if fine['rgb'].dtype.name != 'uint8':
-            raise AssertionError(f'{config} frame: rgb {fine["rgb"].dtype}')
-        phase(f'[9] {config}: rendered a {W}x{H} frame (64+64, chunk {CHUNK}'
-              f'{", return_points" if fields else ""}): {secs:.4f} s/frame; '
-              f'launches {launches} (= 2 levels x {chunks_per_frame} chunks'
-              f'{" x 2 fields" if fields else ""}); no level kernel, no '
-              f'plain call')
+        phase(f'[9] {config}: rendered {N_FRAMES} frames {W}x{H} (64+64, '
+              f'chunk {CHUNK}{", return_points" if fields else ""}): '
+              f'{secs:.4f} s/frame; launches {launches} (= 2 levels x '
+              f'{chunks_per_frame} chunks{" x 2 fields" if fields else ""} x '
+              f'{N_FRAMES} frames); no level kernel, no plain call')
         counts[config, 'frame'] = launches
-        del renderer, model, fine
+        del renderer, model
         torch.cuda.empty_cache()
         counts[config, 'train'] = train_path(config, '[9]')
         torch.cuda.empty_cache()
@@ -1644,9 +1674,11 @@ def plain_se3_bwd(field, x_raw, g, scales=None):
         sum(grads[i] for _, grads in parts) for i in range(len(parts[0][1]))]
 
 
-# The trunk forward's times before the redesign (the mma.sync kernel;
-# PERF.md row 12), ms at 8192 x 128 and 16384 x 128 rows.
+# The trunk forward's and backward's times before the redesign (the
+# mma.sync kernels; PERF.md rows 12 and 13), ms at 8192 x 128 and 16384 x
+# 128 rows.
 EARLIER_SE3_FWD_MS = {8192 * 128: 2.014, 16384 * 128: 4.033}
+EARLIER_SE3_BWD_MS = {8192 * 128: 12.385, 16384 * 128: 24.375}
 
 
 def wv_of(field, x_raw, scales=None):
@@ -1659,7 +1691,9 @@ def wv_of(field, x_raw, scales=None):
 def se3_kernel_phase():
     """Phase 10; returns the entries of the trunk's two kernels. The
     forward is the level forward's trunk stage run alone on its block: its
-    compiled plan is held to ``fused_level.stage_plan('se3', ...)``."""
+    compiled plan is held to ``fused_level.stage_plan('se3', ...)``; the
+    backward is kernel B's block run on the trunk alone: its compiled plan
+    is held to ``fused_level.field_bwd_plan('se3', ...)``."""
     import importlib
     import torch
     import torch.nn.functional as F
@@ -1688,6 +1722,17 @@ def se3_kernel_phase():
           f'plan, not measured: '
           f'{fl.forward_stream_bytes(shapes, CHUNK * 128, 3):,} bytes of '
           f'weights streamed from L2 at {CHUNK * 128} rows')
+    got = fl.compiled_field_bwd_plan('se3')
+    want = fl.field_bwd_plan('se3', shapes)
+    if got != want:
+        raise AssertionError(f'se3: the compiled trunk backward plan is not '
+                             f'its model: {got} vs {want}')
+    phase(f'[10] trunk backward plan (compiled = model): kernel B\'s block, '
+          f'{len(got["loads"])} weight loads a block tile, spills '
+          f'{fl.field_bwd_spills("se3")}; computed from the plan, not '
+          f'measured: '
+          f'{fl.field_bwd_stream_bytes("se3", shapes, TRAIN_RAYS * 128):,} '
+          f'bytes of weights streamed from L2 at {TRAIN_RAYS * 128} rows')
 
     # The JAX kernels' stored outputs and gradients
     # (tools/make_level_reference.py): the CUDA kernels through their
@@ -1733,7 +1778,7 @@ def se3_kernel_phase():
             raise AssertionError('the checks cannot see the trunk\'s layers')
 
         # 481 rows: a multiple of neither the forward tile's 64 nor the
-        # backward tile's 32 rows.
+        # backward block tile's 128 rows.
         for p, scales in ((481, None), (481, window), (CHUNK * 128, None),
                           (CHUNK * 128, window), (TRAIN_RAYS * 128, None)):
             label = (f'SE(3) trunk P={p} window='
@@ -1784,6 +1829,11 @@ def se3_kernel_phase():
         phase(f'[10] trunk forward at {p} rows: {ms:.3f} ms, '
               f'{100 * bms / ms:.1f} % of its bound {bms:.4f} ms; '
               f'{EARLIER_SE3_FWD_MS[p]:.3f} ms before the redesign (PERF.md)')
+        ms = times[p]['bwd']
+        bms = bound(6.0 * macs * p, p * (44 + 32 + 44) + 6 * macs)[0]
+        phase(f'[10] trunk backward at {p} rows: {ms:.3f} ms, '
+              f'{100 * bms / ms:.1f} % of its bound {bms:.4f} ms; '
+              f'{EARLIER_SE3_BWD_MS[p]:.3f} ms before the redesign (PERF.md)')
     src = 'hypernerf_tpu_torch/kernels/csrc/'
     return [
         dict(name='fused_se3_fwd', route='cuda',
@@ -1797,12 +1847,13 @@ def se3_kernel_phase():
              shape=f'P={p_r}', macs_per_row=macs,
              ms_train_rows=times[p_t]['fwd']),
         dict(name='fused_se3_bwd', route='cuda',
-             source=src + 'fused_se3_bwd.cu',
+             source=', '.join(src + f for f in SE3_BWD_SOURCES),
              replaces='hypernerf_tpu/ops/pallas/fused_se3.py:412',
              **error_keys(errs['bwd'], SE3_TRUNK_GRAD_L2),
              ms=times[p_t]['bwd'],
              plain_ms=times[p_t]['plain_bwd'], bound_ms=b_ms, bound_by=b_by,
-             library_ms=None, shape=f'P={p_t}')]
+             library_ms=None, shape=f'P={p_t}',
+             ms_8192x128_rows=times[p_r]['bwd'])]
 
 
 def se3_level_phase(kernels) -> None:
@@ -1975,7 +2026,7 @@ def se3_paths_phase(kernels) -> None:
     from hypernerf_tpu_torch.training.renderer import ImageRenderer
     chunks_per_frame = -(-W * H // CHUNK)
     per_frame = 2 * chunks_per_frame
-    frames = spiral_rays((0, 30))
+    frames = spiral_rays(range(0, 30 * (N_FRAMES + 1), 30))
     counts = {}
     per_module = {'fused_se3_fwd': per_frame, 'fused_field_fwd': per_frame,
                   'fused_template_fwd': per_frame}
@@ -1992,30 +2043,17 @@ def se3_paths_phase(kernels) -> None:
             ('med_points',) if return_points else ())
         renderer = ImageRenderer(model, chunk=CHUNK, keep=keep,
                                  levels=('fine',), quantize=True)
-        renderer(frames[0])  # warm-up frame: the first launches
-        torch.cuda.synchronize()
-        reset_counts()
-        t0 = time.perf_counter()
-        fine = renderer(frames[1])['fine']
-        torch.cuda.synchronize()
-        secs = time.perf_counter() - t0
-        launches = read_counts(want, f'{label} frame')
-        shapes = {'rgb': (W * H, 3), 'depth': (W * H,), 'acc': (W * H,),
-                  'med_points': (W * H, 1, 7)}
-        for k in keep:
-            v = torch.as_tensor(fine[k])
-            if v.shape != shapes[k] or not torch.isfinite(v.float()).all():
-                raise AssertionError(f'{label} frame: {k} {v.shape} not '
-                                     f'finite / misshapen')
-        if fine['rgb'].dtype.name != 'uint8':
-            raise AssertionError(f'{label} frame: rgb {fine["rgb"].dtype}')
-        phase(f'[12] {label}: rendered a {W}x{H} frame (64+64, chunk '
-              f'{CHUNK}): {secs:.4f} s/frame; launches {launches} (= 2 '
-              f'levels x {chunks_per_frame} chunks); no plain call')
+        secs, launches = time_frames(renderer, frames, keep, want,
+                                     f'{label} frame')
+        phase(f'[12] {label}: rendered {N_FRAMES} frames {W}x{H} (64+64, '
+              f'chunk {CHUNK}): {secs:.4f} s/frame; launches {launches} (= 2 '
+              f'levels x {chunks_per_frame} chunks x {N_FRAMES} frames); no '
+              f'plain call')
         counts[label, 'frame'] = launches
-        del renderer, model, fine
+        del renderer, model
         torch.cuda.empty_cache()
-    for config in ('se3', 'quaternion', 'se3_split_glo'):
+    for config in ('se3', 'quaternion', 'se3_split_glo',
+                   'quaternion_split_glo'):
         counts[config, 'train'] = train_path(config, '[12]')
         torch.cuda.empty_cache()
 
@@ -2045,6 +2083,9 @@ JAC_L2 = 1e-2
 # Points per call on the train step's path: 16 Jacobian samples per ray.
 JAC_POINTS = TRAIN_RAYS * 16
 JAC_CHUNK = 65536  # points per call of a plain version
+# The SE(3) tangents' backward before its redesign (the mma.sync kernel;
+# PERF.md row 17), ms at JAC_POINTS points.
+EARLIER_SE3_JAC_BWD_MS = 12.376
 
 
 def plain_jacobian(mlp, x_raw):
@@ -2097,10 +2138,13 @@ def tangents_of(field, x_raw, scales=None):
 
 def jacobian_phase(kind: str):
     """Phase 13 (``kind`` 'translation': kernels 14 and 15) or 14 ('se3':
-    kernels 16 and 17, with and without a window row): against the JAX
-    kernels' stored numbers, the 1 % probe of layer 5, the plain versions at
-    a ragged size and at the train step's 262,144 points (timed). Returns
-    the two kernels' entries."""
+    kernels 16 and 17, with and without a window row; kernel 17 is kernel
+    B's block run on the trunk with its tangent streams, its compiled plan
+    held to ``fused_level.field_bwd_plan('se3_tangents', ...)``): against
+    the JAX kernels' stored numbers, the 1 % probe of layer 5, the plain
+    versions at a ragged size and at the train step's 262,144 points
+    (timed). Returns the two kernels' entries."""
+    import importlib
     import torch
     from hypernerf_tpu_torch import kernels as K
     from hypernerf_tpu_torch.flagship import (JACOBIAN_CASES, flagship_model,
@@ -2131,6 +2175,21 @@ def jacobian_phase(kind: str):
         plain = lambda x, sc=None: plain_tangents(field, x, sc)
         plain_bwd = lambda x, g, sc=None: plain_tangents_bwd(field, x, g, sc)
         windows = (None, se3_encoding_scales(field, WINDOW_ALPHA, 'cuda'))
+        fl = importlib.import_module('hypernerf_tpu_torch.kernels.fused_level')
+        shapes = common.pack_layers(field, layers)[2]
+        got = fl.compiled_field_bwd_plan('se3_tangents')
+        want = fl.field_bwd_plan('se3_tangents', shapes)
+        if got != want:
+            raise AssertionError(f'se3_tangents: the compiled tangents '
+                                 f'backward plan is not its model: {got} vs '
+                                 f'{want}')
+        streamed = fl.field_bwd_stream_bytes('se3_tangents', shapes,
+                                             JAC_POINTS)
+        phase(f'{tag} tangents backward plan (compiled = model): kernel B\'s '
+              f'block, 32 points x 4 streams a block tile, '
+              f'{len(got["loads"])} weight loads a block tile; computed from '
+              f'the plan, not measured: {streamed:,} bytes of weights '
+              f'streamed from L2 at {JAC_POINTS} points')
     out_name = 'J' if trans else 'w | v | dw | dv'
     grad_names = ['dx'] + [f'd{"Wb"[i % 2]}{i // 2}'
                            for i in range(2 * len(layers))]
@@ -2179,9 +2238,10 @@ def jacobian_phase(kind: str):
                                  f'layer 5')
 
         times = {}
-        # 1001 points: a multiple of neither tile (16 and 8 points).
+        # 1001 points: a multiple of no tile (16 points forward; 8, or
+        # the SE(3) backward's 32, backward).
         for p in (1001, JAC_POINTS):
-            for scales in windows if p == 1001 else (None,):
+            for scales in windows:
                 label = (f'{kind} P={p} window='
                          f'{"off" if scales is None else "on"}')
                 x = field_rows(p, seed=p % 97)
@@ -2218,17 +2278,23 @@ def jacobian_phase(kind: str):
     f_ms, f_by = bound(2.0 * 4 * macs * p, p * (44 + 4 * width) + 2 * macs)
     b_ms, b_by = bound(2.0 * back_blocks * macs * p,
                        p * (44 + 4 * width + 44) + 6 * macs)
+    if not trans:
+        phase(f'{tag} tangents backward at {p} points: {times["bwd"]:.3f} ms, '
+              f'{100 * b_ms / times["bwd"]:.1f} % of its bound {b_ms:.4f} ms; '
+              f'{EARLIER_SE3_JAC_BWD_MS:.3f} ms before the redesign (PERF.md)')
     src = 'hypernerf_tpu_torch/kernels/csrc/'
     stem = 'fused_jacobian' if trans else 'fused_se3_jacobian'
     fwd_line, bwd_line = (269, 302) if trans else (286, 331)
     pallas = f'hypernerf_tpu/ops/pallas/{stem}.py'
+    bwd_src = (f'{src}{stem}_bwd.cu' if trans else
+               ', '.join(src + f for f in SE3_TANGENTS_BWD_SOURCES))
     return [
         dict(name=f'{stem}_fwd', route='cuda', source=f'{src}{stem}.cu',
              replaces=f'{pallas}:{fwd_line}',
              **error_keys(errs['fwd'], JAC_L2), ms=times['fwd'],
              plain_ms=times['plain_fwd'], bound_ms=f_ms, bound_by=f_by,
              library_ms=None, shape=f'P={p}', macs_per_row=macs),
-        dict(name=f'{stem}_bwd', route='cuda', source=f'{src}{stem}_bwd.cu',
+        dict(name=f'{stem}_bwd', route='cuda', source=bwd_src,
              replaces=f'{pallas}:{bwd_line}',
              **error_keys(errs['bwd'], JAC_L2),
              ms=times['bwd'], plain_ms=times['plain_bwd'], bound_ms=b_ms,
@@ -2427,6 +2493,10 @@ def main() -> int:
           f'{ptxas_lines(build.build_log(), MODULAR_FWD_SOURCES)}')
     phase(f'[2] a field alone backward, on kernel B\'s block (the same): '
           f'{ptxas_lines(build.build_log(), FIELD_BWD_SOURCES)}')
+    se3_bwd = SE3_BWD_SOURCES[:1] + SE3_TANGENTS_BWD_SOURCES[:1]
+    phase(f'[2] the SE(3) trunk alone backward and its tangents\' backward, '
+          f'on kernel B\'s block (the same): '
+          f'{ptxas_lines(build.build_log(), se3_bwd)}')
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False

@@ -55,7 +55,6 @@ _SIGNATURES = {
     'hn_fused_field_bwd': ([_I] + [_P] * 8 + [_L, _I, _P], _I),
     'hn_fused_field_bwd_plan': ([_I, _P, _P, _P, _I], _I),
     'hn_fused_se3_fwd': ([_P] * 5 + [_L, _P], _I),
-    'hn_fused_se3_bwd_blocks': ([_L], _I),
     'hn_fused_se3_bwd': ([_P] * 8 + [_L, _I, _P], _I),
     'hn_fused_template_fwd': ([_P] * 5 + [_L, _I, _P], _I),
     'hn_modular_fwd_plan': ([_I, _P, _P, _P, _I], _I),
@@ -63,7 +62,6 @@ _SIGNATURES = {
     'hn_fused_jacobian_bwd_blocks': ([_L], _I),
     'hn_fused_jacobian_bwd': ([_P] * 7 + [_L, _I, _P], _I),
     'hn_fused_se3_jacobian_fwd': ([_P] * 5 + [_L, _P], _I),
-    'hn_fused_se3_jacobian_bwd_blocks': ([_L], _I),
     'hn_fused_se3_jacobian_bwd': ([_P] * 8 + [_L, _I, _P], _I),
     'hn_fused_composite_fwd': ([_P] * 8 + [_L, _I, _I, _I, _I, _P], _I),
     'hn_fused_composite_bwd': ([_P] * 9 + [_L, _I, _I, _I, _P], _I),

@@ -1,9 +1,9 @@
-// A field MLP's column plan on a backward tile and the walk-back through
-// one of its hidden layers. Borrowed by the SE(3) trunk's backward
-// (se3_trunk.cuh) and the translation Jacobian's (fused_jacobian_bwd.cu).
-// (A field alone forward is a stage of the level forward, modular_fwd.cu;
-// a field alone backward runs on kernel B's block, fields_bwd_alone.cu over
-// fields_bwd.cuh.)
+// A field MLP's column plan on a mma.sync backward tile: the translation
+// Jacobian's backward (fused_jacobian_bwd.cu) keeps the warp field's stored
+// outputs and its cotangent on these columns. (A field alone forward is a
+// stage of the level forward, modular_fwd.cu; a field alone backward, the
+// SE(3) trunk's and the trunk's tangents' run on kernel B's block,
+// fields_bwd_alone.cuh over fields_bwd.cuh.)
 
 #pragma once
 
@@ -25,17 +25,5 @@ struct Plan {
   }
 };
 using WarpPlan = Plan<kWarpW, kWarpEncP>;
-
-// Hidden layer I of a field back: dW, db, then the cotangent through it. C is
-// the tile's configuration and T the layer table.
-template <class P, int LB, int I, class C, class T>
-__device__ __forceinline__ void field_back(bf16* X, const bf16* Wt,
-                                           float* grad_w, float* grad_b) {
-  constexpr int L = LB + I;
-  bwd_dw<C, L, 0, T>(X, P::g, P::in(I), grad_w);
-  bwd_db<C, L, 0, T>(X, P::g, grad_b);
-  bwd_dx<C, L, T>(X, P::g, P::g, Wt, I > 0 ? P::h(I > 0 ? I - 1 : 0) : 0,
-                  I > 0 ? layer_shape<T>(LB).n : 0);
-}
 
 }  // namespace

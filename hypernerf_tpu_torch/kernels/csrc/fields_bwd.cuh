@@ -3,7 +3,9 @@
 // fields_bwd_se3.cu and fields_bwd_quat.cu (one nvcc process each);
 // fused_level.cu holds the entry points that dispatch to them. Its block,
 // slab pool, buffer plan and walk-back also run one field alone, from the
-// field's own blobs (fields_bwd_alone.cu).
+// field's own blobs (fields_bwd_alone.cuh: a translation-table field, the
+// SE(3) trunk, and the trunk with its three point-tangent streams, whose
+// epilogues take a tangent row's ReLU mask from its primal row: kTan below).
 //
 // Replaces hypernerf_tpu/ops/pallas/fused_level.py `_fields_bwd_call` (:846,
 // the tile body `_fields_bwd_core_gen` :409-450 over fused_field.py
@@ -180,6 +182,21 @@ __device__ __forceinline__ int slot_of(int box) {
   constexpr int s0 = slot_at(F, B, 0, I), s1 = slot_at(F, B, 1, I);
   return box ? s1 : s0;
 }
+
+// The tangent streams' rows (kTan): a block tile of 128 rows holds 32
+// points x 4 streams (the primal row, then d / d p_k for k = 0, 1, 2), 16
+// points a warpgroup and 4 a warp. Row 16 w + 4 s + q of a warpgroup is
+// stream s of its point 4 w + q, so a lane's two accumulator rows (lane / 4
+// and lane / 4 + 8 of its warp's 16) are streams s and s + 2 of one point,
+// the primal row on lanes 0..15, and lane & 15 holds the primal row of the
+// point and columns that lane holds: a tangent's ReLU mask is one shuffle.
+__host__ __device__ constexpr int tan_row(int point, int stream) {
+  return ((point >> 2) << 4) | (stream << 2) | (point & 3);
+}
+__host__ __device__ constexpr int tan_stream(int row) {
+  return (row >> 2) & 3;
+}
+constexpr int kTanPoints = kTileRows / 4;  // points of a block tile
 
 template <int kWarp>
 using Table = lf::Table<kWarp>;
@@ -391,7 +408,9 @@ __device__ __forceinline__ void produce_tile(const lf::Maps<Table<kWarp>>& maps,
 
 // Local hidden layer I of field F: its output = bf16([relu](in W^T + b)) into
 // the warpgroup's half of the output's slots; spilled if the plan says so.
-template <class T, int F, int I, bool kRelu>
+// kTan (tan_row's layout): a tangent row gets no bias and, for a ReLU layer,
+// its primal row's mask (pre-activation > 0): bf16(acc * mask).
+template <class T, int F, int I, bool kRelu, bool kTan = false>
 __device__ __forceinline__ void fwd_layer(Ctx& c, const bf16* __restrict__ B) {
   constexpr int L = base<T, F>() + I;
   constexpr Shape sh = T::shape(L);
@@ -444,17 +463,54 @@ __device__ __forceinline__ void fwd_layer(Ctx& c, const bf16* __restrict__ B) {
   c.mark(kCyMma);
   const int i7 = lane & 7, jo = lane >> 4;
   const uint32_t row = (16 * warp + i7 + (lane & 8)) * 128;
+  if constexpr (kTan) {
+    // The primal row's mask of the lane's 2J columns (bit 2 j + e: column
+    // 8 j + 2 t + e), from lane & 15; every bit set for a linear layer.
+    static_assert(J <= 16, "a lane's mask in one word");
+    uint32_t on = 0xffffffffu;
+    if constexpr (kRelu) {
+      on = 0u;
 #pragma unroll
-  for (int j = 0; j < J; j += 2) {
-    const __nv_bfloat162 bb[2] = {bias[4 * j], bias[4 * j + 4]};
-    const float* d = acc + 4 * j;
-    const int jj = j + jo;
-    lf::stsm_x4(c.half(slot_of<F, kOut, kFwd>(j >> 3)) + row +
-                    (((jj & 7) ^ i7) << 4),
-                lf::bias_round<kRelu>(d[0], d[1], bb[0]),
-                lf::bias_round<kRelu>(d[2], d[3], bb[0]),
-                lf::bias_round<kRelu>(d[4], d[5], bb[1]),
-                lf::bias_round<kRelu>(d[6], d[7], bb[1]));
+      for (int j = 0; j < J; ++j) {
+        const __nv_bfloat162 b = bias[4 * j];
+        on |= (acc[4 * j] + __low2float(b) > 0.f ? 1u : 0u) << (2 * j);
+        on |= (acc[4 * j + 1] + __high2float(b) > 0.f ? 1u : 0u)
+              << (2 * j + 1);
+      }
+      on = __shfl_sync(0xffffffffu, on, lane & 15);
+    }
+    const bool primal = lane < 16;  // the lane's first row is stream 0
+    auto tangent = [on](float v0, float v1, int bit) {
+      return pack_bf((on >> bit) & 1u ? v0 : 0.f,
+                     (on >> (bit + 1)) & 1u ? v1 : 0.f);
+    };
+#pragma unroll
+    for (int j = 0; j < J; j += 2) {
+      const __nv_bfloat162 bb[2] = {bias[4 * j], bias[4 * j + 4]};
+      const float* d = acc + 4 * j;
+      const int jj = j + jo;
+      lf::stsm_x4(c.half(slot_of<F, kOut, kFwd>(j >> 3)) + row +
+                      (((jj & 7) ^ i7) << 4),
+                  primal ? lf::bias_round<kRelu>(d[0], d[1], bb[0])
+                         : tangent(d[0], d[1], 2 * j),
+                  tangent(d[2], d[3], 2 * j),
+                  primal ? lf::bias_round<kRelu>(d[4], d[5], bb[1])
+                         : tangent(d[4], d[5], 2 * j + 2),
+                  tangent(d[6], d[7], 2 * j + 2));
+    }
+  } else {
+#pragma unroll
+    for (int j = 0; j < J; j += 2) {
+      const __nv_bfloat162 bb[2] = {bias[4 * j], bias[4 * j + 4]};
+      const float* d = acc + 4 * j;
+      const int jj = j + jo;
+      lf::stsm_x4(c.half(slot_of<F, kOut, kFwd>(j >> 3)) + row +
+                      (((jj & 7) ^ i7) << 4),
+                  lf::bias_round<kRelu>(d[0], d[1], bb[0]),
+                  lf::bias_round<kRelu>(d[2], d[3], bb[0]),
+                  lf::bias_round<kRelu>(d[4], d[5], bb[1]),
+                  lf::bias_round<kRelu>(d[6], d[7], bb[1]));
+    }
   }
   fence_async_smem();
   c.sync();
@@ -572,7 +628,9 @@ __device__ __forceinline__ void reloads(Ctx& c,
 }
 
 // Walk-back layer I of field F: dW, db, then the cotangent through it.
-template <class T, int F, int I>
+// kTan (tan_row's layout): db sums the primal rows alone, and a tangent row's
+// cotangent is masked by its primal row's stored output.
+template <class T, int F, int I, bool kTan = false>
 __device__ __forceinline__ void back_layer(Ctx& c, float* __restrict__ grad_w,
                                            float* __restrict__ grad_b) {
   constexpr int L = base<T, F>() + I;
@@ -633,15 +691,24 @@ __device__ __forceinline__ void back_layer(Ctx& c, float* __restrict__ grad_w,
         atomicAdd(reinterpret_cast<float4*>(dw_l + (size_t)n * sh.k + k), v);
     }
     // db of the unit's 64 outputs: the rounded cotangent's column sums, a
-    // pair of neighbouring lanes per column, each over half of the rows.
+    // pair of neighbouring lanes per column, each over half of the rows
+    // (kTan: that half's 16 primal rows).
     if (ib == 0) {
       const uint32_t g = c.slab(g_slot(ob));
       const int f = c.tid >> 1, half = c.tid & 1;
       float s0 = 0.f, s1 = 0.f;
+      if constexpr (kTan) {
 #pragma unroll 8
-      for (int r = half * 64; r < half * 64 + 64; r += 2) {
-        s0 += lds_bf(lf::x_at(g, r, f));
-        s1 += lds_bf(lf::x_at(g, r + 1, f));
+        for (int q = 0; q < kTanPoints / 2; q += 2) {
+          s0 += lds_bf(lf::x_at(g, half * 64 + tan_row(q, 0), f));
+          s1 += lds_bf(lf::x_at(g, half * 64 + tan_row(q + 1, 0), f));
+        }
+      } else {
+#pragma unroll 8
+        for (int r = half * 64; r < half * 64 + 64; r += 2) {
+          s0 += lds_bf(lf::x_at(g, r, f));
+          s1 += lds_bf(lf::x_at(g, r + 1, f));
+        }
       }
       s0 += s1;
       s0 += __shfl_xor_sync(0xffffffffu, s0, 1);
@@ -719,7 +786,13 @@ __device__ __forceinline__ void back_layer(Ctx& c, float* __restrict__ grad_w,
       const uint32_t addr = row + ((((j + jo) & 7) ^ i7) << 4);
       const float* e = d + 4 * j;
       uint32_t m[4] = {0x3f803f80u, 0x3f803f80u, 0x3f803f80u, 0x3f803f80u};
-      if (masked) ldsm_x4(m, addr);
+      if (masked) {
+        ldsm_x4(m, addr);
+        if constexpr (kTan) {  // both rows take the primal row's (lane & 15)
+          m[0] = m[1] = __shfl_sync(0xffffffffu, m[0], lane & 15);
+          m[2] = m[3] = __shfl_sync(0xffffffffu, m[2], lane & 15);
+        }
+      }
       lf::stsm_x4(addr, mask_pack(e[0], e[1], m[0]),
                   mask_pack(e[2], e[3], m[1]), mask_pack(e[4], e[5], m[2]),
                   mask_pack(e[6], e[7], m[3]));
@@ -739,8 +812,9 @@ __device__ __forceinline__ void back_layer(Ctx& c, float* __restrict__ grad_w,
 // cotangent of their input (the top hidden output, or the trunk logit),
 // bf16, masked by that output's ReLU (not for the linear trunk logit),
 // written over it. The heads' fp32 cotangents: rows.hg[:, 0:n] (and, SE(3),
-// rows.se3[:, 8:11] for v).
-template <class T, int F>
+// rows.se3[:, 8:11] for v). kTan (tan_row's layout): db sums the primal rows
+// alone.
+template <class T, int F, bool kTan = false>
 __device__ __forceinline__ void head_back(Ctx& c, const bf16* __restrict__ W,
                                           float* __restrict__ grad_w,
                                           float* __restrict__ grad_b) {
@@ -791,7 +865,11 @@ __device__ __forceinline__ void head_back(Ctx& c, const bf16* __restrict__ W,
     const int hb = t / n_out, n = t % n_out, stride = hb ? 16 : 8;
     const float* g = cot(hb);
     float sb = 0.f;
-    for (int r = 0; r < kTileRows; ++r) sb += g[r * stride + n];
+    if constexpr (kTan) {
+      for (int q = 0; q < kTanPoints; ++q) sb += g[tan_row(q, 0) * stride + n];
+    } else {
+      for (int r = 0; r < kTileRows; ++r) sb += g[r * stride + n];
+    }
     atomicAdd(grad_b + (hb ? kB1 : kB0) + n, sb);
   }
   c.mark(kCyHead);

@@ -1,6 +1,7 @@
 // The warp Jacobian kernels' shared device code (fused_jacobian.cu,
-// fused_jacobian_bwd.cu for the translation warp; fused_se3_jacobian.cu,
-// fused_se3_jacobian_bwd.cu for the SE(3) / quaternion trunk).
+// fused_jacobian_bwd.cu for the translation warp; fused_se3_jacobian.cu for
+// the SE(3) / quaternion trunk's forward, whose backward runs on kernel B's
+// block: se3_tangents_bwd.cu over fields_bwd_alone.cuh).
 //
 // Forward-mode tangents ride the MLP as extra rows. A tile holds R points as
 // FOUR stream blocks of R rows each: the primal rows, then the tangent rows
@@ -141,7 +142,7 @@ __device__ __forceinline__ void encode_trans_streams(bf16* X, int col,
   }
 }
 
-// The SE(3) trunk's encoding (encode_se3) on the primal rows and its tangents
+// The SE(3) trunk's encoding on the primal rows and its tangents
 // on tangent row k: [cos(p_k 2^m) 2^m | -sin(p_k 2^m) 2^m on channel k's
 // band columns | 0], m = kSe3MinDeg + band. The window row multiplies the
 // primal encoding after its rounding (rounded again) and the fp32 tangent
@@ -201,88 +202,6 @@ __device__ __forceinline__ float tangent_encode_dp(float x, int c, int sin_col,
     dp += ldexpf(-sn * a_sin - cs * a_cos, m);
   }
   return dp;
-}
-
-// -- backward ---------------------------------------------------------------
-
-// db_L[n] += sum over the primal rows of float(X[r][g_col + n]): the bias
-// gets no gradient from the tangent rows.
-template <class C, int L, class T>
-__device__ __forceinline__ void jac_db(const bf16* X, int g_col,
-                                       float* __restrict__ grad_b) {
-  constexpr int N = layer_shape<T>(L).n;
-  float* db = grad_b + bias_offset<T>(L);
-  for (int n = threadIdx.x; n < N; n += C::THREADS) {
-    float s = 0.f;
-    for (int r = 0; r < C::R; ++r) s += bf2f(X[r * C::LD + g_col + n]);
-    atomicAdd(db + n, s);
-  }
-}
-
-// bwd_dx over the four streams: X[:, out_col : out_col + K] =
-// bf16(X[:, g_col : g_col + N] @ W_L), zeroed for k < mask_w where the
-// PRIMAL row of the same point stored X[q][mask_col + k] <= 0.
-template <class C, int L, class T>
-__device__ __forceinline__ void jac_dx(bf16* X, int g_col, int out_col,
-                                       const bf16* __restrict__ Wt,
-                                       int mask_col, int mask_w) {
-  constexpr int N = layer_shape<T>(L).n, K = layer_shape<T>(L).k;
-  constexpr int NT = tiles_per_warp<C, K>();
-  float acc[C::MT][NT][4];
-  gemm<C, K, N>(X, g_col, Wt + weight_offset<T>(L), acc);
-  __syncthreads();
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-#pragma unroll
-  for (int i = 0; i < NT; ++i) {
-    const int j = warp + C::NW * i;
-    if (j * 8 >= K) continue;
-    const int k = j * 8 + 2 * t;
-    const bool masked = k < mask_w;  // mask_w is even: k, k + 1 alike
-#pragma unroll
-    for (int mt = 0; mt < C::MT; ++mt) {
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int r = mt * 16 + g + 8 * h;
-        float v0 = acc[mt][i][2 * h], v1 = acc[mt][i][2 * h + 1];
-        if (masked) {
-          const __nv_bfloat162 m = *reinterpret_cast<const __nv_bfloat162*>(
-              X + (r % C::R) * C::LD + mask_col + k);
-          if (!(__low2float(m) > 0.f)) v0 = 0.f;
-          if (!(__high2float(m) > 0.f)) v1 = 0.f;
-        }
-        *reinterpret_cast<__nv_bfloat162*>(X + r * C::LD + out_col + k) =
-            __floats2bfloat162_rn(v0, v1);
-      }
-    }
-  }
-  __syncthreads();
-}
-
-// A head L (out <= 8 after padding) with its fp32 cotangent hg[4R][8] (pad
-// columns zero): dW_L[n][k] += sum over all rows of bf16(hg[r][n]) *
-// X[r][h_col + k]; db_L[n] += sum over the primal rows of hg[r][n] (fp32).
-template <class C, int L, class T>
-__device__ __forceinline__ void jac_head_dw_db(const bf16* X, int h_col,
-                                               const float* hg,
-                                               float* __restrict__ grad_w,
-                                               float* __restrict__ grad_b) {
-  constexpr int K = layer_shape<T>(L).k;
-  static_assert(layer_shape<T>(L).n == 8, "heads are padded to 8");
-  float* dw = grad_w + weight_offset<T>(L);
-  float* db = grad_b + bias_offset<T>(L);
-  for (int e = threadIdx.x; e < 8 * K; e += C::THREADS) {
-    const int n = e / K, k = e % K;
-    float s = 0.f;
-    for (int r = 0; r < C::ROWS; ++r)
-      s += round_bf(hg[r * 8 + n]) * bf2f(X[r * C::LD + h_col + k]);
-    atomicAdd(dw + e, s);
-  }
-  if (threadIdx.x < 8) {
-    float s = 0.f;
-    for (int r = 0; r < C::R; ++r) s += hg[r * 8 + threadIdx.x];
-    atomicAdd(db + threadIdx.x, s);
-  }
 }
 
 // -- fp32 cotangents as two bf16 halves ------------------------------------
@@ -347,9 +266,10 @@ __device__ __forceinline__ void gemm_split(
   }
 }
 
-// jac_dx with a split cotangent in and out: X[:, out_col (+KLO)] =
-// split((X[:, g_col] + X[:, g_col + KLO]) @ W_L), masked for k < mask_w by
-// the primal row's stored activation.
+// The cotangent through layer L over the four streams, split in and out:
+// X[:, out_col (+KLO)] = split((X[:, g_col] + X[:, g_col + KLO]) @ W_L),
+// zeroed for k < mask_w where the PRIMAL row of the same point stored
+// X[q][mask_col + k] <= 0. Wt holds W_L^T, (K, N) row-major.
 template <class C, int L, class T, int KLO>
 __device__ __forceinline__ void jac_dx_split(bf16* X, int g_col, int out_col,
                                              const bf16* __restrict__ Wt,
@@ -388,7 +308,9 @@ __device__ __forceinline__ void jac_dx_split(bf16* X, int g_col, int out_col,
 }
 
 // dW_L[n][k] += sum_r (X[r][g_col + n] + X[r][g_col + KLO + n]) *
-// X[r][h_col + k]: bwd_dw with the split cotangent.
+// X[r][h_col + k], added into the gradient buffer: a warp takes 16 x 16
+// pieces of dW, the m16n8k16 product with M = out, N = in, K = rows, both
+// operands read transposed with ldmatrix.trans.
 template <class C, int L, class T, int KLO>
 __device__ __forceinline__ void jac_dw_split(const bf16* X, int g_col,
                                              int h_col,

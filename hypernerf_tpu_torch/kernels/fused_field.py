@@ -213,30 +213,12 @@ def fused_field_bwd(mlp: MLP, n_freq: int, x_raw, g, scales=None):
     fl = importlib.import_module('hypernerf_tpu_torch.kernels.fused_level')
     which, scales, (w_blob, b_blob, shapes) = _launch_args(mlp, n_freq, x_raw,
                                                            scales)
-    dev, p = x_raw.device, x_raw.shape[0]
-    build.check_tensor('g', g, (p, OUT_PAD), torch.float32, dev)
-    dx_raw = torch.empty_like(x_raw)
-    grads, n_w = fl.fields_bwd_grad_copies(shapes, dev)
-    if p:
-        with torch.cuda.device(dev):
-            blocks = build.library().hn_fused_fields_bwd_blocks(p)
-        if blocks <= 0:
-            raise RuntimeError('hn_fused_fields_bwd_blocks: no device')
-        scratch = (torch.empty((blocks * fl.FB_SPILL_SLABS
-                                * fl.FB_SLAB_BYTES,), dtype=torch.uint8,
-                               device=dev)
-                   if fl.field_bwd_spills(('warp', 'sheet')[which])
-                   else None)
-        common.launch('hn_fused_field_bwd', dev, which, x_raw.data_ptr(),
-                      None if scales is None else scales.data_ptr(),
-                      g.data_ptr(), w_blob.data_ptr(), b_blob.data_ptr(),
-                      dx_raw.data_ptr(), grads.data_ptr(),
-                      None if scratch is None else scratch.data_ptr(), p,
-                      blocks)
-        fused_field_bwd.launches += 1
-    grads = grads.sum(0)
-    return dx_raw, common.unpack_grads(grads[:n_w], grads[n_w:],
-                                       field_layers(mlp), shapes)
+    p = x_raw.shape[0]
+    build.check_tensor('g', g, (p, OUT_PAD), torch.float32, x_raw.device)
+    dx_raw, dw, db = fl.launch_field_bwd(
+        ('warp', 'sheet')[which], 'hn_fused_field_bwd', fused_field_bwd,
+        [which], x_raw, scales, g, w_blob, b_blob, shapes)
+    return dx_raw, common.unpack_grads(dw, db, field_layers(mlp), shapes)
 
 
 fused_field_bwd.launches = 0

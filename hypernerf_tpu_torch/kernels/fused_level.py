@@ -491,30 +491,60 @@ def _stream_bytes(loads, shapes, first: int, n_points: int) -> int:
                        for l, kb, rows in loads)
 
 
-# A field alone backward (csrc/fields_bwd_alone.cu) runs kernel B's block,
-# ring and slab pool on one field of the translation table (layers
-# MODULE_STAGES['warp'] or ['sheet']) from the field's own blob, with kernel
-# B's buffer plan of that field: the pool is empty when a field starts
-# either way, the sheet fits it and the warp field spills. Field -> the
-# code ``hn_fused_field_bwd`` and ``hn_fused_field_bwd_plan`` take, and its
-# row of FB_PLANS.
-FIELD_BWD_CODES = {'warp': 0, 'sheet': 1}
-FIELD_BWD_PLANS = {'warp': 'translation', 'sheet': 'sheet'}
+# A field alone backward (csrc/fields_bwd_alone.cuh) runs kernel B's block,
+# ring and slab pool on one field from the field's own blob, with kernel B's
+# buffer plan of that field: the pool is empty when a field starts either
+# way, the sheet fits it, the warp field and the trunk spill. The fields: the
+# warp field and the sheet of the translation table (layers
+# MODULE_STAGES['warp'] or ['sheet'], ``hn_fused_field_bwd``), the SE(3)
+# trunk (layers MODULE_STAGES['se3'] of the SE(3) table,
+# ``hn_fused_se3_bwd``), and the trunk with its three point-tangent streams
+# (``hn_fused_se3_jacobian_bwd``: a block tile of 32 points x 4 streams,
+# ``tangent_row``). Each field's record: ``code``, what
+# ``hn_fused_field_bwd_plan`` takes; ``plan``, its row of FB_PLANS;
+# ``stage``, its layers (a key of MODULE_STAGES); ``streams``, the rows of a
+# point (with the tangents, the primal row and d / d p_k, k < 3);
+# ``streamed``, the layers a block tile streams (the six hidden layers, and
+# the trunk's logit). The tangents differ from the trunk alone only by their
+# streams, so they share its plan code.
+class FieldBwd(NamedTuple):
+    code: int
+    plan: str
+    stage: str
+    streams: int
+    streamed: int
+
+
+FIELD_BWD = {'warp': FieldBwd(0, 'translation', 'warp', 1, 6),
+             'sheet': FieldBwd(1, 'sheet', 'sheet', 1, 6),
+             'se3': FieldBwd(2, 'se3', 'se3', 1, 7),
+             'se3_tangents': FieldBwd(2, 'se3', 'se3', 4, 7)}
+
+
+def tangent_row(point: int, stream: int) -> int:
+    """The block-tile row of stream ``stream`` of point ``point`` (< 32) of
+    the trunk's tangent backward (csrc/fields_bwd.cuh ``tan_row``): row 16 w
+    + 4 s + q of a warpgroup is stream s of its point 4 w + q, so a lane's
+    two accumulator rows are streams s and s + 2 of one point and the primal
+    row of a tangent row's point and columns is on lane & 15 of its warp."""
+    return ((point >> 2) << 4) | (stream << 2) | (point & 3)
 
 
 def field_bwd_spills(field: str) -> bool:
     """Whether the field alone's plan spills (and the kernel wants a
     scratch of FB_SPILL_SLABS slabs a block)."""
     return any(spill >= 0 for _, spill, _, _ in
-               FB_PLANS[FIELD_BWD_PLANS[field]])
+               FB_PLANS[FIELD_BWD[field].plan])
 
 
 def field_bwd_loads(field: str, shapes):
     """[(layer, box of K, box rows)]: a block tile's weight loads of the
-    field alone, the layer numbered in the translation table: its six hidden
-    layers forward, then backward. ``shapes`` are the field's own blob's."""
-    first = MODULE_STAGES[field][0]
-    order = list(range(6)) + list(range(5, -1, -1))
+    field alone, the layer numbered in its table (the translation table's,
+    or the SE(3) table's for the trunk): its streamed layers forward, then
+    backward. ``shapes`` are the field's own blob's."""
+    first = MODULE_STAGES[FIELD_BWD[field].stage][0]
+    n = FIELD_BWD[field].streamed
+    order = list(range(n)) + list(range(n - 1, -1, -1))
     return [(first + l, kb, min(shapes[l][0], FB_STAGE_BYTES // 128))
             for l in order for kb in range(-(-shapes[l][1] // 64))]
 
@@ -523,27 +553,58 @@ def field_bwd_plan(field: str, shapes):
     """The compiled plan's fields of a field alone backward
     (``hn_fused_field_bwd_plan``): config, table (the field's buffer plan,
     six ints a buffer) and loads."""
-    first, end = MODULE_STAGES[field]
+    first, end = MODULE_STAGES[FIELD_BWD[field].stage]
     if len(shapes) != end - first:
         raise ValueError(f'{field}: {len(shapes)} layers, want '
                          f'{end - first}')
     return dict(config=list(FB_CONFIG),
-                table=_fb_table(FIELD_BWD_PLANS[field]),
+                table=_fb_table(FIELD_BWD[field].plan),
                 loads=field_bwd_loads(field, shapes))
+
+
+def launch_field_bwd(field: str, fn_name: str, counted, lead, x_raw, scales,
+                     g, w_blob, b_blob, shapes):
+    """Launch a field alone backward on kernel B's block (``fn_name``,
+    after the ``lead`` arguments) and add one to ``counted.launches``: its
+    rows' grid (a point is FIELD_BWD[field].streams rows), FB_GRAD_COPIES
+    zeroed gradient copies, and a per-block spill scratch where the field's
+    plan spills. Returns dx_raw and the copies' sum split into (dW, db) in
+    the packed layout."""
+    dev, p = x_raw.device, x_raw.shape[0]
+    dx_raw = torch.empty_like(x_raw)
+    grads, n_w = fields_bwd_grad_copies(shapes, dev)
+    if p:
+        with torch.cuda.device(dev):
+            blocks = build.library().hn_fused_fields_bwd_blocks(
+                FIELD_BWD[field].streams * p)
+        if blocks <= 0:
+            raise RuntimeError('hn_fused_fields_bwd_blocks: no device')
+        scratch = (torch.empty((blocks * FB_SPILL_SLABS * FB_SLAB_BYTES,),
+                               dtype=torch.uint8, device=dev)
+                   if field_bwd_spills(field) else None)
+        common.launch(fn_name, dev, *lead, x_raw.data_ptr(), _ptr(scales),
+                      g.data_ptr(), w_blob.data_ptr(), b_blob.data_ptr(),
+                      dx_raw.data_ptr(), grads.data_ptr(), _ptr(scratch), p,
+                      blocks)
+        counted.launches += 1
+    grads = grads.sum(0)
+    return dx_raw, grads[:n_w], grads[n_w:]
 
 
 def compiled_field_bwd_plan(field: str):
     """``field_bwd_plan``'s fields as the compiled kernel reports them
     (``hn_fused_field_bwd_plan``)."""
     return _compiled_fb_plan('hn_fused_field_bwd_plan',
-                             FIELD_BWD_CODES[field], 1)
+                             FIELD_BWD[field].code, 1)
 
 
 def field_bwd_stream_bytes(field: str, shapes, n_points: int) -> int:
-    """Weight bytes one call of a field alone backward reads from L2: each
-    block tile reads its loads' in-bounds bytes once."""
+    """Weight bytes one call of a field alone backward on ``n_points``
+    points reads from L2: each block tile reads its loads' in-bounds bytes
+    once (with the tangents a point is four rows)."""
     return _stream_bytes(field_bwd_loads(field, shapes), shapes,
-                         MODULE_STAGES[field][0], n_points)
+                         MODULE_STAGES[FIELD_BWD[field].stage][0],
+                         FIELD_BWD[field].streams * n_points)
 
 
 def _launch_forward(level: Level, z_vals, origins, directions, embed,

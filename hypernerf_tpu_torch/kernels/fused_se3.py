@@ -11,12 +11,14 @@ that kernel's block, which replaces the TPU kernel
 ``fused_level.stage_plan('se3', ...)``'s. On CPU tensors it runs
 ``fused_se3_plain``, the same function composed from this package's modules.
 When a gradient is wanted the call goes through ``FusedSE3Fn``, whose backward
-is ``fused_se3_bwd``: the kernel ``csrc/fused_se3_bwd.cu`` (for the TPU
-kernel's ``_fused_bwd``) on CUDA tensors, and ``fused_se3_bwd_plain``, written
-out without autograd and with the kernel's rounding points, on CPU tensors. On
-a CUDA tensor a wrapper launches its kernel or raises. The retraction
-(w, v, points) -> warped points is the caller's (``ops.rigid_body``,
-``ops.quaternion``).
+is ``fused_se3_bwd``: on CUDA tensors the kernel of ``csrc/se3_bwd_alone.cu``
+(for the TPU kernel's ``_fused_bwd``), kernel B's block run on the trunk alone
+(``csrc/fields_bwd_alone.cuh``; its plan is
+``fused_level.field_bwd_plan('se3', ...)``'s), and ``fused_se3_bwd_plain``,
+written out without autograd and with the kernel's rounding points, on CPU
+tensors. On a CUDA tensor a wrapper launches its kernel or raises. The
+retraction (w, v, points) -> warped points is the caller's
+(``ops.rigid_body``, ``ops.quaternion``).
 
 The optional ``scales`` row is the ``warp_alpha`` window: one fp32 weight per
 encoded feature, multiplied into the rounded encoding (embedding features
@@ -30,6 +32,8 @@ degrees 0..8, 6 x 128 with a skip after layer 4, trunk logit 128 -> 128, heads
 """
 
 from __future__ import annotations
+
+import importlib
 
 import torch
 import torch.nn.functional as F
@@ -151,16 +155,12 @@ def check_covered(field) -> None:
                                   f'{dtypes}')
 
 
-def _launch_args(field, x_raw, scales, transposed):
+def _launch_args(field, x_raw, scales):
     """Checked inputs of a kernel launch: the padded window row or None and
-    the packed blobs."""
+    the packed blobs (the trunk's one weight blob, its biases, the shapes)."""
     check = lambda: check_covered(field)
-    layers = se3_layers(field)
-    packs = [common.pack_layers(field, layers, check)]
-    if transposed:
-        packs.append(common.pack_layers(field, layers, check,
-                                        transposed=True))
-    shapes = packs[0][2]
+    w_blob, b_blob, shapes = common.pack_layers(field, se3_layers(field),
+                                                check)
     check()
     common.check_layout(shapes, common.SE3_LAYERS, 'se3')
     dev = x_raw.device
@@ -169,7 +169,7 @@ def _launch_args(field, x_raw, scales, transposed):
                        torch.float32, dev)
     scales = common.padded_scales(scales, field.trunk.hidden(0).in_features,
                                   shapes[0][1], dev)
-    return scales, packs
+    return scales, (w_blob, b_blob, shapes)
 
 
 def _forward(field, x_raw, scales):
@@ -178,7 +178,7 @@ def _forward(field, x_raw, scales):
     if common.runs_plain(x_raw, 'fused_se3_wv'):
         out = fused_se3_plain(field, x_raw, scales)
         return F.pad(out, (0, OUT_PAD - out.shape[1]))
-    scales, ((w_blob, b_blob, _),) = _launch_args(field, x_raw, scales, False)
+    scales, (w_blob, b_blob, _) = _launch_args(field, x_raw, scales)
     p = x_raw.shape[0]
     out = torch.empty((p, OUT_PAD), dtype=torch.float32, device=x_raw.device)
     if p:
@@ -233,25 +233,22 @@ class FusedSE3Fn(torch.autograd.Function):
 
 def fused_se3_bwd(field, x_raw, g, scales=None):
     """Trunk backward (see ``fused_se3_bwd_plain``): CPU tensors take the
-    plain version, CUDA tensors launch the kernel or raise."""
+    plain version, CUDA tensors launch the kernel or raise. The kernel reads
+    the trunk's one weight blob (no transposed form), adds dW / db into
+    ``fused_level.FB_GRAD_COPIES`` buffers that are summed here, and gets a
+    per-block spill scratch (the trunk's plan spills)."""
     if common.runs_plain(x_raw, 'fused_se3_bwd'):
         return fused_se3_bwd_plain(field, x_raw, g, scales)
-    scales, ((w_blob, b_blob, shapes), (wt_blob, _, _)) = _launch_args(
-        field, x_raw, scales, True)
-    dev, p = x_raw.device, x_raw.shape[0]
-    build.check_tensor('g', g, (p, OUT_PAD), torch.float32, dev)
-    dx_raw = torch.empty_like(x_raw)
-    grads, n_w = common.grad_buffer(shapes, dev)
-    if p:
-        blocks = build.library().hn_fused_se3_bwd_blocks(p)
-        common.launch('hn_fused_se3_bwd', dev, x_raw.data_ptr(),
-                      None if scales is None else scales.data_ptr(),
-                      g.data_ptr(), w_blob.data_ptr(), wt_blob.data_ptr(),
-                      b_blob.data_ptr(), dx_raw.data_ptr(), grads.data_ptr(),
-                      p, blocks)
-        fused_se3_bwd.launches += 1
-    return dx_raw, common.unpack_grads(grads[:n_w], grads[n_w:],
-                                       se3_layers(field), shapes)
+    # fused_level models kernel B's block, which this kernel runs; it
+    # imports this module, so it is imported here.
+    fl = importlib.import_module('hypernerf_tpu_torch.kernels.fused_level')
+    scales, (w_blob, b_blob, shapes) = _launch_args(field, x_raw, scales)
+    p = x_raw.shape[0]
+    build.check_tensor('g', g, (p, OUT_PAD), torch.float32, x_raw.device)
+    dx_raw, dw, db = fl.launch_field_bwd('se3', 'hn_fused_se3_bwd',
+                                         fused_se3_bwd, [], x_raw, scales, g,
+                                         w_blob, b_blob, shapes)
+    return dx_raw, common.unpack_grads(dw, db, se3_layers(field), shapes)
 
 
 fused_se3_bwd.launches = 0

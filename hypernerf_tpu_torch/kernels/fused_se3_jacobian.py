@@ -8,11 +8,15 @@ hand-written Hopper kernel ``csrc/fused_se3_jacobian.cu`` (which replaces the
 TPU kernel ``hypernerf_tpu/ops/pallas/fused_se3_jacobian.py`` ``_fused_fwd``);
 on CPU tensors it runs ``fused_se3_jacobian_plain``. When a gradient is
 wanted the call goes through ``FusedSE3JacobianFn``, whose backward is
-``fused_se3_jacobian_bwd``: the kernel ``csrc/fused_se3_jacobian_bwd.cu``
-(for the TPU kernel's ``_fused_bwd``) on CUDA tensors,
-``fused_se3_jacobian_bwd_plain`` on CPU tensors. On a CUDA tensor a wrapper
-launches its kernel or raises. The retraction's point-Jacobian from these
-outputs is the caller's (``ops.rigid_body.retraction_jacobian``).
+``fused_se3_jacobian_bwd``: on CUDA tensors the kernel of
+``csrc/se3_tangents_bwd.cu`` (for the TPU kernel's ``_fused_bwd``), kernel
+B's block run on the trunk with its tangents as a block tile of 32 points x 4
+streams (``csrc/fields_bwd_alone.cuh``; its plan is
+``fused_level.field_bwd_plan('se3_tangents', ...)``'s, its rows
+``fused_level.tangent_row``), and ``fused_se3_jacobian_bwd_plain`` on CPU
+tensors. On a CUDA tensor a wrapper launches its kernel or raises. The
+retraction's point-Jacobian from these outputs is the caller's
+(``ops.rigid_body.retraction_jacobian``).
 
 Math (the TPU kernel's): the tangent encoding of point tangent k is
 [cos(p_k 2^m) 2^m | -sin(p_k 2^m) 2^m on channel k's band columns | 0] times
@@ -33,6 +37,8 @@ The CUDA kernels are compiled for the flagship's trunk (``fused_se3``'s).
 
 from __future__ import annotations
 
+import importlib
+
 import torch
 import torch.nn.functional as F
 
@@ -41,7 +47,7 @@ from hypernerf_tpu_torch.kernels.fused_jacobian import (stream_rows,
                                                         streams_forward,
                                                         tangent_encode_dp,
                                                         tangent_trig)
-from hypernerf_tpu_torch.kernels.fused_se3 import (_encode, check_covered,
+from hypernerf_tpu_torch.kernels.fused_se3 import (_encode, _launch_args,
                                                    se3_layers)
 
 OUT = 24  # columns per point: [w (3) | v (3) | dw (9) | dv (9)]
@@ -183,32 +189,12 @@ def fused_se3_jacobian_bwd_plain(field, x_raw, g, scales=None):
 fused_se3_jacobian_bwd_plain.calls = 0
 
 
-def _launch_args(field, x_raw, scales, transposed):
-    """Checked inputs of a kernel launch: the padded window row or None and
-    the packed blobs."""
-    check = lambda: check_covered(field)
-    layers = se3_layers(field)
-    packs = [common.pack_layers(field, layers, check)]
-    if transposed:
-        packs.append(common.pack_layers(field, layers, check,
-                                        transposed=True))
-    check()
-    common.check_layout(packs[0][2], common.SE3_LAYERS, 'se3')
-    dev = x_raw.device
-    build.check_tensor('x_raw', x_raw,
-                       (x_raw.shape[0], 3 + common.SE3_FLAGSHIP['embed']),
-                       torch.float32, dev)
-    scales = common.padded_scales(scales, field.trunk.hidden(0).in_features,
-                                  packs[0][2][0][1], dev)
-    return scales, packs
-
-
 def _forward(field, x_raw, scales):
     """(P, 24) fp32 [w | v | dw | dv]: the plain version on CPU tensors, the
     kernel on CUDA tensors."""
     if common.runs_plain(x_raw, 'fused_se3_wv_tangents'):
         return fused_se3_jacobian_plain(field, x_raw, scales)
-    scales, ((w_blob, b_blob, _),) = _launch_args(field, x_raw, scales, False)
+    scales, (w_blob, b_blob, _) = _launch_args(field, x_raw, scales)
     p = x_raw.shape[0]
     out = torch.empty((p, OUT), dtype=torch.float32, device=x_raw.device)
     if p:
@@ -272,25 +258,23 @@ class FusedSE3JacobianFn(torch.autograd.Function):
 
 def fused_se3_jacobian_bwd(field, x_raw, g, scales=None):
     """Backward (see ``fused_se3_jacobian_bwd_plain``): CPU tensors take the
-    plain version, CUDA tensors launch the kernel or raise."""
+    plain version, CUDA tensors launch the kernel or raise. The kernel reads
+    the trunk's one weight blob (no transposed form), adds dW / db into
+    ``fused_level.FB_GRAD_COPIES`` buffers that are summed here, and gets a
+    per-block spill scratch (the trunk's plan spills)."""
     if common.runs_plain(x_raw, 'fused_se3_jacobian_bwd'):
         return fused_se3_jacobian_bwd_plain(field, x_raw, g, scales)
-    scales, ((w_blob, b_blob, shapes), (wt_blob, _, _)) = _launch_args(
-        field, x_raw, scales, True)
-    dev, p = x_raw.device, x_raw.shape[0]
-    build.check_tensor('g', g, (p, OUT), torch.float32, dev)
-    dx_raw = torch.empty_like(x_raw)
-    grads, n_w = common.grad_buffer(shapes, dev)
-    if p:
-        blocks = build.library().hn_fused_se3_jacobian_bwd_blocks(p)
-        common.launch('hn_fused_se3_jacobian_bwd', dev, x_raw.data_ptr(),
-                      None if scales is None else scales.data_ptr(),
-                      g.data_ptr(), w_blob.data_ptr(), wt_blob.data_ptr(),
-                      b_blob.data_ptr(), dx_raw.data_ptr(), grads.data_ptr(),
-                      p, blocks)
-        fused_se3_jacobian_bwd.launches += 1
-    return dx_raw, common.unpack_grads(grads[:n_w], grads[n_w:],
-                                       se3_layers(field), shapes)
+    # fused_level models kernel B's block, which this kernel runs; it
+    # imports fused_se3, so it is imported here.
+    fl = importlib.import_module('hypernerf_tpu_torch.kernels.fused_level')
+    scales, (w_blob, b_blob, shapes) = _launch_args(field, x_raw, scales)
+    p = x_raw.shape[0]
+    build.check_tensor('g', g, (p, OUT), torch.float32, x_raw.device)
+    dx_raw, dw, db = fl.launch_field_bwd('se3_tangents',
+                                         'hn_fused_se3_jacobian_bwd',
+                                         fused_se3_jacobian_bwd, [], x_raw,
+                                         scales, g, w_blob, b_blob, shapes)
+    return dx_raw, common.unpack_grads(dw, db, se3_layers(field), shapes)
 
 
 fused_se3_jacobian_bwd.launches = 0

@@ -28,8 +28,7 @@ from hypernerf_tpu_torch.flagship import flagship_model, load_probe_weights
 from hypernerf_tpu_torch.kernels import build, common
 from hypernerf_tpu_torch.kernels.fused_level import (
     FB_CONFIG, FB_GRAD_COPIES, FB_PLANS, FB_SLAB_BYTES, FB_SPILL_SLABS,
-    FB_STAGE_BYTES, FB_TILE_ROWS, FIELD_BWD_CODES, FIELD_BWD_PLANS,
-    MODULE_STAGES, field_bwd_loads, field_bwd_plan, field_bwd_spills,
+    FB_STAGE_BYTES, FB_TILE_ROWS, FIELD_BWD, MODULE_STAGES, field_bwd_loads, field_bwd_plan, field_bwd_spills,
     field_bwd_stream_bytes, fields_bwd_stream_bytes, forward_maps,
     pack_level)
 from test_torch_fields_bwd_plan import (BUF, _check_kinds, _events, _Null,
@@ -82,7 +81,7 @@ def test_plan_model(field):
     plan = field_bwd_plan(field, shapes)
     assert plan['config'] == list(FB_CONFIG)
     want = [v for fwd, spill, after, reload in
-            FB_PLANS[FIELD_BWD_PLANS[field]]
+            FB_PLANS[FIELD_BWD[field].plan]
             for v in (*fwd, spill, after, *reload)]
     assert plan['table'] == want
     loads = plan['loads']
@@ -99,14 +98,20 @@ def test_plan_model(field):
 def test_entry_point_reports_kernel_b_rows():
     """fields_bwd_alone.cu's plan entry point reports the field's row of
     kernel B's ``buf_plan`` table (the same device code reads it), the
-    warp field for code 0, the sheet for code 1."""
-    assert FIELD_BWD_CODES == {'warp': 0, 'sheet': 1}
-    assert FIELD_BWD_PLANS == {'warp': 'translation', 'sheet': 'sheet'}
+    warp field for code 0, the sheet for code 1, and the SE(3) trunk's row
+    for code 2 (the trunk alone, and with its tangents, which differ only
+    by their streams)."""
+    assert {f: (r.code, r.plan) for f, r in FIELD_BWD.items()} == {
+        'warp': (0, 'translation'), 'sheet': (1, 'sheet'),
+        'se3': (2, 'se3'), 'se3_tangents': (2, 'se3')}
+    assert FIELD_BWD['se3']._replace(streams=4) == FIELD_BWD['se3_tangents']
     src = (build.CSRC / 'fields_bwd_alone.cu').read_text()
     body = src[src.index('int hn_fused_field_bwd_plan('):]
     assert re.search(r'which == 0\) \{\s+plan_table\(kTransWarp, table\)',
                      body)
     assert 'plan_table(kSheet, table)' in body
+    assert 'plan_table(kSe3Warp, table)' in body
+    assert 'which > 2) return -1' in body
 
 
 @pytest.mark.parametrize('field', FIELDS)
@@ -116,7 +121,7 @@ def test_pool_keeps_every_live_output(field):
     plan: every layer reads, as input, dW operand, ReLU mask and cotangent,
     the buffer it wants where the plan puts it, and every reload brings back
     a spilled output."""
-    _run_pool(_events(FIELD_BWD_PLANS[field], _level_shapes()))
+    _run_pool(_events(FIELD_BWD[field].plan, _level_shapes()))
 
 
 @pytest.mark.parametrize('field', FIELDS)
@@ -125,13 +130,13 @@ def test_every_output_stored_once(field):
     in the recompute; only the warp field spills (its 14 slabs do not fit
     the pool's 8; the sheet's 7 do), and then into scratch slabs of its own
     inside the block's FB_SPILL_SLABS."""
-    stored = _run_pool(_events(FIELD_BWD_PLANS[field], _level_shapes()))
+    stored = _run_pool(_events(FIELD_BWD[field].plan, _level_shapes()))
     outputs = [k for k in stored if k[0] in BUF and k[0] != 'skip']
     assert all(len(stored[k]) == 1 for k in outputs)
     assert {k[0] for k in outputs} == {'enc', *[f'h{i}' for i in range(6)]}
     assert field_bwd_spills(field) == (field == 'warp')
     used = [spill + b for fwd, spill, _, _ in
-            FB_PLANS[FIELD_BWD_PLANS[field]] if spill >= 0
+            FB_PLANS[FIELD_BWD[field].plan] if spill >= 0
             for b in range(sum(s >= 0 for s in fwd))]
     assert len(used) == len(set(used)) and all(0 <= s < FB_SPILL_SLABS
                                                for s in used)
@@ -141,7 +146,7 @@ def test_every_output_stored_once(field):
 def test_clobbering_plan_fails(field):
     """The replay sees a fault: moving the top hidden output onto the slot
     of an output that the walk-back still reads is caught."""
-    name = FIELD_BWD_PLANS[field]
+    name = FIELD_BWD[field].plan
     saved = FB_PLANS[name]
     bad = list(saved)
     fwd, spill, after, reload = bad[BUF['h5']]
@@ -268,8 +273,9 @@ def test_launch_matches_the_c_signature(field, monkeypatch):
     weight blob, no transposed one; FB_GRAD_COPIES gradient copies; a
     spill scratch of blocks x FB_SPILL_SLABS slabs for the warp field, None
     for the sheet) and the sizes, of the declared kinds; the copies are
-    summed into the gradients. ``compiled_field_bwd_plan`` passes
-    ``hn_fused_field_bwd_plan`` the field's code."""
+    summed into the gradients, and the wrapper's count rises by one.
+    ``compiled_field_bwd_plan`` passes ``hn_fused_field_bwd_plan`` the
+    field's code."""
     assert build._SIGNATURES['hn_fused_field_bwd'] == (
         [ctypes.c_int] + [ctypes.c_void_p] * 8
         + [ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p], ctypes.c_int)
@@ -303,7 +309,9 @@ def test_launch_matches_the_c_signature(field, monkeypatch):
     x = torch.from_numpy(rs.rand(p, 11).astype(np.float32))
     g = torch.from_numpy(rs.rand(p, 8).astype(np.float32))
     scales = ff.encoding_scales(n_freq, 8, 0.45 * n_freq)
+    launches = ff.fused_field_bwd.launches
     dx, grads = ff.fused_field_bwd(mlp, n_freq, x, g, scales)
+    assert ff.fused_field_bwd.launches == launches + 1
     fl.compiled_field_bwd_plan(field)
     assert [n for n, _ in lib.calls] == ['hn_fused_fields_bwd_blocks',
                                          'hn_fused_field_bwd',
@@ -312,7 +320,7 @@ def test_launch_matches_the_c_signature(field, monkeypatch):
     assert blocks_args == (p,)
     _check_kinds('hn_fused_field_bwd', launch)
     w, b, shapes = common.pack_layers(mlp, ff.field_layers(mlp))
-    assert launch[0] == FIELD_BWD_CODES[field]
+    assert launch[0] == FIELD_BWD[field].code
     assert launch[1] == x.data_ptr() and launch[3] == g.data_ptr()
     assert launch[2] is not None  # the padded window row
     assert launch[4] == w.data_ptr() and launch[5] == b.data_ptr()
@@ -329,7 +337,7 @@ def test_launch_matches_the_c_signature(field, monkeypatch):
     else:
         assert scratch == [] and launch[8] is None
     _check_kinds('hn_fused_field_bwd_plan', plan)
-    assert plan[0] == FIELD_BWD_CODES[field] and plan[-1] == 256
+    assert plan[0] == FIELD_BWD[field].code and plan[-1] == 256
     assert len(grads) == 14 and dx.shape == x.shape
 
 

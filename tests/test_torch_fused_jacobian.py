@@ -434,4 +434,4 @@ def test_cuda_kernels_cover_the_flagship_fields_only():
     for bad in (SE3Field(E, dtype=torch.float32),
                 SE3Field(E, max_deg=6, dtype=torch.bfloat16)):
         with pytest.raises(NotImplementedError, match='A.13'):
-            fused_se3_jacobian._launch_args(bad, x, None, False)
+            fused_se3_jacobian._launch_args(bad, x, None)

@@ -1,11 +1,16 @@
 #!/usr/bin/env python
 """The fields backward's times on one CUDA card: kernel B
 (``hn_fused_fields_bwd``) for each warp type at the train step's R = 16384
-rays, S = 64 and 128 samples, or, with ``--field warp|sheet``, that field
-alone (``hn_fused_field_bwd``) at 8192 x 128 and 16384 x 128 rows; probe
-weights, CUDA events (the mean of 5 launches after 2).
+rays, S = 64 and 128 samples, or, with ``--field warp|sheet|se3``, that
+field alone (``hn_fused_field_bwd``, the SE(3) trunk's
+``hn_fused_se3_bwd``) at 8192 x 128 and 16384 x 128 rows, or, with
+``--field se3_tangents``, the trunk with its point-tangents
+(``hn_fused_se3_jacobian_bwd``) at the train step's 262,144 points (16384
+rays x 16 Jacobian samples); probe weights, CUDA events (the mean of 5
+launches after 2).
 
-  python tools/time_fields_bwd.py [--parent DIR] [--field warp|sheet]
+  python tools/time_fields_bwd.py [--parent DIR]
+      [--field warp|sheet|se3|se3_tangents]
 
 With ``--parent`` the kernel library of another checkout (for example an
 unpacked ``git archive`` of an earlier commit), built from its own
@@ -13,15 +18,15 @@ unpacked ``git archive`` of an earlier commit), built from its own
 process: this, parent, parent, this. Both get this checkout's packed blobs
 and the same inputs; kernel B's entry point takes the same arguments in
 both, a field alone's is called as the parent's ``build.py`` declares it
-(the 32-row kernel before the redesign: a transposed weight blob, one
-gradient buffer, ``hn_fused_field_bwd_blocks``). Prints the card's name and
-power limit first, then one line per kernel and shape with each library's
-times, the share of the bound (three multiply-adds per weight and row over
-989 TFLOP/s) and, with a parent, the ratio of the means and the largest
-differences of the outputs: d z, the per-ray sums (their last bits vary
-from run to run) or dx_raw, each as max|d|, and dW / db as the relative L2
-of the whole gradient (its last bits vary too). Exits non-zero without a
-card.
+(the 32-row kernels before the redesign: a transposed weight blob, one
+gradient buffer, a ``_blocks`` entry point of their own). Prints the card's
+name and power limit first, then one line per kernel and shape with each
+library's times, the share of the bound (three multiply-adds per weight and
+row over 989 TFLOP/s; a point is four rows with the tangents) and, with a
+parent, the ratio of the means and the largest differences of the outputs:
+d z, the per-ray sums (their last bits vary from run to run) or dx_raw,
+each as max|d|, and dW / db as the relative L2 of the whole gradient (its
+last bits vary too). Exits non-zero without a card.
 """
 
 from __future__ import annotations
@@ -67,7 +72,8 @@ def _time(fn, iters: int = 5) -> float:
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument('--parent', default=None)
-    parser.add_argument('--field', default=None, choices=('warp', 'sheet'))
+    parser.add_argument('--field', default=None,
+                        choices=('warp', 'sheet', 'se3', 'se3_tangents'))
     args = parser.parse_args()
 
     import torch
@@ -81,6 +87,7 @@ def main() -> int:
     from hypernerf_tpu_torch.kernels import build, common
     ff = importlib.import_module('hypernerf_tpu_torch.kernels.fused_field')
     fl = importlib.import_module('hypernerf_tpu_torch.kernels.fused_level')
+    fs = importlib.import_module('hypernerf_tpu_torch.kernels.fused_se3')
 
     print(subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
                           '--format=csv,noheader'], capture_output=True,
@@ -129,6 +136,54 @@ def main() -> int:
         print(f'{label}: ' + '; '.join(parts), flush=True)
 
     with torch.no_grad():
+        if args.field in ('se3', 'se3_tangents'):
+            tan = args.field == 'se3_tangents'
+            field = load_probe_weights(flagship_model(
+                'cuda', config='elastic_se3' if tan else 'se3')).warp_field
+            layers = fs.se3_layers(field)
+            macs = sum(lin.weight.numel() for lin, _ in layers)
+            _, (w, b, shapes) = fs._launch_args(
+                field, torch.zeros((1, 11), device='cuda'), None)
+            wt = common.pack_layers(field, layers, transposed=True)[0]
+            name = 'hn_fused_se3_jacobian_bwd' if tan else 'hn_fused_se3_bwd'
+            width, streams = (24, 4) if tan else (8, 1)
+            for rays, samples in (((16384, 16),) if tan
+                                  else ((8192, 128), (16384, 128))):
+                x = fl._raw_fields(*inputs(rays, samples, seed=rays)[:4])
+                x = x.contiguous()
+                p = x.shape[0]
+                g = torch.randn(p, width, generator=torch.Generator(
+                    ).manual_seed(rays)).cuda()
+                if not tan:
+                    g[:, 6:] = 0.0
+                dx = torch.empty_like(x)
+                copies, _ = fl.fields_bwd_grad_copies(shapes, 'cuda')
+                one = torch.zeros(copies.shape[1], device='cuda')
+                blocks = build.library().hn_fused_fields_bwd_blocks(
+                    streams * p)
+                scratch = torch.empty(blocks * fl.FB_SPILL_SLABS
+                                      * fl.FB_SLAB_BYTES, dtype=torch.uint8,
+                                      device='cuda')
+
+                def launch(lib, bld):
+                    if f'{name}_blocks' not in bld._SIGNATURES:
+                        copies.zero_()
+                        bld.check(getattr(lib, name)(
+                            x.data_ptr(), None, g.data_ptr(), w.data_ptr(),
+                            b.data_ptr(), dx.data_ptr(), copies.data_ptr(),
+                            scratch.data_ptr(), p, blocks, stream), name)
+                        return [dx, copies]
+                    one.zero_()
+                    bld.check(getattr(lib, name)(
+                        x.data_ptr(), None, g.data_ptr(), w.data_ptr(),
+                        wt.data_ptr(), b.data_ptr(), dx.data_ptr(),
+                        one.data_ptr(), p,
+                        getattr(lib, f'{name}_blocks')(p), stream), name)
+                    return [dx, one]
+                what = (f'{p} points' if tan else f'P={p}')
+                report(f'{args.field} backward {what}', macs, streams * p,
+                       launch, 1)
+            return 0
         if args.field:
             probe = load_probe_weights(flagship_model('cuda'))
             field = (probe.warp_field if args.field == 'warp'

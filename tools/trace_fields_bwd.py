@@ -6,10 +6,15 @@ flagship widths (probe weights) on one CUDA card; thread 0 of each consumer
 warpgroup of block 0 adds up the SM clock of its first four block tiles of
 128 rows by kind of work. With ``--field warp`` or ``sheet`` the same for
 that field alone (``csrc/fields_bwd_alone.cu``, kernel B's block) on the
-rays' rows [pts | embed] and a seeded cotangent of its output.
+rays' rows [pts | embed] and a seeded cotangent of its output; with
+``--field se3`` for the SE(3) trunk alone (``csrc/se3_bwd_alone.cu``, the
+``se3`` configuration's probe weights), with ``--field se3_tangents`` for the
+trunk with its point-tangents (``csrc/se3_tangents_bwd.cu``, 32 points x 4
+streams a block tile; ``elastic_se3``'s probe weights; pass ``--samples
+16`` for the train step's 262,144 points).
 
   python tools/trace_fields_bwd.py [--rays 16384] [--samples 128]
-      [--field warp|sheet]
+      [--field warp|sheet|se3|se3_tangents]
 
 Prints, per kind and summed over a block tile (mean of tiles 1 to 3, in SM
 cycles, each warpgroup): waits for a weight stage, products until retired,
@@ -39,10 +44,18 @@ KIND_NAMES = ('stage wait', 'products', 'epilogues', 'dW flush', 'barriers',
               'row inputs', 'encodings', 'head steps', 'VJPs', 'ray sums')
 
 
-def _trace_library(stem: str):
+# The source and entry point of each field alone.
+FIELD_SOURCES = {'warp': ('fields_bwd_alone', 'hn_fused_field_bwd'),
+                 'sheet': ('fields_bwd_alone', 'hn_fused_field_bwd'),
+                 'se3': ('se3_bwd_alone', 'hn_fused_se3_bwd'),
+                 'se3_tangents': ('se3_tangents_bwd',
+                                  'hn_fused_se3_jacobian_bwd')}
+
+
+def _trace_library(stem: str, entry: str | None):
     """Kernel B's translation variant (``fields_bwd_trans``) or a field
-    alone (``fields_bwd_alone``) built with the trace hooks (cached by the
-    sources' hash under build/kernels/)."""
+    alone's source and entry point (FIELD_SOURCES) built with the trace
+    hooks (cached by the sources' hash under build/kernels/)."""
     from hypernerf_tpu_torch.kernels import build
     src = build.CSRC / f'{stem}.cu'
     flags = [*build.NVCC_FLAGS, '-DHN_FIELDS_BWD_TRACE']
@@ -59,9 +72,13 @@ def _trace_library(stem: str):
     if stem == 'fields_bwd_trans':
         lib.hn_fields_bwd_trans.argtypes = [p] * 12 + [ll, i, i, p]
         lib.hn_fields_bwd_trans.restype = i
-    else:
+    elif stem == 'fields_bwd_alone':
         lib.hn_fused_field_bwd.argtypes = [i] + [p] * 8 + [ll, i, p]
         lib.hn_fused_field_bwd.restype = i
+    else:
+        fn = getattr(lib, entry)
+        fn.argtypes = [p] * 8 + [ll, i, p]
+        fn.restype = i
     lib.hn_fields_bwd_trace.argtypes = [p]
     lib.hn_fields_bwd_trace.restype = i
     return lib
@@ -71,7 +88,7 @@ def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument('--rays', type=int, default=16384)
     parser.add_argument('--samples', type=int, default=128)
-    parser.add_argument('--field', default=None, choices=('warp', 'sheet'))
+    parser.add_argument('--field', default=None, choices=tuple(FIELD_SOURCES))
     args = parser.parse_args()
 
     import numpy as np
@@ -85,13 +102,18 @@ def main() -> int:
     from hypernerf_tpu_torch.kernels import build
     fl = importlib.import_module('hypernerf_tpu_torch.kernels.fused_level')
     ff = importlib.import_module('hypernerf_tpu_torch.kernels.fused_field')
+    fs = importlib.import_module('hypernerf_tpu_torch.kernels.fused_se3')
 
     print(subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
                           '--format=csv,noheader'], capture_output=True,
                          text=True, check=True).stdout.strip())
-    lib = _trace_library('fields_bwd_alone' if args.field
-                         else 'fields_bwd_trans')
-    level = load_probe_weights(flagship_model('cuda')).level('fine')
+    stem, entry = FIELD_SOURCES.get(args.field, ('fields_bwd_trans', None))
+    lib = _trace_library(stem, entry)
+    se3 = args.field in ('se3', 'se3_tangents')
+    config = {'se3': 'se3', 'se3_tangents': 'elastic_se3'}.get(args.field,
+                                                              'flagship')
+    level = load_probe_weights(flagship_model('cuda',
+                                              config=config)).level('fine')
     w, b, shapes = fl.pack_level(level)
     z, o, d, emb, _ = [torch.from_numpy(v).cuda() for v in probe_inputs(
         args.rays, args.samples, seed=0).values()]
@@ -102,11 +124,19 @@ def main() -> int:
     d_z = torch.empty((args.rays, args.samples), device='cuda')
     d_ray = torch.zeros((args.rays, 14), device='cuda')
     grads, _ = fl.fields_bwd_grad_copies(shapes[:14], 'cuda')
-    blocks = build.library().hn_fused_fields_bwd_blocks(n)
+    streams = 4 if args.field == 'se3_tangents' else 1
+    blocks = build.library().hn_fused_fields_bwd_blocks(streams * n)
     scratch = torch.empty(blocks * fl.FB_SPILL_SLABS * fl.FB_SLAB_BYTES,
                           dtype=torch.uint8, device='cuda')
     stream = torch.cuda.current_stream().cuda_stream
-    if args.field:
+    if se3:
+        x_raw = fl._raw_fields(z, o, d, emb).contiguous()
+        _, (w, b, shapes) = fs._launch_args(level.warp, x_raw, None)
+        grads, _ = fl.fields_bwd_grad_copies(shapes, 'cuda')
+        dx_raw = torch.empty_like(x_raw)
+        g = (torch.randn(n, 24, generator=gen).cuda() if streams == 4 else
+             torch.nn.functional.pad(dx_t[:, :6], (0, 2)).contiguous())
+    elif args.field:
         module = level.warp if args.field == 'warp' else level.hyper
         x_raw = fl._raw_fields(z, o, d, emb).contiguous()
         which, _, (w, b, shapes) = ff._launch_args(module.mlp,
@@ -120,7 +150,12 @@ def main() -> int:
     for _ in range(2):  # the second launch's clocks are kept
         if lib.hn_fields_bwd_trace(t.ctypes.data):  # read and zero
             raise RuntimeError('hn_fields_bwd_trace failed')
-        if args.field:
+        if se3:
+            code = getattr(lib, entry)(
+                x_raw.data_ptr(), None, g.data_ptr(), w.data_ptr(),
+                b.data_ptr(), dx_raw.data_ptr(), grads.data_ptr(),
+                scratch.data_ptr(), n, blocks, stream)
+        elif args.field:
             code = lib.hn_fused_field_bwd(
                 which, x_raw.data_ptr(), None, g.data_ptr(), w.data_ptr(),
                 b.data_ptr(), dx_raw.data_ptr(), grads.data_ptr(),
