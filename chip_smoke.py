@@ -19,7 +19,9 @@ Phases, one line each; any failure ends the run with a non-zero exit:
      a call streams from L2 as the plan computes them;
   4. the compositing kernel against its plain version (fine draw N = 64
      and 128, and no draw), at 1024 and 37 rays and at the render's shapes
-     (8192 rays, S = 64 N = 64 and S = 128 N = 0), which are also timed;
+     (8192 rays, S = 64 N = 64 and S = 128 N = 0), which are also timed
+     (the kernel alone through its C entry point, and through the
+     wrapper, whose host work now takes longer than the kernel);
   5. the render: full 504x378 frames of the flagship (64 + 64 samples,
      full widths, seeded init; three timed after a warm-up) through the
      renderer that
@@ -117,6 +119,10 @@ Phases, one line each; any failure ends the run with a non-zero exit:
      kernels' stored outputs and gradients (tests/data), with the 1 % probe
      of warp layer 5, against their plain versions at 1001 points and at the
      train step's 262,144 (16384 rays x 16 samples), which are also timed;
+     the backward is kernel B's block run on the warp field with its tangent
+     streams, its cotangent in two bf16 halves: its compiled plan against
+     its model, its time beside its time before the redesign and its share
+     of the bound;
  14. the SE(3) trunk's tangent kernels (forward and backward), the same way,
      with and without a window row (alpha 3.5 of 8 bands); the backward is
      kernel B's block run on the trunk with its tangent streams: its
@@ -353,6 +359,35 @@ def level_inputs(n_rays: int, samples: int, seed: int):
     from hypernerf_tpu_torch.flagship import probe_inputs
     return [torch.from_numpy(v).cuda()
             for v in probe_inputs(n_rays, samples, seed).values()]
+
+
+# The compositing forward before its redesign (a thread per ray; PERF.md
+# row 2), ms at R = CHUNK, S = 64, N = 64.
+EARLIER_COMPOSITE_MS = 0.113
+
+
+def composite_kernel_ms(packed, z, dirs, u) -> float:
+    """CUDA-event ms of the compositing kernel alone: its C entry point on
+    outputs allocated once. Since its redesign the kernel takes less time
+    than the wrapper's host work a call (its checks, allocations and the
+    ctypes call), so a loop of wrapper calls times the host."""
+    import torch
+    from hypernerf_tpu_torch.kernels import build
+    r, s = z.shape
+    n = 0 if u is None else u.shape[1]
+    out = torch.empty((r, 6), device='cuda')
+    weights = torch.empty((r, s), device='cuda')
+    z_union = torch.empty((r, s + n), device='cuda') if n else None
+    lib, stream = build.library(), torch.cuda.current_stream().cuda_stream
+
+    def launch():
+        build.check(lib.hn_fused_composite_fwd(
+            packed.data_ptr(), z.data_ptr(), dirs.data_ptr(), None,
+            None if u is None else u.data_ptr(), out.data_ptr(),
+            weights.data_ptr(), None if z_union is None else
+            z_union.data_ptr(), r, s, n, 0, 1, stream),
+            'hn_fused_composite_fwd')
+    return cuda_ms(launch, 50)
 
 
 def composite_inputs(n_rays: int, samples: int, n_fine: int, seed: int,
@@ -1201,6 +1236,8 @@ SE3_BWD_SOURCES = ('se3_bwd_alone.cu', 'fields_bwd_alone.cuh',
                    'fields_bwd.cuh')
 SE3_TANGENTS_BWD_SOURCES = ('se3_tangents_bwd.cu', 'fields_bwd_alone.cuh',
                             'fields_bwd.cuh')
+WARP_TANGENTS_BWD_SOURCES = ('warp_tangents_bwd.cu', 'fields_bwd_alone.cuh',
+                             'fields_bwd.cuh')
 # Its times before the redesign (the mma.sync kernel with 32-row tiles;
 # PERF.md row 11), ms at 8192 x 128 and 16384 x 128 rows.
 EARLIER_FIELD_BWD_MS = {('warp', 8192 * 128): 10.545,
@@ -2083,9 +2120,9 @@ JAC_L2 = 1e-2
 # Points per call on the train step's path: 16 Jacobian samples per ray.
 JAC_POINTS = TRAIN_RAYS * 16
 JAC_CHUNK = 65536  # points per call of a plain version
-# The SE(3) tangents' backward before its redesign (the mma.sync kernel;
-# PERF.md row 17), ms at JAC_POINTS points.
-EARLIER_SE3_JAC_BWD_MS = 12.376
+# The Jacobians' backwards before their redesign (the mma.sync kernels;
+# PERF.md rows 15 and 17), ms at JAC_POINTS points.
+EARLIER_JAC_BWD_MS = {'translation': 11.224, 'se3': 12.376}
 
 
 def plain_jacobian(mlp, x_raw):
@@ -2138,9 +2175,10 @@ def tangents_of(field, x_raw, scales=None):
 
 def jacobian_phase(kind: str):
     """Phase 13 (``kind`` 'translation': kernels 14 and 15) or 14 ('se3':
-    kernels 16 and 17, with and without a window row; kernel 17 is kernel
-    B's block run on the trunk with its tangent streams, its compiled plan
-    held to ``fused_level.field_bwd_plan('se3_tangents', ...)``): against
+    kernels 16 and 17, with and without a window row; kernels 15 and 17 are
+    kernel B's block run on the warp field or the trunk with its tangent
+    streams, each compiled plan held to ``fused_level.field_bwd_plan(
+    'warp_tangents' | 'se3_tangents', ...)``): against
     the JAX kernels' stored numbers, the 1 % probe of layer 5, the plain
     versions at a ragged size and at the train step's 262,144 points
     (timed). Returns the two kernels' entries."""
@@ -2175,21 +2213,20 @@ def jacobian_phase(kind: str):
         plain = lambda x, sc=None: plain_tangents(field, x, sc)
         plain_bwd = lambda x, g, sc=None: plain_tangents_bwd(field, x, g, sc)
         windows = (None, se3_encoding_scales(field, WINDOW_ALPHA, 'cuda'))
-        fl = importlib.import_module('hypernerf_tpu_torch.kernels.fused_level')
-        shapes = common.pack_layers(field, layers)[2]
-        got = fl.compiled_field_bwd_plan('se3_tangents')
-        want = fl.field_bwd_plan('se3_tangents', shapes)
-        if got != want:
-            raise AssertionError(f'se3_tangents: the compiled tangents '
-                                 f'backward plan is not its model: {got} vs '
-                                 f'{want}')
-        streamed = fl.field_bwd_stream_bytes('se3_tangents', shapes,
-                                             JAC_POINTS)
-        phase(f'{tag} tangents backward plan (compiled = model): kernel B\'s '
-              f'block, 32 points x 4 streams a block tile, '
-              f'{len(got["loads"])} weight loads a block tile; computed from '
-              f'the plan, not measured: {streamed:,} bytes of weights '
-              f'streamed from L2 at {JAC_POINTS} points')
+    fl = importlib.import_module('hypernerf_tpu_torch.kernels.fused_level')
+    plan = 'warp_tangents' if trans else 'se3_tangents'
+    shapes = common.pack_layers(mlp if trans else field, layers)[2]
+    got = fl.compiled_field_bwd_plan(plan)
+    want = fl.field_bwd_plan(plan, shapes)
+    if got != want:
+        raise AssertionError(f'{plan}: the compiled tangents backward plan '
+                             f'is not its model: {got} vs {want}')
+    streamed = fl.field_bwd_stream_bytes(plan, shapes, JAC_POINTS)
+    phase(f'{tag} tangents backward plan (compiled = model): kernel B\'s '
+          f'block, 32 points x 4 streams a block tile, '
+          f'{len(got["loads"])} weight loads a block tile; computed from the '
+          f'plan, not measured: {streamed:,} bytes of weights streamed from '
+          f'L2 at {JAC_POINTS} points')
     out_name = 'J' if trans else 'w | v | dw | dv'
     grad_names = ['dx'] + [f'd{"Wb"[i % 2]}{i // 2}'
                            for i in range(2 * len(layers))]
@@ -2278,16 +2315,15 @@ def jacobian_phase(kind: str):
     f_ms, f_by = bound(2.0 * 4 * macs * p, p * (44 + 4 * width) + 2 * macs)
     b_ms, b_by = bound(2.0 * back_blocks * macs * p,
                        p * (44 + 4 * width + 44) + 6 * macs)
-    if not trans:
-        phase(f'{tag} tangents backward at {p} points: {times["bwd"]:.3f} ms, '
-              f'{100 * b_ms / times["bwd"]:.1f} % of its bound {b_ms:.4f} ms; '
-              f'{EARLIER_SE3_JAC_BWD_MS:.3f} ms before the redesign (PERF.md)')
+    phase(f'{tag} tangents backward at {p} points: {times["bwd"]:.3f} ms, '
+          f'{100 * b_ms / times["bwd"]:.1f} % of its bound {b_ms:.4f} ms; '
+          f'{EARLIER_JAC_BWD_MS[kind]:.3f} ms before the redesign (PERF.md)')
     src = 'hypernerf_tpu_torch/kernels/csrc/'
     stem = 'fused_jacobian' if trans else 'fused_se3_jacobian'
     fwd_line, bwd_line = (269, 302) if trans else (286, 331)
     pallas = f'hypernerf_tpu/ops/pallas/{stem}.py'
-    bwd_src = (f'{src}{stem}_bwd.cu' if trans else
-               ', '.join(src + f for f in SE3_TANGENTS_BWD_SOURCES))
+    bwd_src = ', '.join(src + f for f in (
+        WARP_TANGENTS_BWD_SOURCES if trans else SE3_TANGENTS_BWD_SOURCES))
     return [
         dict(name=f'{stem}_fwd', route='cuda', source=f'{src}{stem}.cu',
              replaces=f'{pallas}:{fwd_line}',
@@ -2493,10 +2529,11 @@ def main() -> int:
           f'{ptxas_lines(build.build_log(), MODULAR_FWD_SOURCES)}')
     phase(f'[2] a field alone backward, on kernel B\'s block (the same): '
           f'{ptxas_lines(build.build_log(), FIELD_BWD_SOURCES)}')
-    se3_bwd = SE3_BWD_SOURCES[:1] + SE3_TANGENTS_BWD_SOURCES[:1]
-    phase(f'[2] the SE(3) trunk alone backward and its tangents\' backward, '
-          f'on kernel B\'s block (the same): '
-          f'{ptxas_lines(build.build_log(), se3_bwd)}')
+    tangents = (SE3_BWD_SOURCES[:1] + SE3_TANGENTS_BWD_SOURCES[:1]
+                + WARP_TANGENTS_BWD_SOURCES[:1])
+    phase(f'[2] the SE(3) trunk alone backward, its tangents\' backward and '
+          f'the translation Jacobian\'s backward, on kernel B\'s block (the '
+          f'same): {ptxas_lines(build.build_log(), tangents)}')
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -2587,10 +2624,14 @@ def main() -> int:
             errs.append(check_composite(packed, z, dirs, u,
                                         f'R={CHUNK} S={s} N={n} u=linspace'))
             ctimes[s] = (
-                cuda_ms(lambda: fused_composite(packed, z, dirs, u)),
-                cuda_ms(lambda: fused_composite_plain(packed, z, dirs, u)))
+                composite_kernel_ms(packed, z, dirs, u),
+                cuda_ms(lambda: fused_composite_plain(packed, z, dirs, u)),
+                cuda_ms(lambda: fused_composite(packed, z, dirs, u)))
+            before = (f'; {EARLIER_COMPOSITE_MS:.3f} ms before the redesign '
+                      f'(PERF.md)' if n else '')
             phase(f'[4] composite R={CHUNK} S={s} N={n}: kernel '
-                  f'{ctimes[s][0]:.3f} ms, plain {ctimes[s][1]:.3f} ms')
+                  f'{ctimes[s][0]:.4f} ms, plain {ctimes[s][1]:.3f} ms, '
+                  f'through the wrapper {ctimes[s][2]:.3f} ms{before}')
         # Bound at R = CHUNK, S = 64, N = 64: no matrix product; bytes are
         # packed, z, directions, u in and outs, weights, z_union out.
         b_ms, b_by = bound(0.0, CHUNK * (64 * (16 + 4) + 12 + 4 * 64
@@ -2601,7 +2642,8 @@ def main() -> int:
             replaces='hypernerf_tpu/ops/pallas/fused_composite.py:437',
             max_abs_err=max(errs), ms=ctimes[64][0],
             plain_ms=ctimes[64][1], bound_ms=b_ms, bound_by=b_by,
-            library_ms=None))
+            library_ms=None, wrapper_ms=ctimes[64][2],
+            ms_s128_n0=ctimes[128][0], plain_ms_s128_n0=ctimes[128][1]))
 
         # [5] the render path, end to end.
         frames = spiral_rays(range(0, 30 * (N_FRAMES + 1), 30))

@@ -163,15 +163,6 @@ def check_layout(shapes, table: slice, warp: str = 'translation') -> None:
         raise NotImplementedError(f'{NOT_COVERED}; layer shapes {shapes}')
 
 
-def grad_buffer(shapes, device):
-    """A zeroed fp32 [dW | db] buffer in the packed layout of ``shapes``,
-    which every block of a backward kernel adds into, and the length of its
-    dW part."""
-    n_w = sum(n * k for n, k in shapes)
-    n_b = sum(n for n, _ in shapes)
-    return torch.zeros((n_w + n_b,), dtype=torch.float32, device=device), n_w
-
-
 # ---------------------------------------------------------------------------
 # Plain backward building blocks.
 

@@ -4,8 +4,10 @@
 // fused_level.cu holds the entry points that dispatch to them. Its block,
 // slab pool, buffer plan and walk-back also run one field alone, from the
 // field's own blobs (fields_bwd_alone.cuh: a translation-table field, the
-// SE(3) trunk, and the trunk with its three point-tangent streams, whose
-// epilogues take a tangent row's ReLU mask from its primal row: kTan below).
+// SE(3) trunk, and the trunk or the translation warp field with its three
+// point-tangent streams, whose epilogues take a tangent row's ReLU mask from
+// its primal row: kTan below; the translation warp's Jacobian holds its
+// cotangent as two bf16 halves: kTransJac below).
 //
 // Replaces hypernerf_tpu/ops/pallas/fused_level.py `_fields_bwd_call` (:846,
 // the tile body `_fields_bwd_core_gen` :409-450 over fused_field.py
@@ -101,7 +103,7 @@ constexpr int kSlots = 8;                          // slabs of the pool
 constexpr int kStages = 4;
 constexpr int kStageBytes = 128 * 128;             // 128 weight rows
 constexpr int kArrivals = 4 * kGroups;             // consumer warps a stage
-constexpr int kSpillSlabs = 8;                     // scratch slabs a block
+constexpr int kSpillSlabs = 10;                    // scratch slabs a block
 constexpr int kBarrierBlock = 3;                   // named barrier, 256
 // Copies of the gradient buffer: block b adds into copy b % kGradCopies
 // (the wrapper sums them), which spreads the L2's work on the same lines
@@ -109,10 +111,13 @@ constexpr int kBarrierBlock = 3;                   // named barrier, 256
 constexpr int kGradCopies = 4;
 
 // Fields: the hyper sheet, the translation warp, the SE(3) / quaternion
-// trunk. Buffers of a field: its encoding, the hidden outputs h0..h5, the
-// trunk logit T (SE(3)) and the skip layer's part of d enc.
-constexpr int kSheet = 0, kTransWarp = 1, kSe3Warp = 2;
-constexpr int kEnc = 0, kT = 7, kSkip = 8, kBufs = 9;
+// trunk, and the translation warp with its three point-tangent streams
+// walked back for its Jacobian (kTransJac: the warp field's layers, its own
+// buffer plan). Buffers of a field: its encoding, the hidden outputs h0..h5,
+// the trunk logit T (SE(3)), the skip layer's part of d enc, and `lo`, where
+// a cotangent held as two bf16 halves keeps its low half (kTransJac).
+constexpr int kSheet = 0, kTransWarp = 1, kSe3Warp = 2, kTransJac = 3;
+constexpr int kEnc = 0, kT = 7, kSkip = 8, kLo = 9, kBufs = 10;
 __host__ __device__ constexpr int h_buf(int i) { return 1 + i; }
 
 // Where each buffer of a field lives: its slot per 64-column box during the
@@ -120,7 +125,10 @@ __host__ __device__ constexpr int h_buf(int i) { return 1 + i; }
 // of its first box if it is spilled as it is written (-1: never), and the
 // walk-back layer after which it is reloaded into `reload` (-1: never; it is
 // there from the next layer on). A cotangent g_i overwrites h_i; d enc
-// overwrites the encoding where layer 0 reads it.
+// overwrites the encoding where layer 0 reads it. The `lo` row is a double
+// buffer, never spilled: the low half of g_i lies in its `fwd` slots for odd
+// i and in its `reload` slots for even i (lo_slot), so a layer writes the
+// new low half while it reads the old one.
 struct BufPlan {
   int fwd[2];
   int spill;
@@ -128,10 +136,10 @@ struct BufPlan {
   int reload[2];
 };
 
-// The plan tables, one line per buffer (enc, h0..h5, T, skip).
+// The plan tables, one line per buffer (enc, h0..h5, T, skip, lo).
 // fields_bwd_plan_table begin
 __host__ __device__ constexpr BufPlan buf_plan(int f, int b) {
-  constexpr BufPlan t[3][kBufs] = {
+  constexpr BufPlan t[4][kBufs] = {
       {{{0, -1}, -1, -1, {-1, -1}},  // sheet
        {{1, -1}, -1, -1, {-1, -1}},
        {{2, -1}, -1, -1, {-1, -1}},
@@ -140,7 +148,8 @@ __host__ __device__ constexpr BufPlan buf_plan(int f, int b) {
        {{5, -1}, -1, -1, {-1, -1}},
        {{6, -1}, -1, -1, {-1, -1}},
        {{-1, -1}, -1, -1, {-1, -1}},
-       {{7, -1}, -1, -1, {-1, -1}}},
+       {{7, -1}, -1, -1, {-1, -1}},
+       {{-1, -1}, -1, -1, {-1, -1}}},
       {{{0, 1}, 0, 2, {6, 7}},  // translation warp
        {{2, 3}, 2, 3, {2, 3}},
        {{4, 5}, 4, 4, {4, 5}},
@@ -149,7 +158,8 @@ __host__ __device__ constexpr BufPlan buf_plan(int f, int b) {
        {{4, 5}, -1, -1, {-1, -1}},
        {{6, 7}, -1, -1, {-1, -1}},
        {{-1, -1}, -1, -1, {-1, -1}},
-       {{0, 1}, -1, -1, {-1, -1}}},
+       {{0, 1}, -1, -1, {-1, -1}},
+       {{-1, -1}, -1, -1, {-1, -1}}},
       {{{0, -1}, -1, -1, {-1, -1}},  // SE(3) / quaternion trunk
        {{1, 2}, 0, 3, {6, 7}},
        {{3, 4}, 2, 4, {2, 3}},
@@ -158,7 +168,18 @@ __host__ __device__ constexpr BufPlan buf_plan(int f, int b) {
        {{2, 3}, -1, -1, {-1, -1}},
        {{4, 5}, -1, -1, {-1, -1}},
        {{6, 7}, -1, -1, {-1, -1}},
-       {{1, -1}, -1, -1, {-1, -1}}},
+       {{1, -1}, -1, -1, {-1, -1}},
+       {{-1, -1}, -1, -1, {-1, -1}}},
+      {{{6, 7}, 8, 1, {0, 1}},  // translation warp's Jacobian (kTransJac)
+       {{0, 1}, 0, 2, {4, 5}},
+       {{2, 3}, 2, 3, {0, 1}},
+       {{0, 1}, 4, 4, {4, 5}},
+       {{2, 3}, 6, 5, {0, 1}},
+       {{4, 5}, -1, -1, {-1, -1}},
+       {{0, 1}, -1, -1, {-1, -1}},
+       {{-1, -1}, -1, -1, {-1, -1}},
+       {{-1, -1}, -1, -1, {-1, -1}},
+       {{2, 3}, -1, -1, {6, 7}}},
   };
   return t[f][b];
 }
@@ -173,6 +194,11 @@ __host__ __device__ constexpr int slot_at(int f, int b, int box, int i) {
 
 // slot_at's `i` for the recompute: every buffer at its forward slots.
 constexpr int kFwd = 99;
+
+// The slot of box `box` of the low half of cotangent g_i (the lo row).
+__host__ __device__ constexpr int lo_slot(int f, int i, int box) {
+  return i % 2 ? buf_plan(f, kLo).fwd[box] : buf_plan(f, kLo).reload[box];
+}
 
 
 // The slot of box `box` (0 or 1) of buffer B at walk-back layer I, from
@@ -217,7 +243,7 @@ __host__ __device__ constexpr int width(int f) {
 }
 __host__ __device__ constexpr int top(int f) { return f == kSe3Warp ? 6 : 5; }
 __host__ __device__ constexpr int enc_cols(int f) {
-  return f == kSheet ? kHypEncP : f == kTransWarp ? kWarpEncP : kSe3EncP;
+  return f == kSheet ? kHypEncP : f == kSe3Warp ? kSe3EncP : kWarpEncP;
 }
 
 // Local layer i's input box kb: (buffer, its box).
@@ -246,6 +272,14 @@ __host__ __device__ constexpr int dx_box(int f, int i, int kb) {
 }
 __host__ __device__ constexpr bool dx_masked(int f, int i, int kb) {
   return dx_buf(f, i, kb) != kEnc && dx_buf(f, i, kb) != kSkip;
+}
+// kTransJac: whether input box kb of local layer i is an encoding box that
+// holds no band column (the embedding's and the pad's, past posenc's 63):
+// zero on the tangent rows, and the primal rows carry no cotangent, so its
+// dW units and its part of d enc are exactly zero and reach nothing.
+__host__ __device__ constexpr bool jac_dead(int f, int i, int kb) {
+  return f == kTransJac && in_buf(f, i, kb) == kEnc &&
+         in_box(f, i, kb) * kBoxCols >= kWarpPts;
 }
 
 // The slot of input box kb of local layer i at walk-back layer `at` (or
@@ -375,6 +409,23 @@ __device__ __forceinline__ uint32_t mask_pack(float v0, float v1,
   if (!(__uint_as_float(mask << 16) > 0.f)) v0 = 0.f;
   if (!(__uint_as_float(mask & 0xffff0000u) > 0.f)) v1 = 0.f;
   return pack_bf(v0, v1);
+}
+// fp32 v as two bf16 halves hi = bf16(v), lo = bf16(v - hi) (v - hi is
+// exact in fp32): hi + lo carries 16 of its 24 mantissa bits.
+__device__ __forceinline__ float lo_half(float v) {
+  return v - round_bf(v);
+}
+// mask_pack's masked pair as two bf16x2 halves.
+__device__ __forceinline__ void mask_split(float v0, float v1, uint32_t mask,
+                                           uint32_t& hi, uint32_t& lo) {
+  if (!(__uint_as_float(mask << 16) > 0.f)) v0 = 0.f;
+  if (!(__uint_as_float(mask & 0xffff0000u) > 0.f)) v1 = 0.f;
+  hi = pack_bf(v0, v1);
+  lo = pack_bf(lo_half(v0), lo_half(v1));
+}
+// The value a two-halves cotangent stores: round_bf(v) + round_bf(lo_half(v)).
+__device__ __forceinline__ float split_value(float v) {
+  return round_bf(v) + round_bf(lo_half(v));
 }
 
 // -- the producer --------------------------------------------------------------
@@ -627,9 +678,45 @@ __device__ __forceinline__ void reloads(Ctx& c,
   (reload<F, I, B>(c), ...);
 }
 
+// kTransJac: encoding box 0 of d enc's layer-0 or skip part on the
+// warpgroup's rows into rows.acc, fp32, as the sum of its two halves. A
+// tangent row of channel k keeps channel k's 20 band columns, column c = 3 +
+// 3 j + k (sin band j) or 33 + 3 j + k (cos band j) at acc[(c - 3) / 3]: no
+// other column reaches d pts (the identity's and the embedding's are
+// constant in the points; box 1 holds none). kAdd adds layer 0's part to the
+// skip's; else it stores.
+template <bool kAdd>
+__device__ __forceinline__ void jac_enc_rows(const Ctx& c,
+                                             const float (&d)[32]) {
+  const int warp = c.tid >> 5, lane = c.tid & 31, t = lane & 3;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = 16 * warp + (lane >> 2) + 8 * h;
+    const int k = tan_stream(r) - 1;
+    if (k < 0) continue;  // a primal row
+    float* acc = c.rows->acc[c.group * kRows + r];
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int col = 8 * j + 2 * t + e;
+        if (col < 3 || col >= kWarpPts || col % 3 != k) continue;
+        const float v = split_value(d[4 * j + 2 * h + e]);
+        float& a = acc[(col - 3) / 3];
+        a = kAdd ? a + v : v;
+      }
+  }
+}
+
 // Walk-back layer I of field F: dW, db, then the cotangent through it.
 // kTan (tan_row's layout): db sums the primal rows alone, and a tangent row's
 // cotangent is masked by its primal row's stored output.
+// kTransJac (kTan; only the tangent rows carry a cotangent, which stays fp32
+// as two bf16 halves, hi over the layer's output and lo in the lo row): every
+// product that reads g reads both halves into one accumulator; no db (it is
+// exactly zero); the new cotangent is split into hi and lo after its mask;
+// d enc's parts (layer 0's, the skip's) go to rows.acc in fp32, hi + lo,
+// only the band columns of the row's own channel (jac_enc_rows).
 template <class T, int F, int I, bool kTan = false>
 __device__ __forceinline__ void back_layer(Ctx& c, float* __restrict__ grad_w,
                                            float* __restrict__ grad_b) {
@@ -637,6 +724,8 @@ __device__ __forceinline__ void back_layer(Ctx& c, float* __restrict__ grad_w,
   constexpr Shape sh = T::shape(L);
   constexpr int NO = sh.n / kBoxCols, NI = lf::k_boxes(sh), NU = NO * NI;
   constexpr int kG = out_buf(I);  // g_I overwrote the layer's output
+  constexpr bool kJac = F == kTransJac;
+  static_assert(!kJac || kTan, "the Jacobian's cotangent rides tan_row");
   const int warp = c.tid >> 5, lane = c.tid & 31, t = lane & 3;
   const bool leader = lane == 0;
 
@@ -661,6 +750,11 @@ __device__ __forceinline__ void back_layer(Ctx& c, float* __restrict__ grad_w,
   auto h_slot = [](int ib) {
     return ib == 0 ? kH0 : ib == 1 ? kH1 : ib == 2 ? kH2 : kH3;
   };
+  // kTransJac: the low halves of g_I (read) and of g_(I-1) (written).
+  constexpr int kL0 = lo_slot(F, I, 0), kL1 = lo_slot(F, I, 1);
+  constexpr int kO0 = lo_slot(F, I > 0 ? I - 1 : 0, 0);
+  constexpr int kO1 = lo_slot(F, I > 0 ? I - 1 : 0, 1);
+  auto lo_in = [](int ob) { return ob ? kL1 : kL0; };
   const int p = (c.group + I) & 1;
   float dw[32];
   auto issue_unit = [&](int u, float(&d)[32]) {
@@ -671,6 +765,15 @@ __device__ __forceinline__ void back_layer(Ctx& c, float* __restrict__ grad_w,
       wgmma_m64n64k16<1, 1>(d, sw128_desc_at(a + s * 2048, 8192, kAtomBytes),
                             sw128_desc_at(b + s * 2048, 8192, kAtomBytes),
                             s > 0 ? 1 : 0);
+    if constexpr (kJac) {
+      const uint32_t al = c.slab(lo_in(u / NI));
+#pragma unroll
+      for (int s = 0; s < kTileRows / 16; ++s)
+        wgmma_m64n64k16<1, 1>(d,
+                              sw128_desc_at(al + s * 2048, 8192, kAtomBytes),
+                              sw128_desc_at(b + s * 2048, 8192, kAtomBytes),
+                              1);
+    }
     wgmma_commit();
   };
   float* dw_l = grad_w + weight_offset<T>(L);
@@ -692,8 +795,8 @@ __device__ __forceinline__ void back_layer(Ctx& c, float* __restrict__ grad_w,
     }
     // db of the unit's 64 outputs: the rounded cotangent's column sums, a
     // pair of neighbouring lanes per column, each over half of the rows
-    // (kTan: that half's 16 primal rows).
-    if (ib == 0) {
+    // (kTan: that half's 16 primal rows). kTransJac: none, db is zero.
+    if (!kJac && ib == 0) {
       const uint32_t g = c.slab(g_slot(ob));
       const int f = c.tid >> 1, half = c.tid & 1;
       float s0 = 0.f, s1 = 0.f;
@@ -726,6 +829,7 @@ __device__ __forceinline__ void back_layer(Ctx& c, float* __restrict__ grad_w,
   // One unit at a time: a second accumulator in flight made ptxas spill
   // (the other warpgroup's products overlap this one's adds).
   for (int m = 0; m < Mp; ++m) {
+    if (jac_dead(F, I, unit(m) % NI)) continue;
     issue_unit(unit(m), dw);
     wgmma_wait<0>();
     fence_fragment(dw);
@@ -738,6 +842,12 @@ __device__ __forceinline__ void back_layer(Ctx& c, float* __restrict__ grad_w,
   // products go out before the barrier.
   float dx[2][32];
   int stage[NI];
+  // A dead box's stage is released unread.
+  auto skip_box = [&]() {
+    mbar_wait_bounded(&c.ring.full[c.ring.s], c.ring.phase);
+    if (leader) mbar_arrive(&c.ring.empty[c.ring.s]);
+    c.ring.next();
+  };
   auto issue_box = [&](int kb, float(&d)[32]) {
     c.mark(kCyMma);
     mbar_wait_bounded(&c.ring.full[c.ring.s], c.ring.phase);
@@ -750,6 +860,14 @@ __device__ __forceinline__ void back_layer(Ctx& c, float* __restrict__ grad_w,
           d,
           sw128_desc_at(c.half(g_slot(s >> 2)) + (s & 3) * 32, 16, kAtomBytes),
           sw128_desc_at(b + s * 2048, 8192, kAtomBytes), s > 0 ? 1 : 0);
+    if constexpr (kJac)  // the low half, the same weight stage
+#pragma unroll
+      for (int s = 0; s < sh.n / 16; ++s)
+        wgmma_m64n64k16<0, 1>(
+            d,
+            sw128_desc_at(c.half(lo_in(s >> 2)) + (s & 3) * 32, 16,
+                          kAtomBytes),
+            sw128_desc_at(b + s * 2048, 8192, kAtomBytes), 1);
     wgmma_commit();
     stage[kb] = c.ring.s;
     c.ring.next();
@@ -759,9 +877,12 @@ __device__ __forceinline__ void back_layer(Ctx& c, float* __restrict__ grad_w,
   // Both warpgroups' dW have read the layer's input before it is written.
   c.block_sync();
   c.mark(kCyBar);
+  static_assert(!jac_dead(F, I, 0), "box 0 is read");
 #pragma unroll
   for (int kb = 0; kb < NI; ++kb) {
-    if (kb + 1 < NI) {
+    if (jac_dead(F, I, kb)) continue;  // skipped when it was next
+    if (kb + 1 < NI && jac_dead(F, I, kb + 1)) skip_box();
+    if (kb + 1 < NI && !jac_dead(F, I, kb + 1)) {
       issue_box(kb + 1, dx[(kb + 1) & 1]);
       wgmma_wait<1>();
     } else {
@@ -776,6 +897,11 @@ __device__ __forceinline__ void back_layer(Ctx& c, float* __restrict__ grad_w,
                                 : kb == 2 ? kD2
                                           : kD3);
     const bool masked = dx_masked(F, I, kb);
+    if (kJac && !masked) {  // d enc's part: fp32 rows
+      jac_enc_rows<I == 0>(c, d);
+      c.mark(kCyEpi);
+      continue;
+    }
     // Two n8 column groups of the warp's 16 rows a `stmatrix` (as
     // level_fwd.cuh's hidden()), the ReLU mask read at the same places with
     // `ldmatrix`, which returns it in the accumulator's fragment layout.
@@ -793,9 +919,20 @@ __device__ __forceinline__ void back_layer(Ctx& c, float* __restrict__ grad_w,
           m[2] = m[3] = __shfl_sync(0xffffffffu, m[2], lane & 15);
         }
       }
-      lf::stsm_x4(addr, mask_pack(e[0], e[1], m[0]),
-                  mask_pack(e[2], e[3], m[1]), mask_pack(e[4], e[5], m[2]),
-                  mask_pack(e[6], e[7], m[3]));
+      if constexpr (kJac) {
+        uint32_t hi[4], lo[4];
+#pragma unroll
+        for (int q = 0; q < 4; ++q)
+          mask_split(e[2 * q], e[2 * q + 1], m[q], hi[q], lo[q]);
+        lf::stsm_x4(addr, hi[0], hi[1], hi[2], hi[3]);
+        // g_(I-1)'s low half, at the same place of its own slot.
+        lf::stsm_x4(addr - dst + c.half(kb ? kO1 : kO0), lo[0], lo[1], lo[2],
+                    lo[3]);
+      } else {
+        lf::stsm_x4(addr, mask_pack(e[0], e[1], m[0]),
+                    mask_pack(e[2], e[3], m[1]), mask_pack(e[4], e[5], m[2]),
+                    mask_pack(e[6], e[7], m[3]));
+      }
     }
     c.mark(kCyEpi);
   }
@@ -813,12 +950,14 @@ __device__ __forceinline__ void back_layer(Ctx& c, float* __restrict__ grad_w,
 // bf16, masked by that output's ReLU (not for the linear trunk logit),
 // written over it. The heads' fp32 cotangents: rows.hg[:, 0:n] (and, SE(3),
 // rows.se3[:, 8:11] for v). kTan (tan_row's layout): db sums the primal rows
-// alone.
+// alone. kTransJac: the fp32 cotangent, unrounded, for dW and g W_head; no
+// db (zero); a point's tangent rows masked by its primal row and split into
+// hi (over h5) and lo, its primal row's cotangent zero.
 template <class T, int F, bool kTan = false>
 __device__ __forceinline__ void head_back(Ctx& c, const bf16* __restrict__ W,
                                           float* __restrict__ grad_w,
                                           float* __restrict__ grad_b) {
-  constexpr bool kSe3 = F == kSe3Warp;
+  constexpr bool kSe3 = F == kSe3Warp, kJac = F == kTransJac;
   constexpr int K = width(F), kIn = kSe3 ? kT : h_buf(5);
   constexpr int L0 = base<T, F>() + (kSe3 ? kSe3HeadW : 6);
   constexpr int n_out = F == kSheet ? kHypOut : 3;
@@ -854,14 +993,15 @@ __device__ __forceinline__ void head_back(Ctx& c, const bf16* __restrict__ W,
     for (int r = part * kPartRows; r < (part + 1) * kPartRows; ++r) {
       const float x = lds_bf(lf::x_at(box, r, k_dw & 63));
 #pragma unroll
-      for (int n = 0; n < n_out; ++n) s[n] += round_bf(g[r * stride + n]) * x;
+      for (int n = 0; n < n_out; ++n)
+        s[n] += (kJac ? g[r * stride + n] : round_bf(g[r * stride + n])) * x;
     }
     if (part > 0)
 #pragma unroll
       for (int n = 0; n < n_out; ++n)
         part_sums[((part - 1) * kCols + col) * n_out + n] = s[n];
   }
-  if (t < kHeads * n_out) {
+  if (!kJac && t < kHeads * n_out) {
     const int hb = t / n_out, n = t % n_out, stride = hb ? 16 : 8;
     const float* g = cot(hb);
     float sb = 0.f;
@@ -896,30 +1036,57 @@ __device__ __forceinline__ void head_back(Ctx& c, const bf16* __restrict__ W,
       for (int q = 0; q < 2; ++q)
         w[h][n][q] = __bfloat162float(W[(h ? kW1 : kW0) + n * K + k + q]);
   const uint32_t box = c.half(slot_of<F, kIn, kI>(k >> 6));
-  for (int r = c.tid / kPairs; r < kRows; r += kStep) {
-    const int R = c.group * kRows + r;
-    float v[2] = {0.f, 0.f};
+  if constexpr (kJac) {
+    const uint32_t lo = c.half(lo_slot(F, 5, k >> 6));
+    for (int q = c.tid / kPairs; q < kRows / 4; q += kStep) {
+      const uint32_t at = lf::x_at(box, tan_row(q, 0), k & 63);
+      const uint32_t m = lds32s(at);
+      sts32(at, 0u);
+      sts32(at - box + lo, 0u);
 #pragma unroll
-    for (int h = 0; h < kHeads; ++h) {
-      const float* g = cot(h) + R * (h ? 16 : 8);
-      float gr[n_out];
+      for (int st = 1; st < 4; ++st) {
+        const int r = tan_row(q, st);
+        const float* g = rw.hg[c.group * kRows + r];
+        float v[2];
 #pragma unroll
-      for (int n = 0; n < n_out; ++n) gr[n] = round_bf(g[n]);
+        for (int e = 0; e < 2; ++e) {
+          v[e] = 0.f;
 #pragma unroll
-      for (int q = 0; q < 2; ++q) {
-        float s = 0.f;
-#pragma unroll
-        for (int n = 0; n < n_out; ++n) s += gr[n] * w[h][n][q];
-        v[q] += s;
+          for (int n = 0; n < n_out; ++n) v[e] += g[n] * w[0][n][e];
+        }
+        uint32_t hi, lh;
+        mask_split(v[0], v[1], m, hi, lh);
+        const uint32_t addr = lf::x_at(box, r, k & 63);
+        sts32(addr, hi);
+        sts32(addr - box + lo, lh);
       }
     }
-    const uint32_t addr = lf::x_at(box, r, k & 63);
-    if (!kSe3) {
-      const uint32_t m = lds32s(addr);
-      if (!(__uint_as_float(m << 16) > 0.f)) v[0] = 0.f;
-      if (!(__uint_as_float(m & 0xffff0000u) > 0.f)) v[1] = 0.f;
+  } else {
+    for (int r = c.tid / kPairs; r < kRows; r += kStep) {
+      const int R = c.group * kRows + r;
+      float v[2] = {0.f, 0.f};
+#pragma unroll
+      for (int h = 0; h < kHeads; ++h) {
+        const float* g = cot(h) + R * (h ? 16 : 8);
+        float gr[n_out];
+#pragma unroll
+        for (int n = 0; n < n_out; ++n) gr[n] = round_bf(g[n]);
+#pragma unroll
+        for (int q = 0; q < 2; ++q) {
+          float s = 0.f;
+#pragma unroll
+          for (int n = 0; n < n_out; ++n) s += gr[n] * w[h][n][q];
+          v[q] += s;
+        }
+      }
+      const uint32_t addr = lf::x_at(box, r, k & 63);
+      if (!kSe3) {
+        const uint32_t m = lds32s(addr);
+        if (!(__uint_as_float(m << 16) > 0.f)) v[0] = 0.f;
+        if (!(__uint_as_float(m & 0xffff0000u) > 0.f)) v[1] = 0.f;
+      }
+      sts32(addr, pack_bf(v[0], v[1]));
     }
-    sts32(addr, pack_bf(v[0], v[1]));
   }
   fence_async_smem();
   c.mark(kCyHead);

@@ -2,8 +2,10 @@
 // (fields_bwd.cuh) walking back one field from the field's own blobs. The
 // kernel template and its launcher; fields_bwd_alone.cu instantiates it for
 // the two fields of the translation table, se3_bwd_alone.cu for the SE(3) /
-// quaternion trunk and se3_tangents_bwd.cu for the trunk with its three
-// point-tangent streams (one nvcc process each).
+// quaternion trunk, se3_tangents_bwd.cu for the trunk with its three
+// point-tangent streams and warp_tangents_bwd.cu for the translation warp
+// field with its tangent streams, the Jacobian's backward (one nvcc process
+// each).
 //
 // Fields: the translation warp (layers 0..6 of TransTable: posenc_orig(pts,
 // 10) ++ embed -> 6 x 128 -> 3), the hyper sheet (layers 7..13:
@@ -41,12 +43,23 @@
 // pullback's alone. A block tile of 128 rows holds 32 points x 4 streams
 // (fields_bwd.cuh's tan_row), so a tangent row's mask is a shuffle from the
 // lane that holds its primal row.
+// The translation warp's Jacobian (kTransJac, the JAX kernel's
+// `_jac_bwd_tile`): only the tangent rows carry a cotangent, column k of dJ
+// on tangent row k; the tangent encoding of coordinate k is [e_k | cos(p_k
+// 2^j) 2^j | -sin(p_k 2^j) 2^j on channel k's band columns | 0], rounded
+// once; the cotangent stays fp32, as the TPU kernel keeps it, held as two
+// bf16 halves (fields_bwd.cuh's back_layer); the head's dW and g W_head take
+// the fp32 g; db and d embed are exactly zero (they reach J only through
+// the ReLU masks) and are not computed; d pts is the tangent encodings'
+// pullback alone.
 //
 // Bound: three multiply-adds per weight and row (the recompute, g W and
 // g^T h) against 120 bytes moved: operations bound it (16384 x 128 rows:
 // 1.278 ms for the warp field, 0.350 for the sheet, 1.443 for the trunk;
 // the trunk with its tangents at 262,144 points, 1 M rows: 0.721 ms, at the
-// card's dense bf16 rate).
+// card's dense bf16 rate; the translation Jacobian's backward recomputes the
+// four streams and runs both products on the three tangent streams: 0.533
+// ms at 262,144 points).
 //
 // Design: kernel B's (fields_bwd.cuh): a persistent grid of block tiles of
 // 128 rows on two consumer warpgroups and a producer warpgroup; the field
@@ -71,7 +84,8 @@
 namespace {
 namespace fb {
 
-// Field F (kTransWarp or kSheet of TransTable, or kSe3Warp of Se3Table)
+// Field F (kTransWarp or kSheet of TransTable, kSe3Warp of Se3Table, or
+// kTransJac, the translation warp field of TransTable for its Jacobian)
 // alone: its layers [kFirst, kLast) of its table T, the layers streamed
 // (the hidden ones and the trunk logit), its bands and outputs, and where
 // its blobs sit in the level's.
@@ -81,9 +95,9 @@ struct Alone {
   static constexpr int kFirst = base<T, F>();
   static constexpr int kStreamed = top(F) + 1;
   static constexpr int kLast = kFirst + kStreamed + (F == kSe3Warp ? 2 : 1);
-  static constexpr int kBands = F == kSheet       ? kHypF
-                               : F == kTransWarp ? kWarpF
-                                                 : kSe3F;
+  static constexpr int kBands = F == kSheet     ? kHypF
+                               : F == kSe3Warp ? kSe3F
+                                               : kWarpF;
   static constexpr int kOut = F == kSheet ? kHypOut : 3;
   static constexpr long long kW0 = weight_offset<T>(kFirst);
   static constexpr long long kNW = weight_offset<T>(kLast) - kW0;
@@ -107,7 +121,8 @@ __device__ __forceinline__ void produce_alone(
 }
 
 constexpr int kIn = 3 + kEmbed;  // x_raw's and dx_raw's columns
-constexpr int kTanG = 24;        // g's columns with the tangents
+constexpr int kTanG = 24;        // g's columns with the SE(3) tangents
+constexpr int kJacG = 9;         // g's columns of the Jacobian: dJ
 
 // Row inputs of the warpgroup's rows [row0, row0 + 64): x_raw into rows.in,
 // g[:, 0:kOut] into rows.hg (the head's fp32 cotangent; the trunk: d w, and
@@ -176,21 +191,24 @@ __device__ __forceinline__ void alone_dx(const Ctx& c, long long row0,
 constexpr int kGroupPoints = kRows / 4;  // points of a warpgroup: 16
 
 // Row inputs of the warpgroup's points [p0, p0 + 16) on its rows (tan_row):
-// every stream row takes its point's x_raw; the heads' cotangents of stream
-// 0 are d w, d v (g[:, 0:3], g[:, 3:6]), of stream 1 + k column k of d dw,
-// d dv (g[:, 6 + 3 i + k], g[:, 15 + 3 i + k]), d w into rows.hg, d v into
-// rows.se3[:, 8:11]; zeros past P.
+// every stream row takes its point's x_raw; zeros past P. The trunk's
+// (F = kSe3Warp): the heads' cotangents of stream 0 are d w, d v (g[:,
+// 0:3], g[:, 3:6]), of stream 1 + k column k of d dw, d dv (g[:, 6 + 3 i +
+// k], g[:, 15 + 3 i + k]), d w into rows.hg, d v into rows.se3[:, 8:11].
+// The Jacobian's (kTransJac): g = dJ, g[:, 3 i + k] to rows.hg[:, i] of
+// stream 1 + k; the primal rows' head cotangent is zero.
+template <int F>
 __device__ __forceinline__ void tangent_rows(const Ctx& c, long long p0,
                                              long long n_points,
                                              const float* __restrict__ x_raw,
                                              const float* __restrict__ g) {
+  constexpr int kW = F == kSe3Warp ? kTanG : kJacG;
   constexpr int kX = kGroupPoints * kIn, kXEach = (kX + 127) / 128;
-  constexpr int kG = kGroupPoints * kTanG, kGEach = kG / 128;
-  static_assert(kG % 128 == 0, "g's rows: whole loads a thread");
+  constexpr int kG = kGroupPoints * kW, kGEach = (kG + 127) / 128;
   Rows& rw = *c.rows;
   const int R0 = c.group * kRows;
   const long long x_valid = (n_points - p0) * kIn;
-  const long long g_valid = (n_points - p0) * kTanG;
+  const long long g_valid = (n_points - p0) * kW;
   float xv[kXEach], gv[kGEach];
 #pragma unroll
   for (int i = 0; i < kXEach; ++i) {
@@ -200,7 +218,7 @@ __device__ __forceinline__ void tangent_rows(const Ctx& c, long long p0,
 #pragma unroll
   for (int i = 0; i < kGEach; ++i) {
     const int e = c.tid + 128 * i;
-    gv[i] = e < g_valid ? g[p0 * kTanG + e] : 0.f;
+    gv[i] = e < kG && e < g_valid ? g[p0 * kW + e] : 0.f;
   }
 #pragma unroll
   for (int i = 0; i < kXEach; ++i) {
@@ -210,19 +228,30 @@ __device__ __forceinline__ void tangent_rows(const Ctx& c, long long p0,
       for (int s = 0; s < 4; ++s)
         rw.in[R0 + tan_row(e / kIn, s)][e % kIn] = xv[i];
   }
+  if constexpr (F == kTransJac) {
 #pragma unroll
-  for (int i = 0; i < kGEach; ++i) {
-    const int e = c.tid + 128 * i;
-    const int q = e / kTanG, col = e % kTanG;
-    // [w | v] of stream 0, then [dw | dv], column 3 i + k to stream 1 + k.
-    const bool is_v = col < 6 ? col >= 3 : col >= 15;
-    const int d = col < 6 ? col % 3 : (col - (is_v ? 15 : 6));
-    const int s = col < 6 ? 0 : 1 + d % 3, out = col < 6 ? d : d / 3;
-    const int R = R0 + tan_row(q, s);
-    if (is_v)
-      rw.se3[R][8 + out] = gv[i];
-    else
-      rw.hg[R][out] = gv[i];
+    for (int i = 0; i < kGEach; ++i) {
+      const int e = c.tid + 128 * i;
+      if (e < kG)
+        rw.hg[R0 + tan_row(e / kW, 1 + e % kW % 3)][e % kW / 3] = gv[i];
+    }
+    if (c.tid < kGroupPoints * 3)
+      rw.hg[R0 + tan_row(c.tid / 3, 0)][c.tid % 3] = 0.f;
+  } else {
+#pragma unroll
+    for (int i = 0; i < kGEach; ++i) {
+      const int e = c.tid + 128 * i;
+      const int q = e / kTanG, col = e % kTanG;
+      // [w | v] of stream 0, then [dw | dv], column 3 i + k to stream 1 + k.
+      const bool is_v = col < 6 ? col >= 3 : col >= 15;
+      const int d = col < 6 ? col % 3 : (col - (is_v ? 15 : 6));
+      const int s = col < 6 ? 0 : 1 + d % 3, out = col < 6 ? d : d / 3;
+      const int R = R0 + tan_row(q, s);
+      if (is_v)
+        rw.se3[R][8 + out] = gv[i];
+      else
+        rw.hg[R][out] = gv[i];
+    }
   }
 }
 
@@ -265,6 +294,66 @@ __device__ __forceinline__ void encode_trunk_streams(
     lf::sts16(lf::x_at(box, r, 2 * kSe3Trig + f),
               window_feature(v, 2 * kSe3Trig + f, scales));
   }
+}
+
+// The translation warp field's encoding on the warpgroup's rows (kTransJac):
+// the primal rows as encode_field's [posenc_orig(pts, 10) | embed | 0];
+// tangent k's [e_k | cos(p_k 2^j) 2^j | -sin(p_k 2^j) 2^j on channel k's band
+// columns | 0], each rounded once.
+__device__ __forceinline__ void encode_warp_streams(Ctx& c) {
+  constexpr int kPairs = 3 * kWarpF, kRest = kWarpEncP - 2 * kPairs;
+  const float(*in)[12] = c.rows->in + c.group * kRows;
+  auto put = [&c](int r, int col, float v) {
+    const uint32_t box = c.half(slot_of<kTransJac, kEnc, kFwd>(col >> 6));
+    lf::sts16(lf::x_at(box, r, col & 63), __float2bfloat16_rn(v));
+  };
+#pragma unroll 4
+  for (int e = c.tid; e < kRows * kPairs; e += 128) {
+    const int r = e / kPairs, q = e % kPairs, s = tan_stream(r);
+    float sn = 0.f, cs = 0.f;
+    if (s == 0 || q % 3 == s - 1)
+      sincosf(in[r][q % 3] * lf::pow2(q / 3), &sn, &cs);
+    const float f = s == 0 ? 1.f : lf::pow2(q / 3);
+    put(r, 3 + q, s == 0 ? sn : cs * f);
+    put(r, 3 + kPairs + q, s == 0 ? cs : -sn * f);
+  }
+  for (int e = c.tid; e < kRows * kRest; e += 128) {
+    const int r = e / kRest, f = e % kRest, s = tan_stream(r);
+    const float v = s == 0 ? (f < 3 + kEmbed ? in[r][f] : 0.f)
+                           : (f == s - 1 ? 1.f : 0.f);
+    put(r, f < 3 ? f : f + 2 * kPairs, v);
+  }
+}
+
+// d pts of the warpgroup's 16 points (kTransJac) into their primal rows'
+// rows.acc[0:3], and rows.acc[3:11] zero (d embed is exactly zero): the
+// tangent encodings' pullback from tangent row c's band cotangents in
+// rows.acc (jac_enc_rows), d/dp [cos(p 2^j) 2^j] = -sin(p 2^j) 4^j and d/dp
+// [-sin(p 2^j) 2^j] = -cos(p 2^j) 4^j, a channel's bands split between a
+// pair of neighbouring lanes.
+__device__ __forceinline__ void jac_vjp(Ctx& c) {
+  constexpr int kHalf = (kWarpF + 1) / 2;
+  Rows& rw = *c.rows;
+  const int R0 = c.group * kRows;
+  static_assert(kGroupPoints * 6 % 32 == 0, "whole warps take the sums");
+  for (int e = c.tid; e < kGroupPoints * 6; e += 128) {
+    const int part = e & 1, q = (e >> 1) / 3, ch = (e >> 1) % 3;
+    const int rp = tan_row(q, 0);
+    const float x = rw.in[R0 + rp][ch];
+    const float* g = rw.acc[R0 + tan_row(q, 1 + ch)];
+    float dx = 0.f;
+    for (int k = part ? kHalf : 0; k < (part ? kWarpF : kHalf); ++k) {
+      float sn, cs;
+      const float f = lf::pow2(k);
+      sincosf(x * f, &sn, &cs);
+      dx += (-sn * (g[k] * f) - cs * (g[kWarpF + k] * f)) * f;
+    }
+    dx += __shfl_xor_sync(0xffffffffu, dx, 1);
+    if (part == 0) rw.acc[R0 + rp][ch] = dx;
+  }
+  for (int e = c.tid; e < kGroupPoints * kEmbed; e += 128)
+    rw.acc[R0 + tan_row(e / kEmbed, 0)][3 + e % kEmbed] = 0.f;
+  c.mark(kCyVjp);
 }
 
 // d[pts | embed] of the warpgroup's 16 points into rows.acc[primal row][0:11]:
@@ -327,8 +416,9 @@ __device__ __forceinline__ void tangent_dx(const Ctx& c, long long p0,
 
 // -- the kernel ----------------------------------------------------------------
 
-// kTan: the SE(3) trunk with its tangent streams (F = kSe3Warp), n_points
-// points on 4 n_points rows.
+// kTan: the SE(3) trunk (F = kSe3Warp) or the translation warp field (F =
+// kTransJac, its Jacobian) with its tangent streams, n_points points on 4
+// n_points rows.
 template <int F, bool kTan>
 __global__ void __launch_bounds__(kThreads, 1) field_bwd_kernel(
     const __grid_constant__ lf::Maps<typename Alone<F>::T> maps,
@@ -339,7 +429,9 @@ __global__ void __launch_bounds__(kThreads, 1) field_bwd_kernel(
     long long n_points) {
   using A = Alone<F>;
   using T = typename A::T;
-  static_assert(!kTan || F == kSe3Warp, "tangent streams of the trunk");
+  static_assert((!kTan || F == kSe3Warp || F == kTransJac) &&
+                    (kTan || F != kTransJac),
+                "tangent streams: the trunk's, or the Jacobian's");
   uint8_t* base;
   Ring ring;
   Rows* rows;
@@ -378,12 +470,14 @@ __global__ void __launch_bounds__(kThreads, 1) field_bwd_kernel(
     const long long first = kTan ? (tile * kTileRows + group * kRows) / 4
                                  : tile * kTileRows + group * kRows;
     if constexpr (kTan)
-      tangent_rows(c, first, n_points, x_raw, g_out);
+      tangent_rows<F>(c, first, n_points, x_raw, g_out);
     else
       alone_rows<F>(c, first, n_points, x_raw, g_out);
     c.sync();
     c.mark(kCyRow);
-    if constexpr (kTan)
+    if constexpr (F == kTransJac)
+      encode_warp_streams(c);
+    else if constexpr (kTan)
       encode_trunk_streams(c, scales);
     else if constexpr (F == kSe3Warp)
       encode_trunk(c, scales);
@@ -416,7 +510,9 @@ __global__ void __launch_bounds__(kThreads, 1) field_bwd_kernel(
     back_layer<T, F, 2, kTan>(c, grad_w, grad_b);
     back_layer<T, F, 1, kTan>(c, grad_w, grad_b);
     back_layer<T, F, 0, kTan>(c, grad_w, grad_b);
-    if constexpr (kTan)
+    if constexpr (F == kTransJac)
+      jac_vjp(c);
+    else if constexpr (kTan)
       tangent_vjp(c, scales);
     else
       encoding_vjp<F, A::kBands>(c, &rw.acc[0][0], 20, scales);
@@ -468,8 +564,9 @@ int launch_field_bwd(const void* x_raw, const void* scales, const void* g,
 }  // namespace
 
 // The entry points' arguments (fields_bwd_alone.cu, se3_bwd_alone.cu,
-// se3_tangents_bwd.cu): weights / biases the field's layers alone; scales
-// null or the padded encoding width of fp32 window weights; grads [dW | db]
+// se3_tangents_bwd.cu, warp_tangents_bwd.cu): weights / biases the field's
+// layers alone; scales null or the padded encoding width of fp32 window
+// weights (the Jacobian's: null); grads [dW | db]
 // of those layers in the packed layout, in fb::kGradCopies copies one after
 // the other, zero on entry; scratch blocks x fb::kSpillSlabs x 16 KB of
 // spill slabs where the field's plan spills (the warp field, the trunk),

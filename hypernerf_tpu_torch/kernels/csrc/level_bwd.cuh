@@ -1,14 +1,13 @@
-// Building blocks of the warp Jacobian kernels (jacobian.cuh: the
-// translation warp's forward and backward, the SE(3) trunk's forward; the
-// plan of the translation backward's tile is field_bwd.cuh's), written for
-// mma.sync on tiles that keep every layer's bf16 output in one shared-memory
-// tile X[ROWS][LD] with the weights read from L2: the tile configuration,
-// the m16n8k16 product over it, ldmatrix.trans for the dW products, and the
-// grid's SM count. (The level's kernels and the fields backward, a field
-// alone and the SE(3) trunk alone backward keep their tiles on Hopper's
-// blocks instead: level_fwd.cuh, fields_bwd.cuh, fields_bwd_alone.cuh; the
-// template backward, kernel A, works a layer at a time over a stash:
-// template_rowprod.cu, template_dw.cu.)
+// Building blocks of the warp Jacobian forwards (jacobian.cuh: the
+// translation warp's and the SE(3) trunk's), written for mma.sync on tiles
+// that keep every layer's bf16 output in one shared-memory tile X[ROWS][LD]
+// with the weights read from L2: the tile configuration and the m16n8k16
+// product over it; and the bf16 rounding that kernel B and the trunk's code
+// share (se3_trunk.cuh includes this). (The level's kernels, the fields
+// backward and every backward of a field alone, the Jacobians' too, keep
+// their tiles on Hopper's blocks instead: level_fwd.cuh, fields_bwd.cuh,
+// fields_bwd_alone.cuh; the template backward, kernel A, works a layer at a
+// time over a stash: template_rowprod.cu, template_dw.cu.)
 
 #pragma once
 
@@ -75,22 +74,6 @@ __device__ __forceinline__ void gemm(
           mma_bf16(acc[mt][i], a0, a1, a2, a3, b[i][0], b[i][1]);
     }
   }
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
-                                                  const bf16* p) {
-  const uint32_t addr = (uint32_t)__cvta_generic_to_shared(p);
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
-}
-
-inline int sm_count() {
-  int dev = 0, sms = 0;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  return sms > 0 ? sms : 1;
 }
 
 }  // namespace

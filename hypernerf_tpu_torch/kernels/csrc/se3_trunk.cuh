@@ -20,7 +20,7 @@
 
 #pragma once
 
-#include "field_bwd.cuh"
+#include "level_bwd.cuh"
 
 namespace {
 

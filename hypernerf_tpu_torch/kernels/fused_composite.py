@@ -29,7 +29,8 @@ from hypernerf_tpu_torch.ops.rendering import (compute_opaqueness_mask,
                                                volumetric_rendering)
 from hypernerf_tpu_torch.ops.sampling import piecewise_constant_pdf
 
-# Shared memory holds one CDF column of `samples` floats per thread.
+# The fine draw's coarse samples (a warp's shared memory holds 2 (S + N)
+# floats a ray).
 MAX_SAMPLES_WITH_FINE = 192
 
 

@@ -7,9 +7,13 @@ hand-written Hopper kernel ``csrc/fused_jacobian.cu`` (which replaces the TPU
 kernel ``hypernerf_tpu/ops/pallas/fused_jacobian.py`` ``_fused_fwd``); on CPU
 tensors it runs ``fused_jacobian_plain``. When a gradient is wanted the call
 goes through ``FusedJacobianFn``, whose backward is ``fused_jacobian_bwd``:
-the kernel ``csrc/fused_jacobian_bwd.cu`` (for the TPU kernel's
-``_fused_bwd``) on CUDA tensors, ``fused_jacobian_bwd_plain`` on CPU tensors.
-On a CUDA tensor a wrapper launches its kernel or raises.
+on CUDA tensors the kernel of ``csrc/warp_tangents_bwd.cu`` (for the TPU
+kernel's ``_fused_bwd``), kernel B's block run on the warp field with its
+tangents as a block tile of 32 points x 4 streams
+(``csrc/fields_bwd_alone.cuh``; its plan is
+``fused_level.field_bwd_plan('warp_tangents', ...)``'s, its rows
+``fused_level.tangent_row``), and ``fused_jacobian_bwd_plain`` on CPU
+tensors. On a CUDA tensor a wrapper launches its kernel or raises.
 
 Math (the TPU kernel's): the tangent encoding of point tangent k is
 [e_k | cos(p_k 2^j) 2^j | -sin(p_k 2^j) 2^j on channel k's band columns | 0],
@@ -31,6 +35,8 @@ The CUDA kernels are compiled for the flagship's warp field: 3 + 8 raw inputs,
 """
 
 from __future__ import annotations
+
+import importlib
 
 import torch
 import torch.nn.functional as F
@@ -204,8 +210,9 @@ def fused_jacobian_bwd_plain(mlp: MLP, n_freq: int, x_raw, g):
 fused_jacobian_bwd_plain.calls = 0
 
 
-def _launch_args(mlp: MLP, n_freq: int, x_raw, transposed):
-    """Checked inputs of a kernel launch: the packed blobs."""
+def _launch_args(mlp: MLP, n_freq: int, x_raw):
+    """Checked inputs of a kernel launch: the packed blob (weights, biases,
+    shapes), one for both kernels."""
     def check():
         if mlp.dtype != torch.bfloat16 or n_freq != common.FLAGSHIP[
                 'warp_freq'] or mlp.logit.out_features != 3:
@@ -213,17 +220,13 @@ def _launch_args(mlp: MLP, n_freq: int, x_raw, transposed):
                 f'{common.NOT_COVERED}; got a warp field with {n_freq} bands, '
                 f'{mlp.logit.out_features} outputs in {mlp.dtype}')
 
-    layers = field_layers(mlp)
-    packs = [common.pack_layers(mlp, layers, check)]
-    if transposed:
-        packs.append(common.pack_layers(mlp, layers, check,
-                                        transposed=True))
+    pack = common.pack_layers(mlp, field_layers(mlp), check)
     check()
-    common.check_layout(packs[0][2], common.WARP_LAYERS)
+    common.check_layout(pack[2], common.WARP_LAYERS)
     build.check_tensor('x_raw', x_raw,
                        (x_raw.shape[0], 3 + common.FLAGSHIP['embed']),
                        torch.float32, x_raw.device)
-    return packs
+    return pack
 
 
 def _forward(mlp: MLP, n_freq: int, x_raw):
@@ -231,7 +234,7 @@ def _forward(mlp: MLP, n_freq: int, x_raw):
     tensors."""
     if common.runs_plain(x_raw, 'fused_warp_jacobian'):
         return fused_jacobian_plain(mlp, n_freq, x_raw)
-    (w_blob, b_blob, _), = _launch_args(mlp, n_freq, x_raw, False)
+    w_blob, b_blob, _ = _launch_args(mlp, n_freq, x_raw)
     p = x_raw.shape[0]
     jac = torch.empty((p, JAC), dtype=torch.float32, device=x_raw.device)
     if p:
@@ -297,24 +300,23 @@ class FusedJacobianFn(torch.autograd.Function):
 
 def fused_jacobian_bwd(mlp: MLP, n_freq: int, x_raw, g):
     """Jacobian backward (see ``fused_jacobian_bwd_plain``): CPU tensors take
-    the plain version, CUDA tensors launch the kernel or raise."""
+    the plain version, CUDA tensors launch the kernel or raise. The kernel
+    reads the field's one weight blob (no transposed form), adds dW into
+    ``fused_level.FB_GRAD_COPIES`` buffers that are summed here (db stays
+    zero), and gets a per-block spill scratch (its plan spills)."""
     if common.runs_plain(x_raw, 'fused_jacobian_bwd'):
         return fused_jacobian_bwd_plain(mlp, n_freq, x_raw, g)
-    (w_blob, b_blob, shapes), (wt_blob, _, _) = _launch_args(
-        mlp, n_freq, x_raw, True)
-    dev, p = x_raw.device, x_raw.shape[0]
-    build.check_tensor('g', g, (p, JAC), torch.float32, dev)
-    dx_raw = torch.empty_like(x_raw)
-    grads, n_w = common.grad_buffer(shapes, dev)
-    if p:
-        blocks = build.library().hn_fused_jacobian_bwd_blocks(p)
-        common.launch('hn_fused_jacobian_bwd', dev, x_raw.data_ptr(),
-                      g.data_ptr(), w_blob.data_ptr(), wt_blob.data_ptr(),
-                      b_blob.data_ptr(), dx_raw.data_ptr(), grads.data_ptr(),
-                      p, blocks)
-        fused_jacobian_bwd.launches += 1
-    return dx_raw, common.unpack_grads(grads[:n_w], grads[n_w:],
-                                       field_layers(mlp), shapes)
+    # fused_level models kernel B's block, which this kernel runs; imported
+    # by its module path (the package re-exports a function of that name).
+    fl = importlib.import_module('hypernerf_tpu_torch.kernels.fused_level')
+    w_blob, b_blob, shapes = _launch_args(mlp, n_freq, x_raw)
+    p = x_raw.shape[0]
+    build.check_tensor('g', g, (p, JAC), torch.float32, x_raw.device)
+    dx_raw, dw, db = fl.launch_field_bwd('warp_tangents',
+                                         'hn_fused_jacobian_bwd',
+                                         fused_jacobian_bwd, [], x_raw, None,
+                                         g, w_blob, b_blob, shapes)
+    return dx_raw, common.unpack_grads(dw, db, field_layers(mlp), shapes)
 
 
 fused_jacobian_bwd.launches = 0

@@ -378,13 +378,13 @@ def forward_stream_bytes(shapes, n_points: int,
 # FB_STAGES stages, one 64-column box of K of a layer a stage.
 FB_TILE_ROWS, FB_GROUPS, FB_STAGES, FB_SLOTS = 128, 2, 4, 8
 FB_SLAB_BYTES = FB_STAGE_BYTES = 128 * 128
-FB_SPILL_SLABS = 8  # device-memory scratch slabs a block
+FB_SPILL_SLABS = 10  # device-memory scratch slabs a block
 FB_GRAD_COPIES = 4  # gradient buffers: block b adds into copy b % 4
 FB_THREADS = 128 * (FB_GROUPS + 1)
 # Per-row fp32 scratch: in (12), z | direction (4), acc (20), a head's
 # cotangent (8), the SE(3) rows (16), and the ray (int).
 FB_ROWS_BYTES = FB_TILE_ROWS * 4 * (12 + 4 + 20 + 8 + 16 + 1)
-FB_BUFS = ('enc', 'h0', 'h1', 'h2', 'h3', 'h4', 'h5', 'T', 'skip')
+FB_BUFS = ('enc', 'h0', 'h1', 'h2', 'h3', 'h4', 'h5', 'T', 'skip', 'lo')
 FB_SMEM_BYTES = (1024 + FB_SLOTS * FB_SLAB_BYTES + FB_STAGES * FB_STAGE_BYTES
                  + FB_ROWS_BYTES + (2 * FB_STAGES + len(FB_BUFS)) * 8)
 # Where each buffer of a field lives (csrc/fields_bwd.cuh ``buf_plan``):
@@ -392,22 +392,43 @@ FB_SMEM_BYTES = (1024 + FB_SLOTS * FB_SLAB_BYTES + FB_STAGES * FB_STAGE_BYTES
 # spilled to as it is written or -1, the walk-back layer after which it is
 # reloaded or -1, the reload slots). A cotangent g_i overwrites h_i, d enc
 # the encoding where layer 0 reads it; 'skip' holds the skip layer's part of
-# d enc.
+# d enc. 'lo' is where a cotangent held as two bf16 halves keeps its low
+# half, a double buffer never spilled: g_i's in the forward slots for odd i,
+# in the reload slots for even i (``lo_slot``). Only 'warp_tangents', the
+# translation warp field with its three point-tangent streams walked back
+# for its Jacobian (``hn_fused_jacobian_bwd``), holds its cotangent so; its
+# d enc goes to fp32 row scratch, so it stores no 'skip'. The fields in the
+# C table's order (fields_bwd.cuh: kSheet, kTransWarp, kSe3Warp,
+# kTransJac) are FB_FIELDS.
 _NONE = ((-1, -1), -1, -1, (-1, -1))
 FB_PLANS = {
     'sheet': [((s, -1), -1, -1, (-1, -1)) for s in range(7)]
-    + [_NONE, ((7, -1), -1, -1, (-1, -1))],
+    + [_NONE, ((7, -1), -1, -1, (-1, -1)), _NONE],
     'translation': [((0, 1), 0, 2, (6, 7)), ((2, 3), 2, 3, (2, 3)),
                     ((4, 5), 4, 4, (4, 5)), ((6, 7), 6, 5, (6, 7)),
                     ((2, 3), -1, -1, (-1, -1)), ((4, 5), -1, -1, (-1, -1)),
                     ((6, 7), -1, -1, (-1, -1)), _NONE,
-                    ((0, 1), -1, -1, (-1, -1))],
+                    ((0, 1), -1, -1, (-1, -1)), _NONE],
     'se3': [((0, -1), -1, -1, (-1, -1)), ((1, 2), 0, 3, (6, 7)),
             ((3, 4), 2, 4, (2, 3)), ((5, 6), 4, 5, (4, 5)),
             ((7, 1), 6, 6, (6, 7)), ((2, 3), -1, -1, (-1, -1)),
             ((4, 5), -1, -1, (-1, -1)), ((6, 7), -1, -1, (-1, -1)),
-            ((1, -1), -1, -1, (-1, -1))],
+            ((1, -1), -1, -1, (-1, -1)), _NONE],
+    'warp_tangents': [((6, 7), 8, 1, (0, 1)), ((0, 1), 0, 2, (4, 5)),
+                      ((2, 3), 2, 3, (0, 1)), ((0, 1), 4, 4, (4, 5)),
+                      ((2, 3), 6, 5, (0, 1)), ((4, 5), -1, -1, (-1, -1)),
+                      ((0, 1), -1, -1, (-1, -1)), _NONE, _NONE,
+                      ((2, 3), -1, -1, (6, 7))],
 }
+FB_FIELDS = ('sheet', 'translation', 'se3', 'warp_tangents')
+
+
+def lo_slot(plan: str, i: int, box: int) -> int:
+    """The slot of box ``box`` of cotangent g_i's low half (fields_bwd.cuh
+    ``lo_slot``): the 'lo' row's forward slots for odd i, its reload slots
+    for even i."""
+    fwd, _, _, reload = FB_PLANS[plan][FB_BUFS.index('lo')]
+    return fwd[box] if i % 2 else reload[box]
 
 
 # The plan's config as the entry points report it (``fb::plan_config``).
@@ -498,9 +519,12 @@ def _stream_bytes(loads, shapes, first: int, n_points: int) -> int:
 # warp field and the sheet of the translation table (layers
 # MODULE_STAGES['warp'] or ['sheet'], ``hn_fused_field_bwd``), the SE(3)
 # trunk (layers MODULE_STAGES['se3'] of the SE(3) table,
-# ``hn_fused_se3_bwd``), and the trunk with its three point-tangent streams
+# ``hn_fused_se3_bwd``), the trunk with its three point-tangent streams
 # (``hn_fused_se3_jacobian_bwd``: a block tile of 32 points x 4 streams,
-# ``tangent_row``). Each field's record: ``code``, what
+# ``tangent_row``), and the warp field with its tangent streams, the
+# translation Jacobian's backward (``hn_fused_jacobian_bwd``, the same rows;
+# its cotangent in two halves has a plan of its own, 'warp_tangents'). Each
+# field's record: ``code``, what
 # ``hn_fused_field_bwd_plan`` takes; ``plan``, its row of FB_PLANS;
 # ``stage``, its layers (a key of MODULE_STAGES); ``streams``, the rows of a
 # point (with the tangents, the primal row and d / d p_k, k < 3);
@@ -518,12 +542,13 @@ class FieldBwd(NamedTuple):
 FIELD_BWD = {'warp': FieldBwd(0, 'translation', 'warp', 1, 6),
              'sheet': FieldBwd(1, 'sheet', 'sheet', 1, 6),
              'se3': FieldBwd(2, 'se3', 'se3', 1, 7),
-             'se3_tangents': FieldBwd(2, 'se3', 'se3', 4, 7)}
+             'se3_tangents': FieldBwd(2, 'se3', 'se3', 4, 7),
+             'warp_tangents': FieldBwd(3, 'warp_tangents', 'warp', 4, 6)}
 
 
 def tangent_row(point: int, stream: int) -> int:
     """The block-tile row of stream ``stream`` of point ``point`` (< 32) of
-    the trunk's tangent backward (csrc/fields_bwd.cuh ``tan_row``): row 16 w
+    a tangent backward (csrc/fields_bwd.cuh ``tan_row``): row 16 w
     + 4 s + q of a warpgroup is stream s of its point 4 w + q, so a lane's
     two accumulator rows are streams s and s + 2 of one point and the primal
     row of a tangent row's point and columns is on lane & 15 of its warp."""

@@ -463,7 +463,7 @@ class _KernelOps:
 def layer_views(w_blob, wt_blob, b_blob, shapes):
     """Each layer's (n_pad, k_pad) weight, (k_pad, n_pad) transpose and
     bias as views of the packed blobs, and its dW / db offsets in the
-    [dW | db] buffer of ``common.grad_buffer``."""
+    packed [dW | db] layout (all the layers' dW, then their db)."""
     n_w = sum(n * k for n, k in shapes)
     w, wt, b, w_off, b_off = [], [], [], [], []
     at_w = at_b = 0

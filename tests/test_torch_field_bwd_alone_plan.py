@@ -98,12 +98,13 @@ def test_plan_model(field):
 def test_entry_point_reports_kernel_b_rows():
     """fields_bwd_alone.cu's plan entry point reports the field's row of
     kernel B's ``buf_plan`` table (the same device code reads it), the
-    warp field for code 0, the sheet for code 1, and the SE(3) trunk's row
+    warp field for code 0, the sheet for code 1, the SE(3) trunk's row
     for code 2 (the trunk alone, and with its tangents, which differ only
-    by their streams)."""
+    by their streams) and the translation Jacobian's own row for code 3."""
     assert {f: (r.code, r.plan) for f, r in FIELD_BWD.items()} == {
         'warp': (0, 'translation'), 'sheet': (1, 'sheet'),
-        'se3': (2, 'se3'), 'se3_tangents': (2, 'se3')}
+        'se3': (2, 'se3'), 'se3_tangents': (2, 'se3'),
+        'warp_tangents': (3, 'warp_tangents')}
     assert FIELD_BWD['se3']._replace(streams=4) == FIELD_BWD['se3_tangents']
     src = (build.CSRC / 'fields_bwd_alone.cu').read_text()
     body = src[src.index('int hn_fused_field_bwd_plan('):]
@@ -111,7 +112,9 @@ def test_entry_point_reports_kernel_b_rows():
                      body)
     assert 'plan_table(kSheet, table)' in body
     assert 'plan_table(kSe3Warp, table)' in body
-    assert 'which > 2) return -1' in body
+    assert re.search(r'which == 3\) \{\s+plan_table\(kTransJac, table\)',
+                     body)
+    assert 'which > 3) return -1' in body
 
 
 @pytest.mark.parametrize('field', FIELDS)

@@ -23,7 +23,7 @@ import torch
 from hypernerf_tpu_torch.flagship import flagship_model, load_probe_weights
 from hypernerf_tpu_torch.kernels import build, common
 from hypernerf_tpu_torch.kernels.fused_level import (
-    FB_BUFS, FB_GRAD_COPIES, FB_GROUPS, FB_PLANS, FB_ROWS_BYTES,
+    FB_BUFS, FB_FIELDS, FB_GRAD_COPIES, FB_GROUPS, FB_PLANS, FB_ROWS_BYTES,
     FB_SLAB_BYTES, FB_SLOTS,
     FB_SMEM_BYTES, FB_SPILL_SLABS, FB_STAGE_BYTES, FB_STAGES, FB_THREADS,
     FB_TILE_ROWS, fields_bwd_loads, fields_bwd_plan, fields_bwd_stream_bytes,
@@ -80,15 +80,18 @@ def test_shared_memory_fits(warp):
 
 
 def test_plan_table_matches_the_c_source():
-    """fields_bwd.cuh's ``buf_plan`` table is FB_PLANS, field by field and
-    buffer by buffer (the card checks the compiled one as well)."""
+    """fields_bwd.cuh's ``buf_plan`` table is FB_PLANS, field by field in
+    the C source's order (FB_FIELDS: kernel B's three, then the translation
+    Jacobian's) and buffer by buffer (the card checks the compiled one as
+    well)."""
     src = (build.CSRC / 'fields_bwd.cuh').read_text()
     body = src[src.index('fields_bwd_plan_table begin'):
                src.index('fields_bwd_plan_table end')]
     body = body[body.index('= {'):]
     body = re.sub(r'//[^\n]*', '', body)
     nums = [int(x) for x in re.findall(r'-?\d+', body)]
-    want = [v for field in FIELDS for fwd, spill, after, reload
+    assert FB_FIELDS[:3] == FIELDS
+    want = [v for field in FB_FIELDS for fwd, spill, after, reload
             in FB_PLANS[field] for v in (*fwd, spill, after, *reload)]
     assert nums == want
 

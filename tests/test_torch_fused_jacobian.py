@@ -430,7 +430,7 @@ def test_cuda_kernels_cover_the_flagship_fields_only():
     for bad in (TranslationField(E, dtype=torch.float32),
                 TranslationField(E, n_freq=8, dtype=torch.bfloat16)):
         with pytest.raises(NotImplementedError, match='A.13'):
-            fused_jacobian._launch_args(bad.mlp, bad.n_freq, x, False)
+            fused_jacobian._launch_args(bad.mlp, bad.n_freq, x)
     for bad in (SE3Field(E, dtype=torch.float32),
                 SE3Field(E, max_deg=6, dtype=torch.bfloat16)):
         with pytest.raises(NotImplementedError, match='A.13'):

@@ -4,13 +4,14 @@
 rays, S = 64 and 128 samples, or, with ``--field warp|sheet|se3``, that
 field alone (``hn_fused_field_bwd``, the SE(3) trunk's
 ``hn_fused_se3_bwd``) at 8192 x 128 and 16384 x 128 rows, or, with
-``--field se3_tangents``, the trunk with its point-tangents
-(``hn_fused_se3_jacobian_bwd``) at the train step's 262,144 points (16384
-rays x 16 Jacobian samples); probe weights, CUDA events (the mean of 5
-launches after 2).
+``--field se3_tangents`` or ``warp_tangents``, the trunk or the
+translation warp field with its point-tangents (``hn_fused_se3_jacobian_bwd``,
+``hn_fused_jacobian_bwd``, the Jacobians' backwards) at the train step's
+262,144 points (16384 rays x 16 Jacobian samples); probe weights, CUDA
+events (the mean of 5 launches after 2).
 
   python tools/time_fields_bwd.py [--parent DIR]
-      [--field warp|sheet|se3|se3_tangents]
+      [--field warp|sheet|se3|se3_tangents|warp_tangents]
 
 With ``--parent`` the kernel library of another checkout (for example an
 unpacked ``git archive`` of an earlier commit), built from its own
@@ -18,8 +19,9 @@ unpacked ``git archive`` of an earlier commit), built from its own
 process: this, parent, parent, this. Both get this checkout's packed blobs
 and the same inputs; kernel B's entry point takes the same arguments in
 both, a field alone's is called as the parent's ``build.py`` declares it
-(the 32-row kernels before the redesign: a transposed weight blob, one
-gradient buffer, a ``_blocks`` entry point of their own). Prints the card's
+(the 32-row kernels before the redesign, and the translation Jacobian's
+8-point kernel before its redesign: a transposed weight blob, one gradient
+buffer, a ``_blocks`` entry point of their own). Prints the card's
 name and power limit first, then one line per kernel and shape with each
 library's times, the share of the bound (three multiply-adds per weight and
 row over 989 TFLOP/s; a point is four rows with the tangents) and, with a
@@ -73,7 +75,8 @@ def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument('--parent', default=None)
     parser.add_argument('--field', default=None,
-                        choices=('warp', 'sheet', 'se3', 'se3_tangents'))
+                        choices=('warp', 'sheet', 'se3', 'se3_tangents',
+                                 'warp_tangents'))
     args = parser.parse_args()
 
     import torch
@@ -88,6 +91,7 @@ def main() -> int:
     ff = importlib.import_module('hypernerf_tpu_torch.kernels.fused_field')
     fl = importlib.import_module('hypernerf_tpu_torch.kernels.fused_level')
     fs = importlib.import_module('hypernerf_tpu_torch.kernels.fused_se3')
+    fj = importlib.import_module('hypernerf_tpu_torch.kernels.fused_jacobian')
 
     print(subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
                           '--format=csv,noheader'], capture_output=True,
@@ -136,6 +140,48 @@ def main() -> int:
         print(f'{label}: ' + '; '.join(parts), flush=True)
 
     with torch.no_grad():
+        if args.field == 'warp_tangents':
+            mlp = load_probe_weights(flagship_model(
+                'cuda', config='elastic')).warp_field.mlp
+            layers = ff.field_layers(mlp)
+            macs = sum(lin.weight.numel() for lin, _ in layers)
+            w, b, shapes = fj._launch_args(mlp, 10,
+                                           torch.zeros((1, 11), device='cuda'))
+            wt = common.pack_layers(mlp, layers, transposed=True)[0]
+            name = 'hn_fused_jacobian_bwd'
+            x = fl._raw_fields(*inputs(16384, 16, seed=16384)[:4])
+            x = x.contiguous()
+            p = x.shape[0]
+            g = torch.randn(p, fj.JAC, generator=torch.Generator(
+                ).manual_seed(16384)).cuda()
+            dx = torch.empty_like(x)
+            copies, _ = fl.fields_bwd_grad_copies(shapes, 'cuda')
+            one = torch.zeros(copies.shape[1], device='cuda')
+            blocks = build.library().hn_fused_fields_bwd_blocks(4 * p)
+            scratch = torch.empty(blocks * fl.FB_SPILL_SLABS
+                                  * fl.FB_SLAB_BYTES, dtype=torch.uint8,
+                                  device='cuda')
+
+            def launch(lib, bld):
+                if f'{name}_blocks' not in bld._SIGNATURES:
+                    copies.zero_()
+                    bld.check(getattr(lib, name)(
+                        x.data_ptr(), None, g.data_ptr(), w.data_ptr(),
+                        b.data_ptr(), dx.data_ptr(), copies.data_ptr(),
+                        scratch.data_ptr(), p, blocks, stream), name)
+                    return [dx, copies]
+                one.zero_()
+                bld.check(getattr(lib, name)(
+                    x.data_ptr(), g.data_ptr(), w.data_ptr(), wt.data_ptr(),
+                    b.data_ptr(), dx.data_ptr(), one.data_ptr(), p,
+                    getattr(lib, f'{name}_blocks')(p), stream), name)
+                return [dx, one]
+            # The bound: the recompute on four streams, g W and g^T h on
+            # the three tangent streams (report() counts 6 flops a weight
+            # and row, so 10 / 3 rows a point).
+            report(f'warp_tangents backward {p} points', macs, 10 * p / 3,
+                   launch, 1)
+            return 0
         if args.field in ('se3', 'se3_tangents'):
             tan = args.field == 'se3_tangents'
             field = load_probe_weights(flagship_model(

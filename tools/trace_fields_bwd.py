@@ -10,11 +10,14 @@ rays' rows [pts | embed] and a seeded cotangent of its output; with
 ``--field se3`` for the SE(3) trunk alone (``csrc/se3_bwd_alone.cu``, the
 ``se3`` configuration's probe weights), with ``--field se3_tangents`` for the
 trunk with its point-tangents (``csrc/se3_tangents_bwd.cu``, 32 points x 4
-streams a block tile; ``elastic_se3``'s probe weights; pass ``--samples
-16`` for the train step's 262,144 points).
+streams a block tile; ``elastic_se3``'s probe weights), with ``--field
+warp_tangents`` for the translation warp's Jacobian backward
+(``csrc/warp_tangents_bwd.cu``, the same rows, the cotangent in two bf16
+halves; ``elastic``'s probe weights); pass ``--samples 16`` to either for
+the train step's 262,144 points.
 
   python tools/trace_fields_bwd.py [--rays 16384] [--samples 128]
-      [--field warp|sheet|se3|se3_tangents]
+      [--field warp|sheet|se3|se3_tangents|warp_tangents]
 
 Prints, per kind and summed over a block tile (mean of tiles 1 to 3, in SM
 cycles, each warpgroup): waits for a weight stage, products until retired,
@@ -49,7 +52,9 @@ FIELD_SOURCES = {'warp': ('fields_bwd_alone', 'hn_fused_field_bwd'),
                  'sheet': ('fields_bwd_alone', 'hn_fused_field_bwd'),
                  'se3': ('se3_bwd_alone', 'hn_fused_se3_bwd'),
                  'se3_tangents': ('se3_tangents_bwd',
-                                  'hn_fused_se3_jacobian_bwd')}
+                                  'hn_fused_se3_jacobian_bwd'),
+                 'warp_tangents': ('warp_tangents_bwd',
+                                   'hn_fused_jacobian_bwd')}
 
 
 def _trace_library(stem: str, entry: str | None):
@@ -103,6 +108,7 @@ def main() -> int:
     fl = importlib.import_module('hypernerf_tpu_torch.kernels.fused_level')
     ff = importlib.import_module('hypernerf_tpu_torch.kernels.fused_field')
     fs = importlib.import_module('hypernerf_tpu_torch.kernels.fused_se3')
+    fj = importlib.import_module('hypernerf_tpu_torch.kernels.fused_jacobian')
 
     print(subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
                           '--format=csv,noheader'], capture_output=True,
@@ -110,8 +116,8 @@ def main() -> int:
     stem, entry = FIELD_SOURCES.get(args.field, ('fields_bwd_trans', None))
     lib = _trace_library(stem, entry)
     se3 = args.field in ('se3', 'se3_tangents')
-    config = {'se3': 'se3', 'se3_tangents': 'elastic_se3'}.get(args.field,
-                                                              'flagship')
+    config = {'se3': 'se3', 'se3_tangents': 'elastic_se3',
+              'warp_tangents': 'elastic'}.get(args.field, 'flagship')
     level = load_probe_weights(flagship_model('cuda',
                                               config=config)).level('fine')
     w, b, shapes = fl.pack_level(level)
@@ -124,7 +130,7 @@ def main() -> int:
     d_z = torch.empty((args.rays, args.samples), device='cuda')
     d_ray = torch.zeros((args.rays, 14), device='cuda')
     grads, _ = fl.fields_bwd_grad_copies(shapes[:14], 'cuda')
-    streams = 4 if args.field == 'se3_tangents' else 1
+    streams = 4 if args.field in ('se3_tangents', 'warp_tangents') else 1
     blocks = build.library().hn_fused_fields_bwd_blocks(streams * n)
     scratch = torch.empty(blocks * fl.FB_SPILL_SLABS * fl.FB_SLAB_BYTES,
                           dtype=torch.uint8, device='cuda')
@@ -136,6 +142,13 @@ def main() -> int:
         dx_raw = torch.empty_like(x_raw)
         g = (torch.randn(n, 24, generator=gen).cuda() if streams == 4 else
              torch.nn.functional.pad(dx_t[:, :6], (0, 2)).contiguous())
+    elif args.field == 'warp_tangents':
+        x_raw = fl._raw_fields(z, o, d, emb).contiguous()
+        w, b, shapes = fj._launch_args(level.warp.mlp, level.warp.n_freq,
+                                       x_raw)
+        grads, _ = fl.fields_bwd_grad_copies(shapes, 'cuda')
+        dx_raw = torch.empty_like(x_raw)
+        g = torch.randn(n, fj.JAC, generator=gen).cuda()
     elif args.field:
         module = level.warp if args.field == 'warp' else level.hyper
         x_raw = fl._raw_fields(z, o, d, emb).contiguous()
@@ -150,7 +163,7 @@ def main() -> int:
     for _ in range(2):  # the second launch's clocks are kept
         if lib.hn_fields_bwd_trace(t.ctypes.data):  # read and zero
             raise RuntimeError('hn_fields_bwd_trace failed')
-        if se3:
+        if se3 or args.field == 'warp_tangents':
             code = getattr(lib, entry)(
                 x_raw.data_ptr(), None, g.data_ptr(), w.data_ptr(),
                 b.data_ptr(), dx_raw.data_ptr(), grads.data_ptr(),
