@@ -5,8 +5,8 @@ Phases, one line each; any failure ends the run with a non-zero exit:
   1. a CUDA card (else exit 1); its name and power limit from nvidia-smi;
   2. build the kernels from kernels/csrc with nvcc (sm_90a), with the time
      and ptxas's registers and spills (the level forward's, kernel B's, the
-     per-module forwards', a field alone backward's and the SE(3) trunk's
-     two backwards' on lines of their own);
+     per-module forwards', a field alone backward's, the SE(3) trunk's
+     two backwards' and the Jacobians' forwards' on lines of their own);
   3. the level kernel at the flagship widths and at probe weights whose
      warp and hyper heads are large enough that those 14 layers move the
      output: against the JAX kernel's stored outputs (tests/data), and
@@ -119,15 +119,14 @@ Phases, one line each; any failure ends the run with a non-zero exit:
      kernels' stored outputs and gradients (tests/data), with the 1 % probe
      of warp layer 5, against their plain versions at 1001 points and at the
      train step's 262,144 (16384 rays x 16 samples), which are also timed;
-     the backward is kernel B's block run on the warp field with its tangent
-     streams, its cotangent in two bf16 halves: its compiled plan against
-     its model, its time beside its time before the redesign and its share
-     of the bound;
+     the forward is the level forward's block run on the warp field with
+     its tangent streams (16 points x 4 streams a tile), the backward
+     kernel B's block on the same streams, its cotangent in two bf16
+     halves: each one's compiled plan against its model, its time beside
+     its time before the redesign and its share of the bound;
  14. the SE(3) trunk's tangent kernels (forward and backward), the same way,
-     with and without a window row (alpha 3.5 of 8 bands); the backward is
-     kernel B's block run on the trunk with its tangent streams: its
-     compiled plan against its model, its time beside its time before the
-     redesign and its share of the bound;
+     with and without a window row (alpha 3.5 of 8 bands), on the same two
+     blocks run on the trunk with its tangent streams;
  15. the SE(3) and quaternion retractions' point-Jacobian (tensor code)
      chained with the tangent kernel, against the plain chain and the JAX
      side channel's stored J; models whose w head is zero (J = I + dv
@@ -287,6 +286,9 @@ LEVEL_FWD_SOURCES = ('level_fwd.cuh', 'level_fwd_trans.cu',
 # source per warp type).
 FIELDS_BWD_SOURCES = ('fields_bwd.cuh', 'fields_bwd_trans.cu',
                       'fields_bwd_se3.cu', 'fields_bwd_quat.cu')
+# The Jacobians' forwards: the level forward's block run on the warp field
+# or the trunk with their tangent streams.
+TANGENTS_FWD_SOURCES = ('tangents_fwd.cu', 'level_fwd.cuh')
 
 
 def ptxas_lines(log: str, sources) -> str:
@@ -2120,8 +2122,9 @@ JAC_L2 = 1e-2
 # Points per call on the train step's path: 16 Jacobian samples per ray.
 JAC_POINTS = TRAIN_RAYS * 16
 JAC_CHUNK = 65536  # points per call of a plain version
-# The Jacobians' backwards before their redesign (the mma.sync kernels;
-# PERF.md rows 15 and 17), ms at JAC_POINTS points.
+# The Jacobians' kernels before their redesign (the mma.sync kernels;
+# PERF.md rows 14 to 17), ms at JAC_POINTS points.
+EARLIER_JAC_FWD_MS = {'translation': 1.726, 'se3': 2.129}
 EARLIER_JAC_BWD_MS = {'translation': 11.224, 'se3': 12.376}
 
 
@@ -2175,10 +2178,11 @@ def tangents_of(field, x_raw, scales=None):
 
 def jacobian_phase(kind: str):
     """Phase 13 (``kind`` 'translation': kernels 14 and 15) or 14 ('se3':
-    kernels 16 and 17, with and without a window row; kernels 15 and 17 are
-    kernel B's block run on the warp field or the trunk with its tangent
-    streams, each compiled plan held to ``fused_level.field_bwd_plan(
-    'warp_tangents' | 'se3_tangents', ...)``): against
+    kernels 16 and 17, with and without a window row; kernels 14 and 16 are
+    the level forward's block, 15 and 17 kernel B's, run on the warp field
+    or the trunk with its tangent streams, each compiled plan held to
+    ``fused_level.stage_plan`` / ``field_bwd_plan('warp_tangents' |
+    'se3_tangents', ...)``): against
     the JAX kernels' stored numbers, the 1 % probe of layer 5, the plain
     versions at a ragged size and at the train step's 262,144 points
     (timed). Returns the two kernels' entries."""
@@ -2227,6 +2231,19 @@ def jacobian_phase(kind: str):
           f'{len(got["loads"])} weight loads a block tile; computed from the '
           f'plan, not measured: {streamed:,} bytes of weights streamed from '
           f'L2 at {JAC_POINTS} points')
+    got = fl.compiled_stage_plan(plan)
+    want = fl.stage_plan(plan, shapes)
+    if got != want:
+        raise AssertionError(f'{plan}: the compiled tangents forward plan '
+                             f'is not its model: {got} vs {want}')
+    groups, streams, points = (got['config'][1], got['config'][8],
+                               got['config'][9])
+    streamed = fl.forward_stream_bytes(shapes, streams * JAC_POINTS, groups)
+    phase(f'{tag} tangents forward plan (compiled = model): the level '
+          f'forward\'s block, {groups} tiles of {points} points x {streams} '
+          f'streams a step, {len(got["loads"])} weight loads a step; '
+          f'computed from the plan, not measured: {streamed:,} bytes of '
+          f'weights streamed from L2 at {JAC_POINTS} points')
     out_name = 'J' if trans else 'w | v | dw | dv'
     grad_names = ['dx'] + [f'd{"Wb"[i % 2]}{i // 2}'
                            for i in range(2 * len(layers))]
@@ -2275,8 +2292,8 @@ def jacobian_phase(kind: str):
                                  f'layer 5')
 
         times = {}
-        # 1001 points: a multiple of no tile (16 points forward; 8, or
-        # the SE(3) backward's 32, backward).
+        # 1001 points: a multiple of no tile (a step of 48 points
+        # forward, a block tile of 32 backward).
         for p in (1001, JAC_POINTS):
             for scales in windows:
                 label = (f'{kind} P={p} window='
@@ -2315,6 +2332,9 @@ def jacobian_phase(kind: str):
     f_ms, f_by = bound(2.0 * 4 * macs * p, p * (44 + 4 * width) + 2 * macs)
     b_ms, b_by = bound(2.0 * back_blocks * macs * p,
                        p * (44 + 4 * width + 44) + 6 * macs)
+    phase(f'{tag} tangents forward at {p} points: {times["fwd"]:.3f} ms, '
+          f'{100 * f_ms / times["fwd"]:.1f} % of its bound {f_ms:.4f} ms; '
+          f'{EARLIER_JAC_FWD_MS[kind]:.3f} ms before the redesign (PERF.md)')
     phase(f'{tag} tangents backward at {p} points: {times["bwd"]:.3f} ms, '
           f'{100 * b_ms / times["bwd"]:.1f} % of its bound {b_ms:.4f} ms; '
           f'{EARLIER_JAC_BWD_MS[kind]:.3f} ms before the redesign (PERF.md)')
@@ -2322,10 +2342,11 @@ def jacobian_phase(kind: str):
     stem = 'fused_jacobian' if trans else 'fused_se3_jacobian'
     fwd_line, bwd_line = (269, 302) if trans else (286, 331)
     pallas = f'hypernerf_tpu/ops/pallas/{stem}.py'
+    fwd_src = ', '.join(src + f for f in TANGENTS_FWD_SOURCES)
     bwd_src = ', '.join(src + f for f in (
         WARP_TANGENTS_BWD_SOURCES if trans else SE3_TANGENTS_BWD_SOURCES))
     return [
-        dict(name=f'{stem}_fwd', route='cuda', source=f'{src}{stem}.cu',
+        dict(name=f'{stem}_fwd', route='cuda', source=fwd_src,
              replaces=f'{pallas}:{fwd_line}',
              **error_keys(errs['fwd'], JAC_L2), ms=times['fwd'],
              plain_ms=times['plain_fwd'], bound_ms=f_ms, bound_by=f_by,
@@ -2534,6 +2555,8 @@ def main() -> int:
     phase(f'[2] the SE(3) trunk alone backward, its tangents\' backward and '
           f'the translation Jacobian\'s backward, on kernel B\'s block (the '
           f'same): {ptxas_lines(build.build_log(), tangents)}')
+    phase(f'[2] the Jacobians\' forwards, on the level forward\'s block (the '
+          f'same): {ptxas_lines(build.build_log(), TANGENTS_FWD_SOURCES)}')
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False

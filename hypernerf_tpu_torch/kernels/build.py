@@ -62,6 +62,7 @@ _SIGNATURES = {
     'hn_fused_jacobian_bwd': ([_P] * 8 + [_L, _I, _P], _I),
     'hn_fused_se3_jacobian_fwd': ([_P] * 5 + [_L, _P], _I),
     'hn_fused_se3_jacobian_bwd': ([_P] * 8 + [_L, _I, _P], _I),
+    'hn_tangents_fwd_plan': ([_I, _P, _P, _P, _I], _I),
     'hn_fused_composite_fwd': ([_P] * 8 + [_L, _I, _I, _I, _I, _P], _I),
     'hn_fused_composite_bwd': ([_P] * 9 + [_L, _I, _I, _I, _P], _I),
     'hn_error_string': ([_I], ctypes.c_char_p),

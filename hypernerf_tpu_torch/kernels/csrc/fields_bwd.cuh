@@ -210,18 +210,10 @@ __device__ __forceinline__ int slot_of(int box) {
 }
 
 // The tangent streams' rows (kTan): a block tile of 128 rows holds 32
-// points x 4 streams (the primal row, then d / d p_k for k = 0, 1, 2), 16
-// points a warpgroup and 4 a warp. Row 16 w + 4 s + q of a warpgroup is
-// stream s of its point 4 w + q, so a lane's two accumulator rows (lane / 4
-// and lane / 4 + 8 of its warp's 16) are streams s and s + 2 of one point,
-// the primal row on lanes 0..15, and lane & 15 holds the primal row of the
-// point and columns that lane holds: a tangent's ReLU mask is one shuffle.
-__host__ __device__ constexpr int tan_row(int point, int stream) {
-  return ((point >> 2) << 4) | (stream << 2) | (point & 3);
-}
-__host__ __device__ constexpr int tan_stream(int row) {
-  return (row >> 2) & 3;
-}
+// points x 4 streams, 16 points a warpgroup in level_fwd.cuh's tan_row
+// layout (a tangent's ReLU mask is one shuffle).
+using lf::tan_row;
+using lf::tan_stream;
 constexpr int kTanPoints = kTileRows / 4;  // points of a block tile
 
 template <int kWarp>
@@ -531,10 +523,6 @@ __device__ __forceinline__ void fwd_layer(Ctx& c, const bf16* __restrict__ B) {
       on = __shfl_sync(0xffffffffu, on, lane & 15);
     }
     const bool primal = lane < 16;  // the lane's first row is stream 0
-    auto tangent = [on](float v0, float v1, int bit) {
-      return pack_bf((on >> bit) & 1u ? v0 : 0.f,
-                     (on >> (bit + 1)) & 1u ? v1 : 0.f);
-    };
 #pragma unroll
     for (int j = 0; j < J; j += 2) {
       const __nv_bfloat162 bb[2] = {bias[4 * j], bias[4 * j + 4]};
@@ -543,11 +531,11 @@ __device__ __forceinline__ void fwd_layer(Ctx& c, const bf16* __restrict__ B) {
       lf::stsm_x4(c.half(slot_of<F, kOut, kFwd>(j >> 3)) + row +
                       (((jj & 7) ^ i7) << 4),
                   primal ? lf::bias_round<kRelu>(d[0], d[1], bb[0])
-                         : tangent(d[0], d[1], 2 * j),
-                  tangent(d[2], d[3], 2 * j),
+                         : lf::masked_round(d[0], d[1], on, 2 * j),
+                  lf::masked_round(d[2], d[3], on, 2 * j),
                   primal ? lf::bias_round<kRelu>(d[4], d[5], bb[1])
-                         : tangent(d[4], d[5], 2 * j + 2),
-                  tangent(d[6], d[7], 2 * j + 2));
+                         : lf::masked_round(d[4], d[5], on, 2 * j + 2),
+                  lf::masked_round(d[6], d[7], on, 2 * j + 2));
     }
   } else {
 #pragma unroll

@@ -255,13 +255,6 @@ __device__ __forceinline__ void tangent_rows(const Ctx& c, long long p0,
   }
 }
 
-// Feature f of a tangent encoding from its fp32 value: times the window row,
-// rounded once.
-__device__ __forceinline__ bf16 tangent_feature(
-    float v, int f, const float* __restrict__ scales) {
-  return __float2bfloat16_rn(scales != nullptr ? v * scales[f] : v);
-}
-
 // The trunk's encoding on the warpgroup's rows: the primal rows as
 // encode_trunk; tangent k's [cos(p_k 2^m) 2^m | -sin(p_k 2^m) 2^m on
 // channel k's band columns | 0] with m = kSe3MinDeg + band / 3.

@@ -2,8 +2,8 @@
 // A's template_*.cu): the flagship widths, the two tables of the level's
 // layers (30 with the translation warp, 32 with the SE(3) / quaternion warp)
 // with their offsets into the packed weight and bias blobs, the bf16
-// tensor-core product and the posenc_orig feature map. A function that reads
-// a table takes it as a template parameter, TransTable by default.
+// rounding and the posenc_orig feature map. A function that reads a table
+// takes it as a template parameter, TransTable by default.
 
 #pragma once
 
@@ -113,22 +113,8 @@ __host__ __device__ constexpr int bias_offset(int l) {
   return o;
 }
 
-__device__ __forceinline__ uint32_t lds32(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-__device__ __forceinline__ uint32_t ldg32(const bf16* p) {
-  return __ldg(reinterpret_cast<const unsigned int*>(p));
-}
-
-__device__ __forceinline__ void mma_bf16(float (&c)[4], uint32_t a0,
-                                         uint32_t a1, uint32_t a2, uint32_t a3,
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+__device__ __forceinline__ float round_bf(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
 }
 
 // Feature f of posenc_orig over CH channels and F bands, block layout

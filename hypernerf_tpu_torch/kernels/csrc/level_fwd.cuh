@@ -6,7 +6,8 @@
 // functions on one block (enter_block), which modular_fwd.cu runs
 // one at a time for the per-module path: a field alone, the template alone,
 // the SE(3) / quaternion trunk alone (the screw warp's stage without its
-// retraction).
+// retraction); tangents_fwd.cu runs the warp field and the trunk with their
+// point-tangent streams on the same block.
 //
 // Replaces hypernerf_tpu/ops/pallas/fused_level.py `_fused` (forward,
 // fused_level.py:1322; `_fwd_call_pipelined`, :1019, is a schedule of the
@@ -316,6 +317,24 @@ __device__ __forceinline__ void stsm_x4(uint32_t addr, uint32_t m0, uint32_t m1,
       "r"(m0), "r"(m1), "r"(m2), "r"(m3));
 }
 
+// The tangent streams' rows (tangents_fwd.cu; fields_bwd.cuh's kTan): a tile
+// of 64 rows holds 16 points x 4 streams (the primal row, then d / d p_k for
+// k = 0, 1, 2), 4 points a warp. Row 16 w + 4 s + q is stream s of point 4
+// w + q, so a lane's two accumulator rows (lane / 4 and lane / 4 + 8 of its
+// warp's 16) are streams s and s + 2 of one point, the primal row on lanes
+// 0..15, and lane & 15 holds the primal row of the point and columns that
+// lane holds: a tangent's ReLU mask is one shuffle. A point past 15 goes to
+// the next 64 rows (kernel B's block tile of 128 rows holds 32 points).
+__host__ __device__ constexpr int tan_row(int point, int stream) {
+  return ((point >> 2) << 4) | (stream << 2) | (point & 3);
+}
+__host__ __device__ constexpr int tan_stream(int row) {
+  return (row >> 2) & 3;
+}
+__host__ __device__ constexpr int tan_point(int row) {
+  return ((row >> 4) << 2) | (row & 3);
+}
+
 // 2^k for 0 <= k < 127, exactly.
 __device__ __forceinline__ float pow2(int k) {
   return __int_as_float((127 + k) << 23);
@@ -400,6 +419,18 @@ __device__ __forceinline__ uint32_t bias_round(float a0, float a1,
     asm("cvt.rn.relu.bf16x2.f32 %0, %1, %2;" : "=r"(out) : "f"(v1), "f"(v0));
   else
     asm("cvt.rn.bf16x2.f32 %0, %1, %2;" : "=r"(out) : "f"(v1), "f"(v0));
+  return out;
+}
+
+// bf16x2 of (v0, v1), each zeroed where bit `bit` (`bit` + 1) of the mask
+// word `on` is clear: a tangent row's pair under its primal row's ReLU mask
+// (tan_row's layout).
+__device__ __forceinline__ uint32_t masked_round(float v0, float v1,
+                                                 uint32_t on, int bit) {
+  const float m0 = (on >> bit) & 1u ? v0 : 0.f;
+  const float m1 = (on >> (bit + 1)) & 1u ? v1 : 0.f;
+  uint32_t out;
+  asm("cvt.rn.bf16x2.f32 %0, %1, %2;" : "=r"(out) : "f"(m1), "f"(m0));
   return out;
 }
 

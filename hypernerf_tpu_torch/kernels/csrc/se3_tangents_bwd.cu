@@ -5,7 +5,7 @@
 // Replaces hypernerf_tpu/ops/pallas/fused_se3_jacobian.py `_fused_bwd`
 // (:331, the tile body `_jac_bwd_tile` :154-212 with the tangent encoding's
 // pullback `_tangent_encode_bwd` :83-109 and the forward stash of
-// `_jac_fwd_tile` :112-152) for the trunk fused_se3_jacobian.cu computes.
+// `_jac_fwd_tile` :112-152) for the trunk tangents_fwd.cu computes.
 //
 // In:  x_raw (P, 11), the optional window row, g (P, 24) fp32 = d[w | v |
 //      dw | dv] in the forward's layout. Out: dx_raw (P, 11) = [d pts | d

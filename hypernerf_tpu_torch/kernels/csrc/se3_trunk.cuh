@@ -1,9 +1,9 @@
 // The SE(3) / quaternion warp field's trunk: its constants, its encoding's
-// features, and its retraction. Shared by the tangent forward kernel
-// (jacobian.cuh) and the level kernels' screw-warp variants (level_fwd.cuh,
-// whose trunk stage modular_fwd.cu also runs alone, and fields_bwd.cuh,
-// whose block also runs the trunk alone backward, with and without its
-// tangent streams: fields_bwd_alone.cuh).
+// features, and its retraction. Shared by the level kernels' screw-warp
+// variants (level_fwd.cuh, whose trunk stage modular_fwd.cu also runs alone
+// and tangents_fwd.cu with its tangent streams, and fields_bwd.cuh, whose
+// block also runs the trunk alone backward, with and without its tangent
+// streams: fields_bwd_alone.cuh).
 //
 // The trunk is Se3Table's layers 0..8: the Nerfies encoding of the points
 // (sin and cos of the degrees [kSe3MinDeg, kSe3MinDeg + 8), no identity
@@ -20,7 +20,7 @@
 
 #pragma once
 
-#include "level_bwd.cuh"
+#include "level_common.cuh"
 
 namespace {
 
@@ -40,6 +40,13 @@ __device__ __forceinline__ bf16 window_feature(float v, int f,
   if (scales != nullptr)
     b = __float2bfloat16_rn(__bfloat162float(b) * scales[f]);
   return b;
+}
+
+// Feature f of a tangent encoding from its fp32 value: times the window row,
+// rounded once.
+__device__ __forceinline__ bf16 tangent_feature(
+    float v, int f, const float* __restrict__ scales) {
+  return __float2bfloat16_rn(scales != nullptr ? v * scales[f] : v);
 }
 
 // -- the retraction -----------------------------------------------------------

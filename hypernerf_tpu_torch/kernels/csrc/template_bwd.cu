@@ -46,10 +46,6 @@ __device__ __forceinline__ float sum_groups(float* red, float v) {
   return s;
 }
 
-__device__ __forceinline__ float round_bf(float x) {
-  return __bfloat162float(__float2bfloat16_rn(x));
-}
-
 // Rows [r0, r1) of split z of n.
 __device__ __forceinline__ void split_range(long long n, long long& r0,
                                             long long& r1) {

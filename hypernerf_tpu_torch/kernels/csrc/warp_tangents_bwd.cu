@@ -6,7 +6,7 @@
 // Replaces hypernerf_tpu/ops/pallas/fused_jacobian.py `_fused_bwd` (:302, the
 // tile body `_jac_bwd_tile` :168-208 with the recompute `_jac_fwd_tile`
 // :132-166 and the tangent encoding's pullback `_tangent_encode_bwd`
-// :103-129) for the field fused_jacobian.cu computes.
+// :103-129) for the field tangents_fwd.cu computes.
 //
 // In:  x_raw (P, 11) fp32 [pts | embed], g (P, 9) fp32 = dJ in J's layout
 //      (g[p, 3 i + k] = d loss / d J[i, k]), the field's packed bf16 weights

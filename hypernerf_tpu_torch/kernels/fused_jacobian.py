@@ -3,9 +3,12 @@ backward: forward-mode tangents through the warp field's MLP, the three
 coordinate tangents stacked as three more row blocks beside the primal rows.
 
 ``fused_warp_jacobian`` is the wrapper. On CUDA tensors it launches the
-hand-written Hopper kernel ``csrc/fused_jacobian.cu`` (which replaces the TPU
-kernel ``hypernerf_tpu/ops/pallas/fused_jacobian.py`` ``_fused_fwd``); on CPU
-tensors it runs ``fused_jacobian_plain``. When a gradient is wanted the call
+hand-written Hopper kernel of ``csrc/tangents_fwd.cu`` (which replaces the TPU
+kernel ``hypernerf_tpu/ops/pallas/fused_jacobian.py`` ``_fused_fwd``): the
+level forward's block run on the warp field with its tangent streams, a tile
+of 16 points x 4 streams (``fused_level.tangent_row``; its plan is
+``fused_level.stage_plan('warp_tangents', ...)``'s); on CPU tensors it runs
+``fused_jacobian_plain``. When a gradient is wanted the call
 goes through ``FusedJacobianFn``, whose backward is ``fused_jacobian_bwd``:
 on CUDA tensors the kernel of ``csrc/warp_tangents_bwd.cu`` (for the TPU
 kernel's ``_fused_bwd``), kernel B's block run on the warp field with its

@@ -308,17 +308,26 @@ def forward_plan(warp: str, shapes):
 # code ``hn_modular_fwd_plan`` takes, and the block: (consumer warpgroups,
 # tile columns). A field reads and writes the first 256 (warp) or 128
 # (sheet) columns of a tile, so three or four tiles fit a block; the trunk
-# takes the warp field's block.
+# takes the warp field's block. The Jacobians' forwards (csrc/tangents_fwd.cu)
+# run the warp field ('warp_tangents') or the trunk ('se3_tangents') with
+# their point-tangent streams on the same block: TANGENT_STREAMS rows a
+# point (``tangent_row``), 16 points a tile; their plans, the code
+# ``hn_tangents_fwd_plan`` takes, add those two numbers to the config.
 MODULE_STAGES = {'warp': (0, 7), 'sheet': (7, 14), 'template': (14, 30),
-                 'se3': (0, 9)}
+                 'se3': (0, 9), 'warp_tangents': (0, 7),
+                 'se3_tangents': (0, 9)}
 MODULE_STAGE_CODES = {'warp': 0, 'sheet': 1, 'template': 2, 'se3': 3}
+TANGENT_STAGE_CODES = {'warp_tangents': 0, 'se3_tangents': 1}
+TANGENT_STREAMS = 4  # the primal row, then d / d p_k for k = 0, 1, 2
 MODULE_BLOCKS = {'warp': (3, 256), 'sheet': (4, 128),
-                 'template': (FWD_GROUPS, FWD_TILE_COLS), 'se3': (3, 256)}
+                 'template': (FWD_GROUPS, FWD_TILE_COLS), 'se3': (3, 256),
+                 'warp_tangents': (3, 256), 'se3_tangents': (3, 256)}
 
 
 def stage_plan(stage: str, shapes):
     """The compiled plan's fields of a per-module kernel
-    (``hn_modular_fwd_plan``): config, in_cols and loads of the stage's
+    (``hn_modular_fwd_plan``) or a Jacobian's forward
+    (``hn_tangents_fwd_plan``): config, in_cols and loads of the stage's
     layers; ``shapes`` are the stage's own blob's (n_pad, k_pad), in
     order."""
     first, end = MODULE_STAGES[stage]
@@ -326,12 +335,16 @@ def stage_plan(stage: str, shapes):
         raise ValueError(f'{stage}: {len(shapes)} layers, want '
                          f'{end - first}')
     groups, cols = MODULE_BLOCKS[stage]
-    in_cols = forward_in_cols('se3' if stage == 'se3' else 'translation')
-    return _plan(shapes, in_cols[first:end], first, groups, cols)
+    in_cols = forward_in_cols('se3' if stage.startswith('se3')
+                              else 'translation')
+    plan = _plan(shapes, in_cols[first:end], first, groups, cols)
+    if stage in TANGENT_STAGE_CODES:
+        plan['config'] += [TANGENT_STREAMS, FWD_TILE_ROWS // TANGENT_STREAMS]
+    return plan
 
 
-def _compiled_plan(fn_name: str, code: int, n_layers: int):
-    config = (ctypes.c_int * 8)()
+def _compiled_plan(fn_name: str, code: int, n_layers: int, n_config=8):
+    config = (ctypes.c_int * n_config)()
     in_cols = (ctypes.c_int * n_layers)()
     max_loads = 1024
     loads = (ctypes.c_int * (4 * max_loads))()
@@ -353,8 +366,12 @@ def compiled_forward_plan(warp: str = 'translation'):
 
 def compiled_stage_plan(stage: str):
     """``stage_plan``'s fields as the compiled kernel reports them
-    (``hn_modular_fwd_plan``)."""
+    (``hn_modular_fwd_plan``, or ``hn_tangents_fwd_plan`` for a Jacobian's
+    forward)."""
     first, end = MODULE_STAGES[stage]
+    if stage in TANGENT_STAGE_CODES:
+        return _compiled_plan('hn_tangents_fwd_plan',
+                              TANGENT_STAGE_CODES[stage], end - first, 10)
     return _compiled_plan('hn_modular_fwd_plan', MODULE_STAGE_CODES[stage],
                           end - first)
 
@@ -542,13 +559,15 @@ class FieldBwd(NamedTuple):
 FIELD_BWD = {'warp': FieldBwd(0, 'translation', 'warp', 1, 6),
              'sheet': FieldBwd(1, 'sheet', 'sheet', 1, 6),
              'se3': FieldBwd(2, 'se3', 'se3', 1, 7),
-             'se3_tangents': FieldBwd(2, 'se3', 'se3', 4, 7),
-             'warp_tangents': FieldBwd(3, 'warp_tangents', 'warp', 4, 6)}
+             'se3_tangents': FieldBwd(2, 'se3', 'se3', TANGENT_STREAMS, 7),
+             'warp_tangents': FieldBwd(3, 'warp_tangents', 'warp',
+                                       TANGENT_STREAMS, 6)}
 
 
 def tangent_row(point: int, stream: int) -> int:
-    """The block-tile row of stream ``stream`` of point ``point`` (< 32) of
-    a tangent backward (csrc/fields_bwd.cuh ``tan_row``): row 16 w
+    """The tile row of stream ``stream`` of point ``point`` with the
+    tangent streams (csrc/level_fwd.cuh ``tan_row``; < 16 points in a
+    forward tile of 64 rows, < 32 in a backward block tile of 128): row 16 w
     + 4 s + q of a warpgroup is stream s of its point 4 w + q, so a lane's
     two accumulator rows are streams s and s + 2 of one point and the primal
     row of a tangent row's point and columns is on lane & 15 of its warp."""

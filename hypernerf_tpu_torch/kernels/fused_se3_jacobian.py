@@ -4,9 +4,12 @@ point-tangents d{w, v}_i / d p_k, forward and backward: the trunk of
 more row blocks beside the primal rows.
 
 ``fused_se3_wv_tangents`` is the wrapper. On CUDA tensors it launches the
-hand-written Hopper kernel ``csrc/fused_se3_jacobian.cu`` (which replaces the
-TPU kernel ``hypernerf_tpu/ops/pallas/fused_se3_jacobian.py`` ``_fused_fwd``);
-on CPU tensors it runs ``fused_se3_jacobian_plain``. When a gradient is
+hand-written Hopper kernel of ``csrc/tangents_fwd.cu`` (which replaces the
+TPU kernel ``hypernerf_tpu/ops/pallas/fused_se3_jacobian.py`` ``_fused_fwd``):
+the level forward's block run on the trunk with its tangent streams, a tile
+of 16 points x 4 streams (its plan is ``fused_level.stage_plan(
+'se3_tangents', ...)``'s); on CPU tensors it runs
+``fused_se3_jacobian_plain``. When a gradient is
 wanted the call goes through ``FusedSE3JacobianFn``, whose backward is
 ``fused_se3_jacobian_bwd``: on CUDA tensors the kernel of
 ``csrc/se3_tangents_bwd.cu`` (for the TPU kernel's ``_fused_bwd``), kernel

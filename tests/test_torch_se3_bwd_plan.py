@@ -274,8 +274,9 @@ def test_dw_flush_covers_each_weight_once():
 
 
 def _c_expr(name):
-    """The return expression of fields_bwd.cuh's constexpr ``name``."""
-    src = (build.CSRC / 'fields_bwd.cuh').read_text()
+    """The return expression of level_fwd.cuh's constexpr ``name`` (which
+    fields_bwd.cuh's tangent streams use)."""
+    src = (build.CSRC / 'level_fwd.cuh').read_text()
     m = re.search(r'constexpr int ' + name + r'\(int (\w+)(?:, int (\w+))?\) '
                   r'\{\s+return ([^;]+);', src)
     return m.group(1), m.group(2), m.group(3)

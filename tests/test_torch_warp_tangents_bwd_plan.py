@@ -89,17 +89,24 @@ def test_entry_point():
     """warp_tangents_bwd.cu instantiates fields_bwd_alone.cuh's kernel for
     the Jacobian's field with the tangent streams, refuses a window row, and
     the plan entry point reports that field's row for code 3; the old
-    mma.sync sources are gone."""
+    mma.sync sources are gone, and no source keeps their device code."""
     text = (build.CSRC / 'warp_tangents_bwd.cu').read_text()
     assert 'launch_field_bwd<fb::kTransJac, true>' in text
     assert '#include "fields_bwd_alone.cuh"' in text
     assert 'if (scales != nullptr) return (int)cudaErrorInvalidValue;' in text
-    for gone in ('fused_jacobian_bwd.cu', 'field_bwd.cuh'):
+    for gone in ('fused_jacobian_bwd.cu', 'field_bwd.cuh', 'jacobian.cuh',
+                 'fused_jacobian.cu', 'fused_se3_jacobian.cu',
+                 'level_bwd.cuh'):
         assert not (build.CSRC / gone).exists()
     src = (build.CSRC / 'fields_bwd.cuh').read_text()
     assert 'kTransJac = 3' in src
-    for name in ('split_bf', 'gemm_split', 'jac_dx_split', 'jac_dw_split'):
-        assert name not in (build.CSRC / 'jacobian.cuh').read_text()
+    for path in build._sources():
+        text = path.read_text()
+        for name in ('split_bf', 'gemm_split', 'jac_dx_split',
+                     'jac_dw_split', 'mma.sync', 'mma_bf16', 'ldg32',
+                     'lds32(', 'tiles_per_warp', 'struct Cfg', 'jac_layer',
+                     'jac_head', 'encode_trans_streams', 'JC<'):
+            assert name not in text, (path.name, name)
 
 
 # ---------------------------------------------------------------------------

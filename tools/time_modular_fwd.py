@@ -4,9 +4,15 @@ alone, ``hn_fused_field_fwd``; the template alone, ``hn_fused_template_fwd``;
 the SE(3) trunk alone, ``hn_fused_se3_fwd``) and the level forward's
 (``hn_fused_level_fwd``, each warp type) on one CUDA card, for this
 checkout's kernel library and, with ``--parent``, for another checkout's,
-in turns in one process: this, parent, parent, this.
+in turns in one process: this, parent, parent, this. With ``--kernel
+warp_tangents`` or ``se3_tangents``, a Jacobian's forward alone instead:
+the translation warp's (``hn_fused_jacobian_fwd``, the ``elastic`` probe
+weights) or the SE(3) trunk's with its tangents (``hn_fused_se3_jacobian_fwd``,
+``elastic_se3``, window row off and on), at 1001 and 262,144 points (the
+train step's: 16384 rays x 16).
 
   python tools/time_modular_fwd.py [--parent DIR]
+      [--kernel all|warp_tangents|se3_tangents]
 
 ``DIR`` is a checkout of an earlier commit (for example an unpacked ``git
 archive``) whose entry points take the same arguments and blobs; its
@@ -20,8 +26,8 @@ type. CUDA events, the mean
 of 10 launches after 2. Prints the card's name and power limit first, then
 one line per kernel and shape with each library's two times, the ratio of
 the means, the share of the bound (operations over 989 TFLOP/s) and the
-largest difference of the outputs from this checkout's; exits non-zero
-without a card.
+largest difference of the outputs from this checkout's (a Jacobian's
+bound counts its four rows a point); exits non-zero without a card.
 """
 
 from __future__ import annotations
@@ -64,9 +70,63 @@ def _time(fn, iters: int = 10) -> float:
     return start.elapsed_time(end) / iters
 
 
+def _tangents(kernel, inputs, report, stream):
+    """A Jacobian's forward (``kernel``) of each library at 1001 and 262,144
+    points of the probe rays, [pts | embed] rows as the train step's
+    subsample gives them."""
+    import torch
+    from hypernerf_tpu_torch.flagship import (flagship_model,
+                                              load_probe_weights)
+    from hypernerf_tpu_torch.kernels import build
+    ff = importlib.import_module('hypernerf_tpu_torch.kernels.fused_field')
+    fj = importlib.import_module('hypernerf_tpu_torch.kernels.fused_jacobian')
+    fl = importlib.import_module('hypernerf_tpu_torch.kernels.fused_level')
+    fs = importlib.import_module('hypernerf_tpu_torch.kernels.fused_se3')
+    fsj = importlib.import_module(
+        'hypernerf_tpu_torch.kernels.fused_se3_jacobian')
+    trans = kernel == 'warp_tangents'
+    field = load_probe_weights(flagship_model(
+        'cuda', config='elastic' if trans else 'elastic_se3')).warp_field
+    for p in (1001, 1 << 18):
+        x_raw = fl._raw_fields(*inputs(-(-p // 16), 16, seed=p % 97)[:4])
+        x_raw = x_raw[:p].contiguous()
+        if trans:
+            w, b, _ = fj._launch_args(field.mlp, 10, x_raw)
+            macs = sum(lin.weight.numel()
+                       for lin, _ in ff.field_layers(field.mlp))
+            out = torch.empty((p, fj.JAC), device='cuda')
+
+            def launch(lib):
+                build.check(lib.hn_fused_jacobian_fwd(
+                    x_raw.data_ptr(), w.data_ptr(), b.data_ptr(),
+                    out.data_ptr(), p, stream), 'hn_fused_jacobian_fwd')
+                return out
+            report(f'warp_tangents P={p}', 4 * macs, p, launch)
+            continue
+        macs = sum(lin.weight.numel() for lin, _ in fs.se3_layers(field))
+        for alpha in (None, 3.5):
+            window = (None if alpha is None else
+                      fs.se3_encoding_scales(field, alpha, 'cuda'))
+            scales, (w, b, _) = fs._launch_args(field, x_raw, window)
+            out = torch.empty((p, fsj.OUT), device='cuda')
+
+            def launch(lib):
+                build.check(lib.hn_fused_se3_jacobian_fwd(
+                    x_raw.data_ptr(),
+                    None if scales is None else scales.data_ptr(),
+                    w.data_ptr(), b.data_ptr(), out.data_ptr(), p, stream),
+                    'hn_fused_se3_jacobian_fwd')
+                return out
+            report(f'se3_tangents P={p} window='
+                   f'{"off" if alpha is None else "on"}', 4 * macs, p,
+                   launch)
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument('--parent', default=None)
+    parser.add_argument('--kernel', default='all',
+                        choices=('all', 'warp_tangents', 'se3_tangents'))
     args = parser.parse_args()
 
     import torch
@@ -94,8 +154,6 @@ def main() -> int:
     order = (['this', 'parent', 'parent', 'this'] if args.parent
              else ['this', 'this'])
     stream = torch.cuda.current_stream().cuda_stream
-    probes = {c: load_probe_weights(flagship_model('cuda', config=c))
-              for c in ('flagship', 'static', 'se3', 'quaternion')}
 
     def inputs(rays, samples, seed):
         return [torch.from_numpy(v).cuda()
@@ -120,6 +178,12 @@ def main() -> int:
                          f', max|d| {diff:.3e}')
         print(f'{label}: ' + '; '.join(parts), flush=True)
 
+    if args.kernel != 'all':
+        with torch.no_grad():
+            _tangents(args.kernel, inputs, report, stream)
+        return 0
+    probes = {c: load_probe_weights(flagship_model('cuda', config=c))
+              for c in ('flagship', 'static', 'se3', 'quaternion')}
     with torch.no_grad():
         probe = probes['flagship']
         for name, field in (('warp field', probe.warp_field),
@@ -149,7 +213,7 @@ def main() -> int:
             x_raw = fl._raw_fields(*inputs(rays, 128, seed=rays)[:4])
             x_raw = x_raw.contiguous()
             p = x_raw.shape[0]
-            _, ((w, b, _),) = fs._launch_args(field, x_raw, None, False)
+            _, (w, b, _) = fs._launch_args(field, x_raw, None)
             out = torch.empty((p, fs.OUT_PAD), device='cuda')
 
             def launch(lib):

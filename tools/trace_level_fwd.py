@@ -8,10 +8,15 @@ points of every layer of its first four pairs of row tiles. With
 per-module forward kernel (``csrc/modular_fwd.cu``: one stage of the level
 forward alone; ``se3`` the SE(3) trunk at the ``se3`` probe weights) on the
 same rows; the warp field's and the trunk's blocks take three tiles a step
-and the sheet's four, of which warpgroups 0 and 1 are shown.
+and the sheet's four, of which warpgroups 0 and 1 are shown. With
+``--kernel warp_tangents`` or ``se3_tangents`` the same for a Jacobian's
+forward (``csrc/tangents_fwd.cu``: the warp field or the trunk with its
+point-tangent streams, 16 points x 4 streams a tile) on the rows' points
+(``--samples 16`` for the train step's 262,144 points); its layer 0's row
+work holds the tile's x_raw rows and the shared-sincos encoding.
 
   python tools/trace_level_fwd.py [--rays 8192] [--samples 128]
-      [--kernel level|template|warp|sheet|se3]
+      [--kernel level|template|warp|sheet|se3|warp_tangents|se3_tangents]
 
 Prints, per layer and summed over a pair of tiles (mean of pairs 1 to 3, in
 SM cycles, each warpgroup): the wait for the layer's first weight stage, the
@@ -40,7 +45,8 @@ def _trace_library(kernel: str):
     """The translation level kernel (or the per-module kernels) built with
     the trace hooks (cached by the sources' hash under build/kernels/)."""
     from hypernerf_tpu_torch.kernels import build
-    stem = 'level_fwd_trans' if kernel == 'level' else 'modular_fwd'
+    stem = {'level': 'level_fwd_trans', 'warp_tangents': 'tangents_fwd',
+            'se3_tangents': 'tangents_fwd'}.get(kernel, 'modular_fwd')
     flags = [*build.NVCC_FLAGS, '-DHN_LEVEL_FWD_TRACE']
     h = hashlib.sha256(' '.join(flags).encode())
     for p in build._sources():
@@ -55,6 +61,10 @@ def _trace_library(kernel: str):
     if kernel == 'level':
         lib.hn_level_fwd_trans.argtypes = [p] * 10 + [ll, i, p]
         lib.trace = lib.hn_level_fwd_trace
+    elif stem == 'tangents_fwd':
+        lib.hn_fused_jacobian_fwd.argtypes = [p] * 4 + [ll, p]
+        lib.hn_fused_se3_jacobian_fwd.argtypes = [p] * 5 + [ll, p]
+        lib.trace = lib.hn_tangents_fwd_trace
     else:
         lib.hn_fused_template_fwd.argtypes = [p] * 5 + [ll, i, p]
         lib.hn_fused_field_fwd.argtypes = [i] + [p] * 5 + [ll, p]
@@ -86,8 +96,22 @@ def _launch(lib, kernel, level, args, stream):
             rgbc.data_ptr(), None, w.data_ptr(), b.data_ptr(),
             out.data_ptr(), None, n, samples, stream)
     x_raw = fl._raw_fields(z, o, d, emb).contiguous()
+    if kernel == 'warp_tangents':
+        fj = importlib.import_module(
+            'hypernerf_tpu_torch.kernels.fused_jacobian')
+        w, b, _ = fj._launch_args(level.warp.mlp, level.warp.n_freq, x_raw)
+        out = torch.empty((n, fj.JAC), device='cuda')
+        return lib.hn_fused_jacobian_fwd(x_raw.data_ptr(), w.data_ptr(),
+                                         b.data_ptr(), out.data_ptr(), n,
+                                         stream)
+    if kernel == 'se3_tangents':
+        _, (w, b, _) = fs._launch_args(level.warp, x_raw, None)
+        out = torch.empty((n, 24), device='cuda')
+        return lib.hn_fused_se3_jacobian_fwd(x_raw.data_ptr(), None,
+                                             w.data_ptr(), b.data_ptr(),
+                                             out.data_ptr(), n, stream)
     if kernel == 'se3':
-        _, ((w, b, _),) = fs._launch_args(level.warp, x_raw, None, False)
+        _, (w, b, _) = fs._launch_args(level.warp, x_raw, None)
         out = torch.empty((n, fs.OUT_PAD), device='cuda')
         return lib.hn_fused_se3_fwd(x_raw.data_ptr(), None, w.data_ptr(),
                                     b.data_ptr(), out.data_ptr(), n, stream)
@@ -120,7 +144,7 @@ def main() -> int:
     parser.add_argument('--samples', type=int, default=128)
     parser.add_argument('--kernel', default='level',
                         choices=('level', 'template', 'warp', 'sheet',
-                                 'se3'))
+                                 'se3', 'warp_tangents', 'se3_tangents'))
     args = parser.parse_args()
 
     import numpy as np
@@ -137,7 +161,7 @@ def main() -> int:
                           '--format=csv,noheader'], capture_output=True,
                          text=True, check=True).stdout.strip())
     lib = _trace_library(args.kernel)
-    config = 'se3' if args.kernel == 'se3' else 'flagship'
+    config = 'se3' if args.kernel.startswith('se3') else 'flagship'
     level = load_probe_weights(flagship_model(
         'cuda', config=config)).level('fine')
     shapes = fl.pack_level(level)[2]
