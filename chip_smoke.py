@@ -40,8 +40,10 @@ Phases, one line each; any failure ends the run with a non-zero exit:
      versions run in chunks of 2048 rays, which bounds their memory), which
      are also timed, the template backward (kernel A, a sequence of kernels
      over chunks of whole rays) with its share of the bound, the bytes of
-     the stash it allocated, its peak allocation and its host time, and
-     kernel B with its share of the bound;
+     the stash it allocated, its peak allocation and its host time,
+     kernel B with its share of the bound, and the compositing backward (a
+     warp per ray; also at S = 40, a ragged last chunk) through its C entry
+     point beside its time before the redesign, with its share of the bound;
      the two forward kernels as training launches them (the level with its
      raw_t output on, which then feeds the template backward; compositing
      with sigma noise and the sorted fine draw) against their plain versions
@@ -143,7 +145,20 @@ Phases, one line each; any failure ends the run with a non-zero exit:
      launches;
  18. one ``elastic`` step with the background loss on a seeded set of
      1 << 16 static points, 1024 per step (the field kernels counted);
- 19. the kernels' JSON line, then the result line.
+ 19. the ``anneal`` configuration (the Nerfies template encoding, windowed
+     by the annealing alphas): the level forward, the template alone and
+     kernel A at that layout at its probe weights and the alphas of step
+     3750 (hyper_alpha 1.5) against the JAX kernels' stored outputs and
+     gradients (tests/data; kernel B chained) and against their plain
+     versions up to the render's and the train step's shapes, each timed
+     beside the flagship layout's in turns; then three 504x378 frames
+     through the level kernels (fully annealed, as ``eval`` renders a weight
+     file) with launch counters, 1024 rays against the plain versions, and
+     one frame with ``return_points`` (the per-module kernels);
+ 20. the ``anneal`` train step at batch 16384 from step 3750 as phase 7
+     runs it (2 launches of each of the five kernels per step, no plain
+     call, a 1024-ray step against the plain versions);
+ 21. the kernels' JSON line, then the result line.
 Times come from CUDA events (kernels) or the host clock around work that
 ends in a synchronize (frames, steps). A kernel's bound is the larger of
 its matrix-product operations over the card's dense bf16 peak and its bytes
@@ -281,7 +296,8 @@ EARLIER_LEVEL_MS = {('translation', 64): 5.969, ('translation', 128): 11.919,
                     ('se3', 64): 6.136, ('se3', 128): 12.142,
                     ('quaternion', 64): 6.189, ('quaternion', 128): 12.128}
 LEVEL_FWD_SOURCES = ('level_fwd.cuh', 'level_fwd_trans.cu',
-                     'level_fwd_se3.cu', 'level_fwd_quat.cu', 'fused_level.cu')
+                     'level_fwd_se3.cu', 'level_fwd_quat.cu',
+                     'level_fwd_anneal.cu', 'fused_level.cu')
 # Kernel B, the fields backward (`wgmma`, TMA, a 128-row block tile; one
 # source per warp type).
 FIELDS_BWD_SOURCES = ('fields_bwd.cuh', 'fields_bwd_trans.cu',
@@ -392,6 +408,37 @@ def composite_kernel_ms(packed, z, dirs, u) -> float:
     return cuda_ms(launch, 50)
 
 
+# The compositing backward before its redesign (a thread per ray; PERF.md
+# row 7), ms at R = 16384 by S.
+EARLIER_COMPOSITE_BWD_MS = {64: 0.108, 128: 0.201}
+
+
+def composite_bwd_kernel_ms(packed, z, dirs, noise, d_outs, d_w) -> float:
+    """The compositing backward kernel alone through its C entry point
+    (without its wrapper's checks and allocations), ms."""
+    import torch
+    from hypernerf_tpu_torch.kernels import build
+    r, s = z.shape
+    outs = [torch.empty((r * s, 4), device='cuda'),
+            torch.empty((r, s), device='cuda'),
+            torch.empty((r, 1), device='cuda')]
+    stream = torch.cuda.current_stream().cuda_stream
+    lib = build.library()
+    return cuda_ms(lambda: build.check(lib.hn_fused_composite_bwd(
+        packed.data_ptr(), z.data_ptr(), dirs.data_ptr(), noise.data_ptr(),
+        d_outs.data_ptr(), d_w.data_ptr(), *[t.data_ptr() for t in outs],
+        r, s, 0, 1, stream), 'hn_fused_composite_bwd'), 20)
+
+
+def composite_bwd_bound(n_rays: int, samples: int):
+    """(bound_ms, bound_by) of the compositing backward with noise: no
+    matrix product; bytes are packed, z, noise and d weights in and d
+    packed, d z out per sample, the directions and d outs in and d |d| out
+    per ray."""
+    p = n_rays * samples
+    return bound(0.0, p * (16 + 4 + 4 + 4 + 16 + 4) + n_rays * (12 + 24 + 4))
+
+
 def composite_inputs(n_rays: int, samples: int, n_fine: int, seed: int,
                      linspace_u: bool):
     import torch
@@ -421,9 +468,10 @@ def check_grads(label, names, got, want, l2_tol=GRAD_L2, max_tol=GRAD_MAX,
                 tag='[6]'):
     """Hold every tensor of ``got`` to ``want``; returns the worst
     (relative L2, max|d| over the largest entry, max|d|) over the tensors and
-    prints the first two."""
+    prints the first two, with the output of the worst relative L2 and the
+    norm of its ``want``."""
     import torch
-    worst = [0.0, 0.0, 0.0]
+    worst, worst_name, worst_norm = [0.0, 0.0, 0.0], None, 0.0
     for name, a, b in zip(names, got, want):
         if a.shape != b.shape or not torch.isfinite(a).all():
             raise AssertionError(f'{label}: {name} {tuple(a.shape)} vs '
@@ -433,10 +481,13 @@ def check_grads(label, names, got, want, l2_tol=GRAD_L2, max_tol=GRAD_MAX,
             raise AssertionError(f'{label}: {name} relative L2 {errs[0]:.3e} '
                                  f'(tol {l2_tol}), max {errs[1]:.3e} of the '
                                  f'largest entry (tol {max_tol})')
+        if errs[0] >= worst[0]:
+            worst_name, worst_norm = name, b.float().norm().item()
         worst = [max(w, e) for w, e in zip(worst, errs)]
     phase(f'{tag} {label}: {len(names)} outputs, worst relative L2 '
-          f'{worst[0]:.3e} (tol {l2_tol}), worst max|d| {worst[1]:.3e} of '
-          f'the largest entry (tol {max_tol})')
+          f'{worst[0]:.3e} at {worst_name} (norm {worst_norm:.3e}; tol '
+          f'{l2_tol}), worst max|d| {worst[1]:.3e} of the largest entry (tol '
+          f'{max_tol})')
     return worst
 
 
@@ -509,18 +560,19 @@ def chunks(n_rays: int):
             for r0 in range(0, n_rays, PLAIN_CHUNK)]
 
 
-def plain_forward(level, args, warp_scales=None):
+def plain_forward(level, args, warp_scales=None, tmpl_scales=None):
     """(out, raw_t) of the plain level forward, over chunks of PLAIN_CHUNK
     rays."""
     import torch
     from hypernerf_tpu_torch.kernels import fused_level_plain
     parts = [fused_level_plain(level, *[a[r0:r1].contiguous() for a in args],
-                               return_raw_t=True, warp_scales=warp_scales)
+                               return_raw_t=True, warp_scales=warp_scales,
+                               tmpl_scales=tmpl_scales)
              for r0, r1 in chunks(args[0].shape[0])]
     return tuple(torch.cat([p[i] for p in parts]) for i in range(2))
 
 
-def plain_template_bwd(level, raw_t, rgb_cond, g):
+def plain_template_bwd(level, raw_t, rgb_cond, g, scales=None):
     """The plain template backward over chunks of PLAIN_CHUNK rays (the
     plain version keeps every activation of a chunk in device memory):
     [dx_t, d rgb_cond, 32 x dW/db], per-sample and per-ray outputs
@@ -531,7 +583,8 @@ def plain_template_bwd(level, raw_t, rgb_cond, g):
     parts = []
     for r0, r1 in chunks(rgb_cond.shape[0]):
         dx_t, d_cond, grads = fused_template_bwd_plain(
-            level, raw_t[r0 * s:r1 * s], rgb_cond[r0:r1], g[r0 * s:r1 * s])
+            level, raw_t[r0 * s:r1 * s], rgb_cond[r0:r1], g[r0 * s:r1 * s],
+            scales)
         parts.append([dx_t, d_cond, *grads])
     return ([torch.cat([p[i] for p in parts]) for i in range(2)]
             + [sum(p[i] for p in parts) for i in range(2, len(parts[0]))])
@@ -820,10 +873,11 @@ def backward_phase(kernels):
                 k['max_abs_err'] = max(k['max_abs_err'], *fwd_c)
 
         # Kernel C vs plain, noise on, white background and infinity both
-        # ways.
+        # ways; S = 5 and 40 leave a ragged last chunk of 32 samples.
         c_errs, c_times = [], {}
         gen = torch.Generator().manual_seed(5)
-        for r, s in ((37, 5), (512, 64), (TRAIN_RAYS, 64), (TRAIN_RAYS, 128)):
+        for r, s in ((37, 5), (37, 40), (512, 64), (TRAIN_RAYS, 64),
+                     (TRAIN_RAYS, 128)):
             for white, infinity in ((False, True), (True, False),
                                     (True, True), (False, False)):
                 packed, z, dirs, _ = composite_inputs(r, s, 0, seed=r + s,
@@ -857,12 +911,20 @@ def backward_phase(kernels):
                     COMPOSITE_GRAD_TOL, COMPOSITE_GRAD_TOL))
             if r == TRAIN_RAYS:
                 c_times[s] = (
+                    composite_bwd_kernel_ms(packed, z, dirs, noise, d_outs,
+                                            d_w),
+                    cuda_ms(lambda: fused_composite_bwd_plain(
+                        packed, z, dnorm, noise, d_outs, d_w)),
                     cuda_ms(lambda: fused_composite_bwd(
                         packed, z, dirs, noise, d_outs, d_w)),
-                    cuda_ms(lambda: fused_composite_bwd_plain(
-                        packed, z, dnorm, noise, d_outs, d_w)))
+                    composite_bwd_bound(r, s)[0])
+                t = c_times[s]
                 phase(f'[6] compositing backward R={r} S={s}: kernel '
-                      f'{c_times[s][0]:.3f} ms, plain {c_times[s][1]:.3f} ms')
+                      f'{t[0]:.4f} ms ({t[3] / t[0]:.1%} of its bound '
+                      f'{t[3]:.4f} ms; {EARLIER_COMPOSITE_BWD_MS[s]:.3f} ms '
+                      f'before its redesign as a warp per ray, PERF.md), '
+                      f'through the wrapper {t[2]:.4f} ms, plain '
+                      f'{t[1]:.3f} ms')
 
     # Bounds at the train step's fine level (R = 16384, S = 128). A and B:
     # the recompute, g W and g^T h each take one multiply-add per weight and
@@ -870,7 +932,7 @@ def backward_phase(kernels):
     p, r = TRAIN_RAYS * 128, TRAIN_RAYS
     a_ms, a_by = template_bwd_bound(level[128], r, 128)
     b_ms, b_by = fields_bwd_bound(level[128], r, 128)
-    c_ms, c_by = bound(0.0, p * (16 + 4 + 4 + 4 + 16 + 4) + r * (12 + 24 + 4))
+    c_ms, c_by = composite_bwd_bound(r, 128)
     src = 'hypernerf_tpu_torch/kernels/csrc/'
     return [
         dict(name='fused_template_bwd', route='cuda',
@@ -895,7 +957,8 @@ def backward_phase(kernels):
              ms=c_times[128][0],
              **error_keys(c_errs, COMPOSITE_GRAD_TOL, COMPOSITE_GRAD_TOL),
              plain_ms=c_times[128][1], bound_ms=c_ms, bound_by=c_by,
-             library_ms=None)]
+             library_ms=None, wrapper_ms=c_times[128][2],
+             ms_s64=c_times[64][0], bound_ms_s64=c_times[64][3])]
 
 
 def step_grad_errors(got, want):
@@ -934,14 +997,15 @@ def plain_versions():
 
 
 def compare_step(model, all_rays, all_rgbs, tag='[7]',
-                 elastic_weight: float = 0.0):
+                 elastic_weight: float = 0.0, extra_params=None):
     """One step's loss and gradients on a small explicit batch from the same
     state and draws: the kernels, then the plain versions. Run on the seeded
     initial state, so the reading is the same from run to run (after train
     steps the state differs in its last bits, and the reading with it).
     With ``elastic_weight`` the loss adds the elastic term (the warp
     Jacobian, subsampled by the same draws); its value is printed and must
-    be non-zero. Returns the launches of the kernels' step."""
+    be non-zero. ``extra_params``: the annealing alphas of the step.
+    Returns the launches of the kernels' step."""
     import torch
     from hypernerf_tpu_torch.ops.ray_dict import prepare_ray_dict
     from hypernerf_tpu_torch.ops.sampling import sorted_uniform
@@ -967,7 +1031,8 @@ def compare_step(model, all_rays, all_rgbs, tag='[7]',
         model.zero_grad(set_to_none=True)
         out = model(prepare_ray_dict(all_rays[:n]), deterministic=False,
                     return_weights=bool(elastic_weight), draws=draws,
-                    return_warp_jacobian=bool(elastic_weight))
+                    return_warp_jacobian=bool(elastic_weight),
+                    extra_params=extra_params)
         loss = mse_loss(out, all_rgbs[:n])
         if elastic_weight:
             terms.append(weighted_elastic_loss(out))
@@ -1084,7 +1149,9 @@ def train_path(config: str, tag: str) -> dict:
     from hypernerf_tpu_torch.ops.ray_dict import prepare_ray_dict
     from hypernerf_tpu_torch.training.losses import mse_loss
     from hypernerf_tpu_torch.training.train_state import (TrainState,
+                                                          compute_extra_params,
                                                           step_generator)
+    from hypernerf_tpu_torch.configs import TrainConfig
     from hypernerf_tpu_torch.flagship import TRAIN_CONFIGS
     base, overrides = PATHS.get(config, (config, {}))
     state, step_fn, all_rays, all_rgbs = flagship_train_setup(
@@ -1093,15 +1160,18 @@ def train_path(config: str, tag: str) -> dict:
     model = state.model
     cfg = model.config
     fixed = slice(0, 4096)
+    # The alphas of the first step (the ramps of TrainConfig's defaults,
+    # which flagship_train_setup keeps).
+    extra = compute_extra_params(cfg, TrainConfig(), state.step)
 
     def fixed_loss():  # a deterministic render of a fixed batch
         with torch.no_grad():
             out = model(prepare_ray_dict(all_rays[fixed]),
-                        return_weights=False)
+                        return_weights=False, extra_params=extra)
             return mse_loss(out, all_rgbs[fixed]).item()
 
     before = fixed_loss()
-    compare_step(model, all_rays, all_rgbs, tag, elastic)
+    compare_step(model, all_rays, all_rgbs, tag, elastic, extra)
     for _ in range(WARMUP_STEPS):
         step_fn(state, all_rays, all_rgbs)
     torch.cuda.synchronize()
@@ -1137,9 +1207,12 @@ def train_path(config: str, tag: str) -> dict:
                 g.abs().sum(-1) > 0, used):
             raise AssertionError(f'{config}: gradient rows of {name} do not '
                                  f'match the batch\'s image ids')
+    alphas = (f', from step {state.step - TRAIN_STEPS - WARMUP_STEPS} '
+              f'(alphas {extra})' if extra else '')
     phase(f'{tag} {config} train step (batch {TRAIN_RAYS}, 64+64, full '
           f'widths, bf16, noise_std {cfg.noise_std}, Adam lr '
-          f'{state.optimizer.param_groups[0]["lr"]}): {secs * 1e3:.1f} '
+          f'{state.optimizer.param_groups[0]["lr"]}{alphas}): '
+          f'{secs * 1e3:.1f} '
           f'ms/step, {TRAIN_RAYS / secs:.0f} rays/s over {TRAIN_STEPS} steps '
           f'after {WARMUP_STEPS}; launches per step '
           + ', '.join(f'{k} {v // TRAIN_STEPS}' for k, v in launches.items())
@@ -1211,7 +1284,7 @@ def plain_field_bwd(mlp, n_freq, x_raw, g, scales=None):
         sum(grads[i] for _, grads in parts) for i in range(len(parts[0][1]))]
 
 
-def plain_template(tmpl, x_raw, rgb_cond):
+def plain_template(tmpl, x_raw, rgb_cond, scales=None):
     """The plain template forward over chunks of condition rows."""
     import torch
     from hypernerf_tpu_torch.kernels import fused_template_plain
@@ -1219,13 +1292,14 @@ def plain_template(tmpl, x_raw, rgb_cond):
     step = max(1, PLAIN_CHUNK * ROWS_128 // s)
     return torch.cat([
         fused_template_plain(tmpl, x_raw[r0 * s:(r0 + step) * s],
-                             rgb_cond[r0:r0 + step])
+                             rgb_cond[r0:r0 + step], scales)
         for r0 in range(0, rgb_cond.shape[0], step)])
 
 
 # The per-module forward kernels (a field alone, the template alone, the
 # SE(3) trunk alone): the level forward's stages run alone on its block.
-MODULAR_FWD_SOURCES = ('modular_fwd.cu', 'level_fwd.cuh')
+MODULAR_FWD_SOURCES = ('modular_fwd.cu', 'template_fwd.cuh',
+                       'template_fwd_anneal.cu', 'level_fwd.cuh')
 # Their times before the redesign (the mma.sync kernels; PERF.md rows 8 and
 # 10), ms: the warp field and the sheet at 8192 x 128 rows, the template at
 # R = 8192, S = 128.
@@ -2541,6 +2615,11 @@ def main() -> int:
               if 'registers' in ln or 'spill' in ln]
     phase(f'[2] built {build.library_path().name} in '
           f'{time.perf_counter() - t0:.1f} s; ptxas: {" | ".join(report)}')
+    seconds = sorted(build.nvcc_seconds(build.build_log()).items(),
+                     key=lambda kv: -kv[1])
+    phase(f'[2] nvcc seconds from the start of the build, one process per '
+          f'source, all started together: '
+          f'{", ".join(f"{n} {t:.1f}" for n, t in seconds)}')
     phase(f'[2] level forward (consumers raise their registers to 232 with '
           f'setmaxnreg): '
           f'{ptxas_lines(build.build_log(), LEVEL_FWD_SOURCES)}')
@@ -2741,13 +2820,286 @@ def main() -> int:
     kernels += jacobian_phase('se3')
     retraction_phase()
     elastic_paths_phase(kernels)
+    anneal_kernel_phase(kernels)
+    anneal_paths_phase(kernels)
     if len(kernels) != 14:
         raise AssertionError(f'{len(kernels)} kernels in the line, want 14')
     return finish(kernels)
 
+# -- the anneal configuration (the Nerfies windowed template encoding) --------
+
+# Launches per frame chunk and level on ``anneal``'s paths: the level
+# kernels, or with ``return_points`` the per-module kernels (warp field and
+# sheet, then the template).
+STEP_LAUNCHES['anneal'] = STEP_LAUNCHES['flagship']
+# Runs of the anneal level's backward against the stored JAX gradients.
+ANNEAL_GRAD_RUNS = 3
+
+
+def anneal_level_inputs(n_rays: int, samples: int, seed: int, nerf_alpha):
+    """``level_inputs`` with the Nerfies condition (27 columns)."""
+    import torch
+    from hypernerf_tpu_torch.flagship import anneal_condition
+    args = level_inputs(n_rays, samples, seed)
+    args[4] = torch.from_numpy(anneal_condition(
+        args[2].cpu().numpy(), nerf_alpha)).cuda()
+    return args
+
+
+def anneal_kernel_phase(kernels) -> None:
+    """Phase 19's kernel checks, on the ``anneal`` configuration's probe
+    weights at the alphas of ``flagship.ANNEAL_PROBE_STEP`` (hyper_alpha
+    1.5 of 4 bands): the level forward (row 1), the template alone (row 8)
+    and kernel A (row 9) at the Nerfies layout against the JAX kernels'
+    stored numbers (outputs and gradients, kernel B chained as training
+    runs it) and against their plain versions up to the render's and the
+    train step's shapes, each timed beside the flagship layout's in the same
+    call; adds those times to the entries of ``kernels``."""
+    import torch
+    from hypernerf_tpu_torch import kernels as K
+    from hypernerf_tpu_torch.flagship import (ANNEAL_LEVEL_CASES,
+                                              ANNEAL_TEMPLATE_CASES,
+                                              LEVEL_INPUTS,
+                                              anneal_extra_params,
+                                              flagship_model,
+                                              load_probe_weights,
+                                              read_anneal_reference)
+    from hypernerf_tpu_torch.kernels import common
+    from hypernerf_tpu_torch.kernels.fused_level import (_launch_forward,
+                                                         _level_params)
+    from hypernerf_tpu_torch.kernels.fused_mlp import (template_layers,
+                                                       template_scales)
+    probe = load_probe_weights(flagship_model('cuda', config='anneal'))
+    flag = load_probe_weights(flagship_model('cuda'))
+    ep = anneal_extra_params()
+
+    def scales(level, hyper_alpha=ep['hyper_alpha']):
+        return template_scales(probe.template_of(level), ep['nerf_alpha'],
+                               hyper_alpha, 'cuda')
+
+    # The JAX kernels' numbers (tools/make_level_reference.py): the CUDA
+    # kernels through their autograd Functions, as training runs them. The
+    # level's backward runs ANNEAL_GRAD_RUNS times on each draw of inputs:
+    # kernel B adds its dW with atomics, whose order varies from run to run.
+    ref = read_anneal_reference()
+    for case, (level, *_) in ANNEAL_LEVEL_CASES.items():
+        arrays = {k: torch.from_numpy(v).cuda() for k, v in ref[case].items()}
+        lv = probe.level(level)
+        names = [f'd_{k}' for k in LEVEL_INPUTS] + [
+            f'd{"wb"[i % 2]}{i // 2}' for i in range(60)]
+        for run in range(ANNEAL_GRAD_RUNS):
+            args = [arrays[k].detach().requires_grad_() for k in LEVEL_INPUTS]
+            out = K.fused_level(lv, *args, None, scales(level))
+            hold_level(out.detach(), arrays['out'],
+                       f'anneal {case} vs the stored JAX output', '[19]')
+            got = torch.autograd.grad(out, args + _level_params(lv),
+                                      arrays['cotangent'])
+            check_grads(f'anneal {case} backward (A + B), run {run + 1} of '
+                        f'{ANNEAL_GRAD_RUNS}, vs the stored JAX gradients',
+                        names, got, [arrays[n] for n in names], tag='[19]')
+    for case, (level, *_) in ANNEAL_TEMPLATE_CASES.items():
+        arrays = {k: torch.from_numpy(v).cuda() for k, v in ref[case].items()}
+        t = probe.template_of(level)
+        x = arrays['x_raw'].requires_grad_()
+        cond = arrays['rgb_cond'].requires_grad_()
+        out = K.fused_template(t, x, cond, scales(level))
+        hold_level(out.detach(), arrays['out'],
+                   f'anneal {case} (row 8) vs the stored JAX output', '[19]')
+        layers = template_layers(t.template)
+        got = torch.autograd.grad(out, [x, cond] + common.layer_params(
+            layers), arrays['cotangent'])
+        names = ['dx', 'd_rgb_cond'] + [f'd{"wb"[i % 2]}{i // 2}'
+                                        for i in range(2 * len(layers))]
+        check_grads(f'anneal {case} backward (A) vs the stored JAX '
+                    f'gradients', names, got, [arrays[n] for n in names],
+                    tag='[19]')
+
+    errs = {'fwd': [], 'tmpl': [], 'A': []}
+    times = {}
+    with torch.no_grad():
+        # The window is seen: the hyper bands' weights move the level's
+        # output by more than the tolerance between hyper_alpha 1.5 and 2.5.
+        args = anneal_level_inputs(512, 64, 0, ep['nerf_alpha'])
+        lv = probe.level('coarse')
+        moved = (plain_forward(lv, args, tmpl_scales=scales('coarse', 2.5))[0]
+                 - plain_forward(lv, args, tmpl_scales=scales('coarse'))[0]
+                 ).abs()
+        phase(f'[19] probe: hyper_alpha 1.5 -> 2.5 moves the plain level by '
+              f'max {moved.max():.3e} mean {moved.mean():.3e} (the check '
+              f'allows {LEVEL_ATOL} + {LEVEL_RTOL}|want|, mean {LEVEL_MEAN})')
+        if not moved.mean() > LEVEL_MEAN:
+            raise AssertionError('the anneal check cannot see the window')
+
+        gen = torch.Generator().manual_seed(19)
+        for r, s in ((37, 13), (512, 64), (512, 128), (CHUNK, 64),
+                     (CHUNK, 128), (TRAIN_RAYS, 128)):
+            level = 'fine' if s == 128 else 'coarse'
+            lv, sc = probe.level(level), scales(level)
+            args = anneal_level_inputs(r, s, s + 3, ep['nerf_alpha'])
+            g = torch.randn(r * s, 4, generator=gen).cuda()
+            out, raw_t = _launch_forward(lv, *args, want_raw_t=True,
+                                         tmpl_scales=sc)
+            want_out, want_raw_t = plain_forward(lv, args, tmpl_scales=sc)
+            errs['fwd'] += [
+                hold_level(out, want_out, f'anneal level forward R={r} '
+                           f'S={s} vs plain: out', '[19]'),
+                hold_level(raw_t, want_raw_t, f'anneal level forward R={r} '
+                           f'S={s} vs plain: raw_t', '[19]')]
+            x = raw_t
+            errs['tmpl'].append(hold_level(
+                K.fused_template(lv, x, args[4], sc),
+                plain_template(lv, x, args[4], sc),
+                f'anneal template alone (row 8) R={r} S={s} vs plain',
+                '[19]'))
+            if r == CHUNK or r < 100:
+                dx_t, d_cond, grads = K.fused_template_bwd(lv, x, args[4], g,
+                                                           sc)
+                torch.cuda.synchronize()
+                errs['A'].append(check_grads(
+                    f'anneal template backward (A) R={r} S={s} vs plain',
+                    TEMPLATE_GRAD_NAMES, [dx_t, d_cond, *grads],
+                    plain_template_bwd(lv, x, args[4], g, sc), tag='[19]'))
+                del dx_t, d_cond, grads
+            if r == CHUNK:
+                # Each layout's level forward and template alone, in turns.
+                fl = flag.level(level)
+                fargs = level_inputs(r, s, s + 3)
+                times['fwd', s] = [
+                    cuda_ms(lambda: K.fused_level(lv, *args, None, sc)),
+                    cuda_ms(lambda: K.fused_level(fl, *fargs)),
+                    cuda_ms(lambda: K.fused_level(fl, *fargs)),
+                    cuda_ms(lambda: K.fused_level(lv, *args, None, sc))]
+                times['tmpl', s] = [
+                    cuda_ms(lambda: K.fused_template(lv, x, args[4], sc)),
+                    cuda_ms(lambda: K.fused_template(fl, x, fargs[4])),
+                    cuda_ms(lambda: K.fused_template(fl, x, fargs[4])),
+                    cuda_ms(lambda: K.fused_template(lv, x, args[4], sc))]
+                for key, what in (('fwd', 'level forward'),
+                                  ('tmpl', 'template alone (row 8)')):
+                    t = times[key, s]
+                    b_ms = (level_bound(lv, r, s)[0] if key == 'fwd' else
+                            template_fwd_bound(lv, r, s)[0])
+                    times[key, s].append(b_ms)
+                    phase(f'[19] anneal {what} R={r} S={s}: {t[0]:.3f}, '
+                          f'{t[3]:.3f} ms ({b_ms / t[0]:.1%} of its bound '
+                          f'{b_ms:.3f} ms); the flagship layout in turns '
+                          f'{t[1]:.3f}, {t[2]:.3f} ms')
+            if r == TRAIN_RAYS:
+                fl = flag.level(level)
+                fargs = level_inputs(r, s, s + 3)
+                fraw = _launch_forward(fl, *fargs, want_raw_t=True)[1]
+                times['A'] = [
+                    cuda_ms(lambda: K.fused_template_bwd(lv, x, args[4], g,
+                                                         sc), 3),
+                    cuda_ms(lambda: K.fused_template_bwd(fl, fraw, fargs[4],
+                                                         g), 3),
+                    cuda_ms(lambda: K.fused_template_bwd(fl, fraw, fargs[4],
+                                                         g), 3),
+                    cuda_ms(lambda: K.fused_template_bwd(lv, x, args[4], g,
+                                                         sc), 3),
+                    template_bwd_bound(lv, r, s)[0]]
+                t = times['A']
+                phase(f'[19] anneal template backward (A) R={r} S={s}: '
+                      f'{t[0]:.2f}, {t[3]:.2f} ms ({t[4] / t[0]:.1%} of its '
+                      f'bound {t[4]:.3f} ms); the flagship layout in turns '
+                      f'{t[1]:.2f}, {t[2]:.2f} ms')
+                del fraw
+            del out, raw_t, want_out, want_raw_t, x, g
+            torch.cuda.empty_cache()
+    for k in kernels:
+        if k['name'] == 'fused_level_fwd':
+            k.update(anneal_ms=times['fwd', 128][0],
+                     anneal_ms_s64=times['fwd', 64][0],
+                     anneal_bound_ms=times['fwd', 128][4],
+                     anneal_max_abs_err=max(errs['fwd']))
+        elif k['name'] == 'fused_template_fwd':
+            k.update(anneal_ms=times['tmpl', 128][0],
+                     anneal_ms_s64=times['tmpl', 64][0],
+                     anneal_bound_ms=times['tmpl', 128][4],
+                     anneal_max_abs_err=max(errs['tmpl']))
+        elif k['name'] == 'fused_template_bwd':
+            k.update(anneal_ms=times['A'][0], anneal_bound_ms=times['A'][4],
+                     anneal_rel_l2_err=max(e[0] for e in errs['A']))
+
+
+def template_fwd_bound(level, n_rays: int, samples: int):
+    """(bound_ms, bound_by) of the template alone on n_rays x samples rows:
+    one multiply-add per weight and row; bytes are the raw rows and the
+    output per row, the condition per ray and the weights once."""
+    t_macs = level_macs(level)[1]
+    p = n_rays * samples
+    return bound(2.0 * t_macs * p, p * (32 + 16) + n_rays * 78 + 2 * t_macs)
+
+
+def anneal_paths_phase(kernels) -> None:
+    """Phases 19 (the frames) and 20: ``anneal`` at full width. Three
+    504x378 frames through the level kernels after a warm-up, at the alphas
+    ``eval`` renders a weight file at (fully annealed), a render of 1024
+    rays against the plain versions, one frame with ``return_points`` (the
+    per-module kernels: warp field, sheet, template alone), and the train
+    step at batch 16384 from ``flagship.ANNEAL_PROBE_STEP`` (hyper_alpha
+    1.5); fills in the launches of the kernels' entries."""
+    import torch
+    from hypernerf_tpu_torch.configs import TrainConfig
+    from hypernerf_tpu_torch.eval import eval_extra_params
+    from hypernerf_tpu_torch.flagship import H, W, flagship_model, spiral_rays
+    from hypernerf_tpu_torch.ops.ray_dict import prepare_ray_dict
+    from hypernerf_tpu_torch.training.renderer import ImageRenderer
+    chunks_per_frame = -(-W * H // CHUNK)
+    frames = spiral_rays(range(0, 30 * (N_FRAMES + 1), 30))
+    model = flagship_model('cuda', seed=0, config='anneal')
+    extra = eval_extra_params(model.config, TrainConfig())
+    keep = ('rgb', 'depth', 'acc')
+    renderer = ImageRenderer(model, chunk=CHUNK, keep=keep, levels=('fine',),
+                             quantize=True, extra_params=extra)
+    counts = {}
+    secs, counts['frame'] = time_frames(
+        renderer, frames, keep,
+        {'fused_level_fwd': 2 * chunks_per_frame,
+         'fused_composite_fwd': 2 * chunks_per_frame}, 'anneal frame')
+    phase(f'[19] anneal: rendered {N_FRAMES} frames {W}x{H} (64+64, chunk '
+          f'{CHUNK}, alphas {extra}): {secs:.4f} s/frame; launches '
+          f'{counts["frame"]} (= 2 levels x {chunks_per_frame} chunks x '
+          f'{N_FRAMES} frames); no plain call')
+    small = torch.as_tensor(frames[0][::186][:1024]).cuda()
+    with torch.no_grad():
+        got = model(prepare_ray_dict(small),
+                    extra_params=extra)['fine']['rgb']
+        with plain_versions():
+            want = model(prepare_ray_dict(small),
+                         extra_params=extra)['fine']['rgb']
+    diff = (got - want).abs()
+    phase(f'[19] anneal render of 1024 rays, kernels vs plain: fine rgb '
+          f'max|d| {diff.max().item():.3e} mean {diff.mean().item():.3e} '
+          f'(tol {RENDER_ATOL}, mean {RENDER_MEAN})')
+    if not torch.isfinite(got).all() or diff.max() > RENDER_ATOL \
+            or diff.mean() > RENDER_MEAN:
+        raise AssertionError('anneal render: kernels and plain versions '
+                             'disagree')
+    keep = keep + ('med_points',)
+    renderer = ImageRenderer(model, chunk=CHUNK, keep=keep, levels=('fine',),
+                             quantize=True, extra_params=extra)
+    secs, counts['points'] = time_frames(
+        renderer, frames[:2], keep,
+        {'fused_template_fwd': 2 * chunks_per_frame,
+         'fused_field_fwd': 4 * chunks_per_frame},
+        'anneal return_points frame')
+    phase(f'[19] anneal with return_points: 1 frame {W}x{H} after a '
+          f'warm-up: {secs:.4f} s; launches {counts["points"]} (= 2 levels x '
+          f'{chunks_per_frame} chunks, x 2 fields); no level kernel, no '
+          f'plain call')
+    del renderer, model
+    torch.cuda.empty_cache()
+    counts['train'] = train_path('anneal', '[20]')
+    torch.cuda.empty_cache()
+    for k in kernels:
+        for path, launches in counts.items():
+            if launches.get(k['name']):
+                k[f'anneal_{path}_launches'] = launches[k['name']]
+
 
 def finish(kernels) -> int:
-    """Phase 19: the kernels' line and the result line."""
+    """Phase 21: the kernels' line and the result line."""
     import torch
     for k in kernels:
         missing = {'name', 'route', 'source', 'replaces', 'launches',

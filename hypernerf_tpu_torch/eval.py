@@ -2,9 +2,11 @@
 hypernerf_tpu_torch.eval`` (the port of the repository's ``eval.py``).
 
 Takes eval.py's flags (``hypernerf_tpu_torch.opt.get_opts(eval_mode=True)``),
-reads ``nerf_config.json`` beside the weight file (``--ckpt_path`` or
-``--weight_path``, a file written by ``training.checkpoints.save_weights`` or
-``tools/jax_ckpt_to_torch.py``) and writes results/{dataset}/{scene}/NNN.png,
+reads ``nerf_config.json`` (and ``train_config.json``, where there is one)
+beside the weight file (``--ckpt_path`` or ``--weight_path``, a file written
+by ``training.checkpoints.save_weights`` or ``tools/jax_ckpt_to_torch.py``),
+renders at the annealing alphas of ``eval_extra_params`` and writes
+results/{dataset}/{scene}/NNN.png,
 optional depth dumps and {scene}.gif, printing the PSNR of each frame and
 their mean where ground truth exists. Renders on the CUDA card, and exits
 with an error when there is none; with ``HYPERNERF_PLATFORM=cpu`` in the
@@ -34,6 +36,16 @@ def render_device():
     return torch.device('cuda')
 
 
+def eval_extra_params(nerf_cfg, train_cfg) -> dict:
+    """The annealing alphas to render at, as the JAX package's ``eval.py``
+    computes them at a checkpoint's step: a weight file carries no step, so
+    the model is taken as fully annealed, at the larger of
+    ``warp_alpha_steps`` and ``hyper_alpha_steps``."""
+    from hypernerf_tpu_torch.training.train_state import compute_extra_params
+    step = max(train_cfg.warp_alpha_steps, train_cfg.hyper_alpha_steps)
+    return compute_extra_params(nerf_cfg, train_cfg, step)
+
+
 def main(argv=None):
     import numpy as np
     import torch
@@ -49,10 +61,11 @@ def main(argv=None):
     args = get_opts(argv, eval_mode=True)
     device = render_device()
     w, h = args.img_wh
-    nerf_cfg, _ = configs_from_args(args)
+    nerf_cfg, train_cfg = configs_from_args(args)
     weight_path = args.ckpt_path or args.weight_path
     if weight_path:
         nerf_cfg = checkpoints.load_config(weight_path) or nerf_cfg
+        train_cfg = checkpoints.load_train_config(weight_path) or train_cfg
 
     kwargs = dict(root_dir=args.root_dir, split=args.split,
                   img_wh=tuple(args.img_wh),
@@ -70,7 +83,9 @@ def main(argv=None):
     typ = 'fine' if nerf_cfg.num_fine_samples > 0 else 'coarse'
     keep = ('rgb', 'depth') if args.save_depth else ('rgb',)
     renderer = ImageRenderer(model, chunk=args.chunk, keep=keep,
-                             levels=(typ,), quantize=True)
+                             levels=(typ,), quantize=True,
+                             extra_params=eval_extra_params(nerf_cfg,
+                                                            train_cfg))
 
     dir_name = f'results/{args.dataset_name}/{args.scene_name}'
     os.makedirs(dir_name, exist_ok=True)

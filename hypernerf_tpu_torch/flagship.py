@@ -1,13 +1,13 @@
 """The flagship setups: the configuration ``bench.py`` renders and trains
 (NerfConfig defaults with 64 + 64 samples, bf16 matmuls) and its ``static``,
-``split_glo``, ``se3``, ``quaternion`` and ``elastic*`` variants
+``split_glo``, ``se3``, ``quaternion``, ``elastic*`` and ``anneal`` variants
 (``CONFIGS``), a seeded model of each, LLFF
 spiral-path NDC rays of a 504x378 frame, the train step's model, optimizer
 and synthetic ray buffer (``flagship_train_setup``), and the probe weights
 and inputs at which the kernels are held against the JAX kernels' stored
 outputs and gradients (``LEVEL_REFERENCE``, ``GRAD_REFERENCE``,
-``MODULAR_REFERENCE``, ``SE3_REFERENCE``, ``JACOBIAN_REFERENCE``, written by
-``tools/make_level_reference.py``).
+``MODULAR_REFERENCE``, ``SE3_REFERENCE``, ``JACOBIAN_REFERENCE``,
+``ANNEAL_REFERENCE``, written by ``tools/make_level_reference.py``).
 
 Shared by ``chip_smoke.py``, ``tools/profile_render.py``,
 ``tools/profile_train.py`` and ``tools/make_level_reference.py``.
@@ -25,7 +25,7 @@ from hypernerf_tpu_torch.datasets.llff import create_spiral_poses
 from hypernerf_tpu_torch.datasets.rays import (get_ndc_rays, get_ray_directions,
                                          get_rays, make_ray_tensor)
 from hypernerf_tpu_torch.models.nerf import NerfModel
-from hypernerf_tpu_torch.ops.posenc import posenc_orig
+from hypernerf_tpu_torch.ops.posenc import posenc, posenc_orig
 
 W, H = 504, 378
 FOCAL = 407.5
@@ -53,6 +53,10 @@ GRAD_REFERENCE_CASE = ('coarse', 8, 64, 3)
 # ``elastic``, ``elastic_se3`` and ``elastic_quaternion`` are ``bench.py
 # --mode elastic*``: those three with the Jacobian side channel at 16 samples
 # per ray, trained with the elastic loss at weight 0.01 (``TRAIN_CONFIGS``).
+# ``anneal`` is ``bench.py --mode anneal``: the flagship with the Nerfies
+# template encoding (``use_original_embed=False``: xyz over degrees 0..10,
+# hyper over 0..4, viewdirs over 0..4), windowed by the annealing alphas of
+# ``compute_extra_params``, on the level kernels.
 CONFIGS = {'flagship': {},
            'static': dict(use_warp=False, hyper_slice_method='none'),
            'split_glo': dict(share_glo=False),
@@ -62,10 +66,16 @@ CONFIGS = {'flagship': {},
            'elastic_se3': dict(warp_field_type='se3',
                                elastic_jacobian_samples=16),
            'elastic_quaternion': dict(warp_field_type='quaternion',
-                                      elastic_jacobian_samples=16)}
+                                      elastic_jacobian_samples=16),
+           'anneal': dict(use_original_embed=False)}
 # TrainConfig overrides of a configuration (``bench.py``'s elastic weight).
 TRAIN_CONFIGS = {c: dict(elastic_loss_weight=0.01)
                  for c in ('elastic', 'elastic_se3', 'elastic_quaternion')}
+# The step a configuration's train setup starts at: ``anneal`` mid-ramp,
+# where ``hyper_alpha`` is 1.5 of its 4 bands (at step 0 it is 0, every
+# hyper feature is zero and the sheet gets no gradient).
+ANNEAL_PROBE_STEP = 3750
+START_STEPS = {'anneal': ANNEAL_PROBE_STEP}
 
 
 def flagship_config(config: str = 'flagship', **overrides) -> NerfConfig:
@@ -113,9 +123,10 @@ def flagship_train_setup(device, seed: int = 0, batch_size: int = TRAIN_BATCH,
     NerfConfig and ``train_overrides`` of its TrainConfig, after
     ``TRAIN_CONFIGS``) on ``device``: (state, step_fn, all_rays, all_rgbs) —
     a seeded model in train mode, Adam at 5e-4 with the ``steplr`` schedule
-    at 1000 steps per epoch, the step built by ``make_train_step``, and the
-    synthetic ray buffer. A positive ``background_loss_weight`` gives the
-    step ``synthetic_background_points`` on the device."""
+    at 1000 steps per epoch, the step built by ``make_train_step``, the
+    state at step ``START_STEPS`` (0 but for ``anneal``), and the synthetic
+    ray buffer. A positive ``background_loss_weight`` gives the step
+    ``synthetic_background_points`` on the device."""
     from hypernerf_tpu_torch.training.optimizers import get_optimizer
     from hypernerf_tpu_torch.training.train_state import (TrainState,
                                                           make_train_step)
@@ -134,7 +145,8 @@ def flagship_train_setup(device, seed: int = 0, batch_size: int = TRAIN_BATCH,
     step_fn = make_train_step(model, optimizer, cfg, train_cfg, device,
                               schedule=schedule, background_points=background)
     rays, rgbs = synthetic_train_rays(n_rays)
-    state = TrainState(step=0, model=model, optimizer=optimizer, seed=seed)
+    state = TrainState(step=START_STEPS.get(config, 0), model=model,
+                       optimizer=optimizer, seed=seed)
     return (state, step_fn, torch.from_numpy(rays).to(device),
             torch.from_numpy(rgbs).to(device))
 
@@ -330,6 +342,76 @@ def jacobian_probe_inputs(case: str) -> dict:
     cot = np.random.RandomState(seed + 3000).randn(rows, width)
     return {'x_raw': x_raw.astype(np.float32),
             'cotangent': cot.astype(np.float32)}
+
+
+# The JAX kernels' numbers for the ``anneal`` configuration at the probe
+# weights and the alphas of ``ANNEAL_PROBE_STEP`` (``anneal_extra_params``):
+# the level kernel (level, rays, samples per ray, seed) and the template alone
+# (level, rows, rows per condition row, seed), outputs and, for the stored
+# cotangent, the gradients. The level has two draws of its inputs (seeds 51
+# and 52): bf16 gradients of two implementations lie a few per cent apart,
+# by draw and by output, and two draws show the spread.
+ANNEAL_REFERENCE = os.path.join(os.path.dirname(LEVEL_REFERENCE),
+                                'fused_anneal_jax_ref.npz')
+ANNEAL_LEVEL_CASES = {'level': ('coarse', 8, 64, 51),
+                      'level_seed52': ('coarse', 8, 64, 52)}
+ANNEAL_TEMPLATE_CASES = {'template': ('coarse', 512, 64, 52)}
+
+
+def anneal_extra_params() -> dict:
+    """The annealing alphas of the ``anneal`` configuration at
+    ``ANNEAL_PROBE_STEP`` (TrainConfig's default ramps): hyper_alpha 1.5."""
+    from hypernerf_tpu_torch.training.train_state import compute_extra_params
+    return compute_extra_params(flagship_config('anneal'), TrainConfig(),
+                                ANNEAL_PROBE_STEP)
+
+
+def anneal_condition(dirs: np.ndarray, nerf_alpha) -> np.ndarray:
+    """The Nerfies condition of (N, 3) directions: posenc(dirs, 0, 4,
+    identity) windowed by ``nerf_alpha``, (N, 27) float32."""
+    return posenc(torch.from_numpy(dirs), 0, 4, use_identity=True,
+                  alpha=nerf_alpha).numpy()
+
+
+def anneal_probe_inputs(case: str) -> dict:
+    """Numpy inputs and cotangent of an ``ANNEAL_LEVEL_CASES`` case (the
+    ``LEVEL_INPUTS`` with the Nerfies condition and 'cotangent' (R * S, 4))
+    or of an ``ANNEAL_TEMPLATE_CASES`` case ('x_raw' (P, 8) [points | hyper
+    coordinates of deviation 0.3 | 0], 'rgb_cond' (P / S, 27),
+    'cotangent' (P, 4))."""
+    nerf_alpha = anneal_extra_params()['nerf_alpha']
+    if case in ANNEAL_LEVEL_CASES:
+        _, n_rays, samples, seed = ANNEAL_LEVEL_CASES[case]
+        inputs = probe_inputs(n_rays, samples, seed)
+        inputs['rgb_cond'] = anneal_condition(inputs['directions'],
+                                              nerf_alpha)
+        inputs['cotangent'] = probe_cotangents(n_rays, samples,
+                                               seed)['level']
+        return inputs
+    _, rows, per, seed = ANNEAL_TEMPLATE_CASES[case]
+    rs = np.random.RandomState(seed + 3000)
+    rays = probe_inputs(-(-rows // 64), 64, seed)
+    pts = (rays['origins'][:, None]
+           + rays['z_vals'][..., None] * rays['directions'][:, None])
+    pts = pts.reshape(-1, 3)[:rows]
+    x_raw = np.concatenate([pts, rs.randn(rows, 4) * 0.3,
+                            np.zeros((rows, 1))], 1)
+    dirs = rs.randn(rows // per, 3).astype(np.float32)
+    dirs /= np.linalg.norm(dirs, axis=-1, keepdims=True)
+    return {'x_raw': x_raw.astype(np.float32),
+            'rgb_cond': anneal_condition(dirs, nerf_alpha),
+            'cotangent': rs.randn(rows, 4).astype(np.float32)}
+
+
+def read_anneal_reference(path: str = ANNEAL_REFERENCE):
+    """{case: {name: array}} of the anneal reference file."""
+    out = {case: {} for case in (*ANNEAL_LEVEL_CASES,
+                                 *ANNEAL_TEMPLATE_CASES)}
+    with np.load(path) as f:
+        for key in f.files:
+            case, name = key.split('/', 1)
+            out[case][name] = f[key]
+    return out
 
 
 def read_jacobian_reference(path: str = JACOBIAN_REFERENCE):

@@ -18,6 +18,7 @@ import os
 import shutil
 import subprocess
 import tempfile
+import time
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / 'csrc'
@@ -30,11 +31,11 @@ _I = ctypes.c_int
 _L = ctypes.c_longlong
 # C entry points: name -> (argtypes, restype).
 _SIGNATURES = {
-    'hn_fused_level_fwd': ([_I] + [_P] * 10 + [_L, _I, _P], _I),
+    'hn_fused_level_fwd': ([_I] + [_P] * 11 + [_L, _I, _P], _I),
     'hn_fused_level_layout': ([_I, _P, _P, _I], _I),
     'hn_fused_level_fwd_plan': ([_I, _P, _P, _P, _I], _I),
-    'hn_tmpl_encode': ([_P, _P, _L, _I, _L, _P], _I),
-    'hn_tmpl_ray_bias': ([_P, _P, _P, _L, _I, _I, _P], _I),
+    'hn_tmpl_encode': ([_P, _P, _L, _I, _L, _P, _P], _I),
+    'hn_tmpl_ray_bias': ([_P, _P, _P, _L, _I, _I, _I, _P], _I),
     'hn_tmpl_rowprod': ([_P, _L, _L, _I, _I, _I, _P] + [_I] * 5
                         + [_P, _L, _I, _P, _P, _I, _I, _I, _P, _L, _I, _P],
                         _I),
@@ -43,10 +44,10 @@ _SIGNATURES = {
     'hn_tmpl_rgb_head': ([_P, _P, _L, _I, _P, _P, _L, _P] + [_L] * 4
                          + [_I, _P], _I),
     'hn_tmpl_cond_bwd': ([_P, _L, _P, _L, _I, _P, _P, _P, _L, _L, _I, _L,
-                          _I, _I, _P], _I),
+                          _I, _I, _I, _P], _I),
     'hn_tmpl_bneck_prep': ([_P, _P, _L, _P, _L, _I, _P, _P, _L, _P]
                            + [_L] * 5 + [_I, _P], _I),
-    'hn_tmpl_posenc_bwd': ([_P, _P, _L, _P, _L, _P], _I),
+    'hn_tmpl_posenc_bwd': ([_P, _P, _L, _P, _L, _P, _P], _I),
     'hn_tmpl_reduce': ([_P, _I, _L, _P, _P], _I),
     'hn_fused_fields_bwd_blocks': ([_L], _I),
     'hn_fused_fields_bwd': ([_I] + [_P] * 12 + [_L, _I, _I, _P], _I),
@@ -56,7 +57,7 @@ _SIGNATURES = {
     'hn_fused_field_bwd_plan': ([_I, _P, _P, _P, _I], _I),
     'hn_fused_se3_fwd': ([_P] * 5 + [_L, _P], _I),
     'hn_fused_se3_bwd': ([_P] * 8 + [_L, _I, _P], _I),
-    'hn_fused_template_fwd': ([_P] * 5 + [_L, _I, _P], _I),
+    'hn_fused_template_fwd': ([_P] * 6 + [_L, _I, _P], _I),
     'hn_modular_fwd_plan': ([_I, _P, _P, _P, _I], _I),
     'hn_fused_jacobian_fwd': ([_P] * 4 + [_L, _P], _I),
     'hn_fused_jacobian_bwd': ([_P] * 8 + [_L, _I, _P], _I),
@@ -93,7 +94,8 @@ def _nvcc() -> str:
 def build() -> Path:
     """Compile the sources if this hash has no library yet; returns its
     path. The compiler's report (registers, shared memory, spills) is kept
-    beside it as ``<name>.log``."""
+    beside it as ``<name>.log``, a section per source that starts with its
+    ``nvcc`` process's wall seconds (``nvcc_seconds``)."""
     so = library_path()
     if so.exists():
         return so
@@ -101,17 +103,25 @@ def build() -> Path:
     nvcc = _nvcc()
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
         jobs = []
+        start = time.monotonic()
         for src in _sources():
             if src.suffix != '.cu':
                 continue
             obj = os.path.join(tmp, src.stem + '.o')
-            jobs.append((src.name, obj, subprocess.Popen(
-                [nvcc, *NVCC_FLAGS, '-c', '-o', obj, str(src)],
-                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+            with open(obj + '.log', 'w') as out:
+                jobs.append((src.name, obj, subprocess.Popen(
+                    [nvcc, *NVCC_FLAGS, '-c', '-o', obj, str(src)],
+                    stdout=out, stderr=subprocess.STDOUT)))
+        seconds = {}
+        while len(seconds) < len(jobs):
+            for name, _, proc in jobs:
+                if name not in seconds and proc.poll() is not None:
+                    seconds[name] = time.monotonic() - start
+            time.sleep(0.05)
         log, failed = [], []
-        for name, _, proc in jobs:
-            out = proc.communicate()[0]
-            log.append(f'== {name}\n{out}')
+        for name, obj, proc in jobs:
+            out = Path(obj + '.log').read_text()
+            log.append(f'== {name}\nnvcc {seconds[name]:.1f} s\n{out}')
             if proc.returncode != 0:
                 failed.append(name)
         linked = os.path.join(tmp, so.name)
@@ -134,6 +144,17 @@ def build_log() -> str:
     """The compiler's report for the current library ('' if not built)."""
     log = library_path().with_suffix('.log')
     return log.read_text() if log.exists() else ''
+
+
+def nvcc_seconds(log: str) -> dict:
+    """{source: wall seconds from the start of the build to the end of its
+    ``nvcc`` process} from a build log (every process starts together)."""
+    out = {}
+    for section in log.split('\n== ') if log else []:
+        name, _, body = section.removeprefix('== ').partition('\n')
+        if body.startswith('nvcc ') and body.split('\n', 1)[0].endswith(' s'):
+            out[name.strip()] = float(body.split()[1])
+    return out
 
 
 @functools.cache

@@ -18,11 +18,22 @@ import torch.nn.functional as F
 
 from hypernerf_tpu_torch.kernels import build
 from hypernerf_tpu_torch.models.modules import MLP, dense
-from hypernerf_tpu_torch.ops.posenc import posenc_window
+from hypernerf_tpu_torch.ops.posenc import posenc_window, repeat_bands
 
 # The widths the CUDA kernels are compiled for (NerfConfig's flagship).
 FLAGSHIP = dict(embed=8, warp_freq=10, hyper_sheet_freq=7, hyper_out=4,
                 xyz_freq=10, hyper_freq=6, rgb_cond=39)
+# The template's second layout (csrc/level_common.cuh ``TmplEnc<true>``):
+# the Nerfies encoding of ``use_original_embed=False``, the anneal
+# configuration. Its segments, as ``encoding_scales`` takes them: the xyz
+# over degrees 0..10 with the identity columns, the 4 hyper coordinates over
+# degrees 0..4 without; 95 columns, each band weighted by its annealing
+# window (a tensor input of every call). Its condition is posenc(viewdirs,
+# 0, 4, identity): 27 columns. Both layouts fill the same compiled slots:
+# the encoding TMPL_ENC_PAD columns of the first trunk layer's input, the
+# condition COND_PAD columns after the bottleneck in the rgb branch's.
+NERFIES = dict(xyz_freq=10, hyper_freq=4, rgb_cond=27)
+TMPL_ENC_PAD, COND_PAD = 128, 48
 # Layers of the compiled table (csrc/level_common.cuh): warp, sheet, template.
 WARP_LAYERS, SHEET_LAYERS, TEMPLATE_LAYERS = slice(0, 7), slice(7, 14), \
     slice(14, 30)
@@ -199,7 +210,7 @@ def encoding_scales(segments, alphas, device=None) -> torch.Tensor:
         band = (torch.ones(n_freq, dtype=torch.float32, device=device)
                 if alpha is None else
                 posenc_window(min_deg, min_deg + n_freq, alpha, device))
-        band = band.repeat_interleave(ch)
+        band = repeat_bands(band, ch)
         parts += [band, band]
     return torch.cat(parts)
 
@@ -230,15 +241,17 @@ def posenc_trig(x, n_freqs: int):
     return torch.sin(xb), torch.cos(xb)
 
 
-def posenc_bwd(g_enc, trig, ch: int, n_freqs: int):
-    """VJP of ``posenc_orig`` from the recompute's (sin, cos): cotangent
-    (P, ch * (1 + 2 F)) of [x | sin | cos] -> (P, ch)."""
+def posenc_bwd(g_enc, trig, ch: int, n_freqs: int, identity: bool = True):
+    """VJP of ``posenc_orig`` (or, without ``identity``, of the Nerfies
+    ``posenc`` from degree 0 without its identity columns) from the
+    recompute's (sin, cos): cotangent (P, ch * (1 + 2 F)) of [x | sin | cos]
+    (or (P, 2 ch F) of [sin | cos]) -> (P, ch)."""
     sin, cos = trig
-    nb = ch * n_freqs
-    flat = cos * g_enc[:, ch:ch + nb] - sin * g_enc[:, ch + nb:ch + 2 * nb]
+    nb, at = ch * n_freqs, ch if identity else 0
+    flat = cos * g_enc[:, at:at + nb] - sin * g_enc[:, at + nb:at + 2 * nb]
     freqs = 2.0 ** torch.arange(n_freqs, dtype=flat.dtype, device=flat.device)
     dx = (flat.reshape(-1, n_freqs, ch) * freqs[:, None]).sum(1)
-    return g_enc[:, :ch] + dx
+    return g_enc[:, :ch] + dx if identity else dx
 
 
 def mlp_recompute(mlp: MLP, x):

@@ -37,28 +37,33 @@ extern "C" int hn_fused_level_fwd_plan(int warp_type, int* config,
 // warp_type: 0 translation, 1 SE(3), 2 quaternion; weights / biases in that
 // type's table (pack_level's blobs). warp_scales: null, or the 64 fp32
 // window weights of the SE(3) / quaternion trunk's encoding (unused by the
-// translation warp).
+// translation warp). tmpl_scales: null for the template's posenc_orig
+// layout and a (R, 39) rgb_cond; the Nerfies layout's 128 fp32 window
+// weights and a (R, 27) rgb_cond otherwise (level_common.cuh TmplEnc),
+// with the translation warp alone (level_fwd_anneal.cu).
 extern "C" int hn_fused_level_fwd(int warp_type, const void* z,
                                   const void* origins, const void* dirs,
                                   const void* embed, const void* rgb_cond,
-                                  const void* warp_scales, const void* weights,
+                                  const void* warp_scales,
+                                  const void* tmpl_scales, const void* weights,
                                   const void* biases, void* out, void* raw_t,
                                   long long n_rays, int samples,
                                   void* stream) {
   const long long n_points = n_rays * samples;
+  if (warp_type == 0)
+    return (tmpl_scales ? hn_level_fwd_anneal : hn_level_fwd_trans)(
+        z, origins, dirs, embed, rgb_cond, warp_scales, tmpl_scales, weights,
+        biases, out, raw_t, n_points, samples, stream);
+  if (tmpl_scales) return (int)cudaErrorInvalidValue;
   switch (warp_type) {
-    case 0:
-      return hn_level_fwd_trans(z, origins, dirs, embed, rgb_cond, warp_scales,
-                                weights, biases, out, raw_t, n_points, samples,
-                                stream);
     case 1:
       return hn_level_fwd_se3(z, origins, dirs, embed, rgb_cond, warp_scales,
-                              weights, biases, out, raw_t, n_points, samples,
-                              stream);
+                              tmpl_scales, weights, biases, out, raw_t,
+                              n_points, samples, stream);
     case 2:
       return hn_level_fwd_quat(z, origins, dirs, embed, rgb_cond, warp_scales,
-                               weights, biases, out, raw_t, n_points, samples,
-                               stream);
+                               tmpl_scales, weights, biases, out, raw_t,
+                               n_points, samples, stream);
   }
   return (int)cudaErrorInvalidValue;
 }

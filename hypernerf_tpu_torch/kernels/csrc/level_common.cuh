@@ -1,8 +1,9 @@
 // Shared by the level kernels (level_fwd.cuh, fields_bwd.cuh, kernel
-// A's template_*.cu): the flagship widths, the two tables of the level's
-// layers (30 with the translation warp, 32 with the SE(3) / quaternion warp)
-// with their offsets into the packed weight and bias blobs, the bf16
-// rounding and the posenc_orig feature map. A function that reads a table
+// A's template_*.cu): the flagship widths, the template's two encoding
+// layouts, the two tables of the level's layers (30 with the translation
+// warp, 32 with the SE(3) / quaternion warp) with their offsets into the
+// packed weight and bias blobs, the bf16 rounding and the posenc_orig
+// feature map. A function that reads a table
 // takes it as a template parameter, TransTable by default.
 
 #pragma once
@@ -38,6 +39,30 @@ constexpr int kCondP = pad16(kCond);                         // 48
 constexpr int kSe3W = 128, kSe3F = 8, kSe3MinDeg = 0;
 constexpr int kSe3Trig = 3 * kSe3F;                          // 24
 constexpr int kSe3EncP = pad16(2 * kSe3Trig + kEmbed);       // 64
+
+// The template's two encoding layouts, both filling the kTmplEncP columns
+// of the first trunk layer's input and the kCondP condition columns of the
+// rgb branch's: the flagship's posenc_orig (the xyz at kXyzF bands and the
+// kHypOut hyper coordinates at kHypEncF, identity columns on both; a
+// kCond-column condition, posenc_orig(viewdirs, 4)) and the Nerfies
+// encoding of use_original_embed=False, the anneal configuration (posenc
+// from degree 0, [x | sin | cos] with band k of channel c at k * C + c: the
+// xyz over kXyzF bands with its identity, the hyper coordinates over
+// kNerfHypF bands without; a kNerfCond-column condition, posenc(viewdirs, 0,
+// 4, identity)). Every column of the Nerfies layout is weighted by a window
+// row, a tensor input of every call (the annealing alphas move every step),
+// and a kernel takes that layout wherever it is given the row: one branch,
+// uniform over the call.
+constexpr int kNerfHypF = 4, kNerfCond = 27;
+template <bool kNerfies>
+struct TmplEnc {
+  static constexpr int kHypF = kNerfies ? kNerfHypF : kHypEncF;
+  static constexpr int kHypId = kNerfies ? 0 : kHypOut;  // identity columns
+  static constexpr int kEnc = kTmplXyz + kHypId + 2 * kHypOut * kHypF;
+};
+static_assert(TmplEnc<false>::kEnc == kTmplEnc &&
+                  TmplEnc<true>::kEnc <= kTmplEncP && kNerfCond <= kCondP,
+              "both layouts fill the same slots");
 
 struct Shape {
   int n, k;
@@ -117,16 +142,39 @@ __device__ __forceinline__ float round_bf(float x) {
   return __bfloat162float(__float2bfloat16_rn(x));
 }
 
+// Feature f of an encoding from its fp32 value: rounded, then times the
+// window row and rounded again (no row: rounded once).
+__device__ __forceinline__ bf16 window_feature(float v, int f,
+                                            const float* __restrict__ scales) {
+  bf16 b = __float2bfloat16_rn(v);
+  if (scales != nullptr)
+    b = __float2bfloat16_rn(__bfloat162float(b) * scales[f]);
+  return b;
+}
+
 // Feature f of posenc_orig over CH channels and F bands, block layout
-// [x | sin(x * 2^k) | cos(x * 2^k)] with band k of channel c at k * CH + c.
-template <int CH, int F>
+// [x | sin(x * 2^k) | cos(x * 2^k)] with band k of channel c at k * CH + c
+// (without the identity block when !kId: the Nerfies posenc from degree 0).
+template <int CH, int F, bool kId = true>
 __device__ __forceinline__ float posenc_at(const float* x, int f) {
-  if (f < CH) return x[f];
-  f -= CH;
+  if (kId) {
+    if (f < CH) return x[f];
+    f -= CH;
+  }
   const bool is_cos = f >= CH * F;
   if (is_cos) f -= CH * F;
   const float arg = x[f % CH] * (float)(1 << (f / CH));  // exact scaling
   return is_cos ? cosf(arg) : sinf(arg);
+}
+
+// Feature f < kTmplEncP of the template's encoding of a raw row rt = [xyz |
+// hyper] in layout TmplEnc<kNerfies>, before its window (0 past kEnc).
+template <bool kNerfies>
+__device__ __forceinline__ float tmpl_feature(const float* rt, int f) {
+  using L = TmplEnc<kNerfies>;
+  if (f < kTmplXyz) return posenc_at<3, kXyzF>(rt, f);
+  if (f >= L::kEnc) return 0.f;
+  return posenc_at<kHypOut, L::kHypF, !kNerfies>(rt + 3, f - kTmplXyz);
 }
 
 }  // namespace

@@ -1,8 +1,10 @@
 // One HyperNeRF level forward in one kernel, for Hopper (sm_90a): the kernel
 // template and its launcher, instantiated once per warp type by
-// level_fwd_trans.cu, level_fwd_se3.cu and level_fwd_quat.cu (one nvcc
-// process each); fused_level.cu holds the entry point that dispatches to
-// them. Its three stages (the warp, the sheet, the template) are device
+// level_fwd_trans.cu, level_fwd_se3.cu and level_fwd_quat.cu, and for the
+// translation warp with the Nerfies template layout (the anneal
+// configuration, whose warp is the translation field alone) by
+// level_fwd_anneal.cu (one nvcc process each); fused_level.cu holds the
+// entry point that dispatches to them. Its three stages (the warp, the sheet, the template) are device
 // functions on one block (enter_block), which modular_fwd.cu runs
 // one at a time for the per-module path: a field alone, the template alone,
 // the SE(3) / quaternion trunk alone (the screw warp's stage without its
@@ -13,8 +15,11 @@
 // fused_level.py:1322; `_fwd_call_pipelined`, :1019, is a schedule of the
 // same function) in its ray-native mode, for the flagship spec with each of
 // its three warp types (translation, SE(3), quaternion:
-// `_warp_fwd_tile_gen` :330-344): bendy sheet, posenc_orig encodings, no
-// alpha condition. When asked (training) it also writes the template's raw
+// `_warp_fwd_tile_gen` :330-344): bendy sheet, posenc_orig field
+// encodings, no alpha condition, the template in either of its layouts
+// (level_common.cuh TmplEnc: posenc_orig, or the anneal configuration's
+// windowed Nerfies encoding, `fused_level.py` :76-87, 166-172, a template
+// parameter). When asked (training) it also writes the template's raw
 // input raw_t = [warped | hyper | 0] (P, 8) fp32, the residual the TPU
 // kernel saves for its backward (fused_level.py:1339-1344).
 // Per sample row p of ray p / S:
@@ -25,7 +30,9 @@
 //            warped = retraction(w, v, pts), fp32, one thread per row
 //   hyper  = HyperMLP(posenc_orig(pts, 7) ++ embed)               6 x 64 -> 4
 //   h      = Trunk(posenc_orig(warped, 10) ++ posenc_orig(hyper, 6))  8 x 256,
-//            skip at 4, ReLU logit 256
+//            skip at 4, ReLU logit 256; or, given the window row w:
+//            Trunk(w * [posenc(warped, 0..10, identity) ++
+//                       posenc(hyper, 0..4)])
 //   b      = Bottleneck(h)                                        256 -> 128
 //   out    = [RgbBranch(b ++ rgb_cond) | AlphaHead(b)]            (P, 4) fp32
 // Rounding points are the JAX kernel's: each encoding is rounded to bf16
@@ -585,10 +592,16 @@ __device__ __forceinline__ void encode_posenc(
     posenc_row<CH, F, NX, KP, COL, 1>(g, r, src[r], scales);
 }
 
-// The template's encoding [posenc_orig(warped, 10) | posenc_orig(hyper, 6) |
-// 0 pad] into X[:, 256 : 384] from rows.raw.
-__device__ __forceinline__ void encode_template(const Group& g) {
-  constexpr int kXyzPairs = 3 * kXyzF, kHypPairs = kHypOut * kHypEncF;
+// The template's encoding in layout TmplEnc<kNerfies> ([x | sin | cos] of
+// the warped point, then the hyper coordinates' [x | sin | cos] or, Nerfies,
+// [sin | cos], then 0 pad) into X[:, 256 : 384] from rows.raw. Each feature
+// goes through window_feature: scales is null for posenc_orig, the Nerfies
+// layout's window row (kTmplEncP weights) otherwise.
+template <bool kNerfies>
+__device__ __forceinline__ void encode_template(
+    const Group& g, const float* __restrict__ scales) {
+  using L = TmplEnc<kNerfies>;
+  constexpr int kXyzPairs = 3 * kXyzF, kHypPairs = kHypOut * L::kHypF;
   constexpr int kRest = kTmplEncP - 2 * (kXyzPairs + kHypPairs);
   const float(*raw)[8] = g.rows->raw;
 #pragma unroll 3
@@ -596,33 +609,35 @@ __device__ __forceinline__ void encode_template(const Group& g) {
     const int r = e / kXyzPairs, q = e % kXyzPairs;
     float sn, cs;
     sincosf(raw[r][q % 3] * pow2(q / 3), &sn, &cs);
-    sts16(x_at(g.xs, r, kTmplEnc0 + 3 + q), __float2bfloat16_rn(sn));
+    sts16(x_at(g.xs, r, kTmplEnc0 + 3 + q), window_feature(sn, 3 + q, scales));
     sts16(x_at(g.xs, r, kTmplEnc0 + 3 + kXyzPairs + q),
-          __float2bfloat16_rn(cs));
+          window_feature(cs, 3 + kXyzPairs + q, scales));
   }
 #pragma unroll 3
   for (int e = g.tid; e < kRows * kHypPairs; e += 128) {
     const int r = e / kHypPairs, q = e % kHypPairs;
     float sn, cs;
     sincosf(raw[r][3 + q % kHypOut] * pow2(q / kHypOut), &sn, &cs);
-    const int c = kTmplEnc0 + kTmplXyz + kHypOut + q;
-    sts16(x_at(g.xs, r, c), __float2bfloat16_rn(sn));
-    sts16(x_at(g.xs, r, c + kHypPairs), __float2bfloat16_rn(cs));
+    const int c = kTmplXyz + L::kHypId + q;
+    sts16(x_at(g.xs, r, kTmplEnc0 + c), window_feature(sn, c, scales));
+    sts16(x_at(g.xs, r, kTmplEnc0 + c + kHypPairs),
+          window_feature(cs, c + kHypPairs, scales));
   }
+  // The identity columns, then the pad, zero whatever the window's weight.
   for (int e = g.tid; e < kRows * kRest; e += 128) {
     const int r = e / kRest, f = e % kRest;
+    bf16 v = __float2bfloat16_rn(0.f);
     int c;
-    float v = 0.f;
     if (f < 3) {
       c = f;
-      v = raw[r][f];
-    } else if (f < 3 + kHypOut) {
+      v = window_feature(raw[r][f], c, scales);
+    } else if (f < 3 + L::kHypId) {
       c = kTmplXyz + f - 3;
-      v = raw[r][f];
+      v = window_feature(raw[r][f], c, scales);
     } else {
-      c = kTmplEnc + f - 3 - kHypOut;
+      c = L::kEnc + f - 3 - L::kHypId;
     }
-    sts16(x_at(g.xs, r, kTmplEnc0 + c), __float2bfloat16_rn(v));
+    sts16(x_at(g.xs, r, kTmplEnc0 + c), v);
   }
 }
 
@@ -649,15 +664,16 @@ __device__ __forceinline__ void encode_se3_tile(
   }
 }
 
-// The rays' rgb condition (bf16) into X[:, 128 : 176], eight loads in
-// flight a thread.
+// The rays' rgb condition (bf16, cond_w columns: kCond or kNerfCond) into
+// X[:, 128 : 176], zero past cond_w, eight loads in flight a thread.
 __device__ __forceinline__ void load_condition(const Group& g,
-                                               const bf16* __restrict__ cond) {
+                                               const bf16* __restrict__ cond,
+                                               int cond_w) {
 #pragma unroll 8
   for (int e = g.tid; e < kRows * kCondP; e += 128) {
     const int r = e / kCondP, f = e % kCondP;
-    const bf16 v = f < kCond ? cond[(size_t)g.rows->ray[r] * kCond + f]
-                             : __float2bfloat16_rn(0.f);
+    const bf16 v = f < cond_w ? cond[(size_t)g.rows->ray[r] * cond_w + f]
+                              : __float2bfloat16_rn(0.f);
     sts16(x_at(g.xs, r, kCondCol + f), v);
   }
 }
@@ -762,14 +778,19 @@ __device__ __forceinline__ void sheet_stage(const Group& g, Ring& ring,
 
 // The template on rows.raw = [warped | hyper | 0] and the condition rows
 // rows.ray: out[row0 + r] = [rgb logits | raw sigma] for rows below P.
-template <class T>
+// The encoding's layout is TmplEnc<kNerfies>: posenc_orig and a
+// kCond-column condition (tmpl_scales unused), or the Nerfies layout with
+// its window row tmpl_scales and a kNerfCond-column condition. Each layout
+// is its own instantiation, so the posenc_orig kernels carry no code of the
+// other.
+template <class T, bool kNerfies>
 __device__ __forceinline__ void template_stage(
     const Group& g, Ring& ring, const bf16* Bs,
-    const bf16* __restrict__ rgb_cond, float* __restrict__ out,
-    long long row0, long long n_points) {
+    const bf16* __restrict__ rgb_cond, const float* __restrict__ tmpl_scales,
+    float* __restrict__ out, long long row0, long long n_points) {
   constexpr int T0 = T::kFields;
   Rows& rw = *g.rows;
-  encode_template(g);
+  encode_template<kNerfies>(g, kNerfies ? tmpl_scales : nullptr);
   fence_async_smem();
   g.sync();
   hidden<T, T0 + 0, true>(g, ring, Bs);
@@ -783,7 +804,10 @@ __device__ __forceinline__ void template_stage(
   hidden<T, T0 + 8, true>(g, ring, Bs);    // trunk logit (ReLU)
   // The bottleneck (rounded, no ReLU), the condition beside it.
   hidden<T, T0 + 9, false>(g, ring, Bs,
-                           [&] { load_condition(g, rgb_cond); });
+                           [&] {
+                             load_condition(g, rgb_cond,
+                                            kNerfies ? kNerfCond : kCond);
+                           });
   head<T, T0 + 10>(g, ring, Bs, rw.sigma, 1, 1);  // alpha
   hidden<T, T0 + 11, true>(g, ring, Bs);
   hidden<T, T0 + 12, true>(g, ring, Bs);
@@ -872,7 +896,7 @@ __device__ __forceinline__ bool enter_block(const Maps<T>& maps,
   return true;
 }
 
-template <int kWarp>
+template <int kWarp, bool kNerfies>
 __global__ void __launch_bounds__(LevelBlock::kThreads, 1)
     level_fwd_kernel(const __grid_constant__ Maps<Table<kWarp>> maps,
                      const float* __restrict__ zs,
@@ -881,6 +905,7 @@ __global__ void __launch_bounds__(LevelBlock::kThreads, 1)
                      const float* __restrict__ embed,
                      const bf16* __restrict__ rgb_cond,
                      const float* __restrict__ warp_scales,
+                     const float* __restrict__ tmpl_scales,
                      const bf16* __restrict__ B, float* __restrict__ out,
                      float* __restrict__ raw_t, long long n_points,
                      int samples) {
@@ -909,7 +934,8 @@ __global__ void __launch_bounds__(LevelBlock::kThreads, 1)
       dst[0] = make_float4(rt[0], rt[1], rt[2], rt[3]);
       dst[1] = make_float4(rt[4], rt[5], rt[6], 0.f);
     }
-    template_stage<T>(g, ring, Bs, rgb_cond, out, row0, n_points);
+    template_stage<T, kNerfies>(g, ring, Bs, rgb_cond, tmpl_scales, out,
+                                row0, n_points);
   }
 }
 
@@ -972,28 +998,32 @@ int forward_plan(int first, int last, int* config, int* in_cols, int* loads,
 }
 
 // Host side: the tensor maps of the blob W (cached by address and shape),
-// the shared-memory attribute once per device, a persistent grid.
-template <int kWarp>
+// the shared-memory attribute once per device, a persistent grid. kNerfies:
+// the template's layout (template_stage).
+template <int kWarp, bool kNerfies>
 int launch_level_fwd(const void* z, const void* origins, const void* dirs,
                      const void* embed, const void* rgb_cond,
-                     const void* warp_scales, const void* weights,
-                     const void* biases, void* out, void* raw_t,
-                     long long n_points, int samples, void* stream) {
+                     const void* warp_scales, const void* tmpl_scales,
+                     const void* weights, const void* biases, void* out,
+                     void* raw_t, long long n_points, int samples,
+                     void* stream) {
   using T = Table<kWarp>;
   static std::atomic<int> configured[kMaxDevices];
   unsigned grid = 0;
-  int status = block_grid<LevelBlock>(level_fwd_kernel<kWarp>, configured,
-                                      n_points, &grid);
+  int status = block_grid<LevelBlock>(level_fwd_kernel<kWarp, kNerfies>,
+                                      configured, n_points, &grid);
   if (status || grid == 0) return status;
   Maps<T> maps;
   status = make_maps<T>(&maps, static_cast<const bf16*>(weights), 0, T::kNum);
   if (status) return status;
-  level_fwd_kernel<kWarp><<<grid, LevelBlock::kThreads,
-                            LevelBlock::kSmemBytes, (cudaStream_t)stream>>>(
+  level_fwd_kernel<kWarp, kNerfies><<<grid, LevelBlock::kThreads,
+                                      LevelBlock::kSmemBytes,
+                                      (cudaStream_t)stream>>>(
       maps, static_cast<const float*>(z), static_cast<const float*>(origins),
       static_cast<const float*>(dirs), static_cast<const float*>(embed),
       static_cast<const bf16*>(rgb_cond),
-      static_cast<const float*>(warp_scales), static_cast<const bf16*>(biases),
+      static_cast<const float*>(warp_scales),
+      static_cast<const float*>(tmpl_scales), static_cast<const bf16*>(biases),
       static_cast<float*>(out), static_cast<float*>(raw_t), n_points, samples);
   return (int)cudaGetLastError();
 }
@@ -1001,12 +1031,14 @@ int launch_level_fwd(const void* z, const void* origins, const void* dirs,
 }  // namespace lf
 }  // namespace
 
-// The three instantiations (level_fwd_{trans,se3,quat}.cu).
+// The four instantiations (level_fwd_{trans,se3,quat}.cu, and the
+// translation warp with the Nerfies template layout, level_fwd_anneal.cu).
 #define HN_LEVEL_FWD_ARGS                                                   \
   const void *z, const void *origins, const void *dirs, const void *embed, \
-      const void *rgb_cond, const void *warp_scales, const void *weights,   \
-      const void *biases, void *out, void *raw_t, long long n_points,       \
-      int samples, void *stream
+      const void *rgb_cond, const void *warp_scales,                        \
+      const void *tmpl_scales, const void *weights, const void *biases,     \
+      void *out, void *raw_t, long long n_points, int samples, void *stream
 extern "C" int hn_level_fwd_trans(HN_LEVEL_FWD_ARGS);
 extern "C" int hn_level_fwd_se3(HN_LEVEL_FWD_ARGS);
 extern "C" int hn_level_fwd_quat(HN_LEVEL_FWD_ARGS);
+extern "C" int hn_level_fwd_anneal(HN_LEVEL_FWD_ARGS);

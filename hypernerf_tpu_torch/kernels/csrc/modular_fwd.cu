@@ -22,13 +22,18 @@
 // The template alone (hn_fused_template_fwd): posenc_orig(xyz, 10) ++
 // posenc_orig(hyper (4), 6) -> trunk 8 x 256 (skip after 4, ReLU logit) ->
 // bottleneck 128 -> alpha head; rgb branch 4 x 128 on [bottleneck |
-// condition (39)] -> rgb logits (layers 14..29). In: x_raw (P, 8) fp32 rows
-// [xyz | hyper | 0]; rgb_cond (P / S, 39) bf16, one row per S consecutive
-// rows, any S >= 1; the template's own blobs. Out: (P, 4) fp32 [rgb logits
-// | raw sigma]. A template without hyper coordinates (static NeRF: 63
-// encoded inputs) runs through the same kernel: the wrapper packs zero
-// weight columns for the hyper bands, whose encoding of the zero input ([0 |
-// sin 0 | cos 0]) then adds exactly nothing.
+// condition (39)] -> rgb logits (layers 14..29); or, given the window row
+// `scales` (128 fp32), the anneal configuration's layout: scales *
+// [posenc(xyz, 0..10, identity) ++ posenc(hyper, 0..4)] and a condition of
+// 27 (level_common.cuh TmplEnc; template_fwd.cuh's kernel, instantiated
+// here for posenc_orig and in template_fwd_anneal.cu for the Nerfies
+// layout). In: x_raw (P, 8) fp32 rows [xyz | hyper | 0]; rgb_cond (P / S,
+// 39 or 27) bf16, one row per S consecutive rows, any S >= 1; the
+// template's own blobs. Out: (P, 4) fp32 [rgb logits | raw sigma]. A
+// template without hyper coordinates (static NeRF: 63 encoded inputs) runs
+// through the same kernel: the wrapper packs zero weight columns for the
+// hyper bands, whose encoding of the zero input ([0 | sin 0 | cos 0]) then
+// adds exactly nothing.
 // The trunk alone (hn_fused_se3_fwd): the Nerfies posenc(pts, degrees 0..8,
 // no identity) ++ embed (56 -> 64) -> 6 x 128 (skip after layer 4) ->
 // linear 128 -> 128, rounded -> the w and the v head, 128 -> 3 each
@@ -61,12 +66,10 @@
 // and has the warp field's row work (27 sincos pairs a row against 30), so
 // it takes the warp field's block of three 256-column tiles.
 
-#include "level_fwd.cuh"
+#include "template_fwd.cuh"
 
 namespace {
 namespace lf {
-
-using MT = TransTable;  // the per-module kernels' layer table
 
 // A field alone: its layers [kFirst, kLast) of MT, its bands and outputs,
 // and its block. A field's layers read and write the first 256 (the warp)
@@ -113,22 +116,6 @@ __device__ __forceinline__ void field_rows(const Group& g, long long row0,
   }
 }
 
-// The template's row inputs: x_raw rows [xyz | hyper | 0] into rows.raw
-// (threads 0..63 the first four columns, 64..127 the last four) and the
-// condition row of each, p / S; zeros and row 0 past P.
-__device__ __forceinline__ void template_rows(
-    const Group& g, long long row0, long long n_points, int samples,
-    const float* __restrict__ x_raw) {
-  const int r = g.tid & (kRows - 1), h = g.tid >> 6;
-  const long long p = row0 + r;
-  const bool valid = p < n_points;
-  const float4 v = valid ? reinterpret_cast<const float4*>(x_raw)[2 * p + h]
-                         : make_float4(0.f, 0.f, 0.f, 0.f);
-  float* raw = g.rows->raw[r] + 4 * h;
-  raw[0] = v.x, raw[1] = v.y, raw[2] = v.z, raw[3] = h ? 0.f : v.w;
-  if (h == 0) g.rows->ray[r] = valid ? (int)(p / samples) : 0;
-}
-
 template <class S>
 __global__ void __launch_bounds__(S::Blk::kThreads, 1)
     field_fwd_kernel(const __grid_constant__ Maps<MT> maps,
@@ -162,28 +149,6 @@ __global__ void __launch_bounds__(S::Blk::kThreads, 1)
       reinterpret_cast<float4*>(out)[2 * (row0 + r) + h] =
           make_float4(o[0], o[1], o[2], o[3]);
     }
-  }
-}
-
-__global__ void __launch_bounds__(LevelBlock::kThreads, 1)
-    template_fwd_kernel(const __grid_constant__ Maps<MT> maps,
-                        const float* __restrict__ x_raw,
-                        const bf16* __restrict__ rgb_cond,
-                        const bf16* __restrict__ B, float* __restrict__ out,
-                        long long n_points, int samples) {
-  Group g;
-  Ring ring;
-  const bf16* Bs;
-  if (!enter_block<LevelBlock, MT, MT::kFields, MT::kNum>(maps, B, n_points,
-                                                          g, ring, Bs))
-    return;
-  const long long n_pairs = tile_steps<LevelBlock>(n_points);
-  for (long long pair = blockIdx.x; pair < n_pairs;
-       pair += gridDim.x, ++g.it) {
-    const long long row0 = first_row<LevelBlock>(g, pair);
-    template_rows(g, row0, n_points, samples, x_raw);
-    g.sync();
-    template_stage<MT>(g, ring, Bs, rgb_cond, out, row0, n_points);
   }
 }
 
@@ -289,26 +254,16 @@ extern "C" int hn_fused_se3_fwd(const void* x_raw, const void* scales,
 // weights / biases: the template's 16 layers alone (layers 14..29 of the
 // table). samples: consecutive rows that share one row of rgb_cond.
 extern "C" int hn_fused_template_fwd(const void* x_raw, const void* rgb_cond,
-                                     const void* weights, const void* biases,
-                                     void* out, long long n_points,
-                                     int samples, void* stream) {
-  using namespace lf;
+                                     const void* scales, const void* weights,
+                                     const void* biases, void* out,
+                                     long long n_points, int samples,
+                                     void* stream) {
   if (n_points <= 0 || samples <= 0) return (int)cudaErrorInvalidValue;
-  static std::atomic<int> configured[kMaxDevices];
-  unsigned grid = 0;
-  int status = block_grid<LevelBlock>(template_fwd_kernel, configured,
-                                      n_points, &grid);
-  if (status) return status;
-  Maps<MT> maps;
-  status = make_maps<MT>(&maps, static_cast<const bf16*>(weights),
-                         MT::kFields, MT::kNum);
-  if (status) return status;
-  template_fwd_kernel<<<grid, LevelBlock::kThreads, LevelBlock::kSmemBytes,
-                        (cudaStream_t)stream>>>(
-      maps, static_cast<const float*>(x_raw),
-      static_cast<const bf16*>(rgb_cond), static_cast<const bf16*>(biases),
-      static_cast<float*>(out), n_points, samples);
-  return (int)cudaGetLastError();
+  if (scales)
+    return hn_template_fwd_anneal(x_raw, rgb_cond, scales, weights, biases,
+                                  out, n_points, samples, stream);
+  return lf::launch_template<false>(x_raw, rgb_cond, scales, weights, biases,
+                                    out, n_points, samples, stream);
 }
 
 // The plan of per-module stage `stage` (0 the warp field, 1 the sheet, 2 the

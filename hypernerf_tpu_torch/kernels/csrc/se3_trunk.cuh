@@ -32,16 +32,6 @@ __device__ __forceinline__ float se3_band_arg(const float* in, int b) {
   return ldexpf(in[b % 3], kSe3MinDeg + b / 3);
 }
 
-// Feature f of an encoding from its fp32 value: rounded, then times the
-// window row and rounded again (no row: rounded once).
-__device__ __forceinline__ bf16 window_feature(float v, int f,
-                                            const float* __restrict__ scales) {
-  bf16 b = __float2bfloat16_rn(v);
-  if (scales != nullptr)
-    b = __float2bfloat16_rn(__bfloat162float(b) * scales[f]);
-  return b;
-}
-
 // Feature f of a tangent encoding from its fp32 value: times the window row,
 // rounded once.
 __device__ __forceinline__ bf16 tangent_feature(

@@ -17,6 +17,13 @@
 // summed in fp32 in the posenc VJP, which uses fp32 sin / cos of the same
 // arguments as the recompute. The per-ray sums of d rgb_cond are written
 // by one thread each (a chunk holds whole rays), so they are deterministic.
+// Both template layouts (level_common.cuh TmplEnc) run here: the encoding's
+// two steps take the Nerfies one where they are given its window row (the
+// stash holds the windowed features, and the VJP weights the fp32
+// cotangent by the row first, as the TPU kernel's `_encode_bwd`: a band of
+// weight 0 passes no gradient, an identity column weighs 1), and the
+// condition's two steps are compiled for both widths (39, 27) and take the
+// one they are given.
 
 #include "level_common.cuh"
 
@@ -53,7 +60,9 @@ __device__ __forceinline__ void split_range(long long n, long long& r0,
   r1 = n * (blockIdx.x + 1) / gridDim.x;
 }
 
+// scales: null (posenc_orig), or the Nerfies layout's window row.
 __global__ void tmpl_encode_kernel(const float* __restrict__ raw_t,
+                                   const float* __restrict__ scales,
                                    bf16* __restrict__ stash, int enc_col,
                                    long long n_rows) {
   const long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x;
@@ -61,16 +70,14 @@ __global__ void tmpl_encode_kernel(const float* __restrict__ raw_t,
   const long long r = e / kTmplEncP;
   const int f = (int)(e % kTmplEncP);
   const float* rt = raw_t + r * 8;
-  float v = 0.f;
-  if (f < kTmplXyz)
-    v = posenc_at<3, kXyzF>(rt, f);
-  else if (f < kTmplEnc)
-    v = posenc_at<kHypOut, kHypEncF>(rt + 3, f - kTmplXyz);
-  stash[r * kStashLd + enc_col + f] = __float2bfloat16_rn(v);
+  const float v = scales != nullptr ? tmpl_feature<true>(rt, f)
+                                    : tmpl_feature<false>(rt, f);
+  stash[r * kStashLd + enc_col + f] = window_feature(v, f, scales);
 }
 
 // out[ray][n] = sum_c cond[ray][c] W[n][128 + c]: the condition's part of
 // rgb layer 0, added per ray in the recompute's epilogue.
+template <int kCondW>
 __global__ void tmpl_ray_bias_kernel(const bf16* __restrict__ cond,
                                 const bf16* __restrict__ w,
                                 float* __restrict__ out, long long n_rays,
@@ -80,8 +87,8 @@ __global__ void tmpl_ray_bias_kernel(const bf16* __restrict__ cond,
   const long long ray = e / kRgbW;
   const int n = (int)(e % kRgbW);
   float s = 0.f;
-  for (int c = 0; c < kCond; ++c)
-    s += __bfloat162float(cond[ray * kCond + c]) *
+  for (int c = 0; c < kCondW; ++c)
+    s += __bfloat162float(cond[ray * kCondW + c]) *
          __bfloat162float(w[n * w_ld + kCondCol + c]);
   out[e] = s;
 }
@@ -128,7 +135,8 @@ __global__ void __launch_bounds__(128 * kRowGroups)
 // ray's rows of gin[r][128 + c] (bf16 values, fp32 sum); dW[n][128 + c] =
 // sum_ray (sum over the ray's rows of gout[r][n]) cond[ray][c]. One block per
 // split of the rays, thread (n, y): output feature n of every kRayGroups-th
-// ray from y.
+// ray from y. kCondW condition columns; dW's pad columns up to kCondP are 0.
+template <int kCondW>
 __global__ void __launch_bounds__(128 * kRayGroups)
     tmpl_cond_bwd_kernel(const bf16* __restrict__ gout,
                                 const bf16* __restrict__ gin,
@@ -149,12 +157,12 @@ __global__ void __launch_bounds__(128 * kRayGroups)
     for (int s = 0; s < samples; ++s) {
       const long long r = ray * samples + s;
       gs += __bfloat162float(gout[r * kGLd + n]);
-      if (n < kCond) dc += __bfloat162float(gin[r * kGLd + kCondCol + n]);
+      if (n < kCondW) dc += __bfloat162float(gin[r * kGLd + kCondCol + n]);
     }
-    if (n < kCond) d_cond[ray * kCond + n] = dc;
+    if (n < kCondW) d_cond[ray * kCondW + n] = dc;
 #pragma unroll
-    for (int c = 0; c < kCond; ++c)
-      acc[c] += gs * __bfloat162float(cond[ray * kCond + c]);
+    for (int c = 0; c < kCondW; ++c)
+      acc[c] += gs * __bfloat162float(cond[ray * kCondW + c]);
   }
   float* s = slab + blockIdx.x * slab_len + w_off + (long long)n * k_pad +
              kCondCol;
@@ -204,35 +212,49 @@ __global__ void __launch_bounds__(128 * kRowGroups)
 }
 
 // dx_t[r][c] from the encoding's two cotangents e[r][0:128] (the skip's) and
-// e[r][128:256] (layer 0's), summed in fp32.
+// e[r][128:256] (layer 0's), summed in fp32 and, in the Nerfies layout
+// (scales given), weighted by the window row.
+template <bool kNerfies>
+__device__ __forceinline__ float posenc_vjp(const float* __restrict__ raw_t,
+                                            const bf16* er,
+                                            const float* __restrict__ scales,
+                                            long long r, int c) {
+  using L = TmplEnc<kNerfies>;
+  auto gx = [&](int f) {
+    const float g =
+        __bfloat162float(er[f]) + __bfloat162float(er[kTmplEncP + f]);
+    return kNerfies ? g * scales[f] : g;
+  };
+  const bool xyz = c < 3;
+  const int ch = xyz ? 3 : kHypOut, nf = xyz ? kXyzF : L::kHypF;
+  const int id = xyz ? 3 : L::kHypId;  // identity columns of the segment
+  const int base = xyz ? 0 : kTmplXyz, cc = xyz ? c : c - 3;
+  const float x = raw_t[r * 8 + c];
+  float dx = 0.f;
+  for (int k = 0; k < nf; ++k) {
+    const float scale = (float)(1 << k);
+    float sn, cs;
+    sincosf(x * scale, &sn, &cs);
+    const float flat = cs * gx(base + id + k * ch + cc) -
+                       sn * gx(base + id + nf * ch + k * ch + cc);
+    dx += flat * scale;
+  }
+  return id ? gx(base + cc) + dx : dx;
+}
+
 __global__ void tmpl_posenc_bwd_kernel(const float* __restrict__ raw_t,
                                   const bf16* __restrict__ e,
+                                  const float* __restrict__ scales,
                                   float* __restrict__ dx_t, long long n_rows) {
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n_rows * 8) return;
   const long long r = i / 8;
   const int c = (int)(i % 8);
   const bf16* er = e + r * kGLd;
-  auto gx = [&](int f) {
-    return __bfloat162float(er[f]) + __bfloat162float(er[kTmplEncP + f]);
-  };
   float out = 0.f;
-  if (c < 7) {
-    const bool xyz = c < 3;
-    const int ch = xyz ? 3 : kHypOut, nf = xyz ? kXyzF : kHypEncF;
-    const int base = xyz ? 0 : kTmplXyz, cc = xyz ? c : c - 3;
-    const float x = raw_t[r * 8 + c];
-    float dx = 0.f;
-    for (int k = 0; k < nf; ++k) {
-      const float scale = (float)(1 << k);
-      float sn, cs;
-      sincosf(x * scale, &sn, &cs);
-      const float flat = cs * gx(base + ch + k * ch + cc) -
-                         sn * gx(base + ch + nf * ch + k * ch + cc);
-      dx += flat * scale;
-    }
-    out = gx(base + cc) + dx;
-  }
+  if (c < 7)
+    out = scales != nullptr ? posenc_vjp<true>(raw_t, er, scales, r, c)
+                            : posenc_vjp<false>(raw_t, er, nullptr, r, c);
   dx_t[i] = out;
 }
 
@@ -251,29 +273,35 @@ unsigned blocks_for(long long n, int threads) {
 
 }  // namespace
 
-// stash[r][enc_col : enc_col + 128] = bf16 encoding of raw_t[r] (P, 8) fp32.
+// stash[r][enc_col : enc_col + 128] = bf16 encoding of raw_t[r] (P, 8) fp32:
+// posenc_orig where scales is null, else the Nerfies layout times its
+// window row scales (128 fp32).
 extern "C" int hn_tmpl_encode(const void* raw_t, void* stash,
                               long long stash_ld, int enc_col,
-                              long long n_rows, void* stream) {
+                              long long n_rows, const void* scales,
+                              void* stream) {
   if (n_rows <= 0 || stash_ld != kStashLd || enc_col < 0 ||
       enc_col + kTmplEncP > stash_ld)
     return (int)cudaErrorInvalidValue;
   tmpl_encode_kernel<<<blocks_for(n_rows * kTmplEncP, 256), 256, 0,
                        (cudaStream_t)stream>>>(
-      static_cast<const float*>(raw_t), static_cast<bf16*>(stash), enc_col,
-      n_rows);
+      static_cast<const float*>(raw_t), static_cast<const float*>(scales),
+      static_cast<bf16*>(stash), enc_col, n_rows);
   return (int)cudaGetLastError();
 }
 
-// out (n_rays, 128) fp32 = cond (n_rays, 39) bf16 @ W[:, cond_col : cond_col
-// + 39]^T, W the (128, w_ld) bf16 weight of rgb layer 0.
+// out (n_rays, 128) fp32 = cond (n_rays, cond_ch) bf16 @ W[:, cond_col :
+// cond_col + cond_ch]^T, W the (128, w_ld) bf16 weight of rgb layer 0;
+// cond_ch is a layout's condition width, 39 or 27.
 extern "C" int hn_tmpl_ray_bias(const void* cond, const void* w, void* out,
                                 long long n_rays, int w_ld, int cond_col,
-                                void* stream) {
-  if (n_rays <= 0 || cond_col != kCondCol || cond_col + kCond > w_ld)
+                                int cond_ch, void* stream) {
+  if (n_rays <= 0 || cond_col != kCondCol || cond_col + kCondP > w_ld ||
+      (cond_ch != kCond && cond_ch != kNerfCond))
     return (int)cudaErrorInvalidValue;
-  tmpl_ray_bias_kernel<<<blocks_for(n_rays * kRgbW, 256), 256, 0,
-                         (cudaStream_t)stream>>>(
+  auto kernel = cond_ch == kCond ? tmpl_ray_bias_kernel<kCond>
+                                 : tmpl_ray_bias_kernel<kNerfCond>;
+  kernel<<<blocks_for(n_rays * kRgbW, 256), 256, 0, (cudaStream_t)stream>>>(
       static_cast<const bf16*>(cond), static_cast<const bf16*>(w),
       static_cast<float*>(out), n_rays, w_ld);
   return (int)cudaGetLastError();
@@ -296,17 +324,21 @@ extern "C" int hn_tmpl_rgb_head(const void* g4, const void* stash,
   return (int)cudaGetLastError();
 }
 
+// cond_ch: the condition's width, 39 or 27 (d_cond is (n_rays, cond_ch)).
 extern "C" int hn_tmpl_cond_bwd(const void* gout, long long gout_ld,
                                 const void* gin, long long gin_ld,
                                 int cond_col, const void* cond, void* d_cond,
                                 void* slab, long long slab_len,
                                 long long w_off, int k_pad, long long n_rays,
-                                int samples, int splits, void* stream) {
+                                int samples, int splits, int cond_ch,
+                                void* stream) {
   if (n_rays <= 0 || samples <= 0 || splits <= 0 || gout_ld != kGLd ||
-      gin_ld != kGLd || cond_col != kCondCol || cond_col + kCondP > k_pad)
+      gin_ld != kGLd || cond_col != kCondCol || cond_col + kCondP > k_pad ||
+      (cond_ch != kCond && cond_ch != kNerfCond))
     return (int)cudaErrorInvalidValue;
-  tmpl_cond_bwd_kernel<<<splits, dim3(128, kRayGroups), 0,
-                         (cudaStream_t)stream>>>(
+  auto kernel = cond_ch == kCond ? tmpl_cond_bwd_kernel<kCond>
+                                 : tmpl_cond_bwd_kernel<kNerfCond>;
+  kernel<<<splits, dim3(128, kRayGroups), 0, (cudaStream_t)stream>>>(
       static_cast<const bf16*>(gout), static_cast<const bf16*>(gin),
       static_cast<const bf16*>(cond), static_cast<float*>(d_cond),
       static_cast<float*>(slab), slab_len, w_off, k_pad, n_rays, samples);
@@ -334,15 +366,17 @@ extern "C" int hn_tmpl_bneck_prep(const void* g4, const void* gin,
 }
 
 // e: (n_rows, kGLd) bf16, the encoding's two cotangents in columns [0, 128)
-// and [128, 256).
+// and [128, 256); scales: null (posenc_orig), or the Nerfies layout's window
+// row, as hn_tmpl_encode took it.
 extern "C" int hn_tmpl_posenc_bwd(const void* raw_t, const void* e,
                                   long long e_ld, void* dx_t,
-                                  long long n_rows, void* stream) {
+                                  long long n_rows, const void* scales,
+                                  void* stream) {
   if (n_rows <= 0 || e_ld != kGLd) return (int)cudaErrorInvalidValue;
   tmpl_posenc_bwd_kernel<<<blocks_for(n_rows * 8, 256), 256, 0,
                            (cudaStream_t)stream>>>(
       static_cast<const float*>(raw_t), static_cast<const bf16*>(e),
-      static_cast<float*>(dx_t), n_rows);
+      static_cast<const float*>(scales), static_cast<float*>(dx_t), n_rows);
   return (int)cudaGetLastError();
 }
 

@@ -1,0 +1,23 @@
+// The template alone in the Nerfies layout (the anneal configuration):
+// template_fwd.cuh's kernel with TmplEnc<true>, compiled on its own so that
+// it builds in parallel with modular_fwd.cu and adds no code to it.
+
+#include "template_fwd.cuh"
+
+extern "C" int hn_template_fwd_anneal(const void* x_raw, const void* rgb_cond,
+                                      const void* scales, const void* weights,
+                                      const void* biases, void* out,
+                                      long long n_points, int samples,
+                                      void* stream) {
+  return lf::launch_template<true>(x_raw, rgb_cond, scales, weights, biases,
+                                   out, n_points, samples, stream);
+}
+
+#ifdef HN_LEVEL_FWD_TRACE
+// The clocks block 0 of the Nerfies template recorded (level_fwd.cuh), as
+// [group][pair][layer][4].
+extern "C" int hn_template_fwd_anneal_trace(long long* out) {
+  return (int)cudaMemcpyFromSymbol(out, lf::level_fwd_trace,
+                                   sizeof(lf::level_fwd_trace));
+}
+#endif

@@ -3,7 +3,10 @@ and backward. The warp field is the translation field, or the SE(3) or the
 quaternion field (the trunk of ``fused_se3``, then the retraction inside the
 kernels); ``warp_scales`` is the latter two's optional ``warp_alpha`` window
 row (``fused_se3.se3_encoding_scales``; a row of ones and None give the same
-numbers).
+numbers). The template encodes as the ``Level`` says: posenc_orig, or the
+Nerfies encoding of the anneal configuration with ``tmpl_scales``, its
+window row at ``nerf_alpha`` and ``hyper_alpha``
+(``fused_mlp.template_scales``; None: fully on).
 
 ``fused_level`` is the wrapper. On CUDA tensors it launches the hand-written
 Hopper kernel of ``csrc/level_fwd.cuh`` (one source per warp type,
@@ -45,9 +48,14 @@ from hypernerf_tpu_torch.kernels import build, common
 from hypernerf_tpu_torch.kernels.fused_field import (field_layers,
                                                      fused_field_bwd_plain,
                                                      fused_field_plain)
-from hypernerf_tpu_torch.kernels.fused_mlp import (fused_template_bwd,
+from hypernerf_tpu_torch.kernels.fused_mlp import (check_covered as
+                                                   _check_template_covered,
+                                                   cond_width,
+                                                   fused_template_bwd,
                                                    fused_template_bwd_plain,
                                                    fused_template_plain,
+                                                   kernel_scales,
+                                                   kernel_template_layers,
                                                    template_layers)
 from hypernerf_tpu_torch.kernels.fused_se3 import (check_covered as
                                                    _check_se3_covered,
@@ -62,12 +70,14 @@ RAW_T_PAD = 8  # columns of raw_t and dx_t: [warped (3) | hyper (4) | 0]
 
 
 class Level(NamedTuple):
-    """The modules of one level and the template's encoding bands."""
+    """The modules of one level and the template's encoding (its bands and
+    layout, as ``fused_mlp.Template`` has them)."""
     warp: Union[TranslationField, SE3Field]  # or its QuaternionField
     hyper: HyperSheetMLP
     template: NerfMLP
     xyz_freq: int
     hyper_freq: int
+    nerfies: bool = False
 
 
 def _raw_fields(z_vals, origins, directions, embed):
@@ -91,7 +101,8 @@ def _warp_owner_layers(level: Level):
 
 
 def fused_level_plain(level: Level, z_vals, origins, directions, embed,
-                      rgb_cond, return_raw_t: bool = False, warp_scales=None):
+                      rgb_cond, return_raw_t: bool = False, warp_scales=None,
+                      tmpl_scales=None):
     """Plain PyTorch level forward: the plain warp field (or the plain SE(3)
     trunk and the retraction's values), hyper sheet and template
     (``fused_field_plain``, ``fused_se3_plain``, ``fused_template_plain``)
@@ -119,7 +130,7 @@ def fused_level_plain(level: Level, z_vals, origins, directions, embed,
     hyper = fused_field_plain(level.hyper.mlp, level.hyper.n_freq, x_raw)
     raw_t = torch.cat([warped, hyper], dim=-1).float()
     raw_t = F.pad(raw_t, (0, RAW_T_PAD - raw_t.shape[-1]))
-    out = fused_template_plain(level, raw_t, rgb_cond)
+    out = fused_template_plain(level, raw_t, rgb_cond, tmpl_scales)
     return (out, raw_t) if return_raw_t else out
 
 
@@ -133,8 +144,10 @@ def level_layers(level: Level):
 
 
 def _check_covered(level: Level) -> None:
+    _check_template_covered(level)
     t = level.template
-    flagship = dict(FLAGSHIP)
+    flagship = {k: FLAGSHIP[k] for k in ('embed', 'warp_freq',
+                                          'hyper_sheet_freq', 'hyper_out')}
     if _screw(level):
         _check_se3_covered(level.warp)
         warp_mlp = level.warp.trunk
@@ -146,10 +159,7 @@ def _check_covered(level: Level) -> None:
                     - 3 * (1 + 2 * level.warp.n_freq),
                     warp_freq=level.warp.n_freq)
     have.update(hyper_sheet_freq=level.hyper.n_freq,
-                hyper_out=level.hyper.mlp.logit.out_features,
-                xyz_freq=level.xyz_freq, hyper_freq=level.hyper_freq,
-                rgb_cond=t.rgb_branch.hidden(0).in_features
-                - t.bottleneck.out_features)
+                hyper_out=level.hyper.mlp.logit.out_features)
     dtypes = {m.dtype for m in (warp_mlp, level.hyper.mlp, t.trunk,
                                 t.rgb_branch)} | {t.dtype}
     if (have != flagship or dtypes != {torch.bfloat16}
@@ -169,7 +179,7 @@ def pack_level(level: Level):
     subs = [common.packed(owner, layers, check) for owner, layers in (
         _warp_owner_layers(level),
         (level.hyper.mlp, field_layers(level.hyper.mlp)),
-        (level.template, template_layers(level.template)))]
+        (level.template, kernel_template_layers(level.template)))]
     key = tuple(sub['key'] for sub in subs)
     cached = getattr(level.template, '_packed_level', None)
     if cached is None or cached['key'] != key:
@@ -652,25 +662,26 @@ def field_bwd_stream_bytes(field: str, shapes, n_points: int) -> int:
 
 
 def _launch_forward(level: Level, z_vals, origins, directions, embed,
-                    rgb_cond, want_raw_t: bool, warp_scales=None):
+                    rgb_cond, want_raw_t: bool, warp_scales=None,
+                    tmpl_scales=None):
     """Launch the forward kernel; (out, raw_t or None)."""
     w_blob, b_blob, shapes = pack_level(level)
     dev = z_vals.device
     code, scales = _warp_launch_args(level, shapes, warp_scales, dev)
+    tmpl_scales = kernel_scales(level, tmpl_scales, dev)
     r, s = z_vals.shape
     rgbc = rgb_cond.detach().to(torch.bfloat16).contiguous()
     _check_ray_inputs(z_vals, origins, directions, embed)
-    build.check_tensor('rgb_cond', rgbc, (r, FLAGSHIP['rgb_cond']),
+    build.check_tensor('rgb_cond', rgbc, (r, cond_width(level)),
                        torch.bfloat16, dev)
     out = torch.empty((r * s, 4), dtype=torch.float32, device=dev)
     raw_t = torch.empty((r * s, RAW_T_PAD), dtype=torch.float32,
                         device=dev) if want_raw_t else None
     common.launch('hn_fused_level_fwd', dev, code, z_vals.data_ptr(),
                   origins.data_ptr(), directions.data_ptr(), embed.data_ptr(),
-                  rgbc.data_ptr(), _ptr(scales), w_blob.data_ptr(),
-                  b_blob.data_ptr(),
-                  out.data_ptr(), _ptr(raw_t),
-                  r, s)
+                  rgbc.data_ptr(), _ptr(scales), _ptr(tmpl_scales),
+                  w_blob.data_ptr(), b_blob.data_ptr(), out.data_ptr(),
+                  _ptr(raw_t), r, s)
     fused_level.launches += 1
     return out, raw_t
 
@@ -685,33 +696,36 @@ def _check_ray_inputs(z_vals, origins, directions, embed) -> None:
 
 
 def _forward(level: Level, z_vals, origins, directions, embed, rgb_cond,
-             want_raw_t: bool, warp_scales=None):
+             want_raw_t: bool, warp_scales=None, tmpl_scales=None):
     """(out, raw_t or None): the plain version on CPU tensors, the kernel on
     CUDA tensors."""
     if common.runs_plain(z_vals, 'fused_level'):
         res = fused_level_plain(level, z_vals, origins, directions, embed,
                                 rgb_cond, return_raw_t=want_raw_t,
-                                warp_scales=warp_scales)
+                                warp_scales=warp_scales,
+                                tmpl_scales=tmpl_scales)
         return res if want_raw_t else (res, None)
     return _launch_forward(level, z_vals, origins, directions, embed,
-                           rgb_cond, want_raw_t, warp_scales)
+                           rgb_cond, want_raw_t, warp_scales, tmpl_scales)
 
 
 def fused_level(level: Level, z_vals, origins, directions, embed,
-                rgb_cond, warp_scales=None) -> torch.Tensor:
+                rgb_cond, warp_scales=None, tmpl_scales=None) -> torch.Tensor:
     """Level forward; (R * S, 4) fp32 [rgb logits | raw sigma].
 
     CPU tensors take ``fused_level_plain``; CUDA tensors launch the kernel
-    (flagship widths, bf16) or raise. Differentiable in every argument and
-    in the level's parameters (``FusedLevelFn``).
+    (flagship widths, either template layout, bf16) or raise.
+    Differentiable in every argument and in the level's parameters
+    (``FusedLevelFn``); the window rows are schedule constants.
     """
     params = _level_params(level)
     inputs = (z_vals, origins, directions, embed, rgb_cond)
     if torch.is_grad_enabled() and any(t.requires_grad
                                        for t in (*inputs, *params)):
-        return FusedLevelFn.apply(level, warp_scales, *inputs, *params)
+        return FusedLevelFn.apply(level, warp_scales, tmpl_scales, *inputs,
+                                  *params)
     return _forward(level, *inputs, want_raw_t=False,
-                    warp_scales=warp_scales)[0]
+                    warp_scales=warp_scales, tmpl_scales=tmpl_scales)[0]
 
 
 fused_level.launches = 0
@@ -724,14 +738,16 @@ class FusedLevelFn(torch.autograd.Function):
     parameters shared by two levels add up in autograd."""
 
     @staticmethod
-    def forward(ctx, level, warp_scales, z_vals, origins, directions, embed,
-                rgb_cond, *params):
+    def forward(ctx, level, warp_scales, tmpl_scales, z_vals, origins,
+                directions, embed, rgb_cond, *params):
         inputs = [t.detach() for t in (z_vals, origins, directions, embed,
                                        rgb_cond)]
         with torch.no_grad():
             out, raw_t = _forward(level, *inputs, want_raw_t=True,
-                                  warp_scales=warp_scales)
+                                  warp_scales=warp_scales,
+                                  tmpl_scales=tmpl_scales)
         ctx.level, ctx.warp_scales = level, warp_scales
+        ctx.tmpl_scales = tmpl_scales
         ctx.save_for_backward(*inputs, raw_t)
         return out
 
@@ -742,12 +758,12 @@ class FusedLevelFn(torch.autograd.Function):
         level = ctx.level
         g = g.contiguous()
         with torch.no_grad():
-            dx_t, d_rgb_cond, t_grads = fused_template_bwd(level, raw_t,
-                                                           rgb_cond, g)
+            dx_t, d_rgb_cond, t_grads = fused_template_bwd(
+                level, raw_t, rgb_cond, g, ctx.tmpl_scales)
             d_z, d_o, d_d, d_embed, f_grads = fused_fields_bwd(
                 level, z_vals, origins, directions, embed, dx_t,
                 ctx.warp_scales)
-        return (None, None, d_z, d_o, d_d, d_embed,
+        return (None, None, None, d_z, d_o, d_d, d_embed,
                 d_rgb_cond.to(rgb_cond.dtype), *f_grads, *t_grads)
 
 

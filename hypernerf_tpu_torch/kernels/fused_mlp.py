@@ -20,11 +20,16 @@ kernel's rounding points, on CPU tensors. On a CUDA tensor a wrapper launches
 its kernel or raises.
 
 The CUDA kernels are compiled for the flagship template (8 x 256 with a skip
-after layer 4, bottleneck 128, rgb branch 4 x 128 on 39 condition features,
-xyz at 10 bands, 4 hyper coordinates at 6 bands, bf16). A template without
-hyper coordinates (static NeRF) runs through the same kernels: its encoding
-is packed with zero weight columns where the hyper bands would be, which is
-exact, and those columns' dW is dropped on unpack.
+after layer 4, bottleneck 128, rgb branch 4 x 128, bf16) in two encoding
+layouts: the flagship's posenc_orig (xyz at 10 bands, 4 hyper coordinates at
+6 bands, 39 condition features) and the Nerfies encoding of the anneal
+configuration (``common.NERFIES``: xyz over degrees 0..10 with its identity,
+the hyper coordinates over 0..4 without, 27 condition features), whose every
+band is weighted by the annealing window row ``scales``, an input of every
+call (``template_scales``). A template without hyper coordinates (static
+NeRF) runs through the same kernels: its encoding is packed with zero weight
+columns where the hyper bands would be, which is exact, and those columns'
+dW is dropped on unpack.
 """
 
 from __future__ import annotations
@@ -37,28 +42,56 @@ import torch.nn.functional as F
 
 from hypernerf_tpu_torch.kernels import build, common
 from hypernerf_tpu_torch.models.modules import NerfMLP, dense
-from hypernerf_tpu_torch.ops.posenc import posenc_orig
 
 RAW_PAD = 8  # columns of the raw input and its cotangent: [xyz | hyper | 0]
 
 
 class Template(NamedTuple):
-    """A template module and its encoding bands. (A ``fused_level.Level``
-    carries the same three fields and serves as one.)"""
+    """A template module and its encoding: bands of the xyz and of the hyper
+    coordinates, and the layout (``nerfies``: the Nerfies encoding from
+    degree 0, identity columns on the xyz alone; else posenc_orig). (A
+    ``fused_level.Level`` carries the same four fields and serves as one.)"""
     template: NerfMLP
     xyz_freq: int
     hyper_freq: int
+    nerfies: bool = False
 
 
 def n_hyper(tmpl) -> int:
     """Hyper coordinates the template's encoding holds (0: static)."""
     enc = tmpl.template.trunk.hidden(0).in_features
-    return (enc - 3 * (1 + 2 * tmpl.xyz_freq)) // (1 + 2 * tmpl.hyper_freq)
+    per = 2 * tmpl.hyper_freq + (0 if tmpl.nerfies else 1)
+    return (enc - 3 * (1 + 2 * tmpl.xyz_freq)) // per
 
 
-def template_layers(t: NerfMLP, enc_pad: int = 0):
+def encoding_segments(tmpl, nh: int):
+    """The encoding's segments as ``common.encoding_scales`` takes them:
+    (channels, bands, first degree, identity) of the xyz, then of the ``nh``
+    hyper coordinates (none when 0)."""
+    hyper_ident = not tmpl.nerfies
+    segs = ((3, tmpl.xyz_freq, 0, True),)
+    if nh:
+        segs += ((nh, tmpl.hyper_freq, 0, hyper_ident),)
+    return segs
+
+
+def template_scales(tmpl, nerf_alpha=None, hyper_alpha=None, device=None):
+    """The window row of a Nerfies template at the annealing alphas (fp32,
+    one weight per encoded feature: band k's sin and cos columns weigh
+    ``posenc_window``'s weight of band k, identity columns 1; an alpha of
+    None leaves its bands fully on), as the JAX model's
+    ``_template_enc_scales`` builds it; None for the original encoding."""
+    if not tmpl.nerfies:
+        return None
+    segs = encoding_segments(tmpl, n_hyper(tmpl))
+    return common.encoding_scales(segs, [nerf_alpha, hyper_alpha][:len(segs)],
+                                  device)
+
+
+def template_layers(t: NerfMLP, enc_pad: int = 0, cond_pad: int = 0):
     """Every Linear of the template in kernel order with its input segments;
-    the encoding is padded to ``enc_pad`` columns (default: to 16)."""
+    the encoding is padded to ``enc_pad`` columns and the condition to
+    ``cond_pad`` (default: to 16)."""
     enc = t.trunk.hidden(0).in_features
     tw = t.bottleneck.in_features
     bw = t.bottleneck.out_features
@@ -66,28 +99,42 @@ def template_layers(t: NerfMLP, enc_pad: int = 0):
     return (common.mlp_layers(t.trunk, [(enc, enc_pad or common.pad16(enc))])
             + [(t.bottleneck, [(tw, tw)]), (t.alpha_head, [(bw, bw)])]
             + common.mlp_layers(t.rgb_branch,
-                                [(bw, bw), (cond, common.pad16(cond))]))
+                                [(bw, bw),
+                                 (cond, cond_pad or common.pad16(cond))]))
+
+
+def kernel_template_layers(t: NerfMLP):
+    """``template_layers`` padded to the compiled slots (either layout)."""
+    return template_layers(t, common.TMPL_ENC_PAD, common.COND_PAD)
 
 
 def _segments(tmpl, x_raw):
-    """((raw columns, channels, bands), ...) of the encoding's segments."""
-    segs = [(x_raw[:, :3], 3, tmpl.xyz_freq)]
-    nh = n_hyper(tmpl)
-    if nh:
-        segs.append((x_raw[:, 3:3 + nh], nh, tmpl.hyper_freq))
-    return segs
+    """((raw columns, channels, bands, identity), ...) of the encoding's
+    segments."""
+    return [(x_raw[:, at:at + ch], ch, f, ident)
+            for at, (ch, f, _, ident) in zip(
+                (0, 3), encoding_segments(tmpl, n_hyper(tmpl)))]
 
 
-def _recompute(tmpl, x_raw, rgb_cond):
+def _encode(tmpl, x_raw, scales):
+    """(the segments' fp32 (sin, cos), the encoding in the compute dtype):
+    each feature rounded, then times the window row and rounded again
+    (``common.scaled``), as the kernels encode."""
+    segs = _segments(tmpl, x_raw)
+    trigs = [common.posenc_trig(x, f) for x, _, f, _ in segs]
+    feat = torch.cat([torch.cat(([x] if ident else []) + [sin, cos], dim=-1)
+                      for (x, _, _, ident), (sin, cos) in zip(segs, trigs)],
+                     dim=-1)
+    dt = tmpl.template.dtype
+    return segs, trigs, common.scaled(feat.to(dt), scales, dt)
+
+
+def _recompute(tmpl, x_raw, rgb_cond, scales=None):
     """The forward with everything the backward needs kept."""
     t = tmpl.template
     dt = t.dtype
     p, r = x_raw.shape[0], rgb_cond.shape[0]
-    segs = _segments(tmpl, x_raw)
-    trigs = [common.posenc_trig(x, f) for x, _, f in segs]
-    feat = torch.cat([torch.cat([x, sin, cos], dim=-1)
-                      for (x, _, _), (sin, cos) in zip(segs, trigs)], dim=-1)
-    x = feat.to(dt)
+    segs, trigs, x = _encode(tmpl, x_raw, scales)
     ins, outs, tl_in = common.mlp_recompute(t.trunk, x)
     hl = dense(tl_in, t.trunk.logit, dt, relu=True)
     bneck = dense(hl, t.bottleneck, dt).to(dt)
@@ -99,21 +146,22 @@ def _recompute(tmpl, x_raw, rgb_cond):
                 rl_in=rl_in)
 
 
-def fused_template_plain(tmpl, x_raw, rgb_cond):
+def fused_template_plain(tmpl, x_raw, rgb_cond, scales=None):
     """Plain PyTorch template forward.
 
     Args:
       x_raw: (P, 8) fp32 raw rows [xyz | hyper | 0].
       rgb_cond: (R, C) per-ray condition; each row serves P / R consecutive
         rows of ``x_raw``.
+      scales: a Nerfies template's (enc,) fp32 window row
+        (``template_scales``), or None (no window).
 
     Returns:
       (P, 4) fp32 [rgb logits (3) | raw sigma].
     """
     fused_template_plain.calls += 1
     p, r = x_raw.shape[0], rgb_cond.shape[0]
-    feat = torch.cat([posenc_orig(x, f) for x, _, f in _segments(tmpl, x_raw)],
-                     dim=-1)
+    feat = _encode(tmpl, x_raw, scales)[2]
     raw = tmpl.template(feat.reshape(r, p // r, -1), rgb_cond)
     return torch.cat([raw['rgb'], raw['alpha']],
                      dim=-1).reshape(p, -1).float()
@@ -122,12 +170,13 @@ def fused_template_plain(tmpl, x_raw, rgb_cond):
 fused_template_plain.calls = 0
 
 
-def fused_template_bwd_plain(tmpl, raw_t, rgb_cond, g):
+def fused_template_bwd_plain(tmpl, raw_t, rgb_cond, g, scales=None):
     """Plain template backward: recompute from ``raw_t``, then walk back.
 
     Args:
       raw_t: (P, 8) fp32 [xyz | hyper | 0]; rgb_cond: (R, C);
-      g: (P, 4) fp32 cotangent of [rgb logits | raw sigma].
+      g: (P, 4) fp32 cotangent of [rgb logits | raw sigma];
+      scales: the window row or None, as ``fused_template_plain`` takes it.
 
     Returns:
       dx_t (P, 8) fp32, d rgb_cond (R, C) fp32 summed per ray, and
@@ -139,7 +188,7 @@ def fused_template_bwd_plain(tmpl, raw_t, rgb_cond, g):
     dt, acc = t.dtype, common.acc_dtype(t.dtype)
     p, r = raw_t.shape[0], rgb_cond.shape[0]
     n_rgb = t.rgb_branch.logit.out_features
-    v = _recompute(tmpl, raw_t, rgb_cond)
+    v = _recompute(tmpl, raw_t, rgb_cond, scales)
 
     g = g.to(acc)
     dw_rl, db_rl, gg = common.head_bwd(t.rgb_branch.logit, v['rl_in'],
@@ -160,10 +209,13 @@ def fused_template_bwd_plain(tmpl, raw_t, rgb_cond, g):
     g_x, trunk_grads = common.hidden_bwd(t.trunk, v['ins'], v['outs'], gh,
                                          v['x'].shape[1])
 
+    if scales is not None:  # the window's VJP: a band of weight 0 passes none
+        g_x = g_x * scales.reshape(1, -1)
     dx, at = [], 0
-    for (_, ch, f), trig in zip(v['segs'], v['trigs']):
-        width = ch * (1 + 2 * f)
-        dx.append(common.posenc_bwd(g_x[:, at:at + width], trig, ch, f))
+    for (_, ch, f, ident), trig in zip(v['segs'], v['trigs']):
+        width = ch * (2 * f + (1 if ident else 0))
+        dx.append(common.posenc_bwd(g_x[:, at:at + width], trig, ch, f,
+                                    ident))
         at += width
     dx_t = torch.cat(dx, dim=-1).float()
     dx_t = F.pad(dx_t, (0, RAW_PAD - dx_t.shape[1]))
@@ -176,28 +228,49 @@ def fused_template_bwd_plain(tmpl, raw_t, rgb_cond, g):
 fused_template_bwd_plain.calls = 0
 
 
-def _check_covered(tmpl) -> None:
+def cond_width(tmpl) -> int:
+    """Columns of the template's rgb condition."""
+    t = tmpl.template
+    return t.rgb_branch.hidden(0).in_features - t.bottleneck.out_features
+
+
+def check_covered(tmpl) -> None:
+    """Raise unless the template has the widths of one of the compiled
+    layouts (``common.FLAGSHIP``'s or ``common.NERFIES``) in bf16."""
     t = tmpl.template
     nh = n_hyper(tmpl)
-    flag = common.FLAGSHIP
-    have = dict(xyz_freq=tmpl.xyz_freq,
-                rgb_cond=t.rgb_branch.hidden(0).in_features
-                - t.bottleneck.out_features)
+    layout = common.NERFIES if tmpl.nerfies else common.FLAGSHIP
+    have = dict(xyz_freq=tmpl.xyz_freq, rgb_cond=cond_width(tmpl))
     if nh:
         have.update(hyper_out=nh, hyper_freq=tmpl.hyper_freq)
+    want = {**common.FLAGSHIP, **layout}
     dtypes = {t.trunk.dtype, t.rgb_branch.dtype, t.dtype}
-    if any(flag[k] != v for k, v in have.items()) \
+    if any(want[k] != v for k, v in have.items()) \
             or dtypes != {torch.bfloat16}:
         raise NotImplementedError(f'{common.NOT_COVERED}; got {have}, '
                                   f'{dtypes}')
 
 
+def kernel_scales(tmpl, scales, device):
+    """The window row as the kernels take it: None for the original
+    encoding (which refuses a row), the Nerfies row zero-padded to
+    ``common.TMPL_ENC_PAD`` (a row of ones when None): its presence is what
+    selects the Nerfies layout in the C code."""
+    if not tmpl.nerfies:
+        if scales is not None:
+            raise ValueError('the original encoding takes no window row')
+        return None
+    enc = tmpl.template.trunk.hidden(0).in_features
+    if scales is None:
+        scales = torch.ones(enc, dtype=torch.float32, device=device)
+    return common.padded_scales(scales, enc, common.TMPL_ENC_PAD, device)
+
+
 def _launch_args(tmpl, x_raw, rgb_cond, transposed: bool):
     """Checked inputs of a kernel launch: the bf16 condition, the rows per
     condition row and the packed blobs."""
-    table = common.kernel_layout()[common.TEMPLATE_LAYERS]
-    layers = template_layers(tmpl.template, enc_pad=table[0][1])
-    check = lambda: _check_covered(tmpl)
+    layers = kernel_template_layers(tmpl.template)
+    check = lambda: check_covered(tmpl)
     packs = [common.pack_layers(tmpl.template, layers, check)]
     if transposed:
         packs.append(common.pack_layers(tmpl.template, layers, check,
@@ -207,39 +280,46 @@ def _launch_args(tmpl, x_raw, rgb_cond, transposed: bool):
     p, r = x_raw.shape[0], rgb_cond.shape[0]
     rgbc = rgb_cond.detach().to(torch.bfloat16).contiguous()
     build.check_tensor('x_raw', x_raw, (p, RAW_PAD), torch.float32, dev)
-    build.check_tensor('rgb_cond', rgbc, (r, common.FLAGSHIP['rgb_cond']),
+    build.check_tensor('rgb_cond', rgbc, (r, cond_width(tmpl)),
                        torch.bfloat16, dev)
     if r == 0 or p % r:
         raise ValueError(f'{p} samples do not divide into {r} rays')
     return rgbc, p // r, layers, packs
 
 
-def _forward(tmpl, x_raw, rgb_cond):
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def _forward(tmpl, x_raw, rgb_cond, scales=None):
     if common.runs_plain(x_raw, 'fused_template'):
-        return fused_template_plain(tmpl, x_raw, rgb_cond)
+        return fused_template_plain(tmpl, x_raw, rgb_cond, scales)
     rgbc, s, _, ((w_blob, b_blob, _),) = _launch_args(tmpl, x_raw, rgb_cond,
                                                      False)
+    scales = kernel_scales(tmpl, scales, x_raw.device)
     p = x_raw.shape[0]
     out = torch.empty((p, 4), dtype=torch.float32, device=x_raw.device)
     common.launch('hn_fused_template_fwd', x_raw.device, x_raw.data_ptr(),
-                  rgbc.data_ptr(), w_blob.data_ptr(), b_blob.data_ptr(),
-                  out.data_ptr(), p, s)
+                  rgbc.data_ptr(), _ptr(scales), w_blob.data_ptr(),
+                  b_blob.data_ptr(), out.data_ptr(), p, s)
     fused_template.launches += 1
     return out
 
 
-def fused_template(tmpl, x_raw, rgb_cond) -> torch.Tensor:
-    """Template forward; (P, 4) fp32 [rgb logits | raw sigma].
+def fused_template(tmpl, x_raw, rgb_cond, scales=None) -> torch.Tensor:
+    """Template forward; (P, 4) fp32 [rgb logits | raw sigma]. ``scales``:
+    a Nerfies template's window row (``template_scales``) or None.
 
     CPU tensors take ``fused_template_plain``; CUDA tensors launch the kernel
-    (flagship widths, bf16) or raise. Differentiable in ``x_raw``,
-    ``rgb_cond`` and the template's parameters (``FusedTemplateFn``).
+    (flagship widths, either layout, bf16) or raise. Differentiable in
+    ``x_raw``, ``rgb_cond`` and the template's parameters
+    (``FusedTemplateFn``).
     """
     params = common.layer_params(template_layers(tmpl.template))
     if torch.is_grad_enabled() and any(t.requires_grad
                                        for t in (x_raw, rgb_cond, *params)):
-        return FusedTemplateFn.apply(tmpl, x_raw, rgb_cond, *params)
-    return _forward(tmpl, x_raw, rgb_cond)
+        return FusedTemplateFn.apply(tmpl, scales, x_raw, rgb_cond, *params)
+    return _forward(tmpl, x_raw, rgb_cond, scales)
 
 
 fused_template.launches = 0
@@ -250,11 +330,11 @@ class FusedTemplateFn(torch.autograd.Function):
     raw input and the condition, the backward recomputes."""
 
     @staticmethod
-    def forward(ctx, tmpl, x_raw, rgb_cond, *params):
+    def forward(ctx, tmpl, scales, x_raw, rgb_cond, *params):
         x_raw, rgb_cond = x_raw.detach(), rgb_cond.detach()
         with torch.no_grad():
-            out = _forward(tmpl, x_raw, rgb_cond)
-        ctx.tmpl = tmpl
+            out = _forward(tmpl, x_raw, rgb_cond, scales)
+        ctx.tmpl, ctx.scales = tmpl, scales
         ctx.save_for_backward(x_raw, rgb_cond)
         return out
 
@@ -263,8 +343,8 @@ class FusedTemplateFn(torch.autograd.Function):
         x_raw, rgb_cond = ctx.saved_tensors
         with torch.no_grad():
             dx, d_cond, grads = fused_template_bwd(ctx.tmpl, x_raw, rgb_cond,
-                                                   g.contiguous())
-        return (None, dx, d_cond.to(rgb_cond.dtype), *grads)
+                                                   g.contiguous(), ctx.scales)
+        return (None, None, dx, d_cond.to(rgb_cond.dtype), *grads)
 
 
 # ---------------------------------------------------------------------------
@@ -317,13 +397,16 @@ def _segs(names):
 
 
 def template_bwd_chunks(ops, raw_t, rgbc, samples, g, w, wt, b, w_off,
-                        b_off, n_grads, max_rows: int = CHUNK_ROWS):
+                        b_off, n_grads, max_rows: int = CHUNK_ROWS,
+                        scales=None):
     """Kernel A's sequence. ``ops`` launches the steps (``_KernelOps`` on
     the card); ``w`` / ``wt`` / ``b``: each template layer's packed bf16
     weight, its transpose and its bias; ``w_off`` / ``b_off``: each layer's
-    offsets in the fp32 [dW | db] buffer of ``n_grads`` floats.
+    offsets in the fp32 [dW | db] buffer of ``n_grads`` floats; ``scales``:
+    the Nerfies layout's padded window row (``kernel_scales``), or None for
+    the original encoding.
 
-    Returns dx_t (P, 8), d rgb_cond (R, 39) and the [dW | db] buffer;
+    Returns dx_t (P, 8), d rgb_cond (R, C) and the [dW | db] buffer;
     ``ops.stash_bytes`` is set to the bytes of the stash it allocated."""
     dev, f32, bf = raw_t.device, torch.float32, torch.bfloat16
     p, s = raw_t.shape[0], samples
@@ -348,7 +431,7 @@ def template_bwd_chunks(ops, raw_t, rgbc, samples, g, w, wt, b, w_off,
         raw_c, g_c, cond_c = raw_t[r0:r1], g[r0:r1], rgbc[q0:q1]
         slab.zero_()
         # Recompute into the stash.
-        ops.encode(raw_c, stash, col['enc'], n)
+        ops.encode(raw_c, stash, col['enc'], n, scales)
         ops.ray_bias(cond_c, w[11], cond_col, ray_bias, q1 - q0)
         for l, ins, out, relu in WIDE_LAYERS:
             ops.rowprod(stash, n, _segs(ins), w[l],
@@ -383,7 +466,7 @@ def template_bwd_chunks(ops, raw_t, rgbc, samples, g, w, wt, b, w_off,
             if l == 5:  # the skip's part of the encoding's cotangent
                 ops.rowprod(cur, n, red, wt[l], n_out, 256, 1, enc_g, 0)
             cur, nxt = nxt, cur
-        ops.posenc_bwd(raw_c, enc_g, dx_t[r0:r1], n)
+        ops.posenc_bwd(raw_c, enc_g, dx_t[r0:r1], n, scales)
         ops.reduce(slab, grads)
     return dx_t, d_cond, grads
 
@@ -393,8 +476,10 @@ class _KernelOps:
     on ``device``'s current stream; made, and used, inside
     ``torch.cuda.device(device)``. Every buffer's leading dimension is
     passed from its tensor; the narrow steps are compiled for this module's
-    layout (``STASH_WIDTH``, ``GBUF``, the condition after the bottleneck)
-    and their entry points refuse another, which raises here."""
+    layout (``STASH_WIDTH``, ``GBUF``, the condition after the bottleneck,
+    39 or 27 condition columns) and their entry points refuse another,
+    which raises here. The encoding's two steps take the Nerfies layout
+    where they are given a window row."""
 
     splits = SPLITS
 
@@ -406,13 +491,13 @@ class _KernelOps:
     def _go(self, name, *args):
         build.check(getattr(self.lib, name)(*args, self.stream), name)
 
-    def encode(self, raw_t, stash, enc_col, n):
+    def encode(self, raw_t, stash, enc_col, n, scales):
         self._go('hn_tmpl_encode', raw_t.data_ptr(), stash.data_ptr(),
-                 stash.shape[1], enc_col, n)
+                 stash.shape[1], enc_col, n, _ptr(scales))
 
     def ray_bias(self, cond, w11, cond_col, out, rays):
         self._go('hn_tmpl_ray_bias', cond.data_ptr(), w11.data_ptr(),
-                 out.data_ptr(), rays, w11.shape[1], cond_col)
+                 out.data_ptr(), rays, w11.shape[1], cond_col, cond.shape[1])
 
     def rowprod(self, a, n, segs, w, n_red, w_row0, n_tiles, out, out_col0,
                 bias=None, ray_bias=None, samples=1, relu=False, mask=None,
@@ -442,7 +527,7 @@ class _KernelOps:
         self._go('hn_tmpl_cond_bwd', gout.data_ptr(), gout.shape[1],
                  gin.data_ptr(), gin.shape[1], cond_col, cond.data_ptr(),
                  d_cond.data_ptr(), slab.data_ptr(), slab.shape[1], w_off,
-                 k_pad, rays, samples, slab.shape[0])
+                 k_pad, rays, samples, slab.shape[0], cond.shape[1])
 
     def bneck_prep(self, g4, gin, stash, bneck_col, w10, gb, slab, w_off,
                    b_off, b9_off, n):
@@ -451,9 +536,9 @@ class _KernelOps:
                  w10.data_ptr(), gb.data_ptr(), gb.shape[1], slab.data_ptr(),
                  slab.shape[1], w_off, b_off, b9_off, n, slab.shape[0])
 
-    def posenc_bwd(self, raw_t, enc_g, dx_t, n):
+    def posenc_bwd(self, raw_t, enc_g, dx_t, n, scales):
         self._go('hn_tmpl_posenc_bwd', raw_t.data_ptr(), enc_g.data_ptr(),
-                 enc_g.shape[1], dx_t.data_ptr(), n)
+                 enc_g.shape[1], dx_t.data_ptr(), n, _ptr(scales))
 
     def reduce(self, slab, grads):
         self._go('hn_tmpl_reduce', slab.data_ptr(), slab.shape[0],
@@ -478,24 +563,26 @@ def layer_views(w_blob, wt_blob, b_blob, shapes):
     return w, wt, b, w_off, b_off, n_w + at_b
 
 
-def fused_template_bwd(tmpl, raw_t, rgb_cond, g):
+def fused_template_bwd(tmpl, raw_t, rgb_cond, g, scales=None):
     """Template backward (see ``fused_template_bwd_plain``): CPU tensors
     take the plain version, CUDA tensors launch kernel A's sequence
     (``template_bwd_chunks``) or raise. dW / db are deterministic: each
     chunk's slabs are summed in a fixed order. ``fused_template_bwd
     .stash_bytes`` holds the bytes of the last launched call's stash."""
     if common.runs_plain(raw_t, 'fused_template_bwd'):
-        return fused_template_bwd_plain(tmpl, raw_t, rgb_cond, g)
+        return fused_template_bwd_plain(tmpl, raw_t, rgb_cond, g, scales)
     rgbc, s, layers, ((w_blob, b_blob, shapes), (wt_blob, _, _)) = \
         _launch_args(tmpl, raw_t, rgb_cond, True)
     dev = raw_t.device
+    scales = kernel_scales(tmpl, scales, dev)
     build.check_tensor('g', g, (raw_t.shape[0], 4), torch.float32, dev)
     w, wt, b, w_off, b_off, n_grads = layer_views(w_blob, wt_blob, b_blob,
                                                   shapes)
     with torch.cuda.device(dev):
         ops = _KernelOps(dev)
         dx_t, d_cond, grads = template_bwd_chunks(
-            ops, raw_t, rgbc, s, g, w, wt, b, w_off, b_off, n_grads)
+            ops, raw_t, rgbc, s, g, w, wt, b, w_off, b_off, n_grads,
+            scales=scales)
     fused_template_bwd.launches += 1
     fused_template_bwd.stash_bytes = ops.stash_bytes
     n_w = b_off[0]

@@ -32,9 +32,20 @@ every sample. The translation warp's embedding is detached there (its
 gradient through J is exactly zero); the SE(3) / quaternion one is not. On the
 per-module branch the Jacobian is taken at every sample.
 
-``extra_params`` carries the annealing alphas. With the original template
-encoding only ``warp_alpha`` has an effect: it windows the bands of the SE(3)
-/ quaternion trunk's encoding, on both branches (None: no window).
+``extra_params`` carries the annealing alphas. ``warp_alpha`` windows the
+bands of the SE(3) / quaternion trunk's encoding, on both branches (None: no
+window). With the Nerfies encoding (``use_original_embed=False``, the anneal
+configuration) the template encodes the xyz over degrees 0..10 with identity
+and the hyper coordinates over 0..4 without, windowed by ``nerf_alpha`` and
+``hyper_alpha``, and the condition is posenc(viewdirs, 0, 4, identity)
+windowed by ``nerf_alpha``, as the JAX model's ``query_template`` and
+``get_condition_inputs``; on the level kernel and the template kernel the
+window is a row of weights, an input of every call
+(``fused_mlp.template_scales``). The condition and the window rows are
+built once per model call and shared by both levels; a caller that renders
+many chunks at fixed alphas builds the rows once (``window_rows``) and
+passes them in. The translation warp and the sheet ignore the alphas, as in
+the JAX model.
 
 The deterministic render draws nothing: coarse z is a linspace and the fine
 u is linspace(0, 1, N). The stochastic forward (training) draws, in the JAX
@@ -59,12 +70,14 @@ from torch import nn
 from hypernerf_tpu_torch.configs import NerfConfig
 from hypernerf_tpu_torch.kernels import (Level, Template, fused_composite,
                                          fused_level, fused_template)
-from hypernerf_tpu_torch.kernels.fused_mlp import RAW_PAD, n_hyper
+from hypernerf_tpu_torch.kernels.fused_mlp import (RAW_PAD, n_hyper,
+                                                   template_scales)
 from hypernerf_tpu_torch.kernels.fused_se3 import se3_encoding_scales
 from hypernerf_tpu_torch.models.modules import (GLOEmbed, HyperSheetMLP,
                                                 NerfMLP, torch_dtype)
 from hypernerf_tpu_torch.models.warping import WARP_FIELDS, TranslationField
-from hypernerf_tpu_torch.ops.posenc import posenc_orig, posenc_orig_channels
+from hypernerf_tpu_torch.ops.posenc import (posenc, posenc_channels,
+                                            posenc_orig, posenc_orig_channels)
 from hypernerf_tpu_torch.ops.rendering import (compute_depth_index,
                                                filter_sigma, noise_regularize,
                                                volumetric_rendering)
@@ -85,7 +98,13 @@ def unsupported(cfg: NerfConfig) -> list:
     if cfg.hyper_slice_method == 'axis_aligned_plane':
         out.append("slicing 'axis_aligned_plane' (ROADMAP A.9)")
     if not cfg.use_original_embed:
-        out.append('the Nerfies anneal encoding (ROADMAP A.9)')
+        if cfg.warp_field_type != 'translation':
+            out.append('the Nerfies anneal encoding with the SE(3) / '
+                       'quaternion warp (ROADMAP A.9)')
+        if (cfg.spatial_point_min_deg, cfg.hyper_point_min_deg,
+                cfg.viewdir_min_deg) != (0, 0, 0):
+            out.append('Nerfies bands from a degree other than 0 '
+                       '(ROADMAP A.13)')
     if cfg.use_nerf_embed or not cfg.use_viewdirs:
         out.append('conditions other than viewdirs (ROADMAP A.9)')
     if cfg.use_occupancy_grid:
@@ -97,8 +116,9 @@ def unsupported(cfg: NerfConfig) -> list:
 
 class NerfModel(nn.Module):
     """HyperNeRF with a translation, SE(3) or quaternion warp (or none), a
-    bendy sheet (or no hyper coordinates), posenc_orig encodings, one GLO
-    table or two, and a viewdir-conditioned rgb branch."""
+    bendy sheet (or no hyper coordinates), the posenc_orig or the Nerfies
+    template encoding, one GLO table or two, and a viewdir-conditioned rgb
+    branch."""
 
     def __init__(self, config: NerfConfig):
         super().__init__()
@@ -129,11 +149,20 @@ class NerfModel(nn.Module):
                 cfg.glo_dim, cfg.hyper_slice_out_dim, cfg.hyper_sheet_depth,
                 cfg.hyper_sheet_width, cfg.hyper_sheet_freq, cfg.skips,
                 cfg.hyper_sheet_use_residual, dtype=dt)
+        if cfg.use_original_embed:
+            in_ch = (posenc_orig_channels(3, cfg.xyz_freq)
+                     + (posenc_orig_channels(hyper_ch, cfg.hyper_freq)
+                        if hyper_ch else 0))
+            cond_ch = posenc_orig_channels(3, cfg.dir_freq)
+        else:
+            in_ch = (posenc_channels(3, cfg.spatial_point_min_deg,
+                                     cfg.spatial_point_max_deg, True)
+                     + posenc_channels(hyper_ch, cfg.hyper_point_min_deg,
+                                       cfg.hyper_point_max_deg))
+            cond_ch = posenc_channels(3, cfg.viewdir_min_deg,
+                                      cfg.viewdir_max_deg, True)
         template = dict(
-            in_ch=(posenc_orig_channels(3, cfg.xyz_freq)
-                   + (posenc_orig_channels(hyper_ch, cfg.hyper_freq)
-                      if hyper_ch else 0)),
-            rgb_cond_ch=posenc_orig_channels(3, cfg.dir_freq),
+            in_ch=in_ch, rgb_cond_ch=cond_ch,
             trunk_depth=cfg.trunk_depth, trunk_width=cfg.trunk_width,
             rgb_branch_depth=cfg.rgb_branch_depth,
             rgb_branch_width=cfg.rgb_branch_width,
@@ -146,10 +175,18 @@ class NerfModel(nn.Module):
     def _template(self, name: str) -> NerfMLP:
         return self.nerf_fine if name == 'fine' else self.nerf_coarse
 
-    def level(self, name: str) -> Level:
+    def _bands(self):
+        """(xyz bands, hyper bands, Nerfies layout) of the template's
+        encoding (``fused_mlp.Template``'s last three fields)."""
         cfg = self.config
+        if cfg.use_original_embed:
+            return cfg.xyz_freq, cfg.hyper_freq, False
+        return (cfg.spatial_point_max_deg - cfg.spatial_point_min_deg,
+                cfg.hyper_point_max_deg - cfg.hyper_point_min_deg, True)
+
+    def level(self, name: str) -> Level:
         return Level(self.warp_field, self.hyper_sheet_mlp,
-                     self._template(name), cfg.xyz_freq, cfg.hyper_freq)
+                     self._template(name), *self._bands())
 
     # ------------------------------------------------------------------ embeds
 
@@ -173,9 +210,37 @@ class NerfModel(nn.Module):
             return self.encode_warp_embed(metadata)
         return self._encode_embed(self.hyper_embed, metadata[HYPER_EMBED_KEY])
 
-    def get_condition_inputs(self, viewdirs):
-        """The per-ray rgb condition: posenc_orig of the view directions."""
-        return posenc_orig(viewdirs, self.config.dir_freq)
+    def get_condition_inputs(self, viewdirs, extra_params=None):
+        """The per-ray rgb condition: posenc_orig of the view directions, or
+        with the Nerfies encoding their ``posenc`` with identity, windowed
+        by ``nerf_alpha``."""
+        cfg = self.config
+        if cfg.use_original_embed:
+            return posenc_orig(viewdirs, cfg.dir_freq)
+        return posenc(viewdirs, cfg.viewdir_min_deg, cfg.viewdir_max_deg,
+                      use_identity=True,
+                      alpha=(extra_params or {}).get('nerf_alpha'))
+
+    def _template_scales(self, extra_params, device):
+        """The template's window row at ``extra_params``' ``nerf_alpha``
+        and ``hyper_alpha`` (the JAX model's ``_template_enc_scales``; the
+        two levels' templates share its layout); None with the original
+        encoding."""
+        ep = extra_params or {}
+        return template_scales(self.template_of('coarse'),
+                               ep.get('nerf_alpha'), ep.get('hyper_alpha'),
+                               device)
+
+    def window_rows(self, extra_params, device):
+        """The kernels' window rows at the annealing alphas
+        ``extra_params``: (the SE(3) / quaternion trunk's, the template's),
+        each None where there is no window. Tensors on ``device``, inputs of
+        each kernel call, shared by both levels."""
+        return (self._warp_scales(extra_params, device),
+                self._template_scales(extra_params, device))
+
+    def template_of(self, name: str) -> Template:
+        return Template(self._template(name), *self._bands())
 
     # ------------------------------------------------------------------- warps
 
@@ -219,31 +284,54 @@ class NerfModel(nn.Module):
 
     # ---------------------------------------------------------------- template
 
+    def _encode_points(self, points, extra_params):
+        """The template's encoding of (B, S, 3 + H) points, as the JAX
+        model's ``query_template`` computes it."""
+        cfg = self.config
+        ep = extra_params or {}
+        if cfg.use_original_embed:
+            feats = [posenc_orig(points[..., :3], cfg.xyz_freq)]
+            if points.shape[-1] > 3:
+                feats.append(posenc_orig(points[..., 3:], cfg.hyper_freq))
+        else:
+            feats = [posenc(points[..., :3], cfg.spatial_point_min_deg,
+                            cfg.spatial_point_max_deg, use_identity=True,
+                            alpha=ep.get('nerf_alpha'))]
+            if points.shape[-1] > 3:
+                feats.append(posenc(points[..., 3:], cfg.hyper_point_min_deg,
+                                    cfg.hyper_point_max_deg,
+                                    alpha=ep.get('hyper_alpha')))
+        return torch.cat(feats, dim=-1)
+
     def query_template(self, name: str, points, viewdirs,
-                       stratified: bool = True, noise=None, generator=None):
+                       stratified: bool = True, noise=None, generator=None,
+                       extra_params=None, rgb_cond=None, tmpl_row=None):
         """The template on (B, S, 3 + H) mapped points: (rgb (B, S, 3),
         sigma (B, S)), sigmoid and softplus applied in fp32 after the sigma
-        noise. CUDA tensors take the template kernel on the raw points; CPU
-        tensors the module on their encoding."""
+        noise. CUDA tensors take the template kernel on the raw points (with
+        the window row of the Nerfies encoding); CPU tensors the module on
+        their encoding. ``rgb_cond`` and ``tmpl_row``: the condition of
+        ``viewdirs`` and the template's window row, when the caller has
+        built them (else built here from ``extra_params``)."""
         cfg = self.config
-        rgb_cond = self.get_condition_inputs(viewdirs)
+        if rgb_cond is None:
+            rgb_cond = self.get_condition_inputs(viewdirs, extra_params)
         b, s, ch = points.shape
         mlp = self._template(name)
-        tmpl = Template(mlp, cfg.xyz_freq, cfg.hyper_freq)
+        tmpl = self.template_of(name)
         if ch != 3 + n_hyper(tmpl):
             raise ValueError(
                 f'the template takes points of {3 + n_hyper(tmpl)} channels '
                 f'([xyz | hyper]), got {ch}')
         if points.is_cuda:
             raw = F.pad(points.reshape(b * s, ch).float(), (0, RAW_PAD - ch))
-            packed = fused_template(tmpl, raw, rgb_cond).reshape(b, s, 4)
+            if tmpl_row is None:
+                tmpl_row = self._template_scales(extra_params, points.device)
+            packed = fused_template(tmpl, raw, rgb_cond, tmpl_row)
+            packed = packed.reshape(b, s, 4)
             raw_rgb, raw_alpha = packed[..., :3], packed[..., 3:]
         else:
-            feat = posenc_orig(points[..., :3], cfg.xyz_freq)
-            if ch > 3:
-                feat = torch.cat([feat, posenc_orig(points[..., 3:],
-                                                    cfg.hyper_freq)], dim=-1)
-            out = mlp(feat, rgb_cond)
+            out = mlp(self._encode_points(points, extra_params), rgb_cond)
             raw_rgb, raw_alpha = out['rgb'].float(), out['alpha'].float()
         raw_alpha = noise_regularize(
             raw_alpha, cfg.noise_std, stratified,
@@ -257,7 +345,7 @@ class NerfModel(nn.Module):
 
         Args:
           points: (N, 3) world positions; metadata_id: (N, 1) integer ids;
-          extra_params: the annealing alphas ('warp_alpha').
+          extra_params: the annealing alphas.
 
         Returns:
           (N,) densities.
@@ -274,7 +362,8 @@ class NerfModel(nn.Module):
                                  extra_params=extra_params)
         _, sigma = self.query_template(
             'fine' if cfg.num_fine_samples > 0 else 'coarse', warped,
-            torch.zeros_like(points), stratified=False)
+            torch.zeros_like(points), stratified=False,
+            extra_params=extra_params)
         return sigma[:, 0]
 
     # --------------------------------------------------------------- rendering
@@ -291,7 +380,8 @@ class NerfModel(nn.Module):
 
     def _fused_branch(self, use_warp: bool, return_points: bool,
                       metadata) -> bool:
-        """Whether a level runs as the level kernel (the JAX model's gate)."""
+        """Whether a level runs as the level kernel (the JAX model's gate,
+        which admits either template encoding)."""
         cfg = self.config
         return (use_warp and cfg.hyper_slice_method == 'bendy_sheet'
                 and cfg.hyper_use_warp_embed
@@ -326,14 +416,21 @@ class NerfModel(nn.Module):
                        return_points: bool = False, fine_u=None, noise=None,
                        generator=None, extra_params=None,
                        return_warp_jacobian: bool = False,
-                       subsample: bool = False, jacobian_u=None
+                       subsample: bool = False, jacobian_u=None,
+                       rgb_cond=None, window_rows=None
                        ) -> Dict[str, torch.Tensor]:
         """Warp, template and compositing of one level at depths ``z_vals``
         (B, S). ``noise``: (B, S) standard-normal draws of the sigma noise,
         drawn from ``generator`` when absent. ``return_warp_jacobian`` adds
         the warp Jacobian, on the fused branch subsampled when ``subsample``
-        (with the uniforms ``jacobian_u``)."""
+        (with the uniforms ``jacobian_u``). ``rgb_cond``: the condition of
+        ``viewdirs``; ``window_rows``: ``window_rows(extra_params)`` (each
+        built here when not given)."""
         cfg = self.config
+        if rgb_cond is None:
+            rgb_cond = self.get_condition_inputs(viewdirs, extra_params)
+        if window_rows is None:
+            window_rows = self.window_rows(extra_params, z_vals.device)
         points = origins[:, None, :] + z_vals[..., None] * directions[:, None,
                                                                       :]
         flags = dict(use_white_background=cfg.use_white_background,
@@ -342,8 +439,7 @@ class NerfModel(nn.Module):
             warp_embed = self.encode_warp_embed(metadata)
             packed = fused_level(
                 self.level(name), z_vals, origins, directions, warp_embed,
-                self.get_condition_inputs(viewdirs),
-                self._warp_scales(extra_params, z_vals.device))
+                rgb_cond, *window_rows)
             if not render_opts:
                 # The kernel adds its noise input to raw sigma, so the
                 # regularizer runs on zeros; it hands them back when off.
@@ -388,7 +484,8 @@ class NerfModel(nn.Module):
             hyper_point_override=metadata.get('hyper_point'),
             extra_params=extra_params)
         rgb, sigma = self.query_template(name, warped, viewdirs, stratified,
-                                         noise, generator)
+                                         noise, generator, extra_params,
+                                         rgb_cond, window_rows[1])
         sigma = filter_sigma(points, sigma, render_opts)
         out = {}
         if return_warp_jacobian and use_warp:
@@ -414,8 +511,8 @@ class NerfModel(nn.Module):
                 use_warp: bool = True, return_points: bool = False,
                 render_opts: Optional[Dict[str, Any]] = None,
                 extra_params: Optional[Dict[str, Any]] = None,
-                return_warp_jacobian: bool = False
-                ) -> Dict[str, Dict]:
+                return_warp_jacobian: bool = False,
+                window_rows=None) -> Dict[str, Dict]:
         """Render a batch of rays.
 
         Args:
@@ -439,11 +536,13 @@ class NerfModel(nn.Module):
             and per-ray 'med_points'.
           render_opts: ``filter_sigma`` options for the fine level
             ('dust_threshold', 'bounding_box').
-          extra_params: the annealing alphas; 'warp_alpha' windows the SE(3)
-            / quaternion trunk's encoding (absent or None: no window).
+          extra_params: the annealing alphas (see the module docstring;
+            absent or None: no window).
           return_warp_jacobian: each level also returns 'warp_jacobian'
             (B, S or K, 3, 3) and, when subsampled, 'warp_jacobian_weights'
             (B, K) (see the module docstring).
+          window_rows: ``window_rows(extra_params)``, when the caller has
+            built them (a render at fixed alphas); else built here.
 
         Returns:
           {'coarse': {...}, 'fine': {...}} with per-ray rgb / depth /
@@ -482,11 +581,16 @@ class NerfModel(nn.Module):
                                     device=z_vals.device)
             fine_u = fine_u.expand(n_rays, n_fine).contiguous()
 
+        if window_rows is None:
+            window_rows = self.window_rows(extra_params, origins.device)
         common = dict(use_warp=use_warp, stratified=stratified,
                       return_points=return_points, generator=generator,
                       extra_params=extra_params,
                       return_warp_jacobian=return_warp_jacobian,
-                      subsample=not deterministic)
+                      subsample=not deterministic,
+                      rgb_cond=self.get_condition_inputs(viewdirs,
+                                                         extra_params),
+                      window_rows=window_rows)
         # The compositing kernel draws the fine depths itself, except where
         # the fine level filters sigma: then ``sample_pdf`` does below.
         coarse = self.render_samples(

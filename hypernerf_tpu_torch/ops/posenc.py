@@ -45,11 +45,23 @@ def posenc_channels(in_ch: int, min_deg: int, max_deg: int,
 def posenc_window(min_deg: int, max_deg: int, alpha, device=None):
     """Hann window easing in the bands ``min_deg .. max_deg - 1`` as
     ``alpha`` grows: band k is fully on once ``alpha >= k + 1`` and off while
-    ``alpha <= k``. Returns (max_deg - min_deg,) fp32 weights in [0, 1]."""
+    ``alpha <= k``. Returns (max_deg - min_deg,) fp32 weights in [0, 1].
+
+    A Python number ``alpha`` enters the arithmetic as a scalar argument,
+    never as a tensor copied to ``device``: a blocking host-to-device copy
+    would wait for the device's queue on every call (a frame renders a
+    window per chunk and level)."""
     bands = torch.arange(min_deg, max_deg, dtype=torch.float32, device=device)
-    alpha = torch.as_tensor(alpha, dtype=torch.float32, device=device)
+    if isinstance(alpha, torch.Tensor):
+        alpha = alpha.to(device=bands.device, dtype=torch.float32)
     x = torch.clamp(alpha - bands, 0.0, 1.0)
     return 0.5 * (1.0 - torch.cos(torch.pi * x))
+
+
+def repeat_bands(window: torch.Tensor, channels: int) -> torch.Tensor:
+    """(F,) per-band weights -> (F * channels,), band k's weight at k *
+    channels + c (the block layout's columns)."""
+    return window[:, None].expand(-1, channels).reshape(-1)
 
 
 def posenc(x: torch.Tensor, min_deg: int, max_deg: int,
@@ -69,7 +81,7 @@ def posenc(x: torch.Tensor, min_deg: int, max_deg: int,
     sin_part, cos_part = torch.sin(xb), torch.cos(xb)
     if alpha is not None:
         window = posenc_window(min_deg, max_deg, alpha, x.device).detach()
-        window = window.repeat_interleave(c).to(x.dtype)
+        window = repeat_bands(window, c).to(x.dtype)
         sin_part, cos_part = sin_part * window, cos_part * window
     return torch.cat(([x] if use_identity else []) + [sin_part, cos_part],
                      dim=-1)

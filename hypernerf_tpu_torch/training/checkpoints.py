@@ -1,6 +1,8 @@
 """The port's weight file: ``torch.save`` of the model's state dict, with
-``nerf_config.json`` beside it (the port's ``load_weights``,
-``hypernerf_tpu/training/checkpoints.py:216``)."""
+``nerf_config.json`` beside it and, where training wrote one,
+``train_config.json`` (the port's ``load_weights``,
+``hypernerf_tpu/training/checkpoints.py:216``). A weight file carries no
+step."""
 
 from __future__ import annotations
 
@@ -8,9 +10,10 @@ import os
 
 import torch
 
-from hypernerf_tpu_torch.configs import NerfConfig
+from hypernerf_tpu_torch.configs import NerfConfig, TrainConfig
 
 CONFIG_NAME = 'nerf_config.json'
+TRAIN_CONFIG_NAME = 'train_config.json'
 
 
 def save_weights(path: str, state_dict: dict, config: NerfConfig) -> None:
@@ -33,6 +36,16 @@ def load_config(weight_path: str):
         return None
     with open(path) as f:
         return NerfConfig.from_json(f.read())
+
+
+def load_train_config(weight_path: str):
+    """The TrainConfig saved beside ``weight_path``, or None."""
+    path = os.path.join(os.path.dirname(os.path.abspath(weight_path)),
+                        TRAIN_CONFIG_NAME)
+    if not os.path.exists(path):
+        return None
+    with open(path) as f:
+        return TrainConfig.from_json(f.read())
 
 
 def load_weights(model: torch.nn.Module, path: str) -> None:

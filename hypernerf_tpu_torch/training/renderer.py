@@ -30,9 +30,12 @@ def quantize_rgb_u8(rgb: torch.Tensor) -> torch.Tensor:
 @torch.no_grad()
 def render_rays(model, rays, chunk: int = 8192, keep: Sequence[str] = KEEP,
                 levels: Optional[Sequence[str]] = None,
-                quantize: bool = False) -> Dict[str, Dict[str, np.ndarray]]:
+                quantize: bool = False,
+                extra_params: Optional[dict] = None
+                ) -> Dict[str, Dict[str, np.ndarray]]:
     """Render (N, 8|9) rays through ``model`` chunk by chunk, on the
-    model's device.
+    model's device, at the annealing alphas ``extra_params`` (the kernels'
+    window rows built once for every chunk).
 
     Returns numpy {level: {output: (N, ...)}} for the ``levels`` asked for
     (all when None); with ``quantize`` rgb comes back as uint8. A point
@@ -45,10 +48,12 @@ def render_rays(model, rays, chunk: int = 8192, keep: Sequence[str] = KEEP,
     if pad:
         rays = torch.cat([rays, rays[-1:].expand(pad, rays.shape[1])], 0)
     parts: Dict[str, Dict[str, list]] = {}
+    window_rows = model.window_rows(extra_params, device)
     for start in range(0, rays.shape[0], chunk):
         out = model(prepare_ray_dict(rays[start:start + chunk]),
                     deterministic=True, return_weights=False,
-                    return_points=any(k in POINT_OUTPUTS for k in keep))
+                    return_points=any(k in POINT_OUTPUTS for k in keep),
+                    extra_params=extra_params, window_rows=window_rows)
         for level, res in out.items():
             if levels is not None and level not in levels:
                 continue
@@ -64,16 +69,18 @@ def render_rays(model, rays, chunk: int = 8192, keep: Sequence[str] = KEEP,
 
 
 class ImageRenderer:
-    """``render_rays`` with its chunk, outputs and levels fixed."""
+    """``render_rays`` with its chunk, outputs, levels and annealing alphas
+    fixed."""
 
     def __init__(self, model, chunk: int = 8192, keep=KEEP, levels=None,
-                 quantize: bool = False):
+                 quantize: bool = False, extra_params=None):
         self.model = model
         self.chunk = chunk
         self.keep = tuple(keep)
         self.levels = None if levels is None else tuple(levels)
         self.quantize = quantize
+        self.extra_params = extra_params
 
     def __call__(self, rays) -> Dict[str, Dict[str, np.ndarray]]:
         return render_rays(self.model, rays, self.chunk, self.keep,
-                           self.levels, self.quantize)
+                           self.levels, self.quantize, self.extra_params)

@@ -20,6 +20,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Callable, Dict, Optional
 
+import numpy as np
 import torch
 
 from hypernerf_tpu_torch.configs import NerfConfig, TrainConfig
@@ -41,11 +42,30 @@ class TrainState:
 
 def compute_extra_params(nerf_cfg: NerfConfig, train_cfg: TrainConfig,
                          step: int) -> dict:
-    """Posenc annealing alphas at ``step``: none with the original encoding
-    (the flagship); the Nerfies window is ROADMAP A.9."""
+    """Posenc annealing alphas at ``step``, as the JAX package's
+    ``compute_extra_params``: none with the original encoding (the
+    flagship); with the Nerfies encoding ``nerf_alpha`` holds every spatial
+    band on, and ``warp_alpha`` / ``hyper_alpha`` (= ``hyper_sheet_alpha``)
+    ramp linearly to their band counts over ``warp_alpha_steps`` /
+    ``hyper_alpha_steps``, in float32 as JAX computes them."""
     if nerf_cfg.use_original_embed:
         return {}
-    raise NotImplementedError('the Nerfies anneal encoding: ROADMAP A.9')
+    f32 = np.float32
+    step = f32(step)
+
+    def ramp(steps, bands):
+        return float(np.minimum(step / f32(max(1, steps)), f32(1.0))
+                     * f32(bands))
+
+    hyper_alpha = ramp(train_cfg.hyper_alpha_steps,
+                       nerf_cfg.hyper_point_max_deg
+                       - nerf_cfg.hyper_point_min_deg)
+    return {'nerf_alpha': float(nerf_cfg.spatial_point_max_deg
+                                - nerf_cfg.spatial_point_min_deg),
+            'warp_alpha': ramp(train_cfg.warp_alpha_steps,
+                               nerf_cfg.warp_max_deg - nerf_cfg.warp_min_deg),
+            'hyper_alpha': hyper_alpha,
+            'hyper_sheet_alpha': hyper_alpha}
 
 
 def step_generator(state: TrainState, device) -> torch.Generator:

@@ -449,7 +449,7 @@ def test_launch_and_plan_match_the_c_signatures(warp, monkeypatch):
     arguments as ``build``'s ctypes signatures declare, of the declared
     kinds; the launch keeps its entry point's signature."""
     assert build._SIGNATURES['hn_fused_level_fwd'] == (
-        [ctypes.c_int] + [ctypes.c_void_p] * 10
+        [ctypes.c_int] + [ctypes.c_void_p] * 11
         + [ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p], ctypes.c_int)
     assert build._SIGNATURES['hn_fused_level_fwd_plan'] == (
         [ctypes.c_int] + [ctypes.c_void_p] * 3 + [ctypes.c_int],
@@ -477,8 +477,46 @@ def test_launch_and_plan_match_the_c_signatures(warp, monkeypatch):
     _check_kinds('hn_fused_level_fwd', launch)
     assert launch[0] == common.WARP_CODES[warp]
     assert launch[-3:] == (rays, samples, 7)
+    assert launch[7] is None  # no template window row: posenc_orig
     _check_kinds('hn_fused_level_fwd_plan', plan)
     assert plan[0] == common.WARP_CODES[warp] and plan[-1] == 1024
+
+
+def test_each_template_layout_is_its_own_instantiation():
+    """The template's layout is a template parameter: the three warp types'
+    sources compile the posenc_orig layout alone, ``level_fwd_anneal.cu``
+    the translation warp with the Nerfies layout, and
+    ``hn_fused_level_fwd`` sends a window row to that one and refuses it
+    with another warp type; the template alone is compiled for both."""
+    src = {p.name: ' '.join(p.read_text().split())
+           for p in build._sources()}
+    for stem, code in (('trans', 0), ('se3', 1), ('quat', 2)):
+        assert f'launch_level_fwd<{code}, false>(' in src[
+            f'level_fwd_{stem}.cu']
+        assert 'true>' not in src[f'level_fwd_{stem}.cu']
+    assert 'launch_level_fwd<0, true>(' in src['level_fwd_anneal.cu']
+    assert sorted(n for n, text in src.items()
+                  if 'launch_level_fwd<' in text) == [
+        f'level_fwd_{s}.cu' for s in ('anneal', 'quat', 'se3', 'trans')]
+    entry = src['fused_level.cu']
+    assert ('if (warp_type == 0) return (tmpl_scales ? hn_level_fwd_anneal '
+            ': hn_level_fwd_trans)(') in entry
+    assert 'if (tmpl_scales) return (int)cudaErrorInvalidValue;' in entry
+    template = src['modular_fwd.cu']
+    assert ('if (scales) return hn_template_fwd_anneal(' in template
+            and 'return lf::launch_template<false>(' in template)
+    assert 'return lf::launch_template<true>(' in src[
+        'template_fwd_anneal.cu']
+    assert 'bool nerfies' not in src['level_fwd.cuh']
+
+
+def test_build_log_keeps_each_sources_seconds():
+    """``build.nvcc_seconds`` reads each source's wall seconds from the
+    sections ``build.build`` writes, and skips the link's."""
+    log = ('== a.cu\nnvcc 12.5 s\nptxas info : Used 96 registers\n\n'
+           '== b.cu\nnvcc 40.0 s\n\n== link\n\n')
+    assert build.nvcc_seconds(log) == {'a.cu': 12.5, 'b.cu': 40.0}
+    assert build.nvcc_seconds('') == {}
 
 
 class _Null:

@@ -119,13 +119,15 @@ def test_image_renderer_pads_and_quantizes():
 @pytest.mark.parametrize('override', [
     dict(warp_field_type='se3', use_original_embed=False),
     dict(hyper_slice_method='axis_aligned_plane'),
-    dict(use_original_embed=False), dict(use_occupancy_grid=True),
+    dict(use_original_embed=False, spatial_point_min_deg=1),
+    dict(use_occupancy_grid=True),
     dict(use_warp=False, hyper_slice_method='none', use_viewdirs=False)],
     ids=['se3', 'plane', 'anneal', 'occupancy', 'static'])
 def test_unported_configs_raise(override):
     """(The static NeRF itself is ported; without view directions on its
     template it is not yet. The SE(3) warp is ported with the original
     template encoding; with the annealed one, as it is usually trained, not
-    yet.)"""
+    yet. The annealed encoding is ported with bands from degree 0, the
+    configuration's; from another degree not yet.)"""
     with pytest.raises(NotImplementedError, match='ROADMAP'):
         NerfModel(_cfg(**override))

@@ -363,7 +363,7 @@ def test_launches_match_the_c_signatures(monkeypatch):
     p_, i_, l_ = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     assert build._SIGNATURES['hn_fused_field_fwd'] == ([i_] + [p_] * 5
                                                        + [l_, p_], i_)
-    assert build._SIGNATURES['hn_fused_template_fwd'] == ([p_] * 5
+    assert build._SIGNATURES['hn_fused_template_fwd'] == ([p_] * 6
                                                           + [l_, i_, p_], i_)
     assert build._SIGNATURES['hn_modular_fwd_plan'] == ([i_] + [p_] * 3
                                                         + [i_], i_)
@@ -402,6 +402,7 @@ def test_launches_match_the_c_signatures(monkeypatch):
     assert w0[2] is None and w1[2] is not None and s0[2] is None
     assert w0[-2:] == (37 * 13, 7)
     assert t13[-3:] == (37 * 13, 13, 7) and t1[-3:] == (37 * 13, 1, 7)
+    assert t13[2] is None and t1[2] is None  # posenc_orig: no window row
     assert [args[0] for _, args in lib.calls[5:]] == [
         MODULE_STAGE_CODES[s] for s in STAGES]
     assert all(args[-1] == 1024 for _, args in lib.calls[5:])

@@ -23,12 +23,12 @@ import numpy as np
 import pytest
 import torch
 
-from hypernerf_tpu_torch.kernels import Template, build, common, fused_mlp
+from hypernerf_tpu_torch.kernels import build, common, fused_mlp
 from hypernerf_tpu_torch.kernels.fused_mlp import (
     STASH_COL, STASH_COLUMNS, STASH_WIDTH, STASH_WIDTHS, WIDE_LAYERS,
     chunk_plan, fused_template_bwd_plain, layer_views, template_bwd_chunks,
     template_layers)
-from hypernerf_tpu_torch.ops.posenc import posenc_orig
+from hypernerf_tpu_torch.ops.posenc import posenc, posenc_orig
 from tests.test_torch_fused_mlp import _port_template, _setup
 
 BF = torch.bfloat16
@@ -91,8 +91,7 @@ def _flagship_template(config='flagship'):
     from hypernerf_tpu_torch.flagship import (flagship_model,
                                               load_probe_weights)
     model = load_probe_weights(flagship_model('cpu', config=config))
-    cfg = model.config
-    return Template(model.nerf_fine, cfg.xyz_freq, cfg.hyper_freq)
+    return model.template_of('fine')
 
 
 def test_stash_column_plan_matches_the_template():
@@ -139,14 +138,22 @@ class TorchOps:
                  min(n, t * (z + 1) // self.splits * tile))
                 for z in range(self.splits)]
 
-    def encode(self, raw_t, stash, enc_col, n):
-        enc = torch.cat([posenc_orig(raw_t[:, :3], 10),
-                         posenc_orig(raw_t[:, 3:7], 6)], -1)
-        stash[:n, enc_col:enc_col + 128] = torch.nn.functional.pad(
-            enc, (0, 13)).to(BF)
+    def encode(self, raw_t, stash, enc_col, n, scales):
+        if scales is None:
+            enc = torch.cat([posenc_orig(raw_t[:, :3], 10),
+                             posenc_orig(raw_t[:, 3:7], 6)], -1)
+        else:  # the Nerfies layout, each feature rounded, windowed, rounded
+            enc = torch.cat([posenc(raw_t[:, :3], 0, 10, True),
+                             posenc(raw_t[:, 3:7], 0, 4)], -1)
+        enc = torch.nn.functional.pad(enc, (0, 128 - enc.shape[1])).to(BF)
+        if scales is not None:
+            enc = (enc.float() * scales).to(BF)
+        stash[:n, enc_col:enc_col + 128] = enc
 
     def ray_bias(self, cond, w11, cond_col, out, rays):
-        out[:rays] = cond.float() @ w11[:, cond_col:cond_col + 39].float().t()
+        width = cond.shape[1]
+        out[:rays] = cond.float() @ w11[:, cond_col:cond_col
+                                        + width].float().t()
 
     def rowprod(self, a, n, segs, w, n_red, w_row0, n_tiles, out, out_col0,
                 bias=None, ray_bias=None, samples=1, relu=False, mask=None,
@@ -191,8 +198,9 @@ class TorchOps:
 
     def cond_bwd(self, gout, gin, cond_col, cond, d_cond, slab, w_off, k_pad,
                  rays, samples):
-        n, c = rays * samples, slice(cond_col, cond_col + 39)
-        d_cond[:] = gin[:n, c].float().view(rays, samples, 39).sum(1)
+        width = cond.shape[1]
+        n, c = rays * samples, slice(cond_col, cond_col + width)
+        d_cond[:] = gin[:n, c].float().view(rays, samples, width).sum(1)
         gs = gout[:n, :128].float().view(rays, samples, 128).sum(1)
         for z, (q0, q1) in enumerate(self._ranges(rays)):
             slab[z, w_off:w_off + 128 * k_pad].view(128, k_pad)[:, c] = \
@@ -210,12 +218,17 @@ class TorchOps:
             slab[z, w_off:w_off + 128] = gsb[r0:r1] @ h[r0:r1]
             slab[z, b_off] = gs[r0:r1].sum()
 
-    def posenc_bwd(self, raw_t, enc_g, dx_t, n):
+    def posenc_bwd(self, raw_t, enc_g, dx_t, n, scales):
         gx = enc_g[:n, :128].float() + enc_g[:n, 128:].float()
+        hyper, ident = (6, True) if scales is None else (4, False)
+        if scales is not None:
+            gx = gx * scales
         dx_t[:, :3] = common.posenc_bwd(
             gx[:, :63], common.posenc_trig(raw_t[:, :3], 10), 3, 10)
+        width = 4 * (2 * hyper + ident)
         dx_t[:, 3:7] = common.posenc_bwd(
-            gx[:, 63:115], common.posenc_trig(raw_t[:, 3:7], 6), 4, 6)
+            gx[:, 63:63 + width], common.posenc_trig(raw_t[:, 3:7], hyper),
+            4, hyper, ident)
         dx_t[:, 7] = 0
 
     def reduce(self, slab, grads):
@@ -225,13 +238,15 @@ class TorchOps:
 @torch.no_grad()
 @pytest.mark.parametrize('config,rays,samples,max_rows', [
     ('flagship', 37, 13, 100), ('flagship', 96, 1, 40),
-    ('static', 20, 16, 1 << 19)])
+    ('static', 20, 16, 1 << 19), ('anneal', 37, 13, 100)])
 def test_kernel_sequence_matches_the_plain_backward(config, rays, samples,
                                                     max_rows):
     """``template_bwd_chunks`` (several chunks, ragged rows, 3 slabs)
     through ``TorchOps`` reproduces ``fused_template_bwd_plain`` at the
     flagship widths in bf16: the stash columns, the order of the steps, the
-    masks, the skip's two cotangents, the heads and the condition."""
+    masks, the skip's two cotangents, the heads and the condition; for
+    ``anneal`` the Nerfies layout with its window row at hyper_alpha 1.5
+    and a 27-column condition."""
     tmpl = _flagship_template(config)
     t = tmpl.template
     rs = np.random.RandomState(rays + samples)
@@ -241,11 +256,15 @@ def test_kernel_sequence_matches_the_plain_backward(config, rays, samples,
     if config != 'static':
         x[:, 3:7] = rs.randn(p, 4) * 0.3
     raw = torch.from_numpy(x)
-    cond = torch.from_numpy(rs.randn(rays, 39).astype(np.float32)).to(BF)
+    width = fused_mlp.cond_width(tmpl)
+    cond = torch.from_numpy(rs.randn(rays, width).astype(np.float32)).to(BF)
     g = torch.from_numpy(rs.randn(p, 4).astype(np.float32))
-    want = fused_template_bwd_plain(tmpl, raw, cond, g)
+    scales = fused_mlp.template_scales(tmpl, 10.0, 1.5)
+    want = fused_template_bwd_plain(tmpl, raw, cond, g, scales)
+    if scales is not None:
+        scales = torch.nn.functional.pad(scales, (0, 128 - scales.shape[0]))
 
-    layers = template_layers(t, enc_pad=128)
+    layers = fused_mlp.kernel_template_layers(t)
     w_blob, b_blob, shapes = common.pack_layers(t, layers)
     wt_blob = common.pack_layers(t, layers, transposed=True)[0]
     w, wt, b, w_off, b_off, n_grads = layer_views(w_blob, wt_blob, b_blob,
@@ -253,7 +272,7 @@ def test_kernel_sequence_matches_the_plain_backward(config, rays, samples,
     ops = TorchOps(3)
     dx_t, d_cond, grads = template_bwd_chunks(
         ops, raw, cond, samples, g, w, wt, b, w_off, b_off, n_grads,
-        max_rows)
+        max_rows, scales)
     rows = max(r1 - r0 for r0, r1 in chunk_plan(p, samples, max_rows))
     assert ops.stash_bytes == rows * STASH_WIDTH * 2
     n_w = b_off[0]

@@ -268,9 +268,12 @@ def test_unported_training_options_name_their_roadmap_item():
         with pytest.raises(NotImplementedError, match=item):
             get_optimizer(port_configs.TrainConfig(**kw), model.parameters(),
                           10)
-    # The elastic and background losses are ported (A.11); the annealing
-    # schedule of the Nerfies encoding is not.
+    # The elastic and background losses are ported (A.11), and so is the
+    # annealing schedule of the Nerfies encoding; the anneal family with
+    # the SE(3) warp is not.
+    anneal = port_configs.NerfConfig(**ARCH, use_original_embed=False)
+    assert compute_extra_params(anneal, port_configs.TrainConfig(),
+                                0)['hyper_alpha'] == 0.0
     with pytest.raises(NotImplementedError, match='A.9'):
-        compute_extra_params(
-            port_configs.NerfConfig(**ARCH, use_original_embed=False),
-            port_configs.TrainConfig(), 0)
+        NerfModel(port_configs.NerfConfig(**ARCH, use_original_embed=False,
+                                          warp_field_type='se3'))

@@ -9,7 +9,8 @@ kernels on a card that has no JAX.
       [--modular_out tests/data/fused_modular_jax_ref.npz] \
       [--se3_out tests/data/fused_se3_jax_ref.npz] \
       [--jacobian_out tests/data/fused_jacobian_jax_ref.npz] \
-      [--only se3|jacobian]
+      [--anneal_out tests/data/fused_anneal_jax_ref.npz] \
+      [--only se3|jacobian|anneal]
 
 The weights are ``hypernerf_tpu_torch.flagship.load_probe_weights`` (numpy,
 seed 0), which the card redraws bit for bit; the inputs
@@ -46,6 +47,15 @@ trunk, with and without the ``warp_alpha`` window ([w | v | dw | dv], dx and
 dW / db of its nine layers, and J of the SE(3) and of the quaternion warp
 through the side channel's retraction JVP, ``fused_se3_warp_jacobian``). ``tests/test_torch_fused_jacobian.py``
 recomputes and checks it. ``--only jacobian`` writes that file alone.
+The anneal file holds the numbers of the ``anneal`` configuration (the
+Nerfies template encoding) at its probe weights and at the annealing alphas
+of ``flagship.ANNEAL_PROBE_STEP`` (hyper_alpha 1.5 of 4 bands): the level
+kernel with its template window row (``flagship.ANNEAL_LEVEL_CASES``:
+outputs, and for the stored cotangent the gradients of every ray input and
+of all 30 layers) and ``fused_nerf_mlp`` with its windowed in-kernel
+encoding (``flagship.ANNEAL_TEMPLATE_CASES``: outputs, dx, d rgb_cond and
+dW / db of its 16 layers). ``tests/test_torch_anneal.py`` recomputes and
+checks it. ``--only anneal`` writes that file alone.
 """
 
 from __future__ import annotations
@@ -62,14 +72,16 @@ def probe_model():
     return load_probe_weights(flagship_model('cpu'))
 
 
-def _jax_level_fn(model, level: str, inputs, warp_alpha=None, **spec_kw):
+def _jax_level_fn(model, level: str, inputs, warp_alpha=None,
+                  tmpl_alphas=(None, None), **spec_kw):
     """(fn, args): ``fn(*args)`` is the JAX level kernel's packed output
     with the weights of ``model``'s ``level``; args are the five ray inputs
     in ``LEVEL_INPUTS`` order, then the warp, hyper and template (W, b)
-    pair lists. The warp type is the model's; ``warp_alpha`` windows the
-    SE(3) / quaternion trunk's encoding (None: a row of ones, as the JAX
-    model threads it). ``spec_kw`` overrides fields of the spec (the backward
-    schedule)."""
+    pair lists. The warp type and the template encoding are the model's;
+    ``warp_alpha`` windows the SE(3) / quaternion trunk's encoding (None: a
+    row of ones, as the JAX model threads it), ``tmpl_alphas`` (nerf_alpha,
+    hyper_alpha) the Nerfies template encoding's bands. ``spec_kw``
+    overrides fields of the spec (the backward schedule)."""
     import jax.numpy as jnp
 
     from hypernerf_tpu.ops.pallas.fused_field import (encoding_scales,
@@ -93,22 +105,32 @@ def _jax_level_fn(model, level: str, inputs, warp_alpha=None, **spec_kw):
         hyper_depth=cfg.hyper_sheet_depth, hyper_width=cfg.hyper_sheet_width,
         hyper_sheet_freq=cfg.hyper_sheet_freq,
         hyper_out=cfg.hyper_slice_out_dim, xyz_freq=cfg.xyz_freq,
-        hyper_freq=cfg.hyper_freq, trunk_depth=cfg.trunk_depth,
+        hyper_freq=cfg.hyper_freq,
+        use_original_embed=cfg.use_original_embed,
+        spatial_min_deg=cfg.spatial_point_min_deg,
+        spatial_max_deg=cfg.spatial_point_max_deg,
+        hyper_min_deg=cfg.hyper_point_min_deg,
+        hyper_max_deg=cfg.hyper_point_max_deg, trunk_depth=cfg.trunk_depth,
         trunk_width=cfg.trunk_width, rgb_depth=cfg.rgb_branch_depth,
         rgb_width=cfg.rgb_branch_width,
         rgb_cond_ch=inputs['rgb_cond'].shape[1], alpha_cond_ch=0,
         skips=tuple(cfg.skips), tile=512, bwd_tile=256, interpret=True,
         compute_dtype=cfg.compute_dtype, cond_samples=s,
         pipelined_bwd=cfg.pallas_pipelined_bwd)._replace(**spec_kw)
-    warp_scales = None
+    warp_scales = tmpl_scales = None
     if screw:
         warp_scales = encoding_scales(
             spec.warp_fs.enc_segments,
             [None if warp_alpha is None else jnp.float32(warp_alpha), None])
+    if not cfg.use_original_embed:
+        tmpl_scales = encoding_scales(
+            spec.tmpl_enc_segments,
+            [None if a is None else jnp.float32(a) for a in tmpl_alphas])
 
     def fn(z_vals, origins, directions, embed, rgb_cond, warp, hyper, tmpl):
         return fused_level(spec, None, embed, rgb_cond, None, warp, hyper,
-                           tmpl, warp_enc_scales=warp_scales,
+                           tmpl, tmpl_enc_scales=tmpl_scales,
+                           warp_enc_scales=warp_scales,
                            origins=origins, directions=directions,
                            z_vals=z_vals, return_packed=True)[:, :4]
 
@@ -122,17 +144,18 @@ def _jax_level_fn(model, level: str, inputs, warp_alpha=None, **spec_kw):
     return fn, args
 
 
-def jax_level(model, level: str, inputs, warp_alpha=None) -> 'np.ndarray':
+def jax_level(model, level: str, inputs, warp_alpha=None,
+              tmpl_alphas=(None, None)) -> 'np.ndarray':
     """(R * S, 4) [rgb logits | raw sigma] of the JAX level kernel with the
     weights of ``model``'s ``level`` ('coarse' or 'fine')."""
     import jax
     import numpy as np
-    fn, args = _jax_level_fn(model, level, inputs, warp_alpha)
+    fn, args = _jax_level_fn(model, level, inputs, warp_alpha, tmpl_alphas)
     return np.asarray(jax.device_get(fn(*args)))
 
 
 def jax_level_grads(model, level: str, inputs, cotangent, warp_alpha=None,
-                    **spec_kw) -> dict:
+                    tmpl_alphas=(None, None), **spec_kw) -> dict:
     """Gradients of sum(level output * cotangent) through the JAX level
     kernel's own backward: {'d_<input>'} for the five ray inputs and
     {'dw<l>', 'db<l>'} for the level's layers (30, or 32 with the SE(3) /
@@ -140,7 +163,8 @@ def jax_level_grads(model, level: str, inputs, cotangent, warp_alpha=None,
     import jax
     import jax.numpy as jnp
     import numpy as np
-    fn, args = _jax_level_fn(model, level, inputs, warp_alpha, **spec_kw)
+    fn, args = _jax_level_fn(model, level, inputs, warp_alpha, tmpl_alphas,
+                             **spec_kw)
     from hypernerf_tpu_torch.flagship import LEVEL_INPUTS
 
     def loss(*a):
@@ -398,6 +422,91 @@ def jax_jacobian(model, case: str, inputs) -> dict:
     return res
 
 
+def jax_anneal_template(model, level: str, inputs,
+                        tmpl_alphas=(None, None)) -> dict:
+    """The JAX template kernel's numbers (``fused_nerf_mlp`` with its
+    windowed Nerfies encoding, interpret mode) with the weights of
+    ``model``'s ``level``: 'out' (P, 4), and for sum(out * cotangent) 'dx'
+    (P, 8), 'd_rgb_cond', 'dw<l>' as (out, in) and 'db<l>' of its 16
+    layers."""
+    import jax
+    import jax.numpy as jnp
+    import numpy as np
+
+    from hypernerf_tpu.ops.pallas.fused_field import encoding_scales
+    from hypernerf_tpu.ops.pallas.fused_mlp import (FusedMLPSpec,
+                                                    fused_nerf_mlp,
+                                                    nerf_mlp_params_to_list)
+    from hypernerf_tpu_torch.convert import params_to_jax
+
+    cfg = model.config
+    params = params_to_jax(model.state_dict())
+    hyper = cfg.hyper_slice_out_dim
+    segments = ((3, cfg.spatial_point_max_deg - cfg.spatial_point_min_deg,
+                 cfg.spatial_point_min_deg, True),
+                (hyper, cfg.hyper_point_max_deg - cfg.hyper_point_min_deg,
+                 cfg.hyper_point_min_deg, False))
+    per = inputs['x_raw'].shape[0] // inputs['rgb_cond'].shape[0]
+    spec = FusedMLPSpec(
+        in_ch=sum(c * (2 * f + ident) for c, f, _, ident in segments),
+        windowed=True, trunk_depth=cfg.trunk_depth,
+        trunk_width=cfg.trunk_width, rgb_depth=cfg.rgb_branch_depth,
+        rgb_width=cfg.rgb_branch_width, skips=tuple(cfg.skips),
+        rgb_cond_ch=inputs['rgb_cond'].shape[1], tile=256, bwd_tile=128,
+        compute_dtype=cfg.compute_dtype, enc_segments=segments,
+        cond_samples=per if per > 1 else 0, interpret=True)
+    scales = encoding_scales(
+        segments, [None if a is None else jnp.float32(a) for a in tmpl_alphas])
+
+    def fn(x_raw, rgb_cond, pairs):
+        out = fused_nerf_mlp(spec, x_raw[:, :3 + hyper], rgb_cond, None,
+                             pairs, enc_scales=scales)
+        return jnp.concatenate([out['rgb'], out['alpha']], -1)
+
+    args = [jnp.asarray(inputs['x_raw']), jnp.asarray(inputs['rgb_cond']),
+            [(jnp.asarray(w), jnp.asarray(b)) for w, b in
+             nerf_mlp_params_to_list(params[f'nerf_{level}'])]]
+    cot = jnp.asarray(inputs['cotangent'])
+    g = jax.device_get(jax.grad(lambda *a: jnp.sum(fn(*a) * cot),
+                                argnums=(0, 1, 2))(*args))
+    res = {'out': np.asarray(jax.device_get(fn(*args)), np.float32),
+           'dx': np.asarray(g[0], np.float32),
+           'd_rgb_cond': np.asarray(g[1], np.float32)}
+    for layer, (dw, db) in enumerate(g[2]):
+        res[f'dw{layer}'] = np.asarray(dw, np.float32).T.copy()
+        res[f'db{layer}'] = np.asarray(db, np.float32)
+    return res
+
+
+def anneal_reference() -> dict:
+    """Every array of the anneal file: each case's inputs and numbers."""
+    from hypernerf_tpu_torch.flagship import (ANNEAL_LEVEL_CASES,
+                                              ANNEAL_TEMPLATE_CASES,
+                                              anneal_extra_params,
+                                              anneal_probe_inputs,
+                                              flagship_model,
+                                              load_probe_weights)
+    model = load_probe_weights(flagship_model('cpu', config='anneal'))
+    ep = anneal_extra_params()
+    alphas = (ep['nerf_alpha'], ep['hyper_alpha'])
+    arrays = {}
+    for case, (level, *_) in ANNEAL_LEVEL_CASES.items():
+        inputs = anneal_probe_inputs(case)
+        arrays.update({f'{case}/{k}': v for k, v in inputs.items()})
+        rays = {k: v for k, v in inputs.items() if k != 'cotangent'}
+        arrays[f'{case}/out'] = jax_level(model, level, rays,
+                                          tmpl_alphas=alphas)
+        arrays.update({f'{case}/{k}': v for k, v in jax_level_grads(
+            model, level, rays, inputs['cotangent'],
+            tmpl_alphas=alphas).items()})
+    for case, (level, *_) in ANNEAL_TEMPLATE_CASES.items():
+        inputs = anneal_probe_inputs(case)
+        arrays.update({f'{case}/{k}': v for k, v in inputs.items()})
+        arrays.update({f'{case}/{k}': v for k, v in jax_anneal_template(
+            model, level, inputs, alphas).items()})
+    return arrays
+
+
 def jacobian_reference() -> dict:
     """Every array of the Jacobian file: each case's inputs and numbers."""
     from hypernerf_tpu_torch.flagship import (JACOBIAN_CASES, flagship_model,
@@ -477,7 +586,8 @@ def gradient_reference(model) -> dict:
 def main():
     import numpy as np
 
-    from hypernerf_tpu_torch.flagship import (GRAD_REFERENCE,
+    from hypernerf_tpu_torch.flagship import (ANNEAL_REFERENCE,
+                                              GRAD_REFERENCE,
                                               LEVEL_REFERENCE,
                                               LEVEL_REFERENCE_CASES,
                                               MODULAR_REFERENCE,
@@ -489,10 +599,15 @@ def main():
     parser.add_argument('--modular_out', default=MODULAR_REFERENCE)
     parser.add_argument('--se3_out', default=SE3_REFERENCE)
     parser.add_argument('--jacobian_out', default=JACOBIAN_REFERENCE)
-    parser.add_argument('--only', choices=('se3', 'jacobian'), default=None,
-                        help='write the SE(3) or the Jacobian file alone')
+    parser.add_argument('--anneal_out', default=ANNEAL_REFERENCE)
+    parser.add_argument('--only', choices=('se3', 'jacobian', 'anneal'),
+                        default=None, help='write the SE(3), the Jacobian or '
+                        'the anneal file alone')
     args = parser.parse_args()
     os.makedirs(os.path.dirname(os.path.abspath(args.se3_out)), exist_ok=True)
+    if args.only in (None, 'anneal'):
+        np.savez_compressed(args.anneal_out, **anneal_reference())
+        print(args.anneal_out)
     if args.only in (None, 'jacobian'):
         np.savez_compressed(args.jacobian_out, **jacobian_reference())
         print(args.jacobian_out)

@@ -4,12 +4,15 @@ the flagship, or one of its variants (``flagship.CONFIGS``; ``se3_split_glo``
 is ``se3`` with two GLO tables), through the PyTorch port, on one CUDA card.
 
   python tools/profile_render.py \
-      [--config flagship|static|split_glo|se3|quaternion|se3_split_glo] \
+      [--config flagship|static|split_glo|se3|quaternion|se3_split_glo|
+                anneal] \
       [--return_points] [--frames 2] [--chunk 8192] \
       [--trace render_trace.json]
 
 ``--return_points`` keeps each ray's median point as well (the per-module
 path, as ``chip_smoke.py``'s frames with ``return_points`` render).
+``anneal`` renders at the annealing alphas ``eval`` renders a weight file
+at (fully annealed).
 Prints the card, the wall time per frame, the device time per frame by
 kernel (largest first) and the device's busy share of the wall time (the
 sum of kernel times over the wall time; overlapping kernels would count
@@ -31,7 +34,7 @@ def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument('--config', default='flagship',
                         choices=('flagship', 'static', 'split_glo', 'se3',
-                                 'quaternion', 'se3_split_glo'))
+                                 'quaternion', 'se3_split_glo', 'anneal'))
     parser.add_argument('--return_points', action='store_true')
     parser.add_argument('--frames', type=int, default=2)
     parser.add_argument('--chunk', type=int, default=8192)
@@ -45,6 +48,8 @@ def main() -> int:
         return 1
     from torch.profiler import ProfilerActivity, profile
 
+    from hypernerf_tpu_torch.configs import TrainConfig
+    from hypernerf_tpu_torch.eval import eval_extra_params
     from hypernerf_tpu_torch.flagship import flagship_model, spiral_rays
     from hypernerf_tpu_torch.training.renderer import ImageRenderer
 
@@ -59,7 +64,9 @@ def main() -> int:
           + (', return_points' if args.return_points else ''))
     keep = ('rgb', 'med_points') if args.return_points else ('rgb',)
     renderer = ImageRenderer(model, chunk=args.chunk, keep=keep,
-                             levels=('fine',), quantize=True)
+                             levels=('fine',), quantize=True,
+                             extra_params=eval_extra_params(model.config,
+                                                            TrainConfig()))
     frames = spiral_rays(range(0, 30 * (args.frames + 1), 30))
     renderer(frames[0])  # build, first launches
     torch.cuda.synchronize()

@@ -1,9 +1,12 @@
 #!/usr/bin/env python
-"""The compositing forward's times on one CUDA card (``hn_fused_composite_fwd``,
-``csrc/fused_composite.cu``) at the render's chunk of R = 8192 rays: the
-coarse call (S = 64 with the N = 64 fine draw, linspace u) and the fine call
-(S = 128, N = 0), and the train step's coarse call (R = 16384, S = 64, N =
-64, sorted u, sigma noise); CUDA events (the mean of 20 launches after 2).
+"""The compositing kernels' times on one CUDA card: the forward
+(``hn_fused_composite_fwd``, ``csrc/fused_composite.cu``) at the render's
+chunk of R = 8192 rays, the coarse call (S = 64 with the N = 64 fine draw,
+linspace u) and the fine call (S = 128, N = 0), and the train step's coarse
+call (R = 16384, S = 64, N = 64, sorted u, sigma noise); the backward
+(``hn_fused_composite_bwd``, ``csrc/fused_composite_bwd.cu``) at the train
+step's R = 16384, S = 64 and 128, sigma noise on; CUDA events (the mean of
+20 launches after 2).
 
   python tools/time_composite.py [--parent DIR]
 
@@ -15,8 +18,10 @@ same C signature. Prints the card's name and power limit first, then one
 line per shape with each library's times, the share of the bound (the
 inputs read once and the outputs written once over 3.35 TB/s) and, with a
 parent, the ratio of the means and the largest differences of the outputs
-(rgb, depth, median depth, acc; the weights; z_union). Exits non-zero
-without a card.
+(rgb, depth, median depth, acc; the weights; z_union; of the backward, d
+packed, d z and d |d|, d z left out on the rays whose cumulative weight
+passes within 1e-5 of 0.5, where another order of sums may move the
+median). Exits non-zero without a card.
 """
 
 from __future__ import annotations
@@ -34,6 +39,33 @@ from tools.time_fields_bwd import _library, _time  # noqa: E402
 PEAK_BYTES = 3.35e12
 SHAPES = ((8192, 64, 64, 'linspace', False), (8192, 128, 0, 'linspace', False),
           (16384, 64, 64, 'sorted', True))
+BWD_SHAPES = ((16384, 64), (16384, 128))
+
+
+def _report(label, times, nbytes, outs, edge=None):
+    """One line: each library's times, their share of the bound and, with
+    a parent, the ratio of the means and the outputs' largest differences
+    (rows of ``edge`` left out of the second output)."""
+    import torch
+    bound = nbytes / PEAK_BYTES * 1e3
+    mean = {k: sum(v) / len(v) for k, v in times.items()}
+    parts = [f'{k} ' + ', '.join(f'{t:.4f}' for t in v) + ' ms'
+             f' ({100 * bound / mean[k]:.1f} % of {bound:.4f})'
+             for k, v in times.items()]
+    if 'parent' in times:
+        torch.cuda.synchronize()
+        diffs = []
+        for i, (a, b) in enumerate(zip(outs['this'], outs['parent'])):
+            if a is None:
+                continue
+            d = (a - b).abs()
+            if edge is not None and i == 1:
+                d = d[~edge]
+            diffs.append(d.max().item())
+        parts.append(f'parent / this {mean["parent"] / mean["this"]:.2f}x'
+                     ', outputs max|d| ' + ', '.join(f'{d:.3e}'
+                                                     for d in diffs))
+    print(f'{label}: ' + '; '.join(parts), flush=True)
 
 
 def main() -> int:
@@ -90,21 +122,43 @@ def main() -> int:
             times[k].append(_time(lambda: launch(k), iters=20))
         nbytes = r * (s * (16 + 4 + 4 * noisy + 4) + 12 + 4 * n + 24
                       + 4 * (s + n) * (n > 0))
-        bound = nbytes / PEAK_BYTES * 1e3
-        mean = {k: sum(v) / len(v) for k, v in times.items()}
-        parts = [f'{k} ' + ', '.join(f'{t:.4f}' for t in v) + ' ms'
-                 f' ({100 * bound / mean[k]:.1f} % of {bound:.4f})'
-                 for k, v in times.items()]
-        if 'parent' in libs:
-            torch.cuda.synchronize()
-            diffs = [(a - b).abs().max().item() for a, b in
-                     zip(outs['this'], outs['parent']) if a is not None]
-            parts.append(f'parent / this {mean["parent"] / mean["this"]:.2f}x'
-                         ', outputs / weights / z_union max|d| '
-                         + ', '.join(f'{d:.3e}' for d in diffs))
-        print(f'composite R={r} S={s} N={n} u={u_kind} '
-              f'noise={"on" if noisy else "off"}: ' + '; '.join(parts),
-              flush=True)
+        _report(f'composite R={r} S={s} N={n} u={u_kind} '
+                f'noise={"on" if noisy else "off"} (outputs, weights, '
+                f'z_union)', times, nbytes, outs)
+
+    from hypernerf_tpu_torch.kernels import fused_composite_plain
+    for r, s in BWD_SHAPES:
+        g = torch.Generator().manual_seed(r + s + 1)
+        packed = (torch.randn(r * s, 4, generator=g) * 2.0).cuda()
+        z = torch.sort(torch.rand(r, s, generator=g) * 0.9 + 0.05,
+                       dim=-1)[0].cuda()
+        dirs = torch.randn(r, 3, generator=g).cuda()
+        noise = torch.randn(r, s, generator=g).cuda()
+        d_outs = torch.randn(r, 6, generator=g).cuda()
+        d_w = (torch.randn(r, s, generator=g) * 0.1).cuda()
+        outs = {k: [torch.empty((r * s, 4), device='cuda'),
+                    torch.empty((r, s), device='cuda'),
+                    torch.empty((r, 1), device='cuda')] for k in libs}
+
+        def launch_bwd(k):
+            lib, bld = libs[k]
+            d_packed, d_z, d_dnorm = outs[k]
+            bld.check(lib.hn_fused_composite_bwd(
+                packed.data_ptr(), z.data_ptr(), dirs.data_ptr(),
+                noise.data_ptr(), d_outs.data_ptr(), d_w.data_ptr(),
+                d_packed.data_ptr(), d_z.data_ptr(), d_dnorm.data_ptr(), r,
+                s, 0, 1, stream), 'hn_fused_composite_bwd')
+
+        times = {k: [] for k in libs}
+        for k in order:
+            times[k].append(_time(lambda: launch_bwd(k), iters=20))
+        cum = torch.cumsum(fused_composite_plain(
+            packed, z, dirs, None, noise=noise)['weights'], dim=-1)
+        edge = ((cum - 0.5).abs() < 1e-5).any(-1)
+        _report(f'composite backward R={r} S={s} noise=on (d packed, d z, '
+                f'd |d|; {int(edge.sum())} rays on the median\'s edge)',
+                times, r * (s * (16 + 4 + 4 + 4 + 16 + 4) + 12 + 24 + 4),
+                outs, edge)
     return 0
 
 

@@ -15,8 +15,10 @@ train step's: 16384 rays x 16).
       [--kernel all|warp_tangents|se3_tangents]
 
 ``DIR`` is a checkout of an earlier commit (for example an unpacked ``git
-archive``) whose entry points take the same arguments and blobs; its
-library is built from its own ``kernels/csrc`` into its own ``build/``.
+archive``) whose entry points take the same arguments and blobs, or lack
+the template's window row, which is then left out of its calls (the
+flagship's layout takes none); its library is built from its own
+``kernels/csrc`` into its own ``build/``.
 Both libraries get this checkout's packed blobs of the probe weights
 (``flagship.load_probe_weights``) and the same inputs. Shapes: the fields and
 the trunk at 8192 x 128 and 16384 x 128 rows; the template at R = 8192 and
@@ -53,6 +55,13 @@ def _library(repo: str, name: str):
     module = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(module)
     return module.library()
+
+
+def _no_row(fn, n_without: int):
+    """The template window row's argument for C entry point ``fn``: [None]
+    (the flagship's posenc_orig layout) where ``fn`` takes it, that is
+    takes more than ``n_without`` arguments, else nothing."""
+    return [None] if len(fn.argtypes) > n_without else []
 
 
 def _time(fn, iters: int = 10) -> float:
@@ -250,10 +259,11 @@ def main() -> int:
                        fm.template_layers(tmpl.template))
 
             def launch(lib):
-                build.check(lib.hn_fused_template_fwd(
-                    x_raw.data_ptr(), rgbc.data_ptr(), w.data_ptr(),
-                    b.data_ptr(), out.data_ptr(), p, per, stream),
-                    'hn_fused_template_fwd')
+                fn = lib.hn_fused_template_fwd
+                build.check(fn(
+                    x_raw.data_ptr(), rgbc.data_ptr(), *_no_row(fn, 8),
+                    w.data_ptr(), b.data_ptr(), out.data_ptr(), p, per,
+                    stream), 'hn_fused_template_fwd')
                 return out
             report(f'{config} template R={rays} S={s}', macs, p, launch)
 
@@ -270,11 +280,13 @@ def main() -> int:
                            for lin, _ in fl.level_layers(lv))
 
                 def launch(lib):
-                    build.check(lib.hn_fused_level_fwd(
+                    fn = lib.hn_fused_level_fwd
+                    build.check(fn(
                         common.WARP_CODES[warp], z.data_ptr(), o.data_ptr(),
                         d.data_ptr(), emb.data_ptr(), rgbc.data_ptr(), None,
-                        w.data_ptr(), b.data_ptr(), out.data_ptr(), None,
-                        8192, s, stream), 'hn_fused_level_fwd')
+                        *_no_row(fn, 14), w.data_ptr(), b.data_ptr(),
+                        out.data_ptr(), None, 8192, s, stream),
+                        'hn_fused_level_fwd')
                     return out
                 report(f'{warp} level forward R=8192 S={s}', macs, p, launch)
     return 0

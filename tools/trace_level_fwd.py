@@ -54,19 +54,24 @@ def _trace_library(kernel: str):
     so = build.BUILD_DIR / f'{stem}_trace_{h.hexdigest()[:16]}.so'
     if not so.exists():
         build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        # The per-module library's template entry point sends the Nerfies
+        # layout to template_fwd_anneal.cu.
+        stems = [stem] + (['template_fwd_anneal'] if stem == 'modular_fwd'
+                          else [])
         subprocess.run([build._nvcc(), *flags, '-shared', '-o', str(so),
-                        str(build.CSRC / f'{stem}.cu')], check=True)
+                        *[str(build.CSRC / f'{s}.cu') for s in stems]],
+                       check=True)
     lib = ctypes.CDLL(str(so))
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     if kernel == 'level':
-        lib.hn_level_fwd_trans.argtypes = [p] * 10 + [ll, i, p]
+        lib.hn_level_fwd_trans.argtypes = [p] * 11 + [ll, i, p]
         lib.trace = lib.hn_level_fwd_trace
     elif stem == 'tangents_fwd':
         lib.hn_fused_jacobian_fwd.argtypes = [p] * 4 + [ll, p]
         lib.hn_fused_se3_jacobian_fwd.argtypes = [p] * 5 + [ll, p]
         lib.trace = lib.hn_tangents_fwd_trace
     else:
-        lib.hn_fused_template_fwd.argtypes = [p] * 5 + [ll, i, p]
+        lib.hn_fused_template_fwd.argtypes = [p] * 6 + [ll, i, p]
         lib.hn_fused_field_fwd.argtypes = [i] + [p] * 5 + [ll, p]
         lib.hn_fused_se3_fwd.argtypes = [p] * 5 + [ll, p]
         lib.trace = lib.hn_modular_fwd_trace
@@ -93,7 +98,7 @@ def _launch(lib, kernel, level, args, stream):
         rgbc = cond.to(torch.bfloat16).contiguous()
         return lib.hn_level_fwd_trans(
             z.data_ptr(), o.data_ptr(), d.data_ptr(), emb.data_ptr(),
-            rgbc.data_ptr(), None, w.data_ptr(), b.data_ptr(),
+            rgbc.data_ptr(), None, None, w.data_ptr(), b.data_ptr(),
             out.data_ptr(), None, n, samples, stream)
     x_raw = fl._raw_fields(z, o, d, emb).contiguous()
     if kernel == 'warp_tangents':
@@ -134,7 +139,7 @@ def _launch(lib, kernel, level, args, stream):
     rgbc, per, _, ((w, b, _),) = fm._launch_args(level, raw_t, cond, False)
     out = torch.empty((n, 4), device='cuda')
     return lib.hn_fused_template_fwd(
-        raw_t.data_ptr(), rgbc.data_ptr(), w.data_ptr(), b.data_ptr(),
+        raw_t.data_ptr(), rgbc.data_ptr(), None, w.data_ptr(), b.data_ptr(),
         out.data_ptr(), n, per, stream)
 
 
