@@ -6,7 +6,8 @@ Phases, one line each; any failure ends the run with a non-zero exit:
   2. build the kernels from kernels/csrc with nvcc (sm_90a), with the time
      and ptxas's registers and spills (the level forward's, kernel B's, the
      per-module forwards', a field alone backward's, the SE(3) trunk's
-     two backwards' and the Jacobians' forwards' on lines of their own);
+     two backwards', the Jacobians' forwards' and the plane
+     configuration's three kernels on lines of their own);
   3. the level kernel at the flagship widths and at probe weights whose
      warp and hyper heads are large enough that those 14 layers move the
      output: against the JAX kernel's stored outputs (tests/data), and
@@ -158,7 +159,24 @@ Phases, one line each; any failure ends the run with a non-zero exit:
  20. the ``anneal`` train step at batch 16384 from step 3750 as phase 7
      runs it (2 launches of each of the five kernels per step, no plain
      call, a 1024-ray step against the plain versions);
- 21. the kernels' JSON line, then the result line.
+ 21. the ``plane`` configuration (axis_aligned_plane: no sheet, the GLO
+     embedding as the hyper coordinates, a 167-column template encoding in
+     192): the compiled plans of its level forward, template alone and
+     kernel B against their models; rows 1, 8, 9 (kernel A) and 5 (kernel
+     B) at its probe weights against the JAX kernels' stored outputs and
+     gradients (tests/data, two draws of the level's inputs, the backward
+     twice each) and against their plain versions up to the render's and
+     the train step's shapes, each timed beside the flagship layout's
+     kernel in turns; then three 504x378 frames through the level kernels
+     (and the flagship's in the same call), 1024 rays against the plain
+     versions, one frame with ``return_points`` (the warp field alone and
+     the template alone) and ``query_sigma``;
+ 22. the ``plane`` train step at batch 16384 as phase 7 runs it (2
+     launches of each of the five kernels per step, no plain call, a
+     1024-ray step against the plain versions), and with two GLO tables
+     (``share_glo=False``: the warp field and the template alone at the
+     plane layout, forward and backward, module by module);
+ 23. the kernels' JSON line, then the result line.
 Times come from CUDA events (kernels) or the host clock around work that
 ends in a synchronize (frames, steps). A kernel's bound is the larger of
 its matrix-product operations over the card's dense bf16 peak and its bytes
@@ -620,28 +638,29 @@ TEMPLATE_BWD_SOURCES = ('template_rowprod.cu', 'template_dw.cu',
                         'template_bwd.cu')
 
 
-def template_bwd_bound(level, n_rays: int, samples: int):
+def template_bwd_bound(level, n_rays: int, samples: int, raw: int = 8):
     """(bound_ms, bound_by) of the template backward on n_rays x samples
     rows: the recompute, g W and g^T h each take one multiply-add per weight
-    and row; bytes are the inputs and outputs once (raw_t, g, dx_t per row;
-    the condition and its cotangent per ray) and the weights and dW once. The
-    function's work, not the stash's bytes."""
+    and row; bytes are the inputs and outputs once (raw_t, g, dx_t per row,
+    ``raw`` fp32 columns each of raw_t and dx_t; the condition and its
+    cotangent per ray) and the weights and dW once. The function's work, not
+    the stash's bytes."""
     t_macs = level_macs(level)[1]
     p = n_rays * samples
     return bound(6.0 * t_macs * p,
-                 p * (32 + 16 + 32) + n_rays * (78 + 156) + 6 * t_macs)
+                 p * (8 * raw + 16) + n_rays * (78 + 156) + 6 * t_macs)
 
 
-def fields_bwd_bound(level, n_rays: int, samples: int):
+def fields_bwd_bound(level, n_rays: int, samples: int, raw: int = 8):
     """(bound_ms, bound_by) of kernel B on n_rays x samples rows: the
     recompute, g W and g^T h each take one multiply-add per weight of the
-    field layers and row; bytes are the inputs and outputs once (z, dx_t, d z
-    per row; the ray inputs and their cotangents per ray) and the weights
-    and dW once."""
+    field layers and row; bytes are the inputs and outputs once (z, dx_t of
+    ``raw`` fp32 columns, d z per row; the ray inputs and their cotangents
+    per ray) and the weights and dW once."""
     f_macs = level_macs(level)[0]
     p = n_rays * samples
     return bound(6.0 * f_macs * p,
-                 p * (4 + 32 + 4) + n_rays * (24 + 32 + 56) + 6 * f_macs)
+                 p * (8 + 4 * raw) + n_rays * (24 + 32 + 56) + 6 * f_macs)
 
 
 def fields_bwd_plan_phase() -> None:
@@ -1690,12 +1709,14 @@ def query_sigma_path(config: str, want: dict, tag: str) -> dict:
     return {k: v // QUERY_CALLS for k, v in launches.items()}
 
 
-def time_frames(renderer, frames, keep, want: dict, label: str):
+def time_frames(renderer, frames, keep, want: dict, label: str,
+                point_ch: int = 7):
     """(s/frame, launches): ``frames[1:]`` (N_FRAMES frames) rendered after
     the warm-up frame ``frames[0]`` (the first launches), timed together on
     the host clock to a synchronize, as phase 5 times them; raises unless
     the launches are ``want`` per frame and every frame's ``keep`` outputs
-    are finite and of the frame's shape, rgb as uint8."""
+    are finite and of the frame's shape (a med_point of ``point_ch``
+    channels), rgb as uint8."""
     import torch
     from hypernerf_tpu_torch.flagship import H, W
     renderer(frames[0])
@@ -1708,7 +1729,7 @@ def time_frames(renderer, frames, keep, want: dict, label: str):
     launches = read_counts({k: v * len(outs) for k, v in want.items()},
                            label)
     shapes = {'rgb': (W * H, 3), 'depth': (W * H,), 'acc': (W * H,),
-              'med_points': (W * H, 1, 7)}
+              'med_points': (W * H, 1, point_ch)}
     for fine in outs:
         for k in keep:
             v = torch.as_tensor(fine[k])
@@ -2636,6 +2657,9 @@ def main() -> int:
           f'same): {ptxas_lines(build.build_log(), tangents)}')
     phase(f'[2] the Jacobians\' forwards, on the level forward\'s block (the '
           f'same): {ptxas_lines(build.build_log(), TANGENTS_FWD_SOURCES)}')
+    phase(f'[2] the plane configuration\'s level forward, template alone '
+          f'and kernel B (the same): '
+          f'{ptxas_lines(build.build_log(), PLANE_SOURCES)}')
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -2822,8 +2846,10 @@ def main() -> int:
     elastic_paths_phase(kernels)
     anneal_kernel_phase(kernels)
     anneal_paths_phase(kernels)
-    if len(kernels) != 14:
-        raise AssertionError(f'{len(kernels)} kernels in the line, want 14')
+    kernels += plane_kernel_phase(kernels)
+    plane_paths_phase(kernels)
+    if len(kernels) != 18:
+        raise AssertionError(f'{len(kernels)} kernels in the line, want 18')
     return finish(kernels)
 
 # -- the anneal configuration (the Nerfies windowed template encoding) --------
@@ -3022,13 +3048,15 @@ def anneal_kernel_phase(kernels) -> None:
                      anneal_rel_l2_err=max(e[0] for e in errs['A']))
 
 
-def template_fwd_bound(level, n_rays: int, samples: int):
+def template_fwd_bound(level, n_rays: int, samples: int, raw: int = 8):
     """(bound_ms, bound_by) of the template alone on n_rays x samples rows:
-    one multiply-add per weight and row; bytes are the raw rows and the
-    output per row, the condition per ray and the weights once."""
+    one multiply-add per weight and row; bytes are the raw rows (``raw``
+    fp32 columns) and the output per row, the condition per ray and the
+    weights once."""
     t_macs = level_macs(level)[1]
     p = n_rays * samples
-    return bound(2.0 * t_macs * p, p * (32 + 16) + n_rays * 78 + 2 * t_macs)
+    return bound(2.0 * t_macs * p,
+                 p * (4 * raw + 16) + n_rays * 78 + 2 * t_macs)
 
 
 def anneal_paths_phase(kernels) -> None:
@@ -3098,8 +3126,338 @@ def anneal_paths_phase(kernels) -> None:
                 k[f'anneal_{path}_launches'] = launches[k['name']]
 
 
+# -- the plane configuration (axis_aligned_plane slicing) --------------------
+
+# Its kernels' sources: the level forward, the template alone and kernel B
+# instantiated for the plane layout (no sheet, the GLO embedding as the hyper
+# coordinates, a 192-column encoding); kernel A's passes take its widths.
+PLANE_FWD_SOURCES = ('level_fwd_plane.cu', 'level_fwd.cuh', 'fused_level.cu')
+PLANE_TMPL_SOURCES = ('template_fwd_plane.cu', 'template_fwd.cuh')
+PLANE_B_SOURCES = ('fields_bwd_plane.cu', 'fields_bwd.cuh', 'fused_level.cu')
+PLANE_SOURCES = ('level_fwd_plane.cu', 'template_fwd_plane.cu',
+                 'fields_bwd_plane.cu')
+STEP_LAUNCHES['plane'] = STEP_LAUNCHES['flagship']
+# ``plane`` with two GLO tables: module by module, the warp field and the
+# template alone at the plane layout (rows 10, 8; in training 11 and A).
+STEP_LAUNCHES['plane_split_glo'] = {
+    'fused_field_fwd': 2, 'fused_field_bwd': 2, 'fused_template_fwd': 2,
+    'fused_template_bwd': 2}
+PATHS['plane_split_glo'] = ('plane', dict(share_glo=False))
+PLANE_GRAD_RUNS = 2  # runs of the level's backward against the stored JAX
+PLANE_RAW = 16  # fp32 columns of the plane layout's raw_t and dx_t
+
+
+def plane_kernel_phase(kernels) -> list:
+    """Phase 21's kernel checks on the ``plane`` configuration's probe
+    weights: the compiled plans of the level forward (row 1), the template
+    alone (row 8) and kernel B (row 5) at the plane layout against their
+    models in ``kernels/fused_level.py``; rows 1, 8, 9 (kernel A) and 5
+    against the JAX kernels' stored numbers (the level's backward as
+    training runs it, A then B) and against their plain versions up to the
+    render's and the train step's shapes; each timed beside the flagship
+    layout's kernel in the same call, in turns. Returns the four plane
+    kernels' entries of the kernels line (launches filled in by the paths
+    phase)."""
+    import importlib
+    import torch
+    from hypernerf_tpu_torch import kernels as K
+    from hypernerf_tpu_torch.flagship import (LEVEL_INPUTS, PLANE_LEVEL_CASES,
+                                              PLANE_TEMPLATE_CASES,
+                                              flagship_model,
+                                              load_probe_weights,
+                                              read_plane_reference)
+    from hypernerf_tpu_torch.kernels import common
+    fl = importlib.import_module('hypernerf_tpu_torch.kernels.fused_level')
+    from hypernerf_tpu_torch.kernels.fused_mlp import template_layers
+    probe = load_probe_weights(flagship_model('cuda', config='plane'))
+    flag = load_probe_weights(flagship_model('cuda'))
+    shapes = fl.pack_level(probe.level('fine'))[2]
+    for label, got, want in (
+            ('level forward (row 1)', fl.compiled_forward_plan('plane'),
+             fl.forward_plan('plane', shapes)),
+            ('template alone (row 8)',
+             fl.compiled_stage_plan('template_plane'),
+             fl.stage_plan('template_plane',
+                           shapes[common.PLANE_TEMPLATE_LAYERS])),
+            ('kernel B (row 5)', fl.compiled_fields_bwd_plan('plane'),
+             fl.fields_bwd_plan('plane', shapes))):
+        if got != want:
+            raise AssertionError(f'plane {label}: compiled plan {got} != '
+                                 f'model {want}')
+        phase(f'[21] plane {label} plan (compiled = model): config '
+              f'{got["config"]}, {len(got["loads"])} weight loads a tile')
+
+    # The JAX kernels' numbers (tools/make_level_reference.py --only
+    # plane): the kernels through their autograd Functions, as training
+    # runs them. Kernel B adds its dW with atomics, whose order varies from
+    # run to run: PLANE_GRAD_RUNS runs of each draw.
+    ref = read_plane_reference()
+    names = [f'd_{k}' for k in LEVEL_INPUTS] + [
+        f'd{"wb"[i % 2]}{i // 2}' for i in range(2 * len(shapes))]
+    errs = {'fwd': [], 'tmpl': [], 'A': [], 'B': []}
+    for case, (level, *_) in PLANE_LEVEL_CASES.items():
+        arrays = {k: torch.from_numpy(v).cuda() for k, v in ref[case].items()}
+        lv = probe.level(level)
+        for run in range(PLANE_GRAD_RUNS):
+            args = [arrays[k].detach().requires_grad_() for k in LEVEL_INPUTS]
+            out = K.fused_level(lv, *args)
+            errs['fwd'].append(hold_level(
+                out.detach(), arrays['out'],
+                f'plane {case} vs the stored JAX output', '[21]'))
+            got = torch.autograd.grad(out, args + fl._level_params(lv),
+                                      arrays['cotangent'])
+            check_grads(f'plane {case} backward (A + B), run {run + 1} of '
+                        f'{PLANE_GRAD_RUNS}, vs the stored JAX gradients',
+                        names, got, [arrays[n] for n in names], tag='[21]')
+    for case, (level, *_) in PLANE_TEMPLATE_CASES.items():
+        arrays = {k: torch.from_numpy(v).cuda() for k, v in ref[case].items()}
+        t = probe.template_of(level)
+        x = arrays['x_raw'].requires_grad_()
+        cond = arrays['rgb_cond'].requires_grad_()
+        out = K.fused_template(t, x, cond)
+        hold_level(out.detach(), arrays['out'],
+                   f'plane {case} (row 8) vs the stored JAX output', '[21]')
+        layers = template_layers(t.template)
+        got = torch.autograd.grad(out, [x, cond] + common.layer_params(
+            layers), arrays['cotangent'])
+        tnames = ['dx', 'd_rgb_cond'] + [f'd{"wb"[i % 2]}{i // 2}'
+                                         for i in range(2 * len(layers))]
+        check_grads(f'plane {case} backward (A) vs the stored JAX '
+                    f'gradients', tnames, got, [arrays[n] for n in tnames],
+                    tag='[21]')
+
+    times, bounds = {}, {}
+    b_names = FIELDS_GRAD_NAMES[:4] + [f'd{"Wb"[i % 2]}{i // 2}'
+                                       for i in range(14)]
+    with torch.no_grad():
+        gen = torch.Generator().manual_seed(21)
+        for r, s in ((37, 13), (512, 64), (512, 128), (CHUNK, 64),
+                     (CHUNK, 128), (TRAIN_RAYS, 64), (TRAIN_RAYS, 128)):
+            level = 'fine' if s == 128 else 'coarse'
+            lv, flv = probe.level(level), flag.level(level)
+            args = level_inputs(r, s, s + 21)
+            out, raw_t = fl._launch_forward(lv, *args, want_raw_t=True)
+            want_out, want_raw_t = plain_forward(lv, args)
+            errs['fwd'] += [
+                hold_level(out, want_out, f'plane level forward R={r} S={s} '
+                           f'vs plain: out', '[21]'),
+                hold_level(raw_t, want_raw_t, f'plane level forward R={r} '
+                           f'S={s} vs plain: raw_t', '[21]')]
+            x = raw_t
+            if r <= CHUNK:
+                errs['tmpl'].append(hold_level(
+                    K.fused_template(lv, x, args[4]),
+                    plain_template(lv, x, args[4]),
+                    f'plane template alone (row 8) R={r} S={s} vs plain',
+                    '[21]'))
+            g = torch.randn(r * s, 4, generator=gen).cuda()
+            dx_t = torch.randn(r * s, PLANE_RAW, generator=gen).cuda()
+            dx_t[:, 3 + 8:] = 0
+            if r == CHUNK or r < 100:
+                got_a = K.fused_template_bwd(lv, x, args[4], g)
+                torch.cuda.synchronize()
+                errs['A'].append(check_grads(
+                    f'plane template backward (A) R={r} S={s} vs plain',
+                    TEMPLATE_GRAD_NAMES, [got_a[0], got_a[1], *got_a[2]],
+                    plain_template_bwd(lv, x, args[4], g), tag='[21]'))
+                *rays, grads = K.fused_fields_bwd(lv, *args[:4], dx_t)
+                errs['B'].append(check_grads(
+                    f'plane fields backward (B) R={r} S={s} vs plain',
+                    b_names, [*rays, *grads],
+                    plain_fields_bwd(lv, args, dx_t), tag='[21]'))
+                del got_a, rays, grads
+            if r == CHUNK:
+                # Each layout's level forward and template alone, in turns.
+                fargs = level_inputs(r, s, s + 21)
+                fraw = fl._launch_forward(flv, *fargs, want_raw_t=True)[1]
+                times['fwd', s] = [
+                    cuda_ms(lambda: K.fused_level(lv, *args)),
+                    cuda_ms(lambda: K.fused_level(flv, *fargs)),
+                    cuda_ms(lambda: K.fused_level(flv, *fargs)),
+                    cuda_ms(lambda: K.fused_level(lv, *args))]
+                times['tmpl', s] = [
+                    cuda_ms(lambda: K.fused_template(lv, x, args[4])),
+                    cuda_ms(lambda: K.fused_template(flv, fraw, fargs[4])),
+                    cuda_ms(lambda: K.fused_template(flv, fraw, fargs[4])),
+                    cuda_ms(lambda: K.fused_template(lv, x, args[4]))]
+                times['plain_fwd', s] = cuda_ms(
+                    lambda: plain_forward(lv, args), 2)
+                times['plain_tmpl', s] = cuda_ms(
+                    lambda: plain_template(lv, x, args[4]), 2)
+                bounds['fwd', s] = level_bound(lv, r, s)
+                bounds['tmpl', s] = template_fwd_bound(lv, r, s, PLANE_RAW)
+                for key, what in (('fwd', 'level forward (row 1)'),
+                                  ('tmpl', 'template alone (row 8)')):
+                    t, b_ms = times[key, s], bounds[key, s][0]
+                    phase(f'[21] plane {what} R={r} S={s}: {t[0]:.3f}, '
+                          f'{t[3]:.3f} ms ({b_ms / t[0]:.1%} of its bound '
+                          f'{b_ms:.3f} ms); the flagship layout in turns '
+                          f'{t[1]:.3f}, {t[2]:.3f} ms; plain '
+                          f'{times["plain_" + key, s]:.2f} ms')
+                del fraw
+            if r == TRAIN_RAYS:
+                fargs = level_inputs(r, s, s + 21)
+                fraw = fl._launch_forward(flv, *fargs, want_raw_t=True)[1]
+                fdx = dx_t[:, :8].contiguous()
+                fdx[:, 7] = 0
+                times['B', s] = [
+                    cuda_ms(lambda: K.fused_fields_bwd(lv, *args[:4], dx_t),
+                            5),
+                    cuda_ms(lambda: K.fused_fields_bwd(flv, *fargs[:4], fdx),
+                            5),
+                    cuda_ms(lambda: K.fused_fields_bwd(flv, *fargs[:4], fdx),
+                            5),
+                    cuda_ms(lambda: K.fused_fields_bwd(lv, *args[:4], dx_t),
+                            5)]
+                bounds['B', s] = fields_bwd_bound(lv, r, s, PLANE_RAW)
+                if s == 128:
+                    times['A'] = [
+                        cuda_ms(lambda: K.fused_template_bwd(lv, x, args[4],
+                                                             g), 3),
+                        cuda_ms(lambda: K.fused_template_bwd(flv, fraw,
+                                                             fargs[4], g), 3),
+                        cuda_ms(lambda: K.fused_template_bwd(flv, fraw,
+                                                             fargs[4], g), 3),
+                        cuda_ms(lambda: K.fused_template_bwd(lv, x, args[4],
+                                                             g), 3)]
+                    bounds['A'] = template_bwd_bound(lv, r, s, PLANE_RAW)
+                    times['plain_A'] = cuda_ms(
+                        lambda: plain_template_bwd(lv, x, args[4], g), 1)
+                    times['plain_B'] = cuda_ms(
+                        lambda: plain_fields_bwd(lv, args, dx_t), 1)
+                    t, b_ms = times['A'], bounds['A'][0]
+                    phase(f'[21] plane template backward (A, row 9) R={r} '
+                          f'S={s}: {t[0]:.2f}, {t[3]:.2f} ms '
+                          f'({b_ms / t[0]:.1%} of its bound {b_ms:.3f} ms); '
+                          f'the flagship layout in turns {t[1]:.2f}, '
+                          f'{t[2]:.2f} ms; plain {times["plain_A"]:.1f} ms')
+                t, b_ms = times['B', s], bounds['B', s][0]
+                phase(f'[21] plane fields backward (B, row 5) R={r} S={s}: '
+                      f'{t[0]:.3f}, {t[3]:.3f} ms ({b_ms / t[0]:.1%} of its '
+                      f'bound {b_ms:.3f} ms); the flagship\'s kernel B in '
+                      f'turns {t[1]:.3f}, {t[2]:.3f} ms'
+                      + (f'; plain {times["plain_B"]:.1f} ms' if s == 128
+                         else ''))
+                del fraw, fdx
+            del out, raw_t, want_out, want_raw_t, x, g, dx_t
+            torch.cuda.empty_cache()
+    csrc = 'hypernerf_tpu_torch/kernels/csrc/'
+
+    def entry(name, sources, replaces, key, plain, err, **extra):
+        t, (b_ms, b_by) = times[key], bounds[key]
+        return dict(name=name, route='cuda',
+                    source=', '.join(csrc + f for f in sources),
+                    replaces=replaces, ms=min(t[0], t[3]),
+                    plain_ms=times[plain], bound_ms=b_ms, bound_by=b_by,
+                    library_ms=None, flagship_layout_ms=min(t[1], t[2]),
+                    **err, **extra)
+    return [
+        entry('fused_level_fwd_plane', PLANE_FWD_SOURCES,
+              'hypernerf_tpu/ops/pallas/fused_level.py:1322', ('fwd', 128),
+              ('plain_fwd', 128), dict(max_abs_err=max(errs['fwd'])),
+              ms_s64=min(times['fwd', 64][0], times['fwd', 64][3])),
+        entry('fused_template_fwd_plane', PLANE_TMPL_SOURCES,
+              'hypernerf_tpu/ops/pallas/fused_mlp.py:656', ('tmpl', 128),
+              ('plain_tmpl', 128), dict(max_abs_err=max(errs['tmpl'])),
+              ms_s64=min(times['tmpl', 64][0], times['tmpl', 64][3])),
+        entry('fused_template_bwd_plane', TEMPLATE_BWD_SOURCES,
+              'hypernerf_tpu/ops/pallas/fused_mlp.py:736', 'A', 'plain_A',
+              error_keys(errs['A'])),
+        entry('fused_fields_bwd_plane', PLANE_B_SOURCES,
+              'hypernerf_tpu/ops/pallas/fused_level.py:846', ('B', 128),
+              'plain_B', error_keys(errs['B']),
+              ms_s64=min(times['B', 64][0], times['B', 64][3]))]
+
+
+# The wrapper whose launches count each plane kernel on its paths.
+PLANE_WRAPPERS = {'fused_level_fwd_plane': 'fused_level_fwd',
+                  'fused_template_fwd_plane': 'fused_template_fwd',
+                  'fused_template_bwd_plane': 'fused_template_bwd',
+                  'fused_fields_bwd_plane': 'fused_fields_bwd'}
+
+
+def plane_paths_phase(kernels) -> None:
+    """Phases 21 (the frames) and 22: ``plane`` at full width. Three
+    504x378 frames through the level kernels after a warm-up, a render of
+    1024 rays against the plain versions, one frame with ``return_points``
+    (the per-module kernels: the warp field alone, the template alone at the
+    plane layout), ``query_sigma`` (the same two), and the train step at
+    batch 16384 as phase 7 runs it, with one GLO table (the level kernels)
+    and with two (module by module); fills in the launches of the plane
+    kernels' entries (each path's counts set to 0 just before it and read
+    just after)."""
+    import torch
+    from hypernerf_tpu_torch.flagship import H, W, flagship_model, spiral_rays
+    from hypernerf_tpu_torch.ops.ray_dict import prepare_ray_dict
+    from hypernerf_tpu_torch.training.renderer import ImageRenderer
+    chunks_per_frame = -(-W * H // CHUNK)
+    frames = spiral_rays(range(0, 30 * (N_FRAMES + 1), 30))
+    model = flagship_model('cuda', seed=0, config='plane')
+    keep = ('rgb', 'depth', 'acc')
+    counts = {}
+    renderer = ImageRenderer(model, chunk=CHUNK, keep=keep, levels=('fine',),
+                             quantize=True)
+    secs, counts['frame'] = time_frames(
+        renderer, frames, keep,
+        {'fused_level_fwd': 2 * chunks_per_frame,
+         'fused_composite_fwd': 2 * chunks_per_frame}, 'plane frame')
+    phase(f'[21] plane: rendered {N_FRAMES} frames {W}x{H} (64+64, chunk '
+          f'{CHUNK}): {secs:.4f} s/frame; launches {counts["frame"]} (= 2 '
+          f'levels x {chunks_per_frame} chunks x {N_FRAMES} frames); no '
+          f'plain call')
+    flag_secs = time_frames(
+        ImageRenderer(flagship_model('cuda', seed=0), chunk=CHUNK, keep=keep,
+                      levels=('fine',), quantize=True), frames, keep,
+        {'fused_level_fwd': 2 * chunks_per_frame,
+         'fused_composite_fwd': 2 * chunks_per_frame}, 'flagship frame')[0]
+    phase(f'[21] the flagship\'s frames in the same call, after the '
+          f'plane\'s: {flag_secs:.4f} s/frame')
+    small = torch.as_tensor(frames[0][::186][:1024]).cuda()
+    with torch.no_grad():
+        got = model(prepare_ray_dict(small))['fine']['rgb']
+        with plain_versions():
+            want = model(prepare_ray_dict(small))['fine']['rgb']
+    diff = (got - want).abs()
+    phase(f'[21] plane render of 1024 rays, kernels vs plain: fine rgb '
+          f'max|d| {diff.max().item():.3e} mean {diff.mean().item():.3e} '
+          f'(tol {RENDER_ATOL}, mean {RENDER_MEAN})')
+    if not torch.isfinite(got).all() or diff.max() > RENDER_ATOL \
+            or diff.mean() > RENDER_MEAN:
+        raise AssertionError('plane render: kernels and plain versions '
+                             'disagree')
+    keep = keep + ('med_points',)
+    renderer = ImageRenderer(model, chunk=CHUNK, keep=keep, levels=('fine',),
+                             quantize=True)
+    secs, counts['points'] = time_frames(
+        renderer, frames[:2], keep,
+        {'fused_template_fwd': 2 * chunks_per_frame,
+         'fused_field_fwd': 2 * chunks_per_frame},
+        'plane return_points frame', point_ch=11)
+    phase(f'[21] plane with return_points: 1 frame {W}x{H} after a warm-up: '
+          f'{secs:.4f} s; launches {counts["points"]} (= 2 levels x '
+          f'{chunks_per_frame} chunks: the warp field alone and the template '
+          f'alone; no sheet); no level kernel, no plain call')
+    del renderer, model
+    torch.cuda.empty_cache()
+    counts['query'] = query_sigma_path(
+        'plane', {'fused_field_fwd': 1, 'fused_template_fwd': 1}, '[21]')
+    counts['train'] = train_path('plane', '[22]')
+    torch.cuda.empty_cache()
+    counts['split_glo_train'] = train_path('plane_split_glo', '[22]')
+    torch.cuda.empty_cache()
+    for k in kernels:
+        wrapper = PLANE_WRAPPERS.get(k['name'])
+        if wrapper is None:
+            continue
+        for path, launches in counts.items():
+            if launches.get(wrapper):
+                k[f'{path}_launches'] = launches[wrapper]
+        k['launches'] = sum(k.get(f'{path}_launches', 0)
+                            for path in counts if path != 'query')
+
+
 def finish(kernels) -> int:
-    """Phase 21: the kernels' line and the result line."""
+    """Phase 23: the kernels' line and the result line."""
     import torch
     for k in kernels:
         missing = {'name', 'route', 'source', 'replaces', 'launches',

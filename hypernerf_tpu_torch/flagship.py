@@ -1,13 +1,14 @@
 """The flagship setups: the configuration ``bench.py`` renders and trains
 (NerfConfig defaults with 64 + 64 samples, bf16 matmuls) and its ``static``,
-``split_glo``, ``se3``, ``quaternion``, ``elastic*`` and ``anneal`` variants
-(``CONFIGS``), a seeded model of each, LLFF
+``split_glo``, ``se3``, ``quaternion``, ``elastic*``, ``anneal`` and ``plane``
+variants (``CONFIGS``), a seeded model of each, LLFF
 spiral-path NDC rays of a 504x378 frame, the train step's model, optimizer
 and synthetic ray buffer (``flagship_train_setup``), and the probe weights
 and inputs at which the kernels are held against the JAX kernels' stored
 outputs and gradients (``LEVEL_REFERENCE``, ``GRAD_REFERENCE``,
 ``MODULAR_REFERENCE``, ``SE3_REFERENCE``, ``JACOBIAN_REFERENCE``,
-``ANNEAL_REFERENCE``, written by ``tools/make_level_reference.py``).
+``ANNEAL_REFERENCE``, ``PLANE_REFERENCE``, written by
+``tools/make_level_reference.py``).
 
 Shared by ``chip_smoke.py``, ``tools/profile_render.py``,
 ``tools/profile_train.py`` and ``tools/make_level_reference.py``.
@@ -56,7 +57,10 @@ GRAD_REFERENCE_CASE = ('coarse', 8, 64, 3)
 # ``anneal`` is ``bench.py --mode anneal``: the flagship with the Nerfies
 # template encoding (``use_original_embed=False``: xyz over degrees 0..10,
 # hyper over 0..4, viewdirs over 0..4), windowed by the annealing alphas of
-# ``compute_extra_params``, on the level kernels.
+# ``compute_extra_params``, on the level kernels. ``plane`` is ``bench.py
+# --mode plane``: the flagship with ``axis_aligned_plane`` slicing (no sheet;
+# the hyper coordinates are the ray's 8 GLO coordinates, a 167-column
+# template encoding), on the level kernels.
 CONFIGS = {'flagship': {},
            'static': dict(use_warp=False, hyper_slice_method='none'),
            'split_glo': dict(share_glo=False),
@@ -67,7 +71,8 @@ CONFIGS = {'flagship': {},
                                elastic_jacobian_samples=16),
            'elastic_quaternion': dict(warp_field_type='quaternion',
                                       elastic_jacobian_samples=16),
-           'anneal': dict(use_original_embed=False)}
+           'anneal': dict(use_original_embed=False),
+           'plane': dict(hyper_slice_method='axis_aligned_plane')}
 # TrainConfig overrides of a configuration (``bench.py``'s elastic weight).
 TRAIN_CONFIGS = {c: dict(elastic_loss_weight=0.01)
                  for c in ('elastic', 'elastic_se3', 'elastic_quaternion')}
@@ -401,6 +406,61 @@ def anneal_probe_inputs(case: str) -> dict:
     return {'x_raw': x_raw.astype(np.float32),
             'rgb_cond': anneal_condition(dirs, nerf_alpha),
             'cotangent': rs.randn(rows, 4).astype(np.float32)}
+
+
+# The JAX kernels' numbers for the ``plane`` configuration at the probe
+# weights: the level kernel (level, rays, samples per ray, seed; two draws of
+# the inputs, as the anneal file has) and the template alone (level, rows,
+# rows per condition row, seed), outputs and, for the stored cotangent, the
+# gradients, in bf16 as the configuration runs; and the level kernel in
+# float32 (``PLANE_F32_CASES``, on the first level case's inputs: the plain
+# versions in float32 are held to it at 1e-4, which a bf16 check at 5e-2
+# cannot resolve).
+PLANE_REFERENCE = os.path.join(os.path.dirname(LEVEL_REFERENCE),
+                               'fused_plane_jax_ref.npz')
+PLANE_LEVEL_CASES = {'level': ('coarse', 8, 64, 61),
+                     'level_seed62': ('coarse', 8, 64, 62)}
+PLANE_TEMPLATE_CASES = {'template': ('coarse', 512, 64, 62)}
+PLANE_F32_CASES = {'level_f32': 'level'}
+
+
+def plane_probe_inputs(case: str) -> dict:
+    """Numpy inputs and cotangent of a ``PLANE_LEVEL_CASES`` case (the
+    ``LEVEL_INPUTS`` and 'cotangent' (R * S, 4)) or of a
+    ``PLANE_TEMPLATE_CASES`` case ('x_raw' (P, 16) [points | 8 hyper
+    coordinates of deviation 0.3 | 0], 'rgb_cond' (P / S, 39),
+    'cotangent' (P, 4)); a ``PLANE_F32_CASES`` case takes its bf16 case's."""
+    case = PLANE_F32_CASES.get(case, case)
+    if case in PLANE_LEVEL_CASES:
+        _, n_rays, samples, seed = PLANE_LEVEL_CASES[case]
+        inputs = probe_inputs(n_rays, samples, seed)
+        inputs['cotangent'] = probe_cotangents(n_rays, samples,
+                                               seed)['level']
+        return inputs
+    _, rows, per, seed = PLANE_TEMPLATE_CASES[case]
+    rs = np.random.RandomState(seed + 3000)
+    rays = probe_inputs(-(-rows // 64), 64, seed)
+    pts = (rays['origins'][:, None]
+           + rays['z_vals'][..., None] * rays['directions'][:, None])
+    pts = pts.reshape(-1, 3)[:rows]
+    x_raw = np.concatenate([pts, rs.randn(rows, 8) * 0.3,
+                            np.zeros((rows, 5))], 1)
+    dirs = rs.randn(rows // per, 3).astype(np.float32)
+    dirs /= np.linalg.norm(dirs, axis=-1, keepdims=True)
+    return {'x_raw': x_raw.astype(np.float32),
+            'rgb_cond': posenc_orig(torch.from_numpy(dirs), 6).numpy(),
+            'cotangent': rs.randn(rows, 4).astype(np.float32)}
+
+
+def read_plane_reference(path: str = PLANE_REFERENCE):
+    """{case: {name: array}} of the plane reference file."""
+    out = {case: {} for case in (*PLANE_LEVEL_CASES, *PLANE_TEMPLATE_CASES,
+                                 *PLANE_F32_CASES)}
+    with np.load(path) as f:
+        for key in f.files:
+            case, name = key.split('/', 1)
+            out[case][name] = f[key]
+    return out
 
 
 def read_anneal_reference(path: str = ANNEAL_REFERENCE):

@@ -58,6 +58,7 @@ _SIGNATURES = {
     'hn_fused_se3_fwd': ([_P] * 5 + [_L, _P], _I),
     'hn_fused_se3_bwd': ([_P] * 8 + [_L, _I, _P], _I),
     'hn_fused_template_fwd': ([_P] * 6 + [_L, _I, _P], _I),
+    'hn_fused_template_fwd_plane': ([_P] * 6 + [_L, _I, _P], _I),
     'hn_modular_fwd_plan': ([_I, _P, _P, _P, _I], _I),
     'hn_fused_jacobian_fwd': ([_P] * 4 + [_L, _P], _I),
     'hn_fused_jacobian_bwd': ([_P] * 8 + [_L, _I, _P], _I),

@@ -23,24 +23,40 @@ from hypernerf_tpu_torch.ops.posenc import posenc_window, repeat_bands
 # The widths the CUDA kernels are compiled for (NerfConfig's flagship).
 FLAGSHIP = dict(embed=8, warp_freq=10, hyper_sheet_freq=7, hyper_out=4,
                 xyz_freq=10, hyper_freq=6, rgb_cond=39)
-# The template's second layout (csrc/level_common.cuh ``TmplEnc<true>``):
+# The template's second layout (csrc/level_common.cuh ``NerfEnc``):
 # the Nerfies encoding of ``use_original_embed=False``, the anneal
 # configuration. Its segments, as ``encoding_scales`` takes them: the xyz
 # over degrees 0..10 with the identity columns, the 4 hyper coordinates over
 # degrees 0..4 without; 95 columns, each band weighted by its annealing
 # window (a tensor input of every call). Its condition is posenc(viewdirs,
-# 0, 4, identity): 27 columns. Both layouts fill the same compiled slots:
-# the encoding TMPL_ENC_PAD columns of the first trunk layer's input, the
-# condition COND_PAD columns after the bottleneck in the rgb branch's.
+# 0, 4, identity): 27 columns. It fills the flagship layout's compiled
+# slots: the encoding TMPL_ENC_PAD columns of the first trunk layer's input,
+# the condition COND_PAD columns after the bottleneck in the rgb branch's.
 NERFIES = dict(xyz_freq=10, hyper_freq=4, rgb_cond=27)
 TMPL_ENC_PAD, COND_PAD = 128, 48
+# The template's third layout (``PlaneEnc``): axis_aligned_plane slicing, the
+# plane configuration, whose hyper coordinates are the ray's 8 GLO
+# coordinates themselves: posenc_orig of the xyz at 10 bands and of the 8
+# hyper coordinates at 6, 63 + 8 x 13 = 167 columns in PLANE_ENC_PAD slots
+# (three 64-column boxes), the flagship's condition. Its raw rows [xyz |
+# hyper | 0] (raw_t, dx_t, the template's x_raw) are PLANE_RAW_PAD columns
+# wide, the other layouts' RAW_PAD.
+PLANE = dict(hyper_out=8, hyper_freq=6, rgb_cond=39)
+PLANE_ENC_PAD = 192
+RAW_PAD, PLANE_RAW_PAD = 8, 16
 # Layers of the compiled table (csrc/level_common.cuh): warp, sheet, template.
 WARP_LAYERS, SHEET_LAYERS, TEMPLATE_LAYERS = slice(0, 7), slice(7, 14), \
     slice(14, 30)
+# The plane level's table (``PlaneTable``): the warp, no sheet, the template
+# with the plane layout's 192-column encoding.
+PLANE_TEMPLATE_LAYERS = slice(7, 23)
 # The kernels' codes of the warp types. SE(3) and quaternion share a second
 # compiled table, whose first nine layers are the trunk (6 hidden layers, the
-# trunk logit, the w and the v head) on the Nerfies encoding below.
+# trunk logit, the w and the v head) on the Nerfies encoding below. The
+# level kernels also take the code of the plane level's table (the
+# translation warp alone): TABLE_CODES.
 WARP_CODES = {'translation': 0, 'se3': 1, 'quaternion': 2}
+TABLE_CODES = {**WARP_CODES, 'plane': 3}
 SE3_LAYERS = slice(0, 9)
 SE3_FLAGSHIP = dict(embed=8, min_deg=0, max_deg=8)
 NOT_COVERED = ('the CUDA kernels cover the flagship widths in bf16 only; '
@@ -158,18 +174,18 @@ def unpack_grads(dw_blob, db_blob, layers, shapes):
 @functools.cache
 def kernel_layout(warp: str = 'translation'):
     """[(n_pad, k_pad)] of the compiled layer table of the level with warp
-    type ``warp``, in layer order."""
+    type ``warp`` (or of the plane level, 'plane'), in layer order."""
     lib = build.library()
     n = (ctypes.c_int * 64)()
     k = (ctypes.c_int * 64)()
-    count = lib.hn_fused_level_layout(WARP_CODES[warp], ctypes.addressof(n),
+    count = lib.hn_fused_level_layout(TABLE_CODES[warp], ctypes.addressof(n),
                                       ctypes.addressof(k), 64)
     return [(n[i], k[i]) for i in range(count)]
 
 
 def check_layout(shapes, table: slice, warp: str = 'translation') -> None:
     """Raise unless packed ``shapes`` are rows ``table`` of the compiled
-    layer table of warp type ``warp``."""
+    layer table ``warp`` (a key of TABLE_CODES)."""
     if shapes != kernel_layout(warp)[table]:
         raise NotImplementedError(f'{NOT_COVERED}; layer shapes {shapes}')
 

@@ -1,6 +1,8 @@
 // The fields backward (kernel B) for Hopper (sm_90a): the kernel template
 // and its launcher, instantiated once per warp type by fields_bwd_trans.cu,
-// fields_bwd_se3.cu and fields_bwd_quat.cu (one nvcc process each);
+// fields_bwd_se3.cu and fields_bwd_quat.cu, and for the plane
+// configuration's level (the translation warp, no sheet) by
+// fields_bwd_plane.cu (one nvcc process each);
 // fused_level.cu holds the entry points that dispatch to them. Its block,
 // slab pool, buffer plan and walk-back also run one field alone, from the
 // field's own blobs (fields_bwd_alone.cuh: a translation-table field, the
@@ -14,7 +16,9 @@
 // `_backward_tile_gen` :379-418 and the ray-mode writes `_write_ray_grads`
 // :250-269), which is also the fields half of `_fused_bwd_pipelined` (:1260)
 // and `_fused_bwd` (:1397), for the flagship spec with each of its three warp
-// types: translation, SE(3) and quaternion (`_warp_bwd_tile_gen` :545-584).
+// types: translation, SE(3) and quaternion (`_warp_bwd_tile_gen` :545-584),
+// and for the plane spec (axis_aligned_plane: the hyper coordinates are the
+// embedding, `_fields_bwd_core_gen` :446-449, no sheet).
 //
 // In:  z (R, S), origins / directions (R, 3), embed (R, 8) fp32, and
 //      dx_t (P, 8) fp32 = d[warped | hyper | 0] from the template backward.
@@ -27,7 +31,9 @@
 // dx_t[:, 0:3] (whose residual also passes dx_t[:, 0:3] straight to d pts;
 // with the SE(3) / quaternion trunk: (w, v) from the recomputed trunk, the
 // retraction's hand-derived VJP in fp32 per row, then the trunk from
-// [d w | d v], no residual); d pts and d embed are the sums of both.
+// [d w | d v], no residual); d pts and d embed are the sums of both. The
+// plane level (dx_t (P, 16) = d[warped | hyper (8) | 0]) has no sheet: the
+// warp field alone, and d embed = the warp's + dx_t[:, 3:11].
 // Rounding points are the JAX kernel's: every product takes bf16 operands
 // with fp32 sums; the cotangent is rounded to bf16 after each layer's ReLU
 // mask; a hidden layer's db sums that rounded cotangent, a head's db the
@@ -218,6 +224,10 @@ constexpr int kTanPoints = kTileRows / 4;  // points of a block tile
 
 template <int kWarp>
 using Table = lf::Table<kWarp>;
+// The table of the level of warp type kWarp, or of the plane level.
+template <int kWarp, bool kPlane>
+using LevelTable = typename std::conditional<kPlane, PlaneTable,
+                                             Table<kWarp>>::type;
 
 template <int kWarp>
 __host__ __device__ constexpr int warp_field() {
@@ -432,17 +442,20 @@ __device__ __forceinline__ void produce_run(const lf::Maps<T>& maps,
    ...);
 }
 
-// A block tile's loads: the sheet's hidden layers forward, then backward,
-// then the warp's (6 hidden layers, and the SE(3) trunk logit).
-template <int kWarp>
-__device__ __forceinline__ void produce_tile(const lf::Maps<Table<kWarp>>& maps,
-                                             Ring& ring) {
-  using T = Table<kWarp>;
+// A block tile's loads: the sheet's hidden layers forward, then backward
+// (no sheet in the plane level), then the warp's (6 hidden layers, and the
+// SE(3) trunk logit).
+template <int kWarp, bool kPlane>
+__device__ __forceinline__ void produce_tile(
+    const lf::Maps<LevelTable<kWarp, kPlane>>& maps, Ring& ring) {
+  using T = LevelTable<kWarp, kPlane>;
   constexpr int nw = top(warp_field<kWarp>()) + 1;
-  produce_run<T, T::kWarp, false>(maps, ring,
-                                  std::make_integer_sequence<int, 6>());
-  produce_run<T, T::kWarp, true>(maps, ring,
-                                 std::make_integer_sequence<int, 6>());
+  if constexpr (!kPlane) {
+    produce_run<T, T::kWarp, false>(maps, ring,
+                                    std::make_integer_sequence<int, 6>());
+    produce_run<T, T::kWarp, true>(maps, ring,
+                                   std::make_integer_sequence<int, 6>());
+  }
   produce_run<T, 0, false>(maps, ring, std::make_integer_sequence<int, nw>());
   produce_run<T, 0, true>(maps, ring, std::make_integer_sequence<int, nw>());
 }
@@ -1208,9 +1221,12 @@ __device__ __forceinline__ void lay_out(uint8_t*& base, Ring& ring,
   ring = Ring{ring_base, full, empty, 0, 0};
 }
 
-template <int kWarp>
+// kPlane: the plane level (kWarp 0): no sheet; d hyper, dx_t[:, 3:11] of a
+// (P, 16) dx_t, is the embedding's direct cotangent.
+template <int kWarp, bool kPlane>
 __global__ void __launch_bounds__(kThreads, 1)
-    fields_bwd_kernel(const __grid_constant__ lf::Maps<Table<kWarp>> maps,
+    fields_bwd_kernel(const __grid_constant__
+                      lf::Maps<LevelTable<kWarp, kPlane>> maps,
                       const float* __restrict__ zs,
                       const float* __restrict__ origins,
                       const float* __restrict__ dirs,
@@ -1221,7 +1237,8 @@ __global__ void __launch_bounds__(kThreads, 1)
                       float* __restrict__ d_z, float* __restrict__ d_ray,
                       float* __restrict__ grad_w, uint8_t* __restrict__ scratch,
                       long long n_points, int samples) {
-  using T = Table<kWarp>;
+  using T = LevelTable<kWarp, kPlane>;
+  static_assert(!kPlane || kWarp == 0, "plane: the translation warp");
   constexpr int FW = warp_field<kWarp>();
   constexpr long long kGradW = weight_offset<T>(T::kFields);
   uint8_t* base;
@@ -1236,7 +1253,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
     if (threadIdx.x == 128 * kGroups)
       for (long long tile = blockIdx.x; tile < n_tiles; tile += gridDim.x)
-        produce_tile<kWarp>(maps, ring);
+        produce_tile<kWarp, kPlane>(maps, ring);
     return;
   }
 
@@ -1276,44 +1293,61 @@ __global__ void __launch_bounds__(kThreads, 1)
         for (int ch = 0; ch < kEmbed; ++ch)
           rw.in[R][3 + ch] = valid ? embed[ray * kEmbed + ch] : 0.f;
         rw.in[R][11] = 0.f;
-        float4 a = make_float4(0.f, 0.f, 0.f, 0.f), b = a;
-        if (valid) {
-          a = reinterpret_cast<const float4*>(dx_t)[2 * p];
-          b = reinterpret_cast<const float4*>(dx_t)[2 * p + 1];
-        }
         float* acc = rw.acc[R];
-        acc[0] = a.x, acc[1] = a.y, acc[2] = a.z, acc[3] = a.w;
-        acc[4] = b.x, acc[5] = b.y, acc[6] = b.z, acc[7] = 0.f;
-        // The sheet's head first: d hyper.
-        float* h = rw.hg[R];
-        h[0] = a.w, h[1] = b.x, h[2] = b.y, h[3] = b.z;
-        h[4] = h[5] = h[6] = h[7] = 0.f;
+        if constexpr (kPlane) {
+          // d warped, then d hyper = d embed's direct part in the sheet's
+          // d[pts | embed] columns, whose d pts part is zero.
+          float4 a = make_float4(0.f, 0.f, 0.f, 0.f), b = a, e = a;
+          if (valid) {
+            a = reinterpret_cast<const float4*>(dx_t)[4 * p];
+            b = reinterpret_cast<const float4*>(dx_t)[4 * p + 1];
+            e = reinterpret_cast<const float4*>(dx_t)[4 * p + 2];
+          }
+          acc[0] = a.x, acc[1] = a.y, acc[2] = a.z;
+          acc[8] = acc[9] = acc[10] = 0.f;
+          acc[11] = a.w, acc[12] = b.x, acc[13] = b.y, acc[14] = b.z;
+          acc[15] = b.w, acc[16] = e.x, acc[17] = e.y, acc[18] = e.z;
+        } else {
+          float4 a = make_float4(0.f, 0.f, 0.f, 0.f), b = a;
+          if (valid) {
+            a = reinterpret_cast<const float4*>(dx_t)[2 * p];
+            b = reinterpret_cast<const float4*>(dx_t)[2 * p + 1];
+          }
+          acc[0] = a.x, acc[1] = a.y, acc[2] = a.z, acc[3] = a.w;
+          acc[4] = b.x, acc[5] = b.y, acc[6] = b.z, acc[7] = 0.f;
+          // The sheet's head first: d hyper.
+          float* h = rw.hg[R];
+          h[0] = a.w, h[1] = b.x, h[2] = b.y, h[3] = b.z;
+          h[4] = h[5] = h[6] = h[7] = 0.f;
+        }
       }
     }
     c.sync();
     c.mark(kCyRow);
 
     // The hyper sheet: recompute, walk back, its d[pts | embed] -> acc[8:19].
-    encode_field<kSheet, kHypF>(c, nullptr);
-    fence_async_smem();
-    c.sync();
-    c.mark(kCyEnc);
-    fwd_layer<T, kSheet, 0, true>(c, B);
-    fwd_layer<T, kSheet, 1, true>(c, B);
-    fwd_layer<T, kSheet, 2, true>(c, B);
-    fwd_layer<T, kSheet, 3, true>(c, B);
-    fwd_layer<T, kSheet, 4, true>(c, B);
-    fwd_layer<T, kSheet, 5, true>(c, B);
-    c.block_sync();
-    c.mark(kCyBar);
-    head_back<T, kSheet>(c, W, grad_w, grad_b);
-    back_layer<T, kSheet, 5>(c, grad_w, grad_b);
-    back_layer<T, kSheet, 4>(c, grad_w, grad_b);
-    back_layer<T, kSheet, 3>(c, grad_w, grad_b);
-    back_layer<T, kSheet, 2>(c, grad_w, grad_b);
-    back_layer<T, kSheet, 1>(c, grad_w, grad_b);
-    back_layer<T, kSheet, 0>(c, grad_w, grad_b);
-    encoding_vjp<kSheet, kHypF>(c, &rw.acc[0][8], 20, nullptr);
+    if constexpr (!kPlane) {
+      encode_field<kSheet, kHypF>(c, nullptr);
+      fence_async_smem();
+      c.sync();
+      c.mark(kCyEnc);
+      fwd_layer<T, kSheet, 0, true>(c, B);
+      fwd_layer<T, kSheet, 1, true>(c, B);
+      fwd_layer<T, kSheet, 2, true>(c, B);
+      fwd_layer<T, kSheet, 3, true>(c, B);
+      fwd_layer<T, kSheet, 4, true>(c, B);
+      fwd_layer<T, kSheet, 5, true>(c, B);
+      c.block_sync();
+      c.mark(kCyBar);
+      head_back<T, kSheet>(c, W, grad_w, grad_b);
+      back_layer<T, kSheet, 5>(c, grad_w, grad_b);
+      back_layer<T, kSheet, 4>(c, grad_w, grad_b);
+      back_layer<T, kSheet, 3>(c, grad_w, grad_b);
+      back_layer<T, kSheet, 2>(c, grad_w, grad_b);
+      back_layer<T, kSheet, 1>(c, grad_w, grad_b);
+      back_layer<T, kSheet, 0>(c, grad_w, grad_b);
+      encoding_vjp<kSheet, kHypF>(c, &rw.acc[0][8], 20, nullptr);
+    }
     c.sync();  // the warp's encoding goes over the sheet's d enc
 
     // The warp field.
@@ -1466,22 +1500,22 @@ int plan_loads(int first, int count, int* loads, int n, int max_loads) {
 
 // Host side: the tensor maps of the blob W (level_fwd.cuh's, cached), the
 // shared-memory attribute once per device, `blocks` persistent blocks.
-template <int kWarp>
+template <int kWarp, bool kPlane = false>
 int launch_fields_bwd(const void* z, const void* origins, const void* dirs,
                       const void* embed, const void* dx_t,
                       const void* warp_scales, const void* weights,
                       const void* biases, void* d_z, void* d_ray, void* grads,
                       void* scratch, long long n_points, int samples,
                       int blocks, void* stream) {
-  using T = Table<kWarp>;
+  using T = LevelTable<kWarp, kPlane>;
   static std::atomic<int> configured[kMaxDevices];
   int dev = 0, sms = 0;
   int status = current_device(&dev, &sms);
   if (status) return status;
   if (!configured[dev].load(std::memory_order_relaxed)) {
     const cudaError_t err = cudaFuncSetAttribute(
-        fields_bwd_kernel<kWarp>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        kSmemBytes);
+        fields_bwd_kernel<kWarp, kPlane>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
     if (err != cudaSuccess) return (int)err;
     configured[dev].store(1, std::memory_order_relaxed);
   }
@@ -1490,8 +1524,8 @@ int launch_fields_bwd(const void* z, const void* origins, const void* dirs,
   status = lf::make_maps<T>(&maps, static_cast<const bf16*>(weights), 0,
                             T::kNum);
   if (status) return status;
-  fields_bwd_kernel<kWarp><<<blocks, kThreads, kSmemBytes,
-                             (cudaStream_t)stream>>>(
+  fields_bwd_kernel<kWarp, kPlane><<<blocks, kThreads, kSmemBytes,
+                                     (cudaStream_t)stream>>>(
       maps, static_cast<const float*>(z), static_cast<const float*>(origins),
       static_cast<const float*>(dirs), static_cast<const float*>(embed),
       static_cast<const float*>(dx_t), static_cast<const float*>(warp_scales),
@@ -1505,7 +1539,7 @@ int launch_fields_bwd(const void* z, const void* origins, const void* dirs,
 }  // namespace fb
 }  // namespace
 
-// The three instantiations (fields_bwd_{trans,se3,quat}.cu).
+// The four instantiations (fields_bwd_{trans,se3,quat,plane}.cu).
 #define HN_FIELDS_BWD_ARGS                                                  \
   const void *z, const void *origins, const void *dirs, const void *embed, \
       const void *dx_t, const void *warp_scales, const void *weights,       \
@@ -1515,3 +1549,4 @@ int launch_fields_bwd(const void* z, const void* origins, const void* dirs,
 extern "C" int hn_fields_bwd_trans(HN_FIELDS_BWD_ARGS);
 extern "C" int hn_fields_bwd_se3(HN_FIELDS_BWD_ARGS);
 extern "C" int hn_fields_bwd_quat(HN_FIELDS_BWD_ARGS);
+extern "C" int hn_fields_bwd_plane(HN_FIELDS_BWD_ARGS);

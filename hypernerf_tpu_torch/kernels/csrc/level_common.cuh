@@ -1,10 +1,11 @@
 // Shared by the level kernels (level_fwd.cuh, fields_bwd.cuh, kernel
-// A's template_*.cu): the flagship widths, the template's two encoding
-// layouts, the two tables of the level's layers (30 with the translation
-// warp, 32 with the SE(3) / quaternion warp) with their offsets into the
-// packed weight and bias blobs, the bf16 rounding and the posenc_orig
-// feature map. A function that reads a table
-// takes it as a template parameter, TransTable by default.
+// A's template_*.cu): the flagship widths, the template's three encoding
+// layouts, the three tables of the level's layers (30 with the translation
+// warp, 32 with the SE(3) / quaternion warp, 23 with the translation warp
+// and no sheet, the plane configuration) with their offsets into the packed
+// weight and bias blobs, the bf16 rounding and the posenc_orig feature map.
+// A function that reads a table takes it as a template parameter,
+// TransTable by default.
 
 #pragma once
 
@@ -33,6 +34,7 @@ constexpr int kTmplEnc = kTmplXyz + kHypOut * (1 + 2 * kHypEncF);  // 115
 constexpr int kWarpEncP = pad16(kWarpPts + kEmbed);          // 80
 constexpr int kHypEncP = pad16(kHypPts + kEmbed);            // 64
 constexpr int kTmplEncP = pad16(kTmplEnc);                   // 128
+constexpr int kPlaneEncP = 192;  // the plane layout's 167 columns, 3 boxes
 constexpr int kCondP = pad16(kCond);                         // 48
 // The SE(3) / quaternion warp's trunk: Nerfies encoding of the points over
 // the degrees [kSe3MinDeg, kSe3MinDeg + kSe3F), [sin | cos | embed].
@@ -40,33 +42,62 @@ constexpr int kSe3W = 128, kSe3F = 8, kSe3MinDeg = 0;
 constexpr int kSe3Trig = 3 * kSe3F;                          // 24
 constexpr int kSe3EncP = pad16(2 * kSe3Trig + kEmbed);       // 64
 
-// The template's two encoding layouts, both filling the kTmplEncP columns
-// of the first trunk layer's input and the kCondP condition columns of the
-// rgb branch's: the flagship's posenc_orig (the xyz at kXyzF bands and the
-// kHypOut hyper coordinates at kHypEncF, identity columns on both; a
-// kCond-column condition, posenc_orig(viewdirs, 4)) and the Nerfies
-// encoding of use_original_embed=False, the anneal configuration (posenc
-// from degree 0, [x | sin | cos] with band k of channel c at k * C + c: the
-// xyz over kXyzF bands with its identity, the hyper coordinates over
-// kNerfHypF bands without; a kNerfCond-column condition, posenc(viewdirs, 0,
-// 4, identity)). Every column of the Nerfies layout is weighted by a window
-// row, a tensor input of every call (the annealing alphas move every step),
-// and a kernel takes that layout wherever it is given the row: one branch,
-// uniform over the call.
+// The template's encoding layouts (TmplLayout below), each the first trunk
+// layer's input, kEncP columns, and the rgb branch's kCondP condition
+// columns:
+//  - OrigEnc, the flagship's posenc_orig: the xyz at kXyzF bands and the
+//    kHypOut hyper coordinates at kHypEncF, identity columns on both; a
+//    kCond-column condition, posenc_orig(viewdirs, 4);
+//  - NerfEnc, the Nerfies encoding of use_original_embed=False, the anneal
+//    configuration: posenc from degree 0, [x | sin | cos] with band k of
+//    channel c at k * C + c, the xyz over kXyzF bands with its identity, the
+//    hyper coordinates over kNerfHypF bands without; a kNerfCond-column
+//    condition, posenc(viewdirs, 0, 4, identity). Every column is weighted by
+//    a window row, a tensor input of every call (the annealing alphas move
+//    every step), and a kernel takes that layout wherever it is given the
+//    row: one branch, uniform over the call;
+//  - PlaneEnc, axis_aligned_plane slicing, the plane configuration:
+//    posenc_orig with the kEmbed coordinates of the ray's GLO embedding as
+//    the hyper coordinates (no sheet computes them), 167 columns in
+//    kPlaneEncP slots; the flagship's condition.
+// kRaw: the columns of a raw row [xyz | hyper | 0] (raw_t, x_raw).
 constexpr int kNerfHypF = 4, kNerfCond = 27;
-template <bool kNerfies>
-struct TmplEnc {
-  static constexpr int kHypF = kNerfies ? kNerfHypF : kHypEncF;
-  static constexpr int kHypId = kNerfies ? 0 : kHypOut;  // identity columns
-  static constexpr int kEnc = kTmplXyz + kHypId + 2 * kHypOut * kHypF;
+template <int H, int HF, bool kNerfies_, int EncP, int Cond>
+struct TmplLayout {
+  static constexpr int kHyp = H, kHypF = HF, kEncP = EncP, kCond = Cond;
+  static constexpr bool kNerfies = kNerfies_;
+  static constexpr bool kPlane = H == kEmbed;  // the hyper coords: the embed
+  static constexpr int kHypId = kNerfies ? 0 : H;  // identity columns
+  static constexpr int kEnc = kTmplXyz + kHypId + 2 * H * HF;
+  static constexpr int kRaw = 3 + H <= 8 ? 8 : 16;
+  static_assert(kEnc <= kEncP && kEncP % 64 == 0, "the encoding's slots");
 };
-static_assert(TmplEnc<false>::kEnc == kTmplEnc &&
-                  TmplEnc<true>::kEnc <= kTmplEncP && kNerfCond <= kCondP,
-              "both layouts fill the same slots");
+using OrigEnc = TmplLayout<kHypOut, kHypEncF, false, kTmplEncP, kCond>;
+using NerfEnc = TmplLayout<kHypOut, kNerfHypF, true, kTmplEncP, kNerfCond>;
+using PlaneEnc = TmplLayout<kEmbed, kHypEncF, false, kPlaneEncP, kCond>;
+static_assert(OrigEnc::kEnc == kTmplEnc && NerfEnc::kEnc <= kTmplEncP &&
+                  PlaneEnc::kEnc == 167 && PlaneEnc::kEnc <= kPlaneEncP &&
+                  kNerfCond <= kCondP,
+              "each layout fills its slots");
 
 struct Shape {
   int n, k;
 };
+
+// The template's 16 layers in kernel order, with its encoding in EncP
+// columns: the trunk's hidden 0..7 (the skip input after 4), its ReLU logit,
+// the bottleneck, the alpha head 1 -> 8, the rgb branch's hidden 0..3 on
+// [bottleneck | condition], its logit 3 -> 8.
+__host__ __device__ constexpr Shape tmpl_shape(int i, int enc_p) {
+  return i == 0   ? Shape{kTrunkW, enc_p}
+         : i == 5 ? Shape{kTrunkW, kTrunkW + enc_p}
+         : i < 9  ? Shape{kTrunkW, kTrunkW}
+         : i == 9 ? Shape{kBneck, kTrunkW}
+         : i == 10 ? Shape{8, kBneck}
+         : i == 11 ? Shape{kRgbW, kBneck + kCondP}
+         : i < 15 ? Shape{kRgbW, kRgbW}
+                  : Shape{8, kRgbW};
+}
 
 // The 30 layers of the level with the translation warp, in kernel order,
 // (out padded to 8, in padded per segment to 16). The Python wrapper packs
@@ -85,18 +116,8 @@ struct TransTable {
         // hyper MLP: hidden 0..5, logit 4 -> 8
         {kHypW, kHypEncP}, {kHypW, kHypW}, {kHypW, kHypW}, {kHypW, kHypW},
         {kHypW, kHypW}, {kHypW, kHypW + kHypEncP}, {8, kHypW},
-        // template trunk: hidden 0..7, ReLU logit
-        {kTrunkW, kTmplEncP}, {kTrunkW, kTrunkW}, {kTrunkW, kTrunkW},
-        {kTrunkW, kTrunkW}, {kTrunkW, kTrunkW},
-        {kTrunkW, kTrunkW + kTmplEncP}, {kTrunkW, kTrunkW},
-        {kTrunkW, kTrunkW}, {kTrunkW, kTrunkW},
-        // bottleneck, alpha head 1 -> 8
-        {kBneck, kTrunkW}, {8, kBneck},
-        // rgb branch: hidden 0..3, logit 3 -> 8
-        {kRgbW, kBneck + kCondP}, {kRgbW, kRgbW}, {kRgbW, kRgbW},
-        {kRgbW, kRgbW}, {8, kRgbW},
     };
-    return t[l];
+    return l < kFields ? t[l] : tmpl_shape(l - kFields, kTmplEncP);
   }
 };
 
@@ -116,6 +137,19 @@ struct Se3Table {
     };
     return l < kWarp ? t[l]
                      : TransTable::shape(l - kWarp + TransTable::kWarp);
+  }
+};
+
+// The 23 layers of the level of the plane configuration: the translation
+// warp, no sheet (kWarp == kFields: the hyper coordinates are the
+// embedding), the template on PlaneEnc's kPlaneEncP encoding columns.
+struct PlaneTable {
+  static constexpr int kNum = 23;
+  static constexpr int kWarp = 7;
+  static constexpr int kFields = 7;
+  __host__ __device__ static constexpr Shape shape(int l) {
+    return l < kFields ? TransTable::shape(l)
+                       : tmpl_shape(l - kFields, kPlaneEncP);
   }
 };
 
@@ -167,14 +201,13 @@ __device__ __forceinline__ float posenc_at(const float* x, int f) {
   return is_cos ? cosf(arg) : sinf(arg);
 }
 
-// Feature f < kTmplEncP of the template's encoding of a raw row rt = [xyz |
-// hyper] in layout TmplEnc<kNerfies>, before its window (0 past kEnc).
-template <bool kNerfies>
+// Feature f < L::kEncP of the template's encoding in layout L of a raw
+// row rt = [xyz | hyper], before its window (0 past kEnc).
+template <class L>
 __device__ __forceinline__ float tmpl_feature(const float* rt, int f) {
-  using L = TmplEnc<kNerfies>;
   if (f < kTmplXyz) return posenc_at<3, kXyzF>(rt, f);
   if (f >= L::kEnc) return 0.f;
-  return posenc_at<kHypOut, L::kHypF, !kNerfies>(rt + 3, f - kTmplXyz);
+  return posenc_at<L::kHyp, L::kHypF, !L::kNerfies>(rt + 3, f - kTmplXyz);
 }
 
 }  // namespace

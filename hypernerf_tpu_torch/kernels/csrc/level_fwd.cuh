@@ -1,10 +1,12 @@
 // One HyperNeRF level forward in one kernel, for Hopper (sm_90a): the kernel
 // template and its launcher, instantiated once per warp type by
-// level_fwd_trans.cu, level_fwd_se3.cu and level_fwd_quat.cu, and for the
+// level_fwd_trans.cu, level_fwd_se3.cu and level_fwd_quat.cu, for the
 // translation warp with the Nerfies template layout (the anneal
 // configuration, whose warp is the translation field alone) by
-// level_fwd_anneal.cu (one nvcc process each); fused_level.cu holds the
-// entry point that dispatches to them. Its three stages (the warp, the sheet, the template) are device
+// level_fwd_anneal.cu, and for the translation warp with the plane layout
+// (axis_aligned_plane slicing: no sheet, the hyper coordinates are the
+// ray's embedding) by level_fwd_plane.cu (one nvcc process each);
+// fused_level.cu holds the entry point that dispatches to them. Its three stages (the warp, the sheet, the template) are device
 // functions on one block (enter_block), which modular_fwd.cu runs
 // one at a time for the per-module path: a field alone, the template alone,
 // the SE(3) / quaternion trunk alone (the screw warp's stage without its
@@ -15,13 +17,16 @@
 // fused_level.py:1322; `_fwd_call_pipelined`, :1019, is a schedule of the
 // same function) in its ray-native mode, for the flagship spec with each of
 // its three warp types (translation, SE(3), quaternion:
-// `_warp_fwd_tile_gen` :330-344): bendy sheet, posenc_orig field
-// encodings, no alpha condition, the template in either of its layouts
-// (level_common.cuh TmplEnc: posenc_orig, or the anneal configuration's
-// windowed Nerfies encoding, `fused_level.py` :76-87, 166-172, a template
-// parameter). When asked (training) it also writes the template's raw
-// input raw_t = [warped | hyper | 0] (P, 8) fp32, the residual the TPU
-// kernel saves for its backward (fused_level.py:1339-1344).
+// `_warp_fwd_tile_gen` :330-344): bendy sheet or axis-aligned plane
+// (`_fields_fwd_core_gen` :385-407: the embedding is the hyper
+// coordinates), posenc_orig field encodings, no alpha condition, the
+// template in one of its layouts (level_common.cuh TmplLayout: posenc_orig,
+// the anneal configuration's windowed Nerfies encoding, `fused_level.py`
+// :76-87, 166-172, or the plane's posenc_orig of 8 hyper coordinates; a
+// template parameter). When asked (training) it also writes the template's
+// raw input raw_t = [warped | hyper | 0] (P, 8) fp32, (P, 16) with the plane
+// layout, the residual the TPU kernel saves for its backward
+// (fused_level.py:1339-1344).
 // Per sample row p of ray p / S:
 //   pts    = o + z * d
 //   warped = pts + WarpMLP(posenc_orig(pts, 10) ++ embed)        6 x 128
@@ -29,6 +34,7 @@
 //            (w, v) = heads(Trunk(posenc(pts, 0..8) ++ embed))    6 x 128 + 128
 //            warped = retraction(w, v, pts), fp32, one thread per row
 //   hyper  = HyperMLP(posenc_orig(pts, 7) ++ embed)               6 x 64 -> 4
+//            or, plane: hyper = embed (8), fp32
 //   h      = Trunk(posenc_orig(warped, 10) ++ posenc_orig(hyper, 6))  8 x 256,
 //            skip at 4, ReLU logit 256; or, given the window row w:
 //            Trunk(w * [posenc(warped, 0..10, identity) ++
@@ -97,12 +103,12 @@ constexpr int kRows = 64;                      // rows of a warpgroup's tile
 constexpr int kBoxBytes = kRows * 128;         // 64 rows x 64 bf16 columns
 constexpr int kStageRows = 128;                // weight rows of a stage
 constexpr int kStageBytes = kStageRows * 128;  // 16 KB
-constexpr int kStages = 6;
+constexpr int kStages = 6;  // the ring's stages (the plane block's: 5)
 
 // Column plan of the tile (every K segment starts on a 64-column box):
 //   warp      h [0, 128)   enc [128, 208)   (SE(3): enc [128, 192))
 //   hyper     h [0, 64)    enc [64, 128)
-//   template  h [0, 256)   enc [256, 384)
+//   template  h [0, 256)   enc [256, 384)   (plane: enc [256, 448))
 //   rgb       b/h [0, 128) rgb_cond [128, 176)
 // A hidden layer writes [0, N); the heads write fp32 rows.
 constexpr int kWarpEnc = kWarpW, kHypEnc = kHypW, kTmplEnc0 = kTrunkW;
@@ -129,50 +135,89 @@ constexpr int kBiasBytes =
              ? bias_offset<Se3Table>(Se3Table::kNum)
              : bias_offset<TransTable>(TransTable::kNum));
 static_assert(kBiasBytes % 16 == 0 &&
-                  2 * bias_offset<TransTable>(TransTable::kNum) % 16 == 0,
+                  2 * bias_offset<TransTable>(TransTable::kNum) % 16 == 0 &&
+                  2 * bias_offset<PlaneTable>(PlaneTable::kNum) <=
+                      kBiasBytes,
               "the biases copy in 16-byte pieces");
 
+// The ring's position, kept by the producer and by every consumer thread
+// alike: stage s of parity phase, in a ring of kN stages of kStageBytes
+// (fields_bwd.cuh's ring has fewer).
+template <int kN>
+struct RingOf {
+  uint8_t* base;
+  uint64_t* full;
+  uint64_t* empty;
+  int s, phase;
+  __device__ __forceinline__ uint8_t* stage() const {
+    return base + s * kStageBytes;
+  }
+  __device__ __forceinline__ void next() {
+    if (++s == kN) {
+      s = 0;
+      phase ^= 1;
+    }
+  }
+};
+using Ring = RingOf<kStages>;
+
 // A block's shape: G consumer warpgroups, each with its own tile of kRows
-// rows x XC columns (XC / 64 boxes), and the producer warpgroup;
-// `setmaxnreg` moves registers from the producer to the consumers. The
-// level, and the template alone, run LevelBlock; a field alone reads and
-// writes fewer columns, so more tiles fit a block (modular_fwd.cu).
+// rows x XC columns (XC / 64 boxes), a ring of S stages, and the producer
+// warpgroup; `setmaxnreg` moves registers from the producer to the
+// consumers. The level, and the template alone, run LevelBlock (the plane
+// layout: PlaneBlock); a field alone reads and writes fewer columns, so
+// more tiles fit a block (modular_fwd.cu).
 // setmaxnreg only moves registers within the block's allocation at launch,
 // which is kThreads x kEntryRegs (ptxas gives a kernel that uses setmaxnreg
 // all that its launch bounds allow): a consumer count past that waits for
 // registers that never come (a G = 4 block at 112 consumer registers did,
 // until its bounded wait trapped).
-template <int G, int XC>
+template <int G, int XC, int S = kStages>
 struct Block {
-  static constexpr int kGroups = G, kCols = XC;
+  static constexpr int kGroups = G, kCols = XC, kStages = S;
+  using Ring = RingOf<S>;
   static constexpr int kThreads = 128 * (G + 1);
   static constexpr int kEntryRegs = 65536 / kThreads / 8 * 8;
   static constexpr int kXBytes = XC / kBoxCols * kBoxBytes;
   static constexpr int kArrivals = 4 * G;  // consumer warps per stage
   static constexpr int kProducerRegs = G == 3 ? 56 : 40;
   static constexpr int kConsumerRegs = G == 2 ? 232 : G == 3 ? 152 : 104;
-  static constexpr int kSmemBytes = 1024 + G * kXBytes +
-                                    kStages * kStageBytes +
+  static constexpr int kSmemBytes = 1024 + G * kXBytes + S * kStageBytes +
                                     G * (int)sizeof(Rows) + kBiasBytes +
-                                    2 * kStages * 8;
+                                    2 * S * 8;
   static_assert(G >= 2 && G <= 4 && XC % kBoxCols == 0, "a block's shape");
   static_assert(kSmemBytes <= 232448, "fits an SM's shared memory");
   static_assert(G * kConsumerRegs + kProducerRegs <= (G + 1) * kEntryRegs,
                 "fits the block's registers");
 };
-using LevelBlock = Block<2, kTrunkW + kTmplEncP>;  // 384 columns
+// The block of the level and of the template alone in template layout L:
+// two tiles of the trunk's 256 columns and the encoding's. The plane
+// layout's 448-column tiles leave room for a ring of 5 stages.
+template <class L>
+using TmplBlock = Block<2, kTrunkW + L::kEncP,
+                        (L::kEncP > kTmplEncP ? kStages - 1 : kStages)>;
+using LevelBlock = TmplBlock<OrigEnc>;   // 384 columns, 6 stages
+using PlaneBlock = TmplBlock<PlaneEnc>;  // 448 columns, 5 stages
+static_assert(std::is_same<LevelBlock, TmplBlock<NerfEnc>>::value,
+              "both 128-column layouts run the level's block");
 constexpr int kMaxGroups = 4;
 
 // The layer table of warp type kWarp (0 translation, 1 SE(3), 2 quaternion).
 template <int kWarp>
 using Table =
     typename std::conditional<kWarp == 0, TransTable, Se3Table>::type;
+// The table of the level of warp type kWarp with template layout L: the
+// plane layout's has no sheet (translation warp alone).
+template <int kWarp, class L>
+using LevelTable =
+    typename std::conditional<L::kPlane, PlaneTable, Table<kWarp>>::type;
 
-// The first tile column of layer l's input.
+// The first tile column of layer l's input (a table without a sheet has
+// kWarp == kFields).
 template <class T>
 __host__ __device__ constexpr int in_col(int l) {
   return l == 0 ? kWarpEnc
-                : l == T::kWarp ? kHypEnc : l == T::kFields ? kTmplEnc0 : 0;
+                : l == T::kFields ? kTmplEnc0 : l == T::kWarp ? kHypEnc : 0;
 }
 
 // Weight loads of one layer: 64-column boxes of K by row halves of N.
@@ -212,27 +257,6 @@ struct Maps {
   CUtensorMap m[map_count<T>()];
 };
 
-// The ring's position, kept by the producer and by every consumer thread
-// alike: stage s of parity phase, in a ring of kN stages of kStageBytes
-// (fields_bwd.cuh's ring has fewer).
-template <int kN>
-struct RingOf {
-  uint8_t* base;
-  uint64_t* full;
-  uint64_t* empty;
-  int s, phase;
-  __device__ __forceinline__ uint8_t* stage() const {
-    return base + s * kStageBytes;
-  }
-  __device__ __forceinline__ void next() {
-    if (++s == kN) {
-      s = 0;
-      phase ^= 1;
-    }
-  }
-};
-using Ring = RingOf<kStages>;
-
 // -- the producer --------------------------------------------------------------
 
 template <class T, int L, class R>
@@ -254,8 +278,8 @@ __device__ __forceinline__ void produce_layer(const Maps<T>& maps, R& ring) {
 
 // The loads of layers L0, L0 + 1, ... of one pair of row tiles: the stage's
 // (or the level's) layers in order.
-template <class T, int L0, int... I>
-__device__ __forceinline__ void produce_tile(const Maps<T>& maps, Ring& ring,
+template <class T, int L0, class R, int... I>
+__device__ __forceinline__ void produce_tile(const Maps<T>& maps, R& ring,
                                              std::integer_sequence<int, I...>) {
   (produce_layer<T, L0 + I>(maps, ring), ...);
 }
@@ -372,8 +396,8 @@ struct Acc {
 // in the producer's order (the 64-column boxes of K, each as one or two
 // 128-row halves of N); every stage is released once its products have
 // retired. Returns with every product of the layer retired.
-template <class T, int L>
-__device__ __forceinline__ void product(const Group& g, Ring& ring,
+template <class T, int L, class R>
+__device__ __forceinline__ void product(const Group& g, R& ring,
                                         Acc<T::shape(L).n>& acc) {
   constexpr Shape sh = T::shape(L);
   constexpr int kBox0 = in_col<T>(L) / kBoxCols;
@@ -446,8 +470,8 @@ __device__ __forceinline__ uint32_t masked_round(float v0, float v1,
 // shared memory, read before the products (a load still in flight would
 // hold up the first `wgmma`); post() runs after the stores, before the
 // layer's closing barrier.
-template <class T, int L, bool kRelu, class Post>
-__device__ __forceinline__ void hidden(const Group& g, Ring& ring,
+template <class T, int L, bool kRelu, class R, class Post>
+__device__ __forceinline__ void hidden(const Group& g, R& ring,
                                        const bf16* Bs, Post post) {
   constexpr int N = T::shape(L).n;
   using A = Acc<N>;
@@ -484,15 +508,15 @@ __device__ __forceinline__ void hidden(const Group& g, Ring& ring,
   LF_TRACE(g, L, 3);
 }
 
-template <class T, int L, bool kRelu>
-__device__ __forceinline__ void hidden(const Group& g, Ring& ring,
+template <class T, int L, bool kRelu, class R>
+__device__ __forceinline__ void hidden(const Group& g, R& ring,
                                        const bf16* Bs) {
   hidden<T, L, kRelu>(g, ring, Bs, [] {});
 }
 
 // Head L (N = 8): dst[r * ld + c] = fp32 acc + b for c < n_out.
-template <class T, int L>
-__device__ __forceinline__ void head(const Group& g, Ring& ring,
+template <class T, int L, class R>
+__device__ __forceinline__ void head(const Group& g, R& ring,
                                      const bf16* Bs, float* dst, int ld,
                                      int n_out) {
   static_assert(T::shape(L).n == 8, "heads are 8 wide");
@@ -592,18 +616,22 @@ __device__ __forceinline__ void encode_posenc(
     posenc_row<CH, F, NX, KP, COL, 1>(g, r, src[r], scales);
 }
 
-// The template's encoding in layout TmplEnc<kNerfies> ([x | sin | cos] of
-// the warped point, then the hyper coordinates' [x | sin | cos] or, Nerfies,
-// [sin | cos], then 0 pad) into X[:, 256 : 384] from rows.raw. Each feature
-// goes through window_feature: scales is null for posenc_orig, the Nerfies
-// layout's window row (kTmplEncP weights) otherwise.
-template <bool kNerfies>
+// The template's encoding in layout L ([x | sin | cos] of the warped point,
+// then the hyper coordinates' [x | sin | cos] or, Nerfies, [sin | cos], then
+// 0 pad) into X[:, 256 : 256 + L::kEncP]: the warped point from rows.raw,
+// the hyper coordinates from rows.raw[:, 3:] or, plane, from the embedding's
+// columns rows.in[:, 3:11]. Each feature goes through window_feature:
+// scales is null but for the Nerfies layout's window row (kTmplEncP
+// weights).
+template <class L>
 __device__ __forceinline__ void encode_template(
     const Group& g, const float* __restrict__ scales) {
-  using L = TmplEnc<kNerfies>;
-  constexpr int kXyzPairs = 3 * kXyzF, kHypPairs = kHypOut * L::kHypF;
-  constexpr int kRest = kTmplEncP - 2 * (kXyzPairs + kHypPairs);
+  constexpr int kXyzPairs = 3 * kXyzF, kHypPairs = L::kHyp * L::kHypF;
+  constexpr int kRest = L::kEncP - 2 * (kXyzPairs + kHypPairs);
   const float(*raw)[8] = g.rows->raw;
+  auto hyp = [&](int r) -> const float* {
+    return L::kPlane ? g.rows->in[r] + 3 : raw[r] + 3;
+  };
 #pragma unroll 3
   for (int e = g.tid; e < kRows * kXyzPairs; e += 128) {
     const int r = e / kXyzPairs, q = e % kXyzPairs;
@@ -617,7 +645,7 @@ __device__ __forceinline__ void encode_template(
   for (int e = g.tid; e < kRows * kHypPairs; e += 128) {
     const int r = e / kHypPairs, q = e % kHypPairs;
     float sn, cs;
-    sincosf(raw[r][3 + q % kHypOut] * pow2(q / kHypOut), &sn, &cs);
+    sincosf(hyp(r)[q % L::kHyp] * pow2(q / L::kHyp), &sn, &cs);
     const int c = kTmplXyz + L::kHypId + q;
     sts16(x_at(g.xs, r, kTmplEnc0 + c), window_feature(sn, c, scales));
     sts16(x_at(g.xs, r, kTmplEnc0 + c + kHypPairs),
@@ -633,7 +661,7 @@ __device__ __forceinline__ void encode_template(
       v = window_feature(raw[r][f], c, scales);
     } else if (f < 3 + L::kHypId) {
       c = kTmplXyz + f - 3;
-      v = window_feature(raw[r][f], c, scales);
+      v = window_feature(hyp(r)[f - 3], c, scales);
     } else {
       c = L::kEnc + f - 3 - L::kHypId;
     }
@@ -664,7 +692,7 @@ __device__ __forceinline__ void encode_se3_tile(
   }
 }
 
-// The rays' rgb condition (bf16, cond_w columns: kCond or kNerfCond) into
+// The rays' rgb condition (bf16, cond_w columns: a layout's kCond) into
 // X[:, 128 : 176], zero past cond_w, eight loads in flight a thread.
 __device__ __forceinline__ void load_condition(const Group& g,
                                                const bf16* __restrict__ cond,
@@ -704,8 +732,8 @@ __device__ __forceinline__ long long first_row(const Group& g,
 // bands and the embedding, at the tile column in_col(L0); six hidden
 // layers; an 8-wide head) on the tile: the head's first n_out fp32 outputs
 // of row r go to dst[8 r + c]. scales: null, or the window row.
-template <class T, int L0, int F>
-__device__ __forceinline__ void field_stage(const Group& g, Ring& ring,
+template <class T, int L0, int F, class R>
+__device__ __forceinline__ void field_stage(const Group& g, R& ring,
                                             const bf16* Bs,
                                             const float* __restrict__ scales,
                                             float* dst, int n_out) {
@@ -723,8 +751,8 @@ __device__ __forceinline__ void field_stage(const Group& g, Ring& ring,
 }
 
 // The translation warp: rows.raw[:, 0:3] = warped = pts + WarpMLP(...).
-template <class T>
-__device__ __forceinline__ void translation_stage(const Group& g, Ring& ring,
+template <class T, class R>
+__device__ __forceinline__ void translation_stage(const Group& g, R& ring,
                                                   const bf16* Bs) {
   Rows& rw = *g.rows;
   field_stage<T, 0, kWarpF>(g, ring, Bs, nullptr, &rw.head[0][0], 3);
@@ -735,8 +763,8 @@ __device__ __forceinline__ void translation_stage(const Group& g, Ring& ring,
 // The SE(3) / quaternion trunk (layers 0 .. kSe3HeadV of T) on rows.in:
 // rows.head[:, 0:3] = w, rows.head[:, 3:6] = v. scales: null, or the
 // window row.
-template <class T>
-__device__ __forceinline__ void trunk_stage(const Group& g, Ring& ring,
+template <class T, class R>
+__device__ __forceinline__ void trunk_stage(const Group& g, R& ring,
                                             const bf16* Bs,
                                             const float* __restrict__ scales) {
   Rows& rw = *g.rows;
@@ -756,8 +784,8 @@ __device__ __forceinline__ void trunk_stage(const Group& g, Ring& ring,
 
 // The SE(3) / quaternion warp: trunk -> (w, v) -> rows.raw[:, 0:3] =
 // retraction(w, v, pts).
-template <class T, int kWarp>
-__device__ __forceinline__ void screw_stage(const Group& g, Ring& ring,
+template <class T, int kWarp, class R>
+__device__ __forceinline__ void screw_stage(const Group& g, R& ring,
                                             const bf16* Bs,
                                             const float* __restrict__ scales) {
   Rows& rw = *g.rows;
@@ -768,29 +796,31 @@ __device__ __forceinline__ void screw_stage(const Group& g, Ring& ring,
 }
 
 // The hyper sheet: rows.raw[:, 3:7] = hyper coordinates, rows.raw[:, 7] = 0.
-template <class T>
-__device__ __forceinline__ void sheet_stage(const Group& g, Ring& ring,
+template <class T, class R>
+__device__ __forceinline__ void sheet_stage(const Group& g, R& ring,
                                             const bf16* Bs) {
   field_stage<T, T::kWarp, kHypF>(g, ring, Bs, nullptr, &g.rows->raw[0][3],
                                   kHypOut);
   if (g.tid < kRows) g.rows->raw[g.tid][7] = 0.f;
 }
 
-// The template on rows.raw = [warped | hyper | 0] and the condition rows
-// rows.ray: out[row0 + r] = [rgb logits | raw sigma] for rows below P.
-// The encoding's layout is TmplEnc<kNerfies>: posenc_orig and a
-// kCond-column condition (tmpl_scales unused), or the Nerfies layout with
-// its window row tmpl_scales and a kNerfCond-column condition. Each layout
-// is its own instantiation, so the posenc_orig kernels carry no code of the
-// other.
-template <class T, bool kNerfies>
+// The template on rows.raw = [warped | hyper | 0] (plane: the hyper
+// coordinates in rows.in, encode_template) and the condition rows rows.ray:
+// out[row0 + r] = [rgb logits | raw sigma] for rows below P. The
+// encoding's layout is L (level_common.cuh TmplLayout): posenc_orig, of 4
+// or (plane) 8 hyper coordinates, and a kCond-column condition
+// (tmpl_scales unused), or the Nerfies layout with its window row
+// tmpl_scales and a kNerfCond-column condition. Each layout is its own
+// instantiation, so a kernel carries no code of another.
+template <class T, class L, class R>
 __device__ __forceinline__ void template_stage(
-    const Group& g, Ring& ring, const bf16* Bs,
+    const Group& g, R& ring, const bf16* Bs,
     const bf16* __restrict__ rgb_cond, const float* __restrict__ tmpl_scales,
     float* __restrict__ out, long long row0, long long n_points) {
   constexpr int T0 = T::kFields;
   Rows& rw = *g.rows;
-  encode_template<kNerfies>(g, kNerfies ? tmpl_scales : nullptr);
+  static_assert(T::shape(T::kFields).k == L::kEncP, "the layout's table");
+  encode_template<L>(g, L::kNerfies ? tmpl_scales : nullptr);
   fence_async_smem();
   g.sync();
   hidden<T, T0 + 0, true>(g, ring, Bs);
@@ -805,8 +835,7 @@ __device__ __forceinline__ void template_stage(
   // The bottleneck (rounded, no ReLU), the condition beside it.
   hidden<T, T0 + 9, false>(g, ring, Bs,
                            [&] {
-                             load_condition(g, rgb_cond,
-                                            kNerfies ? kNerfCond : kCond);
+                             load_condition(g, rgb_cond, L::kCond);
                            });
   head<T, T0 + 10>(g, ring, Bs, rw.sigma, 1, 1);  // alpha
   hidden<T, T0 + 11, true>(g, ring, Bs);
@@ -847,7 +876,8 @@ template <class Blk, class T, int L0, int L1>
 __device__ __forceinline__ bool enter_block(const Maps<T>& maps,
                                             const bf16* __restrict__ B,
                                             long long n_points, Group& g,
-                                            Ring& ring, const bf16*& Bs) {
+                                            typename Blk::Ring& ring,
+                                            const bf16*& Bs) {
   static_assert(whole_runs<T>(L0, L1), "the layers' maps are whole runs");
   static_assert(fits_columns<T>(L0, L1, Blk::kCols), "the layers fit a tile");
   constexpr int kB0 = bias_offset<T>(L0), kB1 = bias_offset<T>(L1);
@@ -857,17 +887,18 @@ __device__ __forceinline__ bool enter_block(const Maps<T>& maps,
   uint8_t* base =
       smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
   uint8_t* ring_base = base + Blk::kGroups * Blk::kXBytes;
-  Rows* rows = reinterpret_cast<Rows*>(ring_base + kStages * kStageBytes);
+  Rows* rows =
+      reinterpret_cast<Rows*>(ring_base + Blk::kStages * kStageBytes);
   bf16* bias = reinterpret_cast<bf16*>(rows + Blk::kGroups);
   uint64_t* full = reinterpret_cast<uint64_t*>(
       reinterpret_cast<uint8_t*>(bias) + kBiasBytes);
-  uint64_t* empty = full + kStages;
+  uint64_t* empty = full + Blk::kStages;
 
   for (int i = threadIdx.x; i < 2 * (kB1 - kB0) / 16; i += Blk::kThreads)
     reinterpret_cast<uint4*>(bias + kB0)[i] =
         reinterpret_cast<const uint4*>(B)[i];
   if (threadIdx.x == 0) {
-    for (int s = 0; s < kStages; ++s) {
+    for (int s = 0; s < Blk::kStages; ++s) {
       mbar_init(&full[s], 1);
       mbar_init(&empty[s], Blk::kArrivals);
     }
@@ -875,7 +906,7 @@ __device__ __forceinline__ bool enter_block(const Maps<T>& maps,
   }
   __syncthreads();
 
-  ring = Ring{ring_base, full, empty, 0, 0};
+  ring = typename Blk::Ring{ring_base, full, empty, 0, 0};
   Bs = bias;
   const int group = threadIdx.x >> 7;
   if (group == Blk::kGroups) {  // the producer warpgroup
@@ -896,9 +927,11 @@ __device__ __forceinline__ bool enter_block(const Maps<T>& maps,
   return true;
 }
 
-template <int kWarp, bool kNerfies>
-__global__ void __launch_bounds__(LevelBlock::kThreads, 1)
-    level_fwd_kernel(const __grid_constant__ Maps<Table<kWarp>> maps,
+// The level of warp type kWarp with template layout L (the plane layout:
+// the translation warp, no sheet, raw_t of 16 columns).
+template <int kWarp, class L>
+__global__ void __launch_bounds__(TmplBlock<L>::kThreads, 1)
+    level_fwd_kernel(const __grid_constant__ Maps<LevelTable<kWarp, L>> maps,
                      const float* __restrict__ zs,
                      const float* __restrict__ origins,
                      const float* __restrict__ dirs,
@@ -909,33 +942,43 @@ __global__ void __launch_bounds__(LevelBlock::kThreads, 1)
                      const bf16* __restrict__ B, float* __restrict__ out,
                      float* __restrict__ raw_t, long long n_points,
                      int samples) {
-  using T = Table<kWarp>;
+  using T = LevelTable<kWarp, L>;
+  using Blk = TmplBlock<L>;
+  static_assert(!L::kPlane || kWarp == 0, "plane: the translation warp");
   Group g;
-  Ring ring;
+  typename Blk::Ring ring;
   const bf16* Bs;
-  if (!enter_block<LevelBlock, T, 0, T::kNum>(maps, B, n_points, g, ring,
-                                              Bs))
+  if (!enter_block<Blk, T, 0, T::kNum>(maps, B, n_points, g, ring, Bs))
     return;
-  const long long n_pairs = tile_steps<LevelBlock>(n_points);
+  const long long n_pairs = tile_steps<Blk>(n_points);
   for (long long pair = blockIdx.x; pair < n_pairs;
        pair += gridDim.x, ++g.it) {
-    const long long row0 = first_row<LevelBlock>(g, pair);
+    const long long row0 = first_row<Blk>(g, pair);
     row_inputs(g, row0, n_points, samples, zs, origins, dirs, embed);
     g.sync();
     if constexpr (kWarp == 0)
       translation_stage<T>(g, ring, Bs);
     else
       screw_stage<T, kWarp>(g, ring, Bs, warp_scales);
-    sheet_stage<T>(g, ring, Bs);
+    if constexpr (!L::kPlane) sheet_stage<T>(g, ring, Bs);
     // Training keeps the template's raw input for the backward kernels.
     if (raw_t != nullptr && g.tid < kRows && row0 + g.tid < n_points) {
       const float* rt = g.rows->raw[g.tid];
-      float4* dst = reinterpret_cast<float4*>(raw_t) + 2 * (row0 + g.tid);
-      dst[0] = make_float4(rt[0], rt[1], rt[2], rt[3]);
-      dst[1] = make_float4(rt[4], rt[5], rt[6], 0.f);
+      float4* dst = reinterpret_cast<float4*>(raw_t) +
+                    L::kRaw / 4 * (row0 + g.tid);
+      if constexpr (L::kPlane) {  // [warped | embed | 0]
+        const float* e = g.rows->in[g.tid] + 3;
+        dst[0] = make_float4(rt[0], rt[1], rt[2], e[0]);
+        dst[1] = make_float4(e[1], e[2], e[3], e[4]);
+        dst[2] = make_float4(e[5], e[6], e[7], 0.f);
+        dst[3] = make_float4(0.f, 0.f, 0.f, 0.f);
+      } else {
+        dst[0] = make_float4(rt[0], rt[1], rt[2], rt[3]);
+        dst[1] = make_float4(rt[4], rt[5], rt[6], 0.f);
+      }
     }
-    template_stage<T, kNerfies>(g, ring, Bs, rgb_cond, tmpl_scales, out,
-                                row0, n_points);
+    template_stage<T, L>(g, ring, Bs, rgb_cond, tmpl_scales, out, row0,
+                         n_points);
   }
 }
 
@@ -977,7 +1020,7 @@ int forward_plan(int first, int last, int* config, int* in_cols, int* loads,
                  int max_loads) {
   int maps = 0;
   for (int l = first; l < last; ++l) maps += map_first<T>(l) == l ? 1 : 0;
-  const int c[] = {kRows,           Blk::kGroups,  kStages,
+  const int c[] = {kRows,           Blk::kGroups,  Blk::kStages,
                    kStageBytes,     Blk::kSmemBytes, Blk::kThreads,
                    Blk::kCols,      maps};
   for (int i = 0; i < 8; ++i) config[i] = c[i];
@@ -998,27 +1041,27 @@ int forward_plan(int first, int last, int* config, int* in_cols, int* loads,
 }
 
 // Host side: the tensor maps of the blob W (cached by address and shape),
-// the shared-memory attribute once per device, a persistent grid. kNerfies:
-// the template's layout (template_stage).
-template <int kWarp, bool kNerfies>
+// the shared-memory attribute once per device, a persistent grid. L: the
+// template's layout (template_stage).
+template <int kWarp, class L>
 int launch_level_fwd(const void* z, const void* origins, const void* dirs,
                      const void* embed, const void* rgb_cond,
                      const void* warp_scales, const void* tmpl_scales,
                      const void* weights, const void* biases, void* out,
                      void* raw_t, long long n_points, int samples,
                      void* stream) {
-  using T = Table<kWarp>;
+  using T = LevelTable<kWarp, L>;
+  using Blk = TmplBlock<L>;
   static std::atomic<int> configured[kMaxDevices];
   unsigned grid = 0;
-  int status = block_grid<LevelBlock>(level_fwd_kernel<kWarp, kNerfies>,
-                                      configured, n_points, &grid);
+  int status = block_grid<Blk>(level_fwd_kernel<kWarp, L>, configured,
+                               n_points, &grid);
   if (status || grid == 0) return status;
   Maps<T> maps;
   status = make_maps<T>(&maps, static_cast<const bf16*>(weights), 0, T::kNum);
   if (status) return status;
-  level_fwd_kernel<kWarp, kNerfies><<<grid, LevelBlock::kThreads,
-                                      LevelBlock::kSmemBytes,
-                                      (cudaStream_t)stream>>>(
+  level_fwd_kernel<kWarp, L><<<grid, Blk::kThreads, Blk::kSmemBytes,
+                               (cudaStream_t)stream>>>(
       maps, static_cast<const float*>(z), static_cast<const float*>(origins),
       static_cast<const float*>(dirs), static_cast<const float*>(embed),
       static_cast<const bf16*>(rgb_cond),
@@ -1031,8 +1074,9 @@ int launch_level_fwd(const void* z, const void* origins, const void* dirs,
 }  // namespace lf
 }  // namespace
 
-// The four instantiations (level_fwd_{trans,se3,quat}.cu, and the
-// translation warp with the Nerfies template layout, level_fwd_anneal.cu).
+// The five instantiations (level_fwd_{trans,se3,quat}.cu, and the
+// translation warp with the Nerfies template layout, level_fwd_anneal.cu,
+// and with the plane layout, level_fwd_plane.cu).
 #define HN_LEVEL_FWD_ARGS                                                   \
   const void *z, const void *origins, const void *dirs, const void *embed, \
       const void *rgb_cond, const void *warp_scales,                        \
@@ -1042,3 +1086,4 @@ extern "C" int hn_level_fwd_trans(HN_LEVEL_FWD_ARGS);
 extern "C" int hn_level_fwd_se3(HN_LEVEL_FWD_ARGS);
 extern "C" int hn_level_fwd_quat(HN_LEVEL_FWD_ARGS);
 extern "C" int hn_level_fwd_anneal(HN_LEVEL_FWD_ARGS);
+extern "C" int hn_level_fwd_plane(HN_LEVEL_FWD_ARGS);

@@ -1,13 +1,13 @@
 // The level forward with the translation warp and the template's Nerfies
 // layout (the anneal configuration): level_fwd.cuh's kernel for warp type 0
-// with TmplEnc<true>, compiled on its own so that it builds in parallel
+// with NerfEnc, compiled on its own so that it builds in parallel
 // with the other instantiations and adds no code to them.
 
 #include "level_fwd.cuh"
 
 extern "C" int hn_level_fwd_anneal(HN_LEVEL_FWD_ARGS) {
-  return lf::launch_level_fwd<0, true>(z, origins, dirs, embed, rgb_cond,
-                                       warp_scales, tmpl_scales, weights,
-                                       biases, out, raw_t, n_points, samples,
-                                       stream);
+  return lf::launch_level_fwd<0, NerfEnc>(z, origins, dirs, embed, rgb_cond,
+                                          warp_scales, tmpl_scales, weights,
+                                          biases, out, raw_t, n_points,
+                                          samples, stream);
 }

@@ -25,9 +25,13 @@
 // condition (39)] -> rgb logits (layers 14..29); or, given the window row
 // `scales` (128 fp32), the anneal configuration's layout: scales *
 // [posenc(xyz, 0..10, identity) ++ posenc(hyper, 0..4)] and a condition of
-// 27 (level_common.cuh TmplEnc; template_fwd.cuh's kernel, instantiated
-// here for posenc_orig and in template_fwd_anneal.cu for the Nerfies
-// layout). In: x_raw (P, 8) fp32 rows [xyz | hyper | 0]; rgb_cond (P / S,
+// 27 (level_common.cuh TmplLayout; template_fwd.cuh's kernel, instantiated
+// here for posenc_orig, in template_fwd_anneal.cu for the Nerfies layout
+// and in template_fwd_plane.cu, entry point hn_fused_template_fwd_plane,
+// for the plane configuration's: posenc_orig of 8 hyper coordinates, 167
+// columns in 192, layers 7..22 of PlaneTable, x_raw (P, 16), on a block of
+// two 448-column tiles and a ring of 5 stages). In: x_raw (P, 8) fp32 rows
+// [xyz | hyper | 0]; rgb_cond (P / S,
 // 39 or 27) bf16, one row per S consecutive rows, any S >= 1; the
 // template's own blobs. Out: (P, 4) fp32 [rgb logits | raw sigma]. A
 // template without hyper coordinates (static NeRF: 63 encoded inputs) runs
@@ -262,13 +266,14 @@ extern "C" int hn_fused_template_fwd(const void* x_raw, const void* rgb_cond,
   if (scales)
     return hn_template_fwd_anneal(x_raw, rgb_cond, scales, weights, biases,
                                   out, n_points, samples, stream);
-  return lf::launch_template<false>(x_raw, rgb_cond, scales, weights, biases,
-                                    out, n_points, samples, stream);
+  return lf::launch_template<OrigEnc>(x_raw, rgb_cond, scales, weights,
+                                      biases, out, n_points, samples, stream);
 }
 
 // The plan of per-module stage `stage` (0 the warp field, 1 the sheet, 2 the
-// template, 3 the SE(3) trunk; lf::forward_plan of its block over its
-// layers of the table, TransTable's or, for the trunk, Se3Table's):
+// template, 3 the SE(3) trunk, 4 the plane configuration's template;
+// lf::forward_plan of its block over its layers of the table, TransTable's
+// or, for the trunk, Se3Table's, for the plane template PlaneTable's):
 // config[0:8], in_cols[i] for its i-th layer, and the weight loads of one
 // step of tiles. Returns the number of loads (written up to max_loads), or
 // -1 for an unknown stage.
@@ -290,6 +295,10 @@ extern "C" int hn_modular_fwd_plan(int stage, int* config, int* in_cols,
     case 3:
       return forward_plan<TrunkStage::Blk, TrunkStage::T>(
           TrunkStage::kFirst, TrunkStage::kLast, config, in_cols, loads,
+          max_loads);
+    case 4:
+      return forward_plan<PlaneBlock, PlaneTable>(
+          PlaneTable::kFields, PlaneTable::kNum, config, in_cols, loads,
           max_loads);
   }
   return -1;

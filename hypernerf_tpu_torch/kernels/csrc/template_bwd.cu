@@ -17,13 +17,17 @@
 // summed in fp32 in the posenc VJP, which uses fp32 sin / cos of the same
 // arguments as the recompute. The per-ray sums of d rgb_cond are written
 // by one thread each (a chunk holds whole rays), so they are deterministic.
-// Both template layouts (level_common.cuh TmplEnc) run here: the encoding's
-// two steps take the Nerfies one where they are given its window row (the
-// stash holds the windowed features, and the VJP weights the fp32
+// The three template layouts (level_common.cuh TmplLayout) run here: the
+// encoding's two steps take the Nerfies one where they are given its window
+// row (the stash holds the windowed features, and the VJP weights the fp32
 // cotangent by the row first, as the TPU kernel's `_encode_bwd`: a band of
-// weight 0 passes no gradient, an identity column weighs 1), and the
-// condition's two steps are compiled for both widths (39, 27) and take the
-// one they are given.
+// weight 0 passes no gradient, an identity column weighs 1) and the plane
+// one where they are given its buffers, whose widths are that layout's (a
+// stash of kPlaneStashLd columns, 192 of them the encoding's, raw rows of
+// 16 columns; the encoding's cotangent buffer of 2 x 256 columns); the
+// condition's two steps are compiled for both condition widths (39, 27) and
+// the steps that read the stash for both of its widths, and take the one
+// they are given.
 
 #include "level_common.cuh"
 
@@ -37,6 +41,23 @@ namespace {
 // fails with cudaErrorInvalidValue instead of misindexing.
 constexpr int kStashLd = 3072;  // bf16 columns of a stash row
 constexpr int kGLd = 256;       // bf16 columns of a cotangent buffer row
+// Layout L's stash: its encoding, the trunk's eight hidden outputs, its
+// logit, the bottleneck and the rgb branch's four, one row per sample; and
+// the columns of each of the encoding's two cotangents (layer 0's, the
+// skip's) in their buffer, the encoding's rounded up to 128.
+template <class L>
+__host__ __device__ constexpr int stash_ld() {
+  return L::kEncP + 9 * kTrunkW + kBneck + 4 * kRgbW;
+}
+template <class L>
+__host__ __device__ constexpr int enc_half() {
+  return (L::kEncP + 127) / 128 * 128;
+}
+constexpr int kPlaneStashLd = stash_ld<PlaneEnc>();  // 3136
+static_assert(stash_ld<OrigEnc>() == kStashLd &&
+                  stash_ld<NerfEnc>() == kStashLd &&
+                  2 * enc_half<OrigEnc>() == kGLd,
+              "the 128-column layouts share the stash and the buffers");
 constexpr int kCondCol = 128;   // first condition column of rgb layer 0
 constexpr int kRowGroups = 8;   // threadIdx.y of the per-split kernels
 constexpr int kRayGroups = 4;   // of the condition's (more registers)
@@ -60,19 +81,19 @@ __device__ __forceinline__ void split_range(long long n, long long& r0,
   r1 = n * (blockIdx.x + 1) / gridDim.x;
 }
 
-// scales: null (posenc_orig), or the Nerfies layout's window row.
+// Layout L's encoding of raw rows of L::kRaw columns into the stash.
+// scales: null, or the Nerfies layout's window row.
+template <class L>
 __global__ void tmpl_encode_kernel(const float* __restrict__ raw_t,
                                    const float* __restrict__ scales,
                                    bf16* __restrict__ stash, int enc_col,
                                    long long n_rows) {
   const long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (e >= n_rows * kTmplEncP) return;
-  const long long r = e / kTmplEncP;
-  const int f = (int)(e % kTmplEncP);
-  const float* rt = raw_t + r * 8;
-  const float v = scales != nullptr ? tmpl_feature<true>(rt, f)
-                                    : tmpl_feature<false>(rt, f);
-  stash[r * kStashLd + enc_col + f] = window_feature(v, f, scales);
+  if (e >= n_rows * L::kEncP) return;
+  const long long r = e / L::kEncP;
+  const int f = (int)(e % L::kEncP);
+  const float v = tmpl_feature<L>(raw_t + r * L::kRaw, f);
+  stash[r * stash_ld<L>() + enc_col + f] = window_feature(v, f, scales);
 }
 
 // out[ray][n] = sum_c cond[ray][c] W[n][128 + c]: the condition's part of
@@ -96,7 +117,8 @@ __global__ void tmpl_ray_bias_kernel(const bf16* __restrict__ cond,
 // rgb logit (3 -> 8 padded, input r3): G[r][k] = bf16(mask(r3 > 0)
 // sum_n bf16(g[r][n]) W[n][k]); dW[n][k] = sum_r bf16(g[r][n]) r3[r][k];
 // db[n] = sum_r g[r][n]. One block per split, thread (k, y): column k of
-// every kRowGroups-th row from y.
+// every kRowGroups-th row from y. kLd: the stash's leading dimension.
+template <int kLd>
 __global__ void __launch_bounds__(128 * kRowGroups)
     tmpl_rgb_head_kernel(const float* __restrict__ g4,
                                 const bf16* __restrict__ stash, int r3_col,
@@ -114,7 +136,7 @@ __global__ void __launch_bounds__(128 * kRowGroups)
   for (long long r = r0 + threadIdx.y; r < r1; r += kRowGroups) {
     const float4 g = reinterpret_cast<const float4*>(g4)[r];
     const float gb[3] = {round_bf(g.x), round_bf(g.y), round_bf(g.z)};
-    const float h = __bfloat162float(stash[r * kStashLd + r3_col + k]);
+    const float h = __bfloat162float(stash[r * kLd + r3_col + k]);
     float v = 0.f;
     for (int n = 0; n < 3; ++n) {
       v += gb[n] * wk[n];
@@ -177,6 +199,8 @@ __global__ void __launch_bounds__(128 * kRayGroups)
 // cotangent: g_b = gin[r][k] (the rgb branch's, bf16 values) + bf16(g_sigma)
 // W_alpha[0][k] in fp32; gb[r][k] = bf16(g_b); db_bneck = sum g_b;
 // dW_alpha[0][k] = sum bf16(g_sigma) bneck[r][k]; db_alpha = sum g_sigma.
+// kLd: the stash's leading dimension.
+template <int kLd>
 __global__ void __launch_bounds__(128 * kRowGroups)
     tmpl_bneck_prep_kernel(const float* __restrict__ g4,
                                   const bf16* __restrict__ gin,
@@ -198,7 +222,7 @@ __global__ void __launch_bounds__(128 * kRowGroups)
     const float v = __bfloat162float(gin[r * kGLd + k]) + gsb * wk;
     gb[r * kGLd + k] = __float2bfloat16_rn(v);
     db9 += v;
-    dw += gsb * __bfloat162float(stash[r * kStashLd + bneck_col + k]);
+    dw += gsb * __bfloat162float(stash[r * kLd + bneck_col + k]);
     db += gs;
   }
   db9 = sum_groups(red, db9);
@@ -211,25 +235,24 @@ __global__ void __launch_bounds__(128 * kRowGroups)
   s[b9_off + k] = db9;
 }
 
-// dx_t[r][c] from the encoding's two cotangents e[r][0:128] (the skip's) and
-// e[r][128:256] (layer 0's), summed in fp32 and, in the Nerfies layout
-// (scales given), weighted by the window row.
-template <bool kNerfies>
+// dx_t[r][c] of layout L from the encoding's two cotangents e[r][0 : kEncP]
+// (the skip's) and e[r][H : H + kEncP] (layer 0's), H = enc_half<L>(),
+// summed in fp32 and, in the Nerfies layout, weighted by the window row.
+template <class L>
 __device__ __forceinline__ float posenc_vjp(const float* __restrict__ raw_t,
                                             const bf16* er,
                                             const float* __restrict__ scales,
                                             long long r, int c) {
-  using L = TmplEnc<kNerfies>;
   auto gx = [&](int f) {
-    const float g =
-        __bfloat162float(er[f]) + __bfloat162float(er[kTmplEncP + f]);
-    return kNerfies ? g * scales[f] : g;
+    const float g = __bfloat162float(er[f]) +
+                    __bfloat162float(er[enc_half<L>() + f]);
+    return L::kNerfies ? g * scales[f] : g;
   };
   const bool xyz = c < 3;
-  const int ch = xyz ? 3 : kHypOut, nf = xyz ? kXyzF : L::kHypF;
+  const int ch = xyz ? 3 : L::kHyp, nf = xyz ? kXyzF : L::kHypF;
   const int id = xyz ? 3 : L::kHypId;  // identity columns of the segment
   const int base = xyz ? 0 : kTmplXyz, cc = xyz ? c : c - 3;
-  const float x = raw_t[r * 8 + c];
+  const float x = raw_t[r * L::kRaw + c];
   float dx = 0.f;
   for (int k = 0; k < nf; ++k) {
     const float scale = (float)(1 << k);
@@ -242,20 +265,18 @@ __device__ __forceinline__ float posenc_vjp(const float* __restrict__ raw_t,
   return id ? gx(base + cc) + dx : dx;
 }
 
+// dx_t (n_rows, L::kRaw): columns 3 + L::kHyp on are zero.
+template <class L>
 __global__ void tmpl_posenc_bwd_kernel(const float* __restrict__ raw_t,
                                   const bf16* __restrict__ e,
                                   const float* __restrict__ scales,
                                   float* __restrict__ dx_t, long long n_rows) {
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n_rows * 8) return;
-  const long long r = i / 8;
-  const int c = (int)(i % 8);
-  const bf16* er = e + r * kGLd;
-  float out = 0.f;
-  if (c < 7)
-    out = scales != nullptr ? posenc_vjp<true>(raw_t, er, scales, r, c)
-                            : posenc_vjp<false>(raw_t, er, nullptr, r, c);
-  dx_t[i] = out;
+  if (i >= n_rows * L::kRaw) return;
+  const long long r = i / L::kRaw;
+  const int c = (int)(i % L::kRaw);
+  const bf16* er = e + r * 2 * enc_half<L>();
+  dx_t[i] = c < 3 + L::kHyp ? posenc_vjp<L>(raw_t, er, scales, r, c) : 0.f;
 }
 
 __global__ void tmpl_reduce_kernel(const float* __restrict__ slab, int splits,
@@ -273,21 +294,51 @@ unsigned blocks_for(long long n, int threads) {
 
 }  // namespace
 
-// stash[r][enc_col : enc_col + 128] = bf16 encoding of raw_t[r] (P, 8) fp32:
-// posenc_orig where scales is null, else the Nerfies layout times its
-// window row scales (128 fp32).
+namespace {
+
+template <class L>
+int launch_encode(const void* raw_t, void* stash, int enc_col,
+                  long long n_rows, const void* scales, void* stream) {
+  if (enc_col < 0 || enc_col + L::kEncP > stash_ld<L>())
+    return (int)cudaErrorInvalidValue;
+  tmpl_encode_kernel<L><<<blocks_for(n_rows * L::kEncP, 256), 256, 0,
+                          (cudaStream_t)stream>>>(
+      static_cast<const float*>(raw_t), static_cast<const float*>(scales),
+      static_cast<bf16*>(stash), enc_col, n_rows);
+  return (int)cudaGetLastError();
+}
+
+template <class L>
+int launch_posenc_bwd(const void* raw_t, const void* e, void* dx_t,
+                      long long n_rows, const void* scales, void* stream) {
+  tmpl_posenc_bwd_kernel<L><<<blocks_for(n_rows * L::kRaw, 256), 256, 0,
+                              (cudaStream_t)stream>>>(
+      static_cast<const float*>(raw_t), static_cast<const bf16*>(e),
+      static_cast<const float*>(scales), static_cast<float*>(dx_t), n_rows);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// stash[r][enc_col : enc_col + kEncP] = bf16 encoding of raw_t[r] in the
+// layout the stash's width and the window row name: a stash of kStashLd
+// columns takes (P, 8) fp32 raw rows, in posenc_orig where scales is null,
+// else in the Nerfies layout times its window row scales (128 fp32); one of
+// kPlaneStashLd columns the plane layout of (P, 16) raw rows, no window.
 extern "C" int hn_tmpl_encode(const void* raw_t, void* stash,
                               long long stash_ld, int enc_col,
                               long long n_rows, const void* scales,
                               void* stream) {
-  if (n_rows <= 0 || stash_ld != kStashLd || enc_col < 0 ||
-      enc_col + kTmplEncP > stash_ld)
-    return (int)cudaErrorInvalidValue;
-  tmpl_encode_kernel<<<blocks_for(n_rows * kTmplEncP, 256), 256, 0,
-                       (cudaStream_t)stream>>>(
-      static_cast<const float*>(raw_t), static_cast<const float*>(scales),
-      static_cast<bf16*>(stash), enc_col, n_rows);
-  return (int)cudaGetLastError();
+  if (n_rows <= 0) return (int)cudaErrorInvalidValue;
+  if (stash_ld == kPlaneStashLd && scales == nullptr)
+    return launch_encode<PlaneEnc>(raw_t, stash, enc_col, n_rows, scales,
+                                   stream);
+  if (stash_ld != kStashLd) return (int)cudaErrorInvalidValue;
+  if (scales)
+    return launch_encode<NerfEnc>(raw_t, stash, enc_col, n_rows, scales,
+                                  stream);
+  return launch_encode<OrigEnc>(raw_t, stash, enc_col, n_rows, scales,
+                                stream);
 }
 
 // out (n_rays, 128) fp32 = cond (n_rays, cond_ch) bf16 @ W[:, cond_col :
@@ -313,11 +364,13 @@ extern "C" int hn_tmpl_rgb_head(const void* g4, const void* stash,
                                 long long slab_len, long long w_off,
                                 long long b_off, long long n_rows, int splits,
                                 void* stream) {
-  if (n_rows <= 0 || splits <= 0 || stash_ld != kStashLd || g_ld != kGLd ||
+  if (n_rows <= 0 || splits <= 0 ||
+      (stash_ld != kStashLd && stash_ld != kPlaneStashLd) || g_ld != kGLd ||
       r3_col < 0 || r3_col + kRgbW > stash_ld)
     return (int)cudaErrorInvalidValue;
-  tmpl_rgb_head_kernel<<<splits, dim3(128, kRowGroups), 0,
-                         (cudaStream_t)stream>>>(
+  auto kernel = stash_ld == kStashLd ? tmpl_rgb_head_kernel<kStashLd>
+                                     : tmpl_rgb_head_kernel<kPlaneStashLd>;
+  kernel<<<splits, dim3(128, kRowGroups), 0, (cudaStream_t)stream>>>(
       static_cast<const float*>(g4), static_cast<const bf16*>(stash), r3_col,
       static_cast<const bf16*>(w), static_cast<bf16*>(gout),
       static_cast<float*>(slab), slab_len, w_off, b_off, n_rows);
@@ -354,10 +407,12 @@ extern "C" int hn_tmpl_bneck_prep(const void* g4, const void* gin,
                                   long long b9_off, long long n_rows,
                                   int splits, void* stream) {
   if (n_rows <= 0 || splits <= 0 || gin_ld != kGLd || gb_ld != kGLd ||
-      stash_ld != kStashLd || bneck_col < 0 || bneck_col + kBneck > stash_ld)
+      (stash_ld != kStashLd && stash_ld != kPlaneStashLd) || bneck_col < 0 ||
+      bneck_col + kBneck > stash_ld)
     return (int)cudaErrorInvalidValue;
-  tmpl_bneck_prep_kernel<<<splits, dim3(128, kRowGroups), 0,
-                           (cudaStream_t)stream>>>(
+  auto kernel = stash_ld == kStashLd ? tmpl_bneck_prep_kernel<kStashLd>
+                                     : tmpl_bneck_prep_kernel<kPlaneStashLd>;
+  kernel<<<splits, dim3(128, kRowGroups), 0, (cudaStream_t)stream>>>(
       static_cast<const float*>(g4), static_cast<const bf16*>(gin),
       static_cast<const bf16*>(stash), bneck_col, static_cast<const bf16*>(w),
       static_cast<bf16*>(gb), static_cast<float*>(slab), slab_len, w_off,
@@ -366,18 +421,23 @@ extern "C" int hn_tmpl_bneck_prep(const void* g4, const void* gin,
 }
 
 // e: (n_rows, kGLd) bf16, the encoding's two cotangents in columns [0, 128)
-// and [128, 256); scales: null (posenc_orig), or the Nerfies layout's window
-// row, as hn_tmpl_encode took it.
+// and [128, 256), with (P, 8) raw rows and dx_t; scales: null
+// (posenc_orig), or the Nerfies layout's window row, as hn_tmpl_encode took
+// it. The plane layout's: e (n_rows, 512), its two cotangents in columns
+// [0, 192) and [256, 448), (P, 16) raw rows and dx_t, no window.
 extern "C" int hn_tmpl_posenc_bwd(const void* raw_t, const void* e,
                                   long long e_ld, void* dx_t,
                                   long long n_rows, const void* scales,
                                   void* stream) {
-  if (n_rows <= 0 || e_ld != kGLd) return (int)cudaErrorInvalidValue;
-  tmpl_posenc_bwd_kernel<<<blocks_for(n_rows * 8, 256), 256, 0,
-                           (cudaStream_t)stream>>>(
-      static_cast<const float*>(raw_t), static_cast<const bf16*>(e),
-      static_cast<const float*>(scales), static_cast<float*>(dx_t), n_rows);
-  return (int)cudaGetLastError();
+  if (n_rows <= 0) return (int)cudaErrorInvalidValue;
+  if (e_ld == 2 * enc_half<PlaneEnc>() && scales == nullptr)
+    return launch_posenc_bwd<PlaneEnc>(raw_t, e, dx_t, n_rows, scales,
+                                       stream);
+  if (e_ld != kGLd) return (int)cudaErrorInvalidValue;
+  if (scales)
+    return launch_posenc_bwd<NerfEnc>(raw_t, e, dx_t, n_rows, scales,
+                                      stream);
+  return launch_posenc_bwd<OrigEnc>(raw_t, e, dx_t, n_rows, scales, stream);
 }
 
 // grads[i] += sum over z < splits of slab[z][i], in the order of z.

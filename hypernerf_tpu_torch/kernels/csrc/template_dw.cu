@@ -17,6 +17,12 @@
 // 64 features is 8 atoms of 8 rows x 128 bytes, a k16 step is 16 rows
 // (2048 bytes), and the second 64-feature box of H sits 8 KB on (`lbo`).
 //
+// A layer whose input is not a whole number of 128-feature tiles (the plane
+// layout's first layer, 192, and skip layer, 448) has a ragged last tile:
+// its products run over the whole tile (H's columns past the input are the
+// stash's next ones, finite) and its columns at k_pad and past are not
+// written (kRagged).
+//
 // Bound: one multiply-add per weight and row, against G and H read once:
 // operations bound it at the template's widths. The grid is (out / 64,
 // in tiles of 128, splits): enough blocks to fill the card at every layer.
@@ -43,6 +49,7 @@ struct DwArgs {
   long long b_off;  // < 0: no db
 };
 
+template <bool kRagged>
 __global__ void __launch_bounds__(kThreads, 2)
     tmpl_dw_kernel(const __grid_constant__ CUtensorMap g_map,
               const __grid_constant__ CUtensorMap h_map, const DwArgs args) {
@@ -115,8 +122,9 @@ __global__ void __launch_bounds__(kThreads, 2)
                  (long long)(n0 + fragment_row(tid, e)) * args.k_pad + k0;
 #pragma unroll
     for (int j = 0; j < 16; ++j)
-      *reinterpret_cast<float2*>(row + fragment_col(tid, j)) =
-          make_float2(d[4 * j + e], d[4 * j + e + 1]);
+      if (!kRagged || k0 + fragment_col(tid, j) < args.k_pad)
+        *reinterpret_cast<float2*>(row + fragment_col(tid, j)) =
+            make_float2(d[4 * j + e], d[4 * j + e + 1]);
   }
   if (want_db) {
     red[tid] = db;
@@ -129,8 +137,9 @@ __global__ void __launch_bounds__(kThreads, 2)
 
 // slab[z][w_off + n k_pad + k] = sum over the rows of split z of
 // G[r][n] H[r][col(k)] for n < n_out (a multiple of 64), k < 128
-// n_kin_tiles; with b_off >= 0 also slab[z][b_off + n] = sum G[r][n]. Rows
-// are cut into `splits` ranges of whole 64-row tiles, one per slab.
+// n_kin_tiles and k < k_pad; with b_off >= 0 also slab[z][b_off + n] = sum
+// G[r][n]. Rows are cut into `splits` ranges of whole 64-row tiles, one per
+// slab.
 extern "C" int hn_tmpl_dw(const void* g, long long g_ld, const void* h,
                           long long h_ld, long long n_rows, int n_out,
                           int h_col0, int h_w0, int h_col1, int n_kin_tiles,
@@ -145,20 +154,22 @@ extern "C" int hn_tmpl_dw(const void* g, long long g_ld, const void* h,
   err = cached_tensor_map(&h_map, h, n_rows, h_ld, h_ld, 64);
   if (err) return err;
   // The shared-memory attribute is set once per device.
-  static std::atomic<bool> ready[kMaxDevices];
+  const bool ragged = 128 * n_kin_tiles > k_pad;
+  static std::atomic<bool> ready[2][kMaxDevices];
   int dev = 0, sms = 0;
   err = current_device(&dev, &sms);
   if (err) return err;
-  if (!ready[dev].load(std::memory_order_relaxed)) {
+  auto kernel = ragged ? tmpl_dw_kernel<true> : tmpl_dw_kernel<false>;
+  if (!ready[ragged][dev].load(std::memory_order_relaxed)) {
     cudaError_t e = cudaFuncSetAttribute(
-        tmpl_dw_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
     if (e != cudaSuccess) return (int)e;
-    ready[dev].store(true, std::memory_order_relaxed);
+    ready[ragged][dev].store(true, std::memory_order_relaxed);
   }
   DwArgs args{h_col0, h_w0,     h_col1,
               n_rows, static_cast<float*>(slab), slab_len,
               w_off,  k_pad,    b_off};
-  tmpl_dw_kernel<<<dim3(n_out / 64, n_kin_tiles, splits), kThreads, kSmem,
-              (cudaStream_t)stream>>>(g_map, h_map, args);
+  kernel<<<dim3(n_out / 64, n_kin_tiles, splits), kThreads, kSmem,
+           (cudaStream_t)stream>>>(g_map, h_map, args);
   return (int)cudaGetLastError();
 }

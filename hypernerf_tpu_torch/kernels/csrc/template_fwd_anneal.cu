@@ -1,6 +1,6 @@
 // The template alone in the Nerfies layout (the anneal configuration):
-// template_fwd.cuh's kernel with TmplEnc<true>, compiled on its own so that
-// it builds in parallel with modular_fwd.cu and adds no code to it.
+// template_fwd.cuh's kernel with NerfEnc, compiled on its own so that it
+// builds in parallel with modular_fwd.cu and adds no code to it.
 
 #include "template_fwd.cuh"
 
@@ -9,8 +9,8 @@ extern "C" int hn_template_fwd_anneal(const void* x_raw, const void* rgb_cond,
                                       const void* biases, void* out,
                                       long long n_points, int samples,
                                       void* stream) {
-  return lf::launch_template<true>(x_raw, rgb_cond, scales, weights, biases,
-                                   out, n_points, samples, stream);
+  return lf::launch_template<NerfEnc>(x_raw, rgb_cond, scales, weights,
+                                      biases, out, n_points, samples, stream);
 }
 
 #ifdef HN_LEVEL_FWD_TRACE

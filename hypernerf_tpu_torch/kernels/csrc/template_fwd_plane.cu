@@ -1,0 +1,35 @@
+// The template alone in the plane layout (the plane configuration's
+// template: posenc_orig of the warped point and of the 8 hyper coordinates,
+// 167 columns in 192): template_fwd.cuh's kernel with PlaneEnc on
+// PlaneBlock, compiled on its own so that it builds in parallel with
+// modular_fwd.cu and adds no code to it.
+//
+// x_raw: (P, 16) fp32 rows [xyz | hyper (8) | 0]; rgb_cond (P / S, 39)
+// bf16; weights / biases: the template's 16 layers alone (layers 7..22 of
+// PlaneTable); out (P, 4) fp32 [rgb logits | raw sigma]; scales must be
+// null (the plane layout has no window).
+
+#include "template_fwd.cuh"
+
+extern "C" int hn_fused_template_fwd_plane(const void* x_raw,
+                                           const void* rgb_cond,
+                                           const void* scales,
+                                           const void* weights,
+                                           const void* biases, void* out,
+                                           long long n_points, int samples,
+                                           void* stream) {
+  if (n_points <= 0 || samples <= 0 || scales != nullptr)
+    return (int)cudaErrorInvalidValue;
+  return lf::launch_template<PlaneEnc>(x_raw, rgb_cond, scales, weights,
+                                       biases, out, n_points, samples,
+                                       stream);
+}
+
+#ifdef HN_LEVEL_FWD_TRACE
+// The clocks block 0 of the plane template recorded (level_fwd.cuh), as
+// [group][pair][layer][4].
+extern "C" int hn_template_fwd_plane_trace(long long* out) {
+  return (int)cudaMemcpyFromSymbol(out, lf::level_fwd_trace,
+                                   sizeof(lf::level_fwd_trace));
+}
+#endif

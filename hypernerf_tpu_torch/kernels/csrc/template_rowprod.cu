@@ -41,10 +41,12 @@ struct RowCfg {
   static constexpr int W_BYTES = KB * kTileCols * 128;
   static constexpr int A_BYTES = KB * kTileRows * 128;
   static constexpr int FIT = (200 * 1024 - W_BYTES) / (kGroups * A_BYTES);
-  static constexpr int STAGES = FIT > 2 ? 2 : FIT;  // per warpgroup
+  // Per warpgroup: 2 where they fit in 200 KB, else 1 (the plane layout's
+  // skip layer, NRED 448: a 112 KB weight tile).
+  static constexpr int STAGES = FIT > 2 ? 2 : FIT > 1 ? FIT : 1;
   static constexpr int SMEM = 1024 + W_BYTES + kGroups * STAGES * A_BYTES +
                               8 * (kGroups * STAGES + 1);
-  static_assert(NRED % kBoxCols == 0 && STAGES >= 1, "tile plan");
+  static_assert(NRED % kBoxCols == 0 && SMEM <= 232448, "tile plan");
 };
 
 struct RowArgs {
@@ -231,7 +233,8 @@ int launch_rowprod(const CUtensorMap& a_map, const CUtensorMap& w_map,
 }  // namespace
 
 // out[r, out_col0 + c] for c < 128 n_col_tiles, r < n_rows: the epilogue of
-// sum_j A[r, col(j)] W[w_row0 + c, j] over j < n_red (128, 256 or 384). A:
+// sum_j A[r, col(j)] W[w_row0 + c, j] over j < n_red (128, 256 or 384; the
+// plane layout's first layer and skip layer: 192, 448). A:
 // bf16 (n_rows, a_ld) row-major; W: bf16 (w_rows, w_cols) row-major, rows
 // past w_rows read as zero. bias, ray_bias and mask may be null. The output
 // columns must not overlap A's.
@@ -269,6 +272,8 @@ extern "C" int hn_tmpl_rowprod(
     case 128: return launch_rowprod<128>(a_map, w_map, args, n_col_tiles, s);
     case 256: return launch_rowprod<256>(a_map, w_map, args, n_col_tiles, s);
     case 384: return launch_rowprod<384>(a_map, w_map, args, n_col_tiles, s);
+    case 192: return launch_rowprod<192>(a_map, w_map, args, n_col_tiles, s);
+    case 448: return launch_rowprod<448>(a_map, w_map, args, n_col_tiles, s);
   }
   return (int)cudaErrorInvalidValue;
 }

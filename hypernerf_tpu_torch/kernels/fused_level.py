@@ -6,7 +6,11 @@ row (``fused_se3.se3_encoding_scales``; a row of ones and None give the same
 numbers). The template encodes as the ``Level`` says: posenc_orig, or the
 Nerfies encoding of the anneal configuration with ``tmpl_scales``, its
 window row at ``nerf_alpha`` and ``hyper_alpha``
-(``fused_mlp.template_scales``; None: fully on).
+(``fused_mlp.template_scales``; None: fully on). A level without a sheet
+(``Level.hyper`` None: the plane configuration, axis_aligned_plane slicing
+with the translation warp) takes the ray's 8 GLO coordinates as its hyper
+coordinates, in the template's plane layout (raw rows of 16 columns); its
+kernels are their own instantiations (table code 3, ``common.TABLE_CODES``).
 
 ``fused_level`` is the wrapper. On CUDA tensors it launches the hand-written
 Hopper kernel of ``csrc/level_fwd.cuh`` (one source per warp type,
@@ -39,7 +43,7 @@ Bound and design: see the notes at the top of the ``csrc/*.cu`` sources.
 from __future__ import annotations
 
 import ctypes
-from typing import NamedTuple, Union
+from typing import NamedTuple, Optional, Union
 
 import torch
 import torch.nn.functional as F
@@ -56,7 +60,7 @@ from hypernerf_tpu_torch.kernels.fused_mlp import (check_covered as
                                                    fused_template_plain,
                                                    kernel_scales,
                                                    kernel_template_layers,
-                                                   template_layers)
+                                                   raw_pad, template_layers)
 from hypernerf_tpu_torch.kernels.fused_se3 import (check_covered as
                                                    _check_se3_covered,
                                                    fused_se3_bwd_plain,
@@ -66,14 +70,14 @@ from hypernerf_tpu_torch.models.modules import HyperSheetMLP, NerfMLP
 from hypernerf_tpu_torch.models.warping import SE3Field, TranslationField
 
 FLAGSHIP = common.FLAGSHIP
-RAW_T_PAD = 8  # columns of raw_t and dx_t: [warped (3) | hyper (4) | 0]
 
 
 class Level(NamedTuple):
     """The modules of one level and the template's encoding (its bands and
-    layout, as ``fused_mlp.Template`` has them)."""
+    layout, as ``fused_mlp.Template`` has them). ``hyper`` is None in the
+    plane configuration: the hyper coordinates are the embedding."""
     warp: Union[TranslationField, SE3Field]  # or its QuaternionField
-    hyper: HyperSheetMLP
+    hyper: Optional[HyperSheetMLP]
     template: NerfMLP
     xyz_freq: int
     hyper_freq: int
@@ -91,6 +95,18 @@ def _raw_fields(z_vals, origins, directions, embed):
 def _screw(level: Level) -> bool:
     """Whether the level's warp is the SE(3) or the quaternion field."""
     return level.warp.kind != 'translation'
+
+
+def level_table(level: Level) -> str:
+    """The compiled layer table the level's kernels take (a key of
+    ``common.TABLE_CODES``): its warp type's, or 'plane' without a sheet."""
+    return 'plane' if level.hyper is None else level.warp.kind
+
+
+def _check_sheet(level: Level) -> None:
+    if level.hyper is not None and level.hyper.use_residual:
+        raise NotImplementedError(common.NOT_COVERED + '; the sheet\'s '
+                                  'residual runs on the per-module path')
 
 
 def _warp_owner_layers(level: Level):
@@ -114,12 +130,11 @@ def fused_level_plain(level: Level, z_vals, origins, directions, embed,
 
     Returns:
       (R * S, 4) fp32 [rgb logits (3) | raw sigma]; with ``return_raw_t``
-      also the template's raw input (R * S, 8) fp32 [warped | hyper | 0].
+      also the template's raw input (R * S, 8) fp32 [warped | hyper | 0]
+      ((R * S, 16) in the plane configuration: [warped | embed | 0]).
     """
     fused_level_plain.calls += 1
-    if level.hyper.use_residual:
-        raise NotImplementedError(common.NOT_COVERED + '; the sheet\'s '
-                                  'residual runs on the per-module path')
+    _check_sheet(level)
     x_raw = _raw_fields(z_vals, origins, directions, embed)
     if _screw(level):
         wv = fused_se3_plain(level.warp, x_raw, warp_scales).to(x_raw.dtype)
@@ -127,9 +142,12 @@ def fused_level_plain(level: Level, z_vals, origins, directions, embed,
     else:
         warped = x_raw[:, :3] + fused_field_plain(
             level.warp.mlp, level.warp.n_freq, x_raw).to(x_raw.dtype)
-    hyper = fused_field_plain(level.hyper.mlp, level.hyper.n_freq, x_raw)
+    if level.hyper is None:  # axis_aligned_plane: the embedding
+        hyper = x_raw[:, 3:]
+    else:
+        hyper = fused_field_plain(level.hyper.mlp, level.hyper.n_freq, x_raw)
     raw_t = torch.cat([warped, hyper], dim=-1).float()
-    raw_t = F.pad(raw_t, (0, RAW_T_PAD - raw_t.shape[-1]))
+    raw_t = F.pad(raw_t, (0, raw_pad(level) - raw_t.shape[-1]))
     out = fused_template_plain(level, raw_t, rgb_cond, tmpl_scales)
     return (out, raw_t) if return_raw_t else out
 
@@ -137,17 +155,25 @@ def fused_level_plain(level: Level, z_vals, origins, directions, embed,
 fused_level_plain.calls = 0
 
 
+def _sheet_layers(level: Level):
+    return [] if level.hyper is None else field_layers(level.hyper.mlp)
+
+
 def level_layers(level: Level):
     """Every Linear of the level in kernel order with its input segments."""
-    return (_warp_owner_layers(level)[1] + field_layers(level.hyper.mlp)
+    return (_warp_owner_layers(level)[1] + _sheet_layers(level)
             + template_layers(level.template))
 
 
 def _check_covered(level: Level) -> None:
     _check_template_covered(level)
     t = level.template
-    flagship = {k: FLAGSHIP[k] for k in ('embed', 'warp_freq',
-                                          'hyper_sheet_freq', 'hyper_out')}
+    keys = ('embed', 'warp_freq') + (('hyper_sheet_freq', 'hyper_out')
+                                      if level.hyper is not None else ())
+    flagship = {k: FLAGSHIP[k] for k in keys}
+    if _screw(level) and level.hyper is None:
+        raise NotImplementedError('axis_aligned_plane with the SE(3) / '
+                                  'quaternion warp (ROADMAP A.9)')
     if _screw(level):
         _check_se3_covered(level.warp)
         warp_mlp = level.warp.trunk
@@ -158,12 +184,14 @@ def _check_covered(level: Level) -> None:
         have = dict(embed=warp_mlp.hidden(0).in_features
                     - 3 * (1 + 2 * level.warp.n_freq),
                     warp_freq=level.warp.n_freq)
-    have.update(hyper_sheet_freq=level.hyper.n_freq,
-                hyper_out=level.hyper.mlp.logit.out_features)
-    dtypes = {m.dtype for m in (warp_mlp, level.hyper.mlp, t.trunk,
-                                t.rgb_branch)} | {t.dtype}
+    mlps = [warp_mlp, t.trunk, t.rgb_branch]
+    if level.hyper is not None:
+        have.update(hyper_sheet_freq=level.hyper.n_freq,
+                    hyper_out=level.hyper.mlp.logit.out_features)
+        mlps.append(level.hyper.mlp)
+    dtypes = {m.dtype for m in mlps} | {t.dtype}
     if (have != flagship or dtypes != {torch.bfloat16}
-            or level.hyper.use_residual):
+            or (level.hyper is not None and level.hyper.use_residual)):
         raise NotImplementedError(f'{common.NOT_COVERED}; got {have}, '
                                   f'{dtypes}')
 
@@ -176,10 +204,11 @@ def pack_level(level: Level):
     share are packed once) joined, the joined blobs cached on the template.
     """
     check = lambda: _check_covered(level)
-    subs = [common.packed(owner, layers, check) for owner, layers in (
-        _warp_owner_layers(level),
-        (level.hyper.mlp, field_layers(level.hyper.mlp)),
-        (level.template, kernel_template_layers(level.template)))]
+    owners = [_warp_owner_layers(level)]
+    if level.hyper is not None:
+        owners.append((level.hyper.mlp, field_layers(level.hyper.mlp)))
+    owners.append((level.template, kernel_template_layers(level.template)))
+    subs = [common.packed(owner, layers, check) for owner, layers in owners]
     key = tuple(sub['key'] for sub in subs)
     cached = getattr(level.template, '_packed_level', None)
     if cached is None or cached['key'] != key:
@@ -200,20 +229,20 @@ def _level_params(level: Level):
 
 
 def _n_field_layers(level: Level) -> int:
-    return len(_warp_owner_layers(level)[1]) + level.hyper.mlp.depth + 1
+    return len(_warp_owner_layers(level)[1]) + len(_sheet_layers(level))
 
 
 def _warp_launch_args(level: Level, shapes, warp_scales, dev):
-    """(the warp type's code, the padded window row or None) for a level
-    kernel, after the packed ``shapes`` were checked against that type's
-    compiled table."""
-    kind = level.warp.kind
-    common.check_layout(shapes, slice(None), kind)
+    """(the table's code, the padded window row or None) for a level
+    kernel, after the packed ``shapes`` were checked against that compiled
+    table (``level_table``)."""
+    table = level_table(level)
+    common.check_layout(shapes, slice(None), table)
     if not _screw(level):
         if warp_scales is not None:
             raise ValueError('the translation warp takes no window row')
-        return common.WARP_CODES[kind], None
-    return common.WARP_CODES[kind], common.padded_scales(
+        return common.TABLE_CODES[table], None
+    return common.TABLE_CODES[table], common.padded_scales(
         warp_scales, level.warp.trunk.hidden(0).in_features, shapes[0][1],
         dev)
 
@@ -230,9 +259,13 @@ def _ptr(t):
 # thread issues the loads; setmaxnreg hands its registers to the consumers)
 # that streams each layer's (n_pad, k_pad) weight from the packed blob
 # through a ring of FWD_STAGES stages: one load per 64-column box of K and
-# 128-row half of N.
+# 128-row half of N. The plane level, and its template alone, take tiles of
+# PLANE_TILE_COLS columns (the template's 192-column encoding beside its 256
+# hidden ones), which leave room for a ring of one stage fewer
+# (``block_stages``).
 FWD_TILE_ROWS, FWD_GROUPS, FWD_STAGES = 64, 2, 6
 FWD_BOX_COLS, FWD_STAGE_ROWS, FWD_TILE_COLS = 64, 128, 384
+PLANE_TILE_COLS = 256 + common.PLANE_ENC_PAD
 FWD_STAGE_BYTES = FWD_STAGE_ROWS * 2 * FWD_BOX_COLS
 FWD_THREADS = 128 * (FWD_GROUPS + 1)
 # Per-row fp32 scratch of a warpgroup: in (12), raw (8), head (8), sigma,
@@ -242,17 +275,25 @@ FWD_ROW_BYTES = 4 * (12 + 8 + 8 + 1 + 1)
 FWD_BIAS_BYTES = 2 * 4264
 
 
+def block_stages(cols: int) -> int:
+    """The ring's stages of a block with tiles of ``cols`` columns
+    (``TmplBlock``): one fewer for the plane layout's wider tiles."""
+    return FWD_STAGES - 1 if cols > FWD_TILE_COLS else FWD_STAGES
+
+
 def fwd_smem_bytes(groups: int = FWD_GROUPS,
                    cols: int = FWD_TILE_COLS) -> int:
     """Dynamic shared memory of a block of ``groups`` consumer warpgroups
     with tiles of ``cols`` columns (``Block::kSmemBytes``)."""
+    stages = block_stages(cols)
     return (1024 + groups * FWD_TILE_ROWS * 2 * cols
-            + FWD_STAGES * FWD_STAGE_BYTES
+            + stages * FWD_STAGE_BYTES
             + groups * FWD_TILE_ROWS * FWD_ROW_BYTES
-            + FWD_BIAS_BYTES + 2 * FWD_STAGES * 8)
+            + FWD_BIAS_BYTES + 2 * stages * 8)
 
 
 FWD_SMEM_BYTES = fwd_smem_bytes()
+PLANE_SMEM_BYTES = fwd_smem_bytes(FWD_GROUPS, PLANE_TILE_COLS)
 # The tile's column plan: where each field's encoding (and the rgb
 # condition) sits; a hidden layer writes [0, n), its input starts at 0
 # unless it is a field's first layer, which reads the encoding.
@@ -260,7 +301,12 @@ FWD_ENC_COL = dict(warp=128, hyper=64, template=256, cond=128)
 
 
 def forward_in_cols(warp: str = 'translation'):
-    """The first tile column of every layer's input, in layer order."""
+    """The first tile column of every layer's input, in layer order, in the
+    table ``warp`` (a key of ``common.TABLE_CODES``)."""
+    if warp == 'plane':  # the warp, then the template
+        cols = [0] * (7 + 16)
+        cols[0], cols[7] = FWD_ENC_COL['warp'], FWD_ENC_COL['template']
+        return cols
     h0 = 7 if warp == 'translation' else 9  # the sheet's first layer
     cols = [0] * (h0 + 7 + 16)
     cols[0], cols[h0], cols[h0 + 7] = (FWD_ENC_COL['warp'],
@@ -296,7 +342,7 @@ def forward_maps(shapes):
 
 def _plan(shapes, in_cols, first: int = 0, groups: int = FWD_GROUPS,
           cols: int = FWD_TILE_COLS):
-    config = [FWD_TILE_ROWS, groups, FWD_STAGES, FWD_STAGE_BYTES,
+    config = [FWD_TILE_ROWS, groups, block_stages(cols), FWD_STAGE_BYTES,
               fwd_smem_bytes(groups, cols), 128 * (groups + 1), cols,
               len(forward_maps(shapes))]
     return dict(config=config, in_cols=in_cols,
@@ -304,16 +350,19 @@ def _plan(shapes, in_cols, first: int = 0, groups: int = FWD_GROUPS,
 
 
 def forward_plan(warp: str, shapes):
-    """The compiled plan's fields (``hn_fused_level_fwd_plan``): config,
-    in_cols and loads."""
-    return _plan(shapes, forward_in_cols(warp))
+    """The compiled plan's fields (``hn_fused_level_fwd_plan``) of table
+    ``warp``: config, in_cols and loads."""
+    cols = PLANE_TILE_COLS if warp == 'plane' else FWD_TILE_COLS
+    return _plan(shapes, forward_in_cols(warp), cols=cols)
 
 
 # The per-module forward kernels (csrc/modular_fwd.cu) each run one stage of
 # the level forward on its block: the stage's layers of the translation
 # table (a per-module sheet or template is those layers whatever the warp),
 # or, for 'se3', the SE(3) / quaternion trunk's of the SE(3) table (the
-# screw warp's stage without its retraction), from the stage's own blob,
+# screw warp's stage without its retraction), or, for 'template_plane', the
+# plane layout's template, layers 7..22 of the plane table, on its level's
+# block (PLANE_TILE_COLS, a ring of 5 stages), from the stage's own blob,
 # with the level's ring and column plan. Stage -> (first layer, end), the
 # code ``hn_modular_fwd_plan`` takes, and the block: (consumer warpgroups,
 # tile columns). A field reads and writes the first 256 (warp) or 128
@@ -325,13 +374,15 @@ def forward_plan(warp: str, shapes):
 # ``hn_tangents_fwd_plan`` takes, add those two numbers to the config.
 MODULE_STAGES = {'warp': (0, 7), 'sheet': (7, 14), 'template': (14, 30),
                  'se3': (0, 9), 'warp_tangents': (0, 7),
-                 'se3_tangents': (0, 9)}
-MODULE_STAGE_CODES = {'warp': 0, 'sheet': 1, 'template': 2, 'se3': 3}
+                 'se3_tangents': (0, 9), 'template_plane': (7, 23)}
+MODULE_STAGE_CODES = {'warp': 0, 'sheet': 1, 'template': 2, 'se3': 3,
+                      'template_plane': 4}
 TANGENT_STAGE_CODES = {'warp_tangents': 0, 'se3_tangents': 1}
 TANGENT_STREAMS = 4  # the primal row, then d / d p_k for k = 0, 1, 2
 MODULE_BLOCKS = {'warp': (3, 256), 'sheet': (4, 128),
                  'template': (FWD_GROUPS, FWD_TILE_COLS), 'se3': (3, 256),
-                 'warp_tangents': (3, 256), 'se3_tangents': (3, 256)}
+                 'warp_tangents': (3, 256), 'se3_tangents': (3, 256),
+                 'template_plane': (FWD_GROUPS, PLANE_TILE_COLS)}
 
 
 def stage_plan(stage: str, shapes):
@@ -345,8 +396,9 @@ def stage_plan(stage: str, shapes):
         raise ValueError(f'{stage}: {len(shapes)} layers, want '
                          f'{end - first}')
     groups, cols = MODULE_BLOCKS[stage]
-    in_cols = forward_in_cols('se3' if stage.startswith('se3')
-                              else 'translation')
+    in_cols = forward_in_cols('se3' if stage.startswith('se3') else
+                              'plane' if stage == 'template_plane' else
+                              'translation')
     plan = _plan(shapes, in_cols[first:end], first, groups, cols)
     if stage in TANGENT_STAGE_CODES:
         plan['config'] += [TANGENT_STREAMS, FWD_TILE_ROWS // TANGENT_STREAMS]
@@ -370,7 +422,8 @@ def _compiled_plan(fn_name: str, code: int, n_layers: int, n_config=8):
 def compiled_forward_plan(warp: str = 'translation'):
     """``forward_plan``'s fields as the compiled kernel reports them
     (``hn_fused_level_fwd_plan``)."""
-    return _compiled_plan('hn_fused_level_fwd_plan', common.WARP_CODES[warp],
+    return _compiled_plan('hn_fused_level_fwd_plan',
+                          common.TABLE_CODES[warp],
                           len(common.kernel_layout(warp)))
 
 
@@ -471,26 +524,35 @@ def _fb_table(field: str):
 
 
 def _warp_field(warp: str) -> str:
-    return 'translation' if warp == 'translation' else 'se3'
+    return 'se3' if warp in ('se3', 'quaternion') else 'translation'
+
+
+def fields_bwd_fields(warp: str):
+    """The fields kernel B of table ``warp`` walks back, in its order."""
+    return ((_warp_field(warp),) if warp == 'plane'
+            else ('sheet', _warp_field(warp)))
 
 
 def fields_bwd_loads(warp: str, shapes):
     """[(layer, box of K, box rows)]: a block tile's weight loads in the
     producer's (and the consumers') order: the sheet's six hidden layers
-    forward, then backward, then the warp's (the SE(3) trunk's seven)."""
-    h0 = 7 if warp == 'translation' else 9
-    nw = 6 if warp == 'translation' else 7
-    order = ([h0 + i for i in range(6)] + [h0 + i for i in range(5, -1, -1)]
-             + list(range(nw)) + list(range(nw - 1, -1, -1)))
+    forward, then backward (none in the plane table), then the warp's (the
+    SE(3) trunk's seven)."""
+    h0 = 9 if warp in ('se3', 'quaternion') else 7
+    nw = 7 if warp in ('se3', 'quaternion') else 6
+    sheet = ([] if warp == 'plane' else
+             [h0 + i for i in range(6)] + [h0 + i for i in range(5, -1, -1)])
+    order = sheet + list(range(nw)) + list(range(nw - 1, -1, -1))
     return [(l, kb, min(shapes[l][0], FB_STAGE_BYTES // 128))
             for l in order for kb in range(-(-shapes[l][1] // 64))]
 
 
 def fields_bwd_plan(warp: str, shapes):
-    """The compiled plan's fields (``hn_fused_fields_bwd_plan``): config,
-    table (the sheet's buffer plan, then the warp field's, six ints a
-    buffer) and loads."""
-    table = [v for field in ('sheet', _warp_field(warp))
+    """The compiled plan's fields (``hn_fused_fields_bwd_plan``) of table
+    ``warp``: config, table (the sheet's buffer plan, then the warp
+    field's, six ints a buffer; the plane table's: the warp field's alone)
+    and loads."""
+    table = [v for field in fields_bwd_fields(warp)
              for v in _fb_table(field)]
     return dict(config=list(FB_CONFIG), table=table,
                 loads=fields_bwd_loads(warp, shapes))
@@ -514,7 +576,8 @@ def compiled_fields_bwd_plan(warp: str = 'translation'):
     """``fields_bwd_plan``'s fields as the compiled kernel reports them
     (``hn_fused_fields_bwd_plan``)."""
     return _compiled_fb_plan('hn_fused_fields_bwd_plan',
-                             common.WARP_CODES[warp], 2)
+                             common.TABLE_CODES[warp],
+                             len(fields_bwd_fields(warp)))
 
 
 def fields_bwd_grad_copies(shapes, device):
@@ -675,7 +738,7 @@ def _launch_forward(level: Level, z_vals, origins, directions, embed,
     build.check_tensor('rgb_cond', rgbc, (r, cond_width(level)),
                        torch.bfloat16, dev)
     out = torch.empty((r * s, 4), dtype=torch.float32, device=dev)
-    raw_t = torch.empty((r * s, RAW_T_PAD), dtype=torch.float32,
+    raw_t = torch.empty((r * s, raw_pad(level)), dtype=torch.float32,
                         device=dev) if want_raw_t else None
     common.launch('hn_fused_level_fwd', dev, code, z_vals.data_ptr(),
                   origins.data_ptr(), directions.data_ptr(), embed.data_ptr(),
@@ -714,7 +777,7 @@ def fused_level(level: Level, z_vals, origins, directions, embed,
     """Level forward; (R * S, 4) fp32 [rgb logits | raw sigma].
 
     CPU tensors take ``fused_level_plain``; CUDA tensors launch the kernel
-    (flagship widths, either template layout, bf16) or raise.
+    (flagship widths, any template layout, bf16) or raise.
     Differentiable in every argument and in the level's parameters
     (``FusedLevelFn``); the window rows are schedule constants.
     """
@@ -779,22 +842,22 @@ def fused_fields_bwd_plain(level: Level, z_vals, origins, directions, embed,
     With the SE(3) or the quaternion warp: the retraction's hand-derived VJP
     from d warped to (d w, d v, d points), then the plain trunk backward
     (``fused_se3_bwd_plain``) from [d w | d v]; the points get no residual
-    part.
+    part. Without a sheet (the plane configuration) d hyper, dx_t[:, 3:11],
+    is added to the warp field's d embed, as the JAX kernel's
+    ``d_emb = d_emb_w + d_hyper``.
 
     Args:
-      dx_t: (P, 8) fp32 cotangent of [warped | hyper | 0].
+      dx_t: (P, 8) fp32 cotangent of [warped | hyper | 0] ((P, 16) without a
+        sheet).
 
     Returns:
       d z_vals (R, S), d origins, d directions (R, 3), d embed (R, E), and
       [dW, db, ...] of the warp then the hyper layers in kernel order.
     """
     fused_fields_bwd_plain.calls += 1
-    if level.hyper.use_residual:
-        raise NotImplementedError(common.NOT_COVERED + '; the sheet\'s '
-                                  'residual runs on the per-module path')
+    _check_sheet(level)
     r, s = z_vals.shape
     x_raw = _raw_fields(z_vals, origins, directions, embed)
-    n_hyper = level.hyper.mlp.logit.out_features
     if _screw(level):
         wv = fused_se3_plain(level.warp, x_raw, warp_scales)
         d_w, d_v, d_direct = level.warp.retract_bwd(
@@ -806,10 +869,18 @@ def fused_fields_bwd_plain(level: Level, z_vals, origins, directions, embed,
         d_direct = dx_t[:, :3]
         dx_w, grads_w = fused_field_bwd_plain(
             level.warp.mlp, level.warp.n_freq, x_raw, dx_t[:, :3])
-    dx_h, grads_h = fused_field_bwd_plain(
-        level.hyper.mlp, level.hyper.n_freq, x_raw, dx_t[:, 3:3 + n_hyper])
-    d_pts = ((d_direct + dx_w[:, :3]) + dx_h[:, :3]).reshape(r, s, 3)
-    d_emb = (dx_w[:, 3:] + dx_h[:, 3:]).reshape(r, s, -1)
+    e = embed.shape[-1]
+    if level.hyper is None:  # the embedding is the hyper coordinates
+        d_pts = (d_direct + dx_w[:, :3]).reshape(r, s, 3)
+        d_emb = (dx_w[:, 3:] + dx_t[:, 3:3 + e]).reshape(r, s, -1)
+        grads_h = []
+    else:
+        n_hyper = level.hyper.mlp.logit.out_features
+        dx_h, grads_h = fused_field_bwd_plain(
+            level.hyper.mlp, level.hyper.n_freq, x_raw,
+            dx_t[:, 3:3 + n_hyper])
+        d_pts = ((d_direct + dx_w[:, :3]) + dx_h[:, :3]).reshape(r, s, 3)
+        d_emb = (dx_w[:, 3:] + dx_h[:, 3:]).reshape(r, s, -1)
     d_z = (d_pts * directions[:, None, :]).sum(-1)
     d_o = d_pts.sum(1)
     d_d = (d_pts * z_vals[..., None]).sum(1)
@@ -834,7 +905,7 @@ def fused_fields_bwd(level: Level, z_vals, origins, directions, embed, dx_t,
     code, scales = _warp_launch_args(level, shapes, warp_scales, dev)
     r, s = z_vals.shape
     _check_ray_inputs(z_vals, origins, directions, embed)
-    build.check_tensor('dx_t', dx_t, (r * s, RAW_T_PAD), f32, dev)
+    build.check_tensor('dx_t', dx_t, (r * s, raw_pad(level)), f32, dev)
     nf = _n_field_layers(level)
     with torch.cuda.device(dev):
         blocks = build.library().hn_fused_fields_bwd_blocks(r * s)

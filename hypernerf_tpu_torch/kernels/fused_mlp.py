@@ -20,16 +20,18 @@ kernel's rounding points, on CPU tensors. On a CUDA tensor a wrapper launches
 its kernel or raises.
 
 The CUDA kernels are compiled for the flagship template (8 x 256 with a skip
-after layer 4, bottleneck 128, rgb branch 4 x 128, bf16) in two encoding
-layouts: the flagship's posenc_orig (xyz at 10 bands, 4 hyper coordinates at
-6 bands, 39 condition features) and the Nerfies encoding of the anneal
-configuration (``common.NERFIES``: xyz over degrees 0..10 with its identity,
-the hyper coordinates over 0..4 without, 27 condition features), whose every
-band is weighted by the annealing window row ``scales``, an input of every
-call (``template_scales``). A template without hyper coordinates (static
-NeRF) runs through the same kernels: its encoding is packed with zero weight
-columns where the hyper bands would be, which is exact, and those columns'
-dW is dropped on unpack.
+after layer 4, bottleneck 128, rgb branch 4 x 128, bf16) in three encoding
+layouts (``layout``): the flagship's posenc_orig (xyz at 10 bands, 4 hyper
+coordinates at 6 bands, 39 condition features), the Nerfies encoding of the
+anneal configuration (``common.NERFIES``: xyz over degrees 0..10 with its
+identity, the hyper coordinates over 0..4 without, 27 condition features),
+whose every band is weighted by the annealing window row ``scales``, an
+input of every call (``template_scales``), and the plane configuration's
+posenc_orig of 8 hyper coordinates (``common.PLANE``: 167 encoded columns in
+192, raw rows of 16 columns, its own kernels). A template without hyper
+coordinates (static NeRF) runs through the flagship's kernels: its encoding
+is packed with zero weight columns where the hyper bands would be, which is
+exact, and those columns' dW is dropped on unpack.
 """
 
 from __future__ import annotations
@@ -42,8 +44,6 @@ import torch.nn.functional as F
 
 from hypernerf_tpu_torch.kernels import build, common
 from hypernerf_tpu_torch.models.modules import NerfMLP, dense
-
-RAW_PAD = 8  # columns of the raw input and its cotangent: [xyz | hyper | 0]
 
 
 class Template(NamedTuple):
@@ -62,6 +62,30 @@ def n_hyper(tmpl) -> int:
     enc = tmpl.template.trunk.hidden(0).in_features
     per = 2 * tmpl.hyper_freq + (0 if tmpl.nerfies else 1)
     return (enc - 3 * (1 + 2 * tmpl.xyz_freq)) // per
+
+
+def layout(tmpl) -> str:
+    """The compiled encoding layout a template takes: 'nerfies', 'plane' (8
+    hyper coordinates in posenc_orig) or 'orig' (the flagship's, and the
+    static template's)."""
+    if tmpl.nerfies:
+        return 'nerfies'
+    return 'plane' if n_hyper(tmpl) == common.PLANE['hyper_out'] else 'orig'
+
+
+def raw_pad(tmpl) -> int:
+    """Columns of the template's raw rows [xyz | hyper | 0] and of their
+    cotangent."""
+    return (common.PLANE_RAW_PAD if layout(tmpl) == 'plane'
+            else common.RAW_PAD)
+
+
+def enc_pad(t: NerfMLP) -> int:
+    """The compiled slots of the template's encoding: 128, or the plane
+    layout's 192."""
+    enc = t.trunk.hidden(0).in_features
+    return common.TMPL_ENC_PAD if enc <= common.TMPL_ENC_PAD \
+        else common.PLANE_ENC_PAD
 
 
 def encoding_segments(tmpl, nh: int):
@@ -104,8 +128,8 @@ def template_layers(t: NerfMLP, enc_pad: int = 0, cond_pad: int = 0):
 
 
 def kernel_template_layers(t: NerfMLP):
-    """``template_layers`` padded to the compiled slots (either layout)."""
-    return template_layers(t, common.TMPL_ENC_PAD, common.COND_PAD)
+    """``template_layers`` padded to the compiled slots (``enc_pad``)."""
+    return template_layers(t, enc_pad(t), common.COND_PAD)
 
 
 def _segments(tmpl, x_raw):
@@ -150,7 +174,7 @@ def fused_template_plain(tmpl, x_raw, rgb_cond, scales=None):
     """Plain PyTorch template forward.
 
     Args:
-      x_raw: (P, 8) fp32 raw rows [xyz | hyper | 0].
+      x_raw: (P, ``raw_pad``) fp32 raw rows [xyz | hyper | 0].
       rgb_cond: (R, C) per-ray condition; each row serves P / R consecutive
         rows of ``x_raw``.
       scales: a Nerfies template's (enc,) fp32 window row
@@ -174,12 +198,12 @@ def fused_template_bwd_plain(tmpl, raw_t, rgb_cond, g, scales=None):
     """Plain template backward: recompute from ``raw_t``, then walk back.
 
     Args:
-      raw_t: (P, 8) fp32 [xyz | hyper | 0]; rgb_cond: (R, C);
+      raw_t: (P, ``raw_pad``) fp32 [xyz | hyper | 0]; rgb_cond: (R, C);
       g: (P, 4) fp32 cotangent of [rgb logits | raw sigma];
       scales: the window row or None, as ``fused_template_plain`` takes it.
 
     Returns:
-      dx_t (P, 8) fp32, d rgb_cond (R, C) fp32 summed per ray, and
+      dx_t (P, ``raw_pad``) fp32, d rgb_cond (R, C) fp32 summed per ray, and
       [dW, db, ...] of the template's layers in kernel order, fp32, in each
       ``nn.Linear``'s shapes.
     """
@@ -218,7 +242,7 @@ def fused_template_bwd_plain(tmpl, raw_t, rgb_cond, g, scales=None):
                                     ident))
         at += width
     dx_t = torch.cat(dx, dim=-1).float()
-    dx_t = F.pad(dx_t, (0, RAW_PAD - dx_t.shape[1]))
+    dx_t = F.pad(dx_t, (0, raw_pad(tmpl) - dx_t.shape[1]))
     d_cond = g_rin[:, bw:].reshape(r, p // r, -1).sum(1).float()
     grads = (trunk_grads + [dw_tl, db_tl, dw_bn, db_bn, dw_a, db_a]
              + rgb_grads + [dw_rl, db_rl])
@@ -236,14 +260,16 @@ def cond_width(tmpl) -> int:
 
 def check_covered(tmpl) -> None:
     """Raise unless the template has the widths of one of the compiled
-    layouts (``common.FLAGSHIP``'s or ``common.NERFIES``) in bf16."""
+    layouts (``common.FLAGSHIP``'s, ``common.NERFIES`` or ``common.PLANE``)
+    in bf16."""
     t = tmpl.template
     nh = n_hyper(tmpl)
-    layout = common.NERFIES if tmpl.nerfies else common.FLAGSHIP
+    widths = {'nerfies': common.NERFIES, 'plane': common.PLANE,
+              'orig': common.FLAGSHIP}[layout(tmpl)]
     have = dict(xyz_freq=tmpl.xyz_freq, rgb_cond=cond_width(tmpl))
     if nh:
         have.update(hyper_out=nh, hyper_freq=tmpl.hyper_freq)
-    want = {**common.FLAGSHIP, **layout}
+    want = {**common.FLAGSHIP, **widths}
     dtypes = {t.trunk.dtype, t.rgb_branch.dtype, t.dtype}
     if any(want[k] != v for k, v in have.items()) \
             or dtypes != {torch.bfloat16}:
@@ -268,18 +294,24 @@ def kernel_scales(tmpl, scales, device):
 
 def _launch_args(tmpl, x_raw, rgb_cond, transposed: bool):
     """Checked inputs of a kernel launch: the bf16 condition, the rows per
-    condition row and the packed blobs."""
+    condition row and the packed blobs, whose shapes are the template's
+    layers of the compiled table of its layout."""
     layers = kernel_template_layers(tmpl.template)
     check = lambda: check_covered(tmpl)
     packs = [common.pack_layers(tmpl.template, layers, check)]
     if transposed:
         packs.append(common.pack_layers(tmpl.template, layers, check,
                                         transposed=True))
-    common.check_layout(packs[0][2], common.TEMPLATE_LAYERS)
+    if layout(tmpl) == 'plane':
+        common.check_layout(packs[0][2], common.PLANE_TEMPLATE_LAYERS,
+                            'plane')
+    else:
+        common.check_layout(packs[0][2], common.TEMPLATE_LAYERS)
     dev = x_raw.device
     p, r = x_raw.shape[0], rgb_cond.shape[0]
     rgbc = rgb_cond.detach().to(torch.bfloat16).contiguous()
-    build.check_tensor('x_raw', x_raw, (p, RAW_PAD), torch.float32, dev)
+    build.check_tensor('x_raw', x_raw, (p, raw_pad(tmpl)), torch.float32,
+                       dev)
     build.check_tensor('rgb_cond', rgbc, (r, cond_width(tmpl)),
                        torch.bfloat16, dev)
     if r == 0 or p % r:
@@ -299,9 +331,11 @@ def _forward(tmpl, x_raw, rgb_cond, scales=None):
     scales = kernel_scales(tmpl, scales, x_raw.device)
     p = x_raw.shape[0]
     out = torch.empty((p, 4), dtype=torch.float32, device=x_raw.device)
-    common.launch('hn_fused_template_fwd', x_raw.device, x_raw.data_ptr(),
-                  rgbc.data_ptr(), _ptr(scales), w_blob.data_ptr(),
-                  b_blob.data_ptr(), out.data_ptr(), p, s)
+    entry = ('hn_fused_template_fwd_plane' if layout(tmpl) == 'plane'
+             else 'hn_fused_template_fwd')
+    common.launch(entry, x_raw.device, x_raw.data_ptr(), rgbc.data_ptr(),
+                  _ptr(scales), w_blob.data_ptr(), b_blob.data_ptr(),
+                  out.data_ptr(), p, s)
     fused_template.launches += 1
     return out
 
@@ -311,7 +345,8 @@ def fused_template(tmpl, x_raw, rgb_cond, scales=None) -> torch.Tensor:
     a Nerfies template's window row (``template_scales``) or None.
 
     CPU tensors take ``fused_template_plain``; CUDA tensors launch the kernel
-    (flagship widths, either layout, bf16) or raise. Differentiable in
+    (flagship widths, any of the three layouts, bf16) or raise.
+    Differentiable in
     ``x_raw``, ``rgb_cond`` and the template's parameters
     (``FusedTemplateFn``).
     """
@@ -355,16 +390,33 @@ class FusedTemplateFn(torch.autograd.Function):
 # cotangent through the layer (``rowprod``) and the layer's dW / db
 # (``dw``), each a ``wgmma`` product over the whole chunk.
 
-# Stash columns, in order: the encoding, the trunk's hidden outputs, the trunk
-# logit, the bottleneck and the rgb branch's hidden outputs (bf16, one row
-# per sample). The condition is gathered per ray, not stashed.
-STASH_COLUMNS = ((('enc', 128),) + tuple((f'h{i}', 256) for i in range(8))
-                 + (('hl', 256), ('bneck', 128))
-                 + tuple((f'r{j}', 128) for j in range(4)))
-STASH_WIDTHS = dict(STASH_COLUMNS)
-STASH_COL = dict(zip(STASH_WIDTHS, itertools.accumulate(
-    STASH_WIDTHS.values(), initial=0)))
-STASH_WIDTH = sum(STASH_WIDTHS.values())
+# Stash columns, in order: the encoding (its compiled slots: 128, or the
+# plane layout's 192), the trunk's hidden outputs, the trunk logit, the
+# bottleneck and the rgb branch's hidden outputs (bf16, one row per sample).
+# The condition is gathered per ray, not stashed.
+def stash_columns(enc: int = common.TMPL_ENC_PAD):
+    return ((('enc', enc),) + tuple((f'h{i}', 256) for i in range(8))
+            + (('hl', 256), ('bneck', 128))
+            + tuple((f'r{j}', 128) for j in range(4)))
+
+
+class Stash(NamedTuple):
+    """A stash's column plan: each buffer's width and first column, and the
+    row's width (the stash's leading dimension, which names the layout to
+    the kernels: 3072, or the plane layout's 3136)."""
+    widths: dict
+    col: dict
+    width: int
+
+
+def stash_plan(enc: int = common.TMPL_ENC_PAD) -> Stash:
+    widths = dict(stash_columns(enc))
+    return Stash(widths, dict(zip(widths, itertools.accumulate(
+        widths.values(), initial=0))), sum(widths.values()))
+
+
+STASH_COLUMNS = stash_columns()
+STASH_WIDTHS, STASH_COL, STASH_WIDTH = stash_plan()
 # The wide layers in recompute order: (template layer, stash inputs, stash
 # output, ReLU). Layer 11's input is [bneck | condition]: the condition's
 # part is added per ray. Layers 10 and 15 are the alpha and rgb heads.
@@ -390,10 +442,15 @@ def chunk_plan(n_rows: int, samples: int, max_rows: int = CHUNK_ROWS):
     return [(r0, min(n_rows, r0 + step)) for r0 in range(0, n_rows, step)]
 
 
-def _segs(names):
+def _segs(plan: Stash, names):
     """(col0, w0, col1) of a layer input made of stash columns ``names``."""
-    return (STASH_COL[names[0]], STASH_WIDTHS[names[0]],
-            STASH_COL[names[-1]] if len(names) > 1 else 0)
+    return (plan.col[names[0]], plan.widths[names[0]],
+            plan.col[names[-1]] if len(names) > 1 else 0)
+
+
+def tiles(width: int) -> int:
+    """128-column tiles that cover ``width`` columns."""
+    return -(-width // 128)
 
 
 def template_bwd_chunks(ops, raw_t, rgbc, samples, g, w, wt, b, w_off,
@@ -406,26 +463,37 @@ def template_bwd_chunks(ops, raw_t, rgbc, samples, g, w, wt, b, w_off,
     the Nerfies layout's padded window row (``kernel_scales``), or None for
     the original encoding.
 
-    Returns dx_t (P, 8), d rgb_cond (R, C) and the [dW | db] buffer;
-    ``ops.stash_bytes`` is set to the bytes of the stash it allocated."""
+    The encoding's width is layer 0's padded input (``w[0]``: 128, or the
+    plane layout's 192, whose raw rows and dx_t are 16 columns wide): it
+    sets the stash's plan (``stash_plan``) and the encoding's cotangent
+    buffer, [the skip's part | layer 0's], each ``tiles(enc)`` 128-column
+    tiles wide, whose columns past the encoding the products fill with
+    zeros (the weight rows past it read as zero).
+
+    Returns dx_t (P, raw_t's columns), d rgb_cond (R, C) and the [dW | db]
+    buffer; ``ops.stash_bytes`` is set to the bytes of the stash it
+    allocated."""
     dev, f32, bf = raw_t.device, torch.float32, torch.bfloat16
     p, s = raw_t.shape[0], samples
     plan = chunk_plan(p, s, max_rows)
     rows = max(r1 - r0 for r0, r1 in plan)
-    stash = torch.empty((rows, STASH_WIDTH), dtype=bf, device=dev)
+    enc = w[0].shape[1]
+    sp = stash_plan(enc)
+    stash = torch.empty((rows, sp.width), dtype=bf, device=dev)
     ops.stash_bytes = stash.nbytes
+    half = 128 * tiles(enc)  # layer 0's part of the encoding's cotangent
     bufs = [torch.empty((rows, GBUF), dtype=bf, device=dev)
-            for _ in range(3)]
+            for _ in range(2)]
+    bufs.append(torch.empty((rows, 2 * half), dtype=bf, device=dev))
     ray_bias = torch.empty((rows // s, w[11].shape[0]), dtype=f32,
                            device=dev)
     slab = torch.empty((ops.splits, n_grads), dtype=f32, device=dev)
     grads = torch.zeros((n_grads,), dtype=f32, device=dev)
-    dx_t = torch.empty((p, RAW_PAD), dtype=f32, device=dev)
+    dx_t = torch.empty((p, raw_t.shape[1]), dtype=f32, device=dev)
     d_cond = torch.empty((rgbc.shape[0], rgbc.shape[1]), dtype=f32,
                          device=dev)
-    col = STASH_COL
-    enc = STASH_WIDTHS['enc']
-    cond_col = STASH_WIDTHS['bneck']  # rgb layer 0's input: [bneck | cond]
+    col = sp.col
+    cond_col = sp.widths['bneck']  # rgb layer 0's input: [bneck | cond]
     for r0, r1 in plan:
         n, q0, q1 = r1 - r0, r0 // s, r1 // s
         raw_c, g_c, cond_c = raw_t[r0:r1], g[r0:r1], rgbc[q0:q1]
@@ -434,9 +502,9 @@ def template_bwd_chunks(ops, raw_t, rgbc, samples, g, w, wt, b, w_off,
         ops.encode(raw_c, stash, col['enc'], n, scales)
         ops.ray_bias(cond_c, w[11], cond_col, ray_bias, q1 - q0)
         for l, ins, out, relu in WIDE_LAYERS:
-            ops.rowprod(stash, n, _segs(ins), w[l],
-                        sum(STASH_WIDTHS[i] for i in ins), 0,
-                        STASH_WIDTHS[out] // 128, stash, col[out], bias=b[l],
+            ops.rowprod(stash, n, _segs(sp, ins), w[l],
+                        sum(sp.widths[i] for i in ins), 0,
+                        sp.widths[out] // 128, stash, col[out], bias=b[l],
                         ray_bias=ray_bias if l == 11 else None, samples=s,
                         relu=relu)
         # Walk back: the rgb head, the rgb branch, the condition, the alpha
@@ -446,8 +514,8 @@ def template_bwd_chunks(ops, raw_t, rgbc, samples, g, w, wt, b, w_off,
                      b_off[15], n)
         for l, ins, _, _ in reversed(WIDE_LAYERS):
             n_out, k_pad = w[l].shape
-            width = sum(STASH_WIDTHS[i] for i in ins)
-            ops.dw(cur, n, n_out, stash, _segs(ins), width // 128, slab,
+            width = sum(sp.widths[i] for i in ins)
+            ops.dw(cur, n, n_out, stash, _segs(sp, ins), tiles(width), slab,
                    w_off[l], k_pad, -1 if l == 9 else b_off[l])
             red = (0, n_out, 0)
             if l == 11:  # [bneck | condition], no mask
@@ -458,13 +526,15 @@ def template_bwd_chunks(ops, raw_t, rgbc, samples, g, w, wt, b, w_off,
                                slab, w_off[10], b_off[10], b_off[9], n)
                 continue  # the bottleneck's cotangent is in cur
             if l == 0:  # the encoding's cotangent, layer 0's part
-                ops.rowprod(cur, n, red, wt[l], n_out, 0, 1, enc_g, enc)
+                ops.rowprod(cur, n, red, wt[l], n_out, 0, tiles(enc), enc_g,
+                            half)
                 continue
             ops.rowprod(cur, n, red, wt[l], n_out, 0,
-                        STASH_WIDTHS[ins[0]] // 128, nxt, 0, mask=stash,
+                        sp.widths[ins[0]] // 128, nxt, 0, mask=stash,
                         mask_col0=col[ins[0]])
             if l == 5:  # the skip's part of the encoding's cotangent
-                ops.rowprod(cur, n, red, wt[l], n_out, 256, 1, enc_g, 0)
+                ops.rowprod(cur, n, red, wt[l], n_out, 256, tiles(enc),
+                            enc_g, 0)
             cur, nxt = nxt, cur
         ops.posenc_bwd(raw_c, enc_g, dx_t[r0:r1], n, scales)
         ops.reduce(slab, grads)
@@ -476,10 +546,12 @@ class _KernelOps:
     on ``device``'s current stream; made, and used, inside
     ``torch.cuda.device(device)``. Every buffer's leading dimension is
     passed from its tensor; the narrow steps are compiled for this module's
-    layout (``STASH_WIDTH``, ``GBUF``, the condition after the bottleneck,
-    39 or 27 condition columns) and their entry points refuse another,
-    which raises here. The encoding's two steps take the Nerfies layout
-    where they are given a window row."""
+    layouts (``stash_plan``'s two widths, ``GBUF``, the condition after the
+    bottleneck, 39 or 27 condition columns) and their entry points refuse
+    another, which raises here. The encoding's two steps take the Nerfies
+    layout where they are given a window row, and the plane layout where
+    they are given its stash (3136 columns) or its encoding cotangent's
+    buffer (512)."""
 
     splits = SPLITS
 

@@ -4,17 +4,20 @@ rendering and training (port of ``hypernerf_tpu/models/nerf.py``).
 A level runs on one of two branches, chosen as the JAX model chooses
 (``nerf.py:755-764``):
 
-* the fused branch, for the flagship family (warp on, bendy sheet, one GLO
-  table shared by warp and sheet) when no per-sample output is asked for:
-  the level kernel (warp field, hyper sheet and template for every sample)
-  and the compositing kernel, which on the coarse level also draws the fine
-  depths and merges them with the coarse ones;
+* the fused branch, for the flagship family (warp on, bendy sheet or
+  axis-aligned plane, one GLO table shared by warp and hyper coordinates)
+  when no per-sample output is asked for: the level kernel (warp field,
+  hyper sheet and template for every sample; with the plane, whose hyper
+  coordinates are the ray's GLO embedding itself, no sheet) and the
+  compositing kernel, which on the coarse level also draws the fine depths
+  and merges them with the coarse ones;
 * the per-module branch, for everything else this port has — a static NeRF
   (no warp, no hyper coordinates), separate GLO tables (``share_glo=False``),
   ``use_warp=False`` at call time, ``return_points``, a ``hyper_point``
   override in the metadata, the sheet's residual — and for ``query_sigma``:
   per-sample embeddings, the warp field and the hyper sheet each through the
-  field kernel, the template through the template kernel, then
+  field kernel (the plane: the embedding broadcast over the samples), the
+  template through the template kernel, then
   ``volumetric_rendering`` and ``sample_pdf`` in tensor code with autograd.
 
 Every kernel has a hand-written backward kernel (``kernels/``), so the same
@@ -70,7 +73,7 @@ from torch import nn
 from hypernerf_tpu_torch.configs import NerfConfig
 from hypernerf_tpu_torch.kernels import (Level, Template, fused_composite,
                                          fused_level, fused_template)
-from hypernerf_tpu_torch.kernels.fused_mlp import (RAW_PAD, n_hyper,
+from hypernerf_tpu_torch.kernels.fused_mlp import (n_hyper, raw_pad,
                                                    template_scales)
 from hypernerf_tpu_torch.kernels.fused_se3 import se3_encoding_scales
 from hypernerf_tpu_torch.models.modules import (GLOEmbed, HyperSheetMLP,
@@ -96,7 +99,12 @@ def unsupported(cfg: NerfConfig) -> list:
     ROADMAP item that ports it."""
     out = []
     if cfg.hyper_slice_method == 'axis_aligned_plane':
-        out.append("slicing 'axis_aligned_plane' (ROADMAP A.9)")
+        if cfg.warp_field_type != 'translation':
+            out.append("slicing 'axis_aligned_plane' with the SE(3) / "
+                       "quaternion warp (ROADMAP A.9)")
+        if not cfg.use_original_embed:
+            out.append("slicing 'axis_aligned_plane' with the Nerfies "
+                       "anneal encoding (ROADMAP A.9)")
     if not cfg.use_original_embed:
         if cfg.warp_field_type != 'translation':
             out.append('the Nerfies anneal encoding with the SE(3) / '
@@ -116,7 +124,8 @@ def unsupported(cfg: NerfConfig) -> list:
 
 class NerfModel(nn.Module):
     """HyperNeRF with a translation, SE(3) or quaternion warp (or none), a
-    bendy sheet (or no hyper coordinates), the posenc_orig or the Nerfies
+    bendy sheet, an axis-aligned plane (the GLO embedding as the hyper
+    coordinates) or no hyper coordinates, the posenc_orig or the Nerfies
     template encoding, one GLO table or two, and a viewdir-conditioned rgb
     branch."""
 
@@ -129,8 +138,10 @@ class NerfModel(nn.Module):
         self.config = cfg
         dt = torch_dtype(cfg.compute_dtype)
         # Hyper coordinates exist only behind the warp: without it the
-        # template sees the bare points (``map_points``).
-        hyper_ch = (cfg.hyper_slice_out_dim
+        # template sees the bare points (``map_points``). The plane's are the
+        # GLO embedding's glo_dim coordinates.
+        plane = cfg.hyper_slice_method == 'axis_aligned_plane'
+        hyper_ch = ((cfg.glo_dim if plane else cfg.hyper_slice_out_dim)
                     if cfg.use_warp and cfg.has_hyper else 0)
         if cfg.use_warp:
             self.warp_embed = GLOEmbed(cfg.num_embeddings, cfg.glo_dim)
@@ -144,7 +155,7 @@ class NerfModel(nn.Module):
                     cfg.warp_min_deg, cfg.warp_max_deg, cfg.skips, dtype=dt)
         if hyper_ch and not cfg.hyper_use_warp_embed:
             self.hyper_embed = GLOEmbed(cfg.num_embeddings, cfg.glo_dim)
-        if hyper_ch:
+        if hyper_ch and not plane:
             self.hyper_sheet_mlp = HyperSheetMLP(
                 cfg.glo_dim, cfg.hyper_slice_out_dim, cfg.hyper_sheet_depth,
                 cfg.hyper_sheet_width, cfg.hyper_sheet_freq, cfg.skips,
@@ -185,7 +196,9 @@ class NerfModel(nn.Module):
                 cfg.hyper_point_max_deg - cfg.hyper_point_min_deg, True)
 
     def level(self, name: str) -> Level:
-        return Level(self.warp_field, self.hyper_sheet_mlp,
+        """The level's modules for the level kernels (no sheet: the
+        plane)."""
+        return Level(self.warp_field, getattr(self, 'hyper_sheet_mlp', None),
                      self._template(name), *self._bands())
 
     # ------------------------------------------------------------------ embeds
@@ -253,10 +266,14 @@ class NerfModel(nn.Module):
     def map_hyper_points(self, points, hyper_embed,
                          hyper_point_override=None):
         """Hyper coordinates of (B, S, 3) points: the override broadcast over
-        the samples, or the bendy sheet's, or None without slicing."""
+        the samples, the per-sample embedding ``hyper_embed`` (the
+        axis-aligned plane), or the bendy sheet's, or None without
+        slicing."""
         if hyper_point_override is not None:
             return hyper_point_override[:, None, :].expand(
                 *points.shape[:-1], hyper_point_override.shape[-1])
+        if self.config.hyper_slice_method == 'axis_aligned_plane':
+            return hyper_embed
         if self.config.hyper_slice_method == 'bendy_sheet':
             return self.hyper_sheet_mlp(points, hyper_embed).to(
                 torch.promote_types(points.dtype, torch.float32))
@@ -324,7 +341,8 @@ class NerfModel(nn.Module):
                 f'the template takes points of {3 + n_hyper(tmpl)} channels '
                 f'([xyz | hyper]), got {ch}')
         if points.is_cuda:
-            raw = F.pad(points.reshape(b * s, ch).float(), (0, RAW_PAD - ch))
+            raw = F.pad(points.reshape(b * s, ch).float(),
+                        (0, raw_pad(tmpl) - ch))
             if tmpl_row is None:
                 tmpl_row = self._template_scales(extra_params, points.device)
             packed = fused_template(tmpl, raw, rgb_cond, tmpl_row)
@@ -341,7 +359,8 @@ class NerfModel(nn.Module):
 
     def query_sigma(self, points, metadata_id, extra_params=None):
         """Template density at raw world points, without sigma noise: the
-        warp, the sheet and the template's density, one sample per row.
+        warp, the hyper coordinates (the sheet's, or the plane's embedding)
+        and the template's density, one sample per row.
 
         Args:
           points: (N, 3) world positions; metadata_id: (N, 1) integer ids;
@@ -381,9 +400,10 @@ class NerfModel(nn.Module):
     def _fused_branch(self, use_warp: bool, return_points: bool,
                       metadata) -> bool:
         """Whether a level runs as the level kernel (the JAX model's gate,
-        which admits either template encoding)."""
+        which admits either template encoding and either slicing)."""
         cfg = self.config
-        return (use_warp and cfg.hyper_slice_method == 'bendy_sheet'
+        return (use_warp and cfg.hyper_slice_method in ('bendy_sheet',
+                                                        'axis_aligned_plane')
                 and cfg.hyper_use_warp_embed
                 and not cfg.hyper_sheet_use_residual and not return_points
                 and metadata.get('hyper_point') is None)

@@ -26,13 +26,16 @@ from hypernerf_tpu_torch.kernels.fused_level import (
     FB_BUFS, FB_FIELDS, FB_GRAD_COPIES, FB_GROUPS, FB_PLANS, FB_ROWS_BYTES,
     FB_SLAB_BYTES, FB_SLOTS,
     FB_SMEM_BYTES, FB_SPILL_SLABS, FB_STAGE_BYTES, FB_STAGES, FB_THREADS,
-    FB_TILE_ROWS, fields_bwd_loads, fields_bwd_plan, fields_bwd_stream_bytes,
-    level_layers, pack_level)
+    FB_TILE_ROWS, fields_bwd_fields, fields_bwd_loads, fields_bwd_plan,
+    fields_bwd_stream_bytes, level_layers, pack_level)
 
 fused_level_module = importlib.import_module(
     'hypernerf_tpu_torch.kernels.fused_level')
 
-WARPS = {'translation': 'flagship', 'se3': 'se3', 'quaternion': 'quaternion'}
+# The level tables by the configuration whose level has them; 'plane' is the
+# plane configuration's: the translation warp field alone, no sheet.
+WARPS = {'translation': 'flagship', 'se3': 'se3', 'quaternion': 'quaternion',
+         'plane': 'plane'}
 FIELDS = ('sheet', 'translation', 'se3')
 BUF = {name: i for i, name in enumerate(FB_BUFS)}
 
@@ -55,7 +58,7 @@ def _field_layers(field, shapes):
 
 
 def _warp_of(field):
-    return 'se3' if field == 'se3' else 'translation'
+    return 'se3' if field in ('se3', 'quaternion') else 'translation'
 
 
 # ---------------------------------------------------------------------------
@@ -76,7 +79,9 @@ def test_shared_memory_fits(warp):
     assert plan['config'] == [FB_TILE_ROWS, FB_GROUPS, FB_STAGES,
                               FB_STAGE_BYTES, FB_SMEM_BYTES, FB_THREADS,
                               FB_SLOTS, FB_SPILL_SLABS, FB_GRAD_COPIES]
-    assert len(plan['table']) == 2 * 6 * len(FB_BUFS)
+    n_fields = 1 if warp == 'plane' else 2
+    assert fields_bwd_fields(warp)[-1] == _warp_of(warp)
+    assert len(plan['table']) == n_fields * 6 * len(FB_BUFS)
 
 
 def test_plan_table_matches_the_c_source():
@@ -308,9 +313,9 @@ def _consumer_order(warp, shapes, tiles):
     forward, then walked back, then the warp's; one stage per 64-column box
     of a layer's K, forward and backward alike."""
     out = []
+    fields = ('sheet',) if warp != 'plane' else ()
     for _ in range(tiles):
-        for field in ('sheet', _warp_of(warp) if warp == 'translation'
-                      else 'se3'):
+        for field in fields + (_warp_of(warp),):
             first, n = _field_layers(field, shapes)
             for l in (list(range(first, first + n))
                       + list(range(first + n - 1, first - 1, -1))):
@@ -380,13 +385,14 @@ def test_load_schedule_and_ring(warp):
     """The producer's loads (``fields_bwd_loads``, repeated per block tile)
     are the order each consumer takes them over two tiles: the sheet's 6
     layers forward and back, then the warp's 6 (7) forward and back, 42
-    loads a tile; through the ring with random interleavings no consumer
-    reads a stage early or late, no fill overtakes a consumer, nothing
-    deadlocks."""
+    loads a tile (the plane level's: the warp's alone, 28); through the ring
+    with random interleavings no consumer reads a stage early or late, no
+    fill overtakes a consumer, nothing deadlocks."""
     shapes = _shapes(warp)
     producer = fields_bwd_loads(warp, shapes) * 2
     assert producer == _consumer_order(warp, shapes, 2)
-    assert len(fields_bwd_loads(warp, shapes)) == 42
+    assert len(fields_bwd_loads(warp, shapes)) == (28 if warp == 'plane'
+                                                   else 42)
     assert all(rows * 128 <= FB_STAGE_BYTES for _, _, rows in producer)
     # A run of loads of one layer, forward or backward, ends where the
     # next load belongs to another layer or the direction turns.
@@ -457,13 +463,13 @@ def test_dw_flush_covers_each_weight_once(warp):
     tile: the hidden layers' units, and the heads' tasks (one per (head,
     output, input) and one db per output) of head_back."""
     shapes = _shapes(warp)
-    n_fields = 14 if warp == 'translation' else 16
+    n_fields = {'translation': 14, 'plane': 7}.get(warp, 16)
     heads = {l for l in range(n_fields) if shapes[l][0] == 8}
-    assert len(heads) == (2 if warp == 'translation' else 3)
+    assert len(heads) == {'translation': 2, 'plane': 1}.get(warp, 3)
     for l in range(n_fields):
         n, k = shapes[l]
         if l in heads:
-            n_out = 4 if l == n_fields - 1 else 3
+            n_out = 4 if l == n_fields - 1 and warp != 'plane' else 3
             k_in = k
             tasks = [(task // k_in, task % k_in)
                      for task in range(n_out * k_in)]
@@ -580,9 +586,10 @@ def test_launch_and_plan_match_the_c_signatures(warp, monkeypatch):
     monkeypatch.setattr(torch, 'zeros', recording(torch.zeros))
     rays, samples = 3, 5
     rs = np.random.RandomState(0)
+    raw = 16 if warp == 'plane' else 8  # dx_t's columns
     args = [torch.from_numpy(rs.rand(*shape).astype(np.float32))
             for shape in ((rays, samples), (rays, 3), (rays, 3), (rays, 8),
-                          (rays * samples, 8))]
+                          (rays * samples, raw))]
     out = fused_level_module.fused_fields_bwd(level, *args)
     fused_level_module.compiled_fields_bwd_plan(warp)
     names = [n for n, _ in lib.calls]
@@ -591,14 +598,14 @@ def test_launch_and_plan_match_the_c_signatures(warp, monkeypatch):
     (_, blocks_args), (_, launch), (_, plan) = lib.calls
     assert blocks_args == (rays * samples,)
     _check_kinds('hn_fused_fields_bwd', launch)
-    assert launch[0] == common.WARP_CODES[warp]
+    assert launch[0] == common.TABLE_CODES[warp]
     assert launch[-4:] == (rays, samples, 3, 7)
     scratch = [t for t in allocated if t.dtype == torch.uint8]
     assert [t.numel() for t in scratch] == [3 * FB_SPILL_SLABS
                                             * FB_SLAB_BYTES]
     assert launch[12] == scratch[0].data_ptr()
     # The gradient buffer: FB_GRAD_COPIES copies of [dW | db], summed after.
-    n_fields = 14 if warp == 'translation' else 16
+    n_fields = {'translation': 14, 'plane': 7}.get(warp, 16)
     grads = [t for t in allocated if t.dim() == 2
              and t.shape[0] == FB_GRAD_COPIES]
     assert len(grads) == 1 and launch[11] == grads[0].data_ptr()
@@ -606,7 +613,7 @@ def test_launch_and_plan_match_the_c_signatures(warp, monkeypatch):
     assert launch[7] == pack_level(level)[0].data_ptr()
     assert launch[8] == pack_level(level)[1].data_ptr()
     _check_kinds('hn_fused_fields_bwd_plan', plan)
-    assert plan[0] == common.WARP_CODES[warp] and plan[-1] == 256
+    assert plan[0] == common.TABLE_CODES[warp] and plan[-1] == 256
     # The outputs: d z, d o, d d, d embed and [dW, db] of the field layers.
     assert len(out) == 5 and len(out[4]) == 2 * n_fields
     assert [tuple(t.shape) for t in out[:4]] == [(rays, samples), (rays, 3),

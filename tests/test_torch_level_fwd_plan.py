@@ -22,15 +22,20 @@ from hypernerf_tpu_torch.flagship import flagship_model, load_probe_weights
 from hypernerf_tpu_torch.kernels import build, common
 from hypernerf_tpu_torch.kernels.fused_level import (
     FWD_BIAS_BYTES, FWD_BOX_COLS, FWD_ENC_COL, FWD_GROUPS, FWD_SMEM_BYTES,
-    FWD_STAGE_ROWS,
-    FWD_STAGES, FWD_TILE_COLS, FWD_TILE_ROWS, forward_in_cols, forward_loads,
-    forward_maps, forward_plan, forward_stream_bytes, level_layers,
-    pack_level)
+    FWD_STAGE_ROWS, FWD_STAGES, FWD_TILE_COLS, FWD_TILE_ROWS,
+    PLANE_SMEM_BYTES, PLANE_TILE_COLS, block_stages, forward_in_cols,
+    forward_loads, forward_maps, forward_plan, forward_stream_bytes,
+    fwd_smem_bytes, level_layers, pack_level)
+from hypernerf_tpu_torch.kernels.fused_mlp import kernel_template_layers
 
 fused_level_module = importlib.import_module(
     'hypernerf_tpu_torch.kernels.fused_level')
 
-WARPS = {'translation': 'flagship', 'se3': 'se3', 'quaternion': 'quaternion'}
+# The level tables by the configuration whose level has them; 'plane' is the
+# plane configuration's (the translation warp, no sheet, the template's
+# 192-column encoding on tiles of PLANE_TILE_COLS columns).
+WARPS = {'translation': 'flagship', 'se3': 'se3', 'quaternion': 'quaternion',
+         'plane': 'plane'}
 BOX_BYTES = FWD_TILE_ROWS * 2 * FWD_BOX_COLS  # 64 rows of 128 bytes
 
 
@@ -40,9 +45,16 @@ def _level(warp):
 
 
 def _first_layers(warp):
-    """(first sheet layer, first template layer)."""
+    """(first sheet layer, first template layer); without a sheet both
+    are the template's."""
+    if warp == 'plane':
+        return 7, 7
     h0 = 7 if warp == 'translation' else 9
     return h0, h0 + 7
+
+
+def _tile_cols(warp):
+    return PLANE_TILE_COLS if warp == 'plane' else FWD_TILE_COLS
 
 
 # ---------------------------------------------------------------------------
@@ -70,7 +82,7 @@ def test_tensor_maps_cover_every_layer(warp):
     offsets = np.cumsum([0] + [n * k for n, k in shapes])
     maps = forward_maps(shapes)
     assert sum(count for _, count, _, _ in maps) == len(shapes)
-    assert len(maps) == (16 if warp == 'translation' else 17)
+    assert len(maps) == {'translation': 16, 'plane': 13}.get(warp, 17)
     loads = forward_loads(shapes)
     for first, count, n, k in maps:
         assert (2 * offsets[first]) % 256 == 0
@@ -117,9 +129,10 @@ def test_stream_bytes():
 
 def _program(warp, n_layers):
     h0, t0 = _first_layers(warp)
+    sheet = ([('encode', 'hyper')] + [('layer', l) for l in range(h0, t0)]
+             if t0 > h0 else [])
     return ([('encode', 'warp')] + [('layer', l) for l in range(h0)]
-            + [('encode', 'hyper')] + [('layer', l) for l in range(h0, t0)]
-            + [('encode', 'template')]
+            + sheet + [('encode', 'template')]
             + [('layer', l) for l in range(t0, t0 + 10)] + [('cond',)]
             + [('layer', l) for l in range(t0 + 10, n_layers)])
 
@@ -127,7 +140,8 @@ def _program(warp, n_layers):
 def _fields(warp, n_layers):
     """Each layer's field."""
     h0, t0 = _first_layers(warp)
-    return ['warp'] * h0 + ['hyper'] * 7 + ['template'] * (n_layers - t0)
+    return (['warp'] * h0 + ['hyper'] * (t0 - h0)
+            + ['template'] * (n_layers - t0))
 
 
 @pytest.mark.parametrize('warp', list(WARPS))
@@ -140,21 +154,24 @@ def test_column_plan(warp):
     one's (``forward_in_cols``)."""
     level = _level(warp)
     shapes = pack_level(level)[2]
-    layers = level_layers(level)
     h0, t0 = _first_layers(warp)
+    # The packed segments: the template's encoding in its compiled slots.
+    layers = level_layers(level)[:t0] + kernel_template_layers(
+        level.template)
     in_cols = forward_in_cols(warp)
     field = _fields(warp, len(shapes))
     enc_width = {'warp': shapes[0][1], 'hyper': shapes[h0][1],
                  'template': shapes[t0][1],
                  'cond': shapes[t0 + 11][1] - shapes[t0 + 9][0]}
-    tile = [None] * FWD_TILE_COLS
+    cols = _tile_cols(warp)
+    tile = [None] * cols
     last_hidden = {}
     for step in _program(warp, len(shapes)):
         if step[0] in ('encode', 'cond'):
             name = step[1] if step[0] == 'encode' else 'cond'
             c0 = FWD_ENC_COL[name]
             assert c0 % FWD_BOX_COLS == 0
-            assert c0 + enc_width[name] <= FWD_TILE_COLS
+            assert c0 + enc_width[name] <= cols
             tile[c0:c0 + enc_width[name]] = [('enc', name)] * enc_width[name]
             continue
         l = step[1]
@@ -179,7 +196,7 @@ def test_column_plan(warp):
             starts.append(at)
             at += padded
         assert all(c % FWD_BOX_COLS == 0 for c in starts), (l, starts)
-        assert start + k <= FWD_TILE_COLS
+        assert start + k <= cols
         assert tile[start:start + k] == want, l
         if n > 8:  # a hidden layer: bf16 out, in place over [0, n)
             tile[:n] = [('h', l)] * n
@@ -317,12 +334,13 @@ def _consumer_order(warp, shapes, pairs):
     return out
 
 
-def _run_ring(order, layer_ends, rng, groups=FWD_GROUPS):
+def _run_ring(order, layer_ends, rng, groups=FWD_GROUPS, stages=FWD_STAGES):
     """Simulate the ring protocol with the producer and groups x 4 consumer
-    warps taking turns at random. Returns the number of fills. Raises on a
-    deadlock, on a consumer that reads a stage holding another load, or on
-    a fill that overtakes a consumer still using the stage."""
-    stages, total = FWD_STAGES, len(order)
+    warps taking turns at random, through ``stages`` stages. Returns the
+    number of fills. Raises on a deadlock, on a consumer that reads a stage
+    holding another load, or on a fill that overtakes a consumer still using
+    the stage."""
+    total = len(order)
     holder = [None] * stages          # load index each stage holds
     fills = [0] * stages              # completed fills (full barrier phases)
     released = [set() for _ in range(total)]
@@ -384,32 +402,44 @@ def _run_ring(order, layer_ends, rng, groups=FWD_GROUPS):
 def test_load_schedule_and_ring(warp):
     """The producer's loads (``forward_loads``, repeated per pair of tiles)
     are the order each consumer takes them over two pairs; through the ring
-    of FWD_STAGES stages with random interleavings no consumer reads a
-    stage before its load landed or after it was refilled, no fill
-    overtakes a stage's consumers, and nothing deadlocks."""
+    of FWD_STAGES stages (the plane level's 5) with random interleavings no
+    consumer reads a stage before its load landed or after it was refilled,
+    no fill overtakes a stage's consumers, and nothing deadlocks."""
     shapes = pack_level(_level(warp))[2]
     producer = forward_loads(shapes) * 2
     consumer = _consumer_order(warp, shapes, 2)
     assert producer == consumer
-    assert len(forward_loads(shapes)) == (113 if warp == 'translation'
-                                          else 115)
+    assert len(forward_loads(shapes)) == {'translation': 113,
+                                          'plane': 109}.get(warp, 115)
     layer_ends = {i for i in range(len(producer))
                   if i + 1 == len(producer)
                   or producer[i + 1][0] != producer[i][0]}
+    stages = block_stages(_tile_cols(warp))
+    assert stages == (5 if warp == 'plane' else FWD_STAGES)
     for seed in range(3):
-        assert _run_ring(producer, layer_ends,
-                         np.random.default_rng(seed)) == len(producer)
+        assert _run_ring(producer, layer_ends, np.random.default_rng(seed),
+                         stages=stages) == len(producer)
 
 
 def test_shared_memory_fits():
     """Two 48 KB activation tiles, the ring, the row scratch, the biases of
     the larger layer table and the barriers fit an H100 block's 227 KB; the
-    tile holds every column the plan uses."""
-    assert FWD_SMEM_BYTES <= 232448
+    tile holds every column the plan uses. The plane layout's two 56 KB
+    tiles do with a ring of 5 stages (221,600 bytes), not with 6 (238,000);
+    its table's biases fit the larger table's room."""
+    assert FWD_SMEM_BYTES == 221616 <= 232448
     assert max(FWD_ENC_COL.values()) + 128 <= FWD_TILE_COLS
+    assert PLANE_SMEM_BYTES == 221600 <= 232448
+    assert FWD_ENC_COL['template'] + 192 == PLANE_TILE_COLS == 448
+    assert PLANE_SMEM_BYTES + FWD_STAGE_ROWS * 2 * FWD_BOX_COLS + 16 \
+        == 238000 > 232448
+    for cols in (128, 256, FWD_TILE_COLS, PLANE_TILE_COLS):
+        for groups in (2, 3, 4):
+            if groups * cols <= 2 * PLANE_TILE_COLS:
+                assert fwd_smem_bytes(groups, cols) <= 232448, (groups, cols)
     biases = {warp: 2 * sum(n for n, _ in pack_level(_level(warp))[2])
-              for warp in ('translation', 'se3')}
-    assert FWD_BIAS_BYTES == max(biases.values())
+              for warp in ('translation', 'se3', 'plane')}
+    assert FWD_BIAS_BYTES == max(biases.values()) > biases['plane']
     assert all(b % 16 == 0 for b in biases.values())  # 16-byte copies
 
 
@@ -475,39 +505,48 @@ def test_launch_and_plan_match_the_c_signatures(warp, monkeypatch):
     assert names == ['hn_fused_level_fwd', 'hn_fused_level_fwd_plan']
     (_, launch), (_, plan) = lib.calls
     _check_kinds('hn_fused_level_fwd', launch)
-    assert launch[0] == common.WARP_CODES[warp]
+    assert launch[0] == common.TABLE_CODES[warp]
     assert launch[-3:] == (rays, samples, 7)
     assert launch[7] is None  # no template window row: posenc_orig
     _check_kinds('hn_fused_level_fwd_plan', plan)
-    assert plan[0] == common.WARP_CODES[warp] and plan[-1] == 1024
+    assert plan[0] == common.TABLE_CODES[warp] and plan[-1] == 1024
 
 
 def test_each_template_layout_is_its_own_instantiation():
-    """The template's layout is a template parameter: the three warp types'
-    sources compile the posenc_orig layout alone, ``level_fwd_anneal.cu``
-    the translation warp with the Nerfies layout, and
-    ``hn_fused_level_fwd`` sends a window row to that one and refuses it
-    with another warp type; the template alone is compiled for both."""
+    """The template's layout is a template parameter (a layout struct of
+    level_common.cuh): the three warp types' sources compile the posenc_orig
+    layout alone, ``level_fwd_anneal.cu`` the translation warp with the
+    Nerfies layout and ``level_fwd_plane.cu`` with the plane one;
+    ``hn_fused_level_fwd`` sends a window row to the anneal one and refuses
+    it with another warp type or with the plane table (code 3); the template
+    alone is compiled for all three."""
     src = {p.name: ' '.join(p.read_text().split())
            for p in build._sources()}
     for stem, code in (('trans', 0), ('se3', 1), ('quat', 2)):
-        assert f'launch_level_fwd<{code}, false>(' in src[
+        assert f'launch_level_fwd<{code}, OrigEnc>(' in src[
             f'level_fwd_{stem}.cu']
-        assert 'true>' not in src[f'level_fwd_{stem}.cu']
-    assert 'launch_level_fwd<0, true>(' in src['level_fwd_anneal.cu']
+        assert 'NerfEnc' not in src[f'level_fwd_{stem}.cu']
+        assert 'PlaneEnc' not in src[f'level_fwd_{stem}.cu']
+    assert 'launch_level_fwd<0, NerfEnc>(' in src['level_fwd_anneal.cu']
+    assert 'launch_level_fwd<0, PlaneEnc>(' in src['level_fwd_plane.cu']
     assert sorted(n for n, text in src.items()
                   if 'launch_level_fwd<' in text) == [
-        f'level_fwd_{s}.cu' for s in ('anneal', 'quat', 'se3', 'trans')]
+        f'level_fwd_{s}.cu' for s in ('anneal', 'plane', 'quat', 'se3',
+                                      'trans')]
     entry = src['fused_level.cu']
     assert ('if (warp_type == 0) return (tmpl_scales ? hn_level_fwd_anneal '
             ': hn_level_fwd_trans)(') in entry
-    assert 'if (tmpl_scales) return (int)cudaErrorInvalidValue;' in entry
+    assert ('if (tmpl_scales) return (int)cudaErrorInvalidValue; switch '
+            '(warp_type) { case 3: return hn_level_fwd_plane(') in entry
     template = src['modular_fwd.cu']
     assert ('if (scales) return hn_template_fwd_anneal(' in template
-            and 'return lf::launch_template<false>(' in template)
-    assert 'return lf::launch_template<true>(' in src[
+            and 'return lf::launch_template<OrigEnc>(' in template)
+    assert 'return lf::launch_template<NerfEnc>(' in src[
         'template_fwd_anneal.cu']
+    assert 'return lf::launch_template<PlaneEnc>(' in src[
+        'template_fwd_plane.cu']
     assert 'bool nerfies' not in src['level_fwd.cuh']
+    assert 'TmplEnc<' not in ' '.join(src.values())
 
 
 def test_build_log_keeps_each_sources_seconds():
@@ -533,9 +572,13 @@ def test_plan_model(warp):
     plan (every field's first layer at its encoding, the rest at 0)."""
     shapes = pack_level(_level(warp))[2]
     plan = forward_plan(warp, shapes)
-    assert plan['config'] == [64, 2, 6, 16384, FWD_SMEM_BYTES, 384, 384,
-                              len(forward_maps(shapes))]
+    smem, stages = ((PLANE_SMEM_BYTES, 5) if warp == 'plane'
+                    else (FWD_SMEM_BYTES, 6))
+    assert plan['config'] == [64, 2, stages, 16384, smem, 384,
+                              _tile_cols(warp), len(forward_maps(shapes))]
     h0, t0 = _first_layers(warp)
-    assert {l: c for l, c in enumerate(plan['in_cols']) if c} == {
-        0: 128, h0: 64, t0: 256}
+    want = {0: 128, t0: 256}
+    if h0 < t0:
+        want[h0] = 64
+    assert {l: c for l, c in enumerate(plan['in_cols']) if c} == want
     assert len(plan['in_cols']) == len(shapes)

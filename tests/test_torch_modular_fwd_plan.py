@@ -36,8 +36,11 @@ ff = importlib.import_module('hypernerf_tpu_torch.kernels.fused_field')
 fm = importlib.import_module('hypernerf_tpu_torch.kernels.fused_mlp')
 
 # The stages of the translation table; the SE(3) trunk's stage is held in
-# test_torch_se3_stage_plan.py.
+# test_torch_se3_stage_plan.py. 'template_plane' is the plane configuration's
+# template alone (layers 7..22 of its table, a block of two 448-column tiles
+# and a ring of 5 stages).
 STAGES = ['warp', 'sheet', 'template']
+ALL_STAGES = STAGES + ['template_plane']
 SMS = 132  # an H100's SMs: the persistent grid's width
 
 
@@ -45,18 +48,22 @@ def _probe(config='flagship'):
     return load_probe_weights(flagship_model('cpu', config=config))
 
 
-def _stage_owner(stage, config='flagship'):
+def _config(stage):
+    return 'plane' if stage == 'template_plane' else 'flagship'
+
+
+def _stage_owner(stage, config=None):
     """(module that owns the stage's blob, its layers) as the wrappers pack
     them."""
-    probe = _probe(config)
-    if stage == 'template':
+    probe = _probe(config or _config(stage))
+    if stage.startswith('template'):
         template = probe._template('fine')
-        return template, fm.template_layers(template, enc_pad=128)
+        return template, fm.kernel_template_layers(template)
     mlp = (probe.warp_field if stage == 'warp' else probe.hyper_sheet_mlp).mlp
     return mlp, ff.field_layers(mlp)
 
 
-def _stage_blob(stage, config='flagship'):
+def _stage_blob(stage, config=None):
     owner, layers = _stage_owner(stage, config)
     w, b, shapes = common.pack_layers(owner, layers)
     return owner, w, b, shapes
@@ -66,12 +73,12 @@ def _stage_blob(stage, config='flagship'):
 # The blobs and their tensor maps.
 
 
-@pytest.mark.parametrize('stage', STAGES)
+@pytest.mark.parametrize('stage', ALL_STAGES)
 def test_stage_blob_is_the_level_blob_slice(stage):
     """A module's own packed blob is the level blob's run of the stage's
     layers, weights and biases alike: the per-module kernel reads layer l
     where the level kernel would, less the stage's first offsets."""
-    level = _probe().level('fine')
+    level = _probe(_config(stage)).level('fine')
     w_level, b_level, shapes = pack_level(level)
     first, end = MODULE_STAGES[stage]
     _, w, b, stage_shapes = _stage_blob(stage)
@@ -84,7 +91,7 @@ def test_stage_blob_is_the_level_blob_slice(stage):
 
 @pytest.mark.parametrize('stage,config', [
     ('warp', 'flagship'), ('sheet', 'flagship'), ('template', 'flagship'),
-    ('template', 'static')])
+    ('template', 'static'), ('template_plane', 'plane')])
 def test_tensor_maps_cover_each_stage(stage, config):
     """Over the stage's own blob (the static template's included) every map
     starts 256-byte aligned with a row stride of whole 16 bytes, and each
@@ -140,10 +147,11 @@ def test_stage_bounds_are_map_runs():
 # The column plan.
 
 
-@pytest.mark.parametrize('stage', STAGES)
+@pytest.mark.parametrize('stage', ALL_STAGES)
 def test_stage_column_plan(stage):
     """Run the stage alone over a symbolic tile of its block's width (384
-    columns for the template, 256 for the warp field, 128 for the sheet):
+    columns for the template, 448 for the plane configuration's, 256 for the
+    warp field, 128 for the sheet):
     its first layer reads the encoding at its column, every other layer
     reads the stage's last hidden output from column 0 (then the skip's
     encoding, or the rgb branch's condition beside the bottleneck), every K
@@ -155,7 +163,9 @@ def test_stage_column_plan(stage):
     cols = MODULE_BLOCKS[stage][1]
     assert plan['config'][6] == cols and cols % FWD_BOX_COLS == 0
     first = MODULE_STAGES[stage][0]
-    assert plan['in_cols'] == forward_in_cols()[first:first + len(shapes)]
+    table = 'plane' if stage == 'template_plane' else 'translation'
+    assert plan['in_cols'] == forward_in_cols(table)[first:
+                                                      first + len(shapes)]
     enc_col = plan['in_cols'][0]
     assert enc_col % FWD_BOX_COLS == 0 and all(
         c == 0 for c in plan['in_cols'][1:])
@@ -165,7 +175,8 @@ def test_stage_column_plan(stage):
     tile[enc_col:enc_col + enc_w] = ['enc'] * enc_w
     last = None
     for i, ((n, k), (_, segs)) in enumerate(zip(shapes, layers)):
-        if stage == 'template' and i == 10:  # the condition after bneck
+        template = stage.startswith('template')
+        if template and i == 10:  # the condition after bneck
             cond_w = shapes[11][1] - shapes[9][0]
             assert shapes[9][0] % FWD_BOX_COLS == 0
             tile[shapes[9][0]:shapes[9][0] + cond_w] = ['cond'] * cond_w
@@ -178,7 +189,7 @@ def test_stage_column_plan(stage):
             elif j == 0:
                 want += [('h', last)] * padded
             else:
-                want += ['cond' if stage == 'template' and i == 11
+                want += ['cond' if template and i == 11
                          else 'enc'] * padded
             at += padded
         assert at - start == k
@@ -247,7 +258,7 @@ def _block0_steps(n_points, groups):
     return len(range(0, steps, min(steps, SMS)))
 
 
-@pytest.mark.parametrize('stage', STAGES)
+@pytest.mark.parametrize('stage', ALL_STAGES)
 @pytest.mark.parametrize('n_points', [481, 37 * 13, 2 * SMS * 128 + 70])
 def test_stage_loads_through_the_ring(stage, n_points):
     """Block 0's producer issues the stage's loads once per step of its
@@ -266,7 +277,7 @@ def test_stage_loads_through_the_ring(stage, n_points):
             if i + 1 == len(order) or order[i + 1][0] != order[i][0]}
     for seed in range(2):
         assert _run_ring(order, ends, np.random.default_rng(seed),
-                         groups) == len(order)
+                         groups, plan['config'][2]) == len(order)
 
 
 @pytest.mark.parametrize('warp', ['translation', 'se3', 'quaternion'])
@@ -326,6 +337,8 @@ def test_shared_memory_fits():
     assert sizes == {'warp': 229296, 'sheet': 204208,
                      'template': FWD_SMEM_BYTES}
     assert max(sizes.values()) <= 232448
+    # The plane configuration's template: two 56 KB tiles, 5 stages.
+    assert fwd_smem_bytes(*MODULE_BLOCKS['template_plane']) == 221600
     shapes = pack_level(_probe().level('fine'))[2]
     for stage in STAGES:
         first, end = MODULE_STAGES[stage]
@@ -408,7 +421,43 @@ def test_launches_match_the_c_signatures(monkeypatch):
     assert all(args[-1] == 1024 for _, args in lib.calls[5:])
 
 
-@pytest.mark.parametrize('stage', STAGES)
+@torch.no_grad()
+def test_plane_template_launch_matches_the_c_signature(monkeypatch):
+    """The plane configuration's template alone launches its own entry
+    point, ``hn_fused_template_fwd_plane`` (hn_fused_template_fwd's
+    arguments, raw rows of 16 columns, no window row), checks its blob
+    against the plane table's layers 7..22, and refuses rows of 8 columns;
+    its compiled stage plan is stage code 4."""
+    p_, i_, l_ = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    assert build._SIGNATURES['hn_fused_template_fwd_plane'] == (
+        [p_] * 6 + [l_, i_, p_], i_)
+    fl = importlib.import_module('hypernerf_tpu_torch.kernels.fused_level')
+    probe = _probe('plane')
+    layout = pack_level(probe.level('fine'))[2]
+    lib = _RecordingLibrary()
+    monkeypatch.setattr(build, 'library', lambda: lib)
+    monkeypatch.setattr(common, 'kernel_layout', lambda w='translation':
+                        layout if w == 'plane' else None)
+    monkeypatch.setattr(common, 'runs_plain', lambda t, name: False)
+    monkeypatch.setattr(torch.cuda, 'device', lambda d: _Null())
+    monkeypatch.setattr(torch.cuda, 'current_stream',
+                        lambda device=None: type('S', (), {'cuda_stream': 7}))
+    rs = np.random.RandomState(0)
+    x16 = torch.from_numpy(rs.rand(37 * 13, 16).astype(np.float32))
+    level = probe.level('coarse')
+    fm._forward(level, x16, torch.rand(37, 39))
+    fl.compiled_stage_plan('template_plane')
+    with pytest.raises(ValueError, match='x_raw'):
+        fm._forward(level, x16[:, :8].contiguous(), torch.rand(37, 39))
+    (name, args), (plan_name, plan) = lib.calls
+    assert name == 'hn_fused_template_fwd_plane'
+    _check_kinds(name, args)
+    assert args[2] is None and args[-3:] == (37 * 13, 13, 7)
+    assert plan_name == 'hn_modular_fwd_plan'
+    assert plan[0] == MODULE_STAGE_CODES['template_plane'] == 4
+
+
+@pytest.mark.parametrize('stage', ALL_STAGES)
 def test_stage_plan_model(stage):
     """``stage_plan``: the level's tile height and ring, the stage's block
     (warpgroups, shared memory, threads, tile columns), its own tensor maps
@@ -416,14 +465,15 @@ def test_stage_plan_model(stage):
     shapes = _stage_blob(stage)[3]
     plan = stage_plan(stage, shapes)
     groups, cols = {'warp': (3, 256), 'sheet': (4, 128),
-                    'template': (2, 384)}[stage]
-    assert plan['config'] == [64, groups, 6, 16384,
+                    'template': (2, 384), 'template_plane': (2, 448)}[stage]
+    stages = 5 if stage == 'template_plane' else 6
+    assert plan['config'] == [64, groups, stages, 16384,
                               fwd_smem_bytes(groups, cols),
                               128 * (groups + 1), cols,
-                              {'warp': 4, 'sheet': 3, 'template': 9}[stage]]
-    assert plan['in_cols'][0] == {'warp': 128, 'sheet': 64,
-                                  'template': 256}[stage]
-    assert len(plan['loads']) == {'warp': 16, 'sheet': 8,
-                                  'template': 89}[stage]
+                              {'warp': 4, 'sheet': 3}.get(stage, 9)]
+    assert plan['in_cols'][0] == {'warp': 128, 'sheet': 64}.get(stage, 256)
+    # The plane template's first and skip layers read one more box.
+    assert len(plan['loads']) == {'warp': 16, 'sheet': 8, 'template': 89,
+                                  'template_plane': 93}[stage]
     with pytest.raises(ValueError):
         stage_plan(stage, shapes[:-1])

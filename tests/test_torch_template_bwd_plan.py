@@ -26,12 +26,13 @@ import torch
 from hypernerf_tpu_torch.kernels import build, common, fused_mlp
 from hypernerf_tpu_torch.kernels.fused_mlp import (
     STASH_COL, STASH_COLUMNS, STASH_WIDTH, STASH_WIDTHS, WIDE_LAYERS,
-    chunk_plan, fused_template_bwd_plain, layer_views, template_bwd_chunks,
-    template_layers)
+    chunk_plan, fused_template_bwd_plain, layer_views, stash_plan,
+    template_bwd_chunks, template_layers)
 from hypernerf_tpu_torch.ops.posenc import posenc, posenc_orig
 from tests.test_torch_fused_mlp import _port_template, _setup
 
 BF = torch.bfloat16
+PLANE_STASH = stash_plan(common.PLANE_ENC_PAD).width
 
 
 @pytest.mark.parametrize('rows,samples,max_rows', [
@@ -116,6 +117,15 @@ def test_stash_column_plan_matches_the_template():
     assert sorted(l for l, *_ in WIDE_LAYERS) == [
         l for l in range(16) if l not in (10, 15)]  # the two heads
     assert STASH_WIDTHS['enc'] == common.pad16(3 * 21 + 4 * 13)
+    # The plane layout's stash: 64 more encoding columns, the same layers.
+    plane = stash_plan(common.PLANE_ENC_PAD)
+    assert plane.width == PLANE_STASH == 3136
+    assert plane.widths == {**STASH_WIDTHS, 'enc': 192}
+    assert all(plane.col[n] == STASH_COL[n] + 64 for n in STASH_COL
+               if n != 'enc')
+    layers = fused_mlp.kernel_template_layers(
+        _flagship_template('plane').template)
+    assert [sum(p for _, p in layers[l][1]) for l in (0, 5)] == [192, 448]
 
 
 class TorchOps:
@@ -139,16 +149,22 @@ class TorchOps:
                 for z in range(self.splits)]
 
     def encode(self, raw_t, stash, enc_col, n, scales):
-        if scales is None:
+        # The stash's width names the layout: the plane's holds 192
+        # encoding columns of 8 hyper coordinates (raw rows of 16 columns).
+        width = 192 if stash.shape[1] == PLANE_STASH else 128
+        if width == 192:
+            enc = torch.cat([posenc_orig(raw_t[:, :3], 10),
+                             posenc_orig(raw_t[:, 3:11], 6)], -1)
+        elif scales is None:
             enc = torch.cat([posenc_orig(raw_t[:, :3], 10),
                              posenc_orig(raw_t[:, 3:7], 6)], -1)
         else:  # the Nerfies layout, each feature rounded, windowed, rounded
             enc = torch.cat([posenc(raw_t[:, :3], 0, 10, True),
                              posenc(raw_t[:, 3:7], 0, 4)], -1)
-        enc = torch.nn.functional.pad(enc, (0, 128 - enc.shape[1])).to(BF)
+        enc = torch.nn.functional.pad(enc, (0, width - enc.shape[1])).to(BF)
         if scales is not None:
             enc = (enc.float() * scales).to(BF)
-        stash[:n, enc_col:enc_col + 128] = enc
+        stash[:n, enc_col:enc_col + width] = enc
 
     def ray_bias(self, cond, w11, cond_col, out, rays):
         width = cond.shape[1]
@@ -176,12 +192,15 @@ class TorchOps:
 
     def dw(self, g, n, n_out, h, segs, n_kin_tiles, slab, w_off, k_pad,
            b_off):
+        # A ragged last tile (the plane layout's 192 and 448 inputs) writes
+        # no column at k_pad or past it.
         width = 128 * n_kin_tiles
         hh = h[:n, self._cols(segs, width)].float()
         gg = g[:n, :n_out].float()
+        keep = min(width, k_pad)
         for z, (r0, r1) in enumerate(self._ranges(n, 64)):
             slab[z, w_off:w_off + n_out * k_pad].view(n_out, k_pad)[
-                :, :width] = gg[r0:r1].t() @ hh[r0:r1]
+                :, :keep] = (gg[r0:r1].t() @ hh[r0:r1])[:, :keep]
             if b_off >= 0:
                 slab[z, b_off:b_off + n_out] = gg[r0:r1].sum(0)
 
@@ -219,17 +238,21 @@ class TorchOps:
             slab[z, b_off] = gs[r0:r1].sum()
 
     def posenc_bwd(self, raw_t, enc_g, dx_t, n, scales):
-        gx = enc_g[:n, :128].float() + enc_g[:n, 128:].float()
+        # [the skip's part | layer 0's], each half of the buffer (the
+        # plane layout's 256 columns, 8 hyper coordinates).
+        half = enc_g.shape[1] // 2
+        gx = enc_g[:n, :half].float() + enc_g[:n, half:].float()
         hyper, ident = (6, True) if scales is None else (4, False)
+        ch = 8 if half == 256 else 4
         if scales is not None:
             gx = gx * scales
         dx_t[:, :3] = common.posenc_bwd(
             gx[:, :63], common.posenc_trig(raw_t[:, :3], 10), 3, 10)
-        width = 4 * (2 * hyper + ident)
-        dx_t[:, 3:7] = common.posenc_bwd(
-            gx[:, 63:63 + width], common.posenc_trig(raw_t[:, 3:7], hyper),
-            4, hyper, ident)
-        dx_t[:, 7] = 0
+        width = ch * (2 * hyper + ident)
+        dx_t[:, 3:3 + ch] = common.posenc_bwd(
+            gx[:, 63:63 + width],
+            common.posenc_trig(raw_t[:, 3:3 + ch], hyper), ch, hyper, ident)
+        dx_t[:, 3 + ch:] = 0
 
     def reduce(self, slab, grads):
         grads += slab.sum(0)
@@ -238,7 +261,8 @@ class TorchOps:
 @torch.no_grad()
 @pytest.mark.parametrize('config,rays,samples,max_rows', [
     ('flagship', 37, 13, 100), ('flagship', 96, 1, 40),
-    ('static', 20, 16, 1 << 19), ('anneal', 37, 13, 100)])
+    ('static', 20, 16, 1 << 19), ('anneal', 37, 13, 100),
+    ('plane', 37, 13, 100)])
 def test_kernel_sequence_matches_the_plain_backward(config, rays, samples,
                                                     max_rows):
     """``template_bwd_chunks`` (several chunks, ragged rows, 3 slabs)
@@ -246,15 +270,19 @@ def test_kernel_sequence_matches_the_plain_backward(config, rays, samples,
     flagship widths in bf16: the stash columns, the order of the steps, the
     masks, the skip's two cotangents, the heads and the condition; for
     ``anneal`` the Nerfies layout with its window row at hyper_alpha 1.5
-    and a 27-column condition."""
+    and a 27-column condition; for ``plane`` the 192-column encoding of 8
+    hyper coordinates (raw rows and dx_t of 16 columns; the first and skip
+    layers' products at K 192 and 448, their dW over ragged last tiles; the
+    encoding's cotangents in a buffer of 2 x 256 columns)."""
     tmpl = _flagship_template(config)
     t = tmpl.template
     rs = np.random.RandomState(rays + samples)
     p = rays * samples
-    x = np.zeros((p, 8), np.float32)
+    hyper = 8 if config == 'plane' else 4
+    x = np.zeros((p, fused_mlp.raw_pad(tmpl)), np.float32)
     x[:, :3] = rs.randn(p, 3) * 0.4
     if config != 'static':
-        x[:, 3:7] = rs.randn(p, 4) * 0.3
+        x[:, 3:3 + hyper] = rs.randn(p, hyper) * 0.3
     raw = torch.from_numpy(x)
     width = fused_mlp.cond_width(tmpl)
     cond = torch.from_numpy(rs.randn(rays, width).astype(np.float32)).to(BF)
@@ -274,7 +302,8 @@ def test_kernel_sequence_matches_the_plain_backward(config, rays, samples,
         ops, raw, cond, samples, g, w, wt, b, w_off, b_off, n_grads,
         max_rows, scales)
     rows = max(r1 - r0 for r0, r1 in chunk_plan(p, samples, max_rows))
-    assert ops.stash_bytes == rows * STASH_WIDTH * 2
+    assert ops.stash_bytes == rows * stash_plan(shapes[0][1]).width * 2
+    assert dx_t.shape == (p, x.shape[1])
     n_w = b_off[0]
     got = [dx_t, d_cond] + common.unpack_grads(grads[:n_w], grads[n_w:],
                                                layers, shapes)
@@ -353,3 +382,54 @@ def test_kernel_launches_match_the_c_signatures(monkeypatch):
         fused_mlp.GBUF
     assert lds['hn_tmpl_bneck_prep'][4] == STASH_WIDTH
     assert lds['hn_tmpl_posenc_bwd'][2] == fused_mlp.GBUF
+
+
+@torch.no_grad()
+def test_plane_kernel_launches_match_the_c_signatures(monkeypatch):
+    """At the plane layout the same 50 launches a chunk pass the entry
+    points the layout's buffers: a stash of 3136 columns (its encoding's
+    192 at column 0; hn_tmpl_encode, hn_tmpl_rgb_head and hn_tmpl_bneck_prep
+    take their layout from it), raw rows and dx_t of 16 columns, the
+    encoding's cotangent buffer of 2 x 256 columns (hn_tmpl_posenc_bwd's
+    ``e_ld``); layer 0's and the skip layer's products reduce over 192 and
+    448, their cotangents fill two output tiles each and their dW two and
+    four tiles of a 192- and 448-column k_pad."""
+    lib = _RecordingLibrary()
+    monkeypatch.setattr(build, 'library', lambda: lib)
+    monkeypatch.setattr(torch.cuda, 'current_stream',
+                        lambda device=None: type('S', (), {'cuda_stream': 7}))
+    t = _flagship_template('plane').template
+    layers = fused_mlp.kernel_template_layers(t)
+    w_blob, b_blob, shapes = common.pack_layers(t, layers)
+    wt_blob = common.pack_layers(t, layers, transposed=True)[0]
+    views = layer_views(w_blob, wt_blob, b_blob, shapes)
+    rays, samples = 6, 4
+    p = rays * samples
+    ops = fused_mlp._KernelOps('cpu')
+    dx_t = template_bwd_chunks(ops, torch.zeros(p, 16),
+                               torch.zeros(rays, 39, dtype=BF), samples,
+                               torch.zeros(p, 4), *views, max_rows=12)[0]
+    assert dx_t.shape == (p, 16)
+    assert ops.stash_bytes == 12 * PLANE_STASH * 2
+    names = [n for n, _ in lib.calls]
+    assert len(names) == 2 * 50 and names.count('hn_tmpl_reduce') == 2
+    for name, args in lib.calls:
+        assert len(args) == len(build._SIGNATURES[name][0]), name
+    first = {}
+    for name, args in lib.calls:
+        first.setdefault(name, args)
+    assert first['hn_tmpl_encode'][2:4] == (PLANE_STASH, 0)
+    assert first['hn_tmpl_rgb_head'][2] == PLANE_STASH
+    assert first['hn_tmpl_bneck_prep'][4] == PLANE_STASH
+    assert first['hn_tmpl_posenc_bwd'][2] == 512
+    rowprods = [args for name, args in lib.calls[:50]
+                if name == 'hn_tmpl_rowprod']
+    # (n_red, w_row0, n_col_tiles, out_ld, out_col0) of each row product.
+    red = [(a[9], a[10], a[11], a[13], a[14]) for a in rowprods]
+    assert (192, 0, 2, PLANE_STASH, 192) in red  # layer 0's recompute
+    assert (448, 0, 2, PLANE_STASH, 192 + 5 * 256) in red  # the skip's
+    assert (256, 256, 2, 512, 0) in red  # the skip's part of d enc
+    assert (256, 0, 2, 512, 256) in red  # layer 0's part of d enc
+    dws = [(a[9], a[13]) for name, a in lib.calls[:50]
+           if name == 'hn_tmpl_dw']
+    assert (2, 192) in dws and (4, 448) in dws  # (tiles, k_pad), ragged

@@ -10,7 +10,8 @@ kernels on a card that has no JAX.
       [--se3_out tests/data/fused_se3_jax_ref.npz] \
       [--jacobian_out tests/data/fused_jacobian_jax_ref.npz] \
       [--anneal_out tests/data/fused_anneal_jax_ref.npz] \
-      [--only se3|jacobian|anneal]
+      [--plane_out tests/data/fused_plane_jax_ref.npz] \
+      [--only se3|jacobian|anneal|plane]
 
 The weights are ``hypernerf_tpu_torch.flagship.load_probe_weights`` (numpy,
 seed 0), which the card redraws bit for bit; the inputs
@@ -56,6 +57,16 @@ of all 30 layers) and ``fused_nerf_mlp`` with its windowed in-kernel
 encoding (``flagship.ANNEAL_TEMPLATE_CASES``: outputs, dx, d rgb_cond and
 dW / db of its 16 layers). ``tests/test_torch_anneal.py`` recomputes and
 checks it. ``--only anneal`` writes that file alone.
+The plane file holds the numbers of the ``plane`` configuration
+(axis_aligned_plane: no sheet, the GLO embedding as the hyper coordinates,
+a 167-column template encoding) at its probe weights: the level kernel
+(``flagship.PLANE_LEVEL_CASES``: outputs, and for the stored cotangent the
+gradients of every ray input and of all 23 layers) and ``fused_nerf_mlp``
+with ``in_ch`` 167 (``flagship.PLANE_TEMPLATE_CASES``: outputs, dx, d
+rgb_cond and dW / db of its 16 layers), in bf16, and the first level case
+again in float32 (``flagship.PLANE_F32_CASES``).
+``tests/test_torch_plane.py`` recomputes and checks it. ``--only plane``
+writes that file alone.
 """
 
 from __future__ import annotations
@@ -97,6 +108,7 @@ def _jax_level_fn(model, level: str, inputs, warp_alpha=None,
     cfg = model.config
     r, s = inputs['z_vals'].shape
     screw = cfg.warp_field_type != 'translation'
+    plane = cfg.hyper_slice_method == 'axis_aligned_plane'
     spec = FusedLevelSpec(
         embed_ch=cfg.glo_dim, warp_type=cfg.warp_field_type,
         se3_min_deg=cfg.warp_min_deg, se3_max_deg=cfg.warp_max_deg,
@@ -104,7 +116,9 @@ def _jax_level_fn(model, level: str, inputs, warp_alpha=None,
         warp_width=cfg.warp_width, warp_freq=cfg.warp_freq,
         hyper_depth=cfg.hyper_sheet_depth, hyper_width=cfg.hyper_sheet_width,
         hyper_sheet_freq=cfg.hyper_sheet_freq,
-        hyper_out=cfg.hyper_slice_out_dim, xyz_freq=cfg.xyz_freq,
+        slice_method=cfg.hyper_slice_method,
+        hyper_out=cfg.glo_dim if plane else cfg.hyper_slice_out_dim,
+        xyz_freq=cfg.xyz_freq,
         hyper_freq=cfg.hyper_freq,
         use_original_embed=cfg.use_original_embed,
         spatial_min_deg=cfg.spatial_point_min_deg,
@@ -139,6 +153,7 @@ def _jax_level_fn(model, level: str, inputs, warp_alpha=None,
     args = [jnp.asarray(inputs[k]) for k in LEVEL_INPUTS] + [
         as_jnp(se3_params_to_list(params['warp_field']) if screw else
                mlp_params_to_list(params['warp_field']['mlp'])),
+        [] if plane else
         as_jnp(mlp_params_to_list(params['hyper_sheet_mlp']['mlp'])),
         as_jnp(nerf_mlp_params_to_list(params[f'nerf_{level}']))]
     return fn, args
@@ -158,8 +173,9 @@ def jax_level_grads(model, level: str, inputs, cotangent, warp_alpha=None,
                     tmpl_alphas=(None, None), **spec_kw) -> dict:
     """Gradients of sum(level output * cotangent) through the JAX level
     kernel's own backward: {'d_<input>'} for the five ray inputs and
-    {'dw<l>', 'db<l>'} for the level's layers (30, or 32 with the SE(3) /
-    quaternion warp) in kernel order, dW as (out, in)."""
+    {'dw<l>', 'db<l>'} for the level's layers (30, 32 with the SE(3) /
+    quaternion warp, 23 in the plane configuration) in kernel order, dW as
+    (out, in)."""
     import jax
     import jax.numpy as jnp
     import numpy as np
@@ -478,6 +494,92 @@ def jax_anneal_template(model, level: str, inputs,
     return res
 
 
+def jax_plane_template(model, level: str, inputs) -> dict:
+    """The JAX template kernel's numbers (``fused_nerf_mlp`` with its
+    in-kernel posenc_orig of [xyz (10 bands) | 8 hyper coordinates (6)],
+    ``in_ch`` 167, interpret mode) with the weights of ``model``'s
+    ``level``: 'out' (P, 4), and for sum(out * cotangent) 'dx' (P, 16),
+    'd_rgb_cond', 'dw<l>' as (out, in) and 'db<l>' of its 16 layers."""
+    import jax
+    import jax.numpy as jnp
+    import numpy as np
+
+    from hypernerf_tpu.ops.pallas.fused_mlp import (FusedMLPSpec,
+                                                    fused_nerf_mlp,
+                                                    nerf_mlp_params_to_list)
+    from hypernerf_tpu_torch.convert import params_to_jax
+
+    cfg = model.config
+    params = params_to_jax(model.state_dict())
+    hyper = cfg.glo_dim
+    segments = ((3, cfg.xyz_freq), (hyper, cfg.hyper_freq))
+    per = inputs['x_raw'].shape[0] // inputs['rgb_cond'].shape[0]
+    spec = FusedMLPSpec(
+        in_ch=sum(c * (1 + 2 * f) for c, f in segments),
+        trunk_depth=cfg.trunk_depth, trunk_width=cfg.trunk_width,
+        rgb_depth=cfg.rgb_branch_depth, rgb_width=cfg.rgb_branch_width,
+        skips=tuple(cfg.skips), rgb_cond_ch=inputs['rgb_cond'].shape[1],
+        tile=256, bwd_tile=128, compute_dtype=cfg.compute_dtype,
+        enc_segments=segments, cond_samples=per if per > 1 else 0,
+        interpret=True)
+
+    def fn(x_raw, rgb_cond, pairs):
+        out = fused_nerf_mlp(spec, x_raw[:, :3 + hyper], rgb_cond, None,
+                             pairs)
+        return jnp.concatenate([out['rgb'], out['alpha']], -1)
+
+    args = [jnp.asarray(inputs['x_raw']), jnp.asarray(inputs['rgb_cond']),
+            [(jnp.asarray(w), jnp.asarray(b)) for w, b in
+             nerf_mlp_params_to_list(params[f'nerf_{level}'])]]
+    cot = jnp.asarray(inputs['cotangent'])
+    g = jax.device_get(jax.grad(lambda *a: jnp.sum(fn(*a) * cot),
+                                argnums=(0, 1, 2))(*args))
+    res = {'out': np.asarray(jax.device_get(fn(*args)), np.float32),
+           'dx': np.asarray(g[0], np.float32),
+           'd_rgb_cond': np.asarray(g[1], np.float32)}
+    for layer, (dw, db) in enumerate(g[2]):
+        res[f'dw{layer}'] = np.asarray(dw, np.float32).T.copy()
+        res[f'db{layer}'] = np.asarray(db, np.float32)
+    return res
+
+
+def plane_models() -> dict:
+    """The ``plane`` configuration at the probe weights, in bf16 (as it
+    runs) and in float32: {dtype name: model}."""
+    from hypernerf_tpu_torch.flagship import flagship_model, load_probe_weights
+    return {dt: load_probe_weights(flagship_model('cpu', config='plane',
+                                                  compute_dtype=dt))
+            for dt in ('bfloat16', 'float32')}
+
+
+def plane_reference() -> dict:
+    """Every array of the plane file: each case's inputs and numbers."""
+    from hypernerf_tpu_torch.flagship import (PLANE_F32_CASES,
+                                              PLANE_LEVEL_CASES,
+                                              PLANE_TEMPLATE_CASES,
+                                              plane_probe_inputs)
+    models = plane_models()
+    arrays = {}
+    cases = [(c, 'bfloat16') for c in (*PLANE_LEVEL_CASES,
+                                       *PLANE_TEMPLATE_CASES)]
+    cases += [(c, 'float32') for c in PLANE_F32_CASES]
+    for case, dt in cases:
+        base = PLANE_F32_CASES.get(case, case)
+        model, inputs = models[dt], plane_probe_inputs(case)
+        arrays.update({f'{case}/{k}': v for k, v in inputs.items()})
+        if base in PLANE_TEMPLATE_CASES:
+            level = PLANE_TEMPLATE_CASES[base][0]
+            arrays.update({f'{case}/{k}': v for k, v in jax_plane_template(
+                model, level, inputs).items()})
+            continue
+        level = PLANE_LEVEL_CASES[base][0]
+        rays = {k: v for k, v in inputs.items() if k != 'cotangent'}
+        arrays[f'{case}/out'] = jax_level(model, level, rays)
+        arrays.update({f'{case}/{k}': v for k, v in jax_level_grads(
+            model, level, rays, inputs['cotangent']).items()})
+    return arrays
+
+
 def anneal_reference() -> dict:
     """Every array of the anneal file: each case's inputs and numbers."""
     from hypernerf_tpu_torch.flagship import (ANNEAL_LEVEL_CASES,
@@ -589,6 +691,7 @@ def main():
     from hypernerf_tpu_torch.flagship import (ANNEAL_REFERENCE,
                                               GRAD_REFERENCE,
                                               LEVEL_REFERENCE,
+                                              PLANE_REFERENCE,
                                               LEVEL_REFERENCE_CASES,
                                               MODULAR_REFERENCE,
                                               JACOBIAN_REFERENCE,
@@ -600,11 +703,16 @@ def main():
     parser.add_argument('--se3_out', default=SE3_REFERENCE)
     parser.add_argument('--jacobian_out', default=JACOBIAN_REFERENCE)
     parser.add_argument('--anneal_out', default=ANNEAL_REFERENCE)
-    parser.add_argument('--only', choices=('se3', 'jacobian', 'anneal'),
-                        default=None, help='write the SE(3), the Jacobian or '
-                        'the anneal file alone')
+    parser.add_argument('--plane_out', default=PLANE_REFERENCE)
+    parser.add_argument('--only', choices=('se3', 'jacobian', 'anneal',
+                                           'plane'),
+                        default=None, help='write the SE(3), the Jacobian, '
+                        'the anneal or the plane file alone')
     args = parser.parse_args()
     os.makedirs(os.path.dirname(os.path.abspath(args.se3_out)), exist_ok=True)
+    if args.only in (None, 'plane'):
+        np.savez_compressed(args.plane_out, **plane_reference())
+        print(args.plane_out)
     if args.only in (None, 'anneal'):
         np.savez_compressed(args.anneal_out, **anneal_reference())
         print(args.anneal_out)

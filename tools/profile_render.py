@@ -5,7 +5,7 @@ is ``se3`` with two GLO tables), through the PyTorch port, on one CUDA card.
 
   python tools/profile_render.py \
       [--config flagship|static|split_glo|se3|quaternion|se3_split_glo|
-                anneal] \
+                anneal|plane] \
       [--return_points] [--frames 2] [--chunk 8192] \
       [--trace render_trace.json]
 
@@ -34,7 +34,8 @@ def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument('--config', default='flagship',
                         choices=('flagship', 'static', 'split_glo', 'se3',
-                                 'quaternion', 'se3_split_glo', 'anneal'))
+                                 'quaternion', 'se3_split_glo', 'anneal',
+                                 'plane'))
     parser.add_argument('--return_points', action='store_true')
     parser.add_argument('--frames', type=int, default=2)
     parser.add_argument('--chunk', type=int, default=8192)

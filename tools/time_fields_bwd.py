@@ -1,7 +1,12 @@
 #!/usr/bin/env python
 """The fields backward's times on one CUDA card: kernel B
-(``hn_fused_fields_bwd``) for each warp type at the train step's R = 16384
-rays, S = 64 and 128 samples, or, with ``--field warp|sheet|se3``, that
+(``hn_fused_fields_bwd``) for each warp type and for the plane configuration
+(no sheet; this checkout's library alone) at the train step's R = 16384
+rays, S = 64 and 128 samples, or, with ``--field template``, kernel A (the
+template backward, ``fused_mlp.template_bwd_chunks`` launching each
+library's ``hn_tmpl_*`` steps) of the flagship and, in this checkout's
+library alone, of the plane layout at R = 16384, S = 128 and 64, or, with
+``--field warp|sheet|se3``, that
 field alone (``hn_fused_field_bwd``, the SE(3) trunk's
 ``hn_fused_se3_bwd``) at 8192 x 128 and 16384 x 128 rows, or, with
 ``--field se3_tangents`` or ``warp_tangents``, the trunk or the
@@ -11,7 +16,7 @@ translation warp field with its point-tangents (``hn_fused_se3_jacobian_bwd``,
 events (the mean of 5 launches after 2).
 
   python tools/time_fields_bwd.py [--parent DIR]
-      [--field warp|sheet|se3|se3_tangents|warp_tangents]
+      [--field warp|sheet|se3|se3_tangents|warp_tangents|template]
 
 With ``--parent`` the kernel library of another checkout (for example an
 unpacked ``git archive`` of an earlier commit), built from its own
@@ -28,7 +33,8 @@ row over 989 TFLOP/s; a point is four rows with the tangents) and, with a
 parent, the ratio of the means and the largest differences of the outputs:
 d z, the per-ray sums (their last bits vary from run to run) or dx_raw,
 each as max|d|, and dW / db as the relative L2 of the whole gradient (its
-last bits vary too). Exits non-zero without a card.
+last bits vary too). Kernel A's outputs are deterministic: dx_t, d
+rgb_cond and dW / db as max|d|. Exits non-zero without a card.
 """
 
 from __future__ import annotations
@@ -76,6 +82,7 @@ def main() -> int:
     parser.add_argument('--parent', default=None)
     parser.add_argument('--field', default=None,
                         choices=('warp', 'sheet', 'se3', 'se3_tangents',
+                                 'template',
                                  'warp_tangents'))
     args = parser.parse_args()
 
@@ -111,19 +118,22 @@ def main() -> int:
     def rel_l2(a, b):
         return ((a - b).norm() / b.norm().clamp_min(1e-30)).item()
 
-    def report(label, macs, rows, launch, n_grads):
-        """Times each library's launches in turns; launch(lib, bld) zeroes
-        and fills that library's outputs and returns them, the gradients
-        last (``n_grads`` buffers, flat or as copies to be summed)."""
-        times = {k: [] for k in libs}
-        for k in order:
+    def report(label, macs, rows, launch, n_grads, this_only=False):
+        """Times each library's launches in turns (``this_only``: this
+        checkout's library twice); launch(lib, bld) zeroes and fills that
+        library's outputs and returns them, the gradients last (``n_grads``
+        buffers, flat or as copies to be summed; 0: every output compared
+        as max|d|)."""
+        keys = ['this'] if this_only else list(libs)
+        times = {k: [] for k in keys}
+        for k in (['this', 'this'] if this_only else order):
             times[k].append(_time(lambda: launch(*libs[k])))
         bound = 6.0 * macs * rows / PEAK_FLOPS * 1e3
         mean = {k: sum(v) / len(v) for k, v in times.items()}
         parts = [f'{k} ' + ', '.join(f'{t:.3f}' for t in v) + ' ms'
                  f' ({100 * bound / mean[k]:.1f} % of {bound:.4f})'
                  for k, v in times.items()]
-        if 'parent' in libs:
+        if 'parent' in keys:
             got = {k: [t.clone() for t in launch(*libs[k])] for k in libs}
             torch.cuda.synchronize()
             n = len(got['this']) - n_grads
@@ -132,14 +142,45 @@ def main() -> int:
             # The gradient copies a block adds into, summed.
             sums = {k: [t.sum(0) if t.dim() == 2 else t for t in v[n:]]
                     for k, v in got.items()}
-            grads_d = max(rel_l2(a, b) for a, b in
-                          zip(sums['this'], sums['parent']))
-            parts.append(f'parent / this {mean["parent"] / mean["this"]:.2f}x'
-                         f', rows max|d| {rows_d}, dW / db relative L2 '
-                         f'{grads_d:.3e}')
+            part = (f'parent / this {mean["parent"] / mean["this"]:.2f}x'
+                    f', rows max|d| {rows_d}')
+            if n_grads:
+                grads_d = max(rel_l2(a, b) for a, b in
+                              zip(sums['this'], sums['parent']))
+                part += f', dW / db relative L2 {grads_d:.3e}'
+            parts.append(part)
         print(f'{label}: ' + '; '.join(parts), flush=True)
 
     with torch.no_grad():
+        if args.field == 'template':
+            fm = importlib.import_module(
+                'hypernerf_tpu_torch.kernels.fused_mlp')
+            rays_a = 16384
+            for config in ('flagship', 'plane'):
+                probe = load_probe_weights(flagship_model('cuda',
+                                                          config=config))
+                for s in (128, 64):
+                    tmpl = probe.level('fine' if s == 128 else 'coarse')
+                    z, o, d, emb, cond = inputs(rays_a, s, seed=s + 5)
+                    raw_t = fl._launch_forward(tmpl, z, o, d, emb, cond,
+                                               want_raw_t=True)[1]
+                    g = torch.randn(rays_a * s, 4, generator=torch.Generator(
+                        ).manual_seed(s)).cuda()
+                    rgbc, per, layers, packs = fm._launch_args(
+                        tmpl, raw_t, cond, True)
+                    (w_blob, b_blob, shapes), (wt_blob, _, _) = packs
+                    views = fm.layer_views(w_blob, wt_blob, b_blob, shapes)
+                    macs = sum(lin.weight.numel() for lin, _ in layers)
+
+                    def launch(lib, bld):
+                        ops = fm._KernelOps(torch.device('cuda'))
+                        ops.lib = lib
+                        return list(fm.template_bwd_chunks(
+                            ops, raw_t, rgbc, per, g, *views)[:3])
+                    report(f'kernel A {config} R={rays_a} S={s}', macs,
+                           rays_a * s, launch, 0,
+                           this_only=config == 'plane')
+            return 0
         if args.field == 'warp_tangents':
             mlp = load_probe_weights(flagship_model(
                 'cuda', config='elastic')).warp_field.mlp
@@ -278,8 +319,11 @@ def main() -> int:
 
         rays = 16384
         for warp, config in (('translation', 'flagship'), ('se3', 'se3'),
-                             ('quaternion', 'quaternion')):
+                             ('quaternion', 'quaternion'),
+                             ('plane', 'plane')):
             probe = load_probe_weights(flagship_model('cuda', config=config))
+            # The plane's dx_t: [d warped | d hyper (8) | 0], 16 columns.
+            width, raw = (11, 16) if warp == 'plane' else (7, 8)
             for s in (64, 128):
                 level = probe.level('fine' if s == 128 else 'coarse')
                 w, b, shapes = fl.pack_level(level)
@@ -288,8 +332,9 @@ def main() -> int:
                            for lin, _ in fl.level_layers(level)[:nf])
                 z, o, d, emb, _ = inputs(rays, s, seed=s + 3)
                 dx_t = F.pad(torch.randn(
-                    rays * s, 7, generator=torch.Generator().manual_seed(s)),
-                    (0, 1)).cuda()
+                    rays * s, width,
+                    generator=torch.Generator().manual_seed(s)),
+                    (0, raw - width)).cuda()
                 d_z = torch.empty((rays, s), device='cuda')
                 d_ray = torch.zeros((rays, 14), device='cuda')
                 copies, _ = fl.fields_bwd_grad_copies(shapes[:nf], 'cuda')
@@ -302,7 +347,7 @@ def main() -> int:
                     d_ray.zero_()
                     copies.zero_()
                     bld.check(lib.hn_fused_fields_bwd(
-                        common.WARP_CODES[warp], z.data_ptr(), o.data_ptr(),
+                        common.TABLE_CODES[warp], z.data_ptr(), o.data_ptr(),
                         d.data_ptr(), emb.data_ptr(), dx_t.data_ptr(), None,
                         w.data_ptr(), b.data_ptr(), d_z.data_ptr(),
                         d_ray.data_ptr(), copies.data_ptr(),
@@ -310,7 +355,7 @@ def main() -> int:
                         'hn_fused_fields_bwd')
                     return [d_z, d_ray, copies]
                 report(f'kernel B {warp} R={rays} S={s}', macs, rays * s,
-                       launch, 1)
+                       launch, 1, this_only=warp == 'plane')
     return 0
 
 

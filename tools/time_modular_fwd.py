@@ -2,7 +2,9 @@
 """The per-module forward kernels' times (the warp field and the sheet
 alone, ``hn_fused_field_fwd``; the template alone, ``hn_fused_template_fwd``;
 the SE(3) trunk alone, ``hn_fused_se3_fwd``) and the level forward's
-(``hn_fused_level_fwd``, each warp type) on one CUDA card, for this
+(``hn_fused_level_fwd``, each warp type), and the plane configuration's
+template alone (``hn_fused_template_fwd_plane``) and level forward (table
+code 3) in this checkout's library alone, on one CUDA card, for this
 checkout's kernel library and, with ``--parent``, for another checkout's,
 in turns in one process: this, parent, parent, this. With ``--kernel
 warp_tangents`` or ``se3_tangents``, a Jacobian's forward alone instead:
@@ -168,20 +170,22 @@ def main() -> int:
         return [torch.from_numpy(v).cuda()
                 for v in probe_inputs(rays, samples, seed).values()]
 
-    def report(label, macs, rows, launch):
-        """Times each library's launches in turns; launch(lib) fills and
-        returns that library's output."""
-        times = {k: [] for k in libs}
-        for k in order:
+    def report(label, macs, rows, launch, this_only=False):
+        """Times each library's launches in turns (``this_only``: this
+        checkout's library twice); launch(lib) fills and returns that
+        library's output."""
+        keys = ['this'] if this_only else list(libs)
+        times = {k: [] for k in keys}
+        for k in (['this', 'this'] if this_only else order):
             times[k].append(_time(lambda: launch(libs[k])))
         bound = 2.0 * macs * rows / PEAK_FLOPS * 1e3
         mean = {k: sum(v) / len(v) for k, v in times.items()}
-        got = {k: launch(libs[k]).clone() for k in libs}
+        got = {k: launch(libs[k]).clone() for k in keys}
         torch.cuda.synchronize()
         parts = [f'{k} ' + ', '.join(f'{t:.3f}' for t in v) + ' ms'
                  f' ({100 * bound / mean[k]:.1f} % of {bound:.4f})'
                  for k, v in times.items()]
-        if 'parent' in libs:
+        if 'parent' in keys:
             diff = (got['parent'] - got['this']).abs().max().item()
             parts.append(f'parent / this {mean["parent"] / mean["this"]:.2f}x'
                          f', max|d| {diff:.3e}')
@@ -192,7 +196,7 @@ def main() -> int:
             _tangents(args.kernel, inputs, report, stream)
         return 0
     probes = {c: load_probe_weights(flagship_model('cuda', config=c))
-              for c in ('flagship', 'static', 'se3', 'quaternion')}
+              for c in ('flagship', 'static', 'se3', 'quaternion', 'plane')}
     with torch.no_grad():
         probe = probes['flagship']
         for name, field in (('warp field', probe.warp_field),
@@ -289,6 +293,41 @@ def main() -> int:
                         'hn_fused_level_fwd')
                     return out
                 report(f'{warp} level forward R=8192 S={s}', macs, p, launch)
+
+        # The plane configuration: its level forward and its template alone
+        # (raw rows of 16 columns), this checkout's library alone.
+        for s in (128, 64):
+            lv = probes['plane'].level('fine' if s == 128 else 'coarse')
+            w, b, _ = fl.pack_level(lv)
+            z, o, d, emb, cond = inputs(8192, s, seed=s)
+            rgbc = cond.to(torch.bfloat16).contiguous()
+            p = 8192 * s
+            out = torch.empty((p, 4), device='cuda')
+            raw_t = torch.empty((p, common.PLANE_RAW_PAD), device='cuda')
+            macs = sum(lin.weight.numel() for lin, _ in fl.level_layers(lv))
+
+            def launch(lib):
+                build.check(lib.hn_fused_level_fwd(
+                    common.TABLE_CODES['plane'], z.data_ptr(), o.data_ptr(),
+                    d.data_ptr(), emb.data_ptr(), rgbc.data_ptr(), None,
+                    None, w.data_ptr(), b.data_ptr(), out.data_ptr(),
+                    raw_t.data_ptr(), 8192, s, stream), 'hn_fused_level_fwd')
+                return out
+            report(f'plane level forward R=8192 S={s}', macs, p, launch,
+                   this_only=True)
+            _, per, layers, ((tw, tb, _),) = fm._launch_args(lv, raw_t, cond,
+                                                            False)
+            macs = sum(lin.weight.numel() for lin, _ in
+                       fm.template_layers(lv.template))
+
+            def launch(lib):
+                build.check(lib.hn_fused_template_fwd_plane(
+                    raw_t.data_ptr(), rgbc.data_ptr(), None, tw.data_ptr(),
+                    tb.data_ptr(), out.data_ptr(), p, per, stream),
+                    'hn_fused_template_fwd_plane')
+                return out
+            report(f'plane template R=8192 S={s}', macs, p, launch,
+                   this_only=True)
     return 0
 
 

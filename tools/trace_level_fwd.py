@@ -13,10 +13,14 @@ and the sheet's four, of which warpgroups 0 and 1 are shown. With
 forward (``csrc/tangents_fwd.cu``: the warp field or the trunk with its
 point-tangent streams, 16 points x 4 streams a tile) on the rows' points
 (``--samples 16`` for the train step's 262,144 points); its layer 0's row
-work holds the tile's x_raw rows and the shared-sincos encoding.
+work holds the tile's x_raw rows and the shared-sincos encoding. With
+``--kernel plane`` the plane configuration's level forward
+(``csrc/level_fwd_plane.cu``: no sheet, tiles of 448 columns, a ring of 5
+stages) at its probe weights.
 
   python tools/trace_level_fwd.py [--rays 8192] [--samples 128]
-      [--kernel level|template|warp|sheet|se3|warp_tangents|se3_tangents]
+      [--kernel level|plane|template|warp|sheet|se3|warp_tangents|
+                se3_tangents]
 
 Prints, per layer and summed over a pair of tiles (mean of pairs 1 to 3, in
 SM cycles, each warpgroup): the wait for the layer's first weight stage, the
@@ -45,7 +49,8 @@ def _trace_library(kernel: str):
     """The translation level kernel (or the per-module kernels) built with
     the trace hooks (cached by the sources' hash under build/kernels/)."""
     from hypernerf_tpu_torch.kernels import build
-    stem = {'level': 'level_fwd_trans', 'warp_tangents': 'tangents_fwd',
+    stem = {'level': 'level_fwd_trans', 'plane': 'level_fwd_plane',
+            'warp_tangents': 'tangents_fwd',
             'se3_tangents': 'tangents_fwd'}.get(kernel, 'modular_fwd')
     flags = [*build.NVCC_FLAGS, '-DHN_LEVEL_FWD_TRACE']
     h = hashlib.sha256(' '.join(flags).encode())
@@ -63,9 +68,11 @@ def _trace_library(kernel: str):
                        check=True)
     lib = ctypes.CDLL(str(so))
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    if kernel == 'level':
-        lib.hn_level_fwd_trans.argtypes = [p] * 11 + [ll, i, p]
-        lib.trace = lib.hn_level_fwd_trace
+    if kernel in ('level', 'plane'):
+        entry = getattr(lib, f'hn_{stem}')
+        entry.argtypes = [p] * 11 + [ll, i, p]
+        lib.trace = (lib.hn_level_fwd_trace if kernel == 'level'
+                     else lib.hn_level_fwd_plane_trace)
     elif stem == 'tangents_fwd':
         lib.hn_fused_jacobian_fwd.argtypes = [p] * 4 + [ll, p]
         lib.hn_fused_se3_jacobian_fwd.argtypes = [p] * 5 + [ll, p]
@@ -92,11 +99,13 @@ def _launch(lib, kernel, level, args, stream):
     fs = importlib.import_module('hypernerf_tpu_torch.kernels.fused_se3')
     z, o, d, emb, cond = args
     n, samples = z.numel(), z.shape[1]
-    if kernel == 'level':
+    if kernel in ('level', 'plane'):
         w, b, _ = fl.pack_level(level)
         out = torch.empty((n, 4), device='cuda')
         rgbc = cond.to(torch.bfloat16).contiguous()
-        return lib.hn_level_fwd_trans(
+        entry = (lib.hn_level_fwd_trans if kernel == 'level'
+                 else lib.hn_level_fwd_plane)
+        return entry(
             z.data_ptr(), o.data_ptr(), d.data_ptr(), emb.data_ptr(),
             rgbc.data_ptr(), None, None, w.data_ptr(), b.data_ptr(),
             out.data_ptr(), None, n, samples, stream)
@@ -148,7 +157,8 @@ def main() -> int:
     parser.add_argument('--rays', type=int, default=8192)
     parser.add_argument('--samples', type=int, default=128)
     parser.add_argument('--kernel', default='level',
-                        choices=('level', 'template', 'warp', 'sheet',
+                        choices=('level', 'plane', 'template', 'warp',
+                                 'sheet',
                                  'se3', 'warp_tangents', 'se3_tangents'))
     args = parser.parse_args()
 
@@ -166,7 +176,8 @@ def main() -> int:
                           '--format=csv,noheader'], capture_output=True,
                          text=True, check=True).stdout.strip())
     lib = _trace_library(args.kernel)
-    config = 'se3' if args.kernel.startswith('se3') else 'flagship'
+    config = ('se3' if args.kernel.startswith('se3') else
+              'plane' if args.kernel == 'plane' else 'flagship')
     level = load_probe_weights(flagship_model(
         'cuda', config=config)).level('fine')
     shapes = fl.pack_level(level)[2]
