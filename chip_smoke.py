@@ -176,7 +176,22 @@ Phases, one line each; any failure ends the run with a non-zero exit:
      1024-ray step against the plain versions), and with two GLO tables
      (``share_glo=False``: the warp field and the template alone at the
      plane layout, forward and backward, module by module);
- 23. the kernels' JSON line, then the result line.
+ 23. the ``occupancy`` configuration (``bench.py --mode occupancy`` /
+     ``render_occupancy``: the flagship at 32 + 32 samples with the G = 64
+     occupancy grid): the level forward at R = 8192, S = 32 and 64 and the
+     compositing forward at S = 32 with N = 0 (render and, with noise,
+     training) against their plain versions; kernels A, B and C at the train
+     step's R = 16384, S = 32 and 64 against theirs (the S = 32 shapes
+     timed); one grid refresh (4 ids x 262,144 jittered cell points through
+     ``query_sigma``) against the same refresh through the plain versions,
+     timed; three 504x378 frames through ``flagship.bench_grid`` (2 launches
+     of each forward kernel per chunk) and the flagship's in the same call,
+     1024 rays against the plain versions; the train step at batch 16384
+     with a refresh inside the timed window as ``bench.py`` runs it (every
+     16 steps from the first), its time without the refresh and amortised
+     over 16 steps, a 1024-ray step through the grid against the plain
+     versions;
+ 24. the kernels' JSON line, then the result line.
 Times come from CUDA events (kernels) or the host clock around work that
 ends in a synchronize (frames, steps). A kernel's bound is the larger of
 its matrix-product operations over the card's dense bf16 peak and its bytes
@@ -1016,14 +1031,17 @@ def plain_versions():
 
 
 def compare_step(model, all_rays, all_rgbs, tag='[7]',
-                 elastic_weight: float = 0.0, extra_params=None):
+                 elastic_weight: float = 0.0, extra_params=None,
+                 occupancy_grid=None):
     """One step's loss and gradients on a small explicit batch from the same
     state and draws: the kernels, then the plain versions. Run on the seeded
     initial state, so the reading is the same from run to run (after train
     steps the state differs in its last bits, and the reading with it).
     With ``elastic_weight`` the loss adds the elastic term (the warp
     Jacobian, subsampled by the same draws); its value is printed and must
-    be non-zero. ``extra_params``: the annealing alphas of the step.
+    be non-zero. ``extra_params``: the annealing alphas of the step;
+    ``occupancy_grid``: the grid of a grid-trained model (the coarse draw's
+    sorted uniforms then replace the jitter).
     Returns the launches of the kernels' step."""
     import torch
     from hypernerf_tpu_torch.ops.ray_dict import prepare_ray_dict
@@ -1039,6 +1057,8 @@ def compare_step(model, all_rays, all_rgbs, tag='[7]',
              'noise_coarse': torch.randn(n, s, generator=gen, device='cuda'),
              'noise_fine': torch.randn(n, s + nf, generator=gen,
                                        device='cuda')}
+    if occupancy_grid is not None:
+        draws['coarse_u'] = sorted_uniform(n, s, gen, device='cuda')
     k = cfg.elastic_jacobian_samples
     if elastic_weight and k:
         draws.update({f'jacobian_u_{level}': torch.rand(
@@ -1051,7 +1071,7 @@ def compare_step(model, all_rays, all_rgbs, tag='[7]',
         out = model(prepare_ray_dict(all_rays[:n]), deterministic=False,
                     return_weights=bool(elastic_weight), draws=draws,
                     return_warp_jacobian=bool(elastic_weight),
-                    extra_params=extra_params)
+                    extra_params=extra_params, occupancy_grid=occupancy_grid)
         loss = mse_loss(out, all_rgbs[:n])
         if elastic_weight:
             terms.append(weighted_elastic_loss(out))
@@ -1159,10 +1179,15 @@ PATHS = {'se3_split_glo': ('se3', dict(share_glo=False)),
          'quaternion_split_glo': ('quaternion', dict(share_glo=False))}
 
 
-def train_path(config: str, tag: str) -> dict:
+def train_path(config: str, tag: str, times=None) -> dict:
     """The train step of ``config`` (a configuration, or a name of ``PATHS``)
-    at full width (batch 16384, 64 + 64, bf16, sigma noise, Adam with steplr)
-    through ``make_train_step``; returns its launches over the timed steps."""
+    at full width (batch 16384, bf16, sigma noise, Adam with steplr) through
+    ``make_train_step``; returns its launches over the timed steps. A
+    configuration with the occupancy grid refreshes it before the first
+    step (the one compared with the plain versions) and, inside the timed
+    window, every ``occupancy_update_every`` steps from its first, as
+    ``bench.py`` does; ``times``, a dict, receives the window's seconds a
+    step and its number of refreshes."""
     import torch
     from hypernerf_tpu_torch.flagship import flagship_train_setup
     from hypernerf_tpu_torch.ops.ray_dict import prepare_ray_dict
@@ -1171,7 +1196,10 @@ def train_path(config: str, tag: str) -> dict:
                                                           compute_extra_params,
                                                           step_generator)
     from hypernerf_tpu_torch.configs import TrainConfig
-    from hypernerf_tpu_torch.flagship import TRAIN_CONFIGS
+    from hypernerf_tpu_torch.flagship import (TRAIN_CONFIGS,
+                                              flagship_train_config)
+    from hypernerf_tpu_torch.training.train_state import \
+        make_occupancy_update
     base, overrides = PATHS.get(config, (config, {}))
     state, step_fn, all_rays, all_rgbs = flagship_train_setup(
         'cuda', seed=0, batch_size=TRAIN_RAYS, config=base, **overrides)
@@ -1182,27 +1210,46 @@ def train_path(config: str, tag: str) -> dict:
     # The alphas of the first step (the ramps of TrainConfig's defaults,
     # which flagship_train_setup keeps).
     extra = compute_extra_params(cfg, TrainConfig(), state.step)
+    train_cfg = flagship_train_config(base)
+    update = grid = None
+    if state.occupancy is not None:
+        # As bench.py: the grid is refreshed before the first step. The
+        # comparison step and the fixed batch take the grid that step takes.
+        update = make_occupancy_update(model, cfg, train_cfg)
+        grid = update(state).clone()
 
     def fixed_loss():  # a deterministic render of a fixed batch
         with torch.no_grad():
             out = model(prepare_ray_dict(all_rays[fixed]),
-                        return_weights=False, extra_params=extra)
+                        return_weights=False, extra_params=extra,
+                        occupancy_grid=grid)
             return mse_loss(out, all_rgbs[fixed]).item()
 
     before = fixed_loss()
-    compare_step(model, all_rays, all_rgbs, tag, elastic, extra)
+    compare_step(model, all_rays, all_rgbs, tag, elastic, extra, grid)
     for _ in range(WARMUP_STEPS):
         step_fn(state, all_rays, all_rgbs)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
+    refreshes = 0
     t0 = time.perf_counter()
-    metrics = [step_fn(state, all_rays, all_rgbs) for _ in range(TRAIN_STEPS)]
+    metrics = []
+    for i in range(TRAIN_STEPS):
+        if update is not None and i % train_cfg.occupancy_update_every == 0:
+            update(state)
+            refreshes += 1
+        metrics.append(step_fn(state, all_rays, all_rgbs))
     torch.cuda.synchronize()
     secs = (time.perf_counter() - t0) / TRAIN_STEPS
-    launches = read_counts({k: v * TRAIN_STEPS
-                            for k, v in STEP_LAUNCHES[config].items()},
-                           f'{config} train steps')
+    n_ids = min(train_cfg.occupancy_probe_ids, cfg.num_embeddings)
+    want = {k: v * TRAIN_STEPS for k, v in STEP_LAUNCHES[config].items()}
+    for k, v in REFRESH_LAUNCHES.items():
+        if refreshes:
+            want[k] = want.get(k, 0) + v * n_ids * refreshes
+    launches = read_counts(want, f'{config} train steps')
+    if times is not None:
+        times.update(secs=secs, refreshes=refreshes)
     losses = [m['loss'].item() for m in metrics]
     psnrs = [m['psnr'].item() for m in metrics]
     after = fixed_loss()
@@ -1228,13 +1275,22 @@ def train_path(config: str, tag: str) -> dict:
                                  f'match the batch\'s image ids')
     alphas = (f', from step {state.step - TRAIN_STEPS - WARMUP_STEPS} '
               f'(alphas {extra})' if extra else '')
-    phase(f'{tag} {config} train step (batch {TRAIN_RAYS}, 64+64, full '
+    if refreshes:
+        alphas += (f', the grid refreshed {refreshes} time(s) in the window '
+                   f'({n_ids} ids a refresh)')
+    phase(f'{tag} {config} train step (batch {TRAIN_RAYS}, '
+          f'{cfg.num_coarse_samples}+{cfg.num_fine_samples}, full '
           f'widths, bf16, noise_std {cfg.noise_std}, Adam lr '
           f'{state.optimizer.param_groups[0]["lr"]}{alphas}): '
           f'{secs * 1e3:.1f} '
           f'ms/step, {TRAIN_RAYS / secs:.0f} rays/s over {TRAIN_STEPS} steps '
           f'after {WARMUP_STEPS}; launches per step '
-          + ', '.join(f'{k} {v // TRAIN_STEPS}' for k, v in launches.items())
+          + ', '.join(f'{k} {launches[k] // TRAIN_STEPS}'
+                      for k in STEP_LAUNCHES[config])
+          + (f' and in the window\'s refreshes '
+             + ', '.join(f'{k} {v * n_ids * refreshes}'
+                         for k, v in REFRESH_LAUNCHES.items())
+             if refreshes else '')
           + f'; no plain call; loss {losses[0]:.5f} -> '
           f'{losses[-1]:.5f}, psnr {psnrs[-1]:.2f}; fixed-batch loss '
           f'{before:.5f} -> {after:.5f}; {len(list(model.parameters()))} '
@@ -2848,6 +2904,7 @@ def main() -> int:
     anneal_paths_phase(kernels)
     kernels += plane_kernel_phase(kernels)
     plane_paths_phase(kernels)
+    occupancy_paths_phase(kernels)
     if len(kernels) != 18:
         raise AssertionError(f'{len(kernels)} kernels in the line, want 18')
     return finish(kernels)
@@ -3456,8 +3513,297 @@ def plane_paths_phase(kernels) -> None:
                             for path in counts if path != 'query')
 
 
+# -- the occupancy configuration (grid-guided coarse sampling, 32 + 32) -------
+
+# A grid refresh's launches for each probed id: ``query_sigma``'s warp field
+# and sheet alone and its template alone.
+REFRESH_LAUNCHES = {'fused_field_fwd': 2, 'fused_template_fwd': 1}
+STEP_LAUNCHES['occupancy'] = STEP_LAUNCHES['flagship']
+REFRESH_CALLS = 3  # timed refreshes, after one
+
+
+def occupancy_kernel_phase(kernels) -> None:
+    """Phase 23's kernel checks at the ``occupancy`` configuration's shapes
+    (32 coarse samples a ray, 64 on the fine level), at the probe weights:
+    the level forward (row 1) at R = 8192, S = 32 and 64 (and 37 x 32) and
+    the compositing forward (row 2) at S = 32 with N = 0 (a ray's samples
+    fill one warp's lanes), as the render and, with sigma noise, training
+    launch them; kernels A, B and C at the train step's R = 16384, S = 32
+    and 64 (and 37 x 32); each against its plain version, the S = 32 shapes
+    timed. Adds those times and errors to the entries of ``kernels``."""
+    import torch
+    from hypernerf_tpu_torch.flagship import flagship_model, load_probe_weights
+    from hypernerf_tpu_torch.kernels import (fused_composite_bwd,
+                                             fused_composite_bwd_plain,
+                                             fused_composite_plain,
+                                             fused_fields_bwd, fused_level,
+                                             fused_level_plain,
+                                             fused_template_bwd)
+    from hypernerf_tpu_torch.kernels.fused_level import _launch_forward
+    probe = load_probe_weights(flagship_model('cuda', config='occupancy'))
+    level = {32: probe.level('coarse'), 64: probe.level('fine')}
+    entry = {k['name']: k for k in kernels}
+    errs = {'fwd': [], 'comp': [], 'A': [], 'B': [], 'C': []}
+    with torch.no_grad():
+        for r, s in ((37, 32), (CHUNK, 32), (CHUNK, 64)):
+            args = level_inputs(r, s, seed=s + 7)
+            errs['fwd'].append(hold_level(
+                fused_level(level[s], *args), fused_level_plain(level[s],
+                                                                *args),
+                f'occupancy level vs plain R={r} S={s}', '[23]'))
+        args = level_inputs(CHUNK, 32, seed=39)
+        ms = cuda_ms(lambda: fused_level(level[32], *args))
+        plain_ms = cuda_ms(lambda: fused_level_plain(level[32], *args), 3)
+        b_ms = level_bound(level[32], CHUNK, 32)[0]
+        phase(f'[23] level R={CHUNK} S=32: kernel {ms:.3f} ms ({b_ms / ms:.1%}'
+              f' of its bound {b_ms:.3f} ms), plain {plain_ms:.3f} ms')
+        entry['fused_level_fwd'].update(ms_s32=ms, plain_ms_s32=plain_ms,
+                                        bound_ms_s32=b_ms)
+        for r, noise in ((37, False), (CHUNK, False), (TRAIN_RAYS, True)):
+            packed, z, dirs, _ = composite_inputs(r, 32, 0, seed=r + 32,
+                                                  linspace_u=True)
+            n = (torch.randn(r, 32, generator=torch.Generator().manual_seed(
+                r)).cuda() if noise else None)
+            errs['comp'].append(check_composite(
+                packed, z, dirs, None, f'R={r} S=32 N=0' + (' with noise'
+                                                            if noise else ''),
+                noise=n, tag='[23]'))
+        packed, z, dirs, _ = composite_inputs(CHUNK, 32, 0, seed=3,
+                                              linspace_u=True)
+        c_ms = composite_kernel_ms(packed, z, dirs, None)
+        c_plain = cuda_ms(lambda: fused_composite_plain(packed, z, dirs))
+        c_bound = bound(0.0, CHUNK * (32 * (16 + 4) + 12 + 24 + 4 * 32))[0]
+        phase(f'[23] composite R={CHUNK} S=32 N=0: kernel {c_ms:.4f} ms '
+              f'({c_bound / c_ms:.1%} of its bound {c_bound:.4f} ms), plain '
+              f'{c_plain:.3f} ms')
+        entry['fused_composite_fwd'].update(ms_s32_n0=c_ms,
+                                            plain_ms_s32_n0=c_plain,
+                                            bound_ms_s32_n0=c_bound)
+
+        # Kernels A and B on the forward's raw_t (A) and the plain A's dx_t
+        # (B), kernel C with noise, as the occupancy step runs them.
+        gen = torch.Generator().manual_seed(23)
+        for r, s in ((37, 32), (TRAIN_RAYS, 32), (TRAIN_RAYS, 64)):
+            lv = level[s]
+            args = level_inputs(r, s, seed=s + 11)
+            g = torch.randn(r * s, 4, generator=gen).cuda()
+            out, raw_t = _launch_forward(lv, *args, want_raw_t=True)
+            want_a = plain_template_bwd(lv, raw_t, args[4], g)
+            got_dx_t, d_cond, t_grads = fused_template_bwd(lv, raw_t, args[4],
+                                                           g)
+            dx_t = want_a[0]
+            got_b = fused_fields_bwd(lv, *args[:4], dx_t)
+            got_b = [*got_b[:4], *got_b[4]]
+            errs['A'].append(check_grads(
+                f'occupancy template backward (A) vs plain R={r} S={s}',
+                TEMPLATE_GRAD_NAMES, [got_dx_t, d_cond, *t_grads], want_a,
+                tag='[23]'))
+            errs['B'].append(check_grads(
+                f'occupancy fields backward (B) vs plain R={r} S={s}',
+                FIELDS_GRAD_NAMES, got_b, plain_fields_bwd(lv, args, dx_t),
+                tag='[23]'))
+            packed, z, dirs, _ = composite_inputs(r, s, 0, seed=r + s,
+                                                  linspace_u=True)
+            noise = torch.randn(r, s, generator=gen).cuda()
+            d_outs = torch.randn(r, 6, generator=gen).cuda()
+            d_w = (torch.randn(r, s, generator=gen) * 0.1).cuda()
+            dnorm = torch.linalg.norm(dirs, dim=-1, keepdim=True)
+            got = list(fused_composite_bwd(packed, z, dirs, noise, d_outs,
+                                           d_w))
+            want = list(fused_composite_bwd_plain(packed, z, dnorm, noise,
+                                                  d_outs, d_w))
+            cum = torch.cumsum(fused_composite_plain(
+                packed, z, dirs, None, noise=noise)['weights'], dim=-1)
+            edge = ((cum - 0.5).abs() < 1e-5).any(-1)
+            got[1] = got[1].masked_fill(edge[:, None], 0.0)
+            want[1] = want[1].masked_fill(edge[:, None], 0.0)
+            errs['C'].append(check_grads(
+                f'occupancy compositing backward (C) vs plain R={r} S={s} '
+                f'({int(edge.sum())} rays on the median\'s edge)',
+                ['d_packed', 'd_z', 'd_dnorm', 'd_noise'], got, want,
+                COMPOSITE_GRAD_TOL, COMPOSITE_GRAD_TOL, tag='[23]'))
+            if (r, s) != (TRAIN_RAYS, 32):
+                del out, raw_t, want_a, dx_t
+                continue
+            t = dict(
+                A=cuda_ms(lambda: fused_template_bwd(lv, raw_t, args[4], g),
+                          3),
+                B=cuda_ms(lambda: fused_fields_bwd(lv, *args[:4], dx_t), 3),
+                C=composite_bwd_kernel_ms(packed, z, dirs, noise, d_outs,
+                                          d_w),
+                plain_A=cuda_ms(lambda: plain_template_bwd(lv, raw_t,
+                                                           args[4], g), 1),
+                plain_B=cuda_ms(lambda: plain_fields_bwd(lv, args, dx_t), 1),
+                plain_C=cuda_ms(lambda: fused_composite_bwd_plain(
+                    packed, z, dnorm, noise, d_outs, d_w)))
+            bounds = dict(A=template_bwd_bound(lv, r, s)[0],
+                          B=fields_bwd_bound(lv, r, s)[0],
+                          C=composite_bwd_bound(r, s)[0])
+            phase(f'[23] level backward R={r} S=32: ' + ', '.join(
+                f'kernel {k} {t[k]:.3f} ms ({bounds[k] / t[k]:.1%} of its '
+                f'bound {bounds[k]:.4f} ms; plain {t["plain_" + k]:.2f} ms)'
+                for k in 'ABC'))
+            for k, name in (('A', 'fused_template_bwd'),
+                            ('B', 'fused_fields_bwd'),
+                            ('C', 'fused_composite_bwd')):
+                entry[name].update({'ms_s32': t[k],
+                                    'plain_ms_s32': t['plain_' + k],
+                                    'bound_ms_s32': bounds[k]})
+            del out, raw_t, want_a, dx_t
+            torch.cuda.empty_cache()
+    for name, key in (('fused_level_fwd', 'fwd'),
+                      ('fused_composite_fwd', 'comp')):
+        entry[name]['max_abs_err'] = max(entry[name]['max_abs_err'],
+                                         *errs[key])
+    for name, key, tols in (
+            ('fused_template_bwd', 'A', ()), ('fused_fields_bwd', 'B', ()),
+            ('fused_composite_bwd', 'C', (COMPOSITE_GRAD_TOL,
+                                          COMPOSITE_GRAD_TOL))):
+        new = error_keys(errs[key], *tols)
+        for k in ('max_abs_err', 'rel_l2_err', 'max_err_over_largest_entry'):
+            entry[name][k] = max(entry[name][k], new[k])
+
+
+def occupancy_refresh() -> dict:
+    """Phase 23's grid refresh (``make_occupancy_update`` of the
+    ``occupancy`` configuration: 4 ids x 262,144 jittered cell points
+    through ``query_sigma``) from ``bench_grid``: against the same refresh
+    through the plain versions on the same draws, and timed (the mean of
+    REFRESH_CALLS after one); returns {'ms', 'launches'}."""
+    import torch
+    from hypernerf_tpu_torch.flagship import (bench_grid,
+                                              flagship_train_config,
+                                              flagship_train_setup)
+    from hypernerf_tpu_torch.training.train_state import \
+        make_occupancy_update
+    state = flagship_train_setup('cuda', config='occupancy')[0]
+    cfg, train_cfg = state.model.config, flagship_train_config('occupancy')
+    update = make_occupancy_update(state.model, cfg, train_cfg)
+    g = cfg.occupancy_resolution
+    gen = torch.Generator(device='cuda').manual_seed(17)
+    u = torch.rand((g ** 3, 3), generator=gen, device='cuda')
+    ids = torch.randint(0, cfg.num_embeddings, (train_cfg.occupancy_probe_ids,),
+                        generator=gen, device='cuda')
+    reset_counts()
+    got = update(state, u, ids).clone()
+    n_ids = ids.shape[0]
+    launches = read_counts({k: v * n_ids for k, v in
+                            REFRESH_LAUNCHES.items()}, 'occupancy refresh')
+    state.occupancy = bench_grid(cfg, 'cuda')
+    with plain_versions():
+        want = update(state, u, ids).clone()
+    diff = (got - want).abs()
+    bad = diff > LEVEL_ATOL + LEVEL_RTOL * want.abs()
+    if got.shape != (g, g, g) or not torch.isfinite(got).all() \
+            or bad.any() or diff.mean() > LEVEL_MEAN:
+        raise AssertionError(f'occupancy refresh: kernels vs plain max|d| '
+                             f'{diff.max().item():.3e} mean '
+                             f'{diff.mean().item():.3e}, {int(bad.sum())} '
+                             f'cells outside')
+    fresh = (got > bench_grid(cfg, 'cuda') * train_cfg.occupancy_decay)
+    update(state)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(REFRESH_CALLS):
+        update(state)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) / REFRESH_CALLS * 1e3
+    phase(f'[23] occupancy grid refresh (G={g}, {n_ids} ids x {g ** 3} cell '
+          f'points through query_sigma): kernels vs plain versions on the '
+          f'same draws max|d| {diff.max().item():.3e} mean '
+          f'{diff.mean().item():.3e} (tol {LEVEL_ATOL}+{LEVEL_RTOL}|want|, '
+          f'mean {LEVEL_MEAN}); {int(fresh.sum())} of {g ** 3} cells took '
+          f'the new density; {ms:.2f} ms a refresh (mean of {REFRESH_CALLS} '
+          f'after one); launches a refresh {launches}')
+    del state
+    torch.cuda.empty_cache()
+    return {'ms': ms, 'launches': launches}
+
+
+def occupancy_paths_phase(kernels) -> None:
+    """Phase 23: ``occupancy`` (``bench.py --mode occupancy`` /
+    ``render_occupancy``: the flagship at 32 + 32 with the grid) at full
+    width. Its kernels at the configuration's shapes, the refresh against
+    its plain version, three 504x378 frames through ``bench_grid`` (and the
+    flagship's in the same call), 1024 rays against the plain versions, and
+    the train step at batch 16384 with the refresh inside the timed window;
+    the step's ms without the refresh and amortised over 16 steps as
+    ``bench.py`` times it. Adds the occupancy paths' launches to the
+    kernels' entries (each path's counts set to 0 just before it and read
+    just after)."""
+    import torch
+    from hypernerf_tpu_torch.flagship import (H, W, bench_grid,
+                                              flagship_model,
+                                              flagship_train_config,
+                                              spiral_rays)
+    from hypernerf_tpu_torch.ops.ray_dict import prepare_ray_dict
+    from hypernerf_tpu_torch.training.renderer import ImageRenderer
+    occupancy_kernel_phase(kernels)
+    refresh = occupancy_refresh()
+    chunks_per_frame = -(-W * H // CHUNK)
+    frames = spiral_rays(range(0, 30 * (N_FRAMES + 1), 30))
+    model = flagship_model('cuda', seed=0, config='occupancy')
+    grid = bench_grid(model.config, 'cuda')
+    keep = ('rgb', 'depth', 'acc')
+    frame_want = {'fused_level_fwd': 2 * chunks_per_frame,
+                  'fused_composite_fwd': 2 * chunks_per_frame}
+    secs, frame_launches = time_frames(
+        ImageRenderer(model, chunk=CHUNK, keep=keep, levels=('fine',),
+                      quantize=True, occupancy_grid=grid), frames, keep,
+        frame_want, 'occupancy frame')
+    flag_secs = time_frames(
+        ImageRenderer(flagship_model('cuda', seed=0), chunk=CHUNK, keep=keep,
+                      levels=('fine',), quantize=True), frames, keep,
+        frame_want, 'flagship frame')[0]
+    phase(f'[23] occupancy: rendered {N_FRAMES} frames {W}x{H} (32+32 '
+          f'through the G={grid.shape[0]} grid, chunk {CHUNK}): '
+          f'{secs:.4f} s/frame; launches {frame_launches} (= 2 levels x '
+          f'{chunks_per_frame} chunks x {N_FRAMES} frames; the coarse '
+          f'compositing draws no fine depths); no plain call; the '
+          f'flagship\'s frames (64+64) in the same call {flag_secs:.4f} '
+          f's/frame')
+    small = torch.as_tensor(frames[0][::186][:1024]).cuda()
+    with torch.no_grad():
+        got = model(prepare_ray_dict(small), occupancy_grid=grid)
+        without = model(prepare_ray_dict(small))['fine']['rgb']
+        with plain_versions():
+            want = model(prepare_ray_dict(small),
+                         occupancy_grid=grid)['fine']['rgb']
+    diff = (got['fine']['rgb'] - want).abs()
+    moved = (got['fine']['rgb'] - without).abs().max().item()
+    phase(f'[23] occupancy render of 1024 rays through the grid, kernels vs '
+          f'plain: fine rgb max|d| {diff.max().item():.3e} mean '
+          f'{diff.mean().item():.3e} (tol {RENDER_ATOL}, mean '
+          f'{RENDER_MEAN}); the grid moves the render by max {moved:.3e}')
+    if not torch.isfinite(got['fine']['rgb']).all() \
+            or diff.max() > RENDER_ATOL or diff.mean() > RENDER_MEAN \
+            or not moved > 0.0:
+        raise AssertionError('occupancy render: kernels and plain versions '
+                             'disagree, or the grid does not move it')
+    del model
+    torch.cuda.empty_cache()
+    times = {}
+    train = train_path('occupancy', '[23]', times)
+    every = flagship_train_config('occupancy').occupancy_update_every
+    step_ms = (times['secs'] * TRAIN_STEPS * 1e3
+               - refresh['ms'] * times['refreshes']) / TRAIN_STEPS
+    amortised = step_ms + refresh['ms'] / every
+    phase(f'[23] occupancy step: {times["secs"] * 1e3:.1f} ms a step over '
+          f'the window ({times["refreshes"]} refresh in {TRAIN_STEPS} '
+          f'steps); without the refresh {step_ms:.1f} ms; the refresh '
+          f'{refresh["ms"]:.2f} ms apart, amortised over {every} steps '
+          f'{amortised:.1f} ms a step, {TRAIN_RAYS / amortised * 1e3:.0f} '
+          f'rays/s (the flagship\'s step in phase 7 of this call)')
+    torch.cuda.empty_cache()
+    for k in kernels:
+        for path, launches in (('frame', frame_launches), ('train', train),
+                               ('refresh', refresh['launches'])):
+            if launches.get(k['name']):
+                k[f'occupancy_{path}_launches'] = launches[k['name']]
+
+
 def finish(kernels) -> int:
-    """Phase 23: the kernels' line and the result line."""
+    """Phase 24: the kernels' line and the result line."""
     import torch
     for k in kernels:
         missing = {'name', 'route', 'source', 'replaces', 'launches',

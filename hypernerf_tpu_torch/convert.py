@@ -5,7 +5,9 @@ dict key by renaming its leaf: a Dense ``kernel`` (in, out) becomes
 ``weight`` (out, in) transposed, an Embed ``embedding`` becomes ``weight``
 and a ``bias`` stays. For example ``nerf_coarse/trunk/hidden_0/kernel`` ->
 ``nerf_coarse.trunk.hidden_0.weight`` and ``warp_embed/embed/embedding`` ->
-``warp_embed.embed.weight``. Uses numpy and torch only.
+``warp_embed.embed.weight``. Adam's moments are trees of the parameters'
+shapes and map the same way (``adam_state_from_jax``). Uses numpy and torch
+only.
 """
 
 from __future__ import annotations
@@ -58,3 +60,38 @@ def params_from_jax(params) -> Dict[str, torch.Tensor]:
         key = '.'.join(path[:-1] + (_LEAF[path[-1]],))
         state[key] = torch.from_numpy(np.array(arr, copy=True))
     return state
+
+
+def _adam_node(tree):
+    """The first dict of a restored optax state (nested dicts and lists)
+    with 'count', 'mu' and 'nu' (``ScaleByAdamState``), or None."""
+    if isinstance(tree, dict):
+        if {'count', 'mu', 'nu'} <= tree.keys():
+            return tree
+        children = tree.values()
+    elif isinstance(tree, (list, tuple)):
+        children = tree
+    else:
+        return None
+    for child in children:
+        found = _adam_node(child)
+        if found is not None:
+            return found
+    return None
+
+
+def adam_state_from_jax(opt_state) -> Dict[str, Dict[str, torch.Tensor]]:
+    """optax ``scale_by_adam`` state -> ``torch.optim.Adam``'s state of each
+    parameter, by state dict key: 'exp_avg' and 'exp_avg_sq' are ``mu`` and
+    ``nu`` renamed and transposed as ``params_from_jax`` does the
+    parameters, and 'step' is ``count`` (the updates taken). Raises where
+    the state holds no Adam moments."""
+    node = _adam_node(opt_state)
+    if node is None:
+        raise ValueError('the optimizer state holds no Adam moments '
+                         '(count, mu, nu)')
+    count = torch.tensor(float(np.asarray(node['count'])),
+                         dtype=torch.float32)
+    mu, nu = params_from_jax(node['mu']), params_from_jax(node['nu'])
+    return {k: {'step': count.clone(), 'exp_avg': mu[k],
+                'exp_avg_sq': nu[k]} for k in mu}

@@ -3,10 +3,12 @@ hypernerf_tpu_torch.eval`` (the port of the repository's ``eval.py``).
 
 Takes eval.py's flags (``hypernerf_tpu_torch.opt.get_opts(eval_mode=True)``),
 reads ``nerf_config.json`` (and ``train_config.json``, where there is one)
-beside the weight file (``--ckpt_path`` or ``--weight_path``, a file written
-by ``training.checkpoints.save_weights`` or ``tools/jax_ckpt_to_torch.py``),
-renders at the annealing alphas of ``eval_extra_params`` and writes
-results/{dataset}/{scene}/NNN.png,
+beside the weights (``--ckpt_path`` or ``--weight_path``: a full checkpoint
+``step_N`` of ``training.checkpoints.save_checkpoint``, or a weight file of
+``save_weights``, ``save_weights_only`` or ``tools/jax_ckpt_to_torch.py``),
+renders at the annealing alphas of ``eval_extra_params`` at the checkpoint's
+step and, where the config uses one, through the checkpoint's occupancy
+grid, and writes results/{dataset}/{scene}/NNN.png,
 optional depth dumps and {scene}.gif, printing the PSNR of each frame and
 their mean where ground truth exists. Renders on the CUDA card, and exits
 with an error when there is none; with ``HYPERNERF_PLATFORM=cpu`` in the
@@ -36,13 +38,14 @@ def render_device():
     return torch.device('cuda')
 
 
-def eval_extra_params(nerf_cfg, train_cfg) -> dict:
+def eval_extra_params(nerf_cfg, train_cfg, step=None) -> dict:
     """The annealing alphas to render at, as the JAX package's ``eval.py``
-    computes them at a checkpoint's step: a weight file carries no step, so
-    the model is taken as fully annealed, at the larger of
+    computes them: at a full checkpoint's ``step``; a weight file carries no
+    step (None), so the model is taken as fully annealed, at the larger of
     ``warp_alpha_steps`` and ``hyper_alpha_steps``."""
     from hypernerf_tpu_torch.training.train_state import compute_extra_params
-    step = max(train_cfg.warp_alpha_steps, train_cfg.hyper_alpha_steps)
+    if step is None:
+        step = max(train_cfg.warp_alpha_steps, train_cfg.hyper_alpha_steps)
     return compute_extra_params(nerf_cfg, train_cfg, step)
 
 
@@ -76,16 +79,20 @@ def main(argv=None):
 
     torch.manual_seed(args.seed)
     model = NerfModel(nerf_cfg)  # without weights eval.py renders the init
+    step = grid = None
     if weight_path:
         checkpoints.load_weights(model, weight_path)
+        step = checkpoints.checkpoint_step(weight_path)
+        if nerf_cfg.use_occupancy_grid:
+            grid = checkpoints.load_occupancy(weight_path)
     model.to(device).eval()
 
     typ = 'fine' if nerf_cfg.num_fine_samples > 0 else 'coarse'
     keep = ('rgb', 'depth') if args.save_depth else ('rgb',)
-    renderer = ImageRenderer(model, chunk=args.chunk, keep=keep,
-                             levels=(typ,), quantize=True,
-                             extra_params=eval_extra_params(nerf_cfg,
-                                                            train_cfg))
+    renderer = ImageRenderer(
+        model, chunk=args.chunk, keep=keep, levels=(typ,), quantize=True,
+        extra_params=eval_extra_params(nerf_cfg, train_cfg, step),
+        occupancy_grid=None if grid is None else grid.to(device))
 
     dir_name = f'results/{args.dataset_name}/{args.scene_name}'
     os.makedirs(dir_name, exist_ok=True)

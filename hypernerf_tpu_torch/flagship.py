@@ -1,7 +1,8 @@
 """The flagship setups: the configuration ``bench.py`` renders and trains
 (NerfConfig defaults with 64 + 64 samples, bf16 matmuls) and its ``static``,
-``split_glo``, ``se3``, ``quaternion``, ``elastic*``, ``anneal`` and ``plane``
-variants (``CONFIGS``), a seeded model of each, LLFF
+``split_glo``, ``se3``, ``quaternion``, ``elastic*``, ``anneal``, ``plane``
+and ``occupancy`` variants (``CONFIGS``), a seeded model of each, the
+occupancy grid ``bench.py`` starts from (``bench_grid``), LLFF
 spiral-path NDC rays of a 504x378 frame, the train step's model, optimizer
 and synthetic ray buffer (``flagship_train_setup``), and the probe weights
 and inputs at which the kernels are held against the JAX kernels' stored
@@ -60,7 +61,10 @@ GRAD_REFERENCE_CASE = ('coarse', 8, 64, 3)
 # ``compute_extra_params``, on the level kernels. ``plane`` is ``bench.py
 # --mode plane``: the flagship with ``axis_aligned_plane`` slicing (no sheet;
 # the hyper coordinates are the ray's 8 GLO coordinates, a 167-column
-# template encoding), on the level kernels.
+# template encoding), on the level kernels. ``occupancy`` is ``bench.py
+# --mode occupancy`` / ``render_occupancy``: the flagship at 32 + 32 samples
+# with the occupancy grid (G = 64, 64 probes a ray, floor 0.01, box +-2: the
+# config's defaults), on the level kernels.
 CONFIGS = {'flagship': {},
            'static': dict(use_warp=False, hyper_slice_method='none'),
            'split_glo': dict(share_glo=False),
@@ -72,7 +76,9 @@ CONFIGS = {'flagship': {},
            'elastic_quaternion': dict(warp_field_type='quaternion',
                                       elastic_jacobian_samples=16),
            'anneal': dict(use_original_embed=False),
-           'plane': dict(hyper_slice_method='axis_aligned_plane')}
+           'plane': dict(hyper_slice_method='axis_aligned_plane'),
+           'occupancy': dict(use_occupancy_grid=True, num_coarse_samples=32,
+                             num_fine_samples=32)}
 # TrainConfig overrides of a configuration (``bench.py``'s elastic weight).
 TRAIN_CONFIGS = {c: dict(elastic_loss_weight=0.01)
                  for c in ('elastic', 'elastic_se3', 'elastic_quaternion')}
@@ -121,6 +127,25 @@ def synthetic_background_points(n_points: int = 1 << 16):
     return (rs.randn(n_points, 3) * 0.3).astype(np.float32)
 
 
+def bench_grid(cfg: NerfConfig, device, seed: int = 0) -> torch.Tensor:
+    """The (G, G, G) grid ``bench.py`` renders through and first refreshes
+    (``bench.py:91-92``): uniform in [0, 1), here from a ``torch.Generator``
+    seeded with ``seed``."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    return torch.rand((cfg.occupancy_resolution,) * 3, generator=gen,
+                      device=device)
+
+
+def flagship_train_config(config: str = 'flagship',
+                          batch_size: int = TRAIN_BATCH,
+                          train_overrides=None) -> TrainConfig:
+    """The TrainConfig of ``config``'s train step: batch ``batch_size``,
+    Adam at 5e-4, ``TRAIN_CONFIGS``, then ``train_overrides``."""
+    return TrainConfig(**{**dict(batch_size=batch_size, lr=5e-4),
+                          **TRAIN_CONFIGS.get(config, {}),
+                          **(train_overrides or {})})
+
+
 def flagship_train_setup(device, seed: int = 0, batch_size: int = TRAIN_BATCH,
                          n_rays: int = TRAIN_RAYS, config: str = 'flagship',
                          train_overrides=None, **overrides):
@@ -129,16 +154,15 @@ def flagship_train_setup(device, seed: int = 0, batch_size: int = TRAIN_BATCH,
     ``TRAIN_CONFIGS``) on ``device``: (state, step_fn, all_rays, all_rgbs) —
     a seeded model in train mode, Adam at 5e-4 with the ``steplr`` schedule
     at 1000 steps per epoch, the step built by ``make_train_step``, the
-    state at step ``START_STEPS`` (0 but for ``anneal``), and the synthetic
-    ray buffer. A positive ``background_loss_weight`` gives the step
-    ``synthetic_background_points`` on the device."""
+    state at step ``START_STEPS`` (0 but for ``anneal``) with, where the
+    configuration uses one, ``bench_grid`` as its occupancy grid, and the
+    synthetic ray buffer. A positive ``background_loss_weight`` gives the
+    step ``synthetic_background_points`` on the device."""
     from hypernerf_tpu_torch.training.optimizers import get_optimizer
     from hypernerf_tpu_torch.training.train_state import (TrainState,
                                                           make_train_step)
     cfg = flagship_config(config, **overrides)
-    train_cfg = TrainConfig(**{**dict(batch_size=batch_size, lr=5e-4),
-                               **TRAIN_CONFIGS.get(config, {}),
-                               **(train_overrides or {})})
+    train_cfg = flagship_train_config(config, batch_size, train_overrides)
     torch.manual_seed(seed)
     model = NerfModel(cfg).to(device).train()
     optimizer, schedule = get_optimizer(train_cfg, model.parameters(),
@@ -150,8 +174,9 @@ def flagship_train_setup(device, seed: int = 0, batch_size: int = TRAIN_BATCH,
     step_fn = make_train_step(model, optimizer, cfg, train_cfg, device,
                               schedule=schedule, background_points=background)
     rays, rgbs = synthetic_train_rays(n_rays)
+    grid = bench_grid(cfg, device, seed) if cfg.use_occupancy_grid else None
     state = TrainState(step=START_STEPS.get(config, 0), model=model,
-                       optimizer=optimizer, seed=seed)
+                       optimizer=optimizer, seed=seed, occupancy=grid)
     return (state, step_fn, torch.from_numpy(rays).to(device),
             torch.from_numpy(rgbs).to(device))
 

@@ -58,6 +58,14 @@ explicit ``torch.Generator``, or taken from ``draws`` so that a test can pass
 in the numbers another implementation drew; the Jacobian subsample's
 uniforms follow each level's noise.
 
+With ``use_occupancy_grid`` and a grid passed to ``forward``
+(``ops/occupancy.py``), the coarse depths are drawn from the grid's
+piecewise-constant PDF (ascending uniforms in place of the jitter, a linspace
+when deterministic), the coarse level composites without the fused fine draw
+(row 2 with N = 0), and the fine depths come from ``sample_pdf`` on the
+coarse weights gated by the grid, as in the JAX model; either branch runs
+the level as it would without a grid.
+
 What is still missing raises NotImplementedError naming the ROADMAP item
 that will port it.
 """
@@ -79,6 +87,8 @@ from hypernerf_tpu_torch.kernels.fused_se3 import se3_encoding_scales
 from hypernerf_tpu_torch.models.modules import (GLOEmbed, HyperSheetMLP,
                                                 NerfMLP, torch_dtype)
 from hypernerf_tpu_torch.models.warping import WARP_FIELDS, TranslationField
+from hypernerf_tpu_torch.ops.occupancy import (config_bbox, gate_fine_weights,
+                                               sample_occupancy_rays)
 from hypernerf_tpu_torch.ops.posenc import (posenc, posenc_channels,
                                             posenc_orig, posenc_orig_channels)
 from hypernerf_tpu_torch.ops.rendering import (compute_depth_index,
@@ -115,8 +125,6 @@ def unsupported(cfg: NerfConfig) -> list:
                        '(ROADMAP A.13)')
     if cfg.use_nerf_embed or not cfg.use_viewdirs:
         out.append('conditions other than viewdirs (ROADMAP A.9)')
-    if cfg.use_occupancy_grid:
-        out.append('the occupancy grid (ROADMAP A.10)')
     if cfg.alpha_channels != 1 or cfg.rgb_channels != 3:
         out.append('heads other than rgb 3 + alpha 1 (ROADMAP A.9)')
     return out
@@ -532,7 +540,9 @@ class NerfModel(nn.Module):
                 render_opts: Optional[Dict[str, Any]] = None,
                 extra_params: Optional[Dict[str, Any]] = None,
                 return_warp_jacobian: bool = False,
-                window_rows=None) -> Dict[str, Dict]:
+                window_rows=None,
+                occupancy_grid: Optional[torch.Tensor] = None
+                ) -> Dict[str, Dict]:
         """Render a batch of rays.
 
         Args:
@@ -546,7 +556,9 @@ class NerfModel(nn.Module):
           generator: source of the stochastic forward's draws, on the rays'
             device.
           draws: explicit draws instead: 't_rand' (B, S) uniforms of the
-            coarse jitter, 'fine_u' (B, N) ascending uniforms, and
+            coarse jitter, or with an occupancy grid 'coarse_u' (B, S)
+            ascending uniforms of the grid's coarse draw in its place,
+            'fine_u' (B, N) ascending uniforms, and
             'noise_coarse' (B, S) / 'noise_fine' (B, S + N) standard-normal
             draws of the sigma noise (``noise_std`` scales them here). A
             missing key is drawn.
@@ -563,6 +575,12 @@ class NerfModel(nn.Module):
             (B, K) (see the module docstring).
           window_rows: ``window_rows(extra_params)``, when the caller has
             built them (a render at fixed alphas); else built here.
+          occupancy_grid: a (G, G, G) density grid on the rays' device;
+            with ``use_occupancy_grid`` the coarse depths come from it
+            (``ops.occupancy.sample_occupancy_rays``), the coarse level
+            draws no fine depths and the fine draw is ``sample_pdf`` on the
+            coarse weights gated by the grid. Without a grid every
+            configuration renders as it does without one, as in JAX.
 
         Returns:
           {'coarse': {...}, 'fine': {...}} with per-ray rgb / depth /
@@ -582,11 +600,20 @@ class NerfModel(nn.Module):
         far = rays_dict.get('far', cfg.far)
         n_rays = origins.shape[0]
 
-        z_vals, _ = sample_along_rays(origins, directions,
-                                      cfg.num_coarse_samples, near, far,
-                                      stratified, cfg.use_linear_disparity,
-                                      t_rand=draws.get('t_rand'),
-                                      generator=generator)
+        grid_on = cfg.use_occupancy_grid and occupancy_grid is not None
+        if grid_on:
+            z_vals, _ = sample_occupancy_rays(
+                origins, directions, occupancy_grid, config_bbox(cfg),
+                cfg.num_coarse_samples, near, far, cfg.occupancy_probes,
+                stratified, cfg.occupancy_floor,
+                u=draws.get('coarse_u') if stratified else None,
+                generator=generator)
+        else:
+            z_vals, _ = sample_along_rays(origins, directions,
+                                          cfg.num_coarse_samples, near, far,
+                                          stratified, cfg.use_linear_disparity,
+                                          t_rand=draws.get('t_rand'),
+                                          generator=generator)
         z_vals = z_vals.contiguous()
         n_fine = cfg.num_fine_samples
         fine_u = None
@@ -612,10 +639,11 @@ class NerfModel(nn.Module):
                                                          extra_params),
                       window_rows=window_rows)
         # The compositing kernel draws the fine depths itself, except where
-        # the fine level filters sigma: then ``sample_pdf`` does below.
+        # the fine level filters sigma or the grid gates the draw: then
+        # ``sample_pdf`` does below.
         coarse = self.render_samples(
             'coarse', z_vals, origins, directions, viewdirs, metadata,
-            fine_u=None if render_opts else fine_u,
+            fine_u=None if render_opts or grid_on else fine_u,
             noise=draws.get('noise_coarse'),
             jacobian_u=draws.get('jacobian_u_coarse'), **common)
         out = {'coarse': coarse}
@@ -623,9 +651,15 @@ class NerfModel(nn.Module):
             z_union = coarse.pop('z_union', None)
             if z_union is None:
                 z_mid = 0.5 * (z_vals[..., 1:] + z_vals[..., :-1])
+                weights = coarse['weights'][..., 1:-1]
+                if grid_on:
+                    weights = gate_fine_weights(
+                        occupancy_grid, origins, directions,
+                        z_vals[..., 1:-1], weights, config_bbox(cfg),
+                        cfg.occupancy_floor)
                 z_union, _ = sample_pdf(
-                    z_mid, coarse['weights'][..., 1:-1], origins, directions,
-                    z_vals, n_fine, stratified, u=fine_u)
+                    z_mid, weights, origins, directions, z_vals, n_fine,
+                    stratified, u=fine_u)
                 z_union = z_union.contiguous()
             out['fine'] = self.render_samples(
                 'fine', z_union, origins, directions, viewdirs, metadata,

@@ -2,7 +2,9 @@
 (port of ``hypernerf_tpu/training/renderer.py``).
 
 The rays are padded to a multiple of the chunk by repeating the last ray, so
-every chunk has one shape, and the padding is sliced off the outputs.
+every chunk has one shape, and the padding is sliced off the outputs. A
+grid-trained model renders through its occupancy grid, passed to every
+chunk.
 """
 
 from __future__ import annotations
@@ -31,11 +33,14 @@ def quantize_rgb_u8(rgb: torch.Tensor) -> torch.Tensor:
 def render_rays(model, rays, chunk: int = 8192, keep: Sequence[str] = KEEP,
                 levels: Optional[Sequence[str]] = None,
                 quantize: bool = False,
-                extra_params: Optional[dict] = None
+                extra_params: Optional[dict] = None,
+                occupancy_grid: Optional[torch.Tensor] = None
                 ) -> Dict[str, Dict[str, np.ndarray]]:
     """Render (N, 8|9) rays through ``model`` chunk by chunk, on the
     model's device, at the annealing alphas ``extra_params`` (the kernels'
-    window rows built once for every chunk).
+    window rows built once for every chunk), with the (G, G, G)
+    ``occupancy_grid`` of a grid-trained model (None: uniform coarse
+    sampling).
 
     Returns numpy {level: {output: (N, ...)}} for the ``levels`` asked for
     (all when None); with ``quantize`` rgb comes back as uint8. A point
@@ -53,7 +58,8 @@ def render_rays(model, rays, chunk: int = 8192, keep: Sequence[str] = KEEP,
         out = model(prepare_ray_dict(rays[start:start + chunk]),
                     deterministic=True, return_weights=False,
                     return_points=any(k in POINT_OUTPUTS for k in keep),
-                    extra_params=extra_params, window_rows=window_rows)
+                    extra_params=extra_params, window_rows=window_rows,
+                    occupancy_grid=occupancy_grid)
         for level, res in out.items():
             if levels is not None and level not in levels:
                 continue
@@ -69,18 +75,21 @@ def render_rays(model, rays, chunk: int = 8192, keep: Sequence[str] = KEEP,
 
 
 class ImageRenderer:
-    """``render_rays`` with its chunk, outputs, levels and annealing alphas
-    fixed."""
+    """``render_rays`` with its chunk, outputs, levels, annealing alphas
+    and occupancy grid fixed."""
 
     def __init__(self, model, chunk: int = 8192, keep=KEEP, levels=None,
-                 quantize: bool = False, extra_params=None):
+                 quantize: bool = False, extra_params=None,
+                 occupancy_grid=None):
         self.model = model
         self.chunk = chunk
         self.keep = tuple(keep)
         self.levels = None if levels is None else tuple(levels)
         self.quantize = quantize
         self.extra_params = extra_params
+        self.occupancy_grid = occupancy_grid
 
     def __call__(self, rays) -> Dict[str, Dict[str, np.ndarray]]:
         return render_rays(self.model, rays, self.chunk, self.keep,
-                           self.levels, self.quantize, self.extra_params)
+                           self.levels, self.quantize, self.extra_params,
+                           self.occupancy_grid)

@@ -13,6 +13,12 @@ ZeRO-1 forms are ROADMAP A.12.
 Random draws come from one ``torch.Generator`` on the device, re-seeded
 every step from (base seed, step), so a step's draws depend on nothing but
 those two numbers.
+
+With ``use_occupancy_grid`` the state carries the (G, G, G) grid, which the
+step passes to the model and ``make_occupancy_update`` refreshes from the
+model's own density (every ``occupancy_update_every`` steps, at the caller's
+cadence); its draws come from a second generator seeded from the same two
+numbers.
 """
 
 from __future__ import annotations
@@ -25,6 +31,8 @@ import torch
 
 from hypernerf_tpu_torch.configs import NerfConfig, TrainConfig
 from hypernerf_tpu_torch.models.nerf import NerfModel
+from hypernerf_tpu_torch.ops.occupancy import (cell_points, config_bbox,
+                                               init_grid, update_grid)
 from hypernerf_tpu_torch.ops.ray_dict import prepare_ray_dict
 from hypernerf_tpu_torch.training.losses import (background_loss, loss_dict,
                                                  weighted_elastic_loss)
@@ -33,11 +41,22 @@ from hypernerf_tpu_torch.training.losses import (background_loss, loss_dict,
 @dataclasses.dataclass
 class TrainState:
     """What a step reads and updates. ``model`` holds the parameters,
-    ``optimizer`` the moments; ``seed`` is the base of every step's draws."""
+    ``optimizer`` the moments; ``seed`` is the base of every step's draws;
+    ``occupancy`` the (G, G, G) float32 density grid on the parameters'
+    device where the model's config uses one (made by ``init_grid`` when not
+    given), else None."""
     step: int
     model: NerfModel
     optimizer: torch.optim.Optimizer
     seed: int = 0
+    occupancy: Optional[torch.Tensor] = None
+
+    def __post_init__(self):
+        cfg = self.model.config
+        if self.occupancy is None and cfg.use_occupancy_grid:
+            self.occupancy = init_grid(
+                cfg.occupancy_resolution,
+                device=next(self.model.parameters()).device)
 
 
 def compute_extra_params(nerf_cfg: NerfConfig, train_cfg: TrainConfig,
@@ -68,10 +87,13 @@ def compute_extra_params(nerf_cfg: NerfConfig, train_cfg: TrainConfig,
             'hyper_sheet_alpha': hyper_alpha}
 
 
-def step_generator(state: TrainState, device) -> torch.Generator:
-    """The generator of step ``state.step``, seeded from (seed, step)."""
+def step_generator(state: TrainState, device,
+                   stream: int = 0) -> torch.Generator:
+    """The generator of step ``state.step``, seeded from (seed, step);
+    ``stream`` 1 is the occupancy refresh's, apart from the step's 0."""
     gen = torch.Generator(device=device)
-    gen.manual_seed((state.seed * 1_000_003 + state.step) % (1 << 63))
+    gen.manual_seed((state.seed * 1_000_003 + state.step + (stream << 40))
+                    % (1 << 63))
     return gen
 
 
@@ -138,7 +160,8 @@ def make_train_step(model: NerfModel, optimizer: torch.optim.Optimizer,
         results = model(prepare_ray_dict(rays), deterministic=False,
                         return_weights=elastic_on, generator=gen, draws=draws,
                         extra_params=extra_params,
-                        return_warp_jacobian=elastic_on)
+                        return_warp_jacobian=elastic_on,
+                        occupancy_grid=state.occupancy)
         loss = loss_fn(results, rgbs)
         if elastic_on:
             loss = loss + train_cfg.elastic_loss_weight * \
@@ -160,3 +183,48 @@ def make_train_step(model: NerfModel, optimizer: torch.optim.Optimizer,
                 'psnr': -10.0 * torch.log10(batch_mse)}
 
     return step_fn
+
+
+def make_occupancy_update(model: NerfModel, nerf_cfg: NerfConfig,
+                          train_cfg: TrainConfig):
+    """The occupancy grid's refresh, as the JAX package's
+    ``make_occupancy_update``: the model's density (``query_sigma``, no
+    noise, at the step's annealing alphas) at the cells' points, jittered
+    within each cell, for ``occupancy_probe_ids`` image ids (at most
+    ``num_embeddings``); the max over the ids goes into the grid by
+    ``update_grid`` with ``occupancy_decay``. A moving object so shows in
+    the grid for every frame probed.
+
+    Returns ``update(state, u=None, ids=None) -> grid``, which replaces
+    ``state.occupancy`` and returns it. ``u`` (G^3, 3) uniforms of the
+    jitter and ``ids`` (n_ids,) integer ids are drawn, when absent, from the
+    refresh's generator of (seed, step) (``step_generator`` stream 1).
+    """
+    cfg = nerf_cfg
+    g = cfg.occupancy_resolution
+    bbox = config_bbox(cfg)
+    n_ids = max(1, min(train_cfg.occupancy_probe_ids, cfg.num_embeddings))
+
+    @torch.no_grad()
+    def update(state: TrainState, u: Optional[torch.Tensor] = None,
+               ids: Optional[torch.Tensor] = None) -> torch.Tensor:
+        device = state.occupancy.device
+        gen = step_generator(state, device, stream=1)
+        if u is None:
+            u = torch.rand((g ** 3, 3), generator=gen, device=device)
+        if ids is None:
+            ids = torch.randint(0, cfg.num_embeddings, (n_ids,),
+                                generator=gen, device=device)
+        pts = cell_points(g, bbox, u=u)
+        extra_params = compute_extra_params(cfg, train_cfg, state.step)
+        sigma = None
+        for i in range(ids.shape[0]):
+            metadata_id = ids[i].reshape(1, 1).expand(
+                pts.shape[0], 1).contiguous()
+            probe = model.query_sigma(pts, metadata_id, extra_params)
+            sigma = probe if sigma is None else torch.maximum(sigma, probe)
+        state.occupancy = update_grid(state.occupancy, sigma,
+                                      train_cfg.occupancy_decay)
+        return state.occupancy
+
+    return update

@@ -5,18 +5,19 @@ is ``se3`` with two GLO tables), through the PyTorch port, on one CUDA card.
 
   python tools/profile_render.py \
       [--config flagship|static|split_glo|se3|quaternion|se3_split_glo|
-                anneal|plane] \
+                anneal|plane|occupancy] \
       [--return_points] [--frames 2] [--chunk 8192] \
       [--trace render_trace.json]
 
 ``--return_points`` keeps each ray's median point as well (the per-module
 path, as ``chip_smoke.py``'s frames with ``return_points`` render).
 ``anneal`` renders at the annealing alphas ``eval`` renders a weight file
-at (fully annealed).
+at (fully annealed); ``occupancy`` through ``flagship.bench_grid``.
 Prints the card, the wall time per frame, the device time per frame by
-kernel (largest first) and the device's busy share of the wall time (the
+kernel (largest first), the device's busy share of the wall time (the
 sum of kernel times over the wall time; overlapping kernels would count
-twice, and this path runs one stream). Exits non-zero without a card.
+twice, and this path runs one stream) and the host's time per frame by
+operator (self time, largest first). Exits non-zero without a card.
 """
 
 from __future__ import annotations
@@ -35,7 +36,7 @@ def main() -> int:
     parser.add_argument('--config', default='flagship',
                         choices=('flagship', 'static', 'split_glo', 'se3',
                                  'quaternion', 'se3_split_glo', 'anneal',
-                                 'plane'))
+                                 'plane', 'occupancy'))
     parser.add_argument('--return_points', action='store_true')
     parser.add_argument('--frames', type=int, default=2)
     parser.add_argument('--chunk', type=int, default=8192)
@@ -51,7 +52,8 @@ def main() -> int:
 
     from hypernerf_tpu_torch.configs import TrainConfig
     from hypernerf_tpu_torch.eval import eval_extra_params
-    from hypernerf_tpu_torch.flagship import flagship_model, spiral_rays
+    from hypernerf_tpu_torch.flagship import (bench_grid, flagship_model,
+                                              spiral_rays)
     from hypernerf_tpu_torch.training.renderer import ImageRenderer
 
     print(subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
@@ -67,7 +69,9 @@ def main() -> int:
     renderer = ImageRenderer(model, chunk=args.chunk, keep=keep,
                              levels=('fine',), quantize=True,
                              extra_params=eval_extra_params(model.config,
-                                                            TrainConfig()))
+                                                            TrainConfig()),
+                             occupancy_grid=bench_grid(model.config, 'cuda')
+                             if model.config.use_occupancy_grid else None)
     frames = spiral_rays(range(0, 30 * (args.frames + 1), 30))
     renderer(frames[0])  # build, first launches
     torch.cuda.synchronize()
@@ -87,6 +91,13 @@ def main() -> int:
           f'{device_ms:.2f} ms/frame, busy share {device_ms / wall / 1e3:.4f}')
     for e in events[:15]:
         ms = e.self_device_time_total / 1e3 / args.frames
+        print(f'{ms:10.3f} ms/frame {e.count // args.frames:6d} calls/frame  '
+              f'{e.key[:90]}')
+    host = [e for e in prof.key_averages() if e.device_type.name == 'CPU']
+    host.sort(key=lambda e: e.self_cpu_time_total, reverse=True)
+    print('host, self time:')
+    for e in host[:12]:
+        ms = e.self_cpu_time_total / 1e3 / args.frames
         print(f'{ms:10.3f} ms/frame {e.count // args.frames:6d} calls/frame  '
               f'{e.key[:90]}')
     if args.trace:
