@@ -191,7 +191,24 @@ Phases, one line each; any failure ends the run with a non-zero exit:
      16 steps from the first), its time without the refresh and amortised
      over 16 steps, a 1024-ray step through the grid against the plain
      versions;
- 24. the kernels' JSON line, then the result line.
+ 24. the kernels' JSON line, then the result line (after phase 25);
+ 25. the trainer and its entry point: ``tools/make_synthetic_scene.py``
+     writes an 8-frame 160x120 scene into a temporary directory (never the
+     repo), where ``hypernerf_tpu_torch.train.main(argv)`` trains the
+     flagship (64 + 64, bf16, Adam with steplr) for N = 36 steps at batch
+     4096 (a sanity val, a val every 8 steps, a checkpoint at the epoch's
+     32 and at 36); the launch counters must show 2 launches of each of the
+     five step kernels a step, the two forward kernels on every chunk and
+     level of each val, and no plain call; one val timed apart; a second
+     call with ``--ckpt_path`` on step 36 resumes there and trains to 72
+     (the manifest and ``latest_checkpoint`` at 72); ``python -m
+     hypernerf_tpu_torch.eval`` renders that checkpoint's training poses
+     and prints ``Mean PSNR``; the same 36 steps through the plain versions
+     from the same weights and draws: the training frames' mean PSNR at
+     step 36 within 1.0 dB of the kernels' (an untrained model must lie
+     further off) and the val PSNR at step 32 within 0.5 dB; the kernels
+     again, whose spread is printed; steps per second of each, with the
+     card's name and power limit.
 Times come from CUDA events (kernels) or the host clock around work that
 ends in a synchronize (frames, steps). A kernel's bound is the larger of
 its matrix-product operations over the card's dense bf16 peak and its bytes
@@ -269,6 +286,7 @@ PEAK_FLOPS, PEAK_BYTES = 989e12, 3.35e12
 
 CHUNK = 8192
 N_FRAMES = 3
+CARD = ''  # nvidia-smi's name and power limit, printed beside phase 25's times
 TRAIN_RAYS, TRAIN_STEPS, WARMUP_STEPS = 16384, 5, 2
 PLAIN_CHUNK = 2048
 
@@ -2673,6 +2691,8 @@ def main() -> int:
          '--format=csv,noheader'], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
     print(smi, flush=True)
+    global CARD
+    CARD = smi
     phase(f'[1] card: {torch.cuda.get_device_name(0)}; torch '
           f'{torch.__version__} cuda {torch.version.cuda}')
 
@@ -2905,6 +2925,7 @@ def main() -> int:
     kernels += plane_kernel_phase(kernels)
     plane_paths_phase(kernels)
     occupancy_paths_phase(kernels)
+    trainer_phase(kernels)
     if len(kernels) != 18:
         raise AssertionError(f'{len(kernels)} kernels in the line, want 18')
     return finish(kernels)
@@ -3800,6 +3821,257 @@ def occupancy_paths_phase(kernels) -> None:
                                ('refresh', refresh['launches'])):
             if launches.get(k['name']):
                 k[f'occupancy_{path}_launches'] = launches[k['name']]
+
+
+# -- the trainer and its entry point ------------------------------------------
+
+# Phase 25: N steps of the flagship through ``python -m
+# hypernerf_tpu_torch.train`` at batch 4096 on a scene of
+# ``tools/make_synthetic_scene.py`` (32 steps an epoch: a checkpoint at 32,
+# vals every 8 steps, the last at 32); the resume trains to 2 N. The val
+# frame's GLO code is never trained, so its PSNR barely moves in N steps;
+# the training frames' PSNR (``train_pose_psnr``) moves with every step and
+# holds the kernels' training to the plain versions'. Its limit lies
+# between the gaps of runs from the same weights and draws and the
+# movement of N steps (``tools/trainer_spread.py``, PERF.md), and the
+# untrained model must fail it.
+SMOKE_STEPS = 36
+SMOKE_BATCH = 4096
+SMOKE_SCENE = dict(n_frames=8, width=160, height=120)
+SMOKE_PSNR_TOL = 0.5  # dB, the kernels' val PSNR against the plain trainer's
+POSE_PSNR_TOL = 1.0  # dB, the same for the training frames' mean PSNR
+STEP_KERNELS = ('fused_level_fwd', 'fused_composite_fwd',
+                'fused_template_bwd', 'fused_fields_bwd',
+                'fused_composite_bwd')
+
+
+def smoke_argv(scene: str, exp: str, steps: int, *extra) -> list:
+    """``train.py``'s flags for the flagship (64 + 64, bf16, Adam with
+    steplr) on the smoke scene: a val every quarter epoch, a checkpoint
+    every epoch and at the end, a log line every 10 steps."""
+    w, h = SMOKE_SCENE['width'], SMOKE_SCENE['height']
+    return ['--root_dir', scene, '--dataset_name', 'llff', '--img_wh',
+            str(w), str(h), '--N_samples', '64', '--N_importance', '64',
+            '--batch_size', str(SMOKE_BATCH), '--max_steps', str(steps),
+            '--optimizer', 'adam', '--lr', '5e-4', '--lr_scheduler',
+            'steplr', '--log_every', '10', '--exp_name', exp, *extra]
+
+
+def trainer_run(argv, label: str, start: int = 0):
+    """``train.main(argv)`` from step ``start``, every count set to 0 just
+    before it and read just after: two launches of each step kernel a
+    step, the two forward kernels on every chunk and level of each val, no
+    plain call. Returns (the trainer, its launches)."""
+    from hypernerf_tpu_torch import train as port_train
+    reset_counts()
+    trainer = port_train.main(argv)
+    cfg = trainer.train_cfg
+    every = max(1, int(trainer.steps_per_epoch * cfg.val_check_interval))
+    vals = int(start == 0 and cfg.num_sanity_val_steps > 0) + sum(
+        s % every == 0 for s in range(start + 1, trainer.total_steps + 1))
+    w, h = cfg.img_wh
+    want = {k: 2 * (trainer.total_steps - start) for k in STEP_KERNELS}
+    for k in STEP_KERNELS[:2]:
+        want[k] += 2 * -(-w * h // cfg.chunk) * vals
+    return trainer, read_counts(want, label)
+
+
+def train_pose_psnr(trainer) -> float:
+    """The mean over the training frames of each frame's PSNR (as ``eval``
+    reads ``Mean PSNR`` on ``--split test_train``) of the trainer's model at
+    its state's step, rendered through the kernels. Unlike the val frame,
+    whose GLO code no step trains, it moves with every step."""
+    import torch
+    from hypernerf_tpu_torch.training.renderer import render_rays
+    from hypernerf_tpu_torch.training.train_state import compute_extra_params
+    w, h = trainer.train_cfg.img_wh
+    out = render_rays(
+        trainer.model, trainer.all_rays, chunk=CHUNK, keep=('rgb',),
+        levels=('fine',),
+        extra_params=compute_extra_params(trainer.nerf_cfg, trainer.train_cfg,
+                                          trainer.state.step),
+        occupancy_grid=trainer.state.occupancy, to_numpy=False)
+    err = (out['fine']['rgb'] - trainer.all_rgbs) ** 2
+    mse = err.reshape(-1, h * w * 3).mean(dim=1)
+    return float((-10.0 * torch.log10(mse)).mean())
+
+
+def steps_per_second(trainer, steps: int) -> float:
+    """A fit's steps over its seconds outside its vals and checkpoints."""
+    secs = trainer.seconds
+    return steps / (secs['fit'] - secs['val'] - secs['checkpoint'])
+
+
+def trainer_phase(kernels) -> None:
+    """Phase 25: the trainer and its entry point on the card (the module
+    docstring); adds the run's launches to the five step kernels'
+    entries."""
+    import io
+    import os
+    import tempfile
+
+    import torch
+    from hypernerf_tpu_torch import eval as port_eval
+    from hypernerf_tpu_torch import train as port_train
+    from hypernerf_tpu_torch.opt import configs_from_args, get_opts
+    from hypernerf_tpu_torch.training import checkpoints
+    from hypernerf_tpu_torch.training.trainer import Trainer
+    t_phase = time.perf_counter()
+    n = SMOKE_STEPS
+    tools = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                         'tools')
+    sys.path.insert(0, tools)
+    import make_synthetic_scene
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        os.chdir(tmp)
+        try:
+            t0 = time.perf_counter()
+            scene = make_synthetic_scene.make_scene(
+                os.path.join(tmp, 'scene'), **SMOKE_SCENE)
+            phase(f'[25] scene: {SMOKE_SCENE["n_frames"]} frames '
+                  f'{SMOKE_SCENE["width"]}x{SMOKE_SCENE["height"]} by '
+                  f'tools/make_synthetic_scene.py in '
+                  f'{time.perf_counter() - t0:.1f} s (host)')
+            # The kernels: N steps, a sanity val, a val every quarter epoch.
+            trainer, launches = trainer_run(smoke_argv(scene, 'smoke', n),
+                                            'trainer (kernels)')
+            steps_per_epoch = trainer.steps_per_epoch
+            metrics = trainer.last_metrics
+            ckpt_dir = os.path.join(tmp, 'ckpts', 'smoke')
+            saved = sorted(int(s[5:]) for s in os.listdir(ckpt_dir)
+                           if s.startswith('step_'))
+            if saved != [steps_per_epoch, n] or not n > steps_per_epoch:
+                raise AssertionError(f'checkpoints {saved}, want '
+                                     f'[{steps_per_epoch}, {n}]')
+            speed = steps_per_second(trainer, n)
+            pose = train_pose_psnr(trainer)
+            trainer.logger = None  # closed by train.main
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            trainer.validate(n)
+            torch.cuda.synchronize()
+            val_secs = time.perf_counter() - t0
+            phase(f'[25] train.main: {n} steps (batch {SMOKE_BATCH}, '
+                  f'{steps_per_epoch} steps an epoch, 64+64, bf16, Adam '
+                  f'with steplr) in {trainer.seconds["fit"]:.2f} s of fit, '
+                  f'{speed:.2f} steps/s outside its vals and checkpoints '
+                  f'({trainer.seconds["val"]:.2f} s of vals, '
+                  f'{trainer.seconds["checkpoint"]:.2f} s of checkpoints); '
+                  f'one val {val_secs:.3f} s (it blocks the host); val psnr '
+                  f'{metrics["val/psnr"]:.3f} loss {metrics["val/loss"]:.5f}'
+                  f'; train loss {metrics["train/loss"]:.5f}; training '
+                  f'frames\' psnr {pose:.3f}; checkpoints '
+                  f'{saved}; launches {launches}; no plain call; {CARD}')
+            for k in kernels:
+                if launches.get(k['name']):
+                    k['trainer_launches'] = launches[k['name']]
+            del trainer
+            torch.cuda.empty_cache()
+
+            # Resume from the last checkpoint to 2 N.
+            last = os.path.join(ckpt_dir, f'step_{n}')
+            resumed, launches = trainer_run(
+                smoke_argv(scene, 'smoke', 2 * n, '--ckpt_path', last),
+                'trainer (resumed)', start=n)
+            latest = checkpoints.latest_checkpoint(ckpt_dir)
+            with open(os.path.join(ckpt_dir, 'manifest.json')) as f:
+                manifest = json.load(f)
+            if resumed.state.step != 2 * n or latest != os.path.join(
+                    ckpt_dir, f'step_{2 * n}') or max(map(int, manifest)) \
+                    != 2 * n or 'val/psnr' not in manifest[str(2 * n)]:
+                raise AssertionError(f'resume: step {resumed.state.step}, '
+                                     f'latest {latest}, manifest '
+                                     f'{sorted(manifest, key=int)}')
+            phase(f'[25] resumed from step {n} to {2 * n} '
+                  f'({steps_per_second(resumed, n):.2f} steps/s, fit '
+                  f'{resumed.seconds["fit"]:.2f} s): latest checkpoint and '
+                  f'manifest at step {2 * n}, manifest steps '
+                  f'{sorted(map(int, manifest))}; val psnr '
+                  f'{resumed.last_metrics["val/psnr"]:.3f}; launches '
+                  f'{launches}; {CARD}')
+            del resumed
+            torch.cuda.empty_cache()
+
+            # Eval of the last checkpoint.
+            reset_counts()
+            out = io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(out):
+                port_eval.main(['--root_dir', scene, '--dataset_name',
+                                'llff', '--img_wh', str(SMOKE_SCENE['width']),
+                                str(SMOKE_SCENE['height']), '--split',
+                                'test_train', '--ckpt_path', latest,
+                                '--scene_name', 'smoke'])
+            eval_secs = time.perf_counter() - t0
+            pngs = [f for f in os.listdir(os.path.join(
+                tmp, 'results', 'llff', 'smoke')) if f.endswith('.png')]
+            mean = [ln for ln in out.getvalue().splitlines()
+                    if ln.startswith('Mean PSNR')]
+            chunks = -(-SMOKE_SCENE['width'] * SMOKE_SCENE['height']
+                       // CHUNK)
+            eval_launches = read_counts(
+                {k: 2 * chunks * len(pngs) for k in STEP_KERNELS[:2]},
+                'eval of the trainer\'s checkpoint')
+            if not pngs or not mean:
+                raise AssertionError(f'eval wrote {len(pngs)} PNGs; '
+                                     f'{out.getvalue()[-500:]}')
+            phase(f'[25] python -m hypernerf_tpu_torch.eval on step_{2 * n}: '
+                  f'{len(pngs)} PNGs, {mean[0]}, {eval_secs:.2f} s; '
+                  f'launches {eval_launches}; {CARD}')
+
+            # The plain versions from the same weights and draws, the
+            # kernels again, and the untrained model. The training frames
+            # are rendered through the kernels for all four.
+            reset_counts()
+            with plain_versions():
+                plain = port_train.main(smoke_argv(scene, 'plain', n))
+            if any(fn.launches for fn in kernel_wrappers()[0].values()):
+                raise AssertionError('the plain trainer launched a kernel')
+            plain_pose = train_pose_psnr(plain)
+            plain_metrics, plain_speed = (plain.last_metrics,
+                                          steps_per_second(plain, n))
+            del plain
+            again, _ = trainer_run(smoke_argv(scene, 'again', n),
+                                   'trainer (kernels, again)')
+            again_pose = train_pose_psnr(again)
+            again_metrics = again.last_metrics
+            del again
+            untrained = Trainer(*configs_from_args(get_opts(
+                smoke_argv(scene, 'untrained', n))), 'cuda')
+            untrained_pose = train_pose_psnr(untrained)
+            del untrained
+            torch.cuda.empty_cache()
+            d_psnr = metrics['val/psnr'] - plain_metrics['val/psnr']
+            d_pose = pose - plain_pose
+            phase(f'[25] the same {n} steps through the plain versions: '
+                  f'training frames\' psnr {plain_pose:.3f} against the '
+                  f'kernels\' {pose:.3f} ({d_pose:+.3f} dB, tol '
+                  f'{POSE_PSNR_TOL}; the kernels\' second run '
+                  f'{again_pose:.3f}, {pose - again_pose:+.3f} dB; the '
+                  f'untrained model {untrained_pose:.3f}, '
+                  f'{untrained_pose - plain_pose:+.3f} dB, must fail the '
+                  f'tol); val psnr {plain_metrics["val/psnr"]:.3f} against '
+                  f'{metrics["val/psnr"]:.3f} ({d_psnr:+.3f} dB, tol '
+                  f'{SMOKE_PSNR_TOL}; second run '
+                  f'{again_metrics["val/psnr"]:.3f}); train loss at step {n} '
+                  f'{plain_metrics["train/loss"]:.5f} against '
+                  f'{metrics["train/loss"]:.5f} and '
+                  f'{again_metrics["train/loss"]:.5f}; {plain_speed:.3f} '
+                  f'steps/s against {speed:.2f}; {CARD}')
+            if not abs(untrained_pose - plain_pose) > POSE_PSNR_TOL:
+                raise AssertionError('trainer: the untrained model passes '
+                                     'the training frames\' limit')
+            if not (abs(d_pose) <= POSE_PSNR_TOL
+                    and abs(d_psnr) <= SMOKE_PSNR_TOL) or not all(
+                    math.isfinite(v) for v in metrics.values()):
+                raise AssertionError('trainer: kernels and plain versions '
+                                     'disagree')
+        finally:
+            os.chdir(cwd)
+            sys.path.remove(tools)
+    phase(f'[25] the trainer phase took {time.perf_counter() - t_phase:.1f} '
+          f's; {CARD}')
 
 
 def finish(kernels) -> int:

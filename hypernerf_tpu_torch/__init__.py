@@ -12,9 +12,11 @@ Layer map:
   models/    nn.Modules: MLPs, GLO embeddings, the warp field, NerfModel
   kernels/   hand-written CUDA kernels for Hopper (sources in kernels/csrc/),
              each beside its plain PyTorch version
-  training/  the train step (losses, optimizers, train_state), the tiled
-             image renderer, metrics, the port's weight file
+  training/  the train step (losses, optimizers, train_state), the trainer,
+             the tiled image renderer, metrics, checkpoints
+  utils/     depth visualization, the metrics logger
   flagship.py the flagship configuration, model, rays and train setup
+  train.py   ``python -m hypernerf_tpu_torch.train`` (the train entry point)
   eval.py    ``python -m hypernerf_tpu_torch.eval`` (the render entry point)
   convert.py flax params -> this package's state dict
 """

@@ -5,9 +5,12 @@ dict key by renaming its leaf: a Dense ``kernel`` (in, out) becomes
 ``weight`` (out, in) transposed, an Embed ``embedding`` becomes ``weight``
 and a ``bias`` stays. For example ``nerf_coarse/trunk/hidden_0/kernel`` ->
 ``nerf_coarse.trunk.hidden_0.weight`` and ``warp_embed/embed/embedding`` ->
-``warp_embed.embed.weight``. Adam's moments are trees of the parameters'
-shapes and map the same way (``adam_state_from_jax``). Uses numpy and torch
-only.
+``warp_embed.embed.weight``. An optimizer's state holds trees of the
+parameters' shapes, which map the same way: Adam's and RAdam's moments
+(``adam_state_from_jax``), SGD's momentum (``trace_state_from_jax``); a
+lookahead (``ranger``) state keeps the RAdam state of its fast weights, and
+its parameters are a (fast, slow) pair (``lookahead_params``). Uses numpy
+and torch only.
 """
 
 from __future__ import annotations
@@ -62,11 +65,11 @@ def params_from_jax(params) -> Dict[str, torch.Tensor]:
     return state
 
 
-def _adam_node(tree):
+def _node(tree, keys):
     """The first dict of a restored optax state (nested dicts and lists)
-    with 'count', 'mu' and 'nu' (``ScaleByAdamState``), or None."""
+    that has every key of ``keys``, or None."""
     if isinstance(tree, dict):
-        if {'count', 'mu', 'nu'} <= tree.keys():
+        if set(keys) <= tree.keys():
             return tree
         children = tree.values()
     elif isinstance(tree, (list, tuple)):
@@ -74,10 +77,18 @@ def _adam_node(tree):
     else:
         return None
     for child in children:
-        found = _adam_node(child)
+        found = _node(child, keys)
         if found is not None:
             return found
     return None
+
+
+def lookahead_params(params):
+    """(fast, slow) of a restored ``optax.LookaheadParams`` tree ({'fast':
+    ..., 'slow': ...}); (params, None) for any other parameter tree."""
+    if isinstance(params, dict) and params.keys() == {'fast', 'slow'}:
+        return params['fast'], params['slow']
+    return params, None
 
 
 def adam_state_from_jax(opt_state) -> Dict[str, Dict[str, torch.Tensor]]:
@@ -86,7 +97,7 @@ def adam_state_from_jax(opt_state) -> Dict[str, Dict[str, torch.Tensor]]:
     ``nu`` renamed and transposed as ``params_from_jax`` does the
     parameters, and 'step' is ``count`` (the updates taken). Raises where
     the state holds no Adam moments."""
-    node = _adam_node(opt_state)
+    node = _node(opt_state, ('count', 'mu', 'nu'))
     if node is None:
         raise ValueError('the optimizer state holds no Adam moments '
                          '(count, mu, nu)')
@@ -95,3 +106,22 @@ def adam_state_from_jax(opt_state) -> Dict[str, Dict[str, torch.Tensor]]:
     mu, nu = params_from_jax(node['mu']), params_from_jax(node['nu'])
     return {k: {'step': count.clone(), 'exp_avg': mu[k],
                 'exp_avg_sq': nu[k]} for k in mu}
+
+
+def trace_state_from_jax(opt_state) -> Dict[str, Dict[str, torch.Tensor]]:
+    """optax ``trace`` state (SGD's momentum) -> ``torch.optim.SGD``'s
+    'momentum_buffer' of each parameter, by state dict key."""
+    node = _node(opt_state, ('trace',))
+    if node is None:
+        raise ValueError('the optimizer state holds no momentum (trace)')
+    return {k: {'momentum_buffer': v}
+            for k, v in params_from_jax(node['trace']).items()}
+
+
+def steps_since_sync(opt_state) -> int:
+    """The updates a restored ``optax.lookahead`` state took since its last
+    sync."""
+    node = _node(opt_state, ('fast_state', 'steps_since_sync'))
+    if node is None:
+        raise ValueError('the optimizer state is no lookahead state')
+    return int(np.asarray(node['steps_since_sync']))

@@ -12,7 +12,9 @@ posenc annealing), ``--max_steps``, ``--compute_dtype``, ``--num_devices``.
 
 The port's own copy of ``hypernerf_tpu/opt.py``: same flags and defaults
 (``tests/test_torch_imports.py`` holds the two together). ``--no_pallas``
-and the profiler flags are accepted and inert here.
+is accepted and inert here; ``--profile_steps`` / ``--profile_start``
+trace the trainer's steps with ``torch.profiler``; ``--num_devices`` /
+``--num_gpus`` above 1 raise (one device; multi-GPU is ROADMAP A.12).
 """
 
 from __future__ import annotations
@@ -95,9 +97,9 @@ def build_parser(eval_mode: bool = False) -> argparse.ArgumentParser:
     parser.add_argument('--max_steps', type=int, default=None,
                         help='total training steps (overrides num_epochs)')
     parser.add_argument('--num_devices', type=int, default=None,
-                        help='kept so that the JAX package\'s command '
-                             'lines parse; the port runs on one CUDA '
-                             'device and does not read it')
+                        help='devices to train on: the port trains on '
+                             'one, and more than 1 raises (multi-GPU is '
+                             'ROADMAP A.12)')
     parser.add_argument('--num_gpus', type=int, default=None,
                         help='alias of --num_devices (reference compat)')
     parser.add_argument('--precision', type=str, default='bf16',
@@ -199,8 +201,9 @@ def build_parser(eval_mode: bool = False) -> argparse.ArgumentParser:
     parser.add_argument('--log_every', type=int, default=100)
     parser.add_argument('--val_check_interval', type=float, default=0.25)
     parser.add_argument('--profile_steps', type=int, default=0,
-                        help='trace this many train steps with jax.profiler '
-                             '(0 disables)')
+                        help='trace this many train steps with '
+                             'torch.profiler into <log_dir>/<exp_name>/'
+                             'profile/trace.json (0 disables)')
     parser.add_argument('--profile_start', type=int, default=10)
 
     if eval_mode:

@@ -34,8 +34,8 @@ def render_rays(model, rays, chunk: int = 8192, keep: Sequence[str] = KEEP,
                 levels: Optional[Sequence[str]] = None,
                 quantize: bool = False,
                 extra_params: Optional[dict] = None,
-                occupancy_grid: Optional[torch.Tensor] = None
-                ) -> Dict[str, Dict[str, np.ndarray]]:
+                occupancy_grid: Optional[torch.Tensor] = None,
+                to_numpy: bool = True) -> Dict[str, Dict[str, np.ndarray]]:
     """Render (N, 8|9) rays through ``model`` chunk by chunk, on the
     model's device, at the annealing alphas ``extra_params`` (the kernels'
     window rows built once for every chunk), with the (G, G, G)
@@ -45,6 +45,8 @@ def render_rays(model, rays, chunk: int = 8192, keep: Sequence[str] = KEEP,
     Returns numpy {level: {output: (N, ...)}} for the ``levels`` asked for
     (all when None); with ``quantize`` rgb comes back as uint8. A point
     output in ``keep`` (``POINT_OUTPUTS``) makes the model return points.
+    ``to_numpy=False`` returns the tensors on the model's device instead
+    (the trainer's val stats are computed there).
     """
     device = next(model.parameters()).device
     rays = torch.as_tensor(rays, dtype=torch.float32, device=device)
@@ -69,9 +71,12 @@ def render_rays(model, rays, chunk: int = 8192, keep: Sequence[str] = KEEP,
                 if quantize and k == 'rgb':
                     v = quantize_rgb_u8(v)
                 parts.setdefault(level, {}).setdefault(k, []).append(v)
-    return {level: {k: torch.cat(vs, 0)[:n].cpu().numpy()
-                    for k, vs in res.items()}
-            for level, res in parts.items()}
+    out = {level: {k: torch.cat(vs, 0)[:n] for k, vs in res.items()}
+           for level, res in parts.items()}
+    if to_numpy:
+        out = {level: {k: v.cpu().numpy() for k, v in res.items()}
+               for level, res in out.items()}
+    return out
 
 
 class ImageRenderer:

@@ -4,7 +4,9 @@ run; a checkpoint without a grid keeps a state's fresh one (as
 ``tests/test_occupancy.py`` checks in JAX); the manifest's best / latest /
 prune; the non-strict weight load; ``save_weights_only`` and its entry
 point; a full JAX checkpoint, saved after two JAX steps and converted by
-``tools/jax_ckpt_to_torch.py``, resumes in the port with JAX's third step;
+``tools/jax_ckpt_to_torch.py``, resumes in the port with JAX's third step,
+and one of each other optimizer (sgd, radam, ranger) after four with JAX's
+fifth and sixth;
 and ``eval`` renders a full checkpoint at its step's alphas through its
 grid. Small widths, float32, the CPU (the plain versions); the JAX model on
 its XLA path.
@@ -23,6 +25,7 @@ import sys
 import jax
 import jax.numpy as jnp
 import numpy as np
+import optax
 import pytest
 import torch
 from PIL import Image
@@ -52,7 +55,8 @@ from hypernerf_tpu_torch.utils.visualization import to_uint8
 from tests.test_torch_occupancy import OCC, _grid, _occ_draws
 from tests.test_torch_train_step import (ARCH, STEPS_PER_EPOCH, TRAIN,
                                          _assert_trees_close, _batch,
-                                         _flax_params, _step_keys)
+                                         _flax_params, _jax_draws,
+                                         _step_keys)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, os.path.join(REPO, 'tools'))
@@ -308,6 +312,82 @@ def test_jax_full_checkpoint_resumes_in_the_port(tmp_path):
     with pytest.raises(ValueError, match='full checkpoint'):
         jax_ckpt_to_torch.convert_checkpoint(weights_only,
                                              str(tmp_path / 'x'))
+
+
+@pytest.mark.parametrize('name', ['sgd', 'radam', 'ranger'])
+def test_jax_checkpoint_of_each_optimizer_resumes_in_the_port(tmp_path,
+                                                              name):
+    """JAX: four steps of ``name`` (weight decay on), then
+    ``save_checkpoint``; ``tools/jax_ckpt_to_torch.py --out_dir`` converts
+    its optimizer state (SGD's momentum, RAdam's moments and count,
+    ranger's moments of the fast weights, its slow weights and its count
+    since the last sync); the port restores it and takes JAX's fifth and
+    sixth steps (RAdam's first rectified update, ranger's first sync) with
+    JAX's draws: the loss and every parameter, and ranger's slow weights,
+    equal JAX's. A ranger checkpoint's weight file holds the fast weights.
+    JAX's ranger step takes the fast weights' gradient here (ROADMAP D)."""
+    rays, rgbs = _batch()
+    cfg = NerfConfig(use_pallas=False, **ARCH)
+    train_cfg = TrainConfig(**TRAIN, optimizer=name, weight_decay=1e-3)
+    jmodel = JaxNerfModel(cfg)
+    tx = jax_optimizer(train_cfg, steps_per_epoch=STEPS_PER_EPOCH)
+    params = jax.tree.map(jnp.asarray, _flax_params())
+    if name == 'ranger':
+        inner = tx
+        tx = optax.GradientTransformation(
+            inner.init, lambda g, s, p=None: inner.update(g.fast, s, p))
+        params = optax.LookaheadParams(
+            fast=params, slow=jax.tree.map(jnp.copy, params))
+    jstate = JaxTrainState(step=jnp.zeros((), jnp.int32), params=params,
+                           opt_state=tx.init(params))
+    jstep = jax_make_train_step(jmodel, tx, cfg, train_cfg,
+                                create_mesh(num_devices=1),
+                                explicit_batch=True)
+    base_rng = jax.random.PRNGKey(1)
+    for _ in range(4):
+        jstate, _ = jstep(jstate, jnp.asarray(rays), jnp.asarray(rgbs),
+                          base_rng)
+    jax_path = jax_ckpt.save_checkpoint(str(tmp_path / 'jax'), 4, jstate,
+                                        nerf_config=cfg,
+                                        train_config=train_cfg)
+    path = jax_ckpt_to_torch.convert_checkpoint(jax_path,
+                                                str(tmp_path / 'port'))
+    pcfg = checkpoints.load_config(path)
+    ptrain = checkpoints.load_train_config(path)
+    assert ptrain.optimizer == name
+    torch.manual_seed(9)
+    model = NerfModel(pcfg).train()
+    optimizer, schedule = get_optimizer(ptrain, model.parameters(),
+                                        STEPS_PER_EPOCH)
+    state = checkpoints.restore_checkpoint(
+        path, TrainState(0, model, optimizer))
+    assert state.step == 4
+    step_fn = make_train_step(model, optimizer, pcfg, ptrain, 'cpu',
+                              schedule=schedule, explicit_batch=True)
+    for step in (4, 5):
+        fast = jstate.params.fast if name == 'ranger' else jstate.params
+        draws = _jax_draws(jmodel, jax.device_get(fast),
+                           *_step_keys(base_rng, step))
+        jstate, jmetrics = jstep(jstate, jnp.asarray(rays),
+                                 jnp.asarray(rgbs), base_rng)
+        metrics = step_fn(state, torch.from_numpy(rays),
+                          torch.from_numpy(rgbs), draws=draws)
+        assert abs(metrics['loss'].item() - float(jmetrics['loss'])) <= TOL
+        want = jax.device_get(jstate.params)
+        if name == 'ranger':
+            _assert_trees_close(params_to_jax(
+                {k: optimizer.state[p]['slow']
+                 for k, p in model.named_parameters()}), want.slow, TOL,
+                False)
+            want = want.fast
+        _assert_trees_close(params_to_jax(model.state_dict()), want, TOL,
+                            False)
+    if name == 'ranger':
+        out = jax_ckpt_to_torch.convert(jax_path, str(tmp_path / 'w.pt'))
+        weights = torch.load(out, weights_only=True)
+        restored = checkpoints.restore_checkpoint(path)['nerf']
+        for k, v in restored.items():
+            assert torch.equal(weights[k], v), k
 
 
 def test_eval_renders_a_full_checkpoint_at_its_step_and_grid(

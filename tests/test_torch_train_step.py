@@ -262,18 +262,24 @@ def test_step_draws_its_batch_on_the_device():
 def test_unported_training_options_name_their_roadmap_item():
     cfg = port_configs.NerfConfig(**ARCH)
     model = NerfModel(cfg)
-    for kw, item in ((dict(optimizer='sgd'), 'A.8'),
-                     (dict(lr_scheduler='cosine'), 'A.8'),
-                     (dict(warmup_epochs=1), 'A.8')):
-        with pytest.raises(NotImplementedError, match=item):
-            get_optimizer(port_configs.TrainConfig(**kw), model.parameters(),
-                          10)
+    # Every optimizer, schedule and warm-up of train.py is ported (A.8).
+    for kw in (dict(optimizer='sgd'), dict(lr_scheduler='cosine'),
+               dict(warmup_epochs=1), dict(optimizer='ranger',
+                                           lr_scheduler='poly')):
+        opt, schedule = get_optimizer(port_configs.TrainConfig(**kw),
+                                      model.parameters(), 10)
+        assert opt.param_groups[0]['lr'] == schedule(0) > 0
     # The elastic and background losses are ported (A.11), and so is the
     # annealing schedule of the Nerfies encoding; the anneal family with
-    # the SE(3) warp is not.
+    # the SE(3) warp and the use_nerf_embed conditions are not (A.9), nor
+    # is training on more than one device (A.12).
     anneal = port_configs.NerfConfig(**ARCH, use_original_embed=False)
     assert compute_extra_params(anneal, port_configs.TrainConfig(),
                                 0)['hyper_alpha'] == 0.0
-    with pytest.raises(NotImplementedError, match='A.9'):
-        NerfModel(port_configs.NerfConfig(**ARCH, use_original_embed=False,
-                                          warp_field_type='se3'))
+    for kw in (dict(use_original_embed=False, warp_field_type='se3'),
+               dict(use_nerf_embed=True, use_rgb_condition=True)):
+        with pytest.raises(NotImplementedError, match='A.9'):
+            NerfModel(port_configs.NerfConfig(**ARCH, **kw))
+    from hypernerf_tpu_torch import train
+    with pytest.raises(NotImplementedError, match='A.12'):
+        train.main(['--num_devices', '2'])

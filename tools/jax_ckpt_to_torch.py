@@ -10,12 +10,18 @@ with ``nerf_config.json`` (and ``train_config.json``) beside the result.
 ``--out_path`` writes a weight file from any JAX checkpoint, full or
 weights-only: the model sub-tree is read with
 ``training.checkpoints.extract_model_params`` and renamed by
-``hypernerf_tpu_torch.convert.params_from_jax``. ``--out_dir`` converts a
+``hypernerf_tpu_torch.convert.params_from_jax``; of a ``ranger`` run's
+(fast, slow) pair it takes the fast weights, which the JAX forward reads
+(``forward_params``) and the port's model holds. ``--out_dir`` converts a
 full checkpoint (JAX ``save_checkpoint``) into a full port checkpoint
 ``out_dir/step_N``: the parameters, the step, the occupancy grid where there
-is one, and Adam's moments (optax ``mu`` / ``nu`` -> torch ``exp_avg`` /
-``exp_avg_sq``, ``count`` -> each parameter's ``step``), so that a JAX run
-resumes in the port (``training.checkpoints.restore_checkpoint``). The
+is one, and the state of the run's optimizer: ``adam`` / ``radam``'s
+moments (optax ``mu`` / ``nu`` -> ``exp_avg`` / ``exp_avg_sq``, ``count`` ->
+each parameter's ``step``), ``sgd``'s momentum (``trace`` ->
+``momentum_buffer``), ``ranger``'s RAdam moments of the fast weights, its
+slow weights (each parameter's ``slow``) and ``steps_since_sync``, so that
+a JAX run resumes in the port (``training.checkpoints.restore_checkpoint``).
+The
 configs are the ones the trainer wrote beside the checkpoint (or
 ``--nerf_config`` / ``--train_config``). The result is checked by a strict
 load into the port's NerfModel before it is written; render it with
@@ -56,7 +62,10 @@ def convert(ckpt_path: str, out_path: str, nerf_config: str = None) -> str:
     from hypernerf_tpu_torch.training.checkpoints import save_weights
 
     cfg, train_cfg = _configs(ckpt_path, nerf_config)
-    state = params_from_jax(extract_model_params(ckpt_path))
+    flat = extract_model_params(ckpt_path)
+    if any(k.startswith('fast/') for k in flat):  # ranger's LookaheadParams
+        flat = {k[5:]: v for k, v in flat.items() if k.startswith('fast/')}
+    state = params_from_jax(flat)
     NerfModel(cfg).load_state_dict(state)  # strict: every key must match
     save_weights(out_path, state, cfg, train_cfg)
     return out_path
@@ -72,7 +81,10 @@ def convert_checkpoint(ckpt_path: str, out_dir: str, nerf_config: str = None,
     from hypernerf_tpu.training.checkpoints import restore_checkpoint
     from hypernerf_tpu_torch.configs import TrainConfig
     from hypernerf_tpu_torch.convert import (adam_state_from_jax,
-                                             params_from_jax)
+                                             lookahead_params,
+                                             params_from_jax,
+                                             steps_since_sync,
+                                             trace_state_from_jax)
     from hypernerf_tpu_torch.models.nerf import NerfModel
     from hypernerf_tpu_torch.training.checkpoints import save_checkpoint
     from hypernerf_tpu_torch.training.optimizers import get_optimizer
@@ -86,19 +98,32 @@ def convert_checkpoint(ckpt_path: str, out_dir: str, nerf_config: str = None,
     cfg, train_cfg = _configs(ckpt_path, nerf_config, train_config)
     train_cfg = train_cfg or TrainConfig()
     model = NerfModel(cfg)
-    model.load_state_dict(params_from_jax(raw['nerf']))  # strict
+    fast, slow = lookahead_params(raw['nerf'])
+    if (slow is not None) != (train_cfg.optimizer == 'ranger'):
+        raise ValueError(f'the checkpoint\'s parameters do not fit its '
+                         f'optimizer {train_cfg.optimizer!r}')
+    model.load_state_dict(params_from_jax(fast))  # strict
     optimizer, _ = get_optimizer(train_cfg, model.parameters(),
                                  steps_per_epoch=1)
-    moments = adam_state_from_jax(raw['opt_state'])
-    if moments.keys() != dict(model.named_parameters()).keys():
-        raise ValueError('the Adam moments do not cover the parameters')
+    opt_state = raw['opt_state']
+    if train_cfg.optimizer == 'sgd':
+        states = trace_state_from_jax(opt_state)
+    else:
+        states = adam_state_from_jax(opt_state)
+    if slow is not None:
+        for k, v in params_from_jax(slow).items():
+            states[k]['slow'] = v
+        for group in optimizer.param_groups:
+            group['steps_since_sync'] = steps_since_sync(opt_state)
+    if states.keys() != dict(model.named_parameters()).keys():
+        raise ValueError('the optimizer state does not cover the '
+                         'parameters')
     for name, p in model.named_parameters():
-        for k in ('exp_avg', 'exp_avg_sq'):
-            if moments[name][k].shape != p.shape:
-                raise ValueError(f'{k} of {name}: shape '
-                                 f'{tuple(moments[name][k].shape)}, the '
-                                 f'parameter {tuple(p.shape)}')
-        optimizer.state[p] = moments[name]
+        for k, v in states[name].items():
+            if v.dim() and v.shape != p.shape:
+                raise ValueError(f'{k} of {name}: shape {tuple(v.shape)}, '
+                                 f'the parameter {tuple(p.shape)}')
+        optimizer.state[p] = states[name]
     grid = raw.get('occupancy')
     state = TrainState(
         step=int(raw['step']), model=model, optimizer=optimizer,
