@@ -191,7 +191,7 @@ Phases, one line each; any failure ends the run with a non-zero exit:
      16 steps from the first), its time without the refresh and amortised
      over 16 steps, a 1024-ray step through the grid against the plain
      versions;
- 24. the kernels' JSON line, then the result line (after phase 25);
+ 24. the kernels' JSON line, then the result line (after phase 27);
  25. the trainer and its entry point: ``tools/make_synthetic_scene.py``
      writes an 8-frame 160x120 scene into a temporary directory (never the
      repo), where ``hypernerf_tpu_torch.train.main(argv)`` trains the
@@ -208,7 +208,25 @@ Phases, one line each; any failure ends the run with a non-zero exit:
      step 36 within 1.0 dB of the kernels' (an untrained model must lie
      further off) and the val PSNR at step 32 within 0.5 dB; the kernels
      again, whose spread is printed; steps per second of each, with the
-     card's name and power limit.
+     card's name and power limit;
+ 26. the ``use_nerf_embed`` conditions (``nerf_embed``: the GLO embedding
+     as the alpha condition and after the view directions in the rgb
+     condition, 8 and 47 columns): rows 1, 8 and 9 with both conditions
+     against the JAX kernels' stored outputs and gradients (tests/data,
+     d alpha_cond too) and, for each new condition width (47, 8 and 0 in
+     the flagship's layout, 35 in the Nerfies one), against their plain
+     versions at 37 x 13 rays and at the render's and the train step's
+     shapes, timed in turns with the flagship's kernels; then three
+     504x378 ``nerf_embed`` frames (and the flagship's in the same call),
+     1024 rays against the plain versions, a ``return_points`` frame and
+     ``query_sigma``;
+ 27. the ``nerf_embed`` train step at batch 16384 as phase 7 runs it; one
+     frame and one step each of ``use_viewdirs=False`` (a zero-width rgb
+     condition), the static model with its own nerf table and ``anneal``
+     with the embedding; ``train.main`` with ``--use_nerf_embedding
+     --use_alpha_condition --use_rgb_condition`` for 8 steps on phase 25's
+     scene, against the same steps through the plain versions (val PSNR
+     within 0.5 dB).
 Times come from CUDA events (kernels) or the host clock around work that
 ends in a synchronize (frames, steps). A kernel's bound is the larger of
 its matrix-product operations over the card's dense bf16 peak and its bytes
@@ -289,6 +307,7 @@ N_FRAMES = 3
 CARD = ''  # nvidia-smi's name and power limit, printed beside phase 25's times
 TRAIN_RAYS, TRAIN_STEPS, WARMUP_STEPS = 16384, 5, 2
 PLAIN_CHUNK = 2048
+TIMES = {}  # figures a later phase prints beside its own
 
 
 T_START = time.perf_counter()
@@ -331,14 +350,15 @@ def level_macs(level):
     return sum(sizes[:-16]), sum(sizes[-16:])
 
 
-def level_bound(level, n_rays: int, samples: int):
+def level_bound(level, n_rays: int, samples: int, cond: int = 39):
     """(bound_ms, bound_by) of one level forward: every weight is one
-    multiply-add per sample; bytes are the ray inputs, the weights once, the
-    output."""
+    multiply-add per sample (the alpha head's condition columns included);
+    bytes are the ray inputs (``cond`` bf16 condition columns a ray, rgb
+    and alpha), the weights once, the output."""
     macs = sum(level_macs(level))
     p = n_rays * samples
     return bound(2.0 * macs * p,
-                 4 * p + n_rays * (24 + 32 + 78) + 2 * macs + 16 * p)
+                 4 * p + n_rays * (24 + 32 + 2 * cond) + 2 * macs + 16 * p)
 
 
 # The level forward's times on this card before its redesign around
@@ -611,34 +631,40 @@ def chunks(n_rays: int):
             for r0 in range(0, n_rays, PLAIN_CHUNK)]
 
 
-def plain_forward(level, args, warp_scales=None, tmpl_scales=None):
+def plain_forward(level, args, warp_scales=None, tmpl_scales=None,
+                  alpha=None):
     """(out, raw_t) of the plain level forward, over chunks of PLAIN_CHUNK
-    rays."""
+    rays (``alpha``: the alpha condition, or None)."""
     import torch
     from hypernerf_tpu_torch.kernels import fused_level_plain
     parts = [fused_level_plain(level, *[a[r0:r1].contiguous() for a in args],
                                return_raw_t=True, warp_scales=warp_scales,
-                               tmpl_scales=tmpl_scales)
+                               tmpl_scales=tmpl_scales,
+                               alpha_cond=None if alpha is None
+                               else alpha[r0:r1].contiguous())
              for r0, r1 in chunks(args[0].shape[0])]
     return tuple(torch.cat([p[i] for p in parts]) for i in range(2))
 
 
-def plain_template_bwd(level, raw_t, rgb_cond, g, scales=None):
+def plain_template_bwd(level, raw_t, rgb_cond, g, scales=None, alpha=None):
     """The plain template backward over chunks of PLAIN_CHUNK rays (the
     plain version keeps every activation of a chunk in device memory):
-    [dx_t, d rgb_cond, 32 x dW/db], per-sample and per-ray outputs
-    concatenated, dW / db summed."""
+    [dx_t, d rgb_cond, 32 x dW/db] and, with an alpha condition ``alpha``,
+    d alpha_cond last; per-sample and per-ray outputs concatenated, dW / db
+    summed."""
     import torch
     from hypernerf_tpu_torch.kernels import fused_template_bwd_plain
     s = raw_t.shape[0] // rgb_cond.shape[0]
-    parts = []
+    parts, d_alpha = [], []
     for r0, r1 in chunks(rgb_cond.shape[0]):
-        dx_t, d_cond, grads = fused_template_bwd_plain(
+        dx_t, d_cond, grads, d_a = fused_template_bwd_plain(
             level, raw_t[r0 * s:r1 * s], rgb_cond[r0:r1], g[r0 * s:r1 * s],
-            scales)
+            scales, None if alpha is None else alpha[r0:r1])
         parts.append([dx_t, d_cond, *grads])
-    return ([torch.cat([p[i] for p in parts]) for i in range(2)]
-            + [sum(p[i] for p in parts) for i in range(2, len(parts[0]))])
+        d_alpha.append(d_a)
+    out = ([torch.cat([p[i] for p in parts]) for i in range(2)]
+           + [sum(p[i] for p in parts) for i in range(2, len(parts[0]))])
+    return out + ([] if alpha is None else [torch.cat(d_alpha)])
 
 
 def plain_fields_bwd(level, args, dx_t, warp_scales=None):
@@ -671,17 +697,19 @@ TEMPLATE_BWD_SOURCES = ('template_rowprod.cu', 'template_dw.cu',
                         'template_bwd.cu')
 
 
-def template_bwd_bound(level, n_rays: int, samples: int, raw: int = 8):
+def template_bwd_bound(level, n_rays: int, samples: int, raw: int = 8,
+                       cond: int = 39):
     """(bound_ms, bound_by) of the template backward on n_rays x samples
     rows: the recompute, g W and g^T h each take one multiply-add per weight
-    and row; bytes are the inputs and outputs once (raw_t, g, dx_t per row,
-    ``raw`` fp32 columns each of raw_t and dx_t; the condition and its
-    cotangent per ray) and the weights and dW once. The function's work, not
-    the stash's bytes."""
+    and row (the alpha head's condition columns included); bytes are the
+    inputs and outputs once (raw_t, g, dx_t per row, ``raw`` fp32 columns
+    each of raw_t and dx_t; the ``cond`` condition columns, bf16, and their
+    fp32 cotangent per ray) and the weights and dW once. The function's
+    work, not the stash's bytes."""
     t_macs = level_macs(level)[1]
     p = n_rays * samples
     return bound(6.0 * t_macs * p,
-                 p * (8 * raw + 16) + n_rays * (78 + 156) + 6 * t_macs)
+                 p * (8 * raw + 16) + n_rays * 6 * cond + 6 * t_macs)
 
 
 def fields_bwd_bound(level, n_rays: int, samples: int, raw: int = 8):
@@ -853,7 +881,7 @@ def backward_phase(kernels):
                            f'plain R={r} S={s}: raw_t', '[6]')]
             del out, want_out, want_raw_t
             want_a = plain_template_bwd(lv, raw_t, args[4], g)
-            got_dx_t, d_cond, t_grads = fused_template_bwd(lv, raw_t,
+            got_dx_t, d_cond, t_grads, _ = fused_template_bwd(lv, raw_t,
                                                            args[4], g)
             dx_t = want_a[0]
             d_z, d_o, d_d, d_e, f_grads = fused_fields_bwd(lv, *args[:4],
@@ -1319,8 +1347,10 @@ def train_path(config: str, tag: str, times=None) -> dict:
 
 def train_phase(kernels) -> None:
     """Phase 7: the flagship train step; fills in the train launches of its
-    kernels' entries."""
-    launches = train_path('flagship', '[7]')
+    kernels' entries and keeps its seconds a step (TIMES)."""
+    times = {}
+    launches = train_path('flagship', '[7]', times)
+    TIMES['flagship_step'] = times['secs']
     for k in kernels:
         k['train_launches'] = launches[k['name']]
         k.setdefault('launches', launches[k['name']])
@@ -1377,15 +1407,17 @@ def plain_field_bwd(mlp, n_freq, x_raw, g, scales=None):
         sum(grads[i] for _, grads in parts) for i in range(len(parts[0][1]))]
 
 
-def plain_template(tmpl, x_raw, rgb_cond, scales=None):
-    """The plain template forward over chunks of condition rows."""
+def plain_template(tmpl, x_raw, rgb_cond, scales=None, alpha=None):
+    """The plain template forward over chunks of condition rows (``alpha``:
+    the alpha condition, or None)."""
     import torch
     from hypernerf_tpu_torch.kernels import fused_template_plain
     s = x_raw.shape[0] // rgb_cond.shape[0]
     step = max(1, PLAIN_CHUNK * ROWS_128 // s)
     return torch.cat([
         fused_template_plain(tmpl, x_raw[r0 * s:(r0 + step) * s],
-                             rgb_cond[r0:r0 + step], scales)
+                             rgb_cond[r0:r0 + step], scales,
+                             None if alpha is None else alpha[r0:r0 + step])
         for r0 in range(0, rgb_cond.shape[0], step)])
 
 
@@ -1604,7 +1636,7 @@ def modular_kernel_phase():
             x, cond = template_rows(r, s, seed=r % 79 + s,
                                     static=config == 'static')
             g = torch.randn(r * s, 4, generator=gen).cuda()
-            dx_t, d_cond, grads = K.fused_template_bwd(t, x, cond, g)
+            dx_t, d_cond, grads, _ = K.fused_template_bwd(t, x, cond, g)
             torch.cuda.synchronize()
             errs['A'].append(check_grads(
                 f'{config} template backward (A) R={r} S={s} vs plain',
@@ -1645,7 +1677,7 @@ def modular_kernel_phase():
                 raise AssertionError('the chained stage kernels differ from '
                                      'the level kernel')
             g = torch.randn(512 * s, 4, generator=gen).cuda()
-            dx_t, _, _ = K.fused_template_bwd(lv, want_raw_t, args[4], g)
+            dx_t, _, _, _ = K.fused_template_bwd(lv, want_raw_t, args[4], g)
             want_b = K.fused_fields_bwd(lv, *args[:4], dx_t)
             dx_w, grads_w = K.fused_field_bwd(
                 lv.warp.mlp, lv.warp.n_freq, x_raw,
@@ -2926,6 +2958,8 @@ def main() -> int:
     plane_paths_phase(kernels)
     occupancy_paths_phase(kernels)
     trainer_phase(kernels)
+    condition_kernel_phase(kernels)
+    condition_paths_phase(kernels)
     if len(kernels) != 18:
         raise AssertionError(f'{len(kernels)} kernels in the line, want 18')
     return finish(kernels)
@@ -3056,8 +3090,8 @@ def anneal_kernel_phase(kernels) -> None:
                 f'anneal template alone (row 8) R={r} S={s} vs plain',
                 '[19]'))
             if r == CHUNK or r < 100:
-                dx_t, d_cond, grads = K.fused_template_bwd(lv, x, args[4], g,
-                                                           sc)
+                dx_t, d_cond, grads, _ = K.fused_template_bwd(
+                    lv, x, args[4], g, sc)
                 torch.cuda.synchronize()
                 errs['A'].append(check_grads(
                     f'anneal template backward (A) R={r} S={s} vs plain',
@@ -3126,15 +3160,17 @@ def anneal_kernel_phase(kernels) -> None:
                      anneal_rel_l2_err=max(e[0] for e in errs['A']))
 
 
-def template_fwd_bound(level, n_rays: int, samples: int, raw: int = 8):
+def template_fwd_bound(level, n_rays: int, samples: int, raw: int = 8,
+                       cond: int = 39):
     """(bound_ms, bound_by) of the template alone on n_rays x samples rows:
-    one multiply-add per weight and row; bytes are the raw rows (``raw``
-    fp32 columns) and the output per row, the condition per ray and the
-    weights once."""
+    one multiply-add per weight and row (the alpha head's condition columns
+    included); bytes are the raw rows (``raw`` fp32 columns) and the output
+    per row, the ``cond`` bf16 condition columns per ray and the weights
+    once."""
     t_macs = level_macs(level)[1]
     p = n_rays * samples
     return bound(2.0 * t_macs * p,
-                 p * (4 * raw + 16) + n_rays * 78 + 2 * t_macs)
+                 p * (4 * raw + 16) + n_rays * 2 * cond + 2 * t_macs)
 
 
 def anneal_paths_phase(kernels) -> None:
@@ -3610,8 +3646,8 @@ def occupancy_kernel_phase(kernels) -> None:
             g = torch.randn(r * s, 4, generator=gen).cuda()
             out, raw_t = _launch_forward(lv, *args, want_raw_t=True)
             want_a = plain_template_bwd(lv, raw_t, args[4], g)
-            got_dx_t, d_cond, t_grads = fused_template_bwd(lv, raw_t, args[4],
-                                                           g)
+            got_dx_t, d_cond, t_grads, _ = fused_template_bwd(
+                lv, raw_t, args[4], g)
             dx_t = want_a[0]
             got_b = fused_fields_bwd(lv, *args[:4], dx_t)
             got_b = [*got_b[:4], *got_b[4]]
@@ -4072,6 +4108,456 @@ def trainer_phase(kernels) -> None:
             sys.path.remove(tools)
     phase(f'[25] the trainer phase took {time.perf_counter() - t_phase:.1f} '
           f's; {CARD}')
+
+
+# -- the use_nerf_embed conditions and use_viewdirs=False --------------------
+
+# The template's condition cases on rows 1, 8 and 9: name -> (configuration,
+# overrides, rgb condition width, alpha condition width). ``nerf_embed`` is
+# the configuration; the others take the widths its kernels add: the nerf
+# embedding alone as the rgb condition, no condition at all (a zero-width
+# rgb condition), and the Nerfies layout's view directions with the
+# embedding after them.
+COND_CASES = {
+    'nerf_embed': ('nerf_embed', {}, 47, 8),
+    'embed_only': ('nerf_embed', dict(use_viewdirs=False), 8, 8),
+    'no_viewdirs': ('flagship', dict(use_viewdirs=False), 0, 0),
+    'anneal_embed': ('anneal', dict(use_nerf_embed=True,
+                                    use_alpha_condition=True,
+                                    use_rgb_condition=True), 35, 8)}
+STEP_LAUNCHES['nerf_embed'] = STEP_LAUNCHES['flagship']
+STEP_LAUNCHES['no_viewdirs'] = STEP_LAUNCHES['flagship']
+STEP_LAUNCHES['anneal_embed'] = STEP_LAUNCHES['flagship']
+STEP_LAUNCHES['static_embed'] = STEP_LAUNCHES['static']
+PATHS['no_viewdirs'] = ('flagship', dict(use_viewdirs=False))
+PATHS['anneal_embed'] = COND_CASES['anneal_embed'][:2]
+PATHS['static_embed'] = ('static', dict(use_nerf_embed=True,
+                                        use_rgb_condition=True,
+                                        use_alpha_condition=True))
+COND_GRAD_RUNS = 2  # runs of the level's backward against the stored JAX
+COND_TRAIN_STEPS = 8  # steps of the entry point with the three flags
+
+
+def cond_model(case: str, seed=None):
+    """The probe model of a ``COND_CASES`` case on the card (seeded init
+    with ``seed``)."""
+    from hypernerf_tpu_torch.flagship import flagship_model, load_probe_weights
+    config, over, *_ = COND_CASES[case]
+    if seed is not None:
+        return flagship_model('cuda', seed=seed, config=config, **over)
+    return load_probe_weights(flagship_model('cuda', config=config, **over))
+
+
+def cond_inputs(case: str, n_rays: int, samples: int, seed: int):
+    """(``level_inputs`` with the case's rgb condition, its alpha condition
+    or None, its template window rows of each level or None): the view
+    directions' encoding (the Nerfies one at the probe step's
+    ``nerf_alpha``) unless the case has none, then the ray's GLO code as
+    the nerf embedding."""
+    import torch
+    from hypernerf_tpu_torch.flagship import (anneal_condition,
+                                              anneal_extra_params)
+    config, over, rgb_w, alpha_w = COND_CASES[case]
+    args = level_inputs(n_rays, samples, seed)
+    view = args[4]
+    if config == 'anneal':
+        view = torch.from_numpy(anneal_condition(
+            args[2].cpu().numpy(), anneal_extra_params()['nerf_alpha'])).cuda()
+    if not over.get('use_viewdirs', True):
+        view = view[:, :0]
+    embed = args[3] if rgb_w > view.shape[1] else args[3][:, :0]
+    args[4] = torch.cat([view, embed], dim=1).contiguous()
+    if args[4].shape[1] != rgb_w:
+        raise AssertionError(f'{case}: rgb condition {args[4].shape}')
+    return args, (args[3].clone() if alpha_w else None)
+
+
+def cond_scales(case: str, model, level: str):
+    """The template's window row of a Nerfies case at the probe step's
+    alphas, else None."""
+    from hypernerf_tpu_torch.flagship import anneal_extra_params
+    from hypernerf_tpu_torch.kernels.fused_mlp import template_scales
+    if COND_CASES[case][0] != 'anneal':
+        return None
+    ep = anneal_extra_params()
+    return template_scales(model.template_of(level), ep['nerf_alpha'],
+                           ep['hyper_alpha'], 'cuda')
+
+
+def condition_kernel_phase(kernels) -> None:
+    """Phase 26's kernel checks: rows 1, 8 and 9 (the level forward, the
+    template alone and kernel A) with the ``use_nerf_embed`` alpha
+    condition (the alpha head on [bottleneck | embedding]) and each new rgb
+    condition width (47, 8 and 0 in the flagship's layout, 35 in the
+    Nerfies one) at the probe weights: against the JAX kernels' stored
+    outputs and gradients (tests/data, the level's backward A then B as
+    training runs it) and against their plain versions up to the render's
+    and the train step's shapes, each timed beside the flagship's kernel
+    (the view directions alone, no alpha condition) in turns; adds those
+    numbers to the three kernels' entries."""
+    import torch
+    from hypernerf_tpu_torch import kernels as K
+    from hypernerf_tpu_torch.flagship import (CONDITION_LEVEL_CASES,
+                                              CONDITION_TEMPLATE_CASES,
+                                              LEVEL_INPUTS, flagship_model,
+                                              load_probe_weights,
+                                              read_condition_reference)
+    from hypernerf_tpu_torch.kernels import common
+    from hypernerf_tpu_torch.kernels.fused_level import (_launch_forward,
+                                                         _level_params)
+    from hypernerf_tpu_torch.kernels.fused_mlp import template_layers
+    entry = {k['name']: k for k in kernels}
+    ref = read_condition_reference()
+    probe = cond_model('nerf_embed')
+    for case, (level, *_) in CONDITION_LEVEL_CASES.items():
+        a = {k: torch.from_numpy(v).cuda() for k, v in ref[case].items()}
+        lv = probe.level(level)
+        params = _level_params(lv)
+        names = [f'd_{k}' for k in LEVEL_INPUTS] + ['d_alpha_cond'] + [
+            f'd{"wb"[i % 2]}{i // 2}' for i in range(len(params))]
+        for run in range(COND_GRAD_RUNS):
+            args = [a[k].detach().requires_grad_() for k in LEVEL_INPUTS]
+            ac = a['alpha_cond'].detach().requires_grad_()
+            out = K.fused_level(lv, *args, alpha_cond=ac)
+            hold_level(out.detach(), a['out'], f'nerf_embed {case} vs the '
+                       f'stored JAX output', '[26]')
+            got = torch.autograd.grad(out, args + [ac] + params,
+                                      a['cotangent'])
+            keep = [i for i, n in enumerate(names) if n in a]
+            check_grads(f'nerf_embed {case} backward (A + B), run {run + 1} '
+                        f'of {COND_GRAD_RUNS}, vs the stored JAX gradients '
+                        f'(every input, d alpha_cond, every db, the alpha '
+                        f'head\'s and rgb layer 0\'s dW)',
+                        [names[i] for i in keep], [got[i] for i in keep],
+                        [a[names[i]] for i in keep], tag='[26]')
+    for case, (level, *_) in CONDITION_TEMPLATE_CASES.items():
+        a = {k: torch.from_numpy(v).cuda() for k, v in ref[case].items()}
+        t = probe.template_of(level)
+        ins = [a[k].detach().requires_grad_() for k in ('x_raw', 'rgb_cond',
+                                                         'alpha_cond')]
+        out = K.fused_template(t, ins[0], ins[1], alpha_cond=ins[2])
+        hold_level(out.detach(), a['out'], f'nerf_embed {case} (row 8) vs '
+                   f'the stored JAX output', '[26]')
+        layers = template_layers(t.template)
+        got = torch.autograd.grad(out, ins + common.layer_params(layers),
+                                  a['cotangent'])
+        names = ['dx', 'd_rgb_cond', 'd_alpha_cond'] + [
+            f'd{"wb"[i % 2]}{i // 2}' for i in range(2 * len(layers))]
+        keep = [i for i, n in enumerate(names) if n in a]
+        check_grads(f'nerf_embed {case} backward (A) vs the stored JAX '
+                    f'gradients', [names[i] for i in keep],
+                    [got[i] for i in keep], [a[names[i]] for i in keep],
+                    tag='[26]')
+
+    flag = load_probe_weights(flagship_model('cuda'))
+    a_names = TEMPLATE_GRAD_NAMES + ['d_alpha_cond']
+    gen = torch.Generator().manual_seed(26)
+    with torch.no_grad():
+        # The alpha condition is seen: a shift of it moves sigma alone, by
+        # more than the level check's tolerance.
+        lv = probe.level('coarse')
+        args, alpha = cond_inputs('nerf_embed', 512, 64, 5)
+        base = plain_forward(lv, args, alpha=alpha)[0]
+        moved = plain_forward(lv, args, alpha=alpha + 0.05)[0] - base
+        phase(f'[26] probe: 0.05 on the alpha condition moves the plain '
+              f'level\'s raw sigma by mean {moved[:, 3].abs().mean():.3e} '
+              f'and its rgb logits by max {moved[:, :3].abs().max():.1e}')
+        if not moved[:, 3].abs().mean() > LEVEL_MEAN or \
+                moved[:, :3].abs().max() != 0:
+            raise AssertionError('the alpha condition check cannot see it')
+        for case, (_, _, rgb_w, alpha_w) in COND_CASES.items():
+            model = probe if case == 'nerf_embed' else cond_model(case)
+            errs = {'fwd': [], 'tmpl': [], 'A': []}
+            times, bounds = {}, {}
+            for r, s in ((37, 13), (CHUNK, 128), (TRAIN_RAYS, 128)):
+                level = 'fine' if s == 128 else 'coarse'
+                lv = model.level(level)
+                sc = cond_scales(case, model, level)
+                args, alpha = cond_inputs(case, r, s, s + 26)
+                out, raw_t = _launch_forward(lv, *args, want_raw_t=True,
+                                             tmpl_scales=sc, alpha_cond=alpha)
+                if r <= CHUNK:
+                    want_out, want_raw_t = plain_forward(
+                        lv, args, tmpl_scales=sc, alpha=alpha)
+                    errs['fwd'] += [
+                        hold_level(out, want_out, f'{case} level forward '
+                                   f'R={r} S={s} vs plain: out', '[26]'),
+                        hold_level(raw_t, want_raw_t, f'{case} level forward '
+                                   f'R={r} S={s} vs plain: raw_t', '[26]')]
+                    errs['tmpl'].append(hold_level(
+                        K.fused_template(lv, raw_t, args[4], sc,
+                                         alpha_cond=alpha),
+                        plain_template(lv, raw_t, args[4], sc, alpha),
+                        f'{case} template alone (row 8) R={r} S={s} vs '
+                        f'plain', '[26]'))
+                    del want_out, want_raw_t
+                if r != CHUNK:
+                    g = torch.randn(r * s, 4, generator=gen).cuda()
+                    got = K.fused_template_bwd(lv, raw_t, args[4], g, sc,
+                                               alpha)
+                    got = [got[0], got[1], *got[2]] + (
+                        [got[3]] if alpha is not None else [])
+                    want = plain_template_bwd(lv, raw_t, args[4], g, sc,
+                                              alpha)
+                    # A zero-width condition has an empty cotangent.
+                    trip = [(n, x, y) for n, x, y in zip(a_names, got, want)
+                            if y.numel()]
+                    errs['A'].append(check_grads(
+                        f'{case} template backward (A) R={r} S={s} vs plain',
+                        *zip(*trip), tag='[26]'))
+                    del got, want
+                # Timed in turns with the flagship's kernel (39 columns, no
+                # alpha condition) on inputs of the same size.
+                flv = flag.level(level)
+                fargs = level_inputs(r, s, s + 26)
+                fraw = _launch_forward(flv, *fargs, want_raw_t=True)[1]
+                if r == CHUNK:
+                    times['fwd'] = [
+                        cuda_ms(lambda: K.fused_level(
+                            lv, *args, None, sc, alpha_cond=alpha)),
+                        cuda_ms(lambda: K.fused_level(flv, *fargs)),
+                        cuda_ms(lambda: K.fused_level(flv, *fargs)),
+                        cuda_ms(lambda: K.fused_level(
+                            lv, *args, None, sc, alpha_cond=alpha))]
+                    times['tmpl'] = [
+                        cuda_ms(lambda: K.fused_template(
+                            lv, raw_t, args[4], sc, alpha_cond=alpha)),
+                        cuda_ms(lambda: K.fused_template(flv, fraw,
+                                                         fargs[4])),
+                        cuda_ms(lambda: K.fused_template(flv, fraw,
+                                                         fargs[4])),
+                        cuda_ms(lambda: K.fused_template(
+                            lv, raw_t, args[4], sc, alpha_cond=alpha))]
+                    times['plain_fwd'] = cuda_ms(
+                        lambda: plain_forward(lv, args, tmpl_scales=sc,
+                                              alpha=alpha), 2)
+                    times['plain_tmpl'] = cuda_ms(
+                        lambda: plain_template(lv, raw_t, args[4], sc,
+                                               alpha), 2)
+                    width = rgb_w + alpha_w
+                    bounds['fwd'] = level_bound(lv, r, s, width)
+                    bounds['tmpl'] = template_fwd_bound(lv, r, s, cond=width)
+                if r == TRAIN_RAYS:
+                    g = torch.randn(r * s, 4, generator=gen).cuda()
+                    times['A'] = [
+                        cuda_ms(lambda: K.fused_template_bwd(
+                            lv, raw_t, args[4], g, sc, alpha), 3),
+                        cuda_ms(lambda: K.fused_template_bwd(
+                            flv, fraw, fargs[4], g), 3),
+                        cuda_ms(lambda: K.fused_template_bwd(
+                            flv, fraw, fargs[4], g), 3),
+                        cuda_ms(lambda: K.fused_template_bwd(
+                            lv, raw_t, args[4], g, sc, alpha), 3)]
+                    times['plain_A'] = cuda_ms(
+                        lambda: plain_template_bwd(lv, raw_t, args[4], g, sc,
+                                                   alpha), 1)
+                    bounds['A'] = template_bwd_bound(
+                        lv, r, s, cond=rgb_w + alpha_w)
+                del out, raw_t, fraw
+                torch.cuda.empty_cache()
+            rows = {'fwd': ('level forward (row 1)', 'fused_level_fwd',
+                            CHUNK),
+                    'tmpl': ('template alone (row 8)', 'fused_template_fwd',
+                             CHUNK),
+                    'A': ('template backward (A, row 9)',
+                          'fused_template_bwd', TRAIN_RAYS)}
+            for key, (what, name, r) in rows.items():
+                t, (b_ms, b_by) = times[key], bounds[key]
+                phase(f'[26] {case} (rgb condition {rgb_w}, alpha condition '
+                      f'{alpha_w}) {what} R={r} S=128: {t[0]:.3f}, '
+                      f'{t[3]:.3f} ms ({b_ms / min(t[0], t[3]):.1%} of its '
+                      f'bound {b_ms:.3f} ms, {b_by}); the flagship\'s in '
+                      f'turns {t[1]:.3f}, {t[2]:.3f} ms; plain '
+                      f'{times["plain_" + key]:.2f} ms; {CARD}')
+                e = entry[name]
+                e[f'ms_{case}'] = min(t[0], t[3])
+                e[f'flagship_ms_{case}'] = min(t[1], t[2])
+                e[f'plain_ms_{case}'] = times['plain_' + key]
+                e[f'bound_ms_{case}'] = b_ms
+                if key == 'A':
+                    new = error_keys(errs['A'])
+                    for k in ('max_abs_err', 'rel_l2_err',
+                              'max_err_over_largest_entry'):
+                        e[k] = max(e[k], new[k])
+                else:
+                    e['max_abs_err'] = max(e['max_abs_err'], *errs[key])
+            del model
+            torch.cuda.empty_cache()
+
+
+def condition_paths_phase(kernels) -> None:
+    """Phases 26 (the paths) and 27: ``nerf_embed`` at full width through
+    the entry points: three 504x378 frames through the level kernels after
+    a warm-up (and the flagship's in the same call), 1024 rays against the
+    plain versions, a frame with ``return_points`` (the template alone on
+    the per-module path), ``query_sigma`` (whose density takes the id's
+    alpha condition) and the train step at batch 16384 as phase 7 runs it
+    (a 1024-ray step against the plain versions: the loss and every
+    gradient, the GLO table's with the conditions' share); one frame and
+    one step each of ``use_viewdirs=False`` without an embedding (a
+    zero-width rgb condition on the level kernels), of the static model
+    with its own nerf table (module by module) and of ``anneal`` with the
+    embedding (35 columns); then ``python -m hypernerf_tpu_torch.train
+    --use_nerf_embedding --use_alpha_condition --use_rgb_condition`` for
+    COND_TRAIN_STEPS steps on a synthetic scene, and the same steps
+    through the plain versions. Fills in the launches of the kernels'
+    entries (each path's counts set to 0 just before it and read just
+    after)."""
+    import os
+    import tempfile
+
+    import torch
+    from hypernerf_tpu_torch.configs import TrainConfig
+    from hypernerf_tpu_torch.eval import eval_extra_params
+    from hypernerf_tpu_torch.flagship import H, W, flagship_model, spiral_rays
+    from hypernerf_tpu_torch.ops.ray_dict import prepare_ray_dict
+    from hypernerf_tpu_torch.training.renderer import ImageRenderer
+    chunks_per_frame = -(-W * H // CHUNK)
+    frames = spiral_rays(range(0, 30 * (N_FRAMES + 1), 30))
+    keep = ('rgb', 'depth', 'acc')
+    level_frame = {'fused_level_fwd': 2 * chunks_per_frame,
+                   'fused_composite_fwd': 2 * chunks_per_frame}
+    counts = {}
+    model = flagship_model('cuda', seed=0, config='nerf_embed')
+    renderer = ImageRenderer(model, chunk=CHUNK, keep=keep,
+                             levels=('fine',), quantize=True)
+    secs, counts['frame'] = time_frames(renderer, frames, keep, level_frame,
+                                        'nerf_embed frame')
+    flag_secs = time_frames(
+        ImageRenderer(flagship_model('cuda', seed=0), chunk=CHUNK, keep=keep,
+                      levels=('fine',), quantize=True), frames, keep,
+        level_frame, 'flagship frame')[0]
+    phase(f'[26] nerf_embed: rendered {N_FRAMES} frames {W}x{H} (64+64, '
+          f'chunk {CHUNK}): {secs:.4f} s/frame, the flagship\'s in the same '
+          f'call {flag_secs:.4f} s/frame; launches {counts["frame"]} (= 2 '
+          f'levels x {chunks_per_frame} chunks x {N_FRAMES} frames); no '
+          f'plain call; {CARD}')
+    small = torch.as_tensor(frames[0][::186][:1024]).cuda()
+    with torch.no_grad():
+        got = model(prepare_ray_dict(small))['fine']['rgb']
+        with plain_versions():
+            want = model(prepare_ray_dict(small))['fine']['rgb']
+    diff = (got - want).abs()
+    phase(f'[26] nerf_embed render of 1024 rays, kernels vs plain: fine rgb '
+          f'max|d| {diff.max().item():.3e} mean {diff.mean().item():.3e} '
+          f'(tol {RENDER_ATOL}, mean {RENDER_MEAN})')
+    if not torch.isfinite(got).all() or diff.max() > RENDER_ATOL \
+            or diff.mean() > RENDER_MEAN:
+        raise AssertionError('nerf_embed render: kernels and plain versions '
+                             'disagree')
+    pkeep = keep + ('med_points',)
+    renderer = ImageRenderer(model, chunk=CHUNK, keep=pkeep,
+                             levels=('fine',), quantize=True)
+    secs, counts['points'] = time_frames(
+        renderer, frames[:2], pkeep,
+        {'fused_template_fwd': 2 * chunks_per_frame,
+         'fused_field_fwd': 4 * chunks_per_frame},
+        'nerf_embed return_points frame')
+    phase(f'[26] nerf_embed with return_points: 1 frame {W}x{H} after a '
+          f'warm-up: {secs:.4f} s; launches {counts["points"]} (the warp '
+          f'field and the sheet alone, the template alone with both '
+          f'conditions); no level kernel, no plain call')
+    del renderer, model
+    torch.cuda.empty_cache()
+    counts['query'] = query_sigma_path(
+        'nerf_embed', {'fused_field_fwd': 2, 'fused_template_fwd': 1},
+        '[26]')
+    train_times = {}
+    counts['train'] = train_path('nerf_embed', '[27]', train_times)
+    torch.cuda.empty_cache()
+
+    # The other cases: one frame and one step each.
+    for config, base, over, want in (
+            ('no_viewdirs', 'flagship', dict(use_viewdirs=False),
+             level_frame),
+            ('static_embed', 'static', PATHS['static_embed'][1],
+             {'fused_template_fwd': 2 * chunks_per_frame}),
+            ('anneal_embed', 'anneal', PATHS['anneal_embed'][1],
+             level_frame)):
+        model = flagship_model('cuda', seed=0, config=base, **over)
+        extra = (eval_extra_params(model.config, TrainConfig())
+                 if base == 'anneal' else None)
+        renderer = ImageRenderer(model, chunk=CHUNK, keep=keep,
+                                 levels=('fine',), quantize=True,
+                                 extra_params=extra)
+        secs, counts[f'{config}_frame'] = time_frames(
+            renderer, frames[:2], keep, want, f'{config} frame')
+        with torch.no_grad():
+            got = model(prepare_ray_dict(small),
+                        extra_params=extra)['fine']['rgb']
+            with plain_versions():
+                ref = model(prepare_ray_dict(small),
+                            extra_params=extra)['fine']['rgb']
+        diff = (got - ref).abs()
+        phase(f'[27] {config}: 1 frame {W}x{H} after a warm-up: {secs:.4f} '
+              f's; launches {counts[f"{config}_frame"]}; 1024 rays against '
+              f'the plain versions: fine rgb max|d| {diff.max().item():.3e} '
+              f'mean {diff.mean().item():.3e} (tol {RENDER_ATOL}, mean '
+              f'{RENDER_MEAN})')
+        if not torch.isfinite(got).all() or diff.max() > RENDER_ATOL \
+                or diff.mean() > RENDER_MEAN:
+            raise AssertionError(f'{config} render: kernels and plain '
+                                 f'versions disagree')
+        del renderer, model
+        torch.cuda.empty_cache()
+        counts[f'{config}_train'] = train_path(config, '[27]')
+        torch.cuda.empty_cache()
+
+    # The entry point with the three flags, kernels then plain versions.
+    from hypernerf_tpu_torch import train as port_train
+    tools = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                         'tools')
+    sys.path.insert(0, tools)
+    import make_synthetic_scene
+    cwd = os.getcwd()
+    flags = ('--use_nerf_embedding', '--use_alpha_condition',
+             '--use_rgb_condition')
+    n = COND_TRAIN_STEPS
+    with tempfile.TemporaryDirectory() as tmp:
+        os.chdir(tmp)
+        try:
+            scene = make_synthetic_scene.make_scene(
+                os.path.join(tmp, 'scene'), **SMOKE_SCENE)
+            trainer, counts['cli'] = trainer_run(
+                smoke_argv(scene, 'cond', n, *flags), 'trainer with the '
+                'three condition flags (kernels)')
+            t = trainer.model.nerf_coarse
+            if (t.alpha_head.in_features, t.rgb_branch.hidden_0.in_features)\
+                    != (136, 175):
+                raise AssertionError('the entry point built no conditions')
+            metrics, speed = trainer.last_metrics, steps_per_second(trainer,
+                                                                     n)
+            del trainer
+            reset_counts()
+            with plain_versions():
+                plain = port_train.main(smoke_argv(scene, 'cond_plain', n,
+                                                   *flags))
+            if any(fn.launches for fn in kernel_wrappers()[0].values()):
+                raise AssertionError('the plain trainer launched a kernel')
+            plain_metrics = plain.last_metrics
+            del plain
+        finally:
+            os.chdir(cwd)
+            sys.path.remove(tools)
+    d_psnr = metrics['val/psnr'] - plain_metrics['val/psnr']
+    phase(f'[27] python -m hypernerf_tpu_torch.train {" ".join(flags)}: {n} '
+          f'steps (batch {SMOKE_BATCH}, 64+64, bf16) at {speed:.2f} steps/s; '
+          f'launches {counts["cli"]}; val psnr {metrics["val/psnr"]:.3f} '
+          f'against the plain versions\' {plain_metrics["val/psnr"]:.3f} '
+          f'({d_psnr:+.3f} dB, tol {SMOKE_PSNR_TOL}); train loss '
+          f'{metrics["train/loss"]:.5f} against '
+          f'{plain_metrics["train/loss"]:.5f}; {CARD}')
+    if not abs(d_psnr) <= SMOKE_PSNR_TOL or not all(
+            math.isfinite(v) for v in metrics.values()):
+        raise AssertionError('the entry point with the conditions: kernels '
+                             'and plain versions disagree')
+    for k in kernels:
+        for path, launches in counts.items():
+            if launches.get(k['name']):
+                k[f'nerf_embed_{path}_launches'] = launches[k['name']]
+    phase(f'[27] nerf_embed train step {train_times["secs"] * 1e3:.1f} '
+          f'ms/step against the flagship\'s {TIMES["flagship_step"] * 1e3:.1f}'
+          f' ms/step (phase 7 of this call); {CARD}')
 
 
 def finish(kernels) -> int:

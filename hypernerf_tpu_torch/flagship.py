@@ -1,14 +1,14 @@
 """The flagship setups: the configuration ``bench.py`` renders and trains
 (NerfConfig defaults with 64 + 64 samples, bf16 matmuls) and its ``static``,
-``split_glo``, ``se3``, ``quaternion``, ``elastic*``, ``anneal``, ``plane``
-and ``occupancy`` variants (``CONFIGS``), a seeded model of each, the
-occupancy grid ``bench.py`` starts from (``bench_grid``), LLFF
-spiral-path NDC rays of a 504x378 frame, the train step's model, optimizer
-and synthetic ray buffer (``flagship_train_setup``), and the probe weights
-and inputs at which the kernels are held against the JAX kernels' stored
-outputs and gradients (``LEVEL_REFERENCE``, ``GRAD_REFERENCE``,
-``MODULAR_REFERENCE``, ``SE3_REFERENCE``, ``JACOBIAN_REFERENCE``,
-``ANNEAL_REFERENCE``, ``PLANE_REFERENCE``, written by
+``split_glo``, ``se3``, ``quaternion``, ``elastic*``, ``anneal``, ``plane``,
+``occupancy`` and ``nerf_embed`` variants (``CONFIGS``), a seeded model of
+each, the occupancy grid ``bench.py`` starts from (``bench_grid``), LLFF
+spiral-path NDC rays of a 504x378 frame, the train step's model, optimizer and
+synthetic ray buffer (``flagship_train_setup``), and the probe weights and
+inputs at which the kernels are held against the JAX kernels' stored outputs
+and gradients (``LEVEL_REFERENCE``, ``GRAD_REFERENCE``, ``MODULAR_REFERENCE``,
+``SE3_REFERENCE``, ``JACOBIAN_REFERENCE``, ``ANNEAL_REFERENCE``,
+``PLANE_REFERENCE``, ``CONDITION_REFERENCE``, written by
 ``tools/make_level_reference.py``).
 
 Shared by ``chip_smoke.py``, ``tools/profile_render.py``,
@@ -64,7 +64,11 @@ GRAD_REFERENCE_CASE = ('coarse', 8, 64, 3)
 # template encoding), on the level kernels. ``occupancy`` is ``bench.py
 # --mode occupancy`` / ``render_occupancy``: the flagship at 32 + 32 samples
 # with the occupancy grid (G = 64, 64 probes a ray, floor 0.01, box +-2: the
-# config's defaults), on the level kernels.
+# config's defaults), on the level kernels. ``nerf_embed`` is the flagship
+# with the reference's per-frame appearance code on the template
+# (``--use_nerf_embedding --use_alpha_condition --use_rgb_condition``): the
+# shared GLO embedding as the alpha condition (8 columns) and after the view
+# directions' encoding in the rgb condition (47), on the level kernels.
 CONFIGS = {'flagship': {},
            'static': dict(use_warp=False, hyper_slice_method='none'),
            'split_glo': dict(share_glo=False),
@@ -78,7 +82,9 @@ CONFIGS = {'flagship': {},
            'anneal': dict(use_original_embed=False),
            'plane': dict(hyper_slice_method='axis_aligned_plane'),
            'occupancy': dict(use_occupancy_grid=True, num_coarse_samples=32,
-                             num_fine_samples=32)}
+                             num_fine_samples=32),
+           'nerf_embed': dict(use_nerf_embed=True, use_alpha_condition=True,
+                              use_rgb_condition=True)}
 # TrainConfig overrides of a configuration (``bench.py``'s elastic weight).
 TRAIN_CONFIGS = {c: dict(elastic_loss_weight=0.01)
                  for c in ('elastic', 'elastic_se3', 'elastic_quaternion')}
@@ -475,6 +481,62 @@ def plane_probe_inputs(case: str) -> dict:
     return {'x_raw': x_raw.astype(np.float32),
             'rgb_cond': posenc_orig(torch.from_numpy(dirs), 6).numpy(),
             'cotangent': rs.randn(rows, 4).astype(np.float32)}
+
+
+# The JAX kernels' numbers for the ``nerf_embed`` configuration at the probe
+# weights: the level kernel with both conditions (level, rays, samples per
+# ray, seed; ``alpha_cond_ch`` 8, a 47-column rgb condition) and the
+# template alone (level, rows, rows per condition row, seed), outputs and,
+# for the stored cotangent, the gradients of every input and, to keep the
+# file small, of the layers the conditions reach (CONDITION_GRAD_LAYERS: the
+# alpha head and rgb layer 0, by their index in the level's and in the
+# template's table) and every bias.
+CONDITION_REFERENCE = os.path.join(os.path.dirname(LEVEL_REFERENCE),
+                                   'fused_conditions_jax_ref.npz')
+CONDITION_LEVEL_CASES = {'level': ('coarse', 4, 64, 71)}
+CONDITION_TEMPLATE_CASES = {'template': ('fine', 256, 64, 72)}
+CONDITION_GRAD_LAYERS = {'level': (24, 25), 'template': (10, 11)}
+
+
+def condition_probe_inputs(case: str) -> dict:
+    """Numpy inputs and cotangent of a ``CONDITION_LEVEL_CASES`` case (the
+    ``LEVEL_INPUTS``, whose 'rgb_cond' is [posenc_orig(directions, 6) |
+    embed] (47), 'alpha_cond' = embed (8), and 'cotangent' (R * S, 4)) or of
+    a ``CONDITION_TEMPLATE_CASES`` case ('x_raw' (P, 8) [points | hyper
+    coordinates of deviation 0.3 | 0], 'rgb_cond' (P / S, 47), 'alpha_cond'
+    (P / S, 8), 'cotangent' (P, 4)): the ``use_nerf_embed`` conditions of
+    the rays' GLO codes."""
+    if case in CONDITION_LEVEL_CASES:
+        _, n_rays, samples, seed = CONDITION_LEVEL_CASES[case]
+        inputs = probe_inputs(n_rays, samples, seed)
+        inputs['rgb_cond'] = np.concatenate(
+            [inputs['rgb_cond'], inputs['embed']], 1)
+        inputs['alpha_cond'] = inputs['embed'].copy()
+        inputs['cotangent'] = probe_cotangents(n_rays, samples,
+                                               seed)['level']
+        return inputs
+    _, rows, per, seed = CONDITION_TEMPLATE_CASES[case]
+    rs = np.random.RandomState(seed + 3000)
+    rays = probe_inputs(rows // per, per, seed)
+    pts = (rays['origins'][:, None]
+           + rays['z_vals'][..., None] * rays['directions'][:, None])
+    x_raw = np.concatenate([pts.reshape(-1, 3), rs.randn(rows, 4) * 0.3,
+                            np.zeros((rows, 1))], 1)
+    return {'x_raw': x_raw.astype(np.float32),
+            'rgb_cond': np.concatenate([rays['rgb_cond'], rays['embed']], 1),
+            'alpha_cond': rays['embed'],
+            'cotangent': rs.randn(rows, 4).astype(np.float32)}
+
+
+def read_condition_reference(path: str = CONDITION_REFERENCE):
+    """{case: {name: array}} of the conditions' reference file."""
+    out = {case: {} for case in (*CONDITION_LEVEL_CASES,
+                                 *CONDITION_TEMPLATE_CASES)}
+    with np.load(path) as f:
+        for key in f.files:
+            case, name = key.split('/', 1)
+            out[case][name] = f[key]
+    return out
 
 
 def read_plane_reference(path: str = PLANE_REFERENCE):

@@ -31,7 +31,7 @@ _I = ctypes.c_int
 _L = ctypes.c_longlong
 # C entry points: name -> (argtypes, restype).
 _SIGNATURES = {
-    'hn_fused_level_fwd': ([_I] + [_P] * 11 + [_L, _I, _P], _I),
+    'hn_fused_level_fwd': ([_I] + [_P] * 13 + [_L, _I, _I, _P], _I),
     'hn_fused_level_layout': ([_I, _P, _P, _I], _I),
     'hn_fused_level_fwd_plan': ([_I, _P, _P, _P, _I], _I),
     'hn_tmpl_encode': ([_P, _P, _L, _I, _L, _P, _P], _I),
@@ -45,6 +45,8 @@ _SIGNATURES = {
                          + [_I, _P], _I),
     'hn_tmpl_cond_bwd': ([_P, _L, _P, _L, _I, _P, _P, _P, _L, _L, _I, _L,
                           _I, _I, _I, _P], _I),
+    'hn_tmpl_alpha_cond_bwd': ([_P] * 5 + [_L, _L, _L, _I, _I, _I, _P],
+                               _I),
     'hn_tmpl_bneck_prep': ([_P, _P, _L, _P, _L, _I, _P, _P, _L, _P]
                            + [_L] * 5 + [_I, _P], _I),
     'hn_tmpl_posenc_bwd': ([_P, _P, _L, _P, _L, _P, _P], _I),
@@ -57,8 +59,8 @@ _SIGNATURES = {
     'hn_fused_field_bwd_plan': ([_I, _P, _P, _P, _I], _I),
     'hn_fused_se3_fwd': ([_P] * 5 + [_L, _P], _I),
     'hn_fused_se3_bwd': ([_P] * 8 + [_L, _I, _P], _I),
-    'hn_fused_template_fwd': ([_P] * 6 + [_L, _I, _P], _I),
-    'hn_fused_template_fwd_plane': ([_P] * 6 + [_L, _I, _P], _I),
+    'hn_fused_template_fwd': ([_P] * 8 + [_L, _I, _I, _P], _I),
+    'hn_fused_template_fwd_plane': ([_P] * 8 + [_L, _I, _I, _P], _I),
     'hn_modular_fwd_plan': ([_I, _P, _P, _P, _I], _I),
     'hn_fused_jacobian_fwd': ([_P] * 4 + [_L, _P], _I),
     'hn_fused_jacobian_bwd': ([_P] * 8 + [_L, _I, _P], _I),

@@ -21,18 +21,26 @@ from hypernerf_tpu_torch.models.modules import MLP, dense
 from hypernerf_tpu_torch.ops.posenc import posenc_window, repeat_bands
 
 # The widths the CUDA kernels are compiled for (NerfConfig's flagship).
+# 'rgb_cond' holds the rgb condition widths a layout covers: posenc_orig of
+# the view directions (39), with the nerf embedding after it (47), the
+# embedding alone (8) or nothing (0: ``use_viewdirs=False`` without
+# ``use_rgb_condition``, the rgb branch on the bottleneck alone, its
+# condition columns zero); ALPHA_COND the alpha condition's (none, or the
+# embedding: the alpha head on [bottleneck | embedding]).
 FLAGSHIP = dict(embed=8, warp_freq=10, hyper_sheet_freq=7, hyper_out=4,
-                xyz_freq=10, hyper_freq=6, rgb_cond=39)
+                xyz_freq=10, hyper_freq=6, rgb_cond=(39, 47, 8, 0))
+ALPHA_COND = (0, 8)
 # The template's second layout (csrc/level_common.cuh ``NerfEnc``):
 # the Nerfies encoding of ``use_original_embed=False``, the anneal
 # configuration. Its segments, as ``encoding_scales`` takes them: the xyz
 # over degrees 0..10 with the identity columns, the 4 hyper coordinates over
 # degrees 0..4 without; 95 columns, each band weighted by its annealing
 # window (a tensor input of every call). Its condition is posenc(viewdirs,
-# 0, 4, identity): 27 columns. It fills the flagship layout's compiled
+# 0, 4, identity): 27 columns (35 with the nerf embedding, 8 the embedding
+# alone, 0 none). It fills the flagship layout's compiled
 # slots: the encoding TMPL_ENC_PAD columns of the first trunk layer's input,
 # the condition COND_PAD columns after the bottleneck in the rgb branch's.
-NERFIES = dict(xyz_freq=10, hyper_freq=4, rgb_cond=27)
+NERFIES = dict(xyz_freq=10, hyper_freq=4, rgb_cond=(27, 35, 8, 0))
 TMPL_ENC_PAD, COND_PAD = 128, 48
 # The template's third layout (``PlaneEnc``): axis_aligned_plane slicing, the
 # plane configuration, whose hyper coordinates are the ray's 8 GLO
@@ -41,7 +49,7 @@ TMPL_ENC_PAD, COND_PAD = 128, 48
 # (three 64-column boxes), the flagship's condition. Its raw rows [xyz |
 # hyper | 0] (raw_t, dx_t, the template's x_raw) are PLANE_RAW_PAD columns
 # wide, the other layouts' RAW_PAD.
-PLANE = dict(hyper_out=8, hyper_freq=6, rgb_cond=39)
+PLANE = dict(hyper_out=8, hyper_freq=6, rgb_cond=(39, 47, 8, 0))
 PLANE_ENC_PAD = 192
 RAW_PAD, PLANE_RAW_PAD = 8, 16
 # Layers of the compiled table (csrc/level_common.cuh): warp, sheet, template.

@@ -49,38 +49,35 @@ extern "C" int hn_fused_level_fwd_plan(int warp_type, int* config,
 // weights / biases in that table (pack_level's blobs). warp_scales: null,
 // or the 64 fp32 window weights of the SE(3) / quaternion trunk's encoding
 // (unused by the translation warp). tmpl_scales: null for the template's
-// posenc_orig layout and a (R, 39) rgb_cond; the Nerfies layout's 128 fp32
-// window weights and a (R, 27) rgb_cond otherwise (level_common.cuh
-// TmplLayout), with the translation warp alone (level_fwd_anneal.cu). The
-// plane level (level_fwd_plane.cu) takes no window row and writes raw_t as
-// (P, 16).
+// posenc_orig layout; the Nerfies layout's 128 fp32 window weights otherwise
+// (level_common.cuh TmplLayout), with the translation warp alone
+// (level_fwd_anneal.cu). The conditions (level_fwd.cuh Cond): rgb_cond (R,
+// cond_w) bf16, cond_w 0..48; alpha_cond (R, 8) bf16 and alpha_w (8) bf16,
+// or both null. The plane level (level_fwd_plane.cu) takes no window row
+// and writes raw_t as (P, 16).
 extern "C" int hn_fused_level_fwd(int warp_type, const void* z,
                                   const void* origins, const void* dirs,
                                   const void* embed, const void* rgb_cond,
+                                  const void* alpha_cond, const void* alpha_w,
                                   const void* warp_scales,
                                   const void* tmpl_scales, const void* weights,
                                   const void* biases, void* out, void* raw_t,
-                                  long long n_rays, int samples,
+                                  long long n_rays, int samples, int cond_w,
                                   void* stream) {
   const long long n_points = n_rays * samples;
+  if (lf::bad_conditions(rgb_cond, alpha_cond, alpha_w, cond_w))
+    return (int)cudaErrorInvalidValue;
   if (warp_type == 0)
-    return (tmpl_scales ? hn_level_fwd_anneal : hn_level_fwd_trans)(
-        z, origins, dirs, embed, rgb_cond, warp_scales, tmpl_scales, weights,
-        biases, out, raw_t, n_points, samples, stream);
+    return (tmpl_scales ? hn_level_fwd_anneal
+                        : hn_level_fwd_trans)(HN_LEVEL_FWD_PASS);
   if (tmpl_scales) return (int)cudaErrorInvalidValue;
   switch (warp_type) {
     case 3:
-      return hn_level_fwd_plane(z, origins, dirs, embed, rgb_cond,
-                                warp_scales, tmpl_scales, weights, biases, out,
-                                raw_t, n_points, samples, stream);
+      return hn_level_fwd_plane(HN_LEVEL_FWD_PASS);
     case 1:
-      return hn_level_fwd_se3(z, origins, dirs, embed, rgb_cond, warp_scales,
-                              tmpl_scales, weights, biases, out, raw_t,
-                              n_points, samples, stream);
+      return hn_level_fwd_se3(HN_LEVEL_FWD_PASS);
     case 2:
-      return hn_level_fwd_quat(z, origins, dirs, embed, rgb_cond, warp_scales,
-                               tmpl_scales, weights, biases, out, raw_t,
-                               n_points, samples, stream);
+      return hn_level_fwd_quat(HN_LEVEL_FWD_PASS);
   }
   return (int)cudaErrorInvalidValue;
 }

@@ -47,7 +47,7 @@ constexpr int kSe3EncP = pad16(2 * kSe3Trig + kEmbed);       // 64
 // columns:
 //  - OrigEnc, the flagship's posenc_orig: the xyz at kXyzF bands and the
 //    kHypOut hyper coordinates at kHypEncF, identity columns on both; a
-//    kCond-column condition, posenc_orig(viewdirs, 4);
+//    kCond-column condition, posenc_orig(viewdirs, 6);
 //  - NerfEnc, the Nerfies encoding of use_original_embed=False, the anneal
 //    configuration: posenc from degree 0, [x | sin | cos] with band k of
 //    channel c at k * C + c, the xyz over kXyzF bands with its identity, the
@@ -60,6 +60,10 @@ constexpr int kSe3EncP = pad16(2 * kSe3Trig + kEmbed);       // 64
 //    posenc_orig with the kEmbed coordinates of the ray's GLO embedding as
 //    the hyper coordinates (no sheet computes them), 167 columns in
 //    kPlaneEncP slots; the flagship's condition.
+// A layout's kCond is its view directions' width; the rgb condition a call
+// takes is any width up to kCondP (the use_nerf_embed settings append the
+// kEmbed-column embedding, or give it alone, or no condition at all), and
+// the alpha condition is the embedding or none (level_fwd.cuh Cond).
 // kRaw: the columns of a raw row [xyz | hyper | 0] (raw_t, x_raw).
 constexpr int kNerfHypF = 4, kNerfCond = 27;
 template <int H, int HF, bool kNerfies_, int EncP, int Cond>
@@ -86,8 +90,9 @@ struct Shape {
 
 // The template's 16 layers in kernel order, with its encoding in EncP
 // columns: the trunk's hidden 0..7 (the skip input after 4), its ReLU logit,
-// the bottleneck, the alpha head 1 -> 8, the rgb branch's hidden 0..3 on
-// [bottleneck | condition], its logit 3 -> 8.
+// the bottleneck, the alpha head 1 -> 8 (its bottleneck columns; an alpha
+// condition's come apart), the rgb branch's hidden 0..3 on [bottleneck |
+// condition], its logit 3 -> 8.
 __host__ __device__ constexpr Shape tmpl_shape(int i, int enc_p) {
   return i == 0   ? Shape{kTrunkW, enc_p}
          : i == 5 ? Shape{kTrunkW, kTrunkW + enc_p}

@@ -19,12 +19,15 @@
 // its three warp types (translation, SE(3), quaternion:
 // `_warp_fwd_tile_gen` :330-344): bendy sheet or axis-aligned plane
 // (`_fields_fwd_core_gen` :385-407: the embedding is the hyper
-// coordinates), posenc_orig field encodings, no alpha condition, the
-// template in one of its layouts (level_common.cuh TmplLayout: posenc_orig,
+// coordinates), posenc_orig field encodings, the template in one of its
+// layouts (level_common.cuh TmplLayout: posenc_orig,
 // the anneal configuration's windowed Nerfies encoding, `fused_level.py`
 // :76-87, 166-172, or the plane's posenc_orig of 8 hyper coordinates; a
-// template parameter). When asked (training) it also writes the template's
-// raw input raw_t = [warped | hyper | 0] (P, 8) fp32, (P, 16) with the plane
+// template parameter) with its two per-ray conditions (Cond below: an rgb
+// condition of any width up to kCondP, `FusedLevelSpec.rgb_cond_ch`, and an
+// alpha condition, `alpha_cond_ch`, fused_mlp.py:359-362, the
+// use_nerf_embed settings' appearance code). When asked (training) it also
+// writes the template's raw input raw_t = [warped | hyper | 0] (P, 8) fp32, (P, 16) with the plane
 // layout, the residual the TPU kernel saves for its backward
 // (fused_level.py:1339-1344).
 // Per sample row p of ray p / S:
@@ -40,7 +43,7 @@
 //            Trunk(w * [posenc(warped, 0..10, identity) ++
 //                       posenc(hyper, 0..4)])
 //   b      = Bottleneck(h)                                        256 -> 128
-//   out    = [RgbBranch(b ++ rgb_cond) | AlphaHead(b)]            (P, 4) fp32
+//   out    = [RgbBranch(b ++ rgb_cond) | AlphaHead(b ++ alpha_cond)]  (P, 4)
 // Rounding points are the JAX kernel's: each encoding is rounded to bf16
 // before its first product; every product takes bf16 operands with fp32
 // accumulation; biases are bf16, added in fp32; a hidden layer applies its
@@ -81,7 +84,15 @@
 //  - The per-row work (the ray inputs, the three encodings with sin and cos
 //    of one argument together, the heads' fp32 outputs, the retraction, the
 //    rgb condition, raw_t and the output) is spread over the warpgroup's 128
-//    threads.
+//    threads. The rgb condition's width is an argument of the call: its
+//    columns fill the tile's kCondP condition slots, zero past the width,
+//    whose weight columns are zero in the packed blob too. The alpha
+//    condition's kEmbed columns are the alpha head's input after the
+//    bottleneck; the packed table keeps that head at 8 x kBneck, so that no
+//    offset of the three tables moves, and its condition columns' weights
+//    come as a vector of their own: a thread per row dots them with its
+//    ray's condition (kEmbed fp32 multiply-adds) before the head, whose
+//    epilogue adds the sum to the product of the bottleneck columns.
 // What the card shows (tools/trace_level_fwd.py): the weight stream is not
 // the limit (under 3 % of a tile's cycles wait for a stage); the products
 // run near the tensor rate, but the two warpgroups settle into lockstep,
@@ -514,8 +525,9 @@ __device__ __forceinline__ void hidden(const Group& g, R& ring,
   hidden<T, L, kRelu>(g, ring, Bs, [] {});
 }
 
-// Head L (N = 8): dst[r * ld + c] = fp32 acc + b for c < n_out.
-template <class T, int L, class R>
+// Head L (N = 8): dst[r * ld + c] = fp32 acc + b for c < n_out; with kAdd,
+// (acc + dst[r * ld + c]) + b (a term the caller put there).
+template <class T, int L, bool kAdd = false, class R>
 __device__ __forceinline__ void head(const Group& g, R& ring,
                                      const bf16* Bs, float* dst, int ld,
                                      int n_out) {
@@ -529,7 +541,9 @@ __device__ __forceinline__ void head(const Group& g, R& ring,
   for (int e = 0; e < 4; ++e) {
     const int c = 2 * t + (e & 1), rr = r + (e >= 2 ? 8 : 0);
     if (c < n_out)
-      dst[rr * ld + c] = acc.d[0][e] + __bfloat162float(bias[c]);
+      dst[rr * ld + c] = (kAdd ? acc.d[0][e] + dst[rr * ld + c]
+                               : acc.d[0][e]) +
+                         __bfloat162float(bias[c]);
   }
   g.sync();
   LF_TRACE(g, L, 3);
@@ -692,8 +706,20 @@ __device__ __forceinline__ void encode_se3_tile(
   }
 }
 
-// The rays' rgb condition (bf16, cond_w columns: a layout's kCond) into
-// X[:, 128 : 176], zero past cond_w, eight loads in flight a thread.
+// The template's per-ray conditions: the rgb condition (bf16, rgb_w
+// columns, 0 <= rgb_w <= kCondP: a layout's posenc of the view directions,
+// the nerf embedding after it, the embedding alone, or none), and the alpha
+// condition (bf16, kEmbed columns, the embedding; null: none) with the
+// alpha head's weights of those columns (alpha_w, kEmbed bf16).
+struct Cond {
+  const bf16* rgb;
+  const bf16* alpha;
+  const bf16* alpha_w;
+  int rgb_w;
+};
+
+// The rays' rgb condition (bf16, cond_w columns) into X[:, 128 : 176], zero
+// past cond_w, eight loads in flight a thread.
 __device__ __forceinline__ void load_condition(const Group& g,
                                                const bf16* __restrict__ cond,
                                                int cond_w) {
@@ -704,6 +730,22 @@ __device__ __forceinline__ void load_condition(const Group& g,
                               : __float2bfloat16_rn(0.f);
     sts16(x_at(g.xs, r, kCondCol + f), v);
   }
+}
+
+// rows.sigma[r] = the alpha condition's part of the alpha head's product
+// for row r, sum_c bf16 alpha[ray][c] alpha_w[c] in fp32 (0 without one),
+// which the head's epilogue adds to the bottleneck's part.
+__device__ __forceinline__ void alpha_condition(const Group& g,
+                                                const Cond& c) {
+  if (g.tid >= kRows) return;
+  float s = 0.f;
+  if (c.alpha != nullptr) {
+    const bf16* a = c.alpha + (size_t)g.rows->ray[g.tid] * kEmbed;
+#pragma unroll
+    for (int k = 0; k < kEmbed; ++k)
+      s = fmaf(__bfloat162float(a[k]), __bfloat162float(c.alpha_w[k]), s);
+  }
+  g.rows->sigma[g.tid] = s;
 }
 
 // Steps of B::kGroups 64-row tiles (pairs, in the level's block) that
@@ -805,18 +847,18 @@ __device__ __forceinline__ void sheet_stage(const Group& g, R& ring,
 }
 
 // The template on rows.raw = [warped | hyper | 0] (plane: the hyper
-// coordinates in rows.in, encode_template) and the condition rows rows.ray:
-// out[row0 + r] = [rgb logits | raw sigma] for rows below P. The
-// encoding's layout is L (level_common.cuh TmplLayout): posenc_orig, of 4
-// or (plane) 8 hyper coordinates, and a kCond-column condition
-// (tmpl_scales unused), or the Nerfies layout with its window row
-// tmpl_scales and a kNerfCond-column condition. Each layout is its own
-// instantiation, so a kernel carries no code of another.
+// coordinates in rows.in, encode_template) and the conditions of the rows'
+// rays rows.ray: out[row0 + r] = [rgb logits | raw sigma] for rows below P.
+// The encoding's layout is L (level_common.cuh TmplLayout): posenc_orig, of
+// 4 or (plane) 8 hyper coordinates (tmpl_scales unused), or the Nerfies
+// layout with its window row tmpl_scales. Each layout is its own
+// instantiation, so a kernel carries no code of another; the conditions
+// (Cond) are arguments of the call.
 template <class T, class L, class R>
 __device__ __forceinline__ void template_stage(
-    const Group& g, R& ring, const bf16* Bs,
-    const bf16* __restrict__ rgb_cond, const float* __restrict__ tmpl_scales,
-    float* __restrict__ out, long long row0, long long n_points) {
+    const Group& g, R& ring, const bf16* Bs, const Cond& cond,
+    const float* __restrict__ tmpl_scales, float* __restrict__ out,
+    long long row0, long long n_points) {
   constexpr int T0 = T::kFields;
   Rows& rw = *g.rows;
   static_assert(T::shape(T::kFields).k == L::kEncP, "the layout's table");
@@ -832,12 +874,14 @@ __device__ __forceinline__ void template_stage(
   hidden<T, T0 + 6, true>(g, ring, Bs);
   hidden<T, T0 + 7, true>(g, ring, Bs);
   hidden<T, T0 + 8, true>(g, ring, Bs);    // trunk logit (ReLU)
-  // The bottleneck (rounded, no ReLU), the condition beside it.
+  // The bottleneck (rounded, no ReLU), the rgb condition beside it, the
+  // alpha condition's part of the alpha head.
   hidden<T, T0 + 9, false>(g, ring, Bs,
                            [&] {
-                             load_condition(g, rgb_cond, L::kCond);
+                             load_condition(g, cond.rgb, cond.rgb_w);
+                             alpha_condition(g, cond);
                            });
-  head<T, T0 + 10>(g, ring, Bs, rw.sigma, 1, 1);  // alpha
+  head<T, T0 + 10, true>(g, ring, Bs, rw.sigma, 1, 1);  // alpha
   hidden<T, T0 + 11, true>(g, ring, Bs);
   hidden<T, T0 + 12, true>(g, ring, Bs);
   hidden<T, T0 + 13, true>(g, ring, Bs);
@@ -935,8 +979,7 @@ __global__ void __launch_bounds__(TmplBlock<L>::kThreads, 1)
                      const float* __restrict__ zs,
                      const float* __restrict__ origins,
                      const float* __restrict__ dirs,
-                     const float* __restrict__ embed,
-                     const bf16* __restrict__ rgb_cond,
+                     const float* __restrict__ embed, const Cond cond,
                      const float* __restrict__ warp_scales,
                      const float* __restrict__ tmpl_scales,
                      const bf16* __restrict__ B, float* __restrict__ out,
@@ -977,7 +1020,7 @@ __global__ void __launch_bounds__(TmplBlock<L>::kThreads, 1)
         dst[1] = make_float4(rt[4], rt[5], rt[6], 0.f);
       }
     }
-    template_stage<T, L>(g, ring, Bs, rgb_cond, tmpl_scales, out, row0,
+    template_stage<T, L>(g, ring, Bs, cond, tmpl_scales, out, row0,
                          n_points);
   }
 }
@@ -1040,16 +1083,26 @@ int forward_plan(int first, int last, int* config, int* in_cols, int* loads,
   return n;
 }
 
+// Whether the conditions of a call are out of what the kernels take: an rgb
+// condition of 0..kCondP columns (a pointer unless 0), an alpha condition
+// with its weights or neither.
+inline bool bad_conditions(const void* rgb_cond, const void* alpha_cond,
+                           const void* alpha_w, int cond_w) {
+  return cond_w < 0 || cond_w > kCondP || (cond_w > 0 && !rgb_cond) ||
+         (alpha_cond == nullptr) != (alpha_w == nullptr);
+}
+
 // Host side: the tensor maps of the blob W (cached by address and shape),
 // the shared-memory attribute once per device, a persistent grid. L: the
 // template's layout (template_stage).
 template <int kWarp, class L>
 int launch_level_fwd(const void* z, const void* origins, const void* dirs,
                      const void* embed, const void* rgb_cond,
+                     const void* alpha_cond, const void* alpha_w,
                      const void* warp_scales, const void* tmpl_scales,
                      const void* weights, const void* biases, void* out,
                      void* raw_t, long long n_points, int samples,
-                     void* stream) {
+                     int cond_w, void* stream) {
   using T = LevelTable<kWarp, L>;
   using Blk = TmplBlock<L>;
   static std::atomic<int> configured[kMaxDevices];
@@ -1064,7 +1117,9 @@ int launch_level_fwd(const void* z, const void* origins, const void* dirs,
                                (cudaStream_t)stream>>>(
       maps, static_cast<const float*>(z), static_cast<const float*>(origins),
       static_cast<const float*>(dirs), static_cast<const float*>(embed),
-      static_cast<const bf16*>(rgb_cond),
+      Cond{static_cast<const bf16*>(rgb_cond),
+           static_cast<const bf16*>(alpha_cond),
+           static_cast<const bf16*>(alpha_w), cond_w},
       static_cast<const float*>(warp_scales),
       static_cast<const float*>(tmpl_scales), static_cast<const bf16*>(biases),
       static_cast<float*>(out), static_cast<float*>(raw_t), n_points, samples);
@@ -1079,9 +1134,15 @@ int launch_level_fwd(const void* z, const void* origins, const void* dirs,
 // and with the plane layout, level_fwd_plane.cu).
 #define HN_LEVEL_FWD_ARGS                                                   \
   const void *z, const void *origins, const void *dirs, const void *embed, \
-      const void *rgb_cond, const void *warp_scales,                        \
-      const void *tmpl_scales, const void *weights, const void *biases,     \
-      void *out, void *raw_t, long long n_points, int samples, void *stream
+      const void *rgb_cond, const void *alpha_cond, const void *alpha_w,    \
+      const void *warp_scales, const void *tmpl_scales,                     \
+      const void *weights, const void *biases, void *out, void *raw_t,     \
+      long long n_points, int samples, int cond_w, void *stream
+// The arguments of HN_LEVEL_FWD_ARGS, passed on.
+#define HN_LEVEL_FWD_PASS                                                  \
+  z, origins, dirs, embed, rgb_cond, alpha_cond, alpha_w, warp_scales,    \
+      tmpl_scales, weights, biases, out, raw_t, n_points, samples, cond_w, \
+      stream
 extern "C" int hn_level_fwd_trans(HN_LEVEL_FWD_ARGS);
 extern "C" int hn_level_fwd_se3(HN_LEVEL_FWD_ARGS);
 extern "C" int hn_level_fwd_quat(HN_LEVEL_FWD_ARGS);

@@ -6,8 +6,5 @@
 #include "level_fwd.cuh"
 
 extern "C" int hn_level_fwd_anneal(HN_LEVEL_FWD_ARGS) {
-  return lf::launch_level_fwd<0, NerfEnc>(z, origins, dirs, embed, rgb_cond,
-                                          warp_scales, tmpl_scales, weights,
-                                          biases, out, raw_t, n_points,
-                                          samples, stream);
+  return lf::launch_level_fwd<0, NerfEnc>(HN_LEVEL_FWD_PASS);
 }

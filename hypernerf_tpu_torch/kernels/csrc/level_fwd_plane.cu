@@ -8,10 +8,7 @@
 #include "level_fwd.cuh"
 
 extern "C" int hn_level_fwd_plane(HN_LEVEL_FWD_ARGS) {
-  return lf::launch_level_fwd<0, PlaneEnc>(z, origins, dirs, embed, rgb_cond,
-                                           warp_scales, tmpl_scales, weights,
-                                           biases, out, raw_t, n_points,
-                                           samples, stream);
+  return lf::launch_level_fwd<0, PlaneEnc>(HN_LEVEL_FWD_PASS);
 }
 
 #ifdef HN_LEVEL_FWD_TRACE

@@ -5,8 +5,5 @@
 #include "level_fwd.cuh"
 
 extern "C" int hn_level_fwd_se3(HN_LEVEL_FWD_ARGS) {
-  return lf::launch_level_fwd<1, OrigEnc>(z, origins, dirs, embed, rgb_cond,
-                                          warp_scales, tmpl_scales, weights,
-                                          biases, out, raw_t, n_points,
-                                          samples, stream);
+  return lf::launch_level_fwd<1, OrigEnc>(HN_LEVEL_FWD_PASS);
 }

@@ -5,10 +5,7 @@
 #include "level_fwd.cuh"
 
 extern "C" int hn_level_fwd_trans(HN_LEVEL_FWD_ARGS) {
-  return lf::launch_level_fwd<0, OrigEnc>(z, origins, dirs, embed, rgb_cond,
-                                          warp_scales, tmpl_scales, weights,
-                                          biases, out, raw_t, n_points,
-                                          samples, stream);
+  return lf::launch_level_fwd<0, OrigEnc>(HN_LEVEL_FWD_PASS);
 }
 
 #ifdef HN_LEVEL_FWD_TRACE

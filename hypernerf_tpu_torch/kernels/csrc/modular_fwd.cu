@@ -21,23 +21,26 @@
 // sheet is TransTable's layers whatever the warp.
 // The template alone (hn_fused_template_fwd): posenc_orig(xyz, 10) ++
 // posenc_orig(hyper (4), 6) -> trunk 8 x 256 (skip after 4, ReLU logit) ->
-// bottleneck 128 -> alpha head; rgb branch 4 x 128 on [bottleneck |
-// condition (39)] -> rgb logits (layers 14..29); or, given the window row
-// `scales` (128 fp32), the anneal configuration's layout: scales *
-// [posenc(xyz, 0..10, identity) ++ posenc(hyper, 0..4)] and a condition of
-// 27 (level_common.cuh TmplLayout; template_fwd.cuh's kernel, instantiated
-// here for posenc_orig, in template_fwd_anneal.cu for the Nerfies layout
-// and in template_fwd_plane.cu, entry point hn_fused_template_fwd_plane,
-// for the plane configuration's: posenc_orig of 8 hyper coordinates, 167
-// columns in 192, layers 7..22 of PlaneTable, x_raw (P, 16), on a block of
-// two 448-column tiles and a ring of 5 stages). In: x_raw (P, 8) fp32 rows
-// [xyz | hyper | 0]; rgb_cond (P / S,
-// 39 or 27) bf16, one row per S consecutive rows, any S >= 1; the
-// template's own blobs. Out: (P, 4) fp32 [rgb logits | raw sigma]. A
-// template without hyper coordinates (static NeRF: 63 encoded inputs) runs
-// through the same kernel: the wrapper packs zero weight columns for the
-// hyper bands, whose encoding of the zero input ([0 | sin 0 | cos 0]) then
-// adds exactly nothing.
+// bottleneck 128 -> alpha head on [bottleneck | alpha condition]; rgb
+// branch 4 x 128 on [bottleneck | rgb condition] -> rgb logits (layers
+// 14..29); or, given the window row `scales` (128 fp32), the anneal
+// configuration's layout: scales * [posenc(xyz, 0..10, identity) ++
+// posenc(hyper, 0..4)] (level_common.cuh TmplLayout; template_fwd.cuh's
+// kernel, instantiated here for posenc_orig, in template_fwd_anneal.cu for
+// the Nerfies layout and in template_fwd_plane.cu, entry point
+// hn_fused_template_fwd_plane, for the plane configuration's: posenc_orig
+// of 8 hyper coordinates, 167 columns in 192, layers 7..22 of PlaneTable,
+// x_raw (P, 16), on a block of two 448-column tiles and a ring of 5
+// stages). In: x_raw (P, 8) fp32 rows [xyz | hyper | 0]; rgb_cond (P / S,
+// cond_w) bf16, one row per S consecutive rows, any S >= 1, cond_w from 0
+// (no rgb condition) to 48 (39 or 27 the view directions' encoding, 47 or
+// 35 with the nerf embedding after it, 8 the embedding alone); alpha_cond
+// (P / S, 8) bf16 and alpha_w (8) bf16, the alpha head's condition columns,
+// or both null (level_fwd.cuh Cond); the template's own blobs. Out: (P, 4)
+// fp32 [rgb logits | raw sigma]. A template without hyper coordinates
+// (static NeRF: 63 encoded inputs) runs through the same kernel: the
+// wrapper packs zero weight columns for the hyper bands, whose encoding of
+// the zero input ([0 | sin 0 | cos 0]) then adds exactly nothing.
 // The trunk alone (hn_fused_se3_fwd): the Nerfies posenc(pts, degrees 0..8,
 // no identity) ++ embed (56 -> 64) -> 6 x 128 (skip after layer 4) ->
 // linear 128 -> 128, rounded -> the w and the v head, 128 -> 3 each
@@ -257,17 +260,12 @@ extern "C" int hn_fused_se3_fwd(const void* x_raw, const void* scales,
 
 // weights / biases: the template's 16 layers alone (layers 14..29 of the
 // table). samples: consecutive rows that share one row of rgb_cond.
-extern "C" int hn_fused_template_fwd(const void* x_raw, const void* rgb_cond,
-                                     const void* scales, const void* weights,
-                                     const void* biases, void* out,
-                                     long long n_points, int samples,
-                                     void* stream) {
-  if (n_points <= 0 || samples <= 0) return (int)cudaErrorInvalidValue;
-  if (scales)
-    return hn_template_fwd_anneal(x_raw, rgb_cond, scales, weights, biases,
-                                  out, n_points, samples, stream);
-  return lf::launch_template<OrigEnc>(x_raw, rgb_cond, scales, weights,
-                                      biases, out, n_points, samples, stream);
+extern "C" int hn_fused_template_fwd(HN_TEMPLATE_FWD_ARGS) {
+  if (n_points <= 0 || samples <= 0 ||
+      lf::bad_conditions(rgb_cond, alpha_cond, alpha_w, cond_w))
+    return (int)cudaErrorInvalidValue;
+  if (scales) return hn_template_fwd_anneal(HN_TEMPLATE_FWD_PASS);
+  return lf::launch_template<OrigEnc>(HN_TEMPLATE_FWD_PASS);
 }
 
 // The plan of per-module stage `stage` (0 the warp field, 1 the sheet, 2 the

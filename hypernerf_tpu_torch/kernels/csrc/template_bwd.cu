@@ -1,7 +1,7 @@
 // Kernel A's narrow steps for Hopper (sm_90a): the encoding written into
-// the stash, the condition's per-ray term, the two heads' backward, the
-// condition's cotangent summed per ray, the posenc VJP and the fixed-order
-// sum of the dW / db slabs.
+// the stash, the rgb condition's per-ray term, the two heads' backward, the
+// rgb and the alpha condition's cotangents summed per ray, the posenc VJP
+// and the fixed-order sum of the dW / db slabs.
 //
 // Part of the template backward (kernel A), which replaces
 // hypernerf_tpu/ops/pallas/fused_mlp.py `_bwd_call` (:736). The wide layers
@@ -24,10 +24,18 @@
 // weight 0 passes no gradient, an identity column weighs 1) and the plane
 // one where they are given its buffers, whose widths are that layout's (a
 // stash of kPlaneStashLd columns, 192 of them the encoding's, raw rows of
-// 16 columns; the encoding's cotangent buffer of 2 x 256 columns); the
-// condition's two steps are compiled for both condition widths (39, 27) and
-// the steps that read the stash for both of its widths, and take the one
-// they are given.
+// 16 columns; the encoding's cotangent buffer of 2 x 256 columns); the rgb
+// condition's two steps are compiled for each width a layout covers
+// (kCondWidths: the view directions' encoding of either layout, with the
+// nerf embedding after it, the embedding alone, none) and the steps that
+// read the stash for both of its widths, and take the one they are given.
+// The alpha condition (the kEmbed-column embedding, `alpha_cond_ch`,
+// fused_mlp.py:481-485, 599-604) is the alpha head's input after the
+// bottleneck: its share of the bottleneck's cotangent is unchanged, and its
+// own step sums bf16(g_sigma) over a ray's rows once, which gives the ray's
+// d alpha_cond (times the head's condition weights) and its part of the
+// condition columns' dW (times the condition), written after the layers'
+// [dW | db] in the slab.
 
 #include "level_common.cuh"
 
@@ -61,6 +69,14 @@ static_assert(stash_ld<OrigEnc>() == kStashLd &&
 constexpr int kCondCol = 128;   // first condition column of rgb layer 0
 constexpr int kRowGroups = 8;   // threadIdx.y of the per-split kernels
 constexpr int kRayGroups = 4;   // of the condition's (more registers)
+constexpr int kAlphaThreads = 128;  // rays a block of the alpha condition's
+                                    // step takes at a time
+// The rgb condition widths the condition's steps are compiled for: each
+// layout's view-direction encoding (39 posenc_orig, 27 Nerfies), with the
+// nerf embedding after it (47, 35), the embedding alone (8) and none (0).
+constexpr int kCondWidths[] = {kCond,          kNerfCond, kCond + kEmbed,
+                               kNerfCond + kEmbed, kEmbed, 0};
+static_assert(kCond + kEmbed <= kCondP, "every width fits the slots");
 
 // Sum of v over the block's row groups (threadIdx.y), in their order, for
 // column threadIdx.x; valid on threadIdx.y == 0. red: [blockDim.y][128].
@@ -193,6 +209,48 @@ __global__ void __launch_bounds__(128 * kRayGroups)
     const float v = sum_groups(red, acc[c]);
     if (threadIdx.y == 0) s[c] = v;
   }
+}
+
+// The alpha head's condition columns (kEmbed, after the bottleneck), per
+// ray: gs = sum over the ray's rows of bf16(g_sigma) in fp32; d_alpha[ray][c]
+// = gs alpha_w[c]; the columns' dW, dW_alpha[0][128 + c] = sum over the
+// split's rays of gs alpha[ray][c], to slab[tail_off + c]. One block per
+// split of the rays, a thread per ray, kAlphaThreads at a time; the block
+// sums its threads' dW in their order.
+__global__ void __launch_bounds__(kAlphaThreads)
+    tmpl_alpha_cond_bwd_kernel(const float* __restrict__ g4,
+                               const bf16* __restrict__ alpha,
+                               const bf16* __restrict__ w,
+                               float* __restrict__ d_alpha,
+                               float* __restrict__ slab, long long slab_len,
+                               long long tail_off, long long n_rays,
+                               int samples) {
+  __shared__ float red[kEmbed][kAlphaThreads];
+  float wk[kEmbed], acc[kEmbed];
+#pragma unroll
+  for (int c = 0; c < kEmbed; ++c) {
+    wk[c] = __bfloat162float(w[c]);
+    acc[c] = 0.f;
+  }
+  long long q0, q1;
+  split_range(n_rays, q0, q1);
+  for (long long ray = q0 + threadIdx.x; ray < q1; ray += kAlphaThreads) {
+    float gs = 0.f;
+    for (int s = 0; s < samples; ++s)
+      gs += round_bf(g4[(ray * samples + s) * 4 + 3]);
+#pragma unroll
+    for (int c = 0; c < kEmbed; ++c) {
+      d_alpha[ray * kEmbed + c] = gs * wk[c];
+      acc[c] += gs * __bfloat162float(alpha[ray * kEmbed + c]);
+    }
+  }
+#pragma unroll
+  for (int c = 0; c < kEmbed; ++c) red[c][threadIdx.x] = acc[c];
+  __syncthreads();
+  if (threadIdx.x >= kEmbed) return;
+  float v = 0.f;
+  for (int t = 0; t < kAlphaThreads; ++t) v += red[threadIdx.x][t];
+  slab[blockIdx.x * slab_len + tail_off + threadIdx.x] = v;
 }
 
 // The alpha head (1 -> 8 padded, input bneck) and the bottleneck's
@@ -341,17 +399,43 @@ extern "C" int hn_tmpl_encode(const void* raw_t, void* stash,
                                 stream);
 }
 
+// The instantiation of each condition step for rgb condition width cond_ch,
+// one of kCondWidths; null for any other width.
+using RayBiasFn = decltype(&tmpl_ray_bias_kernel<0>);
+using CondBwdFn = decltype(&tmpl_cond_bwd_kernel<0>);
+RayBiasFn ray_bias_kernel(int cond_ch) {
+  switch (cond_ch) {
+    case kCondWidths[0]: return tmpl_ray_bias_kernel<kCondWidths[0]>;
+    case kCondWidths[1]: return tmpl_ray_bias_kernel<kCondWidths[1]>;
+    case kCondWidths[2]: return tmpl_ray_bias_kernel<kCondWidths[2]>;
+    case kCondWidths[3]: return tmpl_ray_bias_kernel<kCondWidths[3]>;
+    case kCondWidths[4]: return tmpl_ray_bias_kernel<kCondWidths[4]>;
+    case kCondWidths[5]: return tmpl_ray_bias_kernel<kCondWidths[5]>;
+  }
+  return nullptr;
+}
+CondBwdFn cond_bwd_kernel(int cond_ch) {
+  switch (cond_ch) {
+    case kCondWidths[0]: return tmpl_cond_bwd_kernel<kCondWidths[0]>;
+    case kCondWidths[1]: return tmpl_cond_bwd_kernel<kCondWidths[1]>;
+    case kCondWidths[2]: return tmpl_cond_bwd_kernel<kCondWidths[2]>;
+    case kCondWidths[3]: return tmpl_cond_bwd_kernel<kCondWidths[3]>;
+    case kCondWidths[4]: return tmpl_cond_bwd_kernel<kCondWidths[4]>;
+    case kCondWidths[5]: return tmpl_cond_bwd_kernel<kCondWidths[5]>;
+  }
+  return nullptr;
+}
+
 // out (n_rays, 128) fp32 = cond (n_rays, cond_ch) bf16 @ W[:, cond_col :
 // cond_col + cond_ch]^T, W the (128, w_ld) bf16 weight of rgb layer 0;
-// cond_ch is a layout's condition width, 39 or 27.
+// cond_ch is one of kCondWidths (0: out is zero).
 extern "C" int hn_tmpl_ray_bias(const void* cond, const void* w, void* out,
                                 long long n_rays, int w_ld, int cond_col,
                                 int cond_ch, void* stream) {
+  const RayBiasFn kernel = ray_bias_kernel(cond_ch);
   if (n_rays <= 0 || cond_col != kCondCol || cond_col + kCondP > w_ld ||
-      (cond_ch != kCond && cond_ch != kNerfCond))
+      kernel == nullptr)
     return (int)cudaErrorInvalidValue;
-  auto kernel = cond_ch == kCond ? tmpl_ray_bias_kernel<kCond>
-                                 : tmpl_ray_bias_kernel<kNerfCond>;
   kernel<<<blocks_for(n_rays * kRgbW, 256), 256, 0, (cudaStream_t)stream>>>(
       static_cast<const bf16*>(cond), static_cast<const bf16*>(w),
       static_cast<float*>(out), n_rays, w_ld);
@@ -377,7 +461,8 @@ extern "C" int hn_tmpl_rgb_head(const void* g4, const void* stash,
   return (int)cudaGetLastError();
 }
 
-// cond_ch: the condition's width, 39 or 27 (d_cond is (n_rays, cond_ch)).
+// cond_ch: the condition's width, one of kCondWidths (d_cond is (n_rays,
+// cond_ch)).
 extern "C" int hn_tmpl_cond_bwd(const void* gout, long long gout_ld,
                                 const void* gin, long long gin_ld,
                                 int cond_col, const void* cond, void* d_cond,
@@ -385,16 +470,37 @@ extern "C" int hn_tmpl_cond_bwd(const void* gout, long long gout_ld,
                                 long long w_off, int k_pad, long long n_rays,
                                 int samples, int splits, int cond_ch,
                                 void* stream) {
+  const CondBwdFn kernel = cond_bwd_kernel(cond_ch);
   if (n_rays <= 0 || samples <= 0 || splits <= 0 || gout_ld != kGLd ||
       gin_ld != kGLd || cond_col != kCondCol || cond_col + kCondP > k_pad ||
-      (cond_ch != kCond && cond_ch != kNerfCond))
+      kernel == nullptr)
     return (int)cudaErrorInvalidValue;
-  auto kernel = cond_ch == kCond ? tmpl_cond_bwd_kernel<kCond>
-                                 : tmpl_cond_bwd_kernel<kNerfCond>;
   kernel<<<splits, dim3(128, kRayGroups), 0, (cudaStream_t)stream>>>(
       static_cast<const bf16*>(gout), static_cast<const bf16*>(gin),
       static_cast<const bf16*>(cond), static_cast<float*>(d_cond),
       static_cast<float*>(slab), slab_len, w_off, k_pad, n_rays, samples);
+  return (int)cudaGetLastError();
+}
+
+// g4 (rows, 4) fp32, the chunk's cotangent (g_sigma in column 3), rows =
+// n_rays x samples; alpha_cond (n_rays, alpha_ch) bf16; alpha_w (alpha_ch)
+// bf16, the alpha head's condition columns; d_alpha (n_rays, alpha_ch) fp32;
+// the columns' dW to slab[z][tail_off : tail_off + alpha_ch] of each split
+// z. alpha_ch must be kEmbed.
+extern "C" int hn_tmpl_alpha_cond_bwd(const void* g4, const void* alpha_cond,
+                                      const void* alpha_w, void* d_alpha,
+                                      void* slab, long long slab_len,
+                                      long long tail_off, long long n_rays,
+                                      int samples, int splits, int alpha_ch,
+                                      void* stream) {
+  if (n_rays <= 0 || samples <= 0 || splits <= 0 || alpha_ch != kEmbed ||
+      tail_off < 0 || tail_off + kEmbed > slab_len)
+    return (int)cudaErrorInvalidValue;
+  tmpl_alpha_cond_bwd_kernel<<<splits, kAlphaThreads, 0,
+                               (cudaStream_t)stream>>>(
+      static_cast<const float*>(g4), static_cast<const bf16*>(alpha_cond),
+      static_cast<const bf16*>(alpha_w), static_cast<float*>(d_alpha),
+      static_cast<float*>(slab), slab_len, tail_off, n_rays, samples);
   return (int)cudaGetLastError();
 }
 

@@ -53,8 +53,7 @@ __device__ __forceinline__ void template_rows(
 template <class L>
 __global__ void __launch_bounds__(TmplBlock<L>::kThreads, 1)
     template_fwd_kernel(const __grid_constant__ Maps<LevelTable<0, L>> maps,
-                        const float* __restrict__ x_raw,
-                        const bf16* __restrict__ rgb_cond,
+                        const float* __restrict__ x_raw, const Cond cond,
                         const float* __restrict__ scales,
                         const bf16* __restrict__ B, float* __restrict__ out,
                         long long n_points, int samples) {
@@ -72,7 +71,7 @@ __global__ void __launch_bounds__(TmplBlock<L>::kThreads, 1)
     const long long row0 = first_row<Blk>(g, pair);
     template_rows<L>(g, row0, n_points, samples, x_raw);
     g.sync();
-    template_stage<T, L>(g, ring, Bs, rgb_cond, scales, out, row0, n_points);
+    template_stage<T, L>(g, ring, Bs, cond, scales, out, row0, n_points);
   }
 }
 
@@ -80,9 +79,10 @@ __global__ void __launch_bounds__(TmplBlock<L>::kThreads, 1)
 // blob, the shared-memory attribute once per device, a persistent grid.
 template <class L>
 int launch_template(const void* x_raw, const void* rgb_cond,
+                    const void* alpha_cond, const void* alpha_w,
                     const void* scales, const void* weights,
                     const void* biases, void* out, long long n_points,
-                    int samples, void* stream) {
+                    int samples, int cond_w, void* stream) {
   using T = LevelTable<0, L>;
   using Blk = TmplBlock<L>;
   static std::atomic<int> configured[kMaxDevices];
@@ -97,7 +97,10 @@ int launch_template(const void* x_raw, const void* rgb_cond,
   template_fwd_kernel<L><<<grid, Blk::kThreads, Blk::kSmemBytes,
                            (cudaStream_t)stream>>>(
       maps, static_cast<const float*>(x_raw),
-      static_cast<const bf16*>(rgb_cond), static_cast<const float*>(scales),
+      Cond{static_cast<const bf16*>(rgb_cond),
+           static_cast<const bf16*>(alpha_cond),
+           static_cast<const bf16*>(alpha_w), cond_w},
+      static_cast<const float*>(scales),
       static_cast<const bf16*>(biases), static_cast<float*>(out), n_points,
       samples);
   return (int)cudaGetLastError();
@@ -106,10 +109,16 @@ int launch_template(const void* x_raw, const void* rgb_cond,
 }  // namespace lf
 }  // namespace
 
+// The template alone's arguments (hn_fused_template_fwd), and passed on.
+#define HN_TEMPLATE_FWD_ARGS                                                \
+  const void *x_raw, const void *rgb_cond, const void *alpha_cond,          \
+      const void *alpha_w, const void *scales, const void *weights,         \
+      const void *biases, void *out, long long n_points, int samples,       \
+      int cond_w, void *stream
+#define HN_TEMPLATE_FWD_PASS                                               \
+  x_raw, rgb_cond, alpha_cond, alpha_w, scales, weights, biases, out,      \
+      n_points, samples, cond_w, stream
+
 // The template alone in the Nerfies layout (template_fwd_anneal.cu), with
 // hn_fused_template_fwd's arguments.
-extern "C" int hn_template_fwd_anneal(const void* x_raw, const void* rgb_cond,
-                                      const void* scales, const void* weights,
-                                      const void* biases, void* out,
-                                      long long n_points, int samples,
-                                      void* stream);
+extern "C" int hn_template_fwd_anneal(HN_TEMPLATE_FWD_ARGS);

@@ -4,13 +4,8 @@
 
 #include "template_fwd.cuh"
 
-extern "C" int hn_template_fwd_anneal(const void* x_raw, const void* rgb_cond,
-                                      const void* scales, const void* weights,
-                                      const void* biases, void* out,
-                                      long long n_points, int samples,
-                                      void* stream) {
-  return lf::launch_template<NerfEnc>(x_raw, rgb_cond, scales, weights,
-                                      biases, out, n_points, samples, stream);
+extern "C" int hn_template_fwd_anneal(HN_TEMPLATE_FWD_ARGS) {
+  return lf::launch_template<NerfEnc>(HN_TEMPLATE_FWD_PASS);
 }
 
 #ifdef HN_LEVEL_FWD_TRACE

@@ -4,25 +4,18 @@
 // PlaneBlock, compiled on its own so that it builds in parallel with
 // modular_fwd.cu and adds no code to it.
 //
-// x_raw: (P, 16) fp32 rows [xyz | hyper (8) | 0]; rgb_cond (P / S, 39)
-// bf16; weights / biases: the template's 16 layers alone (layers 7..22 of
-// PlaneTable); out (P, 4) fp32 [rgb logits | raw sigma]; scales must be
-// null (the plane layout has no window).
+// x_raw: (P, 16) fp32 rows [xyz | hyper (8) | 0]; the conditions as
+// hn_fused_template_fwd takes them; weights / biases: the template's 16
+// layers alone (layers 7..22 of PlaneTable); out (P, 4) fp32 [rgb logits |
+// raw sigma]; scales must be null (the plane layout has no window).
 
 #include "template_fwd.cuh"
 
-extern "C" int hn_fused_template_fwd_plane(const void* x_raw,
-                                           const void* rgb_cond,
-                                           const void* scales,
-                                           const void* weights,
-                                           const void* biases, void* out,
-                                           long long n_points, int samples,
-                                           void* stream) {
-  if (n_points <= 0 || samples <= 0 || scales != nullptr)
+extern "C" int hn_fused_template_fwd_plane(HN_TEMPLATE_FWD_ARGS) {
+  if (n_points <= 0 || samples <= 0 || scales != nullptr ||
+      lf::bad_conditions(rgb_cond, alpha_cond, alpha_w, cond_w))
     return (int)cudaErrorInvalidValue;
-  return lf::launch_template<PlaneEnc>(x_raw, rgb_cond, scales, weights,
-                                       biases, out, n_points, samples,
-                                       stream);
+  return lf::launch_template<PlaneEnc>(HN_TEMPLATE_FWD_PASS);
 }
 
 #ifdef HN_LEVEL_FWD_TRACE

@@ -11,6 +11,9 @@ window row at ``nerf_alpha`` and ``hyper_alpha``
 with the translation warp) takes the ray's 8 GLO coordinates as its hyper
 coordinates, in the template's plane layout (raw rows of 16 columns); its
 kernels are their own instantiations (table code 3, ``common.TABLE_CODES``).
+The template takes the rgb condition at any width its layout covers and,
+where its alpha head takes one, the alpha condition (``fused_mlp``'s
+module docstring), both per ray.
 
 ``fused_level`` is the wrapper. On CUDA tensors it launches the hand-written
 Hopper kernel of ``csrc/level_fwd.cuh`` (one source per warp type,
@@ -54,7 +57,7 @@ from hypernerf_tpu_torch.kernels.fused_field import (field_layers,
                                                      fused_field_plain)
 from hypernerf_tpu_torch.kernels.fused_mlp import (check_covered as
                                                    _check_template_covered,
-                                                   cond_width,
+                                                   cond_args,
                                                    fused_template_bwd,
                                                    fused_template_bwd_plain,
                                                    fused_template_plain,
@@ -118,7 +121,7 @@ def _warp_owner_layers(level: Level):
 
 def fused_level_plain(level: Level, z_vals, origins, directions, embed,
                       rgb_cond, return_raw_t: bool = False, warp_scales=None,
-                      tmpl_scales=None):
+                      tmpl_scales=None, alpha_cond=None):
     """Plain PyTorch level forward: the plain warp field (or the plain SE(3)
     trunk and the retraction's values), hyper sheet and template
     (``fused_field_plain``, ``fused_se3_plain``, ``fused_template_plain``)
@@ -126,7 +129,8 @@ def fused_level_plain(level: Level, z_vals, origins, directions, embed,
 
     Args:
       z_vals: (R, S) depths; origins / directions: (R, 3); embed: (R, E)
-        per-ray warp/hyper embedding; rgb_cond: (R, C) per-ray condition.
+        per-ray warp/hyper embedding; rgb_cond: (R, C) per-ray rgb condition
+        (C may be 0); alpha_cond: (R, Ca) per-ray alpha condition or None.
 
     Returns:
       (R * S, 4) fp32 [rgb logits (3) | raw sigma]; with ``return_raw_t``
@@ -148,7 +152,8 @@ def fused_level_plain(level: Level, z_vals, origins, directions, embed,
         hyper = fused_field_plain(level.hyper.mlp, level.hyper.n_freq, x_raw)
     raw_t = torch.cat([warped, hyper], dim=-1).float()
     raw_t = F.pad(raw_t, (0, raw_pad(level) - raw_t.shape[-1]))
-    out = fused_template_plain(level, raw_t, rgb_cond, tmpl_scales)
+    out = fused_template_plain(level, raw_t, rgb_cond, tmpl_scales,
+                               alpha_cond)
     return (out, raw_t) if return_raw_t else out
 
 
@@ -726,25 +731,23 @@ def field_bwd_stream_bytes(field: str, shapes, n_points: int) -> int:
 
 def _launch_forward(level: Level, z_vals, origins, directions, embed,
                     rgb_cond, want_raw_t: bool, warp_scales=None,
-                    tmpl_scales=None):
+                    tmpl_scales=None, alpha_cond=None):
     """Launch the forward kernel; (out, raw_t or None)."""
     w_blob, b_blob, shapes = pack_level(level)
     dev = z_vals.device
     code, scales = _warp_launch_args(level, shapes, warp_scales, dev)
     tmpl_scales = kernel_scales(level, tmpl_scales, dev)
     r, s = z_vals.shape
-    rgbc = rgb_cond.detach().to(torch.bfloat16).contiguous()
     _check_ray_inputs(z_vals, origins, directions, embed)
-    build.check_tensor('rgb_cond', rgbc, (r, cond_width(level)),
-                       torch.bfloat16, dev)
+    rgbc, alphac, aw = cond_args(level, rgb_cond, alpha_cond, r, dev)
     out = torch.empty((r * s, 4), dtype=torch.float32, device=dev)
     raw_t = torch.empty((r * s, raw_pad(level)), dtype=torch.float32,
                         device=dev) if want_raw_t else None
     common.launch('hn_fused_level_fwd', dev, code, z_vals.data_ptr(),
                   origins.data_ptr(), directions.data_ptr(), embed.data_ptr(),
-                  rgbc.data_ptr(), _ptr(scales), _ptr(tmpl_scales),
-                  w_blob.data_ptr(), b_blob.data_ptr(), out.data_ptr(),
-                  _ptr(raw_t), r, s)
+                  rgbc.data_ptr(), _ptr(alphac), _ptr(aw), _ptr(scales),
+                  _ptr(tmpl_scales), w_blob.data_ptr(), b_blob.data_ptr(),
+                  out.data_ptr(), _ptr(raw_t), r, s, rgbc.shape[1])
     fused_level.launches += 1
     return out, raw_t
 
@@ -759,36 +762,43 @@ def _check_ray_inputs(z_vals, origins, directions, embed) -> None:
 
 
 def _forward(level: Level, z_vals, origins, directions, embed, rgb_cond,
-             want_raw_t: bool, warp_scales=None, tmpl_scales=None):
+             want_raw_t: bool, warp_scales=None, tmpl_scales=None,
+             alpha_cond=None):
     """(out, raw_t or None): the plain version on CPU tensors, the kernel on
     CUDA tensors."""
     if common.runs_plain(z_vals, 'fused_level'):
         res = fused_level_plain(level, z_vals, origins, directions, embed,
                                 rgb_cond, return_raw_t=want_raw_t,
                                 warp_scales=warp_scales,
-                                tmpl_scales=tmpl_scales)
+                                tmpl_scales=tmpl_scales,
+                                alpha_cond=alpha_cond)
         return res if want_raw_t else (res, None)
     return _launch_forward(level, z_vals, origins, directions, embed,
-                           rgb_cond, want_raw_t, warp_scales, tmpl_scales)
+                           rgb_cond, want_raw_t, warp_scales, tmpl_scales,
+                           alpha_cond)
 
 
 def fused_level(level: Level, z_vals, origins, directions, embed,
-                rgb_cond, warp_scales=None, tmpl_scales=None) -> torch.Tensor:
+                rgb_cond, warp_scales=None, tmpl_scales=None,
+                alpha_cond=None) -> torch.Tensor:
     """Level forward; (R * S, 4) fp32 [rgb logits | raw sigma].
 
     CPU tensors take ``fused_level_plain``; CUDA tensors launch the kernel
     (flagship widths, any template layout, bf16) or raise.
-    Differentiable in every argument and in the level's parameters
-    (``FusedLevelFn``); the window rows are schedule constants.
+    Differentiable in every argument (``alpha_cond``: the per-ray alpha
+    condition, or None) and in the level's parameters (``FusedLevelFn``);
+    the window rows are schedule constants.
     """
     params = _level_params(level)
     inputs = (z_vals, origins, directions, embed, rgb_cond)
-    if torch.is_grad_enabled() and any(t.requires_grad
-                                       for t in (*inputs, *params)):
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad
+            for t in (*inputs, alpha_cond, *params)):
         return FusedLevelFn.apply(level, warp_scales, tmpl_scales, *inputs,
-                                  *params)
+                                  alpha_cond, *params)
     return _forward(level, *inputs, want_raw_t=False,
-                    warp_scales=warp_scales, tmpl_scales=tmpl_scales)[0]
+                    warp_scales=warp_scales, tmpl_scales=tmpl_scales,
+                    alpha_cond=alpha_cond)[0]
 
 
 fused_level.launches = 0
@@ -802,15 +812,17 @@ class FusedLevelFn(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, level, warp_scales, tmpl_scales, z_vals, origins,
-                directions, embed, rgb_cond, *params):
+                directions, embed, rgb_cond, alpha_cond, *params):
         inputs = [t.detach() for t in (z_vals, origins, directions, embed,
                                        rgb_cond)]
+        alpha_cond = None if alpha_cond is None else alpha_cond.detach()
         with torch.no_grad():
             out, raw_t = _forward(level, *inputs, want_raw_t=True,
                                   warp_scales=warp_scales,
-                                  tmpl_scales=tmpl_scales)
+                                  tmpl_scales=tmpl_scales,
+                                  alpha_cond=alpha_cond)
         ctx.level, ctx.warp_scales = level, warp_scales
-        ctx.tmpl_scales = tmpl_scales
+        ctx.tmpl_scales, ctx.alpha_cond = tmpl_scales, alpha_cond
         ctx.save_for_backward(*inputs, raw_t)
         return out
 
@@ -818,16 +830,18 @@ class FusedLevelFn(torch.autograd.Function):
     def backward(ctx, g):
         z_vals, origins, directions, embed, rgb_cond, raw_t = \
             ctx.saved_tensors
-        level = ctx.level
+        level, alpha_cond = ctx.level, ctx.alpha_cond
         g = g.contiguous()
         with torch.no_grad():
-            dx_t, d_rgb_cond, t_grads = fused_template_bwd(
-                level, raw_t, rgb_cond, g, ctx.tmpl_scales)
+            dx_t, d_rgb_cond, t_grads, d_alpha = fused_template_bwd(
+                level, raw_t, rgb_cond, g, ctx.tmpl_scales, alpha_cond)
             d_z, d_o, d_d, d_embed, f_grads = fused_fields_bwd(
                 level, z_vals, origins, directions, embed, dx_t,
                 ctx.warp_scales)
+        if d_alpha is not None:
+            d_alpha = d_alpha.to(alpha_cond.dtype)
         return (None, None, None, d_z, d_o, d_d, d_embed,
-                d_rgb_cond.to(rgb_cond.dtype), *f_grads, *t_grads)
+                d_rgb_cond.to(rgb_cond.dtype), d_alpha, *f_grads, *t_grads)
 
 
 # ---------------------------------------------------------------------------

@@ -1,6 +1,7 @@
 """The template MLP alone, forward and backward: the positional encoding of
-raw [xyz | hyper] rows, the trunk, the bottleneck, the alpha head and the rgb
-branch on the per-ray condition.
+raw [xyz | hyper] rows, the trunk, the bottleneck, the alpha head on
+[bottleneck | per-ray alpha condition] and the rgb branch on [bottleneck |
+per-ray rgb condition].
 
 ``fused_template`` is the wrapper. On CUDA tensors it launches the
 hand-written Hopper kernel of ``csrc/modular_fwd.cu``, the template's stage
@@ -32,6 +33,18 @@ posenc_orig of 8 hyper coordinates (``common.PLANE``: 167 encoded columns in
 coordinates (static NeRF) runs through the flagship's kernels: its encoding
 is packed with zero weight columns where the hyper bands would be, which is
 exact, and those columns' dW is dropped on unpack.
+
+The conditions (the JAX model's ``get_condition_inputs``): the rgb condition
+is any width a layout covers (``common.FLAGSHIP['rgb_cond']``: the view
+directions' encoding, with the nerf embedding after it, the embedding alone,
+or 0 columns, where the rgb branch's condition columns are zero in the
+packed weight and in the tile), a width of the call; the alpha condition is
+None or the kEmbed-column embedding. The alpha head's packed layer (layer
+10, 8 x 128) holds its bottleneck columns only, so that no table offset
+moves; its condition columns are a vector of their own
+(``alpha_cond_weight``), which the kernels dot with each row's condition and
+add to the head's product, and whose dW kernel A writes after the layers'
+[dW | db] (``ALPHA_TAIL`` floats).
 """
 
 from __future__ import annotations
@@ -115,7 +128,9 @@ def template_scales(tmpl, nerf_alpha=None, hyper_alpha=None, device=None):
 def template_layers(t: NerfMLP, enc_pad: int = 0, cond_pad: int = 0):
     """Every Linear of the template in kernel order with its input segments;
     the encoding is padded to ``enc_pad`` columns and the condition to
-    ``cond_pad`` (default: to 16)."""
+    ``cond_pad`` (default: to 16). The alpha head's segment is the
+    bottleneck's: its alpha condition columns are packed apart
+    (``alpha_cond_weight``)."""
     enc = t.trunk.hidden(0).in_features
     tw = t.bottleneck.in_features
     bw = t.bottleneck.out_features
@@ -153,7 +168,7 @@ def _encode(tmpl, x_raw, scales):
     return segs, trigs, common.scaled(feat.to(dt), scales, dt)
 
 
-def _recompute(tmpl, x_raw, rgb_cond, scales=None):
+def _recompute(tmpl, x_raw, rgb_cond, scales=None, alpha_cond=None):
     """The forward with everything the backward needs kept."""
     t = tmpl.template
     dt = t.dtype
@@ -162,23 +177,30 @@ def _recompute(tmpl, x_raw, rgb_cond, scales=None):
     ins, outs, tl_in = common.mlp_recompute(t.trunk, x)
     hl = dense(tl_in, t.trunk.logit, dt, relu=True)
     bneck = dense(hl, t.bottleneck, dt).to(dt)
-    cond = rgb_cond.to(dt)
-    r_in = torch.cat([bneck, cond.repeat_interleave(p // r, dim=0)], dim=-1)
+
+    def rows(c):
+        return c.to(dt).repeat_interleave(p // r, dim=0)
+
+    r_in = torch.cat([bneck, rows(rgb_cond)], dim=-1)
+    a_in = bneck if alpha_cond is None else torch.cat(
+        [bneck, rows(alpha_cond)], dim=-1)
     r_ins, r_outs, rl_in = common.mlp_recompute(t.rgb_branch, r_in)
     return dict(segs=segs, trigs=trigs, x=x, ins=ins, outs=outs, tl_in=tl_in,
-                hl=hl, bneck=bneck, r_in=r_in, r_ins=r_ins, r_outs=r_outs,
-                rl_in=rl_in)
+                hl=hl, bneck=bneck, a_in=a_in, r_in=r_in, r_ins=r_ins,
+                r_outs=r_outs, rl_in=rl_in)
 
 
-def fused_template_plain(tmpl, x_raw, rgb_cond, scales=None):
+def fused_template_plain(tmpl, x_raw, rgb_cond, scales=None,
+                         alpha_cond=None):
     """Plain PyTorch template forward.
 
     Args:
       x_raw: (P, ``raw_pad``) fp32 raw rows [xyz | hyper | 0].
-      rgb_cond: (R, C) per-ray condition; each row serves P / R consecutive
-        rows of ``x_raw``.
+      rgb_cond: (R, C) per-ray rgb condition (C may be 0); each row serves
+        P / R consecutive rows of ``x_raw``.
       scales: a Nerfies template's (enc,) fp32 window row
         (``template_scales``), or None (no window).
+      alpha_cond: (R, Ca) per-ray alpha condition, or None.
 
     Returns:
       (P, 4) fp32 [rgb logits (3) | raw sigma].
@@ -186,7 +208,7 @@ def fused_template_plain(tmpl, x_raw, rgb_cond, scales=None):
     fused_template_plain.calls += 1
     p, r = x_raw.shape[0], rgb_cond.shape[0]
     feat = _encode(tmpl, x_raw, scales)[2]
-    raw = tmpl.template(feat.reshape(r, p // r, -1), rgb_cond)
+    raw = tmpl.template(feat.reshape(r, p // r, -1), rgb_cond, alpha_cond)
     return torch.cat([raw['rgb'], raw['alpha']],
                      dim=-1).reshape(p, -1).float()
 
@@ -194,25 +216,27 @@ def fused_template_plain(tmpl, x_raw, rgb_cond, scales=None):
 fused_template_plain.calls = 0
 
 
-def fused_template_bwd_plain(tmpl, raw_t, rgb_cond, g, scales=None):
+def fused_template_bwd_plain(tmpl, raw_t, rgb_cond, g, scales=None,
+                             alpha_cond=None):
     """Plain template backward: recompute from ``raw_t``, then walk back.
 
     Args:
       raw_t: (P, ``raw_pad``) fp32 [xyz | hyper | 0]; rgb_cond: (R, C);
       g: (P, 4) fp32 cotangent of [rgb logits | raw sigma];
-      scales: the window row or None, as ``fused_template_plain`` takes it.
+      scales, alpha_cond: as ``fused_template_plain`` takes them.
 
     Returns:
-      dx_t (P, ``raw_pad``) fp32, d rgb_cond (R, C) fp32 summed per ray, and
+      dx_t (P, ``raw_pad``) fp32, d rgb_cond (R, C) fp32 summed per ray,
       [dW, db, ...] of the template's layers in kernel order, fp32, in each
-      ``nn.Linear``'s shapes.
+      ``nn.Linear``'s shapes, and d alpha_cond (R, Ca) fp32 summed per ray
+      (None without an alpha condition).
     """
     fused_template_bwd_plain.calls += 1
     t = tmpl.template
     dt, acc = t.dtype, common.acc_dtype(t.dtype)
     p, r = raw_t.shape[0], rgb_cond.shape[0]
     n_rgb = t.rgb_branch.logit.out_features
-    v = _recompute(tmpl, raw_t, rgb_cond, scales)
+    v = _recompute(tmpl, raw_t, rgb_cond, scales, alpha_cond)
 
     g = g.to(acc)
     dw_rl, db_rl, gg = common.head_bwd(t.rgb_branch.logit, v['rl_in'],
@@ -221,9 +245,11 @@ def fused_template_bwd_plain(tmpl, raw_t, rgb_cond, g, scales=None):
                                          v['r_outs'], gg.to(dt),
                                          v['r_in'].shape[1])
     bw = v['bneck'].shape[1]
-    dw_a, db_a, ga = common.head_bwd(t.alpha_head, v['bneck'], g[:, n_rgb:],
+    # The alpha head on [bneck | alpha condition]: its cotangent's condition
+    # columns are the condition's, summed per ray below.
+    dw_a, db_a, ga = common.head_bwd(t.alpha_head, v['a_in'], g[:, n_rgb:],
                                      dt)
-    g_b = g_rin[:, :bw] + ga
+    g_b = g_rin[:, :bw] + ga[:, :bw]
     dw_bn, db_bn, g_hl = common.head_bwd(t.bottleneck, v['hl'], g_b, dt)
     g_hl = torch.where(v['hl'].to(acc) > 0, g_hl,
                        torch.zeros_like(g_hl)).to(dt)
@@ -244,9 +270,11 @@ def fused_template_bwd_plain(tmpl, raw_t, rgb_cond, g, scales=None):
     dx_t = torch.cat(dx, dim=-1).float()
     dx_t = F.pad(dx_t, (0, raw_pad(tmpl) - dx_t.shape[1]))
     d_cond = g_rin[:, bw:].reshape(r, p // r, -1).sum(1).float()
+    d_alpha = None if alpha_cond is None else \
+        ga[:, bw:].reshape(r, p // r, -1).sum(1).float()
     grads = (trunk_grads + [dw_tl, db_tl, dw_bn, db_bn, dw_a, db_a]
              + rgb_grads + [dw_rl, db_rl])
-    return dx_t, d_cond, [t_.float() for t_ in grads]
+    return dx_t, d_cond, [t_.float() for t_ in grads], d_alpha
 
 
 fused_template_bwd_plain.calls = 0
@@ -258,23 +286,53 @@ def cond_width(tmpl) -> int:
     return t.rgb_branch.hidden(0).in_features - t.bottleneck.out_features
 
 
+def alpha_cond_width(tmpl) -> int:
+    """Columns of the template's alpha condition (0: none)."""
+    t = tmpl.template
+    return t.alpha_head.in_features - t.bottleneck.out_features
+
+
+# fp32 slots after the layers' [dW | db] in kernel A's gradient buffer: the
+# alpha head's condition columns' dW.
+ALPHA_TAIL = common.FLAGSHIP['embed']
+
+
 def check_covered(tmpl) -> None:
     """Raise unless the template has the widths of one of the compiled
-    layouts (``common.FLAGSHIP``'s, ``common.NERFIES`` or ``common.PLANE``)
-    in bf16."""
+    layouts (``common.FLAGSHIP``'s, ``common.NERFIES`` or ``common.PLANE``:
+    an rgb condition of one of the layout's widths, an alpha condition of
+    ``common.ALPHA_COND``) in bf16."""
     t = tmpl.template
     nh = n_hyper(tmpl)
     widths = {'nerfies': common.NERFIES, 'plane': common.PLANE,
               'orig': common.FLAGSHIP}[layout(tmpl)]
-    have = dict(xyz_freq=tmpl.xyz_freq, rgb_cond=cond_width(tmpl))
+    have = dict(xyz_freq=tmpl.xyz_freq, rgb_cond=cond_width(tmpl),
+                alpha_cond=alpha_cond_width(tmpl))
     if nh:
         have.update(hyper_out=nh, hyper_freq=tmpl.hyper_freq)
-    want = {**common.FLAGSHIP, **widths}
+    want = {**common.FLAGSHIP, **widths, 'alpha_cond': common.ALPHA_COND}
     dtypes = {t.trunk.dtype, t.rgb_branch.dtype, t.dtype}
-    if any(want[k] != v for k, v in have.items()) \
-            or dtypes != {torch.bfloat16}:
+    if any(v not in want[k] if isinstance(want[k], tuple) else want[k] != v
+           for k, v in have.items()) or dtypes != {torch.bfloat16}:
         raise NotImplementedError(f'{common.NOT_COVERED}; got {have}, '
                                   f'{dtypes}')
+
+
+def alpha_cond_weight(t: NerfMLP):
+    """The alpha head's condition columns as the kernels take them: (Ca,)
+    bf16, cached on the template as ``common.packed`` caches the blobs (on
+    the weight's storage and version counter); None without an alpha
+    condition."""
+    w = t.alpha_head.weight
+    bw = t.bottleneck.out_features
+    if w.shape[1] == bw:
+        return None
+    key = (w.data_ptr(), w._version)
+    cached = getattr(t, '_alpha_cond_w', None)
+    if cached is None or cached[0] != key:
+        cached = (key, w.detach()[0, bw:].to(torch.bfloat16).contiguous())
+        object.__setattr__(t, '_alpha_cond_w', cached)
+    return cached[1]
 
 
 def kernel_scales(tmpl, scales, device):
@@ -292,10 +350,29 @@ def kernel_scales(tmpl, scales, device):
     return common.padded_scales(scales, enc, common.TMPL_ENC_PAD, device)
 
 
-def _launch_args(tmpl, x_raw, rgb_cond, transposed: bool):
-    """Checked inputs of a kernel launch: the bf16 condition, the rows per
-    condition row and the packed blobs, whose shapes are the template's
-    layers of the compiled table of its layout."""
+def cond_args(tmpl, rgb_cond, alpha_cond, rays: int, dev):
+    """The kernels' condition inputs, checked: the bf16 rgb condition (R,
+    C), and the bf16 alpha condition (R, Ca) and the alpha head's condition
+    columns (``alpha_cond_weight``), each None without an alpha condition."""
+    rgbc = rgb_cond.detach().to(torch.bfloat16).contiguous()
+    build.check_tensor('rgb_cond', rgbc, (rays, cond_width(tmpl)),
+                       torch.bfloat16, dev)
+    aw = alpha_cond_weight(tmpl.template)
+    if (aw is None) != (alpha_cond is None):
+        raise ValueError('an alpha condition goes with a template whose alpha '
+                         'head takes one, and only with one')
+    if aw is None:
+        return rgbc, None, None
+    alphac = alpha_cond.detach().to(torch.bfloat16).contiguous()
+    build.check_tensor('alpha_cond', alphac, (rays, aw.shape[0]),
+                       torch.bfloat16, dev)
+    return rgbc, alphac, aw
+
+
+def _launch_args(tmpl, x_raw, rgb_cond, transposed: bool, alpha_cond=None):
+    """Checked inputs of a kernel launch: the conditions (``cond_args``),
+    the rows per condition row and the packed blobs, whose shapes are the
+    template's layers of the compiled table of its layout."""
     layers = kernel_template_layers(tmpl.template)
     check = lambda: check_covered(tmpl)
     packs = [common.pack_layers(tmpl.template, layers, check)]
@@ -309,52 +386,54 @@ def _launch_args(tmpl, x_raw, rgb_cond, transposed: bool):
         common.check_layout(packs[0][2], common.TEMPLATE_LAYERS)
     dev = x_raw.device
     p, r = x_raw.shape[0], rgb_cond.shape[0]
-    rgbc = rgb_cond.detach().to(torch.bfloat16).contiguous()
+    conds = cond_args(tmpl, rgb_cond, alpha_cond, r, dev)
     build.check_tensor('x_raw', x_raw, (p, raw_pad(tmpl)), torch.float32,
                        dev)
-    build.check_tensor('rgb_cond', rgbc, (r, cond_width(tmpl)),
-                       torch.bfloat16, dev)
     if r == 0 or p % r:
         raise ValueError(f'{p} samples do not divide into {r} rays')
-    return rgbc, p // r, layers, packs
+    return conds, p // r, layers, packs
 
 
 def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
-def _forward(tmpl, x_raw, rgb_cond, scales=None):
+def _forward(tmpl, x_raw, rgb_cond, scales=None, alpha_cond=None):
     if common.runs_plain(x_raw, 'fused_template'):
-        return fused_template_plain(tmpl, x_raw, rgb_cond, scales)
-    rgbc, s, _, ((w_blob, b_blob, _),) = _launch_args(tmpl, x_raw, rgb_cond,
-                                                     False)
+        return fused_template_plain(tmpl, x_raw, rgb_cond, scales,
+                                    alpha_cond)
+    (rgbc, alphac, aw), s, _, ((w_blob, b_blob, _),) = _launch_args(
+        tmpl, x_raw, rgb_cond, False, alpha_cond)
     scales = kernel_scales(tmpl, scales, x_raw.device)
     p = x_raw.shape[0]
     out = torch.empty((p, 4), dtype=torch.float32, device=x_raw.device)
     entry = ('hn_fused_template_fwd_plane' if layout(tmpl) == 'plane'
              else 'hn_fused_template_fwd')
     common.launch(entry, x_raw.device, x_raw.data_ptr(), rgbc.data_ptr(),
-                  _ptr(scales), w_blob.data_ptr(), b_blob.data_ptr(),
-                  out.data_ptr(), p, s)
+                  _ptr(alphac), _ptr(aw), _ptr(scales), w_blob.data_ptr(),
+                  b_blob.data_ptr(), out.data_ptr(), p, s, rgbc.shape[1])
     fused_template.launches += 1
     return out
 
 
-def fused_template(tmpl, x_raw, rgb_cond, scales=None) -> torch.Tensor:
+def fused_template(tmpl, x_raw, rgb_cond, scales=None,
+                   alpha_cond=None) -> torch.Tensor:
     """Template forward; (P, 4) fp32 [rgb logits | raw sigma]. ``scales``:
-    a Nerfies template's window row (``template_scales``) or None.
+    a Nerfies template's window row (``template_scales``) or None;
+    ``alpha_cond``: (R, Ca) per-ray alpha condition, or None.
 
     CPU tensors take ``fused_template_plain``; CUDA tensors launch the kernel
     (flagship widths, any of the three layouts, bf16) or raise.
-    Differentiable in
-    ``x_raw``, ``rgb_cond`` and the template's parameters
-    (``FusedTemplateFn``).
+    Differentiable in ``x_raw``, both conditions and the template's
+    parameters (``FusedTemplateFn``).
     """
     params = common.layer_params(template_layers(tmpl.template))
-    if torch.is_grad_enabled() and any(t.requires_grad
-                                       for t in (x_raw, rgb_cond, *params)):
-        return FusedTemplateFn.apply(tmpl, scales, x_raw, rgb_cond, *params)
-    return _forward(tmpl, x_raw, rgb_cond, scales)
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad
+            for t in (x_raw, rgb_cond, alpha_cond, *params)):
+        return FusedTemplateFn.apply(tmpl, scales, x_raw, rgb_cond,
+                                     alpha_cond, *params)
+    return _forward(tmpl, x_raw, rgb_cond, scales, alpha_cond)
 
 
 fused_template.launches = 0
@@ -362,24 +441,30 @@ fused_template.launches = 0
 
 class FusedTemplateFn(torch.autograd.Function):
     """The template with its hand-written backward: the forward keeps the
-    raw input and the condition, the backward recomputes."""
+    raw input and the conditions, the backward recomputes."""
 
     @staticmethod
-    def forward(ctx, tmpl, scales, x_raw, rgb_cond, *params):
+    def forward(ctx, tmpl, scales, x_raw, rgb_cond, alpha_cond, *params):
         x_raw, rgb_cond = x_raw.detach(), rgb_cond.detach()
+        alpha_cond = None if alpha_cond is None else alpha_cond.detach()
         with torch.no_grad():
-            out = _forward(tmpl, x_raw, rgb_cond, scales)
+            out = _forward(tmpl, x_raw, rgb_cond, scales, alpha_cond)
         ctx.tmpl, ctx.scales = tmpl, scales
+        ctx.alpha_cond = alpha_cond
         ctx.save_for_backward(x_raw, rgb_cond)
         return out
 
     @staticmethod
     def backward(ctx, g):
         x_raw, rgb_cond = ctx.saved_tensors
+        alpha_cond = ctx.alpha_cond
         with torch.no_grad():
-            dx, d_cond, grads = fused_template_bwd(ctx.tmpl, x_raw, rgb_cond,
-                                                   g.contiguous(), ctx.scales)
-        return (None, None, dx, d_cond.to(rgb_cond.dtype), *grads)
+            dx, d_cond, grads, d_alpha = fused_template_bwd(
+                ctx.tmpl, x_raw, rgb_cond, g.contiguous(), ctx.scales,
+                alpha_cond)
+        if d_alpha is not None:
+            d_alpha = d_alpha.to(alpha_cond.dtype)
+        return (None, None, dx, d_cond.to(rgb_cond.dtype), d_alpha, *grads)
 
 
 # ---------------------------------------------------------------------------
@@ -455,13 +540,17 @@ def tiles(width: int) -> int:
 
 def template_bwd_chunks(ops, raw_t, rgbc, samples, g, w, wt, b, w_off,
                         b_off, n_grads, max_rows: int = CHUNK_ROWS,
-                        scales=None):
+                        scales=None, alpha=None):
     """Kernel A's sequence. ``ops`` launches the steps (``_KernelOps`` on
     the card); ``w`` / ``wt`` / ``b``: each template layer's packed bf16
     weight, its transpose and its bias; ``w_off`` / ``b_off``: each layer's
     offsets in the fp32 [dW | db] buffer of ``n_grads`` floats; ``scales``:
     the Nerfies layout's padded window row (``kernel_scales``), or None for
-    the original encoding.
+    the original encoding; ``alpha``: (alpha condition (R, Ca) bf16, the
+    alpha head's condition columns (Ca,) bf16) or None. With an alpha
+    condition the buffer's last ``ALPHA_TAIL`` floats take the condition
+    columns' dW (``n_grads`` counts them), and one more step per chunk
+    (``alpha_cond_bwd``) writes them and d alpha_cond.
 
     The encoding's width is layer 0's padded input (``w[0]``: 128, or the
     plane layout's 192, whose raw rows and dx_t are 16 columns wide): it
@@ -470,9 +559,9 @@ def template_bwd_chunks(ops, raw_t, rgbc, samples, g, w, wt, b, w_off,
     tiles wide, whose columns past the encoding the products fill with
     zeros (the weight rows past it read as zero).
 
-    Returns dx_t (P, raw_t's columns), d rgb_cond (R, C) and the [dW | db]
-    buffer; ``ops.stash_bytes`` is set to the bytes of the stash it
-    allocated."""
+    Returns dx_t (P, raw_t's columns), d rgb_cond (R, C), the [dW | db]
+    buffer and d alpha_cond (R, Ca) or None; ``ops.stash_bytes`` is set to
+    the bytes of the stash it allocated."""
     dev, f32, bf = raw_t.device, torch.float32, torch.bfloat16
     p, s = raw_t.shape[0], samples
     plan = chunk_plan(p, s, max_rows)
@@ -492,6 +581,8 @@ def template_bwd_chunks(ops, raw_t, rgbc, samples, g, w, wt, b, w_off,
     dx_t = torch.empty((p, raw_t.shape[1]), dtype=f32, device=dev)
     d_cond = torch.empty((rgbc.shape[0], rgbc.shape[1]), dtype=f32,
                          device=dev)
+    d_alpha = None if alpha is None else torch.empty(
+        alpha[0].shape, dtype=f32, device=dev)
     col = sp.col
     cond_col = sp.widths['bneck']  # rgb layer 0's input: [bneck | cond]
     for r0, r1 in plan:
@@ -524,6 +615,10 @@ def template_bwd_chunks(ops, raw_t, rgbc, samples, g, w, wt, b, w_off,
                              slab, w_off[l], k_pad, q1 - q0, s)
                 ops.bneck_prep(g_c, nxt, stash, col['bneck'], w[10], cur,
                                slab, w_off[10], b_off[10], b_off[9], n)
+                if alpha is not None:
+                    ops.alpha_cond_bwd(g_c, alpha[0][q0:q1], alpha[1],
+                                       d_alpha[q0:q1], slab,
+                                       n_grads - ALPHA_TAIL, q1 - q0, s)
                 continue  # the bottleneck's cotangent is in cur
             if l == 0:  # the encoding's cotangent, layer 0's part
                 ops.rowprod(cur, n, red, wt[l], n_out, 0, tiles(enc), enc_g,
@@ -538,7 +633,7 @@ def template_bwd_chunks(ops, raw_t, rgbc, samples, g, w, wt, b, w_off,
             cur, nxt = nxt, cur
         ops.posenc_bwd(raw_c, enc_g, dx_t[r0:r1], n, scales)
         ops.reduce(slab, grads)
-    return dx_t, d_cond, grads
+    return dx_t, d_cond, grads, d_alpha
 
 
 class _KernelOps:
@@ -547,11 +642,12 @@ class _KernelOps:
     ``torch.cuda.device(device)``. Every buffer's leading dimension is
     passed from its tensor; the narrow steps are compiled for this module's
     layouts (``stash_plan``'s two widths, ``GBUF``, the condition after the
-    bottleneck, 39 or 27 condition columns) and their entry points refuse
-    another, which raises here. The encoding's two steps take the Nerfies
-    layout where they are given a window row, and the plane layout where
-    they are given its stash (3136 columns) or its encoding cotangent's
-    buffer (512)."""
+    bottleneck, the rgb condition widths of ``common.FLAGSHIP`` and
+    ``common.NERFIES``, an alpha condition of kEmbed columns) and their
+    entry points refuse another, which raises here. The encoding's two
+    steps take the Nerfies layout where they are given a window row, and
+    the plane layout where they are given its stash (3136 columns) or its
+    encoding cotangent's buffer (512)."""
 
     splits = SPLITS
 
@@ -601,6 +697,13 @@ class _KernelOps:
                  d_cond.data_ptr(), slab.data_ptr(), slab.shape[1], w_off,
                  k_pad, rays, samples, slab.shape[0], cond.shape[1])
 
+    def alpha_cond_bwd(self, g4, alpha_cond, aw, d_alpha, slab, tail_off,
+                       rays, samples):
+        self._go('hn_tmpl_alpha_cond_bwd', g4.data_ptr(),
+                 alpha_cond.data_ptr(), aw.data_ptr(), d_alpha.data_ptr(),
+                 slab.data_ptr(), slab.shape[1], tail_off, rays, samples,
+                 slab.shape[0], alpha_cond.shape[1])
+
     def bneck_prep(self, g4, gin, stash, bneck_col, w10, gb, slab, w_off,
                    b_off, b9_off, n):
         self._go('hn_tmpl_bneck_prep', g4.data_ptr(), gin.data_ptr(),
@@ -635,31 +738,51 @@ def layer_views(w_blob, wt_blob, b_blob, shapes):
     return w, wt, b, w_off, b_off, n_w + at_b
 
 
-def fused_template_bwd(tmpl, raw_t, rgb_cond, g, scales=None):
+def unpack_template_grads(grads, layers, shapes, n_w: int, alpha: bool):
+    """Kernel A's fp32 [dW | db (| the alpha condition columns' dW)] ->
+    [dW, db, ...] in each ``nn.Linear``'s shapes (``common.unpack_grads``;
+    the alpha head's dW gets its condition columns from the tail)."""
+    if not alpha:
+        return common.unpack_grads(grads[:n_w], grads[n_w:], layers, shapes)
+    out = common.unpack_grads(grads[:n_w], grads[n_w:-ALPHA_TAIL], layers,
+                              shapes)
+    ca = layers[10][0].in_features - layers[10][1][0][0]
+    out[20] = torch.cat([out[20], grads[-ALPHA_TAIL:][None, :ca]], dim=1)
+    return out
+
+
+def fused_template_bwd(tmpl, raw_t, rgb_cond, g, scales=None,
+                       alpha_cond=None):
     """Template backward (see ``fused_template_bwd_plain``): CPU tensors
     take the plain version, CUDA tensors launch kernel A's sequence
     (``template_bwd_chunks``) or raise. dW / db are deterministic: each
     chunk's slabs are summed in a fixed order. ``fused_template_bwd
-    .stash_bytes`` holds the bytes of the last launched call's stash."""
+    .stash_bytes`` holds the bytes of the last launched call's stash.
+    Returns (dx_t, d rgb_cond, [dW, db, ...], d alpha_cond or None)."""
     if common.runs_plain(raw_t, 'fused_template_bwd'):
-        return fused_template_bwd_plain(tmpl, raw_t, rgb_cond, g, scales)
-    rgbc, s, layers, ((w_blob, b_blob, shapes), (wt_blob, _, _)) = \
-        _launch_args(tmpl, raw_t, rgb_cond, True)
+        return fused_template_bwd_plain(tmpl, raw_t, rgb_cond, g, scales,
+                                        alpha_cond)
+    (rgbc, alphac, aw), s, layers, ((w_blob, b_blob, shapes),
+                                    (wt_blob, _, _)) = \
+        _launch_args(tmpl, raw_t, rgb_cond, True, alpha_cond)
     dev = raw_t.device
     scales = kernel_scales(tmpl, scales, dev)
     build.check_tensor('g', g, (raw_t.shape[0], 4), torch.float32, dev)
     w, wt, b, w_off, b_off, n_grads = layer_views(w_blob, wt_blob, b_blob,
                                                   shapes)
+    alpha = None if aw is None else (alphac, aw)
+    if alpha is not None:
+        n_grads += ALPHA_TAIL
     with torch.cuda.device(dev):
         ops = _KernelOps(dev)
-        dx_t, d_cond, grads = template_bwd_chunks(
+        dx_t, d_cond, grads, d_alpha = template_bwd_chunks(
             ops, raw_t, rgbc, s, g, w, wt, b, w_off, b_off, n_grads,
-            scales=scales)
+            scales=scales, alpha=alpha)
     fused_template_bwd.launches += 1
     fused_template_bwd.stash_bytes = ops.stash_bytes
-    n_w = b_off[0]
-    return dx_t, d_cond, common.unpack_grads(grads[:n_w], grads[n_w:], layers,
-                                             shapes)
+    return (dx_t, d_cond, unpack_template_grads(grads, layers, shapes,
+                                                b_off[0], alpha is not None),
+            d_alpha)
 
 
 fused_template_bwd.launches = 0

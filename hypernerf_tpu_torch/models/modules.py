@@ -131,8 +131,11 @@ class GLOEmbed(nn.Module):
 
 
 class NerfMLP(nn.Module):
-    """Template: trunk (ReLU logit) -> bottleneck -> alpha head, and the
-    rgb branch on [bottleneck | per-ray rgb condition].
+    """Template: trunk (ReLU logit) -> bottleneck -> the alpha head on
+    [bottleneck | per-ray alpha condition] and the rgb branch on
+    [bottleneck | per-ray rgb condition]. Either condition may be 0 columns
+    wide (``alpha_cond_ch`` 0: no alpha condition; ``rgb_cond_ch`` 0: the
+    rgb branch on the bottleneck alone).
 
     Returns raw fp32 {'rgb': (..., 3) logits, 'alpha': (..., 1)}.
     """
@@ -141,30 +144,42 @@ class NerfMLP(nn.Module):
                  trunk_width: int = 256, rgb_branch_depth: int = 4,
                  rgb_branch_width: int = 128, rgb_channels: int = 3,
                  alpha_channels: int = 1, skips: Sequence[int] = (4,),
-                 dtype=torch.float32):
+                 dtype=torch.float32, alpha_cond_ch: int = 0):
         super().__init__()
         self.dtype = dtype
         self.trunk = MLP(in_ch, trunk_width, trunk_depth, trunk_width, skips,
                          output_relu=True, dtype=dtype)
-        # torch's default Linear init is the reference's bare bottleneck.
+        # torch's default Linear init is the reference's bare bottleneck; the
+        # alpha head's default bias bound follows its whole input, as the
+        # flax package's ``torch_linear_bias(alpha_input.shape[-1])``.
         self.bottleneck = nn.Linear(trunk_width, trunk_width // 2)
-        self.alpha_head = nn.Linear(trunk_width // 2, alpha_channels)
+        self.alpha_head = nn.Linear(trunk_width // 2 + alpha_cond_ch,
+                                    alpha_channels)
         nn.init.xavier_uniform_(self.alpha_head.weight)
         self.rgb_branch = MLP(trunk_width // 2 + rgb_cond_ch, rgb_channels,
                               rgb_branch_depth, rgb_branch_width, skips,
                               dtype=dtype)
 
-    def forward(self, x: torch.Tensor, rgb_condition: torch.Tensor) -> dict:
-        """x: (..., S, F) encoded samples; rgb_condition: per-ray (..., C)
-        (broadcast over S) or per-sample (..., S, C)."""
-        trunk = self.trunk(x)
-        bneck = dense(trunk, self.bottleneck, self.dtype).to(self.dtype)
-        alpha = dense(bneck, self.alpha_head, self.dtype)
-        c = rgb_condition
+    def _per_sample(self, c, x):
+        """A condition per ray (..., C) broadcast over the samples of x, or
+        per sample (..., S, C), in the compute dtype."""
         if c.dim() == x.dim() - 1:
             c = c[..., None, :]
-        c = c.to(self.dtype).expand(*x.shape[:-1], c.shape[-1])
-        rgb = self.rgb_branch(torch.cat([bneck, c], dim=-1))
+        return c.to(self.dtype).expand(*x.shape[:-1], c.shape[-1])
+
+    def forward(self, x: torch.Tensor, rgb_condition=None,
+                alpha_condition=None) -> dict:
+        """x: (..., S, F) encoded samples; each condition per ray (..., C)
+        (broadcast over S), per sample (..., S, C) or None (0 columns)."""
+        trunk = self.trunk(x)
+        bneck = dense(trunk, self.bottleneck, self.dtype).to(self.dtype)
+        a_in, r_in = [bneck], [bneck]
+        if alpha_condition is not None:
+            a_in.append(self._per_sample(alpha_condition, x))
+        if rgb_condition is not None:
+            r_in.append(self._per_sample(rgb_condition, x))
+        alpha = dense(torch.cat(a_in, dim=-1), self.alpha_head, self.dtype)
+        rgb = self.rgb_branch(torch.cat(r_in, dim=-1))
         return {'rgb': rgb, 'alpha': alpha}
 
 

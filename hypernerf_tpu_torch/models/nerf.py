@@ -66,6 +66,18 @@ when deterministic), the coarse level composites without the fused fine draw
 coarse weights gated by the grid, as in the JAX model; either branch runs
 the level as it would without a grid.
 
+The template's per-ray conditions are the JAX model's
+(``get_condition_inputs``): the rgb condition is the view directions'
+encoding (``use_viewdirs``) followed, with ``use_nerf_embed`` and
+``use_rgb_condition``, by the nerf embedding (the per-frame appearance code:
+the warp table's with one GLO table, else a table of its own that reads the
+'warp' metadata key); the alpha condition is that embedding with
+``use_alpha_condition``. Either may be empty: an empty alpha condition is
+none, an empty rgb condition (``use_viewdirs=False`` without the rgb
+condition) runs the same kernels with a condition of 0 columns, where the
+JAX model leaves its kernels for XLA. ``query_sigma`` takes the id's
+conditions, so an alpha condition enters the density.
+
 What is still missing raises NotImplementedError naming the ROADMAP item
 that will port it.
 """
@@ -102,6 +114,7 @@ from hypernerf_tpu_torch.ops.sampling import (sample_along_rays, sample_pdf,
 METADATA_KEYS = ('warp', 'camera', 'appearance', 'time')
 WARP_EMBED_KEY = 'time'
 HYPER_EMBED_KEY = 'time'
+NERF_EMBED_KEY = 'warp'
 
 
 def unsupported(cfg: NerfConfig) -> list:
@@ -123,8 +136,6 @@ def unsupported(cfg: NerfConfig) -> list:
                 cfg.viewdir_min_deg) != (0, 0, 0):
             out.append('Nerfies bands from a degree other than 0 '
                        '(ROADMAP A.13)')
-    if cfg.use_nerf_embed or not cfg.use_viewdirs:
-        out.append('conditions other than viewdirs (ROADMAP A.9)')
     if cfg.alpha_channels != 1 or cfg.rgb_channels != 3:
         out.append('heads other than rgb 3 + alpha 1 (ROADMAP A.9)')
     return out
@@ -134,8 +145,8 @@ class NerfModel(nn.Module):
     """HyperNeRF with a translation, SE(3) or quaternion warp (or none), a
     bendy sheet, an axis-aligned plane (the GLO embedding as the hyper
     coordinates) or no hyper coordinates, the posenc_orig or the Nerfies
-    template encoding, one GLO table or two, and a viewdir-conditioned rgb
-    branch."""
+    template encoding, one GLO table or two (or three, with a nerf
+    embedding of its own), and the template's alpha and rgb conditions."""
 
     def __init__(self, config: NerfConfig):
         super().__init__()
@@ -163,6 +174,8 @@ class NerfModel(nn.Module):
                     cfg.warp_min_deg, cfg.warp_max_deg, cfg.skips, dtype=dt)
         if hyper_ch and not cfg.hyper_use_warp_embed:
             self.hyper_embed = GLOEmbed(cfg.num_embeddings, cfg.glo_dim)
+        if cfg.use_nerf_embed and not cfg.nerf_use_warp_embed:
+            self.nerf_embed = GLOEmbed(cfg.num_embeddings, cfg.glo_dim)
         if hyper_ch and not plane:
             self.hyper_sheet_mlp = HyperSheetMLP(
                 cfg.glo_dim, cfg.hyper_slice_out_dim, cfg.hyper_sheet_depth,
@@ -180,8 +193,13 @@ class NerfModel(nn.Module):
                                        cfg.hyper_point_max_deg))
             cond_ch = posenc_channels(3, cfg.viewdir_min_deg,
                                       cfg.viewdir_max_deg, True)
+        # The conditions' widths (get_condition_inputs).
+        embed_ch = cfg.glo_dim if cfg.use_nerf_embed else 0
+        cond_ch = ((cond_ch if cfg.use_viewdirs else 0)
+                   + (embed_ch if cfg.use_rgb_condition else 0))
+        alpha_cond_ch = embed_ch if cfg.use_alpha_condition else 0
         template = dict(
-            in_ch=in_ch, rgb_cond_ch=cond_ch,
+            in_ch=in_ch, rgb_cond_ch=cond_ch, alpha_cond_ch=alpha_cond_ch,
             trunk_depth=cfg.trunk_depth, trunk_width=cfg.trunk_width,
             rgb_branch_depth=cfg.rgb_branch_depth,
             rgb_branch_width=cfg.rgb_branch_width,
@@ -231,16 +249,46 @@ class NerfModel(nn.Module):
             return self.encode_warp_embed(metadata)
         return self._encode_embed(self.hyper_embed, metadata[HYPER_EMBED_KEY])
 
-    def get_condition_inputs(self, viewdirs, extra_params=None):
-        """The per-ray rgb condition: posenc_orig of the view directions, or
-        with the Nerfies encoding their ``posenc`` with identity, windowed
-        by ``nerf_alpha``."""
+    def encode_nerf_embed(self, metadata):
+        """The nerf embedding: the warp table's with one GLO table, else its
+        own table's, which reads the 'warp' key (NERF_EMBED_KEY)."""
+        if self.config.nerf_use_warp_embed:
+            return self.encode_warp_embed(metadata)
+        return self._encode_embed(self.nerf_embed, metadata[NERF_EMBED_KEY])
+
+    def get_condition_inputs(self, viewdirs, metadata, extra_params=None):
+        """The per-ray (alpha condition, rgb condition), each None when
+        empty: the rgb condition is posenc_orig of the view directions, or
+        with the Nerfies encoding their ``posenc`` with identity windowed by
+        ``nerf_alpha`` (``use_viewdirs``), then the nerf embedding
+        (``use_nerf_embed`` and ``use_rgb_condition``); the alpha condition
+        is the nerf embedding (``use_alpha_condition``)."""
         cfg = self.config
-        if cfg.use_original_embed:
-            return posenc_orig(viewdirs, cfg.dir_freq)
-        return posenc(viewdirs, cfg.viewdir_min_deg, cfg.viewdir_max_deg,
-                      use_identity=True,
-                      alpha=(extra_params or {}).get('nerf_alpha'))
+        alpha, rgb = [], []
+        if cfg.use_viewdirs:
+            if cfg.use_original_embed:
+                rgb.append(posenc_orig(viewdirs, cfg.dir_freq))
+            else:
+                rgb.append(posenc(
+                    viewdirs, cfg.viewdir_min_deg, cfg.viewdir_max_deg,
+                    use_identity=True,
+                    alpha=(extra_params or {}).get('nerf_alpha')))
+        if cfg.use_nerf_embed:
+            embed = self.encode_nerf_embed(metadata)
+            if cfg.use_alpha_condition:
+                alpha.append(embed)
+            if cfg.use_rgb_condition:
+                rgb.append(embed)
+        return (torch.cat(alpha, dim=-1) if alpha else None,
+                torch.cat(rgb, dim=-1) if rgb else None)
+
+    @staticmethod
+    def _kernel_rgb(rgb_cond, rays: int, like):
+        """The rgb condition as the kernels take it: an empty one is (rays,
+        0)."""
+        if rgb_cond is None:
+            return like.new_zeros((rays, 0))
+        return rgb_cond
 
     def _template_scales(self, extra_params, device):
         """The template's window row at ``extra_params``' ``nerf_alpha``
@@ -328,19 +376,22 @@ class NerfModel(nn.Module):
                                     alpha=ep.get('hyper_alpha')))
         return torch.cat(feats, dim=-1)
 
-    def query_template(self, name: str, points, viewdirs,
+    def query_template(self, name: str, points, viewdirs, metadata,
                        stratified: bool = True, noise=None, generator=None,
-                       extra_params=None, rgb_cond=None, tmpl_row=None):
+                       extra_params=None, conds=None, tmpl_row=None):
         """The template on (B, S, 3 + H) mapped points: (rgb (B, S, 3),
         sigma (B, S)), sigmoid and softplus applied in fp32 after the sigma
         noise. CUDA tensors take the template kernel on the raw points (with
         the window row of the Nerfies encoding); CPU tensors the module on
-        their encoding. ``rgb_cond`` and ``tmpl_row``: the condition of
-        ``viewdirs`` and the template's window row, when the caller has
-        built them (else built here from ``extra_params``)."""
+        their encoding. ``conds`` and ``tmpl_row``: the (alpha, rgb)
+        conditions of ``viewdirs`` and ``metadata`` and the template's window
+        row, when the caller has built them (else built here from
+        ``extra_params``)."""
         cfg = self.config
-        if rgb_cond is None:
-            rgb_cond = self.get_condition_inputs(viewdirs, extra_params)
+        if conds is None:
+            conds = self.get_condition_inputs(viewdirs, metadata,
+                                              extra_params)
+        alpha_cond, rgb_cond = conds
         b, s, ch = points.shape
         mlp = self._template(name)
         tmpl = self.template_of(name)
@@ -353,11 +404,14 @@ class NerfModel(nn.Module):
                         (0, raw_pad(tmpl) - ch))
             if tmpl_row is None:
                 tmpl_row = self._template_scales(extra_params, points.device)
-            packed = fused_template(tmpl, raw, rgb_cond, tmpl_row)
+            packed = fused_template(tmpl, raw,
+                                    self._kernel_rgb(rgb_cond, b, points),
+                                    tmpl_row, alpha_cond=alpha_cond)
             packed = packed.reshape(b, s, 4)
             raw_rgb, raw_alpha = packed[..., :3], packed[..., 3:]
         else:
-            out = mlp(self._encode_points(points, extra_params), rgb_cond)
+            out = mlp(self._encode_points(points, extra_params), rgb_cond,
+                      alpha_cond)
             raw_rgb, raw_alpha = out['rgb'].float(), out['alpha'].float()
         raw_alpha = noise_regularize(
             raw_alpha, cfg.noise_std, stratified,
@@ -368,7 +422,8 @@ class NerfModel(nn.Module):
     def query_sigma(self, points, metadata_id, extra_params=None):
         """Template density at raw world points, without sigma noise: the
         warp, the hyper coordinates (the sheet's, or the plane's embedding)
-        and the template's density, one sample per row.
+        and the template's density, one sample per row, with the id's
+        conditions (zero view directions, as the JAX model's).
 
         Args:
           points: (N, 3) world positions; metadata_id: (N, 1) integer ids;
@@ -389,7 +444,7 @@ class NerfModel(nn.Module):
                                  extra_params=extra_params)
         _, sigma = self.query_template(
             'fine' if cfg.num_fine_samples > 0 else 'coarse', warped,
-            torch.zeros_like(points), stratified=False,
+            torch.zeros_like(points), metadata, stratified=False,
             extra_params=extra_params)
         return sigma[:, 0]
 
@@ -445,18 +500,20 @@ class NerfModel(nn.Module):
                        generator=None, extra_params=None,
                        return_warp_jacobian: bool = False,
                        subsample: bool = False, jacobian_u=None,
-                       rgb_cond=None, window_rows=None
+                       conds=None, window_rows=None
                        ) -> Dict[str, torch.Tensor]:
         """Warp, template and compositing of one level at depths ``z_vals``
         (B, S). ``noise``: (B, S) standard-normal draws of the sigma noise,
         drawn from ``generator`` when absent. ``return_warp_jacobian`` adds
         the warp Jacobian, on the fused branch subsampled when ``subsample``
-        (with the uniforms ``jacobian_u``). ``rgb_cond``: the condition of
-        ``viewdirs``; ``window_rows``: ``window_rows(extra_params)`` (each
-        built here when not given)."""
+        (with the uniforms ``jacobian_u``). ``conds``: the (alpha, rgb)
+        conditions of ``viewdirs`` and ``metadata``; ``window_rows``:
+        ``window_rows(extra_params)`` (each built here when not given)."""
         cfg = self.config
-        if rgb_cond is None:
-            rgb_cond = self.get_condition_inputs(viewdirs, extra_params)
+        if conds is None:
+            conds = self.get_condition_inputs(viewdirs, metadata,
+                                              extra_params)
+        alpha_cond, rgb_cond = conds
         if window_rows is None:
             window_rows = self.window_rows(extra_params, z_vals.device)
         points = origins[:, None, :] + z_vals[..., None] * directions[:, None,
@@ -467,7 +524,8 @@ class NerfModel(nn.Module):
             warp_embed = self.encode_warp_embed(metadata)
             packed = fused_level(
                 self.level(name), z_vals, origins, directions, warp_embed,
-                rgb_cond, *window_rows)
+                self._kernel_rgb(rgb_cond, z_vals.shape[0], z_vals),
+                *window_rows, alpha_cond=alpha_cond)
             if not render_opts:
                 # The kernel adds its noise input to raw sigma, so the
                 # regularizer runs on zeros; it hands them back when off.
@@ -511,9 +569,9 @@ class NerfModel(nn.Module):
             use_warp=use_warp,
             hyper_point_override=metadata.get('hyper_point'),
             extra_params=extra_params)
-        rgb, sigma = self.query_template(name, warped, viewdirs, stratified,
-                                         noise, generator, extra_params,
-                                         rgb_cond, window_rows[1])
+        rgb, sigma = self.query_template(name, warped, viewdirs, metadata,
+                                         stratified, noise, generator,
+                                         extra_params, conds, window_rows[1])
         sigma = filter_sigma(points, sigma, render_opts)
         out = {}
         if return_warp_jacobian and use_warp:
@@ -635,8 +693,8 @@ class NerfModel(nn.Module):
                       extra_params=extra_params,
                       return_warp_jacobian=return_warp_jacobian,
                       subsample=not deterministic,
-                      rgb_cond=self.get_condition_inputs(viewdirs,
-                                                         extra_params),
+                      conds=self.get_condition_inputs(viewdirs, metadata,
+                                                      extra_params),
                       window_rows=window_rows)
         # The compositing kernel draws the fine depths itself, except where
         # the fine level filters sigma or the grid gates the draw: then

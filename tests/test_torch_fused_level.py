@@ -322,7 +322,7 @@ def test_plain_template_backward_matches_jax_bwd_call(dtype):
         want += [np.asarray(dw).T, np.asarray(outs[3 + 2 * k])[0,
                                                                 :w.shape[1]]]
     with torch.no_grad():
-        dx_t, d_cond, grads = fused_template_bwd_plain(
+        dx_t, d_cond, grads, _ = fused_template_bwd_plain(
             level, raw_t, torch.from_numpy(data['rgbc']),
             torch.from_numpy(cot))
     got = [dx_t.numpy(), d_cond.numpy()] + [g.numpy() for g in grads]

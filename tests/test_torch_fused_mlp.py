@@ -131,7 +131,7 @@ def test_plain_template_backward_matches_autograd(kind):
     want = torch.autograd.grad(fused_template_plain(tmpl, xt, ct),
                                [xt, ct] + params, torch.from_numpy(cot))
     with torch.no_grad():
-        dx, d_cond, grads = fused_template_bwd_plain(
+        dx, d_cond, grads, _ = fused_template_bwd_plain(
             tmpl, xt.detach(), ct.detach(), torch.from_numpy(cot))
     for a, b in zip([dx, d_cond, *grads], want):
         np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-4,

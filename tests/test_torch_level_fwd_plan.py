@@ -26,7 +26,8 @@ from hypernerf_tpu_torch.kernels.fused_level import (
     PLANE_SMEM_BYTES, PLANE_TILE_COLS, block_stages, forward_in_cols,
     forward_loads, forward_maps, forward_plan, forward_stream_bytes,
     fwd_smem_bytes, level_layers, pack_level)
-from hypernerf_tpu_torch.kernels.fused_mlp import kernel_template_layers
+from hypernerf_tpu_torch.kernels.fused_mlp import (alpha_cond_weight,
+                                                   kernel_template_layers)
 
 fused_level_module = importlib.import_module(
     'hypernerf_tpu_torch.kernels.fused_level')
@@ -479,8 +480,9 @@ def test_launch_and_plan_match_the_c_signatures(warp, monkeypatch):
     arguments as ``build``'s ctypes signatures declare, of the declared
     kinds; the launch keeps its entry point's signature."""
     assert build._SIGNATURES['hn_fused_level_fwd'] == (
-        [ctypes.c_int] + [ctypes.c_void_p] * 11
-        + [ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p], ctypes.c_int)
+        [ctypes.c_int] + [ctypes.c_void_p] * 13
+        + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_void_p],
+        ctypes.c_int)
     assert build._SIGNATURES['hn_fused_level_fwd_plan'] == (
         [ctypes.c_int] + [ctypes.c_void_p] * 3 + [ctypes.c_int],
         ctypes.c_int)
@@ -506,8 +508,9 @@ def test_launch_and_plan_match_the_c_signatures(warp, monkeypatch):
     (_, launch), (_, plan) = lib.calls
     _check_kinds('hn_fused_level_fwd', launch)
     assert launch[0] == common.TABLE_CODES[warp]
-    assert launch[-3:] == (rays, samples, 7)
-    assert launch[7] is None  # no template window row: posenc_orig
+    assert launch[-4:] == (rays, samples, 39, 7)  # the rgb condition's width
+    assert launch[6] is None and launch[7] is None  # no alpha condition
+    assert launch[9] is None  # no template window row: posenc_orig
     _check_kinds('hn_fused_level_fwd_plan', plan)
     assert plan[0] == common.TABLE_CODES[warp] and plan[-1] == 1024
 
@@ -582,3 +585,77 @@ def test_plan_model(warp):
         want[h0] = 64
     assert {l: c for l, c in enumerate(plan['in_cols']) if c} == want
     assert len(plan['in_cols']) == len(shapes)
+
+
+# The template's condition cases (the ``use_nerf_embed`` settings and
+# ``use_viewdirs=False``): name -> (configuration, overrides, rgb condition
+# width, alpha condition width).
+CONDITIONS = {
+    'nerf_embed': ('nerf_embed', {}, 47, 8),
+    'embed_only': ('nerf_embed', dict(use_viewdirs=False), 8, 8),
+    'alpha_only': ('nerf_embed', dict(use_rgb_condition=False), 39, 8),
+    'no_viewdirs': ('flagship', dict(use_viewdirs=False), 0, 0),
+    'anneal_embed': ('anneal', dict(use_nerf_embed=True,
+                                    use_alpha_condition=True,
+                                    use_rgb_condition=True), 35, 8)}
+
+
+@pytest.mark.parametrize('case', sorted(CONDITIONS))
+@torch.no_grad()
+def test_launch_passes_each_condition(case, monkeypatch):
+    """The level forward takes the template's conditions as arguments of
+    the call (``Cond`` in csrc/level_fwd.cuh): the rgb condition at its
+    width (bf16 (R, width), a null pointer at width 0, the width an int
+    argument) and the alpha condition (bf16 (R, 8)) with the alpha head's
+    condition columns (its 8 weights after the bottleneck's 128, bf16), or
+    two null pointers. The layer table, and with it every tensor map, load
+    and offset, is the flagship's whatever the conditions: the alpha head
+    packs to 8 x 128 (its bottleneck columns) and rgb layer 0 to 128 x 176
+    (the condition columns past the width zero)."""
+    config, over, rgb_w, alpha_w = CONDITIONS[case]
+    level = load_probe_weights(flagship_model(
+        'cpu', config=config, **over)).level('fine')
+    w_blob, _, shapes = pack_level(level)
+    assert shapes == pack_level(_level('translation'))[2]
+    t = level.template
+    rgb0 = w_blob[sum(n * k for n, k in shapes[:25]):][:128 * 176].view(
+        128, 176)
+    assert torch.equal(rgb0[:, 128 + rgb_w:], torch.zeros_like(
+        rgb0[:, 128 + rgb_w:]))
+    assert torch.equal(rgb0[:, :128 + rgb_w], t.rgb_branch.hidden_0.weight
+                       .detach()[:, :128 + rgb_w].to(torch.bfloat16))
+    alpha = w_blob[sum(n * k for n, k in shapes[:24]):][:8 * 128].view(
+        8, 128)
+    assert torch.equal(alpha[0], t.alpha_head.weight.detach()[0, :128].to(
+        torch.bfloat16))
+    lib = _RecordingLibrary()
+    monkeypatch.setattr(build, 'library', lambda: lib)
+    monkeypatch.setattr(common, 'kernel_layout', lambda w='translation':
+                        shapes)
+    monkeypatch.setattr(torch.cuda, 'device', lambda d: _Null())
+    monkeypatch.setattr(torch.cuda, 'current_stream',
+                        lambda device=None: type('S', (), {'cuda_stream': 7}))
+    rays, samples = 3, 5
+    rs = np.random.RandomState(1)
+    args = [torch.from_numpy(rs.rand(*shape).astype(np.float32))
+            for shape in ((rays, samples), (rays, 3), (rays, 3), (rays, 8),
+                          (rays, rgb_w))]
+    ac = (torch.from_numpy(rs.rand(rays, 8).astype(np.float32))
+          if alpha_w else None)
+    fused_level_module._launch_forward(level, *args, want_raw_t=False,
+                                       alpha_cond=ac)
+    (name, launch), = lib.calls
+    _check_kinds(name, launch)
+    assert launch[-4:] == (rays, samples, rgb_w, 7)
+    assert (launch[5] == 0) == (rgb_w == 0)  # an empty tensor: null
+    assert (launch[6] is None, launch[7] is None) == (not alpha_w,) * 2
+    assert (launch[9] is None) == (config != 'anneal')  # the window row
+    if alpha_w:
+        aw = alpha_cond_weight(t)
+        assert torch.equal(aw, t.alpha_head.weight.detach()[0, 128:].to(
+            torch.bfloat16))
+        assert alpha_cond_weight(t) is aw  # cached
+    with pytest.raises(ValueError, match='alpha condition'):
+        fused_level_module._launch_forward(
+            level, *args, want_raw_t=False,
+            alpha_cond=None if alpha_w else torch.zeros(rays, 8))

@@ -30,7 +30,8 @@ from hypernerf_tpu_torch.kernels.fused_level import (
     MODULE_STAGES, forward_in_cols, forward_loads, forward_maps,
     forward_plan, forward_stream_bytes, fwd_smem_bytes, pack_level,
     stage_plan)
-from test_torch_level_fwd_plan import _RecordingLibrary, _run_ring, _tma_box
+from test_torch_level_fwd_plan import (CONDITIONS, _RecordingLibrary,
+                                      _run_ring, _tma_box)
 
 ff = importlib.import_module('hypernerf_tpu_torch.kernels.fused_field')
 fm = importlib.import_module('hypernerf_tpu_torch.kernels.fused_mlp')
@@ -376,8 +377,8 @@ def test_launches_match_the_c_signatures(monkeypatch):
     p_, i_, l_ = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     assert build._SIGNATURES['hn_fused_field_fwd'] == ([i_] + [p_] * 5
                                                        + [l_, p_], i_)
-    assert build._SIGNATURES['hn_fused_template_fwd'] == ([p_] * 6
-                                                          + [l_, i_, p_], i_)
+    assert build._SIGNATURES['hn_fused_template_fwd'] == (
+        [p_] * 8 + [l_, i_, i_, p_], i_)
     assert build._SIGNATURES['hn_modular_fwd_plan'] == ([i_] + [p_] * 3
                                                         + [i_], i_)
     fl = importlib.import_module('hypernerf_tpu_torch.kernels.fused_level')
@@ -414,8 +415,10 @@ def test_launches_match_the_c_signatures(monkeypatch):
     assert (w0[0], w1[0], s0[0]) == (0, 0, 1)
     assert w0[2] is None and w1[2] is not None and s0[2] is None
     assert w0[-2:] == (37 * 13, 7)
-    assert t13[-3:] == (37 * 13, 13, 7) and t1[-3:] == (37 * 13, 1, 7)
-    assert t13[2] is None and t1[2] is None  # posenc_orig: no window row
+    assert t13[-4:] == (37 * 13, 13, 39, 7)
+    assert t1[-4:] == (37 * 13, 1, 39, 7)
+    # No alpha condition, nor its weights; posenc_orig: no window row.
+    assert t13[2:5] == (None,) * 3 and t1[2:5] == (None,) * 3
     assert [args[0] for _, args in lib.calls[5:]] == [
         MODULE_STAGE_CODES[s] for s in STAGES]
     assert all(args[-1] == 1024 for _, args in lib.calls[5:])
@@ -430,7 +433,7 @@ def test_plane_template_launch_matches_the_c_signature(monkeypatch):
     its compiled stage plan is stage code 4."""
     p_, i_, l_ = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     assert build._SIGNATURES['hn_fused_template_fwd_plane'] == (
-        [p_] * 6 + [l_, i_, p_], i_)
+        [p_] * 8 + [l_, i_, i_, p_], i_)
     fl = importlib.import_module('hypernerf_tpu_torch.kernels.fused_level')
     probe = _probe('plane')
     layout = pack_level(probe.level('fine'))[2]
@@ -452,7 +455,7 @@ def test_plane_template_launch_matches_the_c_signature(monkeypatch):
     (name, args), (plan_name, plan) = lib.calls
     assert name == 'hn_fused_template_fwd_plane'
     _check_kinds(name, args)
-    assert args[2] is None and args[-3:] == (37 * 13, 13, 7)
+    assert args[2:5] == (None,) * 3 and args[-4:] == (37 * 13, 13, 39, 7)
     assert plan_name == 'hn_modular_fwd_plan'
     assert plan[0] == MODULE_STAGE_CODES['template_plane'] == 4
 
@@ -477,3 +480,38 @@ def test_stage_plan_model(stage):
                                   'template_plane': 93}[stage]
     with pytest.raises(ValueError):
         stage_plan(stage, shapes[:-1])
+
+
+@pytest.mark.parametrize('case', sorted(CONDITIONS))
+@torch.no_grad()
+def test_template_launch_passes_each_condition(case, monkeypatch):
+    """The template alone takes the conditions as the level forward does
+    (``test_torch_level_fwd_plan.test_launch_passes_each_condition``): the
+    rgb condition at its width with one row per S rows (S = 13 and 1), the
+    alpha condition and the alpha head's condition columns or two null
+    pointers, a Nerfies window row only with the Nerfies layout; its blob is
+    the flagship template's table, layers 14..29, whatever the conditions."""
+    config, over, rgb_w, alpha_w = CONDITIONS[case]
+    level = load_probe_weights(flagship_model(
+        'cpu', config=config, **over)).level('coarse')
+    layout = pack_level(level)[2]
+    assert layout == pack_level(_probe().level('coarse'))[2]
+    lib = _RecordingLibrary()
+    monkeypatch.setattr(build, 'library', lambda: lib)
+    monkeypatch.setattr(common, 'kernel_layout', lambda w='translation':
+                        layout)
+    monkeypatch.setattr(common, 'runs_plain', lambda t, name: False)
+    monkeypatch.setattr(torch.cuda, 'device', lambda d: _Null())
+    monkeypatch.setattr(torch.cuda, 'current_stream',
+                        lambda device=None: type('S', (), {'cuda_stream': 7}))
+    rs = np.random.RandomState(2)
+    x8 = torch.from_numpy(rs.rand(37 * 13, 8).astype(np.float32))
+    for rows in (37, 37 * 13):
+        ac = torch.rand(rows, 8) if alpha_w else None
+        fm._forward(level, x8, torch.rand(rows, rgb_w), alpha_cond=ac)
+    assert [n for n, _ in lib.calls] == ['hn_fused_template_fwd'] * 2
+    for (name, args), per in zip(lib.calls, (13, 1)):
+        _check_kinds(name, args)
+        assert args[-4:] == (37 * 13, per, rgb_w, 7)
+        assert (args[2] is None, args[3] is None) == (not alpha_w,) * 2
+        assert (args[4] is None) == (config != 'anneal')

@@ -76,7 +76,7 @@ def test_plain_backward_by_chunks_equals_the_whole(per, max_rows):
     tmpl = _port_template('hyper', pairs, 'float32')
     x, cond, cot = map(torch.from_numpy, (x, cond, cot))
     s = x.shape[0] // cond.shape[0]
-    dx, dc, grads = fused_template_bwd_plain(tmpl, x, cond, cot)
+    dx, dc, grads, _ = fused_template_bwd_plain(tmpl, x, cond, cot)
     parts = [fused_template_bwd_plain(tmpl, x[r0:r1], cond[r0 // s:r1 // s],
                                       cot[r0:r1])
              for r0, r1 in chunk_plan(x.shape[0], s, max_rows)]
@@ -88,10 +88,17 @@ def test_plain_backward_by_chunks_equals_the_whole(per, max_rows):
                                    atol=1e-6 * want.abs().max().item())
 
 
+# Templates whose conditions are not the configuration's own: (its
+# configuration, overrides); rgb condition widths 8 and 0.
+CONDITION_CASES = {'embed_only': ('nerf_embed', dict(use_viewdirs=False)),
+                   'no_viewdirs': ('flagship', dict(use_viewdirs=False))}
+
+
 def _flagship_template(config='flagship'):
     from hypernerf_tpu_torch.flagship import (flagship_model,
                                               load_probe_weights)
-    model = load_probe_weights(flagship_model('cpu', config=config))
+    config, over = CONDITION_CASES.get(config, (config, {}))
+    model = load_probe_weights(flagship_model('cpu', config=config, **over))
     return model.template_of('fine')
 
 
@@ -225,6 +232,18 @@ class TorchOps:
             slab[z, w_off:w_off + 128 * k_pad].view(128, k_pad)[:, c] = \
                 gs[q0:q1].t() @ cond[q0:q1].float()
 
+    def alpha_cond_bwd(self, g4, alpha_cond, aw, d_alpha, slab, tail_off,
+                       rays, samples):
+        # Per ray: the sum of bf16(g_sigma) over its rows, times the alpha
+        # head's condition weights (d alpha_cond) and times the condition
+        # (the condition columns' dW, one slab per range of rays).
+        gs = g4[:rays * samples, 3].to(BF).float().view(rays, samples).sum(1)
+        d_alpha[:] = gs[:, None] * aw.float()
+        width = alpha_cond.shape[1]
+        for z, (q0, q1) in enumerate(self._ranges(rays)):
+            slab[z, tail_off:tail_off + width] = \
+                gs[q0:q1] @ alpha_cond[q0:q1].float()
+
     def bneck_prep(self, g4, gin, stash, bneck_col, w10, gb, slab, w_off,
                    b_off, b9_off, n):
         gs = g4[:n, 3]
@@ -262,7 +281,8 @@ class TorchOps:
 @pytest.mark.parametrize('config,rays,samples,max_rows', [
     ('flagship', 37, 13, 100), ('flagship', 96, 1, 40),
     ('static', 20, 16, 1 << 19), ('anneal', 37, 13, 100),
-    ('plane', 37, 13, 100)])
+    ('plane', 37, 13, 100), ('nerf_embed', 37, 13, 100),
+    ('embed_only', 37, 13, 100), ('no_viewdirs', 20, 16, 1 << 19)])
 def test_kernel_sequence_matches_the_plain_backward(config, rays, samples,
                                                     max_rows):
     """``template_bwd_chunks`` (several chunks, ragged rows, 3 slabs)
@@ -273,7 +293,12 @@ def test_kernel_sequence_matches_the_plain_backward(config, rays, samples,
     and a 27-column condition; for ``plane`` the 192-column encoding of 8
     hyper coordinates (raw rows and dx_t of 16 columns; the first and skip
     layers' products at K 192 and 448, their dW over ragged last tiles; the
-    encoding's cotangents in a buffer of 2 x 256 columns)."""
+    encoding's cotangents in a buffer of 2 x 256 columns); for
+    ``nerf_embed`` and ``embed_only`` the alpha condition's step (d
+    alpha_cond per ray, the alpha head's condition columns' dW after the
+    layers' [dW | db]) with a 47- and an 8-column rgb condition; for
+    ``no_viewdirs`` a 0-column rgb condition (its steps run on an empty
+    condition, rgb layer 0's condition columns are zero)."""
     tmpl = _flagship_template(config)
     t = tmpl.template
     rs = np.random.RandomState(rays + samples)
@@ -288,7 +313,10 @@ def test_kernel_sequence_matches_the_plain_backward(config, rays, samples,
     cond = torch.from_numpy(rs.randn(rays, width).astype(np.float32)).to(BF)
     g = torch.from_numpy(rs.randn(p, 4).astype(np.float32))
     scales = fused_mlp.template_scales(tmpl, 10.0, 1.5)
-    want = fused_template_bwd_plain(tmpl, raw, cond, g, scales)
+    alpha = None
+    if fused_mlp.alpha_cond_width(tmpl):
+        alpha = torch.from_numpy(rs.randn(rays, 8).astype(np.float32)).to(BF)
+    want = fused_template_bwd_plain(tmpl, raw, cond, g, scales, alpha)
     if scales is not None:
         scales = torch.nn.functional.pad(scales, (0, 128 - scales.shape[0]))
 
@@ -298,19 +326,29 @@ def test_kernel_sequence_matches_the_plain_backward(config, rays, samples,
     w, wt, b, w_off, b_off, n_grads = layer_views(w_blob, wt_blob, b_blob,
                                                   shapes)
     ops = TorchOps(3)
-    dx_t, d_cond, grads = template_bwd_chunks(
+    kw = {}
+    if alpha is not None:
+        kw = dict(alpha=(alpha, fused_mlp.alpha_cond_weight(t)))
+        n_grads += fused_mlp.ALPHA_TAIL
+    dx_t, d_cond, grads, d_alpha = template_bwd_chunks(
         ops, raw, cond, samples, g, w, wt, b, w_off, b_off, n_grads,
-        max_rows, scales)
+        max_rows, scales, **kw)
     rows = max(r1 - r0 for r0, r1 in chunk_plan(p, samples, max_rows))
     assert ops.stash_bytes == rows * stash_plan(shapes[0][1]).width * 2
     assert dx_t.shape == (p, x.shape[1])
-    n_w = b_off[0]
-    got = [dx_t, d_cond] + common.unpack_grads(grads[:n_w], grads[n_w:],
-                                               layers, shapes)
-    want = [want[0], want[1]] + want[2]
-    assert len(got) == len(want) == 34
+    got = [dx_t, d_cond] + fused_mlp.unpack_template_grads(
+        grads, layers, shapes, b_off[0], alpha is not None)
+    want = [want[0], want[1]] + want[2] + [want[3]]
+    if alpha is None:
+        assert d_alpha is None and want.pop() is None
+    else:
+        got.append(d_alpha)
+        assert got[2 + 20].shape == (1, 136)  # the alpha head's dW
+    assert len(got) == len(want) == 34 + (alpha is not None)
     for i, (a, e) in enumerate(zip(got, want)):
         assert a.shape == e.shape, i
+        if e.numel() == 0:  # a zero-width condition's cotangent
+            continue
         if config == 'static' and i == 0:
             assert torch.equal(a[:, 3:], torch.zeros_like(a[:, 3:]))
         l2 = ((a - e).norm() / e.norm().clamp_min(1e-30)).item()

@@ -11,7 +11,8 @@ kernels on a card that has no JAX.
       [--jacobian_out tests/data/fused_jacobian_jax_ref.npz] \
       [--anneal_out tests/data/fused_anneal_jax_ref.npz] \
       [--plane_out tests/data/fused_plane_jax_ref.npz] \
-      [--only se3|jacobian|anneal|plane]
+      [--conditions_out tests/data/fused_conditions_jax_ref.npz] \
+      [--only se3|jacobian|anneal|plane|conditions]
 
 The weights are ``hypernerf_tpu_torch.flagship.load_probe_weights`` (numpy,
 seed 0), which the card redraws bit for bit; the inputs
@@ -67,6 +68,15 @@ rgb_cond and dW / db of its 16 layers), in bf16, and the first level case
 again in float32 (``flagship.PLANE_F32_CASES``).
 ``tests/test_torch_plane.py`` recomputes and checks it. ``--only plane``
 writes that file alone.
+The conditions file holds the numbers of the ``nerf_embed`` configuration
+(the ``use_nerf_embed`` alpha and rgb conditions) at its probe weights: the
+level kernel with ``alpha_cond_ch`` 8 and a 47-column rgb condition
+(``flagship.CONDITION_LEVEL_CASES``) and ``fused_nerf_mlp`` with both
+conditions (``flagship.CONDITION_TEMPLATE_CASES``): outputs, and for the
+stored cotangent the gradients of every input and of the layers in
+``flagship.CONDITION_GRAD_LAYERS`` and every bias, in bf16.
+``tests/test_torch_conditions.py`` recomputes and checks it. ``--only
+conditions`` writes that file alone.
 """
 
 from __future__ import annotations
@@ -87,8 +97,9 @@ def _jax_level_fn(model, level: str, inputs, warp_alpha=None,
                   tmpl_alphas=(None, None), **spec_kw):
     """(fn, args): ``fn(*args)`` is the JAX level kernel's packed output
     with the weights of ``model``'s ``level``; args are the five ray inputs
-    in ``LEVEL_INPUTS`` order, then the warp, hyper and template (W, b)
-    pair lists. The warp type and the template encoding are the model's;
+    in ``LEVEL_INPUTS`` order (and 'alpha_cond' where ``inputs`` has one:
+    the alpha condition), then the warp, hyper and template (W, b) pair
+    lists. The warp type and the template encoding are the model's;
     ``warp_alpha`` windows the SE(3) / quaternion trunk's encoding (None: a
     row of ones, as the JAX model threads it), ``tmpl_alphas`` (nerf_alpha,
     hyper_alpha) the Nerfies template encoding's bands. ``spec_kw``
@@ -127,7 +138,9 @@ def _jax_level_fn(model, level: str, inputs, warp_alpha=None,
         hyper_max_deg=cfg.hyper_point_max_deg, trunk_depth=cfg.trunk_depth,
         trunk_width=cfg.trunk_width, rgb_depth=cfg.rgb_branch_depth,
         rgb_width=cfg.rgb_branch_width,
-        rgb_cond_ch=inputs['rgb_cond'].shape[1], alpha_cond_ch=0,
+        rgb_cond_ch=inputs['rgb_cond'].shape[1],
+        alpha_cond_ch=(inputs['alpha_cond'].shape[1] if 'alpha_cond' in inputs
+                       else 0),
         skips=tuple(cfg.skips), tile=512, bwd_tile=256, interpret=True,
         compute_dtype=cfg.compute_dtype, cond_samples=s,
         pipelined_bwd=cfg.pallas_pipelined_bwd)._replace(**spec_kw)
@@ -141,16 +154,19 @@ def _jax_level_fn(model, level: str, inputs, warp_alpha=None,
             spec.tmpl_enc_segments,
             [None if a is None else jnp.float32(a) for a in tmpl_alphas])
 
-    def fn(z_vals, origins, directions, embed, rgb_cond, warp, hyper, tmpl):
-        return fused_level(spec, None, embed, rgb_cond, None, warp, hyper,
-                           tmpl, tmpl_enc_scales=tmpl_scales,
+    def fn(z_vals, origins, directions, embed, rgb_cond, *rest):
+        alpha_cond = rest[0] if spec.alpha_cond_ch else None
+        warp, hyper, tmpl = rest[-3:]
+        return fused_level(spec, None, embed, rgb_cond, alpha_cond, warp,
+                           hyper, tmpl, tmpl_enc_scales=tmpl_scales,
                            warp_enc_scales=warp_scales,
                            origins=origins, directions=directions,
                            z_vals=z_vals, return_packed=True)[:, :4]
 
     as_jnp = lambda pairs: [(jnp.asarray(w), jnp.asarray(b))
                             for w, b in pairs]
-    args = [jnp.asarray(inputs[k]) for k in LEVEL_INPUTS] + [
+    names = LEVEL_INPUTS + (('alpha_cond',) if spec.alpha_cond_ch else ())
+    args = [jnp.asarray(inputs[k]) for k in names] + [
         as_jnp(se3_params_to_list(params['warp_field']) if screw else
                mlp_params_to_list(params['warp_field']['mlp'])),
         [] if plane else
@@ -172,10 +188,10 @@ def jax_level(model, level: str, inputs, warp_alpha=None,
 def jax_level_grads(model, level: str, inputs, cotangent, warp_alpha=None,
                     tmpl_alphas=(None, None), **spec_kw) -> dict:
     """Gradients of sum(level output * cotangent) through the JAX level
-    kernel's own backward: {'d_<input>'} for the five ray inputs and
-    {'dw<l>', 'db<l>'} for the level's layers (30, 32 with the SE(3) /
-    quaternion warp, 23 in the plane configuration) in kernel order, dW as
-    (out, in)."""
+    kernel's own backward: {'d_<input>'} for the five ray inputs (and the
+    alpha condition where ``inputs`` has one) and {'dw<l>', 'db<l>'} for
+    the level's layers (30, 32 with the SE(3) / quaternion warp, 23 in the
+    plane configuration) in kernel order, dW as (out, in)."""
     import jax
     import jax.numpy as jnp
     import numpy as np
@@ -186,10 +202,14 @@ def jax_level_grads(model, level: str, inputs, cotangent, warp_alpha=None,
     def loss(*a):
         return jnp.sum(fn(*a) * jnp.asarray(cotangent))
 
-    g = jax.device_get(jax.grad(loss, argnums=tuple(range(8)))(*args))
+    names = LEVEL_INPUTS + (('alpha_cond',) if 'alpha_cond' in inputs
+                            else ())
+    n_in = len(names)
+    g = jax.device_get(jax.grad(loss, argnums=tuple(range(n_in + 3)))(
+        *args))
     out = {f'd_{k}': np.asarray(v, np.float32)
-           for k, v in zip(LEVEL_INPUTS, g[:5])}
-    pairs = [p for group in g[5:] for p in group]
+           for k, v in zip(names, g[:n_in])}
+    pairs = [p for group in g[n_in:] for p in group]
     for layer, (dw, db) in enumerate(pairs):
         out[f'dw{layer}'] = np.asarray(dw, np.float32).T.copy()
         out[f'db{layer}'] = np.asarray(db, np.float32)
@@ -543,6 +563,89 @@ def jax_plane_template(model, level: str, inputs) -> dict:
     return res
 
 
+def jax_condition_template(model, level: str, inputs) -> dict:
+    """The JAX template kernel's numbers (``fused_nerf_mlp`` with its
+    in-kernel posenc_orig of [xyz | 4 hyper coordinates], a 47-column rgb
+    condition and ``alpha_cond_ch`` 8, interpret mode) with the weights of
+    ``model``'s ``level``: 'out' (P, 4), and for sum(out * cotangent) 'dx'
+    (P, 8), 'd_rgb_cond', 'd_alpha_cond', 'dw<l>' as (out, in) and 'db<l>'
+    of its 16 layers."""
+    import jax
+    import jax.numpy as jnp
+    import numpy as np
+
+    from hypernerf_tpu.ops.pallas.fused_mlp import (FusedMLPSpec,
+                                                    fused_nerf_mlp,
+                                                    nerf_mlp_params_to_list)
+    from hypernerf_tpu_torch.convert import params_to_jax
+
+    cfg = model.config
+    params = params_to_jax(model.state_dict())
+    segments = ((3, cfg.xyz_freq), (cfg.hyper_slice_out_dim, cfg.hyper_freq))
+    per = inputs['x_raw'].shape[0] // inputs['rgb_cond'].shape[0]
+    spec = FusedMLPSpec(
+        in_ch=sum(c * (1 + 2 * f) for c, f in segments),
+        trunk_depth=cfg.trunk_depth, trunk_width=cfg.trunk_width,
+        rgb_depth=cfg.rgb_branch_depth, rgb_width=cfg.rgb_branch_width,
+        skips=tuple(cfg.skips), rgb_cond_ch=inputs['rgb_cond'].shape[1],
+        alpha_cond_ch=inputs['alpha_cond'].shape[1], tile=256, bwd_tile=128,
+        compute_dtype=cfg.compute_dtype, enc_segments=segments,
+        cond_samples=per, interpret=True)
+
+    def fn(x_raw, rgb_cond, alpha_cond, pairs):
+        out = fused_nerf_mlp(spec, x_raw[:, :7], rgb_cond, alpha_cond, pairs)
+        return jnp.concatenate([out['rgb'], out['alpha']], -1)
+
+    args = [jnp.asarray(inputs['x_raw']), jnp.asarray(inputs['rgb_cond']),
+            jnp.asarray(inputs['alpha_cond']),
+            [(jnp.asarray(w), jnp.asarray(b)) for w, b in
+             nerf_mlp_params_to_list(params[f'nerf_{level}'])]]
+    cot = jnp.asarray(inputs['cotangent'])
+    g = jax.device_get(jax.grad(lambda *a: jnp.sum(fn(*a) * cot),
+                                argnums=(0, 1, 2, 3))(*args))
+    res = {'out': np.asarray(jax.device_get(fn(*args)), np.float32),
+           'dx': np.asarray(g[0], np.float32),
+           'd_rgb_cond': np.asarray(g[1], np.float32),
+           'd_alpha_cond': np.asarray(g[2], np.float32)}
+    for layer, (dw, db) in enumerate(g[3]):
+        res[f'dw{layer}'] = np.asarray(dw, np.float32).T.copy()
+        res[f'db{layer}'] = np.asarray(db, np.float32)
+    return res
+
+
+def condition_reference() -> dict:
+    """Every array of the conditions file: each case's inputs and numbers
+    (dW of ``CONDITION_GRAD_LAYERS`` alone)."""
+    from hypernerf_tpu_torch.flagship import (CONDITION_GRAD_LAYERS,
+                                              CONDITION_LEVEL_CASES,
+                                              CONDITION_TEMPLATE_CASES,
+                                              condition_probe_inputs,
+                                              flagship_model,
+                                              load_probe_weights)
+    model = load_probe_weights(flagship_model('cpu', config='nerf_embed'))
+    arrays = {}
+
+    def keep(case, kind, numbers):
+        for k, v in numbers.items():
+            if k.startswith('dw') and int(k[2:]) not in \
+                    CONDITION_GRAD_LAYERS[kind]:
+                continue
+            arrays[f'{case}/{k}'] = v
+
+    for case, (level, *_) in CONDITION_LEVEL_CASES.items():
+        inputs = condition_probe_inputs(case)
+        arrays.update({f'{case}/{k}': v for k, v in inputs.items()})
+        rays = {k: v for k, v in inputs.items() if k != 'cotangent'}
+        arrays[f'{case}/out'] = jax_level(model, level, rays)
+        keep(case, 'level', jax_level_grads(model, level, rays,
+                                            inputs['cotangent']))
+    for case, (level, *_) in CONDITION_TEMPLATE_CASES.items():
+        inputs = condition_probe_inputs(case)
+        arrays.update({f'{case}/{k}': v for k, v in inputs.items()})
+        keep(case, 'template', jax_condition_template(model, level, inputs))
+    return arrays
+
+
 def plane_models() -> dict:
     """The ``plane`` configuration at the probe weights, in bf16 (as it
     runs) and in float32: {dtype name: model}."""
@@ -692,6 +795,7 @@ def main():
                                               GRAD_REFERENCE,
                                               LEVEL_REFERENCE,
                                               PLANE_REFERENCE,
+                                              CONDITION_REFERENCE,
                                               LEVEL_REFERENCE_CASES,
                                               MODULAR_REFERENCE,
                                               JACOBIAN_REFERENCE,
@@ -704,12 +808,16 @@ def main():
     parser.add_argument('--jacobian_out', default=JACOBIAN_REFERENCE)
     parser.add_argument('--anneal_out', default=ANNEAL_REFERENCE)
     parser.add_argument('--plane_out', default=PLANE_REFERENCE)
+    parser.add_argument('--conditions_out', default=CONDITION_REFERENCE)
     parser.add_argument('--only', choices=('se3', 'jacobian', 'anneal',
-                                           'plane'),
+                                           'plane', 'conditions'),
                         default=None, help='write the SE(3), the Jacobian, '
-                        'the anneal or the plane file alone')
+                        'the anneal, the plane or the conditions file alone')
     args = parser.parse_args()
     os.makedirs(os.path.dirname(os.path.abspath(args.se3_out)), exist_ok=True)
+    if args.only in (None, 'conditions'):
+        np.savez_compressed(args.conditions_out, **condition_reference())
+        print(args.conditions_out)
     if args.only in (None, 'plane'):
         np.savez_compressed(args.plane_out, **plane_reference())
         print(args.plane_out)

@@ -4,8 +4,10 @@
 (no sheet; this checkout's library alone) at the train step's R = 16384
 rays, S = 64 and 128 samples, or, with ``--field template``, kernel A (the
 template backward, ``fused_mlp.template_bwd_chunks`` launching each
-library's ``hn_tmpl_*`` steps) of the flagship and, in this checkout's
-library alone, of the plane layout at R = 16384, S = 128 and 64, or, with
+library's ``hn_tmpl_*`` steps) of the flagship, of the plane layout and of
+the anneal configuration's Nerfies layout (its window row at
+``flagship.ANNEAL_PROBE_STEP``'s alphas) at R = 16384, S = 128 and 64, or,
+with
 ``--field warp|sheet|se3``, that
 field alone (``hn_fused_field_bwd``, the SE(3) trunk's
 ``hn_fused_se3_bwd``) at 8192 x 128 and 16384 x 128 rows, or, with
@@ -91,7 +93,9 @@ def main() -> int:
     if not torch.cuda.is_available():
         print('time_fields_bwd: no CUDA device', file=sys.stderr)
         return 1
-    from hypernerf_tpu_torch.flagship import (flagship_model,
+    from hypernerf_tpu_torch.flagship import (anneal_condition,
+                                              anneal_extra_params,
+                                              flagship_model,
                                               load_probe_weights,
                                               probe_inputs)
     from hypernerf_tpu_torch.kernels import build, common
@@ -156,17 +160,26 @@ def main() -> int:
             fm = importlib.import_module(
                 'hypernerf_tpu_torch.kernels.fused_mlp')
             rays_a = 16384
-            for config in ('flagship', 'plane'):
+            ep = anneal_extra_params()
+            for config in ('flagship', 'plane', 'anneal'):
                 probe = load_probe_weights(flagship_model('cuda',
                                                           config=config))
                 for s in (128, 64):
                     tmpl = probe.level('fine' if s == 128 else 'coarse')
                     z, o, d, emb, cond = inputs(rays_a, s, seed=s + 5)
+                    row = None
+                    if config == 'anneal':
+                        cond = torch.from_numpy(anneal_condition(
+                            d.cpu().numpy(), ep['nerf_alpha'])).cuda()
+                        row = fm.template_scales(tmpl, ep['nerf_alpha'],
+                                                 ep['hyper_alpha'], z.device)
                     raw_t = fl._launch_forward(tmpl, z, o, d, emb, cond,
-                                               want_raw_t=True)[1]
+                                               want_raw_t=True,
+                                               tmpl_scales=row)[1]
+                    row = fm.kernel_scales(tmpl, row, z.device)
                     g = torch.randn(rays_a * s, 4, generator=torch.Generator(
                         ).manual_seed(s)).cuda()
-                    rgbc, per, layers, packs = fm._launch_args(
+                    (rgbc, _, _), per, layers, packs = fm._launch_args(
                         tmpl, raw_t, cond, True)
                     (w_blob, b_blob, shapes), (wt_blob, _, _) = packs
                     views = fm.layer_views(w_blob, wt_blob, b_blob, shapes)
@@ -176,10 +189,10 @@ def main() -> int:
                         ops = fm._KernelOps(torch.device('cuda'))
                         ops.lib = lib
                         return list(fm.template_bwd_chunks(
-                            ops, raw_t, rgbc, per, g, *views)[:3])
+                            ops, raw_t, rgbc, per, g, *views,
+                            scales=row)[:3])
                     report(f'kernel A {config} R={rays_a} S={s}', macs,
-                           rays_a * s, launch, 0,
-                           this_only=config == 'plane')
+                           rays_a * s, launch, 0)
             return 0
         if args.field == 'warp_tangents':
             mlp = load_probe_weights(flagship_model(

@@ -2,9 +2,10 @@
 """The per-module forward kernels' times (the warp field and the sheet
 alone, ``hn_fused_field_fwd``; the template alone, ``hn_fused_template_fwd``;
 the SE(3) trunk alone, ``hn_fused_se3_fwd``) and the level forward's
-(``hn_fused_level_fwd``, each warp type), and the plane configuration's
+(``hn_fused_level_fwd``, each warp type), the plane configuration's
 template alone (``hn_fused_template_fwd_plane``) and level forward (table
-code 3) in this checkout's library alone, on one CUDA card, for this
+code 3) and the anneal configuration's (the Nerfies layout with its window
+row at ``flagship.ANNEAL_PROBE_STEP``'s alphas), on one CUDA card, for this
 checkout's kernel library and, with ``--parent``, for another checkout's,
 in turns in one process: this, parent, parent, this. With ``--kernel
 warp_tangents`` or ``se3_tangents``, a Jacobian's forward alone instead:
@@ -19,8 +20,11 @@ train step's: 16384 rays x 16).
 ``DIR`` is a checkout of an earlier commit (for example an unpacked ``git
 archive``) whose entry points take the same arguments and blobs, or lack
 the template's window row, which is then left out of its calls (the
-flagship's layout takes none); its library is built from its own
-``kernels/csrc`` into its own ``build/``.
+flagship's layout takes none), or lack the conditions' arguments (the alpha
+condition, its weights and the rgb condition's width), which are then left
+out of its calls (these shapes have no alpha condition and the layout's own
+rgb width); its library is built from its own ``kernels/csrc`` into its own
+``build/``.
 Both libraries get this checkout's packed blobs of the probe weights
 (``flagship.load_probe_weights``) and the same inputs. Shapes: the fields and
 the trunk at 8192 x 128 and 16384 x 128 rows; the template at R = 8192 and
@@ -64,6 +68,15 @@ def _no_row(fn, n_without: int):
     (the flagship's posenc_orig layout) where ``fn`` takes it, that is
     takes more than ``n_without`` arguments, else nothing."""
     return [None] if len(fn.argtypes) > n_without else []
+
+
+def _conds(fn, n_with: int, width: int):
+    """The conditions' arguments of C entry point ``fn`` where it takes them
+    (``n_with`` arguments): (no alpha condition, no weights) and the rgb
+    condition's ``width``; ([], []) for an entry point without them."""
+    if len(fn.argtypes) == n_with:
+        return [None, None], [width]
+    return [], []
 
 
 def _time(fn, iters: int = 10) -> float:
@@ -146,7 +159,9 @@ def main() -> int:
         print('time_modular_fwd: no CUDA device', file=sys.stderr)
         return 1
     from hypernerf_tpu_torch import kernels as K
-    from hypernerf_tpu_torch.flagship import (flagship_model,
+    from hypernerf_tpu_torch.flagship import (anneal_condition,
+                                              anneal_extra_params,
+                                              flagship_model,
                                               load_probe_weights,
                                               probe_inputs)
     from hypernerf_tpu_torch.kernels import build, common
@@ -255,8 +270,8 @@ def main() -> int:
                 hyper.zero_()
             x_raw = F.pad(torch.cat([pts, hyper], dim=-1), (0, 1))
             x_raw = x_raw.contiguous()
-            rgbc, per, _, ((w, b, _),) = fm._launch_args(tmpl, x_raw, cond,
-                                                         False)
+            (rgbc, _, _), per, _, ((w, b, _),) = fm._launch_args(
+                tmpl, x_raw, cond, False)
             p = x_raw.shape[0]
             out = torch.empty((p, 4), device='cuda')
             macs = sum(lin.weight.numel() for lin, _ in
@@ -264,10 +279,12 @@ def main() -> int:
 
             def launch(lib):
                 fn = lib.hn_fused_template_fwd
+                alpha, width = _conds(fn, 12, rgbc.shape[1])
                 build.check(fn(
-                    x_raw.data_ptr(), rgbc.data_ptr(), *_no_row(fn, 8),
-                    w.data_ptr(), b.data_ptr(), out.data_ptr(), p, per,
-                    stream), 'hn_fused_template_fwd')
+                    x_raw.data_ptr(), rgbc.data_ptr(), *alpha,
+                    *_no_row(fn, 8), w.data_ptr(), b.data_ptr(),
+                    out.data_ptr(), p, per, *width, stream),
+                    'hn_fused_template_fwd')
                 return out
             report(f'{config} template R={rays} S={s}', macs, p, launch)
 
@@ -285,17 +302,18 @@ def main() -> int:
 
                 def launch(lib):
                     fn = lib.hn_fused_level_fwd
+                    alpha, width = _conds(fn, 18, rgbc.shape[1])
                     build.check(fn(
                         common.WARP_CODES[warp], z.data_ptr(), o.data_ptr(),
-                        d.data_ptr(), emb.data_ptr(), rgbc.data_ptr(), None,
-                        *_no_row(fn, 14), w.data_ptr(), b.data_ptr(),
-                        out.data_ptr(), None, 8192, s, stream),
+                        d.data_ptr(), emb.data_ptr(), rgbc.data_ptr(), *alpha,
+                        None, *_no_row(fn, 14), w.data_ptr(), b.data_ptr(),
+                        out.data_ptr(), None, 8192, s, *width, stream),
                         'hn_fused_level_fwd')
                     return out
                 report(f'{warp} level forward R=8192 S={s}', macs, p, launch)
 
         # The plane configuration: its level forward and its template alone
-        # (raw rows of 16 columns), this checkout's library alone.
+        # (raw rows of 16 columns).
         for s in (128, 64):
             lv = probes['plane'].level('fine' if s == 128 else 'coarse')
             w, b, _ = fl.pack_level(lv)
@@ -307,27 +325,77 @@ def main() -> int:
             macs = sum(lin.weight.numel() for lin, _ in fl.level_layers(lv))
 
             def launch(lib):
-                build.check(lib.hn_fused_level_fwd(
+                fn = lib.hn_fused_level_fwd
+                alpha, width = _conds(fn, 18, rgbc.shape[1])
+                build.check(fn(
                     common.TABLE_CODES['plane'], z.data_ptr(), o.data_ptr(),
-                    d.data_ptr(), emb.data_ptr(), rgbc.data_ptr(), None,
-                    None, w.data_ptr(), b.data_ptr(), out.data_ptr(),
-                    raw_t.data_ptr(), 8192, s, stream), 'hn_fused_level_fwd')
+                    d.data_ptr(), emb.data_ptr(), rgbc.data_ptr(), *alpha,
+                    None, None, w.data_ptr(), b.data_ptr(), out.data_ptr(),
+                    raw_t.data_ptr(), 8192, s, *width, stream),
+                    'hn_fused_level_fwd')
                 return out
-            report(f'plane level forward R=8192 S={s}', macs, p, launch,
-                   this_only=True)
+            report(f'plane level forward R=8192 S={s}', macs, p, launch)
             _, per, layers, ((tw, tb, _),) = fm._launch_args(lv, raw_t, cond,
                                                             False)
             macs = sum(lin.weight.numel() for lin, _ in
                        fm.template_layers(lv.template))
 
             def launch(lib):
-                build.check(lib.hn_fused_template_fwd_plane(
-                    raw_t.data_ptr(), rgbc.data_ptr(), None, tw.data_ptr(),
-                    tb.data_ptr(), out.data_ptr(), p, per, stream),
-                    'hn_fused_template_fwd_plane')
+                fn = lib.hn_fused_template_fwd_plane
+                alpha, width = _conds(fn, 12, rgbc.shape[1])
+                build.check(fn(
+                    raw_t.data_ptr(), rgbc.data_ptr(), *alpha, None,
+                    tw.data_ptr(), tb.data_ptr(), out.data_ptr(), p, per,
+                    *width, stream), 'hn_fused_template_fwd_plane')
                 return out
-            report(f'plane template R=8192 S={s}', macs, p, launch,
-                   this_only=True)
+            report(f'plane template R=8192 S={s}', macs, p, launch)
+
+        # The anneal configuration (the Nerfies layout, its window row at
+        # the probe step's alphas, a 27-column condition): its level forward
+        # and its template alone on the level's raw_t.
+        ep = anneal_extra_params()
+        anneal = load_probe_weights(flagship_model('cuda', config='anneal'))
+        for s in (128, 64):
+            lv = anneal.level('fine' if s == 128 else 'coarse')
+            w, b, _ = fl.pack_level(lv)
+            z, o, d, emb, _ = inputs(8192, s, seed=s)
+            row = fm.kernel_scales(lv, fm.template_scales(
+                lv, ep['nerf_alpha'], ep['hyper_alpha'], z.device), z.device)
+            cond = torch.from_numpy(anneal_condition(
+                d.cpu().numpy(), ep['nerf_alpha'])).cuda()
+            rgbc = cond.to(torch.bfloat16).contiguous()
+            p = 8192 * s
+            out = torch.empty((p, 4), device='cuda')
+            raw_t = torch.empty((p, common.RAW_PAD), device='cuda')
+            macs = sum(lin.weight.numel() for lin, _ in fl.level_layers(lv))
+
+            def launch(lib):
+                fn = lib.hn_fused_level_fwd
+                alpha, width = _conds(fn, 18, rgbc.shape[1])
+                build.check(fn(
+                    common.TABLE_CODES['translation'], z.data_ptr(),
+                    o.data_ptr(), d.data_ptr(), emb.data_ptr(),
+                    rgbc.data_ptr(), *alpha, None, row.data_ptr(),
+                    w.data_ptr(), b.data_ptr(), out.data_ptr(),
+                    raw_t.data_ptr(), 8192, s, *width, stream),
+                    'hn_fused_level_fwd')
+                return out
+            report(f'anneal level forward R=8192 S={s}', macs, p, launch)
+            _, per, _, ((tw, tb, _),) = fm._launch_args(lv, raw_t, cond,
+                                                        False)
+            macs = sum(lin.weight.numel() for lin, _ in
+                       fm.template_layers(lv.template))
+
+            def launch(lib):
+                fn = lib.hn_fused_template_fwd
+                alpha, width = _conds(fn, 12, rgbc.shape[1])
+                build.check(fn(
+                    raw_t.data_ptr(), rgbc.data_ptr(), *alpha,
+                    row.data_ptr(), tw.data_ptr(), tb.data_ptr(),
+                    out.data_ptr(), p, per, *width, stream),
+                    'hn_fused_template_fwd')
+                return out
+            report(f'anneal template R=8192 S={s}', macs, p, launch)
     return 0
 
 

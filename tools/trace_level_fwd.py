@@ -70,7 +70,7 @@ def _trace_library(kernel: str):
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     if kernel in ('level', 'plane'):
         entry = getattr(lib, f'hn_{stem}')
-        entry.argtypes = [p] * 11 + [ll, i, p]
+        entry.argtypes = [p] * 13 + [ll, i, i, p]
         lib.trace = (lib.hn_level_fwd_trace if kernel == 'level'
                      else lib.hn_level_fwd_plane_trace)
     elif stem == 'tangents_fwd':
@@ -78,7 +78,7 @@ def _trace_library(kernel: str):
         lib.hn_fused_se3_jacobian_fwd.argtypes = [p] * 5 + [ll, p]
         lib.trace = lib.hn_tangents_fwd_trace
     else:
-        lib.hn_fused_template_fwd.argtypes = [p] * 6 + [ll, i, p]
+        lib.hn_fused_template_fwd.argtypes = [p] * 8 + [ll, i, i, p]
         lib.hn_fused_field_fwd.argtypes = [i] + [p] * 5 + [ll, p]
         lib.hn_fused_se3_fwd.argtypes = [p] * 5 + [ll, p]
         lib.trace = lib.hn_modular_fwd_trace
@@ -107,8 +107,9 @@ def _launch(lib, kernel, level, args, stream):
                  else lib.hn_level_fwd_plane)
         return entry(
             z.data_ptr(), o.data_ptr(), d.data_ptr(), emb.data_ptr(),
-            rgbc.data_ptr(), None, None, w.data_ptr(), b.data_ptr(),
-            out.data_ptr(), None, n, samples, stream)
+            rgbc.data_ptr(), None, None, None, None, w.data_ptr(),
+            b.data_ptr(), out.data_ptr(), None, n, samples, rgbc.shape[1],
+            stream)
     x_raw = fl._raw_fields(z, o, d, emb).contiguous()
     if kernel == 'warp_tangents':
         fj = importlib.import_module(
@@ -145,11 +146,12 @@ def _launch(lib, kernel, level, args, stream):
     if c0 or c1:
         return c0 or c1
     raw_t = torch.cat([x_raw[:, :3] + warp[:, :3], hyper[:, :5]], dim=-1)
-    rgbc, per, _, ((w, b, _),) = fm._launch_args(level, raw_t, cond, False)
+    (rgbc, _, _), per, _, ((w, b, _),) = fm._launch_args(level, raw_t, cond,
+                                                         False)
     out = torch.empty((n, 4), device='cuda')
     return lib.hn_fused_template_fwd(
-        raw_t.data_ptr(), rgbc.data_ptr(), None, w.data_ptr(), b.data_ptr(),
-        out.data_ptr(), n, per, stream)
+        raw_t.data_ptr(), rgbc.data_ptr(), None, None, None, w.data_ptr(),
+        b.data_ptr(), out.data_ptr(), n, per, rgbc.shape[1], stream)
 
 
 def main() -> int:
