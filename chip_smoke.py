@@ -6,8 +6,9 @@ Phases, one line each; any failure ends the run with a non-zero exit:
   2. build the kernels from kernels/csrc with nvcc (sm_90a), with the time
      and ptxas's registers and spills (the level forward's, kernel B's, the
      per-module forwards', a field alone backward's, the SE(3) trunk's
-     two backwards', the Jacobians' forwards' and the plane
-     configuration's three kernels on lines of their own);
+     two backwards', the Jacobians' forwards', the plane
+     configuration's three kernels and the B.4 combinations' sources on
+     lines of their own);
   3. the level kernel at the flagship widths and at probe weights whose
      warp and hyper heads are large enough that those 14 layers move the
      output: against the JAX kernel's stored outputs (tests/data), and
@@ -191,7 +192,7 @@ Phases, one line each; any failure ends the run with a non-zero exit:
      16 steps from the first), its time without the refresh and amortised
      over 16 steps, a 1024-ray step through the grid against the plain
      versions;
- 24. the kernels' JSON line, then the result line (after phase 27);
+ 24. the kernels' JSON line, then the result line (after phase 29);
  25. the trainer and its entry point: ``tools/make_synthetic_scene.py``
      writes an 8-frame 160x120 scene into a temporary directory (never the
      repo), where ``hypernerf_tpu_torch.train.main(argv)`` trains the
@@ -226,7 +227,22 @@ Phases, one line each; any failure ends the run with a non-zero exit:
      with the embedding; ``train.main`` with ``--use_nerf_embedding
      --use_alpha_condition --use_rgb_condition`` for 8 steps on phase 25's
      scene, against the same steps through the plain versions (val PSNR
-     within 0.5 dB).
+     within 0.5 dB);
+ 28. the warp x slicing x encoding combinations (ROADMAP B.4: the SE(3)
+     and quaternion warps with the Nerfies encoding and with plane slicing,
+     plane with the Nerfies encoding; seven configurations): the compiled
+     plans of their new tables and of the Nerfies plane template alone
+     against their models; rows 1, 5, 8 and 9 of every new instantiation
+     against the JAX kernels' stored numbers (tests/data/fused_b4_jax_ref
+     .npz, both window rows in one call where the level has both) and
+     against their plain versions at 37 x 13 rays and at the render's and
+     the train step's shapes, each timed beside its counterpart's kernel in
+     turns at R = 8192 and 16384, S = 128, with its share of the bound;
+ 29. their paths: three 504x378 frames and the train step at batch 16384
+     of the paper's two models (``anneal_se3``, ``plane_anneal_se3``) beside
+     the flagship's, a ``return_points`` frame and ``query_sigma`` of
+     ``plane_anneal_se3``, and a 1024-ray step of each of the other five
+     against the plain versions.
 Times come from CUDA events (kernels) or the host clock around work that
 ends in a synchronize (frames, steps). A kernel's bound is the larger of
 its matrix-product operations over the card's dense bf16 peak and its bytes
@@ -2768,6 +2784,9 @@ def main() -> int:
     phase(f'[2] the plane configuration\'s level forward, template alone '
           f'and kernel B (the same): '
           f'{ptxas_lines(build.build_log(), PLANE_SOURCES)}')
+    phase(f'[2] the B.4 combinations\' level forwards, the Nerfies plane '
+          f'template alone and kernel B without the sheet (the same): '
+          f'{ptxas_lines(build.build_log(), B4_SOURCES)}')
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -2960,8 +2979,10 @@ def main() -> int:
     trainer_phase(kernels)
     condition_kernel_phase(kernels)
     condition_paths_phase(kernels)
-    if len(kernels) != 18:
-        raise AssertionError(f'{len(kernels)} kernels in the line, want 18')
+    kernels += b4_kernel_phase(kernels)
+    b4_paths_phase(kernels)
+    if len(kernels) != 29:
+        raise AssertionError(f'{len(kernels)} kernels in the line, want 29')
     return finish(kernels)
 
 # -- the anneal configuration (the Nerfies windowed template encoding) --------
@@ -4558,6 +4579,430 @@ def condition_paths_phase(kernels) -> None:
     phase(f'[27] nerf_embed train step {train_times["secs"] * 1e3:.1f} '
           f'ms/step against the flagship\'s {TIMES["flagship_step"] * 1e3:.1f}'
           f' ms/step (phase 7 of this call); {CARD}')
+
+
+# -- the warp x slicing x encoding combinations (ROADMAP B.4) ---------------
+
+# Each combination, the existing configuration its kernels are timed beside
+# in turns (the one it shares the most with: the table's warp and slicing,
+# or the template's layout) and the sources of its new instantiations.
+B4_COUNTERPARTS = {'anneal_se3': 'se3', 'anneal_quaternion': 'quaternion',
+                   'plane_se3': 'plane', 'plane_quaternion': 'plane',
+                   'plane_anneal': 'anneal', 'plane_anneal_se3': 'se3',
+                   'plane_anneal_quaternion': 'quaternion'}
+B4_FWD_SOURCES = {'anneal_se3': 'level_fwd_anneal_screw.cu',
+                  'anneal_quaternion': 'level_fwd_anneal_screw.cu',
+                  'plane_se3': 'level_fwd_plane_screw.cu',
+                  'plane_quaternion': 'level_fwd_plane_screw.cu',
+                  'plane_anneal': 'level_fwd_nerf_plane.cu',
+                  'plane_anneal_se3': 'level_fwd_nerf_plane_screw.cu',
+                  'plane_anneal_quaternion': 'level_fwd_nerf_plane_screw.cu'}
+B4_SOURCES = ('level_fwd_anneal_screw.cu', 'level_fwd_plane_screw.cu',
+              'level_fwd_nerf_plane.cu', 'level_fwd_nerf_plane_screw.cu',
+              'fields_bwd_plane_screw.cu')
+# The two combinations that take kernel B's new instantiations (the screw
+# warps without a sheet; the plane_anneal_* ones share them), and the
+# Nerfies plane layout's template alone and kernel A (plane_anneal's).
+B4_B_CONFIGS = ('plane_se3', 'plane_quaternion')
+B4_TMPL_CONFIG = 'plane_anneal'
+B4_PAPER = ('anneal_se3', 'plane_anneal_se3')
+for _c in B4_COUNTERPARTS:
+    STEP_LAUNCHES[_c] = STEP_LAUNCHES['flagship']
+
+
+def b4_names(config: str) -> dict:
+    """The kernels line's names of a combination's new instantiations."""
+    out = {'fwd': f'fused_level_fwd_{config}'}
+    if config in B4_B_CONFIGS:
+        out['B'] = f'fused_fields_bwd_{config}'
+    if config == B4_TMPL_CONFIG:
+        out.update(tmpl='fused_template_fwd_nerfies_plane',
+                   A='fused_template_bwd_nerfies_plane')
+    return out
+
+
+def b4_kernel_phase(kernels) -> list:
+    """Phase 28's kernel checks of the seven combinations at their probe
+    weights and the alphas of ``flagship.b4_extra_params`` (both window rows
+    in one call where the level has both): the compiled plans of the new
+    tables and of the Nerfies plane template alone against their models;
+    rows 1, 5, 8 and 9 against the JAX kernels' stored numbers
+    (``tests/data/fused_b4_jax_ref.npz``) and against their plain versions,
+    the forward at 37 x 13 and R = 8192, S = 128, the backward kernels at
+    37 x 13 and, for the new instantiations, at R = 16384, S = 128; each new
+    instantiation timed beside its counterpart's kernel (B4_COUNTERPARTS)
+    in turns at R = 8192 and 16384, S = 128, with the share of its bound.
+    Returns the new instantiations' entries of the kernels line (launches
+    filled in by the paths phase)."""
+    import importlib
+    import torch
+    import torch.nn.functional as F
+    from hypernerf_tpu_torch import kernels as K
+    from hypernerf_tpu_torch.flagship import (B4_LEVEL_CASES,
+                                              B4_TEMPLATE_CASES, LEVEL_INPUTS,
+                                              anneal_condition,
+                                              b4_extra_params, b4_grad_layers,
+                                              flagship_model,
+                                              load_probe_weights,
+                                              read_b4_reference)
+    from hypernerf_tpu_torch.kernels import common
+    from hypernerf_tpu_torch.kernels.fused_mlp import (cond_width, raw_pad,
+                                                       template_layers)
+    fl = importlib.import_module('hypernerf_tpu_torch.kernels.fused_level')
+    t_start = time.perf_counter()
+    probes, rows = {}, {}
+    for config in (*B4_COUNTERPARTS, *set(B4_COUNTERPARTS.values())):
+        probes[config] = load_probe_weights(flagship_model('cuda',
+                                                           config=config))
+        extra = (b4_extra_params(config) if config in B4_COUNTERPARTS
+                 else {'warp_alpha': WINDOW_ALPHA} if 'se3' in config
+                 or 'quaternion' in config else {})
+        rows[config] = probes[config].window_rows(extra, 'cuda')
+    tables = set()
+    for config in B4_COUNTERPARTS:
+        lv = probes[config].level('fine')
+        table, shapes = fl.level_table(lv), fl.pack_level(lv)[2]
+        if table in tables:
+            continue
+        tables.add(table)
+        for label, got, want in (
+                ('level forward (row 1)', fl.compiled_forward_plan(table),
+                 fl.forward_plan(table, shapes)),
+                ('kernel B (row 5)', fl.compiled_fields_bwd_plan(table),
+                 fl.fields_bwd_plan(table, shapes))):
+            if got != want:
+                raise AssertionError(f'{table} {label}: compiled plan {got} '
+                                     f'!= model {want}')
+    shapes = fl.pack_level(probes[B4_TMPL_CONFIG].level('fine'))[2]
+    got = fl.compiled_stage_plan('template_nerfies_plane')
+    if got != fl.stage_plan('template_nerfies_plane',
+                            shapes[common.PLANE_TEMPLATE_LAYERS]):
+        raise AssertionError(f'template_nerfies_plane: compiled plan {got}')
+    phase(f'[28] plans (compiled = model) of the tables '
+          f'{sorted(tables)} (the level forward and kernel B) and of the '
+          f'Nerfies plane template alone')
+
+    # The JAX kernels' numbers (tools/make_level_reference.py --only b4),
+    # through the autograd Functions as training runs them: the forward
+    # with both window rows, then A, then B.
+    ref = read_b4_reference()
+    errs = {n: [] for c in B4_COUNTERPARTS for n in b4_names(c).values()}
+    for case, (config, level, *_) in B4_LEVEL_CASES.items():
+        arrays = {k: torch.from_numpy(v).cuda() for k, v in ref[case].items()}
+        lv = probes[config].level(level)
+        args = [arrays[k].requires_grad_() for k in LEVEL_INPUTS]
+        out = K.fused_level(lv, *args, *rows[config])
+        errs[b4_names(config)['fwd']].append(hold_level(
+            out.detach(), arrays['out'], f'{case} vs the stored JAX output',
+            '[28]', SE3_LEVEL_ATOL))
+        params = fl._level_params(lv)
+        got = torch.autograd.grad(out, args + params, arrays['cotangent'])
+        names = [f'd_{k}' for k in LEVEL_INPUTS] + [
+            f'd{"wb"[i % 2]}{i // 2}' for i in range(len(params))]
+        kept = [(n, g) for n, g in zip(names, got) if n in arrays]
+        check_grads(f'{case} backward (A + B) vs the stored JAX gradients '
+                    f'(every input, every db, dW of layers '
+                    f'{b4_grad_layers(case)})', [n for n, _ in kept],
+                    [g for _, g in kept], [arrays[n] for n, _ in kept],
+                    l2_tol=SE3_LEVEL_GRAD_L2, tag='[28]')
+    for case, (config, level, *_) in B4_TEMPLATE_CASES.items():
+        arrays = {k: torch.from_numpy(v).cuda() for k, v in ref[case].items()}
+        t = probes[config].template_of(level)
+        x = arrays['x_raw'].requires_grad_()
+        cond = arrays['rgb_cond'].requires_grad_()
+        out = K.fused_template(t, x, cond, rows[config][1])
+        errs['fused_template_fwd_nerfies_plane'].append(hold_level(
+            out.detach(), arrays['out'], f'{case} (row 8) vs the stored JAX '
+            f'output', '[28]'))
+        layers = template_layers(t.template)
+        got = torch.autograd.grad(out, [x, cond] + common.layer_params(
+            layers), arrays['cotangent'])
+        names = ['dx', 'd_rgb_cond'] + [f'd{"wb"[i % 2]}{i // 2}'
+                                        for i in range(2 * len(layers))]
+        kept = [(n, g) for n, g in zip(names, got) if n in arrays]
+        errs['fused_template_bwd_nerfies_plane'].append(check_grads(
+            f'{case} backward (A) vs the stored JAX gradients',
+            [n for n, _ in kept], [g for _, g in kept],
+            [arrays[n] for n, _ in kept], tag='[28]'))
+
+    times, bounds = {}, {}
+    gen = torch.Generator().manual_seed(28)
+    with torch.no_grad():
+        for config, other in B4_COUNTERPARTS.items():
+            new = b4_names(config)
+            lv, olv = probes[config].level('fine'), probes[other].level('fine')
+            ws, ts = rows[config]
+            ows, ots = rows[other]
+            raw = raw_pad(lv)
+            cw, ocw = cond_width(lv), cond_width(olv)
+            screw = lv.warp.kind != 'translation'
+            atol = SE3_LEVEL_ATOL if screw else LEVEL_ATOL
+            for r, s in ((37, 13), (CHUNK, 128), (TRAIN_RAYS, 128)):
+                args = level_inputs(r, s, s + 28)
+                if cw != 39:  # the Nerfies condition
+                    args[4] = torch.from_numpy(anneal_condition(
+                        args[2].cpu().numpy(), 10.0)).cuda()
+                if r <= CHUNK:
+                    out, raw_t = fl._launch_forward(lv, *args, True, ws, ts)
+                    want_out, want_raw_t = plain_forward(lv, args, ws, ts)
+                    errs[new['fwd']] += [
+                        hold_level(out, want_out, f'{config} level forward '
+                                   f'R={r} S={s} vs plain: out', '[28]',
+                                   atol),
+                        hold_level(raw_t, want_raw_t, f'{config} level '
+                                   f'forward R={r} S={s} vs plain: raw_t',
+                                   '[28]')]
+                    if 'tmpl' in new:
+                        errs[new['tmpl']].append(hold_level(
+                            K.fused_template(lv, raw_t, args[4], ts),
+                            plain_template(lv, raw_t, args[4], ts),
+                            f'{config} template alone (row 8) R={r} S={s} '
+                            f'vs plain', '[28]'))
+                    del out, want_out, want_raw_t
+                else:
+                    raw_t = fl._launch_forward(lv, *args, True, ws, ts)[1]
+                g = torch.randn(r * s, 4, generator=gen).cuda()
+                dx_t = F.pad(torch.randn(r * s, 3 + 8 if raw == 16 else 7,
+                                         generator=gen),
+                             (0, raw - (11 if raw == 16 else 7))).cuda()
+                if r < 100 or (r == TRAIN_RAYS and 'A' in new):
+                    got = K.fused_template_bwd(lv, raw_t, args[4], g, ts)
+                    torch.cuda.synchronize()
+                    worst = check_grads(
+                        f'{config} template backward (A) R={r} S={s} vs '
+                        f'plain', TEMPLATE_GRAD_NAMES,
+                        [got[0], got[1], *got[2]],
+                        plain_template_bwd(lv, raw_t, args[4], g, ts),
+                        tag='[28]')
+                    if 'A' in new:
+                        errs[new['A']].append(worst)
+                    del got
+                if r < 100 or (r == TRAIN_RAYS and 'B' in new):
+                    *rays, grads = K.fused_fields_bwd(lv, *args[:4], dx_t,
+                                                      ws)
+                    n_b = 4 + len(grads)
+                    worst = check_grads(
+                        f'{config} fields backward (B) R={r} S={s} vs plain',
+                        SE3_FIELDS_GRAD_NAMES[:n_b], [*rays, *grads],
+                        plain_fields_bwd(lv, args, dx_t, ws), tag='[28]')
+                    if 'B' in new:
+                        errs[new['B']].append(worst)
+                    del rays, grads
+                if r < 100:
+                    continue
+                # The counterpart's kernels on its own inputs, in turns.
+                oargs = level_inputs(r, s, s + 28)
+                if ocw != 39:
+                    oargs[4] = torch.from_numpy(anneal_condition(
+                        oargs[2].cpu().numpy(), 10.0)).cuda()
+                oraw = fl._launch_forward(olv, *oargs, True, ows, ots)[1]
+                times[new['fwd'], r] = [
+                    cuda_ms(lambda: K.fused_level(lv, *args, ws, ts)),
+                    cuda_ms(lambda: K.fused_level(olv, *oargs, ows, ots)),
+                    cuda_ms(lambda: K.fused_level(olv, *oargs, ows, ots)),
+                    cuda_ms(lambda: K.fused_level(lv, *args, ws, ts))]
+                bounds[new['fwd'], r] = level_bound(lv, r, s, cw)
+                todo = [('fwd', 'level forward (row 1)')]
+                if r == CHUNK:
+                    times['plain', new['fwd']] = cuda_ms(
+                        lambda: plain_forward(lv, args, ws, ts), 2)
+                if 'tmpl' in new:
+                    times[new['tmpl'], r] = [
+                        cuda_ms(lambda: K.fused_template(lv, raw_t, args[4],
+                                                         ts)),
+                        cuda_ms(lambda: K.fused_template(olv, oraw, oargs[4],
+                                                         ots)),
+                        cuda_ms(lambda: K.fused_template(olv, oraw, oargs[4],
+                                                         ots)),
+                        cuda_ms(lambda: K.fused_template(lv, raw_t, args[4],
+                                                         ts))]
+                    bounds[new['tmpl'], r] = template_fwd_bound(lv, r, s, raw,
+                                                                cw)
+                    todo.append(('tmpl', 'template alone (row 8)'))
+                    if r == CHUNK:
+                        times['plain', new['tmpl']] = cuda_ms(
+                            lambda: plain_template(lv, raw_t, args[4], ts), 2)
+                if r == TRAIN_RAYS and 'A' in new:
+                    times[new['A'], r] = [
+                        cuda_ms(lambda: K.fused_template_bwd(
+                            lv, raw_t, args[4], g, ts), 3),
+                        cuda_ms(lambda: K.fused_template_bwd(
+                            olv, oraw, oargs[4], g, ots), 3),
+                        cuda_ms(lambda: K.fused_template_bwd(
+                            olv, oraw, oargs[4], g, ots), 3),
+                        cuda_ms(lambda: K.fused_template_bwd(
+                            lv, raw_t, args[4], g, ts), 3)]
+                    bounds[new['A'], r] = template_bwd_bound(lv, r, s, raw,
+                                                             cw)
+                    times['plain', new['A']] = cuda_ms(
+                        lambda: plain_template_bwd(lv, raw_t, args[4], g, ts),
+                        1)
+                    todo.append(('A', 'template backward (A, row 9)'))
+                if r == TRAIN_RAYS and 'B' in new:
+                    odx = torch.zeros(r * s, raw_pad(olv), device='cuda')
+                    odx[:, :dx_t.shape[1]] = dx_t[:, :odx.shape[1]]
+                    times[new['B'], r] = [
+                        cuda_ms(lambda: K.fused_fields_bwd(
+                            lv, *args[:4], dx_t, ws), 5),
+                        cuda_ms(lambda: K.fused_fields_bwd(
+                            olv, *oargs[:4], odx, ows), 5),
+                        cuda_ms(lambda: K.fused_fields_bwd(
+                            olv, *oargs[:4], odx, ows), 5),
+                        cuda_ms(lambda: K.fused_fields_bwd(
+                            lv, *args[:4], dx_t, ws), 5)]
+                    bounds[new['B'], r] = fields_bwd_bound(lv, r, s, raw)
+                    times['plain', new['B']] = cuda_ms(
+                        lambda: plain_fields_bwd(lv, args, dx_t, ws), 1)
+                    todo.append(('B', 'fields backward (B, row 5)'))
+                for key, what in todo:
+                    t, b_ms = times[new[key], r], bounds[new[key], r][0]
+                    phase(f'[28] {config} {what} R={r} S={s}: {t[0]:.3f}, '
+                          f'{t[3]:.3f} ms ({b_ms / min(t[0], t[3]):.1%} of '
+                          f'its bound {b_ms:.3f} ms); {other}\'s in turns '
+                          f'{t[1]:.3f}, {t[2]:.3f} ms')
+                del raw_t, g, dx_t, oargs, oraw
+                torch.cuda.empty_cache()
+    csrc = 'hypernerf_tpu_torch/kernels/csrc/'
+    sources = {'fwd': lambda c: (B4_FWD_SOURCES[c], 'level_fwd.cuh',
+                                 'fused_level.cu'),
+               'tmpl': lambda c: ('level_fwd_nerf_plane.cu',
+                                  'template_fwd_plane.cu',
+                                  'template_fwd.cuh'),
+               'A': lambda c: TEMPLATE_BWD_SOURCES,
+               'B': lambda c: ('fields_bwd_plane_screw.cu', 'fields_bwd.cuh',
+                               'fused_level.cu')}
+    replaces = {'fwd': 'fused_level.py:1322', 'tmpl': 'fused_mlp.py:656',
+                'A': 'fused_mlp.py:736', 'B': 'fused_level.py:846'}
+    entries = []
+    for config, other in B4_COUNTERPARTS.items():
+        for key, name in b4_names(config).items():
+            r = TRAIN_RAYS if key in ('A', 'B') else CHUNK
+            t = times[name, r]
+            err = (dict(max_abs_err=max(errs[name])) if key in ('fwd', 'tmpl')
+                   else error_keys(errs[name]))
+            entry = dict(
+                name=name, route='cuda',
+                source=', '.join(csrc + f for f in sources[key](config)),
+                replaces='hypernerf_tpu/ops/pallas/' + replaces[key],
+                ms=min(t[0], t[3]), plain_ms=times['plain', name],
+                bound_ms=bounds[name, r][0], bound_by=bounds[name, r][1],
+                library_ms=None, counterpart=other,
+                counterpart_ms=min(t[1], t[2]), rays=r, samples=128, **err)
+            if key in ('fwd', 'tmpl'):
+                t2 = times[name, TRAIN_RAYS]
+                entry.update(ms_r16384=min(t2[0], t2[3]),
+                             counterpart_ms_r16384=min(t2[1], t2[2]))
+            entries.append(entry)
+    phase(f'[28] the kernel checks of the seven combinations took '
+          f'{time.perf_counter() - t_start:.1f} s; {CARD}')
+    return entries
+
+
+def b4_paths_phase(kernels) -> None:
+    """Phase 29: the combinations through the entry points at full width.
+    For the paper's two models (``anneal_se3``, ``plane_anneal_se3``): three
+    504x378 frames through the level kernels after a warm-up, at the alphas
+    ``eval`` renders a weight file at, beside the flagship's frames in the
+    same call, and the train step at batch 16384 (64 + 64) from
+    ``flagship.ANNEAL_PROBE_STEP`` (every window partly on) beside phase 7's
+    flagship step; a ``return_points`` frame (the trunk, the template alone
+    in the Nerfies plane layout) and ``query_sigma`` of ``plane_anneal_se3``;
+    for the other five, the train step's 1024-ray check against the plain
+    versions (the kernels' step counted). Fills in the launches of the new
+    instantiations' entries (each path's counts set to 0 just before it and
+    read just after)."""
+    import torch
+    from hypernerf_tpu_torch.configs import TrainConfig
+    from hypernerf_tpu_torch.eval import eval_extra_params
+    from hypernerf_tpu_torch.flagship import (H, W, b4_extra_params,
+                                              flagship_model, spiral_rays,
+                                              synthetic_train_rays)
+    from hypernerf_tpu_torch.training.renderer import ImageRenderer
+    t_start = time.perf_counter()
+    chunks_per_frame = -(-W * H // CHUNK)
+    frames = spiral_rays(range(0, 30 * (N_FRAMES + 1), 30))
+    keep = ('rgb', 'depth', 'acc')
+    level_frame = {'fused_level_fwd': 2 * chunks_per_frame,
+                   'fused_composite_fwd': 2 * chunks_per_frame}
+    counts = {c: {} for c in B4_COUNTERPARTS}
+    flag_secs = time_frames(
+        ImageRenderer(flagship_model('cuda', seed=0), chunk=CHUNK, keep=keep,
+                      levels=('fine',), quantize=True), frames, keep,
+        level_frame, 'flagship frame')[0]
+    for config in B4_PAPER:
+        model = flagship_model('cuda', seed=0, config=config)
+        extra = eval_extra_params(model.config, TrainConfig())
+        secs, counts[config]['frame'] = time_frames(
+            ImageRenderer(model, chunk=CHUNK, keep=keep, levels=('fine',),
+                          quantize=True, extra_params=extra),
+            frames, keep, level_frame, f'{config} frame')
+        phase(f'[29] {config}: rendered {N_FRAMES} frames {W}x{H} (64+64, '
+              f'chunk {CHUNK}, alphas {extra}): {secs:.4f} s/frame, the '
+              f'flagship\'s in the same call {flag_secs:.4f} s/frame; '
+              f'launches {counts[config]["frame"]}; no plain call; {CARD}')
+        if config == 'plane_anneal_se3':
+            pkeep = keep + ('med_points',)
+            secs, counts[config]['points'] = time_frames(
+                ImageRenderer(model, chunk=CHUNK, keep=pkeep,
+                              levels=('fine',), quantize=True,
+                              extra_params=extra), frames[:2], pkeep,
+                {'fused_se3_fwd': 2 * chunks_per_frame,
+                 'fused_template_fwd': 2 * chunks_per_frame},
+                f'{config} return_points frame', point_ch=11)
+            phase(f'[29] {config} with return_points: 1 frame {W}x{H} after '
+                  f'a warm-up: {secs:.4f} s; launches '
+                  f'{counts[config]["points"]} (the trunk alone, the '
+                  f'template alone in the Nerfies plane layout); no level '
+                  f'kernel, no plain call')
+            counts[config]['query'] = query_sigma_path(
+                config, {'fused_se3_fwd': 1, 'fused_template_fwd': 1},
+                '[29]')
+        del model
+        torch.cuda.empty_cache()
+        times = {}
+        counts[config]['train'] = train_path(config, '[29]', times)
+        phase(f'[29] {config} train step {times["secs"] * 1e3:.1f} ms/step '
+              f'against the flagship\'s {TIMES["flagship_step"] * 1e3:.1f} '
+              f'ms/step (phase 7 of this call); {CARD}')
+        torch.cuda.empty_cache()
+    for config in B4_COUNTERPARTS:
+        if config in B4_PAPER:
+            continue
+        model = flagship_model('cuda', seed=0, config=config).train()
+        rays, rgbs = [torch.from_numpy(a).cuda()
+                      for a in synthetic_train_rays(1024)]
+        counts[config]['step_check'] = compare_step(
+            model, rays, rgbs, '[29]',
+            extra_params=b4_extra_params(config))
+        phase(f'[29] {config}: the kernels\' step on 1024 rays launched '
+              f'{counts[config]["step_check"]}')
+        del model
+        torch.cuda.empty_cache()
+    wrapper = {'fwd': 'fused_level_fwd', 'tmpl': 'fused_template_fwd',
+               'A': 'fused_template_bwd', 'B': 'fused_fields_bwd'}
+    by_name = {k['name']: k for k in kernels}
+    for config in B4_COUNTERPARTS:
+        # A new instantiation runs on its own combination's paths; kernel
+        # B's plane screw pair and the Nerfies plane template and kernel A
+        # also on the paths of the combinations that share them.
+        users = {'fwd': [config]}
+        if config in B4_B_CONFIGS:
+            users['B'] = [c for c in B4_COUNTERPARTS if c.startswith('plane')
+                          and c.endswith(config.split('_')[1])]
+        if config == B4_TMPL_CONFIG:
+            users['tmpl'] = users['A'] = [c for c in B4_COUNTERPARTS
+                                          if c.startswith('plane_anneal')]
+        for key, name in b4_names(config).items():
+            k = by_name[name]
+            for user in users[key]:
+                for path, launches in counts[user].items():
+                    if launches.get(wrapper[key]):
+                        k[f'{user}_{path}_launches'] = launches[wrapper[key]]
+            k['launches'] = sum(v for f, v in k.items()
+                                if f.endswith('_launches')
+                                and not f.endswith('query_launches'))
+    phase(f'[29] the paths of the seven combinations took '
+          f'{time.perf_counter() - t_start:.1f} s')
 
 
 def finish(kernels) -> int:

@@ -1,14 +1,15 @@
 """The flagship setups: the configuration ``bench.py`` renders and trains
 (NerfConfig defaults with 64 + 64 samples, bf16 matmuls) and its ``static``,
 ``split_glo``, ``se3``, ``quaternion``, ``elastic*``, ``anneal``, ``plane``,
-``occupancy`` and ``nerf_embed`` variants (``CONFIGS``), a seeded model of
+``occupancy``, ``nerf_embed`` and the warp x slicing x encoding variants
+``anneal_se3`` ... ``plane_anneal_quaternion`` (``CONFIGS``), a seeded model of
 each, the occupancy grid ``bench.py`` starts from (``bench_grid``), LLFF
 spiral-path NDC rays of a 504x378 frame, the train step's model, optimizer and
 synthetic ray buffer (``flagship_train_setup``), and the probe weights and
 inputs at which the kernels are held against the JAX kernels' stored outputs
 and gradients (``LEVEL_REFERENCE``, ``GRAD_REFERENCE``, ``MODULAR_REFERENCE``,
 ``SE3_REFERENCE``, ``JACOBIAN_REFERENCE``, ``ANNEAL_REFERENCE``,
-``PLANE_REFERENCE``, ``CONDITION_REFERENCE``, written by
+``PLANE_REFERENCE``, ``CONDITION_REFERENCE``, ``B4_REFERENCE``, written by
 ``tools/make_level_reference.py``).
 
 Shared by ``chip_smoke.py``, ``tools/profile_render.py``,
@@ -69,6 +70,13 @@ GRAD_REFERENCE_CASE = ('coarse', 8, 64, 3)
 # (``--use_nerf_embedding --use_alpha_condition --use_rgb_condition``): the
 # shared GLO embedding as the alpha condition (8 columns) and after the view
 # directions' encoding in the rgb condition (47), on the level kernels.
+# The seven warp x slicing x encoding combinations (ROADMAP B.4; bench.py
+# has no such modes) run on the level kernels too: ``anneal_se3`` is the
+# HyperNeRF paper's deformable-sheet model (the SE(3) field with the Nerfies
+# encoding), ``plane_anneal_se3`` its axis-aligned-plane model, and
+# ``anneal_quaternion``, ``plane_se3``, ``plane_quaternion``, ``plane_anneal``
+# and ``plane_anneal_quaternion`` the other combinations of the warp type,
+# the slicing and the template encoding.
 CONFIGS = {'flagship': {},
            'static': dict(use_warp=False, hyper_slice_method='none'),
            'split_glo': dict(share_glo=False),
@@ -85,14 +93,30 @@ CONFIGS = {'flagship': {},
                              num_fine_samples=32),
            'nerf_embed': dict(use_nerf_embed=True, use_alpha_condition=True,
                               use_rgb_condition=True)}
+_PLANE = dict(hyper_slice_method='axis_aligned_plane')
+_NERFIES = dict(use_original_embed=False)
+CONFIGS.update(
+    anneal_se3=dict(warp_field_type='se3', **_NERFIES),
+    anneal_quaternion=dict(warp_field_type='quaternion', **_NERFIES),
+    plane_se3=dict(warp_field_type='se3', **_PLANE),
+    plane_quaternion=dict(warp_field_type='quaternion', **_PLANE),
+    plane_anneal=dict(**_PLANE, **_NERFIES),
+    plane_anneal_se3=dict(warp_field_type='se3', **_PLANE, **_NERFIES),
+    plane_anneal_quaternion=dict(warp_field_type='quaternion', **_PLANE,
+                                 **_NERFIES))
+B4_CONFIGS = ('anneal_se3', 'anneal_quaternion', 'plane_se3',
+              'plane_quaternion', 'plane_anneal', 'plane_anneal_se3',
+              'plane_anneal_quaternion')
 # TrainConfig overrides of a configuration (``bench.py``'s elastic weight).
 TRAIN_CONFIGS = {c: dict(elastic_loss_weight=0.01)
                  for c in ('elastic', 'elastic_se3', 'elastic_quaternion')}
-# The step a configuration's train setup starts at: ``anneal`` mid-ramp,
-# where ``hyper_alpha`` is 1.5 of its 4 bands (at step 0 it is 0, every
-# hyper feature is zero and the sheet gets no gradient).
+# The step a configuration's train setup starts at: ``anneal`` (and every
+# configuration with the Nerfies encoding) mid-ramp, where ``hyper_alpha`` is
+# 1.5 of its 4 bands (at step 0 it is 0, every hyper feature is zero and the
+# sheet gets no gradient) and ``warp_alpha`` 0.375 of the SE(3) trunk's 8.
 ANNEAL_PROBE_STEP = 3750
-START_STEPS = {'anneal': ANNEAL_PROBE_STEP}
+START_STEPS = {c: ANNEAL_PROBE_STEP for c, over in CONFIGS.items()
+               if over.get('use_original_embed') is False}
 
 
 def flagship_config(config: str = 'flagship', **overrides) -> NerfConfig:
@@ -526,6 +550,93 @@ def condition_probe_inputs(case: str) -> dict:
             'rgb_cond': np.concatenate([rays['rgb_cond'], rays['embed']], 1),
             'alpha_cond': rays['embed'],
             'cotangent': rs.randn(rows, 4).astype(np.float32)}
+
+
+# The JAX kernels' numbers for the warp x slicing x encoding combinations
+# (B4_CONFIGS) at the probe weights: the level kernel of four of them
+# (configuration, level, rays, samples per ray, seed) at the alphas of
+# ``b4_extra_params`` (the windows partly on, so that they matter), and the
+# template alone in the Nerfies plane layout (configuration, level, rows,
+# rows per condition row, seed), outputs and, for the stored cotangent, the
+# gradients of every input, every bias and, to keep the file small, the
+# weights of the layers the new variants change most (``b4_grad_layers``:
+# the warp's first layer and its heads, the template's first layer and its
+# skip layer, which read the encoding).
+B4_REFERENCE = os.path.join(os.path.dirname(LEVEL_REFERENCE),
+                            'fused_b4_jax_ref.npz')
+B4_LEVEL_CASES = {'anneal_se3': ('anneal_se3', 'coarse', 4, 64, 81),
+                  'plane_se3': ('plane_se3', 'coarse', 4, 64, 82),
+                  'plane_anneal_se3': ('plane_anneal_se3', 'coarse', 4, 64,
+                                       83),
+                  'plane_quaternion': ('plane_quaternion', 'fine', 4, 64,
+                                       84)}
+B4_TEMPLATE_CASES = {'template_nerfies_plane': ('plane_anneal', 'coarse', 256,
+                                                64, 85)}
+# plane_se3's encoding is posenc_orig, which has no annealing: its trunk's
+# window is probed at this warp_alpha (of 8 bands).
+B4_PLANE_SE3_WARP_ALPHA = 3.5
+
+
+def b4_extra_params(config: str) -> dict:
+    """The alphas a B.4 configuration's probes take: those of
+    ``ANNEAL_PROBE_STEP`` with the Nerfies encoding (warp_alpha 0.375,
+    hyper_alpha 1.5), ``B4_PLANE_SE3_WARP_ALPHA`` for ``plane_se3``, none
+    for ``plane_quaternion``."""
+    from hypernerf_tpu_torch.training.train_state import compute_extra_params
+    if config == 'plane_se3':
+        return {'warp_alpha': B4_PLANE_SE3_WARP_ALPHA}
+    return compute_extra_params(flagship_config(config), TrainConfig(),
+                                ANNEAL_PROBE_STEP)
+
+
+def b4_grad_layers(case: str):
+    """The layers whose dW a B.4 case's file keeps, by their index in the
+    level's (or the template's) table."""
+    if case in B4_TEMPLATE_CASES:
+        return (0, 5)
+    over = CONFIGS[B4_LEVEL_CASES[case][0]]
+    screw = 'warp_field_type' in over
+    t0 = (9 if screw else 7) + (0 if 'hyper_slice_method' in over else 7)
+    return (0, *((7, 8) if screw else (6,)), t0, t0 + 5)
+
+
+def b4_probe_inputs(case: str) -> dict:
+    """Numpy inputs and cotangent of a ``B4_LEVEL_CASES`` case (the
+    ``LEVEL_INPUTS``, with the Nerfies condition where the configuration
+    has that encoding, and 'cotangent' (R * S, 4)) or of a
+    ``B4_TEMPLATE_CASES`` case ('x_raw' (P, 16) [points | 8 hyper
+    coordinates of deviation 0.3 | 0], 'rgb_cond' (P / S, 27),
+    'cotangent' (P, 4))."""
+    if case in B4_LEVEL_CASES:
+        config, _, n_rays, samples, seed = B4_LEVEL_CASES[case]
+        inputs = probe_inputs(n_rays, samples, seed)
+        if CONFIGS[config].get('use_original_embed') is False:
+            inputs['rgb_cond'] = anneal_condition(
+                inputs['directions'], b4_extra_params(config)['nerf_alpha'])
+        inputs['cotangent'] = probe_cotangents(n_rays, samples,
+                                               seed)['level']
+        return inputs
+    config, _, rows, per, seed = B4_TEMPLATE_CASES[case]
+    rs = np.random.RandomState(seed + 3000)
+    rays = probe_inputs(rows // per, per, seed)
+    pts = (rays['origins'][:, None]
+           + rays['z_vals'][..., None] * rays['directions'][:, None])
+    x_raw = np.concatenate([pts.reshape(-1, 3), rs.randn(rows, 8) * 0.3,
+                            np.zeros((rows, 5))], 1)
+    return {'x_raw': x_raw.astype(np.float32),
+            'rgb_cond': anneal_condition(
+                rays['directions'], b4_extra_params(config)['nerf_alpha']),
+            'cotangent': rs.randn(rows, 4).astype(np.float32)}
+
+
+def read_b4_reference(path: str = B4_REFERENCE):
+    """{case: {name: array}} of the B.4 reference file."""
+    out = {case: {} for case in (*B4_LEVEL_CASES, *B4_TEMPLATE_CASES)}
+    with np.load(path) as f:
+        for key in f.files:
+            case, name = key.split('/', 1)
+            out[case][name] = f[key]
+    return out
 
 
 def read_condition_reference(path: str = CONDITION_REFERENCE):

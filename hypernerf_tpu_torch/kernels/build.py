@@ -34,7 +34,7 @@ _SIGNATURES = {
     'hn_fused_level_fwd': ([_I] + [_P] * 13 + [_L, _I, _I, _P], _I),
     'hn_fused_level_layout': ([_I, _P, _P, _I], _I),
     'hn_fused_level_fwd_plan': ([_I, _P, _P, _P, _I], _I),
-    'hn_tmpl_encode': ([_P, _P, _L, _I, _L, _P, _P], _I),
+    'hn_tmpl_encode': ([_P, _L, _P, _L, _I, _L, _P, _P], _I),
     'hn_tmpl_ray_bias': ([_P, _P, _P, _L, _I, _I, _I, _P], _I),
     'hn_tmpl_rowprod': ([_P, _L, _L, _I, _I, _I, _P] + [_I] * 5
                         + [_P, _L, _I, _P, _P, _I, _I, _I, _P, _L, _I, _P],
@@ -49,7 +49,7 @@ _SIGNATURES = {
                                _I),
     'hn_tmpl_bneck_prep': ([_P, _P, _L, _P, _L, _I, _P, _P, _L, _P]
                            + [_L] * 5 + [_I, _P], _I),
-    'hn_tmpl_posenc_bwd': ([_P, _P, _L, _P, _L, _P, _P], _I),
+    'hn_tmpl_posenc_bwd': ([_P, _L, _P, _L, _P, _L, _P, _P], _I),
     'hn_tmpl_reduce': ([_P, _I, _L, _P, _P], _I),
     'hn_fused_fields_bwd_blocks': ([_L], _I),
     'hn_fused_fields_bwd': ([_I] + [_P] * 12 + [_L, _I, _I, _P], _I),

@@ -52,23 +52,46 @@ TMPL_ENC_PAD, COND_PAD = 128, 48
 PLANE = dict(hyper_out=8, hyper_freq=6, rgb_cond=(39, 47, 8, 0))
 PLANE_ENC_PAD = 192
 RAW_PAD, PLANE_RAW_PAD = 8, 16
+# The template's fourth layout (``NerfPlaneEnc``): axis_aligned_plane
+# slicing with the Nerfies encoding (the plane_anneal configurations): the
+# xyz as NERFIES has it, the 8 GLO coordinates over degrees 0..4 without
+# identity, 63 + 64 = 127 columns in TMPL_ENC_PAD slots, NERFIES' condition
+# and window row, raw rows of PLANE_RAW_PAD columns.
+NERFIES_PLANE = dict(hyper_out=8, hyper_freq=4, rgb_cond=(27, 35, 8, 0))
 # Layers of the compiled table (csrc/level_common.cuh): warp, sheet, template.
 WARP_LAYERS, SHEET_LAYERS, TEMPLATE_LAYERS = slice(0, 7), slice(7, 14), \
     slice(14, 30)
-# The plane level's table (``PlaneTable``): the warp, no sheet, the template
-# with the plane layout's 192-column encoding.
+# The translation plane levels' tables (``PlaneTableOf``): the warp, no
+# sheet, the template with its layout's encoding (192 columns, or 128 with
+# the Nerfies plane layout).
 PLANE_TEMPLATE_LAYERS = slice(7, 23)
 # The kernels' codes of the warp types. SE(3) and quaternion share a second
 # compiled table, whose first nine layers are the trunk (6 hidden layers, the
 # trunk logit, the w and the v head) on the Nerfies encoding below. The
-# level kernels also take the code of the plane level's table (the
-# translation warp alone): TABLE_CODES.
+# level kernels take a table code (TABLE_CODES): the warp type with the
+# sheet (a template of the posenc_orig or the Nerfies layout), and each
+# warp type without a sheet (axis_aligned_plane) with the template's plane
+# layout ('plane*', ``PlaneTable`` / ``Se3PlaneTable``) or its Nerfies plane
+# layout ('nerfies_plane*'); the warp type of code c is c % 3.
 WARP_CODES = {'translation': 0, 'se3': 1, 'quaternion': 2}
-TABLE_CODES = {**WARP_CODES, 'plane': 3}
+PLANE_TABLES = ('plane', 'plane_se3', 'plane_quaternion')
+NERFIES_PLANE_TABLES = ('nerfies_plane', 'nerfies_plane_se3',
+                        'nerfies_plane_quaternion')
+TABLE_CODES = {name: code for code, name in enumerate(
+    (*WARP_CODES, *PLANE_TABLES, *NERFIES_PLANE_TABLES))}
 SE3_LAYERS = slice(0, 9)
 SE3_FLAGSHIP = dict(embed=8, min_deg=0, max_deg=8)
 NOT_COVERED = ('the CUDA kernels cover the flagship widths in bf16 only; '
                'other widths are ROADMAP item A.13 (kernel generality)')
+
+
+def table_warp(table: str) -> str:
+    """The warp type of a key of TABLE_CODES."""
+    return tuple(WARP_CODES)[TABLE_CODES[table] % 3]
+
+
+def table_has_sheet(table: str) -> bool:
+    return table in WARP_CODES
 
 
 def pad16(x: int) -> int:
@@ -181,8 +204,8 @@ def unpack_grads(dw_blob, db_blob, layers, shapes):
 
 @functools.cache
 def kernel_layout(warp: str = 'translation'):
-    """[(n_pad, k_pad)] of the compiled layer table of the level with warp
-    type ``warp`` (or of the plane level, 'plane'), in layer order."""
+    """[(n_pad, k_pad)] of the compiled layer table ``warp`` (a key of
+    TABLE_CODES), in layer order."""
     lib = build.library()
     n = (ctypes.c_int * 64)()
     k = (ctypes.c_int * 64)()

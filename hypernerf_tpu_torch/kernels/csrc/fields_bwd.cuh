@@ -1,8 +1,9 @@
 // The fields backward (kernel B) for Hopper (sm_90a): the kernel template
 // and its launcher, instantiated once per warp type by fields_bwd_trans.cu,
-// fields_bwd_se3.cu and fields_bwd_quat.cu, and for the plane
-// configuration's level (the translation warp, no sheet) by
-// fields_bwd_plane.cu (one nvcc process each);
+// fields_bwd_se3.cu and fields_bwd_quat.cu, and for the levels without a
+// sheet (axis_aligned_plane) by fields_bwd_plane.cu (the translation warp)
+// and fields_bwd_plane_screw.cu (the SE(3) and the quaternion warp; one
+// nvcc process each);
 // fused_level.cu holds the entry points that dispatch to them. Its block,
 // slab pool, buffer plan and walk-back also run one field alone, from the
 // field's own blobs (fields_bwd_alone.cuh: a translation-table field, the
@@ -17,8 +18,10 @@
 // :250-269), which is also the fields half of `_fused_bwd_pipelined` (:1260)
 // and `_fused_bwd` (:1397), for the flagship spec with each of its three warp
 // types: translation, SE(3) and quaternion (`_warp_bwd_tile_gen` :545-584),
-// and for the plane spec (axis_aligned_plane: the hyper coordinates are the
-// embedding, `_fields_bwd_core_gen` :446-449, no sheet).
+// each with the sheet or without it (axis_aligned_plane: the hyper
+// coordinates are the embedding, `_fields_bwd_core_gen` :446-449). The
+// template's layout does not reach this kernel: it reads the field layers
+// of the level's blob alone.
 //
 // In:  z (R, S), origins / directions (R, 3), embed (R, 8) fp32, and
 //      dx_t (P, 8) fp32 = d[warped | hyper | 0] from the template backward.
@@ -31,9 +34,10 @@
 // dx_t[:, 0:3] (whose residual also passes dx_t[:, 0:3] straight to d pts;
 // with the SE(3) / quaternion trunk: (w, v) from the recomputed trunk, the
 // retraction's hand-derived VJP in fp32 per row, then the trunk from
-// [d w | d v], no residual); d pts and d embed are the sums of both. The
+// [d w | d v], no residual); d pts and d embed are the sums of both. A
 // plane level (dx_t (P, 16) = d[warped | hyper (8) | 0]) has no sheet: the
-// warp field alone, and d embed = the warp's + dx_t[:, 3:11].
+// warp field (or the trunk and the retraction) alone, and d embed = the
+// warp's + dx_t[:, 3:11].
 // Rounding points are the JAX kernel's: every product takes bf16 operands
 // with fp32 sums; the cotangent is rounded to bf16 after each layer's ReLU
 // mask; a hidden layer's db sums that rounded cotangent, a head's db the
@@ -224,10 +228,14 @@ constexpr int kTanPoints = kTileRows / 4;  // points of a block tile
 
 template <int kWarp>
 using Table = lf::Table<kWarp>;
-// The table of the level of warp type kWarp, or of the plane level.
+// The table of the level of warp type kWarp, with the sheet or (kPlane)
+// without it: its field layers are those of every plane table of the warp
+// type, whatever the template's layout.
 template <int kWarp, bool kPlane>
-using LevelTable = typename std::conditional<kPlane, PlaneTable,
-                                             Table<kWarp>>::type;
+using LevelTable = typename std::conditional<
+    kPlane,
+    typename std::conditional<kWarp == 0, PlaneTable, Se3PlaneTable>::type,
+    Table<kWarp>>::type;
 
 template <int kWarp>
 __host__ __device__ constexpr int warp_field() {
@@ -1098,11 +1106,12 @@ __device__ __forceinline__ void head_back(Ctx& c, const bf16* __restrict__ W,
 // The SE(3) / quaternion trunk's w and v heads on the warpgroup's rows
 // (fp32), then the retraction's VJP per row: d warped (rows.acc[:, 0:3]) ->
 // d w (rows.hg), d v (rows.se3[:, 8:11]) and the part of d warped that
-// reaches d pts directly (rows.acc[:, 0:3]).
-template <int kWarp>
+// reaches d pts directly (rows.acc[:, 0:3]). T: the level's table, whose
+// first layers are the trunk's.
+template <class T, int kWarp>
 __device__ __forceinline__ void trunk_heads_and_retraction(
     Ctx& c, const bf16* __restrict__ W, const bf16* __restrict__ B) {
-  using T = Se3Table;
+  static_assert(T::kWarp == Se3Table::kWarp, "the trunk leads the table");
   Rows& rw = *c.rows;
   const int r = c.tid & (kRows - 1), kh = c.tid >> 6;
   const int R = c.group * kRows + r;
@@ -1221,8 +1230,8 @@ __device__ __forceinline__ void lay_out(uint8_t*& base, Ring& ring,
   ring = Ring{ring_base, full, empty, 0, 0};
 }
 
-// kPlane: the plane level (kWarp 0): no sheet; d hyper, dx_t[:, 3:11] of a
-// (P, 16) dx_t, is the embedding's direct cotangent.
+// kPlane: a plane level: no sheet; d hyper, dx_t[:, 3:11] of a (P, 16)
+// dx_t, is the embedding's direct cotangent.
 template <int kWarp, bool kPlane>
 __global__ void __launch_bounds__(kThreads, 1)
     fields_bwd_kernel(const __grid_constant__
@@ -1238,7 +1247,6 @@ __global__ void __launch_bounds__(kThreads, 1)
                       float* __restrict__ grad_w, uint8_t* __restrict__ scratch,
                       long long n_points, int samples) {
   using T = LevelTable<kWarp, kPlane>;
-  static_assert(!kPlane || kWarp == 0, "plane: the translation warp");
   constexpr int FW = warp_field<kWarp>();
   constexpr long long kGradW = weight_offset<T>(T::kFields);
   uint8_t* base;
@@ -1382,7 +1390,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       fwd_layer<T, FW, 4, true>(c, B);
       fwd_layer<T, FW, 5, true>(c, B);
       fwd_layer<T, FW, 6, false>(c, B);  // the trunk logit: no ReLU
-      trunk_heads_and_retraction<kWarp>(c, W, B);
+      trunk_heads_and_retraction<T, kWarp>(c, W, B);
     }
     // Every spill written before any reload reads it.
     if (c.tid == 0) {
@@ -1498,8 +1506,10 @@ int plan_loads(int first, int count, int* loads, int n, int max_loads) {
   return n;
 }
 
-// Host side: the tensor maps of the blob W (level_fwd.cuh's, cached), the
-// shared-memory attribute once per device, `blocks` persistent blocks.
+// Host side: the tensor maps of the field layers of the level's blob W
+// (level_fwd.cuh's, cached; the template's layers, whose shapes depend on
+// its layout, are never loaded here), the shared-memory attribute once per
+// device, `blocks` persistent blocks.
 template <int kWarp, bool kPlane = false>
 int launch_fields_bwd(const void* z, const void* origins, const void* dirs,
                       const void* embed, const void* dx_t,
@@ -1521,8 +1531,9 @@ int launch_fields_bwd(const void* z, const void* origins, const void* dirs,
   }
   if (n_points <= 0 || blocks <= 0) return (int)cudaErrorInvalidValue;
   lf::Maps<T> maps;
+  static_assert(lf::whole_runs<T>(0, T::kFields), "the fields' maps");
   status = lf::make_maps<T>(&maps, static_cast<const bf16*>(weights), 0,
-                            T::kNum);
+                            T::kFields);
   if (status) return status;
   fields_bwd_kernel<kWarp, kPlane><<<blocks, kThreads, kSmemBytes,
                                      (cudaStream_t)stream>>>(
@@ -1539,14 +1550,21 @@ int launch_fields_bwd(const void* z, const void* origins, const void* dirs,
 }  // namespace fb
 }  // namespace
 
-// The four instantiations (fields_bwd_{trans,se3,quat,plane}.cu).
+// The six instantiations (fields_bwd_{trans,se3,quat,plane}.cu, and
+// fields_bwd_plane_screw.cu's two).
 #define HN_FIELDS_BWD_ARGS                                                  \
   const void *z, const void *origins, const void *dirs, const void *embed, \
       const void *dx_t, const void *warp_scales, const void *weights,       \
       const void *biases, void *d_z, void *d_ray, void *grads,              \
       void *scratch, long long n_points, int samples, int blocks,           \
       void *stream
+// The arguments of HN_FIELDS_BWD_ARGS, passed on.
+#define HN_FIELDS_BWD_PASS                                                 \
+  z, origins, dirs, embed, dx_t, warp_scales, weights, biases, d_z, d_ray, \
+      grads, scratch, n_points, samples, blocks, stream
 extern "C" int hn_fields_bwd_trans(HN_FIELDS_BWD_ARGS);
 extern "C" int hn_fields_bwd_se3(HN_FIELDS_BWD_ARGS);
 extern "C" int hn_fields_bwd_quat(HN_FIELDS_BWD_ARGS);
 extern "C" int hn_fields_bwd_plane(HN_FIELDS_BWD_ARGS);
+extern "C" int hn_fields_bwd_plane_se3(HN_FIELDS_BWD_ARGS);
+extern "C" int hn_fields_bwd_plane_quat(HN_FIELDS_BWD_ARGS);

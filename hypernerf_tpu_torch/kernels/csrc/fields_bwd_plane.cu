@@ -1,5 +1,6 @@
-// The fields backward (kernel B) of the plane configuration's level: the
-// translation warp field alone (fields_bwd.cuh's kernel for warp type 0
+// The fields backward (kernel B) of the levels with the translation warp and
+// no sheet (the plane and plane_anneal configurations): the translation
+// warp field alone (fields_bwd.cuh's kernel for warp type 0
 // without the sheet), d embed = the warp's + dx_t[:, 3:11], compiled on its
 // own so that it builds in parallel with the other instantiations and adds
 // no code to them.

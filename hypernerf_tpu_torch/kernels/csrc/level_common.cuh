@@ -1,9 +1,10 @@
 // Shared by the level kernels (level_fwd.cuh, fields_bwd.cuh, kernel
-// A's template_*.cu): the flagship widths, the template's three encoding
-// layouts, the three tables of the level's layers (30 with the translation
-// warp, 32 with the SE(3) / quaternion warp, 23 with the translation warp
-// and no sheet, the plane configuration) with their offsets into the packed
-// weight and bias blobs, the bf16 rounding and the posenc_orig feature map.
+// A's template_*.cu): the flagship widths, the template's four encoding
+// layouts, the tables of the level's layers, keyed by warp x slicing (30
+// with the translation warp, 32 with the SE(3) / quaternion warp; without a
+// sheet, axis_aligned_plane slicing, 23 and 25, over the template layout's
+// encoding width) with their offsets into the packed weight and bias blobs,
+// the bf16 rounding and the posenc_orig feature map.
 // A function that reads a table takes it as a template parameter,
 // TransTable by default.
 
@@ -59,7 +60,11 @@ constexpr int kSe3EncP = pad16(2 * kSe3Trig + kEmbed);       // 64
 //  - PlaneEnc, axis_aligned_plane slicing, the plane configuration:
 //    posenc_orig with the kEmbed coordinates of the ray's GLO embedding as
 //    the hyper coordinates (no sheet computes them), 167 columns in
-//    kPlaneEncP slots; the flagship's condition.
+//    kPlaneEncP slots; the flagship's condition;
+//  - NerfPlaneEnc, axis_aligned_plane slicing with the Nerfies encoding
+//    (the plane_anneal configurations): NerfEnc's xyz, then the kEmbed
+//    plane coordinates over kNerfHypF bands without identity, 63 + 64 = 127
+//    columns in kTmplEncP slots, NerfEnc's condition and window row.
 // A layout's kCond is its view directions' width; the rgb condition a call
 // takes is any width up to kCondP (the use_nerf_embed settings append the
 // kEmbed-column embedding, or give it alone, or no condition at all), and
@@ -79,8 +84,11 @@ struct TmplLayout {
 using OrigEnc = TmplLayout<kHypOut, kHypEncF, false, kTmplEncP, kCond>;
 using NerfEnc = TmplLayout<kHypOut, kNerfHypF, true, kTmplEncP, kNerfCond>;
 using PlaneEnc = TmplLayout<kEmbed, kHypEncF, false, kPlaneEncP, kCond>;
+using NerfPlaneEnc =
+    TmplLayout<kEmbed, kNerfHypF, true, kTmplEncP, kNerfCond>;
 static_assert(OrigEnc::kEnc == kTmplEnc && NerfEnc::kEnc <= kTmplEncP &&
                   PlaneEnc::kEnc == 167 && PlaneEnc::kEnc <= kPlaneEncP &&
+                  NerfPlaneEnc::kEnc == 127 && NerfPlaneEnc::kRaw == 16 &&
                   kNerfCond <= kCondP,
               "each layout fills its slots");
 
@@ -145,18 +153,34 @@ struct Se3Table {
   }
 };
 
-// The 23 layers of the level of the plane configuration: the translation
-// warp, no sheet (kWarp == kFields: the hyper coordinates are the
-// embedding), the template on PlaneEnc's kPlaneEncP encoding columns.
-struct PlaneTable {
+// The levels without a sheet (axis_aligned_plane: kWarp == kFields, the
+// hyper coordinates are the embedding), over the template layout L: the 23
+// layers of the translation warp's (PlaneTable: the plane configuration's,
+// PlaneEnc's 192-column encoding; with NerfPlaneEnc, 128) and the 25 of the
+// SE(3) / quaternion warp's (Se3PlaneTable), the warp's layers then the
+// template's on L::kEncP encoding columns.
+template <class L>
+struct PlaneTableOf {
   static constexpr int kNum = 23;
   static constexpr int kWarp = 7;
   static constexpr int kFields = 7;
   __host__ __device__ static constexpr Shape shape(int l) {
     return l < kFields ? TransTable::shape(l)
-                       : tmpl_shape(l - kFields, kPlaneEncP);
+                       : tmpl_shape(l - kFields, L::kEncP);
   }
 };
+template <class L>
+struct Se3PlaneTableOf {
+  static constexpr int kNum = 25;
+  static constexpr int kWarp = 9;
+  static constexpr int kFields = 9;
+  __host__ __device__ static constexpr Shape shape(int l) {
+    return l < kFields ? Se3Table::shape(l)
+                       : tmpl_shape(l - kFields, L::kEncP);
+  }
+};
+using PlaneTable = PlaneTableOf<PlaneEnc>;
+using Se3PlaneTable = Se3PlaneTableOf<PlaneEnc>;
 
 template <class T = TransTable>
 __host__ __device__ constexpr Shape layer_shape(int l) {

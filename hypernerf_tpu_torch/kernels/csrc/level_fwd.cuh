@@ -2,10 +2,13 @@
 // template and its launcher, instantiated once per warp type by
 // level_fwd_trans.cu, level_fwd_se3.cu and level_fwd_quat.cu, for the
 // translation warp with the Nerfies template layout (the anneal
-// configuration, whose warp is the translation field alone) by
-// level_fwd_anneal.cu, and for the translation warp with the plane layout
-// (axis_aligned_plane slicing: no sheet, the hyper coordinates are the
-// ray's embedding) by level_fwd_plane.cu (one nvcc process each);
+// configuration) by level_fwd_anneal.cu and with the SE(3) / quaternion warp
+// by level_fwd_anneal_screw.cu, for the translation warp with the plane
+// layout (axis_aligned_plane slicing: no sheet, the hyper coordinates are the
+// ray's embedding) by level_fwd_plane.cu and with the SE(3) / quaternion warp
+// by level_fwd_plane_screw.cu, and with the Nerfies plane layout by
+// level_fwd_nerf_plane.cu (translation) and level_fwd_nerf_plane_screw.cu
+// (one nvcc process each);
 // fused_level.cu holds the entry point that dispatches to them. Its three stages (the warp, the sheet, the template) are device
 // functions on one block (enter_block), which modular_fwd.cu runs
 // one at a time for the per-module path: a field alone, the template alone,
@@ -17,13 +20,13 @@
 // fused_level.py:1322; `_fwd_call_pipelined`, :1019, is a schedule of the
 // same function) in its ray-native mode, for the flagship spec with each of
 // its three warp types (translation, SE(3), quaternion:
-// `_warp_fwd_tile_gen` :330-344): bendy sheet or axis-aligned plane
-// (`_fields_fwd_core_gen` :385-407: the embedding is the hyper
-// coordinates), posenc_orig field encodings, the template in one of its
-// layouts (level_common.cuh TmplLayout: posenc_orig,
-// the anneal configuration's windowed Nerfies encoding, `fused_level.py`
-// :76-87, 166-172, or the plane's posenc_orig of 8 hyper coordinates; a
-// template parameter) with its two per-ray conditions (Cond below: an rgb
+// `_warp_fwd_tile_gen` :330-344), each with the bendy sheet or the
+// axis-aligned plane (`_fields_fwd_core_gen` :385-407: the embedding is the
+// hyper coordinates), posenc_orig field encodings, the template in one of
+// its layouts (level_common.cuh TmplLayout: posenc_orig, the windowed
+// Nerfies encoding, `fused_level.py` :76-87, 166-172, and each of the two
+// with 8 hyper coordinates for the plane; a template parameter) with its
+// two per-ray conditions (Cond below: an rgb
 // condition of any width up to kCondP, `FusedLevelSpec.rgb_cond_ch`, and an
 // alpha condition, `alpha_cond_ch`, fused_mlp.py:359-362, the
 // use_nerf_embed settings' appearance code). When asked (training) it also
@@ -42,6 +45,7 @@
 //            skip at 4, ReLU logit 256; or, given the window row w:
 //            Trunk(w * [posenc(warped, 0..10, identity) ++
 //                       posenc(hyper, 0..4)])
+//            (hyper: 4 coordinates, or the plane's 8)
 //   b      = Bottleneck(h)                                        256 -> 128
 //   out    = [RgbBranch(b ++ rgb_cond) | AlphaHead(b ++ alpha_cond)]  (P, 4)
 // Rounding points are the JAX kernel's: each encoding is rounded to bf16
@@ -119,7 +123,7 @@ constexpr int kStages = 6;  // the ring's stages (the plane block's: 5)
 // Column plan of the tile (every K segment starts on a 64-column box):
 //   warp      h [0, 128)   enc [128, 208)   (SE(3): enc [128, 192))
 //   hyper     h [0, 64)    enc [64, 128)
-//   template  h [0, 256)   enc [256, 384)   (plane: enc [256, 448))
+//   template  h [0, 256)   enc [256, 384)   (PlaneEnc: enc [256, 448))
 //   rgb       b/h [0, 128) rgb_cond [128, 176)
 // A hidden layer writes [0, N); the heads write fp32 rows.
 constexpr int kWarpEnc = kWarpW, kHypEnc = kHypW, kTmplEnc0 = kTrunkW;
@@ -148,6 +152,8 @@ constexpr int kBiasBytes =
 static_assert(kBiasBytes % 16 == 0 &&
                   2 * bias_offset<TransTable>(TransTable::kNum) % 16 == 0 &&
                   2 * bias_offset<PlaneTable>(PlaneTable::kNum) <=
+                      kBiasBytes &&
+                  2 * bias_offset<Se3PlaneTable>(Se3PlaneTable::kNum) <=
                       kBiasBytes,
               "the biases copy in 16-byte pieces");
 
@@ -175,8 +181,8 @@ using Ring = RingOf<kStages>;
 // A block's shape: G consumer warpgroups, each with its own tile of kRows
 // rows x XC columns (XC / 64 boxes), a ring of S stages, and the producer
 // warpgroup; `setmaxnreg` moves registers from the producer to the
-// consumers. The level, and the template alone, run LevelBlock (the plane
-// layout: PlaneBlock); a field alone reads and writes fewer columns, so
+// consumers. The level, and the template alone, run LevelBlock (PlaneEnc:
+// PlaneBlock); a field alone reads and writes fewer columns, so
 // more tiles fit a block (modular_fwd.cu).
 // setmaxnreg only moves registers within the block's allocation at launch,
 // which is kThreads x kEntryRegs (ptxas gives a kernel that uses setmaxnreg
@@ -209,19 +215,23 @@ using TmplBlock = Block<2, kTrunkW + L::kEncP,
                         (L::kEncP > kTmplEncP ? kStages - 1 : kStages)>;
 using LevelBlock = TmplBlock<OrigEnc>;   // 384 columns, 6 stages
 using PlaneBlock = TmplBlock<PlaneEnc>;  // 448 columns, 5 stages
-static_assert(std::is_same<LevelBlock, TmplBlock<NerfEnc>>::value,
-              "both 128-column layouts run the level's block");
+static_assert(std::is_same<LevelBlock, TmplBlock<NerfEnc>>::value &&
+                  std::is_same<LevelBlock, TmplBlock<NerfPlaneEnc>>::value,
+              "the three 128-column layouts run the level's block");
 constexpr int kMaxGroups = 4;
 
 // The layer table of warp type kWarp (0 translation, 1 SE(3), 2 quaternion).
 template <int kWarp>
 using Table =
     typename std::conditional<kWarp == 0, TransTable, Se3Table>::type;
-// The table of the level of warp type kWarp with template layout L: the
-// plane layout's has no sheet (translation warp alone).
+// The table of the level of warp type kWarp with template layout L: a
+// plane layout's has no sheet and the layout's encoding width.
 template <int kWarp, class L>
-using LevelTable =
-    typename std::conditional<L::kPlane, PlaneTable, Table<kWarp>>::type;
+using LevelTable = typename std::conditional<
+    L::kPlane,
+    typename std::conditional<kWarp == 0, PlaneTableOf<L>,
+                              Se3PlaneTableOf<L>>::type,
+    Table<kWarp>>::type;
 
 // The first tile column of layer l's input (a table without a sheet has
 // kWarp == kFields).
@@ -971,8 +981,8 @@ __device__ __forceinline__ bool enter_block(const Maps<T>& maps,
   return true;
 }
 
-// The level of warp type kWarp with template layout L (the plane layout:
-// the translation warp, no sheet, raw_t of 16 columns).
+// The level of warp type kWarp with template layout L (a plane layout: no
+// sheet, raw_t of 16 columns).
 template <int kWarp, class L>
 __global__ void __launch_bounds__(TmplBlock<L>::kThreads, 1)
     level_fwd_kernel(const __grid_constant__ Maps<LevelTable<kWarp, L>> maps,
@@ -987,7 +997,6 @@ __global__ void __launch_bounds__(TmplBlock<L>::kThreads, 1)
                      int samples) {
   using T = LevelTable<kWarp, L>;
   using Blk = TmplBlock<L>;
-  static_assert(!L::kPlane || kWarp == 0, "plane: the translation warp");
   Group g;
   typename Blk::Ring ring;
   const bf16* Bs;
@@ -1003,7 +1012,14 @@ __global__ void __launch_bounds__(TmplBlock<L>::kThreads, 1)
       translation_stage<T>(g, ring, Bs);
     else
       screw_stage<T, kWarp>(g, ring, Bs, warp_scales);
-    if constexpr (!L::kPlane) sheet_stage<T>(g, ring, Bs);
+    // The sheet's stage starts with a barrier; without it the template's
+    // encoding, which reads every row of rows.raw, waits here for the
+    // warp's last writes (the retraction's or the residual's, each row by
+    // one thread).
+    if constexpr (!L::kPlane)
+      sheet_stage<T>(g, ring, Bs);
+    else
+      g.sync();
     // Training keeps the template's raw input for the backward kernels.
     if (raw_t != nullptr && g.tid < kRows && row0 + g.tid < n_points) {
       const float* rt = g.rows->raw[g.tid];
@@ -1129,9 +1145,11 @@ int launch_level_fwd(const void* z, const void* origins, const void* dirs,
 }  // namespace lf
 }  // namespace
 
-// The five instantiations (level_fwd_{trans,se3,quat}.cu, and the
-// translation warp with the Nerfies template layout, level_fwd_anneal.cu,
-// and with the plane layout, level_fwd_plane.cu).
+// The twelve instantiations: each warp type with the posenc_orig layout
+// (level_fwd_{trans,se3,quat}.cu), with the Nerfies layout
+// (level_fwd_anneal.cu, level_fwd_anneal_screw.cu), with the plane layout
+// (level_fwd_plane.cu, level_fwd_plane_screw.cu) and with the Nerfies plane
+// layout (level_fwd_nerf_plane.cu, level_fwd_nerf_plane_screw.cu).
 #define HN_LEVEL_FWD_ARGS                                                   \
   const void *z, const void *origins, const void *dirs, const void *embed, \
       const void *rgb_cond, const void *alpha_cond, const void *alpha_w,    \
@@ -1148,3 +1166,10 @@ extern "C" int hn_level_fwd_se3(HN_LEVEL_FWD_ARGS);
 extern "C" int hn_level_fwd_quat(HN_LEVEL_FWD_ARGS);
 extern "C" int hn_level_fwd_anneal(HN_LEVEL_FWD_ARGS);
 extern "C" int hn_level_fwd_plane(HN_LEVEL_FWD_ARGS);
+extern "C" int hn_level_fwd_anneal_se3(HN_LEVEL_FWD_ARGS);
+extern "C" int hn_level_fwd_anneal_quat(HN_LEVEL_FWD_ARGS);
+extern "C" int hn_level_fwd_plane_se3(HN_LEVEL_FWD_ARGS);
+extern "C" int hn_level_fwd_plane_quat(HN_LEVEL_FWD_ARGS);
+extern "C" int hn_level_fwd_nerf_plane(HN_LEVEL_FWD_ARGS);
+extern "C" int hn_level_fwd_nerf_plane_se3(HN_LEVEL_FWD_ARGS);
+extern "C" int hn_level_fwd_nerf_plane_quat(HN_LEVEL_FWD_ARGS);

@@ -31,8 +31,11 @@
 // hn_fused_template_fwd_plane, for the plane configuration's: posenc_orig
 // of 8 hyper coordinates, 167 columns in 192, layers 7..22 of PlaneTable,
 // x_raw (P, 16), on a block of two 448-column tiles and a ring of 5
-// stages). In: x_raw (P, 8) fp32 rows [xyz | hyper | 0]; rgb_cond (P / S,
-// cond_w) bf16, one row per S consecutive rows, any S >= 1, cond_w from 0
+// stages; that entry point, given a window row, runs the Nerfies plane
+// layout's, instantiated in level_fwd_nerf_plane.cu: the Nerfies encoding
+// of 8 hyper coordinates, 127 columns in 128, on the level's block). In:
+// x_raw (P, 8) fp32 rows [xyz | hyper | 0]; rgb_cond (P / S, cond_w)
+// bf16, one row per S consecutive rows, any S >= 1, cond_w from 0
 // (no rgb condition) to 48 (39 or 27 the view directions' encoding, 47 or
 // 35 with the nerf embedding after it, 8 the embedding alone); alpha_cond
 // (P / S, 8) bf16 and alpha_w (8) bf16, the alpha head's condition columns,
@@ -269,9 +272,10 @@ extern "C" int hn_fused_template_fwd(HN_TEMPLATE_FWD_ARGS) {
 }
 
 // The plan of per-module stage `stage` (0 the warp field, 1 the sheet, 2 the
-// template, 3 the SE(3) trunk, 4 the plane configuration's template;
-// lf::forward_plan of its block over its layers of the table, TransTable's
-// or, for the trunk, Se3Table's, for the plane template PlaneTable's):
+// template, 3 the SE(3) trunk, 4 the plane configuration's template, 5 the
+// Nerfies plane layout's template; lf::forward_plan of its block over its
+// layers of the table, TransTable's or, for the trunk, Se3Table's, for a
+// plane template its plane table's):
 // config[0:8], in_cols[i] for its i-th layer, and the weight loads of one
 // step of tiles. Returns the number of loads (written up to max_loads), or
 // -1 for an unknown stage.
@@ -298,6 +302,11 @@ extern "C" int hn_modular_fwd_plan(int stage, int* config, int* in_cols,
       return forward_plan<PlaneBlock, PlaneTable>(
           PlaneTable::kFields, PlaneTable::kNum, config, in_cols, loads,
           max_loads);
+    case 5: {
+      using T = PlaneTableOf<NerfPlaneEnc>;
+      return forward_plan<TmplBlock<NerfPlaneEnc>, T>(
+          T::kFields, T::kNum, config, in_cols, loads, max_loads);
+    }
   }
   return -1;
 }

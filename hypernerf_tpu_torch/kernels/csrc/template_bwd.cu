@@ -17,14 +17,16 @@
 // summed in fp32 in the posenc VJP, which uses fp32 sin / cos of the same
 // arguments as the recompute. The per-ray sums of d rgb_cond are written
 // by one thread each (a chunk holds whole rays), so they are deterministic.
-// The three template layouts (level_common.cuh TmplLayout) run here: the
-// encoding's two steps take the Nerfies one where they are given its window
-// row (the stash holds the windowed features, and the VJP weights the fp32
-// cotangent by the row first, as the TPU kernel's `_encode_bwd`: a band of
-// weight 0 passes no gradient, an identity column weighs 1) and the plane
-// one where they are given its buffers, whose widths are that layout's (a
-// stash of kPlaneStashLd columns, 192 of them the encoding's, raw rows of
-// 16 columns; the encoding's cotangent buffer of 2 x 256 columns); the rgb
+// The four template layouts (level_common.cuh TmplLayout) run here: the
+// encoding's two steps take the layout from the raw rows' width, the window
+// row and their buffers' widths: raw rows of 8 columns are OrigEnc's, or
+// NerfEnc's where a window row is given (the stash holds the windowed
+// features, and the VJP weights the fp32 cotangent by the row first, as the
+// TPU kernel's `_encode_bwd`: a band of weight 0 passes no gradient, an
+// identity column weighs 1); raw rows of 16 columns are PlaneEnc's, whose
+// buffers' widths are its own (a stash of kPlaneStashLd columns, 192 of
+// them the encoding's; the encoding's cotangent buffer of 2 x 256 columns),
+// or NerfPlaneEnc's where a window row is given (NerfEnc's buffers); the rgb
 // condition's two steps are compiled for each width a layout covers
 // (kCondWidths: the view directions' encoding of either layout, with the
 // nerf embedding after it, the embedding alone, none) and the steps that
@@ -64,7 +66,9 @@ __host__ __device__ constexpr int enc_half() {
 constexpr int kPlaneStashLd = stash_ld<PlaneEnc>();  // 3136
 static_assert(stash_ld<OrigEnc>() == kStashLd &&
                   stash_ld<NerfEnc>() == kStashLd &&
-                  2 * enc_half<OrigEnc>() == kGLd,
+                  stash_ld<NerfPlaneEnc>() == kStashLd &&
+                  2 * enc_half<OrigEnc>() == kGLd &&
+                  2 * enc_half<NerfPlaneEnc>() == kGLd,
               "the 128-column layouts share the stash and the buffers");
 constexpr int kCondCol = 128;   // first condition column of rgb layer 0
 constexpr int kRowGroups = 8;   // threadIdx.y of the per-split kernels
@@ -379,19 +383,25 @@ int launch_posenc_bwd(const void* raw_t, const void* e, void* dx_t,
 }  // namespace
 
 // stash[r][enc_col : enc_col + kEncP] = bf16 encoding of raw_t[r] in the
-// layout the stash's width and the window row name: a stash of kStashLd
-// columns takes (P, 8) fp32 raw rows, in posenc_orig where scales is null,
-// else in the Nerfies layout times its window row scales (128 fp32); one of
-// kPlaneStashLd columns the plane layout of (P, 16) raw rows, no window.
-extern "C" int hn_tmpl_encode(const void* raw_t, void* stash,
-                              long long stash_ld, int enc_col,
+// layout the raw rows' width raw_ld, the window row and the stash's width
+// name: (P, 8) raw rows in posenc_orig where scales is null, else in the
+// Nerfies layout times its window row scales (128 fp32), into a stash of
+// kStashLd columns; (P, 16) raw rows in the plane layout, no window, into
+// one of kPlaneStashLd columns, or in the Nerfies plane layout times its
+// window row into one of kStashLd columns.
+extern "C" int hn_tmpl_encode(const void* raw_t, long long raw_ld,
+                              void* stash, long long stash_ld, int enc_col,
                               long long n_rows, const void* scales,
                               void* stream) {
   if (n_rows <= 0) return (int)cudaErrorInvalidValue;
-  if (stash_ld == kPlaneStashLd && scales == nullptr)
+  if (raw_ld == 16 && stash_ld == kPlaneStashLd && scales == nullptr)
     return launch_encode<PlaneEnc>(raw_t, stash, enc_col, n_rows, scales,
                                    stream);
   if (stash_ld != kStashLd) return (int)cudaErrorInvalidValue;
+  if (raw_ld == 16 && scales)
+    return launch_encode<NerfPlaneEnc>(raw_t, stash, enc_col, n_rows, scales,
+                                       stream);
+  if (raw_ld != 8) return (int)cudaErrorInvalidValue;
   if (scales)
     return launch_encode<NerfEnc>(raw_t, stash, enc_col, n_rows, scales,
                                   stream);
@@ -527,19 +537,24 @@ extern "C" int hn_tmpl_bneck_prep(const void* g4, const void* gin,
 }
 
 // e: (n_rows, kGLd) bf16, the encoding's two cotangents in columns [0, 128)
-// and [128, 256), with (P, 8) raw rows and dx_t; scales: null
-// (posenc_orig), or the Nerfies layout's window row, as hn_tmpl_encode took
-// it. The plane layout's: e (n_rows, 512), its two cotangents in columns
-// [0, 192) and [256, 448), (P, 16) raw rows and dx_t, no window.
-extern "C" int hn_tmpl_posenc_bwd(const void* raw_t, const void* e,
-                                  long long e_ld, void* dx_t,
+// and [128, 256), with (P, raw_ld) raw rows and dx_t: raw_ld 8, scales null
+// (posenc_orig) or the Nerfies layout's window row, as hn_tmpl_encode took
+// it; raw_ld 16 and the window row, the Nerfies plane layout. The plane
+// layout's: e (n_rows, 512), its two cotangents in columns [0, 192) and
+// [256, 448), (P, 16) raw rows and dx_t, no window.
+extern "C" int hn_tmpl_posenc_bwd(const void* raw_t, long long raw_ld,
+                                  const void* e, long long e_ld, void* dx_t,
                                   long long n_rows, const void* scales,
                                   void* stream) {
   if (n_rows <= 0) return (int)cudaErrorInvalidValue;
-  if (e_ld == 2 * enc_half<PlaneEnc>() && scales == nullptr)
+  if (raw_ld == 16 && e_ld == 2 * enc_half<PlaneEnc>() && scales == nullptr)
     return launch_posenc_bwd<PlaneEnc>(raw_t, e, dx_t, n_rows, scales,
                                        stream);
   if (e_ld != kGLd) return (int)cudaErrorInvalidValue;
+  if (raw_ld == 16 && scales)
+    return launch_posenc_bwd<NerfPlaneEnc>(raw_t, e, dx_t, n_rows, scales,
+                                           stream);
+  if (raw_ld != 8) return (int)cudaErrorInvalidValue;
   if (scales)
     return launch_posenc_bwd<NerfEnc>(raw_t, e, dx_t, n_rows, scales,
                                       stream);

@@ -1,9 +1,10 @@
 // The template alone on the level forward's block (level_fwd.cuh's
 // template stage run by itself, modular_fwd.cu's header comment), a kernel
 // template over the encoding's layout: modular_fwd.cu instantiates the
-// posenc_orig layout, template_fwd_anneal.cu the Nerfies one and
+// posenc_orig layout, template_fwd_anneal.cu the Nerfies one,
 // template_fwd_plane.cu the plane one (its own table's layers 7..22 on
-// PlaneBlock), each in its own nvcc process.
+// PlaneBlock) and level_fwd_nerf_plane.cu the Nerfies plane one (layers
+// 7..22 of its table, on the level's block), each in its own nvcc process.
 
 #pragma once
 
@@ -119,6 +120,8 @@ int launch_template(const void* x_raw, const void* rgb_cond,
   x_raw, rgb_cond, alpha_cond, alpha_w, scales, weights, biases, out,      \
       n_points, samples, cond_w, stream
 
-// The template alone in the Nerfies layout (template_fwd_anneal.cu), with
+// The template alone in the Nerfies layout (template_fwd_anneal.cu) and in
+// the Nerfies plane layout (level_fwd_nerf_plane.cu), with
 // hn_fused_template_fwd's arguments.
 extern "C" int hn_template_fwd_anneal(HN_TEMPLATE_FWD_ARGS);
+extern "C" int hn_template_fwd_nerf_plane(HN_TEMPLATE_FWD_ARGS);

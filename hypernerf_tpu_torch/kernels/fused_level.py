@@ -4,13 +4,15 @@ quaternion field (the trunk of ``fused_se3``, then the retraction inside the
 kernels); ``warp_scales`` is the latter two's optional ``warp_alpha`` window
 row (``fused_se3.se3_encoding_scales``; a row of ones and None give the same
 numbers). The template encodes as the ``Level`` says: posenc_orig, or the
-Nerfies encoding of the anneal configuration with ``tmpl_scales``, its
+Nerfies encoding of the anneal configurations with ``tmpl_scales``, its
 window row at ``nerf_alpha`` and ``hyper_alpha``
 (``fused_mlp.template_scales``; None: fully on). A level without a sheet
-(``Level.hyper`` None: the plane configuration, axis_aligned_plane slicing
-with the translation warp) takes the ray's 8 GLO coordinates as its hyper
-coordinates, in the template's plane layout (raw rows of 16 columns); its
-kernels are their own instantiations (table code 3, ``common.TABLE_CODES``).
+(``Level.hyper`` None: axis_aligned_plane slicing, with any warp) takes the
+ray's 8 GLO coordinates as its hyper coordinates, in the template's plane
+layout or its Nerfies plane layout (raw rows of 16 columns); its kernels
+are their own instantiations, one table code each (``level_table``,
+``common.TABLE_CODES``). Both window rows, the trunk's and the template's,
+go into one call where the level has both.
 The template takes the rgb condition at any width its layout covers and,
 where its alpha head takes one, the alpha condition (``fused_mlp``'s
 module docstring), both per ray.
@@ -102,8 +104,13 @@ def _screw(level: Level) -> bool:
 
 def level_table(level: Level) -> str:
     """The compiled layer table the level's kernels take (a key of
-    ``common.TABLE_CODES``): its warp type's, or 'plane' without a sheet."""
-    return 'plane' if level.hyper is None else level.warp.kind
+    ``common.TABLE_CODES``): its warp type's with the sheet, or without it
+    its warp type's over the template's plane layout."""
+    if level.hyper is not None:
+        return level.warp.kind
+    plane = 'nerfies_plane' if level.nerfies else 'plane'
+    kind = level.warp.kind
+    return plane if kind == 'translation' else f'{plane}_{kind}'
 
 
 def _check_sheet(level: Level) -> None:
@@ -176,9 +183,6 @@ def _check_covered(level: Level) -> None:
     keys = ('embed', 'warp_freq') + (('hyper_sheet_freq', 'hyper_out')
                                       if level.hyper is not None else ())
     flagship = {k: FLAGSHIP[k] for k in keys}
-    if _screw(level) and level.hyper is None:
-        raise NotImplementedError('axis_aligned_plane with the SE(3) / '
-                                  'quaternion warp (ROADMAP A.9)')
     if _screw(level):
         _check_se3_covered(level.warp)
         warp_mlp = level.warp.trunk
@@ -264,10 +268,12 @@ def _ptr(t):
 # thread issues the loads; setmaxnreg hands its registers to the consumers)
 # that streams each layer's (n_pad, k_pad) weight from the packed blob
 # through a ring of FWD_STAGES stages: one load per 64-column box of K and
-# 128-row half of N. The plane level, and its template alone, take tiles of
+# 128-row half of N. The levels of the plane layout's tables
+# (``common.PLANE_TABLES``), and their template alone, take tiles of
 # PLANE_TILE_COLS columns (the template's 192-column encoding beside its 256
 # hidden ones), which leave room for a ring of one stage fewer
-# (``block_stages``).
+# (``block_stages``); the Nerfies plane layout's 128 columns take the
+# level's tiles.
 FWD_TILE_ROWS, FWD_GROUPS, FWD_STAGES = 64, 2, 6
 FWD_BOX_COLS, FWD_STAGE_ROWS, FWD_TILE_COLS = 64, 128, 384
 PLANE_TILE_COLS = 256 + common.PLANE_ENC_PAD
@@ -308,11 +314,11 @@ FWD_ENC_COL = dict(warp=128, hyper=64, template=256, cond=128)
 def forward_in_cols(warp: str = 'translation'):
     """The first tile column of every layer's input, in layer order, in the
     table ``warp`` (a key of ``common.TABLE_CODES``)."""
-    if warp == 'plane':  # the warp, then the template
-        cols = [0] * (7 + 16)
-        cols[0], cols[7] = FWD_ENC_COL['warp'], FWD_ENC_COL['template']
+    h0 = 7 if common.table_warp(warp) == 'translation' else 9  # after warp
+    if not common.table_has_sheet(warp):  # the warp, then the template
+        cols = [0] * (h0 + 16)
+        cols[0], cols[h0] = FWD_ENC_COL['warp'], FWD_ENC_COL['template']
         return cols
-    h0 = 7 if warp == 'translation' else 9  # the sheet's first layer
     cols = [0] * (h0 + 7 + 16)
     cols[0], cols[h0], cols[h0 + 7] = (FWD_ENC_COL['warp'],
                                        FWD_ENC_COL['hyper'],
@@ -357,7 +363,7 @@ def _plan(shapes, in_cols, first: int = 0, groups: int = FWD_GROUPS,
 def forward_plan(warp: str, shapes):
     """The compiled plan's fields (``hn_fused_level_fwd_plan``) of table
     ``warp``: config, in_cols and loads."""
-    cols = PLANE_TILE_COLS if warp == 'plane' else FWD_TILE_COLS
+    cols = PLANE_TILE_COLS if warp in common.PLANE_TABLES else FWD_TILE_COLS
     return _plan(shapes, forward_in_cols(warp), cols=cols)
 
 
@@ -367,8 +373,10 @@ def forward_plan(warp: str, shapes):
 # or, for 'se3', the SE(3) / quaternion trunk's of the SE(3) table (the
 # screw warp's stage without its retraction), or, for 'template_plane', the
 # plane layout's template, layers 7..22 of the plane table, on its level's
-# block (PLANE_TILE_COLS, a ring of 5 stages), from the stage's own blob,
-# with the level's ring and column plan. Stage -> (first layer, end), the
+# block (PLANE_TILE_COLS, a ring of 5 stages), or, for
+# 'template_nerfies_plane', the Nerfies plane layout's, layers 7..22 of its
+# table, on the level's block, from the stage's own blob, with the level's
+# ring and column plan. Stage -> (first layer, end), the
 # code ``hn_modular_fwd_plan`` takes, and the block: (consumer warpgroups,
 # tile columns). A field reads and writes the first 256 (warp) or 128
 # (sheet) columns of a tile, so three or four tiles fit a block; the trunk
@@ -379,15 +387,20 @@ def forward_plan(warp: str, shapes):
 # ``hn_tangents_fwd_plan`` takes, add those two numbers to the config.
 MODULE_STAGES = {'warp': (0, 7), 'sheet': (7, 14), 'template': (14, 30),
                  'se3': (0, 9), 'warp_tangents': (0, 7),
-                 'se3_tangents': (0, 9), 'template_plane': (7, 23)}
+                 'se3_tangents': (0, 9), 'template_plane': (7, 23),
+                 'template_nerfies_plane': (7, 23)}
 MODULE_STAGE_CODES = {'warp': 0, 'sheet': 1, 'template': 2, 'se3': 3,
-                      'template_plane': 4}
+                      'template_plane': 4, 'template_nerfies_plane': 5}
+# The table whose layers a plane template's stage runs.
+MODULE_STAGE_TABLES = {'template_plane': 'plane',
+                       'template_nerfies_plane': 'nerfies_plane'}
 TANGENT_STAGE_CODES = {'warp_tangents': 0, 'se3_tangents': 1}
 TANGENT_STREAMS = 4  # the primal row, then d / d p_k for k = 0, 1, 2
 MODULE_BLOCKS = {'warp': (3, 256), 'sheet': (4, 128),
                  'template': (FWD_GROUPS, FWD_TILE_COLS), 'se3': (3, 256),
                  'warp_tangents': (3, 256), 'se3_tangents': (3, 256),
-                 'template_plane': (FWD_GROUPS, PLANE_TILE_COLS)}
+                 'template_plane': (FWD_GROUPS, PLANE_TILE_COLS),
+                 'template_nerfies_plane': (FWD_GROUPS, FWD_TILE_COLS)}
 
 
 def stage_plan(stage: str, shapes):
@@ -402,8 +415,7 @@ def stage_plan(stage: str, shapes):
                          f'{end - first}')
     groups, cols = MODULE_BLOCKS[stage]
     in_cols = forward_in_cols('se3' if stage.startswith('se3') else
-                              'plane' if stage == 'template_plane' else
-                              'translation')
+                              MODULE_STAGE_TABLES.get(stage, 'translation'))
     plan = _plan(shapes, in_cols[first:end], first, groups, cols)
     if stage in TANGENT_STAGE_CODES:
         plan['config'] += [TANGENT_STREAMS, FWD_TILE_ROWS // TANGENT_STREAMS]
@@ -534,18 +546,18 @@ def _warp_field(warp: str) -> str:
 
 def fields_bwd_fields(warp: str):
     """The fields kernel B of table ``warp`` walks back, in its order."""
-    return ((_warp_field(warp),) if warp == 'plane'
-            else ('sheet', _warp_field(warp)))
+    field = _warp_field(common.table_warp(warp))
+    return ('sheet', field) if common.table_has_sheet(warp) else (field,)
 
 
 def fields_bwd_loads(warp: str, shapes):
     """[(layer, box of K, box rows)]: a block tile's weight loads in the
     producer's (and the consumers') order: the sheet's six hidden layers
-    forward, then backward (none in the plane table), then the warp's (the
-    SE(3) trunk's seven)."""
-    h0 = 9 if warp in ('se3', 'quaternion') else 7
-    nw = 7 if warp in ('se3', 'quaternion') else 6
-    sheet = ([] if warp == 'plane' else
+    forward, then backward (none in a table without a sheet), then the
+    warp's (the SE(3) trunk's seven)."""
+    screw = common.table_warp(warp) != 'translation'
+    h0, nw = (9, 7) if screw else (7, 6)
+    sheet = ([] if not common.table_has_sheet(warp) else
              [h0 + i for i in range(6)] + [h0 + i for i in range(5, -1, -1)])
     order = sheet + list(range(nw)) + list(range(nw - 1, -1, -1))
     return [(l, kb, min(shapes[l][0], FB_STAGE_BYTES // 128))
@@ -555,8 +567,8 @@ def fields_bwd_loads(warp: str, shapes):
 def fields_bwd_plan(warp: str, shapes):
     """The compiled plan's fields (``hn_fused_fields_bwd_plan``) of table
     ``warp``: config, table (the sheet's buffer plan, then the warp
-    field's, six ints a buffer; the plane table's: the warp field's alone)
-    and loads."""
+    field's, six ints a buffer; a table without a sheet: the warp field's
+    alone) and loads."""
     table = [v for field in fields_bwd_fields(warp)
              for v in _fb_table(field)]
     return dict(config=list(FB_CONFIG), table=table,

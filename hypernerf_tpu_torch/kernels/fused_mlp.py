@@ -21,16 +21,18 @@ kernel's rounding points, on CPU tensors. On a CUDA tensor a wrapper launches
 its kernel or raises.
 
 The CUDA kernels are compiled for the flagship template (8 x 256 with a skip
-after layer 4, bottleneck 128, rgb branch 4 x 128, bf16) in three encoding
+after layer 4, bottleneck 128, rgb branch 4 x 128, bf16) in four encoding
 layouts (``layout``): the flagship's posenc_orig (xyz at 10 bands, 4 hyper
 coordinates at 6 bands, 39 condition features), the Nerfies encoding of the
 anneal configuration (``common.NERFIES``: xyz over degrees 0..10 with its
 identity, the hyper coordinates over 0..4 without, 27 condition features),
 whose every band is weighted by the annealing window row ``scales``, an
-input of every call (``template_scales``), and the plane configuration's
+input of every call (``template_scales``), the plane configuration's
 posenc_orig of 8 hyper coordinates (``common.PLANE``: 167 encoded columns in
-192, raw rows of 16 columns, its own kernels). A template without hyper
-coordinates (static NeRF) runs through the flagship's kernels: its encoding
+192, raw rows of 16 columns, its own kernels), and the Nerfies encoding of
+8 hyper coordinates (``common.NERFIES_PLANE``, the plane_anneal
+configurations: 127 columns in 128, raw rows of 16 columns, the window
+row). A template without hyper coordinates (static NeRF) runs through the flagship's kernels: its encoding
 is packed with zero weight columns where the hyper bands would be, which is
 exact, and those columns' dW is dropped on unpack.
 
@@ -77,19 +79,24 @@ def n_hyper(tmpl) -> int:
     return (enc - 3 * (1 + 2 * tmpl.xyz_freq)) // per
 
 
+PLANE_LAYOUTS = ('plane', 'nerfies_plane')
+
+
 def layout(tmpl) -> str:
-    """The compiled encoding layout a template takes: 'nerfies', 'plane' (8
+    """The compiled encoding layout a template takes: 'nerfies' (4 hyper
+    coordinates) or 'nerfies_plane' (8) in the Nerfies encoding, 'plane' (8
     hyper coordinates in posenc_orig) or 'orig' (the flagship's, and the
     static template's)."""
+    plane = n_hyper(tmpl) == common.PLANE['hyper_out']
     if tmpl.nerfies:
-        return 'nerfies'
-    return 'plane' if n_hyper(tmpl) == common.PLANE['hyper_out'] else 'orig'
+        return 'nerfies_plane' if plane else 'nerfies'
+    return 'plane' if plane else 'orig'
 
 
 def raw_pad(tmpl) -> int:
     """Columns of the template's raw rows [xyz | hyper | 0] and of their
     cotangent."""
-    return (common.PLANE_RAW_PAD if layout(tmpl) == 'plane'
+    return (common.PLANE_RAW_PAD if layout(tmpl) in PLANE_LAYOUTS
             else common.RAW_PAD)
 
 
@@ -299,12 +306,13 @@ ALPHA_TAIL = common.FLAGSHIP['embed']
 
 def check_covered(tmpl) -> None:
     """Raise unless the template has the widths of one of the compiled
-    layouts (``common.FLAGSHIP``'s, ``common.NERFIES`` or ``common.PLANE``:
-    an rgb condition of one of the layout's widths, an alpha condition of
-    ``common.ALPHA_COND``) in bf16."""
+    layouts (``common.FLAGSHIP``'s, ``common.NERFIES``, ``common.PLANE`` or
+    ``common.NERFIES_PLANE``: an rgb condition of one of the layout's
+    widths, an alpha condition of ``common.ALPHA_COND``) in bf16."""
     t = tmpl.template
     nh = n_hyper(tmpl)
     widths = {'nerfies': common.NERFIES, 'plane': common.PLANE,
+              'nerfies_plane': common.NERFIES_PLANE,
               'orig': common.FLAGSHIP}[layout(tmpl)]
     have = dict(xyz_freq=tmpl.xyz_freq, rgb_cond=cond_width(tmpl),
                 alpha_cond=alpha_cond_width(tmpl))
@@ -379,9 +387,9 @@ def _launch_args(tmpl, x_raw, rgb_cond, transposed: bool, alpha_cond=None):
     if transposed:
         packs.append(common.pack_layers(tmpl.template, layers, check,
                                         transposed=True))
-    if layout(tmpl) == 'plane':
+    if layout(tmpl) in PLANE_LAYOUTS:  # a plane table of its layout
         common.check_layout(packs[0][2], common.PLANE_TEMPLATE_LAYERS,
-                            'plane')
+                            layout(tmpl))
     else:
         common.check_layout(packs[0][2], common.TEMPLATE_LAYERS)
     dev = x_raw.device
@@ -407,7 +415,7 @@ def _forward(tmpl, x_raw, rgb_cond, scales=None, alpha_cond=None):
     scales = kernel_scales(tmpl, scales, x_raw.device)
     p = x_raw.shape[0]
     out = torch.empty((p, 4), dtype=torch.float32, device=x_raw.device)
-    entry = ('hn_fused_template_fwd_plane' if layout(tmpl) == 'plane'
+    entry = ('hn_fused_template_fwd_plane' if layout(tmpl) in PLANE_LAYOUTS
              else 'hn_fused_template_fwd')
     common.launch(entry, x_raw.device, x_raw.data_ptr(), rgbc.data_ptr(),
                   _ptr(alphac), _ptr(aw), _ptr(scales), w_blob.data_ptr(),
@@ -423,7 +431,7 @@ def fused_template(tmpl, x_raw, rgb_cond, scales=None,
     ``alpha_cond``: (R, Ca) per-ray alpha condition, or None.
 
     CPU tensors take ``fused_template_plain``; CUDA tensors launch the kernel
-    (flagship widths, any of the three layouts, bf16) or raise.
+    (flagship widths, any of the four layouts, bf16) or raise.
     Differentiable in ``x_raw``, both conditions and the template's
     parameters (``FusedTemplateFn``).
     """
@@ -645,9 +653,10 @@ class _KernelOps:
     bottleneck, the rgb condition widths of ``common.FLAGSHIP`` and
     ``common.NERFIES``, an alpha condition of kEmbed columns) and their
     entry points refuse another, which raises here. The encoding's two
-    steps take the Nerfies layout where they are given a window row, and
-    the plane layout where they are given its stash (3136 columns) or its
-    encoding cotangent's buffer (512)."""
+    steps take the layout from the raw rows' width (8, or 16 for the two
+    plane layouts), the window row (the Nerfies layouts) and, for the plane
+    layout, its stash (3136 columns) or its encoding cotangent's buffer
+    (512)."""
 
     splits = SPLITS
 
@@ -660,8 +669,8 @@ class _KernelOps:
         build.check(getattr(self.lib, name)(*args, self.stream), name)
 
     def encode(self, raw_t, stash, enc_col, n, scales):
-        self._go('hn_tmpl_encode', raw_t.data_ptr(), stash.data_ptr(),
-                 stash.shape[1], enc_col, n, _ptr(scales))
+        self._go('hn_tmpl_encode', raw_t.data_ptr(), raw_t.shape[1],
+                 stash.data_ptr(), stash.shape[1], enc_col, n, _ptr(scales))
 
     def ray_bias(self, cond, w11, cond_col, out, rays):
         self._go('hn_tmpl_ray_bias', cond.data_ptr(), w11.data_ptr(),
@@ -712,8 +721,9 @@ class _KernelOps:
                  slab.shape[1], w_off, b_off, b9_off, n, slab.shape[0])
 
     def posenc_bwd(self, raw_t, enc_g, dx_t, n, scales):
-        self._go('hn_tmpl_posenc_bwd', raw_t.data_ptr(), enc_g.data_ptr(),
-                 enc_g.shape[1], dx_t.data_ptr(), n, _ptr(scales))
+        self._go('hn_tmpl_posenc_bwd', raw_t.data_ptr(), raw_t.shape[1],
+                 enc_g.data_ptr(), enc_g.shape[1], dx_t.data_ptr(), n,
+                 _ptr(scales))
 
     def reduce(self, slab, grads):
         self._go('hn_tmpl_reduce', slab.data_ptr(), slab.shape[0],

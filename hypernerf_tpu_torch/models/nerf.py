@@ -1,14 +1,16 @@
 """NerfModel: HyperNeRF with a translation, an SE(3) or a quaternion warp,
-rendering and training (port of ``hypernerf_tpu/models/nerf.py``).
+each with the bendy sheet or the axis-aligned plane and either template
+encoding, rendering and training (port of ``hypernerf_tpu/models/nerf.py``).
 
 A level runs on one of two branches, chosen as the JAX model chooses
 (``nerf.py:755-764``):
 
 * the fused branch, for the flagship family (warp on, bendy sheet or
   axis-aligned plane, one GLO table shared by warp and hyper coordinates)
-  when no per-sample output is asked for: the level kernel (warp field,
-  hyper sheet and template for every sample; with the plane, whose hyper
-  coordinates are the ray's GLO embedding itself, no sheet) and the
+  when no per-sample output is asked for: the level kernel (warp field or
+  SE(3) / quaternion trunk, hyper sheet and template for every sample; with
+  the plane, whose hyper coordinates are the ray's GLO embedding itself, no
+  sheet) and the
   compositing kernel, which on the coarse level also draws the fine depths
   and merges them with the coarse ones;
 * the per-module branch, for everything else this port has — a static NeRF
@@ -38,10 +40,11 @@ per-module branch the Jacobian is taken at every sample.
 ``extra_params`` carries the annealing alphas. ``warp_alpha`` windows the
 bands of the SE(3) / quaternion trunk's encoding, on both branches (None: no
 window). With the Nerfies encoding (``use_original_embed=False``, the anneal
-configuration) the template encodes the xyz over degrees 0..10 with identity
-and the hyper coordinates over 0..4 without, windowed by ``nerf_alpha`` and
-``hyper_alpha``, and the condition is posenc(viewdirs, 0, 4, identity)
-windowed by ``nerf_alpha``, as the JAX model's ``query_template`` and
+configurations) the template encodes the xyz over degrees 0..10 with
+identity and the hyper coordinates (the sheet's 4, or the plane's 8) over
+0..4 without, windowed by ``nerf_alpha`` and ``hyper_alpha``, and the
+condition is posenc(viewdirs, 0, 4, identity) windowed by ``nerf_alpha``,
+as the JAX model's ``query_template`` and
 ``get_condition_inputs``; on the level kernel and the template kernel the
 window is a row of weights, an input of every call
 (``fused_mlp.template_scales``). The condition and the window rows are
@@ -121,17 +124,7 @@ def unsupported(cfg: NerfConfig) -> list:
     """What ``cfg`` asks for that the port does not have yet, with the
     ROADMAP item that ports it."""
     out = []
-    if cfg.hyper_slice_method == 'axis_aligned_plane':
-        if cfg.warp_field_type != 'translation':
-            out.append("slicing 'axis_aligned_plane' with the SE(3) / "
-                       "quaternion warp (ROADMAP A.9)")
-        if not cfg.use_original_embed:
-            out.append("slicing 'axis_aligned_plane' with the Nerfies "
-                       "anneal encoding (ROADMAP A.9)")
     if not cfg.use_original_embed:
-        if cfg.warp_field_type != 'translation':
-            out.append('the Nerfies anneal encoding with the SE(3) / '
-                       'quaternion warp (ROADMAP A.9)')
         if (cfg.spatial_point_min_deg, cfg.hyper_point_min_deg,
                 cfg.viewdir_min_deg) != (0, 0, 0):
             out.append('Nerfies bands from a degree other than 0 '

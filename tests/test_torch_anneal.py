@@ -490,12 +490,15 @@ def test_convert_round_trip_of_an_anneal_model():
 
 
 def test_what_the_cuda_path_does_not_cover_is_refused():
-    """The anneal model with the SE(3) or quaternion warp, or bands from a
-    degree other than 0, is refused with its ROADMAP item; the kernels'
-    checks refuse a Nerfies template of other widths (A.13) and a window
-    row for the original encoding."""
-    for override, item in ((dict(warp_field_type='se3'), 'A.9'),
-                           (dict(warp_field_type='quaternion'), 'A.9'),
+    """The anneal model with the SE(3) or quaternion warp is ported; with
+    heads other than rgb 3 + alpha 1 as well, or with bands from a degree
+    other than 0, it is refused with its ROADMAP item; the kernels' checks
+    refuse a Nerfies template of other widths (A.13) and a window row for
+    the original encoding."""
+    for override, item in ((dict(warp_field_type='se3', rgb_channels=4),
+                            'A.9'),
+                           (dict(warp_field_type='quaternion',
+                                 alpha_channels=2), 'A.9'),
                            (dict(hyper_point_min_deg=1), 'A.13'),
                            (dict(viewdir_min_deg=1), 'A.13')):
         with pytest.raises(NotImplementedError, match=item):

@@ -32,10 +32,15 @@ from hypernerf_tpu_torch.kernels.fused_level import (
 fused_level_module = importlib.import_module(
     'hypernerf_tpu_torch.kernels.fused_level')
 
-# The level tables by the configuration whose level has them; 'plane' is the
-# plane configuration's: the translation warp field alone, no sheet.
+# The level tables by the configuration whose level has them; the 'plane*'
+# and 'nerfies_plane*' tables have no sheet: the warp field (or the SE(3) /
+# quaternion trunk) alone, whatever the template's layout.
 WARPS = {'translation': 'flagship', 'se3': 'se3', 'quaternion': 'quaternion',
-         'plane': 'plane'}
+         'plane': 'plane', 'plane_se3': 'plane_se3',
+         'plane_quaternion': 'plane_quaternion',
+         'nerfies_plane': 'plane_anneal',
+         'nerfies_plane_se3': 'plane_anneal_se3',
+         'nerfies_plane_quaternion': 'plane_anneal_quaternion'}
 FIELDS = ('sheet', 'translation', 'se3')
 BUF = {name: i for i, name in enumerate(FB_BUFS)}
 
@@ -61,6 +66,17 @@ def _warp_of(field):
     return 'se3' if field in ('se3', 'quaternion') else 'translation'
 
 
+def _warp_field(table):
+    """The warp field kernel B walks back in ``table``."""
+    return _warp_of(common.table_warp(table))
+
+
+def _n_fields(table):
+    """The table's field layers: the warp's 7 or 9, the sheet's 7."""
+    n = 7 if common.table_warp(table) == 'translation' else 9
+    return n + 7 if common.table_has_sheet(table) else n
+
+
 # ---------------------------------------------------------------------------
 # Shared memory and the C source's table.
 
@@ -79,8 +95,8 @@ def test_shared_memory_fits(warp):
     assert plan['config'] == [FB_TILE_ROWS, FB_GROUPS, FB_STAGES,
                               FB_STAGE_BYTES, FB_SMEM_BYTES, FB_THREADS,
                               FB_SLOTS, FB_SPILL_SLABS, FB_GRAD_COPIES]
-    n_fields = 1 if warp == 'plane' else 2
-    assert fields_bwd_fields(warp)[-1] == _warp_of(warp)
+    n_fields = 2 if common.table_has_sheet(warp) else 1
+    assert fields_bwd_fields(warp)[-1] == _warp_field(warp)
     assert len(plan['table']) == n_fields * 6 * len(FB_BUFS)
 
 
@@ -313,9 +329,9 @@ def _consumer_order(warp, shapes, tiles):
     forward, then walked back, then the warp's; one stage per 64-column box
     of a layer's K, forward and backward alike."""
     out = []
-    fields = ('sheet',) if warp != 'plane' else ()
+    fields = ('sheet',) if common.table_has_sheet(warp) else ()
     for _ in range(tiles):
-        for field in fields + (_warp_of(warp),):
+        for field in fields + (_warp_field(warp),):
             first, n = _field_layers(field, shapes)
             for l in (list(range(first, first + n))
                       + list(range(first + n - 1, first - 1, -1))):
@@ -385,14 +401,14 @@ def test_load_schedule_and_ring(warp):
     """The producer's loads (``fields_bwd_loads``, repeated per block tile)
     are the order each consumer takes them over two tiles: the sheet's 6
     layers forward and back, then the warp's 6 (7) forward and back, 42
-    loads a tile (the plane level's: the warp's alone, 28); through the ring
+    loads a tile (without a sheet: the warp's alone, 28); through the ring
     with random interleavings no consumer reads a stage early or late, no
     fill overtakes a consumer, nothing deadlocks."""
     shapes = _shapes(warp)
     producer = fields_bwd_loads(warp, shapes) * 2
     assert producer == _consumer_order(warp, shapes, 2)
-    assert len(fields_bwd_loads(warp, shapes)) == (28 if warp == 'plane'
-                                                   else 42)
+    assert len(fields_bwd_loads(warp, shapes)) == (
+        42 if common.table_has_sheet(warp) else 28)
     assert all(rows * 128 <= FB_STAGE_BYTES for _, _, rows in producer)
     # A run of loads of one layer, forward or backward, ends where the
     # next load belongs to another layer or the direction turns.
@@ -463,13 +479,15 @@ def test_dw_flush_covers_each_weight_once(warp):
     tile: the hidden layers' units, and the heads' tasks (one per (head,
     output, input) and one db per output) of head_back."""
     shapes = _shapes(warp)
-    n_fields = {'translation': 14, 'plane': 7}.get(warp, 16)
+    n_fields = _n_fields(warp)
     heads = {l for l in range(n_fields) if shapes[l][0] == 8}
-    assert len(heads) == {'translation': 2, 'plane': 1}.get(warp, 3)
+    assert len(heads) == ((1 if _warp_field(warp) == 'translation' else 2)
+                          + common.table_has_sheet(warp))
     for l in range(n_fields):
         n, k = shapes[l]
         if l in heads:
-            n_out = 4 if l == n_fields - 1 and warp != 'plane' else 3
+            n_out = (4 if l == n_fields - 1 and common.table_has_sheet(warp)
+                     else 3)
             k_in = k
             tasks = [(task // k_in, task % k_in)
                      for task in range(n_out * k_in)]
@@ -586,7 +604,7 @@ def test_launch_and_plan_match_the_c_signatures(warp, monkeypatch):
     monkeypatch.setattr(torch, 'zeros', recording(torch.zeros))
     rays, samples = 3, 5
     rs = np.random.RandomState(0)
-    raw = 16 if warp == 'plane' else 8  # dx_t's columns
+    raw = 8 if common.table_has_sheet(warp) else 16  # dx_t's columns
     args = [torch.from_numpy(rs.rand(*shape).astype(np.float32))
             for shape in ((rays, samples), (rays, 3), (rays, 3), (rays, 8),
                           (rays * samples, raw))]
@@ -605,7 +623,7 @@ def test_launch_and_plan_match_the_c_signatures(warp, monkeypatch):
                                             * FB_SLAB_BYTES]
     assert launch[12] == scratch[0].data_ptr()
     # The gradient buffer: FB_GRAD_COPIES copies of [dW | db], summed after.
-    n_fields = {'translation': 14, 'plane': 7}.get(warp, 16)
+    n_fields = _n_fields(warp)
     grads = [t for t in allocated if t.dim() == 2
              and t.shape[0] == FB_GRAD_COPIES]
     assert len(grads) == 1 and launch[11] == grads[0].data_ptr()

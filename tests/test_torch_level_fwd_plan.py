@@ -32,11 +32,24 @@ from hypernerf_tpu_torch.kernels.fused_mlp import (alpha_cond_weight,
 fused_level_module = importlib.import_module(
     'hypernerf_tpu_torch.kernels.fused_level')
 
-# The level tables by the configuration whose level has them; 'plane' is the
-# plane configuration's (the translation warp, no sheet, the template's
-# 192-column encoding on tiles of PLANE_TILE_COLS columns).
+# The level tables by the configuration whose level has them; 'plane*' are
+# the levels without a sheet with the template's plane layout (its 192-column
+# encoding on tiles of PLANE_TILE_COLS columns), 'nerfies_plane*' with its
+# Nerfies plane layout (128 columns, the level's tiles).
 WARPS = {'translation': 'flagship', 'se3': 'se3', 'quaternion': 'quaternion',
-         'plane': 'plane'}
+         'plane': 'plane', 'plane_se3': 'plane_se3',
+         'plane_quaternion': 'plane_quaternion',
+         'nerfies_plane': 'plane_anneal',
+         'nerfies_plane_se3': 'plane_anneal_se3',
+         'nerfies_plane_quaternion': 'plane_anneal_quaternion'}
+# Each table's tensor maps (runs of layers of one shape) and weight loads of
+# a pair of row tiles.
+MAPS = {'translation': 16, 'se3': 17, 'quaternion': 17, 'plane': 13,
+        'plane_se3': 14, 'plane_quaternion': 14, 'nerfies_plane': 13,
+        'nerfies_plane_se3': 14, 'nerfies_plane_quaternion': 14}
+LOADS = {'translation': 113, 'se3': 115, 'quaternion': 115, 'plane': 109,
+         'plane_se3': 111, 'plane_quaternion': 111, 'nerfies_plane': 105,
+         'nerfies_plane_se3': 107, 'nerfies_plane_quaternion': 107}
 BOX_BYTES = FWD_TILE_ROWS * 2 * FWD_BOX_COLS  # 64 rows of 128 bytes
 
 
@@ -48,14 +61,12 @@ def _level(warp):
 def _first_layers(warp):
     """(first sheet layer, first template layer); without a sheet both
     are the template's."""
-    if warp == 'plane':
-        return 7, 7
-    h0 = 7 if warp == 'translation' else 9
-    return h0, h0 + 7
+    h0 = 7 if common.table_warp(warp) == 'translation' else 9
+    return (h0, h0 + 7) if common.table_has_sheet(warp) else (h0, h0)
 
 
 def _tile_cols(warp):
-    return PLANE_TILE_COLS if warp == 'plane' else FWD_TILE_COLS
+    return PLANE_TILE_COLS if warp in common.PLANE_TABLES else FWD_TILE_COLS
 
 
 # ---------------------------------------------------------------------------
@@ -83,7 +94,7 @@ def test_tensor_maps_cover_every_layer(warp):
     offsets = np.cumsum([0] + [n * k for n, k in shapes])
     maps = forward_maps(shapes)
     assert sum(count for _, count, _, _ in maps) == len(shapes)
-    assert len(maps) == {'translation': 16, 'plane': 13}.get(warp, 17)
+    assert len(maps) == MAPS[warp]
     loads = forward_loads(shapes)
     for first, count, n, k in maps:
         assert (2 * offsets[first]) % 256 == 0
@@ -403,20 +414,20 @@ def _run_ring(order, layer_ends, rng, groups=FWD_GROUPS, stages=FWD_STAGES):
 def test_load_schedule_and_ring(warp):
     """The producer's loads (``forward_loads``, repeated per pair of tiles)
     are the order each consumer takes them over two pairs; through the ring
-    of FWD_STAGES stages (the plane level's 5) with random interleavings no
+    of FWD_STAGES stages (the plane layout's levels' 5) with random
+    interleavings no
     consumer reads a stage before its load landed or after it was refilled,
     no fill overtakes a stage's consumers, and nothing deadlocks."""
     shapes = pack_level(_level(warp))[2]
     producer = forward_loads(shapes) * 2
     consumer = _consumer_order(warp, shapes, 2)
     assert producer == consumer
-    assert len(forward_loads(shapes)) == {'translation': 113,
-                                          'plane': 109}.get(warp, 115)
+    assert len(forward_loads(shapes)) == LOADS[warp]
     layer_ends = {i for i in range(len(producer))
                   if i + 1 == len(producer)
                   or producer[i + 1][0] != producer[i][0]}
     stages = block_stages(_tile_cols(warp))
-    assert stages == (5 if warp == 'plane' else FWD_STAGES)
+    assert stages == (5 if warp in common.PLANE_TABLES else FWD_STAGES)
     for seed in range(3):
         assert _run_ring(producer, layer_ends, np.random.default_rng(seed),
                          stages=stages) == len(producer)
@@ -426,8 +437,9 @@ def test_shared_memory_fits():
     """Two 48 KB activation tiles, the ring, the row scratch, the biases of
     the larger layer table and the barriers fit an H100 block's 227 KB; the
     tile holds every column the plan uses. The plane layout's two 56 KB
-    tiles do with a ring of 5 stages (221,600 bytes), not with 6 (238,000);
-    its table's biases fit the larger table's room."""
+    tiles do with a ring of 5 stages (221,600 bytes), not with 6 (238,000),
+    whatever the warp (the SE(3) trunk's rows take the same row scratch);
+    every table's biases fit the largest table's room."""
     assert FWD_SMEM_BYTES == 221616 <= 232448
     assert max(FWD_ENC_COL.values()) + 128 <= FWD_TILE_COLS
     assert PLANE_SMEM_BYTES == 221600 <= 232448
@@ -439,8 +451,9 @@ def test_shared_memory_fits():
             if groups * cols <= 2 * PLANE_TILE_COLS:
                 assert fwd_smem_bytes(groups, cols) <= 232448, (groups, cols)
     biases = {warp: 2 * sum(n for n, _ in pack_level(_level(warp))[2])
-              for warp in ('translation', 'se3', 'plane')}
-    assert FWD_BIAS_BYTES == max(biases.values()) > biases['plane']
+              for warp in WARPS}
+    assert FWD_BIAS_BYTES == max(biases.values()) == biases['se3']
+    assert biases['plane_se3'] < FWD_BIAS_BYTES
     assert all(b % 16 == 0 for b in biases.values())  # 16-byte copies
 
 
@@ -496,10 +509,11 @@ def test_launch_and_plan_match_the_c_signatures(warp, monkeypatch):
     monkeypatch.setattr(torch.cuda, 'current_stream',
                         lambda device=None: type('S', (), {'cuda_stream': 7}))
     rays, samples = 3, 5
+    cond = 27 if warp in common.NERFIES_PLANE_TABLES else 39
     rs = np.random.RandomState(0)
     args = [torch.from_numpy(rs.rand(*shape).astype(np.float32))
             for shape in ((rays, samples), (rays, 3), (rays, 3), (rays, 8),
-                          (rays, 39))]
+                          (rays, cond))]
     fused_level_module._launch_forward(level, *args, want_raw_t=True,
                                        warp_scales=None)
     fused_level_module.compiled_forward_plan(warp)
@@ -508,9 +522,12 @@ def test_launch_and_plan_match_the_c_signatures(warp, monkeypatch):
     (_, launch), (_, plan) = lib.calls
     _check_kinds('hn_fused_level_fwd', launch)
     assert launch[0] == common.TABLE_CODES[warp]
-    assert launch[-4:] == (rays, samples, 39, 7)  # the rgb condition's width
+    assert launch[-4:] == (rays, samples, cond, 7)  # the rgb condition's
     assert launch[6] is None and launch[7] is None  # no alpha condition
-    assert launch[9] is None  # no template window row: posenc_orig
+    assert launch[8] is None  # no trunk window row
+    # The template's window row: none with posenc_orig, a row of ones with
+    # the Nerfies plane layout, whose tables take one.
+    assert (launch[9] is None) == (warp not in common.NERFIES_PLANE_TABLES)
     _check_kinds('hn_fused_level_fwd_plan', plan)
     assert plan[0] == common.TABLE_CODES[warp] and plan[-1] == 1024
 
@@ -518,11 +535,11 @@ def test_launch_and_plan_match_the_c_signatures(warp, monkeypatch):
 def test_each_template_layout_is_its_own_instantiation():
     """The template's layout is a template parameter (a layout struct of
     level_common.cuh): the three warp types' sources compile the posenc_orig
-    layout alone, ``level_fwd_anneal.cu`` the translation warp with the
-    Nerfies layout and ``level_fwd_plane.cu`` with the plane one;
-    ``hn_fused_level_fwd`` sends a window row to the anneal one and refuses
-    it with another warp type or with the plane table (code 3); the template
-    alone is compiled for all three."""
+    layout alone, and each other (warp, layout) pair is compiled once, in
+    its own source (two warp types a source where both are screw warps);
+    ``hn_fused_level_fwd`` sends a window row to the Nerfies layout's
+    instantiation of codes 0..2, requires one for codes 6..8 and refuses
+    one for codes 3..5; the template alone is compiled for all four."""
     src = {p.name: ' '.join(p.read_text().split())
            for p in build._sources()}
     for stem, code in (('trans', 0), ('se3', 1), ('quat', 2)):
@@ -530,26 +547,95 @@ def test_each_template_layout_is_its_own_instantiation():
             f'level_fwd_{stem}.cu']
         assert 'NerfEnc' not in src[f'level_fwd_{stem}.cu']
         assert 'PlaneEnc' not in src[f'level_fwd_{stem}.cu']
-    assert 'launch_level_fwd<0, NerfEnc>(' in src['level_fwd_anneal.cu']
-    assert 'launch_level_fwd<0, PlaneEnc>(' in src['level_fwd_plane.cu']
+    pairs = {'anneal': ((0, 'NerfEnc'),),
+             'anneal_screw': ((1, 'NerfEnc'), (2, 'NerfEnc')),
+             'plane': ((0, 'PlaneEnc'),),
+             'plane_screw': ((1, 'PlaneEnc'), (2, 'PlaneEnc')),
+             'nerf_plane': ((0, 'NerfPlaneEnc'),),
+             'nerf_plane_screw': ((1, 'NerfPlaneEnc'), (2, 'NerfPlaneEnc'))}
+    for stem, want in pairs.items():
+        text = src[f'level_fwd_{stem}.cu']
+        assert re.findall(r'launch_level_fwd<(\d), (\w+)>\(', text) == [
+            (str(c), layout) for c, layout in want]
     assert sorted(n for n, text in src.items()
-                  if 'launch_level_fwd<' in text) == [
-        f'level_fwd_{s}.cu' for s in ('anneal', 'plane', 'quat', 'se3',
-                                      'trans')]
+                  if 'launch_level_fwd<' in text) == sorted(
+        f'level_fwd_{s}.cu' for s in (*pairs, 'quat', 'se3', 'trans'))
     entry = src['fused_level.cu']
-    assert ('if (warp_type == 0) return (tmpl_scales ? hn_level_fwd_anneal '
-            ': hn_level_fwd_trans)(') in entry
-    assert ('if (tmpl_scales) return (int)cudaErrorInvalidValue; switch '
-            '(warp_type) { case 3: return hn_level_fwd_plane(') in entry
+    assert ('(warp_type >= 3 && (tmpl_scales != nullptr) != '
+            '(warp_type >= 6))') in entry
+    for code, (plain, nerfies) in enumerate((('trans', 'anneal'),
+                                             ('se3', 'anneal_se3'),
+                                             ('quat', 'anneal_quat'))):
+        assert (f'case {code}: return (tmpl_scales ? hn_level_fwd_{nerfies} '
+                f': hn_level_fwd_{plain})(') in entry
+    for code, name in enumerate(('plane', 'plane_se3', 'plane_quat',
+                                 'nerf_plane', 'nerf_plane_se3',
+                                 'nerf_plane_quat'), 3):
+        assert f'case {code}: return hn_level_fwd_{name}(' in entry
     template = src['modular_fwd.cu']
     assert ('if (scales) return hn_template_fwd_anneal(' in template
             and 'return lf::launch_template<OrigEnc>(' in template)
     assert 'return lf::launch_template<NerfEnc>(' in src[
         'template_fwd_anneal.cu']
-    assert 'return lf::launch_template<PlaneEnc>(' in src[
-        'template_fwd_plane.cu']
+    plane = src['template_fwd_plane.cu']
+    assert ('if (scales) return hn_template_fwd_nerf_plane(' in plane
+            and 'return lf::launch_template<PlaneEnc>(' in plane)
+    assert 'return lf::launch_template<NerfPlaneEnc>(' in src[
+        'level_fwd_nerf_plane.cu']
     assert 'bool nerfies' not in src['level_fwd.cuh']
     assert 'TmplEnc<' not in ' '.join(src.values())
+
+
+@pytest.mark.parametrize('config', ['anneal_se3', 'plane_anneal_se3',
+                                    'plane_anneal_quaternion'])
+@torch.no_grad()
+def test_launch_passes_both_window_rows(config, monkeypatch):
+    """A screw warp with the Nerfies encoding takes the trunk's window row
+    (64 fp32, ``warp_alpha``) and the template's (128 fp32, ``nerf_alpha`` /
+    ``hyper_alpha``) in one call of its table's code."""
+    model = load_probe_weights(flagship_model('cpu', config=config))
+    level = model.level('coarse')
+    shapes = pack_level(level)[2]
+    lib = _RecordingLibrary()
+    monkeypatch.setattr(build, 'library', lambda: lib)
+    monkeypatch.setattr(common, 'kernel_layout', lambda w='translation':
+                        shapes)
+    monkeypatch.setattr(torch.cuda, 'device', lambda d: _Null())
+    monkeypatch.setattr(torch.cuda, 'current_stream',
+                        lambda device=None: type('S', (), {'cuda_stream': 7}))
+    rays, samples = 3, 5
+    rs = np.random.RandomState(2)
+    args = [torch.from_numpy(rs.rand(*shape).astype(np.float32))
+            for shape in ((rays, samples), (rays, 3), (rays, 3), (rays, 8),
+                          (rays, 27))]
+    warp_row, tmpl_row = model.window_rows(
+        {'warp_alpha': 0.375, 'nerf_alpha': 10.0, 'hyper_alpha': 1.5},
+        torch.device('cpu'))
+    fused_level_module._launch_forward(level, *args, want_raw_t=True,
+                                       warp_scales=warp_row,
+                                       tmpl_scales=tmpl_row)
+    (name, launch), = lib.calls
+    _check_kinds(name, launch)
+    table = fused_level_module.level_table(level)
+    assert launch[0] == common.TABLE_CODES[table]
+    assert launch[0] % 3 == common.WARP_CODES[level.warp.kind]
+    assert launch[8] is not None and launch[9] is not None
+    assert launch[-4:] == (rays, samples, 27, 7)
+
+
+def test_template_waits_for_the_warp_rows():
+    """Each row of rows.raw (the warped point) is written by one thread (the
+    retraction, or the translation warp's residual) and the template's
+    encoding reads every row: a level without a sheet, whose stage would
+    otherwise put a barrier between the two, has one of its own. (Without
+    it the screw warps' longer retraction made the race show on the card:
+    one output in 200 off by up to 0.1.)"""
+    text = ' '.join((build.CSRC / 'level_fwd.cuh').read_text().split())
+    body = text[text.index('level_fwd_kernel(const __grid_constant__'):]
+    body = body[:body.index('template_stage<T, L>(')]
+    assert ('if constexpr (!L::kPlane) sheet_stage<T>(g, ring, Bs); else '
+            'g.sync();') in body
+    assert body.index('screw_stage<T, kWarp>(') < body.index('else g.sync();')
 
 
 def test_build_log_keeps_each_sources_seconds():
@@ -575,7 +661,7 @@ def test_plan_model(warp):
     plan (every field's first layer at its encoding, the rest at 0)."""
     shapes = pack_level(_level(warp))[2]
     plan = forward_plan(warp, shapes)
-    smem, stages = ((PLANE_SMEM_BYTES, 5) if warp == 'plane'
+    smem, stages = ((PLANE_SMEM_BYTES, 5) if warp in common.PLANE_TABLES
                     else (FWD_SMEM_BYTES, 6))
     assert plan['config'] == [64, 2, stages, 16384, smem, 384,
                               _tile_cols(warp), len(forward_maps(shapes))]

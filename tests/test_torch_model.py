@@ -117,8 +117,9 @@ def test_image_renderer_pads_and_quantizes():
 
 
 @pytest.mark.parametrize('override', [
-    dict(warp_field_type='se3', use_original_embed=False),
-    dict(hyper_slice_method='axis_aligned_plane', warp_field_type='se3'),
+    dict(warp_field_type='se3', use_original_embed=False, rgb_channels=4),
+    dict(hyper_slice_method='axis_aligned_plane', warp_field_type='se3',
+         alpha_channels=2),
     dict(use_original_embed=False, spatial_point_min_deg=1),
     dict(use_nerf_embed=True, use_rgb_condition=True, rgb_channels=4),
     dict(use_warp=False, hyper_slice_method='none', use_viewdirs=False,
@@ -127,11 +128,10 @@ def test_image_renderer_pads_and_quantizes():
 def test_unported_configs_raise(override):
     """(The static NeRF is ported, without view directions on its template
     too; with an alpha head of two channels not yet. The SE(3) warp is
-    ported with the original template encoding; with the annealed one, as it
-    is usually trained, not yet. The annealed encoding is ported with bands
-    from degree 0, the configuration's; from another degree not yet. The
-    axis-aligned plane is ported with the translation warp; with the SE(3)
-    one not yet. The template's nerf-embedding conditions are ported; with
-    an rgb head of four channels not yet.)"""
+    ported with either template encoding and either slicing; with an rgb
+    head of four channels, or an alpha head of two, not yet. The annealed
+    encoding is ported with bands from degree 0, the configuration's; from
+    another degree not yet. The template's nerf-embedding conditions are
+    ported; with an rgb head of four channels not yet.)"""
     with pytest.raises(NotImplementedError, match='ROADMAP'):
         NerfModel(_cfg(**override))

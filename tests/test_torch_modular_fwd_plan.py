@@ -34,14 +34,18 @@ from test_torch_level_fwd_plan import (CONDITIONS, _RecordingLibrary,
                                       _run_ring, _tma_box)
 
 ff = importlib.import_module('hypernerf_tpu_torch.kernels.fused_field')
+fl_module = importlib.import_module('hypernerf_tpu_torch.kernels.fused_level')
 fm = importlib.import_module('hypernerf_tpu_torch.kernels.fused_mlp')
 
 # The stages of the translation table; the SE(3) trunk's stage is held in
 # test_torch_se3_stage_plan.py. 'template_plane' is the plane configuration's
 # template alone (layers 7..22 of its table, a block of two 448-column tiles
-# and a ring of 5 stages).
+# and a ring of 5 stages), 'template_nerfies_plane' the plane_anneal
+# configuration's (layers 7..22 of its table, the level's block).
 STAGES = ['warp', 'sheet', 'template']
-ALL_STAGES = STAGES + ['template_plane']
+PLANE_STAGES = {'template_plane': 'plane',
+                'template_nerfies_plane': 'plane_anneal'}
+ALL_STAGES = STAGES + list(PLANE_STAGES)
 SMS = 132  # an H100's SMs: the persistent grid's width
 
 
@@ -50,7 +54,7 @@ def _probe(config='flagship'):
 
 
 def _config(stage):
-    return 'plane' if stage == 'template_plane' else 'flagship'
+    return PLANE_STAGES.get(stage, 'flagship')
 
 
 def _stage_owner(stage, config=None):
@@ -92,7 +96,8 @@ def test_stage_blob_is_the_level_blob_slice(stage):
 
 @pytest.mark.parametrize('stage,config', [
     ('warp', 'flagship'), ('sheet', 'flagship'), ('template', 'flagship'),
-    ('template', 'static'), ('template_plane', 'plane')])
+    ('template', 'static'), ('template_plane', 'plane'),
+    ('template_nerfies_plane', 'plane_anneal')])
 def test_tensor_maps_cover_each_stage(stage, config):
     """Over the stage's own blob (the static template's included) every map
     starts 256-byte aligned with a row stride of whole 16 bytes, and each
@@ -164,7 +169,7 @@ def test_stage_column_plan(stage):
     cols = MODULE_BLOCKS[stage][1]
     assert plan['config'][6] == cols and cols % FWD_BOX_COLS == 0
     first = MODULE_STAGES[stage][0]
-    table = 'plane' if stage == 'template_plane' else 'translation'
+    table = fl_module.MODULE_STAGE_TABLES.get(stage, 'translation')
     assert plan['in_cols'] == forward_in_cols(table)[first:
                                                       first + len(shapes)]
     enc_col = plan['in_cols'][0]
@@ -338,8 +343,11 @@ def test_shared_memory_fits():
     assert sizes == {'warp': 229296, 'sheet': 204208,
                      'template': FWD_SMEM_BYTES}
     assert max(sizes.values()) <= 232448
-    # The plane configuration's template: two 56 KB tiles, 5 stages.
+    # The plane configuration's template: two 56 KB tiles, 5 stages; the
+    # Nerfies plane layout's: the level's block.
     assert fwd_smem_bytes(*MODULE_BLOCKS['template_plane']) == 221600
+    assert fwd_smem_bytes(*MODULE_BLOCKS['template_nerfies_plane']) == \
+        FWD_SMEM_BYTES
     shapes = pack_level(_probe().level('fine'))[2]
     for stage in STAGES:
         first, end = MODULE_STAGES[stage]
@@ -460,6 +468,43 @@ def test_plane_template_launch_matches_the_c_signature(monkeypatch):
     assert plan[0] == MODULE_STAGE_CODES['template_plane'] == 4
 
 
+@torch.no_grad()
+def test_nerfies_plane_template_launch_matches_the_c_signature(monkeypatch):
+    """The plane_anneal configuration's template alone launches the plane
+    templates' entry point, ``hn_fused_template_fwd_plane``, with its window
+    row (128 fp32, which selects the Nerfies plane layout in the C entry
+    point), raw rows of 16 columns and its 27-column condition, checks its
+    blob against layers 7..22 of its table and refuses rows of 8 columns;
+    its compiled stage plan is stage code 5."""
+    fl = importlib.import_module('hypernerf_tpu_torch.kernels.fused_level')
+    probe = _probe('plane_anneal')
+    layout = pack_level(probe.level('fine'))[2]
+    lib = _RecordingLibrary()
+    monkeypatch.setattr(build, 'library', lambda: lib)
+    monkeypatch.setattr(common, 'kernel_layout', lambda w='translation':
+                        layout if w == 'nerfies_plane' else None)
+    monkeypatch.setattr(common, 'runs_plain', lambda t, name: False)
+    monkeypatch.setattr(torch.cuda, 'device', lambda d: _Null())
+    monkeypatch.setattr(torch.cuda, 'current_stream',
+                        lambda device=None: type('S', (), {'cuda_stream': 7}))
+    rs = np.random.RandomState(0)
+    x16 = torch.from_numpy(rs.rand(37 * 13, 16).astype(np.float32))
+    level = probe.level('coarse')
+    assert fm.layout(level) == 'nerfies_plane'
+    row = fm.template_scales(level, 10.0, 1.5)
+    fm._forward(level, x16, torch.rand(37, 27), row)
+    fl.compiled_stage_plan('template_nerfies_plane')
+    with pytest.raises(ValueError, match='x_raw'):
+        fm._forward(level, x16[:, :8].contiguous(), torch.rand(37, 27), row)
+    (name, args), (plan_name, plan) = lib.calls
+    assert name == 'hn_fused_template_fwd_plane'
+    _check_kinds(name, args)
+    assert args[2:4] == (None,) * 2 and args[4] is not None
+    assert args[-4:] == (37 * 13, 13, 27, 7)
+    assert plan_name == 'hn_modular_fwd_plan'
+    assert plan[0] == MODULE_STAGE_CODES['template_nerfies_plane'] == 5
+
+
 @pytest.mark.parametrize('stage', ALL_STAGES)
 def test_stage_plan_model(stage):
     """``stage_plan``: the level's tile height and ring, the stage's block
@@ -468,7 +513,8 @@ def test_stage_plan_model(stage):
     shapes = _stage_blob(stage)[3]
     plan = stage_plan(stage, shapes)
     groups, cols = {'warp': (3, 256), 'sheet': (4, 128),
-                    'template': (2, 384), 'template_plane': (2, 448)}[stage]
+                    'template': (2, 384), 'template_plane': (2, 448),
+                    'template_nerfies_plane': (2, 384)}[stage]
     stages = 5 if stage == 'template_plane' else 6
     assert plan['config'] == [64, groups, stages, 16384,
                               fwd_smem_bytes(groups, cols),
@@ -477,7 +523,8 @@ def test_stage_plan_model(stage):
     assert plan['in_cols'][0] == {'warp': 128, 'sheet': 64}.get(stage, 256)
     # The plane template's first and skip layers read one more box.
     assert len(plan['loads']) == {'warp': 16, 'sheet': 8, 'template': 89,
-                                  'template_plane': 93}[stage]
+                                  'template_plane': 93,
+                                  'template_nerfies_plane': 89}[stage]
     with pytest.raises(ValueError):
         stage_plan(stage, shapes[:-1])
 

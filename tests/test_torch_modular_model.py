@@ -343,7 +343,8 @@ def test_model_builds_what_the_configuration_names():
     with pytest.raises(ValueError, match='no hyper embedding'):
         static.encode_hyper_embed({})
     for override, item in ((dict(hyper_slice_method='axis_aligned_plane',
-                                 warp_field_type='se3'), 'A.9'),
+                                 warp_field_type='se3', rgb_channels=4),
+                            'A.9'),
                            (dict(use_viewdirs=False, alpha_channels=2),
                             'A.9'),
                            (dict(rgb_channels=4), 'A.9')):

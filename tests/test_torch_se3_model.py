@@ -218,7 +218,8 @@ def test_model_builds_the_field_the_configuration_names():
     """``warp_field_type`` picks the field; its parameters carry the flax
     names; a model constructs at the flagship's widths; the train step's
     extra parameters are empty with the original template encoding; the
-    template's windowed encoding still raises, naming its ROADMAP item."""
+    template's windowed encoding is ported, and with an rgb head of four
+    channels as well still raises, naming its ROADMAP item."""
     from hypernerf_tpu_torch.flagship import CONFIGS, flagship_config
     for kind, cls in (('se3', SE3Field), ('quaternion', QuaternionField)):
         model = NerfModel(_port_cfg(kind, 'level'))
@@ -236,4 +237,5 @@ def test_model_builds_the_field_the_configuration_names():
                                     port_configs.TrainConfig(), 5) == {}
     with pytest.raises(NotImplementedError, match='A.9'):
         NerfModel(port_configs.NerfConfig(**{**_arch('se3', 'level'),
-                                             'use_original_embed': False}))
+                                             'use_original_embed': False,
+                                             'rgb_channels': 4}))

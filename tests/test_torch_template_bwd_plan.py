@@ -156,18 +156,18 @@ class TorchOps:
                 for z in range(self.splits)]
 
     def encode(self, raw_t, stash, enc_col, n, scales):
-        # The stash's width names the layout: the plane's holds 192
-        # encoding columns of 8 hyper coordinates (raw rows of 16 columns).
+        # The raw rows' width, the window row and the stash's width name the
+        # layout: the plane's stash holds 192 encoding columns of 8 hyper
+        # coordinates (raw rows of 16 columns); raw rows of 16 columns with a
+        # window row are the Nerfies plane layout's.
         width = 192 if stash.shape[1] == PLANE_STASH else 128
-        if width == 192:
+        ch = 8 if raw_t.shape[1] == 16 else 4
+        if scales is None:
             enc = torch.cat([posenc_orig(raw_t[:, :3], 10),
-                             posenc_orig(raw_t[:, 3:11], 6)], -1)
-        elif scales is None:
-            enc = torch.cat([posenc_orig(raw_t[:, :3], 10),
-                             posenc_orig(raw_t[:, 3:7], 6)], -1)
-        else:  # the Nerfies layout, each feature rounded, windowed, rounded
+                             posenc_orig(raw_t[:, 3:3 + ch], 6)], -1)
+        else:  # the Nerfies layouts, each feature rounded, windowed, rounded
             enc = torch.cat([posenc(raw_t[:, :3], 0, 10, True),
-                             posenc(raw_t[:, 3:7], 0, 4)], -1)
+                             posenc(raw_t[:, 3:3 + ch], 0, 4)], -1)
         enc = torch.nn.functional.pad(enc, (0, width - enc.shape[1])).to(BF)
         if scales is not None:
             enc = (enc.float() * scales).to(BF)
@@ -258,11 +258,12 @@ class TorchOps:
 
     def posenc_bwd(self, raw_t, enc_g, dx_t, n, scales):
         # [the skip's part | layer 0's], each half of the buffer (the
-        # plane layout's 256 columns, 8 hyper coordinates).
+        # plane layout's 256 columns); 8 hyper coordinates in raw rows of 16
+        # columns.
         half = enc_g.shape[1] // 2
         gx = enc_g[:n, :half].float() + enc_g[:n, half:].float()
         hyper, ident = (6, True) if scales is None else (4, False)
-        ch = 8 if half == 256 else 4
+        ch = 8 if raw_t.shape[1] == 16 else 4
         if scales is not None:
             gx = gx * scales
         dx_t[:, :3] = common.posenc_bwd(
@@ -281,8 +282,9 @@ class TorchOps:
 @pytest.mark.parametrize('config,rays,samples,max_rows', [
     ('flagship', 37, 13, 100), ('flagship', 96, 1, 40),
     ('static', 20, 16, 1 << 19), ('anneal', 37, 13, 100),
-    ('plane', 37, 13, 100), ('nerf_embed', 37, 13, 100),
-    ('embed_only', 37, 13, 100), ('no_viewdirs', 20, 16, 1 << 19)])
+    ('plane', 37, 13, 100), ('plane_anneal', 20, 16, 1 << 19),
+    ('nerf_embed', 37, 13, 100), ('embed_only', 37, 13, 100),
+    ('no_viewdirs', 20, 16, 1 << 19)])
 def test_kernel_sequence_matches_the_plain_backward(config, rays, samples,
                                                     max_rows):
     """``template_bwd_chunks`` (several chunks, ragged rows, 3 slabs)
@@ -294,7 +296,9 @@ def test_kernel_sequence_matches_the_plain_backward(config, rays, samples,
     hyper coordinates (raw rows and dx_t of 16 columns; the first and skip
     layers' products at K 192 and 448, their dW over ragged last tiles; the
     encoding's cotangents in a buffer of 2 x 256 columns); for
-    ``nerf_embed`` and ``embed_only`` the alpha condition's step (d
+    ``plane_anneal`` the Nerfies plane layout (8 hyper coordinates over
+    degrees 0..4, 127 columns in 128, raw rows of 16 columns, the window
+    row); for ``nerf_embed`` and ``embed_only`` the alpha condition's step (d
     alpha_cond per ray, the alpha head's condition columns' dW after the
     layers' [dW | db]) with a 47- and an 8-column rgb condition; for
     ``no_viewdirs`` a 0-column rgb condition (its steps run on an empty
@@ -303,7 +307,7 @@ def test_kernel_sequence_matches_the_plain_backward(config, rays, samples,
     t = tmpl.template
     rs = np.random.RandomState(rays + samples)
     p = rays * samples
-    hyper = 8 if config == 'plane' else 4
+    hyper = fused_mlp.n_hyper(tmpl)
     x = np.zeros((p, fused_mlp.raw_pad(tmpl)), np.float32)
     x[:, :3] = rs.randn(p, 3) * 0.4
     if config != 'static':
@@ -409,7 +413,8 @@ def test_kernel_launches_match_the_c_signatures(monkeypatch):
                 assert a is None or isinstance(a, int), (name, i)
         assert args[-1] == 7, name  # the stream
     lds = {name: args for name, args in lib.calls}
-    assert lds['hn_tmpl_encode'][2:4] == (STASH_WIDTH, STASH_COL['enc'])
+    assert lds['hn_tmpl_encode'][1] == lds['hn_tmpl_posenc_bwd'][1] == 8
+    assert lds['hn_tmpl_encode'][3:5] == (STASH_WIDTH, STASH_COL['enc'])
     assert lds['hn_tmpl_rgb_head'][2] == STASH_WIDTH
     assert lds['hn_tmpl_rgb_head'][6] == fused_mlp.GBUF
     assert lds['hn_tmpl_cond_bwd'][1] == lds['hn_tmpl_cond_bwd'][3] == \
@@ -419,7 +424,7 @@ def test_kernel_launches_match_the_c_signatures(monkeypatch):
     assert lds['hn_tmpl_bneck_prep'][2] == lds['hn_tmpl_bneck_prep'][8] == \
         fused_mlp.GBUF
     assert lds['hn_tmpl_bneck_prep'][4] == STASH_WIDTH
-    assert lds['hn_tmpl_posenc_bwd'][2] == fused_mlp.GBUF
+    assert lds['hn_tmpl_posenc_bwd'][3] == fused_mlp.GBUF
 
 
 @torch.no_grad()
@@ -456,10 +461,11 @@ def test_plane_kernel_launches_match_the_c_signatures(monkeypatch):
     first = {}
     for name, args in lib.calls:
         first.setdefault(name, args)
-    assert first['hn_tmpl_encode'][2:4] == (PLANE_STASH, 0)
+    assert first['hn_tmpl_encode'][1] == first['hn_tmpl_posenc_bwd'][1] == 16
+    assert first['hn_tmpl_encode'][3:5] == (PLANE_STASH, 0)
     assert first['hn_tmpl_rgb_head'][2] == PLANE_STASH
     assert first['hn_tmpl_bneck_prep'][4] == PLANE_STASH
-    assert first['hn_tmpl_posenc_bwd'][2] == 512
+    assert first['hn_tmpl_posenc_bwd'][3] == 512
     rowprods = [args for name, args in lib.calls[:50]
                 if name == 'hn_tmpl_rowprod']
     # (n_red, w_row0, n_col_tiles, out_ld, out_col0) of each row product.
@@ -471,3 +477,49 @@ def test_plane_kernel_launches_match_the_c_signatures(monkeypatch):
     dws = [(a[9], a[13]) for name, a in lib.calls[:50]
            if name == 'hn_tmpl_dw']
     assert (2, 192) in dws and (4, 448) in dws  # (tiles, k_pad), ragged
+
+
+@torch.no_grad()
+def test_nerfies_plane_kernel_launches_match_the_c_signatures(monkeypatch):
+    """At the Nerfies plane layout (``plane_anneal``) the same 50 launches
+    a chunk pass the 128-column layouts' buffers (a stash of 3072 columns,
+    the encoding's cotangent buffer of 2 x 128), raw rows and dx_t of 16
+    columns, which with the window row select the layout in
+    hn_tmpl_encode and hn_tmpl_posenc_bwd (``raw_ld``); the first and skip
+    layers reduce over 128 and 384, as the other 128-column layouts'."""
+    lib = _RecordingLibrary()
+    monkeypatch.setattr(build, 'library', lambda: lib)
+    monkeypatch.setattr(torch.cuda, 'current_stream',
+                        lambda device=None: type('S', (), {'cuda_stream': 7}))
+    tmpl = _flagship_template('plane_anneal')
+    assert fused_mlp.layout(tmpl) == 'nerfies_plane'
+    t = tmpl.template
+    layers = fused_mlp.kernel_template_layers(t)
+    w_blob, b_blob, shapes = common.pack_layers(t, layers)
+    wt_blob = common.pack_layers(t, layers, transposed=True)[0]
+    views = layer_views(w_blob, wt_blob, b_blob, shapes)
+    rays, samples = 6, 4
+    p = rays * samples
+    scales = fused_mlp.kernel_scales(tmpl, None, torch.device('cpu'))
+    ops = fused_mlp._KernelOps('cpu')
+    dx_t = template_bwd_chunks(ops, torch.zeros(p, 16),
+                               torch.zeros(rays, 27, dtype=BF), samples,
+                               torch.zeros(p, 4), *views, max_rows=12,
+                               scales=scales)[0]
+    assert dx_t.shape == (p, 16)
+    assert ops.stash_bytes == 12 * STASH_WIDTH * 2
+    names = [n for n, _ in lib.calls]
+    assert len(names) == 2 * 50 and names.count('hn_tmpl_reduce') == 2
+    for name, args in lib.calls:
+        assert len(args) == len(build._SIGNATURES[name][0]), name
+    first = {}
+    for name, args in lib.calls:
+        first.setdefault(name, args)
+    assert first['hn_tmpl_encode'][1] == first['hn_tmpl_posenc_bwd'][1] == 16
+    assert first['hn_tmpl_encode'][3:5] == (STASH_WIDTH, 0)
+    assert first['hn_tmpl_encode'][6] == first['hn_tmpl_posenc_bwd'][6] \
+        == scales.data_ptr()
+    assert first['hn_tmpl_posenc_bwd'][3] == fused_mlp.GBUF
+    red = [(a[9], a[13]) for name, a in lib.calls[:50]
+           if name == 'hn_tmpl_rowprod']
+    assert (128, STASH_WIDTH) in red and (384, STASH_WIDTH) in red

@@ -270,14 +270,15 @@ def test_unported_training_options_name_their_roadmap_item():
                                       model.parameters(), 10)
         assert opt.param_groups[0]['lr'] == schedule(0) > 0
     # The elastic and background losses are ported (A.11), and so are the
-    # annealing schedule of the Nerfies encoding and the use_nerf_embed
-    # conditions; the anneal family with the SE(3) warp and heads other
-    # than rgb 3 + alpha 1 are not (A.9), nor is training on more than one
-    # device (A.12).
+    # annealing schedule of the Nerfies encoding, with the SE(3) warp too,
+    # and the use_nerf_embed conditions; heads other than rgb 3 + alpha 1
+    # are not (A.9), with the anneal family's SE(3) warp or without, nor is
+    # training on more than one device (A.12).
     anneal = port_configs.NerfConfig(**ARCH, use_original_embed=False)
     assert compute_extra_params(anneal, port_configs.TrainConfig(),
                                 0)['hyper_alpha'] == 0.0
-    for kw in (dict(use_original_embed=False, warp_field_type='se3'),
+    for kw in (dict(use_original_embed=False, warp_field_type='se3',
+                    rgb_channels=4),
                dict(use_nerf_embed=True, use_rgb_condition=True,
                     rgb_channels=4)):
         with pytest.raises(NotImplementedError, match='A.9'):

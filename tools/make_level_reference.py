@@ -12,7 +12,8 @@ kernels on a card that has no JAX.
       [--anneal_out tests/data/fused_anneal_jax_ref.npz] \
       [--plane_out tests/data/fused_plane_jax_ref.npz] \
       [--conditions_out tests/data/fused_conditions_jax_ref.npz] \
-      [--only se3|jacobian|anneal|plane|conditions]
+      [--b4_out tests/data/fused_b4_jax_ref.npz] \
+      [--only se3|jacobian|anneal|plane|conditions|b4]
 
 The weights are ``hypernerf_tpu_torch.flagship.load_probe_weights`` (numpy,
 seed 0), which the card redraws bit for bit; the inputs
@@ -77,6 +78,16 @@ stored cotangent the gradients of every input and of the layers in
 ``flagship.CONDITION_GRAD_LAYERS`` and every bias, in bf16.
 ``tests/test_torch_conditions.py`` recomputes and checks it. ``--only
 conditions`` writes that file alone.
+The B.4 file holds the numbers of the warp x slicing x encoding
+combinations at their probe weights: the level kernel of ``anneal_se3``,
+``plane_se3``, ``plane_anneal_se3`` and ``plane_quaternion``
+(``flagship.B4_LEVEL_CASES``, at ``flagship.b4_extra_params``' alphas:
+outputs, and for the stored cotangent the gradients of every ray input,
+every bias and the weights of ``flagship.b4_grad_layers``) and
+``fused_nerf_mlp`` in the Nerfies plane layout (8 hyper coordinates over
+degrees 0..4, ``flagship.B4_TEMPLATE_CASES``), in bf16.
+``tests/test_torch_b4.py`` recomputes and checks it. ``--only b4`` writes
+that file alone (about a minute).
 """
 
 from __future__ import annotations
@@ -207,6 +218,14 @@ def jax_level_grads(model, level: str, inputs, cotangent, warp_alpha=None,
     n_in = len(names)
     g = jax.device_get(jax.grad(loss, argnums=tuple(range(n_in + 3)))(
         *args))
+    return _level_grads(names, g)
+
+
+def _level_grads(names, g) -> dict:
+    """{'d_<input>', 'dw<l>' as (out, in), 'db<l>'} of the cotangents ``g``
+    of the ray inputs ``names`` and of the three (W, b) pair lists."""
+    import numpy as np
+    n_in = len(names)
     out = {f'd_{k}': np.asarray(v, np.float32)
            for k, v in zip(names, g[:n_in])}
     pairs = [p for group in g[n_in:] for p in group]
@@ -214,6 +233,27 @@ def jax_level_grads(model, level: str, inputs, cotangent, warp_alpha=None,
         out[f'dw{layer}'] = np.asarray(dw, np.float32).T.copy()
         out[f'db{layer}'] = np.asarray(db, np.float32)
     return out
+
+
+def jax_level_vjp(model, level: str, inputs, cotangent, warp_alpha=None,
+                  tmpl_alphas=(None, None)) -> dict:
+    """``jax_level``'s output ('out') and ``jax_level_grads``' gradients from
+    one jitted ``jax.vjp`` of the JAX level kernel (one compile, where eager
+    dispatch of the interpret-mode kernel takes several times as long)."""
+    import jax
+    import jax.numpy as jnp
+    import numpy as np
+    from hypernerf_tpu_torch.flagship import LEVEL_INPUTS
+    fn, args = _jax_level_fn(model, level, inputs, warp_alpha, tmpl_alphas)
+
+    def both(*a):
+        out, vjp = jax.vjp(fn, *a)
+        return out, vjp(jnp.asarray(cotangent))
+
+    out, g = jax.device_get(jax.jit(both)(*args))
+    names = LEVEL_INPUTS + (('alpha_cond',) if 'alpha_cond' in inputs
+                            else ())
+    return {'out': np.asarray(out, np.float32), **_level_grads(names, g)}
 
 
 def jax_composite_grads(inputs, cot_outs, cot_weights) -> dict:
@@ -459,12 +499,13 @@ def jax_jacobian(model, case: str, inputs) -> dict:
 
 
 def jax_anneal_template(model, level: str, inputs,
-                        tmpl_alphas=(None, None)) -> dict:
+                        tmpl_alphas=(None, None), jit: bool = False) -> dict:
     """The JAX template kernel's numbers (``fused_nerf_mlp`` with its
     windowed Nerfies encoding, interpret mode) with the weights of
     ``model``'s ``level``: 'out' (P, 4), and for sum(out * cotangent) 'dx'
-    (P, 8), 'd_rgb_cond', 'dw<l>' as (out, in) and 'db<l>' of its 16
-    layers."""
+    (P, 8; (P, 16) with the plane's 8 hyper coordinates), 'd_rgb_cond',
+    'dw<l>' as (out, in) and 'db<l>' of its 16 layers; ``jit``: from one
+    jitted vjp (as ``jax_level_vjp``)."""
     import jax
     import jax.numpy as jnp
     import numpy as np
@@ -477,7 +518,8 @@ def jax_anneal_template(model, level: str, inputs,
 
     cfg = model.config
     params = params_to_jax(model.state_dict())
-    hyper = cfg.hyper_slice_out_dim
+    hyper = (cfg.glo_dim if cfg.hyper_slice_method == 'axis_aligned_plane'
+             else cfg.hyper_slice_out_dim)
     segments = ((3, cfg.spatial_point_max_deg - cfg.spatial_point_min_deg,
                  cfg.spatial_point_min_deg, True),
                 (hyper, cfg.hyper_point_max_deg - cfg.hyper_point_min_deg,
@@ -503,9 +545,16 @@ def jax_anneal_template(model, level: str, inputs,
             [(jnp.asarray(w), jnp.asarray(b)) for w, b in
              nerf_mlp_params_to_list(params[f'nerf_{level}'])]]
     cot = jnp.asarray(inputs['cotangent'])
-    g = jax.device_get(jax.grad(lambda *a: jnp.sum(fn(*a) * cot),
-                                argnums=(0, 1, 2))(*args))
-    res = {'out': np.asarray(jax.device_get(fn(*args)), np.float32),
+    if jit:  # one jitted vjp (jax_level_vjp)
+        def both(*a):
+            out, vjp = jax.vjp(fn, *a)
+            return out, vjp(cot)
+        out, g = jax.device_get(jax.jit(both)(*args))
+    else:
+        g = jax.device_get(jax.grad(lambda *a: jnp.sum(fn(*a) * cot),
+                                    argnums=(0, 1, 2))(*args))
+        out = jax.device_get(fn(*args))
+    res = {'out': np.asarray(out, np.float32),
            'dx': np.asarray(g[0], np.float32),
            'd_rgb_cond': np.asarray(g[1], np.float32)}
     for layer, (dw, db) in enumerate(g[2]):
@@ -712,6 +761,40 @@ def anneal_reference() -> dict:
     return arrays
 
 
+def b4_reference() -> dict:
+    """Every array of the B.4 file: each case's inputs and numbers (dW of
+    ``b4_grad_layers`` alone)."""
+    from hypernerf_tpu_torch.flagship import (B4_LEVEL_CASES,
+                                              B4_TEMPLATE_CASES,
+                                              b4_extra_params, b4_grad_layers,
+                                              b4_probe_inputs, flagship_model,
+                                              load_probe_weights)
+    arrays = {}
+
+    def keep(case, numbers):
+        for k, v in numbers.items():
+            if k.startswith('dw') and int(k[2:]) not in b4_grad_layers(case):
+                continue
+            arrays[f'{case}/{k}'] = v
+
+    cases = [(c, *spec) for c, spec in B4_LEVEL_CASES.items()]
+    cases += [(c, *spec) for c, spec in B4_TEMPLATE_CASES.items()]
+    for case, config, level, *_ in cases:
+        model = load_probe_weights(flagship_model('cpu', config=config))
+        ep = b4_extra_params(config)
+        alphas = (ep.get('nerf_alpha'), ep.get('hyper_alpha'))
+        inputs = b4_probe_inputs(case)
+        arrays.update({f'{case}/{k}': v for k, v in inputs.items()})
+        if case in B4_TEMPLATE_CASES:
+            keep(case, jax_anneal_template(model, level, inputs, alphas,
+                                           jit=True))
+            continue
+        rays = {k: v for k, v in inputs.items() if k != 'cotangent'}
+        keep(case, jax_level_vjp(model, level, rays, inputs['cotangent'],
+                                 ep.get('warp_alpha'), alphas))
+    return arrays
+
+
 def jacobian_reference() -> dict:
     """Every array of the Jacobian file: each case's inputs and numbers."""
     from hypernerf_tpu_torch.flagship import (JACOBIAN_CASES, flagship_model,
@@ -792,6 +875,7 @@ def main():
     import numpy as np
 
     from hypernerf_tpu_torch.flagship import (ANNEAL_REFERENCE,
+                                              B4_REFERENCE,
                                               GRAD_REFERENCE,
                                               LEVEL_REFERENCE,
                                               PLANE_REFERENCE,
@@ -809,12 +893,17 @@ def main():
     parser.add_argument('--anneal_out', default=ANNEAL_REFERENCE)
     parser.add_argument('--plane_out', default=PLANE_REFERENCE)
     parser.add_argument('--conditions_out', default=CONDITION_REFERENCE)
+    parser.add_argument('--b4_out', default=B4_REFERENCE)
     parser.add_argument('--only', choices=('se3', 'jacobian', 'anneal',
-                                           'plane', 'conditions'),
+                                           'plane', 'conditions', 'b4'),
                         default=None, help='write the SE(3), the Jacobian, '
-                        'the anneal, the plane or the conditions file alone')
+                        'the anneal, the plane, the conditions or the B.4 '
+                        'file alone')
     args = parser.parse_args()
     os.makedirs(os.path.dirname(os.path.abspath(args.se3_out)), exist_ok=True)
+    if args.only in (None, 'b4'):
+        np.savez_compressed(args.b4_out, **b4_reference())
+        print(args.b4_out)
     if args.only in (None, 'conditions'):
         np.savez_compressed(args.conditions_out, **condition_reference())
         print(args.conditions_out)

@@ -5,14 +5,17 @@ is ``se3`` with two GLO tables), through the PyTorch port, on one CUDA card.
 
   python tools/profile_render.py \
       [--config flagship|static|split_glo|se3|quaternion|se3_split_glo|
-                anneal|plane|occupancy] \
+                anneal|plane|occupancy|anneal_se3|anneal_quaternion|
+                plane_se3|plane_quaternion|plane_anneal|plane_anneal_se3|
+                plane_anneal_quaternion] \
       [--return_points] [--frames 2] [--chunk 8192] \
       [--trace render_trace.json]
 
 ``--return_points`` keeps each ray's median point as well (the per-module
 path, as ``chip_smoke.py``'s frames with ``return_points`` render).
-``anneal`` renders at the annealing alphas ``eval`` renders a weight file
-at (fully annealed); ``occupancy`` through ``flagship.bench_grid``.
+``anneal`` (and each configuration with the Nerfies encoding) renders at
+the annealing alphas ``eval`` renders a weight file at (fully annealed);
+``occupancy`` through ``flagship.bench_grid``.
 Prints the card, the wall time per frame, the device time per frame by
 kernel (largest first), the device's busy share of the wall time (the
 sum of kernel times over the wall time; overlapping kernels would count
@@ -32,11 +35,12 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 
 def main() -> int:
+    from hypernerf_tpu_torch.flagship import B4_CONFIGS
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument('--config', default='flagship',
                         choices=('flagship', 'static', 'split_glo', 'se3',
                                  'quaternion', 'se3_split_glo', 'anneal',
-                                 'plane', 'occupancy'))
+                                 'plane', 'occupancy', *B4_CONFIGS))
     parser.add_argument('--return_points', action='store_true')
     parser.add_argument('--frames', type=int, default=2)
     parser.add_argument('--chunk', type=int, default=8192)

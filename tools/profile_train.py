@@ -5,7 +5,9 @@ card, for the flagship or one of its variants (``flagship.CONFIGS``).
 
   python tools/profile_train.py \
       [--config flagship|static|split_glo|se3|quaternion|elastic|elastic_se3|
-                elastic_quaternion|anneal|plane] \
+                elastic_quaternion|anneal|plane|anneal_se3|anneal_quaternion|
+                plane_se3|plane_quaternion|plane_anneal|plane_anneal_se3|
+                plane_anneal_quaternion] \
       [--steps 3] [--batch 16384] [--trace train_trace.json]
 
 Prints the card, the wall time per step without and under the profiler, the

@@ -1,13 +1,17 @@
 #!/usr/bin/env python
 """The fields backward's times on one CUDA card: kernel B
 (``hn_fused_fields_bwd``) for each warp type and for the plane configuration
-(no sheet; this checkout's library alone) at the train step's R = 16384
-rays, S = 64 and 128 samples, or, with ``--field template``, kernel A (the
-template backward, ``fused_mlp.template_bwd_chunks`` launching each
-library's ``hn_tmpl_*`` steps) of the flagship, of the plane layout and of
-the anneal configuration's Nerfies layout (its window row at
+(no sheet) at the train step's R = 16384 rays, S = 64 and 128 samples, or,
+with ``--field plane_se3`` or ``plane_quaternion``, kernel B of that
+configuration alone (the screw warps without a sheet; this checkout's
+library alone), or, with ``--field template``, kernel A (the template
+backward, ``fused_mlp.template_bwd_chunks`` launching each library's
+``hn_tmpl_*`` steps) of the flagship, of the plane layout and of the anneal
+configuration's Nerfies layout (its window row at
 ``flagship.ANNEAL_PROBE_STEP``'s alphas) at R = 16384, S = 128 and 64, or,
-with
+with ``--field template_nerfies_plane``, kernel A of the plane_anneal
+configuration alone (the Nerfies plane layout; this checkout's library
+alone), or, with
 ``--field warp|sheet|se3``, that
 field alone (``hn_fused_field_bwd``, the SE(3) trunk's
 ``hn_fused_se3_bwd``) at 8192 x 128 and 16384 x 128 rows, or, with
@@ -18,7 +22,8 @@ translation warp field with its point-tangents (``hn_fused_se3_jacobian_bwd``,
 events (the mean of 5 launches after 2).
 
   python tools/time_fields_bwd.py [--parent DIR]
-      [--field warp|sheet|se3|se3_tangents|warp_tangents|template]
+      [--field warp|sheet|se3|se3_tangents|warp_tangents|template|
+               template_nerfies_plane|plane_se3|plane_quaternion]
 
 With ``--parent`` the kernel library of another checkout (for example an
 unpacked ``git archive`` of an earlier commit), built from its own
@@ -36,7 +41,9 @@ parent, the ratio of the means and the largest differences of the outputs:
 d z, the per-ray sums (their last bits vary from run to run) or dx_raw,
 each as max|d|, and dW / db as the relative L2 of the whole gradient (its
 last bits vary too). Kernel A's outputs are deterministic: dx_t, d
-rgb_cond and dW / db as max|d|. Exits non-zero without a card.
+rgb_cond and dW / db as max|d|. A parent whose kernel A steps take no raw
+width (``hn_tmpl_encode`` and ``hn_tmpl_posenc_bwd`` before the Nerfies
+plane layout) is called without it. Exits non-zero without a card.
 """
 
 from __future__ import annotations
@@ -84,8 +91,9 @@ def main() -> int:
     parser.add_argument('--parent', default=None)
     parser.add_argument('--field', default=None,
                         choices=('warp', 'sheet', 'se3', 'se3_tangents',
-                                 'template',
-                                 'warp_tangents'))
+                                 'template', 'template_nerfies_plane',
+                                 'warp_tangents', 'plane_se3',
+                                 'plane_quaternion'))
     args = parser.parse_args()
 
     import torch
@@ -156,19 +164,35 @@ def main() -> int:
         print(f'{label}: ' + '; '.join(parts), flush=True)
 
     with torch.no_grad():
-        if args.field == 'template':
+        if args.field in ('template', 'template_nerfies_plane'):
             fm = importlib.import_module(
                 'hypernerf_tpu_torch.kernels.fused_mlp')
             rays_a = 16384
             ep = anneal_extra_params()
-            for config in ('flagship', 'plane', 'anneal'):
+
+            def ops_of(lib, bld):
+                """Kernel A's steps on ``lib``; a library whose encoding
+                steps take no raw width gets none."""
+                ops = fm._KernelOps(torch.device('cuda'))
+                ops.lib = lib
+                if len(bld._SIGNATURES['hn_tmpl_encode'][0]) == 7:
+                    ops.encode = lambda raw, stash, col, n, sc: ops._go(
+                        'hn_tmpl_encode', raw.data_ptr(), stash.data_ptr(),
+                        stash.shape[1], col, n, fm._ptr(sc))
+                    ops.posenc_bwd = lambda raw, e, dx, n, sc: ops._go(
+                        'hn_tmpl_posenc_bwd', raw.data_ptr(), e.data_ptr(),
+                        e.shape[1], dx.data_ptr(), n, fm._ptr(sc))
+                return ops
+            configs = (('flagship', 'plane', 'anneal')
+                       if args.field == 'template' else ('plane_anneal',))
+            for config in configs:
                 probe = load_probe_weights(flagship_model('cuda',
                                                           config=config))
                 for s in (128, 64):
                     tmpl = probe.level('fine' if s == 128 else 'coarse')
                     z, o, d, emb, cond = inputs(rays_a, s, seed=s + 5)
                     row = None
-                    if config == 'anneal':
+                    if tmpl.nerfies:
                         cond = torch.from_numpy(anneal_condition(
                             d.cpu().numpy(), ep['nerf_alpha'])).cuda()
                         row = fm.template_scales(tmpl, ep['nerf_alpha'],
@@ -186,13 +210,12 @@ def main() -> int:
                     macs = sum(lin.weight.numel() for lin, _ in layers)
 
                     def launch(lib, bld):
-                        ops = fm._KernelOps(torch.device('cuda'))
-                        ops.lib = lib
                         return list(fm.template_bwd_chunks(
-                            ops, raw_t, rgbc, per, g, *views,
+                            ops_of(lib, bld), raw_t, rgbc, per, g, *views,
                             scales=row)[:3])
                     report(f'kernel A {config} R={rays_a} S={s}', macs,
-                           rays_a * s, launch, 0)
+                           rays_a * s, launch, 0,
+                           this_only=config == 'plane_anneal')
             return 0
         if args.field == 'warp_tangents':
             mlp = load_probe_weights(flagship_model(
@@ -284,7 +307,7 @@ def main() -> int:
                 report(f'{args.field} backward {what}', macs, streams * p,
                        launch, 1)
             return 0
-        if args.field:
+        if args.field in ('warp', 'sheet'):
             probe = load_probe_weights(flagship_model('cuda'))
             field = (probe.warp_field if args.field == 'warp'
                      else probe.hyper_sheet_mlp)
@@ -331,12 +354,15 @@ def main() -> int:
             return 0
 
         rays = 16384
-        for warp, config in (('translation', 'flagship'), ('se3', 'se3'),
-                             ('quaternion', 'quaternion'),
-                             ('plane', 'plane')):
+        tables = ((('translation', 'flagship'), ('se3', 'se3'),
+                   ('quaternion', 'quaternion'), ('plane', 'plane'))
+                  if args.field is None else ((args.field, args.field),))
+        for warp, config in tables:
             probe = load_probe_weights(flagship_model('cuda', config=config))
-            # The plane's dx_t: [d warped | d hyper (8) | 0], 16 columns.
-            width, raw = (11, 16) if warp == 'plane' else (7, 8)
+            # Without a sheet dx_t is [d warped | d hyper (8) | 0], 16
+            # columns.
+            width, raw = ((7, 8) if common.table_has_sheet(warp)
+                          else (11, 16))
             for s in (64, 128):
                 level = probe.level('fine' if s == 128 else 'coarse')
                 w, b, shapes = fl.pack_level(level)
@@ -368,7 +394,7 @@ def main() -> int:
                         'hn_fused_fields_bwd')
                     return [d_z, d_ray, copies]
                 report(f'kernel B {warp} R={rays} S={s}', macs, rays * s,
-                       launch, 1, this_only=warp == 'plane')
+                       launch, 1, this_only=args.field is not None)
     return 0
 
 

@@ -12,10 +12,15 @@ warp_tangents`` or ``se3_tangents``, a Jacobian's forward alone instead:
 the translation warp's (``hn_fused_jacobian_fwd``, the ``elastic`` probe
 weights) or the SE(3) trunk's with its tangents (``hn_fused_se3_jacobian_fwd``,
 ``elastic_se3``, window row off and on), at 1001 and 262,144 points (the
-train step's: 16384 rays x 16).
+train step's: 16384 rays x 16). With ``--config`` one of the warp x
+slicing x encoding combinations (``flagship.B4_CONFIGS``), that
+configuration's level forward alone at R = 8192 and 16384, S = 128, both
+window rows at ``flagship.b4_extra_params``' alphas (and for
+``plane_anneal`` its template alone in the Nerfies plane layout), this
+checkout's library alone.
 
   python tools/time_modular_fwd.py [--parent DIR]
-      [--kernel all|warp_tangents|se3_tangents]
+      [--kernel all|warp_tangents|se3_tangents] [--config NAME]
 
 ``DIR`` is a checkout of an earlier commit (for example an unpacked ``git
 archive``) whose entry points take the same arguments and blobs, or lack
@@ -146,11 +151,70 @@ def _tangents(kernel, inputs, report, stream):
                    launch)
 
 
+def _b4_level(config, inputs, report, stream):
+    """The level forward of B.4 configuration ``config`` (and, for the
+    Nerfies plane layout, its template alone), this checkout's library."""
+    import torch
+    from hypernerf_tpu_torch.flagship import (anneal_condition,
+                                              b4_extra_params,
+                                              flagship_model,
+                                              load_probe_weights)
+    from hypernerf_tpu_torch.kernels import build, common
+    fm = importlib.import_module('hypernerf_tpu_torch.kernels.fused_mlp')
+    fl = importlib.import_module('hypernerf_tpu_torch.kernels.fused_level')
+    model = load_probe_weights(flagship_model('cuda', config=config))
+    dev = next(model.parameters()).device
+    warp_row, tmpl_row = model.window_rows(b4_extra_params(config), dev)
+    lv = model.level('fine')
+    w, b, shapes = fl.pack_level(lv)
+    code, ws = fl._warp_launch_args(lv, shapes, warp_row, dev)
+    ts = fm.kernel_scales(lv, tmpl_row, dev)
+    macs = sum(lin.weight.numel() for lin, _ in fl.level_layers(lv))
+    for rays in (8192, 16384):
+        z, o, d, emb, cond = inputs(rays, 128, seed=128)
+        if ts is not None:  # the Nerfies condition
+            cond = torch.from_numpy(anneal_condition(d.cpu().numpy(),
+                                                     10.0)).cuda()
+        rgbc = cond.to(torch.bfloat16).contiguous()
+        p = rays * 128
+        out = torch.empty((p, 4), device='cuda')
+        raw_t = torch.empty((p, fm.raw_pad(lv)), device='cuda')
+
+        def launch(lib):
+            build.check(lib.hn_fused_level_fwd(
+                code, z.data_ptr(), o.data_ptr(), d.data_ptr(),
+                emb.data_ptr(), rgbc.data_ptr(), None, None,
+                None if ws is None else ws.data_ptr(),
+                None if ts is None else ts.data_ptr(), w.data_ptr(),
+                b.data_ptr(), out.data_ptr(), raw_t.data_ptr(), rays, 128,
+                rgbc.shape[1], stream), 'hn_fused_level_fwd')
+            return out
+        report(f'{config} level forward R={rays} S=128', macs, p, launch,
+               this_only=True)
+        if fm.layout(lv) != 'nerfies_plane':
+            continue
+        _, per, _, ((tw, tb, _),) = fm._launch_args(lv, raw_t, cond, False)
+        tmacs = sum(lin.weight.numel() for lin, _ in
+                    fm.template_layers(lv.template))
+
+        def launch(lib):
+            build.check(lib.hn_fused_template_fwd_plane(
+                raw_t.data_ptr(), rgbc.data_ptr(), None, None,
+                ts.data_ptr(), tw.data_ptr(), tb.data_ptr(), out.data_ptr(),
+                p, per, rgbc.shape[1], stream),
+                'hn_fused_template_fwd_plane')
+            return out
+        report(f'{config} template R={rays} S=128', tmacs, p, launch,
+               this_only=True)
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument('--parent', default=None)
     parser.add_argument('--kernel', default='all',
                         choices=('all', 'warp_tangents', 'se3_tangents'))
+    from hypernerf_tpu_torch.flagship import B4_CONFIGS
+    parser.add_argument('--config', default=None, choices=B4_CONFIGS)
     args = parser.parse_args()
 
     import torch
@@ -209,6 +273,10 @@ def main() -> int:
     if args.kernel != 'all':
         with torch.no_grad():
             _tangents(args.kernel, inputs, report, stream)
+        return 0
+    if args.config:
+        with torch.no_grad():
+            _b4_level(args.config, inputs, report, stream)
         return 0
     probes = {c: load_probe_weights(flagship_model('cuda', config=c))
               for c in ('flagship', 'static', 'se3', 'quaternion', 'plane')}
