@@ -242,7 +242,28 @@ Phases, one line each; any failure ends the run with a non-zero exit:
      of the paper's two models (``anneal_se3``, ``plane_anneal_se3``) beside
      the flagship's, a ``return_points`` frame and ``query_sigma`` of
      ``plane_anneal_se3``, and a 1024-ray step of each of the other five
-     against the plain versions.
+     against the plain versions;
+ 30. data-parallel training (ROADMAP A.12, ``parallel/``): (a) a world of
+     every card over NCCL (one rank, in this process, on a one-card
+     machine): the flagship step at batch 16384 through the data-parallel
+     step with ZeRO-1 off and on, 5 steps after 2 in turns with the
+     single-process step, the launch counters showing 2 launches of each of
+     the five step kernels a step on the rank and no plain call, the
+     gradient bytes all-reduced and the optimizer state bytes held, and one
+     1024-ray explicit-batch step held to the single process; (b) two ranks
+     as processes of their own (NCCL over two cards where there are two,
+     else gloo with both on cuda:0, whose times are no speed figure): the
+     split batch against one process, three ZeRO-1 steps after which every
+     parameter's version has moved at each step, the ranks' parameters are
+     equal bit for bit and each rank's cached level blobs equal a fresh
+     pack, and a 504x378 frame over the two ranks against the one-rank
+     frame; (c) ``train.main`` with ``--num_devices 1
+     --shard_optimizer_state`` for 8 steps on a 3-frame 80x60 scene, its
+     checkpoint resumed in one process (launches counted);
+ 31. the model call's options (ROADMAP A.4): a 504x378 frame with ``near``
+     / ``far`` overrides and ``use_sample_at_infinity=False`` through the
+     level kernels against the plain versions (the options must move the
+     frame), and a frame with ``metadata_encoded`` equal to the ids' frame.
 Times come from CUDA events (kernels) or the host clock around work that
 ends in a synchronize (frames, steps). A kernel's bound is the larger of
 its matrix-product operations over the card's dense bf16 peak and its bytes
@@ -2981,6 +3002,8 @@ def main() -> int:
     condition_paths_phase(kernels)
     kernels += b4_kernel_phase(kernels)
     b4_paths_phase(kernels)
+    data_parallel_phase()
+    call_options_phase()
     if len(kernels) != 29:
         raise AssertionError(f'{len(kernels)} kernels in the line, want 29')
     return finish(kernels)
@@ -5003,6 +5026,500 @@ def b4_paths_phase(kernels) -> None:
                                 and not f.endswith('query_launches'))
     phase(f'[29] the paths of the seven combinations took '
           f'{time.perf_counter() - t_start:.1f} s')
+
+
+# -- data-parallel training (ROADMAP A.12) and the call options (A.4) ---------
+
+DP_STEPS, DP_WARMUP = 5, 2  # timed steps of a data-parallel window, after
+DP_SMALL = 1024  # rays of the explicit batch held to the single process
+DP_ZERO_STEPS = 3  # ZeRO-1 steps of the two ranks before their checkpoint
+DP_CLI_STEPS = 8
+DP_SCENE = dict(n_frames=3, width=80, height=60)
+
+
+def dp_join(backend=None):
+    """Join the launch of the environment (``parallel.distributed``); the
+    rank's ``parallel.DataParallel`` context."""
+    import torch
+    from hypernerf_tpu_torch.parallel import distributed
+    from hypernerf_tpu_torch.parallel.mesh import create_mesh
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    if not distributed.maybe_initialize_distributed(backend):
+        raise AssertionError('no launch in the environment')
+    return create_mesh()
+
+
+def dp_draws(n: int, cfg, seed: int = 11) -> dict:
+    """A train step's draws for ``n`` rays of the global batch."""
+    import torch
+    from hypernerf_tpu_torch.ops.sampling import sorted_uniform
+    gen = torch.Generator(device='cuda').manual_seed(seed)
+    s, nf = cfg.num_coarse_samples, cfg.num_fine_samples
+    return {'t_rand': torch.rand(n, s, generator=gen, device='cuda'),
+            'fine_u': sorted_uniform(n, nf, gen, device='cuda'),
+            'noise_coarse': torch.randn(n, s, generator=gen, device='cuda'),
+            'noise_fine': torch.randn(n, s + nf, generator=gen,
+                                      device='cuda')}
+
+
+def dp_compare_step(mesh):
+    """One step on an explicit global batch of ``DP_SMALL`` rays through the
+    data-parallel step (each rank its rows, then the all-reduce), from the
+    seeded flagship weights with fixed draws, and on rank 0 the same step in
+    one process on the whole batch: (loss, single-process loss, gradient
+    errors) on rank 0, None elsewhere. Collective."""
+    from hypernerf_tpu_torch.flagship import (flagship_train_config,
+                                              flagship_train_setup)
+    from hypernerf_tpu_torch.training.train_state import make_train_step
+
+    def one(step_mesh):
+        state, _, rays, rgbs = flagship_train_setup(
+            'cuda', seed=0, batch_size=DP_SMALL, n_rays=DP_SMALL,
+            mesh=step_mesh)
+        model = state.model
+        step_fn = make_train_step(
+            model, state.optimizer, model.config,
+            flagship_train_config('flagship', DP_SMALL), 'cuda',
+            explicit_batch=True, mesh=step_mesh)
+        loss = step_fn(state, rays, rgbs,
+                       draws=dp_draws(DP_SMALL, model.config))['loss']
+        return loss.item(), {k: p.grad.clone()
+                             for k, p in model.named_parameters()}
+
+    loss, grads = one(mesh)
+    if mesh.rank:
+        return None
+    loss_one, grads_one = one(None)
+    return loss, loss_one, step_grad_errors(grads, grads_one)
+
+
+def dp_window(mesh, shard: bool) -> dict:
+    """The flagship step at batch ``TRAIN_RAYS`` (global) through the
+    data-parallel step over ``mesh`` (None: one process, no process group):
+    ``DP_STEPS`` timed after ``DP_WARMUP``, the launches counted over the
+    timed steps (2 of each step kernel a step on this rank, no plain call).
+    Returns its ms/step, the fp32 gradient bytes a step all-reduces and the
+    optimizer state bytes this rank holds."""
+    import torch
+    from hypernerf_tpu_torch.flagship import flagship_train_setup
+    from hypernerf_tpu_torch.training.optimizers import moment_bytes
+    state, step_fn, rays, rgbs = flagship_train_setup(
+        'cuda', seed=0, batch_size=TRAIN_RAYS, mesh=mesh,
+        train_overrides=dict(shard_optimizer_state=shard))
+    for _ in range(DP_WARMUP):
+        step_fn(state, rays, rgbs)
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    losses = [step_fn(state, rays, rgbs)['loss'] for _ in range(DP_STEPS)]
+    torch.cuda.synchronize()
+    secs = (time.perf_counter() - t0) / DP_STEPS
+    read_counts({k: v * DP_STEPS
+                 for k, v in STEP_LAUNCHES['flagship'].items()},
+                f'data-parallel step (shard {shard})')
+    losses = [x.item() for x in losses]
+    if not all(map(math.isfinite, losses)):
+        raise AssertionError(f'data-parallel losses {losses}')
+    grads = [p.grad for p in state.model.parameters() if p.grad is not None]
+    return dict(ms=secs * 1e3, optimizer=type(state.optimizer).__name__,
+                grad_bytes=sum(g.numel() * 4 for g in grads),
+                moment_bytes=moment_bytes(state.optimizer),
+                loss=losses[-1])
+
+
+def dp_world_rank(result_path: str) -> None:
+    """Phase 30 (a), in each rank of a world of every card over NCCL: the
+    single-process step, the data-parallel step with ZeRO-1 off and on, the
+    single-process step again (in turns, each from the seeded weights), and
+    the explicit-batch check. Rank 0 writes the numbers to
+    ``result_path``."""
+    import torch
+    from hypernerf_tpu_torch.parallel import distributed
+    mesh = dp_join('nccl')
+    try:
+        out = dict(world=mesh.world_size, backend='nccl')
+        out['single'] = dp_window(None, False)
+        out['dp'] = dp_window(mesh, False)
+        out['dp_zero'] = dp_window(mesh, True)
+        out['single_again'] = dp_window(None, False)
+        out['compare'] = dp_compare_step(mesh)
+    finally:
+        distributed.shutdown()
+    if mesh.rank == 0:
+        out['peak_gib'] = torch.cuda.max_memory_allocated() / 2 ** 30
+        with open(result_path, 'w') as f:
+            json.dump(out, f)
+
+
+def dp_zero_groups(model):
+    """The model's parameters as ZeRO-1's three groups, and the hyper-sheet
+    MLP's parameters (one module, packed once for both levels): the largest
+    parameter, then the sheet's, then the rest. ZeRO's greedy split gives
+    the first to rank 0 and, as the sheet's weights weigh less than it, the
+    whole sheet to rank 1. At the one-group split every packed module has a
+    parameter that each rank updates itself, which re-keys its blob anyway;
+    here rank 0 updates none of the sheet's, so without the version bump its
+    cached sheet blob would stay stale and the blob check would fail."""
+    params = list(model.parameters())
+    big = max(params, key=lambda p: p.numel())
+    sheet = list(model.level('coarse').hyper.mlp.parameters())
+    taken = {id(big)} | {id(p) for p in sheet}
+    return [{'params': [big]}, {'params': sheet},
+            {'params': [p for p in params if id(p) not in taken]}], sheet
+
+
+def dp_two_ranks(result_path: str, backend: str) -> None:
+    """Phase 30 (b), in each of two ranks: the split global batch against
+    one process; ZeRO-1 over ``dp_zero_groups`` (rank 1 owns the whole
+    hyper sheet): ``DP_ZERO_STEPS`` steps, a checkpoint saved over the two
+    ranks and a step, the checkpoint restored on both ranks (each rank's
+    share of the moments back bit for bit) and that step again; every
+    parameter's version moved at each step, the ranks' parameters are equal
+    bit for bit and each rank's cached level blobs equal a fresh pack of
+    its parameters (hazard 1); a 504x378 frame over the two ranks against
+    the one-rank frame. Rank 0 writes the numbers."""
+    import copy
+    import os
+
+    import torch
+    from hypernerf_tpu_torch.flagship import (flagship_model,
+                                              flagship_train_config,
+                                              flagship_train_setup,
+                                              spiral_rays)
+    from hypernerf_tpu_torch.kernels.fused_level import pack_level
+    from hypernerf_tpu_torch.parallel import distributed
+    from hypernerf_tpu_torch.parallel.mesh import barrier, gather_rows
+    from hypernerf_tpu_torch.training import checkpoints
+    from hypernerf_tpu_torch.training.optimizers import (get_optimizer,
+                                                         moment_bytes)
+    from hypernerf_tpu_torch.training.renderer import ImageRenderer
+    from hypernerf_tpu_torch.training.train_state import make_train_step
+    mesh = dp_join(backend)
+    try:
+        out = dict(world=mesh.world_size, backend=backend,
+                   device=str(mesh.device))
+        out['compare'] = dp_compare_step(mesh)
+        state, _, rays, rgbs = flagship_train_setup(
+            'cuda', seed=0, batch_size=TRAIN_RAYS, mesh=mesh)
+        model = state.model
+        train_cfg = flagship_train_config(
+            'flagship', TRAIN_RAYS, dict(shard_optimizer_state=True))
+        groups, sheet = dp_zero_groups(model)
+        state.optimizer, schedule = get_optimizer(train_cfg, groups, 1000,
+                                                  mesh=mesh)
+        owners = {state.optimizer._param_to_rank[p] for p in sheet}
+        out['sheet_params'] = sum(p.numel() for p in sheet)
+        if owners != {1}:
+            raise AssertionError(f'the sheet\'s parameters on ranks '
+                                 f'{owners}, not on rank 1 alone')
+        step_fn = make_train_step(model, state.optimizer, model.config,
+                                  train_cfg, 'cuda', schedule=schedule,
+                                  mesh=mesh)
+        params = list(model.parameters())
+        moved = []
+
+        def zero_step():
+            before = [p._version for p in params]
+            loss = step_fn(state, rays, rgbs)['loss'].item()
+            moved.append(all(p._version > v for p, v in zip(params, before)))
+            return loss
+
+        def flat():
+            return torch.cat([p.detach().reshape(1, -1) for p in params], 1)
+
+        def share():
+            local = state.optimizer.optim.state
+            return {i: {k: v.cpu().clone() for k, v in local[p].items()}
+                    for i, p in enumerate(params) if p in local}
+
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(DP_ZERO_STEPS):
+            zero_step()
+        torch.cuda.synchronize()
+        out['zero_ms'] = (time.perf_counter() - t0) / DP_ZERO_STEPS * 1e3
+        ckpt = checkpoints.save_checkpoint(
+            os.path.join(os.path.dirname(result_path), 'zero_ckpt'),
+            state.step, state)
+        saved, p_saved = share(), flat()
+        loss_next = zero_step()
+        p_next = flat()
+        barrier(mesh)  # rank 0's file is written
+        checkpoints.restore_checkpoint(ckpt, state)
+        restored = share()
+        out['moments_restored'] = sorted(saved) == sorted(restored) and all(
+            sorted(saved[i]) == sorted(restored[i])
+            and all(torch.equal(v, restored[i][k])
+                    for k, v in saved[i].items()) for i in saved)
+        loss_again = zero_step()
+        update = (p_next - p_saved).norm()
+        out['resume'] = (loss_next, loss_again,
+                         float((flat() - p_next).norm() / update))
+        (rows,) = gather_rows(mesh, [flat()])
+        out['params_equal'] = all(torch.equal(rows[0], r) for r in rows[1:])
+        fresh = copy.deepcopy(model)  # new storage: a cache key never met
+        blobs_equal = True
+        for name in ('coarse', 'fine'):
+            w, b, _ = pack_level(model.level(name))
+            w2, b2, _ = pack_level(fresh.level(name))
+            blobs_equal &= torch.equal(w, w2) and torch.equal(b, b2)
+        if not (all(moved) and out['moments_restored']
+                and out['params_equal'] and blobs_equal):
+            raise AssertionError(f'rank {mesh.rank}: versions moved at each '
+                                 f'ZeRO-1 step {moved}, moments restored '
+                                 f'{out["moments_restored"]}, parameters '
+                                 f'equal {out["params_equal"]}, cached level '
+                                 f'blobs equal a fresh pack {blobs_equal}')
+        out['moment_bytes'] = [int(x) for x in gather_rows(mesh, [
+            torch.tensor([moment_bytes(state.optimizer)],
+                         device=mesh.device)])[0].tolist()]
+        del state, step_fn, fresh
+        frame = spiral_rays([0])[0]
+        render_model = flagship_model('cuda', seed=0)
+        keep = ('rgb', 'depth', 'acc')
+        sharded = ImageRenderer(render_model, chunk=CHUNK, keep=keep,
+                                levels=('fine',), mesh=mesh)
+        sharded(frame)  # the first launches
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = sharded(frame)['fine']
+        torch.cuda.synchronize()
+        out['frame_s'] = time.perf_counter() - t0
+        if mesh.rank == 0:
+            want = ImageRenderer(render_model, chunk=CHUNK, keep=keep,
+                                 levels=('fine',))(frame)['fine']
+            diff = abs(got['rgb'] - want['rgb'])
+            out['frame_rgb_max'] = float(diff.max())
+            out['frame_rgb_mean'] = float(diff.mean())
+            out['frame_depth_max'] = float(abs(got['depth']
+                                               - want['depth']).max())
+    finally:
+        distributed.shutdown()
+    if mesh.rank == 0:
+        with open(result_path, 'w') as f:
+            json.dump(out, f)
+
+
+def data_parallel_phase() -> None:
+    """Phase 30: data-parallel training on the card (ROADMAP A.12).
+    (a) A world of every card over NCCL (one rank on a one-card machine,
+    in this process; else one process a card): the flagship step at batch
+    16384 through the data-parallel step, ZeRO-1 off and on, in turns with
+    the single-process step, the launches counted, and one explicit-batch
+    step held to the single process. (b) Two ranks (NCCL over two cards,
+    else gloo with both on cuda:0): the split batch against one process,
+    ZeRO-1 (rank 1 owning the whole hyper sheet) through a checkpoint saved
+    and restored on both ranks, its versions, parameters and cached level
+    blobs, a frame over the ranks. (c) ``train.main`` with ``--num_devices 1
+    --shard_optimizer_state`` for 8 steps, resumed in one process."""
+    import os
+    import tempfile
+
+    import torch
+    from hypernerf_tpu_torch.flagship import H, W
+    from hypernerf_tpu_torch.parallel import distributed
+    t_phase = time.perf_counter()
+    cards = torch.cuda.device_count()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        # (a)
+        path = os.path.join(tmp, 'world.json')
+        if cards == 1:
+            os.environ.update(HYPERNERF_COORDINATOR=f'localhost:'
+                              f'{distributed.free_port()}',
+                              HYPERNERF_NUM_PROCESSES='1',
+                              HYPERNERF_PROCESS_ID='0', LOCAL_RANK='0')
+            try:
+                dp_world_rank(path)
+            finally:
+                for var in ('HYPERNERF_COORDINATOR', 'HYPERNERF_NUM_PROCESSES',
+                            'HYPERNERF_PROCESS_ID', 'LOCAL_RANK'):
+                    os.environ.pop(var, None)
+        else:
+            distributed.spawn(dp_world_rank, cards, (path,))
+        with open(path) as f:
+            a = json.load(f)
+        loss, loss_one, (total, worst) = a['compare']
+        sync = (a['dp']['ms'] - (a['single']['ms'] + a['single_again']['ms'])
+                / 2)
+        phase(f'[30] (a) world of {a["world"]} over NCCL ({CARD}): the '
+              f'flagship step at batch {TRAIN_RAYS} (64+64, bf16, Adam), '
+              f'{DP_STEPS} steps after {DP_WARMUP} in turns: single process '
+              f'{a["single"]["ms"]:.2f} ms, data-parallel '
+              f'{a["dp"]["ms"]:.2f} ms, with ZeRO-1 '
+              f'{a["dp_zero"]["ms"]:.2f} ms ({a["dp_zero"]["optimizer"]}), '
+              f'single process again {a["single_again"]["ms"]:.2f} ms: the '
+              f'sync {sync:+.2f} ms a step; launches a step per rank: each '
+              f'step kernel 2, no plain call; fp32 gradient bytes '
+              f'all-reduced a step {a["dp"]["grad_bytes"]:,}; optimizer '
+              f'state bytes on rank 0 {a["dp"]["moment_bytes"]:,} '
+              f'(ZeRO-1 {a["dp_zero"]["moment_bytes"]:,}); peak '
+              f'{a["peak_gib"]:.2f} GiB')
+        phase(f'[30] (a) one step on {DP_SMALL} rays, data-parallel vs '
+              f'single process: loss {loss:.6f} vs {loss_one:.6f} (tol '
+              f'{STEP_LOSS_TOL}); gradients relative L2 {total:.3e}, worst '
+              f'{worst[0]:.3e} at {worst[1]} (tol {STEP_GRAD_L2})')
+        if not abs(loss - loss_one) <= STEP_LOSS_TOL or \
+                not max(total, worst[0]) <= STEP_GRAD_L2:
+            raise AssertionError('data-parallel step and single process '
+                                 'disagree')
+        # (b)
+        path = os.path.join(tmp, 'two.json')
+        backend = 'nccl' if cards >= 2 else 'gloo'
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        distributed.spawn(dp_two_ranks, 2, (path, backend),
+                          local_ranks=(0, 1) if cards >= 2 else (0, 0))
+        with open(path) as f:
+            b = json.load(f)
+        loss, loss_one, (total, worst) = b['compare']
+        where = ('two cards' if cards >= 2 else
+                 'both on cuda:0 (NCCL refuses two ranks on one device); its '
+                 'times are no speed figure')
+        loss_next, loss_again, resume_l2 = b['resume']
+        phase(f'[30] (b) two ranks over {backend}, {where}: '
+              f'{time.perf_counter() - t0:.1f} s with the processes\' start; '
+              f'the split batch of {DP_SMALL} rays vs one process: loss '
+              f'{loss:.6f} vs {loss_one:.6f}, gradients relative L2 '
+              f'{total:.3e}, worst {worst[0]:.3e} at {worst[1]}; ZeRO-1 with '
+              f'the hyper sheet\'s {b["sheet_params"]:,} parameters wholly on '
+              f'rank 1 (rank 0 updates none of a packed module\'s '
+              f'parameters): {DP_ZERO_STEPS} steps '
+              f'({b["zero_ms"]:.1f} ms a step), a checkpoint saved over the '
+              f'ranks and restored on both (each rank\'s share of the moments '
+              f'back bit for bit), the step after it taken before and after '
+              f'the restore: loss {loss_next:.6f} vs {loss_again:.6f}, '
+              f'parameters apart by {resume_l2:.3e} of the update (tol '
+              f'{STEP_GRAD_L2}); every parameter\'s version moved at each '
+              f'step on each rank, the ranks\' parameters equal bit for bit, '
+              f'each rank\'s cached level blobs equal a fresh pack (rank 0\'s '
+              f'sheet blob would be stale without the bump); optimizer state '
+              f'bytes per rank {b["moment_bytes"]}; a {W}x{H} frame over the '
+              f'two ranks '
+              f'({b["frame_s"]:.3f} s) vs one rank: fine rgb max|d| '
+              f'{b["frame_rgb_max"]:.3e} mean {b["frame_rgb_mean"]:.3e} '
+              f'(tol {RENDER_ATOL}, mean {RENDER_MEAN}), depth max|d| '
+              f'{b["frame_depth_max"]:.3e}')
+        if not abs(loss - loss_one) <= STEP_LOSS_TOL or \
+                not max(total, worst[0]) <= STEP_GRAD_L2:
+            raise AssertionError('two ranks and one process disagree')
+        if not abs(loss_next - loss_again) <= STEP_LOSS_TOL or \
+                not resume_l2 <= STEP_GRAD_L2:
+            raise AssertionError('the step after the restored ZeRO-1 '
+                                 'checkpoint is not the step before it')
+        if not (b['frame_rgb_max'] <= RENDER_ATOL
+                and b['frame_rgb_mean'] <= RENDER_MEAN):
+            raise AssertionError('the frame over two ranks is not the '
+                                 'one-rank frame')
+        # (c)
+        dp_cli(tmp)
+    phase(f'[30] data-parallel training took '
+          f'{time.perf_counter() - t_phase:.1f} s')
+
+
+def dp_cli(tmp: str) -> None:
+    """Phase 30 (c): ``train.main`` with ``--num_devices 1
+    --shard_optimizer_state`` (one rank started as a process of its own)
+    for ``DP_CLI_STEPS`` steps on a small scene, then a single-process run
+    that resumes from its checkpoint for one step (launches counted)."""
+    import os
+    from hypernerf_tpu_torch import train as port_train
+    from hypernerf_tpu_torch.training import checkpoints
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(
+        __file__)), 'tools'))
+    import make_synthetic_scene
+    cwd = os.getcwd()
+    os.chdir(tmp)
+    try:
+        scene = make_synthetic_scene.make_scene(os.path.join(tmp, 'scene'),
+                                                **DP_SCENE)
+        size = ['--img_wh', str(DP_SCENE['width']), str(DP_SCENE['height']),
+                '--val_check_interval', '1.0']
+        t0 = time.perf_counter()
+        out = port_train.main(smoke_argv(
+            scene, 'dp', DP_CLI_STEPS, '--num_devices', '1',
+            '--shard_optimizer_state', *size))
+        secs = time.perf_counter() - t0
+        ckpt = checkpoints.latest_checkpoint(os.path.join(tmp, 'ckpts', 'dp'))
+        if out is not None or ckpt is None or \
+                checkpoints.checkpoint_step(ckpt) != DP_CLI_STEPS:
+            raise AssertionError(f'the launch returned {out}, checkpoint '
+                                 f'{ckpt}')
+        trainer, launches = trainer_run(smoke_argv(
+            scene, 'dp_resumed', DP_CLI_STEPS + 1, '--ckpt_path', ckpt,
+            *size), 'resume of the launch\'s checkpoint',
+            start=DP_CLI_STEPS)
+        if trainer.state.step != DP_CLI_STEPS + 1:
+            raise AssertionError(f'resumed at {trainer.state.step}')
+        phase(f'[30] (c) train.main --num_devices 1 --shard_optimizer_state: '
+              f'{DP_CLI_STEPS} steps on {DP_SCENE["n_frames"]} frames '
+              f'{DP_SCENE["width"]}x{DP_SCENE["height"]} in {secs:.1f} s '
+              f'with the rank\'s start; checkpoint step {DP_CLI_STEPS} '
+              f'resumed in one process to step {trainer.state.step}, '
+              f'launches {launches}')
+    finally:
+        os.chdir(cwd)
+
+
+def call_options_phase() -> None:
+    """Phase 31 (ROADMAP A.4): a 504x378 flagship frame with ``near`` /
+    ``far`` overrides and ``use_sample_at_infinity=False`` through the level
+    kernels (launches counted) against the plain versions; the same frame
+    without the options (the options must move it); a frame with
+    ``metadata_encoded`` (the GLO table's rows of the ids) against the ids'
+    frame."""
+    import torch
+    from hypernerf_tpu_torch.flagship import H, W, flagship_model, spiral_rays
+    from hypernerf_tpu_torch.ops.ray_dict import prepare_ray_dict
+    t_phase = time.perf_counter()
+    model = flagship_model('cuda', seed=0)
+    rays = torch.as_tensor(spiral_rays([0])[0]).cuda()
+    options = dict(near=0.05, far=0.9, use_sample_at_infinity=False)
+
+    @torch.no_grad()
+    def frame(encoded: bool = False, **kw):
+        outs = []
+        for start in range(0, rays.shape[0], CHUNK):
+            rd = prepare_ray_dict(rays[start:start + CHUNK])
+            if encoded:  # the table's rows of the ids, read from metadata
+                rd['metadata']['encoded_warp'] = model.encode_warp_embed(
+                    rd['metadata'])
+            outs.append(model(rd, return_weights=False,
+                              metadata_encoded=encoded, **kw)['fine']['rgb'])
+        return torch.cat(outs)
+
+    chunks = -(-rays.shape[0] // CHUNK)
+    reset_counts()
+    got = frame(**options)
+    torch.cuda.synchronize()
+    read_counts({'fused_level_fwd': 2 * chunks,
+                 'fused_composite_fwd': 2 * chunks}, 'call options frame')
+    with plain_versions():
+        want = frame(**options)
+    default = frame()
+    diff = (got - want).abs()
+    moved = (got - default).abs().max().item()
+    encoded = frame(encoded=True)
+    enc_diff = (encoded - default).abs().max().item()
+    phase(f'[31] a {W}x{H} frame with near {options["near"]}, far '
+          f'{options["far"]}, use_sample_at_infinity False (the coarse level '
+          f'keeps the config\'s): level kernels vs plain versions fine rgb '
+          f'max|d| {diff.max().item():.3e} mean {diff.mean().item():.3e} '
+          f'(tol {RENDER_ATOL}, mean {RENDER_MEAN}); the options move the '
+          f'frame by max {moved:.3e}; launches 2 of each forward kernel a '
+          f'chunk ({chunks} chunks), no plain call; metadata_encoded vs the '
+          f'ids\' frame max|d| {enc_diff:.3e}; '
+          f'{time.perf_counter() - t_phase:.1f} s')
+    if not torch.isfinite(got).all() or diff.max() > RENDER_ATOL or \
+            diff.mean() > RENDER_MEAN:
+        raise AssertionError('call options: kernels and plain versions '
+                             'disagree')
+    if not moved > RENDER_ATOL:
+        raise AssertionError('the call options did not move the frame')
+    if enc_diff != 0.0:
+        raise AssertionError('the metadata_encoded frame is not the ids\' '
+                             'frame')
 
 
 def finish(kernels) -> int:

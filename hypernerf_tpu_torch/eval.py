@@ -14,28 +14,16 @@ their mean where ground truth exists. Renders on the CUDA card, and exits
 with an error when there is none; with ``HYPERNERF_PLATFORM=cpu`` in the
 environment (the variable the repository's other CLIs honour) it renders on
 the CPU instead, through the kernels' plain versions.
+
+Started by ``torchrun`` or with the ``HYPERNERF_COORDINATOR`` variables
+(``parallel.distributed``), every rank renders its share of each frame's
+chunks and rank 0 writes the files and prints (the JAX ``eval.py`` renders
+over every device); otherwise it renders on one card.
 """
 
 from __future__ import annotations
 
 import os
-
-
-def render_device():
-    """The device an entry point runs on: the CUDA card, or the CPU when
-    ``HYPERNERF_PLATFORM=cpu`` asks for it. No card and no such request is an
-    error, never a silent CPU run."""
-    import torch
-    platform = os.environ.get('HYPERNERF_PLATFORM', 'cuda').lower()
-    if platform == 'cpu':
-        return torch.device('cpu')
-    if platform not in ('cuda', 'gpu'):
-        raise SystemExit(f'HYPERNERF_PLATFORM={platform!r}: this package '
-                         f'runs on cuda, or on cpu when asked')
-    if not torch.cuda.is_available():
-        raise SystemExit('no CUDA device: this entry point runs on the GPU; '
-                         'set HYPERNERF_PLATFORM=cpu to run it on the CPU')
-    return torch.device('cuda')
 
 
 def eval_extra_params(nerf_cfg, train_cfg, step=None) -> dict:
@@ -50,6 +38,16 @@ def eval_extra_params(nerf_cfg, train_cfg, step=None) -> dict:
 
 
 def main(argv=None):
+    from hypernerf_tpu_torch.parallel import distributed
+    joined = distributed.maybe_initialize_distributed()
+    try:
+        _render(argv, joined)
+    finally:
+        if joined:
+            distributed.shutdown()
+
+
+def _render(argv, joined: bool):
     import numpy as np
     import torch
     from PIL import Image
@@ -58,11 +56,15 @@ def main(argv=None):
     from hypernerf_tpu_torch.datasets.depth_io import save_pfm
     from hypernerf_tpu_torch.opt import configs_from_args, get_opts
     from hypernerf_tpu_torch.models.nerf import NerfModel
+    from hypernerf_tpu_torch.parallel.distributed import rank_device
+    from hypernerf_tpu_torch.parallel.mesh import create_mesh
     from hypernerf_tpu_torch.training import checkpoints, metrics
     from hypernerf_tpu_torch.training.renderer import ImageRenderer
 
     args = get_opts(argv, eval_mode=True)
-    device = render_device()
+    mesh = create_mesh() if joined else None
+    device = mesh.device if mesh else rank_device()
+    primary = mesh is None or mesh.is_primary
     w, h = args.img_wh
     nerf_cfg, train_cfg = configs_from_args(args)
     weight_path = args.ckpt_path or args.weight_path
@@ -92,14 +94,17 @@ def main(argv=None):
     renderer = ImageRenderer(
         model, chunk=args.chunk, keep=keep, levels=(typ,), quantize=True,
         extra_params=eval_extra_params(nerf_cfg, train_cfg, step),
-        occupancy_grid=None if grid is None else grid.to(device))
+        occupancy_grid=None if grid is None else grid.to(device), mesh=mesh)
 
     dir_name = f'results/{args.dataset_name}/{args.scene_name}'
-    os.makedirs(dir_name, exist_ok=True)
+    if primary:
+        os.makedirs(dir_name, exist_ok=True)
     imgs, psnrs = [], []
     for i in range(len(dataset)):
         sample = dataset[i]
         out = renderer(sample['rays'])
+        if not primary:
+            continue
         img = out[typ]['rgb'].reshape(h, w, 3)
         if args.save_depth:
             depth = np.nan_to_num(out[typ]['depth'].reshape(h, w))
@@ -120,6 +125,8 @@ def main(argv=None):
             print(f'frame {i:03d}: psnr {frame_psnr:.2f}', flush=True)
         else:
             print(f'frame {i:03d} rendered', flush=True)
+    if not primary:
+        return
     imgs[0].save(os.path.join(dir_name, f'{args.scene_name}.gif'),
                  save_all=True, append_images=imgs[1:],
                  duration=1000.0 / args.gif_fps, loop=0)

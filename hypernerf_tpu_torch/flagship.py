@@ -178,7 +178,7 @@ def flagship_train_config(config: str = 'flagship',
 
 def flagship_train_setup(device, seed: int = 0, batch_size: int = TRAIN_BATCH,
                          n_rays: int = TRAIN_RAYS, config: str = 'flagship',
-                         train_overrides=None, **overrides):
+                         train_overrides=None, mesh=None, **overrides):
     """The train step's parts of ``config`` (with ``overrides`` of its
     NerfConfig and ``train_overrides`` of its TrainConfig, after
     ``TRAIN_CONFIGS``) on ``device``: (state, step_fn, all_rays, all_rgbs) —
@@ -187,7 +187,10 @@ def flagship_train_setup(device, seed: int = 0, batch_size: int = TRAIN_BATCH,
     state at step ``START_STEPS`` (0 but for ``anneal``) with, where the
     configuration uses one, ``bench_grid`` as its occupancy grid, and the
     synthetic ray buffer. A positive ``background_loss_weight`` gives the
-    step ``synthetic_background_points`` on the device."""
+    step ``synthetic_background_points`` on the device. ``mesh``: a
+    ``parallel.DataParallel`` context, whose ranks the step (and, with
+    ``shard_optimizer_state``, the optimizer) spans; every rank draws the
+    same weights from ``seed``."""
     from hypernerf_tpu_torch.training.optimizers import get_optimizer
     from hypernerf_tpu_torch.training.train_state import (TrainState,
                                                           make_train_step)
@@ -196,13 +199,14 @@ def flagship_train_setup(device, seed: int = 0, batch_size: int = TRAIN_BATCH,
     torch.manual_seed(seed)
     model = NerfModel(cfg).to(device).train()
     optimizer, schedule = get_optimizer(train_cfg, model.parameters(),
-                                        steps_per_epoch=1000)
+                                        steps_per_epoch=1000, mesh=mesh)
     background = None
     if train_cfg.background_loss_weight > 0:
         background = torch.from_numpy(synthetic_background_points()).to(
             device)
     step_fn = make_train_step(model, optimizer, cfg, train_cfg, device,
-                              schedule=schedule, background_points=background)
+                              schedule=schedule, background_points=background,
+                              mesh=mesh)
     rays, rgbs = synthetic_train_rays(n_rays)
     grid = bench_grid(cfg, device, seed) if cfg.use_occupancy_grid else None
     state = TrainState(step=START_STEPS.get(config, 0), model=model,

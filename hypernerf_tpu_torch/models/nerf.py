@@ -249,13 +249,16 @@ class NerfModel(nn.Module):
             return self.encode_warp_embed(metadata)
         return self._encode_embed(self.nerf_embed, metadata[NERF_EMBED_KEY])
 
-    def get_condition_inputs(self, viewdirs, metadata, extra_params=None):
+    def get_condition_inputs(self, viewdirs, metadata, extra_params=None,
+                             metadata_encoded: bool = False):
         """The per-ray (alpha condition, rgb condition), each None when
         empty: the rgb condition is posenc_orig of the view directions, or
         with the Nerfies encoding their ``posenc`` with identity windowed by
         ``nerf_alpha`` (``use_viewdirs``), then the nerf embedding
         (``use_nerf_embed`` and ``use_rgb_condition``); the alpha condition
-        is the nerf embedding (``use_alpha_condition``)."""
+        is the nerf embedding (``use_alpha_condition``). With
+        ``metadata_encoded`` the embedding is ``metadata['encoded_nerf']``,
+        not the table's."""
         cfg = self.config
         alpha, rgb = [], []
         if cfg.use_viewdirs:
@@ -267,7 +270,8 @@ class NerfModel(nn.Module):
                     use_identity=True,
                     alpha=(extra_params or {}).get('nerf_alpha')))
         if cfg.use_nerf_embed:
-            embed = self.encode_nerf_embed(metadata)
+            embed = (metadata['encoded_nerf'] if metadata_encoded
+                     else self.encode_nerf_embed(metadata))
             if cfg.use_alpha_condition:
                 alpha.append(embed)
             if cfg.use_rgb_condition:
@@ -493,7 +497,9 @@ class NerfModel(nn.Module):
                        generator=None, extra_params=None,
                        return_warp_jacobian: bool = False,
                        subsample: bool = False, jacobian_u=None,
-                       conds=None, window_rows=None
+                       conds=None, window_rows=None,
+                       metadata_encoded: bool = False,
+                       sample_at_infinity: Optional[bool] = None
                        ) -> Dict[str, torch.Tensor]:
         """Warp, template and compositing of one level at depths ``z_vals``
         (B, S). ``noise``: (B, S) standard-normal draws of the sigma noise,
@@ -501,20 +507,27 @@ class NerfModel(nn.Module):
         the warp Jacobian, on the fused branch subsampled when ``subsample``
         (with the uniforms ``jacobian_u``). ``conds``: the (alpha, rgb)
         conditions of ``viewdirs`` and ``metadata``; ``window_rows``:
-        ``window_rows(extra_params)`` (each built here when not given)."""
+        ``window_rows(extra_params)`` (each built here when not given).
+        ``metadata_encoded``: the metadata holds the embeddings,
+        'encoded_warp' (the level kernel's, which the plane also takes as its
+        hyper coordinates) and, on the per-module branch, 'encoded_hyper'.
+        ``sample_at_infinity``: None takes the config's."""
         cfg = self.config
         if conds is None:
             conds = self.get_condition_inputs(viewdirs, metadata,
-                                              extra_params)
+                                              extra_params, metadata_encoded)
+        if sample_at_infinity is None:
+            sample_at_infinity = cfg.use_sample_at_infinity
         alpha_cond, rgb_cond = conds
         if window_rows is None:
             window_rows = self.window_rows(extra_params, z_vals.device)
         points = origins[:, None, :] + z_vals[..., None] * directions[:, None,
                                                                       :]
         flags = dict(use_white_background=cfg.use_white_background,
-                     sample_at_infinity=cfg.use_sample_at_infinity)
+                     sample_at_infinity=sample_at_infinity)
         if self._fused_branch(use_warp, return_points, metadata):
-            warp_embed = self.encode_warp_embed(metadata)
+            warp_embed = (metadata['encoded_warp'] if metadata_encoded
+                          else self.encode_warp_embed(metadata))
             packed = fused_level(
                 self.level(name), z_vals, origins, directions, warp_embed,
                 self._kernel_rgb(rgb_cond, z_vals.shape[0], z_vals),
@@ -549,9 +562,14 @@ class NerfModel(nn.Module):
         # The per-module branch: embeddings broadcast over the samples.
         warp_embed = hyper_embed = None
         if use_warp:
-            warp_embed = self.encode_warp_embed(metadata)
-            if cfg.has_hyper_embed:
-                hyper_embed = self.encode_hyper_embed(metadata)
+            if metadata_encoded:
+                warp_embed = metadata['encoded_warp']
+                if cfg.has_hyper_embed:
+                    hyper_embed = metadata['encoded_hyper']
+            else:
+                warp_embed = self.encode_warp_embed(metadata)
+                if cfg.has_hyper_embed:
+                    hyper_embed = self.encode_hyper_embed(metadata)
 
         def per_sample(e):
             return None if e is None else e[:, None, :].expand(
@@ -592,8 +610,10 @@ class NerfModel(nn.Module):
                 extra_params: Optional[Dict[str, Any]] = None,
                 return_warp_jacobian: bool = False,
                 window_rows=None,
-                occupancy_grid: Optional[torch.Tensor] = None
-                ) -> Dict[str, Dict]:
+                occupancy_grid: Optional[torch.Tensor] = None,
+                near=None, far=None,
+                use_sample_at_infinity: Optional[bool] = None,
+                metadata_encoded: bool = False) -> Dict[str, Dict]:
         """Render a batch of rays.
 
         Args:
@@ -632,6 +652,15 @@ class NerfModel(nn.Module):
             draws no fine depths and the fine draw is ``sample_pdf`` on the
             coarse weights gated by the grid. Without a grid every
             configuration renders as it does without one, as in JAX.
+          near / far: the depth range, a number or (B,), in place of the
+            rays' own 'near' / 'far', which take the place of the config's.
+          use_sample_at_infinity: in place of the config's, on the fine
+            level; the coarse level keeps the config's, as the JAX model's
+            does.
+          metadata_encoded: the metadata holds each ray's embeddings in
+            place of ids: 'encoded_warp' (B, glo_dim), 'encoded_hyper' (with
+            separate tables) and 'encoded_nerf' (with ``use_nerf_embed``);
+            the GLO tables are not read.
 
         Returns:
           {'coarse': {...}, 'fine': {...}} with per-ray rgb / depth /
@@ -647,8 +676,12 @@ class NerfModel(nn.Module):
         viewdirs = rays_dict.get('viewdirs')
         if viewdirs is None:
             viewdirs = directions  # unnormalised, as the JAX model does
-        near = rays_dict.get('near', cfg.near)
-        far = rays_dict.get('far', cfg.far)
+        if near is None:
+            near = rays_dict.get('near', cfg.near)
+        if far is None:
+            far = rays_dict.get('far', cfg.far)
+        if use_sample_at_infinity is None:
+            use_sample_at_infinity = cfg.use_sample_at_infinity
         n_rays = origins.shape[0]
 
         grid_on = cfg.use_occupancy_grid and occupancy_grid is not None
@@ -687,8 +720,10 @@ class NerfModel(nn.Module):
                       return_warp_jacobian=return_warp_jacobian,
                       subsample=not deterministic,
                       conds=self.get_condition_inputs(viewdirs, metadata,
-                                                      extra_params),
-                      window_rows=window_rows)
+                                                      extra_params,
+                                                      metadata_encoded),
+                      window_rows=window_rows,
+                      metadata_encoded=metadata_encoded)
         # The compositing kernel draws the fine depths itself, except where
         # the fine level filters sigma or the grid gates the draw: then
         # ``sample_pdf`` does below.
@@ -696,7 +731,8 @@ class NerfModel(nn.Module):
             'coarse', z_vals, origins, directions, viewdirs, metadata,
             fine_u=None if render_opts or grid_on else fine_u,
             noise=draws.get('noise_coarse'),
-            jacobian_u=draws.get('jacobian_u_coarse'), **common)
+            jacobian_u=draws.get('jacobian_u_coarse'),
+            sample_at_infinity=cfg.use_sample_at_infinity, **common)
         out = {'coarse': coarse}
         if n_fine:
             z_union = coarse.pop('z_union', None)
@@ -715,7 +751,8 @@ class NerfModel(nn.Module):
             out['fine'] = self.render_samples(
                 'fine', z_union, origins, directions, viewdirs, metadata,
                 render_opts=render_opts, noise=draws.get('noise_fine'),
-                jacobian_u=draws.get('jacobian_u_fine'), **common)
+                jacobian_u=draws.get('jacobian_u_fine'),
+                sample_at_infinity=use_sample_at_infinity, **common)
         if not return_weights:
             for res in out.values():
                 res.pop('weights', None)

@@ -14,7 +14,8 @@ The port's own copy of ``hypernerf_tpu/opt.py``: same flags and defaults
 (``tests/test_torch_imports.py`` holds the two together). ``--no_pallas``
 is accepted and inert here; ``--profile_steps`` / ``--profile_start``
 trace the trainer's steps with ``torch.profiler``; ``--num_devices`` /
-``--num_gpus`` above 1 raise (one device; multi-GPU is ROADMAP A.12).
+``--num_gpus`` N start N data-parallel ranks, one a GPU (``train.py``), and
+``--shard_optimizer_state`` shards the optimizer's moments over them.
 """
 
 from __future__ import annotations
@@ -97,9 +98,10 @@ def build_parser(eval_mode: bool = False) -> argparse.ArgumentParser:
     parser.add_argument('--max_steps', type=int, default=None,
                         help='total training steps (overrides num_epochs)')
     parser.add_argument('--num_devices', type=int, default=None,
-                        help='devices to train on: the port trains on '
-                             'one, and more than 1 raises (multi-GPU is '
-                             'ROADMAP A.12)')
+                        help='GPUs to train on: start this many '
+                             'data-parallel ranks on this host, one process '
+                             'a card (gloo processes on the CPU with '
+                             'HYPERNERF_PLATFORM=cpu); default: one process')
     parser.add_argument('--num_gpus', type=int, default=None,
                         help='alias of --num_devices (reference compat)')
     parser.add_argument('--precision', type=str, default='bf16',
@@ -122,10 +124,12 @@ def build_parser(eval_mode: bool = False) -> argparse.ArgumentParser:
     parser.add_argument('--shard_optimizer_state', default=False,
                         action='store_true',
                         help='ZeRO-1: shard the optimizer moments over the '
-                             'data mesh axis (the reference runs fairscale '
+                             'ranks (the reference runs fairscale '
                              'ddp_sharded whenever num_gpus>1, '
-                             'train.py:229). Same update, 1/N moment '
-                             'memory per chip.')
+                             'train.py:229): each rank updates its share of '
+                             'the parameters and broadcasts it. Same update, '
+                             'about 1/N of the moment memory per card; no '
+                             'effect on one rank.')
     parser.add_argument('--lr', type=float, default=5e-4)
     parser.add_argument('--momentum', type=float, default=0.9)
     parser.add_argument('--weight_decay', type=float, default=0.0)

@@ -15,6 +15,13 @@
 lie beside a weight file or a checkpoint's ``step_N`` directory, so that
 eval renders the configuration that was trained. Every tensor is saved on
 the CPU; loads map it to the CPU first.
+
+In a data-parallel launch every rank calls ``save_checkpoint`` and rank 0
+alone writes (the JAX trainer saves on process 0). Under ZeRO-1 the
+moments are gathered to rank 0 first, so the file holds the replicated
+optimizer's state dict, the same keys and tensors as a replicated run's:
+it resumes in a run of any world size, with ZeRO on or off, and
+``restore_checkpoint`` hands each rank its share.
 """
 
 from __future__ import annotations
@@ -27,6 +34,8 @@ from typing import Optional, Sequence
 import torch
 
 from hypernerf_tpu_torch.configs import NerfConfig, TrainConfig
+from hypernerf_tpu_torch.parallel.distributed import is_primary_host
+from hypernerf_tpu_torch.training.optimizers import full_state_dict
 
 MODEL_KEY = 'nerf'
 CKPT_NAME = 'checkpoint.pt'
@@ -94,12 +103,17 @@ def save_checkpoint(ckpt_dir: str, step: int, state, nerf_config=None,
                     train_config=None, metrics: Optional[dict] = None) -> str:
     """Save the full ``training.train_state.TrainState`` at
     ``ckpt_dir/step_{step}``, record ``metrics`` in the manifest and write
-    the configs beside it; returns the checkpoint's path."""
+    the configs beside it; returns the checkpoint's path. In a launch, call
+    it on every rank (ZeRO-1 gathers the moments): rank 0 writes, the
+    others return the path without writing."""
     ckpt_dir = os.path.abspath(ckpt_dir)
     path = os.path.join(ckpt_dir, f'step_{step}')
+    opt_state = full_state_dict(state.optimizer)
+    if not is_primary_host():
+        return path
     os.makedirs(path, exist_ok=True)
     payload = {MODEL_KEY: _to_cpu(state.model.state_dict()),
-               'opt_state': _to_cpu(state.optimizer.state_dict()),
+               'opt_state': _to_cpu(opt_state),
                'step': int(step)}
     if state.occupancy is not None:
         payload['occupancy'] = _to_cpu(state.occupancy)
@@ -203,7 +217,8 @@ def restore_checkpoint(path: str, state=None):
     ``TrainState``, load its weights, optimizer state and step into it (in
     place, and return it); its grid replaces the state's where the state has
     one, and a checkpoint without a grid leaves the state's fresh grid as it
-    is (a run that turns the grid on resumes from an older checkpoint)."""
+    is (a run that turns the grid on resumes from an older checkpoint).
+    A ZeRO-1 optimizer keeps its rank's share of the moments."""
     raw = _payload(path)
     if state is None:
         return raw

@@ -29,10 +29,20 @@ rectifier) computed in float32 as JAX computes them:
 Every update writes through the parameter under ``no_grad`` (in-place
 foreach ops), so each bumps the version counter that keys the level
 kernels' packed weights (``kernels/common.py``); none takes a fused step.
+
+ZeRO-1 (``shard_optimizer_state`` in a launch of N > 1 ranks, the JAX
+package's ``train_state.py:100-117, 225-254``): ``get_optimizer`` returns a
+``torch.distributed.optim.ZeroRedundancyOptimizer`` over the same class.
+Each rank keeps the moments of its share of the parameters (whole tensors,
+the largest first, each to the rank that holds the fewest elements so far),
+updates that share and broadcasts it to the others. The update of each
+parameter is the replicated one; at N = 1 the flag changes nothing, as in
+JAX.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Callable, Optional
 
 import numpy as np
@@ -110,23 +120,89 @@ def get_scheduler(cfg: TrainConfig, steps_per_epoch: int,
 
 
 def get_optimizer(cfg: TrainConfig, params, steps_per_epoch: int,
-                  total_steps: Optional[int] = None):
+                  total_steps: Optional[int] = None, mesh=None):
     """(optimizer, schedule) of ``cfg.optimizer`` over ``params``; the
-    schedule's value at update 0 is the groups' first ``lr``."""
+    schedule's value at update 0 is the groups' first ``lr``. With
+    ``cfg.shard_optimizer_state`` and a ``parallel.DataParallel`` ``mesh``
+    of more than one rank, the optimizer is ZeRO-1's: a
+    ``ZeroRedundancyOptimizer`` of the same class on each rank's share of
+    ``params``, whose ``step`` bumps every parameter's version on every rank
+    and whose ``full_state_dict`` gathers the state to rank 0 (build it on
+    every rank)."""
     schedule = get_scheduler(cfg, steps_per_epoch, total_steps)
     kw = dict(lr=schedule(0), weight_decay=cfg.weight_decay)
     if cfg.optimizer == 'sgd':
-        optimizer = torch.optim.SGD(params, momentum=cfg.momentum,
-                                    dampening=0.0, **kw)
-    elif cfg.optimizer == 'adam':
-        optimizer = Adam(params, **kw)
-    elif cfg.optimizer == 'radam':
-        optimizer = RAdam(params, **kw)
-    elif cfg.optimizer == 'ranger':
-        optimizer = Ranger(params, **kw)
+        cls = torch.optim.SGD
+        kw.update(momentum=cfg.momentum, dampening=0.0)
+    elif cfg.optimizer in ('adam', 'radam', 'ranger'):
+        cls = {'adam': Adam, 'radam': RAdam, 'ranger': Ranger}[cfg.optimizer]
     else:
         raise ValueError(f'optimizer not recognized: {cfg.optimizer}')
-    return optimizer, schedule
+    if cfg.shard_optimizer_state and mesh is not None \
+            and mesh.world_size > 1:
+        return _zero_class()(params, cls, **kw), schedule
+    return cls(params, **kw), schedule
+
+
+@functools.cache
+def _zero_class():
+    # Imported on first use: torch.distributed.optim takes seconds to load.
+    from torch.distributed.optim import ZeroRedundancyOptimizer
+
+    class ZeroOptimizer(ZeroRedundancyOptimizer):
+        """``ZeroRedundancyOptimizer`` that keeps the level kernels' packed
+        weights current and saves the replicated optimizer's state dict."""
+
+        def step(self, closure=None, **kwargs):
+            loss = super().step(closure, **kwargs)
+            # Each rank updates its share in place (bumping those versions)
+            # and receives the others' by broadcast, which bumps none: the
+            # level kernels, whose packed bf16 weights are keyed on the
+            # versions, would run the last step's weights on every rank but
+            # a parameter's owner. Bumped here, where no caller can forget.
+            torch.autograd.graph.increment_version(
+                [p for g in self.param_groups for p in g['params']])
+            return loss
+
+        def full_state_dict(self):
+            """The state dict of the replicated optimizer, each moment
+            whole, on rank 0; None on the other ranks. Collective: call it
+            on every rank."""
+            self.consolidate_state_dict(to=0)
+            if self.rank != 0:
+                return None
+            if self._default_device.type == 'cuda':
+                # The consolidation's copies to the host are non-blocking.
+                torch.cuda.synchronize(self._default_device)
+            state = self.state_dict()
+            self._all_state_dicts = []
+            # The wrapper's groups hold what was synced from the local
+            # optimizer; take every key the replicated groups have.
+            for group, local in zip(state['param_groups'],
+                                    self.optim.param_groups):
+                group.update({k: v for k, v in local.items()
+                              if k != 'params'})
+            return state
+
+    return ZeroOptimizer
+
+
+def full_state_dict(optimizer):
+    """``optimizer``'s state dict as a replicated run holds it: ZeRO's
+    gathered to rank 0 (None elsewhere; collective), else its own."""
+    if hasattr(optimizer, 'full_state_dict'):
+        return optimizer.full_state_dict()
+    return optimizer.state_dict()
+
+
+def moment_bytes(optimizer) -> int:
+    """Bytes of the optimizer state this rank holds (its tensors of more
+    than one element: the moments, ranger's slow weights)."""
+    # ZeRO-1's local optimizer holds this rank's share.
+    state = getattr(optimizer, 'optim', optimizer).state
+    return sum(v.numel() * v.element_size() for s in state.values()
+               for v in s.values()
+               if isinstance(v, torch.Tensor) and v.dim() > 0)
 
 
 class Adam(torch.optim.Optimizer):
@@ -241,3 +317,4 @@ class Ranger(RAdam):
         diff = torch._foreach_sub(params, slows)
         torch._foreach_add_(slows, diff, alpha=SLOW_STEP_SIZE)
         torch._foreach_add_(params, diff, alpha=-(1.0 - SLOW_STEP_SIZE))
+

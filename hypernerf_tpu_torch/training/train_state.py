@@ -1,18 +1,29 @@
-"""Train state and the single-device train step (port of
+"""Train state and the data-parallel train step (port of
 ``hypernerf_tpu/training/train_state.py``).
 
-The whole dataset (all rays and their colours) lives on the device; the step
-draws its batch of ray indices there, renders coarse + fine with stratified
-jitter and sigma noise, takes the MSE loss plus, where their weights are
-set, the elastic regularizer (the warp Jacobian, ``NerfModel`` with
-``return_warp_jacobian``) and the background regularizer (the warp on known
-static points), back-propagates through both levels' kernels and applies
-Adam at the scheduled rate. The JAX package's ``shard_map`` / ``pmean`` /
-ZeRO-1 forms are ROADMAP A.12.
+The whole dataset (all rays and their colours) lives on each rank's device;
+the step draws its batch of ray indices there, renders coarse + fine with
+stratified jitter and sigma noise, takes the MSE loss plus, where their
+weights are set, the elastic regularizer (the warp Jacobian, ``NerfModel``
+with ``return_warp_jacobian``) and the background regularizer (the warp on
+known static points), back-propagates through both levels' kernels and
+applies the optimizer at the scheduled rate.
+
+Over a ``parallel.DataParallel`` context of N ranks (the JAX package's
+``shard_map`` over the ``'data'`` mesh axis) each rank takes batch_size / N
+rays, and after the backward every gradient, the loss and the batch MSE are
+averaged over the ranks by one all-reduce (``lax.pmean``), so that every
+rank takes the same update; ``shard_optimizer_state`` makes the optimizer
+ZeRO-1's (``optimizers.get_optimizer``). The all-reduce follows the
+backward, as in JAX, rather than ``DistributedDataParallel``'s hooks: the
+step differentiates more than one call of the model (the render, and
+``apply_warp`` for the background term), where DDP's reducer expects one
+forward through its wrapper.
 
 Random draws come from one ``torch.Generator`` on the device, re-seeded
-every step from (base seed, step), so a step's draws depend on nothing but
-those two numbers.
+every step from (base seed, step, rank), so a step's draws depend on nothing
+but those numbers; rank 0 draws what a single process draws (the rank is
+folded in from rank 1 on, as JAX folds the axis index).
 
 With ``use_occupancy_grid`` the state carries the (G, G, G) grid, which the
 step passes to the model and ``make_occupancy_update`` refreshes from the
@@ -34,8 +45,15 @@ from hypernerf_tpu_torch.models.nerf import NerfModel
 from hypernerf_tpu_torch.ops.occupancy import (cell_points, config_bbox,
                                                init_grid, update_grid)
 from hypernerf_tpu_torch.ops.ray_dict import prepare_ray_dict
+from hypernerf_tpu_torch.parallel.mesh import (DataParallel, all_reduce_mean,
+                                               shard_batch)
 from hypernerf_tpu_torch.training.losses import (background_loss, loss_dict,
                                                  weighted_elastic_loss)
+
+# The draws of ``step_fn``'s ``draws`` with a row per ray of the global
+# batch: a rank takes its rows of each.
+PER_RAY_DRAWS = ('idx', 't_rand', 'coarse_u', 'fine_u', 'noise_coarse',
+                 'noise_fine', 'jacobian_u_coarse', 'jacobian_u_fine')
 
 
 @dataclasses.dataclass
@@ -87,34 +105,53 @@ def compute_extra_params(nerf_cfg: NerfConfig, train_cfg: TrainConfig,
             'hyper_sheet_alpha': hyper_alpha}
 
 
-def step_generator(state: TrainState, device,
-                   stream: int = 0) -> torch.Generator:
-    """The generator of step ``state.step``, seeded from (seed, step);
-    ``stream`` 1 is the occupancy refresh's, apart from the step's 0."""
+def step_generator(state: TrainState, device, stream: int = 0,
+                   rank: int = 0) -> torch.Generator:
+    """The generator of step ``state.step`` on ``rank``, seeded from (seed,
+    step, rank); ``stream`` 1 is the occupancy refresh's, apart from the
+    step's 0. Rank 0's seed does not depend on the rank, so a world of one
+    draws what a single process draws. The rank moves the seed's low 32
+    bits, the only ones the CPU's generator reads."""
     gen = torch.Generator(device=device)
-    gen.manual_seed((state.seed * 1_000_003 + state.step + (stream << 40))
-                    % (1 << 63))
+    gen.manual_seed((state.seed * 1_000_003 + state.step + (stream << 40)
+                     + rank * _RANK_STRIDE) % (1 << 63))
     return gen
+
+
+# An odd multiplier: ranks 1 to 2^32 - 1 move the seed's low 32 bits, each
+# by a different amount, and rank r meets rank 0's seed of another step only
+# 2.65e9 steps away.
+_RANK_STRIDE = 0x9E3779B1
 
 
 def make_train_step(model: NerfModel, optimizer: torch.optim.Optimizer,
                     nerf_cfg: NerfConfig, train_cfg: TrainConfig, device,
                     schedule: Optional[Callable[[int], float]] = None,
                     explicit_batch: bool = False,
-                    background_points: Optional[torch.Tensor] = None):
+                    background_points: Optional[torch.Tensor] = None,
+                    mesh: Optional[DataParallel] = None):
     """Build the train step.
 
     Returns ``step_fn(state, all_rays, all_rgbs, draws=None) -> metrics``:
     ``all_rays`` (N, 9) and ``all_rgbs`` (N, 3) are the dataset's buffers on
-    ``device`` and the step draws ``train_cfg.batch_size`` indices there.
-    With ``explicit_batch`` the two arguments ARE the batch. ``draws`` passes
-    the model's stochastic draws in (``NerfModel.forward``) and the
-    background term's: 'background_idx' (n,) rows of ``background_points``
-    (M, 3) on ``device`` and 'background_ids' (n, 1) metadata ids, n =
-    ``train_cfg.background_points_per_step``; a missing key is drawn after
-    the model's draws. The state is updated in place; ``metrics`` holds 0-d
-    tensors ``loss`` and ``psnr`` (of the fine level where there is one) on
-    the device.
+    ``device`` and the step draws ``train_cfg.batch_size`` indices there
+    (over ``mesh``'s R ranks, batch_size / R on each). With
+    ``explicit_batch`` the two arguments ARE the global batch, of which
+    each rank takes its rows (``parallel.shard_batch``). ``draws`` passes
+    the draws in: 'idx' (batch_size,) indices of the global batch, the
+    model's stochastic draws (``NerfModel.forward``; each of these a row per
+    ray of the global batch, ``PER_RAY_DRAWS``, of which each rank takes its
+    rows) and the background term's: 'background_idx' (n,) rows of
+    ``background_points`` (M, 3) on ``device`` and 'background_ids' (n, 1)
+    metadata ids, n = ``train_cfg.background_points_per_step``; a missing
+    key is drawn after the model's draws. The state is updated in place;
+    ``metrics`` holds 0-d tensors ``loss`` and ``psnr`` (of the fine level
+    where there is one, both averaged over the ranks) on the device.
+
+    ``mesh``: a ``parallel.DataParallel`` context; with a process group the
+    gradients, the loss and the batch MSE are averaged over its ranks after
+    the backward (also in a world of one). batch_size must be divisible by
+    the number of ranks.
     """
     if optimizer.defaults.get('fused'):
         # The level kernels' packed weights follow the parameters' version
@@ -122,6 +159,13 @@ def make_train_step(model: NerfModel, optimizer: torch.optim.Optimizer,
         raise ValueError('the train step takes no fused optimizer: its '
                          'in-place update bumps no version counter, so the '
                          'level kernels would keep stale packed weights')
+    mesh = mesh or DataParallel(device=torch.device(device))
+    if train_cfg.batch_size % mesh.world_size:
+        raise ValueError(
+            f'batch_size {train_cfg.batch_size} must be divisible by the '
+            f'number of ranks {mesh.world_size}')
+    per_rank = train_cfg.batch_size // mesh.world_size
+    params = [p for p in model.parameters() if p.requires_grad]
     loss_fn = loss_dict[train_cfg.loss_type]
     device = torch.device(device)
     elastic_on = train_cfg.elastic_loss_weight > 0
@@ -145,14 +189,17 @@ def make_train_step(model: NerfModel, optimizer: torch.optim.Optimizer,
 
     def step_fn(state: TrainState, all_rays, all_rgbs,
                 draws: Optional[Dict[str, torch.Tensor]] = None):
-        draws = draws or {}
-        gen = step_generator(state, device)
+        draws = {k: shard_batch(mesh, v) if k in PER_RAY_DRAWS else v
+                 for k, v in (draws or {}).items()}
+        gen = step_generator(state, device, rank=mesh.rank)
         if explicit_batch:
-            rays, rgbs = all_rays, all_rgbs
+            rays = shard_batch(mesh, all_rays)
+            rgbs = shard_batch(mesh, all_rgbs)
         else:
-            idx = torch.randint(0, all_rays.shape[0],
-                                (train_cfg.batch_size,), generator=gen,
-                                device=device)
+            idx = draws.get('idx')
+            if idx is None:
+                idx = torch.randint(0, all_rays.shape[0], (per_rank,),
+                                    generator=gen, device=device)
             rays = all_rays.index_select(0, idx)
             rgbs = all_rgbs.index_select(0, idx)
         extra_params = compute_extra_params(nerf_cfg, train_cfg, state.step)
@@ -174,13 +221,20 @@ def make_train_step(model: NerfModel, optimizer: torch.optim.Optimizer,
             batch_mse = torch.mean((results[typ]['rgb'] - rgbs) ** 2)
         optimizer.zero_grad(set_to_none=True)
         loss.backward()
+        loss = loss.detach()
+        if mesh.joined:
+            # lax.pmean of the gradients, the loss and the batch MSE: one
+            # all-reduce of a flat fp32 buffer.
+            stats = torch.stack([loss, batch_mse])
+            all_reduce_mean(mesh, [p.grad for p in params
+                                   if p.grad is not None] + [stats])
+            loss, batch_mse = stats[0], stats[1]
         if schedule is not None:
             for group in optimizer.param_groups:
                 group['lr'] = schedule(state.step)
         optimizer.step()
         state.step += 1
-        return {'loss': loss.detach(),
-                'psnr': -10.0 * torch.log10(batch_mse)}
+        return {'loss': loss, 'psnr': -10.0 * torch.log10(batch_mse)}
 
     return step_fn
 
@@ -198,7 +252,10 @@ def make_occupancy_update(model: NerfModel, nerf_cfg: NerfConfig,
     Returns ``update(state, u=None, ids=None) -> grid``, which replaces
     ``state.occupancy`` and returns it. ``u`` (G^3, 3) uniforms of the
     jitter and ``ids`` (n_ids,) integer ids are drawn, when absent, from the
-    refresh's generator of (seed, step) (``step_generator`` stream 1).
+    refresh's generator of (seed, step) (``step_generator`` stream 1),
+    which folds in no rank: every rank of a launch draws the same numbers
+    with the same parameters, so the grid stays the same on every rank (the
+    JAX refresh folds in the step alone).
     """
     cfg = nerf_cfg
     g = cfg.occupancy_resolution

@@ -1,7 +1,15 @@
 """The trainer (port of ``hypernerf_tpu/training/trainer.py``): the model
 from the configs, the dataset on the device, the train step, validation
 with GT / pred / depth logging, the checkpoint cadence, warm start and
-resume, on one device.
+resume, on one device or over the ranks of a data-parallel launch.
+
+Over a ``parallel.DataParallel`` context (the JAX trainer's mesh) every
+rank holds the dataset on its card, starts from rank 0's weights
+(``parallel.replicate``), takes its share of each step's batch and of each
+val frame's chunks, and reads the all-reduced step metrics; rank 0 alone
+prints, logs (give the other ranks no logger), writes val images,
+checkpoints and the manifest, and prunes, and the others wait for each
+checkpoint at a barrier.
 
 The JAX trainer's cadences, step for step: a sanity val at step 0, the
 occupancy grid's refresh every ``occupancy_update_every`` steps, the
@@ -26,6 +34,8 @@ import torch
 from hypernerf_tpu_torch.configs import NerfConfig, TrainConfig
 from hypernerf_tpu_torch.datasets import dataset_dict
 from hypernerf_tpu_torch.models.nerf import NerfModel
+from hypernerf_tpu_torch.parallel.mesh import (DataParallel, barrier,
+                                               replicate)
 from hypernerf_tpu_torch.training import checkpoints as ckpt_lib
 from hypernerf_tpu_torch.training.losses import loss_dict
 from hypernerf_tpu_torch.training.optimizers import get_optimizer
@@ -40,19 +50,24 @@ from hypernerf_tpu_torch.utils.visualization import visualize_depth
 
 
 class Trainer:
-    """``Trainer(nerf_cfg, train_cfg, device, logger=None)``; ``fit()``
-    trains from the state's step to ``total_steps`` and returns the last
-    metrics; ``validate(step)`` renders the first val image.
+    """``Trainer(nerf_cfg, train_cfg, device, logger=None, mesh=None)``;
+    ``fit()`` trains from the state's step to ``total_steps`` and returns
+    the last metrics; ``validate(step)`` renders the first val image.
+    ``mesh``: the ``parallel.DataParallel`` context of a launch (build the
+    trainer on every rank); None trains in this process alone.
 
     ``seconds`` holds the last ``fit``'s wall seconds: 'fit' in all, 'val'
     and 'checkpoint' of them (each timed from a synchronized device);
     ``last_metrics`` what it returned."""
 
     def __init__(self, nerf_cfg: NerfConfig, train_cfg: TrainConfig,
-                 device, logger: Optional[MetricsLogger] = None):
+                 device, logger: Optional[MetricsLogger] = None,
+                 mesh: Optional[DataParallel] = None):
         self.train_cfg = train_cfg
         self.device = torch.device(device)
         self.logger = logger
+        self.mesh = mesh or DataParallel(device=self.device)
+        self.primary = self.mesh.is_primary
 
         dataset_cls = dataset_dict[train_cfg.dataset_name]
         kwargs = dict(root_dir=train_cfg.root_dir,
@@ -98,9 +113,11 @@ class Trainer:
             ckpt_lib.load_weights(
                 self.model, train_cfg.weight_path, strict=False,
                 prefixes_to_ignore=train_cfg.prefixes_to_ignore)
+        # Rank 0's weights on every rank, before ranger takes its slow copy.
+        replicate(self.mesh, self.model)
         self.optimizer, self.lr_schedule = get_optimizer(
             train_cfg, self.model.parameters(), self.steps_per_epoch,
-            self.total_steps)
+            self.total_steps, mesh=self.mesh)
         self.state = TrainState(0, self.model, self.optimizer,
                                 seed=train_cfg.seed)
         self.ckpt_dir = os.path.join(train_cfg.ckpt_dir, train_cfg.exp_name)
@@ -121,7 +138,8 @@ class Trainer:
                                                 device=self.device)
         self.train_step = make_train_step(
             self.model, self.optimizer, nerf_cfg, train_cfg, self.device,
-            schedule=self.lr_schedule, background_points=background_points)
+            schedule=self.lr_schedule, background_points=background_points,
+            mesh=self.mesh)
         self.occupancy_update = (
             make_occupancy_update(self.model, nerf_cfg, train_cfg)
             if nerf_cfg.use_occupancy_grid else None)
@@ -140,16 +158,18 @@ class Trainer:
 
     def validate(self, step: int) -> Dict[str, float]:
         """Render the first val image at ``step``'s annealing alphas through
-        the state's grid; 'val/loss' is the training loss over all levels,
-        'val/psnr' the final level's. Logs both and the GT / pred / depth
-        triplet where the trainer has a logger."""
+        the state's grid (its chunks shared by the ranks); 'val/loss' is
+        the training loss over all levels, 'val/psnr' the final level's.
+        Logs both and the GT / pred / depth triplet where the trainer has a
+        logger."""
         rays, rgbs, rgbs_dev = self._val_sample()
         out = render_rays(
             self.model, rays, chunk=self.train_cfg.chunk,
             keep=('rgb', 'depth'),
             extra_params=compute_extra_params(self.nerf_cfg,
                                               self.train_cfg, step),
-            occupancy_grid=self.state.occupancy, to_numpy=False)
+            occupancy_grid=self.state.occupancy, to_numpy=False,
+            mesh=self.mesh)
         typ = 'fine' if self.nerf_cfg.num_fine_samples > 0 else 'coarse'
         pred = out[typ]['rgb']
         loss = loss_dict[self.train_cfg.loss_type](out, rgbs_dev)
@@ -214,12 +234,15 @@ class Trainer:
             if self.logger is not None:
                 for k, v in train_metrics.items():
                     self.logger.add_scalar(k, v, log_step)
-            print(f'step {log_step}/{self.total_steps} loss={loss:.5f} '
-                  f'psnr={psnr:.2f} rays/s={rays_per_sec:,.0f}', flush=True)
+            if self.primary:
+                print(f'step {log_step}/{self.total_steps} loss={loss:.5f} '
+                      f'psnr={psnr:.2f} rays/s={rays_per_sec:,.0f}',
+                      flush=True)
             pending_log = None
 
         for step in range(start_step, self.total_steps):
-            if cfg.profile_steps > 0 and step == cfg.profile_start:
+            if cfg.profile_steps > 0 and step == cfg.profile_start \
+                    and self.primary:
                 profiler = self._start_profiler()
             if (self.occupancy_update is not None
                     and step % cfg.occupancy_update_every == 0):
@@ -240,8 +263,9 @@ class Trainer:
             if (step + 1) % val_every == 0:
                 val_metrics = timed('val', self.validate, step + 1)
                 last_metrics.update(val_metrics)
-                print(f'  val psnr={val_metrics["val/psnr"]:.2f} '
-                      f'(step {step + 1})', flush=True)
+                if self.primary:
+                    print(f'  val psnr={val_metrics["val/psnr"]:.2f} '
+                          f'(step {step + 1})', flush=True)
 
             if (step + 1) % ckpt_every == 0 or step + 1 == self.total_steps:
                 timed('checkpoint', self._save, step + 1, last_metrics)
@@ -255,14 +279,17 @@ class Trainer:
         return last_metrics
 
     def _save(self, step: int, last_metrics: Dict[str, float]) -> None:
+        """Every rank: ZeRO-1 gathers its moments to rank 0, which writes
+        and prunes while the others wait."""
         cfg = self.train_cfg
         ckpt_lib.save_checkpoint(
             self.ckpt_dir, step, self.state, nerf_config=self.nerf_cfg,
             train_config=cfg,
             metrics={k: v for k, v in last_metrics.items()
                      if k.startswith('val/')})
-        if cfg.ckpt_keep_top_k:
+        if cfg.ckpt_keep_top_k and self.primary:
             ckpt_lib.prune_checkpoints(self.ckpt_dir, cfg.ckpt_keep_top_k)
+        barrier(self.mesh)
 
     def _start_profiler(self):
         activities = [torch.profiler.ProfilerActivity.CPU]

@@ -82,7 +82,8 @@ def test_eval_without_a_card_is_an_error_not_a_cpu_run(tmp_path):
 
 
 def test_render_device_rule(monkeypatch):
-    from hypernerf_tpu_torch.eval import render_device
+    from hypernerf_tpu_torch.parallel.distributed import (
+        rank_device as render_device)
     monkeypatch.setenv('HYPERNERF_PLATFORM', 'cpu')
     assert render_device() == torch.device('cpu')
     monkeypatch.setenv('HYPERNERF_PLATFORM', 'tpu')

@@ -272,8 +272,9 @@ def test_unported_training_options_name_their_roadmap_item():
     # The elastic and background losses are ported (A.11), and so are the
     # annealing schedule of the Nerfies encoding, with the SE(3) warp too,
     # and the use_nerf_embed conditions; heads other than rgb 3 + alpha 1
-    # are not (A.9), with the anneal family's SE(3) warp or without, nor is
-    # training on more than one device (A.12).
+    # are not (A.9), with the anneal family's SE(3) warp or without.
+    # Training on more than one device is ported (A.12): the entry point
+    # refuses more ranks than cards, and a batch the ranks do not divide.
     anneal = port_configs.NerfConfig(**ARCH, use_original_embed=False)
     assert compute_extra_params(anneal, port_configs.TrainConfig(),
                                 0)['hyper_alpha'] == 0.0
@@ -284,5 +285,12 @@ def test_unported_training_options_name_their_roadmap_item():
         with pytest.raises(NotImplementedError, match='A.9'):
             NerfModel(port_configs.NerfConfig(**ARCH, **kw))
     from hypernerf_tpu_torch import train
-    with pytest.raises(NotImplementedError, match='A.12'):
-        train.main(['--num_devices', '2'])
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv('HYPERNERF_PLATFORM', 'cuda')
+        mp.setattr(torch.cuda, 'is_available', lambda: True)
+        mp.setattr(torch.cuda, 'device_count', lambda: 1)
+        with pytest.raises(SystemExit, match='more ranks than CUDA devices'):
+            train.main(['--num_devices', '2'])
+        mp.setenv('HYPERNERF_PLATFORM', 'cpu')
+        with pytest.raises(ValueError, match='divisible'):
+            train.main(['--num_gpus', '3', '--batch_size', '64'])
