@@ -264,6 +264,17 @@ Phases, one line each; any failure ends the run with a non-zero exit:
      / ``far`` overrides and ``use_sample_at_infinity=False`` through the
      level kernels against the plain versions (the options must move the
      frame), and a frame with ``metadata_encoded`` equal to the ids' frame.
+ 32. the train CLI's default 64 + 128 samples and the bench entry point
+     (ROADMAP A.6): (a) rows 1, 9 and 5 at the fine level's S = 192 (R =
+     16384), row 2 with a fine draw of N = 128 from S = 64 and row 7 at S =
+     192, each against its plain version and timed with its share of the
+     bound; the 64 + 128 step on 1024 rays against the plain versions and
+     at batch 16384 (launches, ms/step, peak memory); a 1024-ray render
+     against the plain versions; (b) ``hypernerf_tpu_torch.bench.main`` in
+     this process for each of its twelve modes and ``--n_fine 128`` in
+     ``flagship`` and ``render``: each JSON line printed with its mode, the
+     value finite and positive, the mode's kernels launched and no plain
+     version called.
 Times come from CUDA events (kernels) or the host clock around work that
 ends in a synchronize (frames, steps). A kernel's bound is the larger of
 its matrix-product operations over the card's dense bf16 peak and its bytes
@@ -545,6 +556,15 @@ def composite_bwd_bound(n_rays: int, samples: int):
     per ray."""
     p = n_rays * samples
     return bound(0.0, p * (16 + 4 + 4 + 4 + 16 + 4) + n_rays * (12 + 24 + 4))
+
+
+def composite_fwd_bound(n_rays: int, samples: int, n_fine: int):
+    """(bound_ms, bound_by) of the compositing forward with a fine draw: no
+    matrix product; bytes are packed and z per sample, the directions and
+    the draws per ray in, and the per-ray outputs, the weights and z_union
+    out."""
+    return bound(0.0, n_rays * (samples * (16 + 4) + 12 + 4 * n_fine + 24
+                                + 4 * samples + 4 * (samples + n_fine)))
 
 
 def composite_inputs(n_rays: int, samples: int, n_fine: int, seed: int,
@@ -1191,29 +1211,9 @@ def compare_step(model, all_rays, all_rgbs, tag='[7]',
 def kernel_wrappers():
     """({kernel name: wrapper with a ``launches`` count}, [plain versions
     with a ``calls`` count]) of all fourteen kernels."""
-    from hypernerf_tpu_torch import kernels as K
-    wrappers = {'fused_level_fwd': K.fused_level,
-                'fused_composite_fwd': K.fused_composite,
-                'fused_template_bwd': K.fused_template_bwd,
-                'fused_fields_bwd': K.fused_fields_bwd,
-                'fused_composite_bwd': K.fused_composite_bwd,
-                'fused_field_fwd': K.fused_field,
-                'fused_field_bwd': K.fused_field_bwd,
-                'fused_template_fwd': K.fused_template,
-                'fused_se3_fwd': K.fused_se3_wv,
-                'fused_se3_bwd': K.fused_se3_bwd,
-                'fused_jacobian_fwd': K.fused_warp_jacobian,
-                'fused_jacobian_bwd': K.fused_jacobian_bwd,
-                'fused_se3_jacobian_fwd': K.fused_se3_wv_tangents,
-                'fused_se3_jacobian_bwd': K.fused_se3_jacobian_bwd}
-    plains = [K.fused_level_plain, K.fused_composite_plain,
-              K.fused_template_bwd_plain, K.fused_fields_bwd_plain,
-              K.fused_composite_bwd_plain, K.fused_field_plain,
-              K.fused_field_bwd_plain, K.fused_template_plain,
-              K.fused_se3_plain, K.fused_se3_bwd_plain,
-              K.fused_jacobian_plain, K.fused_jacobian_bwd_plain,
-              K.fused_se3_jacobian_plain, K.fused_se3_jacobian_bwd_plain]
-    return wrappers, plains
+    from hypernerf_tpu_torch.kernels import counted
+    wrappers, plains = counted()
+    return wrappers, list(plains.values())
 
 
 def reset_counts():
@@ -2906,10 +2906,7 @@ def main() -> int:
             phase(f'[4] composite R={CHUNK} S={s} N={n}: kernel '
                   f'{ctimes[s][0]:.4f} ms, plain {ctimes[s][1]:.3f} ms, '
                   f'through the wrapper {ctimes[s][2]:.3f} ms{before}')
-        # Bound at R = CHUNK, S = 64, N = 64: no matrix product; bytes are
-        # packed, z, directions, u in and outs, weights, z_union out.
-        b_ms, b_by = bound(0.0, CHUNK * (64 * (16 + 4) + 12 + 4 * 64
-                                         + 24 + 4 * 64 + 4 * 128))
+        b_ms, b_by = composite_fwd_bound(CHUNK, 64, 64)
         kernels.append(dict(
             name='fused_composite_fwd', route='cuda',
             source='hypernerf_tpu_torch/kernels/csrc/fused_composite.cu',
@@ -3004,6 +3001,8 @@ def main() -> int:
     b4_paths_phase(kernels)
     data_parallel_phase()
     call_options_phase()
+    fine128_phase(kernels)
+    bench_phase()
     if len(kernels) != 29:
         raise AssertionError(f'{len(kernels)} kernels in the line, want 29')
     return finish(kernels)
@@ -5520,6 +5519,203 @@ def call_options_phase() -> None:
     if enc_diff != 0.0:
         raise AssertionError('the metadata_encoded frame is not the ids\' '
                              'frame')
+
+
+# -- 64 + 128 samples and the bench entry point (phase 32) -------------------
+
+# The train CLI's default sample count (--N_importance 128): the fine level
+# at S = 192, the coarse compositing with a fine draw of N = 128.
+FINE128 = dict(num_fine_samples=128)
+S192 = 64 + 128
+PATHS['flagship_fine128'] = ('flagship', FINE128)
+STEP_LAUNCHES['flagship_fine128'] = STEP_LAUNCHES['flagship']
+# python -m hypernerf_tpu_torch.bench runs of phase 32 (b): (mode, --n_fine).
+BENCH_RUNS = tuple((m, None) for m in (
+    'flagship', 'se3', 'quaternion', 'anneal', 'occupancy', 'static', 'plane',
+    'elastic', 'elastic_se3', 'elastic_quaternion', 'render',
+    'render_occupancy')) + (('flagship', 128), ('render', 128))
+
+
+def fine128_phase(kernels) -> None:
+    """Phase 32 (a): 64 + 128 samples on the card. Rows 1, 9, 5 at the fine
+    level's S = 192 (R = 16384: the train step's and the render's chunk at
+    ``--render_chunk 16384``), row 2 with a fine draw of N = 128 from S =
+    64 and row 7 at S = 192, each against its plain version and timed
+    (their ``*_s192`` keys in the line); the 64 + 128 step on 1024 rays
+    against the plain versions and the full-batch step (``train_path``:
+    launches, ms/step, peak memory); a 1024-ray render against the plain
+    versions."""
+    import torch
+    from hypernerf_tpu_torch.flagship import (flagship_model,
+                                              load_probe_weights,
+                                              spiral_rays)
+    from hypernerf_tpu_torch.kernels import (fused_composite_bwd,
+                                             fused_composite_bwd_plain,
+                                             fused_composite_plain,
+                                             fused_fields_bwd, fused_level,
+                                             fused_template_bwd)
+    from hypernerf_tpu_torch.kernels.fused_level import _launch_forward
+    from hypernerf_tpu_torch.kernels.fused_mlp import chunk_plan
+    from hypernerf_tpu_torch.ops.ray_dict import prepare_ray_dict
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    r, s = TRAIN_RAYS, S192
+    lv = load_probe_weights(flagship_model('cuda', **FINE128)).level('fine')
+    entry = {k['name']: k for k in kernels}
+    with torch.no_grad():
+        args = level_inputs(r, s, seed=s)
+        g = torch.randn(r * s, 4, generator=torch.Generator().manual_seed(
+            s)).cuda()
+        out, raw_t = _launch_forward(lv, *args, want_raw_t=True)
+        want_out, want_raw_t = plain_forward(lv, args)
+        err1 = max(hold_level(out, want_out, f'level forward vs plain R={r} '
+                              f'S={s}: out', '[32]'),
+                   hold_level(raw_t, want_raw_t, f'level forward vs plain '
+                              f'R={r} S={s}: raw_t', '[32]'))
+        del out, want_out, want_raw_t
+        t1 = (cuda_ms(lambda: fused_level(lv, *args)),
+              cuda_ms(lambda: plain_forward(lv, args), 1))
+        want_a = plain_template_bwd(lv, raw_t, args[4], g)
+        got_a = fused_template_bwd(lv, raw_t, args[4], g)
+        dx_t = want_a[0]
+        got_b = fused_fields_bwd(lv, *args[:4], dx_t)
+        err9 = check_grads(f'template backward (A) vs plain R={r} S={s}',
+                           TEMPLATE_GRAD_NAMES,
+                           [got_a[0], got_a[1], *got_a[2]], want_a,
+                           tag='[32]')
+        err5 = check_grads(f'fields backward (B) vs plain R={r} S={s}',
+                           FIELDS_GRAD_NAMES, [*got_b[:4], *got_b[4]],
+                           plain_fields_bwd(lv, args, dx_t), tag='[32]')
+        del got_a, got_b, want_a
+        t9 = (cuda_ms(lambda: fused_template_bwd(lv, raw_t, args[4], g), 3),
+              cuda_ms(lambda: plain_template_bwd(lv, raw_t, args[4], g), 1))
+        t5 = (cuda_ms(lambda: fused_fields_bwd(lv, *args[:4], dx_t), 3),
+              cuda_ms(lambda: plain_fields_bwd(lv, args, dx_t), 1))
+        del raw_t, dx_t, args, g
+        torch.cuda.empty_cache()
+
+        # Row 2: the coarse level's compositing with the fine draw, noise on
+        # and sorted draws as training launches it, and timed alone.
+        packed, z, dirs, u = composite_inputs(r, 64, 128, seed=s + 1,
+                                              linspace_u=False)
+        noise = torch.randn(r, 64, generator=torch.Generator().manual_seed(
+            s + 1)).cuda()
+        err2 = check_composite(packed, z, dirs, u, f'forward with noise R={r}'
+                               f' S=64 N=128 u=sorted', noise=noise,
+                               tag='[32]')
+        err2 = max(err2, check_composite(packed, z, dirs, u, f'R={r} S=64 '
+                                         f'N=128 u=sorted', tag='[32]'))
+        t2 = (composite_kernel_ms(packed, z, dirs, u),
+              cuda_ms(lambda: fused_composite_plain(packed, z, dirs, u), 3))
+
+        # Row 7 at S = 192, noise on (d z leaves out the rays whose weight
+        # sum passes within 1e-5 of 0.5: the median may pick the neighbour).
+        gen = torch.Generator().manual_seed(s + 2)
+        packed, z, dirs, _ = composite_inputs(r, s, 0, seed=s + 2,
+                                              linspace_u=True)
+        noise = torch.randn(r, s, generator=gen).cuda()
+        d_outs = torch.randn(r, 6, generator=gen).cuda()
+        d_w = (torch.randn(r, s, generator=gen) * 0.1).cuda()
+        dnorm = torch.linalg.norm(dirs, dim=-1, keepdim=True)
+        got = list(fused_composite_bwd(packed, z, dirs, noise, d_outs, d_w))
+        want = list(fused_composite_bwd_plain(packed, z, dnorm, noise,
+                                              d_outs, d_w))
+        cum = torch.cumsum(fused_composite_plain(
+            packed, z, dirs, None, noise=noise)['weights'], dim=-1)
+        edge = ((cum - 0.5).abs() < 1e-5).any(-1)
+        got[1] = got[1].masked_fill(edge[:, None], 0.0)
+        want[1] = want[1].masked_fill(edge[:, None], 0.0)
+        err7 = check_grads(f'compositing backward (C) vs plain R={r} S={s} '
+                           f'({int(edge.sum())} rays on the median\'s edge)',
+                           ['d_packed', 'd_z', 'd_dnorm', 'd_noise'], got,
+                           want, COMPOSITE_GRAD_TOL, COMPOSITE_GRAD_TOL,
+                           tag='[32]')
+        t7 = (composite_bwd_kernel_ms(packed, z, dirs, noise, d_outs, d_w),
+              cuda_ms(lambda: fused_composite_bwd_plain(
+                  packed, z, dnorm, noise, d_outs, d_w)))
+        del packed, z, dirs, u, noise, d_outs, d_w, got, want
+
+    rows = {'fused_level_fwd': (t1, level_bound(lv, r, s), err1),
+            'fused_template_bwd': (t9, template_bwd_bound(lv, r, s), err9[2]),
+            'fused_fields_bwd': (t5, fields_bwd_bound(lv, r, s), err5[2]),
+            'fused_composite_fwd': (t2, composite_fwd_bound(r, 64, 128),
+                                    err2),
+            'fused_composite_bwd': (t7, composite_bwd_bound(r, s), err7[2])}
+    for name, ((ms, plain_ms), (b_ms, b_by), err) in rows.items():
+        entry[name].update({'ms_s192': ms, 'plain_ms_s192': plain_ms,
+                            'bound_ms_s192': b_ms, 'bound_by_s192': b_by})
+        entry[name]['max_abs_err'] = max(entry[name]['max_abs_err'], err)
+        phase(f'[32] {name} at 64 + 128 (R={r}, '
+              + ('S=64 N=128' if name == 'fused_composite_fwd' else f'S={s}')
+              + f'): kernel {ms:.4f} ms ({b_ms / ms:.1%} of its bound '
+              f'{b_ms:.4f} ms, {b_by}), plain {plain_ms:.3f} ms; {CARD}')
+    plan = chunk_plan(r * s, s)
+    phase(f'[32] kernel A at R={r} S={s}: {len(plan)} chunks of whole rays, '
+          f'{(plan[0][1] - plan[0][0]) // s} rays each, the last '
+          f'{(plan[-1][1] - plan[-1][0]) // s}')
+    del lv
+
+    # The step on 1024 rays against the plain versions, then the
+    # full-batch step (launches, ms/step, peak memory).
+    train_path('flagship_fine128', '[32]')
+    torch.cuda.empty_cache()
+
+    # A render of 1024 rays at 64 + 128 against the plain versions.
+    model = flagship_model('cuda', seed=0, **FINE128)
+    small = torch.as_tensor(spiral_rays([0])[0][::186][:1024]).cuda()
+    with torch.no_grad():
+        got = model(prepare_ray_dict(small))['fine']['rgb']
+        with plain_versions():
+            want = model(prepare_ray_dict(small))['fine']['rgb']
+    diff = (got - want).abs()
+    if not torch.isfinite(got).all() or diff.max() > RENDER_ATOL \
+            or diff.mean() > RENDER_MEAN:
+        raise AssertionError(f'64 + 128 render kernels vs plain: max '
+                             f'{diff.max().item():.3e} mean '
+                             f'{diff.mean().item():.3e}')
+    phase(f'[32] render of 1024 rays at 64 + 128, kernels vs plain: fine rgb '
+          f'max|d| {diff.max().item():.3e} mean {diff.mean().item():.3e} '
+          f'(tol {RENDER_ATOL}, mean {RENDER_MEAN}); phase (a) '
+          f'{time.perf_counter() - t_phase:.1f} s')
+
+
+def bench_phase() -> None:
+    """Phase 32 (b): ``hypernerf_tpu_torch.bench.main`` in this process for
+    each of the twelve modes at their defaults and with ``--n_fine 128`` in
+    a train mode and a render mode: each JSON line printed with its mode,
+    its value finite and positive, the mode's kernels launched and no plain
+    version called."""
+    import contextlib
+    import io
+    from hypernerf_tpu_torch import bench
+    t_phase = time.perf_counter()
+    wrappers, plains = kernel_wrappers()
+    for mode, n_fine in BENCH_RUNS:
+        argv = ['--mode', mode] + ([] if n_fine is None
+                                   else ['--n_fine', str(n_fine)])
+        reset_counts()
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            bench.main(argv)
+        lines = out.getvalue().strip().splitlines()
+        line = json.loads(lines[-1])
+        launches = {k: fn.launches for k, fn in wrappers.items()
+                    if fn.launches}
+        plain_calls = [fn.calls for fn in plains]
+        missing = [k for k in bench.MODE_KERNELS[mode] if k not in launches]
+        if any(plain_calls) or missing or not (
+                math.isfinite(line['value']) and line['value'] > 0):
+            raise AssertionError(f'bench {" ".join(argv)}: {line}; launches '
+                                 f'{launches}, missing {missing}; plain '
+                                 f'calls {plain_calls}')
+        label = ' '.join(argv)
+        phase(f'[32] bench {label}: {lines[0]} ({time.perf_counter() - t0:.1f}'
+              f' s)')
+        print(f'[32] bench {label} JSON: {json.dumps(line)}', flush=True)
+    phase(f'[32] bench: {len(BENCH_RUNS)} runs of python -m '
+          f'hypernerf_tpu_torch.bench in {time.perf_counter() - t_phase:.1f} '
+          f's; {CARD}')
 
 
 def finish(kernels) -> int:

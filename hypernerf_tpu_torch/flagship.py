@@ -178,13 +178,15 @@ def flagship_train_config(config: str = 'flagship',
 
 def flagship_train_setup(device, seed: int = 0, batch_size: int = TRAIN_BATCH,
                          n_rays: int = TRAIN_RAYS, config: str = 'flagship',
-                         train_overrides=None, mesh=None, **overrides):
+                         train_overrides=None, mesh=None, start_step=None,
+                         **overrides):
     """The train step's parts of ``config`` (with ``overrides`` of its
     NerfConfig and ``train_overrides`` of its TrainConfig, after
     ``TRAIN_CONFIGS``) on ``device``: (state, step_fn, all_rays, all_rgbs) —
     a seeded model in train mode, Adam at 5e-4 with the ``steplr`` schedule
     at 1000 steps per epoch, the step built by ``make_train_step``, the
-    state at step ``START_STEPS`` (0 but for ``anneal``) with, where the
+    state at step ``start_step`` (default ``START_STEPS``: 0 but for the
+    Nerfies configurations) with, where the
     configuration uses one, ``bench_grid`` as its occupancy grid, and the
     synthetic ray buffer. A positive ``background_loss_weight`` gives the
     step ``synthetic_background_points`` on the device. ``mesh``: a
@@ -209,7 +211,9 @@ def flagship_train_setup(device, seed: int = 0, batch_size: int = TRAIN_BATCH,
                               mesh=mesh)
     rays, rgbs = synthetic_train_rays(n_rays)
     grid = bench_grid(cfg, device, seed) if cfg.use_occupancy_grid else None
-    state = TrainState(step=START_STEPS.get(config, 0), model=model,
+    if start_step is None:
+        start_step = START_STEPS.get(config, 0)
+    state = TrainState(step=start_step, model=model,
                        optimizer=optimizer, seed=seed, occupancy=grid)
     return (state, step_fn, torch.from_numpy(rays).to(device),
             torch.from_numpy(rgbs).to(device))

@@ -32,3 +32,32 @@ from hypernerf_tpu_torch.kernels.fused_se3 import (
 from hypernerf_tpu_torch.kernels.fused_se3_jacobian import (
     FusedSE3JacobianFn, fused_se3_jacobian_bwd, fused_se3_jacobian_bwd_plain,
     fused_se3_jacobian_plain, fused_se3_wv_tangents)
+
+
+def counted():
+    """({kernel name: wrapper}, {name: plain version}) of every kernel. A
+    wrapper adds one to its ``launches`` where it launches its kernel, a
+    plain version one to its ``calls``; both are plain attributes, set to 0
+    by whoever counts."""
+    wrappers = {'fused_level_fwd': fused_level,
+                'fused_composite_fwd': fused_composite,
+                'fused_template_bwd': fused_template_bwd,
+                'fused_fields_bwd': fused_fields_bwd,
+                'fused_composite_bwd': fused_composite_bwd,
+                'fused_field_fwd': fused_field,
+                'fused_field_bwd': fused_field_bwd,
+                'fused_template_fwd': fused_template,
+                'fused_se3_fwd': fused_se3_wv,
+                'fused_se3_bwd': fused_se3_bwd,
+                'fused_jacobian_fwd': fused_warp_jacobian,
+                'fused_jacobian_bwd': fused_jacobian_bwd,
+                'fused_se3_jacobian_fwd': fused_se3_wv_tangents,
+                'fused_se3_jacobian_bwd': fused_se3_jacobian_bwd}
+    plains = [fused_level_plain, fused_composite_plain,
+              fused_template_bwd_plain, fused_fields_bwd_plain,
+              fused_composite_bwd_plain, fused_field_plain,
+              fused_field_bwd_plain, fused_template_plain, fused_se3_plain,
+              fused_se3_bwd_plain, fused_jacobian_plain,
+              fused_jacobian_bwd_plain, fused_se3_jacobian_plain,
+              fused_se3_jacobian_bwd_plain]
+    return wrappers, {fn.__name__: fn for fn in plains}

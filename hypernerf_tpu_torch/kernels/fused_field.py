@@ -109,7 +109,7 @@ def fused_field_bwd_plain(mlp: MLP, n_freq: int, x_raw, g, scales=None):
     n_pts = posenc_orig_channels(3, n_freq)
     dx = torch.cat([common.posenc_bwd(g_enc[:, :n_pts], trig, 3, n_freq),
                     g_enc[:, n_pts:]], dim=-1)
-    return dx.float(), [t.float() for t in hidden + [dw, db]]
+    return dx.to(acc), [t.to(acc) for t in hidden + [dw, db]]
 
 
 fused_field_bwd_plain.calls = 0
@@ -143,7 +143,8 @@ def _forward(mlp: MLP, n_freq: int, x_raw, scales):
     CUDA tensors."""
     if common.runs_plain(x_raw, 'fused_field'):
         out = fused_field_plain(mlp, n_freq, x_raw, scales)
-        return F.pad(out.float(), (0, OUT_PAD - out.shape[1]))
+        return F.pad(out.to(common.acc_dtype(mlp.dtype)),
+                     (0, OUT_PAD - out.shape[1]))
     which, scales, (w_blob, b_blob, _) = _launch_args(mlp, n_freq, x_raw,
                                                        scales)
     p = x_raw.shape[0]

@@ -157,7 +157,8 @@ def fused_level_plain(level: Level, z_vals, origins, directions, embed,
         hyper = x_raw[:, 3:]
     else:
         hyper = fused_field_plain(level.hyper.mlp, level.hyper.n_freq, x_raw)
-    raw_t = torch.cat([warped, hyper], dim=-1).float()
+    raw_t = torch.cat([warped, hyper], dim=-1).to(
+        torch.promote_types(x_raw.dtype, torch.float32))
     raw_t = F.pad(raw_t, (0, raw_pad(level) - raw_t.shape[-1]))
     out = fused_template_plain(level, raw_t, rgb_cond, tmpl_scales,
                                alpha_cond)

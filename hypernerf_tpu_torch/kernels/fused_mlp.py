@@ -216,8 +216,8 @@ def fused_template_plain(tmpl, x_raw, rgb_cond, scales=None,
     p, r = x_raw.shape[0], rgb_cond.shape[0]
     feat = _encode(tmpl, x_raw, scales)[2]
     raw = tmpl.template(feat.reshape(r, p // r, -1), rgb_cond, alpha_cond)
-    return torch.cat([raw['rgb'], raw['alpha']],
-                     dim=-1).reshape(p, -1).float()
+    return torch.cat([raw['rgb'], raw['alpha']], dim=-1).reshape(p, -1).to(
+        common.acc_dtype(tmpl.template.dtype))
 
 
 fused_template_plain.calls = 0
@@ -274,14 +274,14 @@ def fused_template_bwd_plain(tmpl, raw_t, rgb_cond, g, scales=None,
         dx.append(common.posenc_bwd(g_x[:, at:at + width], trig, ch, f,
                                     ident))
         at += width
-    dx_t = torch.cat(dx, dim=-1).float()
+    dx_t = torch.cat(dx, dim=-1).to(acc)
     dx_t = F.pad(dx_t, (0, raw_pad(tmpl) - dx_t.shape[1]))
-    d_cond = g_rin[:, bw:].reshape(r, p // r, -1).sum(1).float()
+    d_cond = g_rin[:, bw:].reshape(r, p // r, -1).sum(1).to(acc)
     d_alpha = None if alpha_cond is None else \
-        ga[:, bw:].reshape(r, p // r, -1).sum(1).float()
+        ga[:, bw:].reshape(r, p // r, -1).sum(1).to(acc)
     grads = (trunk_grads + [dw_tl, db_tl, dw_bn, db_bn, dw_a, db_a]
              + rgb_grads + [dw_rl, db_rl])
-    return dx_t, d_cond, [t_.float() for t_ in grads], d_alpha
+    return dx_t, d_cond, [t_.to(acc) for t_ in grads], d_alpha
 
 
 fused_template_bwd_plain.calls = 0

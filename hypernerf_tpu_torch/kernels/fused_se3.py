@@ -46,7 +46,14 @@ OUT_PAD = 8  # columns of the kernels' output and cotangent: [w | v | 0 0]
 
 def se3_layers(field):
     """Every Linear of the field in kernel order with its input segments:
-    the trunk's hidden layers, its logit, the w head, the v head."""
+    the trunk's hidden layers, its logit, the w head, the v head. A field
+    with the identity in its encoding has no kernel, here as in the JAX
+    package: ``SE3Field`` runs it in tensor code, and every kernel path
+    (this trunk's, its tangents', the level's) refuses it here."""
+    if field.use_posenc_identity:
+        raise ValueError('an SE(3) field with the identity in its encoding '
+                         'runs in tensor code (SE3Field), not on the trunk '
+                         'kernels, as in the JAX package')
     enc = field.trunk.hidden(0).in_features
     width = field.trunk.logit.out_features
     return (common.mlp_layers(field.trunk, [(enc, common.pad16(enc))])

@@ -67,14 +67,18 @@ class TranslationField(nn.Module):
 
 class SE3Field(nn.Module):
     """A per-point rigid transform through the se(3) exponential map:
-    posenc(points, min_deg..max_deg, no identity) ++ embed -> ``trunk``
-    (Xavier-normal, linear logit of the trunk's width) -> the heads ``w_net``
-    and ``v_net`` (one linear layer each, U(0, 1e-4) weights and zero biases,
-    so that the warp starts at the identity) -> the screw retraction
+    posenc(points, min_deg..max_deg) ++ embed -> ``trunk`` (Xavier-normal,
+    linear logit of the trunk's width) -> the heads ``w_net`` and ``v_net``
+    (one linear layer each, U(0, 1e-4) weights and zero biases, so that the
+    warp starts at the identity) -> the screw retraction
     ``rigid_body.se3_warp_vec(w, v, points)`` in fp32.
 
     ``extra_params['warp_alpha']`` windows the encoding's bands (None or
-    absent: no window).
+    absent: no window). With ``use_posenc_identity`` the encoding starts
+    with the points themselves (the JAX field's column order); the JAX
+    package has no kernel for such a field and runs it in XLA, and so this
+    one runs in tensor code on every device (``runs_kernels``), forward and
+    Jacobian. No model configuration sets it.
     """
 
     def __init__(self, embed_ch: int, trunk_depth: int = 6,
@@ -82,13 +86,10 @@ class SE3Field(nn.Module):
                  skips: Sequence[int] = (4,), use_metadata: bool = True,
                  use_posenc_identity: bool = False, dtype=torch.float32):
         super().__init__()
-        if use_posenc_identity:
-            raise NotImplementedError(
-                'an SE(3) field with the identity in its encoding: no model '
-                'configuration sets it (ROADMAP A.9)')
         self.embed_ch, self.use_metadata = embed_ch, use_metadata
         self.min_deg, self.max_deg = min_deg, max_deg
-        in_ch = posenc_channels(3, min_deg, max_deg) + (
+        self.use_posenc_identity = use_posenc_identity
+        in_ch = posenc_channels(3, min_deg, max_deg, use_posenc_identity) + (
             embed_ch if use_metadata else 0)
         self.trunk = MLP(in_ch, trunk_width, trunk_depth, trunk_width, skips,
                          hidden_init=xavier_normal_, dtype=dtype)
@@ -102,12 +103,28 @@ class SE3Field(nn.Module):
     retract = staticmethod(rigid_body.se3_warp_vec)
     retract_bwd = staticmethod(rigid_body.se3_warp_vec_bwd)
 
+    def runs_kernels(self, points: torch.Tensor) -> bool:
+        """Whether ``points`` go through the trunk kernels: CUDA tensors,
+        unless the encoding has the identity (tensor code, as the JAX
+        package runs such a field)."""
+        return points.is_cuda and not self.use_posenc_identity
+
+    def _wv(self, points, embed, alpha):
+        """(w, v) of the trunk and heads in tensor code."""
+        inputs = posenc(points, self.min_deg, self.max_deg,
+                        use_identity=self.use_posenc_identity, alpha=alpha)
+        if self.use_metadata:
+            inputs = torch.cat([inputs, embed.to(inputs.dtype)], dim=-1)
+        trunk = self.trunk(inputs)
+        return (self.w_net(trunk).to(points.dtype),
+                self.v_net(trunk).to(points.dtype))
+
     def forward(self, points: torch.Tensor, embed: torch.Tensor,
                 extra_params=None):
         """points (..., 3), embed (..., E) per sample -> warped (..., 3)."""
         alpha = (extra_params or {}).get('warp_alpha')
         pts = points.to(torch.promote_types(points.dtype, torch.float32))
-        if points.is_cuda:
+        if self.runs_kernels(points):
             # The kernels' wrappers import this module: import at call time.
             from hypernerf_tpu_torch.kernels.fused_se3 import (
                 fused_se3_wv, se3_encoding_scales)
@@ -122,24 +139,36 @@ class SE3Field(nn.Module):
                                 scales)
             return self.retract(w.reshape(pts.shape), v.reshape(pts.shape),
                                 pts)
-        inputs = posenc(points, self.min_deg, self.max_deg, alpha=alpha)
-        if self.use_metadata:
-            inputs = torch.cat([inputs, embed.to(inputs.dtype)], dim=-1)
-        trunk = self.trunk(inputs)
-        return self.retract(self.w_net(trunk).to(pts.dtype),
-                            self.v_net(trunk).to(pts.dtype), pts)
+        w, v = self._wv(pts, embed, alpha)
+        return self.retract(w, v, pts)
 
     def jacobian(self, points: torch.Tensor, embed: torch.Tensor,
                  extra_params=None) -> torch.Tensor:
         """(..., 3, 3) d warped_i / d points_k (jacrev layout): the
-        trunk's (w, v) and point-tangents (``fused_se3_wv_tangents``), then
-        the retraction's point-Jacobian in tensor code."""
+        trunk's (w, v) and point-tangents (``fused_se3_wv_tangents``; with
+        the identity in the encoding, forward-mode derivatives of the tensor
+        code, as the JAX package's dense Jacobian), then the retraction's
+        point-Jacobian in tensor code."""
         from hypernerf_tpu_torch.kernels.fused_se3 import se3_encoding_scales
         from hypernerf_tpu_torch.kernels.fused_se3_jacobian import \
             fused_se3_wv_tangents
         alpha = (extra_params or {}).get('warp_alpha')
         pts = points.reshape(-1, 3)
         pts = pts.to(torch.promote_types(pts.dtype, torch.float32))
+        if self.use_posenc_identity:
+            emb = embed.reshape(-1, embed.shape[-1])
+            w, v = self._wv(pts, emb, alpha)
+            tangents = []
+            for k in range(3):
+                basis = torch.zeros_like(pts)
+                basis[:, k] = 1.0
+                tangents.append(torch.func.jvp(
+                    lambda p: self._wv(p, emb, alpha), (pts,), (basis,))[1])
+            dw, dv = (torch.stack([t[i] for t in tangents], dim=-1)
+                      for i in (0, 1))
+            jac = rigid_body.retraction_jacobian(self.retract_bwd, w, v, pts,
+                                                 dw, dv)
+            return jac.reshape(*points.shape[:-1], 3, 3)
         raw = pts if not self.use_metadata else torch.cat(
             [pts, embed.reshape(-1, embed.shape[-1]).to(pts.dtype)], dim=-1)
         scales = None if alpha is None else se3_encoding_scales(

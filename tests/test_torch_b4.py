@@ -3,8 +3,8 @@ level, against the JAX package, on the CPU:
 
 - what ``unsupported()`` admits now: the seven combinations build; heads
   other than rgb 3 + alpha 1 (A.9), Nerfies bands from a degree other than
-  0 (A.13) and an SE(3) field with the identity in its encoding (A.9) are
-  still refused, each naming its item;
+  0 (A.13) are still refused, each naming its item, and an SE(3) field
+  with the identity in its encoding builds;
 - the kernels' layer tables and layouts of the new combinations: each
   level packs to its table (``level_table``), the template to its layout;
 - the stored JAX numbers the card is held to
@@ -134,8 +134,9 @@ def test_each_combination_packs_to_its_table(name):
 def test_what_is_still_refused_names_its_item():
     """The seven combinations build at the small widths too; the heads
     (A.9) and Nerfies bands from another degree (A.13) are refused on top
-    of any of them, and an SE(3) field with the identity in its encoding
-    (A.9)."""
+    of any of them. An SE(3) field with the identity in its encoding, once
+    refused (A.9), now builds at its wider first layer and stays off the
+    trunk kernels (``tests/test_torch_se3_identity.py``)."""
     for name in COMBOS:
         NerfModel(port_configs.NerfConfig(**ARCH, **COMBOS[name]))
     for name, over, item in (
@@ -146,8 +147,9 @@ def test_what_is_still_refused_names_its_item():
         with pytest.raises(NotImplementedError, match=item):
             NerfModel(port_configs.NerfConfig(**ARCH, **COMBOS[name],
                                               **over))
-    with pytest.raises(NotImplementedError, match='A.9'):
-        SE3Field(8, use_posenc_identity=True)
+    field = SE3Field(8, use_posenc_identity=True)
+    assert field.trunk.hidden(0).in_features == 3 * (1 + 2 * 8) + 8
+    assert not field.runs_kernels(torch.zeros(1, 3))
 
 
 # ---------------------------------------------------------------------------

@@ -184,7 +184,7 @@ def _assert_close(got, want, edge):
         assert np.abs(a - b).max() <= TOL * np.abs(b).max(), name
 
 
-@pytest.mark.parametrize('s', [40, 64, 128])
+@pytest.mark.parametrize('s', [40, 64, 128, 192])
 @pytest.mark.parametrize('white,infinity', [(False, True), (True, False),
                                             (True, True), (False, False)])
 def test_mirror_holds_to_plain(s, white, infinity):

@@ -260,7 +260,7 @@ def _inputs(r, s, n, seed, linspace_u, noise):
 
 @pytest.mark.parametrize('s,n,linspace_u,noise', [
     (5, 7, False, False), (64, 64, True, False), (64, 64, False, True),
-    (128, 0, True, False), (192, 64, False, False)])
+    (128, 0, True, False), (192, 64, False, False), (64, 128, False, True)])
 def test_kernel_mirror_holds_to_plain(s, n, linspace_u, noise):
     """The kernel's lane plan, with its scans' order of sums, gives the
     plain version's outputs within the card's tolerances: 1e-4 on every

@@ -139,8 +139,16 @@ def test_se3_field(kind, alpha):
 
 
 def test_se3_field_refuses_the_posenc_identity():
-    with pytest.raises(NotImplementedError, match='ROADMAP'):
-        SE3Field(E, use_posenc_identity=True)
+    """The field builds (A.9, ported) and runs in tensor code, as the JAX
+    package runs it: it refuses the trunk kernels, whose paths all refuse
+    it (``fused_se3.se3_layers``), even on a CUDA tensor."""
+    from hypernerf_tpu_torch.kernels.fused_se3 import se3_layers
+    field = SE3Field(E, use_posenc_identity=True)
+    assert not field.runs_kernels(torch.empty(0, 3, device='meta'))
+    cuda_points = type('CudaPoints', (), {'is_cuda': True})()
+    assert not field.runs_kernels(cuda_points)
+    with pytest.raises(ValueError, match='tensor code'):
+        se3_layers(field)
 
 
 def test_glo_embed_clips_ids():

@@ -61,6 +61,16 @@ def test_chunk_plan_of_the_train_step():
     assert (1 << 19) * STASH_WIDTH * 2 == 3 << 30
 
 
+def test_chunk_plan_of_the_train_step_at_64_plus_128():
+    """The fine level at S = 192 (``--n_fine 128``): 2730 rays a chunk
+    (524,160 rows), so 16384 rays are six such chunks and a ragged last one
+    of 4 rays (768 rows), each within the 3 GiB stash."""
+    plan = chunk_plan(16384 * 192, 192)
+    assert len(plan) == 7
+    assert [r1 - r0 for r0, r1 in plan] == [2730 * 192] * 6 + [4 * 192]
+    assert max(r1 - r0 for r0, r1 in plan) * STASH_WIDTH * 2 <= 3 << 30
+
+
 def test_chunk_plan_refuses_rows_that_are_not_whole_rays():
     with pytest.raises(ValueError):
         chunk_plan(100, 13)
@@ -284,7 +294,7 @@ class TorchOps:
     ('static', 20, 16, 1 << 19), ('anneal', 37, 13, 100),
     ('plane', 37, 13, 100), ('plane_anneal', 20, 16, 1 << 19),
     ('nerf_embed', 37, 13, 100), ('embed_only', 37, 13, 100),
-    ('no_viewdirs', 20, 16, 1 << 19)])
+    ('no_viewdirs', 20, 16, 1 << 19), ('flagship', 7, 192, 3 * 192)])
 def test_kernel_sequence_matches_the_plain_backward(config, rays, samples,
                                                     max_rows):
     """``template_bwd_chunks`` (several chunks, ragged rows, 3 slabs)
@@ -302,7 +312,8 @@ def test_kernel_sequence_matches_the_plain_backward(config, rays, samples,
     alpha_cond per ray, the alpha head's condition columns' dW after the
     layers' [dW | db]) with a 47- and an 8-column rgb condition; for
     ``no_viewdirs`` a 0-column rgb condition (its steps run on an empty
-    condition, rgb layer 0's condition columns are zero)."""
+    condition, rgb layer 0's condition columns are zero); the flagship at
+    S = 192 (64 + 128) in chunks of 3 rays and a last one of 1."""
     tmpl = _flagship_template(config)
     t = tmpl.template
     rs = np.random.RandomState(rays + samples)

@@ -1,5 +1,5 @@
 """One rank of the data-parallel tests (``tests/test_torch_parallel.py``,
-``tests/test_torch_trainer_parallel.py``).
+``tests/test_torch_trainer_parallel.py``, ``tests/test_torch_bench.py``).
 
   python -m tests.torch_parallel_worker CASE DIR
 
@@ -12,7 +12,9 @@ them over gloo on the CPU. It reads ``DIR/inputs.pt`` and writes
 conftest), on one thread.
 """
 
+import contextlib
 import dataclasses
+import io
 import os
 import subprocess
 import sys
@@ -207,15 +209,28 @@ def eval_case(rank, inp, out_dir):
                             for name in names)}
 
 
+def bench_case(rank, inp, out_dir):
+    """``bench.run`` of the flagship mode at the inputs' sizes: it joins the
+    launch itself; its printed lines and its line."""
+    from hypernerf_tpu_torch import bench
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        line = bench.run('flagship', batch_per_chip=inp['batch_per_chip'],
+                         n_rays=inp['n_rays'], overrides=inp['overrides'])
+    return {'rank': rank, 'line': line, 'stdout': out.getvalue()}
+
+
 CASES = {'steps': steps_case, 'trainer': trainer_case}
+# Cases that join the launch themselves: (rank, inputs, directory).
+SELF_JOINED = {'eval': eval_case, 'bench': bench_case}
 
 
 def main(case: str, out_dir: str) -> None:
     torch.set_num_threads(1)
     inp = torch.load(os.path.join(out_dir, 'inputs.pt'), weights_only=False)
-    if case == 'eval':
-        out = eval_case(int(os.environ['HYPERNERF_PROCESS_ID']), inp,
-                        out_dir)
+    if case in SELF_JOINED:
+        out = SELF_JOINED[case](int(os.environ['HYPERNERF_PROCESS_ID']), inp,
+                                out_dir)
     else:
         if not distributed.maybe_initialize_distributed():
             raise SystemExit('no launch in the environment')
