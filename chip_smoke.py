@@ -192,7 +192,7 @@ Phases, one line each; any failure ends the run with a non-zero exit:
      16 steps from the first), its time without the refresh and amortised
      over 16 steps, a 1024-ray step through the grid against the plain
      versions;
- 24. the kernels' JSON line, then the result line (after phase 29);
+ 24. the kernels' JSON line, then the result line (after phase 33);
  25. the trainer and its entry point: ``tools/make_synthetic_scene.py``
      writes an 8-frame 160x120 scene into a temporary directory (never the
      repo), where ``hypernerf_tpu_torch.train.main(argv)`` trains the
@@ -275,6 +275,23 @@ Phases, one line each; any failure ends the run with a non-zero exit:
      ``flagship`` and ``render``: each JSON line printed with its mode, the
      value finite and positive, the mode's kernels launched and no plain
      version called.
+ 33. ``--precision 32`` (ROADMAP A.13.1, the flagship table), TF32 off: (b)
+     the float32 kernels of rows 1, 9 and 5 against their float32 plain
+     versions (row 1 at R = 8192, S = 128 and R = 16384, S = 128 and 192;
+     rows 9 and 5 at R = 16384, S = 128 and 192), each beside the bf16
+     kernel's error against the same float32 plain, timed with their share
+     of the float32-exact bound and of the FFMA ceiling; (c) against the JAX
+     level kernel's stored float32 numbers (tests/data/fused_f32_jax_ref
+     .npz); (d) rows 2 and 7 on the float32 level's outputs; (e) the CLI's
+     64 + 128 step in float32 at batch 16384 through ``make_train_step``
+     (every kernel counted, no plain call; 1024 rays against the plain
+     versions: loss 1e-5 relative, gradients relative L2 1e-2); (f) a
+     504x378 float32 frame; (g) float32 ``se3``, ``quaternion``, ``plane``,
+     ``anneal``, ``nerf_embed``, ``static``, ``split_glo``, ``anneal_se3``
+     refused on the card naming A.13.1's sub-item; (h) ``train.main`` with
+     ``--precision 32`` as phase 25 runs bf16, ``eval --precision 32`` of
+     its checkpoint and the plain trainer in float32: the training frames'
+     and the val PSNR at step 36 beside phase 25's bf16 pair.
 Times come from CUDA events (kernels) or the host clock around work that
 ends in a synchronize (frames, steps). A kernel's bound is the larger of
 its matrix-product operations over the card's dense bf16 peak and its bytes
@@ -286,6 +303,7 @@ from __future__ import annotations
 import contextlib
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -1135,7 +1153,7 @@ def plain_versions():
 
 def compare_step(model, all_rays, all_rgbs, tag='[7]',
                  elastic_weight: float = 0.0, extra_params=None,
-                 occupancy_grid=None):
+                 occupancy_grid=None, tols=None):
     """One step's loss and gradients on a small explicit batch from the same
     state and draws: the kernels, then the plain versions. Run on the seeded
     initial state, so the reading is the same from run to run (after train
@@ -1144,7 +1162,10 @@ def compare_step(model, all_rays, all_rgbs, tag='[7]',
     Jacobian, subsampled by the same draws); its value is printed and must
     be non-zero. ``extra_params``: the annealing alphas of the step;
     ``occupancy_grid``: the grid of a grid-trained model (the coarse draw's
-    sorted uniforms then replace the jitter).
+    sorted uniforms then replace the jitter). ``tols``: (the loss's
+    relative tolerance, the gradients' relative L2 over all parameters) in
+    place of the bf16 rule's (STEP_LOSS_TOL absolute, STEP_GRAD_L2 both
+    figures); the worst parameter keeps STEP_GRAD_L2.
     Returns the launches of the kernels' step."""
     import torch
     from hypernerf_tpu_torch.ops.ray_dict import prepare_ray_dict
@@ -1194,13 +1215,16 @@ def compare_step(model, all_rays, all_rgbs, tag='[7]',
     elastic = (f'; elastic term {terms[0].item():.6e} vs '
                f'{terms[1].item():.6e} (weight {elastic_weight})'
                if terms else '')
+    loss_tol, grad_tol = ((STEP_LOSS_TOL, STEP_GRAD_L2) if tols is None else
+                          (tols[0] * abs(loss_p), tols[1]))
     phase(f'{tag} one step on {n} rays, kernels vs plain versions: loss '
-          f'{loss_k:.6f} vs {loss_p:.6f} (tol {STEP_LOSS_TOL}); gradients: '
-          f'relative L2 over all parameters {total:.3e}, worst parameter '
-          f'{worst[0]:.3e} of its scale at {worst[1]} (tol {STEP_GRAD_L2} '
-          f'both){elastic}')
-    if not abs(loss_k - loss_p) <= STEP_LOSS_TOL or \
-            not max(total, worst[0]) <= STEP_GRAD_L2:
+          f'{loss_k:.8f} vs {loss_p:.8f} (|d| {abs(loss_k - loss_p):.3e}, '
+          f'tol {loss_tol:.3e}); gradients: relative L2 over all parameters '
+          f'{total:.3e} (tol {grad_tol}), worst parameter {worst[0]:.3e} of '
+          f'its scale at {worst[1]} (tol {STEP_GRAD_L2}){elastic}')
+    TIMES[f'{tag} step'] = (abs(loss_k - loss_p) / abs(loss_p), total)
+    if not abs(loss_k - loss_p) <= loss_tol or not total <= grad_tol or \
+            not worst[0] <= STEP_GRAD_L2:
         raise AssertionError('train step: kernels and plain versions '
                              'disagree')
     if terms and not (math.isfinite(terms[0].item()) and terms[0].item() > 0):
@@ -1210,7 +1234,7 @@ def compare_step(model, all_rays, all_rgbs, tag='[7]',
 
 def kernel_wrappers():
     """({kernel name: wrapper with a ``launches`` count}, [plain versions
-    with a ``calls`` count]) of all fourteen kernels."""
+    with a ``calls`` count]) of all seventeen kernels."""
     from hypernerf_tpu_torch.kernels import counted
     wrappers, plains = counted()
     return wrappers, list(plains.values())
@@ -1262,7 +1286,7 @@ PATHS = {'se3_split_glo': ('se3', dict(share_glo=False)),
          'quaternion_split_glo': ('quaternion', dict(share_glo=False))}
 
 
-def train_path(config: str, tag: str, times=None) -> dict:
+def train_path(config: str, tag: str, times=None, tols=None) -> dict:
     """The train step of ``config`` (a configuration, or a name of ``PATHS``)
     at full width (batch 16384, bf16, sigma noise, Adam with steplr) through
     ``make_train_step``; returns its launches over the timed steps. A
@@ -1270,7 +1294,8 @@ def train_path(config: str, tag: str, times=None) -> dict:
     step (the one compared with the plain versions) and, inside the timed
     window, every ``occupancy_update_every`` steps from its first, as
     ``bench.py`` does; ``times``, a dict, receives the window's seconds a
-    step and its number of refreshes."""
+    step and its number of refreshes, and its peak GiB. ``tols``:
+    ``compare_step``'s."""
     import torch
     from hypernerf_tpu_torch.flagship import flagship_train_setup
     from hypernerf_tpu_torch.ops.ray_dict import prepare_ray_dict
@@ -1309,7 +1334,8 @@ def train_path(config: str, tag: str, times=None) -> dict:
             return mse_loss(out, all_rgbs[fixed]).item()
 
     before = fixed_loss()
-    compare_step(model, all_rays, all_rgbs, tag, elastic, extra, grid)
+    compare_step(model, all_rays, all_rgbs, tag, elastic, extra, grid,
+                 tols)
     for _ in range(WARMUP_STEPS):
         step_fn(state, all_rays, all_rgbs)
     torch.cuda.synchronize()
@@ -1332,7 +1358,8 @@ def train_path(config: str, tag: str, times=None) -> dict:
             want[k] = want.get(k, 0) + v * n_ids * refreshes
     launches = read_counts(want, f'{config} train steps')
     if times is not None:
-        times.update(secs=secs, refreshes=refreshes)
+        times.update(secs=secs, refreshes=refreshes,
+                     peak=torch.cuda.max_memory_allocated() / 2 ** 30)
     losses = [m['loss'].item() for m in metrics]
     psnrs = [m['psnr'].item() for m in metrics]
     after = fixed_loss()
@@ -1363,7 +1390,7 @@ def train_path(config: str, tag: str, times=None) -> dict:
                    f'({n_ids} ids a refresh)')
     phase(f'{tag} {config} train step (batch {TRAIN_RAYS}, '
           f'{cfg.num_coarse_samples}+{cfg.num_fine_samples}, full '
-          f'widths, bf16, noise_std {cfg.noise_std}, Adam lr '
+          f'widths, {cfg.compute_dtype}, noise_std {cfg.noise_std}, Adam lr '
           f'{state.optimizer.param_groups[0]["lr"]}{alphas}): '
           f'{secs * 1e3:.1f} '
           f'ms/step, {TRAIN_RAYS / secs:.0f} rays/s over {TRAIN_STEPS} steps '
@@ -3003,8 +3030,9 @@ def main() -> int:
     call_options_phase()
     fine128_phase(kernels)
     bench_phase()
-    if len(kernels) != 29:
-        raise AssertionError(f'{len(kernels)} kernels in the line, want 29')
+    kernels += precision32_phase(kernels)
+    if len(kernels) != 32:
+        raise AssertionError(f'{len(kernels)} kernels in the line, want 32')
     return finish(kernels)
 
 # -- the anneal configuration (the Nerfies windowed template encoding) --------
@@ -3936,11 +3964,12 @@ def smoke_argv(scene: str, exp: str, steps: int, *extra) -> list:
             'steplr', '--log_every', '10', '--exp_name', exp, *extra]
 
 
-def trainer_run(argv, label: str, start: int = 0):
+def trainer_run(argv, label: str, start: int = 0, kernels=STEP_KERNELS):
     """``train.main(argv)`` from step ``start``, every count set to 0 just
     before it and read just after: two launches of each step kernel a
-    step, the two forward kernels on every chunk and level of each val, no
-    plain call. Returns (the trainer, its launches)."""
+    step (``kernels``, in STEP_KERNELS' order: the float32 run's names in
+    phase 33), the two forward kernels on every chunk and level of each
+    val, no plain call. Returns (the trainer, its launches)."""
     from hypernerf_tpu_torch import train as port_train
     reset_counts()
     trainer = port_train.main(argv)
@@ -3949,8 +3978,8 @@ def trainer_run(argv, label: str, start: int = 0):
     vals = int(start == 0 and cfg.num_sanity_val_steps > 0) + sum(
         s % every == 0 for s in range(start + 1, trainer.total_steps + 1))
     w, h = cfg.img_wh
-    want = {k: 2 * (trainer.total_steps - start) for k in STEP_KERNELS}
-    for k in STEP_KERNELS[:2]:
+    want = {k: 2 * (trainer.total_steps - start) for k in kernels}
+    for k in kernels[:2]:
         want[k] += 2 * -(-w * h // cfg.chunk) * vals
     return trainer, read_counts(want, label)
 
@@ -4123,6 +4152,11 @@ def trainer_phase(kernels) -> None:
             torch.cuda.empty_cache()
             d_psnr = metrics['val/psnr'] - plain_metrics['val/psnr']
             d_pose = pose - plain_pose
+            TIMES['trainer_bf16'] = dict(
+                pose=pose, plain_pose=plain_pose, again_pose=again_pose,
+                val=metrics['val/psnr'],
+                plain_val=plain_metrics['val/psnr'], steps=speed,
+                plain_steps=plain_speed)
             phase(f'[25] the same {n} steps through the plain versions: '
                   f'training frames\' psnr {plain_pose:.3f} against the '
                   f'kernels\' {pose:.3f} ({d_pose:+.3f} dB, tol '
@@ -5657,7 +5691,9 @@ def fine128_phase(kernels) -> None:
 
     # The step on 1024 rays against the plain versions, then the
     # full-batch step (launches, ms/step, peak memory).
-    train_path('flagship_fine128', '[32]')
+    times = {}
+    train_path('flagship_fine128', '[32]', times)
+    TIMES['fine128_step'] = times
     torch.cuda.empty_cache()
 
     # A render of 1024 rays at 64 + 128 against the plain versions.
@@ -5716,6 +5752,517 @@ def bench_phase() -> None:
     phase(f'[32] bench: {len(BENCH_RUNS)} runs of python -m '
           f'hypernerf_tpu_torch.bench in {time.perf_counter() - t_phase:.1f} '
           f's; {CARD}')
+
+
+# -- --precision 32 (ROADMAP A.13.1): the float32 kernels of rows 1, 9, 5 ----
+
+# The train CLI's --precision 32 at its other defaults (64 + 128 samples).
+F32 = dict(compute_dtype='float32')
+F32_FINE128 = dict(FINE128, **F32)
+PATHS['flagship_f32'] = ('flagship', F32_FINE128)
+STEP_LAUNCHES['flagship_f32'] = {
+    'fused_level_fwd_f32': 2, 'fused_composite_fwd': 2,
+    'fused_template_bwd_f32': 2, 'fused_fields_bwd_f32': 2,
+    'fused_composite_bwd': 2}
+F32_STEP_KERNELS = tuple(STEP_LAUNCHES['flagship_f32'])
+F32_SOURCES = ('f32_level.cu', 'f32_steps.cu')
+CSRC_DIR = 'hypernerf_tpu_torch/kernels/csrc/'
+# name -> (its source, the TPU kernel it replaces at float32).
+F32_ROWS = {
+    'fused_level_fwd_f32': (CSRC_DIR + 'f32_level.cu',
+                            'hypernerf_tpu/ops/pallas/fused_level.py:1322'),
+    'fused_template_bwd_f32': (CSRC_DIR + 'f32_steps.cu',
+                               'hypernerf_tpu/ops/pallas/fused_mlp.py:736'),
+    'fused_fields_bwd_f32': (CSRC_DIR + 'f32_steps.cu',
+                             'hypernerf_tpu/ops/pallas/fused_level.py:846')}
+# The least time of float32-exact products on an H100 SXM: three TF32
+# products at the dense 495 TFLOP/s; the FFMA pipes' peak beside it.
+F32_PEAK_FLOPS, FFMA_PEAK_FLOPS = 165e12, 66.9e12
+# Kernel vs plain, both float32 on the card with TF32 off: the same
+# arithmetic in another summation order, which the 2^9 posenc band
+# amplifies where it moves a warped point (measured on an H100: the level
+# 1.5e-7 relative, gradients up to 2.4e-6). Allowed: the level's output and
+# raw_t relative L2 1e-4 and max|d| 1e-3, and at most a tenth of the bf16
+# kernel's error against the same float32 plain (1.4e-2 there); rows 9 and
+# 5 relative L2 1e-2 per output (the repo's float32 full-width bound, a
+# ReLU that falls on the other side) and 5e-2 of the largest entry, and
+# their worst at most a tenth of the bf16 kernel's (0.16 and 0.13 there).
+F32_OUT_L2, F32_OUT_MAX = 1e-4, 1e-3
+F32_GRAD_L2, F32_GRAD_MAX = 1e-2, 5e-2
+# The 1024-ray float32 step, kernels vs plain: the loss relative 1e-5, the
+# gradients relative L2 1e-2 over all parameters.
+F32_STEP_TOLS = (1e-5, 1e-2)
+# Against tests/data/fused_f32_jax_ref.npz: outputs 1e-4 of the largest
+# entry, gradients F32_GRAD_L2 / F32_GRAD_MAX (tests/test_torch_plane.py's
+# float32 rule; the CPU's plain level reads 8.8e-5 and 7.8e-3).
+F32_REF_OUT = 1e-4
+# Float32 configurations and rows still refused on the card (A.13.1).
+F32_REFUSED = ('se3', 'quaternion', 'plane', 'anneal', 'nerf_embed',
+               'static', 'split_glo', 'anneal_se3')
+
+
+def f32_bound(flops: float, nbytes: float):
+    """(bound_ms, bound_by, the FFMA ceiling's ms): float32-exact products
+    at F32_PEAK_FLOPS or the bytes at the memory rate, and the operations
+    at the FFMA peak."""
+    ops_ms, bytes_ms = flops / F32_PEAK_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+    return ((ops_ms, 'operations') if ops_ms >= bytes_ms else
+            (bytes_ms, 'bytes')) + (flops / FFMA_PEAK_FLOPS * 1e3,)
+
+
+def f32_level_bound(level, n_rays: int, samples: int, cond: int = 39):
+    """Row 1 at float32: a multiply-add per weight and sample; bytes the
+    ray inputs (fp32: z per sample, origin, direction, embedding and
+    condition per ray), the weights once, the output."""
+    macs = sum(level_macs(level))
+    p = n_rays * samples
+    return f32_bound(2.0 * macs * p,
+                     4 * p + 4 * n_rays * (14 + cond) + 4 * macs + 16 * p)
+
+
+def f32_template_bwd_bound(level, n_rays: int, samples: int,
+                           cond: int = 39):
+    """Kernel A at float32: the recompute, g W and g^T h a multiply-add per
+    weight and row each; bytes raw_t, g and dx_t per row, the condition and
+    its cotangent per ray, the weights and dW once."""
+    t_macs = level_macs(level)[1]
+    p = n_rays * samples
+    return f32_bound(6.0 * t_macs * p,
+                     p * (32 + 16 + 32) + 8 * n_rays * cond + 8 * t_macs)
+
+
+def f32_fields_bwd_bound(level, n_rays: int, samples: int):
+    """Kernel B at float32: the same per weight of the field layers; bytes
+    z, dx_t and d z per row, the ray inputs and their cotangents per ray,
+    the weights and dW once."""
+    f_macs = level_macs(level)[0]
+    p = n_rays * samples
+    return f32_bound(6.0 * f_macs * p,
+                     p * (4 + 32 + 4) + 8 * n_rays * 14 + 8 * f_macs)
+
+
+def f32_rows_phase(model, bf16) -> dict:
+    """Phase 33 (b): rows 1, 9 and 5 at float32 against their plain
+    versions (row 1 at R = 8192, S = 128 and R = 16384, S = 128 and 192;
+    rows 9 and 5 at R = 16384, S = 128 and 192), each beside the bf16
+    kernel's error against the same float32 plain, and timed. Returns
+    {name: {shape key: (ms, plain ms, bound, error)}}."""
+    import torch
+    from hypernerf_tpu_torch.kernels import (fused_fields_bwd, fused_level,
+                                             fused_template_bwd)
+    from hypernerf_tpu_torch.kernels.fused_level import _launch_forward
+    lv, lb = model.level('fine'), bf16.level('fine')
+    rows = {name: {} for name in F32_ROWS}
+    for r, s in ((8192, 128), (16384, 128), (TRAIN_RAYS, S192)):
+        key = f'R{r}_S{s}'
+        with torch.no_grad():
+            args = level_inputs(r, s, seed=s + r // 1024)
+            out, raw_t = _launch_forward(lv, *args, want_raw_t=True)
+            want, want_raw = plain_forward(lv, args)
+            e_out, e_raw, e_bf = ((e[0], e[2]) for e in (
+                grad_errors(out, want), grad_errors(raw_t, want_raw),
+                grad_errors(fused_level(lb, *args), want)))
+            del out, raw_t
+            ok = (max(e_out[0], e_raw[0]) <= F32_OUT_L2
+                  and max(e_out[1], e_raw[1]) <= F32_OUT_MAX
+                  and e_out[0] <= 0.1 * e_bf[0] and e_out[1] <= 0.1 * e_bf[1])
+            t1 = (cuda_ms(lambda: fused_level(lv, *args), 3),
+                  cuda_ms(lambda: plain_forward(lv, args), 1))
+            b1 = f32_level_bound(lv, r, s)
+            phase(f'[33] row 1 float32 R={r} S={s}: out relative L2 '
+                  f'{e_out[0]:.3e} max|d| {e_out[1]:.3e}, raw_t '
+                  f'{e_raw[0]:.3e} / {e_raw[1]:.3e} (tol {F32_OUT_L2} / '
+                  f'{F32_OUT_MAX}); the bf16 kernel against the same float32 '
+                  f'plain {e_bf[0]:.3e} / {e_bf[1]:.3e} (the float32 error at '
+                  f'most a tenth of it); kernel {t1[0]:.3f} ms, plain '
+                  f'{t1[1]:.3f} ms; bound {b1[0]:.3f} ms ({b1[1]}, '
+                  f'{b1[0] / t1[0]:.1%}), FFMA ceiling {b1[2]:.3f} ms '
+                  f'({b1[2] / t1[0]:.1%}); {CARD}')
+            if not ok:
+                raise AssertionError('row 1 float32: the kernel disagrees')
+            rows['fused_level_fwd_f32'][key] = (*t1, b1, e_out[1])
+            if r != TRAIN_RAYS:
+                del args, want, want_raw
+                continue
+            g = torch.randn(r * s, 4, generator=torch.Generator().manual_seed(
+                s)).cuda()
+            want_a = plain_template_bwd(lv, want_raw, args[4], g)
+            got_a = fused_template_bwd(lv, want_raw, args[4], g)
+            err9 = check_grads(f'row 9 (kernel A) float32 vs plain R={r} '
+                               f'S={s}', TEMPLATE_GRAD_NAMES,
+                               [got_a[0], got_a[1], *got_a[2]], want_a,
+                               F32_GRAD_L2, F32_GRAD_MAX, tag='[33]')
+            del got_a
+            got_bf = fused_template_bwd(lb, want_raw, args[4], g)
+            bf9 = max(grad_errors(a, b)[0] for a, b in zip(
+                [got_bf[0], got_bf[1], *got_bf[2]], want_a))
+            del got_bf
+            dx_t = want_a[0]
+            want_b = plain_fields_bwd(lv, args, dx_t)
+            got_b = fused_fields_bwd(lv, *args[:4], dx_t)
+            err5 = check_grads(f'row 5 (kernel B) float32 vs plain R={r} '
+                               f'S={s}', FIELDS_GRAD_NAMES,
+                               [*got_b[:4], *got_b[4]], want_b, F32_GRAD_L2,
+                               F32_GRAD_MAX, tag='[33]')
+            got_bf = fused_fields_bwd(lb, *args[:4], dx_t)
+            bf5 = max(grad_errors(a, b)[0] for a, b in zip(
+                [*got_bf[:4], *got_bf[4]], want_b))
+            del got_b, got_bf, want_b
+            t9 = (cuda_ms(lambda: fused_template_bwd(lv, want_raw, args[4],
+                                                     g), 1),
+                  cuda_ms(lambda: plain_template_bwd(lv, want_raw, args[4],
+                                                     g), 1))
+            t5 = (cuda_ms(lambda: fused_fields_bwd(lv, *args[:4], dx_t), 1),
+                  cuda_ms(lambda: plain_fields_bwd(lv, args, dx_t), 1))
+            for name, t, b, err, bf in (
+                    ('fused_template_bwd_f32', t9,
+                     f32_template_bwd_bound(lv, r, s), err9, bf9),
+                    ('fused_fields_bwd_f32', t5,
+                     f32_fields_bwd_bound(lv, r, s), err5, bf5)):
+                phase(f'[33] {name} R={r} S={s}: kernel {t[0]:.3f} ms, plain '
+                      f'{t[1]:.3f} ms; bound {b[0]:.3f} ms ({b[1]}, '
+                      f'{b[0] / t[0]:.1%}), FFMA ceiling {b[2]:.3f} ms '
+                      f'({b[2] / t[0]:.1%}); worst relative L2 {err[0]:.3e} '
+                      f'against the bf16 kernel\'s {bf:.3e} against the '
+                      f'same float32 plain (at most a tenth of it); {CARD}')
+                if err[0] > 0.1 * bf:
+                    raise AssertionError(f'{name} float32: the kernel is no '
+                                         f'closer to plain than a tenth of '
+                                         f'the bf16 kernel')
+                rows[name][key] = (*t, b, err[2])
+            del args, want, want_raw, g, want_a, dx_t
+        torch.cuda.empty_cache()
+    # Rows 9 and 5 at S = 128 (timed; held to plain at S = 192 above).
+    r, s = 16384, 128
+    with torch.no_grad():
+        args = level_inputs(r, s, seed=7)
+        _, raw_t = _launch_forward(lv, *args, want_raw_t=True)
+        g = torch.randn(r * s, 4, generator=torch.Generator().manual_seed(
+            7)).cuda()
+        dx_t = fused_template_bwd(lv, raw_t, args[4], g)[0]
+        t9 = (cuda_ms(lambda: fused_template_bwd(lv, raw_t, args[4], g), 1),
+              cuda_ms(lambda: plain_template_bwd(lv, raw_t, args[4], g), 1))
+        t5 = (cuda_ms(lambda: fused_fields_bwd(lv, *args[:4], dx_t), 1),
+              cuda_ms(lambda: plain_fields_bwd(lv, args, dx_t), 1))
+        for name, t, b in (('fused_template_bwd_f32', t9,
+                            f32_template_bwd_bound(lv, r, s)),
+                           ('fused_fields_bwd_f32', t5,
+                            f32_fields_bwd_bound(lv, r, s))):
+            phase(f'[33] {name} R={r} S={s}: kernel {t[0]:.3f} ms, plain '
+                  f'{t[1]:.3f} ms; bound {b[0]:.3f} ms ({b[1]}, '
+                  f'{b[0] / t[0]:.1%}), FFMA ceiling {b[2]:.3f} ms '
+                  f'({b[2] / t[0]:.1%}); {CARD}')
+            rows[name][f'R{r}_S{s}'] = (*t, b, 0.0)
+        del args, raw_t, g, dx_t
+    torch.cuda.empty_cache()
+    return rows
+
+
+def f32_reference_phase(model) -> None:
+    """Phase 33 (c): rows 1, 9 and 5 (the level, then its backward, A then
+    B, through the autograd Function) against the JAX level kernel's stored
+    float32 numbers (tests/data/fused_f32_jax_ref.npz)."""
+    import numpy as np
+    import torch
+    from hypernerf_tpu_torch.flagship import (F32_GRAD_LAYERS, LEVEL_INPUTS,
+                                              read_f32_reference)
+    from hypernerf_tpu_torch.kernels import fused_level
+    from hypernerf_tpu_torch.kernels.fused_level import level_layers
+    ref = read_f32_reference()['level']
+    lv = model.level('fine')
+    model.zero_grad(set_to_none=True)
+    args = [torch.tensor(ref[k]).cuda().requires_grad_(True)
+            for k in LEVEL_INPUTS]
+    out = fused_level(lv, *args)
+    want = torch.tensor(ref['out']).cuda()
+    out_err = ((out - want).abs().max() / want.abs().max()).item()
+    out.backward(torch.tensor(ref['cotangent']).cuda())
+    names, got, wants = [], [], []
+    for k, a in zip(LEVEL_INPUTS, args):
+        names.append(f'd_{k}')
+        got.append(a.grad)
+    for l, (lin, _) in enumerate(level_layers(lv)):
+        names.append(f'db{l}')
+        got.append(lin.bias.grad)
+        if l in F32_GRAD_LAYERS:
+            names.append(f'dw{l}')
+            got.append(lin.weight.grad)
+    wants = [torch.tensor(np.asarray(ref[n])).cuda() for n in names]
+    model.zero_grad(set_to_none=True)
+    phase(f'[33] rows 1, 9, 5 float32 against the stored JAX numbers '
+          f'(64 x 128, the probe weights): outputs max|d| {out_err:.3e} of '
+          f'the largest entry (tol {F32_REF_OUT})')
+    check_grads('rows 9 + 5 float32 against the stored JAX gradients', names,
+                got, wants, F32_GRAD_L2, F32_GRAD_MAX, tag='[33]')
+    if not out_err <= F32_REF_OUT:
+        raise AssertionError('row 1 float32 against the stored JAX outputs')
+
+
+def f32_composite_phase(model) -> None:
+    """Phase 33 (d): rows 2 and 7 on the float32 level's outputs (R =
+    16384: the coarse level at S = 64 with a fine draw of N = 128, noise on;
+    the backward at S = 192) against their plain versions."""
+    import torch
+    from hypernerf_tpu_torch.kernels import (fused_composite_bwd,
+                                             fused_composite_bwd_plain,
+                                             fused_composite_plain,
+                                             fused_level)
+    r = TRAIN_RAYS
+    lv = model.level('fine')
+    gen = torch.Generator().manual_seed(33)
+    with torch.no_grad():
+        args = level_inputs(r, 64, seed=64)
+        packed = fused_level(lv, *args)
+        u = torch.sort(torch.rand(r, 128, generator=gen), -1)[0].cuda()
+        noise = torch.randn(r, 64, generator=gen).cuda()
+        err2 = check_composite(packed, args[0], args[2], u, f'forward on the '
+                               f'float32 level\'s output R={r} S=64 N=128 '
+                               f'u=sorted', noise=noise, tag='[33]')
+        args = level_inputs(r, S192, seed=65)
+        packed = fused_level(lv, *args)
+        z, dirs = args[0], args[2]
+        noise = torch.randn(r, S192, generator=gen).cuda()
+        d_outs = torch.randn(r, 6, generator=gen).cuda()
+        d_w = (torch.randn(r, S192, generator=gen) * 0.1).cuda()
+        dnorm = torch.linalg.norm(dirs, dim=-1, keepdim=True)
+        got = list(fused_composite_bwd(packed, z, dirs, noise, d_outs, d_w))
+        want = list(fused_composite_bwd_plain(packed, z, dnorm, noise,
+                                              d_outs, d_w))
+        cum = torch.cumsum(fused_composite_plain(
+            packed, z, dirs, None, noise=noise)['weights'], dim=-1)
+        edge = ((cum - 0.5).abs() < 1e-5).any(-1)
+        got[1] = got[1].masked_fill(edge[:, None], 0.0)
+        want[1] = want[1].masked_fill(edge[:, None], 0.0)
+        err7 = check_grads(f'compositing backward on the float32 level\'s '
+                           f'output R={r} S={S192} ({int(edge.sum())} rays '
+                           f'on the median\'s edge)',
+                           ['d_packed', 'd_z', 'd_dnorm', 'd_noise'], got,
+                           want, COMPOSITE_GRAD_TOL, COMPOSITE_GRAD_TOL,
+                           tag='[33]')
+    phase(f'[33] rows 2 and 7 on the float32 level: forward max|d| '
+          f'{err2:.3e}, backward worst relative L2 {err7[0]:.3e}')
+
+
+def f32_render_phase() -> float:
+    """Phase 33 (f): one 504x378 float32 frame (64 + 128, chunk 16384,
+    seeded init) through the renderer ``eval`` uses: the float32 level and
+    the compositing kernels on every chunk and level, no plain call.
+    Returns its seconds."""
+    import torch
+    from hypernerf_tpu_torch.flagship import H, W, flagship_model, spiral_rays
+    from hypernerf_tpu_torch.training.renderer import ImageRenderer
+    chunk = 16384
+    model = flagship_model('cuda', seed=0, **F32_FINE128)
+    renderer = ImageRenderer(model, chunk=chunk, keep=('rgb', 'depth',
+                                                       'acc'),
+                             levels=('fine',), quantize=True)
+    frame = spiral_rays([30])[0]
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    out = renderer(frame)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    chunks = -(-W * H // chunk)
+    launches = read_counts({'fused_level_fwd_f32': 2 * chunks,
+                            'fused_composite_fwd': 2 * chunks},
+                           'a float32 frame')
+    if out['fine']['rgb'].shape != (W * H, 3):
+        raise AssertionError(f'float32 frame: {out["fine"]["rgb"].shape}')
+    phase(f'[33] a float32 frame {W}x{H} (64+128, chunk {chunk}, the first '
+          f'at this chunk): {secs:.3f} s; launches {launches}; no plain '
+          f'call; {CARD}')
+    return secs
+
+
+def f32_refusals_phase() -> None:
+    """Phase 33 (g): float32 configurations outside the flagship table
+    refuse on the card, naming ROADMAP A.13 (no plain fallback)."""
+    import torch
+    from hypernerf_tpu_torch.flagship import flagship_model, spiral_rays
+    from hypernerf_tpu_torch.ops.ray_dict import prepare_ray_dict
+    rays = torch.as_tensor(spiral_rays([0])[0][:64]).cuda()
+    said = []
+    for config in F32_REFUSED:
+        model = flagship_model('cuda', config=config, **F32)
+        try:
+            with torch.no_grad():
+                model(prepare_ray_dict(rays))
+        except NotImplementedError as e:
+            item = re.search(r'A\.13(\.1 sub-item \d)?', str(e))
+            if item is None:
+                raise
+            said.append(f'{config}: {item.group(0)}')
+        else:
+            raise AssertionError(f'float32 {config} ran on the card')
+        del model
+    torch.cuda.empty_cache()
+    phase(f'[33] float32 refused on the card, naming A.13.1\'s sub-item: '
+          + '; '.join(said))
+
+
+def f32_trainer_phase() -> dict:
+    """Phase 33 (h): ``train.main([... '--precision', '32'])`` as phase 25
+    runs the bf16 trainer (36 steps at batch 4096, 64 + 64, on an 8-frame
+    160x120 scene in a temporary directory) with its launches counted,
+    ``eval --precision 32`` of its checkpoint, and the same 36 steps through
+    the plain versions: the training frames' PSNR at step 36 and the val
+    PSNR of both, beside phase 25's bf16 pair. Returns the figures."""
+    import io
+    import os
+    import tempfile
+
+    import torch
+    from hypernerf_tpu_torch import eval as port_eval
+    from hypernerf_tpu_torch import train as port_train
+    t_phase = time.perf_counter()
+    tools = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                         'tools')
+    sys.path.insert(0, tools)
+    import make_synthetic_scene
+    cwd = os.getcwd()
+    n = SMOKE_STEPS
+    with tempfile.TemporaryDirectory() as tmp:
+        os.chdir(tmp)
+        try:
+            scene = make_synthetic_scene.make_scene(
+                os.path.join(tmp, 'scene'), **SMOKE_SCENE)
+            argv = smoke_argv(scene, 'f32', n, '--precision', '32')
+            trainer, launches = trainer_run(argv, 'float32 trainer (kernels)',
+                                            kernels=F32_STEP_KERNELS)
+            if trainer.nerf_cfg.compute_dtype != 'float32':
+                raise AssertionError('--precision 32 did not reach the model')
+            pose, metrics = train_pose_psnr(trainer), trainer.last_metrics
+            speed = steps_per_second(trainer, n)
+            del trainer
+            latest = os.path.join(tmp, 'ckpts', 'f32', f'step_{n}')
+            reset_counts()
+            out = io.StringIO()
+            with contextlib.redirect_stdout(out):
+                port_eval.main(['--root_dir', scene, '--dataset_name',
+                                'llff', '--img_wh', str(SMOKE_SCENE['width']),
+                                str(SMOKE_SCENE['height']), '--split',
+                                'test_train', '--ckpt_path', latest,
+                                '--precision', '32', '--scene_name', 'f32'])
+            pngs = [f for f in os.listdir(os.path.join(
+                tmp, 'results', 'llff', 'f32')) if f.endswith('.png')]
+            mean = [ln for ln in out.getvalue().splitlines()
+                    if ln.startswith('Mean PSNR')]
+            chunks = -(-SMOKE_SCENE['width'] * SMOKE_SCENE['height']
+                       // CHUNK)
+            eval_launches = read_counts(
+                {k: 2 * chunks * len(pngs) for k in F32_STEP_KERNELS[:2]},
+                'eval --precision 32 of the float32 checkpoint')
+            if not pngs or not mean:
+                raise AssertionError(f'eval wrote {len(pngs)} PNGs')
+            reset_counts()
+            with plain_versions():
+                plain = port_train.main(smoke_argv(scene, 'f32_plain', n,
+                                                   '--precision', '32'))
+            if any(fn.launches for fn in kernel_wrappers()[0].values()):
+                raise AssertionError('the plain trainer launched a kernel')
+            plain_pose, plain_metrics = (train_pose_psnr(plain),
+                                         plain.last_metrics)
+            plain_speed = steps_per_second(plain, n)
+            del plain
+            torch.cuda.empty_cache()
+        finally:
+            os.chdir(cwd)
+            sys.path.remove(tools)
+    bf = TIMES.get('trainer_bf16', {})
+    nan = float('nan')
+    d_pose = pose - plain_pose
+    d_val = metrics['val/psnr'] - plain_metrics['val/psnr']
+    phase(f'[33] train.main --precision 32: {n} steps (batch {SMOKE_BATCH}, '
+          f'64+64) at {speed:.2f} steps/s (plain {plain_speed:.3f}); '
+          f'launches {launches}; eval --precision 32 of step_{n}: '
+          f'{len(pngs)} PNGs, {mean[0]}, launches {eval_launches}; at step '
+          f'{n} the training frames\' psnr: kernels {pose:.3f}, plain '
+          f'{plain_pose:.3f} ({d_pose:+.3f} dB, tol {POSE_PSNR_TOL}); val '
+          f'psnr {metrics["val/psnr"]:.3f} against '
+          f'{plain_metrics["val/psnr"]:.3f} ({d_val:+.3f} dB, tol '
+          f'{SMOKE_PSNR_TOL}); phase 25\'s bf16 pair: kernels '
+          f'{bf.get("pose", nan):.3f}, plain {bf.get("plain_pose", nan):.3f} '
+          f'({bf.get("pose", nan) - bf.get("plain_pose", nan):+.3f} dB; '
+          f'its second kernels run {bf.get("again_pose", nan):.3f}); '
+          f'{time.perf_counter() - t_phase:.1f} s; {CARD}')
+    if not (abs(d_pose) <= POSE_PSNR_TOL and abs(d_val) <= SMOKE_PSNR_TOL) \
+            or not all(math.isfinite(v) for v in metrics.values()):
+        raise AssertionError('float32 trainer: kernels and plain versions '
+                             'disagree')
+    return dict(pose=pose, plain_pose=plain_pose, launches=launches)
+
+
+def precision32_phase(kernels) -> list:
+    """Phase 33: ``--precision 32`` on the card (ROADMAP A.13.1, the
+    flagship table): TF32 off; (b) rows 1, 9, 5 at float32 against their
+    plain versions and timed, each beside the bf16 kernel's error against
+    the same float32 plain; (c) against the stored float32 JAX numbers;
+    (d) rows 2 and 7 on the float32 level's outputs; (e) the CLI's 64 +
+    128 train step at float32 through ``make_train_step`` (every kernel
+    counted, no plain call; 1024 rays against the plain versions); (f) a
+    float32 frame; (g) float32 refusals; (h) ``train.main`` and ``eval``
+    with ``--precision 32`` beside the plain trainer. Returns the three
+    float32 kernels' entries of the line."""
+    import torch
+    from hypernerf_tpu_torch.flagship import flagship_model, load_probe_weights
+    from hypernerf_tpu_torch.kernels import build
+    t_phase = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    phase(f'[33] float32: torch.backends.cuda.matmul.allow_tf32 = '
+          f'{torch.backends.cuda.matmul.allow_tf32}, '
+          f'torch.backends.cudnn.allow_tf32 = '
+          f'{torch.backends.cudnn.allow_tf32}; ptxas (FFMA products, no '
+          f'tensor cores): {ptxas_lines(build.build_log(), F32_SOURCES)}')
+    torch.cuda.empty_cache()
+    model = load_probe_weights(flagship_model('cuda', **F32_FINE128))
+    bf16 = load_probe_weights(flagship_model('cuda', **FINE128))
+    rows = f32_rows_phase(model, bf16)
+    del bf16
+    f32_reference_phase(model)
+    f32_composite_phase(model)
+    del model
+    torch.cuda.empty_cache()
+    times = {}
+    launches = train_path('flagship_f32', '[33]', times, F32_STEP_TOLS)
+    bf = TIMES.get('fine128_step', {})
+    phase(f'[33] the 64 + 128 step at float32: {times["secs"] * 1e3:.1f} '
+          f'ms/step, {TRAIN_RAYS / times["secs"]:.0f} rays/s, peak '
+          f'{times["peak"]:.2f} GiB; bf16 (phase 32 (a)) '
+          f'{bf.get("secs", float("nan")) * 1e3:.1f} ms/step, peak '
+          f'{bf.get("peak", float("nan")):.2f} GiB; {CARD}')
+    torch.cuda.empty_cache()
+    frame = f32_render_phase()
+    f32_refusals_phase()
+    trained = f32_trainer_phase()
+    out = []
+    for name, (source, replaces) in F32_ROWS.items():
+        main = rows[name][f'R{TRAIN_RAYS}_S128']
+        s192 = rows[name][f'R{TRAIN_RAYS}_S{S192}']
+        entry = dict(name=name, route='cuda', source=source,
+                     replaces=replaces, launches=launches[name],
+                     trainer_launches=trained['launches'][name],
+                     max_abs_err=max(v[3] for v in rows[name].values()),
+                     ms=main[0], plain_ms=main[1], bound_ms=main[2][0],
+                     bound_by=main[2][1], library_ms=None,
+                     ffma_ceiling_ms=main[2][2], shape=f'R={TRAIN_RAYS} S=128',
+                     ms_s192=s192[0], plain_ms_s192=s192[1],
+                     bound_ms_s192=s192[2][0], dtype='float32',
+                     tolerance=(
+                         f'relative L2 <= {F32_OUT_L2}, max|d| <= '
+                         f'{F32_OUT_MAX}' if name == 'fused_level_fwd_f32'
+                         else f'relative L2 <= {F32_GRAD_L2} per output')
+                     + ', at most a tenth of the bf16 kernel\'s error')
+        if name == 'fused_level_fwd_f32':
+            r8 = rows[name]['R8192_S128']
+            entry.update(ms_r8192=r8[0], plain_ms_r8192=r8[1],
+                         bound_ms_r8192=r8[2][0])
+        out.append(entry)
+    TIMES['f32'] = dict(step=times, frame=frame, trainer=trained)
+    phase(f'[33] the --precision 32 phase took '
+          f'{time.perf_counter() - t_phase:.1f} s; {CARD}')
+    return out
 
 
 def finish(kernels) -> int:

@@ -9,8 +9,8 @@ synthetic ray buffer (``flagship_train_setup``), and the probe weights and
 inputs at which the kernels are held against the JAX kernels' stored outputs
 and gradients (``LEVEL_REFERENCE``, ``GRAD_REFERENCE``, ``MODULAR_REFERENCE``,
 ``SE3_REFERENCE``, ``JACOBIAN_REFERENCE``, ``ANNEAL_REFERENCE``,
-``PLANE_REFERENCE``, ``CONDITION_REFERENCE``, ``B4_REFERENCE``, written by
-``tools/make_level_reference.py``).
+``PLANE_REFERENCE``, ``CONDITION_REFERENCE``, ``B4_REFERENCE``,
+``F32_REFERENCE``, written by ``tools/make_level_reference.py``).
 
 Shared by ``chip_smoke.py``, ``tools/profile_render.py``,
 ``tools/profile_train.py`` and ``tools/make_level_reference.py``.
@@ -635,6 +635,38 @@ def b4_probe_inputs(case: str) -> dict:
             'rgb_cond': anneal_condition(
                 rays['directions'], b4_extra_params(config)['nerf_alpha']),
             'cotangent': rs.randn(rows, 4).astype(np.float32)}
+
+
+# The JAX level kernel's numbers at ``compute_dtype='float32'`` (the train
+# CLI's ``--precision 32``) on the flagship at the probe weights: the level
+# forward and its VJP for a stored cotangent (level, rays, samples per ray,
+# seed), in interpret mode. To keep the file small, dW of F32_GRAD_LAYERS
+# alone (the first and skip layers of each field and of the template, the
+# heads, the bottleneck and rgb layer 0; by index in the level's table) and
+# every db.
+F32_REFERENCE = os.path.join(os.path.dirname(LEVEL_REFERENCE),
+                             'fused_f32_jax_ref.npz')
+F32_LEVEL_CASES = {'level': ('fine', 64, 128, 81)}
+F32_GRAD_LAYERS = (0, 5, 6, 7, 12, 13, 14, 23, 24, 25, 29)
+
+
+def f32_probe_inputs(case: str) -> dict:
+    """Numpy ``LEVEL_INPUTS`` and 'cotangent' (R * S, 4) of a
+    ``F32_LEVEL_CASES`` case."""
+    _, n_rays, samples, seed = F32_LEVEL_CASES[case]
+    inputs = probe_inputs(n_rays, samples, seed)
+    inputs['cotangent'] = probe_cotangents(n_rays, samples, seed)['level']
+    return inputs
+
+
+def read_f32_reference(path: str = F32_REFERENCE):
+    """{case: {name: array}} of the float32 reference file."""
+    out = {case: {} for case in F32_LEVEL_CASES}
+    with np.load(path) as f:
+        for key in f.files:
+            case, name = key.split('/', 1)
+            out[case][name] = f[key]
+    return out
 
 
 def read_b4_reference(path: str = B4_REFERENCE):

@@ -81,8 +81,26 @@ TABLE_CODES = {name: code for code, name in enumerate(
     (*WARP_CODES, *PLANE_TABLES, *NERFIES_PLANE_TABLES))}
 SE3_LAYERS = slice(0, 9)
 SE3_FLAGSHIP = dict(embed=8, min_deg=0, max_deg=8)
-NOT_COVERED = ('the CUDA kernels cover the flagship widths in bf16 only; '
-               'other widths are ROADMAP item A.13 (kernel generality)')
+NOT_COVERED = ('the CUDA kernels cover the flagship widths (bf16, and '
+               'float32 on the flagship level table alone); other widths '
+               'are ROADMAP item A.13 (kernel generality)')
+# What float32 on the card still lacks, by ROADMAP A.13.1's sub-item.
+F32_ITEMS = {
+    1: 'the per-module path, rows 8, 10 and 11 (static, split_glo, '
+       'return_points, query_sigma, the occupancy refresh)',
+    2: 'the screw warps (rows 1 and 5 at table codes 1 and 2, rows 12 '
+       'and 13)',
+    3: 'the plane and Nerfies layouts and the conditions\' widths',
+    4: 'the Jacobians, rows 14 to 17'}
+
+
+def f32_refusal(item: int, what: str) -> str:
+    """The message a float32 kernel path that is not ported yet raises
+    with: ``what``, and the sub-item of ROADMAP A.13.1 that ports it."""
+    return (f'{what} in float32 on the card: ROADMAP A.13.1 sub-item '
+            f'{item}, {F32_ITEMS[item]}; the float32 kernels cover the '
+            f'flagship level table alone (translation warp, bendy sheet, '
+            f'posenc_orig template, a 39-column rgb condition)')
 
 
 def table_warp(table: str) -> str:
@@ -136,10 +154,10 @@ def _pack_layer(layer: torch.nn.Linear, segs, dtype):
 
 
 def pack_layers(owner: torch.nn.Module, layers, check=None,
-                transposed: bool = False):
-    """The kernels' bf16 weight and bias blobs for ``layers`` and the
-    (n_pad, k_pad) of each layer, cached on ``owner`` (the module that holds
-    those layers).
+                transposed: bool = False, dtype=torch.bfloat16):
+    """The kernels' weight and bias blobs for ``layers`` in ``dtype`` (bf16,
+    or the float32 kernels' fp32) and the (n_pad, k_pad) of each layer,
+    cached on ``owner`` (the module that holds those layers).
 
     With ``transposed`` the first blob holds every layer as (k_pad, n_pad),
     which is how the backward kernels read a weight for ``g @ W``. ``check``
@@ -156,31 +174,38 @@ def pack_layers(owner: torch.nn.Module, layers, check=None,
     owns its cache, so a warp field or a sheet shared by two levels is
     packed once per optimizer step.
     """
-    cached = packed(owner, layers, check)
+    cached = packed(owner, layers, check, dtype)
     if transposed and 'wt' not in cached:
         cached['wt'] = torch.cat([w.t().reshape(-1)
                                   for w, _ in cached['packed']]).contiguous()
     return cached['wt' if transposed else 'w'], cached['b'], cached['shapes']
 
 
-def packed(owner: torch.nn.Module, layers, check=None) -> dict:
+def packed(owner: torch.nn.Module, layers, check=None,
+           dtype=torch.bfloat16) -> dict:
     """The cache entry behind ``pack_layers``: 'key', 'packed' [(w, b)],
-    'shapes', the blobs 'w' and 'b' and, once asked for, 'wt'."""
+    'shapes', the blobs 'w' and 'b' and, once asked for, 'wt'. Each dtype
+    has its own entry (``packed_attr``)."""
     key = (tuple((p.data_ptr(), p._version) for p in layer_params(layers)),
            tuple(tuple(segs) for _, segs in layers))
-    cached = getattr(owner, '_packed', None)
+    attr = packed_attr(dtype)
+    cached = getattr(owner, attr, None)
     if cached is None or cached['key'] != key:
         if check is not None:
             check()
-        pairs = [_pack_layer(lin, segs, torch.bfloat16)
-                 for lin, segs in layers]
+        pairs = [_pack_layer(lin, segs, dtype) for lin, segs in layers]
         cached = dict(
             key=key, packed=pairs,
             shapes=[tuple(w.shape) for w, _ in pairs],
             w=torch.cat([w.reshape(-1) for w, _ in pairs]).contiguous(),
             b=torch.cat([b for _, b in pairs]).contiguous())
-        object.__setattr__(owner, '_packed', cached)
+        object.__setattr__(owner, attr, cached)
     return cached
+
+
+def packed_attr(dtype) -> str:
+    """The attribute a module keeps its packed blobs of ``dtype`` under."""
+    return '_packed' if dtype == torch.bfloat16 else '_packed_f32'
 
 
 def unpack_grads(dw_blob, db_blob, layers, shapes):

@@ -1,0 +1,515 @@
+// The float32 steps of kernels A and B for Hopper (sm_90a): a row product
+// through a layer, a layer's dW / db over row ranges, their fixed-order
+// sum, and the narrow steps (the encodings into the stash, the rgb
+// condition per row, the posenc VJPs, the per-ray sums).
+//
+// At `compute_dtype='float32'` they replace the TPU kernels
+// hypernerf_tpu/ops/pallas/fused_mlp.py `_bwd_call` (:736, kernel A, the
+// template backward) and hypernerf_tpu/ops/pallas/fused_level.py
+// `_fields_bwd_call` (:846, kernel B, the warp field's and the sheet's
+// backward), the two halves of the level backward (`_fused_bwd_pipelined`
+// :1260, `_fused_bwd` :1397). The host side that orders the steps over
+// chunks of whole rays and owns the stash of each layer's fp32 output is
+// kernels/f32.py; the bf16 kernels A and B are untouched.
+//
+// Bound: operations (the products) for rowprod and dw, bytes for the
+// narrow steps. Design: rowprod and dw are f32_chain.cuh's register tiles
+// (Step: 128 x 128 a block, 8 x 8 a thread) on operands staged through
+// shared memory in chunks of 16 reduction columns (rowprod: 16 input
+// columns of 128 rows and of 128 outputs; dw: 16 rows of 128 outputs and
+// of 128 inputs),
+// each chunk loaded into registers while the one before it is multiplied.
+// dw writes each row range's partial sums into a slab of its own (as many
+// ranges as fill the card twice, kernels/f32.py split_count), which
+// hn_f32_reduce adds into the layer's [dW | db] in a fixed order: dW / db
+// are deterministic.
+
+#include "f32_chain.cuh"
+
+namespace {
+
+using namespace f32;
+
+// A matrix of up to two column segments: element (r, k) is a0[r * ld0 + k]
+// for k < k0, else a1[r * ld1 + k - k0].
+struct Cols {
+  const float* a0;
+  long long ld0;
+  int k0;
+  const float* a1;
+  long long ld1;
+};
+
+__device__ __forceinline__ float at(const Cols& m, long long r, int k) {
+  return k < m.k0 ? m.a0[r * m.ld0 + k] : m.a1[r * m.ld1 + (k - m.k0)];
+}
+
+__host__ __device__ __forceinline__ bool aligned16(const void* p) {
+  return reinterpret_cast<size_t>(p) % 16 == 0;
+}
+
+struct RowprodArgs {
+  Cols a;
+  int K;
+  const float* w;  // B(k, n) = w[k * ldw + n] (f32_chain.cuh WChunk)
+  long long ldw;
+  int N;
+  const float* bias;  // or null
+  int relu;
+  const float* mask;  // or null: out = mask > 0 ? out : 0
+  long long ldm;
+  float* out;
+  long long ldo;
+  int accumulate;  // out += the product (no bias, ReLU or mask)
+  long long M;
+};
+
+// out[r * ldo + n] = epi(sum_k A(r, k) B(k, n)) for r < M, n < N, with B
+// the layer's weight (g W) or its transpose (x W^T), row-major [k][n].
+using T = Step;  // 128 rows x 128 columns a block, 8 x 8 a thread
+
+// The activation chunk's leading dimension: padded by 4 so that a quarter
+// warp's float4 stores (8 columns of 8 rows) fall on distinct banks.
+constexpr int kALd = T::kRows + 4;
+
+__global__ void __launch_bounds__(kThreads) rowprod_f32(const RowprodArgs p) {
+  __shared__ __align__(16) float as[2][kDepth * kALd];
+  __shared__ __align__(16) float ws[2][T::kWTile];
+  const int t = threadIdx.x;
+  const long long m0 = (long long)blockIdx.x * T::kRows;
+  const int n0 = blockIdx.y * T::kCols;
+  const int chunks = (p.K + kDepth - 1) / kDepth;
+  // This thread's 8 activations of a chunk: column t % 16 of rows
+  // 8 (t / 16) .. + 7 (a half warp reads 16 consecutive columns of a row).
+  const int ak = t & 15, ar = (t >> 4) * 8;
+  float av[8];
+  WChunk<T> wc;
+  auto load_a = [&](int k0) {
+    const int k = k0 + ak;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const long long row = m0 + ar + i;
+      av[i] = (row < p.M && k < p.K) ? at(p.a, row, k) : 0.f;
+    }
+  };
+  auto store_a = [&](float* dst) {
+    *reinterpret_cast<float4*>(dst + ak * kALd + ar) =
+        make_float4(av[0], av[1], av[2], av[3]);
+    *reinterpret_cast<float4*>(dst + ak * kALd + ar + 4) =
+        make_float4(av[4], av[5], av[6], av[7]);
+  };
+  float acc[T::TR][T::TC];
+  zero<T>(acc);
+  load_a(0);
+  wc.load(p.w, p.ldw, 0, p.K, n0, p.N);
+  store_a(as[0]);
+  wc.store(ws[0]);
+  __syncthreads();
+  for (int ch = 0; ch < chunks; ++ch) {
+    const bool more = ch + 1 < chunks;
+    if (more) {
+      load_a((ch + 1) * kDepth);
+      wc.load(p.w, p.ldw, (ch + 1) * kDepth, p.K, n0, p.N);
+    }
+    chunk_fma<T>(acc, as[ch & 1], kALd, ws[ch & 1]);
+    if (more) {
+      store_a(as[(ch + 1) & 1]);
+      wc.store(ws[(ch + 1) & 1]);
+    }
+    __syncthreads();
+  }
+  // The epilogue, four columns (a run of col) at a time, as float4 (the
+  // entry point checks the alignment).
+  const int r0 = T::row();
+#pragma unroll
+  for (int i = 0; i < T::TR; ++i) {
+    const long long r = m0 + r0 + i;
+    if (r >= p.M) continue;
+#pragma unroll
+    for (int q = 0; q < T::TC / 4; ++q) {
+      const int n = n0 + T::col(4 * q);
+      if (n >= p.N) continue;  // N % 4 == 0: the run is whole
+      float4* o = reinterpret_cast<float4*>(p.out + r * p.ldo + n);
+      float4 y = make_float4(acc[i][4 * q], acc[i][4 * q + 1],
+                             acc[i][4 * q + 2], acc[i][4 * q + 3]);
+      if (p.accumulate) {
+        const float4 v = *o;
+        y = make_float4(y.x + v.x, y.y + v.y, y.z + v.z, y.w + v.w);
+      } else {
+        if (p.bias != nullptr) {
+          const float4 b = __ldg(reinterpret_cast<const float4*>(p.bias + n));
+          y = make_float4(y.x + b.x, y.y + b.y, y.z + b.z, y.w + b.w);
+        }
+        if (p.relu)
+          y = make_float4(fmaxf(y.x, 0.f), fmaxf(y.y, 0.f), fmaxf(y.z, 0.f),
+                          fmaxf(y.w, 0.f));
+        if (p.mask != nullptr) {
+          const float4 m =
+              *reinterpret_cast<const float4*>(p.mask + r * p.ldm + n);
+          y = make_float4(m.x > 0.f ? y.x : 0.f, m.y > 0.f ? y.y : 0.f,
+                          m.z > 0.f ? y.z : 0.f, m.w > 0.f ? y.w : 0.f);
+        }
+      }
+      *o = y;
+    }
+  }
+}
+
+struct DwArgs {
+  const float* g;  // (M, >= N) at ldg: the layer's output cotangent
+  long long ldg;
+  int N;
+  Cols h;  // the layer's input, K columns
+  int K;
+  float* slab;  // (splits, lds)
+  long long lds;
+  long long w_off;  // dW (N_pad, ldc) at slab[z][w_off]
+  int ldc;
+  long long b_off;  // db at slab[z][b_off], or -1: none
+  long long M;
+  int splits;
+};
+
+// slab[z][w_off + n * ldc + k] = sum over the rows of range z of G(r, n)
+// H(r, k), and (blocks of the first column tile) slab[z][b_off + n] = sum
+// of G(r, n), for n < N, k < K. Grid (N tiles of 128, K tiles of 128,
+// splits).
+__global__ void __launch_bounds__(kThreads) dw_f32(const DwArgs p) {
+  __shared__ __align__(16) float gs[2][kDepth * T::kRows];
+  __shared__ __align__(16) float hs[2][T::kWTile];
+  const int t = threadIdx.x;
+  const int j0 = blockIdx.x * T::kRows, i0 = blockIdx.y * T::kCols;
+  const int z = blockIdx.z;
+  const long long r_begin = p.M * z / p.splits;
+  const long long r_end = p.M * (z + 1) / p.splits;
+  const long long n_rows = r_end - r_begin;
+  const int chunks = (int)((n_rows + kDepth - 1) / kDepth);
+  const bool with_db = p.b_off >= 0 && blockIdx.y == 0;
+  // A chunk of 16 rows of G (128 outputs) and of H (128 inputs) is 512
+  // float4 each: this thread's float4 f = t + 256 q (q < 2) of each is
+  // row f / 32, columns 4 (f % 32) .. + 3, so a warp reads 512 contiguous
+  // bytes of a row; G element by element where its columns are not
+  // float4-aligned (a head's cotangent: 1 or 3 columns of a wider row).
+  const bool g_vec = p.N % 4 == 0 && p.ldg % 4 == 0 && aligned16(p.g);
+  float4 gv[2], hv[2];
+  auto load = [&](int ch) {
+#pragma unroll
+    for (int q = 0; q < 2; ++q) {
+      const int f = t + q * kThreads;
+      const long long r = r_begin + (long long)ch * kDepth + f / 32;
+      const int c = (f % 32) * 4;
+      const bool in = r < r_end;
+      float gq[4], hq[4];
+      const int n = j0 + c, k = i0 + c;
+      if (g_vec && in && n < p.N) {
+        const float4 v = *reinterpret_cast<const float4*>(p.g + r * p.ldg + n);
+        gq[0] = v.x, gq[1] = v.y, gq[2] = v.z, gq[3] = v.w;
+      } else {
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          gq[e] = (in && n + e < p.N) ? p.g[r * p.ldg + n + e] : 0.f;
+      }
+      if (in && k < p.K) {  // K, k0 % 4 == 0: the float4 is whole
+        const float* src = k < p.h.k0 ? p.h.a0 + r * p.h.ld0 + k
+                                      : p.h.a1 + r * p.h.ld1 + (k - p.h.k0);
+        const float4 v = *reinterpret_cast<const float4*>(src);
+        hq[0] = v.x, hq[1] = v.y, hq[2] = v.z, hq[3] = v.w;
+      } else {
+        hq[0] = hq[1] = hq[2] = hq[3] = 0.f;
+      }
+      gv[q] = make_float4(gq[0], gq[1], gq[2], gq[3]);
+      hv[q] = make_float4(hq[0], hq[1], hq[2], hq[3]);
+    }
+  };
+  auto store = [&](int buf) {
+#pragma unroll
+    for (int q = 0; q < 2; ++q) {
+      const int f = t + q * kThreads;
+      *reinterpret_cast<float4*>(&gs[buf][(f / 32) * T::kRows +
+                                          (f % 32) * 4]) = gv[q];
+      *reinterpret_cast<float4*>(&hs[buf][(f / 32) * T::kCols +
+                                          (f % 32) * 4]) = hv[q];
+    }
+  };
+  float acc[T::TR][T::TC];
+  zero<T>(acc);
+  float db = 0.f;
+  if (chunks > 0) {
+    load(0);
+    store(0);
+  }
+  __syncthreads();
+  for (int ch = 0; ch < chunks; ++ch) {
+    const bool more = ch + 1 < chunks;
+    if (more) load(ch + 1);
+    chunk_fma<T>(acc, gs[ch & 1], T::kRows, hs[ch & 1]);
+    if (with_db && t < T::kRows)
+      for (int k = 0; k < kDepth; ++k) db += gs[ch & 1][k * T::kRows + t];
+    if (more) store((ch + 1) & 1);
+    __syncthreads();
+  }
+  float* slab = p.slab + z * p.lds;
+  const int r0 = T::row();
+#pragma unroll
+  for (int i = 0; i < T::TR; ++i) {
+    const int n = j0 + r0 + i;
+    if (n >= p.N) continue;
+#pragma unroll
+    for (int j = 0; j < T::TC; ++j) {
+      const int k = i0 + T::col(j);
+      if (k < p.K) slab[p.w_off + (long long)n * p.ldc + k] = acc[i][j];
+    }
+  }
+  if (with_db && t < T::kRows && j0 + t < p.N) slab[p.b_off + j0 + t] = db;
+}
+
+// grads[i] += sum over z of slab[z * lds + i] for i < n, in order of z.
+__global__ void reduce_f32(const float* slab, int splits, long long lds,
+                           long long n, float* grads) {
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  float s = 0.f;
+  for (int z = 0; z < splits; ++z) s += slab[z * lds + i];
+  grads[i] += s;
+}
+
+// out[r * ldo + f], f < pad: [posenc_orig(o + z d, F) | emb | 0] of row r
+// (ray r / S). A thread per element.
+__global__ void field_encode_f32(const float* z, const float* o,
+                                 const float* d, const float* emb, int e,
+                                 int samples, int F, float* out,
+                                 long long ldo, int pad, long long M) {
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= M * pad) return;
+  const long long r = i / pad;
+  const int f = (int)(i % pad);
+  const long long q = r / samples;
+  float p[3];
+  for (int c = 0; c < 3; ++c)
+    p[c] = __fadd_rn(o[q * 3 + c], __fmul_rn(z[r], d[q * 3 + c]));
+  const int n_pe = 3 * (1 + 2 * F);
+  out[r * ldo + f] = f < n_pe ? posenc_feature(p, 1, 3, F, f)
+                     : f < n_pe + e ? emb[q * e + f - n_pe]
+                                    : 0.f;
+}
+
+// out[r * ldo + f], f < pad: [posenc_orig(raw[0:3], F0) |
+// posenc_orig(raw[3:3 + ch1], F1) | 0] of row r. A thread per element.
+__global__ void tmpl_encode_f32(const float* raw, long long ldr, int F0,
+                                int ch1, int F1, float* out, long long ldo,
+                                int pad, long long M) {
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= M * pad) return;
+  const long long r = i / pad;
+  const int f = (int)(i % pad);
+  const float* x = raw + r * ldr;
+  const int n0 = 3 * (1 + 2 * F0), n1 = ch1 * (1 + 2 * F1);
+  out[r * ldo + f] = f < n0        ? posenc_feature(x, 1, 3, F0, f)
+                     : f < n0 + n1 ? posenc_feature(x + 3, 1, ch1, F1, f - n0)
+                                   : 0.f;
+}
+
+// out[r * ldo + c], c < pad: the condition of row r's ray, zero past C.
+__global__ void cond_rows_f32(const float* cond, int C, int samples,
+                              float* out, long long ldo, int pad,
+                              long long M) {
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= M * pad) return;
+  const long long r = i / pad;
+  const int c = (int)(i % pad);
+  out[r * ldo + c] = c < C ? cond[(r / samples) * C + c] : 0.f;
+}
+
+// dx[r * 8 + ...] = [the posenc VJP of raw[0:3] (F0 bands) | of
+// raw[3:3 + ch1] (F1 bands) | 0] from the encoding's cotangent g (row r at
+// g + r * ldg). A thread per row.
+__global__ void tmpl_posenc_bwd_f32(const float* raw, long long ldr, int F0,
+                                    int ch1, int F1, const float* g,
+                                    long long ldg, float* dx, long long ldx,
+                                    long long M) {
+  const long long r = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (r >= M) return;
+  const float* x = raw + r * ldr;
+  const float* gr = g + r * ldg;
+  float* out = dx + r * ldx;
+  for (int c = 0; c < 3; ++c) out[c] = posenc_vjp(x[c], gr, 3, F0, c);
+  const float* g1 = gr + 3 * (1 + 2 * F0);
+  for (int c = 0; c < ch1; ++c) out[3 + c] = posenc_vjp(x[3 + c], g1, ch1, F1, c);
+  for (int c = 3 + ch1; c < ldx; ++c) out[c] = 0.f;
+}
+
+// Kernel B's per-sample cotangents of row r (ray r / S): d p = dx_t[0:3] +
+// the posenc VJPs of the warp field's (F0 bands) and the sheet's (F1)
+// encoding cotangents, d embed = their embedding columns; d z[r] = d p .
+// d, and rows[r * 14 + ...] = [d p | z d p | d embed], which
+// hn_f32_ray_sum adds per ray. A thread per row.
+__global__ void fields_rows_f32(const float* z, const float* o,
+                                const float* d, int samples,
+                                const float* dxt, long long ldx,
+                                const float* gw, long long ldw, int F0,
+                                const float* gs, long long ldgs, int F1,
+                                int e, float* dz, float* rows, long long M) {
+  const long long r = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (r >= M) return;
+  const long long q = r / samples;
+  const float* g0 = gw + r * ldw;
+  const float* g1 = gs + r * ldgs;
+  float* out = rows + r * (6 + e);
+  float dot = 0.f;
+  for (int c = 0; c < 3; ++c) {
+    const float p = __fadd_rn(o[q * 3 + c], __fmul_rn(z[r], d[q * 3 + c]));
+    const float dp = (dxt[r * ldx + c] + posenc_vjp(p, g0, 3, F0, c))
+                     + posenc_vjp(p, g1, 3, F1, c);
+    dot += dp * d[q * 3 + c];
+    out[c] = dp;
+    out[3 + c] = dp * z[r];
+  }
+  dz[r] = dot;
+  const int a0 = 3 * (1 + 2 * F0), a1 = 3 * (1 + 2 * F1);
+  for (int c = 0; c < e; ++c) out[6 + c] = g0[a0 + c] + g1[a1 + c];
+}
+
+// out[q * C + c] = sum over the S rows of ray q of in[row * ldi + c]. A
+// thread per (ray, column).
+__global__ void ray_sum_f32(const float* in, long long ldi, int C,
+                            int samples, float* out, long long rays) {
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= rays * C) return;
+  const long long q = i / C;
+  const int c = (int)(i % C);
+  float s = 0.f;
+  for (int k = 0; k < samples; ++k) s += in[(q * samples + k) * ldi + c];
+  out[i] = s;
+}
+
+constexpr int kFlat = 256;  // threads a block of the elementwise steps
+
+unsigned flat_blocks(long long n) {
+  return (unsigned)((n + kFlat - 1) / kFlat);
+}
+
+}  // namespace
+
+// The C entry points: pointers and leading dimensions in floats; each
+// returns a CUDA error code (1: arguments out of range).
+
+// w: the layer's weight for g W, its transpose for x W^T: B(k, n) =
+// w[k * ldw + n]; N, w, out, mask and bias 16-byte aligned with leading
+// dimensions a multiple of 4 floats (float4 loads and stores).
+extern "C" int hn_f32_rowprod(const float* a0, long long ld0, int k0,
+                              const float* a1, long long ld1, int K,
+                              const float* w, long long ldw, int N,
+                              const float* bias, int relu, const float* mask,
+                              long long ldm, float* out, long long ldo,
+                              int accumulate, long long M,
+                              cudaStream_t stream) {
+  if (K <= 0 || N <= 0 || k0 < 0 || k0 > K || N % 4 || ldw % 4 ||
+      ldo % 4 || !aligned16(w) || !aligned16(out) ||
+      (mask != nullptr && (ldm % 4 || !aligned16(mask))) ||
+      (bias != nullptr && !aligned16(bias)))
+    return 1;
+  if (M == 0) return 0;
+  const RowprodArgs p{{a0, ld0, k0, a1, ld1}, K, w, ldw, N, bias,
+                      relu, mask, ldm, out, ldo, accumulate, M};
+  const dim3 grid((unsigned)((M + T::kRows - 1) / T::kRows),
+                  (unsigned)((N + T::kCols - 1) / T::kCols));
+  rowprod_f32<<<grid, kThreads, 0, stream>>>(p);
+  return cudaGetLastError();
+}
+
+extern "C" int hn_f32_dw(const float* g, long long ldg, int N,
+                         const float* h0, long long ld0, int k0,
+                         const float* h1, long long ld1, int K, float* slab,
+                         long long lds, long long w_off, int ldc,
+                         long long b_off, long long M, int splits,
+                         cudaStream_t stream) {
+  // H is read as float4: its segments 16-byte aligned, widths % 4 == 0.
+  if (K <= 0 || N <= 0 || k0 < 0 || k0 > K || splits <= 0 || ldc < K ||
+      K % 4 || k0 % 4 || ld0 % 4 || !aligned16(h0) ||
+      (k0 < K && (ld1 % 4 || !aligned16(h1))))
+    return 1;
+  const DwArgs p{g, ldg, N, {h0, ld0, k0, h1, ld1}, K, slab, lds, w_off,
+                 ldc, b_off, M, splits};
+  const dim3 grid((unsigned)((N + T::kRows - 1) / T::kRows),
+                  (unsigned)((K + T::kCols - 1) / T::kCols), (unsigned)splits);
+  dw_f32<<<grid, kThreads, 0, stream>>>(p);
+  return cudaGetLastError();
+}
+
+extern "C" int hn_f32_reduce(const float* slab, int splits, long long lds,
+                             long long n, float* grads,
+                             cudaStream_t stream) {
+  if (n > lds || splits <= 0) return 1;
+  if (n == 0) return 0;
+  reduce_f32<<<flat_blocks(n), kFlat, 0, stream>>>(slab, splits, lds, n,
+                                                    grads);
+  return cudaGetLastError();
+}
+
+extern "C" int hn_f32_field_encode(const float* z, const float* o,
+                                   const float* d, const float* emb, int e,
+                                   int samples, int F, float* out,
+                                   long long ldo, int pad, long long M,
+                                   cudaStream_t stream) {
+  if (samples <= 0 || pad < 3 * (1 + 2 * F) + e) return 1;
+  if (M == 0) return 0;
+  field_encode_f32<<<flat_blocks(M * pad), kFlat, 0, stream>>>(
+      z, o, d, emb, e, samples, F, out, ldo, pad, M);
+  return cudaGetLastError();
+}
+
+extern "C" int hn_f32_tmpl_encode(const float* raw, long long ldr, int F0,
+                                  int ch1, int F1, float* out, long long ldo,
+                                  int pad, long long M, cudaStream_t stream) {
+  if (pad < 3 * (1 + 2 * F0) + ch1 * (1 + 2 * F1) || ldr < 3 + ch1) return 1;
+  if (M == 0) return 0;
+  tmpl_encode_f32<<<flat_blocks(M * pad), kFlat, 0, stream>>>(
+      raw, ldr, F0, ch1, F1, out, ldo, pad, M);
+  return cudaGetLastError();
+}
+
+extern "C" int hn_f32_cond_rows(const float* cond, int C, int samples,
+                                float* out, long long ldo, int pad,
+                                long long M, cudaStream_t stream) {
+  if (samples <= 0 || C > pad) return 1;
+  if (M == 0) return 0;
+  cond_rows_f32<<<flat_blocks(M * pad), kFlat, 0, stream>>>(
+      cond, C, samples, out, ldo, pad, M);
+  return cudaGetLastError();
+}
+
+extern "C" int hn_f32_tmpl_posenc_bwd(const float* raw, long long ldr,
+                                      int F0, int ch1, int F1, const float* g,
+                                      long long ldg, float* dx, long long ldx,
+                                      long long M, cudaStream_t stream) {
+  if (ldx < 3 + ch1 || ldr < 3 + ch1) return 1;
+  if (M == 0) return 0;
+  tmpl_posenc_bwd_f32<<<flat_blocks(M), kFlat, 0, stream>>>(
+      raw, ldr, F0, ch1, F1, g, ldg, dx, ldx, M);
+  return cudaGetLastError();
+}
+
+extern "C" int hn_f32_fields_rows(const float* z, const float* o,
+                                  const float* d, int samples,
+                                  const float* dxt, long long ldx,
+                                  const float* gw, long long ldw, int F0,
+                                  const float* gs, long long ldgs, int F1,
+                                  int e, float* dz, float* rows, long long M,
+                                  cudaStream_t stream) {
+  if (samples <= 0 || ldx < 3) return 1;
+  if (M == 0) return 0;
+  fields_rows_f32<<<flat_blocks(M), kFlat, 0, stream>>>(
+      z, o, d, samples, dxt, ldx, gw, ldw, F0, gs, ldgs, F1, e, dz, rows, M);
+  return cudaGetLastError();
+}
+
+extern "C" int hn_f32_ray_sum(const float* in, long long ldi, int C,
+                              int samples, float* out, long long rays,
+                              cudaStream_t stream) {
+  if (samples <= 0 || C < 0) return 1;
+  if (rays * C == 0) return 0;
+  ray_sum_f32<<<flat_blocks(rays * C), kFlat, 0, stream>>>(in, ldi, C,
+                                                           samples, out,
+                                                           rays);
+  return cudaGetLastError();
+}

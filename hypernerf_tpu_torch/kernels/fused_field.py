@@ -119,6 +119,8 @@ def _launch_args(mlp: MLP, n_freq: int, x_raw, scales):
     """Checked inputs of a kernel launch: (index of the compiled field, the
     padded window row or None, the packed blobs and shapes)."""
     def check():
+        if mlp.dtype == torch.float32:
+            raise NotImplementedError(common.f32_refusal(1, 'a field alone'))
         if mlp.dtype != torch.bfloat16 or n_freq not in _COMPILED:
             raise NotImplementedError(
                 f'{common.NOT_COVERED}; got a field with {n_freq} bands in '

@@ -217,6 +217,9 @@ def _launch_args(mlp: MLP, n_freq: int, x_raw):
     """Checked inputs of a kernel launch: the packed blob (weights, biases,
     shapes), one for both kernels."""
     def check():
+        if mlp.dtype == torch.float32:
+            raise NotImplementedError(common.f32_refusal(
+                4, 'the translation warp\'s Jacobian'))
         if mlp.dtype != torch.bfloat16 or n_freq != common.FLAGSHIP[
                 'warp_freq'] or mlp.logit.out_features != 3:
             raise NotImplementedError(

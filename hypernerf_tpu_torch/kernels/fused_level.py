@@ -57,9 +57,12 @@ from hypernerf_tpu_torch.kernels import build, common
 from hypernerf_tpu_torch.kernels.fused_field import (field_layers,
                                                      fused_field_bwd_plain,
                                                      fused_field_plain)
+from hypernerf_tpu_torch.kernels import f32
 from hypernerf_tpu_torch.kernels.fused_mlp import (check_covered as
                                                    _check_template_covered,
-                                                   cond_args,
+                                                   check_f32_covered as
+                                                   _check_f32_template_covered,
+                                                   cond_args, f32_cond,
                                                    fused_template_bwd,
                                                    fused_template_bwd_plain,
                                                    fused_template_plain,
@@ -178,7 +181,44 @@ def level_layers(level: Level):
             + template_layers(level.template))
 
 
+def _dtypes(level: Level) -> set:
+    """The compute dtypes of the level's modules."""
+    t = level.template
+    mlps = [level.warp.trunk if _screw(level) else level.warp.mlp, t.trunk,
+            t.rgb_branch]
+    if level.hyper is not None:
+        mlps.append(level.hyper.mlp)
+    return {m.dtype for m in mlps} | {t.dtype}
+
+
+def _is_f32(level: Level) -> bool:
+    return _dtypes(level) == {torch.float32}
+
+
+def _check_f32_covered(level: Level) -> None:
+    """Raise unless the float32 kernels cover the level: the flagship table
+    (translation warp, bendy sheet, the template ``check_f32_covered``
+    admits) at the flagship widths; the rest names ROADMAP A.13.1's
+    sub-item."""
+    if _screw(level):
+        raise NotImplementedError(common.f32_refusal(
+            2, f'the level with the {level.warp.kind} warp'))
+    if level.hyper is None:
+        raise NotImplementedError(common.f32_refusal(
+            3, 'the level without a sheet (axis_aligned_plane)'))
+    _check_f32_template_covered(level)
+    mlp = level.warp.mlp
+    have = dict(embed=mlp.hidden(0).in_features - 3 * (1 + 2 * level.warp.n_freq),
+                warp_freq=level.warp.n_freq,
+                hyper_sheet_freq=level.hyper.n_freq,
+                hyper_out=level.hyper.mlp.logit.out_features)
+    if have != {k: FLAGSHIP[k] for k in have} or level.hyper.use_residual:
+        raise NotImplementedError(f'{common.NOT_COVERED}; got {have}')
+
+
 def _check_covered(level: Level) -> None:
+    if _is_f32(level):
+        return _check_f32_covered(level)
     _check_template_covered(level)
     t = level.template
     keys = ('embed', 'warp_freq') + (('hyper_sheet_freq', 'hyper_out')
@@ -213,14 +253,27 @@ def pack_level(level: Level):
     parameters' version counters, so the warp and the sheet that two levels
     share are packed once) joined, the joined blobs cached on the template.
     """
+    return _pack_level(level, torch.bfloat16)
+
+
+def pack_level_f32(level: Level, transposed: bool = False):
+    """``pack_level``'s fp32 blobs, the float32 kernels' (cached apart);
+    with ``transposed`` the weight blob holds each layer as (k_pad, n_pad),
+    how the float32 forward reads it."""
+    return _pack_level(level, torch.float32, transposed)
+
+
+def _pack_level(level: Level, dtype, transposed: bool = False):
     check = lambda: _check_covered(level)
     owners = [_warp_owner_layers(level)]
     if level.hyper is not None:
         owners.append((level.hyper.mlp, field_layers(level.hyper.mlp)))
     owners.append((level.template, kernel_template_layers(level.template)))
-    subs = [common.packed(owner, layers, check) for owner, layers in owners]
+    subs = [common.packed(owner, layers, check, dtype)
+            for owner, layers in owners]
     key = tuple(sub['key'] for sub in subs)
-    cached = getattr(level.template, '_packed_level', None)
+    attr = '_packed_level' + common.packed_attr(dtype)[len('_packed'):]
+    cached = getattr(level.template, attr, None)
     if cached is None or cached['key'] != key:
         check()
         pairs = [pair for sub in subs for pair in sub['packed']]
@@ -229,8 +282,11 @@ def pack_level(level: Level):
             shapes=[shape for sub in subs for shape in sub['shapes']],
             w=torch.cat([sub['w'] for sub in subs]),
             b=torch.cat([sub['b'] for sub in subs]))
-        object.__setattr__(level.template, '_packed_level', cached)
-    return cached['w'], cached['b'], cached['shapes']
+        object.__setattr__(level.template, attr, cached)
+    if transposed and 'wt' not in cached:
+        cached['wt'] = torch.cat([w.t().reshape(-1)
+                                  for w, _ in cached['packed']]).contiguous()
+    return cached['wt' if transposed else 'w'], cached['b'], cached['shapes']
 
 
 def _level_params(level: Level):
@@ -742,10 +798,33 @@ def field_bwd_stream_bytes(field: str, shapes, n_points: int) -> int:
                          FIELD_BWD[field].streams * n_points)
 
 
+def _f32_launch_args(level: Level, z_vals, origins, directions, embed,
+                     warp_scales, tmpl_scales, alpha_cond):
+    """The float32 kernels' packed fp32 blobs of the level, checked against
+    the compiled float32 table, after the ray inputs were checked."""
+    w_blob, b_blob, shapes = pack_level_f32(level)
+    wt_blob = pack_level_f32(level, transposed=True)[0]
+    _check_covered(level)
+    f32.check_layout(shapes)
+    if warp_scales is not None or tmpl_scales is not None \
+            or alpha_cond is not None:
+        raise ValueError('the float32 level takes no window row and no '
+                         'alpha condition')
+    _check_ray_inputs(z_vals, origins, directions, embed)
+    return w_blob, wt_blob, b_blob, shapes
+
+
 def _launch_forward(level: Level, z_vals, origins, directions, embed,
                     rgb_cond, want_raw_t: bool, warp_scales=None,
                     tmpl_scales=None, alpha_cond=None):
     """Launch the forward kernel; (out, raw_t or None)."""
+    if _is_f32(level):
+        _, wt_blob, b_blob, _ = _f32_launch_args(
+            level, z_vals, origins, directions, embed, warp_scales,
+            tmpl_scales, alpha_cond)
+        cond = f32_cond(level, rgb_cond, z_vals.shape[0], z_vals.device)
+        return f32.fused_level_f32(wt_blob, b_blob, z_vals, origins,
+                                   directions, embed, cond, want_raw_t)
     w_blob, b_blob, shapes = pack_level(level)
     dev = z_vals.device
     code, scales = _warp_launch_args(level, shapes, warp_scales, dev)
@@ -927,6 +1006,9 @@ def fused_fields_bwd(level: Level, z_vals, origins, directions, embed, dx_t,
     if common.runs_plain(z_vals, 'fused_fields_bwd'):
         return fused_fields_bwd_plain(level, z_vals, origins, directions,
                                       embed, dx_t, warp_scales)
+    if _is_f32(level):
+        return _fields_bwd_f32(level, z_vals, origins, directions, embed,
+                               dx_t, warp_scales)
     w_blob, b_blob, shapes = pack_level(level)
     dev, f32 = z_vals.device, torch.float32
     code, scales = _warp_launch_args(level, shapes, warp_scales, dev)
@@ -963,3 +1045,24 @@ def fused_fields_bwd(level: Level, z_vals, origins, directions, embed, dx_t,
 
 
 fused_fields_bwd.launches = 0
+
+
+def _fields_bwd_f32(level: Level, z_vals, origins, directions, embed, dx_t,
+                    warp_scales):
+    """Kernel B at float32 (``f32.fused_fields_bwd_f32``) on the field
+    layers of the level's fp32 blobs; returns as ``fused_fields_bwd``."""
+    w_blob, wt_blob, b_blob, shapes = _f32_launch_args(
+        level, z_vals, origins, directions, embed, warp_scales, None, None)
+    r, s = z_vals.shape
+    build.check_tensor('dx_t', dx_t, (r * s, raw_pad(level)), torch.float32,
+                       z_vals.device)
+    nf = _n_field_layers(level)
+    d_z, d_ray, grads = f32.fused_fields_bwd_f32(
+        w_blob, wt_blob, b_blob, shapes[:nf], z_vals, origins, directions,
+        embed, dx_t)
+    n_w = sum(n * k for n, k in shapes[:nf])
+    layers = level_layers(level)[:nf]
+    return (d_z, d_ray[:, :3].contiguous(), d_ray[:, 3:6].contiguous(),
+            d_ray[:, 6:].contiguous(),
+            common.unpack_grads(grads[:n_w], grads[n_w:], layers,
+                                shapes[:nf]))

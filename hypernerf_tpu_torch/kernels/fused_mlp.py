@@ -320,10 +320,37 @@ def check_covered(tmpl) -> None:
         have.update(hyper_out=nh, hyper_freq=tmpl.hyper_freq)
     want = {**common.FLAGSHIP, **widths, 'alpha_cond': common.ALPHA_COND}
     dtypes = {t.trunk.dtype, t.rgb_branch.dtype, t.dtype}
+    if dtypes == {torch.float32}:
+        raise NotImplementedError(common.f32_refusal(1, 'the template alone'))
     if any(v not in want[k] if isinstance(want[k], tuple) else want[k] != v
            for k, v in have.items()) or dtypes != {torch.bfloat16}:
         raise NotImplementedError(f'{common.NOT_COVERED}; got {have}, '
                                   f'{dtypes}')
+
+
+def check_f32_covered(tmpl) -> None:
+    """Raise unless the template is the float32 kernels' (the level's
+    template, and kernel A): the flagship's, all in float32 — posenc_orig
+    of the xyz at 10 bands and of 4 hyper coordinates at 6, a 39-column rgb
+    condition, no alpha condition. What is not raises naming ROADMAP
+    A.13.1's sub-item (a template without hyper coordinates: the
+    per-module path's; another layout or condition width: the layouts')."""
+    t = tmpl.template
+    dtypes = {t.trunk.dtype, t.rgb_branch.dtype, t.dtype}
+    have = dict(layout=layout(tmpl), hyper=n_hyper(tmpl),
+                rgb_cond=cond_width(tmpl), alpha_cond=alpha_cond_width(tmpl))
+    if dtypes != {torch.float32}:
+        raise NotImplementedError(f'{common.NOT_COVERED}; got {dtypes}')
+    if have['hyper'] == 0:
+        raise NotImplementedError(common.f32_refusal(
+            1, 'a template without hyper coordinates'))
+    if have != dict(layout='orig', hyper=common.FLAGSHIP['hyper_out'],
+                    rgb_cond=common.FLAGSHIP['rgb_cond'][0], alpha_cond=0):
+        raise NotImplementedError(common.f32_refusal(
+            3, f'a template with {have}'))
+    bands = (tmpl.xyz_freq, tmpl.hyper_freq)
+    if bands != (common.FLAGSHIP['xyz_freq'], common.FLAGSHIP['hyper_freq']):
+        raise NotImplementedError(f'{common.NOT_COVERED}; got bands {bands}')
 
 
 def alpha_cond_weight(t: NerfMLP):
@@ -487,25 +514,33 @@ class FusedTemplateFn(torch.autograd.Function):
 # plane layout's 192), the trunk's hidden outputs, the trunk logit, the
 # bottleneck and the rgb branch's hidden outputs (bf16, one row per sample).
 # The condition is gathered per ray, not stashed.
-def stash_columns(enc: int = common.TMPL_ENC_PAD):
+# The float32 kernel A stashes the condition too, ``cond`` columns after the
+# bottleneck's 128 (``f32.TEMPLATE_STASH``).
+def stash_columns(enc: int = common.TMPL_ENC_PAD, cond: int = 0):
     return ((('enc', enc),) + tuple((f'h{i}', 256) for i in range(8))
-            + (('hl', 256), ('bneck', 128))
+            + (('hl', 256), ('bneck', 128 + cond))
             + tuple((f'r{j}', 128) for j in range(4)))
 
 
 class Stash(NamedTuple):
     """A stash's column plan: each buffer's width and first column, and the
     row's width (the stash's leading dimension, which names the layout to
-    the kernels: 3072, or the plane layout's 3136)."""
+    the bf16 kernels: 3072, or the plane layout's 3136; the float32 kernel
+    A's is 3120)."""
     widths: dict
     col: dict
     width: int
 
 
-def stash_plan(enc: int = common.TMPL_ENC_PAD) -> Stash:
-    widths = dict(stash_columns(enc))
+def column_plan(columns) -> Stash:
+    """The plan of a stash of ``columns``, (name, width) in order."""
+    widths = dict(columns)
     return Stash(widths, dict(zip(widths, itertools.accumulate(
         widths.values(), initial=0))), sum(widths.values()))
+
+
+def stash_plan(enc: int = common.TMPL_ENC_PAD, cond: int = 0) -> Stash:
+    return column_plan(stash_columns(enc, cond))
 
 
 STASH_COLUMNS = stash_columns()
@@ -772,6 +807,8 @@ def fused_template_bwd(tmpl, raw_t, rgb_cond, g, scales=None,
     if common.runs_plain(raw_t, 'fused_template_bwd'):
         return fused_template_bwd_plain(tmpl, raw_t, rgb_cond, g, scales,
                                         alpha_cond)
+    if tmpl.template.dtype == torch.float32:
+        return _template_bwd_f32(tmpl, raw_t, rgb_cond, g, scales, alpha_cond)
     (rgbc, alphac, aw), s, layers, ((w_blob, b_blob, shapes),
                                     (wt_blob, _, _)) = \
         _launch_args(tmpl, raw_t, rgb_cond, True, alpha_cond)
@@ -797,3 +834,43 @@ def fused_template_bwd(tmpl, raw_t, rgb_cond, g, scales=None,
 
 fused_template_bwd.launches = 0
 fused_template_bwd.stash_bytes = 0
+
+
+def f32_cond(tmpl, rgb_cond, rays: int, dev):
+    """The float32 kernels' rgb condition, checked: (R, C) fp32."""
+    cond = rgb_cond.detach().float().contiguous()
+    build.check_tensor('rgb_cond', cond, (rays, cond_width(tmpl)),
+                       torch.float32, dev)
+    return cond
+
+
+def _template_bwd_f32(tmpl, raw_t, rgb_cond, g, scales, alpha_cond):
+    """Kernel A at float32 (``f32.fused_template_bwd_f32``) for the
+    template ``check_f32_covered`` admits; returns as
+    ``fused_template_bwd``."""
+    from hypernerf_tpu_torch.kernels import f32  # f32 builds on this module
+    if scales is not None or alpha_cond is not None:
+        raise ValueError('the float32 template takes no window row and no '
+                         'alpha condition')
+    layers = kernel_template_layers(tmpl.template)
+    check = lambda: check_f32_covered(tmpl)
+    w_blob, b_blob, shapes = common.pack_layers(
+        tmpl.template, layers, check, dtype=torch.float32)
+    wt_blob = common.pack_layers(tmpl.template, layers, check,
+                                 transposed=True, dtype=torch.float32)[0]
+    check_f32_covered(tmpl)
+    f32.check_layout(shapes, common.TEMPLATE_LAYERS)
+    dev = raw_t.device
+    p, r = raw_t.shape[0], rgb_cond.shape[0]
+    build.check_tensor('x_raw', raw_t, (p, common.RAW_PAD), torch.float32,
+                       dev)
+    build.check_tensor('g', g, (p, 4), torch.float32, dev)
+    if r == 0 or p % r:
+        raise ValueError(f'{p} samples do not divide into {r} rays')
+    cond = f32_cond(tmpl, rgb_cond, r, dev)
+    dx_t, d_cond, grads = f32.fused_template_bwd_f32(
+        w_blob, wt_blob, b_blob, shapes, raw_t, cond, p // r, g)
+    n_w = sum(n * k for n, k in shapes)
+    return (dx_t, d_cond,
+            common.unpack_grads(grads[:n_w], grads[n_w:], layers, shapes),
+            None)

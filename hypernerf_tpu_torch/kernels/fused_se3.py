@@ -151,10 +151,14 @@ fused_se3_bwd_plain.calls = 0
 
 def check_covered(field) -> None:
     """Raise unless ``field`` is the trunk the CUDA kernels are compiled
-    for (the layer shapes are checked against the compiled table apart)."""
+    for (the layer shapes are checked against the compiled table apart); in
+    float32, naming ROADMAP A.13.1's sub-item (the screw warps')."""
     have = dict(embed=field.embed_ch if field.use_metadata else 0,
                 min_deg=field.min_deg, max_deg=field.max_deg)
     dtypes = {field.trunk.dtype, field.w_net.dtype, field.v_net.dtype}
+    if dtypes == {torch.float32}:
+        raise NotImplementedError(common.f32_refusal(
+            2, f'the {field.kind} trunk'))
     if have != common.SE3_FLAGSHIP or dtypes != {torch.bfloat16} \
             or field.trunk.skips != (4,):
         raise NotImplementedError(f'{common.NOT_COVERED}; got an SE(3) trunk '

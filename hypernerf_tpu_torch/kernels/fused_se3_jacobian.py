@@ -192,11 +192,20 @@ def fused_se3_jacobian_bwd_plain(field, x_raw, g, scales=None):
 fused_se3_jacobian_bwd_plain.calls = 0
 
 
+def _check_f32(field) -> None:
+    """A float32 trunk's tangents are ROADMAP A.13.1's sub-item 4 (the
+    trunk's own check would name the trunk's)."""
+    if field.trunk.dtype == torch.float32:
+        raise NotImplementedError(common.f32_refusal(
+            4, f'the {field.kind} trunk\'s tangents'))
+
+
 def _forward(field, x_raw, scales):
     """(P, 24) fp32 [w | v | dw | dv]: the plain version on CPU tensors, the
     kernel on CUDA tensors."""
     if common.runs_plain(x_raw, 'fused_se3_wv_tangents'):
         return fused_se3_jacobian_plain(field, x_raw, scales)
+    _check_f32(field)
     scales, (w_blob, b_blob, _) = _launch_args(field, x_raw, scales)
     p = x_raw.shape[0]
     out = torch.empty((p, OUT), dtype=torch.float32, device=x_raw.device)
@@ -267,6 +276,7 @@ def fused_se3_jacobian_bwd(field, x_raw, g, scales=None):
     per-block spill scratch (the trunk's plan spills)."""
     if common.runs_plain(x_raw, 'fused_se3_jacobian_bwd'):
         return fused_se3_jacobian_bwd_plain(field, x_raw, g, scales)
+    _check_f32(field)
     # fused_level models kernel B's block, which this kernel runs; it
     # imports fused_se3, so it is imported here.
     fl = importlib.import_module('hypernerf_tpu_torch.kernels.fused_level')

@@ -13,7 +13,8 @@ kernels on a card that has no JAX.
       [--plane_out tests/data/fused_plane_jax_ref.npz] \
       [--conditions_out tests/data/fused_conditions_jax_ref.npz] \
       [--b4_out tests/data/fused_b4_jax_ref.npz] \
-      [--only se3|jacobian|anneal|plane|conditions|b4]
+      [--f32_out tests/data/fused_f32_jax_ref.npz] \
+      [--only se3|jacobian|anneal|plane|conditions|b4|f32]
 
 The weights are ``hypernerf_tpu_torch.flagship.load_probe_weights`` (numpy,
 seed 0), which the card redraws bit for bit; the inputs
@@ -88,6 +89,13 @@ every bias and the weights of ``flagship.b4_grad_layers``) and
 degrees 0..4, ``flagship.B4_TEMPLATE_CASES``), in bf16.
 ``tests/test_torch_b4.py`` recomputes and checks it. ``--only b4`` writes
 that file alone (about a minute).
+The float32 file holds the level kernel of the flagship at
+``compute_dtype='float32'`` (the train CLI's ``--precision 32``) at the
+probe weights (``flagship.F32_LEVEL_CASES``: 64 rays x 128 samples, full
+width): outputs, and for the stored cotangent the gradients of every ray
+input, every bias and the weights of ``flagship.F32_GRAD_LAYERS``.
+``tests/test_torch_precision32.py`` recomputes it for a few rays and holds
+the plain float32 level to it. ``--only f32`` writes that file alone.
 """
 
 from __future__ import annotations
@@ -795,6 +803,28 @@ def b4_reference() -> dict:
     return arrays
 
 
+def f32_reference() -> dict:
+    """Every array of the float32 file: the case's inputs and numbers (dW
+    of ``F32_GRAD_LAYERS`` alone)."""
+    from hypernerf_tpu_torch.flagship import (F32_GRAD_LAYERS,
+                                              F32_LEVEL_CASES,
+                                              f32_probe_inputs,
+                                              flagship_model,
+                                              load_probe_weights)
+    model = load_probe_weights(flagship_model('cpu',
+                                              compute_dtype='float32'))
+    arrays = {}
+    for case, (level, *_) in F32_LEVEL_CASES.items():
+        inputs = f32_probe_inputs(case)
+        arrays.update({f'{case}/{k}': v for k, v in inputs.items()})
+        rays = {k: v for k, v in inputs.items() if k != 'cotangent'}
+        for k, v in jax_level_vjp(model, level, rays,
+                                  inputs['cotangent']).items():
+            if not k.startswith('dw') or int(k[2:]) in F32_GRAD_LAYERS:
+                arrays[f'{case}/{k}'] = v
+    return arrays
+
+
 def jacobian_reference() -> dict:
     """Every array of the Jacobian file: each case's inputs and numbers."""
     from hypernerf_tpu_torch.flagship import (JACOBIAN_CASES, flagship_model,
@@ -875,7 +905,7 @@ def main():
     import numpy as np
 
     from hypernerf_tpu_torch.flagship import (ANNEAL_REFERENCE,
-                                              B4_REFERENCE,
+                                              B4_REFERENCE, F32_REFERENCE,
                                               GRAD_REFERENCE,
                                               LEVEL_REFERENCE,
                                               PLANE_REFERENCE,
@@ -894,13 +924,18 @@ def main():
     parser.add_argument('--plane_out', default=PLANE_REFERENCE)
     parser.add_argument('--conditions_out', default=CONDITION_REFERENCE)
     parser.add_argument('--b4_out', default=B4_REFERENCE)
+    parser.add_argument('--f32_out', default=F32_REFERENCE)
     parser.add_argument('--only', choices=('se3', 'jacobian', 'anneal',
-                                           'plane', 'conditions', 'b4'),
+                                           'plane', 'conditions', 'b4',
+                                           'f32'),
                         default=None, help='write the SE(3), the Jacobian, '
-                        'the anneal, the plane, the conditions or the B.4 '
-                        'file alone')
+                        'the anneal, the plane, the conditions, the B.4 or '
+                        'the float32 file alone')
     args = parser.parse_args()
     os.makedirs(os.path.dirname(os.path.abspath(args.se3_out)), exist_ok=True)
+    if args.only in (None, 'f32'):
+        np.savez_compressed(args.f32_out, **f32_reference())
+        print(args.f32_out)
     if args.only in (None, 'b4'):
         np.savez_compressed(args.b4_out, **b4_reference())
         print(args.b4_out)
