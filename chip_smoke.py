@@ -192,7 +192,7 @@ Phases, one line each; any failure ends the run with a non-zero exit:
      16 steps from the first), its time without the refresh and amortised
      over 16 steps, a 1024-ray step through the grid against the plain
      versions;
- 24. the kernels' JSON line, then the result line (after phase 33);
+ 24. the kernels' JSON line, then the result line (after phase 34);
  25. the trainer and its entry point: ``tools/make_synthetic_scene.py``
      writes an 8-frame 160x120 scene into a temporary directory (never the
      repo), where ``hypernerf_tpu_torch.train.main(argv)`` trains the
@@ -286,12 +286,28 @@ Phases, one line each; any failure ends the run with a non-zero exit:
      64 + 128 step in float32 at batch 16384 through ``make_train_step``
      (every kernel counted, no plain call; 1024 rays against the plain
      versions: loss 1e-5 relative, gradients relative L2 1e-2); (f) a
-     504x378 float32 frame; (g) float32 ``se3``, ``quaternion``, ``plane``,
-     ``anneal``, ``nerf_embed``, ``static``, ``split_glo``, ``anneal_se3``
-     refused on the card naming A.13.1's sub-item; (h) ``train.main`` with
-     ``--precision 32`` as phase 25 runs bf16, ``eval --precision 32`` of
-     its checkpoint and the plain trainer in float32: the training frames'
-     and the val PSNR at step 36 beside phase 25's bf16 pair.
+     504x378 float32 frame; (h) ``train.main`` with ``--precision 32`` as
+     phase 25 runs bf16, ``eval --precision 32`` of its checkpoint and the
+     plain trainer in float32: the training frames' and the val PSNR at
+     step 36 beside phase 25's bf16 pair;
+ 34. the per-module path at ``--precision 32`` (ROADMAP A.13.1 sub-item 1),
+     TF32 off: (a) the float32 template alone (row 8: R = 8192, S = 128;
+     1 << 20 rows at S = 1; static at R = 8192, S = 64), each field alone
+     (row 10, 8192 x 128 rows), each field alone backward (row 11, 16384 x
+     128 rows) and kernel A at the static width (R = 16384, S = 64) against
+     their float32 plain versions, timed with their share of the
+     float32-exact bound and of the FFMA ceiling; (b) against the JAX
+     kernels' stored float32 numbers (tests/data/fused_f32_modular_jax_ref
+     .npz); (c) with their launches counted and no plain call: a float32
+     ``static`` frame and train step, a ``split_glo`` train step, a
+     flagship frame with ``return_points``, 1024 rays with a
+     ``hyper_point`` override, ``query_sigma``, an ``occupancy`` frame
+     (row 1 in float32) and train step with the refresh (rows 8 and 10)
+     inside the window; (d) ``train.main --precision 32`` with
+     ``--share_GLO False`` and with ``--use_occupancy_grid True``; (e)
+     float32 ``se3``, ``quaternion``, ``plane``, ``anneal``, ``nerf_embed``,
+     ``anneal_se3``, ``se3`` with ``share_glo=False`` and ``plane`` with
+     ``return_points`` refused on the card naming A.13.1's sub-item.
 Times come from CUDA events (kernels) or the host clock around work that
 ends in a synchronize (frames, steps). A kernel's bound is the larger of
 its matrix-product operations over the card's dense bf16 peak and its bytes
@@ -1353,7 +1369,9 @@ def train_path(config: str, tag: str, times=None, tols=None) -> dict:
     secs = (time.perf_counter() - t0) / TRAIN_STEPS
     n_ids = min(train_cfg.occupancy_probe_ids, cfg.num_embeddings)
     want = {k: v * TRAIN_STEPS for k, v in STEP_LAUNCHES[config].items()}
-    for k, v in REFRESH_LAUNCHES.items():
+    refresh_launches = (REFRESH_LAUNCHES_F32 if cfg.compute_dtype ==
+                        'float32' else REFRESH_LAUNCHES)
+    for k, v in refresh_launches.items():
         if refreshes:
             want[k] = want.get(k, 0) + v * n_ids * refreshes
     launches = read_counts(want, f'{config} train steps')
@@ -1399,7 +1417,7 @@ def train_path(config: str, tag: str, times=None, tols=None) -> dict:
                       for k in STEP_LAUNCHES[config])
           + (f' and in the window\'s refreshes '
              + ', '.join(f'{k} {v * n_ids * refreshes}'
-                         for k, v in REFRESH_LAUNCHES.items())
+                         for k, v in refresh_launches.items())
              if refreshes else '')
           + f'; no plain call; loss {losses[0]:.5f} -> '
           f'{losses[-1]:.5f}, psnr {psnrs[-1]:.2f}; fixed-batch loss '
@@ -1839,15 +1857,17 @@ def modular_kernel_phase():
 QUERY_CALLS = 3  # timed query_sigma calls, after one at full size
 
 
-def query_sigma_path(config: str, want: dict, tag: str) -> dict:
-    """``query_sigma`` of ``config`` on 1 << 20 points of one frame id, one
-    sample per row: the mean host time of QUERY_CALLS calls after one at
-    that size (which makes its allocations), the launches of one call
-    (``want``, checked), finite non-negative sigma that agrees with the
-    plain versions on 4099 points; returns the launches of one call."""
+def query_sigma_path(config: str, want: dict, tag: str,
+                     **overrides) -> dict:
+    """``query_sigma`` of ``config`` (with NerfConfig ``overrides``) on
+    1 << 20 points of one frame id, one sample per row: the mean host time
+    of QUERY_CALLS calls after one at that size (which makes its
+    allocations), the launches of one call (``want``, checked), finite
+    non-negative sigma that agrees with the plain versions on 4099 points;
+    returns the launches of one call."""
     import torch
     from hypernerf_tpu_torch.flagship import flagship_model
-    model = flagship_model('cuda', seed=0, config=config)
+    model = flagship_model('cuda', seed=0, config=config, **overrides)
     n = 1 << 20
     gen = torch.Generator(device='cuda').manual_seed(3)
     pts = torch.randn(n, 3, generator=gen, device='cuda') * 0.5
@@ -3031,8 +3051,9 @@ def main() -> int:
     fine128_phase(kernels)
     bench_phase()
     kernels += precision32_phase(kernels)
-    if len(kernels) != 32:
-        raise AssertionError(f'{len(kernels)} kernels in the line, want 32')
+    kernels += precision32_modular_phase(kernels)
+    if len(kernels) != 35:
+        raise AssertionError(f'{len(kernels)} kernels in the line, want 35')
     return finish(kernels)
 
 # -- the anneal configuration (the Nerfies windowed template encoding) --------
@@ -3646,6 +3667,7 @@ def plane_paths_phase(kernels) -> None:
 # A grid refresh's launches for each probed id: ``query_sigma``'s warp field
 # and sheet alone and its template alone.
 REFRESH_LAUNCHES = {'fused_field_fwd': 2, 'fused_template_fwd': 1}
+REFRESH_LAUNCHES_F32 = {'fused_field_fwd_f32': 2, 'fused_template_fwd_f32': 1}
 STEP_LAUNCHES['occupancy'] = STEP_LAUNCHES['flagship']
 REFRESH_CALLS = 3  # timed refreshes, after one
 
@@ -3964,12 +3986,16 @@ def smoke_argv(scene: str, exp: str, steps: int, *extra) -> list:
             'steplr', '--log_every', '10', '--exp_name', exp, *extra]
 
 
-def trainer_run(argv, label: str, start: int = 0, kernels=STEP_KERNELS):
+def trainer_run(argv, label: str, start: int = 0, kernels=STEP_KERNELS,
+                per_step=None, per_chunk=None, per_refresh=None):
     """``train.main(argv)`` from step ``start``, every count set to 0 just
     before it and read just after: two launches of each step kernel a
     step (``kernels``, in STEP_KERNELS' order: the float32 run's names in
     phase 33), the two forward kernels on every chunk and level of each
-    val, no plain call. Returns (the trainer, its launches)."""
+    val, no plain call. Another path gives its launches a step, a val
+    chunk and an occupancy refresh (``per_step``, ``per_chunk``,
+    ``per_refresh``: {kernel: launches}). Returns (the trainer, its
+    launches)."""
     from hypernerf_tpu_torch import train as port_train
     reset_counts()
     trainer = port_train.main(argv)
@@ -3977,10 +4003,20 @@ def trainer_run(argv, label: str, start: int = 0, kernels=STEP_KERNELS):
     every = max(1, int(trainer.steps_per_epoch * cfg.val_check_interval))
     vals = int(start == 0 and cfg.num_sanity_val_steps > 0) + sum(
         s % every == 0 for s in range(start + 1, trainer.total_steps + 1))
+    refreshes = sum(s % cfg.occupancy_update_every == 0
+                    for s in range(start, trainer.total_steps))
+    n_ids = min(cfg.occupancy_probe_ids, trainer.nerf_cfg.num_embeddings)
     w, h = cfg.img_wh
-    want = {k: 2 * (trainer.total_steps - start) for k in kernels}
-    for k in kernels[:2]:
-        want[k] += 2 * -(-w * h // cfg.chunk) * vals
+    per_step = per_step or {k: 2 for k in kernels}
+    per_chunk = per_chunk or {k: 2 for k in kernels[:2]}
+    want = {}
+    for k, v in per_step.items():
+        want[k] = v * (trainer.total_steps - start)
+    for k, v in per_chunk.items():
+        want[k] = want.get(k, 0) + v * -(-w * h // cfg.chunk) * vals
+    if trainer.nerf_cfg.use_occupancy_grid:
+        for k, v in (per_refresh or {}).items():
+            want[k] = want.get(k, 0) + v * n_ids * refreshes
     return trainer, read_counts(want, label)
 
 
@@ -5796,9 +5832,6 @@ F32_STEP_TOLS = (1e-5, 1e-2)
 # entry, gradients F32_GRAD_L2 / F32_GRAD_MAX (tests/test_torch_plane.py's
 # float32 rule; the CPU's plain level reads 8.8e-5 and 7.8e-3).
 F32_REF_OUT = 1e-4
-# Float32 configurations and rows still refused on the card (A.13.1).
-F32_REFUSED = ('se3', 'quaternion', 'plane', 'anneal', 'nerf_embed',
-               'static', 'split_glo', 'anneal_se3')
 
 
 def f32_bound(flops: float, nbytes: float):
@@ -6076,28 +6109,29 @@ def f32_render_phase() -> float:
 
 
 def f32_refusals_phase() -> None:
-    """Phase 33 (g): float32 configurations outside the flagship table
-    refuse on the card, naming ROADMAP A.13 (no plain fallback)."""
+    """Phase 34 (e): float32 configurations and paths that the float32
+    kernels do not cover (F32_REFUSED) refuse on the card, naming ROADMAP
+    A.13.1's sub-item (no plain fallback)."""
     import torch
     from hypernerf_tpu_torch.flagship import flagship_model, spiral_rays
     from hypernerf_tpu_torch.ops.ray_dict import prepare_ray_dict
     rays = torch.as_tensor(spiral_rays([0])[0][:64]).cuda()
     said = []
-    for config in F32_REFUSED:
-        model = flagship_model('cuda', config=config, **F32)
+    for label, config, overrides, call in F32_REFUSED:
+        model = flagship_model('cuda', config=config, **overrides, **F32)
         try:
             with torch.no_grad():
-                model(prepare_ray_dict(rays))
+                model(prepare_ray_dict(rays), **call)
         except NotImplementedError as e:
-            item = re.search(r'A\.13(\.1 sub-item \d)?', str(e))
+            item = re.search(r'A\.13\.1 sub-item \d', str(e))
             if item is None:
                 raise
-            said.append(f'{config}: {item.group(0)}')
+            said.append(f'{label}: {item.group(0)}')
         else:
-            raise AssertionError(f'float32 {config} ran on the card')
+            raise AssertionError(f'float32 {label} ran on the card')
         del model
     torch.cuda.empty_cache()
-    phase(f'[33] float32 refused on the card, naming A.13.1\'s sub-item: '
+    phase(f'[34] float32 refused on the card, naming A.13.1\'s sub-item: '
           + '; '.join(said))
 
 
@@ -6201,9 +6235,9 @@ def precision32_phase(kernels) -> list:
     (d) rows 2 and 7 on the float32 level's outputs; (e) the CLI's 64 +
     128 train step at float32 through ``make_train_step`` (every kernel
     counted, no plain call; 1024 rays against the plain versions); (f) a
-    float32 frame; (g) float32 refusals; (h) ``train.main`` and ``eval``
-    with ``--precision 32`` beside the plain trainer. Returns the three
-    float32 kernels' entries of the line."""
+    float32 frame; (h) ``train.main`` and ``eval`` with ``--precision 32``
+    beside the plain trainer (the refusals, once (g), are phase 34's (e)).
+    Returns the three float32 kernels' entries of the line."""
     import torch
     from hypernerf_tpu_torch.flagship import flagship_model, load_probe_weights
     from hypernerf_tpu_torch.kernels import build
@@ -6234,7 +6268,6 @@ def precision32_phase(kernels) -> list:
           f'{bf.get("peak", float("nan")):.2f} GiB; {CARD}')
     torch.cuda.empty_cache()
     frame = f32_render_phase()
-    f32_refusals_phase()
     trained = f32_trainer_phase()
     out = []
     for name, (source, replaces) in F32_ROWS.items():
@@ -6261,6 +6294,437 @@ def precision32_phase(kernels) -> list:
         out.append(entry)
     TIMES['f32'] = dict(step=times, frame=frame, trainer=trained)
     phase(f'[33] the --precision 32 phase took '
+          f'{time.perf_counter() - t_phase:.1f} s; {CARD}')
+    return out
+
+
+# -- the per-module path at --precision 32 (A.13.1 sub-item 1, phase 34) -----
+
+# name -> (its source, the TPU kernel it replaces at float32). Kernel A at
+# the static template's width is fused_template_bwd_f32's entry.
+F32_MODULAR_ROWS = {
+    'fused_template_fwd_f32': (CSRC_DIR + 'f32_level.cu',
+                               'hypernerf_tpu/ops/pallas/fused_mlp.py:656'),
+    'fused_field_fwd_f32': (CSRC_DIR + 'f32_level.cu',
+                            'hypernerf_tpu/ops/pallas/fused_field.py:495'),
+    'fused_field_bwd_f32': (CSRC_DIR + 'f32_steps.cu',
+                            'hypernerf_tpu/ops/pallas/fused_field.py:532')}
+PATHS.update(static_f32=('static', F32), split_glo_f32=('split_glo', F32),
+             occupancy_f32=('occupancy', F32))
+STEP_LAUNCHES['static_f32'] = {'fused_template_fwd_f32': 2,
+                               'fused_template_bwd_f32': 2}
+STEP_LAUNCHES['split_glo_f32'] = {
+    'fused_field_fwd_f32': 4, 'fused_field_bwd_f32': 4,
+    'fused_template_fwd_f32': 2, 'fused_template_bwd_f32': 2}
+STEP_LAUNCHES['occupancy_f32'] = STEP_LAUNCHES['flagship_f32']
+# Launches a frame chunk on the per-module path at float32: the template
+# alone on each level, and each field alone (warp, sheet) on each level.
+F32_CHUNK_LAUNCHES = {'static': {'fused_template_fwd_f32': 2},
+                      'return_points': {'fused_template_fwd_f32': 2,
+                                        'fused_field_fwd_f32': 4}}
+F32_CLI_STEPS = 8  # steps of each train.main run of phase 34 (d)
+# Float32 configurations and paths still refused on the card (A.13.1):
+# (label, configuration, NerfConfig overrides, call keywords).
+F32_REFUSED = (
+    ('se3', 'se3', {}, {}), ('quaternion', 'quaternion', {}, {}),
+    ('plane', 'plane', {}, {}), ('anneal', 'anneal', {}, {}),
+    ('nerf_embed', 'nerf_embed', {}, {}), ('anneal_se3', 'anneal_se3', {}, {}),
+    ('se3 split_glo', 'se3', dict(share_glo=False), {}),
+    ('plane return_points', 'plane', {}, dict(return_points=True)))
+
+
+def template_macs(tmpl) -> int:
+    """Multiply-adds a row of the template alone: one per weight."""
+    from hypernerf_tpu_torch.kernels.fused_mlp import template_layers
+    return sum(lin.weight.numel() for lin, _ in template_layers(
+        tmpl.template))
+
+
+def field_macs(mlp) -> int:
+    """Multiply-adds a row of a field alone: one per weight."""
+    from hypernerf_tpu_torch.kernels.fused_field import field_layers
+    return sum(lin.weight.numel() for lin, _ in field_layers(mlp))
+
+
+def f32_template_bound(tmpl, rows: int, samples: int, cond: int = 39):
+    """Row 8 at float32: a multiply-add per weight and row; bytes the raw
+    rows (8 fp32) and the output (4) per row, the condition per condition
+    row, the weights once."""
+    macs = template_macs(tmpl)
+    return f32_bound(2.0 * macs * rows, rows * (32 + 16)
+                     + 4 * (rows // samples) * cond + 4 * macs)
+
+
+def f32_field_bound(mlp, rows: int):
+    """Row 10 at float32: a multiply-add per weight and row; bytes the raw
+    rows (11 fp32) and the output (8) per row, the weights once."""
+    macs = field_macs(mlp)
+    return f32_bound(2.0 * macs * rows, rows * (44 + 32) + 4 * macs)
+
+
+def f32_field_bwd_bound(mlp, rows: int):
+    """Row 11 at float32: the recompute, g W and g^T h, a multiply-add per
+    weight and row each; bytes the raw rows and the cotangent in, dx_raw
+    out, the weights and dW once."""
+    macs = field_macs(mlp)
+    return f32_bound(6.0 * macs * rows, rows * (44 + 32 + 44) + 8 * macs)
+
+
+def f32_static_bwd_bound(tmpl, n_rays: int, samples: int, cond: int = 39):
+    """Kernel A at float32 on the static template: as
+    ``f32_template_bwd_bound``, on its own weights."""
+    macs = template_macs(tmpl)
+    p = n_rays * samples
+    return f32_bound(6.0 * macs * p,
+                     p * (32 + 16 + 32) + 8 * n_rays * cond + 8 * macs)
+
+
+def f32_modular_kernels(model, static) -> dict:
+    """Phase 34 (a): rows 8, 10 and 11 and kernel A at the static width at
+    float32 against their plain versions (TF32 off), and timed: row 8 on
+    the flagship template at R = 8192, S = 128, at 1 << 20 rows of S = 1
+    (query_sigma) and on the static template at R = 8192, S = 64; row 10
+    on the warp field and the sheet at 8192 x 128 rows; row 11 on both at
+    16384 x 128 rows; kernel A on the static template at R = 16384, S = 64.
+    Returns {name: {shape: (ms, plain ms, bound, max|d|)}}."""
+    import torch
+    from hypernerf_tpu_torch.kernels import (fused_field, fused_field_bwd,
+                                             fused_template,
+                                             fused_template_bwd)
+    from hypernerf_tpu_torch.kernels.fused_field import field_layers
+    rows = {name: {} for name in F32_MODULAR_ROWS}
+    rows['static_bwd'] = {}
+    tmpl, stmpl = model.template_of('fine'), static.template_of('coarse')
+
+    def report(name, key, label, errs, t, b, tol):
+        phase(f'[34] {label}: relative L2 {errs[0]:.3e}, max|d| '
+              f'{errs[1]:.3e} of the largest entry (tol {tol}); kernel '
+              f'{t[0]:.3f} ms, plain {t[1]:.3f} ms; bound {b[0]:.3f} ms '
+              f'({b[1]}, {b[0] / t[0]:.1%}), FFMA ceiling {b[2]:.3f} ms '
+              f'({b[2] / t[0]:.1%}); {CARD}')
+        rows[name][key] = (*t, b, errs[2])
+
+    with torch.no_grad():
+        for key, t_, r, s, static_ in (('R8192_S128', tmpl, 8192, 128, False),
+                                       ('S1', tmpl, 1 << 20, 1, False),
+                                       ('static_R8192_S64', stmpl, 8192, 64,
+                                        True)):
+            x, cond = template_rows(r, s, seed=34 + s, static=static_)
+            errs = grad_errors(fused_template(t_, x, cond),
+                               plain_template(t_, x, cond))
+            if errs[0] > F32_OUT_L2 or errs[1] > F32_OUT_MAX:
+                raise AssertionError(f'row 8 float32 {key}: {errs}')
+            t = (cuda_ms(lambda: fused_template(t_, x, cond), 3),
+                 cuda_ms(lambda: plain_template(t_, x, cond), 1))
+            report('fused_template_fwd_f32', key,
+                   f'row 8 float32 {key} ({r * s} rows)', errs, t,
+                   f32_template_bound(t_, r * s, s),
+                   f'{F32_OUT_L2} / {F32_OUT_MAX}')
+            del x, cond
+        for field in ('warp_field', 'hyper_sheet_mlp'):
+            mlp, n_freq = getattr(model, field).mlp, getattr(model,
+                                                             field).n_freq
+            x = field_rows(8192 * 128, seed=341)
+            errs = grad_errors(fused_field(mlp, n_freq, x),
+                               plain_field(mlp, n_freq, x))
+            if errs[0] > F32_OUT_L2 or errs[1] > F32_OUT_MAX:
+                raise AssertionError(f'row 10 float32 {field}: {errs}')
+            t = (cuda_ms(lambda: fused_field(mlp, n_freq, x), 3),
+                 cuda_ms(lambda: plain_field(mlp, n_freq, x), 1))
+            report('fused_field_fwd_f32', field,
+                   f'row 10 float32 {field} (8192 x 128 rows)', errs, t,
+                   f32_field_bound(mlp, x.shape[0]),
+                   f'{F32_OUT_L2} / {F32_OUT_MAX}')
+            x = field_rows(16384 * 128, seed=342)
+            g = torch.randn(x.shape[0], 8, generator=torch.Generator(
+                device='cuda').manual_seed(342), device='cuda')
+            dx, grads = fused_field_bwd(mlp, n_freq, x, g)
+            names = ['dx_raw'] + [f'{k}{i}' for i in range(len(
+                field_layers(mlp))) for k in ('dW', 'db')]
+            worst = check_grads(f'row 11 float32 {field} vs plain (16384 x '
+                                f'128 rows)', names, [dx, *grads],
+                                plain_field_bwd(mlp, n_freq, x, g),
+                                F32_GRAD_L2, F32_GRAD_MAX, tag='[34]')
+            del dx, grads
+            t = (cuda_ms(lambda: fused_field_bwd(mlp, n_freq, x, g), 1),
+                 cuda_ms(lambda: plain_field_bwd(mlp, n_freq, x, g), 1))
+            report('fused_field_bwd_f32', field,
+                   f'row 11 float32 {field} (16384 x 128 rows)', worst, t,
+                   f32_field_bwd_bound(mlp, x.shape[0]),
+                   f'{F32_GRAD_L2} / {F32_GRAD_MAX}')
+            del x, g
+        r, s = TRAIN_RAYS, 64
+        x, cond = template_rows(r, s, seed=343, static=True)
+        g = torch.randn(r * s, 4, generator=torch.Generator(
+            device='cuda').manual_seed(343), device='cuda')
+        got = fused_template_bwd(stmpl, x, cond, g)
+        worst = check_grads(f'row 9 (kernel A) float32 at the static width '
+                            f'vs plain R={r} S={s}', TEMPLATE_GRAD_NAMES,
+                            [got[0], got[1], *got[2]],
+                            plain_template_bwd(stmpl, x, cond, g),
+                            F32_GRAD_L2, F32_GRAD_MAX, tag='[34]')
+        del got
+        t = (cuda_ms(lambda: fused_template_bwd(stmpl, x, cond, g), 1),
+             cuda_ms(lambda: plain_template_bwd(stmpl, x, cond, g), 1))
+        report('static_bwd', f'R{r}_S{s}', f'row 9 (kernel A) float32 at '
+               f'the static width R={r} S={s}', worst, t,
+               f32_static_bwd_bound(stmpl, r, s),
+               f'{F32_GRAD_L2} / {F32_GRAD_MAX}')
+        del x, cond, g
+    torch.cuda.empty_cache()
+    return rows
+
+
+def f32_modular_reference(models) -> None:
+    """Phase 34 (b): rows 8, 10, 11 and kernel A at the static width
+    against the JAX kernels' stored float32 numbers
+    (tests/data/fused_f32_modular_jax_ref.npz): outputs within
+    F32_REF_OUT of the largest entry, gradients F32_GRAD_L2 /
+    F32_GRAD_MAX."""
+    import torch
+    from hypernerf_tpu_torch.flagship import (F32_MODULAR_CASES,
+                                              read_f32_modular_reference)
+    from hypernerf_tpu_torch.kernels import (fused_field, fused_field_bwd,
+                                             fused_template,
+                                             fused_template_bwd)
+    worst = 0.0
+    for case, ref in read_f32_modular_reference().items():
+        kind, config, module, *_ = F32_MODULAR_CASES[case]
+        model = models[config]
+        x = torch.tensor(ref['x_raw']).cuda()
+        cot = torch.tensor(ref['cotangent']).cuda()
+        want_out = torch.tensor(ref['out']).cuda()
+        with torch.no_grad():
+            if kind == 'field':
+                field = getattr(model, module)
+                out = fused_field(field.mlp, field.n_freq, x)
+                dx, grads = fused_field_bwd(field.mlp, field.n_freq, x, cot)
+                got = {'dx': dx}
+            else:
+                tmpl = model.template_of(module)
+                cond = torch.tensor(ref['rgb_cond']).cuda()
+                out = fused_template(tmpl, x, cond)
+                dx, d_cond, grads, _ = fused_template_bwd(tmpl, x, cond, cot)
+                got = {'dx': dx[:, :ref['dx'].shape[1]], 'd_rgb_cond': d_cond}
+        for i in range(0, len(grads), 2):
+            got.update({f'dw{i // 2}': grads[i], f'db{i // 2}': grads[i + 1]})
+        names = [k for k in got if k in ref]  # dW of some layers alone
+        err = ((out - want_out).abs().max()
+               / want_out.abs().max()).item()
+        worst = max(worst, err)
+        if not err <= F32_REF_OUT:
+            raise AssertionError(f'{case} float32 against the stored JAX '
+                                 f'outputs: {err:.3e}')
+        check_grads(f'{case} float32 against the stored JAX gradients',
+                    names, [got[n] for n in names],
+                    [torch.tensor(ref[n]).cuda() for n in names],
+                    F32_GRAD_L2, F32_GRAD_MAX, tag='[34]')
+    phase(f'[34] rows 8, 10, 11 and kernel A at the static width against '
+          f'the stored JAX float32 numbers: outputs max|d| {worst:.3e} of '
+          f'the largest entry at worst (tol {F32_REF_OUT})')
+
+
+def f32_modular_paths() -> dict:
+    """Phase 34 (c): the per-module paths at float32 with their launches:
+    a static frame and train step, a split_glo train step, a flagship
+    frame with ``return_points``, 1024 rays with a ``hyper_point``
+    override, query_sigma, and ``occupancy``'s frame (row 1 at float32)
+    and train step with the refresh (rows 8 and 10) inside the window.
+    Returns {path: launches}."""
+    import torch
+    from hypernerf_tpu_torch.flagship import (H, W, bench_grid,
+                                              flagship_model, spiral_rays)
+    from hypernerf_tpu_torch.ops.ray_dict import prepare_ray_dict
+    from hypernerf_tpu_torch.training.renderer import ImageRenderer
+    chunks_per_frame = -(-W * H // CHUNK)
+    frames = spiral_rays([0, 30])  # a warm-up frame, then one timed
+    counts = {}
+
+    def frame(config, want_chunk, keep, label, **kw):
+        grid = kw.pop('grid', None)
+        model = flagship_model('cuda', seed=0, config=config, **F32)
+        if grid is not None:
+            grid = bench_grid(model.config, 'cuda')
+        secs, launches = time_frames(
+            ImageRenderer(model, chunk=CHUNK, keep=keep, levels=('fine',),
+                          quantize=True, occupancy_grid=grid), frames, keep,
+            {k: v * chunks_per_frame for k, v in want_chunk.items()}, label)
+        phase(f'[34] {label}: {secs:.3f} s/frame ({W}x{H}, '
+              f'{model.config.num_coarse_samples}+'
+              f'{model.config.num_fine_samples}, chunk {CHUNK}); launches '
+              f'{launches}; no plain call; {CARD}')
+        counts[label] = launches
+        del model
+        torch.cuda.empty_cache()
+
+    keep = ('rgb', 'depth', 'acc')
+    frame('static', F32_CHUNK_LAUNCHES['static'], keep,
+          'static float32 frame')
+    counts['static train'] = train_path('static_f32', '[34]',
+                                        tols=F32_STEP_TOLS)
+    torch.cuda.empty_cache()
+    counts['split_glo train'] = train_path('split_glo_f32', '[34]',
+                                           tols=F32_STEP_TOLS)
+    torch.cuda.empty_cache()
+    frame('flagship', F32_CHUNK_LAUNCHES['return_points'],
+          keep + ('med_points',), 'flagship float32 frame with '
+          'return_points')
+    model = flagship_model('cuda', seed=0, **F32)
+    small = torch.as_tensor(frames[0][::186][:1024]).cuda()
+    hyper = torch.randn(1024, 4, generator=torch.Generator(
+        device='cuda').manual_seed(34), device='cuda') * 0.3
+    rd = prepare_ray_dict(small)
+    rd['metadata'] = {**rd['metadata'], 'hyper_point': hyper}
+    with torch.no_grad():
+        reset_counts()
+        got = model(rd)['fine']['rgb']
+        counts['hyper_point'] = read_counts(
+            {'fused_field_fwd_f32': 2, 'fused_template_fwd_f32': 2},
+            'float32 hyper_point override')
+        with plain_versions():
+            want = model(rd)['fine']['rgb']
+    diff = (got - want).abs().max().item()
+    phase(f'[34] flagship float32, 1024 rays with a hyper_point override: '
+          f'launches {counts["hyper_point"]} (the warp field and the '
+          f'template on each level, no sheet); fine rgb vs plain max|d| '
+          f'{diff:.3e} (tol {RENDER_ATOL})')
+    if not diff <= RENDER_ATOL:
+        raise AssertionError('float32 hyper_point: kernels vs plain')
+    del model
+    counts['query_sigma'] = query_sigma_path(
+        'flagship', {'fused_field_fwd_f32': 2, 'fused_template_fwd_f32': 1},
+        '[34]', **F32)
+    frame('occupancy', {'fused_level_fwd_f32': 2, 'fused_composite_fwd': 2},
+          keep, 'occupancy float32 frame', grid=True)
+    times = {}
+    counts['occupancy train'] = train_path('occupancy_f32', '[34]', times,
+                                           F32_STEP_TOLS)
+    phase(f'[34] occupancy float32 step: {times["secs"] * 1e3:.1f} ms a '
+          f'step over the window ({times["refreshes"]} refresh in '
+          f'{TRAIN_STEPS} steps); peak {times["peak"]:.2f} GiB; {CARD}')
+    TIMES['f32_modular'] = dict(occupancy_step=times)
+    torch.cuda.empty_cache()
+    return counts
+
+
+def f32_cli_phase() -> dict:
+    """Phase 34 (d): ``train.main([... '--precision', '32'])`` for
+    F32_CLI_STEPS steps at batch 4096 (64 + 64) on phase 25's scene, once
+    with ``--share_GLO False`` (the per-module path: rows 10, 11, 8 and 9)
+    and once with ``--use_occupancy_grid True`` (the level's float32 rows,
+    the refresh's rows 8 and 10), every launch counted, no plain call, the
+    losses finite. Returns {run: launches}."""
+    import os
+    import tempfile
+    t_phase = time.perf_counter()
+    tools = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                         'tools')
+    sys.path.insert(0, tools)
+    import make_synthetic_scene
+    cwd = os.getcwd()
+    n, out = F32_CLI_STEPS, {}
+    split = STEP_LAUNCHES['split_glo_f32']
+    runs = {
+        'share_GLO False': (('--share_GLO', 'False'), split,
+                            {'fused_field_fwd_f32': 4,
+                             'fused_template_fwd_f32': 2}, None),
+        'use_occupancy_grid True': (
+            ('--use_occupancy_grid', 'True'), None, None,
+            REFRESH_LAUNCHES_F32)}
+    with tempfile.TemporaryDirectory() as tmp:
+        os.chdir(tmp)
+        try:
+            scene = make_synthetic_scene.make_scene(
+                os.path.join(tmp, 'scene'), **SMOKE_SCENE)
+            for i, (label, (flags, step, chunk, refresh)) in enumerate(
+                    runs.items()):
+                argv = smoke_argv(scene, f'f32_cli{i}', n, '--precision',
+                                  '32', *flags)
+                trainer, launches = trainer_run(
+                    argv, f'train.main --precision 32 {label}',
+                    kernels=F32_STEP_KERNELS, per_step=step,
+                    per_chunk=chunk, per_refresh=refresh)
+                metrics = trainer.last_metrics
+                if trainer.nerf_cfg.compute_dtype != 'float32' or not all(
+                        math.isfinite(v) for v in metrics.values()):
+                    raise AssertionError(f'train.main --precision 32 '
+                                         f'{label}: {metrics}')
+                phase(f'[34] train.main --precision 32 {" ".join(flags)}: '
+                      f'{n} steps (batch {SMOKE_BATCH}, 64+64) at '
+                      f'{steps_per_second(trainer, n):.2f} steps/s; '
+                      f'launches {launches}; loss '
+                      f'{metrics.get("train/loss", float("nan")):.5f}, val '
+                      f'psnr {metrics.get("val/psnr", float("nan")):.3f}; no '
+                      f'plain call; {CARD}')
+                out[label] = launches
+                del trainer
+        finally:
+            os.chdir(cwd)
+            sys.path.remove(tools)
+    phase(f'[34] (d) took {time.perf_counter() - t_phase:.1f} s')
+    return out
+
+
+def precision32_modular_phase(kernels) -> list:
+    """Phase 34: the per-module path at ``--precision 32`` (ROADMAP A.13.1
+    sub-item 1): TF32 off; (a) rows 8, 10, 11 and kernel A at the static
+    width against their plain versions, timed; (b) against the stored JAX
+    float32 numbers; (c) the paths at float32 with their launches
+    (``static``, ``split_glo``, ``return_points``, a ``hyper_point``
+    override, ``query_sigma``, ``occupancy``); (d) ``train.main
+    --precision 32`` with ``--share_GLO False`` and with
+    ``--use_occupancy_grid True``; (e) what float32 still refuses. Returns
+    the three new kernels' entries of the line and adds kernel A's static
+    figures to ``fused_template_bwd_f32``'s."""
+    import torch
+    from hypernerf_tpu_torch.flagship import flagship_model, load_probe_weights
+    t_phase = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    models = {c: load_probe_weights(flagship_model('cuda', config=c, **F32))
+              for c in ('flagship', 'static')}
+    rows = f32_modular_kernels(models['flagship'], models['static'])
+    f32_modular_reference(models)
+    del models
+    torch.cuda.empty_cache()
+    counts = f32_modular_paths()
+    cli = f32_cli_phase()
+    f32_refusals_phase()
+    out = []
+    main_path = {'fused_template_fwd_f32': 'static train',
+                 'fused_field_fwd_f32': 'split_glo train',
+                 'fused_field_bwd_f32': 'split_glo train'}
+    main_key = {'fused_template_fwd_f32': 'R8192_S128',
+                'fused_field_fwd_f32': 'warp_field',
+                'fused_field_bwd_f32': 'warp_field'}
+    for name, (source, replaces) in F32_MODULAR_ROWS.items():
+        main = rows[name][main_key[name]]
+        entry = dict(name=name, route='cuda', source=source,
+                     replaces=replaces,
+                     launches=counts[main_path[name]][name],
+                     max_abs_err=max(v[3] for v in rows[name].values()),
+                     ms=main[0], plain_ms=main[1], bound_ms=main[2][0],
+                     bound_by=main[2][1], library_ms=None,
+                     ffma_ceiling_ms=main[2][2], dtype='float32',
+                     shape=main_key[name],
+                     launches_by_path={
+                         path: c[name] for path, c in
+                         list(counts.items()) + list(cli.items())
+                         if c.get(name)})
+        for key, v in rows[name].items():
+            if key != main_key[name]:
+                entry.update({f'ms_{key}': v[0], f'plain_ms_{key}': v[1],
+                              f'bound_ms_{key}': v[2][0]})
+        out.append(entry)
+    static = rows['static_bwd'][f'R{TRAIN_RAYS}_S64']
+    for k in kernels:
+        if k['name'] == 'fused_template_bwd_f32':
+            k.update(ms_static_R16384_S64=static[0],
+                     plain_ms_static_R16384_S64=static[1],
+                     bound_ms_static_R16384_S64=static[2][0],
+                     static_train_launches=counts['static train'][k['name']],
+                     max_abs_err=max(k['max_abs_err'], static[3]))
+    phase(f'[34] the per-module --precision 32 phase took '
           f'{time.perf_counter() - t_phase:.1f} s; {CARD}')
     return out
 

@@ -326,13 +326,15 @@ MODULAR_REFERENCE_CASES = {
 }
 
 
-def modular_probe_inputs(case: str) -> dict:
-    """Numpy inputs and cotangent of a ``MODULAR_REFERENCE_CASES`` case. A
+def modular_probe_inputs(case: str, cases=None) -> dict:
+    """Numpy inputs and cotangent of a ``MODULAR_REFERENCE_CASES`` case (or
+    of ``cases``, a table of the same form). A
     field: 'x_raw' (P, 11) [points on probe rays | GLO codes] and 'cotangent'
     (P, 8), of which the field's outputs' columns count. A template: 'x_raw' (P, 8)
     [points | hyper coordinates of deviation 0.3 (zero when static) | 0],
     'rgb_cond' (P / S, 39) and 'cotangent' (P, 4)."""
-    kind, config, _, rows, per, seed = MODULAR_REFERENCE_CASES[case]
+    kind, config, _, rows, per, seed = (cases or
+                                        MODULAR_REFERENCE_CASES)[case]
     rs = np.random.RandomState(seed + 3000)
     samples = 64
     rays = probe_inputs(-(-rows // samples), samples, seed)
@@ -657,6 +659,34 @@ def f32_probe_inputs(case: str) -> dict:
     inputs = probe_inputs(n_rays, samples, seed)
     inputs['cotangent'] = probe_cotangents(n_rays, samples, seed)['level']
     return inputs
+
+
+# The JAX field and template kernels' numbers at ``compute_dtype='float32'``
+# (the per-module path of ``--precision 32``) at the probe weights, in
+# interpret mode: ``MODULAR_REFERENCE_CASES``' form (a window alpha is
+# None: float32 takes no window row). To keep the file small, a template
+# keeps dW of F32_MODULAR_TEMPLATE_DW alone (its first and skip layers,
+# the alpha head, rgb layer 0 and the rgb head), a field every dW; every db.
+F32_MODULAR_REFERENCE = os.path.join(os.path.dirname(LEVEL_REFERENCE),
+                                     'fused_f32_modular_jax_ref.npz')
+F32_MODULAR_CASES = {
+    'warp': ('field', 'flagship', 'warp_field', 300, None, 91),
+    'sheet': ('field', 'flagship', 'hyper_sheet_mlp', 300, None, 92),
+    'template': ('template', 'flagship', 'coarse', 256, 64, 93),
+    'template_static': ('template', 'static', 'coarse', 256, 64, 94),
+    'template_s1': ('template', 'flagship', 'fine', 100, 1, 95),
+}
+F32_MODULAR_TEMPLATE_DW = (0, 5, 10, 11, 15)
+
+
+def read_f32_modular_reference(path: str = F32_MODULAR_REFERENCE):
+    """{case: {name: array}} of the float32 per-module reference file."""
+    out = {case: {} for case in F32_MODULAR_CASES}
+    with np.load(path) as f:
+        for key in f.files:
+            case, name = key.split('/', 1)
+            out[case][name] = f[key]
+    return out
 
 
 def read_f32_reference(path: str = F32_REFERENCE):

@@ -11,9 +11,12 @@ that one name is how a caller runs the plain versions on the card, through
 the same autograd Functions, to time them or to hold a step against them.
 """
 
-from hypernerf_tpu_torch.kernels.f32 import (fused_fields_bwd_f32,
+from hypernerf_tpu_torch.kernels.f32 import (fused_field_bwd_f32,
+                                             fused_field_f32,
+                                             fused_fields_bwd_f32,
                                              fused_level_f32,
-                                             fused_template_bwd_f32)
+                                             fused_template_bwd_f32,
+                                             fused_template_f32)
 from hypernerf_tpu_torch.kernels.fused_composite import (
     FusedCompositeFn, fused_composite, fused_composite_bwd,
     fused_composite_bwd_plain, fused_composite_plain)
@@ -39,9 +42,9 @@ from hypernerf_tpu_torch.kernels.fused_se3_jacobian import (
 
 def counted():
     """({kernel name: wrapper}, {name: plain version}) of every kernel (the
-    float32 kernels of rows 1, 9 and 5 under names of their own, beside
-    their plain versions, which are the bf16 rows' plain versions at that
-    dtype). A wrapper adds one to its ``launches`` where it launches its
+    float32 kernels of rows 1, 9, 5, 8, 10 and 11 under names of their own,
+    beside their plain versions, which are the bf16 rows' plain versions at
+    that dtype). A wrapper adds one to its ``launches`` where it launches its
     kernel, a plain version one to its ``calls``; both are plain
     attributes, set to 0 by whoever counts."""
     wrappers = {'fused_level_fwd': fused_level,
@@ -60,7 +63,10 @@ def counted():
                 'fused_se3_jacobian_bwd': fused_se3_jacobian_bwd,
                 'fused_level_fwd_f32': fused_level_f32,
                 'fused_template_bwd_f32': fused_template_bwd_f32,
-                'fused_fields_bwd_f32': fused_fields_bwd_f32}
+                'fused_fields_bwd_f32': fused_fields_bwd_f32,
+                'fused_template_fwd_f32': fused_template_f32,
+                'fused_field_fwd_f32': fused_field_f32,
+                'fused_field_bwd_f32': fused_field_bwd_f32}
     plains = [fused_level_plain, fused_composite_plain,
               fused_template_bwd_plain, fused_fields_bwd_plain,
               fused_composite_bwd_plain, fused_field_plain,

@@ -71,6 +71,8 @@ _SIGNATURES = {
     'hn_fused_composite_bwd': ([_P] * 9 + [_L, _I, _I, _I, _P], _I),
     'hn_f32_level_fwd': ([_P] * 5 + [_I] + [_P] * 4 + [_L, _I, _P], _I),
     'hn_f32_level_layout': ([_P, _P, _I], _I),
+    'hn_f32_template_fwd': ([_P, _L, _I, _P, _I, _P, _P, _P, _L, _I, _P], _I),
+    'hn_f32_field_fwd': ([_I] + [_P] * 4 + [_L, _P], _I),
     'hn_f32_rowprod': ([_P, _L, _I, _P, _L, _I, _P, _L, _I, _P, _I, _P, _L,
                         _P, _L, _I, _L, _P], _I),
     'hn_f32_dw': ([_P, _L, _I, _P, _L, _I, _P, _L, _I, _P, _L, _L, _I, _L,

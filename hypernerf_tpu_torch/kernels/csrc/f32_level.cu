@@ -10,6 +10,14 @@
 // bottleneck, the rgb branch 4 x 128 on [bottleneck | rgb condition]).
 // The bf16 level forward is level_fwd.cuh's, untouched.
 //
+// Its stages also run alone, on raw rows, for the per-module path at
+// float32: the template alone (hn_f32_template_fwd, replacing
+// hypernerf_tpu/ops/pallas/fused_mlp.py `_fwd_call` :656; 4 hyper
+// coordinates or, for a template without them, 0, a run-time argument;
+// any rows per condition row, 1 included) and a field alone
+// (hn_f32_field_fwd, the warp field or the sheet, replacing
+// hypernerf_tpu/ops/pallas/fused_field.py `_fused` :495).
+//
 // Bound: operations (1.7 MFLOP a sample; f32_chain.cuh). Design: a block of
 // 256 threads owns a tile of 64 samples; the sheet runs first (its
 // encoding, six hidden layers and head), then the warp field, then the
@@ -19,7 +27,10 @@
 // layer in one pass of f32_chain.cuh's Wide tile), so nothing
 // but the ray inputs, the weights (3.3 MB, read from L2 once per tile) and
 // the output (and raw_t) touches device memory. The rgb condition fills
-// H1's features 128.. after the bottleneck, zero-padded to kCondPad.
+// H1's features 128.. after the bottleneck, zero-padded to kCondPad. A
+// field alone carves less shared memory (X of 80 features, H of 128, the
+// Narrow tile's weight chunks: 107,776 bytes), so that two blocks fit an
+// SM.
 
 #include "f32_chain.cuh"
 
@@ -45,24 +56,165 @@ constexpr int kXyzFreq = 10, kHyperFreq = 6;
 constexpr int kWarpEnc = 80, kSheetEnc = 64, kTmplEnc = 128;
 constexpr int kBneck = 128, kCondPad = 48;
 
-// Shared memory, in floats: X, H0, H1, the weight tile, and per-row
-// scratch: the point (3), [warped | hyper] (8), a head's 8 outputs, sigma,
-// and the row's ray index.
-constexpr int kX = kTmplEnc * kRows;
-constexpr int kH = 256 * kRows;
-constexpr int kSmemFloats =
-    kX + 2 * kH + 2 * Wide::kWTile + (3 + 8 + 8 + 1) * kRows + kRows;
-constexpr int kSmemBytes = 4 * kSmemFloats;
+// The shared buffers of a tile, carved in this order: X (an encoding, xf
+// features), H0 and H1 (hidden layers, hf features each), the double
+// weight tile (2 x wtile), and per-row scratch: the point (3), [warped |
+// hyper] (8), a head's 8 outputs, sigma, and the row's ray index (the row
+// a row's embedding and condition are read from).
+constexpr int smem_floats(int xf, int hf, int wtile) {
+  return xf * kRows + 2 * hf * kRows + 2 * wtile + (3 + 8 + 8 + 1) * kRows +
+         kRows;
+}
+
+struct Tiles {
+  float *X, *H0, *H1, *ws, *pts, *raw, *head, *sigma;
+  int* ray;
+  __device__ Tiles(float* s, int xf, int hf, int wtile) {
+    X = s;
+    H0 = X + xf * kRows;
+    H1 = H0 + hf * kRows;
+    ws = H1 + hf * kRows;
+    pts = ws + 2 * wtile;  // 3 x kRows
+    raw = pts + 3 * kRows;  // 8 x kRows: warped | hyper
+    head = raw + 8 * kRows;
+    sigma = head + 8 * kRows;
+    ray = reinterpret_cast<int*>(sigma + kRows);
+  }
+};
+
+// The level forward and the template alone: X of the template's encoding,
+// H of its 256-wide layers, the Wide tile's weight chunks.
+constexpr int kSmemBytes = 4 * smem_floats(kTmplEnc, 256, Wide::kWTile);
 static_assert(kSmemBytes <= 232448, "shared memory of an sm_90 block");
+// A field alone: X of the warp field's encoding (the wider), H of 128
+// features, the Narrow tile's weight chunks (no layer of a field is wider).
+constexpr int kFieldSmemBytes =
+    4 * smem_floats(kWarpEnc, 128, Narrow::kWTile);
+static_assert(kFieldSmemBytes <= 232448, "shared memory of an sm_90 block");
 
 // Each layer's weight and bias offsets in the blobs and its (n_pad,
-// k_pad), kernel arguments (the tables above are host data).
+// k_pad), kernel arguments (the tables above are host data). A kernel of a
+// stage alone fills the stage's rows of the table, with offsets into the
+// stage's own blobs.
 struct Offsets {
   long long w[kLayers];
   int b[kLayers];
   int n[kLayers];
   int k[kLayers];
 };
+
+// A network's blobs: every layer's transposed weight (k_pad, n_pad) and
+// the packed biases, fp32, and where each layer of the table lies in them.
+struct Net {
+  const float* w;
+  const float* b;
+  Offsets off;
+};
+
+__device__ __forceinline__ const float* W(const Net& a, int l) {
+  return a.w + a.off.w[l];
+}
+__device__ __forceinline__ const float* B(const Net& a, int l) {
+  return a.b + a.off.b[l];
+}
+
+// Layer l of the table on one or two shared segments.
+__device__ __forceinline__ void layer1(const Net& a, int l, const float* x,
+                                       float* out, bool relu, float* ws) {
+  const int k = a.off.k[l], n = a.off.n[l];
+  const Seg segs[1] = {{x, k}};
+  tile_layer(segs, W(a, l), n, n, B(a, l), relu, out, ws);
+}
+__device__ __forceinline__ void layer2(const Net& a, int l, const float* x0,
+                                       int k0, const float* x1, float* out,
+                                       float* ws) {
+  const int k = a.off.k[l], n = a.off.n[l];
+  const Seg segs[2] = {{x0, k0}, {x1, k - k0}};
+  tile_layer(segs, W(a, l), n, n, B(a, l), true, out, ws);
+}
+
+// A field's encoding into X, `enc` features: [posenc_orig(p, F) |
+// embedding | 0], the embedding of tile row r at emb[rows[r] * emb_ld].
+__device__ __forceinline__ void encode_field(float* X, const float* pts,
+                                             int F, int enc,
+                                             const float* emb, int emb_ld,
+                                             const int* rows) {
+  for (int i = threadIdx.x; i < enc * kRows; i += kThreads) {
+    const int f = i / kRows, r = i % kRows;
+    const int n_pe = 3 * (1 + 2 * F);
+    X[i] = f < n_pe ? posenc_feature(pts + r, kRows, 3, F, f)
+           : f < n_pe + kEmbed ? emb[(long long)rows[r] * emb_ld + f - n_pe]
+                               : 0.f;
+  }
+}
+
+// A field (the warp field from layer `first`, or the sheet): the encoding
+// in X, six hidden layers ping-ponged through H0 / H1 with the skip after
+// the fifth, the head into `head`.
+__device__ __forceinline__ void field(const Net& a, int first, int width,
+                                      const Tiles& s) {
+  layer1(a, first, s.X, s.H0, true, s.ws);
+  layer1(a, first + 1, s.H0, s.H1, true, s.ws);
+  layer1(a, first + 2, s.H1, s.H0, true, s.ws);
+  layer1(a, first + 3, s.H0, s.H1, true, s.ws);
+  layer1(a, first + 4, s.H1, s.H0, true, s.ws);
+  layer2(a, first + 5, s.H0, width, s.X, s.H1, s.ws);
+  layer1(a, first + 6, s.H1, s.head, false, s.ws);
+}
+
+// The template's encoding of [warped | hyper] (s.raw, `hyper` hyper
+// coordinates: 4, or 0 for a template without them) into X:
+// [posenc_orig(warped, 10) | posenc_orig(hyper, 6) | 0].
+__device__ __forceinline__ void encode_template(const Tiles& s, int hyper) {
+  for (int i = threadIdx.x; i < kTmplEnc * kRows; i += kThreads) {
+    const int f = i / kRows, r = i % kRows;
+    const int n_xyz = 3 * (1 + 2 * kXyzFreq);
+    const int n_hyp = hyper * (1 + 2 * kHyperFreq);
+    s.X[i] = f < n_xyz ? posenc_feature(s.raw + r, kRows, 3, kXyzFreq, f)
+             : f < n_xyz + n_hyp
+                 ? posenc_feature(s.raw + 3 * kRows + r, kRows, hyper,
+                                  kHyperFreq, f - n_xyz)
+                 : 0.f;
+  }
+}
+
+// The template (layers 14..29) on its encoding in X: the rgb logits into
+// s.head's rows 0..2, the raw sigma into s.sigma. The rgb branch's input
+// is [bottleneck (H1 0..127) | condition | 0], the condition of tile row r
+// at cond[s.ray[r] * cond_w].
+__device__ __forceinline__ void template_stage(const Net& a, const Tiles& s,
+                                               const float* cond,
+                                               int cond_w) {
+  layer1(a, 14, s.X, s.H0, true, s.ws);
+  layer1(a, 15, s.H0, s.H1, true, s.ws);
+  layer1(a, 16, s.H1, s.H0, true, s.ws);
+  layer1(a, 17, s.H0, s.H1, true, s.ws);
+  layer1(a, 18, s.H1, s.H0, true, s.ws);
+  layer2(a, 19, s.H0, 256, s.X, s.H1, s.ws);
+  layer1(a, 20, s.H1, s.H0, true, s.ws);
+  layer1(a, 21, s.H0, s.H1, true, s.ws);
+  layer1(a, 22, s.H1, s.H0, true, s.ws);  // the trunk's ReLU logit
+  for (int i = threadIdx.x; i < kCondPad * kRows; i += kThreads) {
+    const int c = i / kRows, r = i % kRows;
+    s.H1[(kBneck + c) * kRows + r] =
+        c < cond_w ? cond[(long long)s.ray[r] * cond_w + c] : 0.f;
+  }
+  layer1(a, 23, s.H0, s.H1, false, s.ws);  // the bottleneck, linear
+  layer1(a, 24, s.H1, s.head, false, s.ws);  // the alpha head
+  if (threadIdx.x < kRows) s.sigma[threadIdx.x] = s.head[threadIdx.x];
+  layer1(a, 25, s.H1, s.H0, true, s.ws);
+  layer1(a, 26, s.H0, s.H1, true, s.ws);
+  layer1(a, 27, s.H1, s.H0, true, s.ws);
+  layer1(a, 28, s.H0, s.H1, true, s.ws);
+  layer1(a, 29, s.H1, s.head, false, s.ws);  // the rgb head
+}
+
+// Tile row t's [rgb logits | raw sigma] into out (row p).
+__device__ __forceinline__ void write_packed(const Tiles& s, float* out,
+                                             long long p, int t) {
+  for (int c = 0; c < 3; ++c) out[p * 4 + c] = s.head[c * kRows + t];
+  out[p * 4 + 3] = s.sigma[t];
+}
 
 struct Args {
   const float* z;     // (R, S)
@@ -71,64 +223,18 @@ struct Args {
   const float* emb;   // (R, 8)
   const float* cond;  // (R, cond_w)
   int cond_w;
-  const float* w;  // every layer's transposed weight (k_pad, n_pad), fp32
-  const float* b;  // the packed biases, fp32
   float* out;      // (P, 4) [rgb logits | raw sigma]
   float* raw_t;    // (P, 8) [warped | hyper | 0] or null
   long long rays;
   int samples;
-  Offsets off;
+  Net net;  // the flagship table, layers 0..29
 };
-
-__device__ __forceinline__ const float* W(const Args& a, int l) {
-  return a.w + a.off.w[l];
-}
-__device__ __forceinline__ const float* B(const Args& a, int l) {
-  return a.b + a.off.b[l];
-}
-
-// Layer l of the table on one or two shared segments.
-__device__ __forceinline__ void layer1(const Args& a, int l, const float* x,
-                                       float* out, bool relu, float* ws) {
-  const int k = a.off.k[l], n = a.off.n[l];
-  const Seg segs[1] = {{x, k}};
-  tile_layer(segs, W(a, l), n, n, B(a, l), relu, out, ws);
-}
-__device__ __forceinline__ void layer2(const Args& a, int l, const float* x0,
-                                       int k0, const float* x1, float* out,
-                                       float* ws) {
-  const int k = a.off.k[l], n = a.off.n[l];
-  const Seg segs[2] = {{x0, k0}, {x1, k - k0}};
-  tile_layer(segs, W(a, l), n, n, B(a, l), true, out, ws);
-}
-
-// A field (the warp field from layer `first`, or the sheet): the encoding
-// in X, six hidden layers ping-ponged through H0 / H1 with the skip after
-// the fifth, the head into `head`.
-__device__ __forceinline__ void field(const Args& a, int first, int width,
-                                      float* X, float* H0, float* H1,
-                                      float* head, float* ws) {
-  layer1(a, first, X, H0, true, ws);
-  layer1(a, first + 1, H0, H1, true, ws);
-  layer1(a, first + 2, H1, H0, true, ws);
-  layer1(a, first + 3, H0, H1, true, ws);
-  layer1(a, first + 4, H1, H0, true, ws);
-  layer2(a, first + 5, H0, width, X, H1, ws);
-  layer1(a, first + 6, H1, head, false, ws);
-}
 
 __global__ void __launch_bounds__(kThreads)
     level_fwd_f32(const Args a) {
   extern __shared__ float4 hn_f32_smem[];
-  float* X = reinterpret_cast<float*>(hn_f32_smem);
-  float* H0 = X + kX;
-  float* H1 = H0 + kH;
-  float* ws = H1 + kH;
-  float* pts = ws + 2 * Wide::kWTile;  // 3 x kRows
-  float* raw = pts + 3 * kRows;  // 8 x kRows: warped | hyper
-  float* head = raw + 8 * kRows;
-  float* sigma = head + 8 * kRows;
-  int* ray = reinterpret_cast<int*>(sigma + kRows);
+  const Tiles s(reinterpret_cast<float*>(hn_f32_smem), kTmplEnc, 256,
+                Wide::kWTile);
   const int t = threadIdx.x;
   const long long n_pts = a.rays * a.samples;
   const long long p0 = (long long)blockIdx.x * kRows;
@@ -138,91 +244,147 @@ __global__ void __launch_bounds__(kThreads)
     const long long p = p0 + t;
     const bool valid = p < n_pts;
     const long long q = valid ? p / a.samples : 0;
-    ray[t] = (int)q;
+    s.ray[t] = (int)q;
     const float z = valid ? a.z[p] : 0.f;
     for (int c = 0; c < 3; ++c)
-      pts[c * kRows + t] =
+      s.pts[c * kRows + t] =
           valid ? __fadd_rn(a.o[q * 3 + c], __fmul_rn(z, a.d[q * 3 + c]))
                 : 0.f;
   }
   __syncthreads();
 
   // The sheet: [posenc_orig(p, 7) | embedding | 0] -> 4 hyper coordinates.
-  for (int i = t; i < kSheetEnc * kRows; i += kThreads) {
-    const int f = i / kRows, r = i % kRows;
-    const int n_pe = 3 * (1 + 2 * kSheetFreq);
-    X[i] = f < n_pe ? posenc_feature(pts + r, kRows, 3, kSheetFreq, f)
-           : f < n_pe + kEmbed ? a.emb[(long long)ray[r] * kEmbed + f - n_pe]
-                               : 0.f;
-  }
+  encode_field(s.X, s.pts, kSheetFreq, kSheetEnc, a.emb, kEmbed, s.ray);
   __syncthreads();
-  field(a, 7, 64, X, H0, H1, head, ws);
+  field(a.net, 7, 64, s);
   if (t < kRows)
     for (int c = 0; c < kSheetOut; ++c)
-      raw[(3 + c) * kRows + t] = head[c * kRows + t];
+      s.raw[(3 + c) * kRows + t] = s.head[c * kRows + t];
 
   // The warp field: [posenc_orig(p, 10) | embedding | 0] -> the offset.
-  for (int i = t; i < kWarpEnc * kRows; i += kThreads) {
-    const int f = i / kRows, r = i % kRows;
-    const int n_pe = 3 * (1 + 2 * kWarpFreq);
-    X[i] = f < n_pe ? posenc_feature(pts + r, kRows, 3, kWarpFreq, f)
-           : f < n_pe + kEmbed ? a.emb[(long long)ray[r] * kEmbed + f - n_pe]
-                               : 0.f;
-  }
+  encode_field(s.X, s.pts, kWarpFreq, kWarpEnc, a.emb, kEmbed, s.ray);
   __syncthreads();
-  field(a, 0, 128, X, H0, H1, head, ws);
+  field(a.net, 0, 128, s);
   if (t < kRows)
     for (int c = 0; c < 3; ++c)
-      raw[c * kRows + t] = __fadd_rn(pts[c * kRows + t], head[c * kRows + t]);
+      s.raw[c * kRows + t] =
+          __fadd_rn(s.pts[c * kRows + t], s.head[c * kRows + t]);
   __syncthreads();
 
   // The template: [posenc_orig(warped, 10) | posenc_orig(hyper, 6) | 0].
-  for (int i = t; i < kTmplEnc * kRows; i += kThreads) {
-    const int f = i / kRows, r = i % kRows;
-    const int n_xyz = 3 * (1 + 2 * kXyzFreq);
-    const int n_hyp = kSheetOut * (1 + 2 * kHyperFreq);
-    X[i] = f < n_xyz ? posenc_feature(raw + r, kRows, 3, kXyzFreq, f)
-           : f < n_xyz + n_hyp
-               ? posenc_feature(raw + 3 * kRows + r, kRows, kSheetOut,
-                                kHyperFreq, f - n_xyz)
-               : 0.f;
-  }
+  encode_template(s, kSheetOut);
   __syncthreads();
-  layer1(a, 14, X, H0, true, ws);
-  layer1(a, 15, H0, H1, true, ws);
-  layer1(a, 16, H1, H0, true, ws);
-  layer1(a, 17, H0, H1, true, ws);
-  layer1(a, 18, H1, H0, true, ws);
-  layer2(a, 19, H0, 256, X, H1, ws);
-  layer1(a, 20, H1, H0, true, ws);
-  layer1(a, 21, H0, H1, true, ws);
-  layer1(a, 22, H1, H0, true, ws);  // the trunk's ReLU logit
-  // The rgb branch's input: [bottleneck (H1 0..127) | condition | 0].
-  for (int i = t; i < kCondPad * kRows; i += kThreads) {
-    const int c = i / kRows, r = i % kRows;
-    H1[(kBneck + c) * kRows + r] =
-        c < a.cond_w ? a.cond[(long long)ray[r] * a.cond_w + c] : 0.f;
-  }
-  layer1(a, 23, H0, H1, false, ws);  // the bottleneck, linear
-  layer1(a, 24, H1, head, false, ws);  // the alpha head
-  if (t < kRows) sigma[t] = head[t];
-  layer1(a, 25, H1, H0, true, ws);
-  layer1(a, 26, H0, H1, true, ws);
-  layer1(a, 27, H1, H0, true, ws);
-  layer1(a, 28, H0, H1, true, ws);
-  layer1(a, 29, H1, head, false, ws);  // the rgb head
+  template_stage(a.net, s, a.cond, a.cond_w);
 
   if (t < kRows) {
     const long long p = p0 + t;
     if (p < n_pts) {
-      for (int c = 0; c < 3; ++c) a.out[p * 4 + c] = head[c * kRows + t];
-      a.out[p * 4 + 3] = sigma[t];
+      write_packed(s, a.out, p, t);
       if (a.raw_t != nullptr) {
-        for (int c = 0; c < 7; ++c) a.raw_t[p * 8 + c] = raw[c * kRows + t];
+        for (int c = 0; c < 7; ++c) a.raw_t[p * 8 + c] = s.raw[c * kRows + t];
         a.raw_t[p * 8 + 7] = 0.f;
       }
     }
   }
+}
+
+struct TemplateArgs {
+  const float* x;  // (P, ldx) raw rows [xyz | hyper | 0]
+  long long ldx;
+  int hyper;          // hyper coordinates: 4, or 0 (static)
+  const float* cond;  // (P / S, cond_w)
+  int cond_w;
+  float* out;  // (P, 4) [rgb logits | raw sigma]
+  long long rows;
+  int samples;
+  Net net;  // the template's blobs, at the table's rows 14..29
+};
+
+// The template alone: the level forward's template stage on raw rows, the
+// condition of row p the condition row p / S.
+__global__ void __launch_bounds__(kThreads)
+    template_fwd_f32(const TemplateArgs a) {
+  extern __shared__ float4 hn_f32_smem[];
+  const Tiles s(reinterpret_cast<float*>(hn_f32_smem), kTmplEnc, 256,
+                Wide::kWTile);
+  const int t = threadIdx.x;
+  const long long p0 = (long long)blockIdx.x * kRows;
+  if (t < kRows) {
+    const long long p = p0 + t;
+    const bool valid = p < a.rows;
+    s.ray[t] = valid ? (int)(p / a.samples) : 0;
+    for (int c = 0; c < 3 + kSheetOut; ++c)
+      s.raw[c * kRows + t] =
+          valid && c < 3 + a.hyper ? a.x[p * a.ldx + c] : 0.f;
+  }
+  __syncthreads();
+  encode_template(s, a.hyper);
+  __syncthreads();
+  template_stage(a.net, s, a.cond, a.cond_w);
+  if (t < kRows && p0 + t < a.rows) write_packed(s, a.out, p0 + t, t);
+}
+
+struct FieldArgs {
+  const float* x;  // (P, 3 + kEmbed) raw rows [points | embedding]
+  float* out;      // (P, 8) [the head's outputs | 0]
+  long long rows;
+  int first, width, freq, enc;  // the field: its table rows, encoding
+  Net net;  // the field's blobs, at its rows of the table
+};
+
+// A field alone: the level forward's field stage on raw rows.
+__global__ void __launch_bounds__(kThreads) field_fwd_f32(const FieldArgs a) {
+  extern __shared__ float4 hn_f32_smem[];
+  const Tiles s(reinterpret_cast<float*>(hn_f32_smem), kWarpEnc, 128,
+                Narrow::kWTile);
+  constexpr int kRaw = 3 + kEmbed;
+  const int t = threadIdx.x;
+  const long long p0 = (long long)blockIdx.x * kRows;
+  if (t < kRows) {
+    const long long p = p0 + t;
+    const bool valid = p < a.rows;
+    s.ray[t] = valid ? (int)p : 0;
+    for (int c = 0; c < 3; ++c)
+      s.pts[c * kRows + t] = valid ? a.x[p * kRaw + c] : 0.f;
+  }
+  __syncthreads();
+  encode_field(s.X, s.pts, a.freq, a.enc, a.x + 3, kRaw, s.ray);
+  __syncthreads();
+  field(a.net, a.first, a.width, s);
+  if (t < kRows && p0 + t < a.rows)
+    for (int c = 0; c < 8; ++c)
+      a.out[(p0 + t) * 8 + c] = s.head[c * kRows + t];
+}
+
+// Rows [first, last) of the table laid out in a blob of their own, in
+// order (the level's: all thirty from 0).
+Offsets table_offsets(int first, int last) {
+  Offsets off{};
+  long long at_w = 0;
+  int at_b = 0;
+  for (int l = first; l < last; ++l) {
+    off.w[l] = at_w;
+    off.b[l] = at_b;
+    off.n[l] = kShapeN[l];
+    off.k[l] = kShapeK[l];
+    at_w += (long long)kShapeN[l] * kShapeK[l];
+    at_b += kShapeN[l];
+  }
+  return off;
+}
+
+// Raise a kernel's dynamic shared memory limit to `bytes`, once.
+template <class K>
+cudaError_t allow_smem(K kernel, int bytes, bool& ready) {
+  if (ready) return cudaSuccess;
+  const cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (e == cudaSuccess) ready = true;
+  return e;
+}
+
+unsigned tiles_of(long long rows) {
+  return (unsigned)((rows + kRows - 1) / kRows);
 }
 
 }  // namespace
@@ -252,25 +414,61 @@ extern "C" int hn_f32_level_fwd(const float* z, const float* o,
   const long long n_pts = rays * samples;
   if (n_pts == 0) return 0;
   static bool ready = false;
-  if (!ready) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        level_fwd_f32, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        kSmemBytes);
-    if (e != cudaSuccess) return e;
-    ready = true;
-  }
-  Args a{z, o, d, emb, cond, cond_w, w, b, out, raw_t, rays, samples, {}};
-  long long at_w = 0;
-  int at_b = 0;
-  for (int l = 0; l < kLayers; ++l) {
-    a.off.w[l] = at_w;
-    a.off.b[l] = at_b;
-    a.off.n[l] = kShapeN[l];
-    a.off.k[l] = kShapeK[l];
-    at_w += (long long)kShapeN[l] * kShapeK[l];
-    at_b += kShapeN[l];
-  }
-  const long long blocks = (n_pts + kRows - 1) / kRows;
-  level_fwd_f32<<<(unsigned)blocks, kThreads, kSmemBytes, stream>>>(a);
+  const cudaError_t e = allow_smem(level_fwd_f32, kSmemBytes, ready);
+  if (e != cudaSuccess) return e;
+  const Args a{z, o, d, emb, cond, cond_w, out, raw_t, rays, samples,
+               {w, b, table_offsets(0, kLayers)}};
+  level_fwd_f32<<<tiles_of(n_pts), kThreads, kSmemBytes, stream>>>(a);
+  return cudaGetLastError();
+}
+
+// The template alone (the level's template stage): x (rows, ldx) fp32 raw
+// rows [xyz | hyper | 0] with `hyper` hyper coordinates (4, or 0 for a
+// template without them, whose encoding's hyper bands are then zero);
+// cond (rows / samples, cond_w) fp32, cond_w <= 48, condition row q for
+// rows q S .. q S + S - 1 (S = 1 included); w, b the template's own fp32
+// blobs (w transposed layer by layer, the float32 table's rows 14..29);
+// out (rows, 4) fp32 [rgb logits | raw sigma].
+extern "C" int hn_f32_template_fwd(const float* x, long long ldx, int hyper,
+                                   const float* cond, int cond_w,
+                                   const float* w, const float* b,
+                                   float* out, long long rows, int samples,
+                                   cudaStream_t stream) {
+  if ((hyper != 0 && hyper != kSheetOut) || ldx < 3 + hyper || cond_w < 0 ||
+      cond_w > kCondPad || samples <= 0 || rows % samples ||
+      rows / samples > 0x7fffffffLL)
+    return 1;
+  if (rows == 0) return 0;
+  static bool ready = false;
+  const cudaError_t e = allow_smem(template_fwd_f32, kSmemBytes, ready);
+  if (e != cudaSuccess) return e;
+  const TemplateArgs a{x,   ldx,  hyper,   cond, cond_w,
+                       out, rows, samples, {w, b, table_offsets(14, kLayers)}};
+  template_fwd_f32<<<tiles_of(rows), kThreads, kSmemBytes, stream>>>(a);
+  return cudaGetLastError();
+}
+
+// A field alone (the level's field stage): which 0 the warp field (the
+// table's rows 0..6), 1 the sheet (7..13); x (rows, 11) fp32 raw rows
+// [points | embedding]; w, b the field's own fp32 blobs (w transposed
+// layer by layer); out (rows, 8) fp32 [the head's outputs | 0].
+extern "C" int hn_f32_field_fwd(int which, const float* x, const float* w,
+                                const float* b, float* out, long long rows,
+                                cudaStream_t stream) {
+  if ((which != 0 && which != 1) || rows > 0x7fffffffLL) return 1;
+  if (rows == 0) return 0;
+  static bool ready = false;
+  const cudaError_t e = allow_smem(field_fwd_f32, kFieldSmemBytes, ready);
+  if (e != cudaSuccess) return e;
+  const int first = which ? 7 : 0;
+  const FieldArgs a{x,
+                    out,
+                    rows,
+                    first,
+                    which ? 64 : 128,
+                    which ? kSheetFreq : kWarpFreq,
+                    which ? kSheetEnc : kWarpEnc,
+                    {w, b, table_offsets(first, first + 7)}};
+  field_fwd_f32<<<tiles_of(rows), kThreads, kFieldSmemBytes, stream>>>(a);
   return cudaGetLastError();
 }

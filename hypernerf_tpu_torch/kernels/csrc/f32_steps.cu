@@ -5,10 +5,14 @@
 //
 // At `compute_dtype='float32'` they replace the TPU kernels
 // hypernerf_tpu/ops/pallas/fused_mlp.py `_bwd_call` (:736, kernel A, the
-// template backward) and hypernerf_tpu/ops/pallas/fused_level.py
-// `_fields_bwd_call` (:846, kernel B, the warp field's and the sheet's
-// backward), the two halves of the level backward (`_fused_bwd_pipelined`
-// :1260, `_fused_bwd` :1397). The host side that orders the steps over
+// template backward, with 4 hyper coordinates or none) and
+// hypernerf_tpu/ops/pallas/fused_level.py `_fields_bwd_call` (:846, kernel
+// B, the warp field's and the sheet's backward), the two halves of the
+// level backward (`_fused_bwd_pipelined` :1260, `_fused_bwd` :1397), and
+// hypernerf_tpu/ops/pallas/fused_field.py `_fused_bwd` (:532, a field
+// alone backward: kernel B's steps on one field from raw rows [points |
+// embedding], encoded by the template's encoding step with 0 bands on the
+// embedding, its VJP by the template's posenc VJP the same way). The host side that orders the steps over
 // chunks of whole rays and owns the stash of each layer's fp32 output is
 // kernels/f32.py; the bf16 kernels A and B are untouched.
 //
@@ -172,8 +176,9 @@ struct DwArgs {
 
 // slab[z][w_off + n * ldc + k] = sum over the rows of range z of G(r, n)
 // H(r, k), and (blocks of the first column tile) slab[z][b_off + n] = sum
-// of G(r, n), for n < N, k < K. Grid (N tiles of 128, K tiles of 128,
-// splits).
+// of G(r, n), for n < N, k < K; zero for K <= k < ldc (a layer whose input
+// is narrower than its packed columns: the static template's encoding).
+// Grid (N tiles of 128, ldc tiles of 128, splits).
 __global__ void __launch_bounds__(kThreads) dw_f32(const DwArgs p) {
   __shared__ __align__(16) float gs[2][kDepth * T::kRows];
   __shared__ __align__(16) float hs[2][T::kWTile];
@@ -257,7 +262,8 @@ __global__ void __launch_bounds__(kThreads) dw_f32(const DwArgs p) {
 #pragma unroll
     for (int j = 0; j < T::TC; ++j) {
       const int k = i0 + T::col(j);
-      if (k < p.K) slab[p.w_off + (long long)n * p.ldc + k] = acc[i][j];
+      // Past K the loads were zero, and so is the sum.
+      if (k < p.ldc) slab[p.w_off + (long long)n * p.ldc + k] = acc[i][j];
     }
   }
   if (with_db && t < T::kRows && j0 + t < p.N) slab[p.b_off + j0 + t] = db;
@@ -431,7 +437,8 @@ extern "C" int hn_f32_dw(const float* g, long long ldg, int N,
   const DwArgs p{g, ldg, N, {h0, ld0, k0, h1, ld1}, K, slab, lds, w_off,
                  ldc, b_off, M, splits};
   const dim3 grid((unsigned)((N + T::kRows - 1) / T::kRows),
-                  (unsigned)((K + T::kCols - 1) / T::kCols), (unsigned)splits);
+                  (unsigned)((ldc + T::kCols - 1) / T::kCols),
+                  (unsigned)splits);
   dw_f32<<<grid, kThreads, 0, stream>>>(p);
   return cudaGetLastError();
 }

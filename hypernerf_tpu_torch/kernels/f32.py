@@ -1,13 +1,18 @@
-"""The float32 kernels of the level path: the level forward (row 1 at
+"""The float32 kernels, hand-written CUDA on FFMA (``csrc/f32_chain.cuh``,
+``f32_level.cu``, ``f32_steps.cu``): the level forward (row 1 at
 ``compute_dtype='float32'``) and the two halves of its backward, kernel A
-(the template backward, row 9) and kernel B (the fields backward, row 5),
-hand-written CUDA on FFMA (``csrc/f32_chain.cuh``, ``f32_level.cu``,
-``f32_steps.cu``). The bf16 kernels are untouched: ``fused_level``,
-``fused_fields_bwd`` and ``fused_template_bwd`` take these where the level's
-modules compute in float32, on the flagship table alone (translation warp,
-bendy sheet, posenc_orig template, a 39-column rgb condition, no alpha
-condition; ``fused_level._check_covered`` and ``fused_mlp.check_f32_covered``
-refuse the rest, naming ROADMAP A.13.1's sub-item).
+(the template backward, row 9) and kernel B (the fields backward, row 5);
+and the per-module path's: the template alone (row 8), a field alone (row
+10) and a field alone backward (row 11). The bf16 kernels are untouched:
+``fused_level``, ``fused_fields_bwd``, ``fused_template_bwd``,
+``fused_template``, ``fused_field`` and ``fused_field_bwd`` take these
+where the modules compute in float32, at the flagship table's widths: the
+translation warp and the bendy sheet (a field alone: either), the
+posenc_orig template with 4 hyper coordinates or none (static), a 39-column
+rgb condition, no alpha condition and no window row.
+``fused_level._check_covered`` and ``fused_mlp.check_f32_covered`` refuse
+the rest, naming ROADMAP A.13.1's sub-item (the screw warps, the plane and
+Nerfies layouts, the conditions' widths, the Jacobians).
 
 Float32 is the TPU kernels' float32: fp32 operands, fp32 sums, fp32
 epilogues, nothing rounded to bf16 — the plain versions' arithmetic at that
@@ -15,8 +20,10 @@ dtype (``fused_level_plain``, ``fused_template_bwd_plain``,
 ``fused_fields_bwd_plain``), which the CPU tests hold to the JAX kernels.
 
 The level forward is one kernel (a tile of 64 samples through all 30 layers
-in shared memory). Kernels A and B are sequences of generic steps over
-chunks of whole rays (``template_bwd_steps``, ``fields_bwd_steps``): each
+in shared memory); the template alone and a field alone are its stages, run
+alone on raw rows. Kernels A and B and a field alone backward are sequences
+of generic steps over chunks of whole rays (``template_bwd_steps``,
+``fields_bwd_steps``, ``field_bwd_steps``): each
 wide layer's fp32 output is recomputed into a stash (at most
 ``STASH_BYTES`` a chunk), then the chunk is walked back a layer at a time —
 the cotangent through the layer (``rowprod``, masked by the input's ReLU)
@@ -27,7 +34,7 @@ steps: ``_KernelOps`` on the card; the tests pass a PyTorch model of each C
 entry point.
 
 Every wrapper adds one to its ``launches`` where it launches its kernel (a
-call of kernel A or B, whatever its steps).
+call of kernel A or B or of a field alone backward, whatever its steps).
 """
 
 from __future__ import annotations
@@ -58,12 +65,31 @@ SMEM_LIMIT = 232448  # bytes a block may use on sm_90
 # A chunk's stash at most (the bf16 kernel A's, 2^19 rows of 3072 bf16).
 STASH_BYTES = 3 << 30
 MAX_SPLITS = 512  # row ranges of a layer's dW pass, one slab each
+# A field alone's dynamic shared memory (csrc/f32_level.cu
+# kFieldSmemBytes): X of the warp field's 80 encoding features, H0 and H1
+# of 128, the Narrow tile's weight chunks, the same per-row scratch.
+FIELD_SMEM_BYTES = 4 * (TILE_ROWS * (80 + 2 * 128 + 3 + 8 + 8 + 1 + 1)
+                        + 2 * DEPTH * WIDE_COLS // 2)
 
-# Kernel A's stash: the bf16 kernel A's columns, the rgb condition (padded
-# to 48) after the bottleneck's 128, one fp32 row per sample; its wide
-# layers are the bf16 kernel A's, layer 11 reading [bottleneck | condition]
-# from the stash.
-TEMPLATE_STASH = fused_mlp.stash_plan(cond=COND_PAD)
+
+def template_enc(hyper: int) -> int:
+    """Stash columns of the template's encoding with ``hyper`` hyper
+    coordinates: 128 for the flagship's 4 (115 encoded), 64 for none (63)."""
+    return common.pad16(3 * (1 + 2 * XYZ_FREQ) + hyper * (1 + 2 * HYPER_FREQ))
+
+
+def template_stash(hyper: int = N_HYPER) -> fused_mlp.Stash:
+    """Kernel A's stash: the bf16 kernel A's columns with the encoding's
+    ``template_enc(hyper)``, the rgb condition (padded to 48) after the
+    bottleneck's 128, one fp32 row per sample; its wide layers are the bf16
+    kernel A's, layer 11 reading [bottleneck | condition] from the stash.
+    A template without hyper coordinates stashes 64 encoding columns: its
+    first and skip layers' products run on those, their packed weights'
+    other columns unread, and their dW there zero."""
+    return fused_mlp.stash_plan(enc=template_enc(hyper), cond=COND_PAD)
+
+
+TEMPLATE_STASH = template_stash()
 # A field's layers: the template trunk's first six (the skip at layer 5).
 FIELD_LAYERS = fused_mlp.WIDE_LAYERS[:6]
 
@@ -76,6 +102,11 @@ def field_stash(enc: int, width: int) -> fused_mlp.Stash:
 
 WARP_STASH = field_stash(80, 128)
 SHEET_STASH = field_stash(64, 64)
+# A field alone by its bands: its stash and its rows of the float32 table
+# (the index the forward's entry point takes is 0 for the warp, 1 for the
+# sheet).
+FIELDS = {WARP_FREQ: (WARP_STASH, common.WARP_LAYERS, 0),
+          SHEET_FREQ: (SHEET_STASH, common.SHEET_LAYERS, 1)}
 
 
 def chunk_rows(stash: fused_mlp.Stash) -> int:
@@ -119,7 +150,7 @@ class _Walk:
         output cotangent ``g`` and input [h | h1], added to ``grads``."""
         n_out, ldc = g.shape[1], self.w[l].shape[1]
         k = h.shape[1] + (0 if h1 is None else h1.shape[1])
-        if k != ldc:
+        if k > ldc:  # narrower: dw writes zeros past k
             raise ValueError(f'layer {l}: an input of {k} columns, {ldc} '
                              f'packed')
         splits = self.ops.split_count(n_out, k, g.shape[0])
@@ -173,14 +204,17 @@ def _recompute(ops, wt, b, cols, layers):
 
 
 def template_bwd_steps(ops, w, wt, b, w_off, b_off, n_grads, raw_t, cond,
-                       samples, g, max_rows=None):
+                       samples, g, max_rows=None, hyper=N_HYPER):
     """Kernel A at float32 (the template's 16 layers: ``layer_views``
     of its packed fp32 blobs), chunk by chunk. raw_t (P, 8) [warped | hyper
-    | 0], cond (R, C) the rgb condition, g (P, 4) the output's cotangent.
-    Returns dx_t (P, 8), d cond (R, C) and the [dW | db] buffer."""
+    | 0] with ``hyper`` hyper coordinates (4, or 0: static), cond (R, C) the
+    rgb condition, g (P, 4) the output's cotangent. Returns dx_t (P, 8)
+    (zero past the hyper coordinates), d cond (R, C) and the [dW | db]
+    buffer. dx_t is computed whether or not the caller reads it (a static
+    template's points take no gradient)."""
     dev, f32 = raw_t.device, torch.float32
     p, s = raw_t.shape[0], samples
-    sp = TEMPLATE_STASH
+    sp = template_stash(hyper)
     plan = fused_mlp.chunk_plan(p, s, max_rows or chunk_rows(sp))
     rows = max(r1 - r0 for r0, r1 in plan)
     stash = torch.empty((rows, sp.width), dtype=f32, device=dev)
@@ -201,7 +235,7 @@ def template_bwd_steps(ops, w, wt, b, w_off, b_off, n_grads, raw_t, cond,
             return stash[:n, sp.col[name]:sp.col[name] + sp.widths[name]]
 
         raw_c, g_c = raw_t[r0:r1], g[r0:r1]
-        ops.tmpl_encode(raw_c, XYZ_FREQ, N_HYPER, HYPER_FREQ, cols('enc'))
+        ops.tmpl_encode(raw_c, XYZ_FREQ, hyper, HYPER_FREQ, cols('enc'))
         ops.cond_rows(cond[q0:q1], s, cols('bneck')[:, bw:])
         _recompute(ops, wt, b, cols, fused_mlp.WIDE_LAYERS)
         walk = _Walk(ops, w, w_off, b_off, scratch, grads,
@@ -225,24 +259,23 @@ def template_bwd_steps(ops, w, wt, b, w_off, b_off, n_grads, raw_t, cond,
         for l, name in ((4, 'h3'), (3, 'h2'), (2, 'h1'), (1, 'h0')):
             x = walk.layer(x, l, cols(name))
         walk.first(x, 0, cols('enc'), enc_g[:n])
-        ops.tmpl_posenc_bwd(raw_c, XYZ_FREQ, N_HYPER, HYPER_FREQ, enc_g[:n],
+        ops.tmpl_posenc_bwd(raw_c, XYZ_FREQ, hyper, HYPER_FREQ, enc_g[:n],
                             dx_t[r0:r1])
     return dx_t, d_cond, grads
 
 
-def _field_steps(ops, w, wt, b, w_off, b_off, sp, freq, stash, bufs, enc_g,
-                 g, rays, scratch, grads):
-    """One field of kernel B (its 7 layers: ``layer_views``) on a chunk:
-    encode and recompute into ``stash`` (plan ``sp``), then walk back from
-    ``g``, the cotangent of its head's output, to the encoding's cotangent
-    (``enc_g``). ``rays``: the chunk's (z flat, origins, directions,
-    embedding, samples)."""
+def _field_steps(ops, w, wt, b, w_off, b_off, sp, encode, stash, bufs,
+                 enc_g, g, scratch, grads):
+    """One field (its 7 layers: ``layer_views``) on a chunk: encode (the
+    step ``encode(out)``) and recompute into ``stash`` (plan ``sp``), then
+    walk back from ``g``, the cotangent of its head's output, to the
+    encoding's cotangent (``enc_g``)."""
     n = g.shape[0]
 
     def cols(name):
         return stash[:n, sp.col[name]:sp.col[name] + sp.widths[name]]
 
-    ops.field_encode(*rays, freq, cols('enc'))
+    encode(cols('enc'))
     _recompute(ops, wt, b, cols, FIELD_LAYERS)
     walk = _Walk(ops, w, w_off, b_off, scratch, grads, [t[:n] for t in bufs])
     x = walk.head(g, 6, cols('h5'))
@@ -290,12 +323,46 @@ def fields_bwd_steps(ops, w, wt, b, w_off, b_off, n_grads, z_vals, origins,
                 (sheet, SHEET_STASH, SHEET_FREQ, dx_c[:, 3:3 + N_HYPER],
                  enc_s)):
             _field_steps(ops, w[part], wt[part], b[part], w_off[part],
-                         b_off[part], sp, freq, stash, bufs, enc_g[:n], out,
-                         rays, scratch, grads)
+                         b_off[part], sp,
+                         lambda enc, freq=freq: ops.field_encode(*rays, freq,
+                                                                 enc),
+                         stash, bufs, enc_g[:n], out, scratch, grads)
         ops.fields_rows(*rays, dx_c, enc_w[:n], WARP_FREQ, enc_s[:n],
                         SHEET_FREQ, dz_flat[r0:r1], per_row[:n])
         ops.ray_sum(per_row[:n], s, d_ray[q0:q1])
     return d_z, d_ray, grads
+
+
+def field_bwd_steps(ops, w, wt, b, w_off, b_off, n_grads, freq, x_raw, g,
+                    max_rows=None):
+    """A field alone backward at float32 (its 7 layers: ``layer_views`` of
+    its packed fp32 blobs; ``freq`` its bands, a key of FIELDS), chunk by
+    chunk: kernel B's steps on the one field, from raw rows x_raw (P, 3 + E)
+    [points | embedding] (encoded by ``tmpl_encode`` with 0 bands on the
+    embedding: its identity) and g (P, n_out), the cotangent of the head's
+    outputs. Returns dx_raw (P, 3 + E) [the posenc VJP of the points | the
+    embedding's columns of the encoding's cotangent] and the [dW | db]
+    buffer."""
+    dev, f32 = x_raw.device, torch.float32
+    p, e = x_raw.shape[0], x_raw.shape[1] - 3
+    sp = FIELDS[freq][0]
+    plan = fused_mlp.chunk_plan(p, 1, max_rows or chunk_rows(sp))
+    rows = max(r1 - r0 for r0, r1 in plan)
+    stash = torch.empty((rows, sp.width), dtype=f32, device=dev)
+    bufs = [torch.empty((rows, sp.widths['h0']), dtype=f32, device=dev)
+            for _ in range(2)]
+    enc_g = torch.empty((rows, sp.widths['enc']), dtype=f32, device=dev)
+    scratch = torch.empty((scratch_floats(ops, [t.shape for t in w], rows),),
+                          dtype=f32, device=dev)
+    grads = torch.zeros((n_grads,), dtype=f32, device=dev)
+    dx = torch.empty((p, 3 + e), dtype=f32, device=dev)
+    for r0, r1 in plan:
+        n, x_c = r1 - r0, x_raw[r0:r1]
+        _field_steps(ops, w, wt, b, w_off, b_off, sp,
+                     lambda enc: ops.tmpl_encode(x_c, freq, e, 0, enc),
+                     stash, bufs, enc_g[:n], g[r0:r1], scratch, grads)
+        ops.tmpl_posenc_bwd(x_c, freq, e, 0, enc_g[:n], dx[r0:r1])
+    return dx, grads
 
 
 # ---------------------------------------------------------------------------
@@ -401,7 +468,10 @@ def kernel_layout():
 
 def check_layout(shapes, table: slice = slice(None)) -> None:
     """Raise unless packed ``shapes`` are rows ``table`` of the compiled
-    float32 table."""
+    float32 table (all of it: a level; ``common.TEMPLATE_LAYERS``: a
+    template alone, with or without hyper coordinates, whose encoding packs
+    to the same 128 columns; ``common.WARP_LAYERS`` / ``SHEET_LAYERS``: a
+    field alone)."""
     if list(shapes) != kernel_layout()[table]:
         raise NotImplementedError(f'{common.NOT_COVERED}; layer shapes '
                                   f'{shapes}')
@@ -430,8 +500,66 @@ def fused_level_f32(wt_blob, b_blob, z_vals, origins, directions, embed,
 fused_level_f32.launches = 0
 
 
+def fused_template_f32(wt_blob, b_blob, x_raw, hyper: int, cond,
+                       samples: int):
+    """Launch the float32 template alone (csrc/f32_level.cu, the level
+    forward's template stage) on the template's packed fp32 blobs, its
+    weights transposed layer by layer: (P, 4) [rgb logits | raw sigma].
+    x_raw (P, 8) [xyz | hyper | 0] with ``hyper`` hyper coordinates (4 or
+    0), cond (P / samples, C). The inputs are checked by the caller (fp32,
+    contiguous)."""
+    dev, p = x_raw.device, x_raw.shape[0]
+    out = torch.empty((p, 4), dtype=torch.float32, device=dev)
+    common.launch('hn_f32_template_fwd', dev, x_raw.data_ptr(), _ld(x_raw),
+                  hyper, cond.data_ptr(), cond.shape[1], wt_blob.data_ptr(),
+                  b_blob.data_ptr(), out.data_ptr(), p, samples)
+    fused_template_f32.launches += 1
+    return out
+
+
+fused_template_f32.launches = 0
+
+
+def fused_field_f32(freq: int, wt_blob, b_blob, x_raw):
+    """Launch the float32 field alone (csrc/f32_level.cu, the level
+    forward's field stage) of ``freq`` bands (a key of FIELDS) on the
+    field's packed fp32 blobs, its weights transposed layer by layer: (P,
+    8) [the head's outputs | 0]. x_raw (P, 11) [points | embedding],
+    checked by the caller."""
+    dev, p = x_raw.device, x_raw.shape[0]
+    out = torch.empty((p, 8), dtype=torch.float32, device=dev)
+    if p:
+        common.launch('hn_f32_field_fwd', dev, FIELDS[freq][2],
+                      x_raw.data_ptr(), wt_blob.data_ptr(), b_blob.data_ptr(),
+                      out.data_ptr(), p)
+        fused_field_f32.launches += 1
+    return out
+
+
+fused_field_f32.launches = 0
+
+
+def fused_field_bwd_f32(w_blob, wt_blob, b_blob, shapes, freq: int, x_raw,
+                        g):
+    """Launch a field alone backward at float32 (``field_bwd_steps``) on
+    the field's packed fp32 blobs: (dx_raw (P, 11), [dW | db]). g (P,
+    n_out) the cotangent of the head's outputs."""
+    dev = x_raw.device
+    w, wt, b, w_off, b_off, n_grads = fused_mlp.layer_views(
+        w_blob, wt_blob, b_blob, shapes)
+    with torch.cuda.device(dev):
+        ops = _KernelOps(dev)
+        res = field_bwd_steps(ops, w, wt, b, w_off, b_off, n_grads, freq,
+                              x_raw, g)
+    fused_field_bwd_f32.launches += 1
+    return res
+
+
+fused_field_bwd_f32.launches = 0
+
+
 def fused_template_bwd_f32(w_blob, wt_blob, b_blob, shapes, raw_t, cond,
-                           samples, g):
+                           samples, g, hyper: int = N_HYPER):
     """Launch kernel A at float32 (``template_bwd_steps``) on the
     template's packed fp32 blobs: (dx_t, d cond, [dW | db])."""
     dev = raw_t.device
@@ -440,7 +568,7 @@ def fused_template_bwd_f32(w_blob, wt_blob, b_blob, shapes, raw_t, cond,
     with torch.cuda.device(dev):
         ops = _KernelOps(dev)
         res = template_bwd_steps(ops, w, wt, b, w_off, b_off, n_grads, raw_t,
-                                 cond, samples, g)
+                                 cond, samples, g, hyper=hyper)
     fused_template_bwd_f32.launches += 1
     return res
 

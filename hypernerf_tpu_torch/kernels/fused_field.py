@@ -25,7 +25,11 @@ gradient.
 
 The CUDA kernels are compiled for two fields: the flagship warp (6 x 128,
 10 bands, 3 outputs) and sheet (6 x 64, 7 bands, 4 outputs), both on
-3 + 8 raw inputs, skip after layer 4, bf16.
+3 + 8 raw inputs, skip after layer 4, bf16. A field whose MLP computes in
+float32 takes the float32 kernels (``f32.fused_field_f32``, the float32
+level forward's field stage, and ``f32.fused_field_bwd_f32``, kernel B's
+float32 steps on the one field) for the same two fields, without a window
+row.
 """
 
 from __future__ import annotations
@@ -119,8 +123,6 @@ def _launch_args(mlp: MLP, n_freq: int, x_raw, scales):
     """Checked inputs of a kernel launch: (index of the compiled field, the
     padded window row or None, the packed blobs and shapes)."""
     def check():
-        if mlp.dtype == torch.float32:
-            raise NotImplementedError(common.f32_refusal(1, 'a field alone'))
         if mlp.dtype != torch.bfloat16 or n_freq not in _COMPILED:
             raise NotImplementedError(
                 f'{common.NOT_COVERED}; got a field with {n_freq} bands in '
@@ -140,6 +142,34 @@ def _launch_args(mlp: MLP, n_freq: int, x_raw, scales):
     return which, scales, packed
 
 
+def _f32_launch_args(mlp: MLP, n_freq: int, x_raw, scales):
+    """Checked inputs of a float32 kernel launch: the field's packed fp32
+    blobs (w, w transposed, b) and shapes, the float32 table's rows of the
+    field's bands."""
+    from hypernerf_tpu_torch.kernels import f32  # f32 imports fused_mlp
+
+    def check():
+        if mlp.dtype != torch.float32 or n_freq not in f32.FIELDS:
+            raise NotImplementedError(
+                f'{common.NOT_COVERED}; got a field with {n_freq} bands in '
+                f'{mlp.dtype}')
+
+    layers = field_layers(mlp)
+    w_blob, b_blob, shapes = common.pack_layers(mlp, layers, check,
+                                                dtype=torch.float32)
+    wt_blob = common.pack_layers(mlp, layers, check, transposed=True,
+                                 dtype=torch.float32)[0]
+    check()
+    if scales is not None:
+        raise NotImplementedError(common.f32_refusal(
+            3, 'a field alone with a window row'))
+    f32.check_layout(shapes, f32.FIELDS[n_freq][1])
+    build.check_tensor('x_raw', x_raw,
+                       (x_raw.shape[0], 3 + common.FLAGSHIP['embed']),
+                       torch.float32, x_raw.device)
+    return w_blob, wt_blob, b_blob, shapes
+
+
 def _forward(mlp: MLP, n_freq: int, x_raw, scales):
     """(P, 8) fp32 [out | 0]: the plain version on CPU tensors, the kernel on
     CUDA tensors."""
@@ -147,6 +177,10 @@ def _forward(mlp: MLP, n_freq: int, x_raw, scales):
         out = fused_field_plain(mlp, n_freq, x_raw, scales)
         return F.pad(out.to(common.acc_dtype(mlp.dtype)),
                      (0, OUT_PAD - out.shape[1]))
+    if mlp.dtype == torch.float32:
+        from hypernerf_tpu_torch.kernels import f32
+        _, wt_blob, b_blob, _ = _f32_launch_args(mlp, n_freq, x_raw, scales)
+        return f32.fused_field_f32(n_freq, wt_blob, b_blob, x_raw)
     which, scales, (w_blob, b_blob, _) = _launch_args(mlp, n_freq, x_raw,
                                                        scales)
     p = x_raw.shape[0]
@@ -164,7 +198,7 @@ def fused_field(mlp: MLP, n_freq: int, x_raw, scales=None) -> torch.Tensor:
     """Field forward; (P, out_ch) fp32.
 
     CPU tensors take ``fused_field_plain``; CUDA tensors launch the kernel
-    (the two compiled fields, bf16) or raise. Differentiable in ``x_raw``
+    (the two compiled fields, bf16 or float32) or raise. Differentiable in ``x_raw``
     and in the field's parameters (``FusedFieldFn``).
     """
     params = common.layer_params(field_layers(mlp))
@@ -210,6 +244,8 @@ def fused_field_bwd(mlp: MLP, n_freq: int, x_raw, g, scales=None):
     its plan spills (the warp field), gets a per-block scratch."""
     if common.runs_plain(x_raw, 'fused_field_bwd'):
         return fused_field_bwd_plain(mlp, n_freq, x_raw, g, scales)
+    if mlp.dtype == torch.float32:
+        return _field_bwd_f32(mlp, n_freq, x_raw, g, scales)
     # fused_level models kernel B's block, which this kernel runs; it
     # imports this module, so it is imported here (by its module path: the
     # package re-exports a function of the same name).
@@ -225,3 +261,20 @@ def fused_field_bwd(mlp: MLP, n_freq: int, x_raw, g, scales=None):
 
 
 fused_field_bwd.launches = 0
+
+
+def _field_bwd_f32(mlp: MLP, n_freq: int, x_raw, g, scales):
+    """A field alone backward at float32 (``f32.fused_field_bwd_f32``);
+    returns as ``fused_field_bwd``. Only the head's outputs' columns of
+    ``g`` are read."""
+    from hypernerf_tpu_torch.kernels import f32
+    w_blob, wt_blob, b_blob, shapes = _f32_launch_args(mlp, n_freq, x_raw,
+                                                       scales)
+    build.check_tensor('g', g, (x_raw.shape[0], OUT_PAD), torch.float32,
+                       x_raw.device)
+    dx_raw, grads = f32.fused_field_bwd_f32(
+        w_blob, wt_blob, b_blob, shapes, n_freq, x_raw,
+        g[:, :mlp.logit.out_features])
+    n_w = sum(n * k for n, k in shapes)
+    return dx_raw, common.unpack_grads(grads[:n_w], grads[n_w:],
+                                       field_layers(mlp), shapes)

@@ -36,6 +36,12 @@ row). A template without hyper coordinates (static NeRF) runs through the flagsh
 is packed with zero weight columns where the hyper bands would be, which is
 exact, and those columns' dW is dropped on unpack.
 
+A template whose modules compute in float32 takes the float32 kernels
+(``f32.fused_template_f32``, the float32 level forward's template stage,
+and kernel A at float32, ``f32.fused_template_bwd_f32``) at the posenc_orig
+layout with 4 hyper coordinates or none, a 39-column rgb condition and no
+alpha condition (``check_f32_covered``).
+
 The conditions (the JAX model's ``get_condition_inputs``): the rgb condition
 is any width a layout covers (``common.FLAGSHIP['rgb_cond']``: the view
 directions' encoding, with the nerf embedding after it, the embedding alone,
@@ -308,8 +314,11 @@ def check_covered(tmpl) -> None:
     """Raise unless the template has the widths of one of the compiled
     layouts (``common.FLAGSHIP``'s, ``common.NERFIES``, ``common.PLANE`` or
     ``common.NERFIES_PLANE``: an rgb condition of one of the layout's
-    widths, an alpha condition of ``common.ALPHA_COND``) in bf16."""
+    widths, an alpha condition of ``common.ALPHA_COND``) in bf16; a
+    template in float32 is ``check_f32_covered``'s."""
     t = tmpl.template
+    if {t.trunk.dtype, t.rgb_branch.dtype, t.dtype} == {torch.float32}:
+        return check_f32_covered(tmpl)
     nh = n_hyper(tmpl)
     widths = {'nerfies': common.NERFIES, 'plane': common.PLANE,
               'nerfies_plane': common.NERFIES_PLANE,
@@ -320,8 +329,6 @@ def check_covered(tmpl) -> None:
         have.update(hyper_out=nh, hyper_freq=tmpl.hyper_freq)
     want = {**common.FLAGSHIP, **widths, 'alpha_cond': common.ALPHA_COND}
     dtypes = {t.trunk.dtype, t.rgb_branch.dtype, t.dtype}
-    if dtypes == {torch.float32}:
-        raise NotImplementedError(common.f32_refusal(1, 'the template alone'))
     if any(v not in want[k] if isinstance(want[k], tuple) else want[k] != v
            for k, v in have.items()) or dtypes != {torch.bfloat16}:
         raise NotImplementedError(f'{common.NOT_COVERED}; got {have}, '
@@ -330,26 +337,26 @@ def check_covered(tmpl) -> None:
 
 def check_f32_covered(tmpl) -> None:
     """Raise unless the template is the float32 kernels' (the level's
-    template, and kernel A): the flagship's, all in float32 — posenc_orig
-    of the xyz at 10 bands and of 4 hyper coordinates at 6, a 39-column rgb
-    condition, no alpha condition. What is not raises naming ROADMAP
-    A.13.1's sub-item (a template without hyper coordinates: the
-    per-module path's; another layout or condition width: the layouts')."""
+    template, the template alone and kernel A): all in float32, posenc_orig
+    of the xyz at 10 bands and of 4 hyper coordinates at 6 (the flagship's)
+    or of none (static), a 39-column rgb condition, no alpha condition.
+    Another layout or condition width raises naming ROADMAP A.13.1's
+    sub-item 3 (the layouts')."""
     t = tmpl.template
     dtypes = {t.trunk.dtype, t.rgb_branch.dtype, t.dtype}
     have = dict(layout=layout(tmpl), hyper=n_hyper(tmpl),
                 rgb_cond=cond_width(tmpl), alpha_cond=alpha_cond_width(tmpl))
     if dtypes != {torch.float32}:
         raise NotImplementedError(f'{common.NOT_COVERED}; got {dtypes}')
-    if have['hyper'] == 0:
-        raise NotImplementedError(common.f32_refusal(
-            1, 'a template without hyper coordinates'))
-    if have != dict(layout='orig', hyper=common.FLAGSHIP['hyper_out'],
-                    rgb_cond=common.FLAGSHIP['rgb_cond'][0], alpha_cond=0):
+    if have not in [dict(layout='orig', hyper=hyper,
+                         rgb_cond=common.FLAGSHIP['rgb_cond'][0],
+                         alpha_cond=0)
+                    for hyper in (common.FLAGSHIP['hyper_out'], 0)]:
         raise NotImplementedError(common.f32_refusal(
             3, f'a template with {have}'))
-    bands = (tmpl.xyz_freq, tmpl.hyper_freq)
-    if bands != (common.FLAGSHIP['xyz_freq'], common.FLAGSHIP['hyper_freq']):
+    bands = (tmpl.xyz_freq, tmpl.hyper_freq)[:1 + bool(have['hyper'])]
+    if bands != (common.FLAGSHIP['xyz_freq'],
+                 common.FLAGSHIP['hyper_freq'])[:len(bands)]:
         raise NotImplementedError(f'{common.NOT_COVERED}; got bands {bands}')
 
 
@@ -437,6 +444,12 @@ def _forward(tmpl, x_raw, rgb_cond, scales=None, alpha_cond=None):
     if common.runs_plain(x_raw, 'fused_template'):
         return fused_template_plain(tmpl, x_raw, rgb_cond, scales,
                                     alpha_cond)
+    if tmpl.template.dtype == torch.float32:
+        from hypernerf_tpu_torch.kernels import f32  # f32 builds on this
+        (_, wt_blob, b_blob, _), _, cond, s = _f32_launch_args(
+            tmpl, x_raw, rgb_cond, scales, alpha_cond)
+        return f32.fused_template_f32(wt_blob, b_blob, x_raw, n_hyper(tmpl),
+                                      cond, s)
     (rgbc, alphac, aw), s, _, ((w_blob, b_blob, _),) = _launch_args(
         tmpl, x_raw, rgb_cond, False, alpha_cond)
     scales = kernel_scales(tmpl, scales, x_raw.device)
@@ -458,7 +471,8 @@ def fused_template(tmpl, x_raw, rgb_cond, scales=None,
     ``alpha_cond``: (R, Ca) per-ray alpha condition, or None.
 
     CPU tensors take ``fused_template_plain``; CUDA tensors launch the kernel
-    (flagship widths, any of the four layouts, bf16) or raise.
+    (flagship widths, any of the four layouts, bf16; the posenc_orig layout
+    with 4 hyper coordinates or none in float32) or raise.
     Differentiable in ``x_raw``, both conditions and the template's
     parameters (``FusedTemplateFn``).
     """
@@ -844,14 +858,11 @@ def f32_cond(tmpl, rgb_cond, rays: int, dev):
     return cond
 
 
-def _template_bwd_f32(tmpl, raw_t, rgb_cond, g, scales, alpha_cond):
-    """Kernel A at float32 (``f32.fused_template_bwd_f32``) for the
-    template ``check_f32_covered`` admits; returns as
-    ``fused_template_bwd``."""
+def _f32_launch_args(tmpl, x_raw, rgb_cond, scales, alpha_cond):
+    """The float32 kernels' checked inputs for the template
+    ``check_f32_covered`` admits: its packed fp32 blobs (w, wt, b, shapes),
+    its layers, the fp32 rgb condition and the rows per condition row."""
     from hypernerf_tpu_torch.kernels import f32  # f32 builds on this module
-    if scales is not None or alpha_cond is not None:
-        raise ValueError('the float32 template takes no window row and no '
-                         'alpha condition')
     layers = kernel_template_layers(tmpl.template)
     check = lambda: check_f32_covered(tmpl)
     w_blob, b_blob, shapes = common.pack_layers(
@@ -860,16 +871,31 @@ def _template_bwd_f32(tmpl, raw_t, rgb_cond, g, scales, alpha_cond):
                                  transposed=True, dtype=torch.float32)[0]
     check_f32_covered(tmpl)
     f32.check_layout(shapes, common.TEMPLATE_LAYERS)
-    dev = raw_t.device
-    p, r = raw_t.shape[0], rgb_cond.shape[0]
-    build.check_tensor('x_raw', raw_t, (p, common.RAW_PAD), torch.float32,
+    if scales is not None or alpha_cond is not None:
+        raise ValueError('the float32 template takes no window row and no '
+                         'alpha condition')
+    dev = x_raw.device
+    p, r = x_raw.shape[0], rgb_cond.shape[0]
+    build.check_tensor('x_raw', x_raw, (p, common.RAW_PAD), torch.float32,
                        dev)
-    build.check_tensor('g', g, (p, 4), torch.float32, dev)
     if r == 0 or p % r:
         raise ValueError(f'{p} samples do not divide into {r} rays')
-    cond = f32_cond(tmpl, rgb_cond, r, dev)
+    return ((w_blob, wt_blob, b_blob, shapes), layers,
+            f32_cond(tmpl, rgb_cond, r, dev), p // r)
+
+
+def _template_bwd_f32(tmpl, raw_t, rgb_cond, g, scales, alpha_cond):
+    """Kernel A at float32 (``f32.fused_template_bwd_f32``) for the
+    template ``check_f32_covered`` admits, with its hyper coordinates or
+    none; returns as ``fused_template_bwd``."""
+    from hypernerf_tpu_torch.kernels import f32  # f32 builds on this module
+    (w_blob, wt_blob, b_blob, shapes), layers, cond, s = _f32_launch_args(
+        tmpl, raw_t, rgb_cond, scales, alpha_cond)
+    build.check_tensor('g', g, (raw_t.shape[0], 4), torch.float32,
+                       raw_t.device)
     dx_t, d_cond, grads = f32.fused_template_bwd_f32(
-        w_blob, wt_blob, b_blob, shapes, raw_t, cond, p // r, g)
+        w_blob, wt_blob, b_blob, shapes, raw_t, cond, s, g,
+        hyper=n_hyper(tmpl))
     n_w = sum(n * k for n, k in shapes)
     return (dx_t, d_cond,
             common.unpack_grads(grads[:n_w], grads[n_w:], layers, shapes),

@@ -213,8 +213,9 @@ def test_plain_template_matches_jax_kernel(dtype, per):
 
     args = (jnp.asarray(x), jnp.asarray(cond),
             [(jnp.asarray(w), jnp.asarray(b)) for w, b in pairs])
-    dx, d_cond, dwb = jax.grad(lambda *a: jnp.sum(fn(*a) * jnp.asarray(cot)),
-                               argnums=(0, 1, 2))(*args)
+    dx, d_cond, dwb = jax.jit(jax.grad(
+        lambda *a: jnp.sum(fn(*a) * jnp.asarray(cot)), argnums=(0, 1, 2)))(
+            *args)
     want = [np.asarray(dx), np.asarray(d_cond)] + [
         np.asarray(t) for dw, db in dwb for t in (dw.T, db)]
 
@@ -384,7 +385,7 @@ def test_loss_and_gradients_match_jax():
                                  'sigma_noise': k_noise})
         return jax_mse_loss(out, jnp.asarray(rgbs))
 
-    want_loss, want_grads = jax.value_and_grad(jax_loss)(params)
+    want_loss, want_grads = jax.jit(jax.value_and_grad(jax_loss))(params)
     draws = _jax_draws(jmodel, params, k_sample, k_noise)
     model, _, _ = _port_setup()
     out = model(prepare_ray_dict(torch.from_numpy(rays)),

@@ -328,7 +328,7 @@ def test_plain_level_backward_with_conditions_matches_jax(dtype, schedule):
                                              rgbc=rgbc, alphac=alphac), pairs)
         return jnp.sum(packed * jnp.asarray(cot))
 
-    g = jax.grad(loss, argnums=tuple(range(9)))(
+    g = jax.jit(jax.grad(loss, argnums=tuple(range(9))))(
         *[jnp.asarray(data[k]) for k in names], *_jax_pairs())
     want = [np.asarray(a) for a in g[:6]]
     for group in g[6:]:
@@ -393,9 +393,9 @@ def test_plain_template_with_conditions_matches_jax_kernel(dtype, per):
 
     args = (jnp.asarray(x), jnp.asarray(rgbc), jnp.asarray(alphac),
             [(jnp.asarray(w), jnp.asarray(b)) for w, b in pairs])
-    gx, grc, gac, dwb = jax.grad(
+    gx, grc, gac, dwb = jax.jit(jax.grad(
         lambda *a: jnp.sum(fn(*a) * jnp.asarray(cot)),
-        argnums=(0, 1, 2, 3))(*args)
+        argnums=(0, 1, 2, 3)))(*args)
     want = [np.asarray(gx), np.asarray(grc), np.asarray(gac)] + [
         np.asarray(t) for dw, db in dwb for t in (dw.T, db)]
 

@@ -117,7 +117,7 @@ def test_loss_and_gradients_match_jax(case):
                                  'sigma_noise': k_noise})
         return jax_mse_loss(out, jnp.asarray(rgbs))
 
-    want_loss, want_grads = jax.value_and_grad(jax_loss)(params)
+    want_loss, want_grads = jax.jit(jax.value_and_grad(jax_loss))(params)
     draws = _jax_draws(jmodel, params, k_sample, k_noise)
     model, _, _ = _port_setup(case)
     out = model(prepare_ray_dict(torch.from_numpy(rays)),

@@ -176,14 +176,16 @@ def check_loss_and_gradients(case, monkeypatch):
     draw = jax_sampling.weighted_sample_indices
 
     def recording_draw(key, weights, num):
-        drawn.append(np.array(jax.random.uniform(
-            key, (*weights.shape[:-1], num))))
+        drawn.append(jax.random.uniform(key, (*weights.shape[:-1], num)))
         return draw(key, weights, num)
 
     monkeypatch.setattr(jax_sampling, 'weighted_sample_indices',
                         recording_draw)
 
     def jax_loss(p):
+        """The loss and, as its aux output, the subsample's uniforms the
+        model drew while traced (the loss runs jitted)."""
+        drawn.clear()
         out = jmodel.apply({'params': p}, jax_ray_dict(jnp.asarray(rays)), {},
                            rngs={'sampling': k_sample,
                                  'sigma_noise': k_noise},
@@ -201,9 +203,11 @@ def check_loss_and_gradients(case, monkeypatch):
             loss = loss + train_cfg.background_loss_weight * jnp.mean(
                 jax_losses.background_loss(
                     warped, pts, train_cfg.background_loss_scale))
-        return loss
+        return loss, list(drawn)
 
-    want_loss, want_grads = jax.value_and_grad(jax_loss)(params)
+    (want_loss, drawn), want_grads = jax.jit(jax.value_and_grad(
+        jax_loss, has_aux=True))(params)
+    drawn = [np.array(u) for u in drawn]
     kind, shared, k, _ = CASES[case]
     # The JAX model drew the subsample on the level path alone, with the
     # uniforms recomputed above.

@@ -96,9 +96,9 @@ def _jax(spec, x, cot, pairs):
 
     args = (jnp.asarray(x), [(jnp.asarray(w), jnp.asarray(b))
                              for w, b in pairs])
-    out = fn(*args)
-    dx, dwb = jax.grad(lambda *a: jnp.sum(fn(*a) * jnp.asarray(cot)),
-                       argnums=(0, 1))(*args)
+    out = jax.jit(fn)(*args)
+    dx, dwb = jax.jit(jax.grad(lambda *a: jnp.sum(fn(*a) * jnp.asarray(cot)),
+                               argnums=(0, 1)))(*args)
     grads = [np.asarray(dx)]
     for dw, db in dwb:
         grads += [np.asarray(dw).T, np.asarray(db)]

@@ -254,7 +254,7 @@ def test_loss_and_gradients_match_jax(config):
                                  'sigma_noise': k_noise})
         return jax_mse_loss(out, jnp.asarray(rgbs))
 
-    want_loss, want_grads = jax.value_and_grad(jax_loss)(params)
+    want_loss, want_grads = jax.jit(jax.value_and_grad(jax_loss))(params)
     draws = _jax_draws(jmodel, params, k_sample, k_noise)
 
     model, _, _ = _port_setup(config)

@@ -4,9 +4,11 @@ what runs them and what is still refused, checked on the CPU.
 
 - The gate: the float32 flagship level (translation warp, bendy sheet,
   posenc_orig template, a 39-column rgb condition) is admitted; every other
-  float32 table, layout, width and path, and rows 8 and 10 to 17, raise
+  float32 table, layout, width and path, and rows 12 to 17, raise
   NotImplementedError naming A.13.1's sub-item, before any library is
-  needed (``common.runs_plain`` rebound as the card would take it).
+  needed (``common.runs_plain`` rebound as the card would take it). The
+  per-module rows at float32 (8, 10, 11) are
+  ``tests/test_torch_precision32_modular.py``'s.
 - The CLI: ``--precision 32`` builds a float32 model the gate admits;
   ``train.main`` takes two steps at narrow widths equal to the JAX
   trainer's at float32 (the JAX trainer's batches and draws fed to the
@@ -172,8 +174,9 @@ def _refusals():
     def template_alone(config):
         def call():
             tmpl = _model(config).template_of('fine')
+            x = torch.zeros(16, K_mlp.raw_pad(tmpl))
             with as_on_the_card():
-                K_mlp.fused_template(tmpl, torch.zeros(16, 8),
+                K_mlp.fused_template(tmpl, x,
                                      torch.zeros(2, K_mlp.cond_width(tmpl)))
         return call
 
@@ -182,10 +185,10 @@ def _refusals():
         with as_on_the_card():
             K_se3_jac.fused_se3_wv_tangents(field, x11)
 
-    def field_alone():
+    def field_alone_windowed():
         mlp = _model('split_glo').warp_field.mlp
         with as_on_the_card():
-            K_field.fused_field(mlp, 10, x11)
+            K_field.fused_field(mlp, 10, x11, torch.ones(71))
 
     return [
         ('se3 level (rows 1, 5 at code 1)', level_of('se3'), 2),
@@ -197,11 +200,12 @@ def _refusals():
          level_of('flagship', use_viewdirs=False), 3),
         ('B.4 anneal_se3', level_of('anneal_se3'), 2),
         ('B.4 plane_anneal', level_of('plane_anneal'), 3),
-        ('static (row 8)', template_alone('static'), 1),
-        ('row 8, the template alone (split_glo, return_points, '
-         'query_sigma, the occupancy refresh)', template_alone('flagship'),
-         1),
-        ('rows 10, 11, a field alone', field_alone, 1),
+        ('plane template alone (row 8, return_points)',
+         template_alone('plane'), 3),
+        ('anneal template alone (row 8, the Nerfies layout)',
+         template_alone('anneal'), 3),
+        ('a field alone with a window row (rows 10, 11)',
+         field_alone_windowed, 3),
         ('rows 12, 13, the SE(3) trunk',
          lambda: K_se3.check_covered(_model('se3').warp_field), 2),
         ('rows 14, 15, the translation Jacobian',
@@ -368,10 +372,11 @@ def _source(name):
 
 def test_float32_kernels_shared_memory_fits():
     """The level forward's dynamic shared memory as csrc/f32_level.cu
-    computes it (X, H0, H1, the Wide tile's weight chunks, per-row scratch)
-    and the steps' static shared memory as f32_steps.cu declares it (the
-    Step tile's), from the sources' constants and tiles: within an sm_90
-    block's 232,448 bytes, and the static ones within 48 KB."""
+    computes it (X, H0, H1, the Wide tile's weight chunks, per-row scratch;
+    the template alone's the same, a field alone's narrower) and the steps'
+    static shared memory as f32_steps.cu declares it (the Step tile's), from
+    the sources' constants and tiles: within an sm_90 block's 232,448
+    bytes, and the static ones within 48 KB."""
     chain, level, steps = (_source(n) for n in (
         'f32_chain.cuh', 'f32_level.cu', 'f32_steps.cu'))
     const = {k: int(v) for decl in re.findall(
@@ -389,14 +394,26 @@ def test_float32_kernels_shared_memory_fits():
     assert rows_cols('Wide') == (f32.TILE_ROWS, f32.WIDE_COLS)
     assert rows_cols('Narrow') == (f32.TILE_ROWS, f32.WIDE_COLS // 2)
     assert rows_cols('Step') == (f32.STEP_ROWS, f32.STEP_COLS)
-    assert ('kSmemFloats = kX + 2 * kH + 2 * Wide::kWTile + (3 + 8 + 8 + 1) '
-            '* kRows + kRows;') in level
+    assert ('return xf * kRows + 2 * hf * kRows + 2 * wtile + (3 + 8 + 8 + '
+            '1) * kRows + kRows;') in level
+    assert ('kSmemBytes = 4 * smem_floats(kTmplEnc, 256, Wide::kWTile);'
+            in level)
+    assert ('kFieldSmemBytes = 4 * smem_floats(kWarpEnc, 128, '
+            'Narrow::kWTile);' in level)
     rows, depth = f32.TILE_ROWS, f32.DEPTH
-    smem = 4 * (const['kTmplEnc'] * rows + 2 * 256 * rows
-                + 2 * depth * f32.WIDE_COLS + (3 + 8 + 8 + 1) * rows + rows)
-    assert smem == f32.LEVEL_SMEM_BYTES == 201984
-    assert smem <= f32.SMEM_LIMIT
+
+    def smem(xf, hf, wtile):
+        return 4 * (xf * rows + 2 * hf * rows + 2 * wtile
+                    + (3 + 8 + 8 + 1) * rows + rows)
+
+    assert smem(const['kTmplEnc'], 256, depth * f32.WIDE_COLS) == \
+        f32.LEVEL_SMEM_BYTES == 201984
+    assert smem(const['kWarpEnc'], 128, depth * f32.WIDE_COLS // 2) == \
+        f32.FIELD_SMEM_BYTES == 107776
+    assert f32.LEVEL_SMEM_BYTES <= f32.SMEM_LIMIT
+    assert 2 * (f32.FIELD_SMEM_BYTES + 1024) <= 233472  # two blocks an SM
     assert 'static_assert(kSmemBytes <= 232448' in level
+    assert 'static_assert(kFieldSmemBytes <= 232448' in level
     assert 'using T = Step;' in steps
     assert 'constexpr int kALd = T::kRows + 4;' in steps
     decl = re.findall(
@@ -440,11 +457,13 @@ class TorchF32Ops:
     def dw(self, g, h, h1, slab, w_off, ldc, b_off):
         x = h if h1 is None else torch.cat([h, h1], 1)
         n, k, m = g.shape[1], x.shape[1], g.shape[0]
+        assert k <= ldc
         splits = slab.shape[0]
         for z in range(splits):
             r0, r1 = m * z // splits, m * (z + 1) // splits
-            slab[z, w_off:w_off + n * ldc].view(n, ldc)[:, :k] = \
-                g[r0:r1].t() @ x[r0:r1]
+            dw = slab[z, w_off:w_off + n * ldc].view(n, ldc)
+            dw[:, :k] = g[r0:r1].t() @ x[r0:r1]
+            dw[:, k:] = 0  # an input narrower than the packed columns
             if b_off >= 0:
                 slab[z, b_off:b_off + n] = g[r0:r1].sum(0)
 
@@ -459,6 +478,7 @@ class TorchF32Ops:
                                                - enc.shape[1]))
 
     def tmpl_encode(self, raw, f0, ch1, f1, out):
+        # ch1 = 0: no second segment; f1 = 0: its identity alone.
         enc = torch.cat([posenc_orig(raw[:, :3], f0),
                          posenc_orig(raw[:, 3:3 + ch1], f1)], 1)
         out[:] = torch.nn.functional.pad(enc, (0, out.shape[1]
@@ -473,9 +493,10 @@ class TorchF32Ops:
         dx[:] = 0
         dx[:, :3] = common.posenc_bwd(g[:, :n0], common.posenc_trig(
             raw[:, :3], f0), 3, f0)
-        dx[:, 3:3 + ch1] = common.posenc_bwd(
-            g[:, n0:n0 + ch1 * (1 + 2 * f1)],
-            common.posenc_trig(raw[:, 3:3 + ch1], f1), ch1, f1)
+        g1 = g[:, n0:n0 + ch1 * (1 + 2 * f1)]
+        if ch1:  # f1 = 0: the identity's cotangent alone
+            dx[:, 3:3 + ch1] = g1 if f1 == 0 else common.posenc_bwd(
+                g1, common.posenc_trig(raw[:, 3:3 + ch1], f1), ch1, f1)
 
     def fields_rows(self, z, o, d, emb, samples, dxt, gw, f0, gs, f1, dz,
                     rows):

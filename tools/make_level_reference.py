@@ -14,7 +14,8 @@ kernels on a card that has no JAX.
       [--conditions_out tests/data/fused_conditions_jax_ref.npz] \
       [--b4_out tests/data/fused_b4_jax_ref.npz] \
       [--f32_out tests/data/fused_f32_jax_ref.npz] \
-      [--only se3|jacobian|anneal|plane|conditions|b4|f32]
+      [--f32_modular_out tests/data/fused_f32_modular_jax_ref.npz] \
+      [--only se3|jacobian|anneal|plane|conditions|b4|f32|f32_modular]
 
 The weights are ``hypernerf_tpu_torch.flagship.load_probe_weights`` (numpy,
 seed 0), which the card redraws bit for bit; the inputs
@@ -96,6 +97,18 @@ width): outputs, and for the stored cotangent the gradients of every ray
 input, every bias and the weights of ``flagship.F32_GRAD_LAYERS``.
 ``tests/test_torch_precision32.py`` recomputes it for a few rays and holds
 the plain float32 level to it. ``--only f32`` writes that file alone.
+The float32 per-module file holds the JAX field and template kernels
+(``fused_field_mlp``, ``fused_nerf_mlp``) at ``compute_dtype='float32'`` at
+the probe weights (``flagship.F32_MODULAR_CASES``: the warp field and the
+sheet on 300 rows, the flagship template at 4 x 64 and 100 x 1 rows, the
+static template at 4 x 64, full width): outputs, and for the stored
+cotangent the gradients of the raw rows, the condition, every bias and
+the weights of every field layer and of
+``flagship.F32_MODULAR_TEMPLATE_DW``'s template layers.
+``tests/test_torch_precision32_modular.py`` recomputes its sheet case and
+holds the plain float32 versions to it; ``chip_smoke.py`` phase 34 holds
+rows 8, 10, 11 and kernel A at the static width to it. ``--only
+f32_modular`` writes that file alone (about 40 s).
 """
 
 from __future__ import annotations
@@ -302,10 +315,12 @@ def probe_models() -> dict:
             for config in {c[1] for c in MODULAR_REFERENCE_CASES.values()}}
 
 
-def jax_modular(model, case: str, inputs) -> dict:
-    """The JAX kernel's numbers for one modular case: 'out', and for
-    sum(out * cotangent) 'dx' (and 'd_rgb_cond' of a template), 'dw<l>' as
-    (out, in) and 'db<l>' of every layer of the module in kernel order."""
+def jax_modular(model, case: str, inputs, cases=None) -> dict:
+    """The JAX kernel's numbers for one modular case (of
+    ``MODULAR_REFERENCE_CASES``, or of ``cases``, a table of its form):
+    'out', and for sum(out * cotangent) 'dx' (and 'd_rgb_cond' of a
+    template), 'dw<l>' as (out, in) and 'db<l>' of every layer of the
+    module in kernel order, at the model's compute dtype."""
     import jax
     import jax.numpy as jnp
     import numpy as np
@@ -320,7 +335,7 @@ def jax_modular(model, case: str, inputs) -> dict:
     from hypernerf_tpu_torch.convert import params_to_jax
     from hypernerf_tpu_torch.flagship import MODULAR_REFERENCE_CASES
 
-    kind, _, module, rows, per, _ = MODULAR_REFERENCE_CASES[case]
+    kind, _, module, rows, per, _ = (cases or MODULAR_REFERENCE_CASES)[case]
     cfg = model.config
     params = params_to_jax(model.state_dict())
     as_jnp = lambda pairs: [(jnp.asarray(w), jnp.asarray(b))
@@ -825,6 +840,30 @@ def f32_reference() -> dict:
     return arrays
 
 
+def f32_modular_reference() -> dict:
+    """Every array of the float32 per-module file: each case's inputs and
+    the JAX field and template kernels' numbers at float32 (a template's
+    dW of ``F32_MODULAR_TEMPLATE_DW`` alone)."""
+    from hypernerf_tpu_torch.flagship import (F32_MODULAR_CASES,
+                                              F32_MODULAR_TEMPLATE_DW,
+                                              flagship_model,
+                                              load_probe_weights,
+                                              modular_probe_inputs)
+    models = {c: load_probe_weights(flagship_model(
+        'cpu', config=c, compute_dtype='float32'))
+        for c in {case[1] for case in F32_MODULAR_CASES.values()}}
+    arrays = {}
+    for case, (kind, config, *_) in F32_MODULAR_CASES.items():
+        inputs = modular_probe_inputs(case, F32_MODULAR_CASES)
+        arrays.update({f'{case}/{k}': v for k, v in inputs.items()})
+        for k, v in jax_modular(models[config], case, inputs,
+                                F32_MODULAR_CASES).items():
+            if kind == 'field' or not k.startswith('dw') \
+                    or int(k[2:]) in F32_MODULAR_TEMPLATE_DW:
+                arrays[f'{case}/{k}'] = v
+    return arrays
+
+
 def jacobian_reference() -> dict:
     """Every array of the Jacobian file: each case's inputs and numbers."""
     from hypernerf_tpu_torch.flagship import (JACOBIAN_CASES, flagship_model,
@@ -906,6 +945,7 @@ def main():
 
     from hypernerf_tpu_torch.flagship import (ANNEAL_REFERENCE,
                                               B4_REFERENCE, F32_REFERENCE,
+                                              F32_MODULAR_REFERENCE,
                                               GRAD_REFERENCE,
                                               LEVEL_REFERENCE,
                                               PLANE_REFERENCE,
@@ -925,17 +965,21 @@ def main():
     parser.add_argument('--conditions_out', default=CONDITION_REFERENCE)
     parser.add_argument('--b4_out', default=B4_REFERENCE)
     parser.add_argument('--f32_out', default=F32_REFERENCE)
+    parser.add_argument('--f32_modular_out', default=F32_MODULAR_REFERENCE)
     parser.add_argument('--only', choices=('se3', 'jacobian', 'anneal',
                                            'plane', 'conditions', 'b4',
-                                           'f32'),
+                                           'f32', 'f32_modular'),
                         default=None, help='write the SE(3), the Jacobian, '
-                        'the anneal, the plane, the conditions, the B.4 or '
-                        'the float32 file alone')
+                        'the anneal, the plane, the conditions, the B.4, '
+                        'the float32 or the float32 per-module file alone')
     args = parser.parse_args()
     os.makedirs(os.path.dirname(os.path.abspath(args.se3_out)), exist_ok=True)
     if args.only in (None, 'f32'):
         np.savez_compressed(args.f32_out, **f32_reference())
         print(args.f32_out)
+    if args.only in (None, 'f32_modular'):
+        np.savez_compressed(args.f32_modular_out, **f32_modular_reference())
+        print(args.f32_modular_out)
     if args.only in (None, 'b4'):
         np.savez_compressed(args.b4_out, **b4_reference())
         print(args.b4_out)

@@ -1,14 +1,25 @@
 #!/usr/bin/env python3
-"""Profile the float32 kernels (``--precision 32``: rows 1, 9 and 5 at
-float32, ``kernels/f32.py``) on the card: one call of each under
-``torch.profiler``, at the probe weights, with TF32 off, its device time by
-CUDA kernel (kernels A and B are sequences of steps):
+"""Profile the float32 kernels (``--precision 32``, ``kernels/f32.py``) on
+the card: one call of each under ``torch.profiler``, at the probe weights,
+with TF32 off, its device time by CUDA kernel (kernels A and B and a field
+alone backward are sequences of steps): rows 1, 9 and 5 at R x S, and the
+per-module rows, 8 (the template alone at R = 8192, S = 128), 10 (each
+field alone at 8192 x 128 rows), 11 (each field alone backward at R x S
+rows) and 9 at the static template's width (R x 64):
 
-  python3 tools/time_f32.py [--rays 16384] [--samples 128]
+  python3 tools/time_f32.py [--rays 16384] [--samples 128] [--parent DIR]
+
+With ``--parent DIR`` (a checkout, e.g. an unpacked ``git archive``) it
+first builds DIR's float32 sources alone (csrc/f32_level.cu and
+f32_steps.cu) into build/parent_f32/, then times the float32 level forward
+of this checkout's library and of DIR's in turns (this, parent, parent,
+this; CUDA events) at R = 8192 and R x S, S = 128, and holds the outputs
+and raw_t of the two equal bit for bit (exit code 1 if not).
 
 Prints the card's name and power limit beside each table. ``chip_smoke.py``
-phase 33 holds the same kernels to their plain versions and times them
-whole, with CUDA events; this tool says where inside a call the time goes.
+phases 33 and 34 hold the same kernels to their plain versions and time
+them whole, with CUDA events; this tool says where inside a call the time
+goes.
 """
 
 from __future__ import annotations
@@ -22,10 +33,83 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))))
 
 
+def _parent_f32_library(repo: str):
+    """DIR's float32 level forward: its csrc/f32_level.cu and f32_steps.cu
+    compiled with this checkout's flags into build/parent_f32/."""
+    import ctypes
+
+    from hypernerf_tpu_torch.kernels import build
+    csrc = os.path.join(os.path.abspath(repo), 'hypernerf_tpu_torch',
+                        'kernels', 'csrc')
+    out = build.BUILD_DIR.parent / 'parent_f32'
+    out.mkdir(parents=True, exist_ok=True)
+    nvcc = build._nvcc()
+    objs, procs = [], []
+    for name in ('f32_level.cu', 'f32_steps.cu'):
+        obj = str(out / (name + '.o'))
+        objs.append(obj)
+        procs.append(subprocess.Popen([nvcc, *build.NVCC_FLAGS, '-c', '-o',
+                                       obj, os.path.join(csrc, name)]))
+    if any(p.wait() for p in procs):
+        raise RuntimeError(f'nvcc failed on {csrc}')
+    so = str(out / 'libparent_f32.so')
+    subprocess.run([nvcc, '-shared', '-o', so, *objs], check=True)
+    lib = ctypes.CDLL(so)
+    fn = lib.hn_f32_level_fwd
+    fn.argtypes, fn.restype = build._SIGNATURES['hn_f32_level_fwd']
+    return lib
+
+
+def compare_parent(parent: str, lv, shapes, card: str) -> bool:
+    """The float32 level forward of this checkout and of ``parent`` in
+    turns at each (R, S) of ``shapes``; True if every output and raw_t is
+    equal bit for bit."""
+    import torch
+
+    import chip_smoke as cs
+    from hypernerf_tpu_torch.kernels import build
+    from hypernerf_tpu_torch.kernels.fused_level import pack_level_f32
+    from hypernerf_tpu_torch.kernels.fused_mlp import f32_cond
+    libs = {'this': build.library(), 'parent': _parent_f32_library(parent)}
+    wt = pack_level_f32(lv, transposed=True)[0]
+    b = pack_level_f32(lv)[1]
+    stream = torch.cuda.current_stream().cuda_stream
+    same = True
+    for r, s in shapes:
+        z, o, d, emb, cond = cs.level_inputs(r, s, seed=r + s)
+        cond = f32_cond(lv, cond, r, z.device)
+        outs = {k: (torch.empty((r * s, 4), device='cuda'),
+                    torch.empty((r * s, 8), device='cuda')) for k in libs}
+
+        def launch(k):
+            out, raw = outs[k]
+            build.check(libs[k].hn_f32_level_fwd(
+                z.data_ptr(), o.data_ptr(), d.data_ptr(), emb.data_ptr(),
+                cond.data_ptr(), cond.shape[1], wt.data_ptr(), b.data_ptr(),
+                out.data_ptr(), raw.data_ptr(), r, s, stream),
+                'hn_f32_level_fwd')
+
+        times = {k: [] for k in libs}
+        for k in ('this', 'parent', 'parent', 'this'):
+            times[k].append(cs.cuda_ms(lambda: launch(k), 5))
+        torch.cuda.synchronize()
+        equal = all(torch.equal(a, c) for a, c in zip(outs['this'],
+                                                      outs['parent']))
+        same = same and equal
+        print(f'float32 level forward R={r} S={s}: this '
+              + ', '.join(f'{t:.3f}' for t in times['this'])
+              + ' ms; parent ' + ', '.join(f'{t:.3f}' for t in
+                                          times['parent'])
+              + f' ms; outputs and raw_t equal bit for bit: {equal}; '
+              f'{card}', flush=True)
+    return same
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument('--rays', type=int, default=16384)
     parser.add_argument('--samples', type=int, default=128)
+    parser.add_argument('--parent', default=None)
     args = parser.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -35,8 +119,11 @@ def main() -> int:
 
     import chip_smoke as cs
     from hypernerf_tpu_torch.flagship import flagship_model, load_probe_weights
-    from hypernerf_tpu_torch.kernels import (build, fused_fields_bwd,
-                                             fused_level, fused_template_bwd)
+    from hypernerf_tpu_torch.kernels import (build, fused_field,
+                                             fused_field_bwd,
+                                             fused_fields_bwd, fused_level,
+                                             fused_template,
+                                             fused_template_bwd)
     from hypernerf_tpu_torch.kernels.fused_level import _launch_forward
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -44,18 +131,45 @@ def main() -> int:
                            '--format=csv,noheader'], capture_output=True,
                           text=True).stdout.strip()
     build.library()
-    lv = load_probe_weights(flagship_model(
-        'cuda', compute_dtype='float32')).level('fine')
+    model = load_probe_weights(flagship_model('cuda',
+                                              compute_dtype='float32'))
+    static = load_probe_weights(flagship_model(
+        'cuda', config='static', compute_dtype='float32'))
+    lv = model.level('fine')
     r, s = args.rays, args.samples
+    if args.parent:
+        with torch.no_grad():
+            if not compare_parent(args.parent, lv, ((8192, 128), (r, s)),
+                                  card):
+                return 1
     with torch.no_grad():
         ins = cs.level_inputs(r, s, seed=5)
         _, raw_t = _launch_forward(lv, *ins, want_raw_t=True)
         g = torch.randn(r * s, 4, generator=torch.Generator().manual_seed(
             5)).cuda()
         dx_t = fused_template_bwd(lv, raw_t, ins[4], g)[0]
+        tx, tcond = cs.template_rows(8192, 128, seed=6, static=False)
+        sx, scond = cs.template_rows(r, 64, seed=7, static=True)
+        sg = torch.randn(r * 64, 4, generator=torch.Generator().manual_seed(
+            7)).cuda()
+        fx = cs.field_rows(8192 * 128, seed=8)
+        bx = cs.field_rows(r * s, seed=9)
+        fg = torch.randn(r * s, 8, generator=torch.Generator().manual_seed(
+            9)).cuda()
+        stmpl = static.template_of('coarse')
         calls = (('row 1', lambda: fused_level(lv, *ins)),
                  ('row 9', lambda: fused_template_bwd(lv, raw_t, ins[4], g)),
-                 ('row 5', lambda: fused_fields_bwd(lv, *ins[:4], dx_t)))
+                 ('row 5', lambda: fused_fields_bwd(lv, *ins[:4], dx_t)),
+                 ('row 8 (8192 x 128)',
+                  lambda: fused_template(lv, tx, tcond)),
+                 ('row 9 at the static width (S = 64)',
+                  lambda: fused_template_bwd(stmpl, sx, scond, sg)))
+        for name in ('warp_field', 'hyper_sheet_mlp'):
+            f = getattr(model, name)
+            calls += ((f'row 10 {name} (8192 x 128 rows)',
+                       lambda f=f: fused_field(f.mlp, f.n_freq, fx)),
+                      (f'row 11 {name}',
+                       lambda f=f: fused_field_bwd(f.mlp, f.n_freq, bx, fg)))
         for _, fn in calls:  # warm up
             fn()
         for label, fn in calls:
@@ -64,7 +178,8 @@ def main() -> int:
                                      ProfilerActivity.CUDA]) as prof:
                 fn()
                 torch.cuda.synchronize()
-            print(f'{label} R={r} S={s}, device time by kernel; {card}')
+            print(f'{label} (R={r} S={s} where not given), device time by '
+                  f'kernel; {card}')
             print(prof.key_averages().table(
                 sort_by='cuda_time_total', row_limit=10,
                 max_name_column_width=40), flush=True)
