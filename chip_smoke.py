@@ -192,7 +192,7 @@ Phases, one line each; any failure ends the run with a non-zero exit:
      16 steps from the first), its time without the refresh and amortised
      over 16 steps, a 1024-ray step through the grid against the plain
      versions;
- 24. the kernels' JSON line, then the result line (after phase 34);
+ 24. the kernels' JSON line, then the result line (after phase 35);
  25. the trainer and its entry point: ``tools/make_synthetic_scene.py``
      writes an 8-frame 160x120 scene into a temporary directory (never the
      repo), where ``hypernerf_tpu_torch.train.main(argv)`` trains the
@@ -305,9 +305,23 @@ Phases, one line each; any failure ends the run with a non-zero exit:
      (row 1 in float32) and train step with the refresh (rows 8 and 10)
      inside the window; (d) ``train.main --precision 32`` with
      ``--share_GLO False`` and with ``--use_occupancy_grid True``; (e)
-     float32 ``se3``, ``quaternion``, ``plane``, ``anneal``, ``nerf_embed``,
-     ``anneal_se3``, ``se3`` with ``share_glo=False`` and ``plane`` with
-     ``return_points`` refused on the card naming A.13.1's sub-item.
+     float32 ``plane``, ``anneal``, ``nerf_embed``, ``anneal_se3``,
+     ``plane_se3``, ``elastic_se3`` (its warp Jacobian) and ``plane`` with
+     ``return_points`` refused on the card naming A.13.1's sub-item;
+ 35. the screw warps at ``--precision 32`` (ROADMAP A.13.1 sub-item 2),
+     TF32 off: (a) the float32 level forward with the SE(3) warp and the
+     window row (R = 16384, S = 128) and the quaternion warp (R = 8192, S =
+     64), kernel B with the trunk (R = 16384, S = 128 with the window row;
+     quaternion S = 192), the SE(3) trunk alone (8192 and 16384 x 128 rows)
+     and its backward (16384 x 128) against their float32 plain versions,
+     timed with their share of both ceilings; (b) against the JAX kernels'
+     stored float32 numbers (tests/data/fused_f32_screw_jax_ref.npz); (c)
+     with their launches counted and no plain call: ``se3`` and
+     ``quaternion`` frames, their 64 + 128 train steps, a windowed ``se3``
+     step on 1024 rays against the plain versions, an ``se3`` train step
+     with two GLO tables, an ``se3`` frame with ``return_points``,
+     ``query_sigma``; (d) ``train.main --precision 32 --warp_field se3``
+     and ``eval --precision 32`` of its checkpoint.
 Times come from CUDA events (kernels) or the host clock around work that
 ends in a synchronize (frames, steps). A kernel's bound is the larger of
 its matrix-product operations over the card's dense bf16 peak and its bytes
@@ -3052,8 +3066,9 @@ def main() -> int:
     bench_phase()
     kernels += precision32_phase(kernels)
     kernels += precision32_modular_phase(kernels)
-    if len(kernels) != 35:
-        raise AssertionError(f'{len(kernels)} kernels in the line, want 35')
+    kernels += precision32_screw_phase(kernels)
+    if len(kernels) != 39:
+        raise AssertionError(f'{len(kernels)} kernels in the line, want 39')
     return finish(kernels)
 
 # -- the anneal configuration (the Nerfies windowed template encoding) --------
@@ -6326,10 +6341,10 @@ F32_CLI_STEPS = 8  # steps of each train.main run of phase 34 (d)
 # Float32 configurations and paths still refused on the card (A.13.1):
 # (label, configuration, NerfConfig overrides, call keywords).
 F32_REFUSED = (
-    ('se3', 'se3', {}, {}), ('quaternion', 'quaternion', {}, {}),
     ('plane', 'plane', {}, {}), ('anneal', 'anneal', {}, {}),
     ('nerf_embed', 'nerf_embed', {}, {}), ('anneal_se3', 'anneal_se3', {}, {}),
-    ('se3 split_glo', 'se3', dict(share_glo=False), {}),
+    ('plane_se3', 'plane_se3', {}, {}),
+    ('elastic_se3', 'elastic_se3', {}, dict(return_warp_jacobian=True)),
     ('plane return_points', 'plane', {}, dict(return_points=True)))
 
 
@@ -6725,6 +6740,465 @@ def precision32_modular_phase(kernels) -> list:
                      static_train_launches=counts['static train'][k['name']],
                      max_abs_err=max(k['max_abs_err'], static[3]))
     phase(f'[34] the per-module --precision 32 phase took '
+          f'{time.perf_counter() - t_phase:.1f} s; {CARD}')
+    return out
+
+
+# -- the screw warps at --precision 32 (A.13.1 sub-item 2, phase 35) ---------
+
+# name -> (its source, the TPU kernel it replaces at float32). Rows 1 and 5
+# at table codes 1 and 2 are the float32 level forward's and kernel B's
+# variants: their launches count under those wrappers' own counters
+# (F32_SCREW_COUNTER), read from the screw paths' runs.
+F32_SCREW_ROWS = {
+    'fused_level_fwd_f32_screw': (
+        CSRC_DIR + 'f32_level.cu',
+        'hypernerf_tpu/ops/pallas/fused_level.py:1322'),
+    'fused_fields_bwd_f32_screw': (
+        CSRC_DIR + 'f32_steps.cu',
+        'hypernerf_tpu/ops/pallas/fused_level.py:846'),
+    'fused_se3_fwd_f32': (CSRC_DIR + 'f32_level.cu',
+                          'hypernerf_tpu/ops/pallas/fused_se3.py:374'),
+    'fused_se3_bwd_f32': (CSRC_DIR + 'f32_steps.cu',
+                          'hypernerf_tpu/ops/pallas/fused_se3.py:412')}
+F32_SCREW_COUNTER = {'fused_level_fwd_f32_screw': 'fused_level_fwd_f32',
+                     'fused_fields_bwd_f32_screw': 'fused_fields_bwd_f32',
+                     'fused_se3_fwd_f32': 'fused_se3_fwd_f32',
+                     'fused_se3_bwd_f32': 'fused_se3_bwd_f32'}
+PATHS.update(se3_f32=('se3', F32_FINE128),
+             quaternion_f32=('quaternion', F32_FINE128),
+             se3_split_glo_f32=('se3', dict(share_glo=False, **F32)))
+STEP_LAUNCHES['se3_f32'] = STEP_LAUNCHES['flagship_f32']
+STEP_LAUNCHES['quaternion_f32'] = STEP_LAUNCHES['flagship_f32']
+STEP_LAUNCHES['se3_split_glo_f32'] = {
+    'fused_se3_fwd_f32': 2, 'fused_se3_bwd_f32': 2, 'fused_field_fwd_f32': 2,
+    'fused_field_bwd_f32': 2, 'fused_template_fwd_f32': 2,
+    'fused_template_bwd_f32': 2}
+# Launches a frame chunk: the level (and compositing) kernels on each
+# level; with return_points the trunk, the sheet and the template alone.
+F32_SCREW_CHUNK = {'level': {'fused_level_fwd_f32': 2,
+                             'fused_composite_fwd': 2},
+                   'return_points': {'fused_se3_fwd_f32': 2,
+                                     'fused_field_fwd_f32': 2,
+                                     'fused_template_fwd_f32': 2}}
+# Kernel vs plain, both float32 on the card with TF32 off, the same inputs
+# (kernel B and row 13 the same cotangents): the same arithmetic in other
+# summation orders (phases 33 and 34 measured at most 2.4e-6). Allowed per
+# output: relative L2 1e-4 and max|d| 1e-3 of the largest entry, for all
+# four rows.
+F32_SCREW_L2, F32_SCREW_MAX = 1e-4, 1e-3
+# Against tests/data/fused_f32_screw_jax_ref.npz: outputs F32_REF_OUT of
+# the largest entry; the trunk's gradients F32_GRAD_L2 / F32_GRAD_MAX; a
+# level's gradients relative L2 5e-2: two float32 forwards round the
+# warped point apart, which moves the template's backward at its 2^9 band
+# (and can flip a near-zero ReLU) by up to 1.8e-2 on the trunk's heads' db
+# in float64 arithmetic alone (tests/test_torch_precision32_screw.py's
+# floor); 1e-2 + 2 x 1.8e-2 < 5e-2.
+F32_SCREW_REF_L2 = 5e-2
+F32_SCREW_CLI_STEPS = 8  # steps of the train.main run of phase 35 (d)
+
+
+def se3_row_bound(field, rows: int, backward: bool):
+    """Row 12 (or 13, ``backward``) at float32: a multiply-add per weight
+    and row (the recompute, g W and g^T h: three); bytes the raw rows (11
+    fp32) and the output [w | v | 0 0] (8) per row (and dx_raw out), the
+    weights once (and dW)."""
+    from hypernerf_tpu_torch.kernels.fused_se3 import se3_layers
+    macs = sum(lin.weight.numel() for lin, _ in se3_layers(field))
+    if backward:
+        return f32_bound(6.0 * macs * rows, rows * (44 + 32 + 44) + 8 * macs)
+    return f32_bound(2.0 * macs * rows, rows * (44 + 32) + 4 * macs)
+
+
+def f32_screw_kernels(models) -> dict:
+    """Phase 35 (a): rows 1 and 5 at table codes 1 and 2 and rows 12 and 13
+    at float32 against their plain versions (TF32 off, the same inputs),
+    and timed: row 1 on ``se3`` at R = 16384, S = 128 with the window row
+    and on ``quaternion`` at R = 8192, S = 64 without; row 5 on ``se3`` at
+    R = 16384, S = 128 with it and on ``quaternion`` at S = 192 without;
+    row 12 at 8192 x 128 rows (with the window row) and 16384 x 128; row
+    13 at 16384 x 128 with it. Returns {name: {shape: (ms, plain ms,
+    bound, max|d|)}}."""
+    import torch
+    from hypernerf_tpu_torch.kernels import (fused_fields_bwd, fused_level,
+                                             fused_se3_bwd, fused_se3_wv)
+    from hypernerf_tpu_torch.kernels.fused_level import _launch_forward
+    from hypernerf_tpu_torch.kernels.fused_se3 import (se3_encoding_scales,
+                                                       se3_layers)
+    rows = {name: {} for name in F32_SCREW_ROWS}
+    tol = f'{F32_SCREW_L2} / {F32_SCREW_MAX}'
+
+    def report(name, key, label, errs, t, b):
+        phase(f'[35] {label}: worst relative L2 {errs[0]:.3e}, max|d| '
+              f'{errs[1]:.3e} of the largest entry (tol {tol}); kernel '
+              f'{t[0]:.3f} ms, plain {t[1]:.3f} ms; bound {b[0]:.3f} ms '
+              f'({b[1]}, {b[0] / t[0]:.1%}), FFMA ceiling {b[2]:.3f} ms '
+              f'({b[2] / t[0]:.1%}); {CARD}')
+        if errs[0] > F32_SCREW_L2 or errs[1] > F32_SCREW_MAX:
+            raise AssertionError(f'{name} {key}: the kernel disagrees with '
+                                 f'plain: {errs}')
+        rows[name][key] = (*t, b, errs[2])
+
+    def window(field, alpha):
+        return None if alpha is None else se3_encoding_scales(field, alpha,
+                                                              'cuda')
+
+    with torch.no_grad():
+        for kind, r, s, alpha in (('se3', TRAIN_RAYS, 128, WINDOW_ALPHA),
+                                  ('quaternion', 8192, 64, None)):
+            lv = models[kind].level('fine')
+            ws = window(lv.warp, alpha)
+            args = level_inputs(r, s, seed=35 + s)
+            out, raw_t = _launch_forward(lv, *args, want_raw_t=True,
+                                         warp_scales=ws)
+            want, want_raw = plain_forward(lv, args, ws)
+            e = [grad_errors(out, want), grad_errors(raw_t, want_raw)]
+            errs = tuple(max(x[i] for x in e) for i in range(3))
+            del out, raw_t, want_raw
+            t = (cuda_ms(lambda: fused_level(lv, *args, warp_scales=ws), 3),
+                 cuda_ms(lambda: plain_forward(lv, args, ws), 1))
+            report('fused_level_fwd_f32_screw', f'{kind}_R{r}_S{s}',
+                   f'row 1 float32 {kind} R={r} S={s} (window '
+                   f'{alpha}): out and raw_t', errs, t,
+                   f32_level_bound(lv, r, s))
+            del args, want
+        for kind, s, alpha in (('se3', 128, WINDOW_ALPHA),
+                               ('quaternion', S192, None)):
+            lv = models[kind].level('fine')
+            ws = window(lv.warp, alpha)
+            r = TRAIN_RAYS
+            args = level_inputs(r, s, seed=351 + s)
+            dx_t = torch.randn(r * s, 8, generator=torch.Generator(
+                device='cuda').manual_seed(s), device='cuda')
+            dx_t[:, 7] = 0.0
+            got = fused_fields_bwd(lv, *args[:4], dx_t, ws)
+            worst = check_grads(f'row 5 (kernel B) float32 {kind} vs plain '
+                                f'R={r} S={s} (window {alpha})',
+                                SE3_FIELDS_GRAD_NAMES, [*got[:4], *got[4]],
+                                plain_fields_bwd(lv, args, dx_t, ws),
+                                F32_SCREW_L2, F32_SCREW_MAX, tag='[35]')
+            del got
+            t = (cuda_ms(lambda: fused_fields_bwd(lv, *args[:4], dx_t, ws),
+                         1),
+                 cuda_ms(lambda: plain_fields_bwd(lv, args, dx_t, ws), 1))
+            report('fused_fields_bwd_f32_screw', f'{kind}_R{r}_S{s}',
+                   f'row 5 (kernel B) float32 {kind} R={r} S={s}', worst, t,
+                   f32_fields_bwd_bound(lv, r, s))
+            del args, dx_t
+        field = models['se3'].warp_field
+        ws = window(field, WINDOW_ALPHA)
+        for p, alpha in ((8192 * 128, WINDOW_ALPHA), (16384 * 128, None)):
+            x = field_rows(p, seed=352)
+            wsp = ws if alpha is not None else None
+            errs = grad_errors(wv_of(field, x, wsp), plain_se3(field, x, wsp))
+            t = (cuda_ms(lambda: fused_se3_wv(field, x, wsp), 3),
+                 cuda_ms(lambda: plain_se3(field, x, wsp), 1))
+            report('fused_se3_fwd_f32', f'P{p}',
+                   f'row 12 float32 trunk alone P={p} (window {alpha})',
+                   errs, t, se3_row_bound(field, p, False))
+            del x
+        p = 16384 * 128
+        x = field_rows(p, seed=353)
+        g = torch.randn(p, 8, generator=torch.Generator(
+            device='cuda').manual_seed(353), device='cuda')
+        g[:, 6:] = 0.0
+        dx, grads = fused_se3_bwd(field, x, g, ws)
+        names = ['dx_raw'] + [f'{k}{i}' for i in range(len(se3_layers(field)))
+                              for k in ('dW', 'db')]
+        worst = check_grads(f'row 13 float32 trunk alone backward vs plain '
+                            f'P={p} (window {WINDOW_ALPHA})', names,
+                            [dx, *grads], plain_se3_bwd(field, x, g, ws),
+                            F32_SCREW_L2, F32_SCREW_MAX, tag='[35]')
+        del dx, grads
+        t = (cuda_ms(lambda: fused_se3_bwd(field, x, g, ws), 1),
+             cuda_ms(lambda: plain_se3_bwd(field, x, g, ws), 1))
+        report('fused_se3_bwd_f32', f'P{p}', f'row 13 float32 trunk alone '
+               f'backward P={p}', worst, t, se3_row_bound(field, p, True))
+        del x, g
+    torch.cuda.empty_cache()
+    return rows
+
+
+def f32_screw_reference() -> None:
+    """Phase 35 (b): rows 1 and 5 (the level through its autograd
+    Function: the level forward, then kernel A and kernel B) and rows 12
+    and 13 against the JAX kernels' stored float32 numbers
+    (tests/data/fused_f32_screw_jax_ref.npz): outputs within F32_REF_OUT of
+    the largest entry; gradients F32_GRAD_L2 (the trunk alone) or
+    F32_SCREW_REF_L2 (a level), and F32_GRAD_MAX."""
+    import torch
+    from hypernerf_tpu_torch.flagship import (F32_SCREW_GRAD_LAYERS,
+                                              F32_SCREW_LEVEL_CASES,
+                                              F32_SCREW_TRUNK_CASES,
+                                              F32_SCREW_TRUNK_DW,
+                                              LEVEL_INPUTS, f32_screw_model,
+                                              read_f32_screw_reference)
+    from hypernerf_tpu_torch.kernels import (fused_level, fused_se3_bwd,
+                                             fused_se3_wv)
+    from hypernerf_tpu_torch.kernels.fused_level import level_layers
+    from hypernerf_tpu_torch.kernels.fused_se3 import se3_encoding_scales
+    ref = read_f32_screw_reference()
+    worst = 0.0
+    for case, (config, level, _, _, alpha, _, heads) in \
+            F32_SCREW_LEVEL_CASES.items():
+        arrays = ref[case]
+        model = f32_screw_model(config, heads, 'cuda')
+        lv = model.level(level)
+        ws = None if alpha is None else se3_encoding_scales(lv.warp, alpha,
+                                                            'cuda')
+        args = [torch.tensor(arrays[k]).cuda().requires_grad_(True)
+                for k in LEVEL_INPUTS]
+        out = fused_level(lv, *args, warp_scales=ws)
+        want = torch.tensor(arrays['out']).cuda()
+        err = ((out - want).abs().max() / want.abs().max()).item()
+        worst = max(worst, err)
+        out.backward(torch.tensor(arrays['cotangent']).cuda())
+        names, got = [], []
+        for k, a in zip(LEVEL_INPUTS, args):
+            names.append(f'd_{k}')
+            got.append(a.grad)
+        for l, (lin, _) in enumerate(level_layers(lv)):
+            names.append(f'db{l}')
+            got.append(lin.bias.grad)
+            if l in F32_SCREW_GRAD_LAYERS:
+                names.append(f'dw{l}')
+                got.append(lin.weight.grad)
+        check_grads(f'{case} float32 against the stored JAX gradients',
+                    names, got, [torch.tensor(arrays[n]).cuda()
+                                 for n in names],
+                    F32_SCREW_REF_L2, F32_GRAD_MAX, tag='[35]')
+        if not err <= F32_REF_OUT:
+            raise AssertionError(f'{case} float32 against the stored JAX '
+                                 f'outputs: {err:.3e}')
+        del model, out, args
+    for case, (_, alpha, _, heads) in F32_SCREW_TRUNK_CASES.items():
+        arrays = ref[case]
+        field = f32_screw_model('se3', heads, 'cuda').warp_field
+        ws = None if alpha is None else se3_encoding_scales(field, alpha,
+                                                            'cuda')
+        x = torch.tensor(arrays['x_raw']).cuda()
+        with torch.no_grad():
+            out = torch.cat(fused_se3_wv(field, x, ws), -1)
+            dx, grads = fused_se3_bwd(field, x, torch.tensor(
+                arrays['cotangent']).cuda(), ws)
+        want = torch.tensor(arrays['out']).cuda()
+        err = ((out - want).abs().max() / want.abs().max()).item()
+        worst = max(worst, err)
+        names, got = ['dx'], [dx]
+        for l in range(9):
+            names.append(f'db{l}')
+            got.append(grads[2 * l + 1])
+            if l in F32_SCREW_TRUNK_DW:
+                names.append(f'dw{l}')
+                got.append(grads[2 * l])
+        check_grads(f'{case} float32 against the stored JAX gradients',
+                    names, got, [torch.tensor(arrays[n]).cuda()
+                                 for n in names],
+                    F32_GRAD_L2, F32_GRAD_MAX, tag='[35]')
+        if not err <= F32_REF_OUT:
+            raise AssertionError(f'{case} float32 against the stored JAX '
+                                 f'outputs: {err:.3e}')
+    torch.cuda.empty_cache()
+    phase(f'[35] rows 1, 5, 12, 13 against the stored JAX float32 numbers: '
+          f'outputs max|d| {worst:.3e} of the largest entry at worst (tol '
+          f'{F32_REF_OUT})')
+
+
+def f32_screw_paths() -> dict:
+    """Phase 35 (c): the screw warps' paths at float32 with their launches
+    and no plain call: an ``se3`` and a ``quaternion`` frame (64 + 64); the
+    CLI's 64 + 128 train step of each through ``make_train_step``
+    (``compute_extra_params`` gives no warp_alpha with the posenc_orig
+    template, so the step's window row is off, as in the JAX package); one
+    step on 1024 rays of the ``se3`` model with ``warp_alpha`` set (the
+    window row live), kernels vs plain; an ``se3`` train step with
+    ``share_glo=False`` (rows 12 and 13, 10 and 11, 8 and A, the retraction
+    in tensor code); a ``return_points`` frame and ``query_sigma`` on
+    ``se3``. Returns {path: launches}."""
+    import torch
+    from hypernerf_tpu_torch.flagship import (H, W, flagship_model,
+                                              flagship_train_setup,
+                                              spiral_rays)
+    from hypernerf_tpu_torch.training.renderer import ImageRenderer
+    chunks_per_frame = -(-W * H // CHUNK)
+    frames = spiral_rays([0, 30])  # a warm-up frame, then one timed
+    keep = ('rgb', 'depth', 'acc')
+    counts = {}
+    for kind, return_points in (('se3', False), ('quaternion', False),
+                                ('se3', True)):
+        model = flagship_model('cuda', seed=0, config=kind, **F32)
+        k = keep + (('med_points',) if return_points else ())
+        label = f'{kind} float32 frame' + (' with return_points'
+                                           if return_points else '')
+        per = F32_SCREW_CHUNK['return_points' if return_points else 'level']
+        secs, launches = time_frames(
+            ImageRenderer(model, chunk=CHUNK, keep=k, levels=('fine',),
+                          quantize=True), frames, k,
+            {n: v * chunks_per_frame for n, v in per.items()}, label)
+        phase(f'[35] {label}: {secs:.3f} s/frame ({W}x{H}, 64+64, chunk '
+              f'{CHUNK}); launches {launches}; no plain call; {CARD}')
+        counts[label] = launches
+        del model
+        torch.cuda.empty_cache()
+    for path in ('se3_f32', 'quaternion_f32'):
+        times = {}
+        counts[f'{path} train'] = train_path(path, '[35]', times,
+                                             F32_STEP_TOLS)
+        TIMES[f'{path}_step'] = times
+        flagship = TIMES.get('f32', {}).get('step', {}).get('secs',
+                                                            float('nan'))
+        phase(f'[35] {path} 64 + 128 step: {times["secs"] * 1e3:.1f} '
+              f'ms/step, peak {times["peak"]:.2f} GiB; the flagship\'s at '
+              f'float32 (phase 33) {flagship * 1e3:.1f} ms/step; {CARD}')
+        torch.cuda.empty_cache()
+    state, _, all_rays, all_rgbs = flagship_train_setup(
+        'cuda', seed=0, batch_size=TRAIN_RAYS, config='se3', **F32_FINE128)
+    counts['se3 windowed step'] = compare_step(
+        state.model, all_rays, all_rgbs, '[35] se3 float32 warp_alpha '
+        f'{WINDOW_ALPHA}:', extra_params={'warp_alpha': WINDOW_ALPHA},
+        tols=F32_STEP_TOLS)
+    want = {k: 2 for k in F32_STEP_KERNELS}
+    if counts['se3 windowed step'] != want:
+        raise AssertionError(f'the windowed se3 step launched '
+                             f'{counts["se3 windowed step"]}, want {want}')
+    del state, all_rays, all_rgbs
+    torch.cuda.empty_cache()
+    counts['se3_split_glo train'] = train_path('se3_split_glo_f32', '[35]',
+                                               tols=F32_STEP_TOLS)
+    torch.cuda.empty_cache()
+    counts['se3 query_sigma'] = query_sigma_path(
+        'se3', {'fused_se3_fwd_f32': 1, 'fused_field_fwd_f32': 1,
+                'fused_template_fwd_f32': 1}, '[35]', **F32)
+    torch.cuda.empty_cache()
+    return counts
+
+
+def f32_screw_cli_phase() -> dict:
+    """Phase 35 (d): ``train.main([... '--precision', '32', '--warp_field',
+    'se3'])`` for F32_SCREW_CLI_STEPS steps at batch 4096 (64 + 64) on
+    phase 25's scene, every launch counted, no plain call, the losses
+    finite; then ``eval --precision 32`` of its checkpoint (the level
+    kernels on every chunk of every frame). Returns {run: launches}."""
+    import io
+    import os
+    import tempfile
+
+    from hypernerf_tpu_torch import eval as port_eval
+    t_phase = time.perf_counter()
+    tools = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                         'tools')
+    sys.path.insert(0, tools)
+    import make_synthetic_scene
+    cwd = os.getcwd()
+    n, out = F32_SCREW_CLI_STEPS, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        os.chdir(tmp)
+        try:
+            scene = make_synthetic_scene.make_scene(
+                os.path.join(tmp, 'scene'), **SMOKE_SCENE)
+            argv = smoke_argv(scene, 'f32_se3', n, '--precision', '32',
+                              '--warp_field', 'se3')
+            trainer, launches = trainer_run(
+                argv, 'train.main --precision 32 --warp_field se3',
+                kernels=F32_STEP_KERNELS)
+            metrics = trainer.last_metrics
+            if trainer.nerf_cfg.compute_dtype != 'float32' or \
+                    trainer.nerf_cfg.warp_field_type != 'se3' or not all(
+                        math.isfinite(v) for v in metrics.values()):
+                raise AssertionError(f'train.main --precision 32 '
+                                     f'--warp_field se3: {metrics}')
+            speed = steps_per_second(trainer, n)
+            del trainer
+            out['train.main'] = launches
+            reset_counts()
+            text = io.StringIO()
+            with contextlib.redirect_stdout(text):
+                port_eval.main(['--root_dir', scene, '--dataset_name',
+                                'llff', '--img_wh', str(SMOKE_SCENE['width']),
+                                str(SMOKE_SCENE['height']), '--split',
+                                'test_train', '--ckpt_path',
+                                os.path.join(tmp, 'ckpts', 'f32_se3',
+                                             f'step_{n}'),
+                                '--precision', '32', '--scene_name',
+                                'f32_se3'])
+            pngs = [f for f in os.listdir(os.path.join(
+                tmp, 'results', 'llff', 'f32_se3')) if f.endswith('.png')]
+            mean = [ln for ln in text.getvalue().splitlines()
+                    if ln.startswith('Mean PSNR')]
+            chunks = -(-SMOKE_SCENE['width'] * SMOKE_SCENE['height']
+                       // CHUNK)
+            out['eval'] = read_counts(
+                {k: 2 * chunks * len(pngs) for k in F32_STEP_KERNELS[:2]},
+                'eval --precision 32 of the float32 se3 checkpoint')
+            if not pngs or not mean:
+                raise AssertionError(f'eval wrote {len(pngs)} PNGs')
+        finally:
+            os.chdir(cwd)
+            sys.path.remove(tools)
+    phase(f'[35] train.main --precision 32 --warp_field se3: {n} steps '
+          f'(batch {SMOKE_BATCH}, 64+64) at {speed:.2f} steps/s; launches '
+          f'{out["train.main"]}; loss '
+          f'{metrics.get("train/loss", float("nan")):.5f}, val psnr '
+          f'{metrics.get("val/psnr", float("nan")):.3f}; eval --precision '
+          f'32 of step_{n}: {len(pngs)} PNGs, {mean[0]}, launches '
+          f'{out["eval"]}; no plain call; '
+          f'{time.perf_counter() - t_phase:.1f} s; {CARD}')
+    return out
+
+
+def precision32_screw_phase(kernels) -> list:
+    """Phase 35: the screw warps at ``--precision 32`` (ROADMAP A.13.1
+    sub-item 2): TF32 off; (a) rows 1 and 5 at table codes 1 and 2 and rows
+    12 and 13 against their plain versions, timed; (b) against the stored
+    JAX float32 numbers; (c) the screw paths at float32 with their
+    launches; (d) ``train.main --precision 32 --warp_field se3`` and
+    ``eval`` of its checkpoint. Returns the four entries of the line."""
+    import torch
+    from hypernerf_tpu_torch.flagship import flagship_model, load_probe_weights
+    t_phase = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    models = {c: load_probe_weights(flagship_model('cuda', config=c,
+                                                   **F32_FINE128))
+              for c in ('se3', 'quaternion')}
+    rows = f32_screw_kernels(models)
+    del models
+    torch.cuda.empty_cache()
+    f32_screw_reference()
+    counts = f32_screw_paths()
+    cli = f32_screw_cli_phase()
+    main_path = {'fused_level_fwd_f32_screw': 'se3_f32 train',
+                 'fused_fields_bwd_f32_screw': 'se3_f32 train',
+                 'fused_se3_fwd_f32': 'se3_split_glo train',
+                 'fused_se3_bwd_f32': 'se3_split_glo train'}
+    main_key = {'fused_level_fwd_f32_screw': f'se3_R{TRAIN_RAYS}_S128',
+                'fused_fields_bwd_f32_screw': f'se3_R{TRAIN_RAYS}_S128',
+                'fused_se3_fwd_f32': f'P{8192 * 128}',
+                'fused_se3_bwd_f32': f'P{16384 * 128}'}
+    out = []
+    for name, (source, replaces) in F32_SCREW_ROWS.items():
+        main = rows[name][main_key[name]]
+        counter = F32_SCREW_COUNTER[name]
+        entry = dict(name=name, route='cuda', source=source,
+                     replaces=replaces,
+                     launches=counts[main_path[name]][counter],
+                     max_abs_err=max(v[3] for v in rows[name].values()),
+                     ms=main[0], plain_ms=main[1], bound_ms=main[2][0],
+                     bound_by=main[2][1], library_ms=None,
+                     ffma_ceiling_ms=main[2][2], dtype='float32',
+                     shape=main_key[name],
+                     tolerance=f'relative L2 <= {F32_SCREW_L2}, max|d| <= '
+                               f'{F32_SCREW_MAX} of the largest entry',
+                     launches_by_path={
+                         path: c[counter] for path, c in
+                         list(counts.items()) + list(cli.items())
+                         if c.get(counter)})
+        for key, v in rows[name].items():
+            if key != main_key[name]:
+                entry.update({f'ms_{key}': v[0], f'plain_ms_{key}': v[1],
+                              f'bound_ms_{key}': v[2][0]})
+        out.append(entry)
+    phase(f'[35] the screw --precision 32 phase took '
           f'{time.perf_counter() - t_phase:.1f} s; {CARD}')
     return out
 

@@ -10,7 +10,8 @@ inputs at which the kernels are held against the JAX kernels' stored outputs
 and gradients (``LEVEL_REFERENCE``, ``GRAD_REFERENCE``, ``MODULAR_REFERENCE``,
 ``SE3_REFERENCE``, ``JACOBIAN_REFERENCE``, ``ANNEAL_REFERENCE``,
 ``PLANE_REFERENCE``, ``CONDITION_REFERENCE``, ``B4_REFERENCE``,
-``F32_REFERENCE``, written by ``tools/make_level_reference.py``).
+``F32_REFERENCE``, ``F32_MODULAR_REFERENCE``, ``F32_SCREW_REFERENCE``,
+written by ``tools/make_level_reference.py``).
 
 Shared by ``chip_smoke.py``, ``tools/profile_render.py``,
 ``tools/profile_train.py`` and ``tools/make_level_reference.py``.
@@ -682,6 +683,91 @@ F32_MODULAR_TEMPLATE_DW = (0, 5, 10, 11, 15)
 def read_f32_modular_reference(path: str = F32_MODULAR_REFERENCE):
     """{case: {name: array}} of the float32 per-module reference file."""
     out = {case: {} for case in F32_MODULAR_CASES}
+    with np.load(path) as f:
+        for key in f.files:
+            case, name = key.split('/', 1)
+            out[case][name] = f[key]
+    return out
+
+
+# The JAX level and SE(3) trunk kernels' numbers at
+# ``compute_dtype='float32'`` with the screw warps (``--precision 32
+# --warp_field se3`` or ``quaternion``) at the probe weights, in interpret
+# mode. A level case: (configuration, level, rays, samples per ray,
+# warp_alpha or None, input seed, heads); a trunk case (the 'se3'
+# model's warp field): (rows, warp_alpha or None, input seed, heads).
+# heads 'probe' keeps ``load_probe_weights``' heads (rotation vectors of
+# 0.1 to 1 rad); 'init' redraws them at the init's scale
+# (``near_init_heads``: |w| near 1e-3, where the retraction's b2 = (t -
+# sin t) / t cancels in float32). To keep the file small, a level keeps dW
+# of F32_SCREW_GRAD_LAYERS alone (the trunk's first, skip and logit
+# layers and both heads, the sheet's first and skip layers and head, the
+# template's first layer, alpha head, rgb layer 0 and rgb head; by index
+# in the screw level's table), a trunk dW of F32_SCREW_TRUNK_DW; every db.
+F32_SCREW_REFERENCE = os.path.join(os.path.dirname(LEVEL_REFERENCE),
+                                   'fused_f32_screw_jax_ref.npz')
+F32_SCREW_LEVEL_CASES = {
+    'level_se3_window': ('se3', 'fine', 4, 128, 3.5, 111, 'probe'),
+    'level_quaternion': ('quaternion', 'coarse', 8, 64, None, 112, 'probe'),
+    'level_se3_init': ('se3', 'coarse', 8, 64, None, 113, 'init'),
+}
+F32_SCREW_TRUNK_CASES = {'trunk': (500, None, 114, 'probe'),
+                         'trunk_window': (500, 3.5, 115, 'probe')}
+F32_SCREW_GRAD_LAYERS = (0, 5, 6, 7, 8, 9, 14, 15, 16, 25, 26, 31)
+F32_SCREW_TRUNK_DW = (0, 5, 6, 7, 8)
+
+
+def near_init_heads(model: NerfModel, seed: int = 0) -> NerfModel:
+    """Redraw the SE(3) / quaternion warp's w and v heads at the init's
+    scale from numpy: weights U(0, 1e-4), biases zero (``SE3Field``'s
+    init), so that the rotation vectors are small as at the start of
+    training."""
+    rs = np.random.RandomState(seed + 7000)
+    state = model.state_dict()
+    for head in ('w_net', 'v_net'):
+        name = f'warp_field.{head}.logit'
+        shape = tuple(state[name + '.weight'].shape)
+        state[name + '.weight'] = torch.from_numpy(
+            rs.uniform(0.0, 1e-4, shape).astype(np.float32))
+        state[name + '.bias'] = torch.zeros_like(state[name + '.bias'])
+    model.load_state_dict(state)
+    return model
+
+
+def f32_screw_model(config: str, heads: str, device='cpu') -> NerfModel:
+    """The float32 ``config`` model at the probe weights, its warp heads as
+    ``heads`` says ('probe' or 'init')."""
+    model = load_probe_weights(flagship_model(device, config=config,
+                                              compute_dtype='float32'))
+    return near_init_heads(model) if heads == 'init' else model
+
+
+def f32_screw_probe_inputs(case: str) -> dict:
+    """Numpy inputs and cotangent of an ``F32_SCREW_LEVEL_CASES`` case (the
+    ``LEVEL_INPUTS`` and 'cotangent' (R * S, 4)) or of an
+    ``F32_SCREW_TRUNK_CASES`` case ('x_raw' (P, 11) [points on probe rays |
+    GLO codes], 'cotangent' (P, 8) whose first six columns count)."""
+    if case in F32_SCREW_TRUNK_CASES:
+        rows, _, seed, _ = F32_SCREW_TRUNK_CASES[case]
+        rays = probe_inputs(-(-rows // 64), 64, seed)
+        pts = (rays['origins'][:, None]
+               + rays['z_vals'][..., None] * rays['directions'][:, None])
+        embed = np.repeat(rays['embed'], 64, axis=0)
+        x_raw = np.concatenate([pts.reshape(-1, 3), embed], 1)[:rows]
+        cot = np.random.RandomState(seed + 3000).randn(rows, 8)
+        cot[:, 6:] = 0.0
+        return {'x_raw': x_raw.astype(np.float32),
+                'cotangent': cot.astype(np.float32)}
+    _, _, n_rays, samples, _, seed, _ = F32_SCREW_LEVEL_CASES[case]
+    inputs = probe_inputs(n_rays, samples, seed)
+    inputs['cotangent'] = probe_cotangents(n_rays, samples, seed)['level']
+    return inputs
+
+
+def read_f32_screw_reference(path: str = F32_SCREW_REFERENCE):
+    """{case: {name: array}} of the float32 screw-warp reference file."""
+    out = {case: {} for case in (*F32_SCREW_LEVEL_CASES,
+                                 *F32_SCREW_TRUNK_CASES)}
     with np.load(path) as f:
         for key in f.files:
             case, name = key.split('/', 1)

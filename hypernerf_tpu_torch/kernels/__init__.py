@@ -15,6 +15,8 @@ from hypernerf_tpu_torch.kernels.f32 import (fused_field_bwd_f32,
                                              fused_field_f32,
                                              fused_fields_bwd_f32,
                                              fused_level_f32,
+                                             fused_se3_bwd_f32,
+                                             fused_se3_f32,
                                              fused_template_bwd_f32,
                                              fused_template_f32)
 from hypernerf_tpu_torch.kernels.fused_composite import (
@@ -42,11 +44,11 @@ from hypernerf_tpu_torch.kernels.fused_se3_jacobian import (
 
 def counted():
     """({kernel name: wrapper}, {name: plain version}) of every kernel (the
-    float32 kernels of rows 1, 9, 5, 8, 10 and 11 under names of their own,
-    beside their plain versions, which are the bf16 rows' plain versions at
-    that dtype). A wrapper adds one to its ``launches`` where it launches its
-    kernel, a plain version one to its ``calls``; both are plain
-    attributes, set to 0 by whoever counts."""
+    float32 kernels of rows 1, 9, 5, 8, 10, 11, 12 and 13 under names of
+    their own, beside their plain versions, which are the bf16 rows' plain
+    versions at that dtype). A wrapper adds one to its ``launches`` where it
+    launches its kernel, a plain version one to its ``calls``; both are
+    plain attributes, set to 0 by whoever counts."""
     wrappers = {'fused_level_fwd': fused_level,
                 'fused_composite_fwd': fused_composite,
                 'fused_template_bwd': fused_template_bwd,
@@ -66,7 +68,9 @@ def counted():
                 'fused_fields_bwd_f32': fused_fields_bwd_f32,
                 'fused_template_fwd_f32': fused_template_f32,
                 'fused_field_fwd_f32': fused_field_f32,
-                'fused_field_bwd_f32': fused_field_bwd_f32}
+                'fused_field_bwd_f32': fused_field_bwd_f32,
+                'fused_se3_fwd_f32': fused_se3_f32,
+                'fused_se3_bwd_f32': fused_se3_bwd_f32}
     plains = [fused_level_plain, fused_composite_plain,
               fused_template_bwd_plain, fused_fields_bwd_plain,
               fused_composite_bwd_plain, fused_field_plain,

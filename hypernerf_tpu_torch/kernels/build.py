@@ -69,8 +69,11 @@ _SIGNATURES = {
     'hn_tangents_fwd_plan': ([_I, _P, _P, _P, _I], _I),
     'hn_fused_composite_fwd': ([_P] * 8 + [_L, _I, _I, _I, _I, _P], _I),
     'hn_fused_composite_bwd': ([_P] * 9 + [_L, _I, _I, _I, _P], _I),
-    'hn_f32_level_fwd': ([_P] * 5 + [_I] + [_P] * 4 + [_L, _I, _P], _I),
+    'hn_f32_level_fwd': ([_P] * 5 + [_I, _P, _P, _I] + [_P] * 3
+                         + [_L, _I, _P], _I),
     'hn_f32_level_layout': ([_P, _P, _I], _I),
+    'hn_f32_trunk_layout': ([_P, _P, _I], _I),
+    'hn_f32_trunk_fwd': ([_P] * 5 + [_L, _P], _I),
     'hn_f32_template_fwd': ([_P, _L, _I, _P, _I, _P, _P, _P, _L, _I, _P], _I),
     'hn_f32_field_fwd': ([_I] + [_P] * 4 + [_L, _P], _I),
     'hn_f32_rowprod': ([_P, _L, _I, _P, _L, _I, _P, _L, _I, _P, _I, _P, _L,
@@ -86,6 +89,13 @@ _SIGNATURES = {
     'hn_f32_fields_rows': ([_P] * 3 + [_I, _P, _L, _P, _L, _I, _P, _L, _I,
                                        _I, _P, _P, _L, _P], _I),
     'hn_f32_ray_sum': ([_P, _L, _I, _I, _P, _L, _P], _I),
+    'hn_f32_trunk_encode': ([_P, _L] + [_P] * 4 + [_I, _I, _P, _P, _L, _L,
+                                                  _P], _I),
+    'hn_f32_trunk_posenc_bwd': ([_P, _L, _P, _P, _L, _P, _L, _L, _P], _I),
+    'hn_f32_retract_bwd': ([_I] + [_P] * 3 + [_I, _P, _L, _P, _L, _P, _L, _P,
+                                              _L, _L, _P], _I),
+    'hn_f32_screw_rows': ([_P] * 3 + [_I, _P, _L, _P, _L, _P, _P, _L, _I, _I,
+                                      _P, _P, _L, _P], _I),
     'hn_error_string': ([_I], ctypes.c_char_p),
 }
 

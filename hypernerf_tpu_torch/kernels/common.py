@@ -82,14 +82,14 @@ TABLE_CODES = {name: code for code, name in enumerate(
 SE3_LAYERS = slice(0, 9)
 SE3_FLAGSHIP = dict(embed=8, min_deg=0, max_deg=8)
 NOT_COVERED = ('the CUDA kernels cover the flagship widths (bf16, and '
-               'float32 on the flagship level table and its modules '
-               'alone); other widths are ROADMAP item A.13 (kernel '
+               'float32 on the flagship level tables, the translation, '
+               'SE(3) and quaternion warps with the bendy sheet, and their '
+               'modules alone); other widths are ROADMAP item A.13 (kernel '
                'generality)')
 # What float32 on the card still lacks, by ROADMAP A.13.1's sub-item (1,
-# the per-module path, is ported; a tag is never reused).
+# the per-module path, and 2, the screw warps, are ported; a tag is never
+# reused).
 F32_ITEMS = {
-    2: 'the screw warps (rows 1 and 5 at table codes 1 and 2, rows 12 '
-       'and 13)',
     3: 'the plane and Nerfies layouts and the conditions\' widths',
     4: 'the Jacobians, rows 14 to 17'}
 
@@ -99,10 +99,11 @@ def f32_refusal(item: int, what: str) -> str:
     with: ``what``, and the sub-item of ROADMAP A.13.1 that ports it."""
     return (f'{what} in float32 on the card: ROADMAP A.13.1 sub-item '
             f'{item}, {F32_ITEMS[item]}; the float32 kernels cover the '
-            f'flagship level table (translation warp, bendy sheet, '
-            f'posenc_orig template, a 39-column rgb condition) and its '
-            f'modules alone: either field, the template with 4 hyper '
-            f'coordinates or none (static)')
+            f'flagship level tables (the translation, SE(3) or quaternion '
+            f'warp, the bendy sheet, the posenc_orig template, a 39-column '
+            f'rgb condition) and their modules alone: either field, the '
+            f'SE(3) trunk, the template with 4 hyper coordinates or none '
+            f'(static)')
 
 
 def table_warp(table: str) -> str:

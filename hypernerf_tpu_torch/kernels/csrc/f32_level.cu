@@ -3,38 +3,50 @@
 // inputs to the packed output. It replaces the TPU kernel
 // hypernerf_tpu/ops/pallas/fused_level.py `_fused` (:1322) and its
 // pipelined schedule `_fwd_call_pipelined` (:1019) at
-// `compute_dtype='float32'`, for the flagship table: the translation warp
-// (6 x 128 on posenc 10 of the point and the 8-column embedding), the
-// bendy sheet (6 x 64, 4 outputs, posenc 7), the posenc_orig template (8 x
-// 256 with a skip after layer 4, bottleneck 128, the alpha head on the
-// bottleneck, the rgb branch 4 x 128 on [bottleneck | rgb condition]).
-// The bf16 level forward is level_fwd.cuh's, untouched.
+// `compute_dtype='float32'`, for the flagship tables: the translation warp
+// (6 x 128 on posenc 10 of the point and the 8-column embedding) or the
+// SE(3) / quaternion warp (table codes 1 and 2: the trunk, 6 x 128 on the
+// Nerfies encoding of the point over degrees 0..7 and the embedding, a
+// linear 128 -> 128 trunk logit, the w and v heads, then the retraction in
+// fp32, se3_trunk.cuh `retract`; the optional window row multiplies the
+// trunk's encoding), the bendy sheet (6 x 64, 4 outputs, posenc 7), the
+// posenc_orig template (8 x 256 with a skip after layer 4, bottleneck 128,
+// the alpha head on the bottleneck, the rgb branch 4 x 128 on [bottleneck |
+// rgb condition]). The bf16 level forward is level_fwd.cuh's, untouched.
 //
 // Its stages also run alone, on raw rows, for the per-module path at
 // float32: the template alone (hn_f32_template_fwd, replacing
 // hypernerf_tpu/ops/pallas/fused_mlp.py `_fwd_call` :656; 4 hyper
 // coordinates or, for a template without them, 0, a run-time argument;
-// any rows per condition row, 1 included) and a field alone
+// any rows per condition row, 1 included), a field alone
 // (hn_f32_field_fwd, the warp field or the sheet, replacing
-// hypernerf_tpu/ops/pallas/fused_field.py `_fused` :495).
+// hypernerf_tpu/ops/pallas/fused_field.py `_fused` :495) and the SE(3)
+// trunk alone (hn_f32_trunk_fwd, [w | v] of raw rows, replacing
+// hypernerf_tpu/ops/pallas/fused_se3.py `_fused` :374).
 //
 // Bound: operations (1.7 MFLOP a sample; f32_chain.cuh). Design: a block of
 // 256 threads owns a tile of 64 samples; the sheet runs first (its
-// encoding, six hidden layers and head), then the warp field, then the
-// template on [warped | hyper]; every layer is f32::tile_layer on
-// activations kept feature-major in three shared buffers (X: an encoding,
-// 128 features; H0, H1: hidden layers, 256 each, ping-ponged; a 256-wide
-// layer in one pass of f32_chain.cuh's Wide tile), so nothing
-// but the ray inputs, the weights (3.3 MB, read from L2 once per tile) and
-// the output (and raw_t) touches device memory. The rgb condition fills
-// H1's features 128.. after the bottleneck, zero-padded to kCondPad. A
-// field alone carves less shared memory (X of 80 features, H of 128, the
-// Narrow tile's weight chunks: 107,776 bytes), so that two blocks fit an
-// SM.
+// encoding, six hidden layers and head), then the warp field (or the trunk
+// and the retraction), then the template on [warped | hyper]; every layer
+// is f32::tile_layer on activations kept feature-major in three shared
+// buffers (X: an encoding, 128 features; H0, H1: hidden layers, 256 each,
+// ping-ponged; a 256-wide layer in one pass of f32_chain.cuh's Wide tile),
+// so nothing but the ray inputs, the weights (3.3 MB, read from L2 once per
+// tile) and the output (and raw_t) touches device memory. The rgb condition
+// fills H1's features 128.. after the bottleneck, zero-padded to kCondPad.
+// The trunk writes its w head into H1 (free after the trunk logit) and its
+// v head into the per-row head scratch. A field alone carves less shared
+// memory (X of 80 features, H of 128, the Narrow tile's weight chunks:
+// 107,776 bytes), so that two blocks fit an SM, and the trunk alone less
+// again (X of 64 features: 103,680 bytes).
 
 #include "f32_chain.cuh"
+#include "se3_trunk.cuh"  // retract: the screw warps' retraction, fp32
 
 namespace {
+// Its own namespace: level_common.cuh (se3_trunk.cuh's) declares some of
+// these names for the bf16 kernels.
+namespace lvl {
 
 using namespace f32;
 
@@ -50,6 +62,20 @@ constexpr int kShapeK[kLayers] = {80,  128, 128, 128, 128, 208, 128,
                                   64,  64,  64,  64,  64,  128, 64,
                                   128, 256, 256, 256, 256, 384, 256, 256,
                                   256, 256, 128, 176, 128, 128, 128, 128};
+// The screw warps' trunk (level_common.cuh Se3Table's layers 0..8): hidden
+// 0..5 (the skip input after 4), the linear trunk logit, the w and v heads.
+// Its rows sit in the slots kTrunk0.. of a kernel's offsets, after the
+// flagship table's, so that a screw level keeps the sheet's and the
+// template's slots; its blob holds the trunk's rows first.
+constexpr int kTrunkLayers = 9, kTrunk0 = kLayers;
+constexpr int kTrunkN[kTrunkLayers] = {128, 128, 128, 128, 128,
+                                       128, 128, 8,   8};
+constexpr int kTrunkK[kTrunkLayers] = {64,  128, 128, 128, 128,
+                                       192, 128, 128, 128};
+constexpr int kSlots = kLayers + kTrunkLayers;
+static_assert(kTrunkK[0] == kSe3EncP && kTrunkN[0] == kSe3W &&
+                  kTrunkK[5] == kSe3W + kSe3EncP,
+              "the trunk's widths: level_common.cuh Se3Table");
 constexpr int kEmbed = 8;
 constexpr int kWarpFreq = 10, kSheetFreq = 7, kSheetOut = 4;
 constexpr int kXyzFreq = 10, kHyperFreq = 6;
@@ -91,16 +117,21 @@ static_assert(kSmemBytes <= 232448, "shared memory of an sm_90 block");
 constexpr int kFieldSmemBytes =
     4 * smem_floats(kWarpEnc, 128, Narrow::kWTile);
 static_assert(kFieldSmemBytes <= 232448, "shared memory of an sm_90 block");
+// The SE(3) trunk alone: X of its encoding, H of 128 features, the Narrow
+// tile's weight chunks.
+constexpr int kTrunkSmemBytes =
+    4 * smem_floats(kSe3EncP, kSe3W, Narrow::kWTile);
+static_assert(kTrunkSmemBytes <= 232448, "shared memory of an sm_90 block");
 
 // Each layer's weight and bias offsets in the blobs and its (n_pad,
 // k_pad), kernel arguments (the tables above are host data). A kernel of a
 // stage alone fills the stage's rows of the table, with offsets into the
 // stage's own blobs.
 struct Offsets {
-  long long w[kLayers];
-  int b[kLayers];
-  int n[kLayers];
-  int k[kLayers];
+  long long w[kSlots];
+  int b[kSlots];
+  int n[kSlots];
+  int k[kSlots];
 };
 
 // A network's blobs: every layer's transposed weight (k_pad, n_pad) and
@@ -160,6 +191,62 @@ __device__ __forceinline__ void field(const Net& a, int first, int width,
   layer1(a, first + 4, s.H1, s.H0, true, s.ws);
   layer2(a, first + 5, s.H0, width, s.X, s.H1, s.ws);
   layer1(a, first + 6, s.H1, s.head, false, s.ws);
+}
+
+// The screw warps' trunk encoding into X, kSe3EncP features: [sin | cos
+// of the bands of the point over the degrees kSe3MinDeg.. (band b of
+// channel c at 3 b + c) | embedding | 0], each feature times the window
+// row where there is one (`scales`, kSe3EncP fp32, or null); the embedding
+// of tile row r at emb[rows[r] * emb_ld].
+__device__ __forceinline__ void encode_trunk(float* X, const float* pts,
+                                             const float* emb, int emb_ld,
+                                             const int* rows,
+                                             const float* scales) {
+  for (int i = threadIdx.x; i < kSe3EncP * kRows; i += kThreads) {
+    const int f = i / kRows, r = i % kRows;
+    float v = 0.f;
+    if (f < 2 * kSe3Trig) {
+      const int b = f % kSe3Trig;
+      const float arg = ldexpf(pts[(b % 3) * kRows + r], kSe3MinDeg + b / 3);
+      v = f < kSe3Trig ? sinf(arg) : cosf(arg);
+    } else if (f < 2 * kSe3Trig + kEmbed) {
+      v = emb[(long long)rows[r] * emb_ld + f - 2 * kSe3Trig];
+    }
+    X[i] = scales != nullptr ? v * scales[f] : v;
+  }
+}
+
+// The trunk (slots kTrunk0..kTrunk0 + 8) on its encoding in X: six hidden
+// layers ping-ponged through H0 / H1 with the skip after the fifth, the
+// linear trunk logit into H0 (no ReLU), then the w head into H1's rows
+// 0..7 and the v head into `head`.
+__device__ __forceinline__ void trunk(const Net& a, const Tiles& s) {
+  layer1(a, kTrunk0, s.X, s.H0, true, s.ws);
+  layer1(a, kTrunk0 + 1, s.H0, s.H1, true, s.ws);
+  layer1(a, kTrunk0 + 2, s.H1, s.H0, true, s.ws);
+  layer1(a, kTrunk0 + 3, s.H0, s.H1, true, s.ws);
+  layer1(a, kTrunk0 + 4, s.H1, s.H0, true, s.ws);
+  layer2(a, kTrunk0 + 5, s.H0, kSe3W, s.X, s.H1, s.ws);
+  layer1(a, kTrunk0 + 6, s.H1, s.H0, false, s.ws);
+  layer1(a, kTrunk0 + 7, s.H0, s.H1, false, s.ws);
+  layer1(a, kTrunk0 + 8, s.H0, s.head, false, s.ws);
+}
+
+// Tile row t's warped point into s.raw's rows 0..2: the retraction of the
+// trunk's (w, v) (H1, head) and the point, SE(3) or (quat) quaternion.
+__device__ __forceinline__ void retract_row(const Tiles& s, int t,
+                                            bool quat) {
+  float w[3], v[3], p[3], out[3];
+  for (int c = 0; c < 3; ++c) {
+    w[c] = s.H1[c * kRows + t];
+    v[c] = s.head[c * kRows + t];
+    p[c] = s.pts[c * kRows + t];
+  }
+  if (quat)
+    retract<true>(w, v, p, out);
+  else
+    retract<false>(w, v, p, out);
+  for (int c = 0; c < 3; ++c) s.raw[c * kRows + t] = out[c];
 }
 
 // The template's encoding of [warped | hyper] (s.raw, `hyper` hyper
@@ -227,7 +314,9 @@ struct Args {
   float* raw_t;    // (P, 8) [warped | hyper | 0] or null
   long long rays;
   int samples;
-  Net net;  // the flagship table, layers 0..29
+  int code;  // the warp: 0 translation, 1 SE(3), 2 quaternion
+  const float* scales;  // the trunk's window row (kSe3EncP fp32) or null
+  Net net;  // the flagship table: layers 0..29, or the trunk's and 7..29
 };
 
 __global__ void __launch_bounds__(kThreads)
@@ -261,14 +350,22 @@ __global__ void __launch_bounds__(kThreads)
     for (int c = 0; c < kSheetOut; ++c)
       s.raw[(3 + c) * kRows + t] = s.head[c * kRows + t];
 
-  // The warp field: [posenc_orig(p, 10) | embedding | 0] -> the offset.
-  encode_field(s.X, s.pts, kWarpFreq, kWarpEnc, a.emb, kEmbed, s.ray);
-  __syncthreads();
-  field(a.net, 0, 128, s);
-  if (t < kRows)
-    for (int c = 0; c < 3; ++c)
-      s.raw[c * kRows + t] =
-          __fadd_rn(s.pts[c * kRows + t], s.head[c * kRows + t]);
+  if (a.code == 0) {
+    // The warp field: [posenc_orig(p, 10) | embedding | 0] -> the offset.
+    encode_field(s.X, s.pts, kWarpFreq, kWarpEnc, a.emb, kEmbed, s.ray);
+    __syncthreads();
+    field(a.net, 0, 128, s);
+    if (t < kRows)
+      for (int c = 0; c < 3; ++c)
+        s.raw[c * kRows + t] =
+            __fadd_rn(s.pts[c * kRows + t], s.head[c * kRows + t]);
+  } else {
+    // The trunk on its encoding -> (w, v), then the retraction.
+    encode_trunk(s.X, s.pts, a.emb, kEmbed, s.ray, a.scales);
+    __syncthreads();
+    trunk(a.net, s);
+    if (t < kRows) retract_row(s, t, a.code == 2);
+  }
   __syncthreads();
 
   // The template: [posenc_orig(warped, 10) | posenc_orig(hyper, 6) | 0].
@@ -324,6 +421,40 @@ __global__ void __launch_bounds__(kThreads)
   if (t < kRows && p0 + t < a.rows) write_packed(s, a.out, p0 + t, t);
 }
 
+struct TrunkArgs {
+  const float* x;       // (P, 3 + kEmbed) raw rows [points | embedding]
+  const float* scales;  // the window row (kSe3EncP fp32) or null
+  float* out;           // (P, 8) [w | v | 0 0]
+  long long rows;
+  Net net;  // the trunk's blobs, at the slots kTrunk0..
+};
+
+// The SE(3) trunk alone: the level forward's trunk stage on raw rows.
+__global__ void __launch_bounds__(kThreads) trunk_fwd_f32(const TrunkArgs a) {
+  extern __shared__ float4 hn_f32_smem[];
+  const Tiles s(reinterpret_cast<float*>(hn_f32_smem), kSe3EncP, kSe3W,
+                Narrow::kWTile);
+  constexpr int kRaw = 3 + kEmbed;
+  const int t = threadIdx.x;
+  const long long p0 = (long long)blockIdx.x * kRows;
+  if (t < kRows) {
+    const long long p = p0 + t;
+    const bool valid = p < a.rows;
+    s.ray[t] = valid ? (int)p : 0;
+    for (int c = 0; c < 3; ++c)
+      s.pts[c * kRows + t] = valid ? a.x[p * kRaw + c] : 0.f;
+  }
+  __syncthreads();
+  encode_trunk(s.X, s.pts, a.x + 3, kRaw, s.ray, a.scales);
+  __syncthreads();
+  trunk(a.net, s);
+  if (t < kRows && p0 + t < a.rows)
+    for (int c = 0; c < 8; ++c)
+      a.out[(p0 + t) * 8 + c] = c < 3   ? s.H1[c * kRows + t]
+                                : c < 6 ? s.head[(c - 3) * kRows + t]
+                                        : 0.f;
+}
+
 struct FieldArgs {
   const float* x;  // (P, 3 + kEmbed) raw rows [points | embedding]
   float* out;      // (P, 8) [the head's outputs | 0]
@@ -357,19 +488,24 @@ __global__ void __launch_bounds__(kThreads) field_fwd_f32(const FieldArgs a) {
 }
 
 // Rows [first, last) of the table laid out in a blob of their own, in
-// order (the level's: all thirty from 0).
-Offsets table_offsets(int first, int last) {
+// order (the level's: all thirty from 0), after the trunk's nine where
+// `trunk` (a screw level: the trunk, then rows 7..29; the trunk alone).
+Offsets table_offsets(int first, int last, bool trunk = false) {
   Offsets off{};
   long long at_w = 0;
   int at_b = 0;
-  for (int l = first; l < last; ++l) {
-    off.w[l] = at_w;
-    off.b[l] = at_b;
-    off.n[l] = kShapeN[l];
-    off.k[l] = kShapeK[l];
-    at_w += (long long)kShapeN[l] * kShapeK[l];
-    at_b += kShapeN[l];
-  }
+  auto place = [&](int slot, int n, int k) {
+    off.w[slot] = at_w;
+    off.b[slot] = at_b;
+    off.n[slot] = n;
+    off.k[slot] = k;
+    at_w += (long long)n * k;
+    at_b += n;
+  };
+  if (trunk)
+    for (int l = 0; l < kTrunkLayers; ++l)
+      place(kTrunk0 + l, kTrunkN[l], kTrunkK[l]);
+  for (int l = first; l < last; ++l) place(l, kShapeN[l], kShapeK[l]);
   return off;
 }
 
@@ -387,7 +523,10 @@ unsigned tiles_of(long long rows) {
   return (unsigned)((rows + kRows - 1) / kRows);
 }
 
+}  // namespace lvl
 }  // namespace
+
+using namespace lvl;
 
 // The float32 table's (n_pad, k_pad) of each layer (written up to
 // max_layers); returns the number of layers.
@@ -399,25 +538,45 @@ extern "C" int hn_f32_level_layout(int* n, int* k, int max_layers) {
   return kLayers;
 }
 
+// The trunk's (n_pad, k_pad) of each layer (written up to max_layers);
+// returns the number of layers. A screw level's table is the trunk's, then
+// the flagship table's rows 7..29.
+extern "C" int hn_f32_trunk_layout(int* n, int* k, int max_layers) {
+  for (int l = 0; l < kTrunkLayers && l < max_layers; ++l) {
+    n[l] = kTrunkN[l];
+    k[l] = kTrunkK[l];
+  }
+  return kTrunkLayers;
+}
+
 // z (R, S), o / d (R, 3), emb (R, 8), cond (R, cond_w) fp32, cond_w <= 48;
-// w the packed fp32 weights of the flagship table transposed layer by layer
+// w the packed fp32 weights of the level's table transposed layer by layer
 // (common.py's blob, each layer (k_pad, n_pad) row-major), b its biases;
-// out (R * S, 4) fp32 and, if
-// not null, raw_t (R * S, 8) fp32. Returns a CUDA error code.
+// code the warp (0 translation: the flagship table; 1 SE(3), 2
+// quaternion: the trunk's rows, then the flagship table's 7..29); scales
+// the trunk's window row (kSe3EncP fp32) or null (no window; always with
+// code 0); out (R * S, 4) fp32 and, if not null, raw_t (R * S, 8) fp32.
+// Returns a CUDA error code.
 extern "C" int hn_f32_level_fwd(const float* z, const float* o,
                                 const float* d, const float* emb,
                                 const float* cond, int cond_w,
-                                const float* w, const float* b, float* out,
+                                const float* w, const float* b, int code,
+                                const float* scales, float* out,
                                 float* raw_t, long long rays, int samples,
                                 cudaStream_t stream) {
-  if (cond_w < 0 || cond_w > kCondPad || samples <= 0) return 1;
+  if (cond_w < 0 || cond_w > kCondPad || samples <= 0 || code < 0 ||
+      code > 2 || (code == 0 && scales != nullptr))
+    return 1;
   const long long n_pts = rays * samples;
   if (n_pts == 0) return 0;
   static bool ready = false;
   const cudaError_t e = allow_smem(level_fwd_f32, kSmemBytes, ready);
   if (e != cudaSuccess) return e;
-  const Args a{z, o, d, emb, cond, cond_w, out, raw_t, rays, samples,
-               {w, b, table_offsets(0, kLayers)}};
+  const Args a{z,       o,    d,      emb,
+               cond,    cond_w, out,  raw_t,
+               rays,    samples, code, scales,
+               {w, b, code ? table_offsets(7, kLayers, true)
+                           : table_offsets(0, kLayers)}};
   level_fwd_f32<<<tiles_of(n_pts), kThreads, kSmemBytes, stream>>>(a);
   return cudaGetLastError();
 }
@@ -445,6 +604,23 @@ extern "C" int hn_f32_template_fwd(const float* x, long long ldx, int hyper,
   const TemplateArgs a{x,   ldx,  hyper,   cond, cond_w,
                        out, rows, samples, {w, b, table_offsets(14, kLayers)}};
   template_fwd_f32<<<tiles_of(rows), kThreads, kSmemBytes, stream>>>(a);
+  return cudaGetLastError();
+}
+
+// The SE(3) trunk alone (the level's trunk stage): x (rows, 11) fp32 raw
+// rows [points | embedding]; scales its window row (kSe3EncP fp32) or
+// null; w, b the trunk's own fp32 blobs (w transposed layer by layer); out
+// (rows, 8) fp32 [w | v | 0 0].
+extern "C" int hn_f32_trunk_fwd(const float* x, const float* scales,
+                                const float* w, const float* b, float* out,
+                                long long rows, cudaStream_t stream) {
+  if (rows > 0x7fffffffLL) return 1;
+  if (rows == 0) return 0;
+  static bool ready = false;
+  const cudaError_t e = allow_smem(trunk_fwd_f32, kTrunkSmemBytes, ready);
+  if (e != cudaSuccess) return e;
+  const TrunkArgs a{x, scales, out, rows, {w, b, table_offsets(0, 0, true)}};
+  trunk_fwd_f32<<<tiles_of(rows), kThreads, kTrunkSmemBytes, stream>>>(a);
   return cudaGetLastError();
 }
 

@@ -12,9 +12,16 @@
 // hypernerf_tpu/ops/pallas/fused_field.py `_fused_bwd` (:532, a field
 // alone backward: kernel B's steps on one field from raw rows [points |
 // embedding], encoded by the template's encoding step with 0 bands on the
-// embedding, its VJP by the template's posenc VJP the same way). The host side that orders the steps over
-// chunks of whole rays and owns the stash of each layer's fp32 output is
-// kernels/f32.py; the bf16 kernels A and B are untouched.
+// embedding, its VJP by the template's posenc VJP the same way). With the
+// SE(3) / quaternion warp, kernel B walks the trunk back instead of the
+// warp field (the trunk's encoding, the heads' forward, the retraction's
+// VJP into the heads' cotangent and the point's direct term, se3_trunk.cuh
+// `retract_bwd`, then the screw rows: the trunk's and the sheet's encoding
+// VJPs per sample), and the same steps on raw rows are the trunk alone
+// backward (hypernerf_tpu/ops/pallas/fused_se3.py `_fused_bwd` :412). The
+// host side that orders the steps over chunks of whole rays and owns the
+// stash of each layer's fp32 output is kernels/f32.py; the bf16 kernels A
+// and B are untouched.
 //
 // Bound: operations (the products) for rowprod and dw, bytes for the
 // narrow steps. Design: rowprod and dw are f32_chain.cuh's register tiles
@@ -29,8 +36,12 @@
 // are deterministic.
 
 #include "f32_chain.cuh"
+#include "se3_trunk.cuh"  // retract_bwd: the retraction's VJP, fp32
 
 namespace {
+// Its own namespace: level_common.cuh (se3_trunk.cuh's) declares some of
+// these names for the bf16 kernels.
+namespace steps {
 
 using namespace f32;
 
@@ -388,13 +399,180 @@ __global__ void ray_sum_f32(const float* in, long long ldi, int C,
   out[i] = s;
 }
 
+// Where a step reads a sample's point and embedding: raw rows x (row r at
+// x + r * ldx: [point | embedding]) or, with z, the rays' (o + z d of ray
+// r / S, the embedding of that ray, e columns).
+struct RowIn {
+  const float* x;
+  long long ldx;
+  const float* z;
+  const float* o;
+  const float* d;
+  const float* emb;
+  int e;
+  int samples;
+};
+
+__device__ __forceinline__ void row_point(const RowIn& in, long long r,
+                                          float* p) {
+  if (in.z == nullptr) {
+    for (int c = 0; c < 3; ++c) p[c] = in.x[r * in.ldx + c];
+    return;
+  }
+  const long long q = r / in.samples;
+  for (int c = 0; c < 3; ++c)
+    p[c] = __fadd_rn(in.o[q * 3 + c], __fmul_rn(in.z[r], in.d[q * 3 + c]));
+}
+
+__device__ __forceinline__ float row_embed(const RowIn& in, long long r,
+                                           int c) {
+  return in.z == nullptr ? in.x[r * in.ldx + 3 + c]
+                         : in.emb[(r / in.samples) * in.e + c];
+}
+
+// The trunk's encoding cotangent g (kSe3EncP columns at stride 1) of one
+// row times the window row (scales, or null), at feature f.
+__device__ __forceinline__ float trunk_g(const float* g, const float* scales,
+                                         int f) {
+  return scales != nullptr ? g[f] * scales[f] : g[f];
+}
+
+// The VJP of the trunk's encoding for channel c of the point x: sum over
+// the degrees k of 2^k (cos(x 2^k) g_sin - sin(x 2^k) g_cos), g the
+// encoding's cotangent times the window row.
+__device__ __forceinline__ float trunk_vjp(float x, const float* g,
+                                           const float* scales, int c) {
+  float acc = 0.f;
+  for (int k = 0; k < kSe3F; ++k) {
+    const float arg = ldexpf(x, kSe3MinDeg + k);
+    const int fs = 3 * k + c;
+    acc += ldexpf(1.f, kSe3MinDeg + k) *
+           (cosf(arg) * trunk_g(g, scales, fs) -
+            sinf(arg) * trunk_g(g, scales, kSe3Trig + fs));
+  }
+  return acc;
+}
+
+// out[r * ldo + f], f < kSe3EncP: the trunk's encoding of row r (f32_level.cu
+// encode_trunk: [sin | cos of the point's bands | embedding | 0] times
+// the window row). A thread per element.
+__global__ void trunk_encode_f32(const RowIn in, const float* scales,
+                                 float* out, long long ldo, long long M) {
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= M * kSe3EncP) return;
+  const long long r = i / kSe3EncP;
+  const int f = (int)(i % kSe3EncP);
+  float v = 0.f;
+  if (f < 2 * kSe3Trig) {
+    const int b = f % kSe3Trig;
+    float p[3];
+    row_point(in, r, p);
+    const float arg = ldexpf(p[b % 3], kSe3MinDeg + b / 3);
+    v = f < kSe3Trig ? sinf(arg) : cosf(arg);
+  } else if (f < 2 * kSe3Trig + in.e) {
+    v = row_embed(in, r, f - 2 * kSe3Trig);
+  }
+  out[r * ldo + f] = scales != nullptr ? v * scales[f] : v;
+}
+
+// The trunk alone's dx[r * lddx + ...] = [the encoding's VJP for the point
+// | the embedding's columns of the cotangent] from the encoding's cotangent
+// g (row r at g + r * ldg) times the window row; x the raw rows. A thread
+// per row.
+__global__ void trunk_posenc_bwd_f32(const float* x, long long ldx,
+                                     const float* scales, const float* g,
+                                     long long ldg, float* dx, long long lddx,
+                                     long long M) {
+  const long long r = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (r >= M) return;
+  const float* gr = g + r * ldg;
+  float* out = dx + r * lddx;
+  for (int c = 0; c < 3; ++c) out[c] = trunk_vjp(x[r * ldx + c], gr, scales, c);
+  for (int c = 0; c < kEmbed; ++c)
+    out[3 + c] = trunk_g(gr, scales, 2 * kSe3Trig + c);
+}
+
+// Kernel B's retraction VJP of row r (ray r / S): from the heads' outputs
+// (wv + r * ldwv: [w | 0 .. | v at kVCol ..]) and the cotangent of the
+// warped point (dxt[0:3]), the heads' cotangent gwv[0:8] = [d w | d v |
+// 0 0] and the point's direct term dp[0:3] = R^T g (SE(3), or quat the
+// quaternion warp). A thread per row.
+constexpr int kVCol = 8;  // the v head's first column in a row of wv
+__global__ void retract_bwd_f32(int quat, const float* z, const float* o,
+                                const float* d, int samples, const float* wv,
+                                long long ldwv, const float* dxt,
+                                long long ldxt, float* gwv, long long ldg,
+                                float* dp, long long lddp, long long M) {
+  const long long r = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (r >= M) return;
+  const long long q = r / samples;
+  float p[3], w[3], v[3], g[3], dw[3], dv[3], dpp[3];
+  for (int c = 0; c < 3; ++c) {
+    p[c] = __fadd_rn(o[q * 3 + c], __fmul_rn(z[r], d[q * 3 + c]));
+    w[c] = wv[r * ldwv + c];
+    v[c] = wv[r * ldwv + kVCol + c];
+    g[c] = dxt[r * ldxt + c];
+  }
+  if (quat)
+    retract_bwd<true>(w, v, p, g, dw, dv, dpp);
+  else
+    retract_bwd<false>(w, v, p, g, dw, dv, dpp);
+  float* gr = gwv + r * ldg;
+  for (int c = 0; c < 3; ++c) {
+    gr[c] = dw[c];
+    gr[3 + c] = dv[c];
+    dp[r * lddp + c] = dpp[c];
+  }
+  gr[6] = gr[7] = 0.f;
+}
+
+// Kernel B's per-sample cotangents of row r (ray r / S) with the screw
+// warps: d p = (the retraction's direct term dpd[0:3] + the VJP of the
+// trunk's encoding, cotangent gt times the window row) + the VJP of the
+// sheet's posenc_orig (F1 bands, cotangent gs), d embed = the sum of
+// their embedding columns; d z[r] = d p . d, and rows[r * (6 + e) + ...]
+// = [d p | z d p | d embed], which hn_f32_ray_sum adds per ray. dpd may
+// be rows itself (each thread reads its row's direct term first). A thread
+// per row.
+__global__ void screw_rows_f32(const float* z, const float* o,
+                               const float* d, int samples, const float* dpd,
+                               long long lddpd, const float* gt,
+                               long long ldgt, const float* scales,
+                               const float* gs, long long ldgs, int F1,
+                               int e, float* dz, float* rows, long long M) {
+  const long long r = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (r >= M) return;
+  const long long q = r / samples;
+  const float* g0 = gt + r * ldgt;
+  const float* g1 = gs + r * ldgs;
+  float direct[3];
+  for (int c = 0; c < 3; ++c) direct[c] = dpd[r * lddpd + c];
+  float* out = rows + r * (6 + e);
+  float dot = 0.f;
+  for (int c = 0; c < 3; ++c) {
+    const float p = __fadd_rn(o[q * 3 + c], __fmul_rn(z[r], d[q * 3 + c]));
+    const float dp = (direct[c] + trunk_vjp(p, g0, scales, c)) +
+                     posenc_vjp(p, g1, 3, F1, c);
+    dot += dp * d[q * 3 + c];
+    out[c] = dp;
+    out[3 + c] = dp * z[r];
+  }
+  dz[r] = dot;
+  const int a1 = 3 * (1 + 2 * F1);
+  for (int c = 0; c < e; ++c)
+    out[6 + c] = trunk_g(g0, scales, 2 * kSe3Trig + c) + g1[a1 + c];
+}
+
 constexpr int kFlat = 256;  // threads a block of the elementwise steps
 
 unsigned flat_blocks(long long n) {
   return (unsigned)((n + kFlat - 1) / kFlat);
 }
 
+}  // namespace steps
 }  // namespace
+
+using namespace steps;
 
 // The C entry points: pointers and leading dimensions in floats; each
 // returns a CUDA error code (1: arguments out of range).
@@ -518,5 +696,76 @@ extern "C" int hn_f32_ray_sum(const float* in, long long ldi, int C,
   ray_sum_f32<<<flat_blocks(rays * C), kFlat, 0, stream>>>(in, ldi, C,
                                                            samples, out,
                                                            rays);
+  return cudaGetLastError();
+}
+
+// The trunk's encoding (kSe3EncP columns, times the window row scales or
+// null) of M rows into out (row r at out + r * ldo): of raw rows x (row r
+// at x + r * ldx, [point | embedding]) where z is null, else of the rays'
+// points o + z d and embeddings emb (e columns) of ray r / samples.
+extern "C" int hn_f32_trunk_encode(const float* x, long long ldx,
+                                   const float* z, const float* o,
+                                   const float* d, const float* emb, int e,
+                                   int samples, const float* scales,
+                                   float* out, long long ldo, long long M,
+                                   cudaStream_t stream) {
+  if (e < 0 || 2 * kSe3Trig + e > kSe3EncP || ldo < kSe3EncP ||
+      (z == nullptr ? ldx < 3 + e : samples <= 0))
+    return 1;
+  if (M == 0) return 0;
+  const RowIn in{x, ldx, z, o, d, emb, e, samples};
+  trunk_encode_f32<<<flat_blocks(M * kSe3EncP), kFlat, 0, stream>>>(
+      in, scales, out, ldo, M);
+  return cudaGetLastError();
+}
+
+// The trunk alone's dx (M, >= 3 + kEmbed at lddx) from x (its raw rows)
+// and the encoding's cotangent g.
+extern "C" int hn_f32_trunk_posenc_bwd(const float* x, long long ldx,
+                                       const float* scales, const float* g,
+                                       long long ldg, float* dx,
+                                       long long lddx, long long M,
+                                       cudaStream_t stream) {
+  if (ldx < 3 + kEmbed || lddx < 3 + kEmbed || ldg < kSe3EncP) return 1;
+  if (M == 0) return 0;
+  trunk_posenc_bwd_f32<<<flat_blocks(M), kFlat, 0, stream>>>(
+      x, ldx, scales, g, ldg, dx, lddx, M);
+  return cudaGetLastError();
+}
+
+// quat 0: the SE(3) retraction's VJP, 1: the quaternion warp's; wv (M, >=
+// kVCol + 3 at ldwv) [w | .. | v ..]; dxt (M, >= 3 at ldxt); gwv (M, >= 8
+// at ldg); dp (M, >= 3 at lddp).
+extern "C" int hn_f32_retract_bwd(int quat, const float* z, const float* o,
+                                  const float* d, int samples,
+                                  const float* wv, long long ldwv,
+                                  const float* dxt, long long ldxt,
+                                  float* gwv, long long ldg, float* dp,
+                                  long long lddp, long long M,
+                                  cudaStream_t stream) {
+  if ((quat != 0 && quat != 1) || samples <= 0 || ldwv < kVCol + 3 ||
+      ldxt < 3 || ldg < 8 || lddp < 3)
+    return 1;
+  if (M == 0) return 0;
+  retract_bwd_f32<<<flat_blocks(M), kFlat, 0, stream>>>(
+      quat, z, o, d, samples, wv, ldwv, dxt, ldxt, gwv, ldg, dp, lddp, M);
+  return cudaGetLastError();
+}
+
+extern "C" int hn_f32_screw_rows(const float* z, const float* o,
+                                 const float* d, int samples,
+                                 const float* dpd, long long lddpd,
+                                 const float* gt, long long ldgt,
+                                 const float* scales, const float* gs,
+                                 long long ldgs, int F1, int e, float* dz,
+                                 float* rows, long long M,
+                                 cudaStream_t stream) {
+  if (samples <= 0 || lddpd < 3 || ldgt < kSe3EncP || e < 0 ||
+      2 * kSe3Trig + e > kSe3EncP)
+    return 1;
+  if (M == 0) return 0;
+  screw_rows_f32<<<flat_blocks(M), kFlat, 0, stream>>>(
+      z, o, d, samples, dpd, lddpd, gt, ldgt, scales, gs, ldgs, F1, e, dz,
+      rows, M);
   return cudaGetLastError();
 }

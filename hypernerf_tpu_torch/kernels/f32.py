@@ -2,17 +2,21 @@
 ``f32_level.cu``, ``f32_steps.cu``): the level forward (row 1 at
 ``compute_dtype='float32'``) and the two halves of its backward, kernel A
 (the template backward, row 9) and kernel B (the fields backward, row 5);
-and the per-module path's: the template alone (row 8), a field alone (row
-10) and a field alone backward (row 11). The bf16 kernels are untouched:
+the per-module path's: the template alone (row 8), a field alone (row 10)
+and a field alone backward (row 11); and the SE(3) trunk alone, forward
+(row 12) and backward (row 13). The bf16 kernels are untouched:
 ``fused_level``, ``fused_fields_bwd``, ``fused_template_bwd``,
-``fused_template``, ``fused_field`` and ``fused_field_bwd`` take these
-where the modules compute in float32, at the flagship table's widths: the
-translation warp and the bendy sheet (a field alone: either), the
-posenc_orig template with 4 hyper coordinates or none (static), a 39-column
-rgb condition, no alpha condition and no window row.
-``fused_level._check_covered`` and ``fused_mlp.check_f32_covered`` refuse
-the rest, naming ROADMAP A.13.1's sub-item (the screw warps, the plane and
-Nerfies layouts, the conditions' widths, the Jacobians).
+``fused_template``, ``fused_field``, ``fused_field_bwd``, ``fused_se3_wv``
+and ``fused_se3_bwd`` take these where the modules compute in float32, at
+the flagship tables' widths: the translation warp, or the SE(3) or the
+quaternion warp (table codes 1 and 2, the trunk and the retraction, with
+or without the ``warp_alpha`` window row), and the bendy sheet (a field
+alone: the warp field or the sheet), the posenc_orig template with 4 hyper
+coordinates or none (static), a 39-column rgb condition, no alpha
+condition and no template window row. ``fused_level._check_covered`` and
+``fused_mlp.check_f32_covered`` refuse the rest, naming ROADMAP A.13.1's
+sub-item (the plane and Nerfies layouts and the conditions' widths, the
+Jacobians).
 
 Float32 is the TPU kernels' float32: fp32 operands, fp32 sums, fp32
 epilogues, nothing rounded to bf16 — the plain versions' arithmetic at that
@@ -20,10 +24,12 @@ dtype (``fused_level_plain``, ``fused_template_bwd_plain``,
 ``fused_fields_bwd_plain``), which the CPU tests hold to the JAX kernels.
 
 The level forward is one kernel (a tile of 64 samples through all 30 layers
-in shared memory); the template alone and a field alone are its stages, run
-alone on raw rows. Kernels A and B and a field alone backward are sequences
-of generic steps over chunks of whole rays (``template_bwd_steps``,
-``fields_bwd_steps``, ``field_bwd_steps``): each
+in shared memory); the template alone and a field alone and the trunk alone
+are its stages, run alone on raw rows. Kernels A and B, a field alone
+backward and the trunk alone backward are sequences of generic steps over
+chunks of whole rays (``template_bwd_steps``, ``fields_bwd_steps``,
+``field_bwd_steps``, ``se3_bwd_steps``; the trunk's walk is
+``_trunk_steps``): each
 wide layer's fp32 output is recomputed into a stash (at most
 ``STASH_BYTES`` a chunk), then the chunk is walked back a layer at a time —
 the cotangent through the layer (``rowprod``, masked by the input's ReLU)
@@ -34,7 +40,8 @@ steps: ``_KernelOps`` on the card; the tests pass a PyTorch model of each C
 entry point.
 
 Every wrapper adds one to its ``launches`` where it launches its kernel (a
-call of kernel A or B or of a field alone backward, whatever its steps).
+call of kernel A or B or of a field or the trunk alone backward, whatever
+its steps).
 """
 
 from __future__ import annotations
@@ -107,6 +114,21 @@ SHEET_STASH = field_stash(64, 64)
 # sheet).
 FIELDS = {WARP_FREQ: (WARP_STASH, common.WARP_LAYERS, 0),
           SHEET_FREQ: (SHEET_STASH, common.SHEET_LAYERS, 1)}
+# The SE(3) / quaternion trunk (csrc/f32_level.cu kTrunk*): its encoding's
+# columns, 48 bands and the embedding in 64; its stash, the encoding, six
+# hidden outputs and the linear trunk logit (960 columns); the wide layers
+# of its recompute, a field's and the logit (no ReLU); the columns of the
+# heads' outputs a row (csrc/f32_steps.cu kVCol: [w | 0 | v | 0]). A
+# field alone's shared memory with the trunk's 64 encoding features
+# (kTrunkSmemBytes).
+SE3_ENC = common.pad16(2 * 3 * common.SE3_FLAGSHIP['max_deg']
+                       + common.SE3_FLAGSHIP['embed'])
+SE3_STASH = fused_mlp.column_plan((('enc', SE3_ENC),) + tuple(
+    (f'h{i}', 128) for i in range(6)) + (('trunk', 128),))
+TRUNK_LAYERS = FIELD_LAYERS + [(6, ('h5',), 'trunk', False)]
+V_COL = 8
+TRUNK_SMEM_BYTES = 4 * (TILE_ROWS * (SE3_ENC + 2 * 128 + 3 + 8 + 8 + 1 + 1)
+                        + 2 * DEPTH * WIDE_COLS // 2)
 
 
 def chunk_rows(stash: fused_mlp.Stash) -> int:
@@ -285,52 +307,146 @@ def _field_steps(ops, w, wt, b, w_off, b_off, sp, encode, stash, bufs,
     walk.first(x, 0, cols('enc'), enc_g)
 
 
+def _trunk_steps(ops, w, wt, b, w_off, b_off, encode, heads, stash, bufs,
+                 enc_g, scratch, grads):
+    """The SE(3) / quaternion trunk (its 9 layers: ``layer_views``) on a
+    chunk: encode (the step ``encode(out)``) and recompute into ``stash``
+    (SE3_STASH), then take the heads' cotangent [d w | d v] from
+    ``heads(trunk)`` (given the recomputed trunk logit: the cotangent of
+    the trunk alone backward, or kernel B's heads and retraction VJP) and
+    walk back to the encoding's cotangent (``enc_g``). The w and v heads
+    both read the trunk logit, which has no ReLU: their cotangents through
+    it are summed and nothing masks them."""
+    n, sp = enc_g.shape[0], SE3_STASH
+
+    def cols(name):
+        return stash[:n, sp.col[name]:sp.col[name] + sp.widths[name]]
+
+    encode(cols('enc'))
+    _recompute(ops, wt, b, cols, TRUNK_LAYERS)
+    g = heads(cols('trunk'))
+    walk = _Walk(ops, w, w_off, b_off, scratch, grads, [t[:n] for t in bufs])
+    walk._dw(g[:, :3], 7, cols('trunk'))
+    walk._dw(g[:, 3:6], 8, cols('trunk'))
+    x = walk.bufs[0][:, :sp.widths['trunk']]
+    ops.rowprod(g[:, :3], w[7], x)
+    ops.rowprod(g[:, 3:6], w[8], x, accumulate=True)
+    x = walk.layer(x, 6, cols('h5'))
+    x = walk.layer(x, 5, cols('h4'), cols('enc'), enc_g)
+    for l, name in ((4, 'h3'), (3, 'h2'), (2, 'h1'), (1, 'h0')):
+        x = walk.layer(x, l, cols(name))
+    walk.first(x, 0, cols('enc'), enc_g)
+
+
 def fields_bwd_steps(ops, w, wt, b, w_off, b_off, n_grads, z_vals, origins,
-                     directions, embed, dx_t, max_rows=None):
-    """Kernel B at float32 (the warp field's layers 0..6 and the sheet's
-    7..13: ``layer_views`` of the level's packed fp32 blobs), chunk by
+                     directions, embed, dx_t, max_rows=None, code=0,
+                     scales=None):
+    """Kernel B at float32 (``layer_views`` of the level's packed fp32
+    blobs: with table code 0 the warp field's layers 0..6 and the sheet's
+    7..13; with code 1 or 2, SE(3) or quaternion, the trunk's 0..8 and the
+    sheet's 9..15, ``scales`` the trunk's window row or None), chunk by
     chunk: each field recomputed and walked back in one stash, then the
-    rows' point and embedding cotangents and their per-ray sums. Returns
-    d z_vals (R, S), d_ray (R, 14) [d origins | d directions | d embed] and
-    the [dW | db] buffer."""
+    rows' point and embedding cotangents and their per-ray sums. The trunk
+    takes its heads' cotangent from the retraction's VJP, which also gives
+    the point's direct term. Returns d z_vals (R, S), d_ray (R, 14) [d
+    origins | d directions | d embed] and the [dW | db] buffer."""
     dev, f32 = z_vals.device, torch.float32
     r, s = z_vals.shape
     p, e = r * s, embed.shape[1]
-    plan = fused_mlp.chunk_plan(p, s, max_rows or chunk_rows(WARP_STASH))
+    screw = code != 0
+    wsp = SE3_STASH if screw else WARP_STASH
+    plan = fused_mlp.chunk_plan(p, s, max_rows or chunk_rows(wsp))
     rows = max(r1 - r0 for r0, r1 in plan)
-    stash = torch.empty((rows, WARP_STASH.width), dtype=f32, device=dev)
+    stash = torch.empty((rows, wsp.width), dtype=f32, device=dev)
     bufs = [torch.empty((rows, 128), dtype=f32, device=dev)
             for _ in range(2)]
-    enc_w = torch.empty((rows, WARP_STASH.widths['enc']), dtype=f32,
-                        device=dev)
+    enc_w = torch.empty((rows, wsp.widths['enc']), dtype=f32, device=dev)
     enc_s = torch.empty((rows, SHEET_STASH.widths['enc']), dtype=f32,
                         device=dev)
     per_row = torch.empty((rows, 6 + e), dtype=f32, device=dev)
+    if screw:  # the heads' outputs [w | v] and cotangent [d w | d v]
+        wv = torch.empty((rows, 2 * V_COL), dtype=f32, device=dev)
+        g_wv = torch.empty((rows, 8), dtype=f32, device=dev)
     scratch = torch.empty((scratch_floats(ops, [t.shape for t in w], rows),),
                           dtype=f32, device=dev)
     grads = torch.zeros((n_grads,), dtype=f32, device=dev)
     d_z = torch.empty((r, s), dtype=f32, device=dev)
     d_ray = torch.empty((r, 6 + e), dtype=f32, device=dev)
     z_flat, dz_flat = z_vals.reshape(-1), d_z.view(-1)
-    warp, sheet = slice(0, 7), slice(7, 14)
+    nw = 9 if screw else 7
+    warp, sheet = slice(0, nw), slice(nw, nw + 7)
     for r0, r1 in plan:
         n, q0, q1 = r1 - r0, r0 // s, r1 // s
         rays = (z_flat[r0:r1], origins[q0:q1], directions[q0:q1],
                 embed[q0:q1], s)
         dx_c = dx_t[r0:r1]
-        for part, sp, freq, out, enc_g in (
-                (warp, WARP_STASH, WARP_FREQ, dx_c[:, :3], enc_w),
-                (sheet, SHEET_STASH, SHEET_FREQ, dx_c[:, 3:3 + N_HYPER],
-                 enc_s)):
-            _field_steps(ops, w[part], wt[part], b[part], w_off[part],
-                         b_off[part], sp,
-                         lambda enc, freq=freq: ops.field_encode(*rays, freq,
-                                                                 enc),
-                         stash, bufs, enc_g[:n], out, scratch, grads)
-        ops.fields_rows(*rays, dx_c, enc_w[:n], WARP_FREQ, enc_s[:n],
-                        SHEET_FREQ, dz_flat[r0:r1], per_row[:n])
+        if screw:
+            def heads(trunk, n=n, rays=rays, dx_c=dx_c):
+                for l, col in ((7, 0), (8, V_COL)):
+                    ops.rowprod(trunk, wt[l], wv[:n, col:col + V_COL],
+                                bias=b[l])
+                ops.retract_bwd(code, *rays[:3], s, wv[:n], dx_c[:, :3],
+                                g_wv[:n], per_row[:n, :3])
+                return g_wv[:n]
+
+            _trunk_steps(ops, w[warp], wt[warp], b[warp], w_off[warp],
+                         b_off[warp],
+                         lambda enc, rays=rays: ops.trunk_encode(
+                             None, *rays, scales, enc),
+                         heads, stash, bufs, enc_w[:n], scratch, grads)
+        else:
+            _field_steps(ops, w[warp], wt[warp], b[warp], w_off[warp],
+                         b_off[warp], WARP_STASH,
+                         lambda enc, rays=rays: ops.field_encode(
+                             *rays, WARP_FREQ, enc),
+                         stash, bufs, enc_w[:n], dx_c[:, :3], scratch, grads)
+        _field_steps(ops, w[sheet], wt[sheet], b[sheet], w_off[sheet],
+                     b_off[sheet], SHEET_STASH,
+                     lambda enc, rays=rays: ops.field_encode(
+                         *rays, SHEET_FREQ, enc),
+                     stash, bufs, enc_s[:n], dx_c[:, 3:3 + N_HYPER], scratch,
+                     grads)
+        if screw:
+            ops.screw_rows(*rays, per_row[:n, :3], enc_w[:n], scales,
+                           enc_s[:n], SHEET_FREQ, dz_flat[r0:r1],
+                           per_row[:n])
+        else:
+            ops.fields_rows(*rays, dx_c, enc_w[:n], WARP_FREQ, enc_s[:n],
+                            SHEET_FREQ, dz_flat[r0:r1], per_row[:n])
         ops.ray_sum(per_row[:n], s, d_ray[q0:q1])
     return d_z, d_ray, grads
+
+
+def se3_bwd_steps(ops, w, wt, b, w_off, b_off, n_grads, x_raw, g,
+                  scales=None, max_rows=None):
+    """The SE(3) trunk alone backward at float32 (its 9 layers:
+    ``layer_views`` of its packed fp32 blobs), chunk by chunk: the trunk's
+    steps from raw rows x_raw (P, 11) [points | embedding] (``scales`` the
+    window row or None) and g (P, 8) [d w | d v | 0 0]. Returns dx_raw (P,
+    11) [the encoding's VJP for the points | the embedding's columns of the
+    encoding's cotangent], both times the window row, and the [dW | db]
+    buffer."""
+    dev, f32 = x_raw.device, torch.float32
+    p = x_raw.shape[0]
+    plan = fused_mlp.chunk_plan(p, 1, max_rows or chunk_rows(SE3_STASH))
+    rows = max(r1 - r0 for r0, r1 in plan)
+    stash = torch.empty((rows, SE3_STASH.width), dtype=f32, device=dev)
+    bufs = [torch.empty((rows, 128), dtype=f32, device=dev)
+            for _ in range(2)]
+    enc_g = torch.empty((rows, SE3_ENC), dtype=f32, device=dev)
+    scratch = torch.empty((scratch_floats(ops, [t.shape for t in w], rows),),
+                          dtype=f32, device=dev)
+    grads = torch.zeros((n_grads,), dtype=f32, device=dev)
+    dx = torch.empty((p, x_raw.shape[1]), dtype=f32, device=dev)
+    for r0, r1 in plan:
+        n, x_c = r1 - r0, x_raw[r0:r1]
+        _trunk_steps(ops, w, wt, b, w_off, b_off,
+                     lambda enc: ops.trunk_encode(x_c, None, None, None,
+                                                  None, 0, scales, enc),
+                     lambda trunk, g_c=g[r0:r1]: g_c, stash, bufs,
+                     enc_g[:n], scratch, grads)
+        ops.trunk_posenc_bwd(x_c, scales, enc_g[:n], dx[r0:r1])
+    return dx, grads
 
 
 def field_bwd_steps(ops, w, wt, b, w_off, b_off, n_grads, freq, x_raw, g,
@@ -382,8 +498,9 @@ def _ld(t) -> int:
 
 
 class _KernelOps:
-    """The steps of ``template_bwd_steps`` / ``fields_bwd_steps`` as
-    launches of csrc/f32_steps.cu on ``device``'s current stream; made and
+    """The steps of ``template_bwd_steps``, ``fields_bwd_steps``,
+    ``field_bwd_steps`` and ``se3_bwd_steps`` as launches of
+    csrc/f32_steps.cu on ``device``'s current stream; made and
     used inside ``torch.cuda.device(device)``. Every operand is a 2-d view
     whose rows are contiguous; its pointer and leading dimension are read
     from the view."""
@@ -455,34 +572,75 @@ class _KernelOps:
         self._go('hn_f32_ray_sum', x.data_ptr(), _ld(x), x.shape[1], samples,
                  out.data_ptr(), out.shape[0])
 
+    def trunk_encode(self, x, z, o, d, emb, samples, scales, out):
+        """The trunk's encoding of raw rows ``x`` or, with ``z``, of the
+        rays' samples (``x`` None)."""
+        e = x.shape[1] - 3 if z is None else emb.shape[1]
+        self._go('hn_f32_trunk_encode', _ptr(x), 0 if x is None else _ld(x),
+                 _ptr(z), _ptr(o), _ptr(d), _ptr(emb), e, samples,
+                 _ptr(scales), out.data_ptr(), _ld(out), out.shape[0])
 
-def kernel_layout():
-    """[(n_pad, k_pad)] of the compiled float32 table, in layer order."""
+    def trunk_posenc_bwd(self, x, scales, g, dx):
+        self._go('hn_f32_trunk_posenc_bwd', x.data_ptr(), _ld(x),
+                 _ptr(scales), g.data_ptr(), _ld(g), dx.data_ptr(), _ld(dx),
+                 x.shape[0])
+
+    def retract_bwd(self, code, z, o, d, samples, wv, dxt, g_wv, dp):
+        """Table code 1 (SE(3)) or 2 (quaternion)."""
+        self._go('hn_f32_retract_bwd', int(code == 2), z.data_ptr(),
+                 o.data_ptr(), d.data_ptr(), samples, wv.data_ptr(), _ld(wv),
+                 dxt.data_ptr(), _ld(dxt), g_wv.data_ptr(), _ld(g_wv),
+                 dp.data_ptr(), _ld(dp), z.shape[0])
+
+    def screw_rows(self, z, o, d, emb, samples, dpd, gt, scales, gs, f1, dz,
+                   rows):
+        self._go('hn_f32_screw_rows', z.data_ptr(), o.data_ptr(),
+                 d.data_ptr(), samples, dpd.data_ptr(), _ld(dpd),
+                 gt.data_ptr(), _ld(gt), _ptr(scales), gs.data_ptr(), _ld(gs),
+                 f1, emb.shape[1], dz.data_ptr(), rows.data_ptr(), z.shape[0])
+
+
+def _c_layout(entry: str):
     import ctypes
     n = (ctypes.c_int * 64)()
     k = (ctypes.c_int * 64)()
-    count = build.library().hn_f32_level_layout(ctypes.addressof(n),
-                                                ctypes.addressof(k), 64)
+    count = getattr(build.library(), entry)(ctypes.addressof(n),
+                                            ctypes.addressof(k), 64)
     return [(n[i], k[i]) for i in range(count)]
 
 
-def check_layout(shapes, table: slice = slice(None)) -> None:
+def kernel_layout(warp: str = 'translation'):
+    """[(n_pad, k_pad)] of the compiled float32 table of the level with the
+    ``warp`` warp, in layer order: the flagship table, or with the SE(3) /
+    quaternion warp the trunk's rows, then the flagship table's from the
+    sheet on."""
+    table = _c_layout('hn_f32_level_layout')
+    if warp == 'translation':
+        return table
+    return _c_layout('hn_f32_trunk_layout') + table[7:]
+
+
+def check_layout(shapes, table: slice = slice(None),
+                 warp: str = 'translation') -> None:
     """Raise unless packed ``shapes`` are rows ``table`` of the compiled
-    float32 table (all of it: a level; ``common.TEMPLATE_LAYERS``: a
-    template alone, with or without hyper coordinates, whose encoding packs
-    to the same 128 columns; ``common.WARP_LAYERS`` / ``SHEET_LAYERS``: a
-    field alone)."""
-    if list(shapes) != kernel_layout()[table]:
+    float32 table of the ``warp`` level (all of it: a level;
+    ``common.TEMPLATE_LAYERS``: a template alone, with or without hyper
+    coordinates, whose encoding packs to the same 128 columns;
+    ``common.WARP_LAYERS`` / ``SHEET_LAYERS``: a field alone;
+    ``common.SE3_LAYERS`` of the 'se3' table: the trunk alone)."""
+    if list(shapes) != kernel_layout(warp)[table]:
         raise NotImplementedError(f'{common.NOT_COVERED}; layer shapes '
                                   f'{shapes}')
 
 
 def fused_level_f32(wt_blob, b_blob, z_vals, origins, directions, embed,
-                    cond, want_raw_t: bool):
+                    cond, want_raw_t: bool, code: int = 0, scales=None):
     """Launch the float32 level forward (csrc/f32_level.cu) on the packed
-    fp32 blobs of the flagship table, its weights transposed layer by layer:
-    (out (R * S, 4), raw_t (R * S, 8) or None). The inputs are checked by
-    the caller (fp32, contiguous)."""
+    fp32 blobs of the level's table (table code ``code``: 0 the
+    translation warp's, 1 and 2 the SE(3) / quaternion warp's, with the
+    trunk's window row ``scales`` or None), its weights transposed layer by
+    layer: (out (R * S, 4), raw_t (R * S, 8) or None). The inputs are
+    checked by the caller (fp32, contiguous)."""
     dev = z_vals.device
     r, s = z_vals.shape
     out = torch.empty((r * s, 4), dtype=torch.float32, device=dev)
@@ -491,8 +649,8 @@ def fused_level_f32(wt_blob, b_blob, z_vals, origins, directions, embed,
     common.launch('hn_f32_level_fwd', dev, z_vals.data_ptr(),
                   origins.data_ptr(), directions.data_ptr(),
                   embed.data_ptr(), cond.data_ptr(), cond.shape[1],
-                  wt_blob.data_ptr(), b_blob.data_ptr(), out.data_ptr(),
-                  _ptr(raw_t), r, s)
+                  wt_blob.data_ptr(), b_blob.data_ptr(), code, _ptr(scales),
+                  out.data_ptr(), _ptr(raw_t), r, s)
     fused_level_f32.launches += 1
     return out, raw_t
 
@@ -558,6 +716,43 @@ def fused_field_bwd_f32(w_blob, wt_blob, b_blob, shapes, freq: int, x_raw,
 fused_field_bwd_f32.launches = 0
 
 
+def fused_se3_f32(wt_blob, b_blob, x_raw, scales):
+    """Launch the float32 SE(3) trunk alone (csrc/f32_level.cu, the level
+    forward's trunk stage) on the trunk's packed fp32 blobs, its weights
+    transposed layer by layer: (P, 8) [w | v | 0 0]. x_raw (P, 11) [points
+    | embedding] and the window row ``scales`` (64 fp32) or None, checked by
+    the caller."""
+    dev, p = x_raw.device, x_raw.shape[0]
+    out = torch.empty((p, 8), dtype=torch.float32, device=dev)
+    if p:
+        common.launch('hn_f32_trunk_fwd', dev, x_raw.data_ptr(),
+                      _ptr(scales), wt_blob.data_ptr(), b_blob.data_ptr(),
+                      out.data_ptr(), p)
+        fused_se3_f32.launches += 1
+    return out
+
+
+fused_se3_f32.launches = 0
+
+
+def fused_se3_bwd_f32(w_blob, wt_blob, b_blob, shapes, x_raw, g, scales):
+    """Launch the SE(3) trunk alone backward at float32 (``se3_bwd_steps``)
+    on the trunk's packed fp32 blobs: (dx_raw (P, 11), [dW | db]). g (P, 8)
+    [d w | d v | 0 0]."""
+    dev = x_raw.device
+    w, wt, b, w_off, b_off, n_grads = fused_mlp.layer_views(
+        w_blob, wt_blob, b_blob, shapes)
+    with torch.cuda.device(dev):
+        ops = _KernelOps(dev)
+        res = se3_bwd_steps(ops, w, wt, b, w_off, b_off, n_grads, x_raw, g,
+                            scales)
+    fused_se3_bwd_f32.launches += 1
+    return res
+
+
+fused_se3_bwd_f32.launches = 0
+
+
 def fused_template_bwd_f32(w_blob, wt_blob, b_blob, shapes, raw_t, cond,
                            samples, g, hyper: int = N_HYPER):
     """Launch kernel A at float32 (``template_bwd_steps``) on the
@@ -577,17 +772,21 @@ fused_template_bwd_f32.launches = 0
 
 
 def fused_fields_bwd_f32(w_blob, wt_blob, b_blob, shapes, z_vals, origins,
-                         directions, embed, dx_t):
+                         directions, embed, dx_t, code: int = 0,
+                         scales=None):
     """Launch kernel B at float32 (``fields_bwd_steps``) on the field
     layers' views of the level's packed fp32 blobs (``shapes``: layers
-    0..13): (d z_vals, d_ray (R, 14), [dW | db])."""
+    0..13, or with table code 1 or 2 the trunk's and the sheet's, 0..15;
+    ``scales`` the trunk's window row or None): (d z_vals, d_ray (R, 14),
+    [dW | db])."""
     dev = z_vals.device
     w, wt, b, w_off, b_off, n_grads = fused_mlp.layer_views(
         w_blob, wt_blob, b_blob, shapes)
     with torch.cuda.device(dev):
         ops = _KernelOps(dev)
         res = fields_bwd_steps(ops, w, wt, b, w_off, b_off, n_grads, z_vals,
-                               origins, directions, embed, dx_t)
+                               origins, directions, embed, dx_t, code=code,
+                               scales=scales)
     fused_fields_bwd_f32.launches += 1
     return res
 

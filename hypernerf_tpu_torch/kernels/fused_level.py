@@ -196,21 +196,24 @@ def _is_f32(level: Level) -> bool:
 
 
 def _check_f32_covered(level: Level) -> None:
-    """Raise unless the float32 kernels cover the level: the flagship table
-    (translation warp, bendy sheet, the template ``check_f32_covered``
-    admits) at the flagship widths; the rest names ROADMAP A.13.1's
-    sub-item."""
-    if _screw(level):
-        raise NotImplementedError(common.f32_refusal(
-            2, f'the level with the {level.warp.kind} warp'))
+    """Raise unless the float32 kernels cover the level: the flagship
+    tables (the translation warp, or the SE(3) / quaternion trunk that
+    ``fused_se3.check_covered`` admits; the bendy sheet; the template
+    ``check_f32_covered`` admits) at the flagship widths; the rest names
+    ROADMAP A.13.1's sub-item."""
     if level.hyper is None:
         raise NotImplementedError(common.f32_refusal(
             3, 'the level without a sheet (axis_aligned_plane)'))
     _check_f32_template_covered(level)
-    mlp = level.warp.mlp
-    have = dict(embed=mlp.hidden(0).in_features - 3 * (1 + 2 * level.warp.n_freq),
-                warp_freq=level.warp.n_freq,
-                hyper_sheet_freq=level.hyper.n_freq,
+    if _screw(level):
+        _check_se3_covered(level.warp)
+        have = dict(embed=level.warp.embed_ch)
+    else:
+        mlp = level.warp.mlp
+        have = dict(embed=mlp.hidden(0).in_features
+                    - 3 * (1 + 2 * level.warp.n_freq),
+                    warp_freq=level.warp.n_freq)
+    have.update(hyper_sheet_freq=level.hyper.n_freq,
                 hyper_out=level.hyper.mlp.logit.out_features)
     if have != {k: FLAGSHIP[k] for k in have} or level.hyper.use_residual:
         raise NotImplementedError(f'{common.NOT_COVERED}; got {have}')
@@ -302,8 +305,14 @@ def _warp_launch_args(level: Level, shapes, warp_scales, dev):
     """(the table's code, the padded window row or None) for a level
     kernel, after the packed ``shapes`` were checked against that compiled
     table (``level_table``)."""
+    common.check_layout(shapes, slice(None), level_table(level))
+    return _warp_row(level, shapes, warp_scales, dev)
+
+
+def _warp_row(level: Level, shapes, warp_scales, dev):
+    """(the code of the level's table, its trunk's window row padded to
+    the packed first layer's columns, or None)."""
     table = level_table(level)
-    common.check_layout(shapes, slice(None), table)
     if not _screw(level):
         if warp_scales is not None:
             raise ValueError('the translation warp takes no window row')
@@ -801,17 +810,18 @@ def field_bwd_stream_bytes(field: str, shapes, n_points: int) -> int:
 def _f32_launch_args(level: Level, z_vals, origins, directions, embed,
                      warp_scales, tmpl_scales, alpha_cond):
     """The float32 kernels' packed fp32 blobs of the level, checked against
-    the compiled float32 table, after the ray inputs were checked."""
+    the compiled float32 table of its warp, the table code and the trunk's
+    padded window row or None, after the ray inputs were checked."""
     w_blob, b_blob, shapes = pack_level_f32(level)
     wt_blob = pack_level_f32(level, transposed=True)[0]
     _check_covered(level)
-    f32.check_layout(shapes)
-    if warp_scales is not None or tmpl_scales is not None \
-            or alpha_cond is not None:
-        raise ValueError('the float32 level takes no window row and no '
-                         'alpha condition')
+    f32.check_layout(shapes, warp=level.warp.kind)
+    if tmpl_scales is not None or alpha_cond is not None:
+        raise ValueError('the float32 level takes no template window row '
+                         'and no alpha condition')
     _check_ray_inputs(z_vals, origins, directions, embed)
-    return w_blob, wt_blob, b_blob, shapes
+    code, scales = _warp_row(level, shapes, warp_scales, z_vals.device)
+    return w_blob, wt_blob, b_blob, shapes, code, scales
 
 
 def _launch_forward(level: Level, z_vals, origins, directions, embed,
@@ -819,12 +829,13 @@ def _launch_forward(level: Level, z_vals, origins, directions, embed,
                     tmpl_scales=None, alpha_cond=None):
     """Launch the forward kernel; (out, raw_t or None)."""
     if _is_f32(level):
-        _, wt_blob, b_blob, _ = _f32_launch_args(
+        _, wt_blob, b_blob, _, code, scales = _f32_launch_args(
             level, z_vals, origins, directions, embed, warp_scales,
             tmpl_scales, alpha_cond)
         cond = f32_cond(level, rgb_cond, z_vals.shape[0], z_vals.device)
         return f32.fused_level_f32(wt_blob, b_blob, z_vals, origins,
-                                   directions, embed, cond, want_raw_t)
+                                   directions, embed, cond, want_raw_t, code,
+                                   scales)
     w_blob, b_blob, shapes = pack_level(level)
     dev = z_vals.device
     code, scales = _warp_launch_args(level, shapes, warp_scales, dev)
@@ -1051,7 +1062,7 @@ def _fields_bwd_f32(level: Level, z_vals, origins, directions, embed, dx_t,
                     warp_scales):
     """Kernel B at float32 (``f32.fused_fields_bwd_f32``) on the field
     layers of the level's fp32 blobs; returns as ``fused_fields_bwd``."""
-    w_blob, wt_blob, b_blob, shapes = _f32_launch_args(
+    w_blob, wt_blob, b_blob, shapes, code, scales = _f32_launch_args(
         level, z_vals, origins, directions, embed, warp_scales, None, None)
     r, s = z_vals.shape
     build.check_tensor('dx_t', dx_t, (r * s, raw_pad(level)), torch.float32,
@@ -1059,7 +1070,7 @@ def _fields_bwd_f32(level: Level, z_vals, origins, directions, embed, dx_t,
     nf = _n_field_layers(level)
     d_z, d_ray, grads = f32.fused_fields_bwd_f32(
         w_blob, wt_blob, b_blob, shapes[:nf], z_vals, origins, directions,
-        embed, dx_t)
+        embed, dx_t, code, scales)
     n_w = sum(n * k for n, k in shapes[:nf])
     layers = level_layers(level)[:nf]
     return (d_z, d_ray[:, :3].contiguous(), d_ray[:, 3:6].contiguous(),

@@ -28,7 +28,10 @@ same numbers.
 
 The CUDA kernels are compiled for the flagship's trunk: 3 + 8 raw inputs,
 degrees 0..8, 6 x 128 with a skip after layer 4, trunk logit 128 -> 128, heads
-128 -> 3, bf16.
+128 -> 3, bf16. A trunk that computes in float32 takes the float32 kernels
+(``f32.fused_se3_f32``, the float32 level forward's trunk stage run alone,
+and ``f32.fused_se3_bwd_f32``, the float32 trunk steps of kernel B) at the
+same widths, with or without the window row.
 """
 
 from __future__ import annotations
@@ -38,7 +41,7 @@ import importlib
 import torch
 import torch.nn.functional as F
 
-from hypernerf_tpu_torch.kernels import build, common
+from hypernerf_tpu_torch.kernels import build, common, f32
 from hypernerf_tpu_torch.models.modules import dense
 
 OUT_PAD = 8  # columns of the kernels' output and cotangent: [w | v | 0 0]
@@ -149,17 +152,20 @@ def fused_se3_bwd_plain(field, x_raw, g, scales=None):
 fused_se3_bwd_plain.calls = 0
 
 
+def _is_f32(field) -> bool:
+    return {field.trunk.dtype, field.w_net.dtype,
+            field.v_net.dtype} == {torch.float32}
+
+
 def check_covered(field) -> None:
     """Raise unless ``field`` is the trunk the CUDA kernels are compiled
-    for (the layer shapes are checked against the compiled table apart); in
-    float32, naming ROADMAP A.13.1's sub-item (the screw warps')."""
+    for, in bf16 or in float32 (the layer shapes are checked against the
+    compiled table apart)."""
     have = dict(embed=field.embed_ch if field.use_metadata else 0,
                 min_deg=field.min_deg, max_deg=field.max_deg)
     dtypes = {field.trunk.dtype, field.w_net.dtype, field.v_net.dtype}
-    if dtypes == {torch.float32}:
-        raise NotImplementedError(common.f32_refusal(
-            2, f'the {field.kind} trunk'))
-    if have != common.SE3_FLAGSHIP or dtypes != {torch.bfloat16} \
+    if have != common.SE3_FLAGSHIP or len(dtypes) != 1 \
+            or dtypes - {torch.bfloat16, torch.float32} \
             or field.trunk.skips != (4,):
         raise NotImplementedError(f'{common.NOT_COVERED}; got an SE(3) trunk '
                                   f'with {have}, skips {field.trunk.skips}, '
@@ -168,19 +174,28 @@ def check_covered(field) -> None:
 
 def _launch_args(field, x_raw, scales):
     """Checked inputs of a kernel launch: the padded window row or None and
-    the packed blobs (the trunk's one weight blob, its biases, the shapes)."""
+    the packed blobs (the trunk's one weight blob, its biases, the shapes;
+    in float32 also the weights transposed layer by layer, last)."""
     check = lambda: check_covered(field)
-    w_blob, b_blob, shapes = common.pack_layers(field, se3_layers(field),
-                                                check)
+    dtype = torch.float32 if _is_f32(field) else torch.bfloat16
+    layers = se3_layers(field)
+    w_blob, b_blob, shapes = common.pack_layers(field, layers, check,
+                                                dtype=dtype)
     check()
-    common.check_layout(shapes, common.SE3_LAYERS, 'se3')
+    if dtype == torch.float32:
+        f32.check_layout(shapes, common.SE3_LAYERS, 'se3')
+        blobs = (w_blob, b_blob, shapes, common.pack_layers(
+            field, layers, check, transposed=True, dtype=dtype)[0])
+    else:
+        common.check_layout(shapes, common.SE3_LAYERS, 'se3')
+        blobs = (w_blob, b_blob, shapes)
     dev = x_raw.device
     build.check_tensor('x_raw', x_raw,
                        (x_raw.shape[0], 3 + common.SE3_FLAGSHIP['embed']),
                        torch.float32, dev)
     scales = common.padded_scales(scales, field.trunk.hidden(0).in_features,
                                   shapes[0][1], dev)
-    return scales, (w_blob, b_blob, shapes)
+    return scales, blobs
 
 
 def _forward(field, x_raw, scales):
@@ -189,7 +204,10 @@ def _forward(field, x_raw, scales):
     if common.runs_plain(x_raw, 'fused_se3_wv'):
         out = fused_se3_plain(field, x_raw, scales)
         return F.pad(out, (0, OUT_PAD - out.shape[1]))
-    scales, (w_blob, b_blob, _) = _launch_args(field, x_raw, scales)
+    scales, (w_blob, b_blob, _, *f32_blobs) = _launch_args(field, x_raw,
+                                                           scales)
+    if f32_blobs:
+        return f32.fused_se3_f32(f32_blobs[0], b_blob, x_raw, scales)
     p = x_raw.shape[0]
     out = torch.empty((p, OUT_PAD), dtype=torch.float32, device=x_raw.device)
     if p:
@@ -204,8 +222,8 @@ def fused_se3_wv(field, x_raw, scales=None):
     """Trunk forward; (w, v), each (P, 3) fp32.
 
     CPU tensors take ``fused_se3_plain``; CUDA tensors launch the kernel
-    (the flagship's trunk, bf16) or raise. Differentiable in ``x_raw`` and in
-    the field's parameters (``FusedSE3Fn``).
+    (the flagship's trunk, bf16 or float32) or raise. Differentiable in
+    ``x_raw`` and in the field's parameters (``FusedSE3Fn``).
     """
     params = common.layer_params(se3_layers(field))
     if torch.is_grad_enabled() and any(t.requires_grad
@@ -244,18 +262,26 @@ class FusedSE3Fn(torch.autograd.Function):
 
 def fused_se3_bwd(field, x_raw, g, scales=None):
     """Trunk backward (see ``fused_se3_bwd_plain``): CPU tensors take the
-    plain version, CUDA tensors launch the kernel or raise. The kernel reads
-    the trunk's one weight blob (no transposed form), adds dW / db into
-    ``fused_level.FB_GRAD_COPIES`` buffers that are summed here, and gets a
-    per-block spill scratch (the trunk's plan spills)."""
+    plain version, CUDA tensors launch the kernel or raise. The bf16 kernel
+    reads the trunk's one weight blob (no transposed form), adds dW / db
+    into ``fused_level.FB_GRAD_COPIES`` buffers that are summed here, and
+    gets a per-block spill scratch (the trunk's plan spills); in float32
+    the trunk's steps (``f32.fused_se3_bwd_f32``) read both forms."""
     if common.runs_plain(x_raw, 'fused_se3_bwd'):
         return fused_se3_bwd_plain(field, x_raw, g, scales)
     # fused_level models kernel B's block, which this kernel runs; it
     # imports this module, so it is imported here.
     fl = importlib.import_module('hypernerf_tpu_torch.kernels.fused_level')
-    scales, (w_blob, b_blob, shapes) = _launch_args(field, x_raw, scales)
+    scales, (w_blob, b_blob, shapes, *f32_blobs) = _launch_args(field, x_raw,
+                                                                scales)
     p = x_raw.shape[0]
     build.check_tensor('g', g, (p, OUT_PAD), torch.float32, x_raw.device)
+    if f32_blobs:
+        dx_raw, grads = f32.fused_se3_bwd_f32(w_blob, f32_blobs[0], b_blob,
+                                              shapes, x_raw, g, scales)
+        n_w = sum(n * k for n, k in shapes)
+        return dx_raw, common.unpack_grads(grads[:n_w], grads[n_w:],
+                                           se3_layers(field), shapes)
     dx_raw, dw, db = fl.launch_field_bwd('se3', 'hn_fused_se3_bwd',
                                          fused_se3_bwd, [], x_raw, scales, g,
                                          w_blob, b_blob, shapes)

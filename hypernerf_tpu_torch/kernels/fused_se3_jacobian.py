@@ -50,8 +50,9 @@ from hypernerf_tpu_torch.kernels.fused_jacobian import (stream_rows,
                                                         streams_forward,
                                                         tangent_encode_dp,
                                                         tangent_trig)
-from hypernerf_tpu_torch.kernels.fused_se3 import (_encode, _launch_args,
-                                                   se3_layers)
+from hypernerf_tpu_torch.kernels.fused_se3 import (_encode, se3_layers)
+from hypernerf_tpu_torch.kernels.fused_se3 import \
+    _launch_args as _trunk_launch_args
 
 OUT = 24  # columns per point: [w (3) | v (3) | dw (9) | dv (9)]
 
@@ -194,10 +195,17 @@ fused_se3_jacobian_bwd_plain.calls = 0
 
 def _check_f32(field) -> None:
     """A float32 trunk's tangents are ROADMAP A.13.1's sub-item 4 (the
-    trunk's own check would name the trunk's)."""
+    trunk's own check admits a float32 trunk)."""
     if field.trunk.dtype == torch.float32:
         raise NotImplementedError(common.f32_refusal(
             4, f'the {field.kind} trunk\'s tangents'))
+
+
+def _launch_args(field, x_raw, scales):
+    """The trunk's checked launch inputs (``fused_se3._launch_args``) for
+    the tangent kernels, which are bf16: a float32 trunk is refused first."""
+    _check_f32(field)
+    return _trunk_launch_args(field, x_raw, scales)
 
 
 def _forward(field, x_raw, scales):
@@ -205,7 +213,6 @@ def _forward(field, x_raw, scales):
     kernel on CUDA tensors."""
     if common.runs_plain(x_raw, 'fused_se3_wv_tangents'):
         return fused_se3_jacobian_plain(field, x_raw, scales)
-    _check_f32(field)
     scales, (w_blob, b_blob, _) = _launch_args(field, x_raw, scales)
     p = x_raw.shape[0]
     out = torch.empty((p, OUT), dtype=torch.float32, device=x_raw.device)
@@ -276,7 +283,6 @@ def fused_se3_jacobian_bwd(field, x_raw, g, scales=None):
     per-block spill scratch (the trunk's plan spills)."""
     if common.runs_plain(x_raw, 'fused_se3_jacobian_bwd'):
         return fused_se3_jacobian_bwd_plain(field, x_raw, g, scales)
-    _check_f32(field)
     # fused_level models kernel B's block, which this kernel runs; it
     # imports fused_se3, so it is imported here.
     fl = importlib.import_module('hypernerf_tpu_torch.kernels.fused_level')

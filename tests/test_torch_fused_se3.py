@@ -234,7 +234,8 @@ def test_cuda_kernels_cover_the_flagship_trunk_only():
     that runs on the CPU too."""
     from hypernerf_tpu_torch.kernels.fused_se3 import check_covered
     check_covered(SE3Field(E, dtype=torch.bfloat16))
-    for bad in (SE3Field(E, dtype=torch.float32),
+    check_covered(SE3Field(E, dtype=torch.float32))  # the float32 trunk
+    for bad in (SE3Field(E, max_deg=6, dtype=torch.float32),
                 SE3Field(E, max_deg=6, dtype=torch.bfloat16),
                 SE3Field(E, min_deg=1, max_deg=9, dtype=torch.bfloat16),
                 SE3Field(4, dtype=torch.bfloat16),

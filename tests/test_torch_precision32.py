@@ -4,11 +4,13 @@ what runs them and what is still refused, checked on the CPU.
 
 - The gate: the float32 flagship level (translation warp, bendy sheet,
   posenc_orig template, a 39-column rgb condition) is admitted; every other
-  float32 table, layout, width and path, and rows 12 to 17, raise
+  float32 table, layout, width and path, and rows 14 to 17, raise
   NotImplementedError naming A.13.1's sub-item, before any library is
   needed (``common.runs_plain`` rebound as the card would take it). The
   per-module rows at float32 (8, 10, 11) are
-  ``tests/test_torch_precision32_modular.py``'s.
+  ``tests/test_torch_precision32_modular.py``'s, the screw warps' (rows 1
+  and 5 at table codes 1 and 2, rows 12 and 13)
+  ``tests/test_torch_precision32_screw.py``'s.
 - The CLI: ``--precision 32`` builds a float32 model the gate admits;
   ``train.main`` takes two steps at narrow widths equal to the JAX
   trainer's at float32 (the JAX trainer's batches and draws fed to the
@@ -72,7 +74,6 @@ from hypernerf_tpu_torch.kernels import (build, common, f32,
                                          fused_template_bwd_plain)
 from hypernerf_tpu_torch.kernels import fused_jacobian as K_jac
 from hypernerf_tpu_torch.kernels import fused_mlp as K_mlp
-from hypernerf_tpu_torch.kernels import fused_se3 as K_se3
 from hypernerf_tpu_torch.kernels.fused_level import (_check_covered,
                                                      _n_field_layers,
                                                      level_layers,
@@ -191,14 +192,13 @@ def _refusals():
             K_field.fused_field(mlp, 10, x11, torch.ones(71))
 
     return [
-        ('se3 level (rows 1, 5 at code 1)', level_of('se3'), 2),
-        ('quaternion level', level_call('quaternion'), 2),
         ('plane level (code 3)', level_call('plane'), 3),
+        ('plane_se3 level (code 4)', level_call('plane_se3'), 3),
         ('anneal level (the Nerfies layout)', level_of('anneal'), 3),
         ('nerf_embed level (47 + 8 conditions)', level_of('nerf_embed'), 3),
         ('use_viewdirs=False (a 0-column condition)',
          level_of('flagship', use_viewdirs=False), 3),
-        ('B.4 anneal_se3', level_of('anneal_se3'), 2),
+        ('B.4 anneal_se3', level_of('anneal_se3'), 3),
         ('B.4 plane_anneal', level_of('plane_anneal'), 3),
         ('plane template alone (row 8, return_points)',
          template_alone('plane'), 3),
@@ -206,8 +206,6 @@ def _refusals():
          template_alone('anneal'), 3),
         ('a field alone with a window row (rows 10, 11)',
          field_alone_windowed, 3),
-        ('rows 12, 13, the SE(3) trunk',
-         lambda: K_se3.check_covered(_model('se3').warp_field), 2),
         ('rows 14, 15, the translation Jacobian',
          lambda: K_jac._launch_args(_model().warp_field.mlp, 10, x11), 4),
         ('rows 16, 17, the trunk\'s tangents', se3_tangents, 4),
@@ -376,7 +374,10 @@ def test_float32_kernels_shared_memory_fits():
     the template alone's the same, a field alone's narrower) and the steps'
     static shared memory as f32_steps.cu declares it (the Step tile's), from
     the sources' constants and tiles: within an sm_90 block's 232,448
-    bytes, and the static ones within 48 KB."""
+    bytes, and the static ones within 48 KB. The screw level runs its trunk
+    in the level forward's carve-out (X of 128 features holds the trunk's
+    64, H of 256 its 128); the SE(3) trunk alone carves X of 64 features,
+    H of 128 and the Narrow tile's weight chunks, two blocks an SM."""
     chain, level, steps = (_source(n) for n in (
         'f32_chain.cuh', 'f32_level.cu', 'f32_steps.cu'))
     const = {k: int(v) for decl in re.findall(
@@ -410,6 +411,13 @@ def test_float32_kernels_shared_memory_fits():
         f32.LEVEL_SMEM_BYTES == 201984
     assert smem(const['kWarpEnc'], 128, depth * f32.WIDE_COLS // 2) == \
         f32.FIELD_SMEM_BYTES == 107776
+    assert ('kTrunkSmemBytes = 4 * smem_floats(kSe3EncP, kSe3W, '
+            'Narrow::kWTile);' in level)
+    assert smem(f32.SE3_ENC, 128, depth * f32.WIDE_COLS // 2) == \
+        f32.TRUNK_SMEM_BYTES == 103680
+    assert f32.SE3_ENC <= const['kTmplEnc'] and 2 * (
+        f32.TRUNK_SMEM_BYTES + 1024) <= 233472
+    assert 'static_assert(kTrunkSmemBytes <= 232448' in level
     assert f32.LEVEL_SMEM_BYTES <= f32.SMEM_LIMIT
     assert 2 * (f32.FIELD_SMEM_BYTES + 1024) <= 233472  # two blocks an SM
     assert 'static_assert(kSmemBytes <= 232448' in level
@@ -587,10 +595,17 @@ class _RecordingLibrary:
         self.calls = []
 
     def hn_f32_level_layout(self, n, k, count):
+        return self._table('kShapeN', 'kShapeK', 'kLayers', n, k)
+
+    def hn_f32_trunk_layout(self, n, k, count):
+        return self._table('kTrunkN', 'kTrunkK', 'kTrunkLayers', n, k)
+
+    @staticmethod
+    def _table(n_name, k_name, size, n, k):
         src = _source('f32_level.cu')
         table = [[int(v) for v in re.search(
-            name + r'\[kLayers\] = \{([\d, ]+)\}', src).group(1).split(',')]
-            for name in ('kShapeN', 'kShapeK')]
+            name + r'\[' + size + r'\] = \{([\d, ]+)\}', src).group(
+                1).split(',')] for name in (n_name, k_name)]
         for i, (a, c) in enumerate(zip(*table)):
             ctypes.c_int.from_address(n + 4 * i).value = a
             ctypes.c_int.from_address(k + 4 * i).value = c

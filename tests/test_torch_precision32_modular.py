@@ -4,9 +4,11 @@ backward (row 11) and kernel A at the static template's width, checked on
 the CPU.
 
 - The gate: a float32 template with 4 hyper coordinates or none and either
-  float32 field are admitted; what float32 still lacks (the screw warps, the
-  plane and Nerfies layouts, a window row) raises NotImplementedError naming
-  A.13.1's sub-item 2 or 3 before any library is needed.
+  float32 field are admitted; what float32 still lacks (the plane and
+  Nerfies layouts, a field's window row) raises NotImplementedError naming
+  A.13.1's sub-item 3 before any library is needed (the screw warps'
+  trunk, ``split_glo`` with them included, is admitted:
+  ``tests/test_torch_precision32_screw.py``).
 - The launches: each wrapper, run as on the card against a recording
   library, passes its C entry point (``hn_f32_template_fwd``,
   ``hn_f32_field_fwd``, the steps of ``f32_steps.cu``) as many arguments of
@@ -58,7 +60,6 @@ from hypernerf_tpu_torch.flagship import (F32_MODULAR_CASES, flagship_model,
                                           read_f32_modular_reference)
 from hypernerf_tpu_torch.kernels import build, common, f32
 from hypernerf_tpu_torch.kernels import fused_mlp as K_mlp
-from hypernerf_tpu_torch.kernels import fused_se3 as K_se3
 from hypernerf_tpu_torch.models.nerf import NerfModel
 from hypernerf_tpu_torch.training.losses import mse_loss
 from tests.test_torch_modular_model import _flax_params, _ray_dicts
@@ -154,12 +155,6 @@ def _refusals():
                     2, K_mlp.cond_width(tmpl)))
         return call
 
-    def se3_split_glo():
-        field = flagship_model('cpu', config='se3', share_glo=False,
-                               **F32).warp_field
-        with as_on_the_card():
-            K_se3.fused_se3_wv(field, x11)
-
     def windowed_field():
         mlp = flagship_model('cpu', config='split_glo', **F32).warp_field.mlp
         with as_on_the_card():
@@ -167,7 +162,6 @@ def _refusals():
                                     torch.ones(71))
 
     return [
-        ('split_glo with the se3 warp (its trunk)', se3_split_glo, 2),
         ('plane return_points (its template)', template_alone('plane'), 3),
         ('anneal template alone', template_alone('anneal'), 3),
         ('nerf_embed template alone (47 + 8 conditions)',
@@ -182,13 +176,14 @@ def _refusals():
                          ids=[r[0].split(' (')[0] for r in _refusals()])
 def test_gate_refuses_what_is_left(label, call, item):
     """What float32 still lacks on the per-module path raises naming
-    A.13.1's sub-item 2 (the screw warps) or 3 (the layouts and windows),
-    and nothing falls back to a plain version."""
+    A.13.1's sub-item 3 (the layouts and windows), and nothing falls back
+    to a plain version."""
     with pytest.raises(NotImplementedError,
                        match=f'A.13.1 sub-item {item}') as e:
         call()
     assert 'sub-item 1' not in str(e.value)
-    assert 1 not in common.F32_ITEMS
+    assert 'sub-item 2' not in str(e.value)
+    assert 1 not in common.F32_ITEMS and 2 not in common.F32_ITEMS
 
 
 # ---------------------------------------------------------------------------

@@ -480,7 +480,10 @@ def test_launch_matches_the_c_signature(field, monkeypatch):
 def test_no_transposed_blob():
     """The cotangent product reads the streamed weights MN-major, so the
     trunk's backwards pack no transposed weight blob: the launch arguments
-    have no such option, and the tangent wrapper shares the trunk's."""
+    have no such option, and the tangent wrapper's are the trunk's (after
+    refusing a float32 trunk, whose tangents have no kernel yet)."""
     assert list(inspect.signature(fs._launch_args).parameters) == [
         'field', 'x_raw', 'scales']
-    assert fj._launch_args is fs._launch_args
+    assert list(inspect.signature(fj._launch_args).parameters) == [
+        'field', 'x_raw', 'scales']
+    assert fj._trunk_launch_args is fs._launch_args

@@ -235,7 +235,8 @@ def test_se3_level_at_zero_rotation(kind):
 def test_se3_level_covered_check():
     """What the level kernels would refuse on CUDA tensors for the SE(3)
     family, decided on the CPU: the flagship's ``se3`` and ``quaternion``
-    levels pass, another band count or float32 does not; the packed layout
+    levels pass, in bf16 and (the float32 kernels, since A.13.1 sub-item 2)
+    in float32; another band count does not, in either; the packed layout
     has the 32 layers of the second compiled table."""
     from hypernerf_tpu_torch.flagship import flagship_model
     from hypernerf_tpu_torch.kernels.fused_level import (_check_covered,
@@ -249,7 +250,10 @@ def test_se3_level_covered_check():
             (128, 192), (128, 128), (8, 128), (8, 128)]
         assert shapes[9] == (64, 64) and shapes[16] == (256, 128)
         assert w.numel() == sum(n * k for n, k in shapes)
-    for kw in (dict(warp_max_deg=6), dict(compute_dtype='float32')):
+    _check_covered(flagship_model('cpu', config='se3',
+                                  compute_dtype='float32').level('coarse'))
+    for kw in (dict(warp_max_deg=6),
+               dict(warp_max_deg=6, compute_dtype='float32')):
         level = flagship_model('cpu', config='se3', **kw).level('coarse')
         with pytest.raises(NotImplementedError, match='A.13'):
             _check_covered(level)

@@ -15,7 +15,9 @@ kernels on a card that has no JAX.
       [--b4_out tests/data/fused_b4_jax_ref.npz] \
       [--f32_out tests/data/fused_f32_jax_ref.npz] \
       [--f32_modular_out tests/data/fused_f32_modular_jax_ref.npz] \
-      [--only se3|jacobian|anneal|plane|conditions|b4|f32|f32_modular]
+      [--f32_screw_out tests/data/fused_f32_screw_jax_ref.npz] \
+      [--only se3|jacobian|anneal|plane|conditions|b4|f32|f32_modular|
+              f32_screw]
 
 The weights are ``hypernerf_tpu_torch.flagship.load_probe_weights`` (numpy,
 seed 0), which the card redraws bit for bit; the inputs
@@ -109,6 +111,18 @@ the weights of every field layer and of
 holds the plain float32 versions to it; ``chip_smoke.py`` phase 34 holds
 rows 8, 10, 11 and kernel A at the static width to it. ``--only
 f32_modular`` writes that file alone (about 40 s).
+The float32 screw-warp file holds the JAX level kernel with the SE(3) and
+the quaternion warp and the JAX SE(3) trunk kernel at
+``compute_dtype='float32'`` (``flagship.F32_SCREW_LEVEL_CASES``: an
+``se3`` level with a window row, a ``quaternion`` level, an ``se3`` level
+whose heads are redrawn at the init's scale, small rotation vectors;
+``F32_SCREW_TRUNK_CASES``: the trunk on 500 rows without and with a window
+row; full width): outputs, and for the stored cotangent the gradients of
+the inputs, every bias and the weights of ``F32_SCREW_GRAD_LAYERS`` (a
+level) or ``F32_SCREW_TRUNK_DW`` (the trunk).
+``tests/test_torch_precision32_screw.py`` recomputes one case and holds
+the plain float32 versions to it; ``chip_smoke.py`` phase 35 holds rows
+1, 5, 12 and 13 to it. ``--only f32_screw`` writes that file alone.
 """
 
 from __future__ import annotations
@@ -864,6 +878,35 @@ def f32_modular_reference() -> dict:
     return arrays
 
 
+def f32_screw_reference() -> dict:
+    """Every array of the float32 screw-warp file: each case's inputs and
+    the JAX kernels' numbers at float32 (dW of some layers alone)."""
+    from hypernerf_tpu_torch.flagship import (F32_SCREW_GRAD_LAYERS,
+                                              F32_SCREW_LEVEL_CASES,
+                                              F32_SCREW_TRUNK_CASES,
+                                              F32_SCREW_TRUNK_DW,
+                                              f32_screw_model,
+                                              f32_screw_probe_inputs)
+    arrays = {}
+    for case, (config, level, _, _, alpha, _, heads) in \
+            F32_SCREW_LEVEL_CASES.items():
+        inputs = f32_screw_probe_inputs(case)
+        arrays.update({f'{case}/{k}': v for k, v in inputs.items()})
+        rays = {k: v for k, v in inputs.items() if k != 'cotangent'}
+        for k, v in jax_level_vjp(f32_screw_model(config, heads), level,
+                                  rays, inputs['cotangent'], alpha).items():
+            if not k.startswith('dw') or int(k[2:]) in F32_SCREW_GRAD_LAYERS:
+                arrays[f'{case}/{k}'] = v
+    for case, (_, alpha, _, heads) in F32_SCREW_TRUNK_CASES.items():
+        inputs = f32_screw_probe_inputs(case)
+        arrays.update({f'{case}/{k}': v for k, v in inputs.items()})
+        for k, v in jax_se3_trunk(f32_screw_model('se3', heads), inputs,
+                                  alpha).items():
+            if not k.startswith('dw') or int(k[2:]) in F32_SCREW_TRUNK_DW:
+                arrays[f'{case}/{k}'] = v
+    return arrays
+
+
 def jacobian_reference() -> dict:
     """Every array of the Jacobian file: each case's inputs and numbers."""
     from hypernerf_tpu_torch.flagship import (JACOBIAN_CASES, flagship_model,
@@ -946,6 +989,7 @@ def main():
     from hypernerf_tpu_torch.flagship import (ANNEAL_REFERENCE,
                                               B4_REFERENCE, F32_REFERENCE,
                                               F32_MODULAR_REFERENCE,
+                                              F32_SCREW_REFERENCE,
                                               GRAD_REFERENCE,
                                               LEVEL_REFERENCE,
                                               PLANE_REFERENCE,
@@ -966,12 +1010,15 @@ def main():
     parser.add_argument('--b4_out', default=B4_REFERENCE)
     parser.add_argument('--f32_out', default=F32_REFERENCE)
     parser.add_argument('--f32_modular_out', default=F32_MODULAR_REFERENCE)
+    parser.add_argument('--f32_screw_out', default=F32_SCREW_REFERENCE)
     parser.add_argument('--only', choices=('se3', 'jacobian', 'anneal',
                                            'plane', 'conditions', 'b4',
-                                           'f32', 'f32_modular'),
+                                           'f32', 'f32_modular',
+                                           'f32_screw'),
                         default=None, help='write the SE(3), the Jacobian, '
                         'the anneal, the plane, the conditions, the B.4, '
-                        'the float32 or the float32 per-module file alone')
+                        'the float32, the float32 per-module or the float32 '
+                        'screw-warp file alone')
     args = parser.parse_args()
     os.makedirs(os.path.dirname(os.path.abspath(args.se3_out)), exist_ok=True)
     if args.only in (None, 'f32'):
@@ -980,6 +1027,9 @@ def main():
     if args.only in (None, 'f32_modular'):
         np.savez_compressed(args.f32_modular_out, **f32_modular_reference())
         print(args.f32_modular_out)
+    if args.only in (None, 'f32_screw'):
+        np.savez_compressed(args.f32_screw_out, **f32_screw_reference())
+        print(args.f32_screw_out)
     if args.only in (None, 'b4'):
         np.savez_compressed(args.b4_out, **b4_reference())
         print(args.b4_out)

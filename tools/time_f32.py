@@ -2,10 +2,13 @@
 """Profile the float32 kernels (``--precision 32``, ``kernels/f32.py``) on
 the card: one call of each under ``torch.profiler``, at the probe weights,
 with TF32 off, its device time by CUDA kernel (kernels A and B and a field
-alone backward are sequences of steps): rows 1, 9 and 5 at R x S, and the
-per-module rows, 8 (the template alone at R = 8192, S = 128), 10 (each
-field alone at 8192 x 128 rows), 11 (each field alone backward at R x S
-rows) and 9 at the static template's width (R x 64):
+or the trunk alone backward are sequences of steps): rows 1, 9 and 5 at R
+x S, the per-module rows, 8 (the template alone at R = 8192, S = 128), 10
+(each field alone at 8192 x 128 rows), 11 (each field alone backward at R
+x S rows) and 9 at the static template's width (R x 64), and the screw
+warps' rows, 1 and 5 on the ``se3`` level with the window row at R x S,
+12 (the trunk alone at 8192 x 128 rows) and 13 (its backward at R x S
+rows):
 
   python3 tools/time_f32.py [--rays 16384] [--samples 128] [--parent DIR]
 
@@ -35,8 +38,10 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
 
 def _parent_f32_library(repo: str):
     """DIR's float32 level forward: its csrc/f32_level.cu and f32_steps.cu
-    compiled with this checkout's flags into build/parent_f32/."""
+    compiled with this checkout's flags into build/parent_f32/, its entry
+    point bound with DIR's own ctypes signature."""
     import ctypes
+    import importlib.util
 
     from hypernerf_tpu_torch.kernels import build
     csrc = os.path.join(os.path.abspath(repo), 'hypernerf_tpu_torch',
@@ -55,8 +60,14 @@ def _parent_f32_library(repo: str):
     so = str(out / 'libparent_f32.so')
     subprocess.run([nvcc, '-shared', '-o', so, *objs], check=True)
     lib = ctypes.CDLL(so)
+    spec = importlib.util.spec_from_file_location(
+        'parent_build', os.path.join(os.path.abspath(repo),
+                                     'hypernerf_tpu_torch', 'kernels',
+                                     'build.py'))
+    parent_build = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(parent_build)
     fn = lib.hn_f32_level_fwd
-    fn.argtypes, fn.restype = build._SIGNATURES['hn_f32_level_fwd']
+    fn.argtypes, fn.restype = parent_build._SIGNATURES['hn_f32_level_fwd']
     return lib
 
 
@@ -83,10 +94,14 @@ def compare_parent(parent: str, lv, shapes, card: str) -> bool:
 
         def launch(k):
             out, raw = outs[k]
-            build.check(libs[k].hn_f32_level_fwd(
+            fn = libs[k].hn_f32_level_fwd
+            # A library that takes the table code and the window row (the
+            # screw warps) is given the translation table's: 0 and none.
+            code = [0, None] if len(fn.argtypes) == 15 else []
+            build.check(fn(
                 z.data_ptr(), o.data_ptr(), d.data_ptr(), emb.data_ptr(),
                 cond.data_ptr(), cond.shape[1], wt.data_ptr(), b.data_ptr(),
-                out.data_ptr(), raw.data_ptr(), r, s, stream),
+                *code, out.data_ptr(), raw.data_ptr(), r, s, stream),
                 'hn_f32_level_fwd')
 
         times = {k: [] for k in libs}
@@ -122,8 +137,10 @@ def main() -> int:
     from hypernerf_tpu_torch.kernels import (build, fused_field,
                                              fused_field_bwd,
                                              fused_fields_bwd, fused_level,
+                                             fused_se3_bwd, fused_se3_wv,
                                              fused_template,
                                              fused_template_bwd)
+    from hypernerf_tpu_torch.kernels.fused_se3 import se3_encoding_scales
     from hypernerf_tpu_torch.kernels.fused_level import _launch_forward
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -135,6 +152,8 @@ def main() -> int:
                                               compute_dtype='float32'))
     static = load_probe_weights(flagship_model(
         'cuda', config='static', compute_dtype='float32'))
+    se3 = load_probe_weights(flagship_model('cuda', config='se3',
+                                            compute_dtype='float32'))
     lv = model.level('fine')
     r, s = args.rays, args.samples
     if args.parent:
@@ -170,6 +189,21 @@ def main() -> int:
                        lambda f=f: fused_field(f.mlp, f.n_freq, fx)),
                       (f'row 11 {name}',
                        lambda f=f: fused_field_bwd(f.mlp, f.n_freq, bx, fg)))
+        sv = se3.level('fine')
+        ws = se3_encoding_scales(sv.warp, cs.WINDOW_ALPHA, 'cuda')
+        _, s_raw = _launch_forward(sv, *ins, want_raw_t=True,
+                                   warp_scales=ws)
+        s_dx = fused_template_bwd(sv, s_raw, ins[4], g)[0]
+        tg = fg.clone()
+        tg[:, 6:] = 0.0
+        calls += (('row 1 se3 (window row)',
+                   lambda: fused_level(sv, *ins, warp_scales=ws)),
+                  ('row 5 se3 (window row)',
+                   lambda: fused_fields_bwd(sv, *ins[:4], s_dx, ws)),
+                  ('row 12 (8192 x 128 rows, window row)',
+                   lambda: fused_se3_wv(sv.warp, fx, ws)),
+                  ('row 13 (window row)',
+                   lambda: fused_se3_bwd(sv.warp, bx, tg, ws)))
         for _, fn in calls:  # warm up
             fn()
         for label, fn in calls:
