@@ -192,7 +192,7 @@ Phases, one line each; any failure ends the run with a non-zero exit:
      16 steps from the first), its time without the refresh and amortised
      over 16 steps, a 1024-ray step through the grid against the plain
      versions;
- 24. the kernels' JSON line, then the result line (after phase 35);
+ 24. the kernels' JSON line, then the result line (after phase 36);
  25. the trainer and its entry point: ``tools/make_synthetic_scene.py``
      writes an 8-frame 160x120 scene into a temporary directory (never the
      repo), where ``hypernerf_tpu_torch.train.main(argv)`` trains the
@@ -305,9 +305,9 @@ Phases, one line each; any failure ends the run with a non-zero exit:
      (row 1 in float32) and train step with the refresh (rows 8 and 10)
      inside the window; (d) ``train.main --precision 32`` with
      ``--share_GLO False`` and with ``--use_occupancy_grid True``; (e)
-     float32 ``plane``, ``anneal``, ``nerf_embed``, ``anneal_se3``,
-     ``plane_se3``, ``elastic_se3`` (its warp Jacobian) and ``plane`` with
-     ``return_points`` refused on the card naming A.13.1's sub-item;
+     float32 ``plane``, ``plane_se3``, ``elastic_se3`` (its warp
+     Jacobian) and ``plane`` with ``return_points`` refused on the card
+     naming A.13.1's sub-item;
  35. the screw warps at ``--precision 32`` (ROADMAP A.13.1 sub-item 2),
      TF32 off: (a) the float32 level forward with the SE(3) warp and the
      window row (R = 16384, S = 128) and the quaternion warp (R = 8192, S =
@@ -321,7 +321,24 @@ Phases, one line each; any failure ends the run with a non-zero exit:
      step on 1024 rays against the plain versions, an ``se3`` train step
      with two GLO tables, an ``se3`` frame with ``return_points``,
      ``query_sigma``; (d) ``train.main --precision 32 --warp_field se3``
-     and ``eval --precision 32`` of its checkpoint.
+     and ``eval --precision 32`` of its checkpoint;
+ 36. the sheet tables' Nerfies layout, window rows and conditions at
+     ``--precision 32`` (ROADMAP A.13.1 sub-item 3, first half), TF32 off:
+     (a) the float32 level forward and kernel A with the Nerfies layout and
+     its window row (``anneal`` at R = 16384, ``anneal_se3`` at R = 8192,
+     S = 128) and with the conditions 47 + 8, 8 + 8 and 0 (R = 8192), the
+     template alone in the Nerfies layout and with 47 + 8 (R = 8192, S =
+     128) against their float32 plain versions, the Nerfies ones timed in
+     turns with the flagship table's; the window probe (hyper_alpha 1.5
+     -> 2.5 moves row 1); against the JAX kernels' stored float32 numbers
+     (tests/data/fused_f32_nerfies_jax_ref.npz); (b) a field alone and its
+     backward with a window row against plain, timed in turns with the
+     same rows without; (c) with their launches counted and no plain call:
+     an ``anneal_se3`` frame and 64 + 128 train step, a ``nerf_embed``
+     step, ``query_sigma`` on ``anneal_se3``, ``train.main --precision 32
+     --use_nerfies_embed --warp_field se3`` and ``eval``; (d) the plane
+     tables and the Jacobians refused on the card, naming sub-items 3 and
+     4.
 Times come from CUDA events (kernels) or the host clock around work that
 ends in a synchronize (frames, steps). A kernel's bound is the larger of
 its matrix-product operations over the card's dense bf16 peak and its bytes
@@ -633,7 +650,10 @@ def composite_inputs(n_rays: int, samples: int, n_fine: int, seed: int,
 
 
 def grad_errors(got, want):
-    """(relative L2, max|d| / max|want|, max|d|) of two tensors."""
+    """(relative L2, max|d| / max|want|, max|d|) of two tensors (zeros for
+    two empty ones: a zero-width condition's cotangent)."""
+    if want.numel() == 0 and got.shape == want.shape:
+        return 0.0, 0.0, 0.0
     diff = (got - want).float()
     return ((diff.norm() / want.norm().clamp_min(1e-30)).item(),
             (diff.abs().max() / want.abs().max().clamp_min(1e-30)).item(),
@@ -3067,8 +3087,12 @@ def main() -> int:
     kernels += precision32_phase(kernels)
     kernels += precision32_modular_phase(kernels)
     kernels += precision32_screw_phase(kernels)
-    if len(kernels) != 39:
-        raise AssertionError(f'{len(kernels)} kernels in the line, want 39')
+    kernels += precision32_nerfies_phase(kernels)
+    if len(kernels) != 44:
+        raise AssertionError(f'{len(kernels)} kernels in the line, want 44')
+    phase(f'[24] chip_smoke.py: every phase passed in '
+          f'{time.perf_counter() - T_START:.1f} s, the build included; '
+          f'{CARD}')
     return finish(kernels)
 
 # -- the anneal configuration (the Nerfies windowed template encoding) --------
@@ -6123,16 +6147,16 @@ def f32_render_phase() -> float:
     return secs
 
 
-def f32_refusals_phase() -> None:
-    """Phase 34 (e): float32 configurations and paths that the float32
-    kernels do not cover (F32_REFUSED) refuse on the card, naming ROADMAP
-    A.13.1's sub-item (no plain fallback)."""
+def f32_refusals_phase(refused=None, tag='[34]') -> None:
+    """Phase 34 (e) (and 36 (d)): float32 configurations and paths that the
+    float32 kernels do not cover (``refused``, default F32_REFUSED) refuse
+    on the card, naming ROADMAP A.13.1's sub-item (no plain fallback)."""
     import torch
     from hypernerf_tpu_torch.flagship import flagship_model, spiral_rays
     from hypernerf_tpu_torch.ops.ray_dict import prepare_ray_dict
     rays = torch.as_tensor(spiral_rays([0])[0][:64]).cuda()
     said = []
-    for label, config, overrides, call in F32_REFUSED:
+    for label, config, overrides, call in refused or F32_REFUSED:
         model = flagship_model('cuda', config=config, **overrides, **F32)
         try:
             with torch.no_grad():
@@ -6146,7 +6170,7 @@ def f32_refusals_phase() -> None:
             raise AssertionError(f'float32 {label} ran on the card')
         del model
     torch.cuda.empty_cache()
-    phase(f'[34] float32 refused on the card, naming A.13.1\'s sub-item: '
+    phase(f'{tag} float32 refused on the card, naming A.13.1\'s sub-item: '
           + '; '.join(said))
 
 
@@ -6341,9 +6365,7 @@ F32_CLI_STEPS = 8  # steps of each train.main run of phase 34 (d)
 # Float32 configurations and paths still refused on the card (A.13.1):
 # (label, configuration, NerfConfig overrides, call keywords).
 F32_REFUSED = (
-    ('plane', 'plane', {}, {}), ('anneal', 'anneal', {}, {}),
-    ('nerf_embed', 'nerf_embed', {}, {}), ('anneal_se3', 'anneal_se3', {}, {}),
-    ('plane_se3', 'plane_se3', {}, {}),
+    ('plane', 'plane', {}, {}), ('plane_se3', 'plane_se3', {}, {}),
     ('elastic_se3', 'elastic_se3', {}, dict(return_warp_jacobian=True)),
     ('plane return_points', 'plane', {}, dict(return_points=True)))
 
@@ -7073,12 +7095,13 @@ def f32_screw_paths() -> dict:
     return counts
 
 
-def f32_screw_cli_phase() -> dict:
-    """Phase 35 (d): ``train.main([... '--precision', '32', '--warp_field',
-    'se3'])`` for F32_SCREW_CLI_STEPS steps at batch 4096 (64 + 64) on
-    phase 25's scene, every launch counted, no plain call, the losses
-    finite; then ``eval --precision 32`` of its checkpoint (the level
-    kernels on every chunk of every frame). Returns {run: launches}."""
+def f32_train_eval(tag: str, exp: str, flags, want: dict) -> dict:
+    """``train.main([... '--precision', '32', *flags])`` for
+    F32_SCREW_CLI_STEPS steps at batch 4096 (64 + 64) on phase 25's scene,
+    every launch counted, no plain call, the losses finite, the run's
+    NerfConfig holding ``want`` (fields and values); then ``eval
+    --precision 32`` of its checkpoint (the level kernels on every chunk of
+    every frame). Returns {run: launches}."""
     import io
     import os
     import tempfile
@@ -7091,22 +7114,21 @@ def f32_screw_cli_phase() -> dict:
     import make_synthetic_scene
     cwd = os.getcwd()
     n, out = F32_SCREW_CLI_STEPS, {}
+    label = 'train.main --precision 32 ' + ' '.join(flags)
     with tempfile.TemporaryDirectory() as tmp:
         os.chdir(tmp)
         try:
             scene = make_synthetic_scene.make_scene(
                 os.path.join(tmp, 'scene'), **SMOKE_SCENE)
-            argv = smoke_argv(scene, 'f32_se3', n, '--precision', '32',
-                              '--warp_field', 'se3')
-            trainer, launches = trainer_run(
-                argv, 'train.main --precision 32 --warp_field se3',
-                kernels=F32_STEP_KERNELS)
+            argv = smoke_argv(scene, exp, n, '--precision', '32', *flags)
+            trainer, launches = trainer_run(argv, label,
+                                            kernels=F32_STEP_KERNELS)
             metrics = trainer.last_metrics
-            if trainer.nerf_cfg.compute_dtype != 'float32' or \
-                    trainer.nerf_cfg.warp_field_type != 'se3' or not all(
-                        math.isfinite(v) for v in metrics.values()):
-                raise AssertionError(f'train.main --precision 32 '
-                                     f'--warp_field se3: {metrics}')
+            cfg = trainer.nerf_cfg
+            if cfg.compute_dtype != 'float32' or any(
+                    getattr(cfg, k) != v for k, v in want.items()) \
+                    or not all(math.isfinite(v) for v in metrics.values()):
+                raise AssertionError(f'{label}: {metrics}')
             speed = steps_per_second(trainer, n)
             del trainer
             out['train.main'] = launches
@@ -7117,33 +7139,38 @@ def f32_screw_cli_phase() -> dict:
                                 'llff', '--img_wh', str(SMOKE_SCENE['width']),
                                 str(SMOKE_SCENE['height']), '--split',
                                 'test_train', '--ckpt_path',
-                                os.path.join(tmp, 'ckpts', 'f32_se3',
-                                             f'step_{n}'),
-                                '--precision', '32', '--scene_name',
-                                'f32_se3'])
+                                os.path.join(tmp, 'ckpts', exp, f'step_{n}'),
+                                '--precision', '32', '--scene_name', exp])
             pngs = [f for f in os.listdir(os.path.join(
-                tmp, 'results', 'llff', 'f32_se3')) if f.endswith('.png')]
+                tmp, 'results', 'llff', exp)) if f.endswith('.png')]
             mean = [ln for ln in text.getvalue().splitlines()
                     if ln.startswith('Mean PSNR')]
             chunks = -(-SMOKE_SCENE['width'] * SMOKE_SCENE['height']
                        // CHUNK)
             out['eval'] = read_counts(
                 {k: 2 * chunks * len(pngs) for k in F32_STEP_KERNELS[:2]},
-                'eval --precision 32 of the float32 se3 checkpoint')
+                f'eval --precision 32 of the float32 {exp} checkpoint')
             if not pngs or not mean:
                 raise AssertionError(f'eval wrote {len(pngs)} PNGs')
         finally:
             os.chdir(cwd)
             sys.path.remove(tools)
-    phase(f'[35] train.main --precision 32 --warp_field se3: {n} steps '
-          f'(batch {SMOKE_BATCH}, 64+64) at {speed:.2f} steps/s; launches '
-          f'{out["train.main"]}; loss '
+    phase(f'{tag} {label}: {n} steps (batch {SMOKE_BATCH}, 64+64) at '
+          f'{speed:.2f} steps/s; launches {out["train.main"]}; loss '
           f'{metrics.get("train/loss", float("nan")):.5f}, val psnr '
           f'{metrics.get("val/psnr", float("nan")):.3f}; eval --precision '
           f'32 of step_{n}: {len(pngs)} PNGs, {mean[0]}, launches '
           f'{out["eval"]}; no plain call; '
           f'{time.perf_counter() - t_phase:.1f} s; {CARD}')
     return out
+
+
+def f32_screw_cli_phase() -> dict:
+    """Phase 35 (d): ``train.main([... '--precision', '32', '--warp_field',
+    'se3'])`` and ``eval --precision 32`` of its checkpoint
+    (``f32_train_eval``). Returns {run: launches}."""
+    return f32_train_eval('[35]', 'f32_se3', ('--warp_field', 'se3'),
+                          dict(warp_field_type='se3'))
 
 
 def precision32_screw_phase(kernels) -> list:
@@ -7199,6 +7226,592 @@ def precision32_screw_phase(kernels) -> list:
                               f'bound_ms_{key}': v[2][0]})
         out.append(entry)
     phase(f'[35] the screw --precision 32 phase took '
+          f'{time.perf_counter() - t_phase:.1f} s; {CARD}')
+    return out
+
+
+# -- the Nerfies layout, window rows and conditions at --precision 32 ------
+# (A.13.1 sub-item 3, first half; phase 36)
+
+# name -> (its source, the TPU kernel it replaces at float32, the counter its
+# launches count under, the path whose launches the line reports): rows 1,
+# 8 and 9 in the Nerfies layout with the template's window row, and rows 1
+# and 9 with the use_nerf_embed conditions (47 rgb columns and the alpha
+# condition), variants of the float32 kernels of phases 33 and 34.
+F32_NERFIES_ROWS = {
+    'fused_level_fwd_f32_nerfies': (
+        CSRC_DIR + 'f32_level.cu',
+        'hypernerf_tpu/ops/pallas/fused_level.py:1322',
+        'fused_level_fwd_f32', 'anneal_se3_f32 train'),
+    'fused_template_fwd_f32_nerfies': (
+        CSRC_DIR + 'f32_level.cu', 'hypernerf_tpu/ops/pallas/fused_mlp.py:656',
+        'fused_template_fwd_f32', 'anneal_se3 query_sigma'),
+    'fused_template_bwd_f32_nerfies': (
+        CSRC_DIR + 'f32_steps.cu', 'hypernerf_tpu/ops/pallas/fused_mlp.py:736',
+        'fused_template_bwd_f32', 'anneal_se3_f32 train'),
+    'fused_level_fwd_f32_conditions': (
+        CSRC_DIR + 'f32_level.cu',
+        'hypernerf_tpu/ops/pallas/fused_level.py:1322',
+        'fused_level_fwd_f32', 'nerf_embed_f32 train'),
+    'fused_template_bwd_f32_conditions': (
+        CSRC_DIR + 'f32_steps.cu', 'hypernerf_tpu/ops/pallas/fused_mlp.py:736',
+        'fused_template_bwd_f32', 'nerf_embed_f32 train')}
+PATHS.update(anneal_se3_f32=('anneal_se3', F32_FINE128),
+             nerf_embed_f32=('nerf_embed', F32_FINE128))
+STEP_LAUNCHES['anneal_se3_f32'] = STEP_LAUNCHES['flagship_f32']
+STEP_LAUNCHES['nerf_embed_f32'] = STEP_LAUNCHES['flagship_f32']
+# Phase 36 (a)'s variants: name -> (configuration, NerfConfig overrides, R):
+# the Nerfies layout at table codes 0 and 1 (a 27-column condition), the
+# conditions 47 + 8 (the alpha condition), 8 + 8 and 0 + 0 at code 0.
+F32_NERFIES_VARIANTS = {
+    'anneal': ('anneal', {}, TRAIN_RAYS),
+    'anneal_se3': ('anneal_se3', {}, 8192),
+    'nerf_embed': ('nerf_embed', {}, 8192),
+    'embed_only': ('nerf_embed', dict(use_viewdirs=False), 8192),
+    'no_viewdirs': ('flagship', dict(use_viewdirs=False), 8192)}
+# Against tests/data/fused_f32_nerfies_jax_ref.npz: outputs F32_REF_OUT of
+# the largest entry; a template's or a field's gradients F32_GRAD_L2 and
+# F32_GRAD_MAX; a level's gradients flow back through its float32 raw_t,
+# whose rounding the template's 2^9 band amplifies (a near-zero ReLU
+# flips), so each is held to F32_GRAD_L2 plus twice its floor in relative
+# L2, at most F32_NERFIES_REF_L2, and to F32_GRAD_MAX plus twice its floor
+# in max|d| of the largest entry, the floor measured here on the card: the
+# plain backward fed the kernel's raw_t against the same fed the raw_t of
+# float64 glue (tests/test_torch_precision32_nerfies.py's rule, there with
+# the plain forward's raw_t).
+F32_NERFIES_REF_L2 = 5e-2
+# The window probe: hyper_alpha 1.5 -> 2.5 moves row 1's output by more than
+# a hundred times the kernel's tolerance against plain (17.8 % relative L2
+# in the plain level at the probe weights, on the CPU).
+F32_WINDOW_MOVE = 100 * F32_OUT_L2
+
+
+def f32_nerfies_level_inputs(model, n_rays: int, samples: int, seed: int,
+                             nerf_alpha):
+    """The level's inputs on the card (``flagship.probe_inputs``) with the
+    model's conditions (``flagship.f32_nerfies_conditions``): ([z, o, d,
+    embed, rgb condition], the alpha condition or None)."""
+    import torch
+    from hypernerf_tpu_torch.flagship import (f32_nerfies_conditions,
+                                              probe_inputs)
+    arrays = probe_inputs(n_rays, samples, seed)
+    alpha, arrays['rgb_cond'] = f32_nerfies_conditions(
+        model, arrays['directions'], arrays['embed'], nerf_alpha)
+    return ([torch.from_numpy(v).cuda() for v in arrays.values()],
+            None if alpha is None else torch.from_numpy(alpha).cuda())
+
+
+def f32_nerfies_windows(level, extra):
+    """(the trunk's window row or None, the template's or None) of a level
+    at the alphas ``extra``, on the card."""
+    from hypernerf_tpu_torch.kernels.fused_mlp import template_scales
+    from hypernerf_tpu_torch.kernels.fused_se3 import se3_encoding_scales
+    tmpl = template_scales(level, extra.get('nerf_alpha'),
+                           extra.get('hyper_alpha'), 'cuda')
+    if level.warp.kind == 'translation':
+        return None, tmpl
+    return se3_encoding_scales(level.warp, extra['warp_alpha'], 'cuda'), tmpl
+
+
+def f32_nerfies_kernels(models, extra) -> dict:
+    """Phase 36 (a): rows 1 and 9 of each F32_NERFIES_VARIANTS level at S =
+    128 (the alphas ``extra``: the window rows mid-ramp) and row 8 in the
+    Nerfies layout and with the 47 + 8 conditions (R = 8192, S = 128)
+    against their float32 plain versions (rows 1 and 8 within F32_OUT_L2 /
+    F32_OUT_MAX, row 9 F32_GRAD_L2 / F32_GRAD_MAX: phase 33's limits),
+    timed; the Nerfies rows in turns with the flagship table's kernel on
+    inputs of the same shape (this, flagship, flagship, this); the window
+    probe. Returns {name: {shape: (ms, plain ms, bound, max|d|, turns)}}."""
+    import torch
+    from hypernerf_tpu_torch.kernels import (fused_level, fused_template,
+                                             fused_template_bwd)
+    from hypernerf_tpu_torch.kernels.fused_level import _launch_forward
+    from hypernerf_tpu_torch.kernels.fused_mlp import cond_width
+    rows = {name: {} for name in F32_NERFIES_ROWS}
+    flag = models['flagship'].level('fine')
+
+    def report(name, key, label, errs, t, b, tol, turns=None):
+        beside = '' if turns is None else (
+            f'; in turns with the flagship table\'s ({turns[1]:.3f}, '
+            f'{turns[2]:.3f} between {turns[0]:.3f}, {turns[3]:.3f})')
+        phase(f'[36] {label}: worst relative L2 {errs[0]:.3e}, max|d| '
+              f'{errs[1]:.3e} of the largest entry (tol {tol[0]} / '
+              f'{tol[1]}); kernel {t[0]:.3f} ms, plain {t[1]:.3f} ms; bound '
+              f'{b[0]:.3f} ms ({b[1]}, {b[0] / t[0]:.1%}), FFMA ceiling '
+              f'{b[2]:.3f} ms ({b[2] / t[0]:.1%}){beside}; {CARD}')
+        if errs[0] > tol[0] or errs[1] > tol[1]:
+            raise AssertionError(f'{label}: the kernel disagrees with plain: '
+                                 f'{errs}')
+        if name is not None:
+            rows[name][key] = (*t, b, errs[2], turns)
+
+    def in_turns(this, that, iters):
+        return [cuda_ms(f, iters) for f in (this, that, that, this)]
+
+    with torch.no_grad():
+        for variant, (config, _, r) in F32_NERFIES_VARIANTS.items():
+            s, model = 128, models[variant]
+            lv = model.level('fine')
+            ws, ts = f32_nerfies_windows(lv, extra)
+            args, alpha = f32_nerfies_level_inputs(model, r, s, 36 + r // 4096,
+                                                   extra['nerf_alpha'])
+            kw = dict(warp_scales=ws, tmpl_scales=ts, alpha_cond=alpha)
+            out, raw_t = _launch_forward(lv, *args, want_raw_t=True, **kw)
+            want, want_raw = plain_forward(lv, args, ws, ts, alpha)
+            e = [grad_errors(out, want), grad_errors(raw_t, want_raw)]
+            errs = tuple(max(x[i] for x in e) for i in range(3))
+            del out, raw_t
+            nerfies = ts is not None
+            name = (None if variant in ('embed_only', 'no_viewdirs') else
+                    'fused_level_fwd_f32_' + ('nerfies' if nerfies
+                                              else 'conditions'))
+            key = f'{variant}_R{r}_S{s}'
+            fwd = lambda: fused_level(lv, *args, **kw)
+            t1 = (cuda_ms(fwd, 3), cuda_ms(
+                lambda: plain_forward(lv, args, ws, ts, alpha), 1))
+            turns = None
+            cw = cond_width(lv)
+            if variant == 'anneal':
+                fargs = level_inputs(r, s, seed=36 + r // 4096)
+                turns = in_turns(fwd, lambda: fused_level(flag, *fargs), 3)
+                # The window is seen: hyper_alpha 1.5 -> 2.5 moves row 1.
+                wider = f32_nerfies_windows(lv, {**extra,
+                                                 'hyper_alpha': 2.5})[1]
+                moved = grad_errors(fused_level(lv, *args, tmpl_scales=wider),
+                                    fused_level(lv, *args, tmpl_scales=ts))[0]
+                phase(f'[36] window probe: hyper_alpha {extra["hyper_alpha"]}'
+                      f' -> 2.5 moves row 1\'s output by relative L2 '
+                      f'{moved:.3e} (must exceed {F32_WINDOW_MOVE})')
+                if not moved > F32_WINDOW_MOVE:
+                    raise AssertionError('row 1 float32 cannot see the '
+                                         'template\'s window row')
+            report(name, key, f'row 1 float32 {variant} R={r} S={s} '
+                   f'(condition {cw} + {0 if alpha is None else 8}, window '
+                   f'{"on" if nerfies else "none"}): out and raw_t', errs,
+                   t1, f32_level_bound(lv, r, s, cw),
+                   (F32_OUT_L2, F32_OUT_MAX), turns)
+            g = torch.randn(r * s, 4, generator=torch.Generator(
+                device='cuda').manual_seed(36), device='cuda')
+            got = fused_template_bwd(lv, want_raw, args[4], g, ts, alpha)
+            names = TEMPLATE_GRAD_NAMES + (['d_alpha_cond'] if alpha
+                                           is not None else [])
+            worst = check_grads(
+                f'row 9 (kernel A) float32 {variant} vs plain R={r} S={s}',
+                names, [got[0], got[1], *got[2]] + (
+                    [got[3]] if alpha is not None else []),
+                plain_template_bwd(lv, want_raw, args[4], g, ts, alpha),
+                F32_GRAD_L2, F32_GRAD_MAX, tag='[36]')
+            del got
+            bwd = lambda: fused_template_bwd(lv, want_raw, args[4], g, ts,
+                                             alpha)
+            t9 = (cuda_ms(bwd, 1), cuda_ms(lambda: plain_template_bwd(
+                lv, want_raw, args[4], g, ts, alpha), 1))
+            turns = None
+            if variant == 'anneal':
+                _, f_raw = _launch_forward(flag, *fargs, want_raw_t=True)
+                turns = in_turns(bwd, lambda: fused_template_bwd(
+                    flag, f_raw, fargs[4], g), 1)
+                del fargs, f_raw
+            name = (None if name is None else
+                    name.replace('level_fwd', 'template_bwd'))
+            report(name, key, f'row 9 (kernel A) float32 {variant} R={r} '
+                   f'S={s}', worst, t9, f32_template_bwd_bound(lv, r, s, cw),
+                   (F32_GRAD_L2, F32_GRAD_MAX), turns)
+            del args, want, want_raw, g
+            torch.cuda.empty_cache()
+        # Row 8: the template alone in the Nerfies layout and with the
+        # 47 + 8 conditions, in turns with the flagship's.
+        r, s = 8192, 128
+        fx, fcond = template_rows(r, s, seed=361, static=False)
+        for variant in ('anneal', 'nerf_embed'):
+            model = models[variant]
+            tmpl = model.template_of('fine')
+            ts = f32_nerfies_windows(model.level('fine'), extra)[1]
+            (_, _, _, _, cond), alpha = f32_nerfies_level_inputs(
+                model, r, 1, 362, extra['nerf_alpha'])
+            x = fx
+            got = fused_template(tmpl, x, cond, ts, alpha)
+            errs = grad_errors(got, plain_template(tmpl, x, cond, ts, alpha))
+            fwd = lambda: fused_template(tmpl, x, cond, ts, alpha)
+            t8 = (cuda_ms(fwd, 3), cuda_ms(lambda: plain_template(
+                tmpl, x, cond, ts, alpha), 1))
+            turns = in_turns(fwd, lambda: fused_template(
+                models['flagship'].template_of('fine'), fx, fcond), 3)
+            report('fused_template_fwd_f32_nerfies' if variant == 'anneal'
+                   else None, f'{variant}_R{r}_S{s}',
+                   f'row 8 float32 template alone {variant} R={r} S={s} '
+                   f'(condition {cond.shape[1]} + '
+                   f'{0 if alpha is None else 8})', errs, t8,
+                   f32_template_bound(tmpl, r * s, s, cond.shape[1]),
+                   (F32_OUT_L2, F32_OUT_MAX), turns)
+        del fx, fcond
+    torch.cuda.empty_cache()
+    return rows
+
+
+def f32_window_fields(model) -> dict:
+    """Phase 36 (b): rows 10 and 11 with a window row (the warp field at
+    warp alpha 4.5 of its 10 bands, the sheet at 3.5 of its 7) against
+    their float32 plain versions, row 10 on 8192 x 128 rows, row 11 on
+    16384 x 128, timed in turns with the same rows without a window.
+    Returns {row: {field: (ms, plain ms, bound, max|d|, turns)}}."""
+    import torch
+    from hypernerf_tpu_torch.kernels import fused_field, fused_field_bwd
+    from hypernerf_tpu_torch.kernels.fused_field import encoding_scales
+    out = {'10': {}, '11': {}}
+    with torch.no_grad():
+        for field, alpha in (('warp_field', 4.5), ('hyper_sheet_mlp', 3.5)):
+            f = getattr(model, field)
+            row = encoding_scales(f.n_freq, 8, alpha, 'cuda')
+            x = field_rows(8192 * 128, seed=363)
+            errs = grad_errors(fused_field(f.mlp, f.n_freq, x, row),
+                               plain_field(f.mlp, f.n_freq, x, row))
+            fwd = lambda: fused_field(f.mlp, f.n_freq, x, row)
+            t = (cuda_ms(fwd, 3), cuda_ms(
+                lambda: plain_field(f.mlp, f.n_freq, x, row), 1))
+            turns = [cuda_ms(fn, 3) for fn in (
+                fwd, lambda: fused_field(f.mlp, f.n_freq, x),
+                lambda: fused_field(f.mlp, f.n_freq, x), fwd)]
+            b = f32_field_bound(f.mlp, x.shape[0])
+            phase(f'[36] row 10 float32 {field} alone with a window row '
+                  f'(alpha {alpha}) on {x.shape[0]} rows: relative L2 '
+                  f'{errs[0]:.3e}, max|d| {errs[1]:.3e} (tol {F32_OUT_L2} / '
+                  f'{F32_OUT_MAX}); kernel {t[0]:.3f} ms, plain {t[1]:.3f} '
+                  f'ms; bound {b[0]:.3f} ms ({b[1]}); without the window in '
+                  f'turns {turns[1]:.3f}, {turns[2]:.3f} between '
+                  f'{turns[0]:.3f}, {turns[3]:.3f}; {CARD}')
+            if errs[0] > F32_OUT_L2 or errs[1] > F32_OUT_MAX:
+                raise AssertionError(f'row 10 windowed {field}: {errs}')
+            out['10'][field] = (*t, b, errs[2], turns)
+            x = field_rows(16384 * 128, seed=364)
+            g = torch.randn(x.shape[0], 8, generator=torch.Generator(
+                device='cuda').manual_seed(364), device='cuda')
+            dx, grads = fused_field_bwd(f.mlp, f.n_freq, x, g, row)
+            from hypernerf_tpu_torch.kernels.fused_field import field_layers
+            names = ['dx_raw'] + [f'{k}{i}' for i in range(
+                len(field_layers(f.mlp))) for k in ('dW', 'db')]
+            worst = check_grads(
+                f'row 11 float32 {field} alone backward with a window row '
+                f'vs plain on {x.shape[0]} rows', names, [dx, *grads],
+                plain_field_bwd(f.mlp, f.n_freq, x, g, row), F32_GRAD_L2,
+                F32_GRAD_MAX, tag='[36]')
+            del dx, grads
+            bwd = lambda: fused_field_bwd(f.mlp, f.n_freq, x, g, row)
+            t = (cuda_ms(bwd, 1), cuda_ms(
+                lambda: plain_field_bwd(f.mlp, f.n_freq, x, g, row), 1))
+            turns = [cuda_ms(fn, 1) for fn in (
+                bwd, lambda: fused_field_bwd(f.mlp, f.n_freq, x, g),
+                lambda: fused_field_bwd(f.mlp, f.n_freq, x, g), bwd)]
+            b = f32_field_bwd_bound(f.mlp, x.shape[0])
+            phase(f'[36] row 11 float32 {field} backward with the window: '
+                  f'kernel {t[0]:.3f} ms, plain {t[1]:.3f} ms; bound '
+                  f'{b[0]:.3f} ms ({b[1]}); without the window in turns '
+                  f'{turns[1]:.3f}, {turns[2]:.3f} between {turns[0]:.3f}, '
+                  f'{turns[3]:.3f}; {CARD}')
+            out['11'][field] = (*t, b, worst[2], turns)
+            del x, g
+    torch.cuda.empty_cache()
+    return out
+
+
+def f32_level_floor(case, level_name, cuda, raw_t):
+    """{gradient name: (relative L2, max|d| of the largest entry)} by
+    which the plain level's gradients of a stored level case move when its
+    backward is fed ``raw_t`` (the kernel's) instead of the raw_t of its
+    forward with float64 arithmetic outside the MLPs."""
+    import torch
+    from hypernerf_tpu_torch.flagship import (LEVEL_INPUTS, f32_nerfies_extra,
+                                              f32_nerfies_model)
+    from hypernerf_tpu_torch.kernels import (fused_fields_bwd_plain,
+                                             fused_level_plain,
+                                             fused_template_bwd_plain)
+    lv = f32_nerfies_model(case, 'cuda').double().level(level_name)
+    ws, ts = (None if t is None else t.double()
+              for t in f32_nerfies_windows(lv, f32_nerfies_extra(case)))
+    args = [cuda[k].double() for k in LEVEL_INPUTS]
+    alpha = cuda.get('alpha_cond')
+    alpha = None if alpha is None else alpha.double()
+    cot = cuda['cotangent'].double()
+
+    def grads(raw):
+        dx_t, d_cond, t_grads, d_alpha = fused_template_bwd_plain(
+            lv, raw, args[4], cot, ts, alpha)
+        *rays, f_grads = fused_fields_bwd_plain(lv, *args[:4], dx_t, ws)
+        out = dict(zip([f'd_{k}' for k in LEVEL_INPUTS[:4]], rays))
+        out['d_rgb_cond'] = d_cond
+        if d_alpha is not None:
+            out['d_alpha_cond'] = d_alpha
+        for l, (dw, db) in enumerate(zip(*[iter(f_grads + t_grads)] * 2)):
+            out.update({f'dw{l}': dw, f'db{l}': db})
+        return out
+
+    with torch.no_grad():
+        exact = grads(fused_level_plain(
+            lv, *args, return_raw_t=True, warp_scales=ws, tmpl_scales=ts,
+            alpha_cond=alpha)[1])
+        rounded = grads(raw_t.double())
+    return {k: grad_errors(rounded[k], v)[:2] for k, v in exact.items()}
+
+
+def f32_nerfies_reference() -> None:
+    """Phase 36 (a), the stored numbers: rows 1, 9 and 5 (a level through
+    its autograd Function: the level forward, then kernels A and B), rows 8
+    and 9 (the template alone through its Function) and rows 10 and 11 (a
+    field alone with its window row) against the JAX kernels' float32
+    numbers (tests/data/fused_f32_nerfies_jax_ref.npz): outputs within
+    F32_REF_OUT of the largest entry; gradients F32_NERFIES_REF_L2 (a
+    level) or F32_GRAD_L2 and F32_GRAD_MAX."""
+    import torch
+    from hypernerf_tpu_torch.flagship import (F32_NERFIES_FIELD_CASES,
+                                              F32_NERFIES_LEVEL_CASES,
+                                              F32_NERFIES_TEMPLATE_CASES,
+                                              LEVEL_INPUTS,
+                                              f32_nerfies_extra,
+                                              f32_nerfies_grad_layers,
+                                              f32_nerfies_model,
+                                              read_f32_nerfies_reference)
+    from hypernerf_tpu_torch.kernels import (common, fused_field,
+                                             fused_level, fused_template)
+    from hypernerf_tpu_torch.kernels.fused_field import (encoding_scales,
+                                                         field_layers)
+    from hypernerf_tpu_torch.kernels.fused_level import (_launch_forward,
+                                                         level_layers)
+    from hypernerf_tpu_torch.kernels.fused_mlp import (template_layers,
+                                                       template_scales)
+    worst, floors = 0.0, {}
+    for case, arrays in read_f32_nerfies_reference().items():
+        model = f32_nerfies_model(case, 'cuda')
+        cuda = {k: torch.tensor(v).cuda() for k, v in arrays.items()}
+        keep = f32_nerfies_grad_layers(case)
+        if case in F32_NERFIES_FIELD_CASES:
+            _, _, module, _, alpha, _ = F32_NERFIES_FIELD_CASES[case]
+            f = getattr(model, module)
+            x = cuda['x_raw'].requires_grad_(True)
+            out = fused_field(f.mlp, f.n_freq, x, encoding_scales(
+                f.n_freq, 8, alpha, 'cuda'))
+            layers = field_layers(f.mlp)
+            names, inputs, floor = ['dx'], [x], None
+            cot = cuda['cotangent'][:, :out.shape[1]]
+        elif case in F32_NERFIES_LEVEL_CASES:
+            lv = model.level(F32_NERFIES_LEVEL_CASES[case][2])
+            ws, ts = f32_nerfies_windows(lv, f32_nerfies_extra(case))
+            names = [f'd_{k}' for k in LEVEL_INPUTS]
+            inputs = [cuda[k].requires_grad_(True) for k in LEVEL_INPUTS]
+            alpha = cuda.get('alpha_cond')
+            if alpha is not None:
+                names.append('d_alpha_cond')
+                inputs.append(alpha.requires_grad_(True))
+            out = fused_level(lv, *inputs[:5], warp_scales=ws,
+                              tmpl_scales=ts, alpha_cond=alpha)
+            layers = level_layers(lv)
+            with torch.no_grad():
+                raw_t = _launch_forward(lv, *inputs[:5], want_raw_t=True,
+                                        warp_scales=ws, tmpl_scales=ts,
+                                        alpha_cond=alpha)[1]
+            floor = f32_level_floor(case, F32_NERFIES_LEVEL_CASES[case][2],
+                                    cuda, raw_t)
+            cot = cuda['cotangent']
+        else:
+            tmpl = model.template_of(F32_NERFIES_TEMPLATE_CASES[case][2])
+            ep = f32_nerfies_extra(case)
+            ts = template_scales(tmpl, ep.get('nerf_alpha'),
+                                 ep.get('hyper_alpha'), 'cuda')
+            names = ['dx', 'd_rgb_cond']
+            inputs = [cuda['x_raw'].requires_grad_(True),
+                      cuda['rgb_cond'].requires_grad_(True)]
+            alpha = cuda.get('alpha_cond')
+            if alpha is not None:
+                names.append('d_alpha_cond')
+                inputs.append(alpha.requires_grad_(True))
+            out = fused_template(tmpl, *inputs[:2], ts, alpha)
+            layers = template_layers(tmpl.template)
+            cot, floor = cuda['cotangent'], None
+        err = ((out.detach() - cuda['out']).abs().max()
+               / cuda['out'].abs().max()).item()
+        worst = max(worst, err)
+        params = common.layer_params(layers)
+        got = list(torch.autograd.grad(out, inputs + params, cot))
+        want_names, want_got = list(names), got[:len(inputs)]
+        for l in range(len(layers)):
+            want_names.append(f'db{l}')
+            want_got.append(got[len(inputs) + 2 * l + 1])
+            if l in keep:
+                want_names.append(f'dw{l}')
+                want_got.append(got[len(inputs) + 2 * l])
+        label = f'{case} float32 against the stored JAX gradients'
+        if floor is None:
+            check_grads(label, want_names, want_got,
+                        [cuda[n] for n in want_names], F32_GRAD_L2,
+                        F32_GRAD_MAX, tag='[36]')
+        else:
+            hold_floored(label, want_names, want_got,
+                         [cuda[n] for n in want_names], floor)
+            floors[case] = max(v[0] for v in floor.values())
+        if not err <= F32_REF_OUT:
+            raise AssertionError(f'{case} float32 against the stored JAX '
+                                 f'outputs: {err:.3e}')
+        del model, out, inputs, got
+    torch.cuda.empty_cache()
+    phase(f'[36] rows 1, 5, 8, 9, 10, 11 against the stored JAX float32 '
+          f'numbers of the Nerfies layout, window rows and conditions: '
+          f'outputs max|d| {worst:.3e} of the largest entry at worst (tol '
+          f'{F32_REF_OUT}); the levels\' raw_t floors (relative L2, worst '
+          f'gradient) ' + ', '.join(f'{c} {v:.3e}' for c, v in
+                                     floors.items()))
+
+
+def hold_floored(label, names, got, want, floor):
+    """Hold each gradient of a level to its stored JAX value within
+    F32_GRAD_L2 + 2 floor (at most F32_NERFIES_REF_L2) in relative L2 and
+    F32_GRAD_MAX + 2 floor in max|d| of the largest entry, ``floor`` its
+    ``f32_level_floor``; prints the worst against its limit."""
+    import torch
+    worst = (0.0, None, 0.0)
+    for name, a, b in zip(names, got, want):
+        l2, mx, _ = grad_errors(a, b)
+        f2, fm = floor[name]
+        lim = (min(F32_GRAD_L2 + 2 * f2, F32_NERFIES_REF_L2),
+               F32_GRAD_MAX + 2 * fm)
+        if not (l2 <= lim[0] and mx <= lim[1]
+                and torch.isfinite(a).all()):
+            raise AssertionError(f'{label}: {name} relative L2 {l2:.3e} '
+                                 f'(limit {lim[0]:.3e}, floor {f2:.3e}), max '
+                                 f'{mx:.3e} (limit {lim[1]:.3e}, floor '
+                                 f'{fm:.3e})')
+        if l2 / lim[0] > worst[0]:
+            worst = (l2 / lim[0], name, l2)
+    phase(f'[36] {label}: {len(names)} outputs, worst relative L2 '
+          f'{worst[2]:.3e} at {worst[1]} ({worst[0]:.0%} of its limit, '
+          f'F32_GRAD_L2 + 2 x its raw_t floor)')
+
+
+def f32_nerfies_paths() -> dict:
+    """Phase 36 (c): at full width, with their launches and no plain call:
+    an ``anneal_se3`` float32 frame (64 + 64, fully annealed) and its 64 +
+    128 train step (from ANNEAL_PROBE_STEP: the window rows mid-ramp; rows
+    1, 9 in the Nerfies layout, B with the trunk, kernels vs plain on 1024
+    rays), a ``nerf_embed`` 64 + 128 step (rows 1 and 9 with both
+    conditions), ``query_sigma`` on ``anneal_se3`` (row 8 in the Nerfies
+    layout). Returns {path: launches}."""
+    import torch
+    from hypernerf_tpu_torch.flagship import W, H, flagship_model, spiral_rays
+    from hypernerf_tpu_torch.training.renderer import ImageRenderer
+    counts = {}
+    frames = spiral_rays([0, 30])  # a warm-up frame, then one timed
+    keep = ('rgb', 'depth', 'acc')
+    model = flagship_model('cuda', seed=0, config='anneal_se3', **F32)
+    chunks_per_frame = -(-W * H // CHUNK)
+    secs, counts['anneal_se3 frame'] = time_frames(
+        ImageRenderer(model, chunk=CHUNK, keep=keep, levels=('fine',),
+                      quantize=True), frames, keep,
+        {n: v * chunks_per_frame
+         for n, v in F32_SCREW_CHUNK['level'].items()},
+        'anneal_se3 float32 frame')
+    phase(f'[36] anneal_se3 float32 frame: {secs:.3f} s/frame ({W}x{H}, '
+          f'64+64, chunk {CHUNK}, fully annealed); launches '
+          f'{counts["anneal_se3 frame"]}; no plain call; {CARD}')
+    del model
+    torch.cuda.empty_cache()
+    for path in ('anneal_se3_f32', 'nerf_embed_f32'):
+        times = {}
+        counts[f'{path} train'] = train_path(path, '[36]', times,
+                                             F32_STEP_TOLS)
+        TIMES[f'{path}_step'] = times
+        flagship = TIMES.get('f32', {}).get('step', {}).get('secs',
+                                                            float('nan'))
+        phase(f'[36] {path} 64 + 128 step: {times["secs"] * 1e3:.1f} '
+              f'ms/step, peak {times["peak"]:.2f} GiB; the flagship\'s at '
+              f'float32 (phase 33) {flagship * 1e3:.1f} ms/step; {CARD}')
+        torch.cuda.empty_cache()
+    counts['anneal_se3 query_sigma'] = query_sigma_path(
+        'anneal_se3', {'fused_se3_fwd_f32': 1, 'fused_field_fwd_f32': 1,
+                       'fused_template_fwd_f32': 1}, '[36]', **F32)
+    torch.cuda.empty_cache()
+    return counts
+
+
+# Phase 36 (d): what float32 still refuses on the card: the plane tables
+# (sub-item 3) and the Jacobians (sub-item 4).
+F32_STILL_REFUSED = (
+    ('plane_anneal', 'plane_anneal', {}, {}),
+    ('plane_anneal_se3', 'plane_anneal_se3', {}, {}),
+    ('elastic_quaternion', 'elastic_quaternion', {},
+     dict(return_warp_jacobian=True)))
+
+
+def precision32_nerfies_phase(kernels) -> list:
+    """Phase 36: the sheet tables' Nerfies layout, window rows and
+    conditions at ``--precision 32`` (ROADMAP A.13.1 sub-item 3, first
+    half): TF32 off; (a) rows 1, 8 and 9 in the Nerfies layout (table
+    codes 0 and 1) and with the condition widths 47 + 8, 8 + 8 and 0
+    against their plain versions, timed, the window probe, and against the
+    stored JAX numbers; (b) rows 10 and 11 with a window row; (c) an
+    ``anneal_se3`` frame and 64 + 128 step, a ``nerf_embed`` step,
+    ``query_sigma``, then ``train.main --precision 32 --use_nerfies_embed
+    --warp_field se3`` and ``eval``; (d) every path's launches counted with
+    no plain call (in (c)), and the plane tables and the Jacobians refused
+    on the card naming sub-items 3 and 4. Returns the five entries of the
+    line."""
+    import torch
+    from hypernerf_tpu_torch.flagship import (anneal_extra_params,
+                                              flagship_model,
+                                              load_probe_weights)
+    t_phase = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    extra = anneal_extra_params()
+    models = {'flagship': load_probe_weights(flagship_model(
+        'cuda', **F32_FINE128))}
+    for variant, (config, over, _) in F32_NERFIES_VARIANTS.items():
+        models[variant] = load_probe_weights(flagship_model(
+            'cuda', config=config, **over, **F32_FINE128))
+    rows = f32_nerfies_kernels(models, extra)
+    fields = f32_window_fields(models['flagship'])
+    del models
+    torch.cuda.empty_cache()
+    f32_nerfies_reference()
+    counts = f32_nerfies_paths()
+    cli = f32_train_eval('[36]', 'f32_anneal_se3', (
+        '--use_nerfies_embed', '--warp_field', 'se3'), dict(
+        warp_field_type='se3', use_original_embed=False))
+    f32_refusals_phase(F32_STILL_REFUSED, '[36]')
+    main_key = {'fused_level_fwd_f32_nerfies': f'anneal_R{TRAIN_RAYS}_S128',
+                'fused_template_fwd_f32_nerfies': 'anneal_R8192_S128',
+                'fused_template_bwd_f32_nerfies': f'anneal_R{TRAIN_RAYS}_S128',
+                'fused_level_fwd_f32_conditions': 'nerf_embed_R8192_S128',
+                'fused_template_bwd_f32_conditions': 'nerf_embed_R8192_S128'}
+    out = []
+    # The paths of each variant: the Nerfies layout's (anneal_se3 and the
+    # CLI's --use_nerfies_embed run), the conditions' (nerf_embed).
+    paths = {'nerfies': {**{p: c for p, c in counts.items()
+                            if p.startswith('anneal_se3')}, **cli},
+             'conditions': {p: c for p, c in counts.items()
+                            if p.startswith('nerf_embed')}}
+    for name, (source, replaces, counter, path) in F32_NERFIES_ROWS.items():
+        main = rows[name][main_key[name]]
+        entry = dict(name=name, route='cuda', source=source,
+                     replaces=replaces, launches=counts[path][counter],
+                     max_abs_err=max(v[3] for v in rows[name].values()),
+                     ms=main[0], plain_ms=main[1], bound_ms=main[2][0],
+                     bound_by=main[2][1], library_ms=None,
+                     ffma_ceiling_ms=main[2][2], dtype='float32',
+                     shape=main_key[name],
+                     launches_by_path={
+                         p: c[counter] for p, c in
+                         paths[name.rsplit('_', 1)[1]].items()
+                         if c.get(counter)})
+        if main[4] is not None:
+            entry['flagship_ms_in_turns'] = main[4][1:3]
+        for key, v in rows[name].items():
+            if key != main_key[name]:
+                entry.update({f'ms_{key}': v[0], f'plain_ms_{key}': v[1],
+                              f'bound_ms_{key}': v[2][0]})
+        if name == 'fused_template_fwd_f32_nerfies':
+            for row, by_field in fields.items():
+                for field, v in by_field.items():
+                    entry[f'row{row}_window_{field}_ms'] = v[0]
+        out.append(entry)
+    phase(f'[36] the Nerfies-layout --precision 32 phase took '
           f'{time.perf_counter() - t_phase:.1f} s; {CARD}')
     return out
 

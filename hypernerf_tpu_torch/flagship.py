@@ -11,7 +11,7 @@ and gradients (``LEVEL_REFERENCE``, ``GRAD_REFERENCE``, ``MODULAR_REFERENCE``,
 ``SE3_REFERENCE``, ``JACOBIAN_REFERENCE``, ``ANNEAL_REFERENCE``,
 ``PLANE_REFERENCE``, ``CONDITION_REFERENCE``, ``B4_REFERENCE``,
 ``F32_REFERENCE``, ``F32_MODULAR_REFERENCE``, ``F32_SCREW_REFERENCE``,
-written by ``tools/make_level_reference.py``).
+``F32_NERFIES_REFERENCE``, written by ``tools/make_level_reference.py``).
 
 Shared by ``chip_smoke.py``, ``tools/profile_render.py``,
 ``tools/profile_train.py`` and ``tools/make_level_reference.py``.
@@ -768,6 +768,150 @@ def read_f32_screw_reference(path: str = F32_SCREW_REFERENCE):
     """{case: {name: array}} of the float32 screw-warp reference file."""
     out = {case: {} for case in (*F32_SCREW_LEVEL_CASES,
                                  *F32_SCREW_TRUNK_CASES)}
+    with np.load(path) as f:
+        for key in f.files:
+            case, name = key.split('/', 1)
+            out[case][name] = f[key]
+    return out
+
+
+# The JAX kernels' numbers at ``compute_dtype='float32'`` on the sheet
+# tables' Nerfies layout, window rows and conditions (``--precision 32``
+# with ``anneal``, ``anneal_se3``, ``nerf_embed`` and its 8-column
+# condition without view directions; the JAX kernels refuse a 0-column
+# condition, a zero-width block, which the JAX model renders on its dense
+# modules) at the probe weights, in interpret mode, at the
+# alphas of ANNEAL_PROBE_STEP (``f32_nerfies_extra``: the window rows
+# mid-ramp). A level case: (configuration, NerfConfig overrides, level,
+# rays, samples per ray, seed); a template case (the template alone, kernel
+# A its backward): (configuration, overrides, level, rows, rows per
+# condition row, seed); a field case (a field alone with a window row):
+# ``F32_MODULAR_CASES``' form, its window alpha the fifth entry. To keep
+# the file small, dW of ``f32_nerfies_grad_layers`` alone; every db.
+F32_NERFIES_REFERENCE = os.path.join(os.path.dirname(LEVEL_REFERENCE),
+                                     'fused_f32_nerfies_jax_ref.npz')
+_EMBED = dict(use_nerf_embed=True, use_alpha_condition=True,
+              use_rgb_condition=True)
+F32_NERFIES_LEVEL_CASES = {
+    'level_anneal': ('anneal', {}, 'fine', 4, 128, 121),
+    'level_anneal_se3': ('anneal_se3', {}, 'coarse', 4, 64, 122),
+    'level_nerf_embed': ('nerf_embed', {}, 'fine', 4, 64, 123),
+    'level_embed_only': ('nerf_embed', dict(use_viewdirs=False), 'coarse', 4,
+                         64, 124),
+}
+F32_NERFIES_TEMPLATE_CASES = {
+    'template_anneal': ('anneal', {}, 'coarse', 256, 64, 126),
+    'template_anneal_embed': ('anneal', _EMBED, 'fine', 256, 64, 127),
+    'template_nerf_embed': ('nerf_embed', {}, 'fine', 256, 64, 128),
+}
+F32_NERFIES_FIELD_CASES = {
+    'warp_window': ('field', 'flagship', 'warp_field', 300, 4.5, 129),
+    'sheet_window': ('field', 'flagship', 'hyper_sheet_mlp', 300, 3.5, 130),
+}
+
+
+def f32_nerfies_model(case: str, device='cpu') -> NerfModel:
+    """The float32 model of an F32_NERFIES case at the probe weights."""
+    if case in F32_NERFIES_FIELD_CASES:
+        config, over = F32_NERFIES_FIELD_CASES[case][1], {}
+    else:
+        config, over = (F32_NERFIES_LEVEL_CASES.get(case)
+                        or F32_NERFIES_TEMPLATE_CASES[case])[:2]
+    return load_probe_weights(flagship_model(
+        device, config=config, compute_dtype='float32', **over))
+
+
+def f32_nerfies_extra(case: str) -> dict:
+    """The alphas of an F32_NERFIES level or template case: those of
+    ANNEAL_PROBE_STEP (nerf_alpha 10, hyper_alpha 1.5 of the Nerfies
+    template's 4 bands, warp_alpha 0.375 of the trunk's 8; a configuration
+    without the Nerfies encoding has none)."""
+    from hypernerf_tpu_torch.training.train_state import compute_extra_params
+    config, over = (F32_NERFIES_LEVEL_CASES.get(case)
+                    or F32_NERFIES_TEMPLATE_CASES[case])[:2]
+    return compute_extra_params(flagship_config(config, **over),
+                                TrainConfig(), ANNEAL_PROBE_STEP)
+
+
+def f32_nerfies_grad_layers(case: str):
+    """The layers whose dW an F32_NERFIES case's file keeps, by index in
+    the level's (or the template's) table: the template's first layer, its
+    alpha head and rgb layer 0 (and a level's sheet head), which the
+    layout, the window row and the conditions reach; every layer of a
+    field."""
+    if case in F32_NERFIES_FIELD_CASES:
+        return tuple(range(7))
+    if case in F32_NERFIES_TEMPLATE_CASES:
+        return (0, 10, 11)
+    screw = 'warp_field_type' in CONFIGS[F32_NERFIES_LEVEL_CASES[case][0]]
+    t0 = 16 if screw else 14
+    return (t0 - 1, t0, t0 + 10, t0 + 11)
+
+
+def f32_nerfies_conditions(model: NerfModel, dirs, embed, nerf_alpha):
+    """The (alpha, rgb) conditions ``model.get_condition_inputs`` gives
+    rays of (N, 3) ``dirs`` and (N, 8) nerf embedding ``embed``, as numpy:
+    alpha None or (N, 8), rgb (N, C), C of 0 included."""
+    cfg = model.config
+    alpha, rgb = None, []
+    if cfg.use_viewdirs:
+        rgb.append(posenc_orig(torch.from_numpy(dirs), cfg.dir_freq).numpy()
+                   if cfg.use_original_embed
+                   else anneal_condition(dirs, nerf_alpha))
+    if cfg.use_nerf_embed:
+        if cfg.use_alpha_condition:
+            alpha = embed.copy()
+        if cfg.use_rgb_condition:
+            rgb.append(embed)
+    rgb = (np.concatenate(rgb, 1) if rgb
+           else np.zeros((dirs.shape[0], 0), np.float32))
+    return alpha, rgb.astype(np.float32)
+
+
+def f32_nerfies_probe_inputs(case: str, model: NerfModel = None) -> dict:
+    """Numpy inputs and cotangent of an F32_NERFIES case (``model``: its
+    ``f32_nerfies_model``, made when None). A level case: the
+    ``LEVEL_INPUTS`` with the model's rgb condition of the rays and, with
+    one, 'alpha_cond' (R, 8), and 'cotangent' (R * S, 4). A template case:
+    'x_raw' (P, 8) [points | hyper coordinates of deviation 0.3 | 0],
+    'rgb_cond' (P / S, C), 'alpha_cond' (P / S, 8) with one, 'cotangent'
+    (P, 4). A field case: ``modular_probe_inputs``'."""
+    if case in F32_NERFIES_FIELD_CASES:
+        return modular_probe_inputs(case, F32_NERFIES_FIELD_CASES)
+    model = model or f32_nerfies_model(case)
+    nerf_alpha = f32_nerfies_extra(case).get('nerf_alpha')
+    if case in F32_NERFIES_LEVEL_CASES:
+        *_, n_rays, samples, seed = F32_NERFIES_LEVEL_CASES[case]
+        inputs = probe_inputs(n_rays, samples, seed)
+        alpha, inputs['rgb_cond'] = f32_nerfies_conditions(
+            model, inputs['directions'], inputs['embed'], nerf_alpha)
+        if alpha is not None:
+            inputs['alpha_cond'] = alpha
+        inputs['cotangent'] = probe_cotangents(n_rays, samples,
+                                               seed)['level']
+        return inputs
+    *_, rows, per, seed = F32_NERFIES_TEMPLATE_CASES[case]
+    rs = np.random.RandomState(seed + 3000)
+    rays = probe_inputs(rows // per, per, seed)
+    pts = (rays['origins'][:, None]
+           + rays['z_vals'][..., None] * rays['directions'][:, None])
+    x_raw = np.concatenate([pts.reshape(-1, 3), rs.randn(rows, 4) * 0.3,
+                            np.zeros((rows, 1))], 1)
+    alpha, rgb = f32_nerfies_conditions(model, rays['directions'],
+                                         rays['embed'], nerf_alpha)
+    out = {'x_raw': x_raw.astype(np.float32), 'rgb_cond': rgb,
+           'cotangent': rs.randn(rows, 4).astype(np.float32)}
+    if alpha is not None:
+        out['alpha_cond'] = alpha
+    return out
+
+
+def read_f32_nerfies_reference(path: str = F32_NERFIES_REFERENCE):
+    """{case: {name: array}} of the float32 Nerfies-layout reference
+    file."""
+    out = {case: {} for case in (*F32_NERFIES_LEVEL_CASES,
+                                 *F32_NERFIES_TEMPLATE_CASES,
+                                 *F32_NERFIES_FIELD_CASES)}
     with np.load(path) as f:
         for key in f.files:
             case, name = key.split('/', 1)

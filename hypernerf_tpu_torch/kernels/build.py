@@ -69,23 +69,27 @@ _SIGNATURES = {
     'hn_tangents_fwd_plan': ([_I, _P, _P, _P, _I], _I),
     'hn_fused_composite_fwd': ([_P] * 8 + [_L, _I, _I, _I, _I, _P], _I),
     'hn_fused_composite_bwd': ([_P] * 9 + [_L, _I, _I, _I, _P], _I),
-    'hn_f32_level_fwd': ([_P] * 5 + [_I, _P, _P, _I] + [_P] * 3
+    'hn_f32_level_fwd': ([_P] * 5 + [_I, _P, _P, _I] + [_P] * 6
                          + [_L, _I, _P], _I),
     'hn_f32_level_layout': ([_P, _P, _I], _I),
     'hn_f32_trunk_layout': ([_P, _P, _I], _I),
     'hn_f32_trunk_fwd': ([_P] * 5 + [_L, _P], _I),
-    'hn_f32_template_fwd': ([_P, _L, _I, _P, _I, _P, _P, _P, _L, _I, _P], _I),
-    'hn_f32_field_fwd': ([_I] + [_P] * 4 + [_L, _P], _I),
+    'hn_f32_template_fwd': ([_P, _L, _I, _P, _I] + [_P] * 6 + [_L, _I, _P],
+                            _I),
+    'hn_f32_field_fwd': ([_I] + [_P] * 5 + [_L, _P], _I),
     'hn_f32_rowprod': ([_P, _L, _I, _P, _L, _I, _P, _L, _I, _P, _I, _P, _L,
                         _P, _L, _I, _L, _P], _I),
     'hn_f32_dw': ([_P, _L, _I, _P, _L, _I, _P, _L, _I, _P, _L, _L, _I, _L,
                    _L, _I, _P], _I),
     'hn_f32_reduce': ([_P, _I, _L, _L, _P, _P], _I),
     'hn_f32_field_encode': ([_P] * 4 + [_I] * 3 + [_P, _L, _I, _L, _P], _I),
-    'hn_f32_tmpl_encode': ([_P, _L, _I, _I, _I, _P, _L, _I, _L, _P], _I),
+    'hn_f32_tmpl_encode': ([_P, _L, _I, _I, _I, _P, _L, _I, _L, _I, _P, _P],
+                           _I),
     'hn_f32_cond_rows': ([_P, _I, _I, _P, _L, _I, _L, _P], _I),
-    'hn_f32_tmpl_posenc_bwd': ([_P, _L, _I, _I, _I, _P, _L, _P, _L, _L, _P],
-                               _I),
+    'hn_f32_tmpl_posenc_bwd': ([_P, _L, _I, _I, _I, _P, _L, _P, _L, _L, _I,
+                                _P, _P], _I),
+    'hn_f32_alpha_cond_bwd': ([_P, _L, _P, _P, _I, _I, _P, _P, _L, _L, _I,
+                               _P], _I),
     'hn_f32_fields_rows': ([_P] * 3 + [_I, _P, _L, _P, _L, _I, _P, _L, _I,
                                        _I, _P, _P, _L, _P], _I),
     'hn_f32_ray_sum': ([_P, _L, _I, _I, _P, _L, _P], _I),

@@ -82,15 +82,16 @@ TABLE_CODES = {name: code for code, name in enumerate(
 SE3_LAYERS = slice(0, 9)
 SE3_FLAGSHIP = dict(embed=8, min_deg=0, max_deg=8)
 NOT_COVERED = ('the CUDA kernels cover the flagship widths (bf16, and '
-               'float32 on the flagship level tables, the translation, '
-               'SE(3) and quaternion warps with the bendy sheet, and their '
-               'modules alone); other widths are ROADMAP item A.13 (kernel '
-               'generality)')
+               'float32 on the sheet tables: the translation, SE(3) and '
+               'quaternion warps with the bendy sheet, the posenc_orig and '
+               'Nerfies templates, and their modules alone); other widths '
+               'are ROADMAP item A.13 (kernel generality)')
 # What float32 on the card still lacks, by ROADMAP A.13.1's sub-item (1,
-# the per-module path, and 2, the screw warps, are ported; a tag is never
+# the per-module path, 2, the screw warps, and 3's first half, the sheet
+# tables' layouts, windows and conditions, are ported; a tag is never
 # reused).
 F32_ITEMS = {
-    3: 'the plane and Nerfies layouts and the conditions\' widths',
+    3: 'the plane tables (table codes 3 to 8)',
     4: 'the Jacobians, rows 14 to 17'}
 
 
@@ -99,10 +100,13 @@ def f32_refusal(item: int, what: str) -> str:
     with: ``what``, and the sub-item of ROADMAP A.13.1 that ports it."""
     return (f'{what} in float32 on the card: ROADMAP A.13.1 sub-item '
             f'{item}, {F32_ITEMS[item]}; the float32 kernels cover the '
-            f'flagship level tables (the translation, SE(3) or quaternion '
-            f'warp, the bendy sheet, the posenc_orig template, a 39-column '
-            f'rgb condition) and their modules alone: either field, the '
-            f'SE(3) trunk, the template with 4 hyper coordinates or none '
+            f'sheet tables (table codes 0 to 2: the translation, SE(3) or '
+            f'quaternion warp with the bendy sheet; the posenc_orig '
+            f'template, or the Nerfies one with its window row; rgb '
+            f'conditions of 39, 47, 8 or 0 columns, Nerfies 27, 35, 8 or '
+            f'0; the 8-column alpha condition or none) and their modules '
+            f'alone: either field, with or without a window row, the SE(3) '
+            f'trunk, the template with 4 hyper coordinates or none '
             f'(static)')
 
 

@@ -220,12 +220,16 @@ __device__ void tile_layer(const Seg (&segs)[NSeg], const float* w, int ldw,
 
 // Feature f of posenc_orig(x, F) of a `ch`-channel point, the JAX package's
 // layout [x | sin bands | cos bands], band k of channel c at k * ch + c:
-// x's channel c is xs[c * stride]. Band arguments x * 2^k are exact; sin /
+// x's channel c is xs[c * stride]. Without `ident`, the Nerfies posenc from
+// degree 0: [sin bands | cos bands]. Band arguments x * 2^k are exact; sin /
 // cos are the accurate ones (no fast math).
 __device__ __forceinline__ float posenc_feature(const float* xs, int stride,
-                                                int ch, int F, int f) {
-  if (f < ch) return xs[f * stride];
-  f -= ch;
+                                                int ch, int F, int f,
+                                                bool ident = true) {
+  if (ident) {
+    if (f < ch) return xs[f * stride];
+    f -= ch;
+  }
   const int nb = ch * F;
   const bool is_cos = f >= nb;
   if (is_cos) f -= nb;
@@ -235,17 +239,24 @@ __device__ __forceinline__ float posenc_feature(const float* xs, int stride,
 
 // The VJP of posenc_orig for channel c of x: g_id + sum_k 2^k (cos(x 2^k)
 // g_sin[k] - sin(x 2^k) g_cos[k]); g holds the encoding's cotangent [x |
-// sin | cos] of `ch` channels and F bands at stride 1.
+// sin | cos] of `ch` channels and F bands at stride 1 (without `ident`,
+// [sin | cos] and no identity term), each column first times the window
+// row w (the segment's weights, aligned with g) where there is one.
 __device__ __forceinline__ float posenc_vjp(float x, const float* g, int ch,
-                                            int F, int c) {
+                                            int F, int c, bool ident = true,
+                                            const float* w = nullptr) {
+  const int at = ident ? ch : 0;
   float acc = 0.f;
   for (int k = 0; k < F; ++k) {
     const float scale = (float)(1 << k);
     const float arg = x * scale;
-    const float gs = g[ch + k * ch + c], gc = g[ch + ch * F + k * ch + c];
+    const int fs = at + k * ch + c, fc = at + ch * F + k * ch + c;
+    const float gs = w != nullptr ? g[fs] * w[fs] : g[fs];
+    const float gc = w != nullptr ? g[fc] * w[fc] : g[fc];
     acc += scale * (cosf(arg) * gs - sinf(arg) * gc);
   }
-  return g[c] + acc;
+  if (!ident) return acc;
+  return (w != nullptr ? g[c] * w[c] : g[c]) + acc;
 }
 
 }  // namespace f32

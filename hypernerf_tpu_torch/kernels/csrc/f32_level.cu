@@ -10,16 +10,24 @@
 // linear 128 -> 128 trunk logit, the w and v heads, then the retraction in
 // fp32, se3_trunk.cuh `retract`; the optional window row multiplies the
 // trunk's encoding), the bendy sheet (6 x 64, 4 outputs, posenc 7), the
-// posenc_orig template (8 x 256 with a skip after layer 4, bottleneck 128,
-// the alpha head on the bottleneck, the rgb branch 4 x 128 on [bottleneck |
-// rgb condition]). The bf16 level forward is level_fwd.cuh's, untouched.
+// template (8 x 256 with a skip after layer 4, bottleneck 128, the alpha
+// head on the bottleneck, the rgb branch 4 x 128 on [bottleneck | rgb
+// condition of 0 to 48 columns]) in either layout of the sheet tables: the
+// posenc_orig encoding, or with the template's window row the Nerfies one
+// (the xyz as posenc_orig has it, the 4 hyper coordinates over degrees
+// 0..3 without identity, 95 columns in the same 128, each times its
+// window weight). An alpha condition (8 columns a ray, or none) is dotted
+// with the alpha head's condition weights and added to its output. Layout,
+// window row, condition widths and the alpha condition are run-time
+// arguments. The bf16 level forward is level_fwd.cuh's, untouched.
 //
 // Its stages also run alone, on raw rows, for the per-module path at
 // float32: the template alone (hn_f32_template_fwd, replacing
 // hypernerf_tpu/ops/pallas/fused_mlp.py `_fwd_call` :656; 4 hyper
 // coordinates or, for a template without them, 0, a run-time argument;
-// any rows per condition row, 1 included), a field alone
-// (hn_f32_field_fwd, the warp field or the sheet, replacing
+// any rows per condition row, 1 included; the level's layouts and
+// conditions), a field alone (hn_f32_field_fwd, the warp field or the
+// sheet, with or without a window row, replacing
 // hypernerf_tpu/ops/pallas/fused_field.py `_fused` :495) and the SE(3)
 // trunk alone (hn_f32_trunk_fwd, [w | v] of raw rows, replacing
 // hypernerf_tpu/ops/pallas/fused_se3.py `_fused` :374).
@@ -79,6 +87,8 @@ static_assert(kTrunkK[0] == kSe3EncP && kTrunkN[0] == kSe3W &&
 constexpr int kEmbed = 8;
 constexpr int kWarpFreq = 10, kSheetFreq = 7, kSheetOut = 4;
 constexpr int kXyzFreq = 10, kHyperFreq = 6;
+constexpr int kNerfHyperFreq = 4;  // the Nerfies layout's hyper bands
+constexpr int kAlphaCond = kEmbed;  // an alpha condition's columns
 constexpr int kWarpEnc = 80, kSheetEnc = 64, kTmplEnc = 128;
 constexpr int kBneck = 128, kCondPad = 48;
 
@@ -165,17 +175,22 @@ __device__ __forceinline__ void layer2(const Net& a, int l, const float* x0,
 }
 
 // A field's encoding into X, `enc` features: [posenc_orig(p, F) |
-// embedding | 0], the embedding of tile row r at emb[rows[r] * emb_ld].
+// embedding | 0], the embedding of tile row r at emb[rows[r] * emb_ld],
+// each feature times the window row where there is one (`scales`, enc
+// fp32, or null).
 __device__ __forceinline__ void encode_field(float* X, const float* pts,
                                              int F, int enc,
                                              const float* emb, int emb_ld,
-                                             const int* rows) {
+                                             const int* rows,
+                                             const float* scales = nullptr) {
   for (int i = threadIdx.x; i < enc * kRows; i += kThreads) {
     const int f = i / kRows, r = i % kRows;
     const int n_pe = 3 * (1 + 2 * F);
-    X[i] = f < n_pe ? posenc_feature(pts + r, kRows, 3, F, f)
-           : f < n_pe + kEmbed ? emb[(long long)rows[r] * emb_ld + f - n_pe]
-                               : 0.f;
+    const float v =
+        f < n_pe            ? posenc_feature(pts + r, kRows, 3, F, f)
+        : f < n_pe + kEmbed ? emb[(long long)rows[r] * emb_ld + f - n_pe]
+                            : 0.f;
+    X[i] = scales != nullptr ? v * scales[f] : v;
   }
 }
 
@@ -250,28 +265,39 @@ __device__ __forceinline__ void retract_row(const Tiles& s, int t,
 }
 
 // The template's encoding of [warped | hyper] (s.raw, `hyper` hyper
-// coordinates: 4, or 0 for a template without them) into X:
-// [posenc_orig(warped, 10) | posenc_orig(hyper, 6) | 0].
-__device__ __forceinline__ void encode_template(const Tiles& s, int hyper) {
+// coordinates: 4, or 0 for a template without them) into X: without a
+// window row [posenc_orig(warped, 10) | posenc_orig(hyper, 6) | 0]; with
+// one (`scales`, kTmplEnc fp32: the Nerfies layout) [posenc_orig(warped,
+// 10) | sin | cos of hyper over degrees 0..3 | 0], each feature times its
+// window weight.
+__device__ __forceinline__ void encode_template(const Tiles& s, int hyper,
+                                                const float* scales) {
+  const bool nerfies = scales != nullptr;
+  const int hf = nerfies ? kNerfHyperFreq : kHyperFreq;
+  const int n_xyz = 3 * (1 + 2 * kXyzFreq);
+  const int n_hyp = hyper * ((nerfies ? 0 : 1) + 2 * hf);
   for (int i = threadIdx.x; i < kTmplEnc * kRows; i += kThreads) {
     const int f = i / kRows, r = i % kRows;
-    const int n_xyz = 3 * (1 + 2 * kXyzFreq);
-    const int n_hyp = hyper * (1 + 2 * kHyperFreq);
-    s.X[i] = f < n_xyz ? posenc_feature(s.raw + r, kRows, 3, kXyzFreq, f)
-             : f < n_xyz + n_hyp
-                 ? posenc_feature(s.raw + 3 * kRows + r, kRows, hyper,
-                                  kHyperFreq, f - n_xyz)
-                 : 0.f;
+    const float v =
+        f < n_xyz ? posenc_feature(s.raw + r, kRows, 3, kXyzFreq, f)
+        : f < n_xyz + n_hyp
+            ? posenc_feature(s.raw + 3 * kRows + r, kRows, hyper, hf,
+                             f - n_xyz, !nerfies)
+            : 0.f;
+    s.X[i] = nerfies ? v * scales[f] : v;
   }
 }
 
 // The template (layers 14..29) on its encoding in X: the rgb logits into
 // s.head's rows 0..2, the raw sigma into s.sigma. The rgb branch's input
 // is [bottleneck (H1 0..127) | condition | 0], the condition of tile row r
-// at cond[s.ray[r] * cond_w].
+// at cond[s.ray[r] * cond_w]; the alpha condition of tile row r (alpha,
+// kAlphaCond columns a ray, or null) dotted with the alpha head's condition
+// weights (alpha_w, kAlphaCond fp32) is added to its raw sigma.
 __device__ __forceinline__ void template_stage(const Net& a, const Tiles& s,
-                                               const float* cond,
-                                               int cond_w) {
+                                               const float* cond, int cond_w,
+                                               const float* alpha,
+                                               const float* alpha_w) {
   layer1(a, 14, s.X, s.H0, true, s.ws);
   layer1(a, 15, s.H0, s.H1, true, s.ws);
   layer1(a, 16, s.H1, s.H0, true, s.ws);
@@ -288,7 +314,17 @@ __device__ __forceinline__ void template_stage(const Net& a, const Tiles& s,
   }
   layer1(a, 23, s.H0, s.H1, false, s.ws);  // the bottleneck, linear
   layer1(a, 24, s.H1, s.head, false, s.ws);  // the alpha head
-  if (threadIdx.x < kRows) s.sigma[threadIdx.x] = s.head[threadIdx.x];
+  if (threadIdx.x < kRows) {
+    const int t = threadIdx.x;
+    float sigma = s.head[t];
+    if (alpha != nullptr) {
+      const float* ar = alpha + (long long)s.ray[t] * kAlphaCond;
+      float dot = 0.f;
+      for (int c = 0; c < kAlphaCond; ++c) dot = fmaf(ar[c], alpha_w[c], dot);
+      sigma += dot;
+    }
+    s.sigma[t] = sigma;
+  }
   layer1(a, 25, s.H1, s.H0, true, s.ws);
   layer1(a, 26, s.H0, s.H1, true, s.ws);
   layer1(a, 27, s.H1, s.H0, true, s.ws);
@@ -316,6 +352,9 @@ struct Args {
   int samples;
   int code;  // the warp: 0 translation, 1 SE(3), 2 quaternion
   const float* scales;  // the trunk's window row (kSe3EncP fp32) or null
+  const float* tmpl_scales;  // the template's window row (kTmplEnc) or null
+  const float* alpha;    // (R, kAlphaCond) the alpha condition, or null
+  const float* alpha_w;  // (kAlphaCond) its weights in the alpha head
   Net net;  // the flagship table: layers 0..29, or the trunk's and 7..29
 };
 
@@ -368,10 +407,10 @@ __global__ void __launch_bounds__(kThreads)
   }
   __syncthreads();
 
-  // The template: [posenc_orig(warped, 10) | posenc_orig(hyper, 6) | 0].
-  encode_template(s, kSheetOut);
+  // The template on [warped | hyper], in the layout of its window row.
+  encode_template(s, kSheetOut, a.tmpl_scales);
   __syncthreads();
-  template_stage(a.net, s, a.cond, a.cond_w);
+  template_stage(a.net, s, a.cond, a.cond_w, a.alpha, a.alpha_w);
 
   if (t < kRows) {
     const long long p = p0 + t;
@@ -391,6 +430,9 @@ struct TemplateArgs {
   int hyper;          // hyper coordinates: 4, or 0 (static)
   const float* cond;  // (P / S, cond_w)
   int cond_w;
+  const float* scales;   // the window row (kTmplEnc fp32: Nerfies) or null
+  const float* alpha;    // (P / S, kAlphaCond) the alpha condition, or null
+  const float* alpha_w;  // (kAlphaCond) its weights in the alpha head
   float* out;  // (P, 4) [rgb logits | raw sigma]
   long long rows;
   int samples;
@@ -415,9 +457,9 @@ __global__ void __launch_bounds__(kThreads)
           valid && c < 3 + a.hyper ? a.x[p * a.ldx + c] : 0.f;
   }
   __syncthreads();
-  encode_template(s, a.hyper);
+  encode_template(s, a.hyper, a.scales);
   __syncthreads();
-  template_stage(a.net, s, a.cond, a.cond_w);
+  template_stage(a.net, s, a.cond, a.cond_w, a.alpha, a.alpha_w);
   if (t < kRows && p0 + t < a.rows) write_packed(s, a.out, p0 + t, t);
 }
 
@@ -456,8 +498,9 @@ __global__ void __launch_bounds__(kThreads) trunk_fwd_f32(const TrunkArgs a) {
 }
 
 struct FieldArgs {
-  const float* x;  // (P, 3 + kEmbed) raw rows [points | embedding]
-  float* out;      // (P, 8) [the head's outputs | 0]
+  const float* x;       // (P, 3 + kEmbed) raw rows [points | embedding]
+  const float* scales;  // the window row (enc fp32) or null
+  float* out;           // (P, 8) [the head's outputs | 0]
   long long rows;
   int first, width, freq, enc;  // the field: its table rows, encoding
   Net net;  // the field's blobs, at its rows of the table
@@ -479,7 +522,7 @@ __global__ void __launch_bounds__(kThreads) field_fwd_f32(const FieldArgs a) {
       s.pts[c * kRows + t] = valid ? a.x[p * kRaw + c] : 0.f;
   }
   __syncthreads();
-  encode_field(s.X, s.pts, a.freq, a.enc, a.x + 3, kRaw, s.ray);
+  encode_field(s.X, s.pts, a.freq, a.enc, a.x + 3, kRaw, s.ray, a.scales);
   __syncthreads();
   field(a.net, a.first, a.width, s);
   if (t < kRows && p0 + t < a.rows)
@@ -555,26 +598,32 @@ extern "C" int hn_f32_trunk_layout(int* n, int* k, int max_layers) {
 // code the warp (0 translation: the flagship table; 1 SE(3), 2
 // quaternion: the trunk's rows, then the flagship table's 7..29); scales
 // the trunk's window row (kSe3EncP fp32) or null (no window; always with
-// code 0); out (R * S, 4) fp32 and, if not null, raw_t (R * S, 8) fp32.
-// Returns a CUDA error code.
+// code 0); tmpl_scales the template's window row (kTmplEnc fp32: the
+// Nerfies layout) or null (posenc_orig); alpha_cond (R, 8) fp32 and
+// alpha_w (8) fp32, the alpha condition and its weights in the alpha head,
+// both or neither; out (R * S, 4) fp32 and, if not null, raw_t (R * S, 8)
+// fp32. Returns a CUDA error code.
 extern "C" int hn_f32_level_fwd(const float* z, const float* o,
                                 const float* d, const float* emb,
                                 const float* cond, int cond_w,
                                 const float* w, const float* b, int code,
-                                const float* scales, float* out,
-                                float* raw_t, long long rays, int samples,
-                                cudaStream_t stream) {
+                                const float* scales, const float* tmpl_scales,
+                                const float* alpha_cond, const float* alpha_w,
+                                float* out, float* raw_t, long long rays,
+                                int samples, cudaStream_t stream) {
   if (cond_w < 0 || cond_w > kCondPad || samples <= 0 || code < 0 ||
-      code > 2 || (code == 0 && scales != nullptr))
+      code > 2 || (code == 0 && scales != nullptr) ||
+      (alpha_cond == nullptr) != (alpha_w == nullptr))
     return 1;
   const long long n_pts = rays * samples;
   if (n_pts == 0) return 0;
   static bool ready = false;
   const cudaError_t e = allow_smem(level_fwd_f32, kSmemBytes, ready);
   if (e != cudaSuccess) return e;
-  const Args a{z,       o,    d,      emb,
-               cond,    cond_w, out,  raw_t,
-               rays,    samples, code, scales,
+  const Args a{z,       o,           d,          emb,
+               cond,    cond_w,      out,        raw_t,
+               rays,    samples,     code,       scales,
+               tmpl_scales, alpha_cond, alpha_w,
                {w, b, code ? table_offsets(7, kLayers, true)
                            : table_offsets(0, kLayers)}};
   level_fwd_f32<<<tiles_of(n_pts), kThreads, kSmemBytes, stream>>>(a);
@@ -585,24 +634,30 @@ extern "C" int hn_f32_level_fwd(const float* z, const float* o,
 // rows [xyz | hyper | 0] with `hyper` hyper coordinates (4, or 0 for a
 // template without them, whose encoding's hyper bands are then zero);
 // cond (rows / samples, cond_w) fp32, cond_w <= 48, condition row q for
-// rows q S .. q S + S - 1 (S = 1 included); w, b the template's own fp32
-// blobs (w transposed layer by layer, the float32 table's rows 14..29);
-// out (rows, 4) fp32 [rgb logits | raw sigma].
+// rows q S .. q S + S - 1 (S = 1 included); scales the window row
+// (kTmplEnc fp32: the Nerfies layout) or null (posenc_orig); alpha_cond
+// (rows / samples, 8) fp32 and alpha_w (8) fp32, both or neither; w, b the
+// template's own fp32 blobs (w transposed layer by layer, the float32
+// table's rows 14..29); out (rows, 4) fp32 [rgb logits | raw sigma].
 extern "C" int hn_f32_template_fwd(const float* x, long long ldx, int hyper,
                                    const float* cond, int cond_w,
-                                   const float* w, const float* b,
-                                   float* out, long long rows, int samples,
-                                   cudaStream_t stream) {
+                                   const float* scales,
+                                   const float* alpha_cond,
+                                   const float* alpha_w, const float* w,
+                                   const float* b, float* out, long long rows,
+                                   int samples, cudaStream_t stream) {
   if ((hyper != 0 && hyper != kSheetOut) || ldx < 3 + hyper || cond_w < 0 ||
       cond_w > kCondPad || samples <= 0 || rows % samples ||
-      rows / samples > 0x7fffffffLL)
+      rows / samples > 0x7fffffffLL ||
+      (alpha_cond == nullptr) != (alpha_w == nullptr))
     return 1;
   if (rows == 0) return 0;
   static bool ready = false;
   const cudaError_t e = allow_smem(template_fwd_f32, kSmemBytes, ready);
   if (e != cudaSuccess) return e;
-  const TemplateArgs a{x,   ldx,  hyper,   cond, cond_w,
-                       out, rows, samples, {w, b, table_offsets(14, kLayers)}};
+  const TemplateArgs a{x,       ldx,    hyper, cond, cond_w,
+                       scales,  alpha_cond, alpha_w, out, rows,
+                       samples, {w, b, table_offsets(14, kLayers)}};
   template_fwd_f32<<<tiles_of(rows), kThreads, kSmemBytes, stream>>>(a);
   return cudaGetLastError();
 }
@@ -626,9 +681,11 @@ extern "C" int hn_f32_trunk_fwd(const float* x, const float* scales,
 
 // A field alone (the level's field stage): which 0 the warp field (the
 // table's rows 0..6), 1 the sheet (7..13); x (rows, 11) fp32 raw rows
-// [points | embedding]; w, b the field's own fp32 blobs (w transposed
-// layer by layer); out (rows, 8) fp32 [the head's outputs | 0].
-extern "C" int hn_f32_field_fwd(int which, const float* x, const float* w,
+// [points | embedding]; scales the window row (the field's packed encoding
+// columns, 80 or 64 fp32) or null; w, b the field's own fp32 blobs (w
+// transposed layer by layer); out (rows, 8) fp32 [the head's outputs | 0].
+extern "C" int hn_f32_field_fwd(int which, const float* x,
+                                const float* scales, const float* w,
                                 const float* b, float* out, long long rows,
                                 cudaStream_t stream) {
   if ((which != 0 && which != 1) || rows > 0x7fffffffLL) return 1;
@@ -638,6 +695,7 @@ extern "C" int hn_f32_field_fwd(int which, const float* x, const float* w,
   if (e != cudaSuccess) return e;
   const int first = which ? 7 : 0;
   const FieldArgs a{x,
+                    scales,
                     out,
                     rows,
                     first,

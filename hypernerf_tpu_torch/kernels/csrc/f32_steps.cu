@@ -1,18 +1,22 @@
 // The float32 steps of kernels A and B for Hopper (sm_90a): a row product
 // through a layer, a layer's dW / db over row ranges, their fixed-order
 // sum, and the narrow steps (the encodings into the stash, the rgb
-// condition per row, the posenc VJPs, the per-ray sums).
+// condition per row, the posenc VJPs, the per-ray sums, the alpha
+// condition's per-ray step).
 //
 // At `compute_dtype='float32'` they replace the TPU kernels
 // hypernerf_tpu/ops/pallas/fused_mlp.py `_bwd_call` (:736, kernel A, the
-// template backward, with 4 hyper coordinates or none) and
+// template backward, with 4 hyper coordinates or none, in the posenc_orig
+// or the windowed Nerfies layout, any rgb condition width up to 48, with
+// or without the alpha condition) and
 // hypernerf_tpu/ops/pallas/fused_level.py `_fields_bwd_call` (:846, kernel
 // B, the warp field's and the sheet's backward), the two halves of the
 // level backward (`_fused_bwd_pipelined` :1260, `_fused_bwd` :1397), and
 // hypernerf_tpu/ops/pallas/fused_field.py `_fused_bwd` (:532, a field
 // alone backward: kernel B's steps on one field from raw rows [points |
 // embedding], encoded by the template's encoding step with 0 bands on the
-// embedding, its VJP by the template's posenc VJP the same way). With the
+// embedding, its VJP by the template's posenc VJP the same way, both with
+// the field's window row where it has one). With the
 // SE(3) / quaternion warp, kernel B walks the trunk back instead of the
 // warp field (the trunk's encoding, the heads' forward, the retraction's
 // VJP into the heads' cotangent and the point's direct term, se3_trunk.cuh
@@ -311,19 +315,25 @@ __global__ void field_encode_f32(const float* z, const float* o,
 }
 
 // out[r * ldo + f], f < pad: [posenc_orig(raw[0:3], F0) |
-// posenc_orig(raw[3:3 + ch1], F1) | 0] of row r. A thread per element.
+// posenc_orig(raw[3:3 + ch1], F1) | 0] of row r (the second segment
+// without its identity columns where !id1: the Nerfies posenc), each
+// feature times the window row scales[f] where there is one. A thread per
+// element.
 __global__ void tmpl_encode_f32(const float* raw, long long ldr, int F0,
                                 int ch1, int F1, float* out, long long ldo,
-                                int pad, long long M) {
+                                int pad, long long M, int id1,
+                                const float* scales) {
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= M * pad) return;
   const long long r = i / pad;
   const int f = (int)(i % pad);
   const float* x = raw + r * ldr;
-  const int n0 = 3 * (1 + 2 * F0), n1 = ch1 * (1 + 2 * F1);
-  out[r * ldo + f] = f < n0        ? posenc_feature(x, 1, 3, F0, f)
-                     : f < n0 + n1 ? posenc_feature(x + 3, 1, ch1, F1, f - n0)
-                                   : 0.f;
+  const int n0 = 3 * (1 + 2 * F0), n1 = ch1 * ((id1 ? 1 : 0) + 2 * F1);
+  const float v =
+      f < n0        ? posenc_feature(x, 1, 3, F0, f)
+      : f < n0 + n1 ? posenc_feature(x + 3, 1, ch1, F1, f - n0, id1 != 0)
+                    : 0.f;
+  out[r * ldo + f] = scales != nullptr ? v * scales[f] : v;
 }
 
 // out[r * ldo + c], c < pad: the condition of row r's ray, zero past C.
@@ -338,21 +348,61 @@ __global__ void cond_rows_f32(const float* cond, int C, int samples,
 }
 
 // dx[r * 8 + ...] = [the posenc VJP of raw[0:3] (F0 bands) | of
-// raw[3:3 + ch1] (F1 bands) | 0] from the encoding's cotangent g (row r at
-// g + r * ldg). A thread per row.
+// raw[3:3 + ch1] (F1 bands; without identity columns where !id1) | 0] from
+// the encoding's cotangent g (row r at g + r * ldg) times the window row
+// where there is one (scales, aligned with g's columns). A thread per row.
 __global__ void tmpl_posenc_bwd_f32(const float* raw, long long ldr, int F0,
                                     int ch1, int F1, const float* g,
                                     long long ldg, float* dx, long long ldx,
-                                    long long M) {
+                                    long long M, int id1,
+                                    const float* scales) {
   const long long r = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (r >= M) return;
   const float* x = raw + r * ldr;
   const float* gr = g + r * ldg;
   float* out = dx + r * ldx;
-  for (int c = 0; c < 3; ++c) out[c] = posenc_vjp(x[c], gr, 3, F0, c);
-  const float* g1 = gr + 3 * (1 + 2 * F0);
-  for (int c = 0; c < ch1; ++c) out[3 + c] = posenc_vjp(x[3 + c], g1, ch1, F1, c);
+  for (int c = 0; c < 3; ++c)
+    out[c] = posenc_vjp(x[c], gr, 3, F0, c, true, scales);
+  const int n0 = 3 * (1 + 2 * F0);
+  const float* g1 = gr + n0;
+  const float* w1 = scales != nullptr ? scales + n0 : nullptr;
+  for (int c = 0; c < ch1; ++c)
+    out[3 + c] = posenc_vjp(x[3 + c], g1, ch1, F1, c, id1 != 0, w1);
   for (int c = 3 + ch1; c < ldx; ++c) out[c] = 0.f;
+}
+
+// Kernel A's alpha condition (ca columns a ray): with gs the sum of the
+// raw sigma's cotangent g over the S rows of ray q (row r at g[r * ldg]),
+// d_alpha[q * ca + c] = gs alpha_w[c], and slab[z * lds + c] = the sum of
+// gs alpha[q * ca + c] over the rays of range z (block z of `splits`,
+// thread t's rays summed in order, then the threads' sums in order), which
+// hn_f32_reduce adds in order of z: deterministic.
+constexpr int kMaxAlpha = 8;
+__global__ void __launch_bounds__(kThreads)
+    alpha_cond_bwd_f32(const float* g, long long ldg, const float* alpha,
+                       const float* alpha_w, int ca, int samples,
+                       float* d_alpha, float* slab, long long lds,
+                       long long rays, int splits) {
+  __shared__ float part[kMaxAlpha][kThreads];
+  const int t = threadIdx.x, z = blockIdx.x;
+  const long long q0 = rays * z / splits, q1 = rays * (z + 1) / splits;
+  float acc[kMaxAlpha];
+  for (int c = 0; c < kMaxAlpha; ++c) acc[c] = 0.f;
+  for (long long q = q0 + t; q < q1; q += kThreads) {
+    float gs = 0.f;
+    for (int k = 0; k < samples; ++k) gs += g[(q * samples + k) * ldg];
+    for (int c = 0; c < ca; ++c) {
+      d_alpha[q * ca + c] = gs * alpha_w[c];
+      acc[c] = fmaf(gs, alpha[q * ca + c], acc[c]);
+    }
+  }
+  for (int c = 0; c < kMaxAlpha; ++c) part[c][t] = acc[c];
+  __syncthreads();
+  if (t < ca) {
+    float s = 0.f;
+    for (int i = 0; i < kThreads; ++i) s += part[t][i];
+    slab[z * lds + t] = s;
+  }
 }
 
 // Kernel B's per-sample cotangents of row r (ray r / S): d p = dx_t[0:3] +
@@ -643,13 +693,18 @@ extern "C" int hn_f32_field_encode(const float* z, const float* o,
   return cudaGetLastError();
 }
 
+// id1: whether the second segment has identity columns (posenc_orig) or
+// not (the Nerfies posenc); scales: the window row (pad fp32) or null.
 extern "C" int hn_f32_tmpl_encode(const float* raw, long long ldr, int F0,
                                   int ch1, int F1, float* out, long long ldo,
-                                  int pad, long long M, cudaStream_t stream) {
-  if (pad < 3 * (1 + 2 * F0) + ch1 * (1 + 2 * F1) || ldr < 3 + ch1) return 1;
+                                  int pad, long long M, int id1,
+                                  const float* scales, cudaStream_t stream) {
+  if (pad < 3 * (1 + 2 * F0) + ch1 * ((id1 ? 1 : 0) + 2 * F1) ||
+      ldr < 3 + ch1)
+    return 1;
   if (M == 0) return 0;
   tmpl_encode_f32<<<flat_blocks(M * pad), kFlat, 0, stream>>>(
-      raw, ldr, F0, ch1, F1, out, ldo, pad, M);
+      raw, ldr, F0, ch1, F1, out, ldo, pad, M, id1, scales);
   return cudaGetLastError();
 }
 
@@ -663,14 +718,34 @@ extern "C" int hn_f32_cond_rows(const float* cond, int C, int samples,
   return cudaGetLastError();
 }
 
+// id1, scales: as hn_f32_tmpl_encode took them.
 extern "C" int hn_f32_tmpl_posenc_bwd(const float* raw, long long ldr,
                                       int F0, int ch1, int F1, const float* g,
                                       long long ldg, float* dx, long long ldx,
-                                      long long M, cudaStream_t stream) {
+                                      long long M, int id1,
+                                      const float* scales,
+                                      cudaStream_t stream) {
   if (ldx < 3 + ch1 || ldr < 3 + ch1) return 1;
   if (M == 0) return 0;
   tmpl_posenc_bwd_f32<<<flat_blocks(M), kFlat, 0, stream>>>(
-      raw, ldr, F0, ch1, F1, g, ldg, dx, ldx, M);
+      raw, ldr, F0, ch1, F1, g, ldg, dx, ldx, M, id1, scales);
+  return cudaGetLastError();
+}
+
+// g: the raw sigma's cotangent, row r at g[r * ldg] (rays x samples rows);
+// alpha (rays, ca) fp32 and alpha_w (ca) fp32, ca <= 8; d_alpha (rays, ca)
+// fp32; slab (splits, lds), lds >= ca: each ray range's part of the
+// condition columns' dW, for hn_f32_reduce.
+extern "C" int hn_f32_alpha_cond_bwd(const float* g, long long ldg,
+                                     const float* alpha, const float* alpha_w,
+                                     int ca, int samples, float* d_alpha,
+                                     float* slab, long long lds,
+                                     long long rays, int splits,
+                                     cudaStream_t stream) {
+  if (ca <= 0 || ca > kMaxAlpha || samples <= 0 || splits <= 0 || lds < ca)
+    return 1;
+  alpha_cond_bwd_f32<<<(unsigned)splits, kThreads, 0, stream>>>(
+      g, ldg, alpha, alpha_w, ca, samples, d_alpha, slab, lds, rays, splits);
   return cudaGetLastError();
 }
 

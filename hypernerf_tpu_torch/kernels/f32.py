@@ -7,15 +7,19 @@ and a field alone backward (row 11); and the SE(3) trunk alone, forward
 (row 12) and backward (row 13). The bf16 kernels are untouched:
 ``fused_level``, ``fused_fields_bwd``, ``fused_template_bwd``,
 ``fused_template``, ``fused_field``, ``fused_field_bwd``, ``fused_se3_wv``
-and ``fused_se3_bwd`` take these where the modules compute in float32, at
-the flagship tables' widths: the translation warp, or the SE(3) or the
-quaternion warp (table codes 1 and 2, the trunk and the retraction, with
-or without the ``warp_alpha`` window row), and the bendy sheet (a field
-alone: the warp field or the sheet), the posenc_orig template with 4 hyper
-coordinates or none (static), a 39-column rgb condition, no alpha
-condition and no template window row. ``fused_level._check_covered`` and
-``fused_mlp.check_f32_covered`` refuse the rest, naming ROADMAP A.13.1's
-sub-item (the plane and Nerfies layouts and the conditions' widths, the
+and ``fused_se3_bwd`` take these where the modules compute in float32, on
+the sheet tables (table codes 0 to 2): the translation warp, or the SE(3)
+or the quaternion warp (the trunk and the retraction, with or without the
+``warp_alpha`` window row), the bendy sheet, and the template in either of
+their layouts, posenc_orig or, given the template's window row, the
+Nerfies encoding (``common.NERFIES``: the hyper coordinates over 4 bands
+without identity, 95 columns in the same 128, each times its window
+weight), with 4 hyper coordinates or none (static), any rgb condition
+width the layout has (39, 47, 8, 0; Nerfies 27, 35, 8, 0) and the
+8-column alpha condition or none; and their modules alone (a field alone,
+the warp field or the sheet, with or without a window row).
+``fused_level._check_covered`` and ``fused_mlp.check_f32_covered`` refuse
+the rest, naming ROADMAP A.13.1's sub-item (the plane tables, the
 Jacobians).
 
 Float32 is the TPU kernels' float32: fp32 operands, fp32 sums, fp32
@@ -51,8 +55,9 @@ import torch
 from hypernerf_tpu_torch.kernels import build, common, fused_mlp
 
 # The flagship's encodings: warp field and sheet bands, the template's xyz
-# and hyper bands and hyper coordinates.
+# and hyper bands and hyper coordinates; the Nerfies layout's hyper bands.
 WARP_FREQ, SHEET_FREQ, XYZ_FREQ, HYPER_FREQ = 10, 7, 10, 6
+NERF_HYPER_FREQ = common.NERFIES['hyper_freq']
 N_HYPER = 4
 COND_PAD = common.COND_PAD
 # csrc/f32_chain.cuh and f32_level.cu: the level forward's tile of
@@ -79,21 +84,27 @@ FIELD_SMEM_BYTES = 4 * (TILE_ROWS * (80 + 2 * 128 + 3 + 8 + 8 + 1 + 1)
                         + 2 * DEPTH * WIDE_COLS // 2)
 
 
-def template_enc(hyper: int) -> int:
+def template_enc(hyper: int, nerfies: bool = False) -> int:
     """Stash columns of the template's encoding with ``hyper`` hyper
-    coordinates: 128 for the flagship's 4 (115 encoded), 64 for none (63)."""
-    return common.pad16(3 * (1 + 2 * XYZ_FREQ) + hyper * (1 + 2 * HYPER_FREQ))
+    coordinates, each layout's encoded columns padded to 16: posenc_orig
+    128 for the flagship's 4 (115 encoded), the Nerfies layout 96 (95: the
+    hyper coordinates without identity, over 4 bands), 64 for none (63)."""
+    per = 2 * NERF_HYPER_FREQ if nerfies else 1 + 2 * HYPER_FREQ
+    return common.pad16(3 * (1 + 2 * XYZ_FREQ) + hyper * per)
 
 
-def template_stash(hyper: int = N_HYPER) -> fused_mlp.Stash:
+def template_stash(hyper: int = N_HYPER,
+                   nerfies: bool = False) -> fused_mlp.Stash:
     """Kernel A's stash: the bf16 kernel A's columns with the encoding's
-    ``template_enc(hyper)``, the rgb condition (padded to 48) after the
-    bottleneck's 128, one fp32 row per sample; its wide layers are the bf16
-    kernel A's, layer 11 reading [bottleneck | condition] from the stash.
-    A template without hyper coordinates stashes 64 encoding columns: its
-    first and skip layers' products run on those, their packed weights'
+    ``template_enc(hyper, nerfies)``, the rgb condition (padded to 48) after
+    the bottleneck's 128, one fp32 row per sample; its wide layers are the
+    bf16 kernel A's, layer 11 reading [bottleneck | condition] from the
+    stash. An encoding narrower than its packed 128 columns (the Nerfies
+    layout's 96, a template without hyper coordinates' 64) runs the first
+    and skip layers' products on its own columns, their packed weights'
     other columns unread, and their dW there zero."""
-    return fused_mlp.stash_plan(enc=template_enc(hyper), cond=COND_PAD)
+    return fused_mlp.stash_plan(enc=template_enc(hyper, nerfies),
+                                cond=COND_PAD)
 
 
 TEMPLATE_STASH = template_stash()
@@ -226,17 +237,25 @@ def _recompute(ops, wt, b, cols, layers):
 
 
 def template_bwd_steps(ops, w, wt, b, w_off, b_off, n_grads, raw_t, cond,
-                       samples, g, max_rows=None, hyper=N_HYPER):
+                       samples, g, max_rows=None, hyper=N_HYPER, scales=None,
+                       alpha=None):
     """Kernel A at float32 (the template's 16 layers: ``layer_views``
     of its packed fp32 blobs), chunk by chunk. raw_t (P, 8) [warped | hyper
     | 0] with ``hyper`` hyper coordinates (4, or 0: static), cond (R, C) the
-    rgb condition, g (P, 4) the output's cotangent. Returns dx_t (P, 8)
-    (zero past the hyper coordinates), d cond (R, C) and the [dW | db]
-    buffer. dx_t is computed whether or not the caller reads it (a static
-    template's points take no gradient)."""
+    rgb condition, g (P, 4) the output's cotangent; ``scales`` the Nerfies
+    layout's window row (``fused_mlp.kernel_scales``: 128 fp32) or None
+    (posenc_orig); ``alpha`` (the alpha condition (R, Ca) fp32, its weights
+    in the alpha head (Ca,) fp32) or None, whose dW goes to the buffer's
+    last ``fused_mlp.ALPHA_TAIL`` floats (``n_grads`` counts them). Returns
+    dx_t (P, 8) (zero past the hyper coordinates), d cond (R, C), the [dW |
+    db] buffer and d alpha_cond (R, Ca) or None. dx_t is computed whether
+    or not the caller reads it (a static template's points take no
+    gradient)."""
     dev, f32 = raw_t.device, torch.float32
     p, s = raw_t.shape[0], samples
-    sp = template_stash(hyper)
+    nerfies = scales is not None
+    sp = template_stash(hyper, nerfies)
+    hf = NERF_HYPER_FREQ if nerfies else HYPER_FREQ
     plan = fused_mlp.chunk_plan(p, s, max_rows or chunk_rows(sp))
     rows = max(r1 - r0 for r0, r1 in plan)
     stash = torch.empty((rows, sp.width), dtype=f32, device=dev)
@@ -249,6 +268,8 @@ def template_bwd_steps(ops, w, wt, b, w_off, b_off, n_grads, raw_t, cond,
     dx_t = torch.empty((p, raw_t.shape[1]), dtype=f32, device=dev)
     c = cond.shape[1]
     d_cond = torch.empty((cond.shape[0], c), dtype=f32, device=dev)
+    d_alpha = None if alpha is None else torch.empty(
+        alpha[0].shape, dtype=f32, device=dev)
     bw = w[9].shape[0]  # the bottleneck's width
     for r0, r1 in plan:
         n, q0, q1 = r1 - r0, r0 // s, r1 // s
@@ -257,7 +278,8 @@ def template_bwd_steps(ops, w, wt, b, w_off, b_off, n_grads, raw_t, cond,
             return stash[:n, sp.col[name]:sp.col[name] + sp.widths[name]]
 
         raw_c, g_c = raw_t[r0:r1], g[r0:r1]
-        ops.tmpl_encode(raw_c, XYZ_FREQ, hyper, HYPER_FREQ, cols('enc'))
+        ops.tmpl_encode(raw_c, XYZ_FREQ, hyper, hf, cols('enc'),
+                        ident1=not nerfies, scales=scales)
         ops.cond_rows(cond[q0:q1], s, cols('bneck')[:, bw:])
         _recompute(ops, wt, b, cols, fused_mlp.WIDE_LAYERS)
         walk = _Walk(ops, w, w_off, b_off, scratch, grads,
@@ -271,6 +293,14 @@ def template_bwd_steps(ops, w, wt, b, w_off, b_off, n_grads, raw_t, cond,
         y = walk.layer(x, 11, cols('bneck'), relu_in=False)
         ops.ray_sum(y[:, bw:bw + c], s, d_cond[q0:q1])
         walk._dw(g_c[:, 3:4], 10, cols('bneck')[:, :bw])
+        if alpha is not None:  # the alpha condition's columns, per ray
+            ca = alpha[1].shape[0]
+            slabs = scratch[:ops.split_count(1, ca, q1 - q0) * ca].view(
+                -1, ca)
+            ops.alpha_cond_bwd(g_c[:, 3:4], alpha[0][q0:q1], alpha[1], s,
+                               d_alpha[q0:q1], slabs)
+            tail = n_grads - fused_mlp.ALPHA_TAIL
+            ops.reduce(slabs, grads[tail:tail + ca])
         ops.rowprod(g_c[:, 3:4], w[10], y[:, :bw], accumulate=True)
         # The bottleneck (linear) and the trunk, the skip's encoding part
         # and layer 0's into enc_g, then the posenc VJP.
@@ -281,9 +311,9 @@ def template_bwd_steps(ops, w, wt, b, w_off, b_off, n_grads, raw_t, cond,
         for l, name in ((4, 'h3'), (3, 'h2'), (2, 'h1'), (1, 'h0')):
             x = walk.layer(x, l, cols(name))
         walk.first(x, 0, cols('enc'), enc_g[:n])
-        ops.tmpl_posenc_bwd(raw_c, XYZ_FREQ, hyper, HYPER_FREQ, enc_g[:n],
-                            dx_t[r0:r1])
-    return dx_t, d_cond, grads
+        ops.tmpl_posenc_bwd(raw_c, XYZ_FREQ, hyper, hf, enc_g[:n],
+                            dx_t[r0:r1], ident1=not nerfies, scales=scales)
+    return dx_t, d_cond, grads, d_alpha
 
 
 def _field_steps(ops, w, wt, b, w_off, b_off, sp, encode, stash, bufs,
@@ -450,14 +480,16 @@ def se3_bwd_steps(ops, w, wt, b, w_off, b_off, n_grads, x_raw, g,
 
 
 def field_bwd_steps(ops, w, wt, b, w_off, b_off, n_grads, freq, x_raw, g,
-                    max_rows=None):
+                    max_rows=None, scales=None):
     """A field alone backward at float32 (its 7 layers: ``layer_views`` of
     its packed fp32 blobs; ``freq`` its bands, a key of FIELDS), chunk by
     chunk: kernel B's steps on the one field, from raw rows x_raw (P, 3 + E)
     [points | embedding] (encoded by ``tmpl_encode`` with 0 bands on the
-    embedding: its identity) and g (P, n_out), the cotangent of the head's
-    outputs. Returns dx_raw (P, 3 + E) [the posenc VJP of the points | the
-    embedding's columns of the encoding's cotangent] and the [dW | db]
+    embedding: its identity; times the window row ``scales``, the field's
+    packed encoding columns of fp32, where it is not None) and g (P,
+    n_out), the cotangent of the head's outputs. Returns dx_raw (P, 3 + E)
+    [the posenc VJP of the points | the embedding's columns of the
+    encoding's cotangent], both through the window row, and the [dW | db]
     buffer."""
     dev, f32 = x_raw.device, torch.float32
     p, e = x_raw.shape[0], x_raw.shape[1] - 3
@@ -475,9 +507,11 @@ def field_bwd_steps(ops, w, wt, b, w_off, b_off, n_grads, freq, x_raw, g,
     for r0, r1 in plan:
         n, x_c = r1 - r0, x_raw[r0:r1]
         _field_steps(ops, w, wt, b, w_off, b_off, sp,
-                     lambda enc: ops.tmpl_encode(x_c, freq, e, 0, enc),
+                     lambda enc: ops.tmpl_encode(x_c, freq, e, 0, enc,
+                                                 scales=scales),
                      stash, bufs, enc_g[:n], g[r0:r1], scratch, grads)
-        ops.tmpl_posenc_bwd(x_c, freq, e, 0, enc_g[:n], dx[r0:r1])
+        ops.tmpl_posenc_bwd(x_c, freq, e, 0, enc_g[:n], dx[r0:r1],
+                            scales=scales)
     return dx, grads
 
 
@@ -548,18 +582,36 @@ class _KernelOps:
                  d.data_ptr(), emb.data_ptr(), emb.shape[1], samples, freq,
                  out.data_ptr(), _ld(out), out.shape[1], out.shape[0])
 
-    def tmpl_encode(self, raw, f0, ch1, f1, out):
+    def tmpl_encode(self, raw, f0, ch1, f1, out, ident1=True, scales=None):
+        """[posenc_orig of the xyz (f0 bands) | of the ch1 other columns (f1
+        bands; without identity unless ``ident1``: the Nerfies posenc) |
+        0] of raw rows, times the window row ``scales`` (fp32, out's
+        columns) where it is not None."""
         self._go('hn_f32_tmpl_encode', raw.data_ptr(), _ld(raw), f0, ch1, f1,
-                 out.data_ptr(), _ld(out), out.shape[1], out.shape[0])
+                 out.data_ptr(), _ld(out), out.shape[1], out.shape[0],
+                 int(ident1), _ptr(scales))
 
     def cond_rows(self, cond, samples, out):
         self._go('hn_f32_cond_rows', cond.data_ptr(), cond.shape[1], samples,
                  out.data_ptr(), _ld(out), out.shape[1], out.shape[0])
 
-    def tmpl_posenc_bwd(self, raw, f0, ch1, f1, g, dx):
+    def tmpl_posenc_bwd(self, raw, f0, ch1, f1, g, dx, ident1=True,
+                        scales=None):
+        """``tmpl_encode``'s VJP: the encoding's cotangent ``g`` times the
+        window row where there is one, then each segment's posenc VJP."""
         self._go('hn_f32_tmpl_posenc_bwd', raw.data_ptr(), _ld(raw), f0, ch1,
                  f1, g.data_ptr(), _ld(g), dx.data_ptr(), _ld(dx),
-                 raw.shape[0])
+                 raw.shape[0], int(ident1), _ptr(scales))
+
+    def alpha_cond_bwd(self, g, alpha, aw, samples, d_alpha, slabs):
+        """The alpha condition's step: d_alpha (R, Ca) = the per-ray sum of
+        ``g`` (P, 1, the raw sigma's cotangent) times the alpha head's
+        condition weights ``aw``; each ray range's part of those weights'
+        dW into a row of ``slabs`` (splits, Ca)."""
+        self._go('hn_f32_alpha_cond_bwd', g.data_ptr(), _ld(g),
+                 alpha.data_ptr(), aw.data_ptr(), aw.shape[0], samples,
+                 d_alpha.data_ptr(), slabs.data_ptr(), _ld(slabs),
+                 alpha.shape[0], slabs.shape[0])
 
     def fields_rows(self, z, o, d, emb, samples, dxt, gw, f0, gs, f1, dz,
                     rows):
@@ -634,13 +686,17 @@ def check_layout(shapes, table: slice = slice(None),
 
 
 def fused_level_f32(wt_blob, b_blob, z_vals, origins, directions, embed,
-                    cond, want_raw_t: bool, code: int = 0, scales=None):
+                    cond, want_raw_t: bool, code: int = 0, scales=None,
+                    tmpl_scales=None, alpha=None):
     """Launch the float32 level forward (csrc/f32_level.cu) on the packed
     fp32 blobs of the level's table (table code ``code``: 0 the
     translation warp's, 1 and 2 the SE(3) / quaternion warp's, with the
     trunk's window row ``scales`` or None), its weights transposed layer by
-    layer: (out (R * S, 4), raw_t (R * S, 8) or None). The inputs are
-    checked by the caller (fp32, contiguous)."""
+    layer: (out (R * S, 4), raw_t (R * S, 8) or None). ``tmpl_scales``: the
+    template's window row (128 fp32: the Nerfies layout) or None;
+    ``alpha``: (the alpha condition (R, 8), its weights in the alpha head
+    (8,)) fp32, or None. The inputs are checked by the caller (fp32,
+    contiguous)."""
     dev = z_vals.device
     r, s = z_vals.shape
     out = torch.empty((r * s, 4), dtype=torch.float32, device=dev)
@@ -650,7 +706,8 @@ def fused_level_f32(wt_blob, b_blob, z_vals, origins, directions, embed,
                   origins.data_ptr(), directions.data_ptr(),
                   embed.data_ptr(), cond.data_ptr(), cond.shape[1],
                   wt_blob.data_ptr(), b_blob.data_ptr(), code, _ptr(scales),
-                  out.data_ptr(), _ptr(raw_t), r, s)
+                  _ptr(tmpl_scales), *_alpha_ptrs(alpha), out.data_ptr(),
+                  _ptr(raw_t), r, s)
     fused_level_f32.launches += 1
     return out, raw_t
 
@@ -658,19 +715,27 @@ def fused_level_f32(wt_blob, b_blob, z_vals, origins, directions, embed,
 fused_level_f32.launches = 0
 
 
+def _alpha_ptrs(alpha):
+    """The alpha condition's two pointers, or two nulls."""
+    return (None, None) if alpha is None else (alpha[0].data_ptr(),
+                                               alpha[1].data_ptr())
+
+
 def fused_template_f32(wt_blob, b_blob, x_raw, hyper: int, cond,
-                       samples: int):
+                       samples: int, scales=None, alpha=None):
     """Launch the float32 template alone (csrc/f32_level.cu, the level
     forward's template stage) on the template's packed fp32 blobs, its
     weights transposed layer by layer: (P, 4) [rgb logits | raw sigma].
     x_raw (P, 8) [xyz | hyper | 0] with ``hyper`` hyper coordinates (4 or
-    0), cond (P / samples, C). The inputs are checked by the caller (fp32,
-    contiguous)."""
+    0), cond (P / samples, C); ``scales`` and ``alpha`` as
+    ``fused_level_f32`` takes ``tmpl_scales`` and ``alpha``. The inputs are
+    checked by the caller (fp32, contiguous)."""
     dev, p = x_raw.device, x_raw.shape[0]
     out = torch.empty((p, 4), dtype=torch.float32, device=dev)
     common.launch('hn_f32_template_fwd', dev, x_raw.data_ptr(), _ld(x_raw),
-                  hyper, cond.data_ptr(), cond.shape[1], wt_blob.data_ptr(),
-                  b_blob.data_ptr(), out.data_ptr(), p, samples)
+                  hyper, cond.data_ptr(), cond.shape[1], _ptr(scales),
+                  *_alpha_ptrs(alpha), wt_blob.data_ptr(), b_blob.data_ptr(),
+                  out.data_ptr(), p, samples)
     fused_template_f32.launches += 1
     return out
 
@@ -678,18 +743,19 @@ def fused_template_f32(wt_blob, b_blob, x_raw, hyper: int, cond,
 fused_template_f32.launches = 0
 
 
-def fused_field_f32(freq: int, wt_blob, b_blob, x_raw):
+def fused_field_f32(freq: int, wt_blob, b_blob, x_raw, scales=None):
     """Launch the float32 field alone (csrc/f32_level.cu, the level
     forward's field stage) of ``freq`` bands (a key of FIELDS) on the
     field's packed fp32 blobs, its weights transposed layer by layer: (P,
-    8) [the head's outputs | 0]. x_raw (P, 11) [points | embedding],
+    8) [the head's outputs | 0]. x_raw (P, 11) [points | embedding] and the
+    window row ``scales`` (the packed encoding's columns of fp32) or None,
     checked by the caller."""
     dev, p = x_raw.device, x_raw.shape[0]
     out = torch.empty((p, 8), dtype=torch.float32, device=dev)
     if p:
         common.launch('hn_f32_field_fwd', dev, FIELDS[freq][2],
-                      x_raw.data_ptr(), wt_blob.data_ptr(), b_blob.data_ptr(),
-                      out.data_ptr(), p)
+                      x_raw.data_ptr(), _ptr(scales), wt_blob.data_ptr(),
+                      b_blob.data_ptr(), out.data_ptr(), p)
         fused_field_f32.launches += 1
     return out
 
@@ -698,17 +764,18 @@ fused_field_f32.launches = 0
 
 
 def fused_field_bwd_f32(w_blob, wt_blob, b_blob, shapes, freq: int, x_raw,
-                        g):
+                        g, scales=None):
     """Launch a field alone backward at float32 (``field_bwd_steps``) on
     the field's packed fp32 blobs: (dx_raw (P, 11), [dW | db]). g (P,
-    n_out) the cotangent of the head's outputs."""
+    n_out) the cotangent of the head's outputs, ``scales`` the window row
+    or None."""
     dev = x_raw.device
     w, wt, b, w_off, b_off, n_grads = fused_mlp.layer_views(
         w_blob, wt_blob, b_blob, shapes)
     with torch.cuda.device(dev):
         ops = _KernelOps(dev)
         res = field_bwd_steps(ops, w, wt, b, w_off, b_off, n_grads, freq,
-                              x_raw, g)
+                              x_raw, g, scales=scales)
     fused_field_bwd_f32.launches += 1
     return res
 
@@ -754,16 +821,22 @@ fused_se3_bwd_f32.launches = 0
 
 
 def fused_template_bwd_f32(w_blob, wt_blob, b_blob, shapes, raw_t, cond,
-                           samples, g, hyper: int = N_HYPER):
-    """Launch kernel A at float32 (``template_bwd_steps``) on the
-    template's packed fp32 blobs: (dx_t, d cond, [dW | db])."""
+                           samples, g, hyper: int = N_HYPER, scales=None,
+                           alpha=None):
+    """Launch kernel A at float32 (``template_bwd_steps``, with the window
+    row ``scales`` and the alpha condition ``alpha`` as it takes them) on
+    the template's packed fp32 blobs: (dx_t, d cond, [dW | db (| the alpha
+    condition's dW)], d alpha_cond or None)."""
     dev = raw_t.device
     w, wt, b, w_off, b_off, n_grads = fused_mlp.layer_views(
         w_blob, wt_blob, b_blob, shapes)
+    if alpha is not None:
+        n_grads += fused_mlp.ALPHA_TAIL
     with torch.cuda.device(dev):
         ops = _KernelOps(dev)
         res = template_bwd_steps(ops, w, wt, b, w_off, b_off, n_grads, raw_t,
-                                 cond, samples, g, hyper=hyper)
+                                 cond, samples, g, hyper=hyper, scales=scales,
+                                 alpha=alpha)
     fused_template_bwd_f32.launches += 1
     return res
 

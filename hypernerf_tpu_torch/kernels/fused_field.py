@@ -28,8 +28,8 @@ The CUDA kernels are compiled for two fields: the flagship warp (6 x 128,
 3 + 8 raw inputs, skip after layer 4, bf16. A field whose MLP computes in
 float32 takes the float32 kernels (``f32.fused_field_f32``, the float32
 level forward's field stage, and ``f32.fused_field_bwd_f32``, kernel B's
-float32 steps on the one field) for the same two fields, without a window
-row.
+float32 steps on the one field) for the same two fields, with or without a
+window row.
 """
 
 from __future__ import annotations
@@ -145,7 +145,8 @@ def _launch_args(mlp: MLP, n_freq: int, x_raw, scales):
 def _f32_launch_args(mlp: MLP, n_freq: int, x_raw, scales):
     """Checked inputs of a float32 kernel launch: the field's packed fp32
     blobs (w, w transposed, b) and shapes, the float32 table's rows of the
-    field's bands."""
+    field's bands, and the window row padded to the packed encoding's
+    columns or None."""
     from hypernerf_tpu_torch.kernels import f32  # f32 imports fused_mlp
 
     def check():
@@ -160,14 +161,14 @@ def _f32_launch_args(mlp: MLP, n_freq: int, x_raw, scales):
     wt_blob = common.pack_layers(mlp, layers, check, transposed=True,
                                  dtype=torch.float32)[0]
     check()
-    if scales is not None:
-        raise NotImplementedError(common.f32_refusal(
-            3, 'a field alone with a window row'))
     f32.check_layout(shapes, f32.FIELDS[n_freq][1])
+    dev = x_raw.device
     build.check_tensor('x_raw', x_raw,
                        (x_raw.shape[0], 3 + common.FLAGSHIP['embed']),
-                       torch.float32, x_raw.device)
-    return w_blob, wt_blob, b_blob, shapes
+                       torch.float32, dev)
+    scales = common.padded_scales(scales, mlp.hidden(0).in_features,
+                                  shapes[0][1], dev)
+    return w_blob, wt_blob, b_blob, shapes, scales
 
 
 def _forward(mlp: MLP, n_freq: int, x_raw, scales):
@@ -179,8 +180,9 @@ def _forward(mlp: MLP, n_freq: int, x_raw, scales):
                      (0, OUT_PAD - out.shape[1]))
     if mlp.dtype == torch.float32:
         from hypernerf_tpu_torch.kernels import f32
-        _, wt_blob, b_blob, _ = _f32_launch_args(mlp, n_freq, x_raw, scales)
-        return f32.fused_field_f32(n_freq, wt_blob, b_blob, x_raw)
+        _, wt_blob, b_blob, _, scales = _f32_launch_args(mlp, n_freq, x_raw,
+                                                          scales)
+        return f32.fused_field_f32(n_freq, wt_blob, b_blob, x_raw, scales)
     which, scales, (w_blob, b_blob, _) = _launch_args(mlp, n_freq, x_raw,
                                                        scales)
     p = x_raw.shape[0]
@@ -268,13 +270,13 @@ def _field_bwd_f32(mlp: MLP, n_freq: int, x_raw, g, scales):
     returns as ``fused_field_bwd``. Only the head's outputs' columns of
     ``g`` are read."""
     from hypernerf_tpu_torch.kernels import f32
-    w_blob, wt_blob, b_blob, shapes = _f32_launch_args(mlp, n_freq, x_raw,
-                                                       scales)
+    w_blob, wt_blob, b_blob, shapes, scales = _f32_launch_args(
+        mlp, n_freq, x_raw, scales)
     build.check_tensor('g', g, (x_raw.shape[0], OUT_PAD), torch.float32,
                        x_raw.device)
     dx_raw, grads = f32.fused_field_bwd_f32(
         w_blob, wt_blob, b_blob, shapes, n_freq, x_raw,
-        g[:, :mlp.logit.out_features])
+        g[:, :mlp.logit.out_features], scales)
     n_w = sum(n * k for n, k in shapes)
     return dx_raw, common.unpack_grads(grads[:n_w], grads[n_w:],
                                        field_layers(mlp), shapes)

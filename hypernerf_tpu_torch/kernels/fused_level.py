@@ -62,7 +62,8 @@ from hypernerf_tpu_torch.kernels.fused_mlp import (check_covered as
                                                    _check_template_covered,
                                                    check_f32_covered as
                                                    _check_f32_template_covered,
-                                                   cond_args, f32_cond,
+                                                   cond_args,
+                                                   f32_template_args,
                                                    fused_template_bwd,
                                                    fused_template_bwd_plain,
                                                    fused_template_plain,
@@ -196,11 +197,12 @@ def _is_f32(level: Level) -> bool:
 
 
 def _check_f32_covered(level: Level) -> None:
-    """Raise unless the float32 kernels cover the level: the flagship
-    tables (the translation warp, or the SE(3) / quaternion trunk that
+    """Raise unless the float32 kernels cover the level: the sheet tables
+    (the translation warp, or the SE(3) / quaternion trunk that
     ``fused_se3.check_covered`` admits; the bendy sheet; the template
-    ``check_f32_covered`` admits) at the flagship widths; the rest names
-    ROADMAP A.13.1's sub-item."""
+    ``check_f32_covered`` admits, posenc_orig or Nerfies) at the flagship
+    widths; a level without a sheet (the plane tables) names ROADMAP
+    A.13.1's sub-item 3."""
     if level.hyper is None:
         raise NotImplementedError(common.f32_refusal(
             3, 'the level without a sheet (axis_aligned_plane)'))
@@ -808,7 +810,7 @@ def field_bwd_stream_bytes(field: str, shapes, n_points: int) -> int:
 
 
 def _f32_launch_args(level: Level, z_vals, origins, directions, embed,
-                     warp_scales, tmpl_scales, alpha_cond):
+                     warp_scales):
     """The float32 kernels' packed fp32 blobs of the level, checked against
     the compiled float32 table of its warp, the table code and the trunk's
     padded window row or None, after the ray inputs were checked."""
@@ -816,9 +818,6 @@ def _f32_launch_args(level: Level, z_vals, origins, directions, embed,
     wt_blob = pack_level_f32(level, transposed=True)[0]
     _check_covered(level)
     f32.check_layout(shapes, warp=level.warp.kind)
-    if tmpl_scales is not None or alpha_cond is not None:
-        raise ValueError('the float32 level takes no template window row '
-                         'and no alpha condition')
     _check_ray_inputs(z_vals, origins, directions, embed)
     code, scales = _warp_row(level, shapes, warp_scales, z_vals.device)
     return w_blob, wt_blob, b_blob, shapes, code, scales
@@ -830,12 +829,13 @@ def _launch_forward(level: Level, z_vals, origins, directions, embed,
     """Launch the forward kernel; (out, raw_t or None)."""
     if _is_f32(level):
         _, wt_blob, b_blob, _, code, scales = _f32_launch_args(
-            level, z_vals, origins, directions, embed, warp_scales,
-            tmpl_scales, alpha_cond)
-        cond = f32_cond(level, rgb_cond, z_vals.shape[0], z_vals.device)
+            level, z_vals, origins, directions, embed, warp_scales)
+        cond, tmpl_scales, alpha = f32_template_args(
+            level, rgb_cond, tmpl_scales, alpha_cond, z_vals.shape[0],
+            z_vals.device)
         return f32.fused_level_f32(wt_blob, b_blob, z_vals, origins,
                                    directions, embed, cond, want_raw_t, code,
-                                   scales)
+                                   scales, tmpl_scales, alpha)
     w_blob, b_blob, shapes = pack_level(level)
     dev = z_vals.device
     code, scales = _warp_launch_args(level, shapes, warp_scales, dev)
@@ -1063,7 +1063,7 @@ def _fields_bwd_f32(level: Level, z_vals, origins, directions, embed, dx_t,
     """Kernel B at float32 (``f32.fused_fields_bwd_f32``) on the field
     layers of the level's fp32 blobs; returns as ``fused_fields_bwd``."""
     w_blob, wt_blob, b_blob, shapes, code, scales = _f32_launch_args(
-        level, z_vals, origins, directions, embed, warp_scales, None, None)
+        level, z_vals, origins, directions, embed, warp_scales)
     r, s = z_vals.shape
     build.check_tensor('dx_t', dx_t, (r * s, raw_pad(level)), torch.float32,
                        z_vals.device)

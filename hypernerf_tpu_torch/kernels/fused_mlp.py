@@ -39,8 +39,9 @@ exact, and those columns' dW is dropped on unpack.
 A template whose modules compute in float32 takes the float32 kernels
 (``f32.fused_template_f32``, the float32 level forward's template stage,
 and kernel A at float32, ``f32.fused_template_bwd_f32``) at the posenc_orig
-layout with 4 hyper coordinates or none, a 39-column rgb condition and no
-alpha condition (``check_f32_covered``).
+layout or the Nerfies one with its window row, 4 hyper coordinates or none,
+any rgb condition width of its layout and the alpha condition or none
+(``check_f32_covered``); the plane layouts refuse.
 
 The conditions (the JAX model's ``get_condition_inputs``): the rgb condition
 is any width a layout covers (``common.FLAGSHIP['rgb_cond']``: the view
@@ -335,45 +336,55 @@ def check_covered(tmpl) -> None:
                                   f'{dtypes}')
 
 
+# The float32 kernels' template layouts (the sheet tables'): layout ->
+# its compiled widths.
+F32_LAYOUTS = {'orig': common.FLAGSHIP, 'nerfies': common.NERFIES}
+
+
 def check_f32_covered(tmpl) -> None:
     """Raise unless the template is the float32 kernels' (the level's
-    template, the template alone and kernel A): all in float32, posenc_orig
-    of the xyz at 10 bands and of 4 hyper coordinates at 6 (the flagship's)
-    or of none (static), a 39-column rgb condition, no alpha condition.
-    Another layout or condition width raises naming ROADMAP A.13.1's
-    sub-item 3 (the layouts')."""
+    template, the template alone and kernel A): all in float32, the xyz at
+    10 bands and, posenc_orig, 4 hyper coordinates at 6 (the flagship's)
+    or, Nerfies, at 4 without identity, or none (static); an rgb condition
+    of one of its layout's widths (``F32_LAYOUTS``), the alpha condition of
+    ``common.ALPHA_COND``. A plane layout raises naming ROADMAP A.13.1's
+    sub-item 3 (the plane tables); other widths or bands name A.13."""
     t = tmpl.template
     dtypes = {t.trunk.dtype, t.rgb_branch.dtype, t.dtype}
     have = dict(layout=layout(tmpl), hyper=n_hyper(tmpl),
                 rgb_cond=cond_width(tmpl), alpha_cond=alpha_cond_width(tmpl))
     if dtypes != {torch.float32}:
         raise NotImplementedError(f'{common.NOT_COVERED}; got {dtypes}')
-    if have not in [dict(layout='orig', hyper=hyper,
-                         rgb_cond=common.FLAGSHIP['rgb_cond'][0],
-                         alpha_cond=0)
-                    for hyper in (common.FLAGSHIP['hyper_out'], 0)]:
+    if have['layout'] not in F32_LAYOUTS:
         raise NotImplementedError(common.f32_refusal(
             3, f'a template with {have}'))
+    widths = F32_LAYOUTS[have['layout']]
     bands = (tmpl.xyz_freq, tmpl.hyper_freq)[:1 + bool(have['hyper'])]
-    if bands != (common.FLAGSHIP['xyz_freq'],
-                 common.FLAGSHIP['hyper_freq'])[:len(bands)]:
-        raise NotImplementedError(f'{common.NOT_COVERED}; got bands {bands}')
+    if (have['hyper'] not in (common.FLAGSHIP['hyper_out'], 0)
+            or have['rgb_cond'] not in widths['rgb_cond']
+            or have['alpha_cond'] not in common.ALPHA_COND
+            or bands != (widths['xyz_freq'],
+                         widths['hyper_freq'])[:len(bands)]):
+        raise NotImplementedError(f'{common.NOT_COVERED}; got {have}, bands '
+                                  f'{bands}')
 
 
-def alpha_cond_weight(t: NerfMLP):
+def alpha_cond_weight(t: NerfMLP, dtype=torch.bfloat16):
     """The alpha head's condition columns as the kernels take them: (Ca,)
-    bf16, cached on the template as ``common.packed`` caches the blobs (on
-    the weight's storage and version counter); None without an alpha
+    in ``dtype`` (bf16, or the float32 kernels' fp32), cached on the
+    template as ``common.packed`` caches the blobs (on the weight's storage
+    and version counter, one entry a dtype); None without an alpha
     condition."""
     w = t.alpha_head.weight
     bw = t.bottleneck.out_features
     if w.shape[1] == bw:
         return None
     key = (w.data_ptr(), w._version)
-    cached = getattr(t, '_alpha_cond_w', None)
+    attr = '_alpha_cond_w' + common.packed_attr(dtype)[len('_packed'):]
+    cached = getattr(t, attr, None)
     if cached is None or cached[0] != key:
-        cached = (key, w.detach()[0, bw:].to(torch.bfloat16).contiguous())
-        object.__setattr__(t, '_alpha_cond_w', cached)
+        cached = (key, w.detach()[0, bw:].to(dtype).contiguous())
+        object.__setattr__(t, attr, cached)
     return cached[1]
 
 
@@ -392,22 +403,24 @@ def kernel_scales(tmpl, scales, device):
     return common.padded_scales(scales, enc, common.TMPL_ENC_PAD, device)
 
 
-def cond_args(tmpl, rgb_cond, alpha_cond, rays: int, dev):
-    """The kernels' condition inputs, checked: the bf16 rgb condition (R,
-    C), and the bf16 alpha condition (R, Ca) and the alpha head's condition
-    columns (``alpha_cond_weight``), each None without an alpha condition."""
-    rgbc = rgb_cond.detach().to(torch.bfloat16).contiguous()
-    build.check_tensor('rgb_cond', rgbc, (rays, cond_width(tmpl)),
-                       torch.bfloat16, dev)
-    aw = alpha_cond_weight(tmpl.template)
+def cond_args(tmpl, rgb_cond, alpha_cond, rays: int, dev,
+              dtype=torch.bfloat16):
+    """The kernels' condition inputs in ``dtype`` (bf16, or the float32
+    kernels' fp32), checked: the rgb condition (R, C), and the alpha
+    condition (R, Ca) and the alpha head's condition columns
+    (``alpha_cond_weight``), each None without an alpha condition."""
+    rgbc = rgb_cond.detach().to(dtype).contiguous()
+    build.check_tensor('rgb_cond', rgbc, (rays, cond_width(tmpl)), dtype,
+                       dev)
+    aw = alpha_cond_weight(tmpl.template, dtype)
     if (aw is None) != (alpha_cond is None):
         raise ValueError('an alpha condition goes with a template whose alpha '
                          'head takes one, and only with one')
     if aw is None:
         return rgbc, None, None
-    alphac = alpha_cond.detach().to(torch.bfloat16).contiguous()
-    build.check_tensor('alpha_cond', alphac, (rays, aw.shape[0]),
-                       torch.bfloat16, dev)
+    alphac = alpha_cond.detach().to(dtype).contiguous()
+    build.check_tensor('alpha_cond', alphac, (rays, aw.shape[0]), dtype,
+                       dev)
     return rgbc, alphac, aw
 
 
@@ -446,10 +459,10 @@ def _forward(tmpl, x_raw, rgb_cond, scales=None, alpha_cond=None):
                                     alpha_cond)
     if tmpl.template.dtype == torch.float32:
         from hypernerf_tpu_torch.kernels import f32  # f32 builds on this
-        (_, wt_blob, b_blob, _), _, cond, s = _f32_launch_args(
-            tmpl, x_raw, rgb_cond, scales, alpha_cond)
+        (_, wt_blob, b_blob, _), _, (cond, scales, alpha), s = \
+            _f32_launch_args(tmpl, x_raw, rgb_cond, scales, alpha_cond)
         return f32.fused_template_f32(wt_blob, b_blob, x_raw, n_hyper(tmpl),
-                                      cond, s)
+                                      cond, s, scales, alpha)
     (rgbc, alphac, aw), s, _, ((w_blob, b_blob, _),) = _launch_args(
         tmpl, x_raw, rgb_cond, False, alpha_cond)
     scales = kernel_scales(tmpl, scales, x_raw.device)
@@ -471,8 +484,8 @@ def fused_template(tmpl, x_raw, rgb_cond, scales=None,
     ``alpha_cond``: (R, Ca) per-ray alpha condition, or None.
 
     CPU tensors take ``fused_template_plain``; CUDA tensors launch the kernel
-    (flagship widths, any of the four layouts, bf16; the posenc_orig layout
-    with 4 hyper coordinates or none in float32) or raise.
+    (flagship widths, any of the four layouts, bf16; the posenc_orig and
+    Nerfies layouts with 4 hyper coordinates or none in float32) or raise.
     Differentiable in ``x_raw``, both conditions and the template's
     parameters (``FusedTemplateFn``).
     """
@@ -850,18 +863,22 @@ fused_template_bwd.launches = 0
 fused_template_bwd.stash_bytes = 0
 
 
-def f32_cond(tmpl, rgb_cond, rays: int, dev):
-    """The float32 kernels' rgb condition, checked: (R, C) fp32."""
-    cond = rgb_cond.detach().float().contiguous()
-    build.check_tensor('rgb_cond', cond, (rays, cond_width(tmpl)),
-                       torch.float32, dev)
-    return cond
+def f32_template_args(tmpl, rgb_cond, scales, alpha_cond, rays: int, dev):
+    """The float32 kernels' template inputs of a call, checked: the fp32 rgb
+    condition (R, C), the window row as ``kernel_scales`` makes it (None
+    for posenc_orig; 128 fp32 for the Nerfies layout, whose presence
+    selects that layout in the C code) and (the fp32 alpha condition (R,
+    Ca), the alpha head's fp32 condition columns) or None."""
+    cond, alphac, aw = cond_args(tmpl, rgb_cond, alpha_cond, rays, dev,
+                                 torch.float32)
+    return (cond, kernel_scales(tmpl, scales, dev),
+            None if aw is None else (alphac, aw))
 
 
 def _f32_launch_args(tmpl, x_raw, rgb_cond, scales, alpha_cond):
     """The float32 kernels' checked inputs for the template
     ``check_f32_covered`` admits: its packed fp32 blobs (w, wt, b, shapes),
-    its layers, the fp32 rgb condition and the rows per condition row."""
+    its layers, ``f32_template_args`` and the rows per condition row."""
     from hypernerf_tpu_torch.kernels import f32  # f32 builds on this module
     layers = kernel_template_layers(tmpl.template)
     check = lambda: check_f32_covered(tmpl)
@@ -871,9 +888,6 @@ def _f32_launch_args(tmpl, x_raw, rgb_cond, scales, alpha_cond):
                                  transposed=True, dtype=torch.float32)[0]
     check_f32_covered(tmpl)
     f32.check_layout(shapes, common.TEMPLATE_LAYERS)
-    if scales is not None or alpha_cond is not None:
-        raise ValueError('the float32 template takes no window row and no '
-                         'alpha condition')
     dev = x_raw.device
     p, r = x_raw.shape[0], rgb_cond.shape[0]
     build.check_tensor('x_raw', x_raw, (p, common.RAW_PAD), torch.float32,
@@ -881,22 +895,23 @@ def _f32_launch_args(tmpl, x_raw, rgb_cond, scales, alpha_cond):
     if r == 0 or p % r:
         raise ValueError(f'{p} samples do not divide into {r} rays')
     return ((w_blob, wt_blob, b_blob, shapes), layers,
-            f32_cond(tmpl, rgb_cond, r, dev), p // r)
+            f32_template_args(tmpl, rgb_cond, scales, alpha_cond, r, dev),
+            p // r)
 
 
 def _template_bwd_f32(tmpl, raw_t, rgb_cond, g, scales, alpha_cond):
     """Kernel A at float32 (``f32.fused_template_bwd_f32``) for the
     template ``check_f32_covered`` admits, with its hyper coordinates or
-    none; returns as ``fused_template_bwd``."""
+    none, its layout's window row and its conditions; returns as
+    ``fused_template_bwd``."""
     from hypernerf_tpu_torch.kernels import f32  # f32 builds on this module
-    (w_blob, wt_blob, b_blob, shapes), layers, cond, s = _f32_launch_args(
-        tmpl, raw_t, rgb_cond, scales, alpha_cond)
+    (w_blob, wt_blob, b_blob, shapes), layers, (cond, scales, alpha), s = \
+        _f32_launch_args(tmpl, raw_t, rgb_cond, scales, alpha_cond)
     build.check_tensor('g', g, (raw_t.shape[0], 4), torch.float32,
                        raw_t.device)
-    dx_t, d_cond, grads = f32.fused_template_bwd_f32(
+    dx_t, d_cond, grads, d_alpha = f32.fused_template_bwd_f32(
         w_blob, wt_blob, b_blob, shapes, raw_t, cond, s, g,
-        hyper=n_hyper(tmpl))
+        hyper=n_hyper(tmpl), scales=scales, alpha=alpha)
     n_w = sum(n * k for n, k in shapes)
-    return (dx_t, d_cond,
-            common.unpack_grads(grads[:n_w], grads[n_w:], layers, shapes),
-            None)
+    return (dx_t, d_cond, unpack_template_grads(grads, layers, shapes, n_w,
+                                                alpha is not None), d_alpha)

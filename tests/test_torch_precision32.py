@@ -3,14 +3,18 @@ float32 kernels of rows 1, 9 and 5 (``kernels/f32.py``, ``csrc/f32_*``),
 what runs them and what is still refused, checked on the CPU.
 
 - The gate: the float32 flagship level (translation warp, bendy sheet,
-  posenc_orig template, a 39-column rgb condition) is admitted; every other
-  float32 table, layout, width and path, and rows 14 to 17, raise
-  NotImplementedError naming A.13.1's sub-item, before any library is
-  needed (``common.runs_plain`` rebound as the card would take it). The
-  per-module rows at float32 (8, 10, 11) are
+  posenc_orig template, a 39-column rgb condition) is admitted; so are,
+  since sub-item 3's first half, the sheet tables' Nerfies layout with its
+  window row, the conditions' widths and a field alone's window row, each
+  run as on the card through its float32 entry points against a recording
+  library (refused before); the plane tables, other widths, and rows 14 to
+  17 raise NotImplementedError naming A.13.1's sub-item, before any
+  library is needed (``common.runs_plain`` rebound as the card would take
+  it). The per-module rows at float32 (8, 10, 11) are
   ``tests/test_torch_precision32_modular.py``'s, the screw warps' (rows 1
   and 5 at table codes 1 and 2, rows 12 and 13)
-  ``tests/test_torch_precision32_screw.py``'s.
+  ``tests/test_torch_precision32_screw.py``'s, the Nerfies layout's and
+  the conditions' ``tests/test_torch_precision32_nerfies.py``'s.
 - The CLI: ``--precision 32`` builds a float32 model the gate admits;
   ``train.main`` takes two steps at narrow widths equal to the JAX
   trainer's at float32 (the JAX trainer's batches and draws fed to the
@@ -186,26 +190,12 @@ def _refusals():
         with as_on_the_card():
             K_se3_jac.fused_se3_wv_tangents(field, x11)
 
-    def field_alone_windowed():
-        mlp = _model('split_glo').warp_field.mlp
-        with as_on_the_card():
-            K_field.fused_field(mlp, 10, x11, torch.ones(71))
-
     return [
         ('plane level (code 3)', level_call('plane'), 3),
         ('plane_se3 level (code 4)', level_call('plane_se3'), 3),
-        ('anneal level (the Nerfies layout)', level_of('anneal'), 3),
-        ('nerf_embed level (47 + 8 conditions)', level_of('nerf_embed'), 3),
-        ('use_viewdirs=False (a 0-column condition)',
-         level_of('flagship', use_viewdirs=False), 3),
-        ('B.4 anneal_se3', level_of('anneal_se3'), 3),
         ('B.4 plane_anneal', level_of('plane_anneal'), 3),
         ('plane template alone (row 8, return_points)',
          template_alone('plane'), 3),
-        ('anneal template alone (row 8, the Nerfies layout)',
-         template_alone('anneal'), 3),
-        ('a field alone with a window row (rows 10, 11)',
-         field_alone_windowed, 3),
         ('rows 14, 15, the translation Jacobian',
          lambda: K_jac._launch_args(_model().warp_field.mlp, 10, x11), 4),
         ('rows 16, 17, the trunk\'s tangents', se3_tangents, 4),
@@ -222,6 +212,102 @@ def test_gate_refuses_what_float32_does_not_cover(label, call, item):
     match = 'A.13' if item is None else f'A.13.1 sub-item {item}'
     with pytest.raises(NotImplementedError, match=match):
         call()
+
+
+@pytest.fixture
+def recording(monkeypatch):
+    """The kernel library as a ``_RecordingLibrary`` on a card of 132 SMs:
+    the wrappers' launches are recorded, nothing runs."""
+    lib = _RecordingLibrary()
+    monkeypatch.setattr(build, 'library', lambda: lib)
+    monkeypatch.setattr(torch.cuda, 'current_stream',
+                        lambda device=None: type('S', (), {'cuda_stream': 7}))
+    monkeypatch.setattr(torch.cuda, 'device',
+                        lambda device: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, 'get_device_properties',
+                        lambda device=None: type(
+                            'P', (), {'multi_processor_count': 132}))
+    return lib
+
+
+def _admissions():
+    """(label, call run as on the card, the float32 entry point it must
+    reach): what A.13.1 sub-item 3's first half ported (the sheet tables'
+    Nerfies layout and window row, the conditions' widths, a field alone's
+    window row), each refused before it."""
+    x11 = torch.from_numpy(np.random.RandomState(11).randn(4, 11).astype(
+        np.float32))
+
+    def level_call(config, **over):
+        def call():
+            level = _model(config, **over).level('fine')
+            _check_covered(level)
+            row = K_mlp.template_scales(level, 10.0, 1.5)
+            alpha = (torch.zeros(2, 8) if K_mlp.alpha_cond_width(level)
+                     else None)
+            args = _rays(cond=K_mlp.cond_width(level))
+            _, raw_t = K_level._launch_forward(
+                level, *args, want_raw_t=True, tmpl_scales=row,
+                alpha_cond=alpha)
+            K_mlp.fused_template_bwd(level, raw_t, args[4],
+                                     torch.zeros(16, 4), row, alpha)
+            K_level.fused_fields_bwd(level, *args[:4], torch.zeros(16, 8))
+        return call
+
+    def template_alone(config):
+        def call():
+            tmpl = _model(config).template_of('fine')
+            x = torch.zeros(16, K_mlp.raw_pad(tmpl))
+            cond = torch.zeros(2, K_mlp.cond_width(tmpl))
+            row = K_mlp.template_scales(tmpl, 10.0, 1.5)
+            K_mlp.fused_template(tmpl, x, cond, row)
+            K_mlp.fused_template_bwd(tmpl, x, cond, torch.zeros(16, 4), row)
+        return call
+
+    def field_alone_windowed():
+        mlp = _model('split_glo').warp_field.mlp
+        row = K_field.encoding_scales(10, 8, 4.5)
+        K_field.fused_field(mlp, 10, x11, row)
+        K_field.fused_field_bwd(mlp, 10, x11, torch.zeros(4, 8), row)
+
+    return [
+        ('anneal level (the Nerfies layout)', level_call('anneal'),
+         'hn_f32_level_fwd'),
+        ('nerf_embed level (47 + 8 conditions)', level_call('nerf_embed'),
+         'hn_f32_alpha_cond_bwd'),
+        ('use_viewdirs=False (a 0-column condition)',
+         level_call('flagship', use_viewdirs=False), 'hn_f32_level_fwd'),
+        ('B.4 anneal_se3', level_call('anneal_se3'), 'hn_f32_retract_bwd'),
+        ('anneal template alone (row 8, the Nerfies layout)',
+         template_alone('anneal'), 'hn_f32_template_fwd'),
+        ('a field alone with a window row (rows 10, 11)',
+         field_alone_windowed, 'hn_f32_field_fwd'),
+    ]
+
+
+@torch.no_grad()
+@pytest.mark.parametrize('label,call,entry', _admissions(),
+                         ids=[r[0].split(' (')[0] for r in _admissions()])
+def test_gate_admits_what_sub_item_3_ported(label, call, entry, recording):
+    """Each configuration sub-item 3's first half ported, refused before,
+    runs its float32 forward and backward as on the card: every launch one
+    of the float32 entry points with its signature's arguments (the window
+    row's pointer given where the layout has one), the entry named reached,
+    no plain version called."""
+    plain = [fn.calls for fn in (fused_level_plain,
+                                 fused_template_bwd_plain)]
+    with as_on_the_card():
+        call()
+    names = [n for n, _ in recording.calls]
+    assert entry in names and all(n.startswith('hn_f32_') for n in names)
+    for name, call_args in recording.calls:
+        assert len(call_args) == len(build._SIGNATURES[name][0]), name
+    for name, a in recording.calls:
+        if name in ('hn_f32_level_fwd', 'hn_f32_template_fwd'):
+            window = a[10] if name == 'hn_f32_level_fwd' else a[5]
+            assert (window is not None) == ('anneal' in label), label
+    assert [fn.calls for fn in (fused_level_plain,
+                                fused_template_bwd_plain)] == plain
 
 
 def test_cli_precision_32_builds_an_admitted_model():
@@ -485,26 +571,40 @@ class TorchF32Ops:
         out[:] = torch.nn.functional.pad(enc, (0, out.shape[1]
                                                - enc.shape[1]))
 
-    def tmpl_encode(self, raw, f0, ch1, f1, out):
-        # ch1 = 0: no second segment; f1 = 0: its identity alone.
-        enc = torch.cat([posenc_orig(raw[:, :3], f0),
-                         posenc_orig(raw[:, 3:3 + ch1], f1)], 1)
-        out[:] = torch.nn.functional.pad(enc, (0, out.shape[1]
-                                               - enc.shape[1]))
+    def tmpl_encode(self, raw, f0, ch1, f1, out, ident1=True, scales=None):
+        # ch1 = 0: no second segment; f1 = 0: its identity alone; without
+        # ident1 the Nerfies posenc [sin | cos]; times the window row.
+        x1 = raw[:, 3:3 + ch1]
+        seg1 = posenc_orig(x1, f1) if ident1 else torch.cat(
+            common.posenc_trig(x1, f1), 1)
+        enc = torch.cat([posenc_orig(raw[:, :3], f0), seg1], 1)
+        enc = torch.nn.functional.pad(enc, (0, out.shape[1] - enc.shape[1]))
+        out[:] = enc if scales is None else enc * scales[:out.shape[1]]
 
     def cond_rows(self, cond, samples, out):
         out[:] = torch.nn.functional.pad(cond.repeat_interleave(
             samples, 0), (0, out.shape[1] - cond.shape[1]))
 
-    def tmpl_posenc_bwd(self, raw, f0, ch1, f1, g, dx):
+    def tmpl_posenc_bwd(self, raw, f0, ch1, f1, g, dx, ident1=True,
+                        scales=None):
         n0 = 3 * (1 + 2 * f0)
+        g = g if scales is None else g * scales[:g.shape[1]]
         dx[:] = 0
         dx[:, :3] = common.posenc_bwd(g[:, :n0], common.posenc_trig(
             raw[:, :3], f0), 3, f0)
-        g1 = g[:, n0:n0 + ch1 * (1 + 2 * f1)]
+        g1 = g[:, n0:n0 + ch1 * (int(ident1) + 2 * f1)]
         if ch1:  # f1 = 0: the identity's cotangent alone
             dx[:, 3:3 + ch1] = g1 if f1 == 0 else common.posenc_bwd(
-                g1, common.posenc_trig(raw[:, 3:3 + ch1], f1), ch1, f1)
+                g1, common.posenc_trig(raw[:, 3:3 + ch1], f1), ch1, f1,
+                identity=ident1)
+
+    def alpha_cond_bwd(self, g, alpha, aw, samples, d_alpha, slabs):
+        gs = g[:, 0].reshape(-1, samples).sum(1)
+        d_alpha[:] = gs[:, None] * aw
+        rays, splits = alpha.shape[0], slabs.shape[0]
+        for z in range(splits):
+            q0, q1 = rays * z // splits, rays * (z + 1) // splits
+            slabs[z] = (gs[q0:q1, None] * alpha[q0:q1]).sum(0)
 
     def fields_rows(self, z, o, d, emb, samples, dxt, gw, f0, gs, f1, dz,
                     rows):
@@ -521,7 +621,7 @@ class TorchF32Ops:
                              gw[:, n0:n0 + e] + gs[:, n1:n1 + e]], 1)
 
     def ray_sum(self, x, samples, out):
-        out[:] = x.reshape(-1, samples, x.shape[1]).sum(1)
+        out[:] = x.reshape(out.shape[0], samples, x.shape[1]).sum(1)
 
 
 
@@ -561,7 +661,7 @@ def test_float32_steps_match_the_plain_backward(probe_level, rays, samples,
     w_blob, b_blob, shapes = pack_level_f32(level)
     wt_blob = pack_level_f32(level, transposed=True)[0]
     assert tshapes == shapes[14:]
-    dx_t, d_cond, grads = f32.template_bwd_steps(
+    dx_t, d_cond, grads, _ = f32.template_bwd_steps(
         ops, w, wt, b, w_off, b_off, n, raw_t, args[4], samples, g, max_rows)
     layers = level_layers(level)
     n_w = sum(a * c for a, c in shapes[14:])

@@ -4,11 +4,14 @@ backward (row 11) and kernel A at the static template's width, checked on
 the CPU.
 
 - The gate: a float32 template with 4 hyper coordinates or none and either
-  float32 field are admitted; what float32 still lacks (the plane and
-  Nerfies layouts, a field's window row) raises NotImplementedError naming
-  A.13.1's sub-item 3 before any library is needed (the screw warps'
-  trunk, ``split_glo`` with them included, is admitted:
-  ``tests/test_torch_precision32_screw.py``).
+  float32 field are admitted; so are, since sub-item 3's first half, the
+  template alone in the Nerfies layout or with the conditions' widths and
+  a field alone backward with a window row, which run as on the card
+  through their float32 entry points (refused before; their steps and
+  numbers are ``tests/test_torch_precision32_nerfies.py``'s); the plane
+  layout still raises NotImplementedError naming A.13.1's sub-item 3
+  before any library is needed (the screw warps' trunk, ``split_glo`` with
+  them included, is admitted: ``tests/test_torch_precision32_screw.py``).
 - The launches: each wrapper, run as on the card against a recording
   library, passes its C entry point (``hn_f32_template_fwd``,
   ``hn_f32_field_fwd``, the steps of ``f32_steps.cu``) as many arguments of
@@ -155,20 +158,8 @@ def _refusals():
                     2, K_mlp.cond_width(tmpl)))
         return call
 
-    def windowed_field():
-        mlp = flagship_model('cpu', config='split_glo', **F32).warp_field.mlp
-        with as_on_the_card():
-            K_field.fused_field_bwd(mlp, 10, x11, torch.zeros(4, 8),
-                                    torch.ones(71))
-
     return [
         ('plane return_points (its template)', template_alone('plane'), 3),
-        ('anneal template alone', template_alone('anneal'), 3),
-        ('nerf_embed template alone (47 + 8 conditions)',
-         template_alone('nerf_embed'), 3),
-        ('a 0-column condition', template_alone('flagship',
-                                                use_viewdirs=False), 3),
-        ('a field alone backward with a window row', windowed_field, 3),
     ]
 
 
@@ -176,14 +167,71 @@ def _refusals():
                          ids=[r[0].split(' (')[0] for r in _refusals()])
 def test_gate_refuses_what_is_left(label, call, item):
     """What float32 still lacks on the per-module path raises naming
-    A.13.1's sub-item 3 (the layouts and windows), and nothing falls back
-    to a plain version."""
+    A.13.1's sub-item 3 (the plane tables' layouts), and nothing falls
+    back to a plain version."""
     with pytest.raises(NotImplementedError,
                        match=f'A.13.1 sub-item {item}') as e:
         call()
     assert 'sub-item 1' not in str(e.value)
     assert 'sub-item 2' not in str(e.value)
     assert 1 not in common.F32_ITEMS and 2 not in common.F32_ITEMS
+
+
+def _admissions():
+    """(label, call run as on the card, the float32 entry point it must
+    reach): the per-module rows sub-item 3's first half ported, each
+    refused before."""
+    x11 = torch.zeros(4, 11)
+
+    def template_alone(config, **over):
+        def call():
+            tmpl = flagship_model('cpu', config=config, **over,
+                                  **F32).template_of('fine')
+            x = torch.zeros(16, K_mlp.raw_pad(tmpl))
+            cond = torch.zeros(2, K_mlp.cond_width(tmpl))
+            alpha = (torch.zeros(2, 8) if K_mlp.alpha_cond_width(tmpl)
+                     else None)
+            K_mlp.fused_template(tmpl, x, cond, alpha_cond=alpha)
+            K_mlp.fused_template_bwd(tmpl, x, cond, torch.zeros(16, 4),
+                                     alpha_cond=alpha)
+        return call
+
+    def windowed_field():
+        mlp = flagship_model('cpu', config='split_glo', **F32).warp_field.mlp
+        K_field.fused_field_bwd(mlp, 10, x11, torch.zeros(4, 8),
+                                torch.ones(71))
+
+    return [
+        ('anneal template alone', template_alone('anneal'),
+         'hn_f32_template_fwd'),
+        ('nerf_embed template alone (47 + 8 conditions)',
+         template_alone('nerf_embed'), 'hn_f32_alpha_cond_bwd'),
+        ('a 0-column condition', template_alone('flagship',
+                                                use_viewdirs=False),
+         'hn_f32_template_fwd'),
+        ('a field alone backward with a window row', windowed_field,
+         'hn_f32_tmpl_posenc_bwd'),
+    ]
+
+
+@torch.no_grad()
+@pytest.mark.parametrize('label,call,entry', _admissions(),
+                         ids=[r[0].split(' (')[0] for r in _admissions()])
+def test_gate_admits_what_sub_item_3_ported(label, call, entry, recording):
+    """The per-module rows sub-item 3's first half ported (the template
+    alone in the Nerfies layout or with the conditions' widths, a field
+    alone backward with a window row) run as on the card: their float32
+    entry points, each with its signature's arguments, the entry named
+    reached, the window row's pointer given where there is one."""
+    with as_on_the_card():
+        call()
+    _check_signatures(recording.calls)
+    names = [n for n, _ in recording.calls]
+    assert entry in names and all(n.startswith('hn_f32_') for n in names)
+    windows = [a[-2] for n, a in recording.calls
+               if n in ('hn_f32_tmpl_encode', 'hn_f32_tmpl_posenc_bwd')]
+    want = 'anneal' in label or 'window' in label
+    assert windows and all((w is not None) == want for w in windows)
 
 
 # ---------------------------------------------------------------------------
@@ -372,7 +420,7 @@ def test_static_template_bwd_steps_match_the_plain_backward(
         np.float32))
     w, wt, b, w_off, b_off, n = K_mlp.layer_views(w_blob, wt_blob, b_blob,
                                                   shapes)
-    dx_t, d_cond, grads = f32.template_bwd_steps(
+    dx_t, d_cond, grads, _ = f32.template_bwd_steps(
         TorchF32Ops(2), w, wt, b, w_off, b_off, n, x, cond, samples, g,
         max_rows, hyper=0)
     n_w = sum(a * c for a, c in shapes)

@@ -7,9 +7,11 @@ checked on the CPU.
 - The gate: the float32 ``se3`` and ``quaternion`` levels, their fp32
   blobs (the trunk's 9 rows, then the flagship table's from the sheet on)
   and the trunk alone are admitted; what float32 still lacks with a screw
-  warp (the Nerfies layout, levels without a sheet, the trunk's tangents)
-  raises NotImplementedError naming A.13.1's sub-item 3 or 4 before any
-  library is needed.
+  warp (levels without a sheet, the trunk's tangents) raises
+  NotImplementedError naming A.13.1's sub-item 3 or 4 before any library
+  is needed. The screw levels with the Nerfies template
+  (``anneal_se3``, ``anneal_quaternion``), refused before sub-item 3's
+  first half, are admitted and run as on the card.
 - The launches: each wrapper, run as on the card against a recording
   library, passes its C entry point (``hn_f32_level_fwd`` with the table
   code and the window row, ``hn_f32_trunk_fwd``, the trunk's steps of
@@ -189,8 +191,6 @@ def _refusals():
         return call
 
     return [
-        ('anneal_se3 (the Nerfies layout)', level_of('anneal_se3'), 3),
-        ('anneal_quaternion', level_of('anneal_quaternion'), 3),
         ('plane_se3 (no sheet)', level_of('plane_se3'), 3),
         ('plane_quaternion', level_of('plane_quaternion'), 3),
         ('elastic_se3 (rows 16, 17)', tangents('elastic_se3'), 4),
@@ -208,6 +208,37 @@ def test_gate_refuses_what_is_left(label, call, item):
                        match=f'A.13.1 sub-item {item}') as e:
         call()
     assert 'sub-item 2' not in str(e.value)
+
+
+@torch.no_grad()
+@pytest.mark.parametrize('config', ['anneal_se3', 'anneal_quaternion'])
+def test_gate_admits_the_nerfies_screw_levels(config, recording):
+    """The screw levels with the Nerfies template (the HyperNeRF paper's
+    ``anneal_se3``, and ``anneal_quaternion``), refused before sub-item 3's
+    first half: both levels pass the gate, and the fine level's forward
+    with both window rows and its two backwards run as on the card: the
+    table code of the warp, both window rows' pointers, kernel B's trunk
+    steps with the retraction's VJP of that warp."""
+    model = flagship_model('cpu', config=config, **F32)
+    for name in ('coarse', 'fine'):
+        _check_covered(model.level(name))
+    level = model.level('fine')
+    row = _scales(level.warp, WINDOW)[0]
+    tmpl_row = K_mlp.template_scales(level, 10.0, 1.5)
+    args = _rays(cond=K_mlp.cond_width(level))
+    with as_on_the_card():
+        _, raw_t = K_level._launch_forward(level, *args, want_raw_t=True,
+                                           warp_scales=row,
+                                           tmpl_scales=tmpl_row)
+        K_mlp.fused_template_bwd(level, raw_t, args[4], torch.zeros(16, 4),
+                                 tmpl_row)
+        K_level.fused_fields_bwd(level, *args[:4], torch.zeros(16, 8), row)
+    _check_signatures(recording.calls)
+    fwd = dict(recording.calls)['hn_f32_level_fwd']
+    code = common.WARP_CODES[level.warp.kind]
+    assert fwd[8] == code and None not in (fwd[9], fwd[10])
+    assert [a[0] for n, a in recording.calls
+            if n == 'hn_f32_retract_bwd'] == [code - 1]
 
 
 # ---------------------------------------------------------------------------

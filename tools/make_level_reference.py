@@ -16,8 +16,9 @@ kernels on a card that has no JAX.
       [--f32_out tests/data/fused_f32_jax_ref.npz] \
       [--f32_modular_out tests/data/fused_f32_modular_jax_ref.npz] \
       [--f32_screw_out tests/data/fused_f32_screw_jax_ref.npz] \
+      [--f32_nerfies_out tests/data/fused_f32_nerfies_jax_ref.npz] \
       [--only se3|jacobian|anneal|plane|conditions|b4|f32|f32_modular|
-              f32_screw]
+              f32_screw|f32_nerfies]
 
 The weights are ``hypernerf_tpu_torch.flagship.load_probe_weights`` (numpy,
 seed 0), which the card redraws bit for bit; the inputs
@@ -123,6 +124,20 @@ level) or ``F32_SCREW_TRUNK_DW`` (the trunk).
 ``tests/test_torch_precision32_screw.py`` recomputes one case and holds
 the plain float32 versions to it; ``chip_smoke.py`` phase 35 holds rows
 1, 5, 12 and 13 to it. ``--only f32_screw`` writes that file alone.
+The float32 Nerfies-layout file holds the JAX level kernel, template kernel
+and field kernel at ``compute_dtype='float32'`` on the sheet tables' other
+layouts and conditions (``flagship.F32_NERFIES_LEVEL_CASES``: ``anneal``,
+``anneal_se3``, ``nerf_embed``, its 8-column condition without view
+directions; ``F32_NERFIES_TEMPLATE_CASES``:
+the Nerfies template with a 27-column condition and with 35 + the alpha
+condition, the posenc_orig one with 47 + the alpha condition;
+``F32_NERFIES_FIELD_CASES``: the warp field and the sheet with a window
+row), at the alphas of ``flagship.ANNEAL_PROBE_STEP``, full width:
+outputs, and for the stored cotangent the gradients of the inputs, every
+bias and the weights of ``f32_nerfies_grad_layers``.
+``tests/test_torch_precision32_nerfies.py`` recomputes one case and holds
+the plain float32 versions to it; ``chip_smoke.py`` phase 36 holds rows
+1, 8, 9, 10 and 11 to it. ``--only f32_nerfies`` writes that file alone.
 """
 
 from __future__ import annotations
@@ -600,6 +615,87 @@ def jax_anneal_template(model, level: str, inputs,
     return res
 
 
+def jax_template(model, level: str, inputs, tmpl_alphas=(None, None),
+                 jit: bool = True) -> dict:
+    """The JAX template kernel's numbers (``fused_nerf_mlp``, interpret
+    mode) in the model's layout with 4 hyper coordinates: posenc_orig, or
+    the windowed Nerfies encoding at ``tmpl_alphas`` (nerf_alpha,
+    hyper_alpha); the rgb condition of ``inputs`` and its 'alpha_cond'
+    where it has one. 'out' (P, 4), and for sum(out * cotangent) 'dx' (P,
+    8), 'd_rgb_cond' (and 'd_alpha_cond'), 'dw<l>' as (out, in) and
+    'db<l>' of its 16 layers; ``jit``: from one jitted vjp (as
+    ``jax_level_vjp``)."""
+    import jax
+    import jax.numpy as jnp
+    import numpy as np
+
+    from hypernerf_tpu.ops.pallas.fused_field import encoding_scales
+    from hypernerf_tpu.ops.pallas.fused_mlp import (FusedMLPSpec,
+                                                    fused_nerf_mlp,
+                                                    nerf_mlp_params_to_list)
+    from hypernerf_tpu_torch.convert import params_to_jax
+
+    cfg = model.config
+    params = params_to_jax(model.state_dict())
+    hyper = cfg.hyper_slice_out_dim
+    nerfies = not cfg.use_original_embed
+    if nerfies:
+        segments = ((3, cfg.spatial_point_max_deg - cfg.spatial_point_min_deg,
+                     cfg.spatial_point_min_deg, True),
+                    (hyper, cfg.hyper_point_max_deg - cfg.hyper_point_min_deg,
+                     cfg.hyper_point_min_deg, False))
+    else:
+        segments = ((3, cfg.xyz_freq, 0, True), (hyper, cfg.hyper_freq, 0,
+                                                  True))
+    alpha_ch = inputs['alpha_cond'].shape[1] if 'alpha_cond' in inputs else 0
+    per = inputs['x_raw'].shape[0] // inputs['rgb_cond'].shape[0]
+    spec = FusedMLPSpec(
+        in_ch=sum(c * (2 * f + ident) for c, f, _, ident in segments),
+        windowed=nerfies, trunk_depth=cfg.trunk_depth,
+        trunk_width=cfg.trunk_width, rgb_depth=cfg.rgb_branch_depth,
+        rgb_width=cfg.rgb_branch_width, skips=tuple(cfg.skips),
+        rgb_cond_ch=inputs['rgb_cond'].shape[1], alpha_cond_ch=alpha_ch,
+        tile=256, bwd_tile=128, compute_dtype=cfg.compute_dtype,
+        enc_segments=(segments if nerfies
+                      else tuple(seg[:2] for seg in segments)),
+        cond_samples=per if per > 1 else 0, interpret=True)
+    scales = encoding_scales(
+        segments, [None if a is None else jnp.float32(a)
+                   for a in tmpl_alphas]) if nerfies else None
+
+    def fn(x_raw, rgb_cond, *rest):
+        pairs, alpha_cond = rest[-1], (rest[0] if alpha_ch else None)
+        out = fused_nerf_mlp(spec, x_raw[:, :3 + hyper], rgb_cond,
+                             alpha_cond, pairs, enc_scales=scales)
+        return jnp.concatenate([out['rgb'], out['alpha']], -1)
+
+    args = [jnp.asarray(inputs['x_raw']), jnp.asarray(inputs['rgb_cond'])]
+    if alpha_ch:
+        args.append(jnp.asarray(inputs['alpha_cond']))
+    args.append([(jnp.asarray(w), jnp.asarray(b)) for w, b in
+                 nerf_mlp_params_to_list(params[f'nerf_{level}'])])
+    cot = jnp.asarray(inputs['cotangent'])
+    if jit:
+        def both(*a):
+            out, vjp = jax.vjp(fn, *a)
+            return out, vjp(cot)
+        out, g = jax.device_get(jax.jit(both)(*args))
+    else:
+        g = jax.device_get(jax.grad(
+            lambda *a: jnp.sum(fn(*a) * cot),
+            argnums=tuple(range(len(args))))(*args))
+        out = jax.device_get(fn(*args))
+    res = {'out': np.asarray(out, np.float32),
+           'dx': np.asarray(g[0], np.float32),
+           'd_rgb_cond': np.asarray(g[1], np.float32)}
+    if alpha_ch:
+        res['d_alpha_cond'] = np.asarray(g[2], np.float32)
+    for layer, (dw, db) in enumerate(g[-1]):
+        res[f'dw{layer}'] = np.asarray(dw, np.float32).T.copy()
+        res[f'db{layer}'] = np.asarray(db, np.float32)
+    return res
+
+
 def jax_plane_template(model, level: str, inputs) -> dict:
     """The JAX template kernel's numbers (``fused_nerf_mlp`` with its
     in-kernel posenc_orig of [xyz (10 bands) | 8 hyper coordinates (6)],
@@ -907,6 +1003,55 @@ def f32_screw_reference() -> dict:
     return arrays
 
 
+def f32_nerfies_case(case: str, model=None) -> dict:
+    """The JAX kernels' numbers of one F32_NERFIES case at float32 (every
+    dW; ``model``: its ``flagship.f32_nerfies_model``, made when None)."""
+    from hypernerf_tpu_torch.flagship import (F32_NERFIES_FIELD_CASES,
+                                              F32_NERFIES_LEVEL_CASES,
+                                              f32_nerfies_extra,
+                                              f32_nerfies_model,
+                                              f32_nerfies_probe_inputs)
+    model = model or f32_nerfies_model(case)
+    inputs = f32_nerfies_probe_inputs(case, model)
+    if case in F32_NERFIES_FIELD_CASES:
+        return jax_modular(model, case, inputs, F32_NERFIES_FIELD_CASES)
+    ep = f32_nerfies_extra(case)
+    alphas = (ep.get('nerf_alpha'), ep.get('hyper_alpha'))
+    if case in F32_NERFIES_LEVEL_CASES:
+        level = F32_NERFIES_LEVEL_CASES[case][2]
+        rays = {k: v for k, v in inputs.items() if k != 'cotangent'}
+        screw = model.config.warp_field_type != 'translation'
+        return jax_level_vjp(model, level, rays, inputs['cotangent'],
+                             ep.get('warp_alpha') if screw else None,
+                             alphas)
+    from hypernerf_tpu_torch.flagship import F32_NERFIES_TEMPLATE_CASES
+    return jax_template(model, F32_NERFIES_TEMPLATE_CASES[case][2], inputs,
+                        alphas)
+
+
+def f32_nerfies_reference() -> dict:
+    """Every array of the float32 Nerfies-layout file: each case's inputs
+    and the JAX kernels' numbers at float32 (dW of
+    ``f32_nerfies_grad_layers`` alone)."""
+    from hypernerf_tpu_torch.flagship import (F32_NERFIES_FIELD_CASES,
+                                              F32_NERFIES_LEVEL_CASES,
+                                              F32_NERFIES_TEMPLATE_CASES,
+                                              f32_nerfies_grad_layers,
+                                              f32_nerfies_model,
+                                              f32_nerfies_probe_inputs)
+    arrays = {}
+    for case in (*F32_NERFIES_LEVEL_CASES, *F32_NERFIES_TEMPLATE_CASES,
+                 *F32_NERFIES_FIELD_CASES):
+        model = f32_nerfies_model(case)
+        inputs = f32_nerfies_probe_inputs(case, model)
+        arrays.update({f'{case}/{k}': v for k, v in inputs.items()})
+        for k, v in f32_nerfies_case(case, model).items():
+            if not k.startswith('dw') or int(k[2:]) in \
+                    f32_nerfies_grad_layers(case):
+                arrays[f'{case}/{k}'] = v
+    return arrays
+
+
 def jacobian_reference() -> dict:
     """Every array of the Jacobian file: each case's inputs and numbers."""
     from hypernerf_tpu_torch.flagship import (JACOBIAN_CASES, flagship_model,
@@ -990,6 +1135,7 @@ def main():
                                               B4_REFERENCE, F32_REFERENCE,
                                               F32_MODULAR_REFERENCE,
                                               F32_SCREW_REFERENCE,
+                                              F32_NERFIES_REFERENCE,
                                               GRAD_REFERENCE,
                                               LEVEL_REFERENCE,
                                               PLANE_REFERENCE,
@@ -1011,14 +1157,16 @@ def main():
     parser.add_argument('--f32_out', default=F32_REFERENCE)
     parser.add_argument('--f32_modular_out', default=F32_MODULAR_REFERENCE)
     parser.add_argument('--f32_screw_out', default=F32_SCREW_REFERENCE)
+    parser.add_argument('--f32_nerfies_out', default=F32_NERFIES_REFERENCE)
     parser.add_argument('--only', choices=('se3', 'jacobian', 'anneal',
                                            'plane', 'conditions', 'b4',
                                            'f32', 'f32_modular',
-                                           'f32_screw'),
+                                           'f32_screw', 'f32_nerfies'),
                         default=None, help='write the SE(3), the Jacobian, '
                         'the anneal, the plane, the conditions, the B.4, '
-                        'the float32, the float32 per-module or the float32 '
-                        'screw-warp file alone')
+                        'the float32, the float32 per-module, the float32 '
+                        'screw-warp or the float32 Nerfies-layout file '
+                        'alone')
     args = parser.parse_args()
     os.makedirs(os.path.dirname(os.path.abspath(args.se3_out)), exist_ok=True)
     if args.only in (None, 'f32'):
@@ -1030,6 +1178,9 @@ def main():
     if args.only in (None, 'f32_screw'):
         np.savez_compressed(args.f32_screw_out, **f32_screw_reference())
         print(args.f32_screw_out)
+    if args.only in (None, 'f32_nerfies'):
+        np.savez_compressed(args.f32_nerfies_out, **f32_nerfies_reference())
+        print(args.f32_nerfies_out)
     if args.only in (None, 'b4'):
         np.savez_compressed(args.b4_out, **b4_reference())
         print(args.b4_out)

@@ -8,7 +8,10 @@ x S, the per-module rows, 8 (the template alone at R = 8192, S = 128), 10
 x S rows) and 9 at the static template's width (R x 64), and the screw
 warps' rows, 1 and 5 on the ``se3`` level with the window row at R x S,
 12 (the trunk alone at 8192 x 128 rows) and 13 (its backward at R x S
-rows):
+rows), and rows 1 and 9 in the Nerfies layout (``anneal`` with the
+template's window row at the alphas of ``flagship.ANNEAL_PROBE_STEP``) and
+with the ``nerf_embed`` conditions (47 rgb columns, the alpha condition) at
+R x S:
 
   python3 tools/time_f32.py [--rays 16384] [--samples 128] [--parent DIR]
 
@@ -16,8 +19,13 @@ With ``--parent DIR`` (a checkout, e.g. an unpacked ``git archive``) it
 first builds DIR's float32 sources alone (csrc/f32_level.cu and
 f32_steps.cu) into build/parent_f32/, then times the float32 level forward
 of this checkout's library and of DIR's in turns (this, parent, parent,
-this; CUDA events) at R = 8192 and R x S, S = 128, and holds the outputs
-and raw_t of the two equal bit for bit (exit code 1 if not).
+this; CUDA events) at R = 8192 and R x S, S = 128, on the flagship table
+(code 0) and, where DIR's library takes a table code, on the SE(3) table
+with the trunk's window row (code 1) and the quaternion table (code 2),
+and holds the outputs and raw_t of the two equal bit for bit (exit code 1
+if not). Each library is called with as many arguments as its own
+signature declares: the posenc_orig template, its 39-column condition, no
+alpha condition.
 
 Prints the card's name and power limit beside each table. ``chip_smoke.py``
 phases 33 and 34 hold the same kernels to their plain versions and time
@@ -71,52 +79,67 @@ def _parent_f32_library(repo: str):
     return lib
 
 
-def compare_parent(parent: str, lv, shapes, card: str) -> bool:
+# The arguments between the weights' pointers and the outputs' of each
+# version of ``hn_f32_level_fwd``, by its argument count: none (PRs 22 and
+# 23), the table code and the trunk's window row (PR 24), and since then
+# also the template's window row and the alpha condition's two pointers
+# (none of them here: the posenc_orig template without an alpha condition).
+_LEVEL_ARGS = {13: lambda code, row: [], 15: lambda code, row: [code, row],
+               18: lambda code, row: [code, row, None, None, None]}
+
+
+def compare_parent(parent: str, levels, shapes, card: str) -> bool:
     """The float32 level forward of this checkout and of ``parent`` in
-    turns at each (R, S) of ``shapes``; True if every output and raw_t is
-    equal bit for bit."""
+    turns at each (R, S) of ``shapes`` for each (label, level, table code,
+    trunk window row or None) of ``levels`` that the parent's library takes
+    (one without a table code: code 0 alone); True if every output and
+    raw_t is equal bit for bit."""
     import torch
 
     import chip_smoke as cs
     from hypernerf_tpu_torch.kernels import build
     from hypernerf_tpu_torch.kernels.fused_level import pack_level_f32
-    from hypernerf_tpu_torch.kernels.fused_mlp import f32_cond
+    from hypernerf_tpu_torch.kernels.fused_mlp import cond_args
     libs = {'this': build.library(), 'parent': _parent_f32_library(parent)}
-    wt = pack_level_f32(lv, transposed=True)[0]
-    b = pack_level_f32(lv)[1]
     stream = torch.cuda.current_stream().cuda_stream
     same = True
-    for r, s in shapes:
-        z, o, d, emb, cond = cs.level_inputs(r, s, seed=r + s)
-        cond = f32_cond(lv, cond, r, z.device)
-        outs = {k: (torch.empty((r * s, 4), device='cuda'),
-                    torch.empty((r * s, 8), device='cuda')) for k in libs}
+    for label, lv, code, row in levels:
+        if code and len(libs['parent'].hn_f32_level_fwd.argtypes) == 13:
+            continue
+        wt = pack_level_f32(lv, transposed=True)[0]
+        b = pack_level_f32(lv)[1]
+        for r, s in shapes:
+            z, o, d, emb, cond = cs.level_inputs(r, s, seed=r + s)
+            cond = cond_args(lv, cond, None, r, z.device, torch.float32)[0]
+            outs = {k: (torch.empty((r * s, 4), device='cuda'),
+                        torch.empty((r * s, 8), device='cuda'))
+                    for k in libs}
 
-        def launch(k):
-            out, raw = outs[k]
-            fn = libs[k].hn_f32_level_fwd
-            # A library that takes the table code and the window row (the
-            # screw warps) is given the translation table's: 0 and none.
-            code = [0, None] if len(fn.argtypes) == 15 else []
-            build.check(fn(
-                z.data_ptr(), o.data_ptr(), d.data_ptr(), emb.data_ptr(),
-                cond.data_ptr(), cond.shape[1], wt.data_ptr(), b.data_ptr(),
-                *code, out.data_ptr(), raw.data_ptr(), r, s, stream),
-                'hn_f32_level_fwd')
+            def launch(k):
+                out, raw = outs[k]
+                fn = libs[k].hn_f32_level_fwd
+                build.check(fn(
+                    z.data_ptr(), o.data_ptr(), d.data_ptr(), emb.data_ptr(),
+                    cond.data_ptr(), cond.shape[1], wt.data_ptr(),
+                    b.data_ptr(), *_LEVEL_ARGS[len(fn.argtypes)](
+                        code, None if row is None else row.data_ptr()),
+                    out.data_ptr(), raw.data_ptr(), r, s, stream),
+                    'hn_f32_level_fwd')
 
-        times = {k: [] for k in libs}
-        for k in ('this', 'parent', 'parent', 'this'):
-            times[k].append(cs.cuda_ms(lambda: launch(k), 5))
-        torch.cuda.synchronize()
-        equal = all(torch.equal(a, c) for a, c in zip(outs['this'],
-                                                      outs['parent']))
-        same = same and equal
-        print(f'float32 level forward R={r} S={s}: this '
-              + ', '.join(f'{t:.3f}' for t in times['this'])
-              + ' ms; parent ' + ', '.join(f'{t:.3f}' for t in
-                                          times['parent'])
-              + f' ms; outputs and raw_t equal bit for bit: {equal}; '
-              f'{card}', flush=True)
+            times = {k: [] for k in libs}
+            for k in ('this', 'parent', 'parent', 'this'):
+                times[k].append(cs.cuda_ms(lambda: launch(k), 5))
+            torch.cuda.synchronize()
+            equal = all(torch.equal(a, c) for a, c in zip(outs['this'],
+                                                          outs['parent']))
+            same = same and equal
+            print(f'float32 level forward {label} (code {code}) R={r} '
+                  f'S={s}: this '
+                  + ', '.join(f'{t:.3f}' for t in times['this'])
+                  + ' ms; parent ' + ', '.join(f'{t:.3f}' for t in
+                                              times['parent'])
+                  + f' ms; outputs and raw_t equal bit for bit: {equal}; '
+                  f'{card}', flush=True)
     return same
 
 
@@ -133,7 +156,9 @@ def main() -> int:
     from torch.profiler import ProfilerActivity, profile
 
     import chip_smoke as cs
-    from hypernerf_tpu_torch.flagship import flagship_model, load_probe_weights
+    from hypernerf_tpu_torch.flagship import (anneal_extra_params,
+                                              flagship_model,
+                                              load_probe_weights)
     from hypernerf_tpu_torch.kernels import (build, fused_field,
                                              fused_field_bwd,
                                              fused_fields_bwd, fused_level,
@@ -154,12 +179,19 @@ def main() -> int:
         'cuda', config='static', compute_dtype='float32'))
     se3 = load_probe_weights(flagship_model('cuda', config='se3',
                                             compute_dtype='float32'))
+    quat = load_probe_weights(flagship_model('cuda', config='quaternion',
+                                             compute_dtype='float32'))
     lv = model.level('fine')
     r, s = args.rays, args.samples
     if args.parent:
+        sv = se3.level('fine')
+        levels = (('flagship', lv, 0, None),
+                  ('se3 with the window row', sv, 1,
+                   se3_encoding_scales(sv.warp, cs.WINDOW_ALPHA, 'cuda')),
+                  ('quaternion', quat.level('fine'), 2, None))
         with torch.no_grad():
-            if not compare_parent(args.parent, lv, ((8192, 128), (r, s)),
-                                  card):
+            if not compare_parent(args.parent, levels,
+                                  ((8192, 128), (r, s)), card):
                 return 1
     with torch.no_grad():
         ins = cs.level_inputs(r, s, seed=5)
@@ -204,6 +236,22 @@ def main() -> int:
                    lambda: fused_se3_wv(sv.warp, fx, ws)),
                   ('row 13 (window row)',
                    lambda: fused_se3_bwd(sv.warp, bx, tg, ws)))
+        extra = anneal_extra_params()
+        for config in ('anneal', 'nerf_embed'):
+            nm = load_probe_weights(flagship_model(
+                'cuda', config=config, compute_dtype='float32'))
+            nv = nm.level('fine')
+            n_args, alpha = cs.f32_nerfies_level_inputs(
+                nm, r, s, 10, extra['nerf_alpha'])
+            ts = cs.f32_nerfies_windows(nv, extra)[1]
+            n_raw = _launch_forward(nv, *n_args, want_raw_t=True,
+                                    tmpl_scales=ts, alpha_cond=alpha)[1]
+            calls += ((f'row 1 {config}', lambda nv=nv, a=n_args, ts=ts,
+                       al=alpha: fused_level(nv, *a, tmpl_scales=ts,
+                                             alpha_cond=al)),
+                      (f'row 9 {config}', lambda nv=nv, raw=n_raw, a=n_args,
+                       ts=ts, al=alpha: fused_template_bwd(
+                           nv, raw, a[4], g, ts, al)))
         for _, fn in calls:  # warm up
             fn()
         for label, fn in calls:
