@@ -192,7 +192,7 @@ Phases, one line each; any failure ends the run with a non-zero exit:
      16 steps from the first), its time without the refresh and amortised
      over 16 steps, a 1024-ray step through the grid against the plain
      versions;
- 24. the kernels' JSON line, then the result line (after phase 36);
+ 24. the kernels' JSON line, then the result line (after phase 37);
  25. the trainer and its entry point: ``tools/make_synthetic_scene.py``
      writes an 8-frame 160x120 scene into a temporary directory (never the
      repo), where ``hypernerf_tpu_torch.train.main(argv)`` trains the
@@ -305,9 +305,8 @@ Phases, one line each; any failure ends the run with a non-zero exit:
      (row 1 in float32) and train step with the refresh (rows 8 and 10)
      inside the window; (d) ``train.main --precision 32`` with
      ``--share_GLO False`` and with ``--use_occupancy_grid True``; (e)
-     float32 ``plane``, ``plane_se3``, ``elastic_se3`` (its warp
-     Jacobian) and ``plane`` with ``return_points`` refused on the card
-     naming A.13.1's sub-item;
+     float32 ``elastic_se3`` (its warp Jacobian) refused on the card
+     naming A.13.1's sub-item 4;
  35. the screw warps at ``--precision 32`` (ROADMAP A.13.1 sub-item 2),
      TF32 off: (a) the float32 level forward with the SE(3) warp and the
      window row (R = 16384, S = 128) and the quaternion warp (R = 8192, S =
@@ -336,9 +335,30 @@ Phases, one line each; any failure ends the run with a non-zero exit:
      same rows without; (c) with their launches counted and no plain call:
      an ``anneal_se3`` frame and 64 + 128 train step, a ``nerf_embed``
      step, ``query_sigma`` on ``anneal_se3``, ``train.main --precision 32
-     --use_nerfies_embed --warp_field se3`` and ``eval``; (d) the plane
-     tables and the Jacobians refused on the card, naming sub-items 3 and
-     4.
+     --use_nerfies_embed --warp_field se3`` and ``eval``; (d) the
+     Jacobians (``elastic_quaternion``) refused on the card, naming
+     sub-item 4;
+ 37. the plane tables at ``--precision 32`` (ROADMAP A.13.1 sub-item 3,
+     second half), TF32 off: (a) the float32 level forward at every plane
+     table code (3 to 8: ``plane``, ``plane_se3``, ``plane_quaternion``,
+     ``plane_anneal``, ``plane_anneal_se3``, ``plane_anneal_quaternion``)
+     at R = 16384, S = 128 and at codes 3 and 6 at S = 192, kernel A at
+     codes 3 and 6 (S = 128 and 192), kernel B at codes 3 and 6 (S = 128)
+     and the template alone in both plane layouts (R = 8192, S = 128)
+     against their float32 plain versions (relative L2 1e-4, max|d| 1e-3
+     of the largest entry, per output), each timed in turns with the
+     flagship table's kernel on inputs of the same shape; against the JAX
+     kernels' stored float32 numbers (tests/data/fused_f32_plane_jax_ref
+     .npz: row 1 at every code, the levels' gradients at codes 3 and 6,
+     the template alone in both layouts); (b) with their launches counted
+     and no plain call: 504x378 frames of ``plane`` and
+     ``plane_anneal_se3`` (fully annealed) and a ``plane`` frame with
+     ``return_points``, 1024 rays of ``plane_anneal_se3`` against the
+     plain versions; (c) the 64 + 128 train steps of ``plane`` and of
+     ``plane_anneal_se3`` (from step 3750), each with a 1024-ray step
+     against the plain versions, ``query_sigma`` on ``plane``; (d)
+     ``train.main --precision 32 --slice_method axis_aligned_plane
+     --use_nerfies_embed --warp_field se3`` and ``eval`` of its checkpoint.
 Times come from CUDA events (kernels) or the host clock around work that
 ends in a synchronize (frames, steps). A kernel's bound is the larger of
 its matrix-product operations over the card's dense bf16 peak and its bytes
@@ -3088,8 +3108,9 @@ def main() -> int:
     kernels += precision32_modular_phase(kernels)
     kernels += precision32_screw_phase(kernels)
     kernels += precision32_nerfies_phase(kernels)
-    if len(kernels) != 44:
-        raise AssertionError(f'{len(kernels)} kernels in the line, want 44')
+    kernels += precision32_plane_phase(kernels)
+    if len(kernels) != 48:
+        raise AssertionError(f'{len(kernels)} kernels in the line, want 48')
     phase(f'[24] chip_smoke.py: every phase passed in '
           f'{time.perf_counter() - T_START:.1f} s, the build included; '
           f'{CARD}')
@@ -5893,24 +5914,24 @@ def f32_level_bound(level, n_rays: int, samples: int, cond: int = 39):
 
 
 def f32_template_bwd_bound(level, n_rays: int, samples: int,
-                           cond: int = 39):
+                           cond: int = 39, raw: int = 8):
     """Kernel A at float32: the recompute, g W and g^T h a multiply-add per
-    weight and row each; bytes raw_t, g and dx_t per row, the condition and
-    its cotangent per ray, the weights and dW once."""
+    weight and row each; bytes raw_t (``raw`` fp32), g and dx_t per row,
+    the condition and its cotangent per ray, the weights and dW once."""
     t_macs = level_macs(level)[1]
     p = n_rays * samples
     return f32_bound(6.0 * t_macs * p,
-                     p * (32 + 16 + 32) + 8 * n_rays * cond + 8 * t_macs)
+                     p * (8 * raw + 16) + 8 * n_rays * cond + 8 * t_macs)
 
 
-def f32_fields_bwd_bound(level, n_rays: int, samples: int):
+def f32_fields_bwd_bound(level, n_rays: int, samples: int, raw: int = 8):
     """Kernel B at float32: the same per weight of the field layers; bytes
-    z, dx_t and d z per row, the ray inputs and their cotangents per ray,
-    the weights and dW once."""
+    z, dx_t (``raw`` fp32) and d z per row, the ray inputs and their
+    cotangents per ray, the weights and dW once."""
     f_macs = level_macs(level)[0]
     p = n_rays * samples
     return f32_bound(6.0 * f_macs * p,
-                     p * (4 + 32 + 4) + 8 * n_rays * 14 + 8 * f_macs)
+                     p * (4 + 4 * raw + 4) + 8 * n_rays * 14 + 8 * f_macs)
 
 
 def f32_rows_phase(model, bf16) -> dict:
@@ -6363,11 +6384,10 @@ F32_CHUNK_LAUNCHES = {'static': {'fused_template_fwd_f32': 2},
                                         'fused_field_fwd_f32': 4}}
 F32_CLI_STEPS = 8  # steps of each train.main run of phase 34 (d)
 # Float32 configurations and paths still refused on the card (A.13.1):
-# (label, configuration, NerfConfig overrides, call keywords).
+# (label, configuration, NerfConfig overrides, call keywords). The plane
+# tables and their return_points path run since phase 37's port.
 F32_REFUSED = (
-    ('plane', 'plane', {}, {}), ('plane_se3', 'plane_se3', {}, {}),
-    ('elastic_se3', 'elastic_se3', {}, dict(return_warp_jacobian=True)),
-    ('plane return_points', 'plane', {}, dict(return_points=True)))
+    ('elastic_se3', 'elastic_se3', {}, dict(return_warp_jacobian=True)),)
 
 
 def template_macs(tmpl) -> int:
@@ -6383,12 +6403,13 @@ def field_macs(mlp) -> int:
     return sum(lin.weight.numel() for lin, _ in field_layers(mlp))
 
 
-def f32_template_bound(tmpl, rows: int, samples: int, cond: int = 39):
+def f32_template_bound(tmpl, rows: int, samples: int, cond: int = 39,
+                       raw: int = 8):
     """Row 8 at float32: a multiply-add per weight and row; bytes the raw
-    rows (8 fp32) and the output (4) per row, the condition per condition
-    row, the weights once."""
+    rows (``raw`` fp32) and the output (4) per row, the condition per
+    condition row, the weights once."""
     macs = template_macs(tmpl)
-    return f32_bound(2.0 * macs * rows, rows * (32 + 16)
+    return f32_bound(2.0 * macs * rows, rows * (4 * raw + 16)
                      + 4 * (rows // samples) * cond + 4 * macs)
 
 
@@ -7303,12 +7324,13 @@ def f32_nerfies_level_inputs(model, n_rays: int, samples: int, seed: int,
 
 def f32_nerfies_windows(level, extra):
     """(the trunk's window row or None, the template's or None) of a level
-    at the alphas ``extra``, on the card."""
+    at the alphas ``extra`` (no trunk window without a ``warp_alpha``), on
+    the card."""
     from hypernerf_tpu_torch.kernels.fused_mlp import template_scales
     from hypernerf_tpu_torch.kernels.fused_se3 import se3_encoding_scales
     tmpl = template_scales(level, extra.get('nerf_alpha'),
                            extra.get('hyper_alpha'), 'cuda')
-    if level.warp.kind == 'translation':
+    if level.warp.kind == 'translation' or 'warp_alpha' not in extra:
         return None, tmpl
     return se3_encoding_scales(level.warp, extra['warp_alpha'], 'cuda'), tmpl
 
@@ -7514,20 +7536,20 @@ def f32_window_fields(model) -> dict:
     return out
 
 
-def f32_level_floor(case, level_name, cuda, raw_t):
+def f32_level_floor(model, level_name, extra, cuda, raw_t):
     """{gradient name: (relative L2, max|d| of the largest entry)} by
-    which the plain level's gradients of a stored level case move when its
-    backward is fed ``raw_t`` (the kernel's) instead of the raw_t of its
-    forward with float64 arithmetic outside the MLPs."""
+    which the plain level's gradients of a stored level case (``model``'s
+    level ``level_name`` at the alphas ``extra``) move when its backward is
+    fed ``raw_t`` (the kernel's) instead of the raw_t of its forward with
+    float64 arithmetic outside the MLPs."""
     import torch
-    from hypernerf_tpu_torch.flagship import (LEVEL_INPUTS, f32_nerfies_extra,
-                                              f32_nerfies_model)
+    from hypernerf_tpu_torch.flagship import LEVEL_INPUTS
     from hypernerf_tpu_torch.kernels import (fused_fields_bwd_plain,
                                              fused_level_plain,
                                              fused_template_bwd_plain)
-    lv = f32_nerfies_model(case, 'cuda').double().level(level_name)
+    lv = model.double().level(level_name)
     ws, ts = (None if t is None else t.double()
-              for t in f32_nerfies_windows(lv, f32_nerfies_extra(case)))
+              for t in f32_nerfies_windows(lv, extra))
     args = [cuda[k].double() for k in LEVEL_INPUTS]
     alpha = cuda.get('alpha_cond')
     alpha = None if alpha is None else alpha.double()
@@ -7608,8 +7630,10 @@ def f32_nerfies_reference() -> None:
                 raw_t = _launch_forward(lv, *inputs[:5], want_raw_t=True,
                                         warp_scales=ws, tmpl_scales=ts,
                                         alpha_cond=alpha)[1]
-            floor = f32_level_floor(case, F32_NERFIES_LEVEL_CASES[case][2],
-                                    cuda, raw_t)
+            floor = f32_level_floor(
+                f32_nerfies_model(case, 'cuda'),
+                F32_NERFIES_LEVEL_CASES[case][2], f32_nerfies_extra(case),
+                cuda, raw_t)
             cot = cuda['cotangent']
         else:
             tmpl = model.template_of(F32_NERFIES_TEMPLATE_CASES[case][2])
@@ -7660,7 +7684,7 @@ def f32_nerfies_reference() -> None:
                                      floors.items()))
 
 
-def hold_floored(label, names, got, want, floor):
+def hold_floored(label, names, got, want, floor, tag='[36]'):
     """Hold each gradient of a level to its stored JAX value within
     F32_GRAD_L2 + 2 floor (at most F32_NERFIES_REF_L2) in relative L2 and
     F32_GRAD_MAX + 2 floor in max|d| of the largest entry, ``floor`` its
@@ -7680,7 +7704,7 @@ def hold_floored(label, names, got, want, floor):
                                  f'{fm:.3e})')
         if l2 / lim[0] > worst[0]:
             worst = (l2 / lim[0], name, l2)
-    phase(f'[36] {label}: {len(names)} outputs, worst relative L2 '
+    phase(f'{tag} {label}: {len(names)} outputs, worst relative L2 '
           f'{worst[2]:.3e} at {worst[1]} ({worst[0]:.0%} of its limit, '
           f'F32_GRAD_L2 + 2 x its raw_t floor)')
 
@@ -7730,13 +7754,11 @@ def f32_nerfies_paths() -> dict:
     return counts
 
 
-# Phase 36 (d): what float32 still refuses on the card: the plane tables
-# (sub-item 3) and the Jacobians (sub-item 4).
+# Phase 36 (d): what float32 still refuses on the card: the Jacobians
+# (sub-item 4; the plane tables, sub-item 3, run since phase 37's port).
 F32_STILL_REFUSED = (
-    ('plane_anneal', 'plane_anneal', {}, {}),
-    ('plane_anneal_se3', 'plane_anneal_se3', {}, {}),
     ('elastic_quaternion', 'elastic_quaternion', {},
-     dict(return_warp_jacobian=True)))
+     dict(return_warp_jacobian=True)),)
 
 
 def precision32_nerfies_phase(kernels) -> list:
@@ -7812,6 +7834,421 @@ def precision32_nerfies_phase(kernels) -> list:
                     entry[f'row{row}_window_{field}_ms'] = v[0]
         out.append(entry)
     phase(f'[36] the Nerfies-layout --precision 32 phase took '
+          f'{time.perf_counter() - t_phase:.1f} s; {CARD}')
+    return out
+
+
+# -- the plane tables at --precision 32 (A.13.1 sub-item 3, second half;
+# phase 37) ----------------------------------------------------------------
+
+# name -> (its source, the TPU kernel it replaces at float32, the counter its
+# launches count under, the path whose launches the line reports): rows 1,
+# 5, 8 and 9 on the plane tables (table codes 3 to 8, axis_aligned_plane:
+# no sheet, the ray's 8 GLO coordinates as the hyper coordinates), variants
+# of the float32 kernels of phases 33 to 36.
+F32_PLANE_ROWS = {
+    'fused_level_fwd_f32_plane': (
+        CSRC_DIR + 'f32_level.cu',
+        'hypernerf_tpu/ops/pallas/fused_level.py:1322',
+        'fused_level_fwd_f32', 'plane_anneal_se3_f32 train'),
+    'fused_fields_bwd_f32_plane': (
+        CSRC_DIR + 'f32_steps.cu',
+        'hypernerf_tpu/ops/pallas/fused_level.py:846',
+        'fused_fields_bwd_f32', 'plane_anneal_se3_f32 train'),
+    'fused_template_fwd_f32_plane': (
+        CSRC_DIR + 'f32_level.cu', 'hypernerf_tpu/ops/pallas/fused_mlp.py:656',
+        'fused_template_fwd_f32', 'plane return_points frame'),
+    'fused_template_bwd_f32_plane': (
+        CSRC_DIR + 'f32_steps.cu', 'hypernerf_tpu/ops/pallas/fused_mlp.py:736',
+        'fused_template_bwd_f32', 'plane_anneal_se3_f32 train')}
+PATHS.update(plane_f32=('plane', F32_FINE128),
+             plane_anneal_se3_f32=('plane_anneal_se3', F32_FINE128))
+STEP_LAUNCHES['plane_f32'] = STEP_LAUNCHES['flagship_f32']
+STEP_LAUNCHES['plane_anneal_se3_f32'] = STEP_LAUNCHES['flagship_f32']
+# The six plane configurations and their table codes (common.TABLE_CODES):
+# the posenc_orig plane layout (3 to 5) and the Nerfies one (6 to 8), each
+# after the translation, SE(3) and quaternion warp.
+F32_PLANE_CONFIGS = {'plane': 3, 'plane_se3': 4, 'plane_quaternion': 5,
+                     'plane_anneal': 6, 'plane_anneal_se3': 7,
+                     'plane_anneal_quaternion': 8}
+# Kernel vs plain, both float32 on the card with TF32 off: rows 1, 5, 8
+# and 9 at the plane tables per output within phase 35's relative L2 1e-4
+# and max|d| 1e-3 of the largest entry (F32_SCREW_L2 / F32_SCREW_MAX).
+# Against tests/data/fused_f32_plane_jax_ref.npz: outputs F32_REF_OUT of
+# the largest entry, a template's gradients F32_GRAD_L2 / F32_GRAD_MAX, a
+# level's phase 36's rule (F32_GRAD_L2 plus twice the raw_t floor the card
+# measures, at most F32_NERFIES_REF_L2; hold_floored).
+F32_PLANE_CLI_FLAGS = ('--slice_method', 'axis_aligned_plane',
+                       '--use_nerfies_embed', '--warp_field', 'se3')
+
+
+def f32_plane_template_rows(model, rows: int, samples: int, seed: int,
+                            nerf_alpha):
+    """A plane template's raw rows on the card, (rows, 16) [points | the
+    rows' embedding as its 8 hyper coordinates | 0] (``field_rows``), and
+    the model's rgb condition of rows / samples rays."""
+    import torch
+    x = torch.nn.functional.pad(field_rows(rows, seed), (0, 5)).contiguous()
+    args, _ = f32_nerfies_level_inputs(model, rows // samples, 1, seed + 1,
+                                       nerf_alpha)
+    return x, args[4]
+
+
+def f32_plane_kernels(models, extra) -> dict:
+    """Phase 37 (a): rows 1, 5, 8 and 9 on the plane tables against their
+    float32 plain versions (TF32 off, the same inputs; F32_SCREW_L2 /
+    F32_SCREW_MAX per output) at the alphas ``extra`` (the window rows
+    mid-ramp), timed, each in turns with the flagship table's float32
+    kernel on inputs of the same shape (this, flagship, flagship, this):
+    row 1 at every plane code at R = 16384, S = 128 and at codes 3 and 6
+    at S = 192; rows 9 and 5 at codes 3 and 6 at S = 128 (row 9 at S = 192
+    too); row 8 in both plane layouts at R = 8192, S = 128. Returns {name:
+    {shape: (ms, plain ms, bound, max|d|, turns)}}."""
+    import torch
+    from hypernerf_tpu_torch.kernels import (fused_fields_bwd, fused_level,
+                                             fused_template,
+                                             fused_template_bwd)
+    from hypernerf_tpu_torch.kernels.fused_level import _launch_forward
+    from hypernerf_tpu_torch.kernels.fused_mlp import cond_width
+    rows = {name: {} for name in F32_PLANE_ROWS}
+    flag = models['flagship'].level('fine')
+    tol = (F32_SCREW_L2, F32_SCREW_MAX)
+
+    def report(name, key, label, errs, t, b, turns):
+        phase(f'[37] {label}: worst relative L2 {errs[0]:.3e}, max|d| '
+              f'{errs[1]:.3e} of the largest entry (tol {tol[0]} / '
+              f'{tol[1]}); kernel {t[0]:.3f} ms, plain {t[1]:.3f} ms; bound '
+              f'{b[0]:.3f} ms ({b[1]}, {b[0] / t[0]:.1%}), FFMA ceiling '
+              f'{b[2]:.3f} ms ({b[2] / t[0]:.1%}); in turns with the '
+              f'flagship table\'s ({turns[1]:.3f}, {turns[2]:.3f} between '
+              f'{turns[0]:.3f}, {turns[3]:.3f}); {CARD}')
+        if errs[0] > tol[0] or errs[1] > tol[1]:
+            raise AssertionError(f'{label}: the kernel disagrees with plain: '
+                                 f'{errs}')
+        rows[name][key] = (*t, b, errs[2], turns)
+
+    def in_turns(this, that, iters):
+        return [cuda_ms(f, iters) for f in (this, that, that, this)]
+
+    r = TRAIN_RAYS
+    with torch.no_grad():
+        shapes = [(c, 128) for c in F32_PLANE_CONFIGS] + [
+            ('plane', S192), ('plane_anneal', S192)]
+        for config, s in shapes:
+            lv = models[config].level('fine')
+            ws, ts = f32_nerfies_windows(lv, extra)
+            args, _ = f32_nerfies_level_inputs(models[config], r, s,
+                                               37 + s, extra['nerf_alpha'])
+            kw = dict(warp_scales=ws, tmpl_scales=ts)
+            out, raw_t = _launch_forward(lv, *args, want_raw_t=True, **kw)
+            want, want_raw = plain_forward(lv, args, ws, ts)
+            e = [grad_errors(out, want), grad_errors(raw_t, want_raw)]
+            errs = tuple(max(x[i] for x in e) for i in range(3))
+            if raw_t.shape[1] != 16 or not torch.equal(
+                    raw_t[:, 3:11], args[3].repeat_interleave(s, 0)):
+                raise AssertionError(f'row 1 {config}: raw_t is not [warped '
+                                     f'| the embedding | 0]')
+            del out, raw_t
+            fargs = level_inputs(r, s, seed=37 + s)
+            fwd = lambda: fused_level(lv, *args, **kw)
+            t = (cuda_ms(fwd, 3), cuda_ms(
+                lambda: plain_forward(lv, args, ws, ts), 1))
+            turns = in_turns(fwd, lambda: fused_level(flag, *fargs), 3)
+            code = F32_PLANE_CONFIGS[config]
+            report('fused_level_fwd_f32_plane', f'{config}_R{r}_S{s}',
+                   f'row 1 float32 {config} (code {code}) R={r} S={s}: out '
+                   f'and raw_t', errs, t,
+                   f32_level_bound(lv, r, s, cond_width(lv)), turns)
+            if code not in (3, 6):
+                del args, want, want_raw, fargs
+                continue
+            g = torch.randn(r * s, 4, generator=torch.Generator(
+                device='cuda').manual_seed(37), device='cuda')
+            got = fused_template_bwd(lv, want_raw, args[4], g, ts)
+            worst = check_grads(
+                f'row 9 (kernel A) float32 {config} vs plain R={r} S={s}',
+                TEMPLATE_GRAD_NAMES, [got[0], got[1], *got[2]],
+                plain_template_bwd(lv, want_raw, args[4], g, ts), *tol,
+                tag='[37]')
+            dx_t = got[0]
+            del got
+            bwd = lambda: fused_template_bwd(lv, want_raw, args[4], g, ts)
+            t = (cuda_ms(bwd, 1), cuda_ms(lambda: plain_template_bwd(
+                lv, want_raw, args[4], g, ts), 1))
+            _, f_raw = _launch_forward(flag, *fargs, want_raw_t=True)
+            turns = in_turns(bwd, lambda: fused_template_bwd(
+                flag, f_raw, fargs[4], g), 1)
+            report('fused_template_bwd_f32_plane', f'{config}_R{r}_S{s}',
+                   f'row 9 (kernel A) float32 {config} R={r} S={s} (a '
+                   f'{"176" if code == 3 else "128"}-column encoding stash)',
+                   worst, t, f32_template_bwd_bound(lv, r, s,
+                                                    cond_width(lv), 16),
+                   turns)
+            if s == 128:
+                got = fused_fields_bwd(lv, *args[:4], dx_t, ws)
+                names = FIELDS_GRAD_NAMES[:4] + [
+                    f'd{"Wb"[i % 2]}{i // 2}' for i in range(14)]
+                worst = check_grads(
+                    f'row 5 (kernel B) float32 {config} vs plain R={r} '
+                    f'S={s} (no sheet)', names, [*got[:4], *got[4]],
+                    plain_fields_bwd(lv, args, dx_t, ws), *tol, tag='[37]')
+                del got
+                fbwd = lambda: fused_fields_bwd(lv, *args[:4], dx_t, ws)
+                t = (cuda_ms(fbwd, 1), cuda_ms(
+                    lambda: plain_fields_bwd(lv, args, dx_t, ws), 1))
+                f_dx = fused_template_bwd(flag, f_raw, fargs[4], g)[0]
+                turns = in_turns(fbwd, lambda: fused_fields_bwd(
+                    flag, *fargs[:4], f_dx), 1)
+                report('fused_fields_bwd_f32_plane', f'{config}_R{r}_S{s}',
+                       f'row 5 (kernel B) float32 {config} R={r} S={s}',
+                       worst, t, f32_fields_bwd_bound(lv, r, s, 16), turns)
+                del f_dx
+            del args, want, want_raw, fargs, f_raw, g, dx_t
+            torch.cuda.empty_cache()
+        r, s = 8192, 128
+        fx, fcond = template_rows(r, s, seed=371, static=False)
+        for config in ('plane', 'plane_anneal'):
+            model = models[config]
+            tmpl = model.template_of('fine')
+            ts = f32_nerfies_windows(model.level('fine'), extra)[1]
+            x, cond = f32_plane_template_rows(model, r * s, s, 372,
+                                              extra['nerf_alpha'])
+            errs = grad_errors(fused_template(tmpl, x, cond, ts),
+                               plain_template(tmpl, x, cond, ts))
+            fwd = lambda: fused_template(tmpl, x, cond, ts)
+            t = (cuda_ms(fwd, 3), cuda_ms(lambda: plain_template(
+                tmpl, x, cond, ts), 1))
+            turns = in_turns(fwd, lambda: fused_template(
+                models['flagship'].template_of('fine'), fx, fcond), 3)
+            report('fused_template_fwd_f32_plane', f'{config}_R{r}_S{s}',
+                   f'row 8 float32 template alone {config} R={r} S={s} '
+                   f'(x_raw of 16 columns, condition {cond.shape[1]})',
+                   errs, t, f32_template_bound(tmpl, r * s, s,
+                                               cond.shape[1], 16), turns)
+            del x, cond
+        del fx, fcond
+    torch.cuda.empty_cache()
+    return rows
+
+
+def f32_plane_reference() -> None:
+    """Phase 37 (a), the stored numbers: the plane levels through their
+    autograd Function (rows 1, 9 and 5) at codes 3 and 6, the level
+    forward alone at codes 4, 5, 7 and 8, and the template alone through
+    its Function (rows 8 and 9) in both plane layouts, against the JAX
+    kernels' float32 numbers (tests/data/fused_f32_plane_jax_ref.npz):
+    outputs within F32_REF_OUT of the largest entry; a template's gradients
+    F32_GRAD_L2 and F32_GRAD_MAX, a level's hold_floored (phase 36's
+    rule)."""
+    import torch
+    from hypernerf_tpu_torch.flagship import (F32_PLANE_LEVEL_CASES,
+                                              F32_PLANE_TEMPLATE_CASES,
+                                              LEVEL_INPUTS, f32_plane_extra,
+                                              f32_plane_grad_layers,
+                                              f32_plane_model,
+                                              read_f32_plane_reference)
+    from hypernerf_tpu_torch.kernels import (common, fused_level,
+                                             fused_template)
+    from hypernerf_tpu_torch.kernels.fused_level import (_launch_forward,
+                                                         level_layers)
+    from hypernerf_tpu_torch.kernels.fused_mlp import template_layers
+    worst, floors = 0.0, {}
+    for case, arrays in read_f32_plane_reference().items():
+        model = f32_plane_model(case, 'cuda')
+        extra = f32_plane_extra(case)
+        cuda = {k: torch.tensor(v).cuda() for k, v in arrays.items()}
+        keep = f32_plane_grad_layers(case)
+        floor = None
+        if case in F32_PLANE_LEVEL_CASES:
+            level_name, grads = (F32_PLANE_LEVEL_CASES[case][1],
+                                 F32_PLANE_LEVEL_CASES[case][-1])
+            lv = model.level(level_name)
+            ws, ts = f32_nerfies_windows(lv, extra)
+            names = [f'd_{k}' for k in LEVEL_INPUTS]
+            inputs = [cuda[k].requires_grad_(grads) for k in LEVEL_INPUTS]
+            out = fused_level(lv, *inputs, warp_scales=ws, tmpl_scales=ts)
+            layers = level_layers(lv)
+            if grads:
+                with torch.no_grad():
+                    raw_t = _launch_forward(lv, *inputs, want_raw_t=True,
+                                            warp_scales=ws,
+                                            tmpl_scales=ts)[1]
+                floor = f32_level_floor(f32_plane_model(case, 'cuda'),
+                                        level_name, extra, cuda, raw_t)
+        else:
+            tmpl = model.template_of(F32_PLANE_TEMPLATE_CASES[case][1])
+            ts = f32_nerfies_windows(model.level('fine'), extra)[1]
+            names = ['dx', 'd_rgb_cond']
+            inputs = [cuda['x_raw'].requires_grad_(True),
+                      cuda['rgb_cond'].requires_grad_(True)]
+            out = fused_template(tmpl, *inputs, ts)
+            layers, grads = template_layers(tmpl.template), True
+        err = ((out.detach() - cuda['out']).abs().max()
+               / cuda['out'].abs().max()).item()
+        worst = max(worst, err)
+        if not err <= F32_REF_OUT:
+            raise AssertionError(f'{case} float32 against the stored JAX '
+                                 f'outputs: {err:.3e}')
+        if grads:
+            params = common.layer_params(layers)
+            got = list(torch.autograd.grad(out, inputs + params,
+                                           cuda['cotangent']))
+            want_names, want_got = list(names), got[:len(inputs)]
+            for l in range(len(layers)):
+                want_names.append(f'db{l}')
+                want_got.append(got[len(inputs) + 2 * l + 1])
+                if l in keep:
+                    want_names.append(f'dw{l}')
+                    want_got.append(got[len(inputs) + 2 * l])
+            label = f'{case} float32 against the stored JAX gradients'
+            if floor is None:
+                check_grads(label, want_names, want_got,
+                            [cuda[n] for n in want_names], F32_GRAD_L2,
+                            F32_GRAD_MAX, tag='[37]')
+            else:
+                hold_floored(label, want_names, want_got,
+                             [cuda[n] for n in want_names], floor, '[37]')
+                floors[case] = max(v[0] for v in floor.values())
+            del got
+        del model, out, inputs
+    torch.cuda.empty_cache()
+    phase(f'[37] rows 1, 5, 8, 9 against the stored JAX float32 numbers of '
+          f'the plane tables (row 1 at codes 3 to 8): outputs max|d| '
+          f'{worst:.3e} of the largest entry at worst (tol {F32_REF_OUT}); '
+          f'the levels\' raw_t floors (relative L2, worst gradient) '
+          + ', '.join(f'{c} {v:.3e}' for c, v in floors.items()))
+
+
+def f32_plane_paths() -> dict:
+    """Phase 37 (b) and (c): at full width, with their launches and no plain
+    call: a 504x378 frame (64 + 64, chunk CHUNK, fully annealed) of
+    ``plane`` and of ``plane_anneal_se3``, a render of 1024 rays of the
+    latter against the plain versions, a ``plane`` frame with
+    ``return_points`` (the warp field alone and the template alone); the
+    64 + 128 train step of ``plane`` and of ``plane_anneal_se3`` (from
+    ANNEAL_PROBE_STEP, its window rows mid-ramp; each with one step on 1024
+    rays against the plain versions); ``query_sigma`` on ``plane``.
+    Returns {path: launches}."""
+    import torch
+    from hypernerf_tpu_torch.flagship import W, H, flagship_model, spiral_rays
+    from hypernerf_tpu_torch.ops.ray_dict import prepare_ray_dict
+    from hypernerf_tpu_torch.training.renderer import ImageRenderer
+    counts = {}
+    frames = spiral_rays([0, 30])  # a warm-up frame, then one timed
+    keep = ('rgb', 'depth', 'acc')
+    chunks_per_frame = -(-W * H // CHUNK)
+    for config, return_points in (('plane', False),
+                                  ('plane_anneal_se3', False),
+                                  ('plane', True)):
+        model = flagship_model('cuda', seed=0, config=config, **F32)
+        k = keep + (('med_points',) if return_points else ())
+        label = f'{config} frame' + (' with return_points' if return_points
+                                     else '')
+        key = (f'{config} return_points frame' if return_points
+               else f'{config} frame')
+        per = ({'fused_field_fwd_f32': 2, 'fused_template_fwd_f32': 2}
+               if return_points else F32_SCREW_CHUNK['level'])
+        secs, counts[key] = time_frames(
+            ImageRenderer(model, chunk=CHUNK, keep=k, levels=('fine',),
+                          quantize=True), frames, k,
+            {n: v * chunks_per_frame for n, v in per.items()},
+            f'{label} float32', point_ch=11)
+        annealed = ', fully annealed' if 'anneal' in config else ''
+        phase(f'[37] {label} float32: {secs:.3f} s/frame ({W}x{H}, 64+64, '
+              f'chunk {CHUNK}{annealed}); launches {counts[key]}; no plain '
+              f'call; {CARD}')
+        if config == 'plane_anneal_se3':
+            small = torch.as_tensor(frames[0][::186][:1024]).cuda()
+            with torch.no_grad():
+                got = model(prepare_ray_dict(small))['fine']['rgb']
+                with plain_versions():
+                    want = model(prepare_ray_dict(small))['fine']['rgb']
+            errs = grad_errors(got, want)
+            phase(f'[37] {config} float32 render of 1024 rays, kernels vs '
+                  f'plain: fine rgb relative L2 {errs[0]:.3e}, max|d| '
+                  f'{errs[2]:.3e} (tol {F32_OUT_L2} / {F32_OUT_MAX} of the '
+                  f'largest entry)')
+            if not torch.isfinite(got).all() or errs[0] > F32_OUT_L2 \
+                    or errs[1] > F32_OUT_MAX:
+                raise AssertionError(f'{config} float32 render: kernels and '
+                                     f'plain versions disagree')
+        del model
+        torch.cuda.empty_cache()
+    for path in ('plane_f32', 'plane_anneal_se3_f32'):
+        times = {}
+        counts[f'{path} train'] = train_path(path, '[37]', times,
+                                             F32_STEP_TOLS)
+        TIMES[f'{path}_step'] = times
+        flagship = TIMES.get('f32', {}).get('step', {}).get('secs',
+                                                            float('nan'))
+        phase(f'[37] {path} 64 + 128 step: {times["secs"] * 1e3:.1f} '
+              f'ms/step, peak {times["peak"]:.2f} GiB; the flagship\'s at '
+              f'float32 (phase 33) {flagship * 1e3:.1f} ms/step; {CARD}')
+        torch.cuda.empty_cache()
+    counts['plane query_sigma'] = query_sigma_path(
+        'plane', {'fused_field_fwd_f32': 1, 'fused_template_fwd_f32': 1},
+        '[37]', **F32)
+    torch.cuda.empty_cache()
+    return counts
+
+
+def precision32_plane_phase(kernels) -> list:
+    """Phase 37: the plane tables at ``--precision 32`` (ROADMAP A.13.1
+    sub-item 3, second half): TF32 off; (a) rows 1, 5, 8 and 9 at table
+    codes 3 to 8 against their plain versions, timed in turns with the
+    flagship table's, and against the stored JAX numbers; (b) ``plane`` and
+    ``plane_anneal_se3`` frames and a ``return_points`` frame; (c) their 64
+    + 128 train steps and ``query_sigma``, every path's launches counted
+    with no plain call; (d) ``train.main --precision 32 --slice_method
+    axis_aligned_plane --use_nerfies_embed --warp_field se3`` and ``eval``
+    of its checkpoint. Returns the four entries of the line."""
+    import torch
+    from hypernerf_tpu_torch.flagship import (anneal_extra_params,
+                                              flagship_model,
+                                              load_probe_weights)
+    t_phase = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    extra = anneal_extra_params()
+    models = {c: load_probe_weights(flagship_model('cuda', config=c,
+                                                   **F32_FINE128))
+              for c in ('flagship', *F32_PLANE_CONFIGS)}
+    rows = f32_plane_kernels(models, extra)
+    del models
+    torch.cuda.empty_cache()
+    f32_plane_reference()
+    counts = f32_plane_paths()
+    cli = f32_train_eval('[37]', 'f32_plane_anneal_se3', F32_PLANE_CLI_FLAGS,
+                         dict(hyper_slice_method='axis_aligned_plane',
+                              warp_field_type='se3',
+                              use_original_embed=False))
+    main_key = {'fused_level_fwd_f32_plane': f'plane_R{TRAIN_RAYS}_S128',
+                'fused_fields_bwd_f32_plane': f'plane_R{TRAIN_RAYS}_S128',
+                'fused_template_fwd_f32_plane': 'plane_R8192_S128',
+                'fused_template_bwd_f32_plane': f'plane_R{TRAIN_RAYS}_S128'}
+    paths = {**counts, **{f'cli {k}': v for k, v in cli.items()}}
+    out = []
+    for name, (source, replaces, counter, path) in F32_PLANE_ROWS.items():
+        main = rows[name][main_key[name]]
+        entry = dict(name=name, route='cuda', source=source,
+                     replaces=replaces, launches=counts[path][counter],
+                     max_abs_err=max(v[3] for v in rows[name].values()),
+                     ms=main[0], plain_ms=main[1], bound_ms=main[2][0],
+                     bound_by=main[2][1], library_ms=None,
+                     ffma_ceiling_ms=main[2][2], dtype='float32',
+                     shape=main_key[name],
+                     flagship_ms_in_turns=main[4][1:3],
+                     tolerance=f'relative L2 <= {F32_SCREW_L2}, max|d| <= '
+                               f'{F32_SCREW_MAX} of the largest entry',
+                     launches_by_path={p: c[counter] for p, c in
+                                       paths.items() if c.get(counter)})
+        for key, v in rows[name].items():
+            if key != main_key[name]:
+                entry.update({f'ms_{key}': v[0], f'plain_ms_{key}': v[1],
+                              f'bound_ms_{key}': v[2][0],
+                              f'flagship_ms_in_turns_{key}': v[4][1:3]})
+        out.append(entry)
+    phase(f'[37] the plane-table --precision 32 phase took '
           f'{time.perf_counter() - t_phase:.1f} s; {CARD}')
     return out
 

@@ -11,7 +11,8 @@ and gradients (``LEVEL_REFERENCE``, ``GRAD_REFERENCE``, ``MODULAR_REFERENCE``,
 ``SE3_REFERENCE``, ``JACOBIAN_REFERENCE``, ``ANNEAL_REFERENCE``,
 ``PLANE_REFERENCE``, ``CONDITION_REFERENCE``, ``B4_REFERENCE``,
 ``F32_REFERENCE``, ``F32_MODULAR_REFERENCE``, ``F32_SCREW_REFERENCE``,
-``F32_NERFIES_REFERENCE``, written by ``tools/make_level_reference.py``).
+``F32_NERFIES_REFERENCE``, ``F32_PLANE_REFERENCE``, written by
+``tools/make_level_reference.py``).
 
 Shared by ``chip_smoke.py``, ``tools/profile_render.py``,
 ``tools/profile_train.py`` and ``tools/make_level_reference.py``.
@@ -903,6 +904,105 @@ def f32_nerfies_probe_inputs(case: str, model: NerfModel = None) -> dict:
            'cotangent': rs.randn(rows, 4).astype(np.float32)}
     if alpha is not None:
         out['alpha_cond'] = alpha
+    return out
+
+
+# The JAX kernels' numbers at ``compute_dtype='float32'`` for the plane
+# tables (table codes 3 to 8, axis_aligned_plane: the ray's 8 GLO
+# coordinates are the hyper coordinates), at the probe weights, in interpret
+# mode, at the alphas of ANNEAL_PROBE_STEP (``f32_plane_extra``). A level
+# case: (configuration, level, rays, samples per ray, seed, gradients or
+# not): outputs at every code, gradients at codes 3 (``plane``) and 6
+# (``plane_anneal``); a template case (the template alone, kernel A its
+# backward, in each plane layout): (configuration, level, rows, rows per
+# condition row, seed). To keep the file small, dW of
+# ``f32_plane_grad_layers`` alone; every db.
+F32_PLANE_REFERENCE = os.path.join(os.path.dirname(LEVEL_REFERENCE),
+                                   'fused_f32_plane_jax_ref.npz')
+F32_PLANE_LEVEL_CASES = {
+    'level_plane': ('plane', 'fine', 4, 128, 141, True),
+    'level_plane_anneal': ('plane_anneal', 'coarse', 4, 64, 142, True),
+    'out_plane_se3': ('plane_se3', 'coarse', 4, 64, 143, False),
+    'out_plane_quaternion': ('plane_quaternion', 'fine', 4, 64, 144, False),
+    'out_plane_anneal_se3': ('plane_anneal_se3', 'fine', 4, 64, 145, False),
+    'out_plane_anneal_quaternion': ('plane_anneal_quaternion', 'coarse', 4,
+                                    64, 146, False),
+}
+F32_PLANE_TEMPLATE_CASES = {
+    'template_plane': ('plane', 'fine', 256, 64, 147),
+    'template_plane_anneal': ('plane_anneal', 'coarse', 256, 64, 148),
+}
+
+
+def f32_plane_model(case: str, device='cpu') -> NerfModel:
+    """The float32 model of an F32_PLANE case at the probe weights."""
+    config = (F32_PLANE_LEVEL_CASES.get(case)
+              or F32_PLANE_TEMPLATE_CASES[case])[0]
+    return load_probe_weights(flagship_model(device, config=config,
+                                             compute_dtype='float32'))
+
+
+def f32_plane_extra(case: str) -> dict:
+    """The alphas of an F32_PLANE case: those of ANNEAL_PROBE_STEP (as
+    ``f32_nerfies_extra``; the posenc_orig plane layout has none but a
+    screw warp's warp_alpha)."""
+    from hypernerf_tpu_torch.training.train_state import compute_extra_params
+    config = (F32_PLANE_LEVEL_CASES.get(case)
+              or F32_PLANE_TEMPLATE_CASES[case])[0]
+    return compute_extra_params(flagship_config(config), TrainConfig(),
+                                ANNEAL_PROBE_STEP)
+
+
+def f32_plane_grad_layers(case: str):
+    """The layers whose dW an F32_PLANE case's file keeps, by index in the
+    level's (or the template's) table: the template's first layer (the
+    plane encoding's), its alpha head and rgb layer 0, a level's warp's
+    first layer, and the posenc_orig template's skip (K = 448)."""
+    if case in F32_PLANE_TEMPLATE_CASES:
+        return (0, 5, 10, 11) if case == 'template_plane' else (0, 10, 11)
+    screw = 'warp_field_type' in CONFIGS[F32_PLANE_LEVEL_CASES[case][0]]
+    t0 = 9 if screw else 7
+    return (0, t0, t0 + 10, t0 + 11)
+
+
+def f32_plane_probe_inputs(case: str, model: NerfModel = None) -> dict:
+    """Numpy inputs and cotangent of an F32_PLANE case (``model``: its
+    ``f32_plane_model``, made when None). A level case: the
+    ``LEVEL_INPUTS`` with the model's rgb condition of the rays and
+    'cotangent' (R * S, 4). A template case: 'x_raw' (P, 16) [points | 8
+    hyper coordinates of deviation 0.3 | 0], 'rgb_cond' (P / S, C),
+    'cotangent' (P, 4)."""
+    model = model or f32_plane_model(case)
+    nerf_alpha = f32_plane_extra(case).get('nerf_alpha')
+    if case in F32_PLANE_LEVEL_CASES:
+        _, _, n_rays, samples, seed, _ = F32_PLANE_LEVEL_CASES[case]
+        inputs = probe_inputs(n_rays, samples, seed)
+        inputs['rgb_cond'] = f32_nerfies_conditions(
+            model, inputs['directions'], inputs['embed'], nerf_alpha)[1]
+        inputs['cotangent'] = probe_cotangents(n_rays, samples,
+                                               seed)['level']
+        return inputs
+    _, _, rows, per, seed = F32_PLANE_TEMPLATE_CASES[case]
+    rs = np.random.RandomState(seed + 3000)
+    rays = probe_inputs(rows // per, per, seed)
+    pts = (rays['origins'][:, None]
+           + rays['z_vals'][..., None] * rays['directions'][:, None])
+    x_raw = np.concatenate([pts.reshape(-1, 3), rs.randn(rows, 8) * 0.3,
+                            np.zeros((rows, 5))], 1)
+    return {'x_raw': x_raw.astype(np.float32),
+            'rgb_cond': f32_nerfies_conditions(
+                model, rays['directions'], rays['embed'], nerf_alpha)[1],
+            'cotangent': rs.randn(rows, 4).astype(np.float32)}
+
+
+def read_f32_plane_reference(path: str = F32_PLANE_REFERENCE):
+    """{case: {name: array}} of the float32 plane-table reference file."""
+    out = {case: {} for case in (*F32_PLANE_LEVEL_CASES,
+                                 *F32_PLANE_TEMPLATE_CASES)}
+    with np.load(path) as f:
+        for key in f.files:
+            case, name = key.split('/', 1)
+            out[case][name] = f[key]
     return out
 
 

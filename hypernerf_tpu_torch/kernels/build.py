@@ -71,8 +71,7 @@ _SIGNATURES = {
     'hn_fused_composite_bwd': ([_P] * 9 + [_L, _I, _I, _I, _P], _I),
     'hn_f32_level_fwd': ([_P] * 5 + [_I, _P, _P, _I] + [_P] * 6
                          + [_L, _I, _P], _I),
-    'hn_f32_level_layout': ([_P, _P, _I], _I),
-    'hn_f32_trunk_layout': ([_P, _P, _I], _I),
+    'hn_f32_table_layout': ([_I, _P, _P, _I], _I),
     'hn_f32_trunk_fwd': ([_P] * 5 + [_L, _P], _I),
     'hn_f32_template_fwd': ([_P, _L, _I, _P, _I] + [_P] * 6 + [_L, _I, _P],
                             _I),
@@ -100,6 +99,8 @@ _SIGNATURES = {
                                               _L, _L, _P], _I),
     'hn_f32_screw_rows': ([_P] * 3 + [_I, _P, _L, _P, _L, _P, _P, _L, _I, _I,
                                       _P, _P, _L, _P], _I),
+    'hn_f32_plane_rows': ([_I] + [_P] * 3 + [_I, _P, _L, _P, _L, _P, _L, _I,
+                                              _P, _I, _P, _P, _L, _P], _I),
     'hn_error_string': ([_I], ctypes.c_char_p),
 }
 

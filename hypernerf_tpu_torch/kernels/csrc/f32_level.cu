@@ -17,17 +17,24 @@
 // (the xyz as posenc_orig has it, the 4 hyper coordinates over degrees
 // 0..3 without identity, 95 columns in the same 128, each times its
 // window weight). An alpha condition (8 columns a ray, or none) is dotted
-// with the alpha head's condition weights and added to its output. Layout,
-// window row, condition widths and the alpha condition are run-time
-// arguments. The bf16 level forward is level_fwd.cuh's, untouched.
+// with the alpha head's condition weights and added to its output. The
+// plane tables (table codes 3 to 8, axis_aligned_plane slicing) run the
+// same stages without the sheet: the hyper coordinates are the ray's 8 GLO
+// coordinates, encoded posenc_orig at 6 bands (codes 3 to 5: 167 columns
+// in a 192-column X, the template's first layer at K = 192 and its skip
+// at 448) or, with the template's window row, the Nerfies way at 4 bands
+// (codes 6 to 8: 127 columns in the flagship's 128), after the warp of
+// code % 3. Layout, table code, window row, condition widths and the alpha
+// condition are run-time arguments of one kernel. The bf16 level forward
+// is level_fwd.cuh's, untouched.
 //
 // Its stages also run alone, on raw rows, for the per-module path at
 // float32: the template alone (hn_f32_template_fwd, replacing
 // hypernerf_tpu/ops/pallas/fused_mlp.py `_fwd_call` :656; 4 hyper
-// coordinates or, for a template without them, 0, a run-time argument;
-// any rows per condition row, 1 included; the level's layouts and
-// conditions), a field alone (hn_f32_field_fwd, the warp field or the
-// sheet, with or without a window row, replacing
+// coordinates, 8 in the plane layouts or, for a template without them, 0,
+// a run-time argument; any rows per condition row, 1 included; the
+// level's layouts and conditions), a field alone (hn_f32_field_fwd, the
+// warp field or the sheet, with or without a window row, replacing
 // hypernerf_tpu/ops/pallas/fused_field.py `_fused` :495) and the SE(3)
 // trunk alone (hn_f32_trunk_fwd, [w | v] of raw rows, replacing
 // hypernerf_tpu/ops/pallas/fused_se3.py `_fused` :374).
@@ -35,15 +42,20 @@
 // Bound: operations (1.7 MFLOP a sample; f32_chain.cuh). Design: a block of
 // 256 threads owns a tile of 64 samples; the sheet runs first (its
 // encoding, six hidden layers and head), then the warp field (or the trunk
-// and the retraction), then the template on [warped | hyper]; every layer
+// and the retraction), then the template on [warped | hyper] (a plane
+// table: the warp, then the template on [warped | embedding]); every layer
 // is f32::tile_layer on activations kept feature-major in three shared
-// buffers (X: an encoding, 128 features; H0, H1: hidden layers, 256 each,
-// ping-ponged; a 256-wide layer in one pass of f32_chain.cuh's Wide tile),
-// so nothing but the ray inputs, the weights (3.3 MB, read from L2 once per
-// tile) and the output (and raw_t) touches device memory. The rgb condition
-// fills H1's features 128.. after the bottleneck, zero-padded to kCondPad.
-// The trunk writes its w head into H1 (free after the trunk logit) and its
-// v head into the per-row head scratch. A field alone carves less shared
+// buffers (X: an encoding, 128 features, or a plane table's 192; H0, H1:
+// hidden layers, 256 each, ping-ponged; a 256-wide layer in one pass of
+// f32_chain.cuh's Wide tile), so nothing but the ray inputs, the weights
+// (3.3 MB, read from L2 once per tile) and the output (and raw_t) touches
+// device memory. The rgb condition fills H1's features 128.. after the
+// bottleneck, zero-padded to kCondPad. The trunk writes its w head into H1
+// (free after the trunk logit) and its v head into the per-row head
+// scratch. The sheet tables carve 201,984 bytes; a plane table carves X of
+// its encoding's slots and 16 raw rows of scratch ([warped 3 | hyper 8]:
+// 220,416 bytes with the 192-column X, 204,032 with 128), still one block
+// an SM, with a launch's own carve. A field alone carves less shared
 // memory (X of 80 features, H of 128, the Narrow tile's weight chunks:
 // 107,776 bytes), so that two blocks fit an SM, and the trunk alone less
 // again (X of 64 features: 103,680 bytes).
@@ -91,37 +103,69 @@ constexpr int kNerfHyperFreq = 4;  // the Nerfies layout's hyper bands
 constexpr int kAlphaCond = kEmbed;  // an alpha condition's columns
 constexpr int kWarpEnc = 80, kSheetEnc = 64, kTmplEnc = 128;
 constexpr int kBneck = 128, kCondPad = 48;
+// The plane tables (codes 3..8, kPlaneCodes and up): no sheet; the
+// posenc_orig plane layout's encoding slots (167 columns: the xyz at 10
+// bands, the 8 GLO coordinates at 6) and the raw rows a tile holds [warped
+// | 8 hyper | 0] in, where the sheet tables hold [warped | 4 hyper | 0] in
+// kRaw.
+constexpr int kPlaneCodes = 3, kCodes = 9;
+constexpr int kPlaneEnc = 192, kRaw = 8, kPlaneRaw = 16;
 
 // The shared buffers of a tile, carved in this order: X (an encoding, xf
 // features), H0 and H1 (hidden layers, hf features each), the double
 // weight tile (2 x wtile), and per-row scratch: the point (3), [warped |
-// hyper] (8), a head's 8 outputs, sigma, and the row's ray index (the row
-// a row's embedding and condition are read from).
-constexpr int smem_floats(int xf, int hf, int wtile) {
-  return xf * kRows + 2 * hf * kRows + 2 * wtile + (3 + 8 + 8 + 1) * kRows +
+// hyper | 0] (raw rows), a head's 8 outputs, sigma, and the row's ray
+// index (the row a row's embedding and condition are read from).
+constexpr int smem_floats(int xf, int hf, int wtile, int raw = kRaw) {
+  return xf * kRows + 2 * hf * kRows + 2 * wtile + (3 + raw + 8 + 1) * kRows +
          kRows;
 }
 
 struct Tiles {
   float *X, *H0, *H1, *ws, *pts, *raw, *head, *sigma;
   int* ray;
-  __device__ Tiles(float* s, int xf, int hf, int wtile) {
+  __device__ Tiles(float* s, int xf, int hf, int wtile, int raw_rows = kRaw) {
     X = s;
     H0 = X + xf * kRows;
     H1 = H0 + hf * kRows;
     ws = H1 + hf * kRows;
     pts = ws + 2 * wtile;  // 3 x kRows
-    raw = pts + 3 * kRows;  // 8 x kRows: warped | hyper
-    head = raw + 8 * kRows;
+    raw = pts + 3 * kRows;  // raw_rows x kRows: warped | hyper | 0
+    head = raw + raw_rows * kRows;
     sigma = head + 8 * kRows;
     ray = reinterpret_cast<int*>(sigma + kRows);
   }
 };
 
+// The template's carve in the level forward and the template alone, by its
+// hyper coordinates and layout: X of its encoding's slots (kTmplEnc, or
+// kPlaneEnc for the posenc_orig plane layout) and its raw rows (kRaw, or
+// kPlaneRaw with the plane tables' 8 hyper coordinates); a launch takes
+// its own carve's bytes.
+struct Carve {
+  int xf, raw;
+};
+__host__ __device__ constexpr Carve carve_of(int hyper, bool nerfies) {
+  return hyper == kEmbed ? Carve{nerfies ? kTmplEnc : kPlaneEnc, kPlaneRaw}
+                         : Carve{kTmplEnc, kRaw};
+}
+constexpr int carve_bytes(Carve c) {
+  return 4 * smem_floats(c.xf, 256, Wide::kWTile, c.raw);
+}
+
 // The level forward and the template alone: X of the template's encoding,
-// H of its 256-wide layers, the Wide tile's weight chunks.
+// H of its 256-wide layers, the Wide tile's weight chunks: the sheet
+// tables' carve (kSmemBytes), and the most a plane table carves
+// (kPlaneSmemBytes, the posenc_orig plane layout's).
 constexpr int kSmemBytes = 4 * smem_floats(kTmplEnc, 256, Wide::kWTile);
 static_assert(kSmemBytes <= 232448, "shared memory of an sm_90 block");
+constexpr int kPlaneSmemBytes =
+    4 * smem_floats(kPlaneEnc, 256, Wide::kWTile, kPlaneRaw);
+static_assert(kPlaneSmemBytes <= 232448, "shared memory of an sm_90 block");
+static_assert(carve_bytes(carve_of(4, false)) == kSmemBytes &&
+                  carve_bytes(carve_of(kEmbed, false)) == kPlaneSmemBytes &&
+                  carve_bytes(carve_of(kEmbed, true)) < kPlaneSmemBytes,
+              "the carves: the sheet tables', the plane layouts'");
 // A field alone: X of the warp field's encoding (the wider), H of 128
 // features, the Narrow tile's weight chunks (no layer of a field is wider).
 constexpr int kFieldSmemBytes =
@@ -265,18 +309,20 @@ __device__ __forceinline__ void retract_row(const Tiles& s, int t,
 }
 
 // The template's encoding of [warped | hyper] (s.raw, `hyper` hyper
-// coordinates: 4, or 0 for a template without them) into X: without a
-// window row [posenc_orig(warped, 10) | posenc_orig(hyper, 6) | 0]; with
-// one (`scales`, kTmplEnc fp32: the Nerfies layout) [posenc_orig(warped,
-// 10) | sin | cos of hyper over degrees 0..3 | 0], each feature times its
-// window weight.
+// coordinates: 4, the plane tables' 8, or 0 for a template without them)
+// into X's `enc` features (its carve's xf): without a window row
+// [posenc_orig(warped, 10) | posenc_orig(hyper, 6) | 0]; with one
+// (`scales`, enc fp32: the Nerfies layouts) [posenc_orig(warped, 10) | sin
+// | cos of hyper over degrees 0..3 | 0], each feature times its window
+// weight.
 __device__ __forceinline__ void encode_template(const Tiles& s, int hyper,
-                                                const float* scales) {
+                                                const float* scales,
+                                                int enc) {
   const bool nerfies = scales != nullptr;
   const int hf = nerfies ? kNerfHyperFreq : kHyperFreq;
   const int n_xyz = 3 * (1 + 2 * kXyzFreq);
   const int n_hyp = hyper * ((nerfies ? 0 : 1) + 2 * hf);
-  for (int i = threadIdx.x; i < kTmplEnc * kRows; i += kThreads) {
+  for (int i = threadIdx.x; i < enc * kRows; i += kThreads) {
     const int f = i / kRows, r = i % kRows;
     const float v =
         f < n_xyz ? posenc_feature(s.raw + r, kRows, 3, kXyzFreq, f)
@@ -347,22 +393,25 @@ struct Args {
   const float* cond;  // (R, cond_w)
   int cond_w;
   float* out;      // (P, 4) [rgb logits | raw sigma]
-  float* raw_t;    // (P, 8) [warped | hyper | 0] or null
+  float* raw_t;    // (P, carve raw) [warped | hyper | 0] or null
   long long rays;
   int samples;
   int code;  // the warp: 0 translation, 1 SE(3), 2 quaternion
+  int plane;  // no sheet: the hyper coordinates are the embedding
   const float* scales;  // the trunk's window row (kSe3EncP fp32) or null
-  const float* tmpl_scales;  // the template's window row (kTmplEnc) or null
+  const float* tmpl_scales;  // the template's window row (enc fp32) or null
   const float* alpha;    // (R, kAlphaCond) the alpha condition, or null
   const float* alpha_w;  // (kAlphaCond) its weights in the alpha head
-  Net net;  // the flagship table: layers 0..29, or the trunk's and 7..29
+  Net net;  // the table's layers (table_slots) in their slots
 };
 
 __global__ void __launch_bounds__(kThreads)
     level_fwd_f32(const Args a) {
   extern __shared__ float4 hn_f32_smem[];
-  const Tiles s(reinterpret_cast<float*>(hn_f32_smem), kTmplEnc, 256,
-                Wide::kWTile);
+  const int hyper = a.plane ? kEmbed : kSheetOut;
+  const Carve c = carve_of(hyper, a.tmpl_scales != nullptr);
+  const Tiles s(reinterpret_cast<float*>(hn_f32_smem), c.xf, 256,
+                Wide::kWTile, c.raw);
   const int t = threadIdx.x;
   const long long n_pts = a.rays * a.samples;
   const long long p0 = (long long)blockIdx.x * kRows;
@@ -381,13 +430,20 @@ __global__ void __launch_bounds__(kThreads)
   }
   __syncthreads();
 
-  // The sheet: [posenc_orig(p, 7) | embedding | 0] -> 4 hyper coordinates.
-  encode_field(s.X, s.pts, kSheetFreq, kSheetEnc, a.emb, kEmbed, s.ray);
-  __syncthreads();
-  field(a.net, 7, 64, s);
-  if (t < kRows)
-    for (int c = 0; c < kSheetOut; ++c)
-      s.raw[(3 + c) * kRows + t] = s.head[c * kRows + t];
+  if (!a.plane) {
+    // The sheet: [posenc_orig(p, 7) | embedding | 0] -> 4 hyper
+    // coordinates.
+    encode_field(s.X, s.pts, kSheetFreq, kSheetEnc, a.emb, kEmbed, s.ray);
+    __syncthreads();
+    field(a.net, 7, 64, s);
+    if (t < kRows)
+      for (int c = 0; c < kSheetOut; ++c)
+        s.raw[(3 + c) * kRows + t] = s.head[c * kRows + t];
+  } else if (t < kRows) {
+    // No sheet: the hyper coordinates are the ray's embedding.
+    for (int c = 0; c < kEmbed; ++c)
+      s.raw[(3 + c) * kRows + t] = a.emb[(long long)s.ray[t] * kEmbed + c];
+  }
 
   if (a.code == 0) {
     // The warp field: [posenc_orig(p, 10) | embedding | 0] -> the offset.
@@ -408,7 +464,7 @@ __global__ void __launch_bounds__(kThreads)
   __syncthreads();
 
   // The template on [warped | hyper], in the layout of its window row.
-  encode_template(s, kSheetOut, a.tmpl_scales);
+  encode_template(s, hyper, a.tmpl_scales, c.xf);
   __syncthreads();
   template_stage(a.net, s, a.cond, a.cond_w, a.alpha, a.alpha_w);
 
@@ -416,10 +472,9 @@ __global__ void __launch_bounds__(kThreads)
     const long long p = p0 + t;
     if (p < n_pts) {
       write_packed(s, a.out, p, t);
-      if (a.raw_t != nullptr) {
-        for (int c = 0; c < 7; ++c) a.raw_t[p * 8 + c] = s.raw[c * kRows + t];
-        a.raw_t[p * 8 + 7] = 0.f;
-      }
+      if (a.raw_t != nullptr)
+        for (int j = 0; j < c.raw; ++j)
+          a.raw_t[p * c.raw + j] = j < 3 + hyper ? s.raw[j * kRows + t] : 0.f;
     }
   }
 }
@@ -427,10 +482,10 @@ __global__ void __launch_bounds__(kThreads)
 struct TemplateArgs {
   const float* x;  // (P, ldx) raw rows [xyz | hyper | 0]
   long long ldx;
-  int hyper;          // hyper coordinates: 4, or 0 (static)
+  int hyper;  // hyper coordinates: 4, or 0 (static); the plane layouts' 8
   const float* cond;  // (P / S, cond_w)
   int cond_w;
-  const float* scales;   // the window row (kTmplEnc fp32: Nerfies) or null
+  const float* scales;   // the window row (carve xf fp32: Nerfies) or null
   const float* alpha;    // (P / S, kAlphaCond) the alpha condition, or null
   const float* alpha_w;  // (kAlphaCond) its weights in the alpha head
   float* out;  // (P, 4) [rgb logits | raw sigma]
@@ -444,20 +499,20 @@ struct TemplateArgs {
 __global__ void __launch_bounds__(kThreads)
     template_fwd_f32(const TemplateArgs a) {
   extern __shared__ float4 hn_f32_smem[];
-  const Tiles s(reinterpret_cast<float*>(hn_f32_smem), kTmplEnc, 256,
-                Wide::kWTile);
+  const Carve c = carve_of(a.hyper, a.scales != nullptr);
+  const Tiles s(reinterpret_cast<float*>(hn_f32_smem), c.xf, 256,
+                Wide::kWTile, c.raw);
   const int t = threadIdx.x;
   const long long p0 = (long long)blockIdx.x * kRows;
   if (t < kRows) {
     const long long p = p0 + t;
     const bool valid = p < a.rows;
     s.ray[t] = valid ? (int)(p / a.samples) : 0;
-    for (int c = 0; c < 3 + kSheetOut; ++c)
-      s.raw[c * kRows + t] =
-          valid && c < 3 + a.hyper ? a.x[p * a.ldx + c] : 0.f;
+    for (int j = 0; j < 3 + a.hyper; ++j)
+      s.raw[j * kRows + t] = valid ? a.x[p * a.ldx + j] : 0.f;
   }
   __syncthreads();
-  encode_template(s, a.hyper, a.scales);
+  encode_template(s, a.hyper, a.scales, c.xf);
   __syncthreads();
   template_stage(a.net, s, a.cond, a.cond_w, a.alpha, a.alpha_w);
   if (t < kRows && p0 + t < a.rows) write_packed(s, a.out, p0 + t, t);
@@ -530,26 +585,60 @@ __global__ void __launch_bounds__(kThreads) field_fwd_f32(const FieldArgs a) {
       a.out[(p0 + t) * 8 + c] = s.head[c * kRows + t];
 }
 
-// Rows [first, last) of the table laid out in a blob of their own, in
-// order (the level's: all thirty from 0), after the trunk's nine where
-// `trunk` (a screw level: the trunk, then rows 7..29; the trunk alone).
-Offsets table_offsets(int first, int last, bool trunk = false) {
+// A slot's (n_pad, k_pad): the trunk's rows, or the flagship table's with
+// the template's first layer (14) and skip (19) on `enc` encoding columns.
+void slot_shape(int slot, int enc, int& n, int& k) {
+  if (slot >= kTrunk0) {
+    n = kTrunkN[slot - kTrunk0];
+    k = kTrunkK[slot - kTrunk0];
+    return;
+  }
+  n = kShapeN[slot];
+  k = slot == 14 || slot == 19 ? kShapeK[slot] - kTmplEnc + enc
+                               : kShapeK[slot];
+}
+
+// The layers of table code `code`, as slots in the order of its blob: the
+// warp's (the translation warp's rows 0..6, or the trunk's nine in the
+// slots kTrunk0..), the sheet's 7..13 (the sheet tables, codes below
+// kPlaneCodes), the template's 14..29. Returns their number.
+int table_slots(int code, int* slots) {
+  int n = 0;
+  if (code % 3)
+    for (int l = 0; l < kTrunkLayers; ++l) slots[n++] = kTrunk0 + l;
+  else
+    for (int l = 0; l < 7; ++l) slots[n++] = l;
+  for (int l = code < kPlaneCodes ? 7 : 14; l < kLayers; ++l) slots[n++] = l;
+  return n;
+}
+
+// The `count` slots laid out in a blob of their own, in order, the
+// template's encoding `enc` columns wide.
+Offsets place(const int* slots, int count, int enc = kTmplEnc) {
   Offsets off{};
   long long at_w = 0;
   int at_b = 0;
-  auto place = [&](int slot, int n, int k) {
+  for (int i = 0; i < count; ++i) {
+    const int slot = slots[i];
+    slot_shape(slot, enc, off.n[slot], off.k[slot]);
     off.w[slot] = at_w;
     off.b[slot] = at_b;
-    off.n[slot] = n;
-    off.k[slot] = k;
-    at_w += (long long)n * k;
-    at_b += n;
-  };
-  if (trunk)
-    for (int l = 0; l < kTrunkLayers; ++l)
-      place(kTrunk0 + l, kTrunkN[l], kTrunkK[l]);
-  for (int l = first; l < last; ++l) place(l, kShapeN[l], kShapeK[l]);
+    at_w += (long long)off.n[slot] * off.k[slot];
+    at_b += off.n[slot];
+  }
   return off;
+}
+
+// Rows [first, last) of the flagship table laid out in a blob of their
+// own, in order, after the trunk's nine where `trunk` (a stage alone: the
+// template, a field, the trunk).
+Offsets table_offsets(int first, int last, bool trunk = false,
+                      int enc = kTmplEnc) {
+  int slots[kSlots], n = 0;
+  if (trunk)
+    for (int l = 0; l < kTrunkLayers; ++l) slots[n++] = kTrunk0 + l;
+  for (int l = first; l < last; ++l) slots[n++] = l;
+  return place(slots, n, enc);
 }
 
 // Raise a kernel's dynamic shared memory limit to `bytes`, once.
@@ -571,38 +660,40 @@ unsigned tiles_of(long long rows) {
 
 using namespace lvl;
 
-// The float32 table's (n_pad, k_pad) of each layer (written up to
-// max_layers); returns the number of layers.
-extern "C" int hn_f32_level_layout(int* n, int* k, int max_layers) {
-  for (int l = 0; l < kLayers && l < max_layers; ++l) {
-    n[l] = kShapeN[l];
-    k[l] = kShapeK[l];
-  }
-  return kLayers;
-}
-
-// The trunk's (n_pad, k_pad) of each layer (written up to max_layers);
-// returns the number of layers. A screw level's table is the trunk's, then
-// the flagship table's rows 7..29.
-extern "C" int hn_f32_trunk_layout(int* n, int* k, int max_layers) {
-  for (int l = 0; l < kTrunkLayers && l < max_layers; ++l) {
-    n[l] = kTrunkN[l];
-    k[l] = kTrunkK[l];
-  }
-  return kTrunkLayers;
+// The float32 table of table code `code` (0..8: kernels/common.py
+// TABLE_CODES): each layer's (n_pad, k_pad) in the order of its blob
+// (written up to max_layers); returns the number of layers, or -1 for a
+// code out of range. The sheet tables' are the flagship table (code 0) or
+// the trunk's rows, then its 7..29; a plane table's the warp's, then the
+// template's at its layout's encoding (K = 192 and 448: the posenc_orig
+// plane layout, codes 3 to 5; 128 and 384: the Nerfies one, 6 to 8).
+extern "C" int hn_f32_table_layout(int code, int* n, int* k,
+                                   int max_layers) {
+  if (code < 0 || code >= kCodes) return -1;
+  int slots[kSlots];
+  const int count = table_slots(code, slots);
+  const int enc = code >= kPlaneCodes && code < 2 * kPlaneCodes
+                      ? kPlaneEnc
+                      : lvl::kTmplEnc;
+  for (int i = 0; i < count && i < max_layers; ++i)
+    slot_shape(slots[i], enc, n[i], k[i]);
+  return count;
 }
 
 // z (R, S), o / d (R, 3), emb (R, 8), cond (R, cond_w) fp32, cond_w <= 48;
 // w the packed fp32 weights of the level's table transposed layer by layer
 // (common.py's blob, each layer (k_pad, n_pad) row-major), b its biases;
-// code the warp (0 translation: the flagship table; 1 SE(3), 2
-// quaternion: the trunk's rows, then the flagship table's 7..29); scales
-// the trunk's window row (kSe3EncP fp32) or null (no window; always with
-// code 0); tmpl_scales the template's window row (kTmplEnc fp32: the
-// Nerfies layout) or null (posenc_orig); alpha_cond (R, 8) fp32 and
-// alpha_w (8) fp32, the alpha condition and its weights in the alpha head,
-// both or neither; out (R * S, 4) fp32 and, if not null, raw_t (R * S, 8)
-// fp32. Returns a CUDA error code.
+// code the table (hn_f32_table_layout's: 0 translation, the flagship
+// table; 1 SE(3), 2 quaternion: the trunk's rows, then the flagship
+// table's 7..29; 3 to 8 the plane tables, no sheet, the warp of code % 3:
+// 3 to 5 the posenc_orig plane layout, 6 to 8 the Nerfies one, which takes
+// a window row); scales the trunk's window row (kSe3EncP fp32) or null (no
+// window; always with the translation warp); tmpl_scales the template's
+// window row (its encoding's slots of fp32: the Nerfies layouts) or null
+// (posenc_orig); alpha_cond (R, 8) fp32 and alpha_w (8) fp32, the alpha
+// condition and its weights in the alpha head, both or neither; out (R *
+// S, 4) fp32 and, if not null, raw_t (R * S, 8) fp32 ((R * S, 16), [warped
+// | embedding | 0], in a plane table). Returns a CUDA error code.
 extern "C" int hn_f32_level_fwd(const float* z, const float* o,
                                 const float* d, const float* emb,
                                 const float* cond, int cond_w,
@@ -611,34 +702,41 @@ extern "C" int hn_f32_level_fwd(const float* z, const float* o,
                                 const float* alpha_cond, const float* alpha_w,
                                 float* out, float* raw_t, long long rays,
                                 int samples, cudaStream_t stream) {
+  const bool plane = code >= kPlaneCodes;
   if (cond_w < 0 || cond_w > kCondPad || samples <= 0 || code < 0 ||
-      code > 2 || (code == 0 && scales != nullptr) ||
+      code >= kCodes || (code % 3 == 0 && scales != nullptr) ||
+      (plane && (code >= 2 * kPlaneCodes) != (tmpl_scales != nullptr)) ||
       (alpha_cond == nullptr) != (alpha_w == nullptr))
     return 1;
   const long long n_pts = rays * samples;
   if (n_pts == 0) return 0;
   static bool ready = false;
-  const cudaError_t e = allow_smem(level_fwd_f32, kSmemBytes, ready);
+  const cudaError_t e = allow_smem(level_fwd_f32, kPlaneSmemBytes, ready);
   if (e != cudaSuccess) return e;
+  const Carve c =
+      carve_of(plane ? lvl::kEmbed : kSheetOut, tmpl_scales != nullptr);
+  int slots[kSlots];
+  const int count = table_slots(code, slots);
   const Args a{z,       o,           d,          emb,
                cond,    cond_w,      out,        raw_t,
-               rays,    samples,     code,       scales,
-               tmpl_scales, alpha_cond, alpha_w,
-               {w, b, code ? table_offsets(7, kLayers, true)
-                           : table_offsets(0, kLayers)}};
-  level_fwd_f32<<<tiles_of(n_pts), kThreads, kSmemBytes, stream>>>(a);
+               rays,    samples,     code % 3,   plane,
+               scales,  tmpl_scales, alpha_cond, alpha_w,
+               {w, b, place(slots, count, c.xf)}};
+  level_fwd_f32<<<tiles_of(n_pts), kThreads, carve_bytes(c), stream>>>(a);
   return cudaGetLastError();
 }
 
 // The template alone (the level's template stage): x (rows, ldx) fp32 raw
-// rows [xyz | hyper | 0] with `hyper` hyper coordinates (4, or 0 for a
-// template without them, whose encoding's hyper bands are then zero);
-// cond (rows / samples, cond_w) fp32, cond_w <= 48, condition row q for
-// rows q S .. q S + S - 1 (S = 1 included); scales the window row
-// (kTmplEnc fp32: the Nerfies layout) or null (posenc_orig); alpha_cond
-// (rows / samples, 8) fp32 and alpha_w (8) fp32, both or neither; w, b the
-// template's own fp32 blobs (w transposed layer by layer, the float32
-// table's rows 14..29); out (rows, 4) fp32 [rgb logits | raw sigma].
+// rows [xyz | hyper | 0] with `hyper` hyper coordinates (4; 8, the plane
+// layouts'; or 0 for a template without them, whose encoding's hyper bands
+// are then zero); cond (rows / samples, cond_w) fp32, cond_w <= 48,
+// condition row q for rows q S .. q S + S - 1 (S = 1 included); scales the
+// window row (the encoding's slots of fp32: the Nerfies layouts) or null
+// (posenc_orig); alpha_cond (rows / samples, 8) fp32 and alpha_w (8) fp32,
+// both or neither; w, b the template's own fp32 blobs (w transposed layer
+// by layer, the float32 table's rows 14..29 at the layout's encoding: its
+// first layer's K 192 in the posenc_orig plane layout, else 128); out
+// (rows, 4) fp32 [rgb logits | raw sigma].
 extern "C" int hn_f32_template_fwd(const float* x, long long ldx, int hyper,
                                    const float* cond, int cond_w,
                                    const float* scales,
@@ -646,19 +744,21 @@ extern "C" int hn_f32_template_fwd(const float* x, long long ldx, int hyper,
                                    const float* alpha_w, const float* w,
                                    const float* b, float* out, long long rows,
                                    int samples, cudaStream_t stream) {
-  if ((hyper != 0 && hyper != kSheetOut) || ldx < 3 + hyper || cond_w < 0 ||
-      cond_w > kCondPad || samples <= 0 || rows % samples ||
-      rows / samples > 0x7fffffffLL ||
+  if ((hyper != 0 && hyper != kSheetOut && hyper != lvl::kEmbed) ||
+      ldx < 3 + hyper || cond_w < 0 || cond_w > kCondPad || samples <= 0 ||
+      rows % samples || rows / samples > 0x7fffffffLL ||
       (alpha_cond == nullptr) != (alpha_w == nullptr))
     return 1;
   if (rows == 0) return 0;
   static bool ready = false;
-  const cudaError_t e = allow_smem(template_fwd_f32, kSmemBytes, ready);
+  const cudaError_t e = allow_smem(template_fwd_f32, kPlaneSmemBytes, ready);
   if (e != cudaSuccess) return e;
-  const TemplateArgs a{x,       ldx,    hyper, cond, cond_w,
-                       scales,  alpha_cond, alpha_w, out, rows,
-                       samples, {w, b, table_offsets(14, kLayers)}};
-  template_fwd_f32<<<tiles_of(rows), kThreads, kSmemBytes, stream>>>(a);
+  const Carve c = carve_of(hyper, scales != nullptr);
+  const TemplateArgs a{x,       ldx,        hyper,   cond, cond_w,
+                       scales,  alpha_cond, alpha_w, out,  rows,
+                       samples, {w, b, table_offsets(14, kLayers, false,
+                                                     c.xf)}};
+  template_fwd_f32<<<tiles_of(rows), kThreads, carve_bytes(c), stream>>>(a);
   return cudaGetLastError();
 }
 

@@ -6,9 +6,9 @@
 //
 // At `compute_dtype='float32'` they replace the TPU kernels
 // hypernerf_tpu/ops/pallas/fused_mlp.py `_bwd_call` (:736, kernel A, the
-// template backward, with 4 hyper coordinates or none, in the posenc_orig
-// or the windowed Nerfies layout, any rgb condition width up to 48, with
-// or without the alpha condition) and
+// template backward, with 4 hyper coordinates or none, or the plane
+// layouts' 8, in the posenc_orig or the windowed Nerfies layout, any rgb
+// condition width up to 48, with or without the alpha condition) and
 // hypernerf_tpu/ops/pallas/fused_level.py `_fields_bwd_call` (:846, kernel
 // B, the warp field's and the sheet's backward), the two halves of the
 // level backward (`_fused_bwd_pipelined` :1260, `_fused_bwd` :1397), and
@@ -21,7 +21,11 @@
 // warp field (the trunk's encoding, the heads' forward, the retraction's
 // VJP into the heads' cotangent and the point's direct term, se3_trunk.cuh
 // `retract_bwd`, then the screw rows: the trunk's and the sheet's encoding
-// VJPs per sample), and the same steps on raw rows are the trunk alone
+// VJPs per sample); in a plane table (no sheet) it walks back the warp
+// field or the trunk alone and the plane rows add d hyper into each
+// sample's d embed (the hyper coordinates are the embedding), and kernel
+// A takes the plane layouts' 8 hyper coordinates through the same encoding
+// steps. The trunk's steps on raw rows are the trunk alone
 // backward (hypernerf_tpu/ops/pallas/fused_se3.py `_fused_bwd` :412). The
 // host side that orders the steps over chunks of whole rays and owns the
 // stash of each layer's fp32 output is kernels/f32.py; the bf16 kernels A
@@ -174,6 +178,19 @@ __global__ void __launch_bounds__(kThreads) rowprod_f32(const RowprodArgs p) {
   }
 }
 
+// sum += x with Kahan's compensation: `lost` carries the low part the
+// running sum dropped (no multiply here, so nothing contracts into an FMA).
+// A layer's db and a dW entry sum millions of rows a chunk, and a bias's
+// sum can be small beside the rows' magnitudes (a random cotangent's
+// column); the compensated sums keep the in-order slabs and their in-order
+// reduction near the rounding of the total, not of every partial sum.
+__device__ __forceinline__ void kahan_add(float& sum, float& lost, float x) {
+  const float y = x - lost;
+  const float t = sum + y;
+  lost = (t - sum) - y;
+  sum = t;
+}
+
 struct DwArgs {
   const float* g;  // (M, >= N) at ldg: the layer's output cotangent
   long long ldg;
@@ -253,7 +270,7 @@ __global__ void __launch_bounds__(kThreads) dw_f32(const DwArgs p) {
   };
   float acc[T::TR][T::TC];
   zero<T>(acc);
-  float db = 0.f;
+  float db = 0.f, db_lost = 0.f;  // compensated (kahan_add)
   if (chunks > 0) {
     load(0);
     store(0);
@@ -264,7 +281,8 @@ __global__ void __launch_bounds__(kThreads) dw_f32(const DwArgs p) {
     if (more) load(ch + 1);
     chunk_fma<T>(acc, gs[ch & 1], T::kRows, hs[ch & 1]);
     if (with_db && t < T::kRows)
-      for (int k = 0; k < kDepth; ++k) db += gs[ch & 1][k * T::kRows + t];
+      for (int k = 0; k < kDepth; ++k)
+        kahan_add(db, db_lost, gs[ch & 1][k * T::kRows + t]);
     if (more) store((ch + 1) & 1);
     __syncthreads();
   }
@@ -284,13 +302,14 @@ __global__ void __launch_bounds__(kThreads) dw_f32(const DwArgs p) {
   if (with_db && t < T::kRows && j0 + t < p.N) slab[p.b_off + j0 + t] = db;
 }
 
-// grads[i] += sum over z of slab[z * lds + i] for i < n, in order of z.
+// grads[i] += sum over z of slab[z * lds + i] for i < n, in order of z,
+// compensated (kahan_add).
 __global__ void reduce_f32(const float* slab, int splits, long long lds,
                            long long n, float* grads) {
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
-  float s = 0.f;
-  for (int z = 0; z < splits; ++z) s += slab[z * lds + i];
+  float s = 0.f, lost = 0.f;
+  for (int z = 0; z < splits; ++z) kahan_add(s, lost, slab[z * lds + i]);
   grads[i] += s;
 }
 
@@ -613,6 +632,46 @@ __global__ void screw_rows_f32(const float* z, const float* o,
     out[6 + c] = trunk_g(g0, scales, 2 * kSe3Trig + c) + g1[a1 + c];
 }
 
+// Kernel B's per-sample cotangents of row r (ray r / S) in a plane table
+// (no sheet: the hyper coordinates are the ray's embedding): d p = the
+// warp's direct term + the VJP of its encoding (cotangent g) — the
+// translation warp's (screw 0): dxt[0:3] and the posenc_orig VJP (F0
+// bands); the trunk's (screw 1): the retraction's dpd[0:3] and the trunk
+// encoding's VJP, g times the window row —; d embed = the encoding's
+// embedding columns of g (times the window row) + d hyper, dxt[3:3 + e];
+// d z[r] = d p . d, and rows[r * (6 + e) + ...] = [d p | z d p | d embed],
+// which hn_f32_ray_sum adds per ray. dpd may be rows itself (each thread
+// reads its row's direct term first). A thread per row.
+__global__ void plane_rows_f32(int screw, const float* z, const float* o,
+                               const float* d, int samples, const float* dxt,
+                               long long ldx, const float* dpd,
+                               long long lddpd, const float* g,
+                               long long ldg, int F0, const float* scales,
+                               int e, float* dz, float* rows, long long M) {
+  const long long r = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (r >= M) return;
+  const long long q = r / samples;
+  const float* g0 = g + r * ldg;
+  const float* dh = dxt + r * ldx + 3;
+  float direct[3];
+  for (int c = 0; c < 3; ++c)
+    direct[c] = screw ? dpd[r * lddpd + c] : dxt[r * ldx + c];
+  float* out = rows + r * (6 + e);
+  float dot = 0.f;
+  for (int c = 0; c < 3; ++c) {
+    const float p = __fadd_rn(o[q * 3 + c], __fmul_rn(z[r], d[q * 3 + c]));
+    const float dp = direct[c] + (screw ? trunk_vjp(p, g0, scales, c)
+                                        : posenc_vjp(p, g0, 3, F0, c));
+    dot += dp * d[q * 3 + c];
+    out[c] = dp;
+    out[3 + c] = dp * z[r];
+  }
+  dz[r] = dot;
+  const int a0 = screw ? 2 * kSe3Trig : 3 * (1 + 2 * F0);
+  for (int c = 0; c < e; ++c)
+    out[6 + c] = (screw ? trunk_g(g0, scales, a0 + c) : g0[a0 + c]) + dh[c];
+}
+
 constexpr int kFlat = 256;  // threads a block of the elementwise steps
 
 unsigned flat_blocks(long long n) {
@@ -842,5 +901,30 @@ extern "C" int hn_f32_screw_rows(const float* z, const float* o,
   screw_rows_f32<<<flat_blocks(M), kFlat, 0, stream>>>(
       z, o, d, samples, dpd, lddpd, gt, ldgt, scales, gs, ldgs, F1, e, dz,
       rows, M);
+  return cudaGetLastError();
+}
+
+// screw 0: the translation warp (g its encoding's cotangent, F0 bands;
+// no window row, no dpd); 1: the SE(3) / quaternion trunk (g at least
+// kSe3EncP columns, scales its window row or null, dpd (M, >= 3 at lddpd)
+// the retraction's direct term); dxt (M, >= 3 + e at ldx) [d warped | d
+// hyper | ..]; rows (M, 6 + e).
+extern "C" int hn_f32_plane_rows(int screw, const float* z, const float* o,
+                                 const float* d, int samples,
+                                 const float* dxt, long long ldx,
+                                 const float* dpd, long long lddpd,
+                                 const float* g, long long ldg, int F0,
+                                 const float* scales, int e, float* dz,
+                                 float* rows, long long M,
+                                 cudaStream_t stream) {
+  if ((screw != 0 && screw != 1) || samples <= 0 || e < 0 || ldx < 3 + e ||
+      (screw ? dpd == nullptr || lddpd < 3 || ldg < kSe3EncP ||
+                   2 * kSe3Trig + e > kSe3EncP
+             : scales != nullptr || ldg < 3 * (1 + 2 * F0) + e))
+    return 1;
+  if (M == 0) return 0;
+  plane_rows_f32<<<flat_blocks(M), kFlat, 0, stream>>>(
+      screw, z, o, d, samples, dxt, ldx, dpd, lddpd, g, ldg, F0, scales, e,
+      dz, rows, M);
   return cudaGetLastError();
 }

@@ -8,19 +8,22 @@ and a field alone backward (row 11); and the SE(3) trunk alone, forward
 ``fused_level``, ``fused_fields_bwd``, ``fused_template_bwd``,
 ``fused_template``, ``fused_field``, ``fused_field_bwd``, ``fused_se3_wv``
 and ``fused_se3_bwd`` take these where the modules compute in float32, on
-the sheet tables (table codes 0 to 2): the translation warp, or the SE(3)
-or the quaternion warp (the trunk and the retraction, with or without the
-``warp_alpha`` window row), the bendy sheet, and the template in either of
-their layouts, posenc_orig or, given the template's window row, the
-Nerfies encoding (``common.NERFIES``: the hyper coordinates over 4 bands
-without identity, 95 columns in the same 128, each times its window
-weight), with 4 hyper coordinates or none (static), any rgb condition
-width the layout has (39, 47, 8, 0; Nerfies 27, 35, 8, 0) and the
-8-column alpha condition or none; and their modules alone (a field alone,
-the warp field or the sheet, with or without a window row).
+every level table (``common.TABLE_CODES``, 0 to 8): the translation warp,
+or the SE(3) or the quaternion warp (the trunk and the retraction, with
+or without the ``warp_alpha`` window row), with the bendy sheet (the
+sheet tables, codes 0 to 2) or without it (the plane tables, 3 to 8,
+axis_aligned_plane: the hyper coordinates are the ray's 8 GLO
+coordinates, raw rows of 16 columns), and the template in its layouts,
+posenc_orig or, given the template's window row, the Nerfies encoding
+(``common.NERFIES``: the hyper coordinates over 4 bands without
+identity, 95 columns in the same 128, each times its window weight; with
+the plane's 8 coordinates 127), with 4 hyper coordinates, the plane's 8
+(posenc_orig: 167 columns in ``PLANE_ENC``) or none (static), any rgb
+condition width the layout has (39, 47, 8, 0; Nerfies 27, 35, 8, 0) and
+the 8-column alpha condition or none; and their modules alone (a field
+alone, the warp field or the sheet, with or without a window row).
 ``fused_level._check_covered`` and ``fused_mlp.check_f32_covered`` refuse
-the rest, naming ROADMAP A.13.1's sub-item (the plane tables, the
-Jacobians).
+the rest, naming ROADMAP A.13 (the Jacobians: A.13.1's sub-item 4).
 
 Float32 is the TPU kernels' float32: fp32 operands, fp32 sums, fp32
 epilogues, nothing rounded to bf16 — the plain versions' arithmetic at that
@@ -65,11 +68,25 @@ COND_PAD = common.COND_PAD
 # a double-buffered weight tile of DEPTH x WIDE_COLS; its shared memory: X
 # (128 features), H0 and H1 (256), that weight tile, per-row scratch (3 + 8
 # + 8 + 1 floats) and the rows' ray indices, of 64 rows each, 4 bytes a
-# value. The steps' Step tile: STEP_ROWS x STEP_COLS a block.
+# value; a plane table's carve (``level_smem_bytes``) has X of its
+# template's encoding slots (PLANE_ENC for the posenc_orig plane layout)
+# and 16 raw rows ([warped | 8 hyper | 0]) where the sheet tables have 8.
+# The steps' Step tile: STEP_ROWS x STEP_COLS a block.
 THREADS, TILE_ROWS, WIDE_COLS, DEPTH = 256, 64, 256, 16
 STEP_ROWS = STEP_COLS = 128
-LEVEL_SMEM_BYTES = 4 * (TILE_ROWS * (128 + 2 * 256 + 3 + 8 + 8 + 1 + 1)
-                        + 2 * DEPTH * WIDE_COLS)
+PLANE_ENC = common.PLANE_ENC_PAD
+
+
+def level_smem_bytes(xf: int = 128, raw: int = common.RAW_PAD) -> int:
+    """The level forward's (and the template alone's) dynamic shared
+    memory with X of ``xf`` features and ``raw`` raw rows
+    (csrc/f32_level.cu ``carve_bytes``)."""
+    return 4 * (TILE_ROWS * (xf + 2 * 256 + 3 + raw + 8 + 1 + 1)
+                + 2 * DEPTH * WIDE_COLS)
+
+
+LEVEL_SMEM_BYTES = level_smem_bytes()
+PLANE_SMEM_BYTES = level_smem_bytes(PLANE_ENC, common.PLANE_RAW_PAD)
 # The static shared memory of rowprod: two chunks of each operand, the
 # activations' rows padded by 4 (csrc/f32_steps.cu kALd).
 STEP_SMEM_BYTES = 4 * 2 * (DEPTH * (STEP_ROWS + 4) + DEPTH * STEP_COLS)
@@ -87,8 +104,10 @@ FIELD_SMEM_BYTES = 4 * (TILE_ROWS * (80 + 2 * 128 + 3 + 8 + 8 + 1 + 1)
 def template_enc(hyper: int, nerfies: bool = False) -> int:
     """Stash columns of the template's encoding with ``hyper`` hyper
     coordinates, each layout's encoded columns padded to 16: posenc_orig
-    128 for the flagship's 4 (115 encoded), the Nerfies layout 96 (95: the
-    hyper coordinates without identity, over 4 bands), 64 for none (63)."""
+    128 for the flagship's 4 (115 encoded) and 176 for the plane's 8 (167,
+    in PLANE_ENC packed columns), the Nerfies layout 96 (95: the hyper
+    coordinates without identity, over 4 bands) and 128 for the plane's 8
+    (127), 64 for none (63)."""
     per = 2 * NERF_HYPER_FREQ if nerfies else 1 + 2 * HYPER_FREQ
     return common.pad16(3 * (1 + 2 * XYZ_FREQ) + hyper * per)
 
@@ -99,10 +118,11 @@ def template_stash(hyper: int = N_HYPER,
     ``template_enc(hyper, nerfies)``, the rgb condition (padded to 48) after
     the bottleneck's 128, one fp32 row per sample; its wide layers are the
     bf16 kernel A's, layer 11 reading [bottleneck | condition] from the
-    stash. An encoding narrower than its packed 128 columns (the Nerfies
-    layout's 96, a template without hyper coordinates' 64) runs the first
-    and skip layers' products on its own columns, their packed weights'
-    other columns unread, and their dW there zero."""
+    stash. An encoding narrower than its packed columns (the Nerfies
+    layout's 96 of 128, the plane layout's 176 of 192, a template without
+    hyper coordinates' 64 of 128) runs the first and skip layers' products
+    on its own columns, their packed weights' other columns unread, and
+    their dW there zero."""
     return fused_mlp.stash_plan(enc=template_enc(hyper, nerfies),
                                 cond=COND_PAD)
 
@@ -241,16 +261,17 @@ def template_bwd_steps(ops, w, wt, b, w_off, b_off, n_grads, raw_t, cond,
                        alpha=None):
     """Kernel A at float32 (the template's 16 layers: ``layer_views``
     of its packed fp32 blobs), chunk by chunk. raw_t (P, 8) [warped | hyper
-    | 0] with ``hyper`` hyper coordinates (4, or 0: static), cond (R, C) the
+    | 0] with ``hyper`` hyper coordinates (4, or 0: static; the plane
+    layouts' 8 in (P, 16) rows), cond (R, C) the
     rgb condition, g (P, 4) the output's cotangent; ``scales`` the Nerfies
     layout's window row (``fused_mlp.kernel_scales``: 128 fp32) or None
     (posenc_orig); ``alpha`` (the alpha condition (R, Ca) fp32, its weights
     in the alpha head (Ca,) fp32) or None, whose dW goes to the buffer's
     last ``fused_mlp.ALPHA_TAIL`` floats (``n_grads`` counts them). Returns
-    dx_t (P, 8) (zero past the hyper coordinates), d cond (R, C), the [dW |
-    db] buffer and d alpha_cond (R, Ca) or None. dx_t is computed whether
-    or not the caller reads it (a static template's points take no
-    gradient)."""
+    dx_t (P, raw_t's columns, zero past the hyper coordinates), d cond (R,
+    C), the [dW | db] buffer and d alpha_cond (R, Ca) or None. dx_t is
+    computed whether or not the caller reads it (a static template's
+    points take no gradient)."""
     dev, f32 = raw_t.device, torch.float32
     p, s = raw_t.shape[0], samples
     nerfies = scales is not None
@@ -374,16 +395,21 @@ def fields_bwd_steps(ops, w, wt, b, w_off, b_off, n_grads, z_vals, origins,
     """Kernel B at float32 (``layer_views`` of the level's packed fp32
     blobs: with table code 0 the warp field's layers 0..6 and the sheet's
     7..13; with code 1 or 2, SE(3) or quaternion, the trunk's 0..8 and the
-    sheet's 9..15, ``scales`` the trunk's window row or None), chunk by
-    chunk: each field recomputed and walked back in one stash, then the
-    rows' point and embedding cotangents and their per-ray sums. The trunk
-    takes its heads' cotangent from the retraction's VJP, which also gives
-    the point's direct term. Returns d z_vals (R, S), d_ray (R, 14) [d
-    origins | d directions | d embed] and the [dW | db] buffer."""
+    sheet's 9..15, ``scales`` the trunk's window row or None; a plane
+    table, codes 3 to 8, has no sheet: the warp of code % 3 alone, its
+    layers 0..6 or 0..8), chunk by chunk: each field recomputed and walked
+    back in one stash, then the rows' point and embedding cotangents and
+    their per-ray sums. The trunk takes its heads' cotangent from the
+    retraction's VJP, which also gives the point's direct term. Without a
+    sheet the hyper coordinates are the embedding: d hyper, dx_t[:, 3:11],
+    joins each row's d embed (the plane rows). Returns d z_vals (R, S),
+    d_ray (R, 14) [d origins | d directions | d embed] and the [dW | db]
+    buffer."""
     dev, f32 = z_vals.device, torch.float32
     r, s = z_vals.shape
     p, e = r * s, embed.shape[1]
-    screw = code != 0
+    warp_code = code % len(common.WARP_CODES)
+    screw, plane = warp_code != 0, code >= len(common.WARP_CODES)
     wsp = SE3_STASH if screw else WARP_STASH
     plan = fused_mlp.chunk_plan(p, s, max_rows or chunk_rows(wsp))
     rows = max(r1 - r0 for r0, r1 in plan)
@@ -391,8 +417,9 @@ def fields_bwd_steps(ops, w, wt, b, w_off, b_off, n_grads, z_vals, origins,
     bufs = [torch.empty((rows, 128), dtype=f32, device=dev)
             for _ in range(2)]
     enc_w = torch.empty((rows, wsp.widths['enc']), dtype=f32, device=dev)
-    enc_s = torch.empty((rows, SHEET_STASH.widths['enc']), dtype=f32,
-                        device=dev)
+    if not plane:
+        enc_s = torch.empty((rows, SHEET_STASH.widths['enc']), dtype=f32,
+                            device=dev)
     per_row = torch.empty((rows, 6 + e), dtype=f32, device=dev)
     if screw:  # the heads' outputs [w | v] and cotangent [d w | d v]
         wv = torch.empty((rows, 2 * V_COL), dtype=f32, device=dev)
@@ -415,8 +442,8 @@ def fields_bwd_steps(ops, w, wt, b, w_off, b_off, n_grads, z_vals, origins,
                 for l, col in ((7, 0), (8, V_COL)):
                     ops.rowprod(trunk, wt[l], wv[:n, col:col + V_COL],
                                 bias=b[l])
-                ops.retract_bwd(code, *rays[:3], s, wv[:n], dx_c[:, :3],
-                                g_wv[:n], per_row[:n, :3])
+                ops.retract_bwd(warp_code, *rays[:3], s, wv[:n],
+                                dx_c[:, :3], g_wv[:n], per_row[:n, :3])
                 return g_wv[:n]
 
             _trunk_steps(ops, w[warp], wt[warp], b[warp], w_off[warp],
@@ -430,6 +457,12 @@ def fields_bwd_steps(ops, w, wt, b, w_off, b_off, n_grads, z_vals, origins,
                          lambda enc, rays=rays: ops.field_encode(
                              *rays, WARP_FREQ, enc),
                          stash, bufs, enc_w[:n], dx_c[:, :3], scratch, grads)
+        if plane:
+            ops.plane_rows(screw, *rays, dx_c,
+                           per_row[:n, :3] if screw else None, enc_w[:n],
+                           WARP_FREQ, scales, dz_flat[r0:r1], per_row[:n])
+            ops.ray_sum(per_row[:n], s, d_ray[q0:q1])
+            continue
         _field_steps(ops, w[sheet], wt[sheet], b[sheet], w_off[sheet],
                      b_off[sheet], SHEET_STASH,
                      lambda enc, rays=rays: ops.field_encode(
@@ -638,7 +671,7 @@ class _KernelOps:
                  x.shape[0])
 
     def retract_bwd(self, code, z, o, d, samples, wv, dxt, g_wv, dp):
-        """Table code 1 (SE(3)) or 2 (quaternion)."""
+        """Warp code 1 (SE(3)) or 2 (quaternion)."""
         self._go('hn_f32_retract_bwd', int(code == 2), z.data_ptr(),
                  o.data_ptr(), d.data_ptr(), samples, wv.data_ptr(), _ld(wv),
                  dxt.data_ptr(), _ld(dxt), g_wv.data_ptr(), _ld(g_wv),
@@ -651,34 +684,43 @@ class _KernelOps:
                  gt.data_ptr(), _ld(gt), _ptr(scales), gs.data_ptr(), _ld(gs),
                  f1, emb.shape[1], dz.data_ptr(), rows.data_ptr(), z.shape[0])
 
-
-def _c_layout(entry: str):
-    import ctypes
-    n = (ctypes.c_int * 64)()
-    k = (ctypes.c_int * 64)()
-    count = getattr(build.library(), entry)(ctypes.addressof(n),
-                                            ctypes.addressof(k), 64)
-    return [(n[i], k[i]) for i in range(count)]
+    def plane_rows(self, screw, z, o, d, emb, samples, dxt, dpd, g, f0,
+                   scales, dz, rows):
+        """A plane table's rows: the translation warp's (``dpd`` None) or
+        the trunk's (``dpd`` the retraction's direct term, ``scales`` its
+        window row or None) encoding cotangent ``g``, with d hyper from
+        ``dxt``."""
+        self._go('hn_f32_plane_rows', int(screw), z.data_ptr(),
+                 o.data_ptr(), d.data_ptr(), samples, dxt.data_ptr(),
+                 _ld(dxt), _ptr(dpd), 0 if dpd is None else _ld(dpd),
+                 g.data_ptr(), _ld(g), f0, _ptr(scales), emb.shape[1],
+                 dz.data_ptr(), rows.data_ptr(), z.shape[0])
 
 
 def kernel_layout(warp: str = 'translation'):
-    """[(n_pad, k_pad)] of the compiled float32 table of the level with the
-    ``warp`` warp, in layer order: the flagship table, or with the SE(3) /
-    quaternion warp the trunk's rows, then the flagship table's from the
-    sheet on."""
-    table = _c_layout('hn_f32_level_layout')
-    if warp == 'translation':
-        return table
-    return _c_layout('hn_f32_trunk_layout') + table[7:]
+    """[(n_pad, k_pad)] of the compiled float32 table ``warp`` (a key of
+    ``common.TABLE_CODES``) in layer order (``hn_f32_table_layout``): the
+    flagship table; with the SE(3) / quaternion warp the trunk's rows,
+    then the flagship table's from the sheet on; a plane table's warp,
+    then its template's 16 (the first layer and the skip at 192 and 448
+    columns in the posenc_orig plane layout)."""
+    import ctypes
+    n = (ctypes.c_int * 64)()
+    k = (ctypes.c_int * 64)()
+    count = build.library().hn_f32_table_layout(
+        common.TABLE_CODES[warp], ctypes.addressof(n), ctypes.addressof(k),
+        64)
+    return [(n[i], k[i]) for i in range(count)]
 
 
 def check_layout(shapes, table: slice = slice(None),
                  warp: str = 'translation') -> None:
     """Raise unless packed ``shapes`` are rows ``table`` of the compiled
-    float32 table of the ``warp`` level (all of it: a level;
-    ``common.TEMPLATE_LAYERS``: a template alone, with or without hyper
-    coordinates, whose encoding packs to the same 128 columns;
-    ``common.WARP_LAYERS`` / ``SHEET_LAYERS``: a field alone;
+    float32 table ``warp`` (a key of ``common.TABLE_CODES``; all of it: a
+    level; ``common.TEMPLATE_LAYERS``: a template alone, with or without
+    hyper coordinates, whose encoding packs to the same 128 columns, or
+    ``common.PLANE_TEMPLATE_LAYERS`` of a plane table: a template of its
+    layout; ``common.WARP_LAYERS`` / ``SHEET_LAYERS``: a field alone;
     ``common.SE3_LAYERS`` of the 'se3' table: the trunk alone)."""
     if list(shapes) != kernel_layout(warp)[table]:
         raise NotImplementedError(f'{common.NOT_COVERED}; layer shapes '
@@ -691,16 +733,19 @@ def fused_level_f32(wt_blob, b_blob, z_vals, origins, directions, embed,
     """Launch the float32 level forward (csrc/f32_level.cu) on the packed
     fp32 blobs of the level's table (table code ``code``: 0 the
     translation warp's, 1 and 2 the SE(3) / quaternion warp's, with the
-    trunk's window row ``scales`` or None), its weights transposed layer by
-    layer: (out (R * S, 4), raw_t (R * S, 8) or None). ``tmpl_scales``: the
-    template's window row (128 fp32: the Nerfies layout) or None;
+    trunk's window row ``scales`` or None; 3 to 8 the plane tables'), its
+    weights transposed layer by layer: (out (R * S, 4), raw_t (R * S, 8),
+    (R * S, 16) in a plane table, or None). ``tmpl_scales``: the
+    template's window row (128 fp32: the Nerfies layouts) or None;
     ``alpha``: (the alpha condition (R, 8), its weights in the alpha head
     (8,)) fp32, or None. The inputs are checked by the caller (fp32,
     contiguous)."""
     dev = z_vals.device
     r, s = z_vals.shape
     out = torch.empty((r * s, 4), dtype=torch.float32, device=dev)
-    raw_t = torch.empty((r * s, 8), dtype=torch.float32,
+    raw = (common.PLANE_RAW_PAD if code >= len(common.WARP_CODES)
+           else common.RAW_PAD)
+    raw_t = torch.empty((r * s, raw), dtype=torch.float32,
                         device=dev) if want_raw_t else None
     common.launch('hn_f32_level_fwd', dev, z_vals.data_ptr(),
                   origins.data_ptr(), directions.data_ptr(),
@@ -727,9 +772,10 @@ def fused_template_f32(wt_blob, b_blob, x_raw, hyper: int, cond,
     forward's template stage) on the template's packed fp32 blobs, its
     weights transposed layer by layer: (P, 4) [rgb logits | raw sigma].
     x_raw (P, 8) [xyz | hyper | 0] with ``hyper`` hyper coordinates (4 or
-    0), cond (P / samples, C); ``scales`` and ``alpha`` as
-    ``fused_level_f32`` takes ``tmpl_scales`` and ``alpha``. The inputs are
-    checked by the caller (fp32, contiguous)."""
+    0; the plane layouts' 8 in (P, 16) rows), cond (P / samples, C);
+    ``scales`` and ``alpha`` as ``fused_level_f32`` takes ``tmpl_scales``
+    and ``alpha``. The inputs are checked by the caller (fp32,
+    contiguous)."""
     dev, p = x_raw.device, x_raw.shape[0]
     out = torch.empty((p, 4), dtype=torch.float32, device=dev)
     common.launch('hn_f32_template_fwd', dev, x_raw.data_ptr(), _ld(x_raw),
@@ -850,8 +896,8 @@ def fused_fields_bwd_f32(w_blob, wt_blob, b_blob, shapes, z_vals, origins,
     """Launch kernel B at float32 (``fields_bwd_steps``) on the field
     layers' views of the level's packed fp32 blobs (``shapes``: layers
     0..13, or with table code 1 or 2 the trunk's and the sheet's, 0..15;
-    ``scales`` the trunk's window row or None): (d z_vals, d_ray (R, 14),
-    [dW | db])."""
+    ``scales`` the trunk's window row or None; a plane table's warp alone,
+    0..6 or 0..8): (d z_vals, d_ray (R, 14), [dW | db])."""
     dev = z_vals.device
     w, wt, b, w_off, b_off, n_grads = fused_mlp.layer_views(
         w_blob, wt_blob, b_blob, shapes)

@@ -197,15 +197,12 @@ def _is_f32(level: Level) -> bool:
 
 
 def _check_f32_covered(level: Level) -> None:
-    """Raise unless the float32 kernels cover the level: the sheet tables
-    (the translation warp, or the SE(3) / quaternion trunk that
-    ``fused_se3.check_covered`` admits; the bendy sheet; the template
-    ``check_f32_covered`` admits, posenc_orig or Nerfies) at the flagship
-    widths; a level without a sheet (the plane tables) names ROADMAP
-    A.13.1's sub-item 3."""
-    if level.hyper is None:
-        raise NotImplementedError(common.f32_refusal(
-            3, 'the level without a sheet (axis_aligned_plane)'))
+    """Raise unless the float32 kernels cover the level: every table (the
+    translation warp, or the SE(3) / quaternion trunk that
+    ``fused_se3.check_covered`` admits; the bendy sheet, or none: the plane
+    tables; the template ``check_f32_covered`` admits, posenc_orig or
+    Nerfies, with 4 hyper coordinates or, without a sheet, the plane's 8)
+    at the flagship widths."""
     _check_f32_template_covered(level)
     if _screw(level):
         _check_se3_covered(level.warp)
@@ -215,9 +212,11 @@ def _check_f32_covered(level: Level) -> None:
         have = dict(embed=mlp.hidden(0).in_features
                     - 3 * (1 + 2 * level.warp.n_freq),
                     warp_freq=level.warp.n_freq)
-    have.update(hyper_sheet_freq=level.hyper.n_freq,
-                hyper_out=level.hyper.mlp.logit.out_features)
-    if have != {k: FLAGSHIP[k] for k in have} or level.hyper.use_residual:
+    if level.hyper is not None:
+        have.update(hyper_sheet_freq=level.hyper.n_freq,
+                    hyper_out=level.hyper.mlp.logit.out_features)
+    if (have != {k: FLAGSHIP[k] for k in have}
+            or (level.hyper is not None and level.hyper.use_residual)):
         raise NotImplementedError(f'{common.NOT_COVERED}; got {have}')
 
 
@@ -812,12 +811,13 @@ def field_bwd_stream_bytes(field: str, shapes, n_points: int) -> int:
 def _f32_launch_args(level: Level, z_vals, origins, directions, embed,
                      warp_scales):
     """The float32 kernels' packed fp32 blobs of the level, checked against
-    the compiled float32 table of its warp, the table code and the trunk's
-    padded window row or None, after the ray inputs were checked."""
+    the compiled float32 table of the level (``level_table``), the table
+    code and the trunk's padded window row or None, after the ray inputs
+    were checked."""
     w_blob, b_blob, shapes = pack_level_f32(level)
     wt_blob = pack_level_f32(level, transposed=True)[0]
     _check_covered(level)
-    f32.check_layout(shapes, warp=level.warp.kind)
+    f32.check_layout(shapes, warp=level_table(level))
     _check_ray_inputs(z_vals, origins, directions, embed)
     code, scales = _warp_row(level, shapes, warp_scales, z_vals.device)
     return w_blob, wt_blob, b_blob, shapes, code, scales
@@ -978,7 +978,7 @@ def fused_fields_bwd_plain(level: Level, z_vals, origins, directions, embed,
     if _screw(level):
         wv = fused_se3_plain(level.warp, x_raw, warp_scales)
         d_w, d_v, d_direct = level.warp.retract_bwd(
-            wv[:, :3], wv[:, 3:], x_raw[:, :3].float(), dx_t[:, :3])
+            wv[:, :3], wv[:, 3:], x_raw[:, :3].to(wv.dtype), dx_t[:, :3])
         dx_w, grads_w = fused_se3_bwd_plain(
             level.warp, x_raw, F.pad(torch.cat([d_w, d_v], dim=-1), (0, 2)),
             warp_scales)

@@ -38,10 +38,10 @@ exact, and those columns' dW is dropped on unpack.
 
 A template whose modules compute in float32 takes the float32 kernels
 (``f32.fused_template_f32``, the float32 level forward's template stage,
-and kernel A at float32, ``f32.fused_template_bwd_f32``) at the posenc_orig
-layout or the Nerfies one with its window row, 4 hyper coordinates or none,
-any rgb condition width of its layout and the alpha condition or none
-(``check_f32_covered``); the plane layouts refuse.
+and kernel A at float32, ``f32.fused_template_bwd_f32``) in each of the
+four layouts (the Nerfies ones with their window row), 4 hyper
+coordinates or none, the plane layouts' 8, any rgb condition width of its
+layout and the alpha condition or none (``check_f32_covered``).
 
 The conditions (the JAX model's ``get_condition_inputs``): the rgb condition
 is any width a layout covers (``common.FLAGSHIP['rgb_cond']``: the view
@@ -336,31 +336,32 @@ def check_covered(tmpl) -> None:
                                   f'{dtypes}')
 
 
-# The float32 kernels' template layouts (the sheet tables'): layout ->
-# its compiled widths.
-F32_LAYOUTS = {'orig': common.FLAGSHIP, 'nerfies': common.NERFIES}
+# The float32 kernels' template layouts: layout -> its compiled widths
+# (the hyper coordinates, their bands, the rgb condition's widths).
+F32_LAYOUTS = {'orig': common.FLAGSHIP,
+               'nerfies': {**common.FLAGSHIP, **common.NERFIES},
+               'plane': {**common.FLAGSHIP, **common.PLANE},
+               'nerfies_plane': {**common.FLAGSHIP, **common.NERFIES_PLANE}}
 
 
 def check_f32_covered(tmpl) -> None:
     """Raise unless the template is the float32 kernels' (the level's
     template, the template alone and kernel A): all in float32, the xyz at
     10 bands and, posenc_orig, 4 hyper coordinates at 6 (the flagship's)
-    or, Nerfies, at 4 without identity, or none (static); an rgb condition
-    of one of its layout's widths (``F32_LAYOUTS``), the alpha condition of
-    ``common.ALPHA_COND``. A plane layout raises naming ROADMAP A.13.1's
-    sub-item 3 (the plane tables); other widths or bands name A.13."""
+    or, Nerfies, at 4 without identity, or the plane layouts' 8 at the
+    same bands, or none (static); an rgb condition of one of its layout's
+    widths (``F32_LAYOUTS``), the alpha condition of
+    ``common.ALPHA_COND``. Other widths or bands raise naming ROADMAP
+    A.13."""
     t = tmpl.template
     dtypes = {t.trunk.dtype, t.rgb_branch.dtype, t.dtype}
     have = dict(layout=layout(tmpl), hyper=n_hyper(tmpl),
                 rgb_cond=cond_width(tmpl), alpha_cond=alpha_cond_width(tmpl))
     if dtypes != {torch.float32}:
         raise NotImplementedError(f'{common.NOT_COVERED}; got {dtypes}')
-    if have['layout'] not in F32_LAYOUTS:
-        raise NotImplementedError(common.f32_refusal(
-            3, f'a template with {have}'))
     widths = F32_LAYOUTS[have['layout']]
     bands = (tmpl.xyz_freq, tmpl.hyper_freq)[:1 + bool(have['hyper'])]
-    if (have['hyper'] not in (common.FLAGSHIP['hyper_out'], 0)
+    if (have['hyper'] not in (widths['hyper_out'], 0)
             or have['rgb_cond'] not in widths['rgb_cond']
             or have['alpha_cond'] not in common.ALPHA_COND
             or bands != (widths['xyz_freq'],
@@ -484,8 +485,7 @@ def fused_template(tmpl, x_raw, rgb_cond, scales=None,
     ``alpha_cond``: (R, Ca) per-ray alpha condition, or None.
 
     CPU tensors take ``fused_template_plain``; CUDA tensors launch the kernel
-    (flagship widths, any of the four layouts, bf16; the posenc_orig and
-    Nerfies layouts with 4 hyper coordinates or none in float32) or raise.
+    (flagship widths, any of the four layouts, bf16 or float32) or raise.
     Differentiable in ``x_raw``, both conditions and the template's
     parameters (``FusedTemplateFn``).
     """
@@ -866,7 +866,7 @@ fused_template_bwd.stash_bytes = 0
 def f32_template_args(tmpl, rgb_cond, scales, alpha_cond, rays: int, dev):
     """The float32 kernels' template inputs of a call, checked: the fp32 rgb
     condition (R, C), the window row as ``kernel_scales`` makes it (None
-    for posenc_orig; 128 fp32 for the Nerfies layout, whose presence
+    for posenc_orig; 128 fp32 for the Nerfies layouts, whose presence
     selects that layout in the C code) and (the fp32 alpha condition (R,
     Ca), the alpha head's fp32 condition columns) or None."""
     cond, alphac, aw = cond_args(tmpl, rgb_cond, alpha_cond, rays, dev,
@@ -887,10 +887,13 @@ def _f32_launch_args(tmpl, x_raw, rgb_cond, scales, alpha_cond):
     wt_blob = common.pack_layers(tmpl.template, layers, check,
                                  transposed=True, dtype=torch.float32)[0]
     check_f32_covered(tmpl)
-    f32.check_layout(shapes, common.TEMPLATE_LAYERS)
+    if layout(tmpl) in PLANE_LAYOUTS:  # a plane table of its layout
+        f32.check_layout(shapes, common.PLANE_TEMPLATE_LAYERS, layout(tmpl))
+    else:
+        f32.check_layout(shapes, common.TEMPLATE_LAYERS)
     dev = x_raw.device
     p, r = x_raw.shape[0], rgb_cond.shape[0]
-    build.check_tensor('x_raw', x_raw, (p, common.RAW_PAD), torch.float32,
+    build.check_tensor('x_raw', x_raw, (p, raw_pad(tmpl)), torch.float32,
                        dev)
     if r == 0 or p % r:
         raise ValueError(f'{p} samples do not divide into {r} rays')

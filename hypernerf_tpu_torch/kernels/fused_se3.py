@@ -96,12 +96,12 @@ def fused_se3_plain(field, x_raw, scales=None):
       scales: optional (enc,) fp32 window row over the encoded features.
 
     Returns:
-      (P, 6) fp32 [w | v].
+      (P, 6) fp32 [w | v] (float64 at a float64 compute dtype).
     """
     fused_se3_plain.calls += 1
     trunk = field.trunk(_encode(field, x_raw, scales)[1])
-    return torch.cat([field.w_net(trunk), field.v_net(trunk)],
-                     dim=-1).float()
+    return torch.cat([field.w_net(trunk), field.v_net(trunk)], dim=-1).to(
+        common.acc_dtype(field.trunk.dtype))
 
 
 fused_se3_plain.calls = 0
@@ -115,7 +115,8 @@ def fused_se3_bwd_plain(field, x_raw, g, scales=None):
 
     Returns:
       dx_raw (P, 3 + E) fp32 and [dW, db, ...] of the field's layers in
-      kernel order, fp32, in each ``nn.Linear``'s shapes.
+      kernel order, fp32, in each ``nn.Linear``'s shapes (float64 at a
+      float64 compute dtype).
     """
     fused_se3_bwd_plain.calls += 1
     mlp = field.trunk
@@ -146,7 +147,7 @@ def fused_se3_bwd_plain(field, x_raw, g, scales=None):
     d_pts = (flat.reshape(-1, n_freq, 3) * freqs[:, None]).sum(1)
     dx = torch.cat([d_pts, g_enc[:, 2 * nb:]], dim=-1)
     grads = hidden + [dw_t, db_t, dw_w, db_w, dw_v, db_v]
-    return dx.float(), [t.float() for t in grads]
+    return dx.to(acc), [t.to(acc) for t in grads]
 
 
 fused_se3_bwd_plain.calls = 0

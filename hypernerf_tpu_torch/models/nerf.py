@@ -130,7 +130,7 @@ def unsupported(cfg: NerfConfig) -> list:
             out.append('Nerfies bands from a degree other than 0 '
                        '(ROADMAP A.13)')
     if cfg.alpha_channels != 1 or cfg.rgb_channels != 3:
-        out.append('heads other than rgb 3 + alpha 1 (ROADMAP A.9)')
+        out.append('heads other than rgb 3 + alpha 1 (ROADMAP B.3)')
     return out
 
 

@@ -497,9 +497,9 @@ def test_what_the_cuda_path_does_not_cover_is_refused():
     refuse a Nerfies template of other widths (A.13) and a window row for
     the original encoding."""
     for override, item in ((dict(warp_field_type='se3', rgb_channels=4),
-                            'A.9'),
+                            'B.3'),
                            (dict(warp_field_type='quaternion',
-                                 alpha_channels=2), 'A.9'),
+                                 alpha_channels=2), 'B.3'),
                            (dict(hyper_point_min_deg=1), 'A.13'),
                            (dict(viewdir_min_deg=1), 'A.13')):
         with pytest.raises(NotImplementedError, match=item):

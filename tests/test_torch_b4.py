@@ -2,7 +2,7 @@
 level, against the JAX package, on the CPU:
 
 - what ``unsupported()`` admits now: the seven combinations build; heads
-  other than rgb 3 + alpha 1 (A.9), Nerfies bands from a degree other than
+  other than rgb 3 + alpha 1 (B.3), Nerfies bands from a degree other than
   0 (A.13) are still refused, each naming its item, and an SE(3) field
   with the identity in its encoding builds;
 - the kernels' layer tables and layouts of the new combinations: each
@@ -133,15 +133,15 @@ def test_each_combination_packs_to_its_table(name):
 
 def test_what_is_still_refused_names_its_item():
     """The seven combinations build at the small widths too; the heads
-    (A.9) and Nerfies bands from another degree (A.13) are refused on top
+    (B.3) and Nerfies bands from another degree (A.13) are refused on top
     of any of them. An SE(3) field with the identity in its encoding, once
-    refused (A.9), now builds at its wider first layer and stays off the
+    refused (B.3), now builds at its wider first layer and stays off the
     trunk kernels (``tests/test_torch_se3_identity.py``)."""
     for name in COMBOS:
         NerfModel(port_configs.NerfConfig(**ARCH, **COMBOS[name]))
     for name, over, item in (
-            ('plane_anneal_se3', dict(rgb_channels=4), 'A.9'),
-            ('anneal_quaternion', dict(alpha_channels=2), 'A.9'),
+            ('plane_anneal_se3', dict(rgb_channels=4), 'B.3'),
+            ('anneal_quaternion', dict(alpha_channels=2), 'B.3'),
             ('plane_anneal', dict(spatial_point_min_deg=1), 'A.13'),
             ('anneal_se3', dict(hyper_point_min_deg=1), 'A.13')):
         with pytest.raises(NotImplementedError, match=item):

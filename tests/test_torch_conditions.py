@@ -638,7 +638,7 @@ def test_train_entry_point_with_the_three_flags(tmp_path, monkeypatch,
 def test_heads_and_b4_are_still_refused():
     """Heads other than rgb 3 + alpha 1 (with or without the nerf
     embedding, and with plane / anneal and the SE(3) warp, which are ported
-    without them) raise naming A.9; the kernels' checks refuse a condition
+    without them) raise naming B.3; the kernels' checks refuse a condition
     width no layout covers (A.13)."""
     for over in (dict(EMBED, use_rgb_condition=True, rgb_channels=4),
                  dict(use_viewdirs=False, alpha_channels=2),
@@ -646,7 +646,7 @@ def test_heads_and_b4_are_still_refused():
                       warp_field_type='se3', rgb_channels=4),
                  dict(use_original_embed=False, warp_field_type='se3',
                       alpha_channels=2)):
-        with pytest.raises(NotImplementedError, match='A.9'):
+        with pytest.raises(NotImplementedError, match='B.3'):
             NerfModel(port_configs.NerfConfig(**ARCH, **over))
     full = NerfModel(port_configs.NerfConfig(compute_dtype='bfloat16',
                                              **CASES['both']))

@@ -344,10 +344,10 @@ def test_model_builds_what_the_configuration_names():
         static.encode_hyper_embed({})
     for override, item in ((dict(hyper_slice_method='axis_aligned_plane',
                                  warp_field_type='se3', rgb_channels=4),
-                            'A.9'),
+                            'B.3'),
                            (dict(use_viewdirs=False, alpha_channels=2),
-                            'A.9'),
-                           (dict(rgb_channels=4), 'A.9')):
+                            'B.3'),
+                           (dict(rgb_channels=4), 'B.3')):
         with pytest.raises(NotImplementedError, match=item):
             NerfModel(port_configs.NerfConfig(**{**ARCH, **override}))
 

@@ -263,12 +263,12 @@ def test_convert_round_trip_of_a_plane_model():
 def test_what_the_cuda_path_does_not_cover_is_refused():
     """The plane with the SE(3) or quaternion warp, or with the Nerfies
     encoding, is ported; with heads other than rgb 3 + alpha 1 it is refused
-    with its ROADMAP item (A.9); the kernels' checks refuse a plane template
+    with its ROADMAP item (B.3); the kernels' checks refuse a plane template
     of other widths (A.13)."""
     for override in (dict(warp_field_type='se3', rgb_channels=4),
                      dict(warp_field_type='quaternion', alpha_channels=2),
                      dict(use_original_embed=False, rgb_channels=4)):
-        with pytest.raises(NotImplementedError, match='A.9'):
+        with pytest.raises(NotImplementedError, match='B.3'):
             NerfModel(port_configs.NerfConfig(**ARCH, **PLANE, **override))
     small = _port_model().template_of('fine')
     with pytest.raises(NotImplementedError, match='A.13'):

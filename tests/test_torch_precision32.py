@@ -4,13 +4,13 @@ what runs them and what is still refused, checked on the CPU.
 
 - The gate: the float32 flagship level (translation warp, bendy sheet,
   posenc_orig template, a 39-column rgb condition) is admitted; so are,
-  since sub-item 3's first half, the sheet tables' Nerfies layout with its
-  window row, the conditions' widths and a field alone's window row, each
-  run as on the card through its float32 entry points against a recording
-  library (refused before); the plane tables, other widths, and rows 14 to
-  17 raise NotImplementedError naming A.13.1's sub-item, before any
-  library is needed (``common.runs_plain`` rebound as the card would take
-  it). The per-module rows at float32 (8, 10, 11) are
+  since sub-item 3, the sheet tables' Nerfies layout with its window row,
+  the conditions' widths, a field alone's window row and the plane tables,
+  each run as on the card through its float32 entry points against a
+  recording library (refused before); other widths and rows 14 to 17
+  raise NotImplementedError naming A.13 (and A.13.1's sub-item 4), before
+  any library is needed (``common.runs_plain`` rebound as the card would
+  take it). The per-module rows at float32 (8, 10, 11) are
   ``tests/test_torch_precision32_modular.py``'s, the screw warps' (rows 1
   and 5 at table codes 1 and 2, rows 12 and 13)
   ``tests/test_torch_precision32_screw.py``'s, the Nerfies layout's and
@@ -191,11 +191,6 @@ def _refusals():
             K_se3_jac.fused_se3_wv_tangents(field, x11)
 
     return [
-        ('plane level (code 3)', level_call('plane'), 3),
-        ('plane_se3 level (code 4)', level_call('plane_se3'), 3),
-        ('B.4 plane_anneal', level_of('plane_anneal'), 3),
-        ('plane template alone (row 8, return_points)',
-         template_alone('plane'), 3),
         ('rows 14, 15, the translation Jacobian',
          lambda: K_jac._launch_args(_model().warp_field.mlp, 10, x11), 4),
         ('rows 16, 17, the trunk\'s tangents', se3_tangents, 4),
@@ -232,9 +227,10 @@ def recording(monkeypatch):
 
 def _admissions():
     """(label, call run as on the card, the float32 entry point it must
-    reach): what A.13.1 sub-item 3's first half ported (the sheet tables'
-    Nerfies layout and window row, the conditions' widths, a field alone's
-    window row), each refused before it."""
+    reach): what A.13.1 sub-item 3 ported (the sheet tables' Nerfies
+    layout and window row, the conditions' widths, a field alone's window
+    row; then the plane tables, codes 3 to 8, and their template alone),
+    each refused before it."""
     x11 = torch.from_numpy(np.random.RandomState(11).randn(4, 11).astype(
         np.float32))
 
@@ -251,7 +247,8 @@ def _admissions():
                 alpha_cond=alpha)
             K_mlp.fused_template_bwd(level, raw_t, args[4],
                                      torch.zeros(16, 4), row, alpha)
-            K_level.fused_fields_bwd(level, *args[:4], torch.zeros(16, 8))
+            K_level.fused_fields_bwd(level, *args[:4], torch.zeros(
+                16, K_mlp.raw_pad(level)))
         return call
 
     def template_alone(config):
@@ -282,6 +279,12 @@ def _admissions():
          template_alone('anneal'), 'hn_f32_template_fwd'),
         ('a field alone with a window row (rows 10, 11)',
          field_alone_windowed, 'hn_f32_field_fwd'),
+        ('plane level (code 3)', level_call('plane'), 'hn_f32_plane_rows'),
+        ('plane_se3 level (code 4)', level_call('plane_se3'),
+         'hn_f32_plane_rows'),
+        ('B.4 plane_anneal', level_call('plane_anneal'), 'hn_f32_level_fwd'),
+        ('plane template alone (row 8, return_points)',
+         template_alone('plane'), 'hn_f32_template_fwd'),
     ]
 
 
@@ -481,20 +484,28 @@ def test_float32_kernels_shared_memory_fits():
     assert rows_cols('Wide') == (f32.TILE_ROWS, f32.WIDE_COLS)
     assert rows_cols('Narrow') == (f32.TILE_ROWS, f32.WIDE_COLS // 2)
     assert rows_cols('Step') == (f32.STEP_ROWS, f32.STEP_COLS)
-    assert ('return xf * kRows + 2 * hf * kRows + 2 * wtile + (3 + 8 + 8 + '
+    assert ('return xf * kRows + 2 * hf * kRows + 2 * wtile + (3 + raw + 8 + '
             '1) * kRows + kRows;') in level
+    assert 'int smem_floats(int xf, int hf, int wtile, int raw = kRaw)' in level
     assert ('kSmemBytes = 4 * smem_floats(kTmplEnc, 256, Wide::kWTile);'
             in level)
     assert ('kFieldSmemBytes = 4 * smem_floats(kWarpEnc, 128, '
             'Narrow::kWTile);' in level)
     rows, depth = f32.TILE_ROWS, f32.DEPTH
 
-    def smem(xf, hf, wtile):
+    def smem(xf, hf, wtile, raw=8):
         return 4 * (xf * rows + 2 * hf * rows + 2 * wtile
-                    + (3 + 8 + 8 + 1) * rows + rows)
+                    + (3 + raw + 8 + 1) * rows + rows)
 
     assert smem(const['kTmplEnc'], 256, depth * f32.WIDE_COLS) == \
         f32.LEVEL_SMEM_BYTES == 201984
+    # A plane table's carve: X of the posenc_orig plane layout's 192
+    # features and 16 raw rows, one block an SM.
+    assert smem(const['kPlaneEnc'], 256, depth * f32.WIDE_COLS,
+                const['kPlaneRaw']) == f32.PLANE_SMEM_BYTES == 220416
+    assert ('kPlaneSmemBytes = 4 * smem_floats(kPlaneEnc, 256, '
+            'Wide::kWTile, kPlaneRaw);') in level
+    assert 'static_assert(kPlaneSmemBytes <= 232448' in level
     assert smem(const['kWarpEnc'], 128, depth * f32.WIDE_COLS // 2) == \
         f32.FIELD_SMEM_BYTES == 107776
     assert ('kTrunkSmemBytes = 4 * smem_floats(kSe3EncP, kSe3W, '
@@ -694,22 +705,35 @@ class _RecordingLibrary:
     def __init__(self):
         self.calls = []
 
-    def hn_f32_level_layout(self, n, k, count):
-        return self._table('kShapeN', 'kShapeK', 'kLayers', n, k)
-
-    def hn_f32_trunk_layout(self, n, k, count):
-        return self._table('kTrunkN', 'kTrunkK', 'kTrunkLayers', n, k)
+    def hn_f32_table_layout(self, code, n, k, count):
+        """Table code ``code``'s layers as the C source lays them out: the
+        warp's (the flagship table's rows 0..6, or the trunk's), the
+        sheet's 7..13 on the sheet tables (codes 0 to 2), the template's
+        14..29, its first layer and skip on kPlaneEnc encoding columns in
+        the posenc_orig plane layout (codes 3 to 5)."""
+        flag = self._rows('kShapeN', 'kShapeK', 'kLayers')
+        enc = (int(re.search(r'kPlaneEnc = (\d+)', _source(
+            'f32_level.cu')).group(1)) if 3 <= code < 6 else 128)
+        rows = ((self._rows('kTrunkN', 'kTrunkK', 'kTrunkLayers')
+                 if code % 3 else flag[:7]) + (flag[7:14] if code < 3 else [])
+                + [(a, c - 128 + enc if l in (14, 19) else c)
+                   for l, (a, c) in enumerate(flag) if l >= 14])
+        return self._write(rows, n, k)
 
     @staticmethod
-    def _table(n_name, k_name, size, n, k):
+    def _rows(n_name, k_name, size):
         src = _source('f32_level.cu')
         table = [[int(v) for v in re.search(
             name + r'\[' + size + r'\] = \{([\d, ]+)\}', src).group(
                 1).split(',')] for name in (n_name, k_name)]
-        for i, (a, c) in enumerate(zip(*table)):
+        return list(zip(*table))
+
+    @staticmethod
+    def _write(rows, n, k):
+        for i, (a, c) in enumerate(rows):
             ctypes.c_int.from_address(n + 4 * i).value = a
             ctypes.c_int.from_address(k + 4 * i).value = c
-        return len(table[0])
+        return len(rows)
 
     def __getattr__(self, name):
         def call(*args):

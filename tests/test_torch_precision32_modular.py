@@ -8,10 +8,13 @@ the CPU.
   template alone in the Nerfies layout or with the conditions' widths and
   a field alone backward with a window row, which run as on the card
   through their float32 entry points (refused before; their steps and
-  numbers are ``tests/test_torch_precision32_nerfies.py``'s); the plane
-  layout still raises NotImplementedError naming A.13.1's sub-item 3
-  before any library is needed (the screw warps' trunk, ``split_glo`` with
-  them included, is admitted: ``tests/test_torch_precision32_screw.py``).
+  numbers are ``tests/test_torch_precision32_nerfies.py``'s), and since
+  sub-item 3's second half the template alone in the plane layouts (raw
+  rows of 16 columns; its numbers are
+  ``tests/test_torch_precision32_plane.py``'s); the Jacobians still raise
+  NotImplementedError naming A.13.1's sub-item 4 before any library is
+  needed (the screw warps' trunk, ``split_glo`` with them included, is
+  admitted: ``tests/test_torch_precision32_screw.py``).
 - The launches: each wrapper, run as on the card against a recording
   library, passes its C entry point (``hn_f32_template_fwd``,
   ``hn_f32_field_fwd``, the steps of ``f32_steps.cu``) as many arguments of
@@ -75,6 +78,7 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.dirname(
 import make_level_reference  # noqa: E402
 
 K_field = importlib.import_module('hypernerf_tpu_torch.kernels.fused_field')
+K_jac = importlib.import_module('hypernerf_tpu_torch.kernels.fused_jacobian')
 F32 = dict(compute_dtype='float32')
 TOL = 1e-5
 CONFIGS = {'flagship': {},
@@ -159,7 +163,9 @@ def _refusals():
         return call
 
     return [
-        ('plane return_points (its template)', template_alone('plane'), 3),
+        ('rows 14, 15 (the translation Jacobian)',
+         lambda: K_jac._launch_args(flagship_model(
+             'cpu', **F32).warp_field.mlp, 10, x11), 4),
     ]
 
 
@@ -167,20 +173,21 @@ def _refusals():
                          ids=[r[0].split(' (')[0] for r in _refusals()])
 def test_gate_refuses_what_is_left(label, call, item):
     """What float32 still lacks on the per-module path raises naming
-    A.13.1's sub-item 3 (the plane tables' layouts), and nothing falls
-    back to a plain version."""
+    A.13.1's sub-item 4 (the Jacobians), and nothing falls back to a plain
+    version."""
     with pytest.raises(NotImplementedError,
                        match=f'A.13.1 sub-item {item}') as e:
         call()
     assert 'sub-item 1' not in str(e.value)
     assert 'sub-item 2' not in str(e.value)
-    assert 1 not in common.F32_ITEMS and 2 not in common.F32_ITEMS
+    assert 'sub-item 3' not in str(e.value)
+    assert set(common.F32_ITEMS) == {4}
 
 
 def _admissions():
     """(label, call run as on the card, the float32 entry point it must
-    reach): the per-module rows sub-item 3's first half ported, each
-    refused before."""
+    reach): the per-module rows sub-item 3 ported (its first half's, then
+    the template alone in the plane layouts), each refused before."""
     x11 = torch.zeros(4, 11)
 
     def template_alone(config, **over):
@@ -211,6 +218,10 @@ def _admissions():
          'hn_f32_template_fwd'),
         ('a field alone backward with a window row', windowed_field,
          'hn_f32_tmpl_posenc_bwd'),
+        ('plane return_points (its template)', template_alone('plane'),
+         'hn_f32_template_fwd'),
+        ('plane_anneal template alone (the Nerfies plane layout)',
+         template_alone('plane_anneal'), 'hn_f32_template_fwd'),
     ]
 
 
@@ -218,9 +229,10 @@ def _admissions():
 @pytest.mark.parametrize('label,call,entry', _admissions(),
                          ids=[r[0].split(' (')[0] for r in _admissions()])
 def test_gate_admits_what_sub_item_3_ported(label, call, entry, recording):
-    """The per-module rows sub-item 3's first half ported (the template
-    alone in the Nerfies layout or with the conditions' widths, a field
-    alone backward with a window row) run as on the card: their float32
+    """The per-module rows sub-item 3 ported (the template alone in the
+    Nerfies layout or with the conditions' widths, a field alone backward
+    with a window row, the template alone in the plane layouts) run as on
+    the card: their float32
     entry points, each with its signature's arguments, the entry named
     reached, the window row's pointer given where there is one."""
     with as_on_the_card():
@@ -331,8 +343,9 @@ def test_new_kernels_in_the_sources():
         params = decl.group(1).split(',')
         assert len(params) == len(build._SIGNATURES[name][0]), name
         assert 'cudaStream_t' in params[-1]
-    assert ('template_fwd_f32<<<tiles_of(rows), kThreads, kSmemBytes, '
+    assert ('template_fwd_f32<<<tiles_of(rows), kThreads, carve_bytes(c), '
             'stream>>>') in level
+    assert 'allow_smem(template_fwd_f32, kPlaneSmemBytes, ready)' in level
     assert ('field_fwd_f32<<<tiles_of(rows), kThreads, kFieldSmemBytes, '
             'stream>>>') in level
     assert max(f32.LEVEL_SMEM_BYTES, f32.FIELD_SMEM_BYTES) <= f32.SMEM_LIMIT

@@ -7,9 +7,10 @@ embedding alone, none), the template alone (row 8) in the same layouts and
 conditions, and a field alone with a window row (rows 10 and 11), checked
 on the CPU.
 
-- The gate: each of those configurations is admitted at both levels; the
-  plane tables (table codes 3 to 8) still name sub-item 3, the Jacobians
-  sub-item 4, before any library is needed.
+- The gate: each of those configurations is admitted at both levels, and
+  since sub-item 3's second half so are the plane tables (table codes 3 to
+  8; their numbers are ``tests/test_torch_precision32_plane.py``'s); the
+  Jacobians still name sub-item 4, before any library is needed.
 - The launches: each wrapper, run as on the card against a recording
   library, passes its C entry point as many arguments of the kinds
   ``build``'s ctypes signature declares, the window row's pointer where
@@ -205,11 +206,6 @@ def _refusals():
         return call
 
     return [
-        ('plane (code 3)', level_of('plane'), 3),
-        ('plane_anneal (code 6)', level_of('plane_anneal'), 3),
-        ('plane_anneal_se3 (code 7)', level_of('plane_anneal_se3'), 3),
-        ('the Nerfies plane template alone', template_alone('plane_anneal'),
-         3),
         ('rows 14, 15', lambda: K_jac._launch_args(
             flagship_model('cpu', **F32).warp_field.mlp, 10, x11), 4),
     ]
@@ -217,17 +213,49 @@ def _refusals():
 
 @pytest.mark.parametrize('label,call,item', _refusals(),
                          ids=[r[0].split(' (')[0] for r in _refusals()])
-def test_gate_still_refuses_the_plane_tables_and_the_jacobians(label, call,
-                                                                item):
-    """What float32 still lacks names sub-item 3, now the plane tables
-    alone, or 4, never a ported sub-item; nothing falls back to plain."""
+def test_gate_still_refuses_the_jacobians(label, call, item):
+    """What float32 still lacks names sub-item 4, never a ported sub-item
+    (3, the plane tables, is gone from ``common.F32_ITEMS``); nothing falls
+    back to plain."""
     with pytest.raises(NotImplementedError,
                        match=f'A.13.1 sub-item {item}') as e:
         call()
-    assert common.F32_ITEMS[3] == 'the plane tables (table codes 3 to 8)'
-    if item == 3:
-        assert 'plane tables' in str(e.value)
+    assert set(common.F32_ITEMS) == {4}
     assert 'Nerfies one with its window row' in str(e.value)
+    assert 'table codes 0 to 8' in str(e.value)
+
+
+@torch.no_grad()
+@pytest.mark.parametrize('config', ['plane', 'plane_anneal',
+                                    'plane_anneal_se3',
+                                    'the Nerfies plane template alone'])
+def test_gate_admits_the_plane_tables(config, recording):
+    """The plane cases this file refused before sub-item 3's second half:
+    both levels of ``plane`` (code 3), ``plane_anneal`` (6) and
+    ``plane_anneal_se3`` (7) pass the float32 gates, their fp32 blobs the
+    compiled plane table of their code; the Nerfies plane template alone
+    runs as on the card with its 8 hyper coordinates and its window row."""
+    if config.startswith('the '):
+        tmpl = flagship_model('cpu', config='plane_anneal',
+                              **F32).template_of('fine')
+        with as_on_the_card():
+            K_mlp.fused_template(tmpl, torch.zeros(16, 16),
+                                 torch.zeros(2, K_mlp.cond_width(tmpl)),
+                                 K_mlp.template_scales(tmpl, *ALPHAS))
+        _check_signatures(recording.calls)
+        name, a = recording.calls[-1]
+        assert name == 'hn_f32_template_fwd' and a[1:3] == (16, 8)
+        assert a[5] is not None
+        return
+    model = flagship_model('cpu', config=config, **F32)
+    for level_name in ('coarse', 'fine'):
+        level = model.level(level_name)
+        _check_covered(level)
+        K_mlp.check_f32_covered(level)
+        f32.check_layout(pack_level_f32(level)[2],
+                         warp=K_level.level_table(level))
+        assert common.TABLE_CODES[K_level.level_table(level)] == {
+            'plane': 3, 'plane_anneal': 6, 'plane_anneal_se3': 7}[config]
 
 
 # ---------------------------------------------------------------------------
@@ -360,8 +388,8 @@ def test_new_arguments_in_the_sources():
             assert len(params) == len(build._SIGNATURES[name][0]), name
             assert 'cudaStream_t' in params[-1]
     assert len(re.findall(r'__global__ void', level)) == 4
-    assert 'encode_template(s, kSheetOut, a.tmpl_scales);' in level
-    assert 'encode_template(s, a.hyper, a.scales);' in level
+    assert 'encode_template(s, hyper, a.tmpl_scales, c.xf);' in level
+    assert 'encode_template(s, a.hyper, a.scales, c.xf);' in level
     assert level.count('template_stage(a.net, s, a.cond, a.cond_w, a.alpha, '
                        'a.alpha_w);') == 2
     assert f32.LEVEL_SMEM_BYTES == 201984

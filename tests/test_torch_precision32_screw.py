@@ -172,7 +172,7 @@ def test_gate_admits_the_screw_warps(probes, monkeypatch):
             dtype=torch.float32)
         f32.check_layout(shapes, common.SE3_LAYERS, 'se3')
     assert 2 not in common.F32_ITEMS
-    assert 'SE(3)' in common.f32_refusal(3, 'x')
+    assert 'SE(3)' in common.f32_refusal(4, 'x')
 
 
 def _refusals():
@@ -191,8 +191,6 @@ def _refusals():
         return call
 
     return [
-        ('plane_se3 (no sheet)', level_of('plane_se3'), 3),
-        ('plane_quaternion', level_of('plane_quaternion'), 3),
         ('elastic_se3 (rows 16, 17)', tangents('elastic_se3'), 4),
         ('elastic_quaternion', tangents('elastic_quaternion'), 4),
     ]
@@ -202,12 +200,45 @@ def _refusals():
                          ids=[r[0].split(' (')[0] for r in _refusals()])
 def test_gate_refuses_what_is_left(label, call, item):
     """What float32 still lacks with a screw warp raises naming A.13.1's
-    sub-item 3 (layouts) or 4 (Jacobians), never the ported 2, and nothing
-    falls back to a plain version."""
+    sub-item 4 (the Jacobians), never the ported 2 or 3, and nothing falls
+    back to a plain version."""
     with pytest.raises(NotImplementedError,
                        match=f'A.13.1 sub-item {item}') as e:
         call()
     assert 'sub-item 2' not in str(e.value)
+    assert 'sub-item 3' not in str(e.value)
+
+
+@torch.no_grad()
+@pytest.mark.parametrize('config', ['plane_se3', 'plane_quaternion'])
+def test_gate_admits_the_plane_screw_levels(config, recording):
+    """The screw levels without a sheet (the plane tables' codes 4 and 5),
+    refused before sub-item 3's second half: both levels pass the gate, and
+    the fine level's forward with the trunk's window row and its two
+    backwards run as on the card: the plane table's code, raw_t of 16
+    columns, kernel B's trunk steps with the retraction's VJP of that warp
+    and the plane rows (no sheet step)."""
+    model = flagship_model('cpu', config=config, **F32)
+    for name in ('coarse', 'fine'):
+        _check_covered(model.level(name))
+    level = model.level('fine')
+    row = _scales(level.warp, WINDOW)[0]
+    args = _rays(cond=K_mlp.cond_width(level))
+    with as_on_the_card():
+        _, raw_t = K_level._launch_forward(level, *args, want_raw_t=True,
+                                           warp_scales=row)
+        K_mlp.fused_template_bwd(level, raw_t, args[4], torch.zeros(16, 4))
+        K_level.fused_fields_bwd(level, *args[:4], torch.zeros(16, 16), row)
+    _check_signatures(recording.calls)
+    assert raw_t.shape == (16, 16)
+    fwd = dict(recording.calls)['hn_f32_level_fwd']
+    code = common.TABLE_CODES[config]
+    assert fwd[8] == code and fwd[9] is not None and fwd[10] is None
+    assert [a[0] for n, a in recording.calls
+            if n == 'hn_f32_retract_bwd'] == [code - 4]
+    assert [a[0] for n, a in recording.calls
+            if n == 'hn_f32_plane_rows'] == [1]
+    assert 'hn_f32_screw_rows' not in dict(recording.calls)
 
 
 @torch.no_grad()
@@ -325,7 +356,7 @@ def test_new_entries_in_the_sources():
     instantiation; the trunk alone launches with its own shared memory."""
     level, steps = _source('f32_level.cu'), _source('f32_steps.cu')
     for src, names in ((level, ('hn_f32_level_fwd', 'hn_f32_trunk_fwd',
-                                'hn_f32_trunk_layout')),
+                                'hn_f32_table_layout')),
                        (steps, ('hn_f32_trunk_encode',
                                 'hn_f32_trunk_posenc_bwd',
                                 'hn_f32_retract_bwd', 'hn_f32_screw_rows'))):

@@ -235,7 +235,7 @@ def test_model_builds_the_field_the_configuration_names():
         assert not full.warp_field.w_net.logit.bias.any()
         assert compute_extra_params(flagship_config(kind),
                                     port_configs.TrainConfig(), 5) == {}
-    with pytest.raises(NotImplementedError, match='A.9'):
+    with pytest.raises(NotImplementedError, match='B.3'):
         NerfModel(port_configs.NerfConfig(**{**_arch('se3', 'level'),
                                              'use_original_embed': False,
                                              'rgb_channels': 4}))

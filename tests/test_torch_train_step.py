@@ -272,7 +272,7 @@ def test_unported_training_options_name_their_roadmap_item():
     # The elastic and background losses are ported (A.11), and so are the
     # annealing schedule of the Nerfies encoding, with the SE(3) warp too,
     # and the use_nerf_embed conditions; heads other than rgb 3 + alpha 1
-    # are not (A.9), with the anneal family's SE(3) warp or without.
+    # are not (B.3), with the anneal family's SE(3) warp or without.
     # Training on more than one device is ported (A.12): the entry point
     # refuses more ranks than cards, and a batch the ranks do not divide.
     anneal = port_configs.NerfConfig(**ARCH, use_original_embed=False)
@@ -282,7 +282,7 @@ def test_unported_training_options_name_their_roadmap_item():
                     rgb_channels=4),
                dict(use_nerf_embed=True, use_rgb_condition=True,
                     rgb_channels=4)):
-        with pytest.raises(NotImplementedError, match='A.9'):
+        with pytest.raises(NotImplementedError, match='B.3'):
             NerfModel(port_configs.NerfConfig(**ARCH, **kw))
     from hypernerf_tpu_torch import train
     with pytest.MonkeyPatch.context() as mp:

@@ -17,8 +17,9 @@ kernels on a card that has no JAX.
       [--f32_modular_out tests/data/fused_f32_modular_jax_ref.npz] \
       [--f32_screw_out tests/data/fused_f32_screw_jax_ref.npz] \
       [--f32_nerfies_out tests/data/fused_f32_nerfies_jax_ref.npz] \
+      [--f32_plane_out tests/data/fused_f32_plane_jax_ref.npz] \
       [--only se3|jacobian|anneal|plane|conditions|b4|f32|f32_modular|
-              f32_screw|f32_nerfies]
+              f32_screw|f32_nerfies|f32_plane]
 
 The weights are ``hypernerf_tpu_torch.flagship.load_probe_weights`` (numpy,
 seed 0), which the card redraws bit for bit; the inputs
@@ -138,6 +139,17 @@ bias and the weights of ``f32_nerfies_grad_layers``.
 ``tests/test_torch_precision32_nerfies.py`` recomputes one case and holds
 the plain float32 versions to it; ``chip_smoke.py`` phase 36 holds rows
 1, 8, 9, 10 and 11 to it. ``--only f32_nerfies`` writes that file alone.
+
+``tests/data/fused_f32_plane_jax_ref.npz`` holds the JAX level and
+template kernels at ``compute_dtype='float32'`` on the plane tables
+(``flagship.F32_PLANE_LEVEL_CASES``: the level's outputs at table codes 3
+to 8 and its gradients at codes 3 and 6; ``F32_PLANE_TEMPLATE_CASES``: the
+template alone in each plane layout, outputs and gradients), at the alphas
+of ``flagship.ANNEAL_PROBE_STEP``, full width: dW of
+``f32_plane_grad_layers`` and every bias.
+``tests/test_torch_precision32_plane.py`` recomputes one case and holds
+the plain float32 versions to it; ``chip_smoke.py`` phase 37 holds rows
+1, 5, 8 and 9 to it. ``--only f32_plane`` writes that file alone.
 """
 
 from __future__ import annotations
@@ -618,7 +630,8 @@ def jax_anneal_template(model, level: str, inputs,
 def jax_template(model, level: str, inputs, tmpl_alphas=(None, None),
                  jit: bool = True) -> dict:
     """The JAX template kernel's numbers (``fused_nerf_mlp``, interpret
-    mode) in the model's layout with 4 hyper coordinates: posenc_orig, or
+    mode) in the model's layout with 4 hyper coordinates (the plane
+    layouts' 8 with axis_aligned_plane slicing): posenc_orig, or
     the windowed Nerfies encoding at ``tmpl_alphas`` (nerf_alpha,
     hyper_alpha); the rgb condition of ``inputs`` and its 'alpha_cond'
     where it has one. 'out' (P, 4), and for sum(out * cotangent) 'dx' (P,
@@ -637,7 +650,8 @@ def jax_template(model, level: str, inputs, tmpl_alphas=(None, None),
 
     cfg = model.config
     params = params_to_jax(model.state_dict())
-    hyper = cfg.hyper_slice_out_dim
+    hyper = (cfg.glo_dim if cfg.hyper_slice_method == 'axis_aligned_plane'
+             else cfg.hyper_slice_out_dim)
     nerfies = not cfg.use_original_embed
     if nerfies:
         segments = ((3, cfg.spatial_point_max_deg - cfg.spatial_point_min_deg,
@@ -1052,6 +1066,58 @@ def f32_nerfies_reference() -> dict:
     return arrays
 
 
+def f32_plane_case(case: str, model=None) -> dict:
+    """The JAX kernels' numbers of one F32_PLANE case at float32 (every dW,
+    a level's gradients where its case keeps them; ``model``: its
+    ``flagship.f32_plane_model``, made when None)."""
+    from hypernerf_tpu_torch.flagship import (F32_PLANE_LEVEL_CASES,
+                                              F32_PLANE_TEMPLATE_CASES,
+                                              f32_plane_extra,
+                                              f32_plane_model,
+                                              f32_plane_probe_inputs)
+    model = model or f32_plane_model(case)
+    inputs = f32_plane_probe_inputs(case, model)
+    ep = f32_plane_extra(case)
+    nerfies = not model.config.use_original_embed
+    alphas = ((ep.get('nerf_alpha'), ep.get('hyper_alpha')) if nerfies
+              else (None, None))
+    if case in F32_PLANE_TEMPLATE_CASES:
+        return jax_template(model, F32_PLANE_TEMPLATE_CASES[case][1], inputs,
+                            alphas)
+    _, level, *_, grads = F32_PLANE_LEVEL_CASES[case]
+    rays = {k: v for k, v in inputs.items() if k != 'cotangent'}
+    screw = model.config.warp_field_type != 'translation'
+    warp_alpha = ep.get('warp_alpha') if screw else None
+    if not grads:
+        return {'out': jax_level(model, level, rays, warp_alpha, alphas)}
+    return jax_level_vjp(model, level, rays, inputs['cotangent'], warp_alpha,
+                         alphas)
+
+
+def f32_plane_reference() -> dict:
+    """Every array of the float32 plane-table file: each case's inputs and
+    the JAX kernels' numbers at float32 (dW of ``f32_plane_grad_layers``
+    alone)."""
+    from hypernerf_tpu_torch.flagship import (F32_PLANE_LEVEL_CASES,
+                                              F32_PLANE_TEMPLATE_CASES,
+                                              f32_plane_grad_layers,
+                                              f32_plane_model,
+                                              f32_plane_probe_inputs)
+    arrays = {}
+    for case in (*F32_PLANE_LEVEL_CASES, *F32_PLANE_TEMPLATE_CASES):
+        model = f32_plane_model(case)
+        inputs = f32_plane_probe_inputs(case, model)
+        if case in F32_PLANE_LEVEL_CASES and not F32_PLANE_LEVEL_CASES[
+                case][-1]:
+            del inputs['cotangent']
+        arrays.update({f'{case}/{k}': v for k, v in inputs.items()})
+        for k, v in f32_plane_case(case, model).items():
+            if not k.startswith('dw') or int(k[2:]) in \
+                    f32_plane_grad_layers(case):
+                arrays[f'{case}/{k}'] = v
+    return arrays
+
+
 def jacobian_reference() -> dict:
     """Every array of the Jacobian file: each case's inputs and numbers."""
     from hypernerf_tpu_torch.flagship import (JACOBIAN_CASES, flagship_model,
@@ -1136,6 +1202,7 @@ def main():
                                               F32_MODULAR_REFERENCE,
                                               F32_SCREW_REFERENCE,
                                               F32_NERFIES_REFERENCE,
+                                              F32_PLANE_REFERENCE,
                                               GRAD_REFERENCE,
                                               LEVEL_REFERENCE,
                                               PLANE_REFERENCE,
@@ -1158,15 +1225,17 @@ def main():
     parser.add_argument('--f32_modular_out', default=F32_MODULAR_REFERENCE)
     parser.add_argument('--f32_screw_out', default=F32_SCREW_REFERENCE)
     parser.add_argument('--f32_nerfies_out', default=F32_NERFIES_REFERENCE)
+    parser.add_argument('--f32_plane_out', default=F32_PLANE_REFERENCE)
     parser.add_argument('--only', choices=('se3', 'jacobian', 'anneal',
                                            'plane', 'conditions', 'b4',
                                            'f32', 'f32_modular',
-                                           'f32_screw', 'f32_nerfies'),
+                                           'f32_screw', 'f32_nerfies',
+                                           'f32_plane'),
                         default=None, help='write the SE(3), the Jacobian, '
                         'the anneal, the plane, the conditions, the B.4, '
                         'the float32, the float32 per-module, the float32 '
-                        'screw-warp or the float32 Nerfies-layout file '
-                        'alone')
+                        'screw-warp, the float32 Nerfies-layout or the '
+                        'float32 plane-table file alone')
     args = parser.parse_args()
     os.makedirs(os.path.dirname(os.path.abspath(args.se3_out)), exist_ok=True)
     if args.only in (None, 'f32'):
@@ -1181,6 +1250,9 @@ def main():
     if args.only in (None, 'f32_nerfies'):
         np.savez_compressed(args.f32_nerfies_out, **f32_nerfies_reference())
         print(args.f32_nerfies_out)
+    if args.only in (None, 'f32_plane'):
+        np.savez_compressed(args.f32_plane_out, **f32_plane_reference())
+        print(args.f32_plane_out)
     if args.only in (None, 'b4'):
         np.savez_compressed(args.b4_out, **b4_reference())
         print(args.b4_out)

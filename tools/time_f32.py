@@ -11,7 +11,9 @@ warps' rows, 1 and 5 on the ``se3`` level with the window row at R x S,
 rows), and rows 1 and 9 in the Nerfies layout (``anneal`` with the
 template's window row at the alphas of ``flagship.ANNEAL_PROBE_STEP``) and
 with the ``nerf_embed`` conditions (47 rgb columns, the alpha condition) at
-R x S:
+R x S, and the plane tables' rows: 1 at table codes 3 (``plane``) and 6
+(``plane_anneal``, its window row), 9 and 5 at code 3, all at R x S, and
+8 in the posenc_orig plane layout at 8192 x 128 rows:
 
   python3 tools/time_f32.py [--rays 16384] [--samples 128] [--parent DIR]
 
@@ -252,6 +254,30 @@ def main() -> int:
                       (f'row 9 {config}', lambda nv=nv, raw=n_raw, a=n_args,
                        ts=ts, al=alpha: fused_template_bwd(
                            nv, raw, a[4], g, ts, al)))
+        for config in ('plane', 'plane_anneal'):
+            pm = load_probe_weights(flagship_model(
+                'cuda', config=config, compute_dtype='float32'))
+            pv = pm.level('fine')
+            p_args = cs.f32_nerfies_level_inputs(pm, r, s, 11,
+                                                 extra['nerf_alpha'])[0]
+            ts = cs.f32_nerfies_windows(pv, extra)[1]
+            calls += ((f'row 1 {config}', lambda pv=pv, a=p_args, ts=ts:
+                       fused_level(pv, *a, tmpl_scales=ts)),)
+            if config != 'plane':
+                continue
+            p_raw = _launch_forward(pv, *p_args, want_raw_t=True)[1]
+            p_dx = fused_template_bwd(pv, p_raw, p_args[4], g)[0]
+            px, pcond = cs.f32_plane_template_rows(pm, 8192 * 128, 128, 12,
+                                                   None)
+            calls += (('row 9 plane (a 176-column encoding stash)',
+                       lambda pv=pv, raw=p_raw, a=p_args: fused_template_bwd(
+                           pv, raw, a[4], g)),
+                      ('row 5 plane (no sheet)',
+                       lambda pv=pv, a=p_args, dx=p_dx: fused_fields_bwd(
+                           pv, *a[:4], dx)),
+                      ('row 8 plane (8192 x 128, x_raw of 16 columns)',
+                       lambda pv=pv, x=px, c=pcond: fused_template(pv, x,
+                                                                   c)))
         for _, fn in calls:  # warm up
             fn()
         for label, fn in calls:
