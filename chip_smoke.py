@@ -192,7 +192,7 @@ Phases, one line each; any failure ends the run with a non-zero exit:
      16 steps from the first), its time without the refresh and amortised
      over 16 steps, a 1024-ray step through the grid against the plain
      versions;
- 24. the kernels' JSON line, then the result line (after phase 37);
+ 24. the kernels' JSON line, then the result line (after phase 38);
  25. the trainer and its entry point: ``tools/make_synthetic_scene.py``
      writes an 8-frame 160x120 scene into a temporary directory (never the
      repo), where ``hypernerf_tpu_torch.train.main(argv)`` trains the
@@ -305,8 +305,8 @@ Phases, one line each; any failure ends the run with a non-zero exit:
      (row 1 in float32) and train step with the refresh (rows 8 and 10)
      inside the window; (d) ``train.main --precision 32`` with
      ``--share_GLO False`` and with ``--use_occupancy_grid True``; (e)
-     float32 ``elastic_se3`` (its warp Jacobian) refused on the card
-     naming A.13.1's sub-item 4;
+     a float32 band flag of A.13.2 (``xyz_freq`` 8) refused on the card
+     naming ROADMAP A.13 (no plain fallback);
  35. the screw warps at ``--precision 32`` (ROADMAP A.13.1 sub-item 2),
      TF32 off: (a) the float32 level forward with the SE(3) warp and the
      window row (R = 16384, S = 128) and the quaternion warp (R = 8192, S =
@@ -335,9 +335,9 @@ Phases, one line each; any failure ends the run with a non-zero exit:
      same rows without; (c) with their launches counted and no plain call:
      an ``anneal_se3`` frame and 64 + 128 train step, a ``nerf_embed``
      step, ``query_sigma`` on ``anneal_se3``, ``train.main --precision 32
-     --use_nerfies_embed --warp_field se3`` and ``eval``; (d) the
-     Jacobians (``elastic_quaternion``) refused on the card, naming
-     sub-item 4;
+     --use_nerfies_embed --warp_field se3`` and ``eval``; (d) a float32
+     band flag of A.13.2 (``hyper_freq`` 4) refused on the card, naming
+     ROADMAP A.13;
  37. the plane tables at ``--precision 32`` (ROADMAP A.13.1 sub-item 3,
      second half), TF32 off: (a) the float32 level forward at every plane
      table code (3 to 8: ``plane``, ``plane_se3``, ``plane_quaternion``,
@@ -358,7 +358,24 @@ Phases, one line each; any failure ends the run with a non-zero exit:
      ``plane_anneal_se3`` (from step 3750), each with a 1024-ray step
      against the plain versions, ``query_sigma`` on ``plane``; (d)
      ``train.main --precision 32 --slice_method axis_aligned_plane
-     --use_nerfies_embed --warp_field se3`` and ``eval`` of its checkpoint.
+     --use_nerfies_embed --warp_field se3`` and ``eval`` of its checkpoint;
+ 38. the Jacobians at ``--precision 32`` (ROADMAP A.13.1 sub-item 4), TF32
+     off: (a) rows 14 to 17 in float32 (the translation warp's J and its
+     backward; the SE(3) trunk's (w, v) with their point-tangents and
+     their backward, the window row off and on) against their float32
+     plain versions at 1001 and 262,144 points (the train step's: 16
+     Jacobian samples a ray at batch 16384; relative L2 1e-4, max|d| 1e-3
+     of the largest entry, per output), timed at 262,144 points with their
+     share of both ceilings; (b) against the JAX kernels' stored float32
+     numbers (tests/data/fused_f32_jacobian_jax_ref.npz, through the
+     autograd Functions, J of both retractions); (c) with their launches
+     counted and no plain call: the 64 + 128 train steps of ``elastic``,
+     ``elastic_se3`` and ``elastic_quaternion`` (weight 0.01, K = 16) and
+     of ``elastic_se3`` with the Nerfies encoding from step 3750 (its
+     window rows live), each with a 1024-ray step against the plain
+     versions; ``train.main --precision 32 --elastic_loss_weight 0.01
+     --elastic_jacobian_samples 16 --warp_field se3 --use_nerfies_embed``
+     and ``eval`` of its checkpoint.
 Times come from CUDA events (kernels) or the host clock around work that
 ends in a synchronize (frames, steps). A kernel's bound is the larger of
 its matrix-product operations over the card's dense bf16 peak and its bytes
@@ -2515,6 +2532,61 @@ def tangents_of(field, x_raw, scales=None):
                      dim=-1)
 
 
+def jacobian_runs(field, trans: bool):
+    """A warp's Jacobian kernels on its warp field (the translation
+    warp's J, or the trunk's (w, v) with their tangents): (forward,
+    backward, plain, plain backward, layers, output width, nonzero
+    encoding columns of a tangent row). The four take (x, scales) or (x,
+    g, scales); the translation warp ignores the window row. A tangent row
+    along p_k is nonzero only in e_k and channel k's bands of posenc_orig
+    (1 + 2 x 10 of its columns), or in channel k's bands of the trunk's
+    encoding (2 x its degrees)."""
+    from hypernerf_tpu_torch import kernels as K
+    from hypernerf_tpu_torch.kernels.fused_field import field_layers
+    from hypernerf_tpu_torch.kernels.fused_se3 import se3_layers
+    if trans:
+        mlp = field.mlp
+        return (lambda x, sc=None: K.fused_warp_jacobian(
+                    mlp, 10, x[:, :3], x[:, 3:]).reshape(-1, 9),
+                lambda x, g, sc=None: K.fused_jacobian_bwd(mlp, 10, x, g),
+                lambda x, sc=None: plain_jacobian(mlp, x),
+                lambda x, g, sc=None: plain_jacobian_bwd(mlp, x, g),
+                field_layers(mlp), 9, 1 + 2 * 10)
+    return (lambda x, sc=None: tangents_of(field, x, sc),
+            lambda x, g, sc=None: K.fused_se3_jacobian_bwd(field, x, g, sc),
+            lambda x, sc=None: plain_tangents(field, x, sc),
+            lambda x, g, sc=None: plain_tangents_bwd(field, x, g, sc),
+            se3_layers(field), 24, 2 * (field.max_deg - field.min_deg))
+
+
+def jacobian_bound(layers, points: int, width: int, backward: bool,
+                   trunk: bool, nz: int, bound_of=bound,
+                   weight_bytes: int = 2):
+    """Rows 14 to 17 (``bound_of``: ``bound`` at bf16, ``f32_bound`` at
+    float32): a multiply-add per weight and point in the primal block, and
+    in each of the three tangent blocks per weight that meets a nonzero
+    input: a tangent row is nonzero in only ``nz`` of the encoding's
+    columns, so its products in layer 0 and the skip layer take those
+    columns alone. The backward recomputes the four blocks and runs g W
+    and t^T g on the tangent blocks (the translation warp: J reaches no
+    other) or on all four (the trunk). Bytes: the raw rows (11 fp32), the
+    output (``width`` fp32) once, the backward its cotangent and dx too,
+    the weights (``weight_bytes`` each) once and the backward's dW
+    (fp32)."""
+    enc = layers[0][1][0]  # the encoding's input segment
+    macs = sum(lin.weight.numel() for lin, _ in layers)
+    tan = macs - sum(lin.out_features * (enc[0] - nz) * segs.count(enc)
+                     for lin, segs in layers)
+    blocks = macs + 3 * tan
+    if not backward:
+        return bound_of(2.0 * blocks * points,
+                        points * (44 + 4 * width) + weight_bytes * macs)
+    products = 2 * (blocks if trunk else 3 * tan)
+    return bound_of(2.0 * (blocks + products) * points,
+                    points * (44 + 4 * width + 44)
+                    + (weight_bytes + 4) * macs)
+
+
 def jacobian_phase(kind: str):
     """Phase 13 (``kind`` 'translation': kernels 14 and 15) or 14 ('se3':
     kernels 16 and 17, with and without a window row; kernels 14 and 16 are
@@ -2527,34 +2599,24 @@ def jacobian_phase(kind: str):
     (timed). Returns the two kernels' entries."""
     import importlib
     import torch
-    from hypernerf_tpu_torch import kernels as K
     from hypernerf_tpu_torch.flagship import (JACOBIAN_CASES, flagship_model,
                                               load_probe_weights,
                                               read_jacobian_reference)
     from hypernerf_tpu_torch.kernels import common
-    from hypernerf_tpu_torch.kernels.fused_field import field_layers
-    from hypernerf_tpu_torch.kernels.fused_se3 import (se3_encoding_scales,
-                                                       se3_layers)
+    from hypernerf_tpu_torch.kernels.fused_se3 import se3_encoding_scales
     tag = '[13]' if kind == 'translation' else '[14]'
     trans = kind == 'translation'
     probe = load_probe_weights(flagship_model(
         'cuda', config='elastic' if trans else 'elastic_se3'))
     field = probe.warp_field
+    fwd, bwd, plain, plain_bwd, layers, width, nz = jacobian_runs(field,
+                                                                  trans)
     if trans:
         mlp = field.mlp
-        layers, width, hidden5 = field_layers(mlp), 9, mlp.hidden(5)
-        fwd = lambda x, sc=None: K.fused_warp_jacobian(
-            mlp, 10, x[:, :3], x[:, 3:]).reshape(-1, 9)
-        bwd = lambda x, g, sc=None: K.fused_jacobian_bwd(mlp, 10, x, g)
-        plain = lambda x, sc=None: plain_jacobian(mlp, x)
-        plain_bwd = lambda x, g, sc=None: plain_jacobian_bwd(mlp, x, g)
+        hidden5 = mlp.hidden(5)
         windows = (None,)
     else:
-        layers, width, hidden5 = se3_layers(field), 24, field.trunk.hidden(5)
-        fwd = lambda x, sc=None: tangents_of(field, x, sc)
-        bwd = lambda x, g, sc=None: K.fused_se3_jacobian_bwd(field, x, g, sc)
-        plain = lambda x, sc=None: plain_tangents(field, x, sc)
-        plain_bwd = lambda x, g, sc=None: plain_tangents_bwd(field, x, g, sc)
+        hidden5 = field.trunk.hidden(5)
         windows = (None, se3_encoding_scales(field, WINDOW_ALPHA, 'cuda'))
     fl = importlib.import_module('hypernerf_tpu_torch.kernels.fused_level')
     plan = 'warp_tangents' if trans else 'se3_tangents'
@@ -2660,17 +2722,12 @@ def jacobian_phase(kind: str):
         del x, g, dx, grads
         torch.cuda.empty_cache()
 
-    # Bounds at the train step's points: one multiply-add per weight, point
-    # and row block (four) forward; the backward recomputes the four blocks
-    # and runs g W and t^T g on the tangent blocks (translation: three) or on
-    # all four (SE(3)). Bytes: the raw rows, the outputs, the cotangent and
-    # dx once, the weights (and dW) once.
+    # Bounds at the train step's points (jacobian_bound: the tangent
+    # blocks' products over their nonzero encoding columns).
     macs = sum(lin.weight.numel() for lin, _ in layers)
     p = JAC_POINTS
-    back_blocks = 4 + 2 * (3 if trans else 4)
-    f_ms, f_by = bound(2.0 * 4 * macs * p, p * (44 + 4 * width) + 2 * macs)
-    b_ms, b_by = bound(2.0 * back_blocks * macs * p,
-                       p * (44 + 4 * width + 44) + 6 * macs)
+    f_ms, f_by = jacobian_bound(layers, p, width, False, not trans, nz)
+    b_ms, b_by = jacobian_bound(layers, p, width, True, not trans, nz)
     phase(f'{tag} tangents forward at {p} points: {times["fwd"]:.3f} ms, '
           f'{100 * f_ms / times["fwd"]:.1f} % of its bound {f_ms:.4f} ms; '
           f'{EARLIER_JAC_FWD_MS[kind]:.3f} ms before the redesign (PERF.md)')
@@ -3109,8 +3166,9 @@ def main() -> int:
     kernels += precision32_screw_phase(kernels)
     kernels += precision32_nerfies_phase(kernels)
     kernels += precision32_plane_phase(kernels)
-    if len(kernels) != 48:
-        raise AssertionError(f'{len(kernels)} kernels in the line, want 48')
+    kernels += precision32_jacobian_phase(kernels)
+    if len(kernels) != 52:
+        raise AssertionError(f'{len(kernels)} kernels in the line, want 52')
     phase(f'[24] chip_smoke.py: every phase passed in '
           f'{time.perf_counter() - T_START:.1f} s, the build included; '
           f'{CARD}')
@@ -6171,7 +6229,7 @@ def f32_render_phase() -> float:
 def f32_refusals_phase(refused=None, tag='[34]') -> None:
     """Phase 34 (e) (and 36 (d)): float32 configurations and paths that the
     float32 kernels do not cover (``refused``, default F32_REFUSED) refuse
-    on the card, naming ROADMAP A.13.1's sub-item (no plain fallback)."""
+    on the card, naming ROADMAP A.13 (no plain fallback)."""
     import torch
     from hypernerf_tpu_torch.flagship import flagship_model, spiral_rays
     from hypernerf_tpu_torch.ops.ray_dict import prepare_ray_dict
@@ -6183,7 +6241,7 @@ def f32_refusals_phase(refused=None, tag='[34]') -> None:
             with torch.no_grad():
                 model(prepare_ray_dict(rays), **call)
         except NotImplementedError as e:
-            item = re.search(r'A\.13\.1 sub-item \d', str(e))
+            item = re.search(r'ROADMAP item A\.13\b', str(e))
             if item is None:
                 raise
             said.append(f'{label}: {item.group(0)}')
@@ -6191,7 +6249,7 @@ def f32_refusals_phase(refused=None, tag='[34]') -> None:
             raise AssertionError(f'float32 {label} ran on the card')
         del model
     torch.cuda.empty_cache()
-    phase(f'{tag} float32 refused on the card, naming A.13.1\'s sub-item: '
+    phase(f'{tag} float32 refused on the card, naming ROADMAP A.13: '
           + '; '.join(said))
 
 
@@ -6383,11 +6441,10 @@ F32_CHUNK_LAUNCHES = {'static': {'fused_template_fwd_f32': 2},
                       'return_points': {'fused_template_fwd_f32': 2,
                                         'fused_field_fwd_f32': 4}}
 F32_CLI_STEPS = 8  # steps of each train.main run of phase 34 (d)
-# Float32 configurations and paths still refused on the card (A.13.1):
-# (label, configuration, NerfConfig overrides, call keywords). The plane
-# tables and their return_points path run since phase 37's port.
-F32_REFUSED = (
-    ('elastic_se3', 'elastic_se3', {}, dict(return_warp_jacobian=True)),)
+# Float32 configurations and paths still refused on the card (A.13.2, the
+# posenc band flags): (label, configuration, NerfConfig overrides, call
+# keywords). The Jacobians run since phase 38's port.
+F32_REFUSED = (('xyz_freq 8', 'flagship', dict(xyz_freq=8), {}),)
 
 
 def template_macs(tmpl) -> int:
@@ -7116,11 +7173,13 @@ def f32_screw_paths() -> dict:
     return counts
 
 
-def f32_train_eval(tag: str, exp: str, flags, want: dict) -> dict:
+def f32_train_eval(tag: str, exp: str, flags, want: dict,
+                   per_step=None) -> dict:
     """``train.main([... '--precision', '32', *flags])`` for
     F32_SCREW_CLI_STEPS steps at batch 4096 (64 + 64) on phase 25's scene,
-    every launch counted, no plain call, the losses finite, the run's
-    NerfConfig holding ``want`` (fields and values); then ``eval
+    every launch counted (``per_step``: {kernel: launches a step}, default
+    two of each float32 step kernel), no plain call, the losses finite, the
+    run's NerfConfig holding ``want`` (fields and values); then ``eval
     --precision 32`` of its checkpoint (the level kernels on every chunk of
     every frame). Returns {run: launches}."""
     import io
@@ -7143,7 +7202,8 @@ def f32_train_eval(tag: str, exp: str, flags, want: dict) -> dict:
                 os.path.join(tmp, 'scene'), **SMOKE_SCENE)
             argv = smoke_argv(scene, exp, n, '--precision', '32', *flags)
             trainer, launches = trainer_run(argv, label,
-                                            kernels=F32_STEP_KERNELS)
+                                            kernels=F32_STEP_KERNELS,
+                                            per_step=per_step)
             metrics = trainer.last_metrics
             cfg = trainer.nerf_cfg
             if cfg.compute_dtype != 'float32' or any(
@@ -7754,11 +7814,9 @@ def f32_nerfies_paths() -> dict:
     return counts
 
 
-# Phase 36 (d): what float32 still refuses on the card: the Jacobians
-# (sub-item 4; the plane tables, sub-item 3, run since phase 37's port).
-F32_STILL_REFUSED = (
-    ('elastic_quaternion', 'elastic_quaternion', {},
-     dict(return_warp_jacobian=True)),)
+# Phase 36 (d): what float32 still refuses on the card: a band flag of
+# A.13.2 (the Jacobians, A.13.1 sub-item 4, run since phase 38's port).
+F32_STILL_REFUSED = (('hyper_freq 4', 'flagship', dict(hyper_freq=4), {}),)
 
 
 def precision32_nerfies_phase(kernels) -> list:
@@ -7771,9 +7829,8 @@ def precision32_nerfies_phase(kernels) -> list:
     ``anneal_se3`` frame and 64 + 128 step, a ``nerf_embed`` step,
     ``query_sigma``, then ``train.main --precision 32 --use_nerfies_embed
     --warp_field se3`` and ``eval``; (d) every path's launches counted with
-    no plain call (in (c)), and the plane tables and the Jacobians refused
-    on the card naming sub-items 3 and 4. Returns the five entries of the
-    line."""
+    no plain call (in (c)), and a band flag of A.13.2 refused on the card
+    naming ROADMAP A.13. Returns the five entries of the line."""
     import torch
     from hypernerf_tpu_torch.flagship import (anneal_extra_params,
                                               flagship_model,
@@ -8249,6 +8306,271 @@ def precision32_plane_phase(kernels) -> list:
                               f'flagship_ms_in_turns_{key}': v[4][1:3]})
         out.append(entry)
     phase(f'[37] the plane-table --precision 32 phase took '
+          f'{time.perf_counter() - t_phase:.1f} s; {CARD}')
+    return out
+
+
+# -- the Jacobians at --precision 32 (A.13.1 sub-item 4, phase 38) ----------
+
+# name -> (its sources, the TPU kernel it replaces at float32, the path
+# whose launches the line reports): rows 14 to 17 in float32, the elastic
+# loss's Jacobians; each counts its launches under its own name.
+F32_JAC_ROWS = {
+    'fused_jacobian_fwd_f32': (
+        CSRC_DIR + 'f32_tangents.cu, ' + CSRC_DIR + 'f32_chain.cuh',
+        'hypernerf_tpu/ops/pallas/fused_jacobian.py:269', 'elastic_f32'),
+    'fused_jacobian_bwd_f32': (
+        CSRC_DIR + 'f32_tangents.cu, ' + CSRC_DIR + 'f32_steps.cu',
+        'hypernerf_tpu/ops/pallas/fused_jacobian.py:302', 'elastic_f32'),
+    'fused_se3_jacobian_fwd_f32': (
+        CSRC_DIR + 'f32_tangents.cu, ' + CSRC_DIR + 'f32_chain.cuh',
+        'hypernerf_tpu/ops/pallas/fused_se3_jacobian.py:286',
+        'elastic_se3_f32'),
+    'fused_se3_jacobian_bwd_f32': (
+        CSRC_DIR + 'f32_tangents.cu, ' + CSRC_DIR + 'f32_steps.cu',
+        'hypernerf_tpu/ops/pallas/fused_se3_jacobian.py:331',
+        'elastic_se3_f32')}
+# Each one's row in the table of TPU kernels (PERF.md section 6).
+ROW_OF = {'fused_jacobian_fwd_f32': 14, 'fused_jacobian_bwd_f32': 15,
+          'fused_se3_jacobian_fwd_f32': 16, 'fused_se3_jacobian_bwd_f32': 17}
+PATHS.update(elastic_f32=('elastic', F32_FINE128),
+             elastic_se3_f32=('elastic_se3', F32_FINE128),
+             elastic_quaternion_f32=('elastic_quaternion', F32_FINE128))
+STEP_LAUNCHES['elastic_f32'] = {**STEP_LAUNCHES['flagship_f32'],
+                                'fused_jacobian_fwd_f32': 2,
+                                'fused_jacobian_bwd_f32': 2}
+STEP_LAUNCHES['elastic_se3_f32'] = {**STEP_LAUNCHES['flagship_f32'],
+                                    'fused_se3_jacobian_fwd_f32': 2,
+                                    'fused_se3_jacobian_bwd_f32': 2}
+STEP_LAUNCHES['elastic_quaternion_f32'] = STEP_LAUNCHES['elastic_se3_f32']
+STEP_LAUNCHES['elastic_se3_nerfies_f32'] = STEP_LAUNCHES['elastic_se3_f32']
+# Kernel vs plain, both float32 on the card with TF32 off: rows 14 to 17
+# per output within phase 35's relative L2 1e-4 and max|d| 1e-3 of the
+# largest entry (F32_SCREW_L2 / F32_SCREW_MAX). Against
+# tests/data/fused_f32_jacobian_jax_ref.npz: every output and gradient
+# relative L2 F32_JAC_REF_L2, the CPU test's bound for the plain versions
+# (tests/test_torch_precision32_jacobian.py; measured there 4.1e-7).
+F32_JAC_REF_L2 = 1e-4
+F32_JAC_CLI_FLAGS = ('--elastic_loss_weight', '0.01',
+                     '--elastic_jacobian_samples', '16', '--warp_field',
+                     'se3', '--use_nerfies_embed')
+
+
+def f32_jacobian_kernels(models) -> dict:
+    """Phase 38 (a): rows 14 to 17 at float32 against their plain versions
+    (TF32 off, the same inputs and cotangents; F32_SCREW_L2 / F32_SCREW_MAX
+    per output) at 1001 points (a multiple of no tile) and at JAC_POINTS,
+    rows 16 and 17 with the trunk's window row off and on; timed at
+    JAC_POINTS (the plain versions in chunks of JAC_CHUNK points). Returns
+    {name: {key: (ms, plain ms, bound, max|d|)}}."""
+    import torch
+    from hypernerf_tpu_torch.kernels.fused_se3 import se3_encoding_scales
+    rows = {name: {} for name in F32_JAC_ROWS}
+    tol = (F32_SCREW_L2, F32_SCREW_MAX)
+    field = models['elastic_se3'].warp_field
+    gen = torch.Generator(device='cuda').manual_seed(38)
+    runs = {
+        'fused_jacobian': (
+            *jacobian_runs(models['elastic'].warp_field, True), (None,)),
+        'fused_se3_jacobian': (
+            *jacobian_runs(field, False),
+            (None, se3_encoding_scales(field, WINDOW_ALPHA, 'cuda')))}
+
+    def check(label, got, want):
+        errs = [grad_errors(a, b) for a, b in zip(got, want)]
+        worst = tuple(max(e[i] for e in errs) for i in range(3))
+        if worst[0] > tol[0] or worst[1] > tol[1]:
+            raise AssertionError(f'{label}: the kernel disagrees with plain: '
+                                 f'{worst}')
+        return worst
+
+    with torch.no_grad():
+        for stem, (fwd, bwd, plain, plain_bwd, layers, width, nz,
+                   windows) in runs.items():
+            trunk = stem != 'fused_jacobian'
+            for p in (1001, JAC_POINTS):
+                x = field_rows(p, seed=38 + p % 97)
+                g = torch.randn(p, width, generator=gen, device='cuda')
+                for sc in windows:
+                    window = 'off' if sc is None else 'on'
+                    key = f'P{p}' + (f'_window_{window}' if trunk else '')
+                    e_f = check(f'{stem} forward {key}', [fwd(x, sc)],
+                                [plain(x, sc)])
+                    dx, grads = bwd(x, g, sc)
+                    e_b = check(f'{stem} backward {key}', [dx, *grads],
+                                plain_bwd(x, g, sc))
+                    del dx, grads
+                    t = {}
+                    if p == JAC_POINTS:
+                        t = dict(fwd=cuda_ms(lambda: fwd(x, sc), 5),
+                                 plain_fwd=cuda_ms(lambda: plain(x, sc), 2),
+                                 bwd=cuda_ms(lambda: bwd(x, g, sc), 3),
+                                 plain_bwd=cuda_ms(
+                                     lambda: plain_bwd(x, g, sc), 1))
+                    for half, errs in (('fwd', e_f), ('bwd', e_b)):
+                        name = f'{stem}_{half}_f32'
+                        b = jacobian_bound(layers, p, width, half == 'bwd',
+                                           trunk, nz, f32_bound, 4)
+                        ms = t.get(half, float('nan'))
+                        plain_ms = t.get(f'plain_{half}', float('nan'))
+                        rows[name][key] = (ms, plain_ms, b, errs[2])
+                        timed = (f'; kernel {ms:.3f} ms, plain '
+                                 f'{plain_ms:.3f} ms; bound {b[0]:.3f} ms '
+                                 f'({b[1]}, {b[0] / ms:.1%}), FFMA ceiling '
+                                 f'{b[2]:.3f} ms ({b[2] / ms:.1%}); {CARD}'
+                                 if t else '')
+                        phase(f'[38] row {ROW_OF[name]} float32 {key}: worst '
+                              f'relative L2 {errs[0]:.3e}, max|d| '
+                              f'{errs[1]:.3e} of the largest entry (tol '
+                              f'{tol[0]} / {tol[1]}){timed}')
+                del x, g
+                torch.cuda.empty_cache()
+    return rows
+
+
+def f32_jacobian_reference() -> None:
+    """Phase 38 (b): rows 14 to 17 through their autograd Functions, as
+    training runs them, against the JAX kernels' stored float32 numbers
+    (tests/data/fused_f32_jacobian_jax_ref.npz): the output, dx and every
+    dW / db, and for the trunk the side channel's J of both retractions
+    from the kernel's tangents; relative L2 F32_JAC_REF_L2 each."""
+    import torch
+    from hypernerf_tpu_torch import kernels as K
+    from hypernerf_tpu_torch.flagship import (F32_JACOBIAN_CASES,
+                                              F32_JACOBIAN_REFERENCE,
+                                              f32_jacobian_model,
+                                              read_jacobian_reference)
+    from hypernerf_tpu_torch.kernels import common
+    from hypernerf_tpu_torch.kernels.fused_field import field_layers
+    from hypernerf_tpu_torch.kernels.fused_se3 import (se3_encoding_scales,
+                                                       se3_layers)
+    from hypernerf_tpu_torch.ops import quaternion, rigid_body
+    worst = {}
+    for case, arrays in read_jacobian_reference(
+            F32_JACOBIAN_REFERENCE, F32_JACOBIAN_CASES).items():
+        config, _, alpha, _ = F32_JACOBIAN_CASES[case]
+        field = f32_jacobian_model(case, 'cuda').warp_field
+        cuda = {k: torch.from_numpy(v).cuda() for k, v in arrays.items()}
+        x = cuda['x_raw'].requires_grad_()
+        if config == 'flagship':
+            layers = field_layers(field.mlp)
+            out = K.fused_warp_jacobian(field.mlp, 10, x[:, :3],
+                                        x[:, 3:]).reshape(-1, 9)
+            jacs = {}
+        else:
+            layers = se3_layers(field)
+            scales = (None if alpha is None else
+                      se3_encoding_scales(field, alpha, 'cuda'))
+            out = tangents_of(field, x, scales)
+            p = out.shape[0]
+            with torch.no_grad():
+                w, v, dw, dv = (out[:, :3], out[:, 3:6],
+                                out[:, 6:15].reshape(p, 3, 3),
+                                out[:, 15:].reshape(p, 3, 3))
+                jacs = {f'jac_{kind}': rigid_body.retraction_jacobian(
+                    bwd, w, v, x[:, :3].detach(), dw, dv).reshape(p, 9)
+                    for kind, bwd in (('se3', rigid_body.se3_warp_vec_bwd),
+                                      ('quaternion',
+                                       quaternion.quat_warp_vec_bwd))}
+        params = common.layer_params(layers)
+        got = torch.autograd.grad(out, [x] + params, cuda['cotangent'])
+        names = ['dx'] + [f'd{"wb"[i % 2]}{i // 2}' for i in
+                          range(len(params))]
+        got = dict(zip(names, got), out=out.detach(), **jacs)
+        errs = {k: grad_errors(v.double(), cuda[k].double())[0]
+                for k, v in got.items()}
+        name = max(errs, key=errs.get)
+        worst[case] = (errs[name], name)
+        if errs[name] > F32_JAC_REF_L2:
+            raise AssertionError(f'{case} float32 against the stored JAX '
+                                 f'numbers: {name} {errs[name]:.3e}')
+        del field, cuda, x, out, got
+    torch.cuda.empty_cache()
+    phase('[38] rows 14 to 17 against the stored JAX float32 numbers, '
+          'through the autograd Functions (output, dx, every dW / db, J of '
+          'both retractions): worst relative L2 ' + ', '.join(
+              f'{c} {e:.3e} at {n}' for c, (e, n) in worst.items())
+          + f' (tol {F32_JAC_REF_L2})')
+
+
+def f32_jacobian_paths() -> dict:
+    """Phase 38 (c): the 64 + 128 train steps of ``elastic``,
+    ``elastic_se3``, ``elastic_quaternion`` and ``elastic_se3`` with the
+    Nerfies encoding from ANNEAL_PROBE_STEP (its trunk's and template's
+    window rows live) at batch 16384, elastic weight 0.01, K = 16, each
+    with its launches counted (two of each Jacobian kernel a step), no
+    plain call, and a 1024-ray step against the plain versions (loss 1e-5
+    relative, gradients relative L2 1e-2: F32_STEP_TOLS). Returns {path:
+    launches}."""
+    import torch
+    from hypernerf_tpu_torch.flagship import ANNEAL_PROBE_STEP
+    # The Nerfies paper's setting: the elastic loss on the SE(3) warp with
+    # the annealed encoding, from the step where its window rows are live.
+    PATHS['elastic_se3_nerfies_f32'] = ('elastic_se3', dict(
+        use_original_embed=False, start_step=ANNEAL_PROBE_STEP,
+        **F32_FINE128))
+    counts = {}
+    for path in ('elastic_f32', 'elastic_se3_f32', 'elastic_quaternion_f32',
+                 'elastic_se3_nerfies_f32'):
+        times = {}
+        counts[path] = train_path(path, '[38]', times, F32_STEP_TOLS)
+        TIMES[f'{path}_step'] = times
+        flagship = TIMES.get('f32', {}).get('step', {}).get('secs',
+                                                            float('nan'))
+        phase(f'[38] {path} 64 + 128 step: {times["secs"] * 1e3:.1f} '
+              f'ms/step, peak {times["peak"]:.2f} GiB; the flagship\'s at '
+              f'float32 (phase 33) {flagship * 1e3:.1f} ms/step; {CARD}')
+        torch.cuda.empty_cache()
+    return counts
+
+
+def precision32_jacobian_phase(kernels) -> list:
+    """Phase 38: the Jacobians at ``--precision 32`` (ROADMAP A.13.1
+    sub-item 4): TF32 off; (a) rows 14 to 17 against their plain versions,
+    timed; (b) against the stored JAX numbers; (c) the elastic train steps
+    with their launches, then ``train.main --precision 32
+    --elastic_loss_weight 0.01 --elastic_jacobian_samples 16 --warp_field
+    se3 --use_nerfies_embed`` and ``eval`` of its checkpoint. Returns the
+    four entries of the line."""
+    import torch
+    from hypernerf_tpu_torch.flagship import flagship_model, load_probe_weights
+    t_phase = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    models = {c: load_probe_weights(flagship_model('cuda', config=c, **F32))
+              for c in ('elastic', 'elastic_se3')}
+    rows = f32_jacobian_kernels(models)
+    del models
+    torch.cuda.empty_cache()
+    f32_jacobian_reference()
+    counts = f32_jacobian_paths()
+    cli = f32_train_eval(
+        '[38]', 'f32_elastic_se3', F32_JAC_CLI_FLAGS,
+        dict(warp_field_type='se3', use_original_embed=False,
+             elastic_jacobian_samples=16),
+        per_step=STEP_LAUNCHES['elastic_se3_f32'])
+    paths = {**counts, **{f'cli {k}': v for k, v in cli.items()}}
+    out = []
+    for name, (source, replaces, path) in F32_JAC_ROWS.items():
+        key = f'P{JAC_POINTS}' + ('_window_off' if 'se3' in name else '')
+        main = rows[name][key]
+        entry = dict(name=name, route='cuda', source=source,
+                     replaces=replaces, launches=counts[path][name],
+                     max_abs_err=max(v[3] for v in rows[name].values()),
+                     ms=main[0], plain_ms=main[1], bound_ms=main[2][0],
+                     bound_by=main[2][1], library_ms=None,
+                     ffma_ceiling_ms=main[2][2], dtype='float32',
+                     shape=key,
+                     tolerance=f'relative L2 <= {F32_SCREW_L2}, max|d| <= '
+                               f'{F32_SCREW_MAX} of the largest entry',
+                     launches_by_path={p: c[name] for p, c in paths.items()
+                                       if c.get(name)})
+        for k, v in rows[name].items():
+            if k != key and not math.isnan(v[0]):
+                entry.update({f'ms_{k}': v[0], f'plain_ms_{k}': v[1],
+                              f'bound_ms_{k}': v[2][0]})
+        out.append(entry)
+    phase(f'[38] the Jacobian --precision 32 phase took '
           f'{time.perf_counter() - t_phase:.1f} s; {CARD}')
     return out
 

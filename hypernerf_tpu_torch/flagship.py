@@ -400,11 +400,12 @@ JACOBIAN_CASES = {'translation': ('flagship', 300, None, 41),
                   'se3_window': ('se3', 300, 3.5, 43)}
 
 
-def jacobian_probe_inputs(case: str) -> dict:
-    """Numpy inputs of a ``JACOBIAN_CASES`` case: 'x_raw' (P, 11) [points on
-    probe rays | GLO codes] and 'cotangent' of the kernel's output, (P, 9)
-    for J (translation) or (P, 24) for [w | v | dw | dv] (SE(3))."""
-    config, rows, _, seed = JACOBIAN_CASES[case]
+def jacobian_probe_inputs(case: str, cases=None) -> dict:
+    """Numpy inputs of a ``JACOBIAN_CASES`` case (or of ``cases``, a dict of
+    that form): 'x_raw' (P, 11) [points on probe rays | GLO codes] and
+    'cotangent' of the kernel's output, (P, 9) for J (translation) or (P,
+    24) for [w | v | dw | dv] (SE(3))."""
+    config, rows, _, seed = (cases or JACOBIAN_CASES)[case]
     rays = probe_inputs(-(-rows // 64), 64, seed)
     pts = (rays['origins'][:, None]
            + rays['z_vals'][..., None] * rays['directions'][:, None])
@@ -1072,9 +1073,30 @@ def read_anneal_reference(path: str = ANNEAL_REFERENCE):
     return out
 
 
-def read_jacobian_reference(path: str = JACOBIAN_REFERENCE):
-    """{case: {name: array}} of the warp-Jacobian reference file."""
-    out = {case: {} for case in JACOBIAN_CASES}
+# The JAX Jacobian kernels' numbers at ``compute_dtype='float32'`` (rows 14
+# to 17 at ``--precision 32``) at the probe weights, in interpret mode, full
+# width: ``JACOBIAN_CASES``' form, their own seeds; each case's output, and
+# for the stored cotangent 'dx', every dW / db of the field's layers and,
+# for the trunk, the side channel's 'jac_se3' / 'jac_quaternion'.
+F32_JACOBIAN_REFERENCE = os.path.join(os.path.dirname(LEVEL_REFERENCE),
+                                      'fused_f32_jacobian_jax_ref.npz')
+F32_JACOBIAN_CASES = {'translation': ('flagship', 300, None, 151),
+                      'se3': ('se3', 300, None, 152),
+                      'se3_window': ('se3', 300, 3.5, 153)}
+
+
+def f32_jacobian_model(case: str, device='cpu') -> NerfModel:
+    """The float32 model of an ``F32_JACOBIAN_CASES`` case at the probe
+    weights."""
+    return load_probe_weights(flagship_model(
+        device, config=F32_JACOBIAN_CASES[case][0], compute_dtype='float32'))
+
+
+def read_jacobian_reference(path: str = JACOBIAN_REFERENCE, cases=None):
+    """{case: {name: array}} of the warp-Jacobian reference file (or of
+    ``path`` with ``cases``, a dict of ``JACOBIAN_CASES``' form: the
+    float32 file with ``F32_JACOBIAN_CASES``)."""
+    out = {case: {} for case in (cases or JACOBIAN_CASES)}
     with np.load(path) as f:
         for key in f.files:
             case, name = key.split('/', 1)

@@ -14,9 +14,13 @@ the same autograd Functions, to time them or to hold a step against them.
 from hypernerf_tpu_torch.kernels.f32 import (fused_field_bwd_f32,
                                              fused_field_f32,
                                              fused_fields_bwd_f32,
+                                             fused_jacobian_bwd_f32,
+                                             fused_jacobian_f32,
                                              fused_level_f32,
                                              fused_se3_bwd_f32,
                                              fused_se3_f32,
+                                             fused_se3_jacobian_bwd_f32,
+                                             fused_se3_jacobian_f32,
                                              fused_template_bwd_f32,
                                              fused_template_f32)
 from hypernerf_tpu_torch.kernels.fused_composite import (
@@ -44,7 +48,7 @@ from hypernerf_tpu_torch.kernels.fused_se3_jacobian import (
 
 def counted():
     """({kernel name: wrapper}, {name: plain version}) of every kernel (the
-    float32 kernels of rows 1, 9, 5, 8, 10, 11, 12 and 13 under names of
+    float32 kernels of rows 1, 9, 5, 8 and 10 to 17 under names of
     their own, beside their plain versions, which are the bf16 rows' plain
     versions at that dtype). A wrapper adds one to its ``launches`` where it
     launches its kernel, a plain version one to its ``calls``; both are
@@ -70,7 +74,11 @@ def counted():
                 'fused_field_fwd_f32': fused_field_f32,
                 'fused_field_bwd_f32': fused_field_bwd_f32,
                 'fused_se3_fwd_f32': fused_se3_f32,
-                'fused_se3_bwd_f32': fused_se3_bwd_f32}
+                'fused_se3_bwd_f32': fused_se3_bwd_f32,
+                'fused_jacobian_fwd_f32': fused_jacobian_f32,
+                'fused_jacobian_bwd_f32': fused_jacobian_bwd_f32,
+                'fused_se3_jacobian_fwd_f32': fused_se3_jacobian_f32,
+                'fused_se3_jacobian_bwd_f32': fused_se3_jacobian_bwd_f32}
     plains = [fused_level_plain, fused_composite_plain,
               fused_template_bwd_plain, fused_fields_bwd_plain,
               fused_composite_bwd_plain, fused_field_plain,

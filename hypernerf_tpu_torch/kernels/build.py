@@ -77,9 +77,9 @@ _SIGNATURES = {
                             _I),
     'hn_f32_field_fwd': ([_I] + [_P] * 5 + [_L, _P], _I),
     'hn_f32_rowprod': ([_P, _L, _I, _P, _L, _I, _P, _L, _I, _P, _I, _P, _L,
-                        _P, _L, _I, _L, _P], _I),
+                        _L, _P, _L, _I, _L, _P], _I),
     'hn_f32_dw': ([_P, _L, _I, _P, _L, _I, _P, _L, _I, _P, _L, _L, _I, _L,
-                   _L, _I, _P], _I),
+                   _L, _L, _I, _P], _I),
     'hn_f32_reduce': ([_P, _I, _L, _L, _P, _P], _I),
     'hn_f32_field_encode': ([_P] * 4 + [_I] * 3 + [_P, _L, _I, _L, _P], _I),
     'hn_f32_tmpl_encode': ([_P, _L, _I, _I, _I, _P, _L, _I, _L, _I, _P, _P],
@@ -101,6 +101,11 @@ _SIGNATURES = {
                                       _P, _P, _L, _P], _I),
     'hn_f32_plane_rows': ([_I] + [_P] * 3 + [_I, _P, _L, _P, _L, _P, _L, _I,
                                               _P, _I, _P, _P, _L, _P], _I),
+    'hn_f32_jacobian_fwd': ([_P] * 4 + [_L, _P], _I),
+    'hn_f32_se3_jacobian_fwd': ([_P] * 5 + [_L, _P], _I),
+    'hn_f32_stream_encode': ([_I, _P, _L, _P, _P, _L, _I, _L, _P], _I),
+    'hn_f32_stream_cot': ([_I, _P, _L, _P, _L, _L, _P], _I),
+    'hn_f32_stream_enc_bwd': ([_I, _P, _L, _P, _P, _L, _P, _L, _L, _P], _I),
     'hn_error_string': ([_I], ctypes.c_char_p),
 }
 

@@ -84,29 +84,9 @@ SE3_FLAGSHIP = dict(embed=8, min_deg=0, max_deg=8)
 NOT_COVERED = ('the CUDA kernels cover the flagship widths (bf16, and '
                'float32 on every level table: the translation, SE(3) and '
                'quaternion warps with the bendy sheet or without it, the '
-               'posenc_orig and Nerfies templates, and their modules '
-               'alone); other widths are ROADMAP item A.13 (kernel '
-               'generality)')
-# What float32 on the card still lacks, by ROADMAP A.13.1's sub-item (1,
-# the per-module path, 2, the screw warps, and 3, the level tables'
-# layouts, windows and conditions, the plane tables included, are ported;
-# a tag is never reused).
-F32_ITEMS = {4: 'the Jacobians, rows 14 to 17'}
-
-
-def f32_refusal(item: int, what: str) -> str:
-    """The message a float32 kernel path that is not ported yet raises
-    with: ``what``, and the sub-item of ROADMAP A.13.1 that ports it."""
-    return (f'{what} in float32 on the card: ROADMAP A.13.1 sub-item '
-            f'{item}, {F32_ITEMS[item]}; the float32 kernels cover every '
-            f'level table (table codes 0 to 8: the translation, SE(3) or '
-            f'quaternion warp with the bendy sheet or without it, '
-            f'axis_aligned_plane; the posenc_orig template, or the Nerfies '
-            f'one with its window row; rgb conditions of 39, 47, 8 or 0 '
-            f'columns, Nerfies 27, 35, 8 or 0; the 8-column alpha condition '
-            f'or none) and their modules alone: either field, with or '
-            f'without a window row, the SE(3) trunk, the template with 4 '
-            f'hyper coordinates, the plane layouts\' 8 or none (static)')
+               'posenc_orig and Nerfies templates, their modules alone and '
+               'the warps\' Jacobians); other widths are ROADMAP item A.13 '
+               '(kernel generality)')
 
 
 def table_warp(table: str) -> str:

@@ -1,7 +1,8 @@
 // The float32 layer chain for Hopper (sm_90a): FFMA products of fp32
 // activation tiles and fp32 weights, shared by the float32 level forward
-// (f32_level.cu, row 1) and the float32 steps of kernels A and B
-// (f32_steps.cu, rows 9 and 5).
+// (f32_level.cu, row 1), the float32 steps of kernels A and B
+// (f32_steps.cu, rows 9 and 5) and the float32 Jacobians' forwards
+// (f32_tangents.cu, rows 14 and 16).
 //
 // Float32 here is the TPU kernels' float32 (`compute_dtype='float32'`,
 // hypernerf_tpu/ops/pallas/fused_level.py FusedLevelSpec, fused_mlp.py
@@ -149,6 +150,45 @@ struct Seg {
   int k;
 };
 
+// The widths of a layer's segments joined.
+template <int NSeg>
+__device__ __forceinline__ int seg_width(const Seg (&segs)[NSeg]) {
+  int K = 0;
+#pragma unroll
+  for (int s = 0; s < NSeg; ++s) K += segs[s].k;
+  return K;
+}
+
+// One pass's product: acc[i][j] = sum_k x(T::row() + i, k) wt[k * ldw + n]
+// for the pass's columns n = n0 + T::col(j), x the segments joined (K
+// features); zero for n >= N. Every thread of the block calls it; it ends
+// with a barrier, so ws may be refilled by the next pass.
+template <class T, int NSeg>
+__device__ __forceinline__ void pass_product(float (&acc)[T::TR][T::TC],
+                                             const Seg (&segs)[NSeg],
+                                             const float* w, int ldw, int K,
+                                             int n0, int N, float* ws) {
+  const int chunks = K / kDepth;
+  zero<T>(acc);
+  WChunk<T> wc;
+  wc.load(w, ldw, 0, K, n0, N);
+  wc.store(ws);
+  __syncthreads();
+  int seg = 0, at = 0;
+  for (int ch = 0; ch < chunks; ++ch) {
+    if (ch + 1 < chunks) wc.load(w, ldw, (ch + 1) * kDepth, K, n0, N);
+    chunk_fma<T>(acc, segs[seg].a + at * kRows, kRows,
+                 ws + (ch & 1) * T::kWTile);
+    at += kDepth;
+    if (at == segs[seg].k) {
+      ++seg;
+      at = 0;
+    }
+    if (ch + 1 < chunks) wc.store(ws + ((ch + 1) & 1) * T::kWTile);
+    __syncthreads();
+  }
+}
+
 // A layer on a tile held in shared memory, in passes of T::kCols output
 // columns: out[n * kRows + r] = act(sum_k x(r, k) wt[k * ldw + n] +
 // bias[n]) for n < N, x the segments joined, wt the layer's transposed
@@ -158,31 +198,11 @@ __device__ __forceinline__ void tile_passes(const Seg (&segs)[NSeg],
                                             const float* w, int ldw, int N,
                                             const float* bias, bool relu,
                                             float* out, float* ws) {
-  int K = 0;
-#pragma unroll
-  for (int s = 0; s < NSeg; ++s) K += segs[s].k;
-  const int chunks = K / kDepth;
+  const int K = seg_width(segs);
   const int r = T::row();
   for (int n0 = 0; n0 < N; n0 += T::kCols) {
     float acc[T::TR][T::TC];
-    zero<T>(acc);
-    WChunk<T> wc;
-    wc.load(w, ldw, 0, K, n0, N);
-    wc.store(ws);
-    __syncthreads();
-    int seg = 0, at = 0;
-    for (int ch = 0; ch < chunks; ++ch) {
-      if (ch + 1 < chunks) wc.load(w, ldw, (ch + 1) * kDepth, K, n0, N);
-      chunk_fma<T>(acc, segs[seg].a + at * kRows, kRows,
-                   ws + (ch & 1) * T::kWTile);
-      at += kDepth;
-      if (at == segs[seg].k) {
-        ++seg;
-        at = 0;
-      }
-      if (ch + 1 < chunks) wc.store(ws + ((ch + 1) & 1) * T::kWTile);
-      __syncthreads();
-    }
+    pass_product<T>(acc, segs, w, ldw, K, n0, N, ws);
 #pragma unroll
     for (int j = 0; j < T::TC; ++j) {
       const int n = n0 + T::col(j);

@@ -29,7 +29,9 @@
 // backward (hypernerf_tpu/ops/pallas/fused_se3.py `_fused_bwd` :412). The
 // host side that orders the steps over chunks of whole rays and owns the
 // stash of each layer's fp32 output is kernels/f32.py; the bf16 kernels A
-// and B are untouched.
+// and B are untouched. The Jacobians' backwards at float32 (rows 15 and 17,
+// f32_tangents.cu) run rowprod, dw and reduce on a chunk's four streams:
+// the mask's rows repeat, and a layer's db may sum its first rows alone.
 //
 // Bound: operations (the products) for rowprod and dw, bytes for the
 // narrow steps. Design: rowprod and dw are f32_chain.cuh's register tiles
@@ -81,6 +83,7 @@ struct RowprodArgs {
   int relu;
   const float* mask;  // or null: out = mask > 0 ? out : 0
   long long ldm;
+  long long mrows;  // the mask's rows: row r reads mask row r % mrows
   float* out;
   long long ldo;
   int accumulate;  // out += the product (no bias, ReLU or mask)
@@ -88,7 +91,9 @@ struct RowprodArgs {
 };
 
 // out[r * ldo + n] = epi(sum_k A(r, k) B(k, n)) for r < M, n < N, with B
-// the layer's weight (g W) or its transpose (x W^T), row-major [k][n].
+// the layer's weight (g W) or its transpose (x W^T), row-major [k][n]. The
+// mask's rows repeat every mrows rows (the Jacobians' tangent rows read
+// their point's primal row; mrows = M elsewhere).
 using T = Step;  // 128 rows x 128 columns a block, 8 x 8 a thread
 
 // The activation chunk's leading dimension: padded by 4 so that a quarter
@@ -167,8 +172,8 @@ __global__ void __launch_bounds__(kThreads) rowprod_f32(const RowprodArgs p) {
           y = make_float4(fmaxf(y.x, 0.f), fmaxf(y.y, 0.f), fmaxf(y.z, 0.f),
                           fmaxf(y.w, 0.f));
         if (p.mask != nullptr) {
-          const float4 m =
-              *reinterpret_cast<const float4*>(p.mask + r * p.ldm + n);
+          const float4 m = *reinterpret_cast<const float4*>(
+              p.mask + (r % p.mrows) * p.ldm + n);
           y = make_float4(m.x > 0.f ? y.x : 0.f, m.y > 0.f ? y.y : 0.f,
                           m.z > 0.f ? y.z : 0.f, m.w > 0.f ? y.w : 0.f);
         }
@@ -202,13 +207,15 @@ struct DwArgs {
   long long w_off;  // dW (N_pad, ldc) at slab[z][w_off]
   int ldc;
   long long b_off;  // db at slab[z][b_off], or -1: none
+  long long db_rows;  // db sums the rows r < db_rows (M: every row)
   long long M;
   int splits;
 };
 
 // slab[z][w_off + n * ldc + k] = sum over the rows of range z of G(r, n)
 // H(r, k), and (blocks of the first column tile) slab[z][b_off + n] = sum
-// of G(r, n), for n < N, k < K; zero for K <= k < ldc (a layer whose input
+// of G(r, n) over its rows r < db_rows (the Jacobians' primal rows; M
+// elsewhere), for n < N, k < K; zero for K <= k < ldc (a layer whose input
 // is narrower than its packed columns: the static template's encoding).
 // Grid (N tiles of 128, ldc tiles of 128, splits).
 __global__ void __launch_bounds__(kThreads) dw_f32(const DwArgs p) {
@@ -281,8 +288,11 @@ __global__ void __launch_bounds__(kThreads) dw_f32(const DwArgs p) {
     if (more) load(ch + 1);
     chunk_fma<T>(acc, gs[ch & 1], T::kRows, hs[ch & 1]);
     if (with_db && t < T::kRows)
-      for (int k = 0; k < kDepth; ++k)
-        kahan_add(db, db_lost, gs[ch & 1][k * T::kRows + t]);
+      for (int k = 0; k < kDepth; ++k) {
+        const long long r = r_begin + (long long)ch * kDepth + k;
+        kahan_add(db, db_lost,
+                  r < p.db_rows ? gs[ch & 1][k * T::kRows + t] : 0.f);
+      }
     if (more) store((ch + 1) & 1);
     __syncthreads();
   }
@@ -688,41 +698,43 @@ using namespace steps;
 
 // w: the layer's weight for g W, its transpose for x W^T: B(k, n) =
 // w[k * ldw + n]; N, w, out, mask and bias 16-byte aligned with leading
-// dimensions a multiple of 4 floats (float4 loads and stores).
+// dimensions a multiple of 4 floats (float4 loads and stores); mrows the
+// mask's rows (row r of out reads mask row r % mrows).
 extern "C" int hn_f32_rowprod(const float* a0, long long ld0, int k0,
                               const float* a1, long long ld1, int K,
                               const float* w, long long ldw, int N,
                               const float* bias, int relu, const float* mask,
-                              long long ldm, float* out, long long ldo,
-                              int accumulate, long long M,
+                              long long ldm, long long mrows, float* out,
+                              long long ldo, int accumulate, long long M,
                               cudaStream_t stream) {
   if (K <= 0 || N <= 0 || k0 < 0 || k0 > K || N % 4 || ldw % 4 ||
       ldo % 4 || !aligned16(w) || !aligned16(out) ||
-      (mask != nullptr && (ldm % 4 || !aligned16(mask))) ||
+      (mask != nullptr && (ldm % 4 || !aligned16(mask) || mrows <= 0)) ||
       (bias != nullptr && !aligned16(bias)))
     return 1;
   if (M == 0) return 0;
   const RowprodArgs p{{a0, ld0, k0, a1, ld1}, K, w, ldw, N, bias,
-                      relu, mask, ldm, out, ldo, accumulate, M};
+                      relu, mask, ldm, mrows, out, ldo, accumulate, M};
   const dim3 grid((unsigned)((M + T::kRows - 1) / T::kRows),
                   (unsigned)((N + T::kCols - 1) / T::kCols));
   rowprod_f32<<<grid, kThreads, 0, stream>>>(p);
   return cudaGetLastError();
 }
 
+// db_rows: db sums G's rows r < db_rows (M: every row).
 extern "C" int hn_f32_dw(const float* g, long long ldg, int N,
                          const float* h0, long long ld0, int k0,
                          const float* h1, long long ld1, int K, float* slab,
                          long long lds, long long w_off, int ldc,
-                         long long b_off, long long M, int splits,
-                         cudaStream_t stream) {
+                         long long b_off, long long db_rows, long long M,
+                         int splits, cudaStream_t stream) {
   // H is read as float4: its segments 16-byte aligned, widths % 4 == 0.
   if (K <= 0 || N <= 0 || k0 < 0 || k0 > K || splits <= 0 || ldc < K ||
       K % 4 || k0 % 4 || ld0 % 4 || !aligned16(h0) ||
       (k0 < K && (ld1 % 4 || !aligned16(h1))))
     return 1;
   const DwArgs p{g, ldg, N, {h0, ld0, k0, h1, ld1}, K, slab, lds, w_off,
-                 ldc, b_off, M, splits};
+                 ldc, b_off, db_rows, M, splits};
   const dim3 grid((unsigned)((N + T::kRows - 1) / T::kRows),
                   (unsigned)((ldc + T::kCols - 1) / T::kCols),
                   (unsigned)splits);

@@ -1,13 +1,19 @@
 """The float32 kernels, hand-written CUDA on FFMA (``csrc/f32_chain.cuh``,
-``f32_level.cu``, ``f32_steps.cu``): the level forward (row 1 at
-``compute_dtype='float32'``) and the two halves of its backward, kernel A
-(the template backward, row 9) and kernel B (the fields backward, row 5);
-the per-module path's: the template alone (row 8), a field alone (row 10)
-and a field alone backward (row 11); and the SE(3) trunk alone, forward
-(row 12) and backward (row 13). The bf16 kernels are untouched:
+``f32_level.cu``, ``f32_steps.cu``, ``f32_tangents.cu``): the level
+forward (row 1 at ``compute_dtype='float32'``) and the two halves of its
+backward, kernel A (the template backward, row 9) and kernel B (the fields
+backward, row 5); the per-module path's: the template alone (row 8), a
+field alone (row 10) and a field alone backward (row 11); the SE(3) trunk
+alone, forward (row 12) and backward (row 13); and the Jacobians of the
+elastic loss: the translation warp's J, forward (row 14) and backward (row
+15), and the SE(3) / quaternion trunk's (w, v) with their point-tangents,
+forward (row 16) and backward (row 17), with or without the trunk's window
+row. The bf16 kernels are untouched:
 ``fused_level``, ``fused_fields_bwd``, ``fused_template_bwd``,
-``fused_template``, ``fused_field``, ``fused_field_bwd``, ``fused_se3_wv``
-and ``fused_se3_bwd`` take these where the modules compute in float32, on
+``fused_template``, ``fused_field``, ``fused_field_bwd``, ``fused_se3_wv``,
+``fused_se3_bwd``, ``fused_warp_jacobian``, ``fused_jacobian_bwd``,
+``fused_se3_wv_tangents`` and ``fused_se3_jacobian_bwd`` take these where
+the modules compute in float32, on
 every level table (``common.TABLE_CODES``, 0 to 8): the translation warp,
 or the SE(3) or the quaternion warp (the trunk and the retraction, with
 or without the ``warp_alpha`` window row), with the bendy sheet (the
@@ -22,8 +28,9 @@ the plane's 8 coordinates 127), with 4 hyper coordinates, the plane's 8
 condition width the layout has (39, 47, 8, 0; Nerfies 27, 35, 8, 0) and
 the 8-column alpha condition or none; and their modules alone (a field
 alone, the warp field or the sheet, with or without a window row).
-``fused_level._check_covered`` and ``fused_mlp.check_f32_covered`` refuse
-the rest, naming ROADMAP A.13 (the Jacobians: A.13.1's sub-item 4).
+``fused_level._check_covered``, ``fused_mlp.check_f32_covered`` and the
+other wrappers' checks refuse the rest (other bands and widths), naming
+ROADMAP A.13.
 
 Float32 is the TPU kernels' float32: fp32 operands, fp32 sums, fp32
 epilogues, nothing rounded to bf16 — the plain versions' arithmetic at that
@@ -32,23 +39,25 @@ dtype (``fused_level_plain``, ``fused_template_bwd_plain``,
 
 The level forward is one kernel (a tile of 64 samples through all 30 layers
 in shared memory); the template alone and a field alone and the trunk alone
-are its stages, run alone on raw rows. Kernels A and B, a field alone
-backward and the trunk alone backward are sequences of generic steps over
-chunks of whole rays (``template_bwd_steps``, ``fields_bwd_steps``,
-``field_bwd_steps``, ``se3_bwd_steps``; the trunk's walk is
-``_trunk_steps``): each
-wide layer's fp32 output is recomputed into a stash (at most
-``STASH_BYTES`` a chunk), then the chunk is walked back a layer at a time —
-the cotangent through the layer (``rowprod``, masked by the input's ReLU)
-and the layer's dW / db over row ranges (``dw``, one slab per range, as
-many ranges as fill the card twice: ``split_count``; summed into the
-layer's gradient in a fixed order by ``reduce``). ``ops`` launches the
-steps: ``_KernelOps`` on the card; the tests pass a PyTorch model of each C
-entry point.
+are its stages, run alone on raw rows; the Jacobians' forwards run a field
+alone's or the trunk alone's stages on a tile of 16 points x their four
+streams (the primal row and three tangent rows). Kernels A and B, a field
+alone backward, the trunk alone backward and the Jacobians' backwards are
+sequences of generic steps over chunks of whole rays or of points
+(``template_bwd_steps``, ``fields_bwd_steps``, ``field_bwd_steps``,
+``se3_bwd_steps``, ``jacobian_bwd_steps``; the trunk's walk is
+``_trunk_steps``, a field's ``_field_steps``): each wide layer's fp32
+output is recomputed into a stash (at most ``STASH_BYTES`` a chunk), then
+the chunk is walked back a layer at a time — the cotangent through the
+layer (``rowprod``, masked by the input's ReLU) and the layer's dW / db
+over row ranges (``dw``, one slab per range, as many ranges as fill the
+card twice: ``split_count``; summed into the layer's gradient in a fixed
+order by ``reduce``). ``ops`` launches the steps: ``_KernelOps`` on the
+card; the tests pass a PyTorch model of each C entry point.
 
 Every wrapper adds one to its ``launches`` where it launches its kernel (a
-call of kernel A or B or of a field or the trunk alone backward, whatever
-its steps).
+call of kernel A or B, of a field or the trunk alone backward or of a
+Jacobian's backward, whatever its steps).
 """
 
 from __future__ import annotations
@@ -158,6 +167,9 @@ SE3_STASH = fused_mlp.column_plan((('enc', SE3_ENC),) + tuple(
     (f'h{i}', 128) for i in range(6)) + (('trunk', 128),))
 TRUNK_LAYERS = FIELD_LAYERS + [(6, ('h5',), 'trunk', False)]
 V_COL = 8
+# The Jacobians' rows a point (csrc/f32_tangents.cu kStreams): its primal
+# row and its three tangent rows.
+STREAMS = 4
 TRUNK_SMEM_BYTES = 4 * (TILE_ROWS * (SE3_ENC + 2 * 128 + 3 + 8 + 8 + 1 + 1)
                         + 2 * DEPTH * WIDE_COLS // 2)
 
@@ -192,11 +204,14 @@ class _Walk:
     db over row ranges into ``scratch`` and from there, summed in order,
     into ``grads``, and the cotangent of its input into one of two buffers
     in turn (``bufs``: (n, width) views; the current cotangent is in
-    ``bufs[at]``)."""
+    ``bufs[at]``). A layer's db sums the cotangent's first ``db_rows`` rows
+    (None: every row; the Jacobians' primal rows)."""
 
-    def __init__(self, ops, w, w_off, b_off, scratch, grads, bufs):
+    def __init__(self, ops, w, w_off, b_off, scratch, grads, bufs,
+                 db_rows=None):
         self.ops, self.w, self.w_off, self.b_off = ops, w, w_off, b_off
         self.scratch, self.grads, self.bufs, self.at = scratch, grads, bufs, 0
+        self.db_rows = db_rows
 
     def _dw(self, g, l, h, h1=None):
         """Layer ``l``'s dW (its first ``g.shape[1]`` rows) and db from
@@ -210,29 +225,32 @@ class _Walk:
         size = n_out * ldc
         slabs = self.scratch[:splits * (size + n_out)].view(splits,
                                                             size + n_out)
-        self.ops.dw(g, h, h1, slabs, 0, ldc, size)
+        self.ops.dw(g, h, h1, slabs, 0, ldc, size, self.db_rows)
         w_at, b_at = self.w_off[l], self.b_off[l]
         self.ops.reduce(slabs[:, :size], self.grads[w_at:w_at + size])
         self.ops.reduce(slabs[:, size:], self.grads[b_at:b_at + n_out])
 
-    def head(self, g, l, h):
+    def head(self, g, l, h, mask=None):
         """A linear head ``l`` on ReLU output ``h`` with output cotangent
-        ``g``: its dW / db, and h's cotangent, masked, into bufs[0]."""
+        ``g``: its dW / db, and h's cotangent, masked by h's ReLU (or by
+        ``mask``: rows that repeat, the Jacobians' primal rows), into
+        bufs[0]."""
         self._dw(g, l, h)
         self.at = 0
         y = self.bufs[0][:, :h.shape[1]]
-        self.ops.rowprod(g, self.w[l], y, mask=h)
+        self.ops.rowprod(g, self.w[l], y, mask=h if mask is None else mask)
         return y
 
-    def layer(self, x, l, h, h1=None, enc_g=None, relu_in=True):
+    def layer(self, x, l, h, h1=None, enc_g=None, relu_in=True, mask=None):
         """Layer ``l`` on [h | h1] with output cotangent ``x``: its dW / db;
-        h's cotangent (masked by h's ReLU where ``relu_in``) into the other
-        buffer, which is returned; h1's (the skip's encoding) into
-        ``enc_g``."""
+        h's cotangent (masked by h's ReLU, or by ``mask`` as ``head`` takes
+        it, where ``relu_in``) into the other buffer, which is returned;
+        h1's (the skip's encoding) into ``enc_g``."""
         self._dw(x, l, h, h1)
         self.at ^= 1
         y = self.bufs[self.at][:, :h.shape[1]]
-        self.ops.rowprod(x, self.w[l], y, mask=h if relu_in else None)
+        mask = (h if mask is None else mask) if relu_in else None
+        self.ops.rowprod(x, self.w[l], y, mask=mask)
         if h1 is not None:
             k = h.shape[1]
             self.ops.rowprod(x, self.w[l][:, k:k + h1.shape[1]], enc_g)
@@ -245,15 +263,25 @@ class _Walk:
         self.ops.rowprod(x, self.w[l], enc_g, accumulate=True)
 
 
-def _recompute(ops, wt, b, cols, layers):
+def _recompute(ops, wt, b, cols, layers, primal=None):
     """The forward of the wide ``layers`` into the stash: x wt[l], wt the
-    layers' transposes."""
+    layers' transposes. With ``primal`` the stash's rows are a chunk's
+    streams (the Jacobians': its first ``primal`` rows the points' primal
+    rows, the tangent rows after them): the primal rows take the bias and
+    the ReLU; the tangent rows no bias, and where the layer has a ReLU its
+    point's primal mask (the primal output's rows, which repeat)."""
     for l, ins, out, relu in layers:
         a1 = cols(ins[1]) if len(ins) > 1 else None
         k0 = wt[l].shape[0] - (0 if a1 is None else a1.shape[1])
-        ops.rowprod(cols(ins[0])[:, :k0], wt[l],
-                    cols(out)[:, :wt[l].shape[1]], bias=b[l], relu=relu,
-                    a1=a1)
+        x, y = cols(ins[0])[:, :k0], cols(out)[:, :wt[l].shape[1]]
+        if primal is None:
+            ops.rowprod(x, wt[l], y, bias=b[l], relu=relu, a1=a1)
+            continue
+        ops.rowprod(x[:primal], wt[l], y[:primal], bias=b[l], relu=relu,
+                    a1=None if a1 is None else a1[:primal])
+        ops.rowprod(x[primal:], wt[l], y[primal:],
+                    mask=y[:primal] if relu else None,
+                    a1=None if a1 is None else a1[primal:])
 
 
 def template_bwd_steps(ops, w, wt, b, w_off, b_off, n_grads, raw_t, cond,
@@ -338,28 +366,37 @@ def template_bwd_steps(ops, w, wt, b, w_off, b_off, n_grads, raw_t, cond,
 
 
 def _field_steps(ops, w, wt, b, w_off, b_off, sp, encode, stash, bufs,
-                 enc_g, g, scratch, grads):
+                 enc_g, g, scratch, grads, primal=None):
     """One field (its 7 layers: ``layer_views``) on a chunk: encode (the
     step ``encode(out)``) and recompute into ``stash`` (plan ``sp``), then
     walk back from ``g``, the cotangent of its head's output, to the
-    encoding's cotangent (``enc_g``)."""
-    n = g.shape[0]
+    encoding's cotangent (``enc_g``). With ``primal`` (the translation
+    Jacobian's backward) the stash holds a chunk's ``primal`` points' four
+    streams (``_recompute``'s) and the walk runs on the tangent rows after
+    the primal ones, ``g`` theirs: each masked by its point's primal
+    output, every db zero (J reaches the biases only through the masks)."""
+    n, top = g.shape[0], primal or 0
 
-    def cols(name):
-        return stash[:n, sp.col[name]:sp.col[name] + sp.widths[name]]
+    def cols(name, rows=slice(top, top + n)):
+        return stash[rows, sp.col[name]:sp.col[name] + sp.widths[name]]
 
-    encode(cols('enc'))
-    _recompute(ops, wt, b, cols, FIELD_LAYERS)
-    walk = _Walk(ops, w, w_off, b_off, scratch, grads, [t[:n] for t in bufs])
-    x = walk.head(g, 6, cols('h5'))
-    x = walk.layer(x, 5, cols('h4'), cols('enc'), enc_g)
+    def mask(name):
+        return None if primal is None else cols(name, slice(0, primal))
+
+    encode(cols('enc', slice(0, top + n)))
+    _recompute(ops, wt, b, lambda name: cols(name, slice(0, top + n)),
+               FIELD_LAYERS, primal)
+    walk = _Walk(ops, w, w_off, b_off, scratch, grads, [t[:n] for t in bufs],
+                 db_rows=None if primal is None else 0)
+    x = walk.head(g, 6, cols('h5'), mask('h5'))
+    x = walk.layer(x, 5, cols('h4'), cols('enc'), enc_g, mask=mask('h4'))
     for l, name in ((4, 'h3'), (3, 'h2'), (2, 'h1'), (1, 'h0')):
-        x = walk.layer(x, l, cols(name))
+        x = walk.layer(x, l, cols(name), mask=mask(name))
     walk.first(x, 0, cols('enc'), enc_g)
 
 
 def _trunk_steps(ops, w, wt, b, w_off, b_off, encode, heads, stash, bufs,
-                 enc_g, scratch, grads):
+                 enc_g, scratch, grads, primal=None):
     """The SE(3) / quaternion trunk (its 9 layers: ``layer_views``) on a
     chunk: encode (the step ``encode(out)``) and recompute into ``stash``
     (SE3_STASH), then take the heads' cotangent [d w | d v] from
@@ -367,25 +404,32 @@ def _trunk_steps(ops, w, wt, b, w_off, b_off, encode, heads, stash, bufs,
     the trunk alone backward, or kernel B's heads and retraction VJP) and
     walk back to the encoding's cotangent (``enc_g``). The w and v heads
     both read the trunk logit, which has no ReLU: their cotangents through
-    it are summed and nothing masks them."""
+    it are summed and nothing masks them. With ``primal`` (the trunk
+    tangents' backward) the rows are a chunk's ``primal`` points' four
+    streams (``_recompute``'s): every row carries a cotangent, masked by
+    its point's primal output; dW sums every row, db the primal rows."""
     n, sp = enc_g.shape[0], SE3_STASH
 
     def cols(name):
         return stash[:n, sp.col[name]:sp.col[name] + sp.widths[name]]
 
+    def mask(name):
+        return None if primal is None else cols(name)[:primal]
+
     encode(cols('enc'))
-    _recompute(ops, wt, b, cols, TRUNK_LAYERS)
+    _recompute(ops, wt, b, cols, TRUNK_LAYERS, primal)
     g = heads(cols('trunk'))
-    walk = _Walk(ops, w, w_off, b_off, scratch, grads, [t[:n] for t in bufs])
+    walk = _Walk(ops, w, w_off, b_off, scratch, grads, [t[:n] for t in bufs],
+                 db_rows=primal)
     walk._dw(g[:, :3], 7, cols('trunk'))
     walk._dw(g[:, 3:6], 8, cols('trunk'))
     x = walk.bufs[0][:, :sp.widths['trunk']]
     ops.rowprod(g[:, :3], w[7], x)
     ops.rowprod(g[:, 3:6], w[8], x, accumulate=True)
-    x = walk.layer(x, 6, cols('h5'))
-    x = walk.layer(x, 5, cols('h4'), cols('enc'), enc_g)
+    x = walk.layer(x, 6, cols('h5'), mask=mask('h5'))
+    x = walk.layer(x, 5, cols('h4'), cols('enc'), enc_g, mask=mask('h4'))
     for l, name in ((4, 'h3'), (3, 'h2'), (2, 'h1'), (1, 'h0')):
-        x = walk.layer(x, l, cols(name))
+        x = walk.layer(x, l, cols(name), mask=mask(name))
     walk.first(x, 0, cols('enc'), enc_g)
 
 
@@ -548,6 +592,59 @@ def field_bwd_steps(ops, w, wt, b, w_off, b_off, n_grads, freq, x_raw, g,
     return dx, grads
 
 
+def jacobian_bwd_steps(ops, w, wt, b, w_off, b_off, n_grads, x_raw, g,
+                       trunk=False, scales=None, max_points=None):
+    """A Jacobian's backward at float32, chunk by chunk of points: the
+    translation warp's (row 15; the warp field's 7 layers) or, with
+    ``trunk``, the SE(3) / quaternion trunk tangents' (row 17; the trunk's
+    9 layers), both ``layer_views`` of the packed fp32 blobs. A chunk's n
+    points run as their four streams (stream s of point q at stash row
+    s n + q: ``stream_encode``, times the window row ``scales`` or None),
+    recomputed and walked back from the output's cotangent g, each row
+    masked by its point's primal output (``stream_cot`` hands each stream
+    its columns of g). J (P, 9) reaches only the tangent rows
+    (``_field_steps``: every db zero); [w | v | dw | dv] (P, 24) reaches
+    all four streams (``_trunk_steps``: db over the primal rows). The
+    encoding's cotangent is pulled back to the points through the window
+    row (``stream_enc_bwd``). Returns dx_raw (P, 11) [d points | d embed,
+    zero for J] and the [dW | db] buffer."""
+    sp, enc_w, walked, cot_w = (
+        (SE3_STASH, SE3_ENC, STREAMS, 8) if trunk else
+        (WARP_STASH, WARP_STASH.widths['enc'], STREAMS - 1, 4))
+    dev, f32 = x_raw.device, torch.float32
+    p = x_raw.shape[0]
+    plan = fused_mlp.chunk_plan(p, 1,
+                                max_points or chunk_rows(sp) // STREAMS)
+    n = max(r1 - r0 for r0, r1 in plan) if p else 0
+    stash = torch.empty((STREAMS * n, sp.width), dtype=f32, device=dev)
+    bufs = [torch.empty((walked * n, 128), dtype=f32, device=dev)
+            for _ in range(2)]
+    enc_g = torch.empty((walked * n, enc_w), dtype=f32, device=dev)
+    cot = torch.empty((walked * n, cot_w), dtype=f32, device=dev)
+    scratch = torch.empty(
+        (scratch_floats(ops, [t.shape for t in w], walked * n),), dtype=f32,
+        device=dev)
+    grads = torch.zeros((n_grads,), dtype=f32, device=dev)
+    dx = torch.empty((p, x_raw.shape[1]), dtype=f32, device=dev)
+    for r0, r1 in plan:
+        m, x_c = r1 - r0, x_raw[r0:r1]
+        rows = walked * m
+        ops.stream_cot(trunk, g[r0:r1], cot[:rows])
+
+        def encode(enc, x_c=x_c):
+            ops.stream_encode(trunk, x_c, scales, enc)
+        if trunk:
+            _trunk_steps(ops, w, wt, b, w_off, b_off, encode,
+                         lambda _, c=cot[:rows]: c, stash, bufs,
+                         enc_g[:rows], scratch, grads, primal=m)
+        else:
+            _field_steps(ops, w, wt, b, w_off, b_off, sp, encode, stash,
+                         bufs, enc_g[:rows], cot[:rows, :3], scratch, grads,
+                         primal=m)
+        ops.stream_enc_bwd(trunk, x_c, scales, enc_g[:rows], dx[r0:r1])
+    return dx, grads
+
+
 # ---------------------------------------------------------------------------
 # The launches.
 
@@ -566,8 +663,9 @@ def _ld(t) -> int:
 
 class _KernelOps:
     """The steps of ``template_bwd_steps``, ``fields_bwd_steps``,
-    ``field_bwd_steps`` and ``se3_bwd_steps`` as launches of
-    csrc/f32_steps.cu on ``device``'s current stream; made and
+    ``field_bwd_steps``, ``se3_bwd_steps`` and the Jacobians' backwards as
+    launches of csrc/f32_steps.cu (and f32_tangents.cu's stream steps) on
+    ``device``'s current stream; made and
     used inside ``torch.cuda.device(device)``. Every operand is a 2-d view
     whose rows are contiguous; its pointer and leading dimension are read
     from the view."""
@@ -587,22 +685,27 @@ class _KernelOps:
     def rowprod(self, a, w, out, bias=None, relu=False, mask=None,
                 accumulate=False, a1=None):
         """out = epi([a | a1] @ w[:K, :N]): w a layer's weight (g W) or
-        its transpose (x W^T)."""
+        its transpose (x W^T); row r of out masked by row r % (the mask's
+        rows) of ``mask`` (fewer rows than out: they repeat)."""
         k0 = a.shape[1]
         k = k0 + (0 if a1 is None else a1.shape[1])
         self._go('hn_f32_rowprod', a.data_ptr(), _ld(a), k0,
                  _ptr(a1), 0 if a1 is None else _ld(a1), k, w.data_ptr(),
                  _ld(w), out.shape[1], _ptr(bias), int(relu),
                  _ptr(mask), 0 if mask is None else _ld(mask),
+                 0 if mask is None else mask.shape[0],
                  out.data_ptr(), _ld(out), int(accumulate), a.shape[0])
 
-    def dw(self, g, h, h1, slab, w_off, ldc, b_off):
+    def dw(self, g, h, h1, slab, w_off, ldc, b_off, db_rows=None):
+        """A layer's dW (and db, over g's first ``db_rows`` rows: None,
+        every row) over row ranges into the rows of ``slab``."""
         k0 = h.shape[1]
         k = k0 + (0 if h1 is None else h1.shape[1])
         self._go('hn_f32_dw', g.data_ptr(), _ld(g), g.shape[1], h.data_ptr(),
                  _ld(h), k0, _ptr(h1), 0 if h1 is None else _ld(h1), k,
                  slab.data_ptr(), slab.shape[1], w_off, ldc, b_off,
-                 g.shape[0], slab.shape[0])
+                 g.shape[0] if db_rows is None else db_rows, g.shape[0],
+                 slab.shape[0])
 
     def reduce(self, slabs, grads):
         """grads += the (splits, n) view ``slabs`` summed over its rows, in
@@ -683,6 +786,28 @@ class _KernelOps:
                  d.data_ptr(), samples, dpd.data_ptr(), _ld(dpd),
                  gt.data_ptr(), _ld(gt), _ptr(scales), gs.data_ptr(), _ld(gs),
                  f1, emb.shape[1], dz.data_ptr(), rows.data_ptr(), z.shape[0])
+
+    def stream_encode(self, trunk, x, scales, out):
+        """The four streams' encoding of raw rows ``x`` (n, 11) into
+        ``out``'s 4 n rows, the warp field's or (``trunk``) the trunk's,
+        times the window row ``scales`` or None."""
+        self._go('hn_f32_stream_encode', int(trunk), x.data_ptr(), _ld(x),
+                 _ptr(scales), out.data_ptr(), _ld(out), out.shape[1],
+                 x.shape[0])
+
+    def stream_cot(self, trunk, g, out):
+        """J's (n, 9) or, with ``trunk``, [w | v | dw | dv]'s (n, 24)
+        cotangent ``g`` as the rows of its streams (3 n or 4 n)."""
+        self._go('hn_f32_stream_cot', int(trunk), g.data_ptr(), _ld(g),
+                 out.data_ptr(), _ld(out), g.shape[0])
+
+    def stream_enc_bwd(self, trunk, x, scales, g, dx):
+        """dx (n, 11) of raw rows ``x`` from the streams' encoding
+        cotangent ``g`` (the trunk's 4 n rows, the warp field's 3 n tangent
+        rows)."""
+        self._go('hn_f32_stream_enc_bwd', int(trunk), x.data_ptr(), _ld(x),
+                 _ptr(scales), g.data_ptr(), _ld(g), dx.data_ptr(), _ld(dx),
+                 x.shape[0])
 
     def plane_rows(self, screw, z, o, d, emb, samples, dxt, dpd, g, f0,
                    scales, dz, rows):
@@ -911,3 +1036,76 @@ def fused_fields_bwd_f32(w_blob, wt_blob, b_blob, shapes, z_vals, origins,
 
 
 fused_fields_bwd_f32.launches = 0
+
+
+def fused_jacobian_f32(wt_blob, b_blob, x_raw):
+    """Launch the float32 translation Jacobian's forward (row 14,
+    csrc/f32_tangents.cu) on the warp field's packed fp32 blobs, its
+    weights transposed layer by layer: (P, 9) J. x_raw (P, 11) [points |
+    embedding], checked by the caller."""
+    dev, p = x_raw.device, x_raw.shape[0]
+    out = torch.empty((p, 9), dtype=torch.float32, device=dev)
+    if p:
+        common.launch('hn_f32_jacobian_fwd', dev, x_raw.data_ptr(),
+                      wt_blob.data_ptr(), b_blob.data_ptr(), out.data_ptr(),
+                      p)
+        fused_jacobian_f32.launches += 1
+    return out
+
+
+fused_jacobian_f32.launches = 0
+
+
+def fused_jacobian_bwd_f32(w_blob, wt_blob, b_blob, shapes, x_raw, g):
+    """Launch the translation Jacobian's backward at float32 (row 15,
+    ``jacobian_bwd_steps``) on the warp field's packed fp32 blobs: (dx_raw
+    (P, 11), [dW | db]). g (P, 9) J's cotangent."""
+    dev = x_raw.device
+    w, wt, b, w_off, b_off, n_grads = fused_mlp.layer_views(
+        w_blob, wt_blob, b_blob, shapes)
+    with torch.cuda.device(dev):
+        ops = _KernelOps(dev)
+        res = jacobian_bwd_steps(ops, w, wt, b, w_off, b_off, n_grads, x_raw,
+                                 g)
+    fused_jacobian_bwd_f32.launches += 1
+    return res
+
+
+fused_jacobian_bwd_f32.launches = 0
+
+
+def fused_se3_jacobian_f32(wt_blob, b_blob, x_raw, scales):
+    """Launch the float32 trunk tangents' forward (row 16,
+    csrc/f32_tangents.cu) on the trunk's packed fp32 blobs, its weights
+    transposed layer by layer: (P, 24) [w | v | dw | dv]. x_raw (P, 11) and
+    the window row ``scales`` (64 fp32) or None, checked by the caller."""
+    dev, p = x_raw.device, x_raw.shape[0]
+    out = torch.empty((p, 24), dtype=torch.float32, device=dev)
+    if p:
+        common.launch('hn_f32_se3_jacobian_fwd', dev, x_raw.data_ptr(),
+                      _ptr(scales), wt_blob.data_ptr(), b_blob.data_ptr(),
+                      out.data_ptr(), p)
+        fused_se3_jacobian_f32.launches += 1
+    return out
+
+
+fused_se3_jacobian_f32.launches = 0
+
+
+def fused_se3_jacobian_bwd_f32(w_blob, wt_blob, b_blob, shapes, x_raw, g,
+                               scales):
+    """Launch the trunk tangents' backward at float32 (row 17,
+    ``jacobian_bwd_steps``) on the trunk's packed fp32 blobs: (dx_raw
+    (P, 11), [dW | db]). g (P, 24) the cotangent of [w | v | dw | dv]."""
+    dev = x_raw.device
+    w, wt, b, w_off, b_off, n_grads = fused_mlp.layer_views(
+        w_blob, wt_blob, b_blob, shapes)
+    with torch.cuda.device(dev):
+        ops = _KernelOps(dev)
+        res = jacobian_bwd_steps(ops, w, wt, b, w_off, b_off, n_grads,
+                                 x_raw, g, trunk=True, scales=scales)
+    fused_se3_jacobian_bwd_f32.launches += 1
+    return res
+
+
+fused_se3_jacobian_bwd_f32.launches = 0

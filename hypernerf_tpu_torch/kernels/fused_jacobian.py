@@ -34,7 +34,11 @@ hi + lo value at the same points (at float32 compute there is nothing to
 round). The head's dW and g W_head take the unrounded fp32 cotangent.
 
 The CUDA kernels are compiled for the flagship's warp field: 3 + 8 raw inputs,
-10 bands, 6 x 128 with a skip after layer 4, 3 outputs, bf16.
+10 bands, 6 x 128 with a skip after layer 4, 3 outputs, in bf16 or in
+float32. A float32 field takes the float32 kernels (``f32.fused_jacobian_f32``,
+csrc/f32_tangents.cu: a field alone's stages on a tile of 16 points x 4
+streams, and ``f32.fused_jacobian_bwd_f32``, the float32 steps on a chunk's
+streams), whose arithmetic is the plain versions' at float32.
 """
 
 from __future__ import annotations
@@ -44,7 +48,7 @@ import importlib
 import torch
 import torch.nn.functional as F
 
-from hypernerf_tpu_torch.kernels import build, common
+from hypernerf_tpu_torch.kernels import build, common, f32
 from hypernerf_tpu_torch.kernels.fused_field import field_layers
 from hypernerf_tpu_torch.models.modules import MLP
 
@@ -214,21 +218,26 @@ fused_jacobian_bwd_plain.calls = 0
 
 
 def _launch_args(mlp: MLP, n_freq: int, x_raw):
-    """Checked inputs of a kernel launch: the packed blob (weights, biases,
-    shapes), one for both kernels."""
+    """Checked inputs of a kernel launch: the packed blobs (weights, biases,
+    shapes; in float32 also the weights transposed layer by layer, last),
+    one set for both kernels."""
     def check():
-        if mlp.dtype == torch.float32:
-            raise NotImplementedError(common.f32_refusal(
-                4, 'the translation warp\'s Jacobian'))
-        if mlp.dtype != torch.bfloat16 or n_freq != common.FLAGSHIP[
-                'warp_freq'] or mlp.logit.out_features != 3:
+        if mlp.dtype not in (torch.bfloat16, torch.float32) or n_freq != \
+                common.FLAGSHIP['warp_freq'] or mlp.logit.out_features != 3:
             raise NotImplementedError(
                 f'{common.NOT_COVERED}; got a warp field with {n_freq} bands, '
                 f'{mlp.logit.out_features} outputs in {mlp.dtype}')
 
-    pack = common.pack_layers(mlp, field_layers(mlp), check)
+    layers = field_layers(mlp)
+    pack = common.pack_layers(mlp, layers, check, dtype=mlp.dtype)
     check()
-    common.check_layout(pack[2], common.WARP_LAYERS)
+    if mlp.dtype == torch.float32:
+        f32.check_layout(pack[2], common.WARP_LAYERS)
+        pack = (*pack, common.pack_layers(mlp, layers, check,
+                                          transposed=True,
+                                          dtype=mlp.dtype)[0])
+    else:
+        common.check_layout(pack[2], common.WARP_LAYERS)
     build.check_tensor('x_raw', x_raw,
                        (x_raw.shape[0], 3 + common.FLAGSHIP['embed']),
                        torch.float32, x_raw.device)
@@ -240,7 +249,9 @@ def _forward(mlp: MLP, n_freq: int, x_raw):
     tensors."""
     if common.runs_plain(x_raw, 'fused_warp_jacobian'):
         return fused_jacobian_plain(mlp, n_freq, x_raw)
-    w_blob, b_blob, _ = _launch_args(mlp, n_freq, x_raw)
+    w_blob, b_blob, _, *f32_blobs = _launch_args(mlp, n_freq, x_raw)
+    if f32_blobs:
+        return f32.fused_jacobian_f32(f32_blobs[0], b_blob, x_raw)
     p = x_raw.shape[0]
     jac = torch.empty((p, JAC), dtype=torch.float32, device=x_raw.device)
     if p:
@@ -261,9 +272,9 @@ def fused_warp_jacobian(mlp: MLP, n_freq: int, pts, embed) -> torch.Tensor:
       (..., 3, 3) fp32 with [..., i, k] = d warped_i / d points_k.
 
     CPU tensors take ``fused_jacobian_plain``; CUDA tensors launch the kernel
-    (the flagship's warp field, bf16) or raise. Differentiable in the points
-    and in the field's parameters (``FusedJacobianFn``); the embedding's
-    gradient is exactly zero.
+    (the flagship's warp field, bf16 or float32) or raise. Differentiable in
+    the points and in the field's parameters (``FusedJacobianFn``); the
+    embedding's gradient is exactly zero.
     """
     batch = pts.shape[:-1]
     x_raw = torch.cat([pts.reshape(-1, 3), embed.reshape(
@@ -306,18 +317,25 @@ class FusedJacobianFn(torch.autograd.Function):
 
 def fused_jacobian_bwd(mlp: MLP, n_freq: int, x_raw, g):
     """Jacobian backward (see ``fused_jacobian_bwd_plain``): CPU tensors take
-    the plain version, CUDA tensors launch the kernel or raise. The kernel
-    reads the field's one weight blob (no transposed form), adds dW into
-    ``fused_level.FB_GRAD_COPIES`` buffers that are summed here (db stays
-    zero), and gets a per-block spill scratch (its plan spills)."""
+    the plain version, CUDA tensors launch the kernel or raise. The bf16
+    kernel reads the field's one weight blob (no transposed form), adds dW
+    into ``fused_level.FB_GRAD_COPIES`` buffers that are summed here (db
+    stays zero), and gets a per-block spill scratch (its plan spills); in
+    float32 the steps (``f32.fused_jacobian_bwd_f32``) read both forms."""
     if common.runs_plain(x_raw, 'fused_jacobian_bwd'):
         return fused_jacobian_bwd_plain(mlp, n_freq, x_raw, g)
+    w_blob, b_blob, shapes, *f32_blobs = _launch_args(mlp, n_freq, x_raw)
+    p = x_raw.shape[0]
+    build.check_tensor('g', g, (p, JAC), torch.float32, x_raw.device)
+    if f32_blobs:
+        dx_raw, grads = f32.fused_jacobian_bwd_f32(w_blob, f32_blobs[0],
+                                                   b_blob, shapes, x_raw, g)
+        n_w = sum(n * k for n, k in shapes)
+        return dx_raw, common.unpack_grads(grads[:n_w], grads[n_w:],
+                                           field_layers(mlp), shapes)
     # fused_level models kernel B's block, which this kernel runs; imported
     # by its module path (the package re-exports a function of that name).
     fl = importlib.import_module('hypernerf_tpu_torch.kernels.fused_level')
-    w_blob, b_blob, shapes = _launch_args(mlp, n_freq, x_raw)
-    p = x_raw.shape[0]
-    build.check_tensor('g', g, (p, JAC), torch.float32, x_raw.device)
     dx_raw, dw, db = fl.launch_field_bwd('warp_tangents',
                                          'hn_fused_jacobian_bwd',
                                          fused_jacobian_bwd, [], x_raw, None,

@@ -35,7 +35,12 @@ heads' cotangents rounded for the products (their db sums the fp32 values),
 g_w W_w + g_v W_v summed in fp32 and rounded once, hidden cotangents rounded
 after every product.
 
-The CUDA kernels are compiled for the flagship's trunk (``fused_se3``'s).
+The CUDA kernels are compiled for the flagship's trunk (``fused_se3``'s),
+in bf16 or in float32. A float32 trunk takes the float32 kernels
+(``f32.fused_se3_jacobian_f32``, csrc/f32_tangents.cu: the trunk alone's
+stages on a tile of 16 points x 4 streams, and
+``f32.fused_se3_jacobian_bwd_f32``, the trunk's float32 steps on a chunk's
+streams), whose arithmetic is the plain versions' at float32.
 """
 
 from __future__ import annotations
@@ -45,14 +50,13 @@ import importlib
 import torch
 import torch.nn.functional as F
 
-from hypernerf_tpu_torch.kernels import build, common
+from hypernerf_tpu_torch.kernels import build, common, f32
 from hypernerf_tpu_torch.kernels.fused_jacobian import (stream_rows,
                                                         streams_forward,
                                                         tangent_encode_dp,
                                                         tangent_trig)
-from hypernerf_tpu_torch.kernels.fused_se3 import (_encode, se3_layers)
-from hypernerf_tpu_torch.kernels.fused_se3 import \
-    _launch_args as _trunk_launch_args
+from hypernerf_tpu_torch.kernels.fused_se3 import (_encode, _launch_args,
+                                                   se3_layers)
 
 OUT = 24  # columns per point: [w (3) | v (3) | dw (9) | dv (9)]
 
@@ -193,27 +197,15 @@ def fused_se3_jacobian_bwd_plain(field, x_raw, g, scales=None):
 fused_se3_jacobian_bwd_plain.calls = 0
 
 
-def _check_f32(field) -> None:
-    """A float32 trunk's tangents are ROADMAP A.13.1's sub-item 4 (the
-    trunk's own check admits a float32 trunk)."""
-    if field.trunk.dtype == torch.float32:
-        raise NotImplementedError(common.f32_refusal(
-            4, f'the {field.kind} trunk\'s tangents'))
-
-
-def _launch_args(field, x_raw, scales):
-    """The trunk's checked launch inputs (``fused_se3._launch_args``) for
-    the tangent kernels, which are bf16: a float32 trunk is refused first."""
-    _check_f32(field)
-    return _trunk_launch_args(field, x_raw, scales)
-
-
 def _forward(field, x_raw, scales):
     """(P, 24) fp32 [w | v | dw | dv]: the plain version on CPU tensors, the
     kernel on CUDA tensors."""
     if common.runs_plain(x_raw, 'fused_se3_wv_tangents'):
         return fused_se3_jacobian_plain(field, x_raw, scales)
-    scales, (w_blob, b_blob, _) = _launch_args(field, x_raw, scales)
+    scales, (w_blob, b_blob, _, *f32_blobs) = _launch_args(field, x_raw,
+                                                           scales)
+    if f32_blobs:
+        return f32.fused_se3_jacobian_f32(f32_blobs[0], b_blob, x_raw, scales)
     p = x_raw.shape[0]
     out = torch.empty((p, OUT), dtype=torch.float32, device=x_raw.device)
     if p:
@@ -236,7 +228,7 @@ def fused_se3_wv_tangents(field, x_raw, scales=None):
       w, v (P, 3) and dw, dv (P, 3, 3) fp32 with dw[p, i, k] = d w_i / d p_k.
 
     CPU tensors take ``fused_se3_jacobian_plain``; CUDA tensors launch the
-    kernel (the flagship's trunk, bf16) or raise. Differentiable in
+    kernel (the flagship's trunk, bf16 or float32) or raise. Differentiable in
     ``x_raw`` and in the field's parameters (``FusedSE3JacobianFn``).
     """
     params = common.layer_params(se3_layers(field))
@@ -277,18 +269,26 @@ class FusedSE3JacobianFn(torch.autograd.Function):
 
 def fused_se3_jacobian_bwd(field, x_raw, g, scales=None):
     """Backward (see ``fused_se3_jacobian_bwd_plain``): CPU tensors take the
-    plain version, CUDA tensors launch the kernel or raise. The kernel reads
-    the trunk's one weight blob (no transposed form), adds dW / db into
-    ``fused_level.FB_GRAD_COPIES`` buffers that are summed here, and gets a
-    per-block spill scratch (the trunk's plan spills)."""
+    plain version, CUDA tensors launch the kernel or raise. The bf16 kernel
+    reads the trunk's one weight blob (no transposed form), adds dW / db
+    into ``fused_level.FB_GRAD_COPIES`` buffers that are summed here, and
+    gets a per-block spill scratch (the trunk's plan spills); in float32
+    the steps (``f32.fused_se3_jacobian_bwd_f32``) read both forms."""
     if common.runs_plain(x_raw, 'fused_se3_jacobian_bwd'):
         return fused_se3_jacobian_bwd_plain(field, x_raw, g, scales)
+    scales, (w_blob, b_blob, shapes, *f32_blobs) = _launch_args(field, x_raw,
+                                                                scales)
+    p = x_raw.shape[0]
+    build.check_tensor('g', g, (p, OUT), torch.float32, x_raw.device)
+    if f32_blobs:
+        dx_raw, grads = f32.fused_se3_jacobian_bwd_f32(
+            w_blob, f32_blobs[0], b_blob, shapes, x_raw, g, scales)
+        n_w = sum(n * k for n, k in shapes)
+        return dx_raw, common.unpack_grads(grads[:n_w], grads[n_w:],
+                                           se3_layers(field), shapes)
     # fused_level models kernel B's block, which this kernel runs; it
     # imports fused_se3, so it is imported here.
     fl = importlib.import_module('hypernerf_tpu_torch.kernels.fused_level')
-    scales, (w_blob, b_blob, shapes) = _launch_args(field, x_raw, scales)
-    p = x_raw.shape[0]
-    build.check_tensor('g', g, (p, OUT), torch.float32, x_raw.device)
     dx_raw, dw, db = fl.launch_field_bwd('se3_tangents',
                                          'hn_fused_se3_jacobian_bwd',
                                          fused_se3_jacobian_bwd, [], x_raw,

@@ -422,16 +422,29 @@ def test_stored_jax_jacobian_reference(case):
             assert err <= 1e-2, (k, err)
 
 
-def test_cuda_kernels_cover_the_flagship_fields_only():
+def test_cuda_kernels_cover_the_flagship_fields_only(monkeypatch):
     """What the Jacobian wrappers would refuse on a CUDA tensor is decided
-    by checks that run on the CPU too (before the library is needed)."""
-    from hypernerf_tpu_torch.kernels import fused_jacobian, fused_se3_jacobian
+    by checks that run on the CPU too (before the library is needed): other
+    bands or degrees at either precision. The flagship's fields are
+    admitted in float32 too (rows 14 to 17 have float32 kernels): their
+    fp32 blobs pass the compiled float32 table's rows, read from the source
+    by a recording library."""
+    from hypernerf_tpu_torch.kernels import (build, fused_jacobian,
+                                             fused_se3_jacobian)
+    from tests.test_torch_precision32 import _RecordingLibrary
+    monkeypatch.setattr(build, 'library', _RecordingLibrary)
     x = torch.zeros(4, 11)
-    for bad in (TranslationField(E, dtype=torch.float32),
+    for bad in (TranslationField(E, n_freq=8, dtype=torch.float32),
                 TranslationField(E, n_freq=8, dtype=torch.bfloat16)):
         with pytest.raises(NotImplementedError, match='A.13'):
             fused_jacobian._launch_args(bad.mlp, bad.n_freq, x)
-    for bad in (SE3Field(E, dtype=torch.float32),
+    for bad in (SE3Field(E, max_deg=6, dtype=torch.float32),
                 SE3Field(E, max_deg=6, dtype=torch.bfloat16)):
         with pytest.raises(NotImplementedError, match='A.13'):
             fused_se3_jacobian._launch_args(bad, x, None)
+    good = TranslationField(E, dtype=torch.float32)
+    w, b, shapes, wt = fused_jacobian._launch_args(good.mlp, good.n_freq, x)
+    assert w.dtype == wt.dtype == b.dtype == torch.float32 and len(shapes) == 7
+    good = SE3Field(E, dtype=torch.float32)
+    _, (w, b, shapes, wt) = fused_se3_jacobian._launch_args(good, x, None)
+    assert w.dtype == wt.dtype == torch.float32 and len(shapes) == 9

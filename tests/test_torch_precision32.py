@@ -7,10 +7,12 @@ what runs them and what is still refused, checked on the CPU.
   since sub-item 3, the sheet tables' Nerfies layout with its window row,
   the conditions' widths, a field alone's window row and the plane tables,
   each run as on the card through its float32 entry points against a
-  recording library (refused before); other widths and rows 14 to 17
-  raise NotImplementedError naming A.13 (and A.13.1's sub-item 4), before
-  any library is needed (``common.runs_plain`` rebound as the card would
-  take it). The per-module rows at float32 (8, 10, 11) are
+  recording library (refused before), and since sub-item 4 the Jacobians,
+  rows 14 to 17 (their numbers are
+  ``tests/test_torch_precision32_jacobian.py``'s); other bands and widths
+  (A.13.2, A.13.3) raise NotImplementedError naming A.13, before any
+  library is needed (``common.runs_plain`` rebound as the card would take
+  it). The per-module rows at float32 (8, 10, 11) are
   ``tests/test_torch_precision32_modular.py``'s, the screw warps' (rows 1
   and 5 at table codes 1 and 2, rows 12 and 13)
   ``tests/test_torch_precision32_screw.py``'s, the Nerfies layout's and
@@ -163,50 +165,26 @@ def test_gate_admits_the_float32_flagship_table():
 
 
 def _refusals():
-    """(label, call that must raise, the sub-item it names or None)."""
-    x11 = torch.zeros(4, 11)
-
+    """(label, call that must raise)."""
     def level_of(config, **over):
         return lambda: _check_covered(_model(config, **over).level('fine'))
 
-    def level_call(config):
-        def call():
-            level = _model(config).level('fine')
-            with as_on_the_card():
-                fused_level(level, *_rays())
-        return call
-
-    def template_alone(config):
-        def call():
-            tmpl = _model(config).template_of('fine')
-            x = torch.zeros(16, K_mlp.raw_pad(tmpl))
-            with as_on_the_card():
-                K_mlp.fused_template(tmpl, x,
-                                     torch.zeros(2, K_mlp.cond_width(tmpl)))
-        return call
-
-    def se3_tangents():
-        field = _model('se3').warp_field
-        with as_on_the_card():
-            K_se3_jac.fused_se3_wv_tangents(field, x11)
-
     return [
-        ('rows 14, 15, the translation Jacobian',
-         lambda: K_jac._launch_args(_model().warp_field.mlp, 10, x11), 4),
-        ('rows 16, 17, the trunk\'s tangents', se3_tangents, 4),
-        ('other bands', level_of('flagship', warp_freq=8), None),
+        ('the xyz bands (A.13.2)', level_of('flagship', xyz_freq=8)),
+        ('the GLO width (A.13.3)', level_of('flagship', glo_dim=16)),
+        ('other bands', level_of('flagship', warp_freq=8)),
     ]
 
 
-@pytest.mark.parametrize('label,call,item', _refusals(),
+@pytest.mark.parametrize('label,call', _refusals(),
                          ids=[r[0].split(' (')[0] for r in _refusals()])
-def test_gate_refuses_what_float32_does_not_cover(label, call, item):
-    """Every other float32 table, layout, width and path raises naming
-    ROADMAP A.13 (and A.13.1's sub-item that ports it); nothing falls back
-    to a plain version."""
-    match = 'A.13' if item is None else f'A.13.1 sub-item {item}'
-    with pytest.raises(NotImplementedError, match=match):
+def test_gate_refuses_what_float32_does_not_cover(label, call):
+    """Every other float32 band and width (A.13.1 is done: the posenc band
+    flags of A.13.2 and the widths of A.13.3 are what is left) raises
+    naming ROADMAP A.13; nothing falls back to a plain version."""
+    with pytest.raises(NotImplementedError, match='ROADMAP item A.13') as e:
         call()
+    assert 'sub-item' not in str(e.value)
 
 
 @pytest.fixture
@@ -229,8 +207,9 @@ def _admissions():
     """(label, call run as on the card, the float32 entry point it must
     reach): what A.13.1 sub-item 3 ported (the sheet tables' Nerfies
     layout and window row, the conditions' widths, a field alone's window
-    row; then the plane tables, codes 3 to 8, and their template alone),
-    each refused before it."""
+    row; then the plane tables, codes 3 to 8, and their template alone)
+    and sub-item 4 (the Jacobians, rows 14 to 17), each refused before
+    it."""
     x11 = torch.from_numpy(np.random.RandomState(11).randn(4, 11).astype(
         np.float32))
 
@@ -267,6 +246,19 @@ def _admissions():
         K_field.fused_field(mlp, 10, x11, row)
         K_field.fused_field_bwd(mlp, 10, x11, torch.zeros(4, 8), row)
 
+    def translation_jacobian():
+        mlp = _model('elastic').warp_field.mlp
+        K_jac.fused_warp_jacobian(mlp, 10, x11[:, :3], x11[:, 3:])
+        K_jac.fused_jacobian_bwd(mlp, 10, x11, torch.zeros(4, 9))
+
+    def se3_tangents():
+        from hypernerf_tpu_torch.kernels.fused_se3 import \
+            se3_encoding_scales
+        field = _model('elastic_se3').warp_field
+        row = se3_encoding_scales(field, 3.5)
+        K_se3_jac.fused_se3_wv_tangents(field, x11, row)
+        K_se3_jac.fused_se3_jacobian_bwd(field, x11, torch.zeros(4, 24), row)
+
     return [
         ('anneal level (the Nerfies layout)', level_call('anneal'),
          'hn_f32_level_fwd'),
@@ -285,6 +277,10 @@ def _admissions():
         ('B.4 plane_anneal', level_call('plane_anneal'), 'hn_f32_level_fwd'),
         ('plane template alone (row 8, return_points)',
          template_alone('plane'), 'hn_f32_template_fwd'),
+        ('rows 14, 15, the translation Jacobian', translation_jacobian,
+         'hn_f32_jacobian_fwd'),
+        ('rows 16, 17, the trunk\'s tangents (window row on)', se3_tangents,
+         'hn_f32_se3_jacobian_fwd'),
     ]
 
 
@@ -292,8 +288,8 @@ def _admissions():
 @pytest.mark.parametrize('label,call,entry', _admissions(),
                          ids=[r[0].split(' (')[0] for r in _admissions()])
 def test_gate_admits_what_sub_item_3_ported(label, call, entry, recording):
-    """Each configuration sub-item 3's first half ported, refused before,
-    runs its float32 forward and backward as on the card: every launch one
+    """Each configuration sub-items 3 and 4 ported, refused before, runs
+    its float32 forward and backward as on the card: every launch one
     of the float32 entry points with its signature's arguments (the window
     row's pointer given where the layout has one), the entry named reached,
     no plain version called."""
@@ -555,22 +551,25 @@ class TorchF32Ops:
             y = y + bias[:n]
         if relu:
             y = y.clamp_min(0)
-        if mask is not None:
+        if mask is not None:  # row r reads mask row r % its rows
+            mask = mask[torch.arange(y.shape[0]) % mask.shape[0]]
             y = torch.where(mask > 0, y, torch.zeros_like(y))
         out[:] = y
 
-    def dw(self, g, h, h1, slab, w_off, ldc, b_off):
+    def dw(self, g, h, h1, slab, w_off, ldc, b_off, db_rows=None):
         x = h if h1 is None else torch.cat([h, h1], 1)
         n, k, m = g.shape[1], x.shape[1], g.shape[0]
         assert k <= ldc
         splits = slab.shape[0]
+        db_rows = m if db_rows is None else db_rows
         for z in range(splits):
             r0, r1 = m * z // splits, m * (z + 1) // splits
             dw = slab[z, w_off:w_off + n * ldc].view(n, ldc)
             dw[:, :k] = g[r0:r1].t() @ x[r0:r1]
             dw[:, k:] = 0  # an input narrower than the packed columns
-            if b_off >= 0:
-                slab[z, b_off:b_off + n] = g[r0:r1].sum(0)
+            if b_off >= 0:  # db over the rows r < db_rows
+                slab[z, b_off:b_off + n] = g[r0:min(r1, max(r0, db_rows))
+                                             ].sum(0)
 
     def reduce(self, slabs, grads):
         grads += slabs.sum(0)

@@ -11,10 +11,13 @@ the CPU.
   numbers are ``tests/test_torch_precision32_nerfies.py``'s), and since
   sub-item 3's second half the template alone in the plane layouts (raw
   rows of 16 columns; its numbers are
-  ``tests/test_torch_precision32_plane.py``'s); the Jacobians still raise
-  NotImplementedError naming A.13.1's sub-item 4 before any library is
-  needed (the screw warps' trunk, ``split_glo`` with them included, is
-  admitted: ``tests/test_torch_precision32_screw.py``).
+  ``tests/test_torch_precision32_plane.py``'s), and since sub-item 4 the
+  per-module path's elastic loss (the translation Jacobian, rows 14 and
+  15, on ``split_glo``; its numbers are
+  ``tests/test_torch_precision32_jacobian.py``'s); a Jacobian of other bands
+  raises NotImplementedError naming A.13 before any library is needed (the
+  screw warps' trunk, ``split_glo`` with them included, is admitted:
+  ``tests/test_torch_precision32_screw.py``).
 - The launches: each wrapper, run as on the card against a recording
   library, passes its C entry point (``hn_f32_template_fwd``,
   ``hn_f32_field_fwd``, the steps of ``f32_steps.cu``) as many arguments of
@@ -149,39 +152,48 @@ def test_gate_admits_the_per_module_path(probes):
 
 
 def _refusals():
-    """(label, call that must raise, the sub-item it names)."""
+    """(label, call that must raise)."""
     x11 = torch.zeros(4, 11)
-
-    def template_alone(config, **over):
-        def call():
-            tmpl = flagship_model('cpu', config=config, **over,
-                                  **F32).template_of('fine')
-            x = torch.zeros(16, K_mlp.raw_pad(tmpl))
-            with as_on_the_card():
-                K_mlp.fused_template(tmpl, x, torch.zeros(
-                    2, K_mlp.cond_width(tmpl)))
-        return call
-
     return [
-        ('rows 14, 15 (the translation Jacobian)',
+        ('rows 14, 15 of other bands (A.13)',
          lambda: K_jac._launch_args(flagship_model(
-             'cpu', **F32).warp_field.mlp, 10, x11), 4),
+             'cpu', warp_freq=8, **F32).warp_field.mlp, 8, x11)),
     ]
 
 
-@pytest.mark.parametrize('label,call,item', _refusals(),
+@pytest.mark.parametrize('label,call', _refusals(),
                          ids=[r[0].split(' (')[0] for r in _refusals()])
-def test_gate_refuses_what_is_left(label, call, item):
-    """What float32 still lacks on the per-module path raises naming
-    A.13.1's sub-item 4 (the Jacobians), and nothing falls back to a plain
+def test_gate_refuses_what_is_left(label, call):
+    """What float32 still lacks on the per-module path (A.13.1 is done:
+    bands and widths other than the flagship's, A.13) raises naming ROADMAP
+    A.13 and no sub-item of A.13.1, and nothing falls back to a plain
     version."""
-    with pytest.raises(NotImplementedError,
-                       match=f'A.13.1 sub-item {item}') as e:
+    with pytest.raises(NotImplementedError, match='ROADMAP item A.13') as e:
         call()
-    assert 'sub-item 1' not in str(e.value)
-    assert 'sub-item 2' not in str(e.value)
-    assert 'sub-item 3' not in str(e.value)
-    assert set(common.F32_ITEMS) == {4}
+    assert 'sub-item' not in str(e.value)
+
+
+@torch.no_grad()
+def test_gate_admits_the_per_module_jacobian(recording):
+    """The per-module path's elastic loss, refused before sub-item 4:
+    ``split_glo`` with the elastic loss takes the translation warp's
+    Jacobian at every sample (rows 14 and 15, float32), which runs as on
+    the card through its float32 entry points, each with its signature's
+    arguments, one launch of each wrapper a call."""
+    mlp = flagship_model('cpu', config='split_glo', **F32).warp_field.mlp
+    x = torch.zeros(5, 11)
+    counts = [f32.fused_jacobian_f32.launches,
+              f32.fused_jacobian_bwd_f32.launches]
+    with as_on_the_card():
+        jac = K_jac.fused_warp_jacobian(mlp, 10, x[:, :3], x[:, 3:])
+        K_jac.fused_jacobian_bwd(mlp, 10, x, torch.zeros(5, 9))
+    assert jac.shape == (5, 3, 3)
+    _check_signatures(recording.calls)
+    names = [n for n, _ in recording.calls]
+    assert names[0] == 'hn_f32_jacobian_fwd'
+    assert names[-1] == 'hn_f32_stream_enc_bwd'
+    assert [f32.fused_jacobian_f32.launches,
+            f32.fused_jacobian_bwd_f32.launches] == [c + 1 for c in counts]
 
 
 def _admissions():

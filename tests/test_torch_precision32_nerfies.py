@@ -9,8 +9,12 @@ on the CPU.
 
 - The gate: each of those configurations is admitted at both levels, and
   since sub-item 3's second half so are the plane tables (table codes 3 to
-  8; their numbers are ``tests/test_torch_precision32_plane.py``'s); the
-  Jacobians still name sub-item 4, before any library is needed.
+  8; their numbers are ``tests/test_torch_precision32_plane.py``'s), and
+  since sub-item 4 the elastic loss's Jacobian of ``anneal_se3`` (rows 16
+  and 17 with the trunk's window row; their numbers are
+  ``tests/test_torch_precision32_jacobian.py``'s); a Jacobian of other
+  degrees and the band flags (A.13.2) still raise naming A.13, before any
+  library is needed.
 - The launches: each wrapper, run as on the card against a recording
   library, passes its C entry point as many arguments of the kinds
   ``build``'s ctypes signature declares, the window row's pointer where
@@ -98,7 +102,8 @@ import make_level_reference  # noqa: E402
 K_field = importlib.import_module('hypernerf_tpu_torch.kernels.fused_field')
 K_level = importlib.import_module('hypernerf_tpu_torch.kernels.fused_level')
 K_se3 = importlib.import_module('hypernerf_tpu_torch.kernels.fused_se3')
-K_jac = importlib.import_module('hypernerf_tpu_torch.kernels.fused_jacobian')
+K_se3_jac = importlib.import_module(
+    'hypernerf_tpu_torch.kernels.fused_se3_jacobian')
 F32 = dict(compute_dtype='float32')
 TOL = 1e-5
 EMBED = dict(use_nerf_embed=True, use_alpha_condition=True,
@@ -188,41 +193,55 @@ def test_gate_admits_the_sheet_tables_layouts(probes, name, monkeypatch):
 
 
 def _refusals():
-    """(label, call that must raise, the sub-item it names)."""
+    """(label, call that must raise)."""
     x11 = torch.zeros(4, 11)
 
-    def level_of(config):
-        return lambda: _check_covered(flagship_model(
-            'cpu', config=config, **F32).level('fine'))
-
-    def template_alone(config):
-        def call():
-            tmpl = flagship_model('cpu', config=config,
-                                  **F32).template_of('fine')
-            x = torch.zeros(16, K_mlp.raw_pad(tmpl))
-            with as_on_the_card():
-                K_mlp.fused_template(tmpl, x, torch.zeros(
-                    2, K_mlp.cond_width(tmpl)))
-        return call
+    def tangents_of_other_degrees():
+        field = flagship_model('cpu', config='anneal_se3', warp_max_deg=6,
+                               **F32).warp_field
+        with as_on_the_card():
+            K_se3_jac.fused_se3_wv_tangents(field, x11)
 
     return [
-        ('rows 14, 15', lambda: K_jac._launch_args(
-            flagship_model('cpu', **F32).warp_field.mlp, 10, x11), 4),
+        ('rows 16, 17 of other degrees (A.13)', tangents_of_other_degrees),
+        ('the xyz bands (A.13.2)', lambda: _check_covered(flagship_model(
+            'cpu', config='nerf_embed', xyz_freq=8, **F32).level('fine'))),
     ]
 
 
-@pytest.mark.parametrize('label,call,item', _refusals(),
+@pytest.mark.parametrize('label,call', _refusals(),
                          ids=[r[0].split(' (')[0] for r in _refusals()])
-def test_gate_still_refuses_the_jacobians(label, call, item):
-    """What float32 still lacks names sub-item 4, never a ported sub-item
-    (3, the plane tables, is gone from ``common.F32_ITEMS``); nothing falls
-    back to plain."""
-    with pytest.raises(NotImplementedError,
-                       match=f'A.13.1 sub-item {item}') as e:
+def test_gate_still_refuses_the_jacobians(label, call):
+    """Since sub-item 4 the float32 kernels take the flagship's Jacobians
+    (``test_gate_admits_the_nerfies_jacobian``); a Jacobian of other degrees
+    and an A.13.2 band flag still raise, naming ROADMAP A.13 and no
+    sub-item of A.13.1, with what the float32 kernels cover (the Nerfies
+    template, the warps' Jacobians); nothing falls back to plain."""
+    with pytest.raises(NotImplementedError, match='ROADMAP item A.13') as e:
         call()
-    assert set(common.F32_ITEMS) == {4}
-    assert 'Nerfies one with its window row' in str(e.value)
-    assert 'table codes 0 to 8' in str(e.value)
+    assert 'sub-item' not in str(e.value)
+    assert 'posenc_orig and Nerfies templates' in str(e.value)
+    assert 'the warps\' Jacobians' in str(e.value)
+
+
+@torch.no_grad()
+def test_gate_admits_the_nerfies_jacobian(recording):
+    """The elastic loss on the Nerfies paper's model (``anneal_se3``: the
+    SE(3) trunk with its window row) at float32, refused before sub-item
+    4: the trunk's tangents forward (row 16) and backward (row 17) run as
+    on the card through their float32 entry points with the window row's
+    pointer, each with its signature's arguments."""
+    field = flagship_model('cpu', config='anneal_se3', **F32).warp_field
+    row = K_se3.se3_encoding_scales(field, 3.5)
+    x = torch.zeros(6, 11)
+    with as_on_the_card():
+        K_se3_jac.fused_se3_wv_tangents(field, x, row)
+        K_se3_jac.fused_se3_jacobian_bwd(field, x, torch.zeros(6, 24), row)
+    _check_signatures(recording.calls)
+    calls = dict(recording.calls)
+    assert calls['hn_f32_se3_jacobian_fwd'][1] is not None
+    assert calls['hn_f32_stream_encode'][3] is not None
+    assert calls['hn_f32_stream_enc_bwd'][3] is not None
 
 
 @torch.no_grad()

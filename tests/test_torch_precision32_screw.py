@@ -7,11 +7,13 @@ checked on the CPU.
 - The gate: the float32 ``se3`` and ``quaternion`` levels, their fp32
   blobs (the trunk's 9 rows, then the flagship table's from the sheet on)
   and the trunk alone are admitted; what float32 still lacks with a screw
-  warp (levels without a sheet, the trunk's tangents) raises
+  warp (levels without a sheet, the trunk's tangents) raised
   NotImplementedError naming A.13.1's sub-item 3 or 4 before any library
-  is needed. The screw levels with the Nerfies template
-  (``anneal_se3``, ``anneal_quaternion``), refused before sub-item 3's
-  first half, are admitted and run as on the card.
+  was needed; both run now (the trunk's tangents since sub-item 4: their
+  numbers are ``tests/test_torch_precision32_jacobian.py``'s), and a trunk
+  of other degrees raises naming A.13. The screw levels with the Nerfies
+  template (``anneal_se3``, ``anneal_quaternion``), refused before
+  sub-item 3's first half, are admitted and run as on the card.
 - The launches: each wrapper, run as on the card against a recording
   library, passes its C entry point (``hn_f32_level_fwd`` with the table
   code and the window row, ``hn_f32_trunk_fwd``, the trunk's steps of
@@ -153,7 +155,8 @@ def test_gate_admits_the_screw_warps(probes, monkeypatch):
     level gate; their fp32 blobs hold the compiled screw table (the trunk's
     9 rows as csrc/f32_level.cu declares them, then the flagship table's
     rows 7..29), 32 layers; the trunk alone passes its gate and packs to
-    the table's first 9 rows; the error messages name no sub-item 2."""
+    the table's first 9 rows; the error message names what the float32
+    kernels cover: the screw warps and their Jacobians."""
     monkeypatch.setattr(build, 'library', _RecordingLibrary)
     for kind in KINDS:
         model = probes[kind]
@@ -171,42 +174,68 @@ def test_gate_admits_the_screw_warps(probes, monkeypatch):
             model.warp_field, K_se3.se3_layers(model.warp_field),
             dtype=torch.float32)
         f32.check_layout(shapes, common.SE3_LAYERS, 'se3')
-    assert 2 not in common.F32_ITEMS
-    assert 'SE(3)' in common.f32_refusal(4, 'x')
+    assert 'SE(3)' in common.NOT_COVERED
+    assert 'Jacobians' in common.NOT_COVERED
 
 
 def _refusals():
-    """(label, call that must raise, the sub-item it names)."""
+    """(label, call that must raise)."""
     x11 = torch.zeros(4, 11)
 
-    def level_of(config):
-        return lambda: _check_covered(flagship_model(
-            'cpu', config=config, **F32).level('fine'))
-
-    def tangents(config):
+    def tangents(config, **over):
         def call():
-            field = flagship_model('cpu', config=config, **F32).warp_field
+            field = flagship_model('cpu', config=config, **over,
+                                   **F32).warp_field
             with as_on_the_card():
                 K_se3_jac.fused_se3_wv_tangents(field, x11)
         return call
 
     return [
-        ('elastic_se3 (rows 16, 17)', tangents('elastic_se3'), 4),
-        ('elastic_quaternion', tangents('elastic_quaternion'), 4),
+        ('elastic_se3 of other degrees (rows 16, 17)',
+         tangents('elastic_se3', warp_max_deg=6)),
+        ('elastic_quaternion of other degrees',
+         tangents('elastic_quaternion', warp_max_deg=6)),
     ]
 
 
-@pytest.mark.parametrize('label,call,item', _refusals(),
+@pytest.mark.parametrize('label,call', _refusals(),
                          ids=[r[0].split(' (')[0] for r in _refusals()])
-def test_gate_refuses_what_is_left(label, call, item):
-    """What float32 still lacks with a screw warp raises naming A.13.1's
-    sub-item 4 (the Jacobians), never the ported 2 or 3, and nothing falls
-    back to a plain version."""
-    with pytest.raises(NotImplementedError,
-                       match=f'A.13.1 sub-item {item}') as e:
+def test_gate_refuses_what_is_left(label, call):
+    """What float32 still lacks with a screw warp (since sub-item 4 the
+    flagship trunk's tangents run: ``test_gate_admits_the_trunk_tangents``;
+    a trunk of other degrees is A.13's) raises naming ROADMAP A.13 and no
+    sub-item of A.13.1, and nothing falls back to a plain version."""
+    with pytest.raises(NotImplementedError, match='ROADMAP item A.13') as e:
         call()
-    assert 'sub-item 2' not in str(e.value)
-    assert 'sub-item 3' not in str(e.value)
+    assert 'sub-item' not in str(e.value)
+
+
+@torch.no_grad()
+@pytest.mark.parametrize('config', ['elastic_se3', 'elastic_quaternion'])
+def test_gate_admits_the_trunk_tangents(config, recording):
+    """The screw warps' elastic loss at float32, refused before sub-item 4:
+    the trunk's tangents forward (row 16) and backward (row 17), with and
+    without the window row, run as on the card through their float32 entry
+    points, each with its signature's arguments, the trunk's 9 layers'
+    dW / db reduced, one launch of each wrapper a call."""
+    field = flagship_model('cpu', config=config, **F32).warp_field
+    x = _x_trunk(9, 2)
+    counts = [f32.fused_se3_jacobian_f32.launches,
+              f32.fused_se3_jacobian_bwd_f32.launches]
+    with as_on_the_card():
+        for alpha in (None, WINDOW):
+            row = _scales(field, alpha)[0]
+            K_se3_jac.fused_se3_wv_tangents(field, x, row)
+            assert (recording.calls[-1][1][1] is None) == (alpha is None)
+            K_se3_jac.fused_se3_jacobian_bwd(field, x, torch.zeros(9, 24),
+                                             row)
+    _check_signatures(recording.calls)
+    names = [n for n, _ in recording.calls]
+    assert names.count('hn_f32_se3_jacobian_fwd') == 2
+    assert names.count('hn_f32_reduce') == 2 * 2 * 9
+    assert [f32.fused_se3_jacobian_f32.launches,
+            f32.fused_se3_jacobian_bwd_f32.launches] == [c + 2
+                                                         for c in counts]
 
 
 @torch.no_grad()

@@ -480,10 +480,11 @@ def test_launch_matches_the_c_signature(field, monkeypatch):
 def test_no_transposed_blob():
     """The cotangent product reads the streamed weights MN-major, so the
     trunk's backwards pack no transposed weight blob: the launch arguments
-    have no such option, and the tangent wrapper's are the trunk's (after
-    refusing a float32 trunk, whose tangents have no kernel yet)."""
+    have no such option, and the tangent wrapper's are the trunk's (a
+    float32 trunk's add the transposed blob its float32 kernels read,
+    tangents included since rows 16 and 17 have float32 kernels)."""
     assert list(inspect.signature(fs._launch_args).parameters) == [
         'field', 'x_raw', 'scales']
     assert list(inspect.signature(fj._launch_args).parameters) == [
         'field', 'x_raw', 'scales']
-    assert fj._trunk_launch_args is fs._launch_args
+    assert fj._launch_args is fs._launch_args

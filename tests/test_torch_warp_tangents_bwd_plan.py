@@ -26,7 +26,7 @@ import pytest
 import torch
 
 from hypernerf_tpu_torch.flagship import flagship_model, load_probe_weights
-from hypernerf_tpu_torch.kernels import build, common
+from hypernerf_tpu_torch.kernels import build, common, f32
 from hypernerf_tpu_torch.kernels.fused_level import (
     FB_BUFS, FB_CONFIG, FB_FIELDS, FB_GRAD_COPIES, FB_PLANS, FB_SLAB_BYTES,
     FB_SLOTS, FB_SPILL_SLABS, FB_STAGE_BYTES, FB_TILE_ROWS, FIELD_BWD,
@@ -601,11 +601,22 @@ def test_launch_matches_the_c_signature(monkeypatch):
     assert 'wt' not in mlp._packed
 
 
-def test_no_transposed_blob():
+def test_no_transposed_blob(monkeypatch):
     """The cotangent product reads the streamed weights MN-major, so the
     Jacobian packs one weight blob for both kernels: the launch arguments
-    have no transposed option."""
+    have no transposed option, and a bf16 field's packed blobs hold no
+    transposed form after them; a float32 field's (rows 14 and 15 have
+    float32 kernels) add the transposed blob the float32 kernels read,
+    cached apart (the layouts' checks, which need the library, stubbed)."""
     assert list(inspect.signature(fj._launch_args).parameters) == [
         'mlp', 'n_freq', 'x_raw']
-    assert 'transposed=True' not in inspect.getsource(fj)
+    monkeypatch.setattr(common, 'check_layout', lambda *a, **k: None)
+    monkeypatch.setattr(f32, 'check_layout', lambda *a, **k: None)
+    for dtype in ('bfloat16', 'float32'):
+        mlp = flagship_model('cpu', config='elastic',
+                             compute_dtype=dtype).warp_field.mlp
+        blobs = fj._launch_args(mlp, 10, torch.zeros(4, 11))
+        assert len(blobs) == (4 if dtype == 'float32' else 3)
+        packed = getattr(mlp, common.packed_attr(mlp.dtype))
+        assert ('wt' in packed) == (dtype == 'float32')
     assert FB_STAGE_BYTES == 128 * 128

@@ -18,8 +18,9 @@ kernels on a card that has no JAX.
       [--f32_screw_out tests/data/fused_f32_screw_jax_ref.npz] \
       [--f32_nerfies_out tests/data/fused_f32_nerfies_jax_ref.npz] \
       [--f32_plane_out tests/data/fused_f32_plane_jax_ref.npz] \
+      [--f32_jacobian_out tests/data/fused_f32_jacobian_jax_ref.npz] \
       [--only se3|jacobian|anneal|plane|conditions|b4|f32|f32_modular|
-              f32_screw|f32_nerfies|f32_plane]
+              f32_screw|f32_nerfies|f32_plane|f32_jacobian]
 
 The weights are ``hypernerf_tpu_torch.flagship.load_probe_weights`` (numpy,
 seed 0), which the card redraws bit for bit; the inputs
@@ -150,6 +151,16 @@ of ``flagship.ANNEAL_PROBE_STEP``, full width: dW of
 ``tests/test_torch_precision32_plane.py`` recomputes one case and holds
 the plain float32 versions to it; ``chip_smoke.py`` phase 37 holds rows
 1, 5, 8 and 9 to it. ``--only f32_plane`` writes that file alone.
+
+``tests/data/fused_f32_jacobian_jax_ref.npz`` holds the JAX Jacobian
+kernels (``fused_warp_jacobian``, ``fused_se3_wv_tangents``) at
+``compute_dtype='float32'`` on ``flagship.F32_JACOBIAN_CASES`` (the
+translation warp, the SE(3) trunk without and with its window row, 300
+rows each, full width): outputs, and for the stored cotangent 'dx', every
+dW / db and the side channel's J of both retractions.
+``tests/test_torch_precision32_jacobian.py`` recomputes it and holds the
+plain float32 versions to it; ``chip_smoke.py`` phase 38 holds rows 14 to
+17 to it. ``--only f32_jacobian`` writes that file alone.
 """
 
 from __future__ import annotations
@@ -485,11 +496,12 @@ def jax_se3_trunk(model, inputs, warp_alpha=None, **spec_kw) -> dict:
     return res
 
 
-def jax_jacobian(model, case: str, inputs) -> dict:
-    """The JAX warp-Jacobian kernel's numbers (interpret mode) on
-    ``model``'s warp field: 'out' (P, 9) J or (P, 24) [w | v | dw | dv], and
-    for sum(out * cotangent) 'dx', 'dw<l>' as (out, in) and 'db<l>' of the
-    field's layers in kernel order."""
+def jax_jacobian(model, case: str, inputs, cases=None) -> dict:
+    """The JAX warp-Jacobian kernel's numbers (interpret mode, at the
+    model's compute dtype) on ``model``'s warp field for a
+    ``JACOBIAN_CASES`` case (or one of ``cases``): 'out' (P, 9) J or (P,
+    24) [w | v | dw | dv], and for sum(out * cotangent) 'dx', 'dw<l>' as
+    (out, in) and 'db<l>' of the field's layers in kernel order."""
     import jax
     import jax.numpy as jnp
     import numpy as np
@@ -509,7 +521,7 @@ def jax_jacobian(model, case: str, inputs) -> dict:
     cfg = model.config
     field = model.warp_field
     params = params_to_jax(field.state_dict())
-    alpha = JACOBIAN_CASES[case][2]
+    alpha = (cases or JACOBIAN_CASES)[case][2]
     if cfg.warp_field_type == 'translation':
         spec = FusedFieldSpec(
             segments=((3, field.n_freq), (cfg.glo_dim, 0)),
@@ -1133,6 +1145,22 @@ def jacobian_reference() -> dict:
     return arrays
 
 
+def f32_jacobian_reference() -> dict:
+    """Every array of the float32 Jacobian file: each case's inputs and the
+    JAX Jacobian kernels' numbers at float32."""
+    from hypernerf_tpu_torch.flagship import (F32_JACOBIAN_CASES,
+                                              f32_jacobian_model,
+                                              jacobian_probe_inputs)
+    arrays = {}
+    for case in F32_JACOBIAN_CASES:
+        inputs = jacobian_probe_inputs(case, F32_JACOBIAN_CASES)
+        arrays.update({f'{case}/{k}': v for k, v in inputs.items()})
+        arrays.update({f'{case}/{k}': v for k, v in jax_jacobian(
+            f32_jacobian_model(case), case, inputs,
+            F32_JACOBIAN_CASES).items()})
+    return arrays
+
+
 def se3_reference() -> dict:
     """Every array of the SE(3) file: each case's inputs and numbers."""
     from hypernerf_tpu_torch.flagship import (SE3_LEVEL_CASES,
@@ -1203,6 +1231,7 @@ def main():
                                               F32_SCREW_REFERENCE,
                                               F32_NERFIES_REFERENCE,
                                               F32_PLANE_REFERENCE,
+                                              F32_JACOBIAN_REFERENCE,
                                               GRAD_REFERENCE,
                                               LEVEL_REFERENCE,
                                               PLANE_REFERENCE,
@@ -1226,16 +1255,18 @@ def main():
     parser.add_argument('--f32_screw_out', default=F32_SCREW_REFERENCE)
     parser.add_argument('--f32_nerfies_out', default=F32_NERFIES_REFERENCE)
     parser.add_argument('--f32_plane_out', default=F32_PLANE_REFERENCE)
+    parser.add_argument('--f32_jacobian_out', default=F32_JACOBIAN_REFERENCE)
     parser.add_argument('--only', choices=('se3', 'jacobian', 'anneal',
                                            'plane', 'conditions', 'b4',
                                            'f32', 'f32_modular',
                                            'f32_screw', 'f32_nerfies',
-                                           'f32_plane'),
+                                           'f32_plane', 'f32_jacobian'),
                         default=None, help='write the SE(3), the Jacobian, '
                         'the anneal, the plane, the conditions, the B.4, '
                         'the float32, the float32 per-module, the float32 '
-                        'screw-warp, the float32 Nerfies-layout or the '
-                        'float32 plane-table file alone')
+                        'screw-warp, the float32 Nerfies-layout, the '
+                        'float32 plane-table or the float32 Jacobian file '
+                        'alone')
     args = parser.parse_args()
     os.makedirs(os.path.dirname(os.path.abspath(args.se3_out)), exist_ok=True)
     if args.only in (None, 'f32'):
@@ -1253,6 +1284,9 @@ def main():
     if args.only in (None, 'f32_plane'):
         np.savez_compressed(args.f32_plane_out, **f32_plane_reference())
         print(args.f32_plane_out)
+    if args.only in (None, 'f32_jacobian'):
+        np.savez_compressed(args.f32_jacobian_out, **f32_jacobian_reference())
+        print(args.f32_jacobian_out)
     if args.only in (None, 'b4'):
         np.savez_compressed(args.b4_out, **b4_reference())
         print(args.b4_out)

@@ -27,7 +27,13 @@ with the trunk's window row (code 1) and the quaternion table (code 2),
 and holds the outputs and raw_t of the two equal bit for bit (exit code 1
 if not). Each library is called with as many arguments as its own
 signature declares: the posenc_orig template, its 39-column condition, no
-alpha condition.
+alpha condition. Then it runs this checkout's step sequences of rows 9, 5,
+11 and 13 (kernels A and B, a field alone backward, the trunk alone
+backward; R x S rows) on each library's steps in turns the same way, and
+holds every output and gradient of the two equal bit for bit: the
+parent's ``hn_f32_rowprod`` and ``hn_f32_dw`` lack the mask's row count
+and the db row count, which these rows set to every row, so the parent is
+called without them.
 
 Prints the card's name and power limit beside each table. ``chip_smoke.py``
 phases 33 and 34 hold the same kernels to their plain versions and time
@@ -76,9 +82,38 @@ def _parent_f32_library(repo: str):
                                      'build.py'))
     parent_build = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(parent_build)
-    fn = lib.hn_f32_level_fwd
-    fn.argtypes, fn.restype = parent_build._SIGNATURES['hn_f32_level_fwd']
+    for name, (argtypes, restype) in parent_build._SIGNATURES.items():
+        fn = getattr(lib, name, None) if name.startswith('hn_f32_') else None
+        if fn is not None:
+            fn.argtypes, fn.restype = argtypes, restype
     return lib
+
+
+class _ParentSteps:
+    """The parent's library as this checkout's float32 steps call it. An
+    entry in ``DROP`` (argument count here, index of the argument the
+    parent lacks, index of the row count it must equal) is called without
+    that argument where the parent's signature is one shorter; the
+    argument must equal the rows (or be 0, no mask), where the parent's
+    arithmetic is this checkout's."""
+
+    DROP = {'hn_f32_rowprod': (19, 13, 17), 'hn_f32_dw': (18, 14, 15)}
+
+    def __init__(self, lib):
+        self.lib = lib
+
+    def __getattr__(self, name):
+        fn = getattr(self.lib, name)
+        n, i, rows = self.DROP.get(name, (0, 0, 0))
+        if len(fn.argtypes) + 1 != n:
+            return fn
+
+        def call(*a):
+            if a[i] not in (0, a[rows]):
+                raise ValueError(f'{name}: argument {i} is {a[i]}, not the '
+                                 f'{a[rows]} rows the parent assumes')
+            return fn(*a[:i], *a[i + 1:])
+        return call
 
 
 # The arguments between the weights' pointers and the outputs' of each
@@ -90,8 +125,9 @@ _LEVEL_ARGS = {13: lambda code, row: [], 15: lambda code, row: [code, row],
                18: lambda code, row: [code, row, None, None, None]}
 
 
-def compare_parent(parent: str, levels, shapes, card: str) -> bool:
-    """The float32 level forward of this checkout and of ``parent`` in
+def compare_parent(parent_lib, levels, shapes, card: str) -> bool:
+    """The float32 level forward of this checkout and of the parent's
+    library (``_parent_f32_library``) in
     turns at each (R, S) of ``shapes`` for each (label, level, table code,
     trunk window row or None) of ``levels`` that the parent's library takes
     (one without a table code: code 0 alone); True if every output and
@@ -102,7 +138,7 @@ def compare_parent(parent: str, levels, shapes, card: str) -> bool:
     from hypernerf_tpu_torch.kernels import build
     from hypernerf_tpu_torch.kernels.fused_level import pack_level_f32
     from hypernerf_tpu_torch.kernels.fused_mlp import cond_args
-    libs = {'this': build.library(), 'parent': _parent_f32_library(parent)}
+    libs = {'this': build.library(), 'parent': parent_lib}
     stream = torch.cuda.current_stream().cuda_stream
     same = True
     for label, lv, code, row in levels:
@@ -142,6 +178,44 @@ def compare_parent(parent: str, levels, shapes, card: str) -> bool:
                                               times['parent'])
                   + f' ms; outputs and raw_t equal bit for bit: {equal}; '
                   f'{card}', flush=True)
+    return same
+
+
+def compare_parent_steps(parent_lib, calls, card: str) -> bool:
+    """Each (label, call returning tensors) of ``calls`` run with this
+    checkout's library and with the parent's (``_ParentSteps``) in turns
+    (this, parent, parent, this; CUDA events); True if every returned
+    tensor is equal bit for bit."""
+    import torch
+
+    import chip_smoke as cs
+    from hypernerf_tpu_torch.kernels import build
+    here = build.library
+    libs = {'this': here, 'parent': lambda: _ParentSteps(parent_lib)}
+    same = True
+    for label, fn in calls:
+        outs, times = {}, {k: [] for k in libs}
+        for k in ('this', 'parent', 'parent', 'this'):
+            build.library = libs[k]
+            try:
+                times[k].append(cs.cuda_ms(fn, 3))
+                outs[k] = fn()
+                torch.cuda.synchronize()
+            finally:
+                build.library = here
+        flat = {k: [t for t in v if isinstance(t, torch.Tensor)]
+                + [t for u in v if isinstance(u, (list, tuple))
+                   for t in u if isinstance(t, torch.Tensor)]
+                for k, v in outs.items()}
+        equal = len(flat['this']) == len(flat['parent']) and all(
+            torch.equal(a, c) for a, c in zip(flat['this'], flat['parent']))
+        same = same and equal
+        print(f'float32 {label}: this '
+              + ', '.join(f'{t:.3f}' for t in times['this'])
+              + ' ms; parent ' + ', '.join(f'{t:.3f}' for t in
+                                          times['parent'])
+              + f' ms; {len(flat["this"])} outputs and gradients equal bit '
+              f'for bit: {equal}; {card}', flush=True)
     return same
 
 
@@ -187,14 +261,37 @@ def main() -> int:
     r, s = args.rays, args.samples
     if args.parent:
         sv = se3.level('fine')
+        ws = se3_encoding_scales(sv.warp, cs.WINDOW_ALPHA, 'cuda')
         levels = (('flagship', lv, 0, None),
-                  ('se3 with the window row', sv, 1,
-                   se3_encoding_scales(sv.warp, cs.WINDOW_ALPHA, 'cuda')),
+                  ('se3 with the window row', sv, 1, ws),
                   ('quaternion', quat.level('fine'), 2, None))
+        parent_lib = _parent_f32_library(args.parent)
         with torch.no_grad():
-            if not compare_parent(args.parent, levels,
-                                  ((8192, 128), (r, s)), card):
+            if not compare_parent(parent_lib, levels, ((8192, 128), (r, s)),
+                                  card):
                 return 1
+            ins = cs.level_inputs(r, s, seed=5)
+            _, raw_t = _launch_forward(lv, *ins, want_raw_t=True)
+            g = torch.randn(r * s, 4, generator=torch.Generator(
+                ).manual_seed(5)).cuda()
+            dx_t = fused_template_bwd(lv, raw_t, ins[4], g)[0]
+            bx = cs.field_rows(r * s, seed=9)
+            fg = torch.randn(r * s, 8, generator=torch.Generator(
+                ).manual_seed(9)).cuda()
+            tg = fg.clone()
+            tg[:, 6:] = 0.0
+            wf = model.warp_field
+            calls = (('row 9 (kernel A)',
+                      lambda: fused_template_bwd(lv, raw_t, ins[4], g)),
+                     ('row 5 (kernel B)',
+                      lambda: fused_fields_bwd(lv, *ins[:4], dx_t)),
+                     ('row 11 warp_field',
+                      lambda: fused_field_bwd(wf.mlp, wf.n_freq, bx, fg)),
+                     ('row 13 (window row)',
+                      lambda: fused_se3_bwd(sv.warp, bx, tg, ws)))
+            if not compare_parent_steps(parent_lib, calls, card):
+                return 1
+            del ins, raw_t, g, dx_t, bx, fg, tg
     with torch.no_grad():
         ins = cs.level_inputs(r, s, seed=5)
         _, raw_t = _launch_forward(lv, *ins, want_raw_t=True)
